@@ -1,0 +1,251 @@
+"""VqaNet ("Show, Ask, Attend, and Answer") as a PyTorch module: the
+serving (eval) forward of :func:`dl_vqa_tpu.models.vqa.apply`.
+
+Same computation and the same mixed precision as the JAX model: images
+NHWC; conv blocks in the compute dtype; L2 channel norm in f32
+(``v / (||v|| + 1e-12)``); embedding (id 0 -> zero) -> tanh -> masked
+bi-LSTM final cell states; '+', '*' or '|' fused single attention with
+the projections stored in the compute dtype; glimpse softmax pooling in
+f32; a two-layer classifier over ``concat([pooled, q])``; f32 logits.
+Matmul operands are in the compute dtype and their products accumulate in
+f32; a result is rounded to the compute dtype only where the JAX model
+rounds it (the attention's two projections).
+
+Parameters carry the reference state-dict names that
+``dl_vqa_tpu/utils/torch_export.py`` emits (``text.embedding``,
+``text.lstm.*_l0[_reverse]``, ``image.conv{i}``, ``attention.{v_conv,
+q_lin,x_conv}``, ``classifier.{lin1,lin2}``), so JAX parameters and
+reference ``.pth`` states load with ``load_state_dict(strict=True)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from dl_vqa_tpu.data.images import IMAGENET_MEAN, IMAGENET_STD
+from dl_vqa_tpu_torch.models.configs import ModelConfig
+from dl_vqa_tpu_torch.ops.attention_pool import (
+    attention_pool,
+    attention_pool_reference,
+)
+from dl_vqa_tpu_torch.ops.conv_fused import (
+    conv_relu_pool,
+    conv_relu_pool_reference,
+)
+from dl_vqa_tpu_torch.ops.lstm import (
+    bilstm_final_cell,
+    lstm_recurrence,
+    lstm_recurrence_reference,
+    lstm_scan,
+)
+
+__all__ = ["VqaNet"]
+
+
+class _Ops(NamedTuple):
+    conv_relu_pool: object
+    recurrence: object
+    attention_pool: object
+
+
+# The serving path dispatches each op by device (kernel on CUDA, plain
+# version on the CPU); the plain set is the oracle the kernels are held to.
+_KERNEL_OPS = _Ops(conv_relu_pool, lstm_recurrence, attention_pool)
+_PLAIN_OPS = _Ops(conv_relu_pool_reference, lstm_recurrence_reference,
+                  attention_pool_reference)
+
+
+def _mm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weight^T`` (torch layout ``[out, in]``) on operands rounded to
+    x's dtype, with an f32 result, as ``preferred_element_type=float32``
+    gives it: the product runs in f32, where products of bf16 operands are
+    exact, and the result is not rounded back to bf16."""
+    return torch.matmul(x.float(), weight.to(x.dtype).float().t())
+
+
+class _Lstm(nn.Module):
+    """Parameter holder with ``nn.LSTM``'s names for one layer."""
+
+    def __init__(self, input_size: int, hidden: int, bidirectional: bool):
+        super().__init__()
+        self.suffixes = ("", "_reverse") if bidirectional else ("",)
+        for s in self.suffixes:
+            for name, shape in (("weight_ih", (4 * hidden, input_size)),
+                                ("weight_hh", (4 * hidden, hidden)),
+                                ("bias_ih", (4 * hidden,)),
+                                ("bias_hh", (4 * hidden,))):
+                self.register_parameter(
+                    f"{name}_l0{s}", nn.Parameter(torch.empty(shape)))
+
+    def direction(self, suffix: str) -> dict:
+        """One direction's weights for ``ops.lstm``; the two biases add."""
+        def p(name):
+            return getattr(self, f"{name}_l0{suffix}")
+
+        return {"weight_ih": p("weight_ih"), "weight_hh": p("weight_hh"),
+                "bias": p("bias_ih") + p("bias_hh")}
+
+
+class _Text(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        t = cfg.text
+        self.embedding = nn.Embedding(cfg.num_tokens, t.embedding_features)
+        self.lstm = _Lstm(t.embedding_features, t.question_features,
+                          t.bidirectional)
+
+    def forward(self, questions, lengths, dtype, ops: _Ops):
+        embedded = self.embedding.weight[questions]
+        embedded = embedded * (questions > 0).unsqueeze(-1)
+        embedded = torch.tanh(embedded).to(dtype)
+        if len(self.lstm.suffixes) == 2:
+            return bilstm_final_cell(
+                embedded, lengths, self.lstm.direction(""),
+                self.lstm.direction("_reverse"), recurrence=ops.recurrence)
+        return lstm_scan(embedded, lengths, self.lstm.direction(""),
+                         recurrence=ops.recurrence)[1]
+
+
+class _Image(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        i = cfg.image
+        self.stride = i.stride
+        self.blocks = len(i.num_channels) - 1
+        for block in range(self.blocks):
+            self.add_module(f"conv{block}", nn.Conv2d(
+                i.num_channels[block], i.num_channels[block + 1],
+                i.kernel_size))
+
+    def forward(self, images, dtype, ops: _Ops):
+        x = images.to(dtype)
+        for block in range(self.blocks):
+            conv = getattr(self, f"conv{block}")
+            x = ops.conv_relu_pool(x, conv.weight, conv.bias, self.stride)
+        return x
+
+
+class _Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        a = cfg.attention
+        self.do_option = a.do_option
+        x_in = 2 * a.hidden_dim if a.do_option == "|" else a.hidden_dim
+        self.v_conv = nn.Conv2d(cfg.image.output_channels, a.hidden_dim, 1,
+                                bias=False)
+        self.q_lin = nn.Linear(cfg.text.output_features, a.hidden_dim)
+        self.x_conv = nn.Conv2d(x_in, a.glimpses, 1)
+
+    def forward(self, v, q, dtype):
+        """Glimpse logits ``[B, H, W, G]`` f32 (1x1 convs as matmuls)."""
+        # Stored in the compute dtype, as the JAX model stores it; taken
+        # straight from the matmul (a trip through f32 would change no bit
+        # and move the [B, H, W, hidden] tensor twice more).
+        v_proj = torch.matmul(v.to(dtype),
+                              self.v_conv.weight[:, :, 0, 0].to(dtype).t())
+        q_proj = (_mm(q.to(dtype), self.q_lin.weight)
+                  + self.q_lin.bias).to(dtype)
+        q_tiled = q_proj[:, None, None, :]
+        if self.do_option == "*":
+            fused = torch.relu(v_proj * q_tiled)
+        elif self.do_option == "+":
+            fused = torch.relu(v_proj + q_tiled)
+        else:  # '|'
+            fused = torch.relu(torch.cat(
+                [v_proj, q_tiled.expand_as(v_proj)], dim=-1))
+        return _mm(fused, self.x_conv.weight[:, :, 0, 0]) + self.x_conv.bias
+
+
+class _Classifier(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        combined = (cfg.attention.glimpses * cfg.image.output_channels
+                    + cfg.text.output_features)
+        self.lin1 = nn.Linear(combined, cfg.classifier.hidden_dim)
+        self.lin2 = nn.Linear(cfg.classifier.hidden_dim, cfg.max_answers)
+
+    def forward(self, x, dtype):
+        x = torch.relu(_mm(x.to(dtype), self.lin1.weight) + self.lin1.bias)
+        return _mm(x.to(dtype), self.lin2.weight) + self.lin2.bias
+
+
+class VqaNet(nn.Module):
+    """The reference-parity VQA model, eval forward only.
+
+    ``device``: where the parameters live. ``generator``: the CPU
+    ``torch.Generator`` the torch-default initial weights are drawn from
+    (seed 0 when omitted); the draws happen on the CPU, so a seed gives
+    the same weights on every device.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device="cpu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg.check_ported()
+        self.cfg = cfg
+        # Built on the meta device, so layer constructors draw nothing
+        # from the global RNG; every weight comes from `generator`.
+        with torch.device("meta"):
+            self.text = _Text(cfg)
+            self.image = _Image(cfg)
+            self.attention = _Attention(cfg)
+            self.classifier = _Classifier(cfg)
+        self.to_empty(device="cpu")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self._init_weights(generator)
+        self.to(device)
+        self.eval()
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        """torch's layer defaults, as ``dl_vqa_tpu/models/initializers.py``
+        mirrors them: U(+-1/sqrt(fan_in)) for convs and linears, U(+-1/
+        sqrt(H)) for every LSTM tensor, N(0, 1) embeddings with row 0
+        zero."""
+        for module in self.modules():
+            if isinstance(module, (nn.Conv2d, nn.Linear)):
+                fan_in = module.weight[0].numel()
+                bound = 1.0 / math.sqrt(fan_in)
+                module.weight.uniform_(-bound, bound, generator=gen)
+                if module.bias is not None:
+                    module.bias.uniform_(-bound, bound, generator=gen)
+        bound = 1.0 / math.sqrt(self.cfg.text.question_features)
+        for p in self.text.lstm.parameters():
+            p.uniform_(-bound, bound, generator=gen)
+        self.text.embedding.weight.normal_(generator=gen)
+        self.text.embedding.weight[0] = 0.0
+
+    def forward(self, images: torch.Tensor, questions: torch.Tensor,
+                lengths: torch.Tensor, *, train: bool = False,
+                compute_dtype: torch.dtype = torch.float32,
+                plain_ops: bool = False) -> torch.Tensor:
+        """``images [B, H, W, 3]`` (uint8 pixels or normalised floats),
+        ``questions [B, T]`` int ids, ``lengths [B]`` -> ``[B,
+        max_answers]`` f32 logits.
+
+        ``plain_ops=True`` runs every hand kernel's plain PyTorch version
+        whatever the device: the oracle the kernel path is held to.
+        """
+        if train:
+            raise NotImplementedError(
+                "dl_vqa_tpu_torch ports the eval forward only")
+        ops = _PLAIN_OPS if plain_ops else _KERNEL_OPS
+        dtype = compute_dtype
+        if images.dtype == torch.uint8:
+            mean = torch.as_tensor(IMAGENET_MEAN, dtype=dtype,
+                                   device=images.device)
+            std = torch.as_tensor(IMAGENET_STD, dtype=dtype,
+                                  device=images.device)
+            images = (images.to(dtype) / 255.0 - mean) / std
+
+        v = self.image(images, dtype, ops).float()
+        v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
+        q = self.text(questions, lengths, dtype, ops).float()
+        att = self.attention(v, q, dtype)
+        pooled = ops.attention_pool(v, att)
+        return self.classifier(torch.cat([pooled, q], dim=1), dtype)
