@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (dl_vqa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's CUDA kernels from dl_vqa_tpu_torch/csrc;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes, in bf16 and f32, then timed in turns
-   (plain, kernel, kernel, plain) with CUDA events;
+3. kernels: each of the six kernels against its plain PyTorch version on
+   the card, at the serving and training paths' shapes, in bf16 and f32,
+   then timed in turns (plain, kernel, kernel, plain) with CUDA events;
+   beside each time, the least time the card could take for the same work
+   (bytes over the memory rate or operations over the peak rate,
+   whichever is larger) and, where one exists, a PyTorch call that
+   computes the same function;
 4. slice: a Predictor at full reference width (ModelConfig defaults, bf16,
    random weights from the seed, an in-memory vocab of 15,193 question ids
-   and 3,000 answers) answers 8 requests; every kernel must have launched
-   in that run, the logits must be finite and agree with the plain path;
-   then a batch-512 forward is timed on the kernel and the plain path.
+   and 3,000 answers) answers 8 requests; every serving kernel must have
+   launched in that run, the logits must be finite and agree with the
+   plain path; then a batch-512 forward is timed on both paths;
+5. train: a trainer at the same width (bf16, batch 512, dropout 0.3, Adam)
+   takes 8 steps on one batch and one eval step; the loss must fall, the
+   parameters stay finite and all six kernels launch; at batch 8 and
+   dropout 0 the kernel path's gradients and eval step are held to the
+   plain path's; then the train step is timed on both paths, and run with
+   four accumulated micro-batches. ``--profile`` adds a table of device
+   time by kernel over two train steps.
 
 Then one JSON line with every kernel's launches (grids launched in the
-slice's run; the LSTM launches one per timestep), error and times, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed check raises
-and the exit code is nonzero; without CUDA it exits nonzero at once.
-Imports no JAX.
+slice's and the trainer's run; the LSTM launches one per timestep, the
+pool backward two per call), error, times and bound, and as the last line
+``{"ok": true, "device": {...}}``.
+Any failed check raises and the exit code is nonzero; without CUDA it
+exits nonzero at once. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -47,36 +59,96 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    step; the flips then feed every later step (H100: 7e-5).
 #  logits: the LSTM's difference passes through the attention and the
 #    classifier; bf16 5e-4 (H100: 1.0e-4), f32 1e-5 (H100: 3e-8).
+#  lstm save mode: final (h, c) equal kernel 1's to the bit; the saved
+#    gates and carries as kernel 1's tolerances, for the same reasons.
+#  lstm backward: 1e-5 on dgates and 1e-5 of its largest entry on dW_hh;
+#    elementwise f32 (expf and tanhf against torch's), the products
+#    between the steps are the same calls on both sides.
+#  relu_maxpool_backward: dz 0, a routing without arithmetic; db 1e-5 of
+#    the largest sum of |g| over a channel: the same rounded values summed
+#    in another order.
+#  gradients, kernel path against plain path at batch 8, per tensor, as
+#    |kernel - plain| over |plain| in the 2-norm, so the limit is a share
+#    of the tensor's typical entry and not of its largest. f32 2e-4: sums
+#    in another order, cuDNN's weight gradients use atomics, and the
+#    attention's gradients are differences of nearly equal sums (H100:
+#    4.0e-5 on x_conv's weight, 5e-7 outside the attention). bf16 1e-2
+#    (H100: 1.3e-3, conv0's bias), and 1e-1 for the attention's tensors
+#    (H100: 3.7e-2, q_lin's weight): the two LSTM forwards differ by bf16
+#    flips of h, the question vector moves by 1e-4, and that flips bf16
+#    roundings and ReLU gates all over the [B, 26, 26, 1024] attention
+#    tensor, whose gradients sum with heavy cancellation at batch 8. That
+#    noise is the plain bf16 path's too, so besides, both paths' bf16
+#    gradients are measured against the plain path's f32 gradients, and
+#    per tensor the kernel path may lie at most GRADS_BF16_RATIO times as
+#    far from them as the plain path does (H100: 1.013 times, where the
+#    plain path lies 5e-2 to 1.5e-1 away).
+#  eval loss: relative, f32 1e-5, bf16 5e-4, as the logits.
 TOL = {"relu_maxpool": 0.0, "attention_pool": 1e-5, "lstm_f32": 1e-5,
-       "lstm_bf16": 1e-3, "logits_bf16": 5e-4, "logits_f32": 1e-5}
+       "lstm_bf16": 1e-3, "logits_bf16": 5e-4, "logits_f32": 1e-5,
+       "lstm_backward": 1e-5, "pool_backward_dz": 0.0,
+       "pool_backward_db": 1e-5, "grads_f32": 2e-4, "grads_bf16": 1e-2,
+       "grads_bf16_attention": 1e-1,
+       "loss_f32": 1e-5, "loss_bf16": 5e-4}
+# Published peaks of an H100 SXM at its full 700 W: device memory rate,
+# dense bf16 tensor-core rate, f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+GRADS_BF16_RATIO = 1.5
+TRAIN_STEPS = 8
+INITIAL_LR = 5e-4
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def timed(torch, fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms of one callable, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def timed_pair(torch, plain, kernel, iters: int, warmup: int = 2):
     """Mean ms of each callable, timed plain, kernel, kernel, plain."""
-    def run(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
     for _ in range(warmup):
         plain()
         kernel()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = run(plain), run(kernel), run(kernel), run(plain)
+    p1, k1, k2, p2 = (timed(torch, fn, iters, warmup=0)
+                      for fn in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes: float, operations: float, kind: str) -> dict:
+    """The least ms the card could take: every input read once and every
+    output written once at the memory rate, or the operations at the peak
+    rate of their type (``kind``), whichever is larger."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = operations / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def rel_norm(a, b) -> float:
+    """``|a - b| / |b|`` in the 2-norm."""
+    return float((a.float() - b.float()).norm() / b.float().norm())
 
 
 def require(ok: bool, what: str) -> None:
@@ -110,12 +182,15 @@ def build_phase() -> None:
 
 
 def lstm_inputs(torch, gen, batch, dtype, device):
-    from dl_vqa_tpu_torch.ops.lstm import input_projection, reverse_valid_prefix
+    """``(x_proj, weight_hh)`` in ``dtype``, int32 ``lengths`` and the f32
+    master ``weight_hh``, at the reference width."""
+    from dl_vqa_tpu_torch.ops.lstm import (
+        input_projections, reverse_valid_prefix)
 
-    bound = 1.0 / HIDDEN ** 0.5
+    limit = 1.0 / HIDDEN ** 0.5
 
     def u(*shape):
-        return (torch.rand(*shape, generator=gen, device=device) * 2 - 1) * bound
+        return (torch.rand(*shape, generator=gen, device=device) * 2 - 1) * limit
 
     def direction():
         return {"weight_ih": u(4 * HIDDEN, EMBED),
@@ -129,70 +204,244 @@ def lstm_inputs(torch, gen, batch, dtype, device):
     lengths[0] = 1
     lengths[-1] = SEQ_LEN
     fwd, bwd = direction(), direction()
-    x_proj = torch.stack([
-        input_projection(x, fwd),
-        input_projection(reverse_valid_prefix(x, lengths), bwd)])
-    w_hh = torch.stack([fwd["weight_hh"].to(dtype), bwd["weight_hh"].to(dtype)])
-    return x_proj, w_hh, lengths
+    x_proj = input_projections(
+        [x, reverse_valid_prefix(x, lengths)], [fwd, bwd]).to(dtype)
+    master = torch.stack([fwd["weight_hh"], bwd["weight_hh"]])
+    return x_proj, master.to(dtype), lengths, master
 
 
-def kernel_phase(torch, seed: int) -> dict:
-    from dl_vqa_tpu_torch.ops.attention_pool import (
-        attention_pool_cuda, attention_pool_reference)
-    from dl_vqa_tpu_torch.ops.conv_fused import (
-        relu_maxpool_cuda, relu_maxpool_reference)
-    from dl_vqa_tpu_torch.ops.lstm import lstm_recurrence_reference
-    from dl_vqa_tpu_torch.ops.lstm_cuda import lstm_recurrence_cuda
+def lstm_kernels(torch, gen, device, summary) -> None:
+    """Kernel 1, its save mode (kernel A) and the backward step (kernel
+    B) at T=23, H=1024, two directions."""
+    from dl_vqa_tpu_torch.ops.lstm import (
+        lstm_backward_step_reference, lstm_recurrence_reference,
+        lstm_recurrence_save_reference, lstm_saved_state_backward)
+    from dl_vqa_tpu_torch.ops.lstm_cuda import (
+        lstm_backward_step_cuda, lstm_recurrence_cuda,
+        lstm_recurrence_save_cuda)
 
-    device = torch.device("cuda")
-    gen = torch.Generator(device=device).manual_seed(seed)
-    summary = {}
+    def report(name, dtype, batch, err, tol, ms, plain_ms, extra=""):
+        log(f"kernel {name} {str(dtype)[6:]} B={batch} T={SEQ_LEN} "
+            f"H={HIDDEN}: max_abs_err {err:.3e} (tol {tol:g}) | kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms{extra}")
+        require(err <= tol, f"{name} {dtype} B={batch}: {err} > {tol}")
 
-    # Kernel 1: LSTM recurrence, both directions per launch.
-    errs, timing = [], None
     for dtype, tol in ((torch.bfloat16, TOL["lstm_bf16"]),
                        (torch.float32, TOL["lstm_f32"])):
+        main = dtype == torch.bfloat16
         for batch in (1, 8, BATCH):
-            args = lstm_inputs(torch, gen, batch, dtype, device)
+            # f32 at batch 512 is off the main path and slow on both sides.
+            iters = 10 if main or batch < BATCH else 3
+            x_proj, w_hh, lengths, master = lstm_inputs(
+                torch, gen, batch, dtype, device)
+            args = (x_proj, w_hh, lengths)
+            # Steps that the data needs: padded ones change nothing.
+            steps = int(lengths.sum()) * x_proj.shape[0]
+            product_ops = 2.0 * steps * 4 * HIDDEN * HIDDEN
+            kind = "bf16" if main else "f32"
+
             h, c = lstm_recurrence_cuda(*args)
             hr, cr = lstm_recurrence_reference(*args)
             torch.cuda.synchronize()
             err = max(max_err(h, hr), max_err(c, cr))
             ms, plain_ms = timed_pair(
                 torch, lambda: lstm_recurrence_reference(*args),
-                lambda: lstm_recurrence_cuda(*args), iters=10)
-            log(f"kernel lstm_recurrence {str(dtype)[6:]} B={batch} T={SEQ_LEN}"
-                f" H={HIDDEN}: max_abs_err {err:.3e} (tol {tol:g}) | kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-            require(err <= tol, f"lstm_recurrence {dtype} B={batch}: {err}")
-            if dtype == torch.bfloat16:
-                errs.append(err)
-                if batch == BATCH:
-                    timing = (ms, plain_ms)
-    summary["lstm_recurrence"] = {"max_abs_err": max(errs), "ms": timing[0],
-                                  "plain_ms": timing[1]}
+                lambda: lstm_recurrence_cuda(*args), iters=iters)
+            report("lstm_recurrence", dtype, batch, err, tol, ms, plain_ms)
+            if main and batch == BATCH:
+                summary["lstm_recurrence"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    **bound(nbytes(x_proj, w_hh, lengths, h, c), product_ops,
+                            kind)}
+            if batch == 1:
+                continue
 
-    # Kernel 2: bias + ReLU + 2x2 max pool at the three conv outputs.
-    errs, ms_sum, plain_sum = [], 0.0, 0.0
+            # Kernel A: kernel 1's bits, plus the saved gates and carries.
+            saved = lstm_recurrence_save_cuda(*args)
+            plain_saved = lstm_recurrence_save_reference(*args)
+            torch.cuda.synchronize()
+            require(torch.equal(saved[0], h) and torch.equal(saved[1], c),
+                    f"save mode changed kernel 1's bits ({dtype}, B={batch})")
+            err = max(max_err(a, b) for a, b in zip(saved, plain_saved))
+            del plain_saved
+            ms, plain_ms = timed_pair(
+                torch, lambda: lstm_recurrence_save_reference(*args),
+                lambda: lstm_recurrence_save_cuda(*args), iters=iters)
+            report("lstm_recurrence_save", dtype, batch, err, tol, ms,
+                   plain_ms, " | final (h, c) equal kernel 1's bits")
+            if main and batch == BATCH:
+                summary["lstm_recurrence_save"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    **bound(nbytes(x_proj, w_hh, lengths, *saved),
+                            product_ops, kind)}
+
+            # Kernel B: the whole backward from saved states on both
+            # paths, then its T launches alone against T plain steps.
+            _, _, gates, c_all, h_all = saved
+            dh = torch.randn(h.shape, generator=gen, device=device)
+            dc = torch.randn(h.shape, generator=gen, device=device)
+            got = lstm_saved_state_backward(gates, c_all, h_all, master,
+                                            lengths, dh, dc, plain=False)
+            want = lstm_saved_state_backward(gates, c_all, h_all, master,
+                                             lengths, dh, dc, plain=True)
+            torch.cuda.synchronize()
+            err = max_err(got[0], want[0])
+            dw_err = max_err(got[1], want[1]) / float(want[1].abs().max())
+            require(dw_err <= TOL["lstm_backward"],
+                    f"lstm backward dW_hh {dtype} B={batch}: {dw_err}")
+            dgates = got[0]
+            del got, want
+            whole_ms, whole_plain_ms = timed_pair(
+                torch,
+                lambda: lstm_saved_state_backward(
+                    gates, c_all, h_all, master, lengths, dh, dc, plain=True),
+                lambda: lstm_saved_state_backward(
+                    gates, c_all, h_all, master, lengths, dh, dc,
+                    plain=False), iters=3)
+            keep_all = (torch.arange(SEQ_LEN, device=device)[:, None]
+                        < lengths[None, :])
+            zeros = torch.zeros_like(dh)
+
+            def kernel_steps():
+                dh_t, dc_t = dh.clone(), dc.clone()
+                for t in reversed(range(SEQ_LEN)):
+                    lstm_backward_step_cuda(gates, c_all, lengths, dh_t, dc_t,
+                                            dgates, t)
+
+            def plain_steps():
+                dh_t, dc_t = dh, dc
+                for t in reversed(range(SEQ_LEN)):
+                    dgates[:, t], dh_t, dc_t = lstm_backward_step_reference(
+                        gates[:, t], c_all[:, t],
+                        c_all[:, t - 1] if t else zeros, keep_all[t], dh_t,
+                        dc_t)
+
+            ms, plain_ms = timed_pair(torch, plain_steps, kernel_steps,
+                                      iters=iters)
+            report("lstm_backward_step x23", dtype, batch, err,
+                   TOL["lstm_backward"], ms, plain_ms,
+                   f" | dW_hh rel err {dw_err:.3e} | whole backward with "
+                   f"its products: kernel {whole_ms:.3f} ms, plain "
+                   f"{whole_plain_ms:.3f} ms")
+            if main and batch == BATCH:
+                # The 23-step function: the gates and carries of the real
+                # steps read once (a padded step needs none), every dgates
+                # written once, (dh, dc) once in and once out. What passes
+                # from one launch to the next is no input and no output.
+                real = float(lengths.sum()) / (SEQ_LEN * batch)
+                moved = (real * nbytes(gates, c_all) + nbytes(dgates, lengths)
+                         + 2 * nbytes(dh, dc))
+                summary["lstm_backward_step"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    **bound(moved, 40.0 * real * SEQ_LEN * dh.numel(), "f32")}
+            del saved, gates, c_all, h_all, dgates
+
+
+def tied_values(torch, shape, dtype, gen, device):
+    """Values from six bf16-exact levels, so most pool windows hold ties."""
+    levels = torch.tensor([-1.0, -0.5, 0.0, 0.25, 0.5, 1.0], device=device)
+    idx = torch.randint(0, 6, shape, generator=gen, device=device)
+    return levels[idx].to(dtype)
+
+
+def pool_kernels(torch, gen, device, summary) -> None:
+    """Kernel 2 and its backward (kernel C) at the three conv outputs."""
+    import torch.nn.functional as F
+
+    from dl_vqa_tpu_torch.ops.conv_fused import (
+        relu_maxpool_backward_cuda, relu_maxpool_backward_reference,
+        relu_maxpool_cuda, relu_maxpool_reference)
+
+    totals = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                     "library_ms": None, "bytes": 0, "ops": 0.0}
+              for name in ("relu_maxpool", "relu_maxpool_backward")}
+    totals["relu_maxpool"]["library_ms"] = 0.0
+
+    def add(name, err, ms, plain_ms, moved, ops, library_ms=None):
+        total = totals[name]
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bytes"] += moved
+        total["ops"] += ops
+        if library_ms is not None:
+            total["library_ms"] += library_ms
+
     for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
         for shape in CONV_OUTPUTS:
             y = torch.randn(*shape, generator=gen, device=device).to(dtype)
             b = torch.randn(shape[-1], generator=gen, device=device) * 0.1
-            err = max_err(relu_maxpool_cuda(y, b), relu_maxpool_reference(y, b))
+            out = relu_maxpool_cuda(y, b)
+            err = max_err(out, relu_maxpool_reference(y, b))
             ms, plain_ms = timed_pair(
                 torch, lambda: relu_maxpool_reference(y, b),
                 lambda: relu_maxpool_cuda(y, b), iters=5)
+            # The same function as one chain of PyTorch calls, on the NCHW
+            # view of the same memory (channels_last).
+            y_nchw = y.permute(0, 3, 1, 2)
+            b_nchw = b.to(dtype)[None, :, None, None]
+            library_ms = timed(
+                torch, lambda: F.max_pool2d(F.relu(y_nchw + b_nchw), 2),
+                iters=5)
             log(f"kernel relu_maxpool {str(dtype)[6:]} {list(shape)}: "
                 f"max_abs_err {err:.3e} (tol {TOL['relu_maxpool']:g}) | "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"F.max_pool2d(F.relu(y + b), 2) {library_ms:.4f} ms")
             require(err <= TOL["relu_maxpool"], f"relu_maxpool {shape}: {err}")
-            if dtype == torch.bfloat16:
-                errs.append(err)
-                ms_sum += ms
-                plain_sum += plain_ms
-            del y
-    summary["relu_maxpool"] = {"max_abs_err": max(errs), "ms": ms_sum,
-                               "plain_ms": plain_sum}
+            if main:
+                add("relu_maxpool", err, ms, plain_ms, nbytes(y, b, out),
+                    3.0 * y.numel(), library_ms)
+            del y, y_nchw, out
+
+            # Kernel C on a conv output full of ties.
+            y = tied_values(torch, shape, dtype, gen, device)
+            b = tied_values(torch, shape[-1:], torch.float32, gen,
+                            device) * 0.5
+            g = torch.randn(shape[0], shape[1] // 2, shape[2] // 2, shape[3],
+                            generator=gen, device=device).to(dtype)
+            dz, db = relu_maxpool_backward_cuda(g, y, b)
+            dz_ref, db_ref = relu_maxpool_backward_reference(g, y, b)
+            torch.cuda.synchronize()
+            err = max_err(dz, dz_ref)
+            routed = float((dz != 0).sum()) / g.numel()
+            db_err = max_err(db, db_ref) / float(
+                g.float().abs().sum(dim=(0, 1, 2)).max())
+            moved = nbytes(g, y, b, dz, db)
+            del dz_ref, db_ref
+            ms, plain_ms = timed_pair(
+                torch, lambda: relu_maxpool_backward_reference(g, y, b),
+                lambda: relu_maxpool_backward_cuda(g, y, b), iters=3)
+            log(f"kernel relu_maxpool_backward {str(dtype)[6:]} "
+                f"{list(shape)}: dz max_abs_err {err:.3e} (tol "
+                f"{TOL['pool_backward_dz']:g}), db rel err {db_err:.3e} (tol "
+                f"{TOL['pool_backward_db']:g}), {routed:.3f} of the windows "
+                f"routed | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            require(err <= TOL["pool_backward_dz"],
+                    f"relu_maxpool_backward dz {shape}: {err}")
+            require(db_err <= TOL["pool_backward_db"],
+                    f"relu_maxpool_backward db {shape}: {db_err}")
+            if main:
+                add("relu_maxpool_backward", err, ms, plain_ms, moved,
+                    8.0 * y.numel())
+            del y, g, dz, db
+    for name, total in totals.items():
+        moved, ops = total.pop("bytes"), total.pop("ops")
+        summary[name] = {**total, **bound(moved, ops, "f32")}
+
+
+def kernel_phase(torch, seed: int) -> dict:
+    from dl_vqa_tpu_torch.ops.attention_pool import (
+        attention_pool_cuda, attention_pool_reference)
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    summary = {}
+    lstm_kernels(torch, gen, device, summary)
+    pool_kernels(torch, gen, device, summary)
 
     # Kernel 3: glimpse softmax pooling.
     for dtype in (torch.float32, torch.bfloat16):
@@ -200,8 +449,8 @@ def kernel_phase(torch, seed: int) -> dict:
              / 16).to(dtype)
         att = torch.randn(BATCH, 26, 26, 2, generator=gen,
                           device=device).to(dtype)
-        err = max_err(attention_pool_cuda(v, att),
-                      attention_pool_reference(v, att))
+        out = attention_pool_cuda(v, att)
+        err = max_err(out, attention_pool_reference(v, att))
         ms, plain_ms = timed_pair(
             torch, lambda: attention_pool_reference(v, att),
             lambda: attention_pool_cuda(v, att), iters=20)
@@ -210,9 +459,17 @@ def kernel_phase(torch, seed: int) -> dict:
             f"{TOL['attention_pool']:g}) | kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
         require(err <= TOL["attention_pool"], f"attention_pool: {err}")
-        if dtype == torch.float32:
-            summary["attention_pool"] = {"max_abs_err": err, "ms": ms,
-                                         "plain_ms": plain_ms}
+        if dtype == torch.float32:  # the model pools f32 features
+            summary["attention_pool"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None,
+                **bound(nbytes(v, att, out),
+                        2.0 * att.numel() * v.shape[-1] + 4.0 * att.numel(),
+                        "f32")}
+    for name, entry in summary.items():
+        log(f"bound {name}: {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']}, kernel {entry['ms']:.4f} ms = "
+            f"{entry['bound_ms'] / entry['ms']:.1%} of it")
     return summary
 
 
@@ -239,17 +496,32 @@ QUESTIONS = [
 ]
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper, by the name it has in the result line."""
+    from dl_vqa_tpu_torch.ops.attention_pool import attention_pool_cuda
+    from dl_vqa_tpu_torch.ops.conv_fused import (
+        relu_maxpool_backward_cuda, relu_maxpool_cuda)
+    from dl_vqa_tpu_torch.ops.lstm_cuda import (
+        lstm_backward_step_cuda, lstm_recurrence_cuda,
+        lstm_recurrence_save_cuda)
+
+    return {"lstm_recurrence": lstm_recurrence_cuda,
+            "lstm_recurrence_save": lstm_recurrence_save_cuda,
+            "lstm_backward_step": lstm_backward_step_cuda,
+            "relu_maxpool": relu_maxpool_cuda,
+            "relu_maxpool_backward": relu_maxpool_backward_cuda,
+            "attention_pool": attention_pool_cuda}
+
+
+SERVING_KERNELS = ("lstm_recurrence", "relu_maxpool", "attention_pool")
+
+
 def slice_phase(torch, seed: int) -> dict:
     from dl_vqa_tpu_torch.models.configs import ModelConfig
     from dl_vqa_tpu_torch.models.vqa import VqaNet
-    from dl_vqa_tpu_torch.ops.attention_pool import attention_pool_cuda
-    from dl_vqa_tpu_torch.ops.conv_fused import relu_maxpool_cuda
-    from dl_vqa_tpu_torch.ops.lstm_cuda import lstm_recurrence_cuda
     from dl_vqa_tpu_torch.predict import Predictor
 
-    wrappers = {"lstm_recurrence": lstm_recurrence_cuda,
-                "relu_maxpool": relu_maxpool_cuda,
-                "attention_pool": attention_pool_cuda}
+    wrappers = kernel_wrappers()
     cfg = ModelConfig()
     vocab = make_vocab(cfg.num_tokens, cfg.max_answers)
     model = VqaNet(cfg, device="cuda",
@@ -272,8 +544,9 @@ def slice_phase(torch, seed: int) -> dict:
         f"{json.dumps(launches)}")
     require(len(answers) == len(QUESTIONS), "one answer list per request")
     require(all(len(top) == 3 for top in answers), "top-3 per request")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the serving path")
 
     encoded, lengths = predictor.encode_questions(QUESTIONS)
     for dtype, tol in ((torch.bfloat16, TOL["logits_bf16"]),
@@ -320,9 +593,278 @@ def slice_phase(torch, seed: int) -> dict:
     return launches
 
 
+def make_batch(torch, cfg, batch_size: int, seed: int) -> dict:
+    """A training batch on the card, from a seed: uint8 images, 23 token
+    ids, lengths 3 ... 23, ten (answer id, annotator count) pairs per
+    sample, no padded sample."""
+    rng = np.random.default_rng(seed)
+    batch = {
+        "images": rng.integers(0, 256, (batch_size, cfg.image_size,
+                                        cfg.image_size, 3), dtype=np.uint8),
+        "questions": rng.integers(
+            0, cfg.num_tokens, (batch_size, SEQ_LEN)).astype(np.int32),
+        "lengths": rng.integers(3, SEQ_LEN + 1, batch_size).astype(np.int32),
+        "answer_indices": rng.integers(
+            1, cfg.max_answers + 1, (batch_size, 10)).astype(np.int32),
+        "answer_values": rng.integers(0, 11, (batch_size, 10)).astype(np.int32),
+        "mask": np.ones(batch_size, dtype=bool),
+    }
+    return {key: torch.from_numpy(value).cuda() for key, value in batch.items()}
+
+
+def without_dropout(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, **{
+        part: dataclasses.replace(getattr(cfg, part), dropout=0.0)
+        for part in ("text", "image", "attention", "classifier")})
+
+
+# Device kernels by the part of the train step they belong to, first match
+# wins (names as torch.profiler reports them).
+PROFILE_PARTS = (
+    ("kernel C, bias+ReLU+pool backward", ("relu_maxpool_backward_kernel",
+                                           "sum_partials_kernel")),
+    ("kernel 2, bias+ReLU+pool", ("relu_maxpool_kernel",)),
+    ("kernel B, LSTM backward step", ("lstm_backward_step_kernel",)),
+    ("kernels A and 1, LSTM recurrence", ("lstm_step_kernel",)),
+    ("kernel 3, attention pool", ("attention_pool_kernel",)),
+    ("cuDNN convs, forward and backward",
+     ("fprop", "dgrad", "wgrad", "cudnn", "Padding", "ImplicitGemm")),
+    ("matrix products (cuBLAS)", ("gemm", "cutlass", "gemv", "splitK")),
+    ("dropout bits", ("distribution_elementwise",)),
+    ("Adam", ("multi_tensor", "Adam")),
+    ("reductions", ("reduce_kernel", "softmax")),
+    ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
+)
+
+
+def profile_steps(torch, run_step, step_ms: float, steps: int = 2) -> None:
+    """Device time by kernel and by part of the step over ``steps`` train
+    steps (torch.profiler); ``step_ms`` is the step's time without the
+    profiler, against which the idle share is stated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(event):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(event, name):
+                return getattr(event, name)
+        return 0.0
+
+    run_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+    rows = sorted(((device_us(e) / 1e3 / steps, e.count / steps, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)),
+                  reverse=True)
+    busy_ms = sum(row[0] for row in rows)
+    log(f"profile: {steps} train steps, device kernels {busy_ms:.2f} ms a "
+        f"step against {step_ms:.2f} ms a step without the profiler "
+        f"({1 - busy_ms / step_ms:.1%} idle)")
+    parts = {}
+    for ms, calls, key in rows:
+        part = next((name for name, words in PROFILE_PARTS
+                     if any(word in key for word in words)),
+                    "other elementwise passes")
+        total = parts.setdefault(part, [0.0, 0.0])
+        total[0] += ms
+        total[1] += calls
+    for part, (ms, calls) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
+        log(f"profile part: {ms:8.3f} ms {calls:6.1f} launches  {part}")
+    for ms, calls, key in rows[:40]:
+        log(f"profile: {ms:8.3f} ms {calls:6.1f} launches  {key[:100]}")
+
+
+def train_phase(torch, seed: int, profile: bool) -> dict:
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import (
+        create_train_state, lr_schedule, make_eval_step, make_train_step)
+
+    wrappers = kernel_wrappers()
+    cfg = ModelConfig()
+
+    def new_state(model_cfg):
+        model = VqaNet(model_cfg,
+                       generator=torch.Generator().manual_seed(seed))
+        return create_train_state(model, INITIAL_LR)
+
+    # The trainer's path: eight Adam steps on one batch, then an eval step.
+    batch = make_batch(torch, cfg, BATCH, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = new_state(cfg)
+    train_step = make_train_step(cfg)
+    eval_step = make_eval_step(cfg)
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, scores = [], []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, batch, gen)
+        losses.append(metrics["loss"])
+        scores.append(metrics["score"])
+    eval_loss, eval_score = eval_step(state.model, batch)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    losses = [float(x) for x in losses]
+    log(f"train B={BATCH} bf16 dropout 0.3: losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + " | scores " + " ".join(f"{float(x):.1f}" for x in scores)
+        + f" | eval loss {float(eval_loss):.4f} score "
+        f"{float(eval_score):.1f}")
+    log(f"train: kernel launches {json.dumps(launches)}")
+    require(all(np.isfinite(losses)) and bool(torch.isfinite(eval_loss)),
+            "finite losses")
+    require(losses[-1] < losses[0], "the loss falls on a repeated batch")
+    require(all(bool(torch.isfinite(p).all())
+                for p in state.model.parameters()), "finite parameters")
+    require(state.step == TRAIN_STEPS, "one update per step")
+    used = state.optimizer.param_groups[0]["lr"]
+    require(abs(used - INITIAL_LR * 0.5 ** ((TRAIN_STEPS - 1) / 50000)) < 1e-12
+            and abs(lr_schedule(INITIAL_LR)(state.step)
+                    - INITIAL_LR * 0.5 ** (TRAIN_STEPS / 50000)) < 1e-12,
+            "the LR follows the halving law")
+    # Per train step: 23 save-mode grids and 23 backward grids, three pool
+    # blocks forward (a grid each) and backward (two grids each: the
+    # routing, then the sum of its partial bias sums), one glimpse pooling;
+    # the eval step adds kernel 1.
+    expected = {"lstm_recurrence": SEQ_LEN,
+                "lstm_recurrence_save": TRAIN_STEPS * SEQ_LEN,
+                "lstm_backward_step": TRAIN_STEPS * SEQ_LEN,
+                "relu_maxpool": 3 * (TRAIN_STEPS + 1),
+                "relu_maxpool_backward": 6 * TRAIN_STEPS,
+                "attention_pool": TRAIN_STEPS + 1}
+    require(launches == expected,
+            f"kernel launches on the trainer's path: {launches}, expected "
+            f"{expected}")
+
+    # Kernel path against plain path at batch 8 without dropout: one train
+    # step each from the same weights, then the eval step both ways.
+    cfg0 = without_dropout(cfg)
+    small = make_batch(torch, cfg0, 8, seed + 1)
+    reference = None
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        grads = {}
+        for plain in (False, True):
+            state_8 = new_state(cfg0)
+            make_train_step(cfg0, compute_dtype=dtype, plain_ops=plain)(
+                state_8, small, gen)
+            grads[plain] = {n: p.grad for n, p in
+                            state_8.model.named_parameters()
+                            if p.grad is not None}
+        trained = [n for n, p in state_8.model.named_parameters()
+                   if p.requires_grad]
+        require(list(grads[False]) == trained and list(grads[True]) == trained,
+                "every trained tensor has a gradient")
+        if reference is None:
+            reference = grads[True]  # the plain path's f32 gradients
+        # The worst tensor as a share of its limit, and the tensor where
+        # the kernel path lies farthest from f32 for the plain path's.
+        worst, worst_ratio = ("", 0.0, 1.0), ("", 0.0, 0.0)
+        listing = []
+        for n, want in grads[True].items():
+            require(float(want.abs().max()) > 0
+                    or n == "attention.x_conv.bias",
+                    f"gradient of {n} is zero")
+            # The glimpse bias has gradient zero (a softmax ignores a
+            # shift); what it holds is rounding noise.
+            if n == "attention.x_conv.bias":
+                continue
+            tol = TOL["grads_" + name]
+            if name == "bf16" and n.startswith("attention."):
+                tol = TOL["grads_bf16_attention"]
+            rel = rel_norm(grads[False][n], want)
+            if rel / tol > worst[1] / worst[2]:
+                worst = (n, rel, tol)
+            far_kernel = rel_norm(grads[False][n], reference[n])
+            far_plain = rel_norm(want, reference[n])
+            if far_plain > 0 and far_kernel / far_plain > worst_ratio[1]:
+                worst_ratio = (n, far_kernel / far_plain, far_plain)
+            listing.append(f"{n} {rel:.1e}" + (
+                f" ({far_plain:.1e})" if name == "bf16" else ""))
+        log(f"train gradients {name} per tensor, |kernel - plain| / |plain|"
+            + (" (and the plain path's distance from its f32 gradients)"
+               if name == "bf16" else "") + ": " + ", ".join(listing))
+        log(f"train gradients {name} B=8 dropout 0, kernel path vs plain "
+            f"path: nearest its limit {worst[0]} at {worst[1]:.3e} of its "
+            f"norm (tol {worst[2]:g})")
+        require(worst[1] <= worst[2],
+                f"kernel vs plain gradients {name}: {worst}")
+        if name == "bf16":
+            log(f"train gradients bf16 against the plain path's f32 "
+                f"gradients: worst tensor {worst_ratio[0]}, the kernel path "
+                f"{worst_ratio[1]:.3f} times as far as the plain path "
+                f"({worst_ratio[2]:.3e} of the norm; limit "
+                f"{GRADS_BF16_RATIO:g} times)")
+            require(worst_ratio[1] <= GRADS_BF16_RATIO,
+                    f"bf16 gradients against f32: {worst_ratio}")
+        results = [make_eval_step(cfg0, compute_dtype=dtype, plain_ops=plain,
+                                  with_breakdown=False)(state_8.model, small)
+                   for plain in (False, True)]
+        (loss_k, score_k), (loss_p, score_p) = [
+            (float(a), float(b)) for a, b in results]
+        log(f"eval step {name} B=8: kernel path loss {loss_k:.6f} score "
+            f"{score_k:.1f} | plain path loss {loss_p:.6f} score "
+            f"{score_p:.1f} (loss tol {TOL['loss_' + name]:g} relative)")
+        require(abs(loss_k - loss_p) <= TOL["loss_" + name] * abs(loss_p),
+                f"kernel vs plain eval loss {name}")
+        # A sample whose two best logits lie closer than the logits'
+        # tolerance may change its answer; f32 has none.
+        require(abs(score_k - score_p) <= (0.0 if name == "f32" else 1.0),
+                f"kernel vs plain eval score {name}")
+    del grads, reference, state_8
+
+    # Time and memory at batch 512, both paths.
+    plain_state = new_state(cfg)
+    plain_step = make_train_step(cfg, plain_ops=True)
+    peaks = {}
+    for name, run in (("kernel", lambda: train_step(state, batch, gen)),
+                      ("plain", lambda: plain_step(plain_state, batch, gen))):
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, plain_ms = timed_pair(
+        torch, lambda: plain_step(plain_state, batch, gen),
+        lambda: train_step(state, batch, gen), iters=3, warmup=0)
+    log(f"train step B={BATCH} bf16: kernel path {ms:.3f} ms = "
+        f"{BATCH / ms * 1e3:.1f} samples/s, peak memory "
+        f"{peaks['kernel']:.2f} GiB | plain path {plain_ms:.3f} ms = "
+        f"{BATCH / plain_ms * 1e3:.1f} samples/s, peak memory "
+        f"{peaks['plain']:.2f} GiB")
+    del plain_state
+
+    accum_step = make_train_step(cfg, accum_steps=4)
+    before = state.step
+    torch.cuda.reset_peak_memory_stats()
+    accum_ms = timed(
+        torch, lambda: losses.append(accum_step(state, batch, gen)[1]["loss"]),
+        iters=3, warmup=1)
+    require(state.step == before + 4 and all(
+        bool(torch.isfinite(x)) for x in losses[-4:]),
+        "four accumulated steps")
+    log(f"train step B={BATCH} bf16 accum_steps=4: {accum_ms:.3f} ms, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+        f"loss {float(losses[-1]):.4f}")
+    if profile:
+        profile_steps(torch, lambda: train_step(state, batch, gen), ms)
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile", action="store_true",
+                        help="also print device time by kernel over two "
+                             "train steps")
     args = parser.parse_args(argv)
 
     import torch
@@ -341,20 +883,33 @@ def main(argv=None) -> int:
     device_phase(torch)
     build_phase()
     summary = kernel_phase(torch, args.seed)
-    launches = slice_phase(torch, args.seed)
+    serving = slice_phase(torch, args.seed)
+    training = train_phase(torch, args.seed, args.profile)
     log(f"total {time.perf_counter() - start:.1f} s")
 
+    csrc = "dl_vqa_tpu_torch/csrc/"
     sources = {
-        "lstm_recurrence": ("dl_vqa_tpu_torch/csrc/lstm_recurrence.cu",
+        "lstm_recurrence": ("lstm_recurrence.cu",
                             "dl_vqa_tpu/ops/lstm_pallas.py:139"),
-        "relu_maxpool": ("dl_vqa_tpu_torch/csrc/relu_maxpool.cu",
+        "lstm_recurrence_save": ("lstm_recurrence.cu",
+                                 "dl_vqa_tpu/ops/lstm_pallas.py:177"),
+        "lstm_backward_step": ("lstm_backward.cu",
+                               "dl_vqa_tpu/ops/lstm_pallas.py:88"),
+        "relu_maxpool": ("relu_maxpool.cu",
                          "dl_vqa_tpu/ops/conv_fused.py:375"),
-        "attention_pool": ("dl_vqa_tpu_torch/csrc/attention_pool.cu",
+        "relu_maxpool_backward": ("relu_maxpool_backward.cu",
+                                  "dl_vqa_tpu/ops/conv_fused.py:693"),
+        "attention_pool": ("attention_pool.cu",
                            "dl_vqa_tpu/ops/attention_pool.py:36"),
     }
+    # launches: grids on the serving path (8 requests) plus grids on the
+    # trainer's path (8 train steps and one eval step), each counted from 0.
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], **summary[name]}
+        {"name": name, "route": "cuda", "source": csrc + src,
+         "replaces": replaces,
+         "launches": serving[name] + training[name],
+         "launches_serving": serving[name],
+         "launches_training": training[name], **summary[name]}
         for name, (src, replaces) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,19 +1,23 @@
-// Masked LSTM recurrence (kernel 1 of the port).
+// Masked LSTM recurrence (kernel 1 of the port) and its save mode (kernel A).
 //
-// Replaces dl_vqa_tpu/ops/lstm_pallas.py::_lstm_kernel. Per step t and
-// direction d:
+// Replaces dl_vqa_tpu/ops/lstm_pallas.py::_lstm_kernel and, with kSave,
+// ::_lstm_kernel_save. Per step t and direction d:
 //   gates = f32(xproj[d, t]) + cast(h, W dtype) . W_hh[d]^T   (f32 accumulate)
 //   i, f, g, o = sigmoid, sigmoid, tanh, sigmoid of the gate chunks
 //   c' = f * c + i * g;  h' = o * tanh(c')
 //   (h, c) <- (h', c') where t < len[b], else unchanged (masked pass-through)
+// Save mode also writes, for the backward from saved states, the f32 gates
+// of step t (before the activations, also at a padded step) and the f32
+// carries after the masked update. It is a template flag, so the plain
+// mode's code, bits and time are what they were without it.
 //
 // The host launches one grid per timestep; blockIdx.z is the direction, so
 // both directions of the bi-LSTM share every launch. A block owns 16 hidden
 // units and 16 batch rows (64 when the batch is larger than 64, so each
 // W_hh tile read from L2 serves four times the rows), and computes all four
 // gate columns of its units (one warp per gate), so the cell update fuses
-// into the same block. Blocks
-// read all of h while other blocks write it, so h is double-buffered across
+// into the same block. Blocks read all of h while other blocks write it, so
+// h is double-buffered across
 // launches (h_prev -> h_next); c is updated in place, because exactly one
 // thread of one block owns each (b, j). Every block reads all of h, so the
 // step also writes h rounded to the weight dtype (hq), which the next step
@@ -43,8 +47,8 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// kTiles: 16-row wmma tiles of batch rows per block.
-template <typename T, int kTiles>
+// kTiles: 16-row wmma tiles of batch rows per block. kSave: kernel A.
+template <typename T, int kTiles, bool kSave>
 __global__ void __launch_bounds__(kThreads)
 lstm_step_kernel(const T* __restrict__ xproj,        // [D, T, B, 4H]
                  const T* __restrict__ whh,          // [D, 4H, H]
@@ -54,6 +58,9 @@ lstm_step_kernel(const T* __restrict__ xproj,        // [D, T, B, 4H]
                  const T* __restrict__ hq_prev,      // [D, B, H], h as T
                  T* __restrict__ hq_next,            // unused when T = float
                  float* __restrict__ c,              // [D, B, H]
+                 float* __restrict__ gates_all,      // [D, T, B, 4H] (kSave)
+                 float* __restrict__ c_all,          // [D, T, B, H] (kSave)
+                 float* __restrict__ h_all,          // [D, T, B, H] (kSave)
                  int t, int seq_len, int batch, int hidden) {
   constexpr int kRows = 16 * kTiles;
   __shared__ __align__(32) T h_s[kRows][kChunk + kPad];
@@ -170,13 +177,25 @@ lstm_step_kernel(const T* __restrict__ xproj,        // [D, T, B, 4H]
     h_next[at] = h_out;
     if constexpr (!std::is_same<T, float>::value)
       hq_next[at] = vqa::from_float<T>(h_out);
+    if constexpr (kSave) {
+      // The f32 carries, not the rounded hq: the backward multiplies by them.
+      const size_t step = (static_cast<size_t>(d) * seq_len + t) * batch;
+      float* g_out = gates_all + (step + b) * 4 * hidden;
+      g_out[j] = gi;
+      g_out[hidden + j] = gf;
+      g_out[2 * hidden + j] = gg;
+      g_out[3 * hidden + j] = go;
+      c_all[(step + b) * hidden + j] = keep ? c_new : c_old;
+      h_all[(step + b) * hidden + j] = h_out;
+    }
   }
 }
 
 // For T = float, hq_a / hq_b are h_a / h_b themselves.
-template <typename T, int kTiles>
+template <typename T, int kTiles, bool kSave>
 cudaError_t run(const void* xproj, const void* whh, const int* lengths,
                 float* h_a, float* h_b, void* hq_a, void* hq_b, float* c,
+                float* gates_all, float* c_all, float* h_all,
                 int directions, int seq_len, int batch, int hidden,
                 cudaStream_t stream) {
   constexpr int kRows = 16 * kTiles;
@@ -186,28 +205,31 @@ cudaError_t run(const void* xproj, const void* whh, const int* lengths,
     // Step t reads h_a and writes h_b when t is even, and the other way
     // round when it is odd; the final h is in h_b iff seq_len is odd.
     const bool even = t % 2 == 0;
-    lstm_step_kernel<T, kTiles><<<grid, kThreads, 0, stream>>>(
+    lstm_step_kernel<T, kTiles, kSave><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(xproj), static_cast<const T*>(whh), lengths,
         even ? h_a : h_b, even ? h_b : h_a,
         static_cast<const T*>(even ? hq_a : hq_b),
-        static_cast<T*>(even ? hq_b : hq_a), c, t, seq_len, batch, hidden);
+        static_cast<T*>(even ? hq_b : hq_a), c, gates_all, c_all, h_all, t,
+        seq_len, batch, hidden);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-}  // namespace
-
-extern "C" int vqa_lstm_recurrence(const void* xproj, const void* whh,
-                                   const void* lengths, void* h_a, void* h_b,
-                                   void* hq_a, void* hq_b, void* c,
-                                   int directions, int seq_len, int batch,
-                                   int hidden, int dtype, void* stream) {
+template <bool kSave>
+cudaError_t dispatch(const void* xproj, const void* whh, const void* lengths,
+                     void* h_a, void* h_b, void* hq_a, void* hq_b, void* c,
+                     void* gates_all, void* c_all, void* h_all,
+                     int directions, int seq_len, int batch, int hidden,
+                     int dtype, void* stream) {
   const int* len = static_cast<const int*>(lengths);
   float* ha = static_cast<float*>(h_a);
   float* hb = static_cast<float*>(h_b);
   float* cc = static_cast<float*>(c);
+  float* ga = static_cast<float*>(gates_all);
+  float* ca = static_cast<float*>(c_all);
+  float* hl = static_cast<float*>(h_all);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hidden % kUnits != 0) return cudaErrorInvalidValue;
   switch (dtype) {
@@ -217,16 +239,42 @@ extern "C" int vqa_lstm_recurrence(const void* xproj, const void* whh,
       // H100 (700 W): one tile is 8% faster at B=64, four are 23% faster at
       // B=128 and 44% at B=512.
       if (batch <= 64)
-        return run<__nv_bfloat16, 1>(xproj, whh, len, ha, hb, hq_a, hq_b, cc,
-                                     directions, seq_len, batch, hidden, s);
-      return run<__nv_bfloat16, 4>(xproj, whh, len, ha, hb, hq_a, hq_b, cc,
-                                   directions, seq_len, batch, hidden, s);
+        return run<__nv_bfloat16, 1, kSave>(xproj, whh, len, ha, hb, hq_a,
+                                            hq_b, cc, ga, ca, hl, directions,
+                                            seq_len, batch, hidden, s);
+      return run<__nv_bfloat16, 4, kSave>(xproj, whh, len, ha, hb, hq_a, hq_b,
+                                          cc, ga, ca, hl, directions, seq_len,
+                                          batch, hidden, s);
     case vqa::kFloat32:
-      return run<float, 1>(xproj, whh, len, ha, hb, ha, hb, cc, directions,
-                           seq_len, batch, hidden, s);
+      return run<float, 1, kSave>(xproj, whh, len, ha, hb, ha, hb, cc, ga, ca,
+                                  hl, directions, seq_len, batch, hidden, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+extern "C" int vqa_lstm_recurrence(const void* xproj, const void* whh,
+                                   const void* lengths, void* h_a, void* h_b,
+                                   void* hq_a, void* hq_b, void* c,
+                                   int directions, int seq_len, int batch,
+                                   int hidden, int dtype, void* stream) {
+  return dispatch<false>(xproj, whh, lengths, h_a, h_b, hq_a, hq_b, c,
+                         nullptr, nullptr, nullptr, directions, seq_len,
+                         batch, hidden, dtype, stream);
+}
+
+// Kernel A: the same steps, which also fill gates_all [D, T, B, 4H] and
+// c_all, h_all [D, T, B, H], all f32.
+extern "C" int vqa_lstm_recurrence_save(
+    const void* xproj, const void* whh, const void* lengths, void* h_a,
+    void* h_b, void* hq_a, void* hq_b, void* c, void* gates_all, void* c_all,
+    void* h_all, int directions, int seq_len, int batch, int hidden,
+    int dtype, void* stream) {
+  return dispatch<true>(xproj, whh, lengths, h_a, h_b, hq_a, hq_b, c,
+                        gates_all, c_all, h_all, directions, seq_len, batch,
+                        hidden, dtype, stream);
 }
 
 extern "C" const char* vqa_error_string(int code) {

@@ -1,5 +1,6 @@
 """VqaNet ("Show, Ask, Attend, and Answer") as a PyTorch module: the
-serving (eval) forward of :func:`dl_vqa_tpu.models.vqa.apply`.
+forward of :func:`dl_vqa_tpu.models.vqa.apply`, eval and train (dropout
+at the same seven sites), differentiable through the port's kernels.
 
 Same computation and the same mixed precision as the JAX model: images
 NHWC; conv blocks in the compute dtype; L2 channel norm in f32
@@ -16,47 +17,50 @@ Parameters carry the reference state-dict names that
 ``text.lstm.*_l0[_reverse]``, ``image.conv{i}``, ``attention.{v_conv,
 q_lin,x_conv}``, ``classifier.{lin1,lin2}``), so JAX parameters and
 reference ``.pth`` states load with ``load_state_dict(strict=True)``.
+The JAX package trains one fused LSTM bias per direction; here
+``bias_ih`` is that trainable bias and ``bias_hh`` is a constant that is
+added to it (zero in imported JAX weights, torch's second draw in a fresh
+init or a reference ``.pth``), so Adam moves the sum as it moves the JAX
+package's ``b``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 from torch import nn
 
-from dl_vqa_tpu.data.images import IMAGENET_MEAN, IMAGENET_STD
+from dl_vqa_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
 from dl_vqa_tpu_torch.models.configs import ModelConfig
-from dl_vqa_tpu_torch.ops.attention_pool import (
-    attention_pool,
-    attention_pool_reference,
-)
-from dl_vqa_tpu_torch.ops.conv_fused import (
-    conv_relu_pool,
-    conv_relu_pool_reference,
-)
-from dl_vqa_tpu_torch.ops.lstm import (
-    bilstm_final_cell,
-    lstm_recurrence,
-    lstm_recurrence_reference,
-    lstm_scan,
-)
+from dl_vqa_tpu_torch.ops.attention_pool import attention_pool
+from dl_vqa_tpu_torch.ops.conv_fused import conv_relu_pool
+from dl_vqa_tpu_torch.ops.lstm import bilstm_final_cell, lstm_scan
+from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["VqaNet"]
+__all__ = ["VqaNet", "dropout"]
 
 
-class _Ops(NamedTuple):
-    conv_relu_pool: object
-    recurrence: object
-    attention_pool: object
-
-
-# The serving path dispatches each op by device (kernel on CUDA, plain
-# version on the CPU); the plain set is the oracle the kernels are held to.
-_KERNEL_OPS = _Ops(conv_relu_pool, lstm_recurrence, attention_pool)
-_PLAIN_OPS = _Ops(conv_relu_pool_reference, lstm_recurrence_reference,
-                  attention_pool_reference)
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a uint8 mask source, as the JAX model's
+    ``_dropout``: the keep probability is quantised to ``threshold / 256``
+    with ``threshold = round((1 - rate) * 256)``, an element is kept where
+    its random byte is below the threshold, and the kept ones are divided
+    by the same quantised probability, so the mean is preserved exactly.
+    ``generator`` is ``None`` in eval (no dropout), else a generator on
+    ``x``'s device."""
+    if generator is None or rate == 0.0:
+        return x
+    threshold = int(round((1.0 - rate) * 256.0))
+    if threshold >= 256:
+        return x
+    if threshold <= 0:
+        return torch.zeros_like(x)
+    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                         generator=generator, device=x.device)
+    return torch.where(bits < threshold, x / (threshold / 256.0), 0.0)
 
 
 def _mm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -68,7 +72,8 @@ def _mm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 class _Lstm(nn.Module):
-    """Parameter holder with ``nn.LSTM``'s names for one layer."""
+    """Parameter holder with ``nn.LSTM``'s names for one layer. Only
+    ``bias_ih`` of the two biases is trained (see the module docstring)."""
 
     def __init__(self, input_size: int, hidden: int, bidirectional: bool):
         super().__init__()
@@ -78,8 +83,8 @@ class _Lstm(nn.Module):
                                 ("weight_hh", (4 * hidden, hidden)),
                                 ("bias_ih", (4 * hidden,)),
                                 ("bias_hh", (4 * hidden,))):
-                self.register_parameter(
-                    f"{name}_l0{s}", nn.Parameter(torch.empty(shape)))
+                self.register_parameter(f"{name}_l0{s}", nn.Parameter(
+                    torch.empty(shape), requires_grad=name != "bias_hh"))
 
     def direction(self, suffix: str) -> dict:
         """One direction's weights for ``ops.lstm``; the two biases add."""
@@ -94,20 +99,22 @@ class _Text(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         t = cfg.text
+        self.dropout = t.dropout
         self.embedding = nn.Embedding(cfg.num_tokens, t.embedding_features)
         self.lstm = _Lstm(t.embedding_features, t.question_features,
                           t.bidirectional)
 
-    def forward(self, questions, lengths, dtype, ops: _Ops):
+    def forward(self, questions, lengths, dtype, plain, generator):
         embedded = self.embedding.weight[questions]
         embedded = embedded * (questions > 0).unsqueeze(-1)
+        embedded = dropout(embedded, self.dropout, generator)  # site 1
         embedded = torch.tanh(embedded).to(dtype)
         if len(self.lstm.suffixes) == 2:
             return bilstm_final_cell(
                 embedded, lengths, self.lstm.direction(""),
-                self.lstm.direction("_reverse"), recurrence=ops.recurrence)
+                self.lstm.direction("_reverse"), plain=plain)
         return lstm_scan(embedded, lengths, self.lstm.direction(""),
-                         recurrence=ops.recurrence)[1]
+                         plain=plain)[1]
 
 
 class _Image(nn.Module):
@@ -115,18 +122,19 @@ class _Image(nn.Module):
         super().__init__()
         i = cfg.image
         self.stride = i.stride
+        self.dropout = i.dropout
         self.blocks = len(i.num_channels) - 1
         for block in range(self.blocks):
             self.add_module(f"conv{block}", nn.Conv2d(
                 i.num_channels[block], i.num_channels[block + 1],
                 i.kernel_size))
 
-    def forward(self, images, dtype, ops: _Ops):
+    def forward(self, images, dtype, plain, generator):
         x = images.to(dtype)
         for block in range(self.blocks):
             conv = getattr(self, f"conv{block}")
-            x = ops.conv_relu_pool(x, conv.weight, conv.bias, self.stride)
-        return x
+            x = conv_relu_pool(x, conv.weight, conv.bias, self.stride, plain)
+        return dropout(x, self.dropout, generator)  # site 0
 
 
 class _Attention(nn.Module):
@@ -134,21 +142,23 @@ class _Attention(nn.Module):
         super().__init__()
         a = cfg.attention
         self.do_option = a.do_option
+        self.dropout = a.dropout
         x_in = 2 * a.hidden_dim if a.do_option == "|" else a.hidden_dim
         self.v_conv = nn.Conv2d(cfg.image.output_channels, a.hidden_dim, 1,
                                 bias=False)
         self.q_lin = nn.Linear(cfg.text.output_features, a.hidden_dim)
         self.x_conv = nn.Conv2d(x_in, a.glimpses, 1)
 
-    def forward(self, v, q, dtype):
+    def forward(self, v, q, dtype, generator):
         """Glimpse logits ``[B, H, W, G]`` f32 (1x1 convs as matmuls)."""
+        v_in = dropout(v, self.dropout, generator).to(dtype)  # site 2
         # Stored in the compute dtype, as the JAX model stores it; taken
         # straight from the matmul (a trip through f32 would change no bit
         # and move the [B, H, W, hidden] tensor twice more).
-        v_proj = torch.matmul(v.to(dtype),
+        v_proj = torch.matmul(v_in,
                               self.v_conv.weight[:, :, 0, 0].to(dtype).t())
-        q_proj = (_mm(q.to(dtype), self.q_lin.weight)
-                  + self.q_lin.bias).to(dtype)
+        q_in = dropout(q, self.dropout, generator).to(dtype)  # site 3
+        q_proj = (_mm(q_in, self.q_lin.weight) + self.q_lin.bias).to(dtype)
         q_tiled = q_proj[:, None, None, :]
         if self.do_option == "*":
             fused = torch.relu(v_proj * q_tiled)
@@ -157,6 +167,7 @@ class _Attention(nn.Module):
         else:  # '|'
             fused = torch.relu(torch.cat(
                 [v_proj, q_tiled.expand_as(v_proj)], dim=-1))
+        fused = dropout(fused, self.dropout, generator)  # site 4
         return _mm(fused, self.x_conv.weight[:, :, 0, 0]) + self.x_conv.bias
 
 
@@ -165,27 +176,32 @@ class _Classifier(nn.Module):
         super().__init__()
         combined = (cfg.attention.glimpses * cfg.image.output_channels
                     + cfg.text.output_features)
+        self.dropout = cfg.classifier.dropout
         self.lin1 = nn.Linear(combined, cfg.classifier.hidden_dim)
         self.lin2 = nn.Linear(cfg.classifier.hidden_dim, cfg.max_answers)
 
-    def forward(self, x, dtype):
-        x = torch.relu(_mm(x.to(dtype), self.lin1.weight) + self.lin1.bias)
-        return _mm(x.to(dtype), self.lin2.weight) + self.lin2.bias
+    def forward(self, x, dtype, generator):
+        x = dropout(x, self.dropout, generator).to(dtype)  # site 5
+        x = torch.relu(_mm(x, self.lin1.weight) + self.lin1.bias)
+        x = dropout(x, self.dropout, generator).to(dtype)  # site 6
+        return _mm(x, self.lin2.weight) + self.lin2.bias
 
 
 class VqaNet(nn.Module):
-    """The reference-parity VQA model, eval forward only.
+    """The reference-parity VQA model.
 
-    ``device``: where the parameters live. ``generator``: the CPU
+    ``device``: where the parameters live, the GPU unless the caller
+    passes another (``"cpu"`` in the CPU tests). ``generator``: the CPU
     ``torch.Generator`` the torch-default initial weights are drawn from
     (seed 0 when omitted); the draws happen on the CPU, so a seed gives
     the same weights on every device.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device="cpu",
+    def __init__(self, cfg: ModelConfig, *, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg.check_ported()
+        device = resolve_device(device)
         self.cfg = cfg
         # Built on the meta device, so layer constructors draw nothing
         # from the global RNG; every weight comes from `generator`.
@@ -222,19 +238,24 @@ class VqaNet(nn.Module):
 
     def forward(self, images: torch.Tensor, questions: torch.Tensor,
                 lengths: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
                 compute_dtype: torch.dtype = torch.float32,
                 plain_ops: bool = False) -> torch.Tensor:
         """``images [B, H, W, 3]`` (uint8 pixels or normalised floats),
         ``questions [B, T]`` int ids, ``lengths [B]`` -> ``[B,
         max_answers]`` f32 logits.
 
+        ``train=True`` applies dropout at the seven sites of the JAX
+        model, drawn from ``generator`` in the order the forward reaches
+        them; the generator must live on the inputs' device.
         ``plain_ops=True`` runs every hand kernel's plain PyTorch version
-        whatever the device: the oracle the kernel path is held to.
+        whatever the device, forward and backward: the oracle the kernel
+        path is held to.
         """
-        if train:
-            raise NotImplementedError(
-                "dl_vqa_tpu_torch ports the eval forward only")
-        ops = _PLAIN_OPS if plain_ops else _KERNEL_OPS
+        if train and generator is None:
+            raise ValueError("train=True requires a dropout generator")
+        if not train:
+            generator = None
         dtype = compute_dtype
         if images.dtype == torch.uint8:
             mean = torch.as_tensor(IMAGENET_MEAN, dtype=dtype,
@@ -243,9 +264,10 @@ class VqaNet(nn.Module):
                                   device=images.device)
             images = (images.to(dtype) / 255.0 - mean) / std
 
-        v = self.image(images, dtype, ops).float()
+        v = self.image(images, dtype, plain_ops, generator).float()
         v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
-        q = self.text(questions, lengths, dtype, ops).float()
-        att = self.attention(v, q, dtype)
-        pooled = ops.attention_pool(v, att)
-        return self.classifier(torch.cat([pooled, q], dim=1), dtype)
+        q = self.text(questions, lengths, dtype, plain_ops, generator).float()
+        att = self.attention(v, q, dtype, generator)
+        pooled = attention_pool(v, att, plain_ops)
+        return self.classifier(torch.cat([pooled, q], dim=1), dtype,
+                               generator)

@@ -39,14 +39,28 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argument types; every entry returns cudaError_t as an int.
+# name -> argument types; every entry returns an int (cudaError_t unless
+# noted).
 _SIGNATURES = {
     # xproj, whh, lengths, h_a, h_b, hq_a, hq_b, c, directions, seq_len,
     # batch, hidden, dtype code, stream
     "vqa_lstm_recurrence": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _P],
+    # as above, with gates_all, c_all, h_all after c
+    "vqa_lstm_recurrence_save": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P],
+    # gates_all, c_all, lengths, dh, dc, dgates_all, directions, seq_len,
+    # batch, hidden, t, stream
+    "vqa_lstm_backward_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P],
     # y, bias, out, batch, hc, wc, channels, dtype code, stream
     "vqa_relu_maxpool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # batch, hc -> the number of blocks (rows of `partial`), not an error
+    "vqa_relu_maxpool_backward_blocks": [_I, _I],
+    # g, y, bias, dz, db, partial, batch, hc, wc, channels, dtype code,
+    # stream
+    "vqa_relu_maxpool_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P],
     # v, att, out, batch, spatial, channels, glimpses, dtype code, stream
     "vqa_attention_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

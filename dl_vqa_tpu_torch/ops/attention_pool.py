@@ -11,16 +11,22 @@ weights and reads ``v`` through a batched matmul; the TPU kernel re-read
 ``v`` once per glimpse. The design keeps one sample's ``att`` (676 x 2
 values) in shared memory, turns it into softmax weights there, and
 streams ``v`` once, accumulating every glimpse from the same load.
+
+The gradient (:class:`AttentionPool`) is plain PyTorch in closed form,
+recomputing the softmax, as the JAX package's backward goes through its
+plain version (``_pool_bwd``); a hand kernel for it is still to write.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from dl_vqa_tpu_torch.ops import _native
 
 __all__ = ["attention_pool_reference", "attention_pool_cuda",
-           "attention_pool"]
+           "attention_pool_backward", "AttentionPool", "attention_pool"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GLIMPSES = 8               # csrc/attention_pool.cu kMaxGlimpses
@@ -81,9 +87,45 @@ def attention_pool_cuda(v: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
 attention_pool_cuda.launches = 0
 
 
-def attention_pool(v: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
-    """Dispatch: a CPU tensor runs :func:`attention_pool_reference`; any
-    other device runs kernel 3, which raises where it cannot launch."""
-    if v.device.type == "cpu":
-        return attention_pool_reference(v, att)
-    return attention_pool_cuda(v, att)
+def attention_pool_backward(g: torch.Tensor, v: torch.Tensor,
+                            att: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dv, datt)`` for the cotangent ``g [B, G * C]`` of the pooled
+    output, in f32 and then in the inputs' dtypes. With ``w =
+    softmax(att)`` over the grid: ``dv[b,s,c] = sum_g w[b,s,g] g[b,g,c]``,
+    ``p[b,s,g] = sum_c v[b,s,c] g[b,g,c]``, ``datt = w (p - sum_s w p)``."""
+    batch, h, w, channels = v.shape
+    glimpses = att.shape[-1]
+    g = g.reshape(batch, glimpses, channels).float()
+    v_flat = v.reshape(batch, h * w, channels).float()
+    weights = torch.softmax(att.reshape(batch, h * w, glimpses).float(), dim=1)
+    dv = torch.einsum("bsg,bgc->bsc", weights, g)
+    p = torch.einsum("bsc,bgc->bsg", v_flat, g)
+    datt = weights * (p - (weights * p).sum(dim=1, keepdim=True))
+    return dv.reshape(v.shape).to(v.dtype), datt.reshape(att.shape).to(att.dtype)
+
+
+class AttentionPool(torch.autograd.Function):
+    """``(v, att, plain) -> pooled``: kernel 3 forward (its plain version
+    for a CPU tensor or ``plain=True``), :func:`attention_pool_backward`
+    backward."""
+
+    @staticmethod
+    def forward(ctx, v, att, plain):
+        ctx.save_for_backward(v, att)
+        if plain or v.device.type == "cpu":
+            return attention_pool_reference(v, att)
+        return attention_pool_cuda(v, att)
+
+    @staticmethod
+    def backward(ctx, g):
+        dv, datt = attention_pool_backward(g, *ctx.saved_tensors)
+        return dv, datt, None
+
+
+def attention_pool(v: torch.Tensor, att: torch.Tensor,
+                   plain: bool = False) -> torch.Tensor:
+    """Differentiable glimpse pooling. Dispatch: a CPU tensor, or
+    ``plain=True``, runs :func:`attention_pool_reference`; any other
+    device runs kernel 3, which raises where it cannot launch."""
+    return AttentionPool.apply(v, att, plain)

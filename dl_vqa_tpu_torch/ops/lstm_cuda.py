@@ -1,8 +1,14 @@
-"""Kernel 1: the masked LSTM recurrence on Hopper (``csrc/lstm_recurrence.cu``).
+"""The LSTM's kernels on Hopper: the masked recurrence (kernel 1), its
+save mode (kernel A, both ``csrc/lstm_recurrence.cu``) and the backward
+step (kernel B, ``csrc/lstm_backward.cu``).
 
-Replaces ``dl_vqa_tpu/ops/lstm_pallas.py::_lstm_kernel`` (non-save mode of
-``_lstm_scan_pallas_impl``). Its plain PyTorch version is
-:func:`dl_vqa_tpu_torch.ops.lstm.lstm_recurrence_reference`.
+Kernel 1 replaces ``dl_vqa_tpu/ops/lstm_pallas.py::_lstm_kernel`` (the
+non-save mode of ``_lstm_scan_pallas_impl``), kernel A
+``::_lstm_kernel_save``, and kernel B the body of
+``::_lstm_saved_state_bwd.step``, which the JAX package leaves to XLA.
+Their plain PyTorch versions are ``lstm_recurrence_reference``,
+``lstm_recurrence_save_reference`` and ``lstm_backward_step_reference``
+in :mod:`dl_vqa_tpu_torch.ops.lstm`.
 
 What bounds it on this card: the recurrence is serial in T, and each step
 is a ``[B, H] x [H, 4H]`` product against all of W_hh (8 MB per direction
@@ -17,6 +23,14 @@ beside the f32 h for the next step to stage. At serving batches of 1 to
 64 the per-step launches and the L2 latency of W_hh dominate; a
 persistent kernel or a CUDA graph is the next step. h is double-buffered
 between launches; c is updated in place, one owner per element.
+
+Kernel A is the same step with three more stores per element: the f32
+gates (386 MB at batch 512, T=23, H=1024, two directions) and the masked
+f32 carries (96 MB each). Kernel B is pure traffic, one grid per reverse
+step for both directions: it reads a step's gates, two carries and
+``(dh, dc)`` and writes its ``dgates`` and ``(dh, dc)`` (about 59 MB a
+step at batch 512); the recurrent product between two steps is a plain
+``torch.baddbmm``.
 """
 
 from __future__ import annotations
@@ -27,19 +41,16 @@ import torch
 
 from dl_vqa_tpu_torch.ops import _native
 
-__all__ = ["lstm_recurrence_cuda"]
+__all__ = ["lstm_recurrence_cuda", "lstm_recurrence_save_cuda",
+           "lstm_backward_step_cuda"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _UNITS = 16  # hidden units per block (csrc/lstm_recurrence.cu kUnits)
 
 
-def lstm_recurrence_cuda(
-    x_proj: torch.Tensor,     # [D, T, B, 4H], bf16 or f32
-    weight_hh: torch.Tensor,  # [D, 4H, H], same dtype
-    lengths: torch.Tensor,    # [B] int32
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Final f32 ``(h, c)``, each ``[D, B, H]``, computed by the CUDA
-    kernel on ``x_proj``'s device. Raises on any input it does not take."""
+def _check_recurrence_args(x_proj, weight_hh, lengths):
+    """Raise on anything kernels 1 and A do not take; returns ``(D, T, B,
+    H)``."""
     if x_proj.dim() != 4 or weight_hh.dim() != 3 or lengths.dim() != 1:
         raise ValueError(
             f"expected x_proj [D,T,B,4H], weight_hh [D,4H,H], lengths [B]; "
@@ -55,13 +66,8 @@ def lstm_recurrence_cuda(
             f"{tuple(weight_hh.shape)}, lengths {tuple(lengths.shape)}")
     if hidden % _UNITS:
         raise ValueError(f"hidden size {hidden} is not a multiple of {_UNITS}")
-    for name, t in (("x_proj", x_proj), ("weight_hh", weight_hh),
-                    ("lengths", lengths)):
-        if not t.is_cuda or t.device != x_proj.device:
-            raise ValueError(f"{name} must be a CUDA tensor on one device; "
-                             f"got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda_contiguous(x_proj, x_proj=x_proj, weight_hh=weight_hh,
+                           lengths=lengths)
     if x_proj.dtype not in _DTYPES or weight_hh.dtype != x_proj.dtype:
         raise ValueError(
             f"x_proj and weight_hh must share a dtype in {list(_DTYPES)}; "
@@ -70,25 +76,121 @@ def lstm_recurrence_cuda(
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
     if weight_hh.data_ptr() % 32:
         raise ValueError("weight_hh must be 32-byte aligned")
+    return directions, seq_len, batch, hidden
 
+
+def _check_cuda_contiguous(first, **tensors):
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != first.device:
+            raise ValueError(f"{name} must be a CUDA tensor on one device; "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _run_recurrence(x_proj, weight_hh, lengths, save):
+    directions, seq_len, batch, hidden = _check_recurrence_args(
+        x_proj, weight_hh, lengths)
     lib = _native.library()
+    device = x_proj.device
     h = torch.zeros(2, directions, batch, hidden, dtype=torch.float32,
-                    device=x_proj.device)
+                    device=device)
     c = torch.zeros(directions, batch, hidden, dtype=torch.float32,
-                    device=x_proj.device)
+                    device=device)
     # h rounded to the weight dtype, double-buffered like h; f32 uses h.
     hq = h if x_proj.dtype == torch.float32 else torch.zeros(
-        2, directions, batch, hidden, dtype=x_proj.dtype, device=x_proj.device)
-    code = lib.vqa_lstm_recurrence(
-        x_proj.data_ptr(), weight_hh.data_ptr(), lengths.data_ptr(),
-        h[0].data_ptr(), h[1].data_ptr(), hq[0].data_ptr(), hq[1].data_ptr(),
-        c.data_ptr(), directions, seq_len, batch, hidden,
-        _DTYPES[x_proj.dtype], _native.stream_ptr(x_proj.device))
-    _native.check("lstm_recurrence", code)
+        2, directions, batch, hidden, dtype=x_proj.dtype, device=device)
+    saved = ()
+    if save:
+        saved = tuple(
+            torch.empty(directions, seq_len, batch, width,
+                        dtype=torch.float32, device=device)
+            for width in (4 * hidden, hidden, hidden))
+    pointers = (x_proj.data_ptr(), weight_hh.data_ptr(), lengths.data_ptr(),
+                h[0].data_ptr(), h[1].data_ptr(), hq[0].data_ptr(),
+                hq[1].data_ptr(), c.data_ptr())
+    sizes = (directions, seq_len, batch, hidden, _DTYPES[x_proj.dtype],
+             _native.stream_ptr(device))
+    if save:
+        code = lib.vqa_lstm_recurrence_save(
+            *pointers, *(s.data_ptr() for s in saved), *sizes)
+    else:
+        code = lib.vqa_lstm_recurrence(*pointers, *sizes)
+    _native.check("lstm_recurrence_save" if save else "lstm_recurrence", code)
     # The C entry launches one grid per timestep (none for an empty batch).
-    if batch and directions:
-        lstm_recurrence_cuda.launches += seq_len
-    return h[seq_len % 2], c
+    launched = seq_len if batch and directions else 0
+    return (h[seq_len % 2], c) + saved, launched
+
+
+def lstm_recurrence_cuda(
+    x_proj: torch.Tensor,     # [D, T, B, 4H], bf16 or f32
+    weight_hh: torch.Tensor,  # [D, 4H, H], same dtype
+    lengths: torch.Tensor,    # [B] int32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1: final f32 ``(h, c)``, each ``[D, B, H]``, computed on
+    ``x_proj``'s device. Raises on any input it does not take."""
+    out, launched = _run_recurrence(x_proj, weight_hh, lengths, save=False)
+    lstm_recurrence_cuda.launches += launched
+    return out
 
 
 lstm_recurrence_cuda.launches = 0
+
+
+def lstm_recurrence_save_cuda(
+    x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Kernel A: ``(h, c, gates_all [D, T, B, 4H], c_all, h_all [D, T, B,
+    H])``, all f32; ``h`` and ``c`` are kernel 1's bits."""
+    out, launched = _run_recurrence(x_proj, weight_hh, lengths, save=True)
+    lstm_recurrence_save_cuda.launches += launched
+    return out
+
+
+lstm_recurrence_save_cuda.launches = 0
+
+
+def lstm_backward_step_cuda(
+    gates_all: torch.Tensor,   # [D, T, B, 4H] f32
+    c_all: torch.Tensor,       # [D, T, B, H] f32
+    lengths: torch.Tensor,     # [B] int32
+    dh: torch.Tensor,          # [D, B, H] f32, updated in place
+    dc: torch.Tensor,          # [D, B, H] f32, updated in place
+    dgates_all: torch.Tensor,  # [D, T, B, 4H] f32, step t is written
+    t: int,
+) -> None:
+    """Kernel B, reverse step ``t``: writes ``dgates_all[:, t]``, turns
+    ``dc`` into ``dc_prev`` and ``dh`` into the part that passes a padded
+    step, ``(1 - keep) * dh``."""
+    if gates_all.dim() != 4 or gates_all.shape[-1] % 4:
+        raise ValueError(f"expected gates_all [D,T,B,4H]; got "
+                         f"{tuple(gates_all.shape)}")
+    directions, seq_len, batch, four_h = gates_all.shape
+    hidden = four_h // 4
+    expected = {"c_all": (directions, seq_len, batch, hidden),
+                "lengths": (batch,), "dh": (directions, batch, hidden),
+                "dc": (directions, batch, hidden),
+                "dgates_all": tuple(gates_all.shape)}
+    tensors = {"c_all": c_all, "lengths": lengths, "dh": dh, "dc": dc,
+               "dgates_all": dgates_all}
+    for name, shape in expected.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got "
+                             f"{tuple(tensors[name].shape)}")
+    _check_cuda_contiguous(gates_all, gates_all=gates_all, **tensors)
+    for name, tensor in (("gates_all", gates_all), *tensors.items()):
+        want = torch.int32 if name == "lengths" else torch.float32
+        if tensor.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {tensor.dtype}")
+    if not 0 <= t < seq_len:
+        raise ValueError(f"step {t} is outside 0..{seq_len - 1}")
+    code = _native.library().vqa_lstm_backward_step(
+        gates_all.data_ptr(), c_all.data_ptr(), lengths.data_ptr(),
+        dh.data_ptr(), dc.data_ptr(), dgates_all.data_ptr(), directions,
+        seq_len, batch, hidden, t, _native.stream_ptr(gates_all.device))
+    _native.check("lstm_backward_step", code)
+    if directions * batch * hidden:
+        lstm_backward_step_cuda.launches += 1
+
+
+lstm_backward_step_cuda.launches = 0

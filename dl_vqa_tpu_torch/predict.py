@@ -1,14 +1,14 @@
 """Batched VQA inference with the PyTorch port.
 
 Port of ``predict.py::Predictor`` (its array path): questions are
-tokenized and encoded exactly as in training (``dl_vqa_tpu.data.text``
-and ``dl_vqa_tpu.data.dataset.encode_question``, shared, not copied),
+tokenized and encoded exactly as in training (the port's own copies of
+the tokenizer and the question encoder, :mod:`dl_vqa_tpu_torch.data.text`),
 images arrive as ``[B, H, W, 3]`` arrays (uint8 pixels, normalised on the
 device, or already-normalised floats), and answers come back as top-k
 ``(answer, probability)`` lists.
 
-``device`` is always the caller's choice; nothing here moves work to
-another device.
+``device`` is the GPU unless the caller passes another; nothing here
+moves work to another device, and without a GPU the default raises.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dl_vqa_tpu_torch.data.text import encode_question, normalize_question
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.vqa import VqaNet
+from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["Predictor"]
 
@@ -31,10 +33,10 @@ class Predictor:
     """Serving-side wrapper of a :class:`VqaNet` on one device."""
 
     def __init__(self, model_cfg: ModelConfig, model: VqaNet,
-                 vocab: Dict[str, Dict[str, int]], *, device,
+                 vocab: Dict[str, Dict[str, int]], *, device=DEFAULT_DEVICE,
                  max_question_length: int = _LEGACY_QUESTION_LENGTH,
                  compute_dtype: torch.dtype = torch.bfloat16):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
         self.vocab = vocab
@@ -44,7 +46,8 @@ class Predictor:
         self.compute_dtype = compute_dtype
 
     @classmethod
-    def from_checkpoint(cls, checkpoint_path: str, vocab_path: str, *, device,
+    def from_checkpoint(cls, checkpoint_path: str, vocab_path: str, *,
+                        device=DEFAULT_DEVICE,
                         model_cfg: Optional[ModelConfig] = None,
                         compute_dtype: torch.dtype = torch.bfloat16
                         ) -> "Predictor":
@@ -56,6 +59,7 @@ class Predictor:
         from dl_vqa_tpu_torch.utils.checkpoint import load_params
         from dl_vqa_tpu_torch.utils.params import load_jax_params
 
+        device = resolve_device(device)
         with open(vocab_path) as fd:
             vocab = json.load(fd)
         params, meta = load_params(checkpoint_path, with_meta=True)
@@ -74,7 +78,7 @@ class Predictor:
                 "max_question_length metadata; assuming the reference "
                 f"default of {max_len} tokens. Longer questions are "
                 "truncated.", stacklevel=2)
-        model = load_jax_params(VqaNet(model_cfg), params)
+        model = load_jax_params(VqaNet(model_cfg, device=device), params)
         return cls(model_cfg, model, vocab, device=device,
                    max_question_length=max_len, compute_dtype=compute_dtype)
 
@@ -83,9 +87,6 @@ class Predictor:
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """``([B, max_len] int32 ids, [B] int32 lengths)``; a missing "?"
         is appended and every length is at least 1."""
-        from dl_vqa_tpu.data.dataset import encode_question
-        from dl_vqa_tpu.data.text import normalize_question
-
         if max_len is None:
             max_len = self.max_question_length
         encoded = np.zeros((len(questions), max_len), dtype=np.int32)

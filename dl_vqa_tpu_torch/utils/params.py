@@ -1,29 +1,126 @@
-"""Weight bridge: JAX parameter trees into the port's VqaNet.
+"""Weight bridge between JAX parameter trees and the port's VqaNet.
 
-The layout mapping is ``dl_vqa_tpu.utils.torch_export.
-torch_state_from_params`` (HWIO -> OIHW, ``[in, out]`` -> ``[out, in]``,
-the fused LSTM bias -> ``bias_ih = b``, ``bias_hh = 0``), reused rather
-than copied; that module needs numpy only.
+The layout mapping is the port's own copy of ``dl_vqa_tpu/utils/
+torch_export.py::torch_state_from_params`` (HWIO -> OIHW, ``[in, out]``
+-> ``[out, in]``, the fused LSTM bias -> ``bias_ih = b``, ``bias_hh =
+0``) and its inverse (``b = bias_ih + bias_hh``), with numpy alone.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["torch_state_from_params", "load_jax_params",
+           "jax_tree_from_named", "jax_params_from_model"]
+
+_LSTM = "text.lstm."
+_DIRECTIONS = (("lstm_fwd", ""), ("lstm_bwd", "_reverse"))
 
 
-def load_jax_params(model: torch.nn.Module, params: Dict) -> torch.nn.Module:
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _linear(dst: Dict, prefix: str, p: Mapping) -> None:
+    dst[f"{prefix}.weight"] = _np(p["w"]).T
+    if "b" in p:
+        dst[f"{prefix}.bias"] = _np(p["b"])
+
+
+def _conv(dst: Dict, prefix: str, p: Mapping) -> None:
+    dst[f"{prefix}.weight"] = _np(p["w"]).transpose(3, 2, 0, 1)  # HWIO->OIHW
+    if "b" in p:
+        dst[f"{prefix}.bias"] = _np(p["b"])
+
+
+def torch_state_from_params(params: Mapping) -> Dict[str, np.ndarray]:
+    """A ``dl_vqa_tpu`` parameter tree of the CNN + LSTM + single-attention
+    family -> the state dict of :class:`VqaNet` (numpy arrays)."""
+    image = params.get("image", {})
+    if ("patch_embed" in image or "blocks" in image
+            or "lstm_fwd" not in params.get("text", {})
+            or "v_conv" not in params.get("attention", {})):
+        raise ValueError(
+            "only the CNN / LSTM / single-attention family maps onto "
+            "VqaNet's state dict; the ViT, transformer-text and stacked or "
+            "co-attention variants are not ported")
+    state = {"text.embedding.weight": _np(params["text"]["embedding"])}
+    for name, suffix in _DIRECTIONS:
+        if name not in params["text"]:
+            continue
+        p = params["text"][name]
+        state[f"{_LSTM}weight_ih_l0{suffix}"] = _np(p["w_ih"]).T
+        state[f"{_LSTM}weight_hh_l0{suffix}"] = _np(p["w_hh"]).T
+        state[f"{_LSTM}bias_ih_l0{suffix}"] = _np(p["b"])
+        state[f"{_LSTM}bias_hh_l0{suffix}"] = np.zeros_like(_np(p["b"]))
+    for name, p in sorted(params["image"].items()):
+        if name.startswith("conv"):
+            _conv(state, f"image.{name}", p)
+    _conv(state, "attention.v_conv", params["attention"]["v_conv"])
+    _linear(state, "attention.q_lin", params["attention"]["q_lin"])
+    _conv(state, "attention.x_conv", params["attention"]["x_conv"])
+    _linear(state, "classifier.lin1", params["classifier"]["lin1"])
+    _linear(state, "classifier.lin2", params["classifier"]["lin2"])
+    return state
+
+
+def load_jax_params(model: torch.nn.Module, params: Mapping
+                    ) -> torch.nn.Module:
     """Copy a ``dl_vqa_tpu`` parameter tree (numpy or JAX arrays) into
     ``model`` with ``load_state_dict(strict=True)``; returns ``model``."""
-    from dl_vqa_tpu.utils.torch_export import torch_state_from_params
-
     state = {
         name: torch.from_numpy(np.array(value, dtype=np.float32))
         for name, value in torch_state_from_params(params).items()
     }
     model.load_state_dict(state, strict=True)
     return model
+
+
+def jax_tree_from_named(named: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse mapping: tensors under VqaNet's state-dict names (its
+    parameters, or their gradients) -> a numpy tree in the JAX layout and
+    under the JAX names. A missing ``bias_hh`` (it has no gradient) counts
+    as zero."""
+    def get(name):
+        return named[name].detach().cpu().numpy().astype(np.float32)
+
+    def linear(prefix):
+        out = {"w": get(f"{prefix}.weight").T}
+        if f"{prefix}.bias" in named:
+            out["b"] = get(f"{prefix}.bias")
+        return out
+
+    def conv(prefix):
+        out = {"w": get(f"{prefix}.weight").transpose(2, 3, 1, 0)}  # ->HWIO
+        if f"{prefix}.bias" in named:
+            out["b"] = get(f"{prefix}.bias")
+        return out
+
+    text = {"embedding": get("text.embedding.weight")}
+    for name, suffix in _DIRECTIONS:
+        if f"{_LSTM}weight_ih_l0{suffix}" not in named:
+            continue
+        bias = get(f"{_LSTM}bias_ih_l0{suffix}")
+        if f"{_LSTM}bias_hh_l0{suffix}" in named:
+            bias = bias + get(f"{_LSTM}bias_hh_l0{suffix}")
+        text[name] = {"w_ih": get(f"{_LSTM}weight_ih_l0{suffix}").T,
+                      "w_hh": get(f"{_LSTM}weight_hh_l0{suffix}").T,
+                      "b": bias}
+    blocks = sorted({n.split(".")[1] for n in named if n.startswith("image.")})
+    return {
+        "text": text,
+        "image": {block: conv(f"image.{block}") for block in blocks},
+        "attention": {"v_conv": conv("attention.v_conv"),
+                      "q_lin": linear("attention.q_lin"),
+                      "x_conv": conv("attention.x_conv")},
+        "classifier": {"lin1": linear("classifier.lin1"),
+                       "lin2": linear("classifier.lin2")},
+    }
+
+
+def jax_params_from_model(model: torch.nn.Module) -> Dict:
+    """``model``'s parameters as a ``dl_vqa_tpu`` parameter tree (numpy)."""
+    return jax_tree_from_named(model.state_dict())

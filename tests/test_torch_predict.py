@@ -95,8 +95,8 @@ def test_load_params_rebuilds_the_tree(tmp_path):
 
 def test_encoding_and_answer_ids_follow_the_jax_predictor():
     cfg = ModelConfig.from_meta_dict(dataclasses.asdict(_jax_cfg()))
-    predictor = Predictor(cfg, VqaNet(cfg), _vocab(), device="cpu",
-                          max_question_length=4)
+    predictor = Predictor(cfg, VqaNet(cfg, device="cpu"), _vocab(),
+                          device="cpu", max_question_length=4)
     encoded, lengths = predictor.encode_questions(
         ["what color is the dog", "", "how many?", "zebra"])
     # '?' appended and tokenized; truncated at 4; length at least 1.
@@ -129,22 +129,54 @@ def test_checkpoint_without_model_cfg_needs_one(tmp_path):
     assert predictor.max_question_length == 23
 
 
+def test_predictor_defaults_to_the_gpu(tmp_path):
+    """No device passed: the GPU, and without one an error that names it,
+    from the constructor and from ``from_checkpoint`` alike."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = ModelConfig.from_meta_dict(dataclasses.asdict(_jax_cfg()))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor(cfg, VqaNet(cfg, device="cpu"), _vocab())
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor.from_checkpoint(str(tmp_path / "none.npz"),
+                                  str(tmp_path / "none.json"))
+
+
 def test_port_imports_no_jax_yaml_pil_or_h5py():
+    """After importing every port module, answering one request and taking
+    one CPU train step in a fresh interpreter, none of JAX, the JAX
+    package (``dl_vqa_tpu`` or any ``dl_vqa_tpu.*``), PyYAML, PIL or h5py
+    is loaded."""
     code = (
-        "import sys, numpy as np\n"
+        "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import dl_vqa_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "dl_vqa_tpu_torch.__path__, 'dl_vqa_tpu_torch.')]\n"
+        "assert len(names) > 15, names\n"
+        "for name in names: importlib.import_module(name)\n"
         "from dl_vqa_tpu_torch.models.configs import ModelConfig\n"
         "from dl_vqa_tpu_torch.models.vqa import VqaNet\n"
         "from dl_vqa_tpu_torch.predict import Predictor\n"
-        "import dl_vqa_tpu_torch.utils.checkpoint, dl_vqa_tpu_torch.ops.lstm_cuda\n"
+        "from dl_vqa_tpu_torch.train import create_train_state, make_train_step\n"
         "cfg = ModelConfig.from_meta_dict({'text': {'question_features': 8,"
         " 'embedding_features': 4}, 'image': {'num_channels': [3, 4, 4]},"
         " 'attention': {'hidden_dim': 6}, 'classifier': {'hidden_dim': 5},"
         " 'max_answers': 3, 'image_size': 20, 'num_tokens': 3})\n"
-        "p = Predictor(cfg, VqaNet(cfg), {'question': {'a': 1, 'b': 2},"
+        "model = VqaNet(cfg, device='cpu')\n"
+        "p = Predictor(cfg, model, {'question': {'a': 1, 'b': 2},"
         " 'answer': {'x': 1, 'y': 2, 'z': 3}}, device='cpu')\n"
         "print(p.predict(np.zeros((1, 20, 20, 3), np.uint8), ['a b'], 2))\n"
-        "bad = [m for m in ('jax', 'yaml', 'PIL', 'h5py') if m in sys.modules]\n"
+        "state = create_train_state(model, 1e-3, device='cpu')\n"
+        "step = make_train_step(cfg, compute_dtype=torch.float32)\n"
+        "batch = {'images': np.zeros((2, 20, 20, 3), np.uint8),"
+        " 'questions': np.array([[1, 2], [2, 0]], np.int32),"
+        " 'lengths': np.array([2, 1], np.int32),"
+        " 'answer_indices': np.array([[1, 0], [3, 2]], np.int32),"
+        " 'answer_values': np.array([[10, 0], [6, 4]], np.int32)}\n"
+        "state, metrics = step(state, batch, torch.Generator().manual_seed(0))\n"
+        "assert state.step == 1 and bool(torch.isfinite(metrics['loss']))\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'yaml', 'PIL', 'h5py',"
+        " 'dl_vqa_tpu') or m.startswith(('jax.', 'dl_vqa_tpu.'))]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
