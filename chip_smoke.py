@@ -5,7 +5,7 @@
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's CUDA kernels from dl_vqa_tpu_torch/csrc;
-3. kernels: each of the six kernels against its plain PyTorch version on
+3. kernels: each of the eight kernels against its plain PyTorch version on
    the card, at the serving and training paths' shapes, in bf16 and f32,
    then timed in turns (plain, kernel, kernel, plain) with CUDA events;
    beside each time, the least time the card could take for the same work
@@ -23,11 +23,19 @@
    dropout 0 the kernel path's gradients and eval step are held to the
    plain path's; then the train step is timed on both paths, and run with
    four accumulated micro-batches. ``--profile`` adds a table of device
-   time by kernel over two train steps.
+   time by kernel over two train steps;
+6. the ViT model of ``config_vit.yaml`` (224 px, patch 16, 196 tokens,
+   width 256, 4 layers, 4 heads of 64; the config is built here, without
+   PyYAML) through phases 4 and 5 again: 8 requests and a batch-512
+   forward, then 8 train steps, the gradient and eval checks at batch 8
+   and the timed train step.
 
-Then one JSON line with every kernel's launches (grids launched in the
-slice's and the trainer's run; the LSTM launches one per timestep, the
-pool backward two per call), error, times and bound, and as the last line
+Every path (CNN serving, CNN training, ViT serving, ViT training) is
+driven with the kernels' launch counts set to 0 just before it and read
+just after. Then one JSON line with every kernel's launches (grids
+launched in those four runs; the LSTM launches one per timestep, the pool
+backward and the attention backward two per call), error, times and bound,
+and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises and the exit code is nonzero; without CUDA it
 exits nonzero at once. Imports no JAX.
@@ -84,7 +92,20 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    far from them as the plain path does (H100: 1.013 times, where the
 #    plain path lies 5e-2 to 1.5e-1 away).
 #  eval loss: relative, f32 1e-5, bf16 5e-4, as the logits.
-TOL = {"relu_maxpool": 0.0, "attention_pool": 1e-5, "lstm_f32": 1e-5,
+#  vit_attention, vit_attention_backward f32: 1e-5; f32 sums over 196 keys
+#    (or queries) in another order, on values of order 1 (H100: 4e-7).
+#  vit_attention, vit_attention_backward bf16: the f32 results agree as
+#    above, so the rounded ones are equal except where a last-place
+#    difference moves a bf16 rounding (of e, w, dz or the output) by one
+#    step: at most 1 bf16 step (2^-8) of the largest output for the
+#    forward and 2 for the backward, whose w and dz are rounded on the way,
+#    and at most VIT_DIFFER of the elements differ at all.
+#  ViT gradients, kernel path against plain path at batch 8: as the CNN
+#    model's, and 5e-2 in bf16 for the image encoder's tensors, whose
+#    cotangents pass four blocks in bf16 after kernel 5's one-step flips.
+TOL = {"vit_attention_f32": 1e-5, "vit_attention_bf16_steps": 1,
+       "vit_attention_backward_bf16_steps": 2, "grads_bf16_vit_image": 5e-2,
+       "relu_maxpool": 0.0, "attention_pool": 1e-5, "lstm_f32": 1e-5,
        "lstm_bf16": 1e-3, "logits_bf16": 5e-4, "logits_f32": 1e-5,
        "lstm_backward": 1e-5, "pool_backward_dz": 0.0,
        "pool_backward_db": 1e-5, "grads_f32": 2e-4, "grads_bf16": 1e-2,
@@ -95,6 +116,8 @@ TOL = {"relu_maxpool": 0.0, "attention_pool": 1e-5, "lstm_f32": 1e-5,
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 GRADS_BF16_RATIO = 1.5
+VIT_DIFFER = 0.02
+VIT_TOKENS, VIT_HEADS, VIT_HEAD = 196, 4, 64
 TRAIN_STEPS = 8
 INITIAL_LR = 5e-4
 
@@ -433,6 +456,105 @@ def pool_kernels(torch, gen, device, summary) -> None:
         summary[name] = {**total, **bound(moved, ops, "f32")}
 
 
+def vit_kernels(torch, gen, device, summary) -> None:
+    """Kernels 4 and 5 at S=196, H=4, D=64, batches 1, 8 and 512."""
+    import torch.nn.functional as F
+
+    from dl_vqa_tpu_torch.ops.vit_attention import (
+        vit_attention_backward_cuda, vit_attention_backward_reference,
+        vit_attention_cuda, vit_attention_reference)
+
+    dim = VIT_HEADS * VIT_HEAD
+
+    def check(name, dtype, batch, got, want, steps):
+        """``(max_abs_err, tol)``; bf16 also holds the share that differs."""
+        err = max_err(got, want)
+        if dtype == torch.float32:
+            tol, note = TOL["vit_attention_f32"], ""
+        else:
+            tol = steps * 2.0 ** -8 * float(want.float().abs().max())
+            differ = float((got != want).float().mean())
+            note = (f", {differ:.2%} of the elements differ (limit "
+                    f"{VIT_DIFFER:.0%})")
+            require(differ <= VIT_DIFFER,
+                    f"{name} {dtype} B={batch}: {differ} differ")
+        require(bool(torch.isfinite(got.float()).all()), f"{name}: finite")
+        require(err <= tol, f"{name} {dtype} B={batch}: {err} > {tol}")
+        return err, tol, note
+
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        kind = "bf16" if main else "f32"
+        for batch in (1, 8, BATCH):
+            iters = 10 if main or batch < BATCH else 3
+            qkv = torch.randn(batch, VIT_TOKENS, 3 * dim, generator=gen,
+                              device=device).to(dtype)
+            g = torch.randn(batch, VIT_TOKENS, dim, generator=gen,
+                            device=device).to(dtype)
+            pairs = batch * VIT_HEADS
+            product = 2.0 * pairs * VIT_TOKENS * VIT_TOKENS * VIT_HEAD
+
+            out = vit_attention_cuda(qkv, VIT_HEADS)
+            torch.cuda.synchronize()
+            err, tol, note = check(
+                "vit_attention", dtype, batch, out,
+                vit_attention_reference(qkv, VIT_HEADS),
+                TOL["vit_attention_bf16_steps"])
+            ms, plain_ms = timed_pair(
+                torch, lambda: vit_attention_reference(qkv, VIT_HEADS),
+                lambda: vit_attention_cuda(qkv, VIT_HEADS), iters=iters)
+
+            def library():
+                # The same function through one PyTorch call, the split
+                # and the merge of the heads included, as the kernel
+                # includes them.
+                q, k, v = (t.reshape(batch, VIT_TOKENS, VIT_HEADS,
+                                     VIT_HEAD).transpose(1, 2)
+                           for t in qkv.chunk(3, dim=-1))
+                return F.scaled_dot_product_attention(q, k, v).transpose(
+                    1, 2).reshape(batch, VIT_TOKENS, dim)
+
+            library_ms = timed(torch, library, iters=iters)
+            log(f"kernel vit_attention {kind} qkv {list(qkv.shape)}: "
+                f"max_abs_err {err:.3e} (tol {tol:.3g}){note} | kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"F.scaled_dot_product_attention with split and merge "
+                f"{library_ms:.4f} ms")
+            if main and batch == BATCH:
+                summary["vit_attention"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms,
+                    **bound(nbytes(qkv, out), 2 * product, kind)}
+
+            dqkv = vit_attention_backward_cuda(qkv, g, VIT_HEADS)
+            again = vit_attention_backward_cuda(qkv, g, VIT_HEADS)
+            torch.cuda.synchronize()
+            require(torch.equal(dqkv, again),
+                    f"vit_attention_backward {kind} B={batch}: two runs "
+                    "gave other digits")
+            err, tol, note = check(
+                "vit_attention_backward", dtype, batch, dqkv,
+                vit_attention_backward_reference(qkv, g, VIT_HEADS),
+                TOL["vit_attention_backward_bf16_steps"])
+            del again
+            ms, plain_ms = timed_pair(
+                torch,
+                lambda: vit_attention_backward_reference(qkv, g, VIT_HEADS),
+                lambda: vit_attention_backward_cuda(qkv, g, VIT_HEADS),
+                iters=iters)
+            log(f"kernel vit_attention_backward {kind} qkv "
+                f"{list(qkv.shape)}: max_abs_err {err:.3e} (tol {tol:.3g})"
+                f"{note}, the same digits on two runs | kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+            if main and batch == BATCH:
+                # Five products: the scores, dv, dw, dq, dk.
+                summary["vit_attention_backward"] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    **bound(nbytes(qkv, g, dqkv), 5 * product, kind)}
+            del qkv, g, out, dqkv
+
+
 def kernel_phase(torch, seed: int) -> dict:
     from dl_vqa_tpu_torch.ops.attention_pool import (
         attention_pool_cuda, attention_pool_reference)
@@ -442,30 +564,41 @@ def kernel_phase(torch, seed: int) -> dict:
     summary = {}
     lstm_kernels(torch, gen, device, summary)
     pool_kernels(torch, gen, device, summary)
+    vit_kernels(torch, gen, device, summary)
 
-    # Kernel 3: glimpse softmax pooling.
-    for dtype in (torch.float32, torch.bfloat16):
-        v = (torch.randn(BATCH, 26, 26, 256, generator=gen, device=device)
-             / 16).to(dtype)
-        att = torch.randn(BATCH, 26, 26, 2, generator=gen,
-                          device=device).to(dtype)
-        out = attention_pool_cuda(v, att)
-        err = max_err(out, attention_pool_reference(v, att))
-        ms, plain_ms = timed_pair(
-            torch, lambda: attention_pool_reference(v, att),
-            lambda: attention_pool_cuda(v, att), iters=20)
-        log(f"kernel attention_pool {str(dtype)[6:]} v {list(v.shape)} att "
-            f"{list(att.shape)}: max_abs_err {err:.3e} (tol "
-            f"{TOL['attention_pool']:g}) | kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
-        require(err <= TOL["attention_pool"], f"attention_pool: {err}")
-        if dtype == torch.float32:  # the model pools f32 features
-            summary["attention_pool"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None,
-                **bound(nbytes(v, att, out),
-                        2.0 * att.numel() * v.shape[-1] + 4.0 * att.numel(),
-                        "f32")}
+    # Kernel 3: glimpse softmax pooling, at the CNN's 26 x 26 grid and at
+    # the ViT's 14 x 14.
+    for grid in (26, 14):
+        for dtype in (torch.float32, torch.bfloat16):
+            v = (torch.randn(BATCH, grid, grid, 256, generator=gen,
+                             device=device) / 16).to(dtype)
+            att = torch.randn(BATCH, grid, grid, 2, generator=gen,
+                              device=device).to(dtype)
+            out = attention_pool_cuda(v, att)
+            err = max_err(out, attention_pool_reference(v, att))
+            ms, plain_ms = timed_pair(
+                torch, lambda: attention_pool_reference(v, att),
+                lambda: attention_pool_cuda(v, att), iters=20)
+            log(f"kernel attention_pool {str(dtype)[6:]} v {list(v.shape)} "
+                f"att {list(att.shape)}: max_abs_err {err:.3e} (tol "
+                f"{TOL['attention_pool']:g}) | kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms")
+            require(err <= TOL["attention_pool"], f"attention_pool: {err}")
+            if dtype == torch.float32:  # the model pools f32 features
+                entry = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    **bound(nbytes(v, att, out),
+                            2.0 * att.numel() * v.shape[-1]
+                            + 4.0 * att.numel(), "f32")}
+                if grid == 26:
+                    summary["attention_pool"] = entry
+                else:
+                    summary["attention_pool"]["at_14x14"] = entry
+                    log(f"bound attention_pool at 14 x 14: "
+                        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}, "
+                        f"kernel {ms:.4f} ms = {entry['bound_ms'] / ms:.1%} "
+                        "of it")
     for name, entry in summary.items():
         log(f"bound {name}: {entry['bound_ms']:.4f} ms by "
             f"{entry['bound_by']}, kernel {entry['ms']:.4f} ms = "
@@ -504,25 +637,40 @@ def kernel_wrappers() -> dict:
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_recurrence_cuda,
         lstm_recurrence_save_cuda)
+    from dl_vqa_tpu_torch.ops.vit_attention import (
+        vit_attention_backward_cuda, vit_attention_cuda)
 
     return {"lstm_recurrence": lstm_recurrence_cuda,
             "lstm_recurrence_save": lstm_recurrence_save_cuda,
             "lstm_backward_step": lstm_backward_step_cuda,
             "relu_maxpool": relu_maxpool_cuda,
             "relu_maxpool_backward": relu_maxpool_backward_cuda,
-            "attention_pool": attention_pool_cuda}
+            "attention_pool": attention_pool_cuda,
+            "vit_attention": vit_attention_cuda,
+            "vit_attention_backward": vit_attention_backward_cuda}
 
 
-SERVING_KERNELS = ("lstm_recurrence", "relu_maxpool", "attention_pool")
+def vit_config():
+    """The model of ``dl_vqa_tpu/config/config_vit.yaml``: the ViT image
+    encoder (patch 16, 4 layers, 4 heads, width 256) before the reference
+    text encoder, attention and classifier."""
+    import dataclasses
 
-
-def slice_phase(torch, seed: int) -> dict:
     from dl_vqa_tpu_torch.models.configs import ModelConfig
+
+    cfg = ModelConfig()
+    return dataclasses.replace(cfg, image=dataclasses.replace(
+        cfg.image, encoder="vit", num_channels=(3, 256), patch_size=16,
+        num_layers=4, num_heads=4))
+
+
+def slice_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
+    """A Predictor over ``cfg`` answers the requests; ``expected`` holds
+    the grids each kernel must have launched for them."""
     from dl_vqa_tpu_torch.models.vqa import VqaNet
     from dl_vqa_tpu_torch.predict import Predictor
 
     wrappers = kernel_wrappers()
-    cfg = ModelConfig()
     vocab = make_vocab(cfg.num_tokens, cfg.max_answers)
     model = VqaNet(cfg, device="cuda",
                    generator=torch.Generator().manual_seed(seed))
@@ -536,17 +684,17 @@ def slice_phase(torch, seed: int) -> dict:
     for fn in wrappers.values():
         fn.launches = 0
     answers = predictor.predict(images, QUESTIONS, top_k=3)
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
     for question, top in zip(QUESTIONS, answers):
         log(f"request {question!r} -> " + ", ".join(
             f"{a} {p:.4f}" for a, p in top))
-    log(f"slice: {len(answers)} requests answered, kernel launches "
+    log(f"slice {name}: {len(answers)} requests answered, kernel launches "
         f"{json.dumps(launches)}")
     require(len(answers) == len(QUESTIONS), "one answer list per request")
     require(all(len(top) == 3 for top in answers), "top-3 per request")
-    for name in SERVING_KERNELS:
-        require(launches[name] > 0,
-                f"kernel {name} was not launched on the serving path")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on the {name} serving path: {launches}, "
+            f"expected {expected}")
 
     encoded, lengths = predictor.encode_questions(QUESTIONS)
     for dtype, tol in ((torch.bfloat16, TOL["logits_bf16"]),
@@ -556,8 +704,8 @@ def slice_phase(torch, seed: int) -> dict:
         plain = predictor.forward_logits(images, encoded, lengths,
                                          plain_ops=True)
         err = float(np.abs(kernel - plain).max())
-        log(f"slice logits {str(dtype)[6:]} {list(kernel.shape)}: finite "
-            f"{bool(np.isfinite(kernel).all())}, max |kernel - plain| "
+        log(f"slice {name} logits {str(dtype)[6:]} {list(kernel.shape)}: "
+            f"finite {bool(np.isfinite(kernel).all())}, max |kernel - plain| "
             f"{err:.3e} (tol {tol:g}), max |logit| {np.abs(plain).max():.3e}")
         require(kernel.shape == (len(QUESTIONS), cfg.max_answers),
                 "logits shape")
@@ -587,7 +735,7 @@ def slice_phase(torch, seed: int) -> dict:
     out = forward(False)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(out).all()), "finite batch-512 logits")
-    log(f"forward B={BATCH} bf16: kernel path {ms:.3f} ms = "
+    log(f"forward {name} B={BATCH} bf16: kernel path {ms:.3f} ms = "
         f"{BATCH / ms * 1e3:.1f} QA/s | plain path {plain_ms:.3f} ms = "
         f"{BATCH / plain_ms * 1e3:.1f} QA/s | peak memory {peak:.2f} GiB")
     return launches
@@ -629,6 +777,9 @@ PROFILE_PARTS = (
     ("kernel B, LSTM backward step", ("lstm_backward_step_kernel",)),
     ("kernels A and 1, LSTM recurrence", ("lstm_step_kernel",)),
     ("kernel 3, attention pool", ("attention_pool_kernel",)),
+    ("kernel 5, ViT attention backward", ("attention_bwd_dq_kernel",
+                                          "attention_bwd_dkdv_kernel")),
+    ("kernel 4, ViT attention", ("vit_attention_kernel",)),
     ("cuDNN convs, forward and backward",
      ("fprop", "dgrad", "wgrad", "cudnn", "Padding", "ImplicitGemm")),
     ("matrix products (cuBLAS)", ("gemm", "cutlass", "gemv", "splitK")),
@@ -639,10 +790,11 @@ PROFILE_PARTS = (
 )
 
 
-def profile_steps(torch, run_step, step_ms: float, steps: int = 2) -> None:
-    """Device time by kernel and by part of the step over ``steps`` train
-    steps (torch.profiler); ``step_ms`` is the step's time without the
-    profiler, against which the idle share is stated."""
+def profile_steps(torch, run_step, step_ms: float, what: str,
+                  steps: int = 2) -> None:
+    """Device time by kernel and by part of the step over ``steps`` runs
+    of ``run_step`` (torch.profiler); ``step_ms`` is the step's time
+    without the profiler, against which the idle share is stated."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -665,7 +817,7 @@ def profile_steps(torch, run_step, step_ms: float, steps: int = 2) -> None:
                    and not getattr(e, "is_user_annotation", False)),
                   reverse=True)
     busy_ms = sum(row[0] for row in rows)
-    log(f"profile: {steps} train steps, device kernels {busy_ms:.2f} ms a "
+    log(f"profile {what}: {steps} steps, device kernels {busy_ms:.2f} ms a "
         f"step against {step_ms:.2f} ms a step without the profiler "
         f"({1 - busy_ms / step_ms:.1%} idle)")
     parts = {}
@@ -677,19 +829,23 @@ def profile_steps(torch, run_step, step_ms: float, steps: int = 2) -> None:
         total[0] += ms
         total[1] += calls
     for part, (ms, calls) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
-        log(f"profile part: {ms:8.3f} ms {calls:6.1f} launches  {part}")
+        log(f"profile {what} part: {ms:8.3f} ms {calls:6.1f} launches  "
+            f"{part}")
     for ms, calls, key in rows[:40]:
-        log(f"profile: {ms:8.3f} ms {calls:6.1f} launches  {key[:100]}")
+        log(f"profile {what}: {ms:8.3f} ms {calls:6.1f} launches  "
+            f"{key[:100]}")
 
 
-def train_phase(torch, seed: int, profile: bool) -> dict:
-    from dl_vqa_tpu_torch.models.configs import ModelConfig
+def train_phase(torch, seed: int, profile: bool, cfg, name: str,
+                expected: dict, accumulate: bool) -> dict:
+    """A trainer over ``cfg``; ``expected`` holds the grids each kernel
+    must have launched in 8 train steps and one eval step."""
     from dl_vqa_tpu_torch.models.vqa import VqaNet
     from dl_vqa_tpu_torch.train import (
         create_train_state, lr_schedule, make_eval_step, make_train_step)
 
     wrappers = kernel_wrappers()
-    cfg = ModelConfig()
+    vit = cfg.image.encoder == "vit"
 
     def new_state(model_cfg):
         model = VqaNet(model_cfg,
@@ -711,14 +867,14 @@ def train_phase(torch, seed: int, profile: bool) -> dict:
         scores.append(metrics["score"])
     eval_loss, eval_score = eval_step(state.model, batch)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
     losses = [float(x) for x in losses]
-    log(f"train B={BATCH} bf16 dropout 0.3: losses "
+    log(f"train {name} B={BATCH} bf16 dropout 0.3: losses "
         + " ".join(f"{x:.4f}" for x in losses)
         + " | scores " + " ".join(f"{float(x):.1f}" for x in scores)
         + f" | eval loss {float(eval_loss):.4f} score "
         f"{float(eval_score):.1f}")
-    log(f"train: kernel launches {json.dumps(launches)}")
+    log(f"train {name}: kernel launches {json.dumps(launches)}")
     require(all(np.isfinite(losses)) and bool(torch.isfinite(eval_loss)),
             "finite losses")
     require(losses[-1] < losses[0], "the loss falls on a repeated batch")
@@ -730,26 +886,16 @@ def train_phase(torch, seed: int, profile: bool) -> dict:
             and abs(lr_schedule(INITIAL_LR)(state.step)
                     - INITIAL_LR * 0.5 ** (TRAIN_STEPS / 50000)) < 1e-12,
             "the LR follows the halving law")
-    # Per train step: 23 save-mode grids and 23 backward grids, three pool
-    # blocks forward (a grid each) and backward (two grids each: the
-    # routing, then the sum of its partial bias sums), one glimpse pooling;
-    # the eval step adds kernel 1.
-    expected = {"lstm_recurrence": SEQ_LEN,
-                "lstm_recurrence_save": TRAIN_STEPS * SEQ_LEN,
-                "lstm_backward_step": TRAIN_STEPS * SEQ_LEN,
-                "relu_maxpool": 3 * (TRAIN_STEPS + 1),
-                "relu_maxpool_backward": 6 * TRAIN_STEPS,
-                "attention_pool": TRAIN_STEPS + 1}
-    require(launches == expected,
-            f"kernel launches on the trainer's path: {launches}, expected "
-            f"{expected}")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on the {name} trainer's path: {launches}, "
+            f"expected {expected}")
 
     # Kernel path against plain path at batch 8 without dropout: one train
     # step each from the same weights, then the eval step both ways.
     cfg0 = without_dropout(cfg)
     small = make_batch(torch, cfg0, 8, seed + 1)
     reference = None
-    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         grads = {}
         for plain in (False, True):
             state_8 = new_state(cfg0)
@@ -776,9 +922,11 @@ def train_phase(torch, seed: int, profile: bool) -> dict:
             # shift); what it holds is rounding noise.
             if n == "attention.x_conv.bias":
                 continue
-            tol = TOL["grads_" + name]
-            if name == "bf16" and n.startswith("attention."):
+            tol = TOL["grads_" + dname]
+            if dname == "bf16" and n.startswith("attention."):
                 tol = TOL["grads_bf16_attention"]
+            elif dname == "bf16" and vit and n.startswith("image."):
+                tol = TOL["grads_bf16_vit_image"]
             rel = rel_norm(grads[False][n], want)
             if rel / tol > worst[1] / worst[2]:
                 worst = (n, rel, tol)
@@ -787,17 +935,18 @@ def train_phase(torch, seed: int, profile: bool) -> dict:
             if far_plain > 0 and far_kernel / far_plain > worst_ratio[1]:
                 worst_ratio = (n, far_kernel / far_plain, far_plain)
             listing.append(f"{n} {rel:.1e}" + (
-                f" ({far_plain:.1e})" if name == "bf16" else ""))
-        log(f"train gradients {name} per tensor, |kernel - plain| / |plain|"
+                f" ({far_plain:.1e})" if dname == "bf16" else ""))
+        log(f"train {name} gradients {dname} per tensor, |kernel - plain| / "
+            "|plain|"
             + (" (and the plain path's distance from its f32 gradients)"
-               if name == "bf16" else "") + ": " + ", ".join(listing))
-        log(f"train gradients {name} B=8 dropout 0, kernel path vs plain "
+               if dname == "bf16" else "") + ": " + ", ".join(listing))
+        log(f"train {name} gradients {dname} B=8 dropout 0, kernel vs plain "
             f"path: nearest its limit {worst[0]} at {worst[1]:.3e} of its "
             f"norm (tol {worst[2]:g})")
         require(worst[1] <= worst[2],
-                f"kernel vs plain gradients {name}: {worst}")
-        if name == "bf16":
-            log(f"train gradients bf16 against the plain path's f32 "
+                f"kernel vs plain gradients {dname}: {worst}")
+        if dname == "bf16":
+            log(f"train {name} gradients bf16 against the plain path's f32 "
                 f"gradients: worst tensor {worst_ratio[0]}, the kernel path "
                 f"{worst_ratio[1]:.3f} times as far as the plain path "
                 f"({worst_ratio[2]:.3e} of the norm; limit "
@@ -809,53 +958,62 @@ def train_phase(torch, seed: int, profile: bool) -> dict:
                    for plain in (False, True)]
         (loss_k, score_k), (loss_p, score_p) = [
             (float(a), float(b)) for a, b in results]
-        log(f"eval step {name} B=8: kernel path loss {loss_k:.6f} score "
-            f"{score_k:.1f} | plain path loss {loss_p:.6f} score "
-            f"{score_p:.1f} (loss tol {TOL['loss_' + name]:g} relative)")
-        require(abs(loss_k - loss_p) <= TOL["loss_" + name] * abs(loss_p),
-                f"kernel vs plain eval loss {name}")
+        log(f"eval step {name} {dname} B=8: kernel path loss {loss_k:.6f} "
+            f"score {score_k:.1f} | plain path loss {loss_p:.6f} score "
+            f"{score_p:.1f} (loss tol {TOL['loss_' + dname]:g} relative)")
+        require(abs(loss_k - loss_p) <= TOL["loss_" + dname] * abs(loss_p),
+                f"kernel vs plain eval loss {dname}")
         # A sample whose two best logits lie closer than the logits'
         # tolerance may change its answer; f32 has none.
-        require(abs(score_k - score_p) <= (0.0 if name == "f32" else 1.0),
-                f"kernel vs plain eval score {name}")
+        require(abs(score_k - score_p) <= (0.0 if dname == "f32" else 1.0),
+                f"kernel vs plain eval score {dname}")
     del grads, reference, state_8
 
     # Time and memory at batch 512, both paths.
     plain_state = new_state(cfg)
     plain_step = make_train_step(cfg, plain_ops=True)
     peaks = {}
-    for name, run in (("kernel", lambda: train_step(state, batch, gen)),
+    for path, run in (("kernel", lambda: train_step(state, batch, gen)),
                       ("plain", lambda: plain_step(plain_state, batch, gen))):
         run()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         run()
         torch.cuda.synchronize()
-        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        peaks[path] = torch.cuda.max_memory_allocated() / 2 ** 30
     ms, plain_ms = timed_pair(
         torch, lambda: plain_step(plain_state, batch, gen),
         lambda: train_step(state, batch, gen), iters=3, warmup=0)
-    log(f"train step B={BATCH} bf16: kernel path {ms:.3f} ms = "
+    log(f"train step {name} B={BATCH} bf16: kernel path {ms:.3f} ms = "
         f"{BATCH / ms * 1e3:.1f} samples/s, peak memory "
         f"{peaks['kernel']:.2f} GiB | plain path {plain_ms:.3f} ms = "
         f"{BATCH / plain_ms * 1e3:.1f} samples/s, peak memory "
         f"{peaks['plain']:.2f} GiB")
     del plain_state
 
-    accum_step = make_train_step(cfg, accum_steps=4)
-    before = state.step
-    torch.cuda.reset_peak_memory_stats()
-    accum_ms = timed(
-        torch, lambda: losses.append(accum_step(state, batch, gen)[1]["loss"]),
-        iters=3, warmup=1)
-    require(state.step == before + 4 and all(
-        bool(torch.isfinite(x)) for x in losses[-4:]),
-        "four accumulated steps")
-    log(f"train step B={BATCH} bf16 accum_steps=4: {accum_ms:.3f} ms, peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-        f"loss {float(losses[-1]):.4f}")
+    if accumulate:
+        accum_step = make_train_step(cfg, accum_steps=4)
+        before = state.step
+        torch.cuda.reset_peak_memory_stats()
+        accum_ms = timed(
+            torch,
+            lambda: losses.append(accum_step(state, batch, gen)[1]["loss"]),
+            iters=3, warmup=1)
+        require(state.step == before + 4 and all(
+            bool(torch.isfinite(x)) for x in losses[-4:]),
+            "four accumulated steps")
+        log(f"train step {name} B={BATCH} bf16 accum_steps=4: {accum_ms:.3f} "
+            f"ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, loss "
+            f"{float(losses[-1]):.4f}")
     if profile:
-        profile_steps(torch, lambda: train_step(state, batch, gen), ms)
+        profile_steps(torch, lambda: train_step(state, batch, gen), ms,
+                      f"{name} train step")
+        with torch.no_grad():
+            forward_ms = timed(torch, lambda: eval_step(state.model, batch),
+                               iters=3)
+            profile_steps(torch, lambda: eval_step(state.model, batch),
+                          forward_ms, f"{name} eval step")
     return launches
 
 
@@ -883,8 +1041,41 @@ def main(argv=None) -> int:
     device_phase(torch)
     build_phase()
     summary = kernel_phase(torch, args.seed)
-    serving = slice_phase(torch, args.seed)
-    training = train_phase(torch, args.seed, args.profile)
+
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+
+    # Grids a kernel launches on each path. Serving: one forward of the 8
+    # requests. Training: 8 train steps and one eval step; per train step
+    # 23 save-mode grids and 23 backward grids, one glimpse pooling, and
+    # for the CNN three pool blocks forward (a grid each) and backward (two
+    # grids each: the routing, then the sum of its partial bias sums), for
+    # the ViT four attention cores forward (a grid each) and backward (two
+    # grids each: dq over query tiles, then dk and dv over key tiles); the
+    # eval step adds kernel 1 and a forward's grids.
+    lstm_training = {"lstm_recurrence": SEQ_LEN,
+                     "lstm_recurrence_save": TRAIN_STEPS * SEQ_LEN,
+                     "lstm_backward_step": TRAIN_STEPS * SEQ_LEN,
+                     "attention_pool": TRAIN_STEPS + 1}
+    vit_layers = vit_config().image.num_layers
+    paths = {
+        "cnn_serving": slice_phase(
+            torch, args.seed, ModelConfig(), "cnn",
+            {"lstm_recurrence": SEQ_LEN, "relu_maxpool": 3,
+             "attention_pool": 1}),
+        "cnn_training": train_phase(
+            torch, args.seed, args.profile, ModelConfig(), "cnn",
+            {**lstm_training, "relu_maxpool": 3 * (TRAIN_STEPS + 1),
+             "relu_maxpool_backward": 6 * TRAIN_STEPS}, accumulate=True),
+        "vit_serving": slice_phase(
+            torch, args.seed, vit_config(), "vit",
+            {"lstm_recurrence": SEQ_LEN, "attention_pool": 1,
+             "vit_attention": vit_layers}),
+        "vit_training": train_phase(
+            torch, args.seed, args.profile, vit_config(), "vit",
+            {**lstm_training, "vit_attention": vit_layers * (TRAIN_STEPS + 1),
+             "vit_attention_backward": 2 * vit_layers * TRAIN_STEPS},
+            accumulate=False),
+    }
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"
@@ -901,15 +1092,20 @@ def main(argv=None) -> int:
                                   "dl_vqa_tpu/ops/conv_fused.py:693"),
         "attention_pool": ("attention_pool.cu",
                            "dl_vqa_tpu/ops/attention_pool.py:36"),
+        "vit_attention": ("vit_attention.cu",
+                          "dl_vqa_tpu/ops/vit_attention_pallas.py:78"),
+        "vit_attention_backward": (
+            "vit_attention_backward.cu",
+            "dl_vqa_tpu/ops/vit_attention_pallas.py:127"),
     }
-    # launches: grids on the serving path (8 requests) plus grids on the
-    # trainer's path (8 train steps and one eval step), each counted from 0.
+    # launches: the grids of the four paths together, each path counted
+    # from 0: serving is 8 requests, training 8 train steps and an eval step.
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": replaces,
-         "launches": serving[name] + training[name],
-         "launches_serving": serving[name],
-         "launches_training": training[name], **summary[name]}
+         "launches": sum(counts[name] for counts in paths.values()),
+         **{f"launches_{path}": counts[name]
+            for path, counts in paths.items()}, **summary[name]}
         for name, (src, replaces) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -98,14 +98,21 @@ class ModelConfig:
     use_pallas: bool = True            # read by the JAX package only
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a variant the port lacks."""
+        """Raise ``NotImplementedError`` for a variant the port lacks, and
+        ``ValueError`` for a combination the JAX package refuses too."""
         unported = []
         if self.text.encoder != "lstm":
             unported.append(f"text.encoder={self.text.encoder!r}")
         if self.text.num_lstm_layers != 1:
             unported.append(f"text.num_lstm_layers={self.text.num_lstm_layers}")
-        if self.image.encoder != "cnn":
+        if self.image.encoder not in ("cnn", "vit"):
             unported.append(f"image.encoder={self.image.encoder!r}")
+        if self.image.encoder == "vit" and self.image.store_dtype not in (
+                "compute", "int8"):
+            raise ValueError(
+                f"image.store_dtype={self.image.store_dtype!r} is a CNN-stem "
+                "serving mode (quantized conv-output storage); the vit "
+                "encoder supports 'compute' or 'int8' (W8A8 block matmuls)")
         if self.image.store_dtype != "compute":
             unported.append(f"image.store_dtype={self.image.store_dtype!r}")
         if self.image.moe_experts:

@@ -1,9 +1,13 @@
 """VqaNet ("Show, Ask, Attend, and Answer") as a PyTorch module: the
 forward of :func:`dl_vqa_tpu.models.vqa.apply`, eval and train (dropout
-at the same seven sites), differentiable through the port's kernels.
+at the same sites: seven with the CNN image encoder; the ViT has one
+after the position add and two a block in place of the CNN's one),
+differentiable through the port's kernels.
 
 Same computation and the same mixed precision as the JAX model: images
-NHWC; conv blocks in the compute dtype; L2 channel norm in f32
+NHWC; conv blocks in the compute dtype, or the ViT encoder of
+:mod:`dl_vqa_tpu_torch.models.vit` (``image.encoder == "vit"``), whose
+``[B, g, g, D]`` grid takes the conv grid's place; L2 channel norm in f32
 (``v / (||v|| + 1e-12)``); embedding (id 0 -> zero) -> tanh -> masked
 bi-LSTM final cell states; '+', '*' or '|' fused single attention with
 the projections stored in the compute dtype; glimpse softmax pooling in
@@ -16,7 +20,8 @@ Parameters carry the reference state-dict names that
 ``dl_vqa_tpu/utils/torch_export.py`` emits (``text.embedding``,
 ``text.lstm.*_l0[_reverse]``, ``image.conv{i}``, ``attention.{v_conv,
 q_lin,x_conv}``, ``classifier.{lin1,lin2}``), so JAX parameters and
-reference ``.pth`` states load with ``load_state_dict(strict=True)``.
+reference ``.pth`` states load with ``load_state_dict(strict=True)``; the
+ViT's names are the port's own and are listed in ``models/vit.py``.
 The JAX package trains one fused LSTM bias per direction; here
 ``bias_ih`` is that trainable bias and ``bias_hh`` is a constant that is
 added to it (zero in imported JAX weights, torch's second draw in a fresh
@@ -34,41 +39,14 @@ from torch import nn
 
 from dl_vqa_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
 from dl_vqa_tpu_torch.models.configs import ModelConfig
+from dl_vqa_tpu_torch.models.layers import dropout, mm as _mm
+from dl_vqa_tpu_torch.models.vit import LayerNorm, VitImage
 from dl_vqa_tpu_torch.ops.attention_pool import attention_pool
 from dl_vqa_tpu_torch.ops.conv_fused import conv_relu_pool
 from dl_vqa_tpu_torch.ops.lstm import bilstm_final_cell, lstm_scan
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["VqaNet", "dropout"]
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a uint8 mask source, as the JAX model's
-    ``_dropout``: the keep probability is quantised to ``threshold / 256``
-    with ``threshold = round((1 - rate) * 256)``, an element is kept where
-    its random byte is below the threshold, and the kept ones are divided
-    by the same quantised probability, so the mean is preserved exactly.
-    ``generator`` is ``None`` in eval (no dropout), else a generator on
-    ``x``'s device."""
-    if generator is None or rate == 0.0:
-        return x
-    threshold = int(round((1.0 - rate) * 256.0))
-    if threshold >= 256:
-        return x
-    if threshold <= 0:
-        return torch.zeros_like(x)
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
-                         generator=generator, device=x.device)
-    return torch.where(bits < threshold, x / (threshold / 256.0), 0.0)
-
-
-def _mm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """``x @ weight^T`` (torch layout ``[out, in]``) on operands rounded to
-    x's dtype, with an f32 result, as ``preferred_element_type=float32``
-    gives it: the product runs in f32, where products of bf16 operands are
-    exact, and the result is not rounded back to bf16."""
-    return torch.matmul(x.float(), weight.to(x.dtype).float().t())
 
 
 class _Lstm(nn.Module):
@@ -207,7 +185,8 @@ class VqaNet(nn.Module):
         # from the global RNG; every weight comes from `generator`.
         with torch.device("meta"):
             self.text = _Text(cfg)
-            self.image = _Image(cfg)
+            self.image = (VitImage(cfg) if cfg.image.encoder == "vit"
+                          else _Image(cfg))
             self.attention = _Attention(cfg)
             self.classifier = _Classifier(cfg)
         self.to_empty(device="cpu")
@@ -222,7 +201,8 @@ class VqaNet(nn.Module):
         """torch's layer defaults, as ``dl_vqa_tpu/models/initializers.py``
         mirrors them: U(+-1/sqrt(fan_in)) for convs and linears, U(+-1/
         sqrt(H)) for every LSTM tensor, N(0, 1) embeddings with row 0
-        zero."""
+        zero; for the ViT also ``pos ~ N(0, 0.02^2)``, layer-norm scale 1
+        and bias 0, as ``init_vit_image`` has them."""
         for module in self.modules():
             if isinstance(module, (nn.Conv2d, nn.Linear)):
                 fan_in = module.weight[0].numel()
@@ -235,6 +215,12 @@ class VqaNet(nn.Module):
             p.uniform_(-bound, bound, generator=gen)
         self.text.embedding.weight.normal_(generator=gen)
         self.text.embedding.weight[0] = 0.0
+        if isinstance(self.image, VitImage):
+            self.image.pos.normal_(0.0, 0.02, generator=gen)
+            for module in self.image.modules():
+                if isinstance(module, LayerNorm):
+                    module.weight.fill_(1.0)
+                    module.bias.zero_()
 
     def forward(self, images: torch.Tensor, questions: torch.Tensor,
                 lengths: torch.Tensor, *, train: bool = False,
@@ -245,9 +231,10 @@ class VqaNet(nn.Module):
         ``questions [B, T]`` int ids, ``lengths [B]`` -> ``[B,
         max_answers]`` f32 logits.
 
-        ``train=True`` applies dropout at the seven sites of the JAX
-        model, drawn from ``generator`` in the order the forward reaches
-        them; the generator must live on the inputs' device.
+        ``train=True`` applies dropout at the sites of the JAX model,
+        drawn from ``generator`` in the order the forward reaches them
+        (the image encoder's first, then the text's, the attention's and
+        the classifier's); the generator must live on the inputs' device.
         ``plain_ops=True`` runs every hand kernel's plain PyTorch version
         whatever the device, forward and backward: the oracle the kernel
         path is held to.

@@ -1,9 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources in ``dl_vqa_tpu_torch/csrc/*.cu`` have a plain C interface.
-On first use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library and loaded with ``ctypes``; nothing here runs at
-import. The library lands in ``dl_vqa_tpu_torch/_build/<hash>/``, keyed
+On first use they are compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source and all started together, linked into one
+shared library and loaded with ``ctypes``; nothing here runs at import.
+The library lands in ``dl_vqa_tpu_torch/_build/<hash>/``, keyed
 by a hash of the sources and flags, and is written under a temporary
 name and renamed into place, so concurrent first uses cannot load a
 half-written file.
@@ -34,7 +35,7 @@ _LIB_NAME = "libvqa_kernels.so"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -63,6 +64,11 @@ _SIGNATURES = {
                                   _P],
     # v, att, out, batch, spatial, channels, glimpses, dtype code, stream
     "vqa_attention_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, out, batch, seq, heads, dtype code, stream
+    "vqa_vit_attention": [_P, _P, _I, _I, _I, _I, _P],
+    # qkv, g, dqkv, stats (f32 scratch [B, H, 3, S]), batch, seq, heads,
+    # dtype code, stream
+    "vqa_vit_attention_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -107,15 +113,40 @@ def _build() -> str:
     if os.path.exists(target):
         return target
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{target}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    # One compiler process per source, all running at once, then one link.
+    jobs = []
+    for source in sources:
+        if source.endswith(".cu"):
+            obj = os.path.join(
+                out_dir, f"{os.path.basename(source)[:-3]}.{tag}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", source, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    failures = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}): "
+                            f"{' '.join(cmd)}\n{out}\n{err}")
+    objects = [obj for _, obj, _ in jobs]
+    try:
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        tmp = f"{target}.{tag}"
+        cmd = [nvcc, "-shared", "-o", tmp, *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, target)
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     return target
 
 

@@ -36,6 +36,13 @@ from dl_vqa_tpu_torch.ops.lstm_cuda import (
     lstm_recurrence_cuda,
     lstm_recurrence_save_cuda,
 )
+from dl_vqa_tpu_torch.ops.vit_attention import (
+    vit_attention,
+    vit_attention_backward_cuda,
+    vit_attention_backward_reference,
+    vit_attention_cuda,
+    vit_attention_reference,
+)
 
 
 @pytest.fixture
@@ -333,5 +340,125 @@ def test_training_wrappers_reject_what_the_kernels_do_not_take(device, call):
                                    torch.ones(3, device=d)),
 ], ids=["half", "strided", "glimpses", "hidden16", "lengths_dtype"])
 def test_wrappers_reject_what_the_kernels_do_not_take(device, call):
+    with pytest.raises(ValueError):
+        call(device)
+
+
+# Kernels 4 and 5 (ViT attention). Full width last; before it the shapes of
+# the CPU tests and those that leave a tile ragged: fewer tokens than one
+# tile, an exact tile, the largest S the kernels take.
+VIT_SHAPES = [(4, 196, 4), (2, 50, 2), (3, 52, 1), (1, 5, 1), (2, 16, 2),
+              (1, 33, 3), (2, 256, 2), (512, 196, 4)]
+
+
+def _vit_inputs(device, dtype, batch, seq, heads, seed=7):
+    g = _gen(device, seed)
+    qkv = torch.randn(batch, seq, 3 * heads * 64, generator=g,
+                      device=device).to(dtype)
+    cot = torch.randn(batch, seq, heads * 64, generator=g,
+                      device=device).to(dtype)
+    return qkv, cot
+
+
+def _assert_vit_close(got, want, dtype, steps):
+    """f32: sums in another order, 1e-5 absolute on values of order 1.
+    bf16: equal except where a last-place f32 difference moves a rounding
+    (of e, w, dz or the output) by a step: within `steps` bf16 steps of
+    the largest value, and fewer than 2 in 100 differ at all."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        return
+    tol = steps * 2.0 ** -8 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert float((got != want).float().mean()) < 0.02
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,seq,heads", VIT_SHAPES)
+def test_vit_attention_matches_plain(device, dtype, batch, seq, heads):
+    qkv, _ = _vit_inputs(device, dtype, batch, seq, heads)
+    before = vit_attention_cuda.launches
+    got = vit_attention_cuda(qkv, heads)
+    torch.cuda.synchronize()
+    assert vit_attention_cuda.launches == before + 1
+    assert got.shape == (batch, seq, heads * 64) and got.dtype == dtype
+    _assert_vit_close(got, vit_attention_reference(qkv, heads), dtype, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,seq,heads", VIT_SHAPES)
+def test_vit_attention_backward_matches_plain(device, dtype, batch, seq,
+                                              heads):
+    """Also: two grids a call, and the same digits on a second run."""
+    qkv, cot = _vit_inputs(device, dtype, batch, seq, heads)
+    before = vit_attention_backward_cuda.launches
+    got = vit_attention_backward_cuda(qkv, cot, heads)
+    torch.cuda.synchronize()
+    assert vit_attention_backward_cuda.launches == before + 2
+    assert got.shape == qkv.shape and got.dtype == dtype
+    _assert_vit_close(got, vit_attention_backward_reference(qkv, cot, heads),
+                      dtype, 2)
+    assert torch.equal(got, vit_attention_backward_cuda(qkv, cot, heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attention_heads_are_not_mixed(device, dtype):
+    """Zeroing head 1's q, k and v lanes leaves head 0's output and
+    gradients equal to the bit."""
+    qkv, cot = _vit_inputs(device, dtype, 2, 52, 2)
+    zeroed = qkv.clone()
+    for part in range(3):
+        zeroed[..., part * 128 + 64:part * 128 + 128] = 0
+    a, b = (vit_attention_cuda(t, 2) for t in (qkv, zeroed))
+    assert torch.equal(a[..., :64], b[..., :64])
+    assert not torch.equal(a[..., 64:], b[..., 64:])
+    da, db = (vit_attention_backward_cuda(t, cot, 2) for t in (qkv, zeroed))
+    for part in range(3):
+        lanes = slice(part * 128, part * 128 + 64)
+        assert torch.equal(da[..., lanes], db[..., lanes])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attention_autograd_runs_kernels_4_and_5(device, dtype):
+    """Through the Function on a CUDA tensor: one forward grid, two
+    backward grids, a non-contiguous cotangent made contiguous, and the
+    plain path's gradient."""
+    qkv, cot = _vit_inputs(device, dtype, 3, 50, 2)
+    leaf = qkv.clone().requires_grad_(True)
+    counts = (vit_attention_cuda.launches,
+              vit_attention_backward_cuda.launches)
+    out = vit_attention(leaf, 2)
+    out.transpose(0, 1).backward(cot.transpose(0, 1))
+    assert (vit_attention_cuda.launches,
+            vit_attention_backward_cuda.launches) == (counts[0] + 1,
+                                                      counts[1] + 2)
+    plain_leaf = qkv.clone().requires_grad_(True)
+    vit_attention(plain_leaf, 2, plain=True).backward(cot)
+    assert vit_attention_cuda.launches == counts[0] + 1
+    _assert_vit_close(leaf.grad, plain_leaf.grad, dtype, 2)
+
+
+@pytest.mark.parametrize("call", [
+    lambda d: vit_attention_cuda(torch.zeros(1, 4, 3 * 32, device=d), 1),
+    lambda d: vit_attention_cuda(
+        torch.zeros(1, 4, 3 * 64, device=d, dtype=torch.float16), 1),
+    lambda d: vit_attention_cuda(
+        torch.zeros(1, 4, 6 * 64, device=d)[..., ::2], 1),
+    lambda d: vit_attention_cuda(torch.zeros(1, 257, 3 * 64, device=d), 1),
+    lambda d: vit_attention_cuda(torch.zeros(1, 4, 3 * 64), 1),
+    lambda d: vit_attention_backward_cuda(
+        torch.zeros(1, 4, 3 * 64, device=d), torch.zeros(1, 4, 64), 1),
+    lambda d: vit_attention_backward_cuda(
+        torch.zeros(1, 4, 3 * 64, device=d),
+        torch.zeros(1, 4, 64, device=d, dtype=torch.bfloat16), 1),
+    lambda d: vit_attention_backward_cuda(
+        torch.zeros(1, 4, 3 * 64, device=d), torch.zeros(1, 4, 128, device=d),
+        1),
+    lambda d: vit_attention_backward_cuda(
+        torch.zeros(1, 4, 3 * 64, device=d),
+        torch.zeros(1, 4, 128, device=d)[..., ::2], 1),
+], ids=["head_of_32", "half", "strided", "too_long", "cpu", "g_on_cpu",
+        "g_dtype", "g_shape", "g_strided"])
+def test_vit_wrappers_reject_what_the_kernels_do_not_take(device, call):
     with pytest.raises(ValueError):
         call(device)

@@ -186,18 +186,42 @@ def test_nonzero_bias_hh_is_summed_into_the_gates():
 
 @pytest.mark.parametrize("change", [
     {"text": {"encoder": "transformer"}},
-    {"image": {"encoder": "vit"}},
+    {"image": {"encoder": "vit", "moe_experts": 8}},
     {"image": {"store_dtype": "f8e4m3"}},
     {"attention": {"variant": "stacked"}},
     {"attention": {"variant": "co"}},
-], ids=["transformer", "vit", "f8", "stacked", "co"])
+    {"image": {"encoder": "vit", "store_dtype": "int8"}},
+], ids=["transformer", "vit", "f8", "stacked", "co", "vit_int8"])
 def test_unported_variants_raise(change):
+    """The dense ViT is ported; of the ViT family its MoE blocks (the
+    ``vit`` case) and its int8 projections are not."""
     cfg = ModelConfig()
     for group, fields in change.items():
         cfg = dataclasses.replace(
             cfg, **{group: dataclasses.replace(getattr(cfg, group), **fields)})
     with pytest.raises(NotImplementedError):
         VqaNet(cfg, device="cpu")
+
+
+def test_the_dense_vit_builds_with_the_same_heads_behind_it():
+    """``image.encoder="vit"`` swaps the image encoder and nothing else:
+    the text encoder, the attention and the classifier keep their names,
+    and the attention reads the ViT's model width."""
+    cfg = dataclasses.replace(
+        _port_cfg(_jax_cfg()), image_size=32, image=dataclasses.replace(
+            ModelConfig().image, encoder="vit", num_channels=(3, 64),
+            num_layers=1, num_heads=1))
+    model = VqaNet(cfg, device="cpu")
+    cnn = VqaNet(_port_cfg(_jax_cfg()), device="cpu")
+    outside = [n for n in model.state_dict() if not n.startswith("image.")]
+    assert outside == [n for n in cnn.state_dict()
+                       if not n.startswith("image.")]
+    assert model.attention.v_conv.weight.shape[1] == 64
+    assert tuple(model.image.pos.shape) == (4, 64)
+    images, questions, lengths = (torch.from_numpy(a)
+                                  for a in _batch(32, True))
+    with torch.no_grad():
+        assert model(images, questions, lengths).shape == (3, cfg.max_answers)
 
 
 @pytest.mark.parametrize("rate,threshold", [

@@ -144,9 +144,9 @@ def test_predictor_defaults_to_the_gpu(tmp_path):
 
 def test_port_imports_no_jax_yaml_pil_or_h5py():
     """After importing every port module, answering one request and taking
-    one CPU train step in a fresh interpreter, none of JAX, the JAX
-    package (``dl_vqa_tpu`` or any ``dl_vqa_tpu.*``), PyYAML, PIL or h5py
-    is loaded."""
+    one CPU train step with the CNN model and with the ViT model in a
+    fresh interpreter, none of JAX, the JAX package (``dl_vqa_tpu`` or any
+    ``dl_vqa_tpu.*``), PyYAML, PIL or h5py is loaded."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import dl_vqa_tpu_torch\n"
@@ -158,23 +158,28 @@ def test_port_imports_no_jax_yaml_pil_or_h5py():
         "from dl_vqa_tpu_torch.models.vqa import VqaNet\n"
         "from dl_vqa_tpu_torch.predict import Predictor\n"
         "from dl_vqa_tpu_torch.train import create_train_state, make_train_step\n"
-        "cfg = ModelConfig.from_meta_dict({'text': {'question_features': 8,"
-        " 'embedding_features': 4}, 'image': {'num_channels': [3, 4, 4]},"
+        "images = ({'num_channels': [3, 4, 4]}, {'encoder': 'vit',"
+        " 'num_channels': [3, 64], 'patch_size': 10, 'num_layers': 1,"
+        " 'num_heads': 1})\n"
+        "for image in images:\n"
+        "  cfg = ModelConfig.from_meta_dict({'text': {'question_features': 8,"
+        " 'embedding_features': 4}, 'image': image,"
         " 'attention': {'hidden_dim': 6}, 'classifier': {'hidden_dim': 5},"
         " 'max_answers': 3, 'image_size': 20, 'num_tokens': 3})\n"
-        "model = VqaNet(cfg, device='cpu')\n"
-        "p = Predictor(cfg, model, {'question': {'a': 1, 'b': 2},"
+        "  model = VqaNet(cfg, device='cpu')\n"
+        "  p = Predictor(cfg, model, {'question': {'a': 1, 'b': 2},"
         " 'answer': {'x': 1, 'y': 2, 'z': 3}}, device='cpu')\n"
-        "print(p.predict(np.zeros((1, 20, 20, 3), np.uint8), ['a b'], 2))\n"
-        "state = create_train_state(model, 1e-3, device='cpu')\n"
-        "step = make_train_step(cfg, compute_dtype=torch.float32)\n"
-        "batch = {'images': np.zeros((2, 20, 20, 3), np.uint8),"
+        "  print(p.predict(np.zeros((1, 20, 20, 3), np.uint8), ['a b'], 2))\n"
+        "  state = create_train_state(model, 1e-3, device='cpu')\n"
+        "  step = make_train_step(cfg, compute_dtype=torch.float32)\n"
+        "  batch = {'images': np.zeros((2, 20, 20, 3), np.uint8),"
         " 'questions': np.array([[1, 2], [2, 0]], np.int32),"
         " 'lengths': np.array([2, 1], np.int32),"
         " 'answer_indices': np.array([[1, 0], [3, 2]], np.int32),"
         " 'answer_values': np.array([[10, 0], [6, 4]], np.int32)}\n"
-        "state, metrics = step(state, batch, torch.Generator().manual_seed(0))\n"
-        "assert state.step == 1 and bool(torch.isfinite(metrics['loss']))\n"
+        "  state, metrics = step(state, batch,"
+        " torch.Generator().manual_seed(0))\n"
+        "  assert state.step == 1 and bool(torch.isfinite(metrics['loss']))\n"
         "bad = [m for m in sys.modules if m in ('jax', 'yaml', 'PIL', 'h5py',"
         " 'dl_vqa_tpu') or m.startswith(('jax.', 'dl_vqa_tpu.'))]\n"
         "assert not bad, bad\n"
