@@ -5,7 +5,7 @@
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's CUDA kernels from dl_vqa_tpu_torch/csrc;
-3. kernels: each of the eight kernels against its plain PyTorch version on
+3. kernels: each of the twelve kernels against its plain PyTorch version on
    the card, at the serving and training paths' shapes, in bf16 and f32,
    then timed in turns (plain, kernel, kernel, plain) with CUDA events;
    beside each time, the least time the card could take for the same work
@@ -23,20 +23,32 @@
    dropout 0 the kernel path's gradients and eval step are held to the
    plain path's; then the train step is timed on both paths, and run with
    four accumulated micro-batches. ``--profile`` adds a table of device
-   time by kernel over two train steps;
+   time by kernel over two train steps (and, in phase 7, over two
+   forwards with the flip on);
 6. the ViT model of ``config_vit.yaml`` (224 px, patch 16, 196 tokens,
    width 256, 4 layers, 4 heads of 64; the config is built here, without
    PyYAML) through phases 4 and 5 again: 8 requests and a batch-512
    forward, then 8 train steps, the gradient and eval checks at batch 8
-   and the timed train step.
+   and the timed train step;
+7. both models with ``fused_ops=True``, which flips the image encoder to
+   the fused ops (kernel 6, the tap-GEMM conv + ReLU + pool; kernel 7, the
+   stem; kernel 8, the ViT block's LN + MLP): the same 8 requests, the
+   logits held to the unfused kernel path and to the plain path, the
+   batch-512 forward timed with the flip on and off; one eval step of each
+   model with the flip on, its loss held to the unfused step's at batch 8;
+   and one CNN train step with the flip on, its gradients held to the
+   unfused step's at batch 8, timed both ways;
+8. the layout probe's eight cases through their dispatch.
 
-Every path (CNN serving, CNN training, ViT serving, ViT training) is
-driven with the kernels' launch counts set to 0 just before it and read
-just after. Then one JSON line with every kernel's launches (grids
-launched in those four runs; the LSTM launches one per timestep, the pool
-backward and the attention backward two per call), error, times and bound,
-and as the last line
-``{"ok": true, "device": {...}}``.
+Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
+and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
+and the layout probe) is driven with the kernels' launch counts set to 0
+just before it and read just after. Then one JSON line with every kernel's
+launches (grids launched in those runs; the LSTM launches one per timestep,
+the pool backward and the attention backward two per call), error, times
+and bound, and as the last line ``{"ok": true, "device": {...}}``. Every
+time printed was taken on the card whose name and power limit the first
+line gives.
 Any failed check raises and the exit code is nonzero; without CUDA it
 exits nonzero at once. Imports no JAX.
 """
@@ -103,7 +115,51 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #  ViT gradients, kernel path against plain path at batch 8: as the CNN
 #    model's, and 5e-2 in bf16 for the image encoder's tensors, whose
 #    cotangents pass four blocks in bf16 after kernel 5's one-step flips.
-TOL = {"vit_attention_f32": 1e-5, "vit_attention_bf16_steps": 1,
+#  conv_relu_pool_fused, conv_relu_pool_stem f32: 1e-5; f32 sums of 27 to
+#    1152 products of order 0.03 in another order than cuDNN's.
+#  the same in bf16, and vit_mlp_fused: the f32 sums agree as above, so the
+#    rounded outputs are equal except where that difference moves a
+#    rounding. Kernels 6 and 7 round once: at most 1 bf16 step of the
+#    element (2^-7 relative, FUSED_DIFFER of the elements). Kernel 8 rounds
+#    ln and the hidden units on the way, and a flip there moves the f32 sum
+#    by a bf16 step of ln or of a hidden unit times a weight, whatever the
+#    output's size: per element at most 2 steps of the element (H100: 1
+#    where |out| >= 0.25) or 2^-8 next to zero (H100: 2.0e-3 at worst where
+#    |out| < 0.25; a dropped bias b2, up to 1/32, would not pass), and at
+#    most FUSED_DIFFER of the elements differ at all (H100: 0.2%).
+#    Kernel 8 f32: 1e-5 of the largest output.
+#  layout_cases: 0; moves and a max.
+#  kernel 6's gradients at batch 8 against the unfused block's: the same
+#    conv output, the same kernel C, the same cuDNN gradient calls, which
+#    sum with atomics: 1e-5 of the norm in f32, 1e-3 in bf16.
+#  logits with fused_ops on, kernel path against plain path: as the other
+#    logits (H100: bf16 1.2e-4 and 1.3e-4, f32 3.7e-8).
+#  logits with fused_ops on against off, both on the kernel path: f32 as
+#    the other logits (H100: 2.0e-8). In bf16 the fused ops round once
+#    where the unfused path rounds twice (the conv output before the bias;
+#    the MLP output before the residual), so features move by a bf16 step
+#    here and there and the logits, of size 0.13, follow: 1e-3, five times
+#    what the card showed (H100: CNN 2.0e-4, ViT 1.1e-4).
+#  gradients of the fused_ops train step against the unfused step's at
+#    batch 8, per tensor in the 2-norm as above. f32 2e-4 (H100: 6e-7 at
+#    worst outside the attention), and 5e-3 for the attention's tensors
+#    (H100: q_lin's weight 1.7e-3): kernel 6 sums in another order than
+#    cuDNN, the image features move by 1e-6, and those gradients are
+#    differences of nearly equal sums over [8, 26, 26, 1024]. bf16: the
+#    two forwards differ by the roundings above, so the two steps are two
+#    draws of the bf16 path's own noise, each 5e-2 to 1.5e-1 away from the
+#    f32 gradients on the attention's tensors: 2.5e-1 between them there
+#    (H100: q_lin's weight 9.7e-2), 5e-2 on every other tensor (H100:
+#    conv0's weight 1.4e-2); and the step with fused_ops on may lie at most
+#    GRADS_BF16_RATIO times as far from the unfused step's f32 gradients as
+#    the unfused bf16 step does.
+TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
+       "vit_mlp_bf16_floor": 2.0 ** -8,
+       "layout_cases": 0.0, "fused_grads_f32": 1e-5, "fused_grads_bf16": 1e-3,
+       "logits_bf16_fused_cnn": 1e-3, "logits_bf16_fused_vit": 1e-3,
+       "grads_f32_fused_attention": 5e-3, "grads_bf16_fused": 5e-2,
+       "grads_bf16_fused_attention": 2.5e-1,
+       "vit_attention_f32": 1e-5, "vit_attention_bf16_steps": 1,
        "vit_attention_backward_bf16_steps": 2, "grads_bf16_vit_image": 5e-2,
        "relu_maxpool": 0.0, "attention_pool": 1e-5, "lstm_f32": 1e-5,
        "lstm_bf16": 1e-3, "logits_bf16": 5e-4, "logits_f32": 1e-5,
@@ -117,6 +173,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 GRADS_BF16_RATIO = 1.5
 VIT_DIFFER = 0.02
+FUSED_DIFFER = 0.02
+# Kernel 6's blocks at the reference width: input height, Cin, Cout.
+FUSED_BLOCKS = ((111, 64, 128), (54, 128, 256))
+STEM_BLOCK = (224, 3, 64)
+LAYOUT_BLOCK = (16, 32)  # rows and width of the layout probe's block
+VIT_WIDTH, VIT_HIDDEN = 256, 1024
 VIT_TOKENS, VIT_HEADS, VIT_HEAD = 196, 4, 64
 TRAIN_STEPS = 8
 INITIAL_LR = 5e-4
@@ -555,6 +617,261 @@ def vit_kernels(torch, gen, device, summary) -> None:
             del qkv, g, out, dqkv
 
 
+def conv_case(torch, gen, device, dtype, batch, size, cin, cout, k=3):
+    """``x [B, size, size, Cin]`` in ``dtype``, a torch-layout weight and a
+    bias at torch's default scale (f32 masters, as the model holds them)."""
+    x = torch.randn(batch, size, size, cin, generator=gen,
+                    device=device).to(dtype)
+    limit = 1.0 / (cin * k * k) ** 0.5
+    weight = (torch.rand(cout, cin, k, k, generator=gen, device=device) * 2
+              - 1) * limit
+    bias = (torch.rand(cout, generator=gen, device=device) * 2 - 1) * limit
+    return x, weight, bias
+
+
+def check_rounded(torch, what, got, want, dtype):
+    """Kernels 6 and 7 against their plain version: ``(max_abs_err, note)``.
+    f32 within TOL["fused_f32"]; bf16 within one rounding step of each
+    element (or the f32 tolerance, next to zero), and few elements differ."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: shape or dtype")
+    require(bool(torch.isfinite(got.float()).all()), f"{what}: finite")
+    err = max_err(got, want)
+    if dtype == torch.float32:
+        require(err <= TOL["fused_f32"], f"{what}: {err}")
+        return err, f"(tol {TOL['fused_f32']:g})"
+    limit = (TOL["fused_bf16_steps"] * 2.0 ** -7 * want.float().abs()).clamp(
+        min=TOL["fused_f32"])
+    differ = float((got != want).float().mean())
+    require(bool(((got.float() - want.float()).abs() <= limit).all()),
+            f"{what}: more than a bf16 step apart, max_abs_err {err}")
+    require(differ <= FUSED_DIFFER, f"{what}: {differ} of the elements differ")
+    return err, (f"(tol 1 bf16 step of the element), {differ:.2%} of the "
+                 f"elements differ (limit {FUSED_DIFFER:.0%})")
+
+
+def layout_cases(torch, gen, run):
+    """The layout probe's eight cases: the four modes on a ``[16, 32, C]``
+    bf16 block, C = 64 and 128. Yields ``(x, mode, run(x, mode))`` once the
+    result equals the plain version's to the bit."""
+    from dl_vqa_tpu_torch.ops.layout_cases import MODES, layout_case_reference
+
+    for channels in (64, 128):
+        x = torch.randn(*LAYOUT_BLOCK, channels, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        for mode in MODES:
+            got = run(x, mode)
+            want = layout_case_reference(x, mode)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and torch.equal(got, want),
+                    f"layout case {mode} C={channels}: bits differ")
+            yield x, mode, got
+
+
+def fused_kernels(torch, gen, device, summary) -> None:
+    """Kernels 6 to 9 at the shapes the flipped forwards give them (batches
+    1, 8 and 512, bf16 and f32), one small odd shape each, and kernel 6's
+    gradients through ``ConvReluPoolFused`` against the unfused block's."""
+    import torch.nn.functional as F
+
+    from dl_vqa_tpu_torch.ops.conv_fused import (
+        conv_relu_pool, conv_relu_pool_fused_cuda,
+        conv_relu_pool_fused_reference, conv_relu_pool_stem_cuda,
+        conv_relu_pool_stem_reference)
+    from dl_vqa_tpu_torch.ops.layout_cases import (
+        layout_case_cuda, layout_case_reference)
+    from dl_vqa_tpu_torch.ops.vit_mlp_fused import (
+        fused_ln_mlp_cuda, fused_ln_mlp_reference)
+
+    def new_total():
+        return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "bytes": 0, "ops": 0.0}
+
+    def add(total, err, ms, plain_ms, library_ms, moved, ops):
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["library_ms"] += library_ms
+        total["bytes"] += moved
+        total["ops"] += ops
+
+    def close(name, total, kind):
+        moved, ops = total.pop("bytes"), total.pop("ops")
+        summary[name] = {**total, **bound(moved, ops, kind)}
+
+    def conv_block(name, kernel, reference, batch, size, cin, cout, k, dtype,
+                   total=None):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        x, weight, bias = conv_case(torch, gen, device, dtype, batch, size,
+                                    cin, cout, k)
+        got = kernel(x, weight, bias)
+        want = reference(x, weight, bias)
+        torch.cuda.synchronize()
+        what = f"{name} {kind} x {list(x.shape)} -> {list(got.shape)} k={k}"
+        err, note = check_rounded(torch, what, got, want, dtype)
+        del want
+        iters = 10 if batch < BATCH else 5 if kind == "bf16" else 2
+        ms, plain_ms = timed_pair(
+            torch, lambda: reference(x, weight, bias),
+            lambda: kernel(x, weight, bias), iters=iters)
+        # The yardstick: the same block as three PyTorch calls on the NCHW
+        # view of the same memory (channels_last), the conv in x's type.
+        x_nchw = x.permute(0, 3, 1, 2)
+        w_lib = weight.to(dtype).contiguous(memory_format=torch.channels_last)
+        b_lib = bias.to(dtype)
+        library_ms = timed(
+            torch,
+            lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_lib, b_lib)), 2),
+            iters=iters)
+        # Only the conv positions that feed a pool window count.
+        ops = 2.0 * got.numel() * 4 * k * k * cin
+        moved = nbytes(x, got, bias) + weight.numel() * x.element_size()
+        entry = bound(moved, ops, kind)
+        log(f"kernel {what}: max_abs_err {err:.3e} {note} | kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, F.max_pool2d(F.relu(F.conv2d(x, "
+            f"w, b)), 2) {library_ms:.4f} ms | bound {entry['bound_ms']:.4f} "
+            f"ms by {entry['bound_by']}")
+        if total is not None:
+            add(total, err, ms, plain_ms, library_ms, moved, ops)
+
+    for name, kernel, reference, blocks, odd in (
+            ("conv_relu_pool_fused", conv_relu_pool_fused_cuda,
+             conv_relu_pool_fused_reference, FUSED_BLOCKS,
+             ((37, 16, 32, 3), (24, 16, 32, 5))),
+            ("conv_relu_pool_stem", conv_relu_pool_stem_cuda,
+             conv_relu_pool_stem_reference, (STEM_BLOCK,),
+             ((21, 3, 8, 3), (28, 3, 8, 5)))):
+        total = new_total()
+        for dtype in (torch.bfloat16, torch.float32):
+            main = dtype == torch.bfloat16
+            for size, cin, cout, k in odd:
+                conv_block(name, kernel, reference, 2, size, cin, cout, k,
+                           dtype)
+            for batch in (1, 8, BATCH):
+                for size, cin, cout in blocks:
+                    conv_block(name, kernel, reference, batch, size, cin,
+                               cout, 3, dtype,
+                               total if main and batch == BATCH else None)
+        close(name, total, "bf16")
+
+    # Kernel 6's gradients: the fused block against the unfused one on one
+    # cotangent, at conv1's shape.
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        size, cin, cout = FUSED_BLOCKS[0]
+        x, weight, bias = conv_case(torch, gen, device, dtype, 8, size, cin,
+                                    cout)
+        pooled = (size - 2) // 2
+        g = torch.randn(8, pooled, pooled, cout, generator=gen,
+                        device=device).to(dtype)
+        grads = {}
+        for fused in (True, False):
+            args = [t.clone().requires_grad_() for t in (x, weight, bias)]
+            conv_relu_pool(*args, fused=fused).backward(g)
+            grads[fused] = [t.grad for t in args]
+        torch.cuda.synchronize()
+        rels = [rel_norm(a, b) for a, b in zip(grads[True], grads[False])]
+        tol = TOL["fused_grads_" + dname]
+        log(f"kernel conv_relu_pool_fused gradients {dname} B=8 "
+            f"{list(x.shape)}: |fused - unfused| / |unfused| dx {rels[0]:.3e}"
+            f", dw {rels[1]:.3e}, db {rels[2]:.3e} (tol {tol:g})")
+        require(max(rels) <= tol, f"kernel 6 gradients {dname}: {rels}")
+        del grads, x, g
+
+    # Kernel 8 on the ViT's token rows.
+    def mlp_block(batch, seq, dim, hidden, dtype, keep):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+
+        def uniform(*shape, fan_in):
+            return (torch.rand(*shape, generator=gen, device=device) * 2
+                    - 1) / fan_in ** 0.5
+
+        x = torch.randn(batch, seq, dim, generator=gen,
+                        device=device).to(dtype)
+        args = (x,
+                1 + 0.1 * torch.randn(dim, generator=gen, device=device),
+                0.1 * torch.randn(dim, generator=gen, device=device),
+                uniform(hidden, dim, fan_in=dim), uniform(hidden, fan_in=dim),
+                uniform(dim, hidden, fan_in=hidden),
+                uniform(dim, fan_in=hidden))
+        got = fused_ln_mlp_cuda(*args)
+        want = fused_ln_mlp_reference(*args)
+        torch.cuda.synchronize()
+        what = f"vit_mlp_fused {kind} x {list(x.shape)} F={hidden}"
+        require(bool(torch.isfinite(got.float()).all()), f"{what}: finite")
+        err, top = max_err(got, want), float(want.float().abs().max())
+        if dtype == torch.float32:
+            tol = TOL["fused_f32"] * top
+            require(err <= tol, f"{what}: {err} > {tol}")
+            note = f"(tol {tol:.3g})"
+        else:
+            limit = (TOL["vit_mlp_bf16_steps"] * 2.0 ** -7
+                     * want.float().abs()).clamp(min=TOL["vit_mlp_bf16_floor"])
+            differ = float((got != want).float().mean())
+            require(bool(((got.float() - want.float()).abs() <= limit).all()),
+                    f"{what}: an element lies more than "
+                    f"{TOL['vit_mlp_bf16_steps']} bf16 steps from its plain "
+                    f"value, max_abs_err {err}")
+            require(differ <= FUSED_DIFFER,
+                    f"{what}: {differ} of the elements differ")
+            note = (f"(tol {TOL['vit_mlp_bf16_steps']} bf16 steps of the "
+                    f"element, {TOL['vit_mlp_bf16_floor']:g} next to zero), "
+                    f"{differ:.2%} of the elements differ (limit "
+                    f"{FUSED_DIFFER:.0%})")
+        del want
+        iters = 10 if batch < BATCH else 5 if kind == "bf16" else 2
+        ms, plain_ms = timed_pair(
+            torch, lambda: fused_ln_mlp_reference(*args),
+            lambda: fused_ln_mlp_cuda(*args), iters=iters)
+        scale, shift, w1, b1, w2, b2 = (t.to(dtype) for t in args[1:])
+
+        def library():
+            ln = F.layer_norm(x, (dim,), scale, shift, 1e-5)
+            return x + F.linear(F.relu(F.linear(ln, w1, b1)), w2, b2)
+
+        library_ms = timed(torch, library, iters=iters)
+        moved = nbytes(x, got, scale, shift, w1, b1, w2, b2)
+        ops = 4.0 * batch * seq * dim * hidden
+        entry = bound(moved, ops, kind)
+        log(f"kernel {what}: max_abs_err {err:.3e} {note} | "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm + "
+            f"F.linear + F.relu + F.linear + add in {kind} {library_ms:.4f} "
+            f"ms | bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}")
+        if keep:
+            summary["vit_mlp_fused"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, **entry}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        mlp_block(3, 23, 128, 192, dtype, False)
+        for batch in (1, 8, BATCH):
+            mlp_block(batch, VIT_TOKENS, VIT_WIDTH, VIT_HIDDEN, dtype,
+                      dtype == torch.bfloat16 and batch == BATCH)
+
+    # Kernel 9: the probe's eight cases, to the bit.
+    # The yardstick: each case as one PyTorch call.
+    rows, width = LAYOUT_BLOCK
+    library = {
+        "split": lambda x: x.view(rows, width // 2, 2, -1).amax(2),
+        "merge": lambda x: x.view(rows, width // 2, -1).clone(),
+        "strided": lambda x: torch.maximum(x[:, 0::2], x[:, 1::2]),
+        "shift": lambda x: torch.roll(x, -1, 1),
+    }
+    total = new_total()
+    for x, mode, got in layout_cases(torch, gen, layout_case_cuda):
+        require(torch.equal(library[mode](x), got),
+                f"layout case {mode}: the library call computes another "
+                "function")
+        ms, plain_ms = timed_pair(
+            torch, lambda: layout_case_reference(x, mode),
+            lambda: layout_case_cuda(x, mode), iters=50)
+        library_ms = timed(torch, lambda: library[mode](x), iters=50)
+        log(f"kernel layout_cases {mode} bf16 {list(x.shape)} -> "
+            f"{list(got.shape)}: equal bits | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, one PyTorch call {library_ms:.4f} ms")
+        add(total, 0.0, ms, plain_ms, library_ms, nbytes(x, got), 0.0)
+    close("layout_cases", total, "f32")
+
+
 def kernel_phase(torch, seed: int) -> dict:
     from dl_vqa_tpu_torch.ops.attention_pool import (
         attention_pool_cuda, attention_pool_reference)
@@ -565,6 +882,7 @@ def kernel_phase(torch, seed: int) -> dict:
     lstm_kernels(torch, gen, device, summary)
     pool_kernels(torch, gen, device, summary)
     vit_kernels(torch, gen, device, summary)
+    fused_kernels(torch, gen, device, summary)
 
     # Kernel 3: glimpse softmax pooling, at the CNN's 26 x 26 grid and at
     # the ViT's 14 x 14.
@@ -633,12 +951,15 @@ def kernel_wrappers() -> dict:
     """Every kernel's wrapper, by the name it has in the result line."""
     from dl_vqa_tpu_torch.ops.attention_pool import attention_pool_cuda
     from dl_vqa_tpu_torch.ops.conv_fused import (
+        conv_relu_pool_fused_cuda, conv_relu_pool_stem_cuda,
         relu_maxpool_backward_cuda, relu_maxpool_cuda)
+    from dl_vqa_tpu_torch.ops.layout_cases import layout_case_cuda
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_recurrence_cuda,
         lstm_recurrence_save_cuda)
     from dl_vqa_tpu_torch.ops.vit_attention import (
         vit_attention_backward_cuda, vit_attention_cuda)
+    from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp_cuda
 
     return {"lstm_recurrence": lstm_recurrence_cuda,
             "lstm_recurrence_save": lstm_recurrence_save_cuda,
@@ -647,7 +968,11 @@ def kernel_wrappers() -> dict:
             "relu_maxpool_backward": relu_maxpool_backward_cuda,
             "attention_pool": attention_pool_cuda,
             "vit_attention": vit_attention_cuda,
-            "vit_attention_backward": vit_attention_backward_cuda}
+            "vit_attention_backward": vit_attention_backward_cuda,
+            "conv_relu_pool_fused": conv_relu_pool_fused_cuda,
+            "conv_relu_pool_stem": conv_relu_pool_stem_cuda,
+            "vit_mlp_fused": fused_ln_mlp_cuda,
+            "layout_cases": layout_case_cuda}
 
 
 def vit_config():
@@ -664,9 +989,12 @@ def vit_config():
         num_layers=4, num_heads=4))
 
 
-def slice_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
+def slice_phase(torch, seed: int, cfg, name: str, expected: dict,
+                fused: bool = False, profile: bool = False) -> dict:
     """A Predictor over ``cfg`` answers the requests; ``expected`` holds
-    the grids each kernel must have launched for them."""
+    the grids each kernel must have launched for them. ``fused`` serves
+    with ``fused_ops=True``: the logits are also held to the unfused kernel
+    path, and the forward is timed with the flip on and off."""
     from dl_vqa_tpu_torch.models.vqa import VqaNet
     from dl_vqa_tpu_torch.predict import Predictor
 
@@ -676,7 +1004,8 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
                    generator=torch.Generator().manual_seed(seed))
     predictor = Predictor(cfg, model, vocab, device="cuda",
                           max_question_length=SEQ_LEN,
-                          compute_dtype=torch.bfloat16)
+                          compute_dtype=torch.bfloat16, fused_ops=fused)
+    label = name + (" fused_ops" if fused else "")
     rng = np.random.default_rng(seed)
     images = rng.integers(0, 256, (len(QUESTIONS), cfg.image_size,
                                    cfg.image_size, 3), dtype=np.uint8)
@@ -688,12 +1017,12 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
     for question, top in zip(QUESTIONS, answers):
         log(f"request {question!r} -> " + ", ".join(
             f"{a} {p:.4f}" for a, p in top))
-    log(f"slice {name}: {len(answers)} requests answered, kernel launches "
+    log(f"slice {label}: {len(answers)} requests answered, kernel launches "
         f"{json.dumps(launches)}")
     require(len(answers) == len(QUESTIONS), "one answer list per request")
     require(all(len(top) == 3 for top in answers), "top-3 per request")
     require(launches == {**dict.fromkeys(wrappers, 0), **expected},
-            f"kernel launches on the {name} serving path: {launches}, "
+            f"kernel launches on the {label} serving path: {launches}, "
             f"expected {expected}")
 
     encoded, lengths = predictor.encode_questions(QUESTIONS)
@@ -704,7 +1033,18 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
         plain = predictor.forward_logits(images, encoded, lengths,
                                          plain_ops=True)
         err = float(np.abs(kernel - plain).max())
-        log(f"slice {name} logits {str(dtype)[6:]} {list(kernel.shape)}: "
+        if fused:
+            predictor.fused_ops = False
+            unfused = predictor.forward_logits(images, encoded, lengths)
+            predictor.fused_ops = True
+            off_err = float(np.abs(kernel - unfused).max())
+            off_tol = (TOL["logits_f32"] if dtype == torch.float32
+                       else TOL["logits_bf16_fused_" + name])
+            log(f"slice {label} logits {str(dtype)[6:]}: max |fused_ops on - "
+                f"off| on the kernel path {off_err:.3e} (tol {off_tol:g})")
+            require(off_err <= off_tol,
+                    f"fused_ops on vs off logits {dtype}: {off_err}")
+        log(f"slice {label} logits {str(dtype)[6:]} {list(kernel.shape)}: "
             f"finite {bool(np.isfinite(kernel).all())}, max |kernel - plain| "
             f"{err:.3e} (tol {tol:g}), max |logit| {np.abs(plain).max():.3e}")
         require(kernel.shape == (len(QUESTIONS), cfg.max_answers),
@@ -723,10 +1063,29 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
                        device="cuda", dtype=torch.int32)
     qs = qs * (torch.arange(SEQ_LEN, device="cuda")[None] < lens[:, None])
 
-    def forward(plain_ops):
+    def forward(plain_ops=False, fused_ops=fused):
         with torch.inference_mode():
             return model(imgs, qs, lens, compute_dtype=torch.bfloat16,
-                         plain_ops=plain_ops)
+                         plain_ops=plain_ops, fused_ops=fused_ops)
+
+    if fused:
+        ms, off_ms = timed_pair(torch, lambda: forward(fused_ops=False),
+                                forward, iters=3)
+        peaks = []
+        for run in (forward, lambda: forward(fused_ops=False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = run()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        require(bool(torch.isfinite(out).all()), "finite batch-512 logits")
+        log(f"forward {name} B={BATCH} bf16, kernel path: fused_ops on "
+            f"{ms:.3f} ms = {BATCH / ms * 1e3:.1f} QA/s, peak memory "
+            f"{peaks[0]:.2f} GiB | off {off_ms:.3f} ms = "
+            f"{BATCH / off_ms * 1e3:.1f} QA/s, peak memory {peaks[1]:.2f} GiB")
+        if profile:
+            profile_steps(torch, forward, ms, f"{name} forward fused_ops")
+        return launches
 
     torch.cuda.reset_peak_memory_stats()
     ms, plain_ms = timed_pair(torch, lambda: forward(True),
@@ -780,6 +1139,9 @@ PROFILE_PARTS = (
     ("kernel 5, ViT attention backward", ("attention_bwd_dq_kernel",
                                           "attention_bwd_dkdv_kernel")),
     ("kernel 4, ViT attention", ("vit_attention_kernel",)),
+    ("kernel 6, fused conv block", ("conv_pool_mma_kernel",)),
+    ("kernel 7, stem (and kernel 6 in f32)", ("conv_pool_direct_kernel",)),
+    ("kernel 8, LN + MLP", ("ln_mlp_mma_kernel", "ln_mlp_fma_kernel")),
     ("cuDNN convs, forward and backward",
      ("fprop", "dgrad", "wgrad", "cudnn", "Padding", "ImplicitGemm")),
     ("matrix products (cuBLAS)", ("gemm", "cutlass", "gemv", "splitK")),
@@ -1017,6 +1379,183 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
     return launches
 
 
+def fused_train_phase(torch, seed: int, cfg, expected: dict) -> dict:
+    """One train step of ``cfg`` at batch 512 with ``fused_ops=True``
+    (kernel 6 forward for the blocks it takes, the conv computed again and
+    kernel C in their backward; the forward-only ops stay off), its loss
+    and gradients against the ``fused_ops=False`` step at batch 8, then its
+    time and peak memory with the flip on and off."""
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import create_train_state, make_train_step
+
+    wrappers = kernel_wrappers()
+
+    def new_state(model_cfg):
+        model = VqaNet(model_cfg,
+                       generator=torch.Generator().manual_seed(seed))
+        return create_train_state(model, INITIAL_LR)
+
+    batch = make_batch(torch, cfg, BATCH, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    steps = {flip: make_train_step(cfg, fused_ops=flip)
+             for flip in (True, False)}
+    states = {flip: new_state(cfg) for flip in (True, False)}
+    for fn in wrappers.values():
+        fn.launches = 0
+    _, metrics = steps[True](states[True], batch, gen)
+    torch.cuda.synchronize()
+    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    log(f"train cnn fused_ops B={BATCH} bf16 dropout 0.3: loss "
+        f"{float(metrics['loss']):.4f} | kernel launches "
+        f"{json.dumps(launches)}")
+    require(bool(torch.isfinite(metrics["loss"])), "finite loss")
+    require(all(bool(torch.isfinite(p).all())
+                for p in states[True].model.parameters()),
+            "finite parameters")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches of the fused_ops train step: {launches}, "
+            f"expected {expected}")
+
+    cfg0 = without_dropout(cfg)
+    small = make_batch(torch, cfg0, 8, seed + 1)
+    reference = None
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        grads, losses = {}, {}
+        for flip in (True, False):
+            state_8 = new_state(cfg0)
+            _, metrics = make_train_step(
+                cfg0, compute_dtype=dtype, fused_ops=flip)(state_8, small, gen)
+            losses[flip] = float(metrics["loss"])
+            grads[flip] = {n: p.grad for n, p in
+                           state_8.model.named_parameters()
+                           if p.grad is not None}
+        require(list(grads[True]) == list(grads[False]),
+                "the same tensors have gradients")
+        if reference is None:
+            reference = grads[False]  # the unfused step's f32 gradients
+        worst, worst_ratio, listing = ("", 0.0, 1.0), ("", 0.0, 0.0), []
+        for n, want in grads[False].items():
+            if n == "attention.x_conv.bias":  # gradient zero: rounding noise
+                continue
+            attention = n.startswith("attention.")
+            if dname == "f32":
+                tol = TOL["grads_f32_fused_attention" if attention
+                          else "grads_f32"]
+            else:
+                tol = TOL["grads_bf16_fused_attention" if attention
+                          else "grads_bf16_fused"]
+            rel = rel_norm(grads[True][n], want)
+            listing.append(f"{n} {rel:.1e}")
+            if rel / tol > worst[1] / worst[2]:
+                worst = (n, rel, tol)
+            far_on = rel_norm(grads[True][n], reference[n])
+            far_off = rel_norm(want, reference[n])
+            if far_off > 0 and far_on / far_off > worst_ratio[1]:
+                worst_ratio = (n, far_on / far_off, far_off)
+        log(f"train cnn fused_ops gradients {dname} B=8 dropout 0, |on - "
+            "off| / |off| per tensor: " + ", ".join(listing))
+        log(f"train cnn fused_ops {dname} B=8: loss on {losses[True]:.6f}, "
+            f"off {losses[False]:.6f} (tol {TOL['loss_' + dname]:g} "
+            f"relative); nearest its limit {worst[0]} at {worst[1]:.3e} of "
+            f"its norm (tol {worst[2]:g})")
+        require(abs(losses[True] - losses[False])
+                <= TOL["loss_" + dname] * abs(losses[False]),
+                f"fused_ops on vs off loss {dname}")
+        require(worst[1] <= worst[2],
+                f"fused_ops on vs off gradients {dname}: {worst}")
+        if dname == "bf16":
+            log(f"train cnn fused_ops gradients bf16 against the unfused "
+                f"step's f32 gradients: worst tensor {worst_ratio[0]}, "
+                f"fused_ops on {worst_ratio[1]:.3f} times as far as off "
+                f"({worst_ratio[2]:.3e} of the norm; limit "
+                f"{GRADS_BF16_RATIO:g} times)")
+            require(worst_ratio[1] <= GRADS_BF16_RATIO,
+                    f"fused_ops bf16 gradients against f32: {worst_ratio}")
+    del grads, reference, state_8
+
+    peaks = {}
+    for flip in (True, False):
+        steps[flip](states[flip], batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps[flip](states[flip], batch, gen)
+        torch.cuda.synchronize()
+        peaks[flip] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, off_ms = timed_pair(
+        torch, lambda: steps[False](states[False], batch, gen),
+        lambda: steps[True](states[True], batch, gen), iters=3, warmup=0)
+    log(f"train step cnn B={BATCH} bf16, kernel path: fused_ops on {ms:.3f} "
+        f"ms = {BATCH / ms * 1e3:.1f} samples/s, peak memory "
+        f"{peaks[True]:.2f} GiB | off {off_ms:.3f} ms = "
+        f"{BATCH / off_ms * 1e3:.1f} samples/s, peak memory "
+        f"{peaks[False]:.2f} GiB")
+    return launches
+
+
+def fused_eval_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
+    """One eval step of ``cfg`` at batch 512 with ``fused_ops=True`` (under
+    its ``no_grad`` the forward-only ops are on as well: the stem, the LN +
+    MLP), then its loss and score against the ``fused_ops=False`` step's at
+    batch 8 in f32 and bf16."""
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import make_eval_step
+
+    wrappers = kernel_wrappers()
+    model = VqaNet(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+    batch = make_batch(torch, cfg, BATCH, seed)
+    for fn in wrappers.values():
+        fn.launches = 0
+    loss, score = make_eval_step(cfg, fused_ops=True)(model, batch)
+    torch.cuda.synchronize()
+    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    log(f"eval step {name} fused_ops B={BATCH} bf16: loss {float(loss):.4f} "
+        f"score {float(score):.1f} | kernel launches {json.dumps(launches)}")
+    require(bool(torch.isfinite(loss)) and bool(torch.isfinite(score)),
+            "finite eval loss and score")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches of the {name} fused_ops eval step: {launches}, "
+            f"expected {expected}")
+
+    small = make_batch(torch, cfg, 8, seed + 1)
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        (loss_on, score_on), (loss_off, score_off) = [
+            tuple(map(float, make_eval_step(
+                cfg, compute_dtype=dtype, fused_ops=flip)(model, small)))
+            for flip in (True, False)]
+        log(f"eval step {name} {dname} B=8: fused_ops on loss {loss_on:.6f} "
+            f"score {score_on:.1f} | off loss {loss_off:.6f} score "
+            f"{score_off:.1f} (loss tol {TOL['loss_' + dname]:g} relative)")
+        require(abs(loss_on - loss_off)
+                <= TOL["loss_" + dname] * abs(loss_off),
+                f"fused_ops on vs off eval loss {dname}")
+        # As between the kernel and the plain path: a near tie between a
+        # sample's two best logits may change its answer in bf16.
+        require(abs(score_on - score_off) <= (0.0 if dname == "f32" else 1.0),
+                f"fused_ops on vs off eval score {dname}")
+    return launches
+
+
+def layout_probe_phase(torch, seed: int) -> dict:
+    """The probe's path: its eight cases (four re-layouts of a
+    ``[16, 32, C]`` bf16 block, C = 64 and 128) through the dispatch a
+    caller uses, each held to its plain version to the bit."""
+    from dl_vqa_tpu_torch.ops.layout_cases import layout_case
+
+    wrappers = kernel_wrappers()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for fn in wrappers.values():
+        fn.launches = 0
+    for _ in layout_cases(torch, gen, layout_case):
+        pass
+    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    log(f"layout probe: 8 cases equal to the bit, kernel launches "
+        f"{json.dumps(launches)}")
+    require(launches == {**dict.fromkeys(wrappers, 0), "layout_cases": 8},
+            f"kernel launches of the layout probe: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1057,6 +1596,12 @@ def main(argv=None) -> int:
                      "lstm_backward_step": TRAIN_STEPS * SEQ_LEN,
                      "attention_pool": TRAIN_STEPS + 1}
     vit_layers = vit_config().image.num_layers
+    # A forward with the flip on and gradients off, served or evaluated.
+    cnn_fused_forward = {"lstm_recurrence": SEQ_LEN, "conv_relu_pool_stem": 1,
+                         "conv_relu_pool_fused": 2, "attention_pool": 1}
+    vit_fused_forward = {"lstm_recurrence": SEQ_LEN, "attention_pool": 1,
+                         "vit_attention": vit_layers,
+                         "vit_mlp_fused": vit_layers}
     paths = {
         "cnn_serving": slice_phase(
             torch, args.seed, ModelConfig(), "cnn",
@@ -1075,6 +1620,25 @@ def main(argv=None) -> int:
             {**lstm_training, "vit_attention": vit_layers * (TRAIN_STEPS + 1),
              "vit_attention_backward": 2 * vit_layers * TRAIN_STEPS},
             accumulate=False),
+        # The flip: the stem and two conv blocks in place of three pool
+        # grids; a fused LN + MLP a ViT layer beside its attention core; a
+        # train step keeps block 0 and every backward on the unfused path.
+        "cnn_fused_serving": slice_phase(
+            torch, args.seed, ModelConfig(), "cnn", cnn_fused_forward,
+            fused=True, profile=args.profile),
+        "vit_fused_serving": slice_phase(
+            torch, args.seed, vit_config(), "vit", vit_fused_forward,
+            fused=True, profile=args.profile),
+        "cnn_fused_eval": fused_eval_phase(
+            torch, args.seed, ModelConfig(), "cnn", cnn_fused_forward),
+        "vit_fused_eval": fused_eval_phase(
+            torch, args.seed, vit_config(), "vit", vit_fused_forward),
+        "cnn_fused_training": fused_train_phase(
+            torch, args.seed, ModelConfig(),
+            {"lstm_recurrence_save": SEQ_LEN, "lstm_backward_step": SEQ_LEN,
+             "attention_pool": 1, "relu_maxpool": 1,
+             "relu_maxpool_backward": 6, "conv_relu_pool_fused": 2}),
+        "layout_probe": layout_probe_phase(torch, args.seed),
     }
     log(f"total {time.perf_counter() - start:.1f} s")
 
@@ -1097,9 +1661,19 @@ def main(argv=None) -> int:
         "vit_attention_backward": (
             "vit_attention_backward.cu",
             "dl_vqa_tpu/ops/vit_attention_pallas.py:127"),
+        "conv_relu_pool_fused": ("conv_relu_pool_fused.cu",
+                                 "dl_vqa_tpu/ops/conv_fused.py:205"),
+        "conv_relu_pool_stem": ("conv_relu_pool_stem.cu",
+                                "dl_vqa_tpu/ops/conv_fused.py:471"),
+        "vit_mlp_fused": ("vit_mlp_fused.cu",
+                          "experiments/probe_vit_mlp_fused.py:57"),
+        "layout_cases": ("layout_cases.cu",
+                         "experiments/probe_mosaic_recheck.py:58"),
     }
-    # launches: the grids of the four paths together, each path counted
-    # from 0: serving is 8 requests, training 8 train steps and an eval step.
+    # launches: the grids of all paths together, each path counted from 0:
+    # serving is 8 requests, training 8 train steps and an eval step, the
+    # fused_ops train and eval paths one step each, the layout probe its
+    # eight cases.
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": replaces,

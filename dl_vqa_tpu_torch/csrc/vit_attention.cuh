@@ -95,18 +95,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Eight f32 values rounded to bf16 and packed for one 16-byte store.
-__device__ __forceinline__ uint4 pack8(const float* x) {
-  __nv_bfloat162 p[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    p[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-  uint4 out;
-  out.x = *reinterpret_cast<unsigned*>(&p[0]);
-  out.y = *reinterpret_cast<unsigned*>(&p[1]);
-  out.z = *reinterpret_cast<unsigned*>(&p[2]);
-  out.w = *reinterpret_cast<unsigned*>(&p[3]);
-  return out;
-}
+using vqa::pack8;
 
 }  // namespace vqa_vit

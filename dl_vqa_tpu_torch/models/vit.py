@@ -48,6 +48,7 @@ from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.layers import dropout as _dropout, mm as _mm
 from dl_vqa_tpu_torch.models.transformer import layer_norm
 from dl_vqa_tpu_torch.ops.vit_attention import vit_attention
+from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp
 
 __all__ = ["VitImage", "VitBlock", "LayerNorm", "patch_embed"]
 
@@ -93,12 +94,20 @@ class VitBlock(nn.Module):
         self.mlp_in = nn.Linear(dim, 4 * dim)
         self.mlp_out = nn.Linear(4 * dim, dim)
 
-    def forward(self, x, dtype, plain, generator):
+    def forward(self, x, dtype, plain, generator, fused=False):
         hidden = self.ln1(x)
         qkv = (_mm(hidden, self.qkv.weight) + self.qkv.bias).to(dtype)
         att = vit_attention(qkv, self.num_heads, plain)
         att = (_mm(att, self.out.weight) + self.out.bias).to(dtype)
         x = x + _dropout(att, self.dropout, generator)        # site 21 + 2i
+        if fused and generator is None and not torch.is_grad_enabled():
+            # Kernel 8: forward only and without dropout, and it adds the
+            # residual before the one cast where the lines below round the
+            # MLP output first.
+            return fused_ln_mlp(
+                x, self.ln2.weight, self.ln2.bias, self.mlp_in.weight,
+                self.mlp_in.bias, self.mlp_out.weight, self.mlp_out.bias,
+                plain)
         hidden = self.ln2(x)
         hidden = torch.relu(
             _mm(hidden, self.mlp_in.weight) + self.mlp_in.bias).to(dtype)
@@ -124,7 +133,8 @@ class VitImage(nn.Module):
         self.final_ln = LayerNorm(dim)
 
     def forward(self, images: torch.Tensor, dtype: torch.dtype, plain: bool,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+                generator: Optional[torch.Generator],
+                fused: bool = False) -> torch.Tensor:
         batch, height, width, _ = images.shape
         p = self.patch_size
         gh, gw = height // p, width // p
@@ -139,6 +149,6 @@ class VitImage(nn.Module):
         x = (x + self.pos[:gh * gw]).to(dtype)
         x = _dropout(x, self.dropout, generator)               # site 20
         for block in self.blocks:
-            x = block(x, dtype, plain, generator)
+            x = block(x, dtype, plain, generator, fused)
         x = self.final_ln(x)
         return x.reshape(batch, gh, gw, x.shape[-1])

@@ -42,7 +42,8 @@ from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.layers import dropout, mm as _mm
 from dl_vqa_tpu_torch.models.vit import LayerNorm, VitImage
 from dl_vqa_tpu_torch.ops.attention_pool import attention_pool
-from dl_vqa_tpu_torch.ops.conv_fused import conv_relu_pool
+from dl_vqa_tpu_torch.ops.conv_fused import (
+    FUSED_MIN_CIN, conv_relu_pool, conv_relu_pool_stem)
 from dl_vqa_tpu_torch.ops.lstm import bilstm_final_cell, lstm_scan
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -107,11 +108,20 @@ class _Image(nn.Module):
                 i.num_channels[block], i.num_channels[block + 1],
                 i.kernel_size))
 
-    def forward(self, images, dtype, plain, generator):
+    def forward(self, images, dtype, plain, generator, fused=False):
+        """``fused=True`` takes the blocks that never write the conv
+        output: kernel 6 for stride 1 and ``Cin >= 16``, and for a narrower
+        input (the RGB stem) the forward-only stem op while no gradient is
+        recorded; every other block stays on the unfused path."""
         x = images.to(dtype)
         for block in range(self.blocks):
             conv = getattr(self, f"conv{block}")
-            x = conv_relu_pool(x, conv.weight, conv.bias, self.stride, plain)
+            if (fused and self.stride == 1 and x.shape[-1] < FUSED_MIN_CIN
+                    and not torch.is_grad_enabled()):
+                x = conv_relu_pool_stem(x, conv.weight, conv.bias, plain)
+            else:
+                x = conv_relu_pool(x, conv.weight, conv.bias, self.stride,
+                                   plain, fused)
         return dropout(x, self.dropout, generator)  # site 0
 
 
@@ -226,7 +236,8 @@ class VqaNet(nn.Module):
                 lengths: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 compute_dtype: torch.dtype = torch.float32,
-                plain_ops: bool = False) -> torch.Tensor:
+                plain_ops: bool = False,
+                fused_ops: bool = False) -> torch.Tensor:
         """``images [B, H, W, 3]`` (uint8 pixels or normalised floats),
         ``questions [B, T]`` int ids, ``lengths [B]`` -> ``[B,
         max_answers]`` f32 logits.
@@ -237,7 +248,13 @@ class VqaNet(nn.Module):
         the classifier's); the generator must live on the inputs' device.
         ``plain_ops=True`` runs every hand kernel's plain PyTorch version
         whatever the device, forward and backward: the oracle the kernel
-        path is held to.
+        path is held to. ``fused_ops=True`` flips the image encoder to the
+        fused ops: the CNN's conv blocks to kernel 6 and, while no gradient
+        is recorded, its stem to kernel 7 and the second half of every ViT
+        block to kernel 8 (with ``plain_ops`` their plain versions, on any
+        device). The fused ops round once where the unfused path rounds
+        twice, so in bf16 the logits move by those roundings; in f32 they
+        agree.
         """
         if train and generator is None:
             raise ValueError("train=True requires a dropout generator")
@@ -251,7 +268,8 @@ class VqaNet(nn.Module):
                                   device=images.device)
             images = (images.to(dtype) / 255.0 - mean) / std
 
-        v = self.image(images, dtype, plain_ops, generator).float()
+        v = self.image(images, dtype, plain_ops, generator,
+                       fused_ops).float()
         v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
         q = self.text(questions, lengths, dtype, plain_ops, generator).float()
         att = self.attention(v, q, dtype, generator)

@@ -69,6 +69,19 @@ _SIGNATURES = {
     # qkv, g, dqkv, stats (f32 scratch [B, H, 3, S]), batch, seq, heads,
     # dtype code, stream
     "vqa_vit_attention_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w [k * k, Cin, Cout], bias, out, batch, h, w, cin, cout, k, dtype
+    # code, stream
+    "vqa_conv_relu_pool_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P],
+    # as above, with w in f32
+    "vqa_conv_relu_pool_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P],
+    # x, ln scale, ln bias, w1, b1, w2, b2, out, rows, dim, hidden, dtype
+    # code, stream
+    "vqa_vit_mlp_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _P],
+    # x, out, rows, width, channels, mode, dtype code, stream
+    "vqa_layout_case": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

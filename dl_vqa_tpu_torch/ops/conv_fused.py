@@ -27,6 +27,23 @@ raw conv output, which the conv wrote anyway, and kernel C recomputes
 on the pooled values; saving those instead would cost one more 3.2 GB
 write in the forward. The bias gradient is the pooled-side sum of the
 gated cotangent, taken in the same pass.
+
+The fused blocks, which no default path takes (``fused=True``, or
+``fused_ops=True`` on the model): kernel 6
+(``csrc/conv_relu_pool_fused.cu``) replaces ``::_fused_kernel``, the conv
+as tap GEMMs with bias, ReLU and the pool on the f32 accumulator, for
+stride 1 and ``Cin >= 16``; kernel 7 (``csrc/conv_relu_pool_stem.cu``)
+replaces ``::_stem_kernel`` for the small-``Cin`` stem, forward only as
+its original. Neither writes the conv output, so neither rounds it:
+their plain version is :func:`conv_relu_pool_fused_reference`, which in
+bf16 differs from :func:`conv_relu_pool_reference` by that one rounding
+(the JAX package has the same pair, ``_fused_kernel`` against
+``conv_relu_pool_reference``). Operations bound kernel 6 on this card
+(0.88 TFLOP for conv1 at batch 512) and memory traffic kernel 7 (0.15 GB
+in, 0.81 GB out for conv0); the source notes say what each design does.
+:class:`ConvReluPoolFused` gives kernel 6 the gradients of the unfused
+block, as ``_fused_bwd`` does: it recomputes the conv output with the
+library call and hands it to kernel C.
 """
 
 from __future__ import annotations
@@ -41,10 +58,14 @@ from dl_vqa_tpu_torch.ops import _native
 __all__ = ["conv_nhwc", "relu_maxpool_reference", "relu_maxpool_cuda",
            "relu_maxpool_backward_reference", "relu_maxpool_backward_cuda",
            "ReluMaxPool", "relu_maxpool", "conv_relu_pool_reference",
-           "conv_relu_pool"]
+           "conv_relu_pool_fused_reference", "conv_relu_pool_fused_cuda",
+           "ConvReluPoolFused", "conv_relu_pool_stem_reference",
+           "conv_relu_pool_stem_cuda", "conv_relu_pool_stem",
+           "conv_relu_pool", "FUSED_MIN_CIN"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SHARED_BYTES = 32 * 1024  # kernel C keeps one f32 per channel there
+FUSED_MIN_CIN = 16  # narrower inputs go to the stem op, not to kernel 6
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor,
@@ -214,7 +235,177 @@ def conv_relu_pool_reference(x: torch.Tensor, weight: torch.Tensor,
     return relu_maxpool_reference(conv_nhwc(x, weight, stride), bias)
 
 
+def conv_relu_pool_fused_reference(x: torch.Tensor, weight: torch.Tensor,
+                                   bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels 6 and 7: the stride-1 VALID conv of
+    operands rounded to ``x``'s dtype with f32 sums, then bias, ReLU and
+    the 2x2 floor max pool in f32, then one cast. ``x [B, H, W, Cin]``,
+    torch-layout ``weight [Cout, Cin, k, k]`` -> ``[B, (H - k + 1) // 2,
+    (W - k + 1) // 2, Cout]``."""
+    w = weight.to(x.dtype).float().contiguous(
+        memory_format=torch.channels_last)
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), w)
+    y = torch.relu_(y + bias.float()[None, :, None, None])
+    return F.max_pool2d(y, 2).permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def _check_fused_inputs(x, weight, bias, what: str) -> None:
+    if (x.dim() != 4 or weight.dim() != 4 or weight.shape[1] != x.shape[-1]
+            or weight.shape[2] != weight.shape[3]
+            or bias.shape != (weight.shape[0],)):
+        raise ValueError(f"expected x [B,H,W,Cin], weight [Cout,Cin,k,k] and "
+                         f"bias [Cout]; got {tuple(x.shape)}, "
+                         f"{tuple(weight.shape)}, {tuple(bias.shape)}")
+    if not x.is_cuda or weight.device != x.device or bias.device != x.device:
+        raise ValueError(f"{what} takes CUDA tensors on one device; got "
+                         f"{x.device}, {weight.device}, {bias.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be one of {list(_DTYPES)}; got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (NHWC)")
+    if x.shape[1] < weight.shape[2] or x.shape[2] < weight.shape[2]:
+        raise ValueError(f"a {weight.shape[2]}x{weight.shape[2]} filter does "
+                         f"not fit an input of {tuple(x.shape[1:3])}")
+    if x.shape[0] > 65535:
+        raise ValueError(f"batch {x.shape[0]} exceeds the launch grid (65535)")
+
+
+def _pooled_empty(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    cout, _, k, _ = weight.shape
+    return torch.empty(x.shape[0], (x.shape[1] - k + 1) // 2,
+                       (x.shape[2] - k + 1) // 2, cout, dtype=x.dtype,
+                       device=x.device)
+
+
+def conv_relu_pool_fused_cuda(x: torch.Tensor, weight: torch.Tensor,
+                              bias: torch.Tensor, stride: int = 1
+                              ) -> torch.Tensor:
+    """Kernel 6 on ``x``'s CUDA device; raises on any input it does not
+    take. The weight arrives in torch layout and is repacked here, once a
+    call, to the kernel's ``[k * k, Cin, Cout]`` in ``x``'s dtype."""
+    _check_fused_inputs(x, weight, bias, "conv_relu_pool_fused_cuda")
+    cout, cin, k, _ = weight.shape
+    if stride != 1:
+        raise ValueError(f"kernel 6 takes stride 1; got {stride}")
+    if cin < FUSED_MIN_CIN:
+        raise ValueError(f"kernel 6 takes Cin >= {FUSED_MIN_CIN}; got {cin} "
+                         "(the stem op takes narrow inputs)")
+    if x.dtype == torch.bfloat16 and (cin % 16 or cout % 32):
+        raise ValueError(f"in bf16 kernel 6 takes Cin a multiple of 16 and "
+                         f"Cout a multiple of 32; got {cin}, {cout}")
+    if cout % 8:
+        raise ValueError(f"kernel 6 takes Cout a multiple of 8; got {cout}")
+    lib = _native.library()
+    packed = weight.detach().permute(2, 3, 1, 0).to(x.dtype).contiguous()
+    out = _pooled_empty(x, weight)
+    bias32 = bias.detach().float().contiguous()
+    code = lib.vqa_conv_relu_pool_fused(
+        x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
+        out.data_ptr(), x.shape[0], x.shape[1], x.shape[2], cin, cout, k,
+        _DTYPES[x.dtype], _native.stream_ptr(x.device))
+    _native.check("conv_relu_pool_fused", code)
+    if out.numel():  # the C entry launches nothing for no output
+        conv_relu_pool_fused_cuda.launches += 1
+    return out
+
+
+conv_relu_pool_fused_cuda.launches = 0
+
+
+class ConvReluPoolFused(torch.autograd.Function):
+    """``(x, weight, bias, plain) -> pooled``: kernel 6 forward (its plain
+    version for a CPU tensor or ``plain=True``). Backward: the exact
+    gradients of the unfused block, as ``_fused_bwd`` of the JAX package
+    takes them: the conv output is computed again by :func:`conv_nhwc`,
+    kernel C routes the cotangent through pool and ReLU and sums ``db``,
+    and the conv's own gradients follow. Saves ``x``, ``weight`` and
+    ``bias``; no conv output lives between forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, plain):
+        plain = plain or x.device.type == "cpu"
+        ctx.plain = plain
+        ctx.save_for_backward(x, weight, bias)
+        if plain:
+            return conv_relu_pool_fused_reference(x, weight, bias)
+        return conv_relu_pool_fused_cuda(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            x_in = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            w_in = weight.detach().requires_grad_(ctx.needs_input_grad[1])
+            y = conv_nhwc(x_in, w_in)
+        backward = (relu_maxpool_backward_reference if ctx.plain
+                    else relu_maxpool_backward_cuda)
+        dz, db = backward(g.contiguous(), y.detach(), bias.float())
+        inputs = [t for t in (x_in, w_in) if t.requires_grad]
+        grads = dict(zip(map(id, inputs),
+                         torch.autograd.grad(y, inputs, dz) if inputs else ()))
+        return (grads.get(id(x_in)), grads.get(id(w_in)),
+                db.to(y.dtype).to(bias.dtype), None)
+
+
+# Plain version of kernel 7. The arithmetic of the stem op is that of the
+# fused block (products of operands rounded to ``x``'s dtype, f32 sums,
+# bias, ReLU, the max of a window's four conv positions, one cast).
+conv_relu_pool_stem_reference = conv_relu_pool_fused_reference
+
+
+def conv_relu_pool_stem_cuda(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor) -> torch.Tensor:
+    """Kernel 7 on ``x``'s CUDA device; raises on any input it does not
+    take. The weight arrives in torch layout and is repacked here to f32
+    ``[k, k, Cin, Cout]`` holding values rounded to ``x``'s dtype."""
+    _check_fused_inputs(x, weight, bias, "conv_relu_pool_stem_cuda")
+    cout, cin, k, _ = weight.shape
+    if cout % 8:
+        raise ValueError(f"kernel 7 takes Cout a multiple of 8; got {cout}")
+    lib = _native.library()
+    packed = weight.detach().permute(2, 3, 1, 0).to(x.dtype).float(
+        ).contiguous()
+    out = _pooled_empty(x, weight)
+    bias32 = bias.detach().float().contiguous()
+    code = lib.vqa_conv_relu_pool_stem(
+        x.data_ptr(), packed.data_ptr(), bias32.data_ptr(),
+        out.data_ptr(), x.shape[0], x.shape[1], x.shape[2], cin, cout, k,
+        _DTYPES[x.dtype], _native.stream_ptr(x.device))
+    _native.check("conv_relu_pool_stem", code)
+    if out.numel():
+        conv_relu_pool_stem_cuda.launches += 1
+    return out
+
+
+conv_relu_pool_stem_cuda.launches = 0
+
+
+def conv_relu_pool_stem(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, plain: bool = False
+                        ) -> torch.Tensor:
+    """The stem block (stride 1, small ``Cin``) with no conv output in
+    memory, forward only as ``conv_relu_pool_stem`` of the JAX package: it
+    raises where a gradient would be recorded. Dispatch: a CPU tensor, or
+    ``plain=True``, runs the plain version; any other device runs kernel
+    7, which raises where it cannot launch."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        raise RuntimeError(
+            "conv_relu_pool_stem is forward only: call it under "
+            "torch.no_grad(), or use conv_relu_pool for gradients")
+    if plain or x.device.type == "cpu":
+        return conv_relu_pool_stem_reference(x, weight, bias)
+    return conv_relu_pool_stem_cuda(x, weight, bias)
+
+
 def conv_relu_pool(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                   stride: int = 1, plain: bool = False) -> torch.Tensor:
-    """The block on the model's path: conv, then :func:`relu_maxpool`."""
+                   stride: int = 1, plain: bool = False,
+                   fused: bool = False) -> torch.Tensor:
+    """The block on the model's path: conv, then :func:`relu_maxpool`.
+    ``fused=True`` sends stride 1 with ``Cin >= 16`` through kernel 6
+    (:class:`ConvReluPoolFused`) and leaves everything else on that path,
+    as ``use_pallas`` does in the JAX package; unlike there, nothing falls
+    back for want of an accelerator."""
+    if fused and stride == 1 and x.shape[-1] >= FUSED_MIN_CIN:
+        return ConvReluPoolFused.apply(x, weight, bias, plain)
     return relu_maxpool(conv_nhwc(x, weight, stride), bias, plain)

@@ -35,7 +35,8 @@ class Predictor:
     def __init__(self, model_cfg: ModelConfig, model: VqaNet,
                  vocab: Dict[str, Dict[str, int]], *, device=DEFAULT_DEVICE,
                  max_question_length: int = _LEGACY_QUESTION_LENGTH,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 fused_ops: bool = False):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
@@ -44,6 +45,7 @@ class Predictor:
         self.answer_by_id = {idx: ans for ans, idx in vocab["answer"].items()}
         self.max_question_length = int(max_question_length)
         self.compute_dtype = compute_dtype
+        self.fused_ops = fused_ops  # see VqaNet.forward
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str, vocab_path: str, *,
@@ -109,7 +111,8 @@ class Predictor:
             torch.as_tensor(images).to(self.device),
             torch.as_tensor(questions).to(self.device),
             torch.as_tensor(lengths).to(self.device),
-            compute_dtype=self.compute_dtype, plain_ops=plain_ops)
+            compute_dtype=self.compute_dtype, plain_ops=plain_ops,
+            fused_ops=self.fused_ops)
         return logits.cpu().numpy()
 
     def forward_probs(self, images, questions, lengths) -> np.ndarray:

@@ -59,12 +59,13 @@ def _to_device(batch: Dict, device: torch.device) -> Dict:
 def _forward_loss(
     model: torch.nn.Module, batch: Dict, train: bool,
     generator: Optional[torch.Generator], compute_dtype: torch.dtype,
-    plain_ops: bool,
+    plain_ops: bool, fused_ops: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(loss, score_sum, logits)``: the one forward of both steps."""
     logits = model(batch["images"], batch["questions"], batch["lengths"],
                    train=train, generator=generator,
-                   compute_dtype=compute_dtype, plain_ops=plain_ops)
+                   compute_dtype=compute_dtype, plain_ops=plain_ops,
+                   fused_ops=fused_ops)
     mask = batch.get("mask")
     loss = soft_cross_entropy(logits, batch["answer_indices"],
                               batch["answer_values"], mask)
@@ -78,6 +79,7 @@ def make_train_step(
     compute_dtype: torch.dtype = torch.bfloat16,
     accum_steps: int = 1,
     plain_ops: bool = False,
+    fused_ops: bool = False,
 ):
     """Build ``train_step(state, batch, generator) -> (state, metrics)``.
 
@@ -94,7 +96,10 @@ def make_train_step(
     a micro-batch's, the update sees the whole batch's gradient, equal to
     the unaccumulated step up to the order of sums. The batch size must
     divide evenly; every micro-batch draws its own dropout masks.
-    ``plain_ops=True`` runs the kernels' plain versions (the oracle).
+    ``plain_ops=True`` runs the kernels' plain versions (the oracle);
+    ``fused_ops=True`` flips the image encoder to its fused ops (see
+    :meth:`VqaNet.forward`; the forward-only ones stay off while gradients
+    are recorded).
     """
     cfg.check_ported()
     if accum_steps < 1:
@@ -109,7 +114,8 @@ def make_train_step(
 
         if accum_steps == 1:
             loss, score, _ = _forward_loss(model, batch, True, generator,
-                                           compute_dtype, plain_ops)
+                                           compute_dtype, plain_ops,
+                                           fused_ops)
             loss.backward()
             loss = loss.detach()
         else:
@@ -126,7 +132,8 @@ def make_train_step(
                 rows = slice(idx * micro_size, (idx + 1) * micro_size)
                 micro = {key: value[rows] for key, value in batch.items()}
                 micro_loss, micro_score, _ = _forward_loss(
-                    model, micro, True, generator, compute_dtype, plain_ops)
+                    model, micro, True, generator, compute_dtype, plain_ops,
+                    fused_ops)
                 # A micro's loss is normalised by ITS real count (clamped
                 # to 1 when all of it is padding). Averaging those would
                 # misweight a padded final batch whose real samples fall
@@ -164,6 +171,7 @@ def make_eval_step(
     compute_dtype: torch.dtype = torch.bfloat16,
     with_breakdown: bool = False,
     plain_ops: bool = False,
+    fused_ops: bool = False,
 ):
     """Build ``eval_step(model, batch) -> (loss, score_sum)``, 0-dim
     tensors on the model's device, to which the step moves the batch.
@@ -176,7 +184,8 @@ def make_eval_step(
     def eval_step(model: torch.nn.Module, batch: Dict):
         batch = _to_device(batch, next(model.parameters()).device)
         loss, score, logits = _forward_loss(model, batch, False, None,
-                                            compute_dtype, plain_ops)
+                                            compute_dtype, plain_ops,
+                                            fused_ops)
         if not with_breakdown:
             return loss, score
         sums, counts = vqa_accuracy_by_type(

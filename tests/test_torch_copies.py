@@ -140,11 +140,16 @@ def _port_sources():
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     """``import dl_vqa_tpu`` / ``from dl_vqa_tpu`` followed by a dot or
-    white space (``dl_vqa_tpu_torch`` is the port itself), and ``jax``."""
+    white space (``dl_vqa_tpu_torch`` is the port itself), ``jax``, and the
+    ``experiments`` scripts that two of the port's kernels come from."""
     pattern = re.compile(
-        r"^\s*(?:import|from)\s+(?:dl_vqa_tpu|jax)(?:[.\s,]|$)", re.M)
+        r"^\s*(?:import|from)\s+(?:dl_vqa_tpu|jax|experiments)(?:[.\s,]|$)",
+        re.M)
     sources = _port_sources()
     assert len(sources) > 15
+    names = {os.path.relpath(path, REPO) for path in sources}
+    assert {"dl_vqa_tpu_torch/ops/vit_mlp_fused.py",
+            "dl_vqa_tpu_torch/ops/layout_cases.py"} <= names
     offenders = []
     for path in sources:
         with open(path) as fd:
@@ -154,4 +159,5 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert pattern.search("from dl_vqa_tpu.data import text\n")
     assert pattern.search("    import dl_vqa_tpu\n")
     assert pattern.search("import jax.numpy as jnp\n")
+    assert pattern.search("from experiments import probe_vit_mlp_fused\n")
     assert not pattern.search("from dl_vqa_tpu_torch.ops import lstm\n")

@@ -18,11 +18,23 @@ from dl_vqa_tpu_torch.ops.attention_pool import (
     attention_pool_reference,
 )
 from dl_vqa_tpu_torch.ops.conv_fused import (
+    conv_relu_pool,
+    conv_relu_pool_fused_cuda,
+    conv_relu_pool_fused_reference,
+    conv_relu_pool_stem,
+    conv_relu_pool_stem_cuda,
+    conv_relu_pool_stem_reference,
     relu_maxpool,
     relu_maxpool_backward_cuda,
     relu_maxpool_backward_reference,
     relu_maxpool_cuda,
     relu_maxpool_reference,
+)
+from dl_vqa_tpu_torch.ops.layout_cases import (
+    MODES,
+    layout_case,
+    layout_case_cuda,
+    layout_case_reference,
 )
 from dl_vqa_tpu_torch.ops.lstm import (
     bilstm_final_cell,
@@ -42,6 +54,11 @@ from dl_vqa_tpu_torch.ops.vit_attention import (
     vit_attention_backward_reference,
     vit_attention_cuda,
     vit_attention_reference,
+)
+from dl_vqa_tpu_torch.ops.vit_mlp_fused import (
+    fused_ln_mlp,
+    fused_ln_mlp_cuda,
+    fused_ln_mlp_reference,
 )
 
 
@@ -462,3 +479,212 @@ def test_vit_attention_autograd_runs_kernels_4_and_5(device, dtype):
 def test_vit_wrappers_reject_what_the_kernels_do_not_take(device, call):
     with pytest.raises(ValueError):
         call(device)
+
+
+# ------------------------------------------------ kernels 6 to 9, the fused ops
+
+def _conv_case(device, dtype, batch, h, w, cin, cout, k, seed=11):
+    g = _gen(device, seed)
+    x = torch.randn(batch, h, w, cin, generator=g, device=device).to(dtype)
+    weight = torch.randn(cout, cin, k, k, generator=g, device=device) \
+        / (cin * k * k) ** 0.5
+    bias = torch.randn(cout, generator=g, device=device) * 0.1
+    return x, weight, bias
+
+
+def _assert_fused_close(got, want, dtype):
+    """f32: sums of up to a few thousand products in another order. bf16:
+    the f32 sums agree as closely, so the rounded outputs are equal except
+    where that difference moves the one rounding: a step at most."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        got, want = got.float(), want.float()
+        assert bool((got - want).abs().le(
+            2.0 ** -7 * want.abs().clamp(min=1e-3)).all())
+        assert float((got != want).float().mean()) < 0.02
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,h,w,cin,cout,k", [
+    (2, 37, 37, 16, 32, 3),   # the JAX test's odd conv size
+    (2, 24, 24, 16, 32, 5),   # k = 5
+    (1, 20, 41, 32, 64, 3),   # not square, two 16-column tiles and a bit
+    (3, 19, 18, 48, 128, 3),  # three 16-channel slices, the widest block
+    (2, 9, 11, 64, 256, 3),   # two channel tiles, one spatial tile
+    (1, 4, 4, 16, 32, 3),     # one window
+])
+def test_conv_relu_pool_fused_matches_plain(device, dtype, batch, h, w, cin,
+                                            cout, k):
+    x, weight, bias = _conv_case(device, dtype, batch, h, w, cin, cout, k)
+    before = conv_relu_pool_fused_cuda.launches
+    got = conv_relu_pool_fused_cuda(x, weight, bias)
+    assert conv_relu_pool_fused_cuda.launches == before + 1
+    assert got.shape == (batch, (h - k + 1) // 2, (w - k + 1) // 2, cout)
+    _assert_fused_close(got, conv_relu_pool_fused_reference(x, weight, bias),
+                        dtype)
+
+
+def test_conv_relu_pool_fused_f32_takes_channel_counts_off_the_tensor_tiles(
+        device):
+    x, weight, bias = _conv_case(device, torch.float32, 2, 15, 14, 20, 24, 3)
+    _assert_fused_close(conv_relu_pool_fused_cuda(x, weight, bias),
+                        conv_relu_pool_fused_reference(x, weight, bias),
+                        torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_relu_pool_fused_autograd_matches_the_unfused_block(device,
+                                                                 dtype):
+    """Kernel 6 forward, then the unfused block's backward on the conv
+    output computed again: the same cotangent gives the unfused block's
+    gradients (cuDNN's weight gradient sums with atomics)."""
+    x, weight, bias = _conv_case(device, dtype, 3, 21, 22, 16, 32, 3)
+    g = torch.randn(3, 9, 10, 32, generator=_gen(device, 12),
+                    device=device).to(dtype)
+    grads = []
+    for fused in (True, False):
+        args = [t.clone().requires_grad_() for t in (x, weight, bias)]
+        before = (conv_relu_pool_fused_cuda.launches,
+                  relu_maxpool_backward_cuda.launches,
+                  relu_maxpool_cuda.launches)
+        conv_relu_pool(*args, fused=fused).backward(g)
+        after = (conv_relu_pool_fused_cuda.launches,
+                 relu_maxpool_backward_cuda.launches,
+                 relu_maxpool_cuda.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (1, 2, 0) if fused else (0, 2, 1))
+        grads.append([t.grad for t in args])
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,h,w,cin,cout,k", [
+    (2, 34, 34, 3, 8, 3), (2, 21, 21, 3, 8, 3), (2, 28, 28, 3, 8, 5),
+    (3, 35, 50, 3, 64, 3),   # the reference stem's 64 channels, ragged tiles
+    (1, 20, 20, 1, 16, 3), (2, 17, 19, 4, 40, 2), (1, 4, 4, 3, 8, 3)])
+def test_conv_relu_pool_stem_matches_plain(device, dtype, batch, h, w, cin,
+                                           cout, k):
+    x, weight, bias = _conv_case(device, dtype, batch, h, w, cin, cout, k, 13)
+    before = conv_relu_pool_stem_cuda.launches
+    with torch.no_grad():
+        got = conv_relu_pool_stem(x, weight, bias)
+    assert conv_relu_pool_stem_cuda.launches == before + 1
+    _assert_fused_close(got, conv_relu_pool_stem_reference(x, weight, bias),
+                        dtype)
+
+
+def test_conv_relu_pool_stem_takes_a_view_off_a_16_byte_boundary(device):
+    """Rows of 3-channel pixels start anywhere; so may the tensor."""
+    x, weight, bias = _conv_case(device, torch.bfloat16, 3, 22, 23, 3, 8, 3)
+    view = x[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    _assert_fused_close(conv_relu_pool_stem_cuda(view, weight, bias),
+                        conv_relu_pool_stem_reference(view, weight, bias),
+                        torch.bfloat16)
+
+
+def _mlp_case(device, dtype, shape, hidden, seed=14):
+    g = _gen(device, seed)
+    dim = shape[-1]
+
+    def rand(*size, scale=1.0):
+        return torch.randn(*size, generator=g, device=device) * scale
+
+    return (rand(*shape).to(dtype), rand(dim), rand(dim),
+            rand(hidden, dim, scale=dim ** -0.5), rand(hidden),
+            rand(dim, hidden, scale=hidden ** -0.5), rand(dim))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,hidden", [
+    ((2, 196, 256), 1024), ((1, 1, 64), 64), ((3, 23, 128), 192),
+    ((130, 64), 256), ((5, 13, 256), 64)])
+def test_fused_ln_mlp_matches_plain(device, dtype, shape, hidden):
+    """f32: sums over D and F in another order, relative to the largest
+    output. bf16: ln and the hidden units are rounded on the way, and a
+    last-place difference in f32 flips a few of those roundings, each of
+    which moves an output by a fraction of its own rounding step: two
+    steps of the largest output at most, and most outputs equal."""
+    args = _mlp_case(device, dtype, shape, hidden)
+    before = fused_ln_mlp_cuda.launches
+    with torch.no_grad():
+        got = fused_ln_mlp(*args)
+    assert fused_ln_mlp_cuda.launches == before + 1
+    want = fused_ln_mlp_reference(*args)
+    assert got.shape == want.shape and got.dtype == dtype
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * top
+    else:
+        assert err <= 2 * 2.0 ** -8 * top
+        assert float((got != want).float().mean()) < 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [64, 128, 8])
+@pytest.mark.parametrize("mode", MODES)
+def test_layout_cases_are_exact(device, dtype, mode, channels):
+    x = torch.randn(16, 32, channels, generator=_gen(device, 15),
+                    device=device).to(dtype)
+    before = layout_case_cuda.launches
+    got = layout_case(x, mode)
+    assert layout_case_cuda.launches == before + 1
+    want = layout_case_reference(x, mode)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def _fused_calls(device):
+    x, weight, bias = _conv_case(device, torch.bfloat16, 1, 12, 12, 16, 32, 3)
+    mlp = _mlp_case(device, torch.bfloat16, (2, 3, 64), 64)
+    block = torch.zeros(4, 6, 8, device=device)
+    return {
+        "fused_stride": lambda: conv_relu_pool_fused_cuda(x, weight, bias, 2),
+        "fused_narrow": lambda: conv_relu_pool_fused_cuda(
+            x[..., :8].contiguous(), weight[:, :8], bias),
+        "fused_bf16_channels": lambda: conv_relu_pool_fused_cuda(
+            x, weight[:24], bias[:24]),
+        "fused_strided_input": lambda: conv_relu_pool_fused_cuda(
+            x.transpose(1, 2), weight, bias),
+        "fused_f16": lambda: conv_relu_pool_fused_cuda(x.half(), weight, bias),
+        "fused_filter_too_large": lambda: conv_relu_pool_fused_cuda(
+            x[:, :2], weight, bias),
+        "stem_channels": lambda: conv_relu_pool_stem_cuda(
+            x, weight[:12], bias[:12]),
+        "stem_cpu_weight": lambda: conv_relu_pool_stem_cuda(
+            x, weight.cpu(), bias),
+        "ln_mlp_width": lambda: fused_ln_mlp_cuda(*_mlp_case(
+            device, torch.bfloat16, (2, 3, 96), 64)),
+        "ln_mlp_hidden": lambda: fused_ln_mlp_cuda(*_mlp_case(
+            device, torch.bfloat16, (2, 3, 64), 96)),
+        "ln_mlp_f16": lambda: fused_ln_mlp_cuda(mlp[0].half(), *mlp[1:]),
+        "ln_mlp_strided": lambda: fused_ln_mlp_cuda(
+            mlp[0].transpose(0, 1), *mlp[1:]),
+        "layout_channels": lambda: layout_case_cuda(block[..., :6], "shift"),
+        "layout_odd_width": lambda: layout_case_cuda(block[:, :5], "split"),
+        "layout_int": lambda: layout_case_cuda(block.int(), "shift"),
+    }
+
+
+@pytest.mark.parametrize("call", [
+    "fused_stride", "fused_narrow", "fused_bf16_channels",
+    "fused_strided_input", "fused_f16", "fused_filter_too_large",
+    "stem_channels", "stem_cpu_weight", "ln_mlp_width", "ln_mlp_hidden",
+    "ln_mlp_f16", "ln_mlp_strided", "layout_channels", "layout_odd_width",
+    "layout_int"])
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(device, call):
+    with pytest.raises(ValueError):
+        _fused_calls(device)[call]()
+
+
+def test_forward_only_ops_raise_where_a_gradient_would_be_recorded(device):
+    x, weight, bias = _conv_case(device, torch.float32, 1, 12, 12, 3, 8, 3)
+    with pytest.raises(RuntimeError, match="forward only"):
+        conv_relu_pool_stem(x, weight.requires_grad_(), bias)
+    mlp = _mlp_case(device, torch.float32, (2, 3, 64), 64)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fused_ln_mlp(mlp[0].requires_grad_(), *mlp[1:])

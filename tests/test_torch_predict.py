@@ -143,22 +143,25 @@ def test_predictor_defaults_to_the_gpu(tmp_path):
 
 
 def test_port_imports_no_jax_yaml_pil_or_h5py():
-    """After importing every port module, answering one request and taking
-    one CPU train step with the CNN model and with the ViT model in a
-    fresh interpreter, none of JAX, the JAX package (``dl_vqa_tpu`` or any
-    ``dl_vqa_tpu.*``), PyYAML, PIL or h5py is loaded."""
+    """After importing every port module, answering one request (also
+    with ``fused_ops=True``) and taking one CPU train step with the CNN
+    model and with the ViT model in a fresh interpreter, none of JAX, the
+    JAX package (``dl_vqa_tpu`` or any ``dl_vqa_tpu.*``), the
+    ``experiments`` scripts, PyYAML, PIL or h5py is loaded."""
     code = (
         "import importlib, pkgutil, sys, numpy as np, torch\n"
         "import dl_vqa_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "dl_vqa_tpu_torch.__path__, 'dl_vqa_tpu_torch.')]\n"
         "assert len(names) > 15, names\n"
+        "assert {'dl_vqa_tpu_torch.ops.vit_mlp_fused',"
+        " 'dl_vqa_tpu_torch.ops.layout_cases'} <= set(names), names\n"
         "for name in names: importlib.import_module(name)\n"
         "from dl_vqa_tpu_torch.models.configs import ModelConfig\n"
         "from dl_vqa_tpu_torch.models.vqa import VqaNet\n"
         "from dl_vqa_tpu_torch.predict import Predictor\n"
         "from dl_vqa_tpu_torch.train import create_train_state, make_train_step\n"
-        "images = ({'num_channels': [3, 4, 4]}, {'encoder': 'vit',"
+        "images = ({'num_channels': [3, 16, 4]}, {'encoder': 'vit',"
         " 'num_channels': [3, 64], 'patch_size': 10, 'num_layers': 1,"
         " 'num_heads': 1})\n"
         "for image in images:\n"
@@ -169,6 +172,8 @@ def test_port_imports_no_jax_yaml_pil_or_h5py():
         "  model = VqaNet(cfg, device='cpu')\n"
         "  p = Predictor(cfg, model, {'question': {'a': 1, 'b': 2},"
         " 'answer': {'x': 1, 'y': 2, 'z': 3}}, device='cpu')\n"
+        "  print(p.predict(np.zeros((1, 20, 20, 3), np.uint8), ['a b'], 2))\n"
+        "  p.fused_ops = True\n"
         "  print(p.predict(np.zeros((1, 20, 20, 3), np.uint8), ['a b'], 2))\n"
         "  state = create_train_state(model, 1e-3, device='cpu')\n"
         "  step = make_train_step(cfg, compute_dtype=torch.float32)\n"
@@ -181,7 +186,8 @@ def test_port_imports_no_jax_yaml_pil_or_h5py():
         " torch.Generator().manual_seed(0))\n"
         "  assert state.step == 1 and bool(torch.isfinite(metrics['loss']))\n"
         "bad = [m for m in sys.modules if m in ('jax', 'yaml', 'PIL', 'h5py',"
-        " 'dl_vqa_tpu') or m.startswith(('jax.', 'dl_vqa_tpu.'))]\n"
+        " 'dl_vqa_tpu', 'experiments')"
+        " or m.startswith(('jax.', 'dl_vqa_tpu.', 'experiments.'))]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
