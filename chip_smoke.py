@@ -45,10 +45,9 @@ and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 and the layout probe) is driven with the kernels' launch counts set to 0
 just before it and read just after. Then one JSON line with every kernel's
 launches (grids launched in those runs; the LSTM launches one per timestep,
-the pool backward and the attention backward two per call), error, times
-and bound, and as the last line ``{"ok": true, "device": {...}}``. Every
-time printed was taken on the card whose name and power limit the first
-line gives.
+the pool backward two per call), error, times and bound, and as the last
+line ``{"ok": true, "device": {...}}``. Every time printed was taken on the
+card whose name and power limit the first line gives.
 Any failed check raises and the exit code is nonzero; without CUDA it
 exits nonzero at once. Imports no JAX.
 """
@@ -295,6 +294,25 @@ def lstm_inputs(torch, gen, batch, dtype, device):
     return x_proj, master.to(dtype), lengths, master
 
 
+def lstm_library_ms(torch, gen, device, lengths, train: bool) -> float:
+    """ms of one bf16 ``nn.LSTM(bidirectional=True)`` forward (cuDNN) on a
+    PackedSequence of ``lengths``, packed before the timing: kernel 1's
+    yardstick in eval mode, kernel A's in train mode (which keeps what the
+    backward needs). It also does the input GEMM, which kernels 1 and A
+    leave outside."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    lstm = torch.nn.LSTM(EMBED, HIDDEN, batch_first=True,
+                         bidirectional=True).to(device, torch.bfloat16)
+    lstm.train(train)
+    x = torch.tanh(torch.randn(len(lengths), SEQ_LEN, EMBED, generator=gen,
+                               device=device)).to(torch.bfloat16)
+    packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
+                                  enforce_sorted=False)
+    with torch.set_grad_enabled(train):
+        return timed(torch, lambda: lstm(packed), iters=10)
+
+
 def lstm_kernels(torch, gen, device, summary) -> None:
     """Kernel 1, its save mode (kernel A) and the backward step (kernel
     B) at T=23, H=1024, two directions."""
@@ -332,11 +350,16 @@ def lstm_kernels(torch, gen, device, summary) -> None:
             ms, plain_ms = timed_pair(
                 torch, lambda: lstm_recurrence_reference(*args),
                 lambda: lstm_recurrence_cuda(*args), iters=iters)
-            report("lstm_recurrence", dtype, batch, err, tol, ms, plain_ms)
+            library_ms = (lstm_library_ms(torch, gen, device, lengths,
+                                          train=False)
+                          if main and batch == BATCH else None)
+            report("lstm_recurrence", dtype, batch, err, tol, ms, plain_ms,
+                   "" if library_ms is None else
+                   f", nn.LSTM eval (with the input GEMM) {library_ms:.4f} ms")
             if main and batch == BATCH:
                 summary["lstm_recurrence"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": None,
+                    "library_ms": library_ms,
                     **bound(nbytes(x_proj, w_hh, lengths, h, c), product_ops,
                             kind)}
             if batch == 1:
@@ -353,12 +376,18 @@ def lstm_kernels(torch, gen, device, summary) -> None:
             ms, plain_ms = timed_pair(
                 torch, lambda: lstm_recurrence_save_reference(*args),
                 lambda: lstm_recurrence_save_cuda(*args), iters=iters)
+            library_ms = (lstm_library_ms(torch, gen, device, lengths,
+                                          train=True)
+                          if main and batch == BATCH else None)
             report("lstm_recurrence_save", dtype, batch, err, tol, ms,
-                   plain_ms, " | final (h, c) equal kernel 1's bits")
+                   plain_ms, " | final (h, c) equal kernel 1's bits" + (
+                       "" if library_ms is None else
+                       f" | nn.LSTM train-mode forward (with the input "
+                       f"GEMM) {library_ms:.4f} ms"))
             if main and batch == BATCH:
                 summary["lstm_recurrence_save"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": None,
+                    "library_ms": library_ms,
                     **bound(nbytes(x_proj, w_hh, lengths, *saved),
                             product_ops, kind)}
 
@@ -544,6 +573,16 @@ def vit_kernels(torch, gen, device, summary) -> None:
         require(err <= tol, f"{name} {dtype} B={batch}: {err} > {tol}")
         return err, tol, note
 
+    def library(x):
+        # The same function through one PyTorch call, the split and the
+        # merge of the heads included, as the kernel includes them.
+        batch = x.shape[0]
+        q, k, v = (t.reshape(batch, VIT_TOKENS, VIT_HEADS,
+                             VIT_HEAD).transpose(1, 2)
+                   for t in x.chunk(3, dim=-1))
+        return F.scaled_dot_product_attention(q, k, v).transpose(
+            1, 2).reshape(batch, VIT_TOKENS, dim)
+
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
         kind = "bf16" if main else "f32"
@@ -565,28 +604,18 @@ def vit_kernels(torch, gen, device, summary) -> None:
             ms, plain_ms = timed_pair(
                 torch, lambda: vit_attention_reference(qkv, VIT_HEADS),
                 lambda: vit_attention_cuda(qkv, VIT_HEADS), iters=iters)
-
-            def library():
-                # The same function through one PyTorch call, the split
-                # and the merge of the heads included, as the kernel
-                # includes them.
-                q, k, v = (t.reshape(batch, VIT_TOKENS, VIT_HEADS,
-                                     VIT_HEAD).transpose(1, 2)
-                           for t in qkv.chunk(3, dim=-1))
-                return F.scaled_dot_product_attention(q, k, v).transpose(
-                    1, 2).reshape(batch, VIT_TOKENS, dim)
-
-            library_ms = timed(torch, library, iters=iters)
+            library_ms = timed(torch, lambda: library(qkv), iters=iters)
+            least = bound(nbytes(qkv, out), 2 * product, kind)
             log(f"kernel vit_attention {kind} qkv {list(qkv.shape)}: "
                 f"max_abs_err {err:.3e} (tol {tol:.3g}){note} | kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"F.scaled_dot_product_attention with split and merge "
-                f"{library_ms:.4f} ms")
+                f"{library_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+                f"{least['bound_by']}")
             if main and batch == BATCH:
                 summary["vit_attention"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms,
-                    **bound(nbytes(qkv, out), 2 * product, kind)}
+                    "library_ms": library_ms, **least}
 
             dqkv = vit_attention_backward_cuda(qkv, g, VIT_HEADS)
             again = vit_attention_backward_cuda(qkv, g, VIT_HEADS)
@@ -604,16 +633,29 @@ def vit_kernels(torch, gen, device, summary) -> None:
                 lambda: vit_attention_backward_reference(qkv, g, VIT_HEADS),
                 lambda: vit_attention_backward_cuda(qkv, g, VIT_HEADS),
                 iters=iters)
+            # The library call's backward alone: its graph is built once
+            # on a leaf, then only the gradient is taken (split and merge
+            # included, as for the forward).
+            leaf = qkv.detach().requires_grad_(True)
+            lib_out = library(leaf)
+            library_ms = timed(
+                torch, lambda: torch.autograd.grad(lib_out, leaf, g,
+                                                   retain_graph=True),
+                iters=iters)
+            del lib_out, leaf
+            # Five products: the scores, dv, dw, dq, dk.
+            least = bound(nbytes(qkv, g, dqkv), 5 * product, kind)
             log(f"kernel vit_attention_backward {kind} qkv "
                 f"{list(qkv.shape)}: max_abs_err {err:.3e} (tol {tol:.3g})"
                 f"{note}, the same digits on two runs | kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
+                f"plain {plain_ms:.4f} ms, the backward of "
+                f"F.scaled_dot_product_attention with split and merge "
+                f"{library_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+                f"{least['bound_by']}")
             if main and batch == BATCH:
-                # Five products: the scores, dv, dw, dq, dk.
                 summary["vit_attention_backward"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": None,
-                    **bound(nbytes(qkv, g, dqkv), 5 * product, kind)}
+                    "library_ms": library_ms, **least}
             del qkv, g, out, dqkv
 
 
@@ -1136,9 +1178,11 @@ PROFILE_PARTS = (
     ("kernel B, LSTM backward step", ("lstm_backward_step_kernel",)),
     ("kernels A and 1, LSTM recurrence", ("lstm_step_kernel",)),
     ("kernel 3, attention pool", ("attention_pool_kernel",)),
-    ("kernel 5, ViT attention backward", ("attention_bwd_dq_kernel",
+    ("kernel 5, ViT attention backward", ("attention_bwd_mma_kernel",
+                                          "attention_bwd_dq_kernel",
                                           "attention_bwd_dkdv_kernel")),
-    ("kernel 4, ViT attention", ("vit_attention_kernel",)),
+    ("kernel 4, ViT attention", ("attention_mma_kernel",
+                                 "attention_fma_kernel")),
     ("kernel 6, fused conv block", ("conv_pool_mma_kernel",)),
     ("kernel 7, stem (and kernel 6 in f32)", ("conv_pool_direct_kernel",)),
     ("kernel 8, LN + MLP", ("ln_mlp_mma_kernel", "ln_mlp_fma_kernel")),
@@ -1588,9 +1632,10 @@ def main(argv=None) -> int:
     # 23 save-mode grids and 23 backward grids, one glimpse pooling, and
     # for the CNN three pool blocks forward (a grid each) and backward (two
     # grids each: the routing, then the sum of its partial bias sums), for
-    # the ViT four attention cores forward (a grid each) and backward (two
-    # grids each: dq over query tiles, then dk and dv over key tiles); the
-    # eval step adds kernel 1 and a forward's grids.
+    # the ViT four attention cores forward and backward (a grid each; in
+    # bf16 the backward's block runs over a head's query rows for dq, then
+    # over its key rows for dk and dv); the eval step adds kernel 1 and a
+    # forward's grids.
     lstm_training = {"lstm_recurrence": SEQ_LEN,
                      "lstm_recurrence_save": TRAIN_STEPS * SEQ_LEN,
                      "lstm_backward_step": TRAIN_STEPS * SEQ_LEN,
@@ -1618,7 +1663,7 @@ def main(argv=None) -> int:
         "vit_training": train_phase(
             torch, args.seed, args.profile, vit_config(), "vit",
             {**lstm_training, "vit_attention": vit_layers * (TRAIN_STEPS + 1),
-             "vit_attention_backward": 2 * vit_layers * TRAIN_STEPS},
+             "vit_attention_backward": vit_layers * TRAIN_STEPS},
             accumulate=False),
         # The flip: the stem and two conv blocks in place of three pool
         # grids; a fused LN + MLP a ViT layer beside its attention core; a

@@ -64,10 +64,10 @@ _SIGNATURES = {
                                   _P],
     # v, att, out, batch, spatial, channels, glimpses, dtype code, stream
     "vqa_attention_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qkv, out, batch, seq, heads, dtype code, stream
-    "vqa_vit_attention": [_P, _P, _I, _I, _I, _I, _P],
-    # qkv, g, dqkv, stats (f32 scratch [B, H, 3, S]), batch, seq, heads,
-    # dtype code, stream
+    # qkv, out, batch, seq, heads, the device's SM count, dtype code, stream
+    "vqa_vit_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, g, dqkv, stats (f32 scratch [B, H, 3, S] of the f32 path; null
+    # for bf16), batch, seq, heads, dtype code, stream
     "vqa_vit_attention_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w [k * k, Cin, Cout], bias, out, batch, h, w, cin, cout, k, dtype
     # code, stream

@@ -20,9 +20,11 @@ Kernel 5 (``csrc/vit_attention_backward.cu``) replaces
 denom)`` (here the weights are normalised before the cast), ``dv = f32(w^T
 g)``, ``dw = f32(g v^T)``, ``dz = cast(f32(w) (dw - rowsum(dw f32(w))))``,
 ``dq = f32(dz k) / sqrt(D)``, ``dk = f32(dz^T q) / sqrt(D)`` and writes
-the packed ``dqkv`` like ``qkv``. It launches two grids (one over query
-rows for ``dq``, one over key rows for ``dk`` and ``dv``) and gives the
-same digits on every run.
+the packed ``dqkv`` like ``qkv``. In bf16 it launches one grid, a block
+per (image, head) that runs over the query rows for ``dq`` and then over
+the key rows for ``dk`` and ``dv``; in f32 two grids with the row
+statistics in a device scratch between them. Both give the same digits
+on every run.
 
 What bounds both on this card is memory traffic (each reads and writes
 only ``[B, S, .]`` tensors, 205 MB and 360 MB at B = 512, S = 196, H = 4,
@@ -37,6 +39,8 @@ residual is the packed ``qkv``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from dl_vqa_tpu_torch.ops import _native
@@ -47,7 +51,7 @@ __all__ = ["vit_attention_reference", "vit_attention_cuda",
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZE = 64   # csrc/vit_attention.cuh kHead
-MAX_SEQ = 256    # k and v (or q and g) of a head stay whole in shared memory
+MAX_SEQ = 256    # a head whole in shared memory, a score row in registers
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -128,6 +132,13 @@ def _check_cuda(qkv: torch.Tensor, num_heads: int, what: str) -> None:
                          "launch grid (65535)")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``: below this many (image, head) pairs the
+    bf16 forward spreads a head's query slabs over several blocks."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def vit_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Kernel 4 on ``qkv``'s CUDA device; raises on any input it does not
     take."""
@@ -138,7 +149,8 @@ def vit_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
                       device=qkv.device)
     code = lib.vqa_vit_attention(
         qkv.data_ptr(), out.data_ptr(), batch, seq, num_heads,
-        _DTYPES[qkv.dtype], _native.stream_ptr(qkv.device))
+        _sm_count(qkv.device.index), _DTYPES[qkv.dtype],
+        _native.stream_ptr(qkv.device))
     _native.check("vit_attention", code)
     if batch and seq:  # the C entry launches nothing for empty input
         vit_attention_cuda.launches += 1
@@ -164,17 +176,19 @@ def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
         raise ValueError("g must be contiguous")
     lib = _native.library()
     dqkv = torch.empty_like(qkv)
-    # Per query row m, denom and rowsum(dw w): the first grid writes them,
-    # the second reads them.
-    stats = torch.empty(batch, num_heads, 3, seq, dtype=torch.float32,
-                        device=qkv.device)
+    # bf16: one grid, the row statistics stay in shared memory. f32: per
+    # query row m, denom and rowsum(dw w), which the first of two grids
+    # writes and the second reads.
+    two_grids = qkv.dtype == torch.float32
+    stats = (torch.empty(batch, num_heads, 3, seq, dtype=torch.float32,
+                         device=qkv.device) if two_grids else None)
     code = lib.vqa_vit_attention_backward(
-        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        batch, seq, num_heads, _DTYPES[qkv.dtype],
-        _native.stream_ptr(qkv.device))
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+        stats.data_ptr() if two_grids else None, batch, seq, num_heads,
+        _DTYPES[qkv.dtype], _native.stream_ptr(qkv.device))
     _native.check("vit_attention_backward", code)
     if batch and seq:
-        vit_attention_backward_cuda.launches += 2  # the dq grid, the dk/dv grid
+        vit_attention_backward_cuda.launches += 2 if two_grids else 1
     return dqkv
 
 

@@ -377,6 +377,19 @@ def _vit_inputs(device, dtype, batch, seq, heads, seed=7):
     return qkv, cot
 
 
+# Grids a kernel-5 call launches: bf16 one block per (image, head) for dq
+# and then dk and dv; f32 a dq grid and a dk/dv grid.
+_BWD_GRIDS = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def _batches_around_the_sm_count(device, heads):
+    """The batches whose B * heads lie just below and just above the SM
+    count: there the bf16 forward changes from blocks of four query slabs to
+    a block a head."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return (sms - 1) // heads, sms // heads + 1
+
+
 def _assert_vit_close(got, want, dtype, steps):
     """f32: sums in another order, 1e-5 absolute on values of order 1.
     bf16: equal except where a last-place f32 difference moves a rounding
@@ -406,16 +419,45 @@ def test_vit_attention_matches_plain(device, dtype, batch, seq, heads):
 @pytest.mark.parametrize("batch,seq,heads", VIT_SHAPES)
 def test_vit_attention_backward_matches_plain(device, dtype, batch, seq,
                                               heads):
-    """Also: two grids a call, and the same digits on a second run."""
+    """Also: one grid a call in bf16 (two in f32), and the same digits on a
+    second run."""
     qkv, cot = _vit_inputs(device, dtype, batch, seq, heads)
     before = vit_attention_backward_cuda.launches
     got = vit_attention_backward_cuda(qkv, cot, heads)
     torch.cuda.synchronize()
-    assert vit_attention_backward_cuda.launches == before + 2
+    assert vit_attention_backward_cuda.launches == before + _BWD_GRIDS[dtype]
     assert got.shape == qkv.shape and got.dtype == dtype
     _assert_vit_close(got, vit_attention_backward_reference(qkv, cot, heads),
                       dtype, 2)
     assert torch.equal(got, vit_attention_backward_cuda(qkv, cot, heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side", [0, 1], ids=["below", "above"])
+def test_vit_attention_around_the_sm_count(device, dtype, side):
+    """B * H just below and just above the SM count, S = 196, H = 4."""
+    batch = _batches_around_the_sm_count(device, 4)[side]
+    qkv, cot = _vit_inputs(device, dtype, batch, 196, 4)
+    _assert_vit_close(vit_attention_cuda(qkv, 4),
+                      vit_attention_reference(qkv, 4), dtype, 1)
+    _assert_vit_close(vit_attention_backward_cuda(qkv, cot, 4),
+                      vit_attention_backward_reference(qkv, cot, 4), dtype, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attention_bits_do_not_depend_on_the_batch(device, dtype):
+    """An image's kernel-4 output and kernel-5 gradient are the same bits in
+    a batch of 1, 8 or 64 and at B * H just below and just above the SM
+    count: a row's arithmetic does not depend on which block takes it."""
+    heads = 4
+    sizes = sorted({1, 8, 64, *_batches_around_the_sm_count(device, heads)})
+    qkv, cot = _vit_inputs(device, dtype, sizes[-1], 196, heads)
+    outs = [vit_attention_cuda(qkv[:n], heads) for n in sizes]
+    grads = [vit_attention_backward_cuda(qkv[:n], cot[:n], heads)
+             for n in sizes]
+    for n, out, grad in zip(sizes, outs, grads):
+        assert torch.equal(out, outs[-1][:n])
+        assert torch.equal(grad, grads[-1][:n])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -437,8 +479,8 @@ def test_vit_attention_heads_are_not_mixed(device, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vit_attention_autograd_runs_kernels_4_and_5(device, dtype):
-    """Through the Function on a CUDA tensor: one forward grid, two
-    backward grids, a non-contiguous cotangent made contiguous, and the
+    """Through the Function on a CUDA tensor: one forward grid, the
+    backward's grids, a non-contiguous cotangent made contiguous, and the
     plain path's gradient."""
     qkv, cot = _vit_inputs(device, dtype, 3, 50, 2)
     leaf = qkv.clone().requires_grad_(True)
@@ -447,8 +489,8 @@ def test_vit_attention_autograd_runs_kernels_4_and_5(device, dtype):
     out = vit_attention(leaf, 2)
     out.transpose(0, 1).backward(cot.transpose(0, 1))
     assert (vit_attention_cuda.launches,
-            vit_attention_backward_cuda.launches) == (counts[0] + 1,
-                                                      counts[1] + 2)
+            vit_attention_backward_cuda.launches) == (
+                counts[0] + 1, counts[1] + _BWD_GRIDS[dtype])
     plain_leaf = qkv.clone().requires_grad_(True)
     vit_attention(plain_leaf, 2, plain=True).backward(cot)
     assert vit_attention_cuda.launches == counts[0] + 1
