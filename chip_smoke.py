@@ -44,9 +44,10 @@ Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 and the layout probe) is driven with the kernels' launch counts set to 0
 just before it and read just after. Then one JSON line with every kernel's
-launches (grids launched in those runs; the LSTM launches one per timestep,
-the pool backward two per call), error, times and bound, and as the last
-line ``{"ok": true, "device": {...}}``. Every time printed was taken on the
+launches (grids launched in those runs; the LSTM recurrence one a call in
+bf16, the LSTM backward one per timestep, the pool backward two per call),
+error, times and bound, and as the last line ``{"ok": true, "device":
+{...}}``. Every time printed was taken on the
 card whose name and power limit the first line gives.
 Any failed check raises and the exit code is nonzero; without CUDA it
 exits nonzero at once. Imports no JAX.
@@ -294,19 +295,36 @@ def lstm_inputs(torch, gen, batch, dtype, device):
     return x_proj, master.to(dtype), lengths, master
 
 
+def recurrence_grids(torch) -> int:
+    """Grids one bf16 call of kernel 1 or A launches at D = 2, H = 1024:
+    one persistent launch where the plan has room, else one a timestep. A
+    card of 128 SMs or more (an H100 SXM has 132) must have the plan: a
+    change that lost it would otherwise pass here on the per-step grids."""
+    from dl_vqa_tpu_torch.ops.lstm_cuda import persistent_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = persistent_plan(2, HIDDEN, torch.bfloat16, sms)
+    require(plan is not None or sms < 128,
+            f"no persistent plan for D=2, H={HIDDEN} bf16 on {sms} SMs")
+    return SEQ_LEN if plan is None else 1
+
+
 def lstm_library_ms(torch, gen, device, lengths, train: bool) -> float:
-    """ms of one bf16 ``nn.LSTM(bidirectional=True)`` forward (cuDNN) on a
+    """ms of one ``nn.LSTM(bidirectional=True)`` forward (cuDNN) on a
     PackedSequence of ``lengths``, packed before the timing: kernel 1's
     yardstick in eval mode, kernel A's in train mode (which keeps what the
     backward needs). It also does the input GEMM, which kernels 1 and A
-    leave outside."""
+    leave outside. In fp16, which has bf16's bytes and operations: PyTorch
+    flattens no bf16 weights for cuDNN, so a bf16 module repacks them on
+    every call (and its time swings with that)."""
     from torch.nn.utils.rnn import pack_padded_sequence
 
     lstm = torch.nn.LSTM(EMBED, HIDDEN, batch_first=True,
-                         bidirectional=True).to(device, torch.bfloat16)
+                         bidirectional=True).to(device, torch.float16)
+    lstm.flatten_parameters()
     lstm.train(train)
     x = torch.tanh(torch.randn(len(lengths), SEQ_LEN, EMBED, generator=gen,
-                               device=device)).to(torch.bfloat16)
+                               device=device)).to(torch.float16)
     packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
                                   enforce_sorted=False)
     with torch.set_grad_enabled(train):
@@ -329,12 +347,15 @@ def lstm_kernels(torch, gen, device, summary) -> None:
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms{extra}")
         require(err <= tol, f"{name} {dtype} B={batch}: {err} > {tol}")
 
+    by_batch = {"lstm_recurrence": {}, "lstm_recurrence_save": {}}
     for dtype, tol in ((torch.bfloat16, TOL["lstm_bf16"]),
                        (torch.float32, TOL["lstm_f32"])):
         main = dtype == torch.bfloat16
-        for batch in (1, 8, BATCH):
+        # 1, 8 and 64 are serving buckets of serve.py, 512 the batch of the
+        # paths below.
+        for batch in (1, 8, 64, BATCH):
             # f32 at batch 512 is off the main path and slow on both sides.
-            iters = 10 if main or batch < BATCH else 3
+            iters = (10 if main else 3) if batch == BATCH else 20
             x_proj, w_hh, lengths, master = lstm_inputs(
                 torch, gen, batch, dtype, device)
             args = (x_proj, w_hh, lengths)
@@ -343,7 +364,14 @@ def lstm_kernels(torch, gen, device, summary) -> None:
             product_ops = 2.0 * steps * 4 * HIDDEN * HIDDEN
             kind = "bf16" if main else "f32"
 
+            before = lstm_recurrence_cuda.launches
             h, c = lstm_recurrence_cuda(*args)
+            # In bf16 the call is the persistent kernel where the card has
+            # a plan, not the per-step grids.
+            require(not main or lstm_recurrence_cuda.launches - before
+                    == recurrence_grids(torch),
+                    f"lstm_recurrence bf16 B={batch}: "
+                    f"{lstm_recurrence_cuda.launches - before} grids")
             hr, cr = lstm_recurrence_reference(*args)
             torch.cuda.synchronize()
             err = max(max_err(h, hr), max_err(c, cr))
@@ -351,22 +379,26 @@ def lstm_kernels(torch, gen, device, summary) -> None:
                 torch, lambda: lstm_recurrence_reference(*args),
                 lambda: lstm_recurrence_cuda(*args), iters=iters)
             library_ms = (lstm_library_ms(torch, gen, device, lengths,
-                                          train=False)
-                          if main and batch == BATCH else None)
+                                          train=False) if main else None)
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     **bound(nbytes(x_proj, w_hh, lengths, h, c),
+                             product_ops, kind)}
             report("lstm_recurrence", dtype, batch, err, tol, ms, plain_ms,
                    "" if library_ms is None else
-                   f", nn.LSTM eval (with the input GEMM) {library_ms:.4f} ms")
-            if main and batch == BATCH:
-                summary["lstm_recurrence"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms,
-                    **bound(nbytes(x_proj, w_hh, lengths, h, c), product_ops,
-                            kind)}
-            if batch == 1:
-                continue
+                   f", fp16 nn.LSTM eval (with the input GEMM) "
+                   f"{library_ms:.4f} ms | bound {entry['bound_ms']:.4f} ms "
+                   f"by {entry['bound_by']}")
+            if main:
+                by_batch["lstm_recurrence"][batch] = entry
 
             # Kernel A: kernel 1's bits, plus the saved gates and carries.
+            before = lstm_recurrence_save_cuda.launches
             saved = lstm_recurrence_save_cuda(*args)
+            require(not main or lstm_recurrence_save_cuda.launches - before
+                    == recurrence_grids(torch),
+                    f"lstm_recurrence_save bf16 B={batch}: "
+                    f"{lstm_recurrence_save_cuda.launches - before} grids")
             plain_saved = lstm_recurrence_save_reference(*args)
             torch.cuda.synchronize()
             require(torch.equal(saved[0], h) and torch.equal(saved[1], c),
@@ -377,19 +409,21 @@ def lstm_kernels(torch, gen, device, summary) -> None:
                 torch, lambda: lstm_recurrence_save_reference(*args),
                 lambda: lstm_recurrence_save_cuda(*args), iters=iters)
             library_ms = (lstm_library_ms(torch, gen, device, lengths,
-                                          train=True)
-                          if main and batch == BATCH else None)
+                                          train=True) if main else None)
+            entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     **bound(nbytes(x_proj, w_hh, lengths, *saved),
+                             product_ops, kind)}
             report("lstm_recurrence_save", dtype, batch, err, tol, ms,
                    plain_ms, " | final (h, c) equal kernel 1's bits" + (
                        "" if library_ms is None else
-                       f" | nn.LSTM train-mode forward (with the input "
-                       f"GEMM) {library_ms:.4f} ms"))
-            if main and batch == BATCH:
-                summary["lstm_recurrence_save"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms,
-                    **bound(nbytes(x_proj, w_hh, lengths, *saved),
-                            product_ops, kind)}
+                       f" | fp16 nn.LSTM train-mode forward (with the input "
+                       f"GEMM) {library_ms:.4f} ms | bound "
+                       f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}"))
+            if main:
+                by_batch["lstm_recurrence_save"][batch] = entry
+            if batch == 1:
+                continue
 
             # Kernel B: the whole backward from saved states on both
             # paths, then its T launches alone against T plain steps.
@@ -452,6 +486,11 @@ def lstm_kernels(torch, gen, device, summary) -> None:
                     "library_ms": None,
                     **bound(moved, 40.0 * real * SEQ_LEN * dh.numel(), "f32")}
             del saved, gates, c_all, h_all, dgates
+    # The batch-512 entries lead the result line; the serving buckets ride
+    # along under "by_batch".
+    for name, entries in by_batch.items():
+        summary[name] = {**entries[BATCH], "by_batch": {
+            str(b): entry for b, entry in entries.items() if b != BATCH}}
 
 
 def tied_values(torch, shape, dtype, gen, device):
@@ -1176,7 +1215,8 @@ PROFILE_PARTS = (
                                            "sum_partials_kernel")),
     ("kernel 2, bias+ReLU+pool", ("relu_maxpool_kernel",)),
     ("kernel B, LSTM backward step", ("lstm_backward_step_kernel",)),
-    ("kernels A and 1, LSTM recurrence", ("lstm_step_kernel",)),
+    ("kernels A and 1, LSTM recurrence", ("lstm_persistent_kernel",
+                                          "lstm_step_kernel")),
     ("kernel 3, attention pool", ("attention_pool_kernel",)),
     ("kernel 5, ViT attention backward", ("attention_bwd_mma_kernel",
                                           "attention_bwd_dq_kernel",
@@ -1629,28 +1669,32 @@ def main(argv=None) -> int:
 
     # Grids a kernel launches on each path. Serving: one forward of the 8
     # requests. Training: 8 train steps and one eval step; per train step
-    # 23 save-mode grids and 23 backward grids, one glimpse pooling, and
-    # for the CNN three pool blocks forward (a grid each) and backward (two
-    # grids each: the routing, then the sum of its partial bias sums), for
-    # the ViT four attention cores forward and backward (a grid each; in
+    # one recurrence (kernel A) and 23 backward grids, one glimpse pooling,
+    # and for the CNN three pool blocks forward (a grid each) and backward
+    # (two grids each: the routing, then the sum of its partial bias sums),
+    # for the ViT four attention cores forward and backward (a grid each; in
     # bf16 the backward's block runs over a head's query rows for dq, then
     # over its key rows for dk and dv); the eval step adds kernel 1 and a
-    # forward's grids.
-    lstm_training = {"lstm_recurrence": SEQ_LEN,
-                     "lstm_recurrence_save": TRAIN_STEPS * SEQ_LEN,
+    # forward's grids. A recurrence (kernel 1 or A) in bf16 is one
+    # persistent launch (required on an H100 SXM, see recurrence_grids).
+    recurrence = recurrence_grids(torch)
+    log(f"lstm recurrence: {recurrence} grid(s) a call in bf16")
+    lstm_training = {"lstm_recurrence": recurrence,
+                     "lstm_recurrence_save": TRAIN_STEPS * recurrence,
                      "lstm_backward_step": TRAIN_STEPS * SEQ_LEN,
                      "attention_pool": TRAIN_STEPS + 1}
     vit_layers = vit_config().image.num_layers
     # A forward with the flip on and gradients off, served or evaluated.
-    cnn_fused_forward = {"lstm_recurrence": SEQ_LEN, "conv_relu_pool_stem": 1,
+    cnn_fused_forward = {"lstm_recurrence": recurrence,
+                         "conv_relu_pool_stem": 1,
                          "conv_relu_pool_fused": 2, "attention_pool": 1}
-    vit_fused_forward = {"lstm_recurrence": SEQ_LEN, "attention_pool": 1,
+    vit_fused_forward = {"lstm_recurrence": recurrence, "attention_pool": 1,
                          "vit_attention": vit_layers,
                          "vit_mlp_fused": vit_layers}
     paths = {
         "cnn_serving": slice_phase(
             torch, args.seed, ModelConfig(), "cnn",
-            {"lstm_recurrence": SEQ_LEN, "relu_maxpool": 3,
+            {"lstm_recurrence": recurrence, "relu_maxpool": 3,
              "attention_pool": 1}),
         "cnn_training": train_phase(
             torch, args.seed, args.profile, ModelConfig(), "cnn",
@@ -1658,7 +1702,7 @@ def main(argv=None) -> int:
              "relu_maxpool_backward": 6 * TRAIN_STEPS}, accumulate=True),
         "vit_serving": slice_phase(
             torch, args.seed, vit_config(), "vit",
-            {"lstm_recurrence": SEQ_LEN, "attention_pool": 1,
+            {"lstm_recurrence": recurrence, "attention_pool": 1,
              "vit_attention": vit_layers}),
         "vit_training": train_phase(
             torch, args.seed, args.profile, vit_config(), "vit",
@@ -1680,7 +1724,8 @@ def main(argv=None) -> int:
             torch, args.seed, vit_config(), "vit", vit_fused_forward),
         "cnn_fused_training": fused_train_phase(
             torch, args.seed, ModelConfig(),
-            {"lstm_recurrence_save": SEQ_LEN, "lstm_backward_step": SEQ_LEN,
+            {"lstm_recurrence_save": recurrence,
+             "lstm_backward_step": SEQ_LEN,
              "attention_pool": 1, "relu_maxpool": 1,
              "relu_maxpool_backward": 6, "conv_relu_pool_fused": 2}),
         "layout_probe": layout_probe_phase(torch, args.seed),

@@ -50,6 +50,11 @@ _SIGNATURES = {
     # as above, with gates_all, c_all, h_all after c
     "vqa_lstm_recurrence_save": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _P],
+    # xproj, whh, lengths, h, c, hq, barrier, gates_all, c_all, h_all (the
+    # last three null unless save), directions, seq_len, batch, hidden,
+    # units, shared-memory bytes, save, stream
+    "vqa_lstm_recurrence_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # gates_all, c_all, lengths, dh, dc, dgates_all, directions, seq_len,
     # batch, hidden, t, stream
     "vqa_lstm_backward_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -12,17 +12,27 @@ in :mod:`dl_vqa_tpu_torch.ops.lstm`.
 
 What bounds it on this card: the recurrence is serial in T, and each step
 is a ``[B, H] x [H, 4H]`` product against all of W_hh (8 MB per direction
-in bf16). The TPU kernel kept W_hh in VMEM across one sequential grid; an
-SM holds 227 KB, so here W_hh stays in the 50 MB L2 between the T
-launches (one per step, both directions in each launch), and every block
-re-reads its 16 rows of each gate from L2 (for 64 batch rows at once
-when the batch exceeds 64). The product (~4.3 GFLOP a step per direction
-at batch 512) runs on the tensor cores (wmma, bf16 in, f32 accumulate).
-Every block also reads all of h, so each step writes h rounded to bf16
-beside the f32 h for the next step to stage. At serving batches of 1 to
-64 the per-step launches and the L2 latency of W_hh dominate; a
-persistent kernel or a CUDA graph is the next step. h is double-buffered
-between launches; c is updated in place, one owner per element.
+in bf16). The TPU kernel kept W_hh in VMEM across one sequential grid.
+Here, by a rule on dtype and shape decided before the launch
+(:func:`persistent_plan`):
+
+* **bf16 with a plan: one persistent launch a call.** A cooperative grid
+  of one block per SM at most; each block owns ``units`` hidden units of
+  one direction and keeps their ``4 x units`` rows of W_hh in shared
+  memory for all T steps (128 KiB at H = 1024, two directions, 16 units on
+  128 blocks). Each step it streams its direction's bf16 h from L2, runs
+  the product by ``mma.sync`` and the cell update in registers, and waits
+  at one barrier per step for the direction's other blocks. At batch 512
+  each block reads 1 MiB of h from L2 a step. A refused launch raises;
+  nothing falls back.
+* **f32, and bf16 shapes with no plan: one grid per step** (both
+  directions in each launch). W_hh stays in the 50 MB L2 between the T
+  launches and every block re-reads its 16 rows of each gate from L2 (for
+  64 batch rows at once when the batch exceeds 64); bf16 on the tensor
+  cores (wmma), f32 by plain FMAs. Every block also reads all of h, so
+  each step writes h rounded to bf16 beside the f32 h for the next step to
+  stage. h is double-buffered between launches; c is updated in place,
+  one owner per element.
 
 Kernel A is the same step with three more stores per element: the f32
 gates (386 MB at batch 512, T=23, H=1024, two directions) and the masked
@@ -35,17 +45,62 @@ step at batch 512); the recurrent product between two steps is a plain
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from dl_vqa_tpu_torch.ops import _native
 
 __all__ = ["lstm_recurrence_cuda", "lstm_recurrence_save_cuda",
-           "lstm_backward_step_cuda"]
+           "lstm_backward_step_cuda", "persistent_plan",
+           "persistent_smem_bytes", "SMEM_PER_BLOCK"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _UNITS = 16  # hidden units per block (csrc/lstm_recurrence.cu kUnits)
+
+# The persistent kernel's layout (csrc/lstm_recurrence.cu, namespace
+# persistent): 16 warps a block, each row group stages up to 32 rows (two
+# tiles) of 64 columns of h in each of 2 stages; rows padded by 8 bf16
+# values.
+_WARPS, _ROWS, _CHUNK, _STAGES, _PAD = 16, 32, 64, 2, 8
+# Shared memory a block of an H100 (sm_90) may use.
+SMEM_PER_BLOCK = 232_448
+
+
+def persistent_smem_bytes(units: int, hidden: int) -> int:
+    """Dynamic shared memory of a persistent block: its W_hh rows, then
+    one ring of h chunks per row group (a row group is the ``units / 8``
+    warps that share batch rows; a block has ``16 / (units / 8)``)."""
+    row_groups = _WARPS * 8 // units
+    return (4 * units * (hidden + _PAD) * 2
+            + row_groups * _STAGES * _ROWS * (_CHUNK + _PAD) * 2)
+
+
+def persistent_plan(directions: int, hidden: int, dtype: torch.dtype,
+                    sm_count: int) -> Optional[Tuple[int, int, int]]:
+    """``(units, blocks, smem_bytes)`` of the persistent kernel, or None
+    where the call takes the per-step grids.
+
+    Only bf16 has a plan: f32's W_hh (32 MiB at H = 1024, two directions)
+    fits on no card's shared memory. ``units``, the hidden units a block
+    owns, is the smallest of 8, 16, 32 and 64 that divides ``hidden`` with
+    every block resident at once, one an SM (``directions * hidden /
+    units <= sm_count``), and its W_hh rows and ring within
+    :data:`SMEM_PER_BLOCK`. The plan does not depend on the batch, so
+    neither do a row's bits."""
+    if dtype != torch.bfloat16 or directions < 1 or hidden % 16:
+        return None
+    for units in (8, 16, 32, 64):
+        blocks = directions * hidden // units
+        smem = persistent_smem_bytes(units, hidden)
+        if (hidden % units == 0 and blocks <= sm_count
+                and smem <= SMEM_PER_BLOCK):
+            return units, blocks, smem
+    return None
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_recurrence_args(x_proj, weight_hh, lengths):
@@ -76,6 +131,8 @@ def _check_recurrence_args(x_proj, weight_hh, lengths):
         raise ValueError(f"lengths must be int32, got {lengths.dtype}")
     if weight_hh.data_ptr() % 32:
         raise ValueError("weight_hh must be 32-byte aligned")
+    if x_proj.data_ptr() % 4:
+        raise ValueError("x_proj must be 4-byte aligned")
     return directions, seq_len, batch, hidden
 
 
@@ -93,6 +150,34 @@ def _run_recurrence(x_proj, weight_hh, lengths, save):
         x_proj, weight_hh, lengths)
     lib = _native.library()
     device = x_proj.device
+    saved = ()
+    if save:
+        saved = tuple(
+            torch.empty(directions, seq_len, batch, width,
+                        dtype=torch.float32, device=device)
+            for width in (4 * hidden, hidden, hidden))
+    name = "lstm_recurrence_save" if save else "lstm_recurrence"
+    stream = _native.stream_ptr(device)
+    plan = persistent_plan(directions, hidden, x_proj.dtype,
+                           _sm_count(device))
+    if plan is not None:
+        units, _, smem = plan
+        h = torch.zeros(directions, batch, hidden, dtype=torch.float32,
+                        device=device)
+        c = torch.zeros_like(h)
+        # Step t reads hq[t % 2] from step t - 1 (step 0 reads nothing).
+        hq = torch.empty(2, directions, batch, hidden, dtype=x_proj.dtype,
+                         device=device)
+        barrier = torch.zeros(directions, dtype=torch.int32, device=device)
+        code = lib.vqa_lstm_recurrence_persistent(
+            x_proj.data_ptr(), weight_hh.data_ptr(), lengths.data_ptr(),
+            h.data_ptr(), c.data_ptr(), hq.data_ptr(), barrier.data_ptr(),
+            *((s.data_ptr() for s in saved) if save else (None,) * 3),
+            directions, seq_len, batch, hidden, units, smem, int(save),
+            stream)
+        _native.check(name, code)
+        launched = 1 if batch and directions and seq_len else 0
+        return (h, c) + saved, launched
     h = torch.zeros(2, directions, batch, hidden, dtype=torch.float32,
                     device=device)
     c = torch.zeros(directions, batch, hidden, dtype=torch.float32,
@@ -100,23 +185,17 @@ def _run_recurrence(x_proj, weight_hh, lengths, save):
     # h rounded to the weight dtype, double-buffered like h; f32 uses h.
     hq = h if x_proj.dtype == torch.float32 else torch.zeros(
         2, directions, batch, hidden, dtype=x_proj.dtype, device=device)
-    saved = ()
-    if save:
-        saved = tuple(
-            torch.empty(directions, seq_len, batch, width,
-                        dtype=torch.float32, device=device)
-            for width in (4 * hidden, hidden, hidden))
     pointers = (x_proj.data_ptr(), weight_hh.data_ptr(), lengths.data_ptr(),
                 h[0].data_ptr(), h[1].data_ptr(), hq[0].data_ptr(),
                 hq[1].data_ptr(), c.data_ptr())
     sizes = (directions, seq_len, batch, hidden, _DTYPES[x_proj.dtype],
-             _native.stream_ptr(device))
+             stream)
     if save:
         code = lib.vqa_lstm_recurrence_save(
             *pointers, *(s.data_ptr() for s in saved), *sizes)
     else:
         code = lib.vqa_lstm_recurrence(*pointers, *sizes)
-    _native.check("lstm_recurrence_save" if save else "lstm_recurrence", code)
+    _native.check(name, code)
     # The C entry launches one grid per timestep (none for an empty batch).
     launched = seq_len if batch and directions else 0
     return (h[seq_len % 2], c) + saved, launched

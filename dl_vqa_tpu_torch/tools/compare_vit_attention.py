@@ -20,45 +20,26 @@ imports no JAX.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 import tempfile
 
 import torch
 
-from dl_vqa_tpu_torch.ops import _native
 from dl_vqa_tpu_torch.ops.vit_attention import (
     vit_attention_backward_reference, vit_attention_reference)
+from dl_vqa_tpu_torch.tools._compare import build, card, timed
 
-CSRC = _native._CSRC  # the shared headers
 HEADS, TOKENS, WIDTH = 4, 196, 256
 _P, _I = ctypes.c_void_p, ctypes.c_int
+SOURCES = ("vit_attention.cu", "vit_attention_backward.cu")
 
 
-def build(versions: dict, out_dir: str) -> dict:
-    """name -> loaded library, compiled in parallel."""
-    jobs = {}
-    for name, src in versions.items():
-        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-Xptxas",
-               "-v", "-I", CSRC, "-o", f"{out_dir}/{name}.so",
-               f"{src}/vit_attention.cu", f"{src}/vit_attention_backward.cu"]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
+def load(versions: dict, out_dir: str) -> dict:
+    """name -> (library, whether its forward takes the SM count)."""
     libs = {}
-    for name, proc in jobs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc failed\n{out}")
-        lines = out.splitlines()
-        for i, line in enumerate(lines):
-            if "Compiling entry function" in line:
-                info = "; ".join(x.split(":", 1)[-1].strip()
-                                 for x in lines[i + 1:i + 4]
-                                 if "Used" in x or "spill" in x)
-                print(f"{name} {line.split(chr(39))[1][:72]}: {info}")
-        lib = ctypes.CDLL(f"{out_dir}/{name}.so")
+    for name, lib in build(versions, SOURCES, out_dir).items():
         with open(f"{versions[name]}/vit_attention.cu") as fd:
-            takes_sms = "int sms" in fd.read()  # the SM count, since PR 5
+            takes_sms = "int sms" in fd.read()  # newer versions
         lib.vqa_vit_attention.argtypes = [_P, _P, _I, _I, _I] + (
             [_I] if takes_sms else []) + [_I, _P]
         lib.vqa_vit_attention_backward.argtypes = [_P, _P, _P, _P, _I, _I,
@@ -73,12 +54,9 @@ def main(argv) -> int:
         return 1
     versions = dict(arg.split("=", 1) for arg in argv)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
     with tempfile.TemporaryDirectory() as out_dir:
-        libs = build(versions, out_dir)
-        print(f"{card}, {sms} SMs")
+        libs = load(versions, out_dir)
+        print(card())
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
         def forward(name, qkv):
@@ -99,18 +77,6 @@ def main(argv) -> int:
                 stats.data_ptr(), qkv.shape[0], TOKENS, HEADS, 1,
                 stream) == 0
             return dqkv
-
-        def timed(fn, iters):
-            for _ in range(3):
-                fn()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / iters
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         names = list(versions)

@@ -43,10 +43,12 @@ from dl_vqa_tpu_torch.ops.lstm import (
     lstm_recurrence_reference,
     lstm_recurrence_save_reference,
 )
+from dl_vqa_tpu_torch.ops import lstm_cuda
 from dl_vqa_tpu_torch.ops.lstm_cuda import (
     lstm_backward_step_cuda,
     lstm_recurrence_cuda,
     lstm_recurrence_save_cuda,
+    persistent_plan,
 )
 from dl_vqa_tpu_torch.ops.vit_attention import (
     vit_attention,
@@ -121,10 +123,141 @@ def test_bilstm_dispatch_runs_the_kernel(device):
     fwd, bwd = params(), params()
     before = lstm_recurrence_cuda.launches
     got = bilstm_final_cell(x, lengths, fwd, bwd)
-    # One grid per timestep, both directions in each.
+    # f32 has no persistent plan: one grid per timestep, both directions in
+    # each.
     assert lstm_recurrence_cuda.launches == before + x.shape[1]
     expected = bilstm_final_cell(x, lengths, fwd, bwd, plain=True)
     torch.testing.assert_close(got, expected, atol=1e-5, rtol=0)
+
+
+# The persistent path (bf16 with a plan): every D, H and B below has one on
+# an H100; T and the lengths' kind cycle over the shapes.
+_PERSISTENT_SHAPES = [(d, h, b) for d in (1, 2) for h in (16, 48, 272, 1024)
+                      for b in (1, 8, 63, 64, 65, 129, 512)]
+
+
+def _persistent_inputs(device, directions, seq, batch, hidden, lengths,
+                       seed=8):
+    g = _gen(device, seed)
+    x_proj = (torch.randn(directions, seq, batch, 4 * hidden, generator=g,
+                          device=device) * 0.5).bfloat16()
+    w_hh = ((torch.rand(directions, 4 * hidden, hidden, generator=g,
+                        device=device) * 2 - 1) / hidden ** 0.5).bfloat16()
+    if lengths == "ragged":  # 0 .. T, both ends present
+        lens = torch.randint(0, seq + 1, (batch,), generator=g, device=device,
+                             dtype=torch.int32)
+        lens[0], lens[-1] = seq, 0
+    else:
+        lens = torch.full((batch,), 1 if lengths == "ones" else 0,
+                          device=device, dtype=torch.int32)
+    return x_proj, w_hh, lens
+
+
+@pytest.mark.parametrize("seq", [1, 7, 23])
+@pytest.mark.parametrize("directions,hidden,batch", _PERSISTENT_SHAPES)
+def test_lstm_persistent_matches_plain(device, seq, directions, hidden,
+                                       batch):
+    """Kernels 1 and A on the persistent path against their plain versions
+    (bf16 1e-2, as the per-step path); A's final (h, c) are kernel 1's
+    bits; one launch a call."""
+    kinds = ("ragged", "ones", "zero")
+    lengths = kinds[(hidden + batch + seq) % 3]
+    args = _persistent_inputs(device, directions, seq, batch, hidden,
+                              lengths)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert persistent_plan(directions, hidden, torch.bfloat16, sms)
+    before = (lstm_recurrence_cuda.launches,
+              lstm_recurrence_save_cuda.launches)
+    h, c = lstm_recurrence_cuda(*args)
+    saved = lstm_recurrence_save_cuda(*args)
+    assert (lstm_recurrence_cuda.launches,
+            lstm_recurrence_save_cuda.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert torch.equal(saved[0], h) and torch.equal(saved[1], c)
+    for got, want in zip(saved, lstm_recurrence_save_reference(*args)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+    if lengths == "zero":
+        assert not h.any() and not c.any()
+
+
+@pytest.mark.parametrize("save", [False, True])
+def test_lstm_dispatch_rule(device, save):
+    """bf16 at a shape with a plan: the persistent kernel, one launch; f32
+    at the same shape: the per-step grids, one a timestep. Both agree with
+    the plain version."""
+    run = lstm_recurrence_save_cuda if save else lstm_recurrence_cuda
+    x_proj, w_hh, lengths = _persistent_inputs(device, 2, 7, 33, 64,
+                                               "ragged")
+    for dtype, grids, tol in ((torch.bfloat16, 1, 1e-2),
+                              (torch.float32, 7, 1e-5)):
+        args = (x_proj.to(dtype), w_hh.to(dtype), lengths)
+        before = run.launches
+        got = run(*args)
+        assert run.launches == before + grids
+        want = (lstm_recurrence_save_reference if save
+                else lstm_recurrence_reference)(*args)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+def test_lstm_persistent_refused_launch_raises(device, monkeypatch):
+    """A plan for more SMs than the card has asks for a grid that cannot
+    be resident at once: the cooperative launch refuses it and the wrapper
+    raises, with nothing computed another way."""
+    monkeypatch.setattr(lstm_cuda, "_sm_count", lambda device: 100_000)
+    args = _persistent_inputs(device, 2, 3, 8, 1024, "ragged")
+    assert persistent_plan(2, 1024, torch.bfloat16, 100_000)[1] > \
+        torch.cuda.get_device_properties(0).multi_processor_count
+    before = lstm_recurrence_cuda.launches
+    with pytest.raises(RuntimeError, match="lstm_recurrence"):
+        lstm_recurrence_cuda(*args)
+    assert lstm_recurrence_cuda.launches == before
+    monkeypatch.undo()
+    h, c = lstm_recurrence_cuda(*args)  # the stream still works
+    torch.testing.assert_close(h, lstm_recurrence_reference(*args)[0],
+                               atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("seq,batch", [(0, 8), (5, 0)])
+def test_lstm_persistent_empty_calls_launch_nothing(device, seq, batch):
+    args = _persistent_inputs(device, 2, seq, batch, 64, "ones")
+    before = (lstm_recurrence_cuda.launches,
+              lstm_recurrence_save_cuda.launches)
+    h, c = lstm_recurrence_cuda(*args)
+    saved = lstm_recurrence_save_cuda(*args)
+    assert (lstm_recurrence_cuda.launches,
+            lstm_recurrence_save_cuda.launches) == before
+    assert h.shape == c.shape == (2, batch, 64)
+    assert not h.any() and not c.any()
+    assert saved[2].shape == (2, seq, batch, 256)
+
+
+def test_lstm_persistent_rows_do_not_depend_on_the_batch(device):
+    """A row's final (h, c) are the same bits at B = 1, 8, 64 and 512, H =
+    1024: the plan, and so every row's arithmetic, ignores the batch."""
+    x_proj, w_hh, lengths = _persistent_inputs(device, 2, 23, 512, 1024,
+                                               "ragged")
+    full = lstm_recurrence_cuda(x_proj, w_hh, lengths)
+    for batch in (1, 8, 64):
+        part = lstm_recurrence_cuda(x_proj[:, :, :batch].contiguous(), w_hh,
+                                    lengths[:batch].contiguous())
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[:, :batch]), batch
+
+
+@pytest.mark.parametrize("save", [False, True])
+def test_lstm_persistent_repeats_its_bits(device, save):
+    """20 calls, each right after another kernel ran on the stream, give
+    the same bits (the step barrier's ordering)."""
+    run = lstm_recurrence_save_cuda if save else lstm_recurrence_cuda
+    args = _persistent_inputs(device, 2, 23, 512, 1024, "ragged")
+    first = run(*args)
+    noise = torch.randn(2048, 2048, device=device)
+    for _ in range(20):
+        noise = noise @ noise.T / 2048
+        again = run(*args)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -171,6 +304,15 @@ def _lstm_case(device, dtype, directions, seq, batch, hidden, lengths):
     return x_proj, w_hh, lengths
 
 
+def _lstm_grids(dtype, directions, seq, hidden):
+    """Grids one call of kernel 1 or A launches: 1 on the persistent path
+    (bf16 with a plan), one a timestep on the per-step path."""
+    plan = persistent_plan(directions, hidden, dtype,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    return seq if plan is None else min(seq, 1)
+
+
 LSTM_TRAIN_CASES = [
     (1, 1, 1, 16, "ragged"), (2, 5, 3, 32, "ragged"), (2, 7, 17, 48, "ones"),
     (2, 6, 40, 64, "full"), (2, 3, 67, 32, "ragged")]  # 67: ragged 4-tile block
@@ -188,7 +330,8 @@ def test_lstm_save_mode_matches_plain_and_kernel_1(device, dtype, tol,
     args = _lstm_case(device, dtype, directions, seq, batch, hidden, lengths)
     before = lstm_recurrence_save_cuda.launches
     h, c, gates, c_all, h_all = lstm_recurrence_save_cuda(*args)
-    assert lstm_recurrence_save_cuda.launches == before + seq
+    assert lstm_recurrence_save_cuda.launches == before + _lstm_grids(
+        dtype, directions, seq, hidden)
     h1, c1 = lstm_recurrence_cuda(*args)
     assert torch.equal(h, h1) and torch.equal(c, c1)
     expected = lstm_recurrence_save_reference(*args)
@@ -730,3 +873,76 @@ def test_forward_only_ops_raise_where_a_gradient_would_be_recorded(device):
     mlp = _mlp_case(device, torch.float32, (2, 3, 64), 64)
     with pytest.raises(RuntimeError, match="forward only"):
         fused_ln_mlp(mlp[0].requires_grad_(), *mlp[1:])
+
+
+# Row groups of two warps (16 units a block), an odd count of 64-column
+# chunks of h and two passes over the batch a step: the last chunk of a
+# pass and the next pass's first share a slot of the staging ring.
+_RING_REUSE_SHAPES = [(2, 576), (2, 704), (1, 1088)]
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("directions,hidden", _RING_REUSE_SHAPES)
+def test_lstm_persistent_ring_reuse_between_passes(device, directions,
+                                                   hidden, save):
+    """At B = 512 these shapes take two passes a step with an odd chunk
+    count: against the plain version (bf16 1e-2), then 20 calls, each
+    after another kernel ran on the stream, give the same bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    units = persistent_plan(directions, hidden, torch.bfloat16, sms)[0]
+    assert units == 16 and hidden // 64 % 2 == 1
+    run = lstm_recurrence_save_cuda if save else lstm_recurrence_cuda
+    plain = (lstm_recurrence_save_reference if save
+             else lstm_recurrence_reference)
+    args = _persistent_inputs(device, directions, 23, 512, hidden, "ragged")
+    before = run.launches
+    first = run(*args)
+    assert run.launches == before + 1
+    for got, want in zip(first, plain(*args)):
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+    noise = torch.randn(2048, 2048, device=device)
+    for _ in range(20):
+        noise = noise @ noise.T / 2048
+        again = run(*args)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+# The per-step bf16 grids (one 16-row tile a block up to 64 rows, four
+# beyond), taken where a shape has no plan.
+_PER_STEP_BF16_SHAPES = [(1, 1, 1, 16), (2, 5, 3, 32), (2, 7, 17, 48),
+                         (1, 4, 40, 272), (2, 6, 64, 64), (2, 3, 67, 32),
+                         (2, 5, 129, 32)]
+
+
+@pytest.mark.parametrize("directions,seq,batch,hidden", _PER_STEP_BF16_SHAPES)
+def test_lstm_per_step_bf16_matches_plain(device, monkeypatch, directions,
+                                          seq, batch, hidden):
+    """With no plan, bf16 takes one grid a timestep for kernels 1 and A:
+    against the plain versions at 1e-2, A's final (h, c) kernel 1's bits."""
+    monkeypatch.setattr(lstm_cuda, "persistent_plan", lambda *args: None)
+    args = _persistent_inputs(device, directions, seq, batch, hidden,
+                              "ragged")
+    before = (lstm_recurrence_cuda.launches,
+              lstm_recurrence_save_cuda.launches)
+    h, c = lstm_recurrence_cuda(*args)
+    saved = lstm_recurrence_save_cuda(*args)
+    assert (lstm_recurrence_cuda.launches,
+            lstm_recurrence_save_cuda.launches) == (before[0] + seq,
+                                                    before[1] + seq)
+    assert torch.equal(saved[0], h) and torch.equal(saved[1], c)
+    for got, want in zip(saved, lstm_recurrence_save_reference(*args)):
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=0)
+
+
+def test_lstm_bf16_without_a_plan_takes_the_per_step_grids(device):
+    """D = 2, H = 2048 in bf16: W_hh (32 MiB) has no plan on an H100, so
+    each call launches one grid a timestep, and agrees with the plain
+    version."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert persistent_plan(2, 2048, torch.bfloat16, sms) is None
+    args = _persistent_inputs(device, 2, 4, 5, 2048, "ragged")
+    before = lstm_recurrence_cuda.launches
+    got = lstm_recurrence_cuda(*args)
+    assert lstm_recurrence_cuda.launches == before + 4
+    for a, b in zip(got, lstm_recurrence_reference(*args)):
+        torch.testing.assert_close(a, b, atol=1e-2, rtol=0)
