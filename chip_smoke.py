@@ -11,7 +11,9 @@
    beside each time, the least time the card could take for the same work
    (bytes over the memory rate or operations over the peak rate,
    whichever is larger) and, where one exists, a PyTorch call that
-   computes the same function;
+   computes the same function (kernels 6 to 8 timed in turns with it, and
+   kernel 6 also with the unfused block it replaces, cuDNN's conv then
+   kernel 2: ``unfused_ms``);
 4. slice: a Predictor at full reference width (ModelConfig defaults, bf16,
    random weights from the seed, an in-memory vocab of 15,193 question ids
    and 3,000 answers) answers 8 requests; every serving kernel must have
@@ -211,6 +213,18 @@ def timed_pair(torch, plain, kernel, iters: int, warmup: int = 2):
     p1, k1, k2, p2 = (timed(torch, fn, iters, warmup=0)
                       for fn in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def timed_turns(torch, fns, iters: int, warmup: int = 2):
+    """Mean ms of each callable, timed in the order given and back."""
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    ms = [0.0] * len(fns)
+    for i in list(range(len(fns))) + list(range(len(fns)))[::-1]:
+        ms[i] += timed(torch, fns[i], iters, warmup=0) / 2
+    return ms
 
 
 def nbytes(*tensors) -> int:
@@ -751,14 +765,15 @@ def layout_cases(torch, gen, run):
 
 def fused_kernels(torch, gen, device, summary) -> None:
     """Kernels 6 to 9 at the shapes the flipped forwards give them (batches
-    1, 8 and 512, bf16 and f32), one small odd shape each, and kernel 6's
-    gradients through ``ConvReluPoolFused`` against the unfused block's."""
+    1, 8 and 512, bf16 and f32), small odd shapes (for kernel 6 also two
+    whose weights it streams), and kernel 6's gradients through
+    ``ConvReluPoolFused`` against the unfused block's."""
     import torch.nn.functional as F
 
     from dl_vqa_tpu_torch.ops.conv_fused import (
-        conv_relu_pool, conv_relu_pool_fused_cuda,
+        conv_nhwc, conv_relu_pool, conv_relu_pool_fused_cuda,
         conv_relu_pool_fused_reference, conv_relu_pool_stem_cuda,
-        conv_relu_pool_stem_reference)
+        conv_relu_pool_stem_reference, relu_maxpool_cuda)
     from dl_vqa_tpu_torch.ops.layout_cases import (
         layout_case_cuda, layout_case_reference)
     from dl_vqa_tpu_torch.ops.vit_mlp_fused import (
@@ -768,13 +783,16 @@ def fused_kernels(torch, gen, device, summary) -> None:
         return {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                 "library_ms": 0.0, "bytes": 0, "ops": 0.0}
 
-    def add(total, err, ms, plain_ms, library_ms, moved, ops):
+    def add(total, err, ms, plain_ms, library_ms, moved, ops,
+            unfused_ms=None):
         total["max_abs_err"] = max(total["max_abs_err"], err)
         total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["library_ms"] += library_ms
         total["bytes"] += moved
         total["ops"] += ops
+        if unfused_ms is not None:
+            total["unfused_ms"] = total.get("unfused_ms", 0.0) + unfused_ms
 
     def close(name, total, kind):
         moved, ops = total.pop("bytes"), total.pop("ops")
@@ -792,40 +810,48 @@ def fused_kernels(torch, gen, device, summary) -> None:
         err, note = check_rounded(torch, what, got, want, dtype)
         del want
         iters = 10 if batch < BATCH else 5 if kind == "bf16" else 2
-        ms, plain_ms = timed_pair(
-            torch, lambda: reference(x, weight, bias),
-            lambda: kernel(x, weight, bias), iters=iters)
-        # The yardstick: the same block as three PyTorch calls on the NCHW
-        # view of the same memory (channels_last), the conv in x's type.
+        # The yardsticks: the same block as three PyTorch calls on the NCHW
+        # view of the same memory (channels_last), the conv in x's type;
+        # and for kernel 6 the unfused block it replaces, conv_nhwc (cuDNN)
+        # then kernel 2, which decides the fused_ops flip. All in turns.
         x_nchw = x.permute(0, 3, 1, 2)
         w_lib = weight.to(dtype).contiguous(memory_format=torch.channels_last)
         b_lib = bias.to(dtype)
-        library_ms = timed(
-            torch,
-            lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_lib, b_lib)), 2),
-            iters=iters)
+        fns = [lambda: reference(x, weight, bias),
+               lambda: kernel(x, weight, bias),
+               lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_lib, b_lib)),
+                                    2)]
+        if kernel is conv_relu_pool_fused_cuda:
+            fns.append(lambda: relu_maxpool_cuda(conv_nhwc(x, weight), bias))
+        plain_ms, ms, library_ms, *unfused = timed_turns(torch, fns, iters)
+        unfused_ms = unfused[0] if unfused else None
         # Only the conv positions that feed a pool window count.
         ops = 2.0 * got.numel() * 4 * k * k * cin
         moved = nbytes(x, got, bias) + weight.numel() * x.element_size()
         entry = bound(moved, ops, kind)
         log(f"kernel {what}: max_abs_err {err:.3e} {note} | kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms, F.max_pool2d(F.relu(F.conv2d(x, "
-            f"w, b)), 2) {library_ms:.4f} ms | bound {entry['bound_ms']:.4f} "
-            f"ms by {entry['bound_by']}")
+            f"w, b)), 2) {library_ms:.4f} ms"
+            + ("" if unfused_ms is None else
+               f", unfused conv_nhwc + kernel 2 {unfused_ms:.4f} ms")
+            + f" | bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}")
         if total is not None:
-            add(total, err, ms, plain_ms, library_ms, moved, ops)
+            add(total, err, ms, plain_ms, library_ms, moved, ops, unfused_ms)
 
-    for name, kernel, reference, blocks, odd in (
+    # Kernel 6's last odd shapes are bf16 ones whose weights no block can
+    # hold, which it streams a filter row a step.
+    for name, kernel, reference, blocks, odd, streamed in (
             ("conv_relu_pool_fused", conv_relu_pool_fused_cuda,
              conv_relu_pool_fused_reference, FUSED_BLOCKS,
-             ((37, 16, 32, 3), (24, 16, 32, 5))),
+             ((37, 16, 32, 3), (24, 16, 32, 5)),
+             ((14, 384, 64, 3), (12, 128, 64, 5))),
             ("conv_relu_pool_stem", conv_relu_pool_stem_cuda,
              conv_relu_pool_stem_reference, (STEM_BLOCK,),
-             ((21, 3, 8, 3), (28, 3, 8, 5)))):
+             ((21, 3, 8, 3), (28, 3, 8, 5)), ())):
         total = new_total()
         for dtype in (torch.bfloat16, torch.float32):
             main = dtype == torch.bfloat16
-            for size, cin, cout, k in odd:
+            for size, cin, cout, k in odd + (streamed if main else ()):
                 conv_block(name, kernel, reference, 2, size, cin, cout, k,
                            dtype)
             for batch in (1, 8, BATCH):
@@ -900,16 +926,15 @@ def fused_kernels(torch, gen, device, summary) -> None:
                     f"{FUSED_DIFFER:.0%})")
         del want
         iters = 10 if batch < BATCH else 5 if kind == "bf16" else 2
-        ms, plain_ms = timed_pair(
-            torch, lambda: fused_ln_mlp_reference(*args),
-            lambda: fused_ln_mlp_cuda(*args), iters=iters)
         scale, shift, w1, b1, w2, b2 = (t.to(dtype) for t in args[1:])
 
         def library():
             ln = F.layer_norm(x, (dim,), scale, shift, 1e-5)
             return x + F.linear(F.relu(F.linear(ln, w1, b1)), w2, b2)
 
-        library_ms = timed(torch, library, iters=iters)
+        plain_ms, ms, library_ms = timed_turns(
+            torch, [lambda: fused_ln_mlp_reference(*args),
+                    lambda: fused_ln_mlp_cuda(*args), library], iters)
         moved = nbytes(x, got, scale, shift, w1, b1, w2, b2)
         ops = 4.0 * batch * seq * dim * hidden
         entry = bound(moved, ops, kind)
@@ -1223,9 +1248,10 @@ PROFILE_PARTS = (
                                           "attention_bwd_dkdv_kernel")),
     ("kernel 4, ViT attention", ("attention_mma_kernel",
                                  "attention_fma_kernel")),
-    ("kernel 6, fused conv block", ("conv_pool_mma_kernel",)),
+    ("kernel 6, fused conv block", ("conv_pool_wgmma_kernel",)),
     ("kernel 7, stem (and kernel 6 in f32)", ("conv_pool_direct_kernel",)),
-    ("kernel 8, LN + MLP", ("ln_mlp_mma_kernel", "ln_mlp_fma_kernel")),
+    ("kernel 8, LN + MLP (and its weight packing)",
+     ("ln_mlp_wgmma_kernel", "ln_mlp_fma_kernel", "pack_weights_kernel")),
     ("cuDNN convs, forward and backward",
      ("fprop", "dgrad", "wgrad", "cudnn", "Padding", "ImplicitGemm")),
     ("matrix products (cuBLAS)", ("gemm", "cutlass", "gemv", "splitK")),
@@ -1690,7 +1716,7 @@ def main(argv=None) -> int:
                          "conv_relu_pool_fused": 2, "attention_pool": 1}
     vit_fused_forward = {"lstm_recurrence": recurrence, "attention_pool": 1,
                          "vit_attention": vit_layers,
-                         "vit_mlp_fused": vit_layers}
+                         "vit_mlp_fused": 2 * vit_layers}
     paths = {
         "cnn_serving": slice_phase(
             torch, args.seed, ModelConfig(), "cnn",
@@ -1710,7 +1736,8 @@ def main(argv=None) -> int:
              "vit_attention_backward": vit_layers * TRAIN_STEPS},
             accumulate=False),
         # The flip: the stem and two conv blocks in place of three pool
-        # grids; a fused LN + MLP a ViT layer beside its attention core; a
+        # grids; a fused LN + MLP a ViT layer beside its attention core (two
+        # grids in bf16: the weights' packing, then the block); a
         # train step keeps block 0 and every backward on the unfused path.
         "cnn_fused_serving": slice_phase(
             torch, args.seed, ModelConfig(), "cnn", cnn_fused_forward,
@@ -1760,13 +1787,15 @@ def main(argv=None) -> int:
         "layout_cases": ("layout_cases.cu",
                          "experiments/probe_mosaic_recheck.py:58"),
     }
+    # The tensor-core instruction of the kernels that run on wgmma in bf16.
+    mma = {"conv_relu_pool_fused": "wgmma", "vit_mlp_fused": "wgmma"}
     # launches: the grids of all paths together, each path counted from 0:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its
     # eight cases.
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + src,
-         "replaces": replaces,
+         "replaces": replaces, **({"mma": mma[name]} if name in mma else {}),
          "launches": sum(counts[name] for counts in paths.values()),
          **{f"launches_{path}": counts[name]
             for path, counts in paths.items()}, **summary[name]}

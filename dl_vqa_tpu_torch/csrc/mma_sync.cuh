@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the kernels that feed mma.sync from
-// shared memory (conv_relu_pool_fused.cu, vit_mlp_fused.cu): ldmatrix loads
-// and the bf16 m16n8k16 product with f32 accumulation.
+// shared memory (lstm_recurrence.cu, vit_attention.cuh), and by the ldmatrix
+// loads of wgmma's register operand (conv_relu_pool_fused.cu): ldmatrix
+// loads and the bf16 m16n8k16 product with f32 accumulation.
 #pragma once
 
 #include "common.cuh"

@@ -19,34 +19,41 @@
 // device memory and reads them back, in f32 copies besides; here x is read
 // and out is written, nothing else.
 //
-// Design, bf16. A block takes 64 rows: a warp a row for the LN statistics
-// (f32, shuffles), ln rounded into shared memory. Neither the weights
-// (2 x 0.5 MB) nor a tile's hidden rows in f32 fit in shared memory, so the
-// block walks F in chunks of 64: it stages W1[c : c + 64, :] and
-// W2[:, c : c + 64] (they stream from L2, by asynchronous copies into one of
-// two stages, so that a chunk lands while the one before is used), makes h_c = cast(relu(ln . W1_c^T
-// + b1_c)) [64, 64] in shared memory, and adds h_c . W2_c^T to the [64, D]
-// accumulators, which stay in registers for the whole walk (warp (mw, nw):
-// rows 32 mw .. 32 mw + 31, columns nw D / 4 ...). Operands come from shared
-// memory by ldmatrix, products are mma.sync m16n8k16 with f32 accumulators
-// (through wmma's fragment loads and a scratch buffer for every epilogue the
-// kernel took half as long again); both weights are stored [n][k], which is
-// the column-major B operand as it stands, so neither is transposed, and
-// the accumulator's known layout lets bias, ReLU, the residual and the casts
-// happen in registers. f32 goes through plain FMAs with the same tiling,
-// which keeps the f32 products exact rather than rounding them to TF32.
+// Design, bf16 (warpgroup MMA, wgmma.cuh). A block has one or two consumer
+// warpgroups of 64 rows each (the wrapper's row plan, ops/vit_mlp_fused.py::
+// row_plan, takes two where the rows fill the card's SMs, so that every
+// weight byte fetched from L2 serves 128 rows). Each warpgroup normalises its
+// rows (a warp a row, f32 statistics by shuffles) into a 128-byte-swizzled
+// tile in shared memory, the A operand of the first product. Neither the
+// weights (2 x 0.5 MB) nor the hidden rows fit in shared memory, so the block
+// walks F in chunks of 64: a first grid of the same call packs W1 and W2
+// chunk by chunk into wgmma's swizzled layout (ops/vit_mlp_fused.py::
+// pack_weights is its plain version), so that a chunk of both is one run of
+// memory, copied by cp.async into one of two stages while the chunk before
+// is used.
+// The first product, wgmma m64n64k16 with both operands in shared memory,
+// leaves h_c [64, 64] in f32 registers; bias, ReLU and the bf16 cast happen
+// there, and the rounded pairs are, as they lie, the register A operand of
+// the second product, wgmma m64nDk16 (B = the W2 chunk), which adds
+// h_c . W2_c^T to the [64, D] accumulator held in registers for the whole
+// walk. The hidden chunk never touches shared memory: one block barrier a
+// chunk, where its stage is handed back. Every row sums over k in the same
+// order whatever the plan, so a row's bits do not depend on the batch.
+// f32 goes through plain FMAs with 64-row blocks, which keeps the f32
+// products exact rather than rounding them to TF32.
 
 #include <cuda_pipeline.h>
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma_sync.cuh"
+#include "wgmma.cuh"
+
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // the f32 kernel
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;  // rows a block takes
 constexpr float kEps = 1e-5f;
@@ -100,184 +107,251 @@ __device__ __forceinline__ void layer_norm_rows(
   }
 }
 
+
 // ---------------------------------------------------------------- bf16
 
-constexpr int kChunk = 64;      // hidden units a step of the walk takes
-constexpr int kOperandPad = 8;  // rows stay 16-byte multiples and the eight
-                                // rows of an ldmatrix phase miss each other's
-                                // banks
+constexpr int kChunk = 64;     // hidden units a step of the walk takes
+constexpr int kWgRows = 64;    // rows a warpgroup takes (wgmma's M)
+constexpr int kWgThreads = 128;
 
-template <int kD>
+// Shared memory of the bf16 kernel, in bytes from a 1024-byte boundary:
+// the warpgroups' swizzled ln tiles [D / 64][64][64], then two stages of one
+// packed chunk of W1 ([D / 64][64][64]) and of W2 ([D][64]).
+template <int kD, int kWarpgroups>
 struct Bf16Layout {
-  static constexpr int kLnLd = kD + kOperandPad;         // ln_s, w1_s rows
-  static constexpr int kChunkLd = kChunk + kOperandPad;  // h_s, w2_s rows
-  // Elements of one stage of weights: W1's chunk, then W2's.
-  static constexpr int kW1Elems = kChunk * kLnLd;
-  static constexpr int kStageElems = kW1Elems + kD * kChunkLd;
-  static constexpr size_t kLn = 0;
-  static constexpr size_t kH = kLn + sizeof(bf16) * kRows * kLnLd;
-  static constexpr size_t kStages = kH + sizeof(bf16) * kRows * kChunkLd;
-  static constexpr size_t kBytes = kStages + 2 * sizeof(bf16) * kStageElems;
+  static constexpr int kLnBytes = kWgRows * kD * 2;  // a warpgroup's tile
+  static constexpr int kChunkBytes = kChunk * kD * 2;  // W1's or W2's chunk
+  static constexpr int kStagesAt = kWarpgroups * kLnBytes;  // offset
+  static constexpr int kBytes = kStagesAt + 2 * 2 * kChunkBytes;
+  static constexpr int kLaunchBytes = kBytes + vqa::wgmma::kAtomBytes;
 };
 
+// Layer norm of this warpgroup's 64 rows into its swizzled tile, a warp a
+// row; rows at or beyond `rows` become zero.
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
-ln_mlp_mma_kernel(const bf16* __restrict__ x,       // [rows, D]
-                  const float* __restrict__ scale,  // [D]
-                  const float* __restrict__ shift,  // [D]
-                  const bf16* __restrict__ w1,      // [F, D]
-                  const float* __restrict__ b1,     // [F]
-                  const bf16* __restrict__ w2,      // [D, F]
-                  const float* __restrict__ b2,     // [D]
-                  bf16* __restrict__ out,           // [rows, D]
-                  int64_t rows, int hidden) {
-  using L = Bf16Layout<kD>;
-  constexpr int kBlocks = kD / 32;  // 8-column blocks of a warp's output
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ln_s = reinterpret_cast<bf16*>(smem + L::kLn);  // [kRows][kLnLd]
-  bf16* h_s = reinterpret_cast<bf16*>(smem + L::kH);    // [kRows][kChunkLd]
-  // Two stages of [kChunk][kLnLd] of W1 and [kD][kChunkLd] of W2.
-  bf16* stages = reinterpret_cast<bf16*>(smem + L::kStages);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int mw = warp % 2, nw = warp / 2;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  // ldmatrix row addresses of this lane. A operands are [rows][k] blocks of
-  // 16 x 16: row lane % 16, k half lane / 16. B operands are stored [n][k]
-  // (W1 as [f][d], W2 as [d][f], the port's [out, in]), which is mma's
-  // column-major B: matrices (n 0..7, k 0..7), (n 0..7, k 8..15), (n 8..15,
-  // k 0..7), (n 8..15, k 8..15), no transposition.
-  const int a_row = lane % 16, a_col = lane / 16 * 8;
-  const int b_row = lane / 16 * 8 + lane % 8, b_col = lane / 8 % 2 * 8;
-  // The accumulator's rows and columns of this lane.
-  const int g = lane / 4, c2 = lane % 4 * 2;
-
-  layer_norm_rows<bf16, kD>(x, scale, shift, ln_s, L::kLnLd, row0, rows);
-
-  // [64, D] output: warp (mw, nw) makes rows 32 mw .. + 31 (two 16-row
-  // tiles), columns nw D / 4 .. (kBlocks blocks of 8).
-  float acc[2][kBlocks][4];
+__device__ __forceinline__ void layer_norm_swizzled(
+    const bf16* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ shift, unsigned char* ln_s, int64_t row0,
+    int64_t rows) {
+  constexpr int kPer = kD / 32;  // neighbouring columns a lane takes
+  const int warp = threadIdx.x % kWgThreads / 32, lane = threadIdx.x % 32;
+  const int col0 = lane * kPer;
+  for (int r = warp; r < kWgRows; r += 4) {
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+        ln_s + vqa::wgmma::swizzle_offset(r, col0, kWgRows));
+    if (row0 + r >= rows) {
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < kBlocks; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.0f;
-
-  // Asynchronous copies (cp.async) of chunk `chunk` of both weights into
-  // stage `chunk % 2`: they are in flight while the chunk before is used.
-  auto stage_chunk = [&](int chunk) {
-    bf16* w1_s = stages + (chunk & 1) * L::kStageElems;
-    bf16* w2_s = w1_s + L::kW1Elems;
-    const int c0 = chunk * kChunk;
-    for (int e = tid; e < kChunk * (kD / 8); e += kThreads) {
-      const int f = e / (kD / 8), v = e % (kD / 8);
-      __pipeline_memcpy_async(w1_s + f * L::kLnLd + v * 8,
-                              w1 + static_cast<int64_t>(c0 + f) * kD + v * 8,
-                              16);
+      for (int e = 0; e < kPer / 2; ++e)
+        dst[e] = __floats2bfloat162_rn(0.0f, 0.0f);
+      continue;
     }
-    for (int e = tid; e < kD * (kChunk / 8); e += kThreads) {
-      const int d = e / (kChunk / 8), v = e % (kChunk / 8);
-      __pipeline_memcpy_async(
-          w2_s + d * L::kChunkLd + v * 8,
-          w2 + static_cast<int64_t>(d) * hidden + c0 + v * 8, 16);
+    const bf16* src = x + (row0 + r) * kD + col0;
+    float v[kPer], sum = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      v[e] = __bfloat162float(src[e]);
+      sum += v[e];
+    }
+    const float mean = warp_sum(sum) / kD;
+    float sq = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      v[e] -= mean;
+      sq += v[e] * v[e];
+    }
+    const float inv = rsqrtf(warp_sum(sq) / kD + kEps);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)  // rounded after each step, as the plain
+      v[e] = __fadd_rn(                // version rounds
+          __fmul_rn(__fmul_rn(v[e], inv), scale[col0 + e]), shift[col0 + e]);
+#pragma unroll
+    for (int e = 0; e < kPer / 2; ++e)
+      dst[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  }
+}
+
+template <int kD, int kWarpgroups>
+__global__ void __launch_bounds__(kWgThreads * kWarpgroups, 1)
+ln_mlp_wgmma_kernel(const bf16* __restrict__ x,       // [rows, D]
+                    const float* __restrict__ scale,  // [D]
+                    const float* __restrict__ shift,  // [D]
+                    const bf16* __restrict__ w1p,     // W1, packed
+                    const float* __restrict__ b1,     // [F]
+                    const bf16* __restrict__ w2p,     // W2, packed
+                    const float* __restrict__ b2,     // [D]
+                    bf16* __restrict__ out,           // [rows, D]
+                    int64_t rows, int hidden) {
+  namespace wg = vqa::wgmma;
+  using L = Bf16Layout<kD, kWarpgroups>;
+  constexpr int kThreadsHere = kWgThreads * kWarpgroups;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  unsigned char* smem =
+      smem_raw + ((wg::kAtomBytes - raw % wg::kAtomBytes) % wg::kAtomBytes);
+  const int tid = threadIdx.x, group = tid / kWgThreads;
+  const int warp = tid % kWgThreads / 32, lane = tid % 32;
+  const int g = lane / 4, c2 = lane % 4 * 2;
+  const int64_t row0 =
+      static_cast<int64_t>(blockIdx.x) * kWgRows * kWarpgroups +
+      group * kWgRows;
+  unsigned char* ln_s = smem + group * L::kLnBytes;
+  unsigned char* stages = smem + L::kStagesAt;
+
+  // Asynchronous copies of chunk `chunk` of both packed weights into stage
+  // `chunk % 2`: each is one run of kChunkBytes, in flight while the chunk
+  // before is used.
+  auto stage_chunk = [&](int chunk) {
+    unsigned char* dst = stages + (chunk & 1) * 2 * L::kChunkBytes;
+    const unsigned char* src1 = reinterpret_cast<const unsigned char*>(w1p) +
+                                static_cast<int64_t>(chunk) * L::kChunkBytes;
+    const unsigned char* src2 = reinterpret_cast<const unsigned char*>(w2p) +
+                                static_cast<int64_t>(chunk) * L::kChunkBytes;
+    for (int e = tid; e < L::kChunkBytes / 16; e += kThreadsHere) {
+      __pipeline_memcpy_async(dst + 16 * e, src1 + 16 * e, 16);
+      __pipeline_memcpy_async(dst + L::kChunkBytes + 16 * e, src2 + 16 * e,
+                              16);
     }
     __pipeline_commit();
   };
 
   const int chunks = hidden / kChunk;
   stage_chunk(0);
+  layer_norm_swizzled<kD>(x, scale, shift, ln_s, row0, rows);
+
+  float acc[kD / 2];  // [64, D] of this warpgroup
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+  float h[kChunk / 2];  // h_c [64, 64] before bias and ReLU
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) h[i] = 0.0f;
+  const uint32_t ln_addr = wg::smem_addr(ln_s);
+
   for (int chunk = 0; chunk < chunks; ++chunk) {
-    const int c0 = chunk * kChunk;
     if (chunk + 1 < chunks) {
       stage_chunk(chunk + 1);
       __pipeline_wait_prior(1);  // this chunk has landed, the next may fly
     } else {
       __pipeline_wait_prior(0);
     }
-    __syncthreads();  // (the first time, ln_s is written too)
-    const bf16* w1_s = stages + (chunk & 1) * L::kStageElems;
-    const bf16* w2_s = w1_s + L::kW1Elems;
-
-    // h_c [64, 64]: the warp makes rows 32 mw .. + 31, columns 16 nw .. + 15.
-    float hacc[2][2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) hacc[m][n][q] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < kD; kk += 16) {
-      unsigned a[2][4], wb[4];
-      vqa::ldmatrix_x4(
-          wb, w1_s + (nw * 16 + b_row) * L::kLnLd + kk + b_col);
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        vqa::ldmatrix_x4(
-            a[m], ln_s + ((2 * mw + m) * 16 + a_row) * L::kLnLd + kk + a_col);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        vqa::mma_bf16(hacc[m][0], a[m], wb[0], wb[1]);
-        vqa::mma_bf16(hacc[m][1], a[m], wb[2], wb[3]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int col = nw * 16 + n * 8 + c2;
-        const float bias0 = b1[c0 + col], bias1 = b1[c0 + col + 1];
-        bf16* dst = h_s + ((2 * mw + m) * 16 + g) * L::kChunkLd + col;
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
-            fmaxf(hacc[m][n][0] + bias0, 0.0f),
-            fmaxf(hacc[m][n][1] + bias1, 0.0f));
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * L::kChunkLd) =
-            __floats2bfloat162_rn(fmaxf(hacc[m][n][2] + bias0, 0.0f),
-                                  fmaxf(hacc[m][n][3] + bias1, 0.0f));
-      }
+    wg::fence_shared();  // cp.async and ln stores, before wgmma reads them
     __syncthreads();
+    const uint32_t w1_addr =
+        wg::smem_addr(stages + (chunk & 1) * 2 * L::kChunkBytes);
+    const uint32_t w2_addr = w1_addr + L::kChunkBytes;
 
-    // acc += h_c . W2_c^T.
+    // h_c = ln . W1_c^T: K = D in k16 steps, atom by atom.
+    wg::fence_operand(h);
+    wg::fence();
 #pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 16) {
-      unsigned a[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        vqa::ldmatrix_x4(
-            a[m], h_s + ((2 * mw + m) * 16 + a_row) * L::kChunkLd + kk + a_col);
-#pragma unroll
-      for (int n = 0; n < kBlocks; n += 2) {
-        unsigned wb[4];
-        vqa::ldmatrix_x4(wb, w2_s + (nw * (kD / 4) + n * 8 + b_row) *
-                                     L::kChunkLd + kk + b_col);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          vqa::mma_bf16(acc[m][n], a[m], wb[0], wb[1]);
-          vqa::mma_bf16(acc[m][n + 1], a[m], wb[2], wb[3]);
-        }
-      }
+    for (int s = 0; s < kD / 16; ++s) {
+      const uint32_t step = (s / 4) * kWgRows * 128 + (s % 4) * 32;
+      wg::mma_ss<kChunk>(h, wg::desc(ln_addr + step),
+                         wg::desc(w1_addr + step), s > 0);
     }
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(h);
+
+    // Bias, ReLU and the cast in registers; the bf16 pairs are the A
+    // operand of the second product as they lie.
+    const int c0 = chunk * kChunk;
+    unsigned hb[kChunk / 8][2];
+#pragma unroll
+    for (int j = 0; j < kChunk / 8; ++j) {
+      const float bias0 = b1[c0 + 8 * j + c2], bias1 = b1[c0 + 8 * j + c2 + 1];
+      hb[j][0] = wg::pack_bf16(fmaxf(h[4 * j] + bias0, 0.0f),
+                               fmaxf(h[4 * j + 1] + bias1, 0.0f));
+      hb[j][1] = wg::pack_bf16(fmaxf(h[4 * j + 2] + bias0, 0.0f),
+                               fmaxf(h[4 * j + 3] + bias1, 0.0f));
+    }
+
+    // acc += h_c . W2_c^T: K = the chunk's 64 hidden units, one atom.
+    wg::fence_operand(acc);
+    wg::fence();
+#pragma unroll
+    for (int s = 0; s < kChunk / 16; ++s) {
+      unsigned a[4];
+      wg::accumulator_to_a(a, hb[2 * s], hb[2 * s + 1]);
+      wg::mma_rs<kD>(acc, a, wg::desc(w2_addr + 32 * s), 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
     __syncthreads();  // this stage may now take the chunk after the next
   }
 
   // out = cast(x + (acc + b2)), two neighbouring columns a store.
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int half = 0; half < 2; ++half) {
+    const int64_t row = row0 + warp * 16 + g + 8 * half;
+    if (row >= rows) continue;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t row = row0 + (2 * mw + m) * 16 + g + 8 * half;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int n = 0; n < kBlocks; ++n) {
-        const int col = nw * (kD / 4) + n * 8 + c2;
-        const float2 xv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(x + row * kD + col));
-        *reinterpret_cast<__nv_bfloat162*>(out + row * kD + col) =
-            __floats2bfloat162_rn(
-                xv.x + (acc[m][n][2 * half] + b2[col]),
-                xv.y + (acc[m][n][2 * half + 1] + b2[col + 1]));
-      }
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + c2;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(x + row * kD + col));
+      *reinterpret_cast<__nv_bfloat162*>(out + row * kD + col) =
+          __floats2bfloat162_rn(
+              xv.x + (acc[4 * j + 2 * half] + b2[col]),
+              xv.y + (acc[4 * j + 2 * half + 1] + b2[col + 1]));
     }
+  }
+}
+
+// W1 [F, D] and W2 [D, F] into `packed` [2][F D]: for each chunk of 64
+// hidden units, W1's rows as [D / 64][64][64] and W2's columns as [D][64],
+// K-major, the 16-byte piece p of row r at p ^ (r % 8); a thread a piece.
+template <int kD>
+__global__ void pack_weights_kernel(const bf16* __restrict__ w1,
+                                    const bf16* __restrict__ w2,
+                                    bf16* __restrict__ packed, int hidden) {
+  const int64_t pieces = static_cast<int64_t>(hidden) * kD / 8;  // a weight
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (q >= 2 * pieces) return;
+  const int64_t i = q % pieces;  // the piece of its packed weight
+  const int chunk = static_cast<int>(i / (8 * kD));
+  const int at = static_cast<int>(i % (8 * kD)), piece = at % 8;
+  const bf16* src;
+  if (q < pieces) {
+    const int atom = at / (8 * kChunk), r = at / 8 % kChunk;
+    src = w1 + static_cast<int64_t>(chunk * kChunk + r) * kD + atom * 64 +
+          (piece ^ r % 8) * 8;
+  } else {
+    const int d = at / 8;
+    src = w2 + static_cast<int64_t>(d) * hidden + chunk * kChunk +
+          (piece ^ d % 8) * 8;
+  }
+  reinterpret_cast<uint4*>(packed)[q] = *reinterpret_cast<const uint4*>(src);
+}
+
+template <int kD, int kWarpgroups>
+cudaError_t run_wgmma(const void* x, const float* scale, const float* shift,
+                      const void* w1, const float* b1, const void* w2,
+                      const float* b2, void* out, void* packed, int64_t rows,
+                      int hidden, cudaStream_t stream) {
+  using L = Bf16Layout<kD, kWarpgroups>;
+  bf16* w1p = static_cast<bf16*>(packed);
+  bf16* w2p = w1p + static_cast<int64_t>(hidden) * kD;
+  const int64_t pieces = static_cast<int64_t>(hidden) * kD / 4;  // both
+  pack_weights_kernel<kD><<<static_cast<unsigned>((pieces + 255) / 256), 256,
+                            0, stream>>>(static_cast<const bf16*>(w1),
+                                         static_cast<const bf16*>(w2), w1p,
+                                         hidden);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  static_assert(L::kLaunchBytes <= kMaxShared, "the bf16 tiles fit a block");
+  auto kernel = ln_mlp_wgmma_kernel<kD, kWarpgroups>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kLaunchBytes);
+  if (err != cudaSuccess) return err;
+  constexpr int kBlockRows = kWgRows * kWarpgroups;
+  const unsigned blocks =
+      static_cast<unsigned>((rows + kBlockRows - 1) / kBlockRows);
+  kernel<<<blocks, kWgThreads * kWarpgroups, L::kLaunchBytes, stream>>>(
+      static_cast<const bf16*>(x), scale, shift, w1p, b1, w2p, b2,
+      static_cast<bf16*>(out), rows, hidden);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- f32
@@ -373,51 +447,51 @@ ln_mlp_fma_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+
 template <int kD>
 cudaError_t run(const void* x, const float* scale, const float* shift,
                 const void* w1, const float* b1, const void* w2,
-                const float* b2, void* out, int64_t rows, int hidden,
-                int dtype, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((rows + kRows - 1) / kRows);
+                const float* b2, void* out, void* packed, int64_t rows,
+                int hidden, int warpgroups, int dtype, cudaStream_t stream) {
   if (dtype == vqa::kBFloat16) {
-    auto kernel = ln_mlp_mma_kernel<kD>;
-    constexpr size_t shared = Bf16Layout<kD>::kBytes;
-    static_assert(shared <= kMaxShared, "the bf16 tiles fit a block");
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, shared, stream>>>(
-        static_cast<const bf16*>(x), scale, shift,
-        static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
-        static_cast<bf16*>(out), rows, hidden);
-  } else {
-    auto kernel = ln_mlp_fma_kernel<kD>;
-    constexpr size_t shared = F32Layout<kD>::kBytes;
-    static_assert(shared <= kMaxShared, "the f32 tiles fit a block");
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, shared, stream>>>(
-        static_cast<const float*>(x), scale, shift,
-        static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2,
-        static_cast<float*>(out), rows, hidden);
+    if (warpgroups == 1)
+      return run_wgmma<kD, 1>(x, scale, shift, w1, b1, w2, b2, out, packed,
+                              rows, hidden, stream);
+    if (warpgroups == 2)
+      return run_wgmma<kD, 2>(x, scale, shift, w1, b1, w2, b2, out, packed,
+                              rows, hidden, stream);
+    return cudaErrorInvalidValue;
   }
+  const unsigned blocks = static_cast<unsigned>((rows + kRows - 1) / kRows);
+  auto kernel = ln_mlp_fma_kernel<kD>;
+  constexpr size_t shared = F32Layout<kD>::kBytes;
+  static_assert(shared <= kMaxShared, "the f32 tiles fit a block");
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(shared));
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, shared, stream>>>(
+      static_cast<const float*>(x), scale, shift,
+      static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2,
+      static_cast<float*>(out), rows, hidden);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x [rows, D], scale, shift [D] f32, w1 [F, D] and w2 [D, F] of x's type,
-// b1 [F] and b2 [D] f32 -> out [rows, D]. D is 64, 128 or 256 and F a
-// multiple of 64; cudaErrorInvalidValue for anything else.
+// b1 [F] and b2 [D] f32 -> out [rows, D]. bf16: `packed` is scratch of
+// 2 F D values that the first of the two grids fills with both weights in
+// wgmma's layout (ops/vit_mlp_fused.py::pack_weights), and `warpgroups`
+// (1 or 2) 64-row warpgroups a block (ops/vit_mlp_fused.py::row_plan); f32
+// takes neither. D is 64, 128 or 256 and F a multiple of 64;
+// cudaErrorInvalidValue for anything else, with nothing launched.
 extern "C" int vqa_vit_mlp_fused(const void* x, const void* scale,
                                  const void* shift, const void* w1,
                                  const void* b1, const void* w2,
-                                 const void* b2, void* out, int rows,
-                                 int dim, int hidden, int dtype,
-                                 void* stream) {
+                                 const void* b2, void* out, void* packed,
+                                 int rows, int dim, int hidden,
+                                 int warpgroups, int dtype, void* stream) {
   if (dtype != vqa::kBFloat16 && dtype != vqa::kFloat32)
     return cudaErrorInvalidValue;
   if (hidden < kChunk || hidden % kChunk) return cudaErrorInvalidValue;
@@ -429,11 +503,14 @@ extern "C" int vqa_vit_mlp_fused(const void* x, const void* scale,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dim) {
     case 64:
-      return run<64>(x, sc, sh, w1, c1, w2, c2, out, rows, hidden, dtype, s);
+      return run<64>(x, sc, sh, w1, c1, w2, c2, out, packed, rows, hidden,
+                     warpgroups, dtype, s);
     case 128:
-      return run<128>(x, sc, sh, w1, c1, w2, c2, out, rows, hidden, dtype, s);
+      return run<128>(x, sc, sh, w1, c1, w2, c2, out, packed, rows, hidden,
+                      warpgroups, dtype, s);
     case 256:
-      return run<256>(x, sc, sh, w1, c1, w2, c2, out, rows, hidden, dtype, s);
+      return run<256>(x, sc, sh, w1, c1, w2, c2, out, packed, rows, hidden,
+                      warpgroups, dtype, s);
     default:
       return cudaErrorInvalidValue;
   }

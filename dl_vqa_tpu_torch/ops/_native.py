@@ -78,13 +78,17 @@ _SIGNATURES = {
     # code, stream
     "vqa_conv_relu_pool_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P],
+    # h, w, cin, cout, k, int[5] -> kernel 6's bf16 plan (warp rows, warp
+    # columns, channels a block, input channels a stage, shared bytes)
+    "vqa_conv_relu_pool_fused_plan": [_I, _I, _I, _I, _I, _P],
     # as above, with w in f32
     "vqa_conv_relu_pool_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P],
-    # x, ln scale, ln bias, w1, b1, w2, b2, out, rows, dim, hidden, dtype
-    # code, stream
-    "vqa_vit_mlp_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _P],
+    # x, ln scale, ln bias, w1, b1, w2, b2, out, packed-weight scratch
+    # (bf16), rows, dim, hidden, warpgroups a block (bf16), dtype code,
+    # stream
+    "vqa_vit_mlp_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _P],
     # x, out, rows, width, channels, mode, dtype code, stream
     "vqa_layout_case": [_P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -41,6 +41,11 @@ bf16 differs from :func:`conv_relu_pool_reference` by that one rounding
 ``conv_relu_pool_reference``). Operations bound kernel 6 on this card
 (0.88 TFLOP for conv1 at batch 512) and memory traffic kernel 7 (0.15 GB
 in, 0.81 GB out for conv0); the source notes say what each design does.
+In bf16 kernel 6 reads its weights by wgmma descriptors:
+:func:`pack_conv_weight` writes them in that layout, and
+:func:`fused_plan` mirrors the tiling the kernel chooses (its C entry
+``vqa_conv_relu_pool_fused_plan`` reports its own, which the card tests
+hold to this one).
 :class:`ConvReluPoolFused` gives kernel 6 the gradients of the unfused
 block, as ``_fused_bwd`` does: it recomputes the conv output with the
 library call and hands it to kernel C.
@@ -48,12 +53,14 @@ library call and hands it to kernel C.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from dl_vqa_tpu_torch.ops import _native
+from dl_vqa_tpu_torch.ops.wgmma_layout import ATOM, swizzle_index
 
 __all__ = ["conv_nhwc", "relu_maxpool_reference", "relu_maxpool_cuda",
            "relu_maxpool_backward_reference", "relu_maxpool_backward_cuda",
@@ -61,11 +68,17 @@ __all__ = ["conv_nhwc", "relu_maxpool_reference", "relu_maxpool_cuda",
            "conv_relu_pool_fused_reference", "conv_relu_pool_fused_cuda",
            "ConvReluPoolFused", "conv_relu_pool_stem_reference",
            "conv_relu_pool_stem_cuda", "conv_relu_pool_stem",
-           "conv_relu_pool", "FUSED_MIN_CIN"]
+           "conv_relu_pool", "FUSED_MIN_CIN", "FusedPlan", "fused_plan",
+           "pack_conv_weight"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SHARED_BYTES = 32 * 1024  # kernel C keeps one f32 per channel there
 FUSED_MIN_CIN = 16  # narrower inputs go to the stem op, not to kernel 6
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
+_ARRANGEMENTS = ((4, 1), (2, 2), (1, 4))  # warp rows x columns of a tile
+_WARPGROUPS = 2   # kernel 6's tile streams a block
+_STREAM_TILES = 4  # its tiles a block step where the weights stream
+_PAD = 8          # values after each staged pixel (bank spread)
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor,
@@ -277,12 +290,103 @@ def _pooled_empty(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
                        device=x.device)
 
 
+class FusedPlan(NamedTuple):
+    """Kernel 6's bf16 tiling. A warpgroup's tile is ``warp_rows`` x ``4
+    warp_cols`` pool windows (64 conv positions); a block owns
+    ``channels`` output channels, with their weights resident in shared
+    memory or, where those do not fit (``stream``), staged a filter row a
+    step for four tiles at once; a step stages ``ck`` input channels of a
+    tile's window."""
+    warp_rows: int
+    warp_cols: int
+    channels: int
+    ck: int
+    shared: int        # bytes of shared memory a block asks for
+    tiles_y: int       # tiles of one image
+    tiles_x: int
+    masked: float      # share of the computed windows outside the output
+    stream: bool = False
+
+
+def _shared_bytes(k: int, rows: int, cols: int, atoms: int, channels: int,
+                  ck: int, stream: bool) -> int:
+    """Kernel 6's shared memory a block: resident, the weights and two
+    stages of each warpgroup's input window; streamed, two stages of one
+    filter row's weights and two of the block step's four windows; and
+    1024 bytes to align the weights."""
+    window = (2 * rows + k - 1) * (8 * cols + k - 1) * (ck + _PAD) * 2
+    if stream:
+        return 2 * k * channels * 128 + 2 * _STREAM_TILES * window + 1024
+    return k * k * atoms * channels * 128 + 2 * _WARPGROUPS * window + 1024
+
+
+def fused_plan(h: int, w: int, cin: int, cout: int, k: int
+               ) -> Optional[FusedPlan]:
+    """The tiling ``csrc/conv_relu_pool_fused.cu::make_plan`` takes for a
+    bf16 call, or None where not even streamed weights fit a block. The
+    tile arrangement masks the fewest windows at this output size (ties to
+    the squarer tile). Resident weights (for all taps, Cin padded to
+    64-channel atoms) come first: ``ck`` the widest of 64, 48, 32, 16
+    dividing Cin, the slice the widest of 128, 64, 32 dividing Cout that
+    fits with two warpgroups' two input stages (``ck`` + 8 values a
+    pixel). Else the weights stream, with the widest slice, then the widest
+    ``ck``, that fit. The plan does not depend on the batch, so neither do
+    a pixel's bits."""
+    hp, wp = (h - k + 1) // 2, (w - k + 1) // 2
+    if k < 1 or cin % 16 or cout % 32 or hp <= 0 or wp <= 0:
+        return None
+    best = None
+    for rows, cols in _ARRANGEMENTS:
+        tiles_y, tiles_x = -(-hp // rows), -(-wp // (4 * cols))
+        if best is None or tiles_y * tiles_x < best[2] * best[3]:
+            best = (rows, cols, tiles_y, tiles_x)
+    rows, cols, tiles_y, tiles_x = best
+    cks = [c for c in (64, 48, 32, 16) if cin % c == 0]
+    atoms = -(-cin // ATOM)
+    masked = 1.0 - hp * wp / (tiles_y * tiles_x * 16)
+    slices = [n for n in (128, 64, 32) if cout % n == 0]
+    choices = [(n, cks[0], False) for n in slices] + \
+        [(n, ck, True) for n in slices for ck in cks]
+    for channels, ck, stream in choices:
+        shared = _shared_bytes(k, rows, cols, atoms, channels, ck, stream)
+        if shared <= SMEM_PER_BLOCK:
+            return FusedPlan(rows, cols, channels, ck, shared, tiles_y,
+                             tiles_x, masked, stream)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_pack_index(cout: int, cin: int, k: int,
+                     device: torch.device) -> torch.Tensor:
+    """For each value of the packed weight, its offset in ``[Cout, Cin, k,
+    k]`` (Cin a multiple of 64)."""
+    per_tap = swizzle_index(cout, cin, device)  # offsets n Cin + ci
+    taps = torch.arange(k * k, device=device)[:, None]
+    return (per_tap[None, :] * (k * k) + taps).reshape(-1)
+
+
+def pack_conv_weight(weight: torch.Tensor) -> torch.Tensor:
+    """Torch-layout ``weight [Cout, Cin, k, k]`` -> kernel 6's bf16 operand
+    ``[k * k, ceil(Cin / 64), Cout, 64]``: per tap, the ``[Cout, Cin]``
+    matrix K-major and swizzled (``ops/wgmma_layout.py``), Cin padded with
+    zeros to whole 64-channel atoms, so that a slice of output channels of
+    one tap is one run of memory. One gather (and a pad where Cin is no
+    multiple of 64)."""
+    cout, cin, k, _ = weight.shape
+    if cin % ATOM:
+        weight = F.pad(weight, (0, 0, 0, 0, 0, -cin % ATOM))
+    index = _conv_pack_index(cout, weight.shape[1], k, weight.device)
+    return torch.take(weight.contiguous(), index).reshape(
+        k * k, -(-cin // ATOM), cout, ATOM)
+
+
 def conv_relu_pool_fused_cuda(x: torch.Tensor, weight: torch.Tensor,
                               bias: torch.Tensor, stride: int = 1
                               ) -> torch.Tensor:
     """Kernel 6 on ``x``'s CUDA device; raises on any input it does not
     take. The weight arrives in torch layout and is repacked here, once a
-    call, to the kernel's ``[k * k, Cin, Cout]`` in ``x``'s dtype."""
+    call, in ``x``'s dtype: for f32 to ``[k * k, Cin, Cout]``, for bf16 by
+    :func:`pack_conv_weight`."""
     _check_fused_inputs(x, weight, bias, "conv_relu_pool_fused_cuda")
     cout, cin, k, _ = weight.shape
     if stride != 1:
@@ -295,8 +399,15 @@ def conv_relu_pool_fused_cuda(x: torch.Tensor, weight: torch.Tensor,
                          f"Cout a multiple of 32; got {cin}, {cout}")
     if cout % 8:
         raise ValueError(f"kernel 6 takes Cout a multiple of 8; got {cout}")
+    if x.dtype == torch.bfloat16 and fused_plan(x.shape[1], x.shape[2], cin,
+                                                cout, k) is None:
+        raise ValueError(f"not even one filter row of kernel 6's weights "
+                         f"fits a block's shared memory at Cin={cin}, k={k}")
     lib = _native.library()
-    packed = weight.detach().permute(2, 3, 1, 0).to(x.dtype).contiguous()
+    if x.dtype == torch.bfloat16:
+        packed = pack_conv_weight(weight.detach().to(x.dtype))
+    else:
+        packed = weight.detach().permute(2, 3, 1, 0).to(x.dtype).contiguous()
     out = _pooled_empty(x, weight)
     bias32 = bias.detach().float().contiguous()
     code = lib.vqa_conv_relu_pool_fused(

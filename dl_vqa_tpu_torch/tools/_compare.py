@@ -1,9 +1,12 @@
 """What the compare tools share: several source trees of a kernel built
-side by side by ``nvcc -Xptxas -v``, and CUDA-event timing."""
+side by side by ``nvcc -Xptxas -v``, SASS instruction counts, and
+CUDA-event timing."""
 
 from __future__ import annotations
 
 import ctypes
+import os
+import re
 import subprocess
 
 import torch
@@ -48,6 +51,23 @@ def build(versions: dict, sources: tuple, out_dir: str) -> dict:
                 print(f"{name} {line.split(chr(39))[1][:72]}: {info}")
         libs[name] = ctypes.CDLL(f"{out_dir}/{name}.so")
     return libs
+
+
+def sass_counts(library: str, opcode: str) -> dict:
+    """Kernel (mangled name) -> how many ``opcode`` instructions its SASS
+    holds, by ``cuobjdump -sass`` from the toolkit beside ``nvcc``."""
+    cuobjdump = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                         text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in out.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            kernel = found.group(1)
+            counts[kernel] = 0
+        elif kernel and re.search(rf"\b{opcode}\b", line):
+            counts[kernel] += 1
+    return counts
 
 
 def timed(fn, iters: int) -> float:

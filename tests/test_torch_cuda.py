@@ -10,9 +10,12 @@ JAX it runs with:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import pytest
 import torch
 
+from dl_vqa_tpu_torch.ops import _native, vit_mlp_fused
 from dl_vqa_tpu_torch.ops.attention_pool import (
     attention_pool_cuda,
     attention_pool_reference,
@@ -24,6 +27,8 @@ from dl_vqa_tpu_torch.ops.conv_fused import (
     conv_relu_pool_stem,
     conv_relu_pool_stem_cuda,
     conv_relu_pool_stem_reference,
+    fused_plan,
+    pack_conv_weight,
     relu_maxpool,
     relu_maxpool_backward_cuda,
     relu_maxpool_backward_reference,
@@ -58,9 +63,11 @@ from dl_vqa_tpu_torch.ops.vit_attention import (
     vit_attention_reference,
 )
 from dl_vqa_tpu_torch.ops.vit_mlp_fused import (
+    GRIDS as MLP_GRIDS,
     fused_ln_mlp,
     fused_ln_mlp_cuda,
     fused_ln_mlp_reference,
+    row_plan,
 )
 
 
@@ -798,8 +805,13 @@ def test_fused_ln_mlp_matches_plain(device, dtype, shape, hidden):
     before = fused_ln_mlp_cuda.launches
     with torch.no_grad():
         got = fused_ln_mlp(*args)
-    assert fused_ln_mlp_cuda.launches == before + 1
-    want = fused_ln_mlp_reference(*args)
+    assert fused_ln_mlp_cuda.launches == before + MLP_GRIDS[dtype]
+    _assert_mlp_close(got, fused_ln_mlp_reference(*args), dtype)
+
+
+def _assert_mlp_close(got, want, dtype):
+    """Kernel 8 against its plain version, as test_fused_ln_mlp_matches_plain
+    states it."""
     assert got.shape == want.shape and got.dtype == dtype
     err = float((got.float() - want.float()).abs().max())
     top = float(want.float().abs().max())
@@ -946,3 +958,202 @@ def test_lstm_bf16_without_a_plan_takes_the_per_step_grids(device):
     assert lstm_recurrence_cuda.launches == before + 4
     for a, b in zip(got, lstm_recurrence_reference(*args)):
         torch.testing.assert_close(a, b, atol=1e-2, rtol=0)
+
+
+# Kernels 8 and 6 on wgmma: the plans, ragged edges, bits and refusals.
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _after_other_kernels(device, run, calls=20):
+    """``run()`` once, then ``calls`` times more, each right after another
+    kernel ran on the stream: the results are the first one's bits."""
+    first = run()
+    noise = torch.randn(2048, 2048, device=device)
+    for _ in range(calls):
+        noise = noise @ noise.T / 2048
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.parametrize("warpgroups", [1, 2])
+def test_fused_ln_mlp_ragged_rows_on_each_row_plan(device, warpgroups):
+    """Row counts that are no multiple of a block's rows (64 or 128), on
+    the plan of one and of two warpgroups a block."""
+    sms = _sms()
+    rows = 2 * 64 * sms + 37 if warpgroups == 2 else 64 * 5 + 3
+    assert row_plan(rows, sms)[0] == warpgroups
+    args = _mlp_case(device, torch.bfloat16, (rows, 256), 1024)
+    before = fused_ln_mlp_cuda.launches
+    with torch.no_grad():
+        got = fused_ln_mlp(*args)
+    assert fused_ln_mlp_cuda.launches == before + 2  # packing, then block
+    _assert_mlp_close(got, fused_ln_mlp_reference(*args), torch.bfloat16)
+
+
+def test_fused_ln_mlp_rows_do_not_depend_on_the_batch(device):
+    """The ViT's token rows at B = 1, 8 (one warpgroup a block) and 512
+    (two): the same image gives the same bits."""
+    args = _mlp_case(device, torch.bfloat16, (512, 196, 256), 1024)
+    assert row_plan(512 * 196, _sms())[0] == 2
+    assert row_plan(8 * 196, _sms())[0] == 1
+    full = fused_ln_mlp_cuda(*args)
+    for batch in (1, 8):
+        part = fused_ln_mlp_cuda(args[0][:batch].contiguous(), *args[1:])
+        assert torch.equal(part, full[:batch]), batch
+
+
+def test_fused_ln_mlp_repeats_its_bits(device):
+    args = _mlp_case(device, torch.bfloat16, (128, 196, 256), 1024)
+    _after_other_kernels(device, lambda: fused_ln_mlp_cuda(*args))
+
+
+@pytest.mark.parametrize("dim,hidden", [(256, 1024), (128, 192), (64, 64)])
+def test_fused_ln_mlp_packs_the_weights_as_the_plain_packing(device, dim,
+                                                             hidden):
+    """The C entry's first grid leaves in its scratch the bits of
+    vit_mlp_fused.pack_weights, which the CPU tests check against the
+    swizzle formula."""
+    x, scale, shift, w1, b1, w2, b2 = _mlp_case(device, torch.bfloat16,
+                                                (3, 5, dim), hidden)
+    w1b, w2b = w1.bfloat16().contiguous(), w2.bfloat16().contiguous()
+    packed = torch.empty(2, hidden * dim, dtype=torch.bfloat16,
+                         device=device)
+    out = torch.empty_like(x)
+    code = _native.library().vqa_vit_mlp_fused(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w1b.data_ptr(),
+        b1.data_ptr(), w2b.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        packed.data_ptr(), 15, dim, hidden, 1, 1,
+        _native.stream_ptr(x.device))
+    _native.check("vit_mlp_fused", code)
+    want = vit_mlp_fused.pack_weights(w1b, w2b)
+    assert torch.equal(packed[0], want[0].reshape(-1))
+    assert torch.equal(packed[1], want[1].reshape(-1))
+
+
+def test_fused_ln_mlp_refused_plan_raises(device, monkeypatch):
+    """Four warpgroups a block would ask for 257 KiB of shared memory, more
+    than a block may have: the C entry refuses the plan, nothing is
+    launched, and the wrapper raises."""
+    monkeypatch.setattr(vit_mlp_fused, "row_plan",
+                        lambda rows, sms: (4, 256, -(-rows // 256)))
+    args = _mlp_case(device, torch.bfloat16, (2, 196, 256), 1024)
+    before = fused_ln_mlp_cuda.launches
+    with pytest.raises(RuntimeError, match="vit_mlp_fused"):
+        fused_ln_mlp_cuda(*args)
+    assert fused_ln_mlp_cuda.launches == before
+    monkeypatch.undo()
+    _assert_mlp_close(fused_ln_mlp_cuda(*args),
+                      fused_ln_mlp_reference(*args), torch.bfloat16)
+
+
+# batch, h, w, Cin, Cout (k = 3) and the plan each takes.
+_FUSED_PLAN_SHAPES = [
+    (2, 54, 54, 128, 256),   # conv2: 4 x 4 windows a tile, 64 channels
+    (3, 21, 23, 128, 256),   # the same, ragged both ways
+    (2, 17, 30, 128, 128),   # 1 x 16 windows, 64-channel slices
+    (2, 111, 111, 64, 128),  # conv1: 2 x 8 windows a tile, 128 channels
+    (1, 25, 60, 64, 128),    # 1 x 16 windows, ragged rows
+    (2, 13, 77, 32, 64),     # 2 x 8 windows, 64 channels, ragged
+]
+
+
+@pytest.mark.parametrize("batch,h,w,cin,cout", _FUSED_PLAN_SHAPES)
+def test_conv_relu_pool_fused_plans_match_plain(device, batch, h, w, cin,
+                                                cout):
+    x, weight, bias = _conv_case(device, torch.bfloat16, batch, h, w, cin,
+                                 cout, 3)
+    before = conv_relu_pool_fused_cuda.launches
+    got = conv_relu_pool_fused_cuda(x, weight, bias)
+    assert conv_relu_pool_fused_cuda.launches == before + 1
+    _assert_fused_close(got, conv_relu_pool_fused_reference(x, weight, bias),
+                        torch.bfloat16)
+
+
+# batch, h, w, Cin, Cout, k whose weights do not fit a block: streamed.
+_FUSED_STREAM_SHAPES = [
+    (2, 14, 14, 384, 64, 3),   # 64 channels a block, 64 a stage
+    (3, 13, 15, 512, 128, 3),  # 128 channels, ragged
+    (2, 12, 12, 128, 64, 5),   # k = 5
+    (1, 17, 14, 256, 32, 5),   # k = 5, 32 channels, ragged
+    (1, 16, 16, 48, 96, 7),    # k = 7, 16 channels a stage
+    (1, 20, 17, 336, 96, 3),   # 48 channels a stage, across atoms
+]
+
+
+@pytest.mark.parametrize("batch,h,w,cin,cout,k", _FUSED_STREAM_SHAPES)
+def test_conv_relu_pool_fused_streamed_weights_match_plain(device, batch, h,
+                                                           w, cin, cout, k):
+    """Shapes the mma.sync kernel 6 took, or wider, whose weights no block
+    can hold: a step stages one filter row's weights beside the input."""
+    assert fused_plan(h, w, cin, cout, k).stream
+    x, weight, bias = _conv_case(device, torch.bfloat16, batch, h, w, cin,
+                                 cout, k)
+    before = conv_relu_pool_fused_cuda.launches
+    got = conv_relu_pool_fused_cuda(x, weight, bias)
+    assert conv_relu_pool_fused_cuda.launches == before + 1
+    _assert_fused_close(got, conv_relu_pool_fused_reference(x, weight, bias),
+                        torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,w,cin,cout,k", [
+    (54, 54, 128, 256, 3), (111, 111, 64, 128, 3), (17, 30, 128, 128, 3),
+    (13, 77, 32, 64, 3), (37, 37, 16, 32, 3), (24, 24, 16, 32, 5),
+    (19, 18, 48, 128, 3), (9, 11, 64, 256, 3)]
+    + [shape[1:] for shape in _FUSED_STREAM_SHAPES])
+def test_conv_relu_pool_fused_plan_is_the_kernels(device, h, w, cin, cout,
+                                                  k):
+    """ops/conv_fused.py::fused_plan, which the CPU tests check, is the
+    plan the C entry takes."""
+    got = (ctypes.c_int * 6)()
+    code = _native.library().vqa_conv_relu_pool_fused_plan(
+        h, w, cin, cout, k, ctypes.cast(got, ctypes.c_void_p))
+    plan = fused_plan(h, w, cin, cout, k)
+    assert code == 0 and plan is not None
+    assert list(got) == [plan.warp_rows, plan.warp_cols, plan.channels,
+                         plan.ck, plan.shared, int(plan.stream)]
+
+
+@pytest.mark.parametrize("size,cin,cout", [(111, 64, 128), (54, 128, 256),
+                                           (54, 384, 256)])
+def test_conv_relu_pool_fused_pixels_do_not_depend_on_the_batch(
+        device, size, cin, cout):
+    """The model's conv1 and conv2, and conv2's size at 384 input channels
+    (weights streamed), at B = 1, 8 and 512: the grid and every
+    warpgroup's tiles change, a pooled pixel's bits do not."""
+    x, weight, bias = _conv_case(device, torch.bfloat16, 512, size, size,
+                                 cin, cout, 3)
+    full = conv_relu_pool_fused_cuda(x, weight, bias)
+    for batch in (1, 8):
+        part = conv_relu_pool_fused_cuda(x[:batch].contiguous(), weight, bias)
+        assert torch.equal(part, full[:batch]), batch
+
+
+@pytest.mark.parametrize("size,cin,cout", [(111, 64, 128), (54, 128, 256),
+                                           (54, 384, 256)])
+def test_conv_relu_pool_fused_repeats_its_bits(device, size, cin, cout):
+    x, weight, bias = _conv_case(device, torch.bfloat16, 16, size, size, cin,
+                                 cout, 3)
+    _after_other_kernels(device,
+                         lambda: conv_relu_pool_fused_cuda(x, weight, bias))
+
+
+def test_conv_relu_pool_fused_refuses_more_shared_memory_than_a_block_has(
+        device):
+    """k = 26: two stages of one filter row of 32 channels' weights (104
+    KiB each) and of four input windows exceed a block's shared memory. The wrapper raises before any launch, and the C entry, called
+    directly, refuses the call too."""
+    x, weight, bias = _conv_case(device, torch.bfloat16, 1, 30, 30, 16, 32,
+                                 26)
+    assert fused_plan(30, 30, 16, 32, 26) is None
+    before = conv_relu_pool_fused_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_relu_pool_fused_cuda(x, weight, bias)
+    packed = pack_conv_weight(weight.bfloat16())
+    bias32 = bias.float().contiguous()
+    out = torch.empty(1, 2, 2, 32, dtype=torch.bfloat16, device=device)
+    code = _native.library().vqa_conv_relu_pool_fused(
+        x.data_ptr(), packed.data_ptr(), bias32.data_ptr(), out.data_ptr(), 1,
+        30, 30, 16, 32, 26, 1, _native.stream_ptr(x.device))
+    with pytest.raises(RuntimeError, match="conv_relu_pool_fused"):
+        _native.check("conv_relu_pool_fused", code)
+    assert conv_relu_pool_fused_cuda.launches == before
