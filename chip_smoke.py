@@ -13,7 +13,8 @@
    whichever is larger) and, where one exists, a PyTorch call that
    computes the same function (kernels 6 to 8 timed in turns with it, and
    kernel 6 also with the unfused block it replaces, cuDNN's conv then
-   kernel 2: ``unfused_ms``);
+   kernel 2: ``unfused_ms``); kernel C beside a copy of the same conv
+   output (``copy_ms``), both rates in GB/s;
 4. slice: a Predictor at full reference width (ModelConfig defaults, bf16,
    random weights from the seed, an in-memory vocab of 15,193 question ids
    and 3,000 answers) answers 8 requests; every serving kernel must have
@@ -45,9 +46,11 @@
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 and the layout probe) is driven with the kernels' launch counts set to 0
-just before it and read just after. Then one JSON line with every kernel's
-launches (grids launched in those runs; the LSTM recurrence one a call in
-bf16, the LSTM backward one per timestep, the pool backward two per call),
+just before it and read just after; on every path kernel C runs its
+vector kernel and kernel 7 its tensor-core kernel (``FAST_PATHS``). Then
+one JSON line with every kernel's launches (grids launched in those runs;
+the LSTM recurrence one a call in bf16, the LSTM backward one per
+timestep, the pool backward two per call),
 error, times and bound, and as the last line ``{"ok": true, "device":
 {...}}``. Every time printed was taken on the
 card whose name and power limit the first line gives.
@@ -564,13 +567,16 @@ def pool_kernels(torch, gen, device, summary) -> None:
                     3.0 * y.numel(), library_ms)
             del y, y_nchw, out
 
-            # Kernel C on a conv output full of ties.
+            # Kernel C on a conv output full of ties, on its vector kernel.
             y = tied_values(torch, shape, dtype, gen, device)
             b = tied_values(torch, shape[-1:], torch.float32, gen,
                             device) * 0.5
             g = torch.randn(shape[0], shape[1] // 2, shape[2] // 2, shape[3],
                             generator=gen, device=device).to(dtype)
+            before = relu_maxpool_backward_cuda.launches_vector
             dz, db = relu_maxpool_backward_cuda(g, y, b)
+            require(relu_maxpool_backward_cuda.launches_vector == before + 2,
+                    f"relu_maxpool_backward {shape}: not the vector kernel")
             dz_ref, db_ref = relu_maxpool_backward_reference(g, y, b)
             torch.cuda.synchronize()
             err = max_err(dz, dz_ref)
@@ -579,14 +585,22 @@ def pool_kernels(torch, gen, device, summary) -> None:
                 g.float().abs().sum(dim=(0, 1, 2)).max())
             moved = nbytes(g, y, b, dz, db)
             del dz_ref, db_ref
-            ms, plain_ms = timed_pair(
-                torch, lambda: relu_maxpool_backward_reference(g, y, b),
-                lambda: relu_maxpool_backward_cuda(g, y, b), iters=3)
+            # The yardstick of its rate: a copy of the conv output, which
+            # moves 2 |y| bytes against kernel C's 2 |y| + |g|.
+            dst = torch.empty_like(y)
+            plain_ms, ms, copy_ms = timed_turns(
+                torch, [lambda: relu_maxpool_backward_reference(g, y, b),
+                        lambda: relu_maxpool_backward_cuda(g, y, b),
+                        lambda: dst.copy_(y)], iters=3)
+            copied = 2 * nbytes(y)
             log(f"kernel relu_maxpool_backward {str(dtype)[6:]} "
-                f"{list(shape)}: dz max_abs_err {err:.3e} (tol "
+                f"{list(shape)}: vector kernel, dz max_abs_err {err:.3e} (tol "
                 f"{TOL['pool_backward_dz']:g}), db rel err {db_err:.3e} (tol "
                 f"{TOL['pool_backward_db']:g}), {routed:.3f} of the windows "
-                f"routed | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"routed | kernel {ms:.4f} ms = {moved / ms / 1e6:.0f} GB/s, "
+                f"plain {plain_ms:.4f} ms, dst.copy_(y) {copy_ms:.4f} ms = "
+                f"{copied / copy_ms / 1e6:.0f} GB/s | bound "
+                f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes")
             require(err <= TOL["pool_backward_dz"],
                     f"relu_maxpool_backward dz {shape}: {err}")
             require(db_err <= TOL["pool_backward_db"],
@@ -594,7 +608,13 @@ def pool_kernels(torch, gen, device, summary) -> None:
             if main:
                 add("relu_maxpool_backward", err, ms, plain_ms, moved,
                     8.0 * y.numel())
-            del y, g, dz, db
+                copy = totals["relu_maxpool_backward"]
+                copy["copy_ms"] = copy.get("copy_ms", 0.0) + copy_ms
+                copy["copied"] = copy.get("copied", 0) + copied
+            del y, g, dz, db, dst
+    copy = totals["relu_maxpool_backward"]
+    copy["gbps"] = copy["bytes"] / copy["ms"] / 1e6
+    copy["copy_gbps"] = copy.pop("copied") / copy["copy_ms"] / 1e6
     for name, total in totals.items():
         moved, ops = total.pop("bytes"), total.pop("ops")
         summary[name] = {**total, **bound(moved, ops, "f32")}
@@ -773,7 +793,7 @@ def fused_kernels(torch, gen, device, summary) -> None:
     from dl_vqa_tpu_torch.ops.conv_fused import (
         conv_nhwc, conv_relu_pool, conv_relu_pool_fused_cuda,
         conv_relu_pool_fused_reference, conv_relu_pool_stem_cuda,
-        conv_relu_pool_stem_reference, relu_maxpool_cuda)
+        conv_relu_pool_stem_reference, relu_maxpool_cuda, stem_mma_path)
     from dl_vqa_tpu_torch.ops.layout_cases import (
         layout_case_cuda, layout_case_reference)
     from dl_vqa_tpu_torch.ops.vit_mlp_fused import (
@@ -803,7 +823,16 @@ def fused_kernels(torch, gen, device, summary) -> None:
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         x, weight, bias = conv_case(torch, gen, device, dtype, batch, size,
                                     cin, cout, k)
+        before = getattr(kernel, "launches_mma", 0)
         got = kernel(x, weight, bias)
+        if kernel is conv_relu_pool_stem_cuda:
+            # bf16 at the stem's shape and the odd ones runs on the tensor
+            # cores; f32 on the FMA units.
+            mma = stem_mma_path(dtype, cin, cout, k)
+            require(mma == (dtype == torch.bfloat16)
+                    and kernel.launches_mma == before + mma,
+                    f"conv_relu_pool_stem {dtype} {size} k={k}: tensor-core "
+                    f"kernel {mma}, counted {kernel.launches_mma - before}")
         want = reference(x, weight, bias)
         torch.cuda.synchronize()
         what = f"{name} {kind} x {list(x.shape)} -> {list(got.shape)} k={k}"
@@ -1081,6 +1110,33 @@ def kernel_wrappers() -> dict:
             "layout_cases": layout_case_cuda}
 
 
+# Kernels that count the grids of their fast path beside all their grids:
+# kernel C's vector kernel and kernel 7's tensor-core kernel, which every
+# call of a model path takes (the model's shapes, in bf16).
+FAST_PATHS = {"relu_maxpool_backward": "launches_vector",
+              "conv_relu_pool_stem": "launches_mma"}
+
+
+def reset_launches(wrappers) -> None:
+    """Every launch count to 0, the fast paths' too."""
+    for name, fn in wrappers.items():
+        fn.launches = 0
+        if name in FAST_PATHS:
+            setattr(fn, FAST_PATHS[name], 0)
+
+
+def read_launches(wrappers, what: str) -> dict:
+    """The grids each kernel launched since :func:`reset_launches`; fails
+    where kernel C or kernel 7 launched a grid off its fast path."""
+    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    for name, counter in FAST_PATHS.items():
+        fast = getattr(wrappers[name], counter)
+        require(fast == launches[name],
+                f"{name} on {what}: {launches[name]} grids, {fast} of them "
+                f"counted by {counter}")
+    return launches
+
+
 def vit_config():
     """The model of ``dl_vqa_tpu/config/config_vit.yaml``: the ViT image
     encoder (patch 16, 4 layers, 4 heads, width 256) before the reference
@@ -1116,10 +1172,9 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict,
     images = rng.integers(0, 256, (len(QUESTIONS), cfg.image_size,
                                    cfg.image_size, 3), dtype=np.uint8)
 
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     answers = predictor.predict(images, QUESTIONS, top_k=3)
-    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    launches = read_launches(wrappers, f"the {label} serving path")
     for question, top in zip(QUESTIONS, answers):
         log(f"request {question!r} -> " + ", ".join(
             f"{a} {p:.4f}" for a, p in top))
@@ -1236,8 +1291,9 @@ def without_dropout(cfg):
 # Device kernels by the part of the train step they belong to, first match
 # wins (names as torch.profiler reports them).
 PROFILE_PARTS = (
-    ("kernel C, bias+ReLU+pool backward", ("relu_maxpool_backward_kernel",
-                                           "sum_partials_kernel")),
+    ("kernel C, bias+ReLU+pool backward", (
+        "relu_maxpool_backward_vector_kernel", "relu_maxpool_backward_kernel",
+        "sum_partials_kernel")),
     ("kernel 2, bias+ReLU+pool", ("relu_maxpool_kernel",)),
     ("kernel B, LSTM backward step", ("lstm_backward_step_kernel",)),
     ("kernels A and 1, LSTM recurrence", ("lstm_persistent_kernel",
@@ -1249,7 +1305,8 @@ PROFILE_PARTS = (
     ("kernel 4, ViT attention", ("attention_mma_kernel",
                                  "attention_fma_kernel")),
     ("kernel 6, fused conv block", ("conv_pool_wgmma_kernel",)),
-    ("kernel 7, stem (and kernel 6 in f32)", ("conv_pool_direct_kernel",)),
+    ("kernel 7, stem (and kernel 6 in f32)", ("stem_mma_kernel",
+                                              "conv_pool_direct_kernel")),
     ("kernel 8, LN + MLP (and its weight packing)",
      ("ln_mlp_wgmma_kernel", "ln_mlp_fma_kernel", "pack_weights_kernel")),
     ("cuDNN convs, forward and backward",
@@ -1330,8 +1387,7 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
     state = new_state(cfg)
     train_step = make_train_step(cfg)
     eval_step = make_eval_step(cfg)
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     losses, scores = [], []
     for _ in range(TRAIN_STEPS):
         state, metrics = train_step(state, batch, gen)
@@ -1339,7 +1395,7 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
         scores.append(metrics["score"])
     eval_loss, eval_score = eval_step(state.model, batch)
     torch.cuda.synchronize()
-    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    launches = read_launches(wrappers, f"the {name} trainer's path")
     losses = [float(x) for x in losses]
     log(f"train {name} B={BATCH} bf16 dropout 0.3: losses "
         + " ".join(f"{x:.4f}" for x in losses)
@@ -1510,11 +1566,10 @@ def fused_train_phase(torch, seed: int, cfg, expected: dict) -> dict:
     steps = {flip: make_train_step(cfg, fused_ops=flip)
              for flip in (True, False)}
     states = {flip: new_state(cfg) for flip in (True, False)}
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     _, metrics = steps[True](states[True], batch, gen)
     torch.cuda.synchronize()
-    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    launches = read_launches(wrappers, "the fused_ops train step")
     log(f"train cnn fused_ops B={BATCH} bf16 dropout 0.3: loss "
         f"{float(metrics['loss']):.4f} | kernel launches "
         f"{json.dumps(launches)}")
@@ -1614,11 +1669,10 @@ def fused_eval_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
     model = VqaNet(cfg, device="cuda",
                    generator=torch.Generator().manual_seed(seed))
     batch = make_batch(torch, cfg, BATCH, seed)
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     loss, score = make_eval_step(cfg, fused_ops=True)(model, batch)
     torch.cuda.synchronize()
-    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    launches = read_launches(wrappers, f"the {name} fused_ops eval step")
     log(f"eval step {name} fused_ops B={BATCH} bf16: loss {float(loss):.4f} "
         f"score {float(score):.1f} | kernel launches {json.dumps(launches)}")
     require(bool(torch.isfinite(loss)) and bool(torch.isfinite(score)),
@@ -1654,11 +1708,10 @@ def layout_probe_phase(torch, seed: int) -> dict:
 
     wrappers = kernel_wrappers()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers)
     for _ in layout_cases(torch, gen, layout_case):
         pass
-    launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
+    launches = read_launches(wrappers, "the layout probe")
     log(f"layout probe: 8 cases equal to the bit, kernel launches "
         f"{json.dumps(launches)}")
     require(launches == {**dict.fromkeys(wrappers, 0), "layout_cases": 8},
@@ -1787,8 +1840,9 @@ def main(argv=None) -> int:
         "layout_cases": ("layout_cases.cu",
                          "experiments/probe_mosaic_recheck.py:58"),
     }
-    # The tensor-core instruction of the kernels that run on wgmma in bf16.
-    mma = {"conv_relu_pool_fused": "wgmma", "vit_mlp_fused": "wgmma"}
+    # The tensor-core instruction of the fused-path kernels in bf16.
+    mma = {"conv_relu_pool_fused": "wgmma", "vit_mlp_fused": "wgmma",
+           "conv_relu_pool_stem": "mma.sync"}
     # launches: the grids of all paths together, each path counted from 0:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its
@@ -1798,7 +1852,11 @@ def main(argv=None) -> int:
          "replaces": replaces, **({"mma": mma[name]} if name in mma else {}),
          "launches": sum(counts[name] for counts in paths.values()),
          **{f"launches_{path}": counts[name]
-            for path, counts in paths.items()}, **summary[name]}
+            for path, counts in paths.items()},
+         # read_launches held every path's grids to the fast path's count.
+         **({FAST_PATHS[name]: sum(counts[name]
+                                   for counts in paths.values())}
+            if name in FAST_PATHS else {}), **summary[name]}
         for name, (src, replaces) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

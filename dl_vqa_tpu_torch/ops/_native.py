@@ -61,8 +61,11 @@ _SIGNATURES = {
                                _P],
     # y, bias, out, batch, hc, wc, channels, dtype code, stream
     "vqa_relu_maxpool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # batch, hc -> the number of blocks (rows of `partial`), not an error
-    "vqa_relu_maxpool_backward_blocks": [_I, _I],
+    # g, y, bias, dz, batch, hc, wc, channels, dtype code -> 1 where the
+    # call runs the vector kernel, else 0 (not an error)
+    "vqa_relu_maxpool_backward_vector": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+    # as above -> the number of blocks (rows of `partial`), not an error
+    "vqa_relu_maxpool_backward_blocks": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
     # g, y, bias, dz, db, partial, batch, hc, wc, channels, dtype code,
     # stream
     "vqa_relu_maxpool_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -81,7 +84,11 @@ _SIGNATURES = {
     # h, w, cin, cout, k, int[5] -> kernel 6's bf16 plan (warp rows, warp
     # columns, channels a block, input channels a stage, shared bytes)
     "vqa_conv_relu_pool_fused_plan": [_I, _I, _I, _I, _I, _P],
-    # as above, with w in f32
+    # cin, cout, k, dtype code -> 1 where kernel 7 runs on the tensor cores
+    # (w packed by conv_fused.pack_stem_weight), else 0 (not an error)
+    "vqa_conv_relu_pool_stem_mma": [_I, _I, _I, _I],
+    # as kernel 6's, with w packed for the tensor cores or f32 [k, k, Cin,
+    # Cout] as the entry above says
     "vqa_conv_relu_pool_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _P],
     # x, ln scale, ln bias, w1, b1, w2, b2, out, packed-weight scratch

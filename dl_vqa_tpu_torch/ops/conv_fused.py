@@ -26,7 +26,10 @@ raw conv output, which the conv wrote anyway, and kernel C recomputes
 ``cast(relu(y + b))`` per element to decide ties as the JAX package does,
 on the pooled values; saving those instead would cost one more 3.2 GB
 write in the forward. The bias gradient is the pooled-side sum of the
-gated cotangent, taken in the same pass.
+gated cotangent, taken in the same pass. Where
+:func:`pool_backward_vector_path` says so (the model's three conv
+outputs among them) a thread makes one window for one 16-byte channel
+vector; other shapes keep one thread a channel.
 
 The fused blocks, which no default path takes (``fused=True``, or
 ``fused_ops=True`` on the model): kernel 6
@@ -41,6 +44,9 @@ bf16 differs from :func:`conv_relu_pool_reference` by that one rounding
 ``conv_relu_pool_reference``). Operations bound kernel 6 on this card
 (0.88 TFLOP for conv1 at batch 512) and memory traffic kernel 7 (0.15 GB
 in, 0.81 GB out for conv0); the source notes say what each design does.
+In bf16 kernel 7 runs on ``mma.sync`` where :func:`stem_mma_path` says
+so, with its weights packed by :func:`pack_stem_weight`;
+:func:`stem_mma_emulation` is that arithmetic in plain PyTorch.
 In bf16 kernel 6 reads its weights by wgmma descriptors:
 :func:`pack_conv_weight` writes them in that layout, and
 :func:`fused_plan` mirrors the tiling the kernel chooses (its C entry
@@ -69,7 +75,10 @@ __all__ = ["conv_nhwc", "relu_maxpool_reference", "relu_maxpool_cuda",
            "ConvReluPoolFused", "conv_relu_pool_stem_reference",
            "conv_relu_pool_stem_cuda", "conv_relu_pool_stem",
            "conv_relu_pool", "FUSED_MIN_CIN", "FusedPlan", "fused_plan",
-           "pack_conv_weight"]
+           "pack_conv_weight", "pool_backward_vector_path",
+           "pool_backward_vector_split", "pool_backward_vector_stores",
+           "stem_mma_path", "stem_k_offsets", "pack_stem_weight",
+           "stem_mma_emulation"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SHARED_BYTES = 32 * 1024  # kernel C keeps one f32 per channel there
@@ -79,6 +88,16 @@ _ARRANGEMENTS = ((4, 1), (2, 2), (1, 4))  # warp rows x columns of a tile
 _WARPGROUPS = 2   # kernel 6's tile streams a block
 _STREAM_TILES = 4  # its tiles a block step where the weights stream
 _PAD = 8          # values after each staged pixel (bank spread)
+# Kernel C's vector kernel (csrc/relu_maxpool_backward.cu): threads a block
+# (kThreads), bytes of a thread's channel vector (kVectorBytes), pooled
+# pixels a call may have (kMaxVectorPixels).
+POOL_BACKWARD_THREADS = 256
+POOL_BACKWARD_VECTOR_BYTES = 16
+POOL_BACKWARD_MAX_PIXELS = 2 ** 31
+# Kernel 7's tensor-core kernel (csrc/conv_relu_pool_stem.cu): the largest
+# padded K (kStemMaxKSteps k steps of 16) and filter row (kStemMaxRowTaps).
+STEM_MAX_KSTEPS = 6
+STEM_MAX_ROW_TAPS = 16
 
 
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor,
@@ -162,11 +181,74 @@ def relu_maxpool_backward_reference(g: torch.Tensor, y: torch.Tensor,
     return dz, db
 
 
+def pool_backward_vector_path(batch: int, hc: int, wc: int, channels: int,
+                              dtype: torch.dtype, pointers=()) -> bool:
+    """Whether kernel C runs its vector kernel: the mirror of
+    ``vector_path`` in ``csrc/relu_maxpool_backward.cu``. C is a multiple of
+    the 16-byte vector (8 bf16 or 4 f32 channels) and its count of vectors
+    divides the block's 256 threads, so that a thread's vector never changes
+    across its grid-stride steps; the pooled pixels fit 31 bits; and every
+    pointer of ``g``, ``y``, ``bias`` and ``dz`` sits on a 16-byte
+    boundary."""
+    if dtype not in _DTYPES or channels <= 0:
+        return False
+    vec = POOL_BACKWARD_VECTOR_BYTES // dtype.itemsize
+    return (channels % vec == 0
+            and POOL_BACKWARD_THREADS % (channels // vec) == 0
+            and batch * (hc // 2) * (wc // 2) < POOL_BACKWARD_MAX_PIXELS
+            and all(p % POOL_BACKWARD_VECTOR_BYTES == 0 for p in pointers))
+
+
+def pool_backward_vector_split(batch: int, hc: int, wc: int, channels: int,
+                               dtype: torch.dtype, blocks: int) -> dict:
+    """The vector kernel's work as it splits it over ``blocks`` blocks:
+    ``(block, thread) -> [(pooled pixel, first channel), ...]``, the windows
+    each thread makes in its grid-stride order. A block takes 256 / (C /
+    vector) consecutive pooled pixels a step, their vectors fastest."""
+    vec = POOL_BACKWARD_VECTOR_BYTES // dtype.itemsize
+    vectors = channels // vec
+    per_step = POOL_BACKWARD_THREADS // vectors
+    pixels = batch * (hc // 2) * (wc // 2)
+    split = {}
+    for block in range(blocks):
+        for thread in range(POOL_BACKWARD_THREADS):
+            split[block, thread] = [
+                (p, thread % vectors * vec)
+                for p in range(block * per_step + thread // vectors, pixels,
+                               blocks * per_step)]
+    return split
+
+
+def pool_backward_vector_stores(p: int, ch: int, hc: int, wc: int,
+                                channels: int) -> list:
+    """The offsets in ``dz`` (elements of ``[B, Hc, Wc, C]``) of the 16-byte
+    vectors that the vector kernel's window at pooled pixel ``p`` and
+    channel ``ch`` writes: its four positions, then the zeros of the odd
+    last column beside the row's last window and of the odd last row below
+    the last row of windows."""
+    hp, wp = hc // 2, wc // 2
+    row, j = divmod(p, wp)
+    b, i = divmod(row, hp)
+    in_row = wc * channels
+    at = ((b * hc + 2 * i) * wc + 2 * j) * channels + ch
+    stores = [at, at + channels, at + in_row, at + in_row + channels]
+    last_col = wc % 2 == 1 and j == wp - 1
+    if last_col:
+        stores += [at + 2 * channels, at + in_row + 2 * channels]
+    if hc % 2 == 1 and i == hp - 1:
+        below = at + 2 * in_row
+        stores += [below, below + channels]
+        if last_col:
+            stores.append(below + 2 * channels)
+    return stores
+
+
 def relu_maxpool_backward_cuda(g: torch.Tensor, y: torch.Tensor,
                                bias: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel C on ``y``'s CUDA device; raises on any input it does not
-    take."""
+    take. ``launches`` counts its grids (two a call), ``launches_vector``
+    those of calls that ran the vector kernel."""
     if y.dim() != 4 or bias.shape != (y.shape[-1],):
         raise ValueError(f"expected y [B,Hc,Wc,C] and bias [C]; got "
                          f"{tuple(y.shape)}, {tuple(bias.shape)}")
@@ -191,7 +273,13 @@ def relu_maxpool_backward_cuda(g: torch.Tensor, y: torch.Tensor,
     lib = _native.library()
     dz = torch.empty_like(y)
     db = torch.empty(channels, dtype=torch.float32, device=y.device)
-    blocks = lib.vqa_relu_maxpool_backward_blocks(batch, hc)
+    call = (g.data_ptr(), y.data_ptr(), bias.data_ptr(), dz.data_ptr(),
+            batch, hc, wc, channels, _DTYPES[y.dtype])
+    blocks = lib.vqa_relu_maxpool_backward_blocks(*call)
+    if blocks <= 0:
+        raise RuntimeError("relu_maxpool_backward: the device's SM count "
+                           "could not be read")
+    vector = bool(lib.vqa_relu_maxpool_backward_vector(*call))
     partial = torch.empty(blocks, channels, dtype=torch.float32,
                           device=y.device)
     code = lib.vqa_relu_maxpool_backward(
@@ -202,10 +290,13 @@ def relu_maxpool_backward_cuda(g: torch.Tensor, y: torch.Tensor,
     # Two grids: the routing with its per-block bias sums, then the sum
     # of those partials.
     relu_maxpool_backward_cuda.launches += 2
+    if vector:
+        relu_maxpool_backward_cuda.launches_vector += 2
     return dz, db
 
 
 relu_maxpool_backward_cuda.launches = 0
+relu_maxpool_backward_cuda.launches_vector = 0
 
 
 class ReluMaxPool(torch.autograd.Function):
@@ -464,18 +555,118 @@ class ConvReluPoolFused(torch.autograd.Function):
 conv_relu_pool_stem_reference = conv_relu_pool_fused_reference
 
 
+def stem_mma_path(dtype: torch.dtype, cin: int, cout: int, k: int) -> bool:
+    """Whether kernel 7 runs on the tensor cores: the mirror of
+    ``stem_mma_plan`` in ``csrc/conv_relu_pool_stem.cu`` (bf16, Cout a
+    multiple of 8, K = k * k * Cin padded to 16 at most 96, a filter row's
+    k * Cin taps at most 16, so that its windows fit shared memory). Every
+    other call runs on the FMA units."""
+    return (dtype == torch.bfloat16 and k >= 1 and cin >= 1 and cout >= 8
+            and cout % 8 == 0 and -(-k * k * cin // 16) <= STEM_MAX_KSTEPS
+            and k * cin <= STEM_MAX_ROW_TAPS)
+
+
+def stem_k_offsets(k: int, cin: int, row_values: int) -> torch.Tensor:
+    """Kernel 7's offset of each K index (ordered di, dj, ci and padded to a
+    multiple of 16) from a conv position's first value, in an NHWC window
+    whose rows hold ``row_values`` values; -1 for the padding."""
+    taps_row = k * cin
+    kk = torch.arange(-(-k * taps_row // 16) * 16)
+    return torch.where(kk < k * taps_row,
+                       kk // taps_row * row_values + kk % taps_row, -1)
+
+
+def _stem_fragment_index(ksteps: int, cout: int) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """(k, n) of each value of the packed ``[ksteps, Cout / 8, 32, 4]``
+    weight: lane l of an 8-channel tile holds channel ``l / 4`` at k = 2 (l
+    % 4) and the next (its first register, b0) and at those + 8 (b1)."""
+    s = torch.arange(ksteps)[:, None, None, None]
+    nt = torch.arange(cout // 8)[None, :, None, None]
+    lane = torch.arange(32)[None, None, :, None]
+    j = torch.arange(4)[None, None, None, :]
+    k = 16 * s + 2 * (lane % 4) + j % 2 + 8 * (j // 2)
+    n = 8 * nt + lane // 4
+    return k.expand(ksteps, cout // 8, 32, 4), n.expand(ksteps, cout // 8,
+                                                          32, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _stem_pack_index(cout: int, cin: int, k: int,
+                     device: torch.device) -> torch.Tensor:
+    """For each value of the packed weight, its offset in ``[Cout, Cin, k,
+    k]`` with one zero appended, which the K padding takes (built once a
+    shape and device)."""
+    taps = k * k * cin
+    kk, n = _stem_fragment_index(-(-taps // 16), cout)
+    di, rest = kk // (k * cin), kk % (k * cin)
+    dj, ci = rest // cin, rest % cin
+    offset = ((n * cin + ci) * k + di) * k + dj
+    return torch.where(kk < taps, offset, cout * taps).reshape(-1).to(device)
+
+
+def pack_stem_weight(weight: torch.Tensor) -> torch.Tensor:
+    """Torch-layout ``weight [Cout, Cin, k, k]`` -> kernel 7's bf16 operand
+    ``[K_pad / 16, Cout / 8, 32, 4]``: the ``[K_pad, Cout]`` matrix, K
+    ordered (di, dj, ci) and padded with zero rows, in the order of
+    ``mma.m16n8k16``'s B fragments, so that a lane reads its two registers
+    for one k step and 8 channels as one 8-byte word. About 4 KB for the
+    RGB stem. One gather from an index kept on the weight's device."""
+    cout, cin, k, _ = weight.shape
+    flat = F.pad(weight.reshape(-1).to(torch.bfloat16), (0, 1))
+    index = _stem_pack_index(cout, cin, k, weight.device)
+    return torch.take(flat, index).reshape(-(-k * k * cin // 16), cout // 8,
+                                           32, 4)
+
+
+def stem_mma_emulation(x: torch.Tensor, packed: torch.Tensor,
+                       bias: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel 7's tensor-core arithmetic in plain PyTorch, for the tests:
+    each conv position's A row gathered from the NHWC image by
+    :func:`stem_k_offsets` (zero for the padding), the B matrix read back
+    from ``packed`` by the fragment layout, an f32 product of the
+    bf16-rounded operands, then the max of each window's four positions,
+    bias, ReLU and one cast to ``x``'s dtype."""
+    batch, h, w, cin = x.shape
+    hp, wp = (h - k + 1) // 2, (w - k + 1) // 2
+    offsets = stem_k_offsets(k, cin, w * cin).to(x.device)
+    ksteps, tiles_n = packed.shape[:2]
+    matrix = torch.zeros(16 * ksteps, 8 * tiles_n, dtype=torch.float32,
+                         device=x.device)
+    kk, n = _stem_fragment_index(ksteps, 8 * tiles_n)
+    matrix[kk.to(x.device), n.to(x.device)] = packed.float()
+    flat = x.to(torch.bfloat16).float().reshape(batch, -1)
+    ys = torch.arange(2 * hp, device=x.device)[:, None]
+    xs = torch.arange(2 * wp, device=x.device)[None, :]
+    base = (ys * w * cin + xs * cin).reshape(-1, 1)  # [positions, 1]
+    index = (base + offsets.clamp(min=0)).reshape(-1)
+    rows = flat[:, index].reshape(batch, -1, offsets.numel())
+    rows = rows * (offsets >= 0)
+    conv = (rows @ matrix).reshape(batch, hp, 2, wp, 2, -1)
+    pooled = conv.amax(dim=(2, 4)) + bias.float()
+    return torch.relu(pooled).to(x.dtype)
+
+
 def conv_relu_pool_stem_cuda(x: torch.Tensor, weight: torch.Tensor,
                              bias: torch.Tensor) -> torch.Tensor:
     """Kernel 7 on ``x``'s CUDA device; raises on any input it does not
-    take. The weight arrives in torch layout and is repacked here to f32
-    ``[k, k, Cin, Cout]`` holding values rounded to ``x``'s dtype."""
+    take. The weight arrives in torch layout and is repacked here, once a
+    call: for the tensor-core kernel by :func:`pack_stem_weight`, else to
+    f32 ``[k, k, Cin, Cout]`` holding values rounded to ``x``'s dtype.
+    ``launches`` counts its grids, ``launches_mma`` those on the tensor
+    cores."""
     _check_fused_inputs(x, weight, bias, "conv_relu_pool_stem_cuda")
     cout, cin, k, _ = weight.shape
     if cout % 8:
         raise ValueError(f"kernel 7 takes Cout a multiple of 8; got {cout}")
     lib = _native.library()
-    packed = weight.detach().permute(2, 3, 1, 0).to(x.dtype).float(
-        ).contiguous()
+    mma = bool(lib.vqa_conv_relu_pool_stem_mma(cin, cout, k,
+                                                _DTYPES[x.dtype]))
+    if mma:
+        packed = pack_stem_weight(weight.detach())
+    else:
+        packed = weight.detach().permute(2, 3, 1, 0).to(x.dtype).float(
+            ).contiguous()
     out = _pooled_empty(x, weight)
     bias32 = bias.detach().float().contiguous()
     code = lib.vqa_conv_relu_pool_stem(
@@ -485,10 +676,13 @@ def conv_relu_pool_stem_cuda(x: torch.Tensor, weight: torch.Tensor,
     _native.check("conv_relu_pool_stem", code)
     if out.numel():
         conv_relu_pool_stem_cuda.launches += 1
+        if mma:
+            conv_relu_pool_stem_cuda.launches_mma += 1
     return out
 
 
 conv_relu_pool_stem_cuda.launches = 0
+conv_relu_pool_stem_cuda.launches_mma = 0
 
 
 def conv_relu_pool_stem(x: torch.Tensor, weight: torch.Tensor,

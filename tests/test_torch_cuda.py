@@ -29,11 +29,13 @@ from dl_vqa_tpu_torch.ops.conv_fused import (
     conv_relu_pool_stem_reference,
     fused_plan,
     pack_conv_weight,
+    pool_backward_vector_path,
     relu_maxpool,
     relu_maxpool_backward_cuda,
     relu_maxpool_backward_reference,
     relu_maxpool_cuda,
     relu_maxpool_reference,
+    stem_mma_path,
 )
 from dl_vqa_tpu_torch.ops.layout_cases import (
     MODES,
@@ -436,6 +438,85 @@ def test_relu_maxpool_backward_matches_plain(device, dtype, shape):
         assert torch.all(dz[:, :, -1] == 0)
 
 
+def _pool_backward_case(device, dtype, shape, seed=9):
+    g = _gen(device, seed)
+    y = _tied(shape, dtype, g, device)
+    bias = _tied(shape[-1:], torch.float32, g, device) * 0.5
+    cot = torch.randn(shape[0], shape[1] // 2, shape[2] // 2, shape[3],
+                      generator=g, device=device).to(dtype)
+    return cot, y, bias
+
+
+def _assert_pool_backward(cot, y, bias, vector):
+    """Kernel C on the path the mirror names, which the C entry names too:
+    dz to the plain version's bits, db within 1e-5 of the sum of |g|."""
+    batch, hc, wc, channels = y.shape
+    lib = _native.library()
+    dz_probe = torch.empty_like(y)
+    pointers = (cot.data_ptr(), y.data_ptr(), bias.data_ptr(),
+                dz_probe.data_ptr())
+    assert pool_backward_vector_path(batch, hc, wc, channels, y.dtype,
+                                     pointers) is vector
+    assert lib.vqa_relu_maxpool_backward_vector(
+        *pointers, batch, hc, wc, channels,
+        {torch.float32: 0, torch.bfloat16: 1}[y.dtype]) == int(vector)
+    before = (relu_maxpool_backward_cuda.launches,
+              relu_maxpool_backward_cuda.launches_vector)
+    dz, db = relu_maxpool_backward_cuda(cot, y, bias)
+    assert relu_maxpool_backward_cuda.launches == before[0] + 2
+    assert relu_maxpool_backward_cuda.launches_vector == before[1] + (
+        2 if vector else 0)
+    dz_ref, db_ref = relu_maxpool_backward_reference(cot, y, bias)
+    assert torch.equal(dz, dz_ref)
+    scale = float(cot.float().abs().sum(dim=(0, 1, 2)).max())
+    torch.testing.assert_close(db, db_ref, atol=1e-5 * scale, rtol=0)
+    return dz, db
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,vector", [
+    (8, True), (16, True), (64, True), (128, True), (256, True),
+    (1, False), (3, False), (12, False), (200, False), (300, False)])
+@pytest.mark.parametrize("batch,hc,wc", [(1, 9, 7), (8, 6, 11), (67, 5, 4)])
+def test_relu_maxpool_backward_vector_and_scalar_paths(device, dtype,
+                                                       channels, vector,
+                                                       batch, hc, wc):
+    """Odd last rows and columns, one image to 67, both kernels of kernel
+    C on tied values; the rule sends each channel count where it says."""
+    _assert_pool_backward(*_pool_backward_case(
+        device, dtype, (batch, hc, wc, channels)), vector)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["g", "y"])
+def test_relu_maxpool_backward_view_off_a_16_byte_boundary(device, dtype,
+                                                           which):
+    """A contiguous view that starts one element into its storage takes
+    the scalar kernel, with the same results."""
+    cot, y, bias = _pool_backward_case(device, dtype, (3, 8, 9, 64))
+    if which == "g":
+        cot = torch.cat([cot.new_zeros(1), cot.reshape(-1)])[1:].view(
+            cot.shape)
+    else:
+        y = torch.cat([y.new_zeros(1), y.reshape(-1)])[1:].view(y.shape)
+    assert cot.is_contiguous() and y.is_contiguous()
+    _assert_pool_backward(cot, y, bias, False)
+
+
+@pytest.mark.parametrize("channels", [64, 128, 256])
+def test_relu_maxpool_backward_vector_repeats_its_bits(device, channels):
+    """The model's channel counts: db sums in a fixed order, so its bits
+    (and dz's) are those of the first call, 20 calls later."""
+    cot, y, bias = _pool_backward_case(device, torch.bfloat16,
+                                       (16, 27, 27, channels))
+    first = relu_maxpool_backward_cuda(cot, y, bias)
+    noise = torch.randn(2048, 2048, device=device)
+    for _ in range(20):
+        noise = noise @ noise.T / 2048
+        dz, db = relu_maxpool_backward_cuda(cot, y, bias)
+        assert torch.equal(dz, first[0]) and torch.equal(db, first[1])
+
+
 def test_relu_maxpool_autograd_runs_kernel_c(device):
     g = _gen(device, 8)
     y = _tied((2, 8, 9, 16), torch.float32, g, device).requires_grad_(True)
@@ -777,6 +858,90 @@ def test_conv_relu_pool_stem_takes_a_view_off_a_16_byte_boundary(device):
     _assert_fused_close(conv_relu_pool_stem_cuda(view, weight, bias),
                         conv_relu_pool_stem_reference(view, weight, bias),
                         torch.bfloat16)
+
+
+def _stem_runs(x, weight, bias, mma):
+    """Kernel 7 through its wrapper, on the path ``mma`` names (the mirror
+    and the C entry both say so), counted as one grid."""
+    cout, cin, k, _ = weight.shape
+    code = {torch.float32: 0, torch.bfloat16: 1}[x.dtype]
+    assert stem_mma_path(x.dtype, cin, cout, k) is mma
+    assert _native.library().vqa_conv_relu_pool_stem_mma(
+        cin, cout, k, code) == int(mma)
+    before = (conv_relu_pool_stem_cuda.launches,
+              conv_relu_pool_stem_cuda.launches_mma)
+    got = conv_relu_pool_stem_cuda(x, weight, bias)
+    assert conv_relu_pool_stem_cuda.launches == before[0] + 1
+    assert conv_relu_pool_stem_cuda.launches_mma == before[1] + int(mma)
+    return got
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("cout", [8, 64, 128])
+def test_conv_relu_pool_stem_tensor_cores_match_plain(device, batch, k,
+                                                      cout):
+    """Kernel 7's bf16 tensor-core kernel: pooled grids of 15 x 19 and 45 x
+    34 windows (no multiple of its 4 x 16 tiles)."""
+    h, w = (34, 43) if batch == 64 else (96, 74)
+    x, weight, bias = _conv_case(device, torch.bfloat16, batch, h, w, 3,
+                                 cout, k, seed=15)
+    _assert_fused_close(_stem_runs(x, weight, bias, True),
+                        conv_relu_pool_stem_reference(x, weight, bias),
+                        torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,cin,cout,k,mma", [
+    (torch.bfloat16, 1, 16, 9, True),    # K 81 -> 96, the largest taken
+    (torch.bfloat16, 4, 40, 2, True),    # one k step, 8 channels a block
+    (torch.bfloat16, 2, 96, 3, True),    # 32 channels a block
+    (torch.bfloat16, 16, 64, 1, True),   # the widest window it takes
+    (torch.bfloat16, 32, 64, 1, False),  # a filter row of 32 taps
+    (torch.bfloat16, 4, 8, 5, False),    # K 100: the FMA kernel
+    (torch.bfloat16, 12, 32, 3, False),  # K 108
+    (torch.float32, 3, 64, 3, False),    # f32: the FMA kernel
+])
+def test_conv_relu_pool_stem_both_sides_of_the_rule(device, dtype, cin, cout,
+                                                    k, mma):
+    x, weight, bias = _conv_case(device, dtype, 3, 29, 30, cin, cout, k,
+                                 seed=16)
+    _assert_fused_close(_stem_runs(x, weight, bias, mma),
+                        conv_relu_pool_stem_reference(x, weight, bias),
+                        dtype)
+
+
+@pytest.mark.parametrize("w", [37, 40])
+def test_conv_relu_pool_stem_tensor_cores_take_an_unaligned_view(device, w):
+    """A tensor that starts 2 bytes past a 16-byte boundary. With 37
+    3-channel pixels a row, rows start anywhere and the window's pieces are
+    realigned; with 40 (240 bytes) every row starts 2 bytes into a piece,
+    and the window is read where the pieces land."""
+    x, weight, bias = _conv_case(device, torch.bfloat16, 3, 35, w, 3, 64, 3,
+                                 seed=17)
+    flat = torch.cat([x.new_zeros(1), x.reshape(-1)])
+    view = flat[1:].view(x.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    _assert_fused_close(_stem_runs(view, weight, bias, True),
+                        conv_relu_pool_stem_reference(view, weight, bias),
+                        torch.bfloat16)
+
+
+def test_conv_relu_pool_stem_pixels_do_not_depend_on_the_batch(device):
+    """The stem's shape at B = 64 against B = 1 and 8 of the same images:
+    the same bits, whatever blocks the persistent grid gives the tiles."""
+    x, weight, bias = _conv_case(device, torch.bfloat16, 64, 224, 224, 3, 64,
+                                 3, seed=18)
+    full = conv_relu_pool_stem_cuda(x, weight, bias)
+    for batch in (1, 8):
+        part = conv_relu_pool_stem_cuda(x[:batch].contiguous(), weight, bias)
+        assert torch.equal(part, full[:batch]), batch
+
+
+def test_conv_relu_pool_stem_tensor_cores_repeat_their_bits(device):
+    x, weight, bias = _conv_case(device, torch.bfloat16, 16, 224, 224, 3, 64,
+                                 3, seed=19)
+    _after_other_kernels(device,
+                         lambda: conv_relu_pool_stem_cuda(x, weight, bias))
 
 
 def _mlp_case(device, dtype, shape, hidden, seed=14):

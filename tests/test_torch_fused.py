@@ -189,6 +189,30 @@ def test_stem_plain_version_matches_the_pallas_kernel(h, k):
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), **TOL)
 
 
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("cin", [1, 3, 4])
+@pytest.mark.parametrize("cout", [8, 64])
+def test_stem_tensor_core_arithmetic_matches_the_pallas_kernel(k, cin, cout):
+    """Kernel 7's tensor-core kernel as plain PyTorch
+    (``stem_mma_emulation``: the A rows gathered by the kernel's offsets in
+    its K order, padded to 16, times the weight packed as mma's B
+    fragments, then the pool) on bf16-exact inputs, against the Pallas stem
+    in interpret mode and the plain version: f32 sums in another order."""
+    x, w, b = _conv_inputs(19, cin, cout, k, seed=8)
+    x = x.astype(jnp.bfloat16).astype(np.float32)
+    w = w.astype(jnp.bfloat16).astype(np.float32)
+    expected = jax_conv.conv_relu_pool_stem(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True)
+    args = _torch_conv_args(x, w, b)
+    got = port_conv.stem_mma_emulation(
+        args[0], port_conv.pack_stem_weight(args[1]), args[2], k)
+    assert got.shape == expected.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), **TOL)
+    np.testing.assert_allclose(
+        got.numpy(), port_conv.conv_relu_pool_stem_reference(*args).numpy(),
+        **TOL)
+
+
 def test_stem_is_forward_only():
     x, w, b = _conv_inputs(12, 3, 8, 3)
     args = _torch_conv_args(x, w, b)
