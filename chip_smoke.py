@@ -14,7 +14,11 @@
    computes the same function (kernels 6 to 8 timed in turns with it, and
    kernel 6 also with the unfused block it replaces, cuDNN's conv then
    kernel 2: ``unfused_ms``); kernel C beside a copy of the same conv
-   output (``copy_ms``), both rates in GB/s;
+   output (``copy_ms``), both rates in GB/s; kernel B's 23 steps each held
+   to the plain step's bits, timed through the entry a backward uses
+   (checked once) and through the wrapper that checks every call
+   (``checked_ms``), beside the whole backward with its products; kernel
+   9's eight cases one by one and in one launch;
 4. slice: a Predictor at full reference width (ModelConfig defaults, bf16,
    random weights from the seed, an in-memory vocab of 15,193 question ids
    and 3,000 answers) answers 8 requests; every serving kernel must have
@@ -41,13 +45,14 @@
    model with the flip on, its loss held to the unfused step's at batch 8;
    and one CNN train step with the flip on, its gradients held to the
    unfused step's at batch 8, timed both ways;
-8. the layout probe's eight cases through their dispatch.
+8. the layout probe's eight cases through their dispatch, in one launch.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 and the layout probe) is driven with the kernels' launch counts set to 0
-just before it and read just after; on every path kernel C runs its
-vector kernel and kernel 7 its tensor-core kernel (``FAST_PATHS``). Then
+just before it and read just after; on every path kernels C and B run
+their vector kernels and kernel 7 its tensor-core kernel
+(``FAST_PATHS``). Then
 one JSON line with every kernel's launches (grids launched in those runs;
 the LSTM recurrence one a call in bf16, the LSTM backward one per
 timestep, the pool backward two per call),
@@ -86,9 +91,13 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    classifier; bf16 5e-4 (H100: 1.0e-4), f32 1e-5 (H100: 3e-8).
 #  lstm save mode: final (h, c) equal kernel 1's to the bit; the saved
 #    gates and carries as kernel 1's tolerances, for the same reasons.
-#  lstm backward: 1e-5 on dgates and 1e-5 of its largest entry on dW_hh;
-#    elementwise f32 (expf and tanhf against torch's), the products
-#    between the steps are the same calls on both sides.
+#  lstm backward, the whole of it: 1e-5 on dgates and 1e-5 of its largest
+#    entry on dW_hh; the products between the steps are the same calls on
+#    both sides (H100: both 0 since kernel B gives the plain bits).
+#  lstm_backward_step: 0 at every step, fed the plain version's inputs:
+#    kernel B rounds each product and sum once in the plain version's
+#    order (the _rn intrinsics, no FMA contraction), with expf and tanhf
+#    as torch's kernels call them.
 #  relu_maxpool_backward: dz 0, a routing without arithmetic; db 1e-5 of
 #    the largest sum of |g| over a channel: the same rounded values summed
 #    in another order.
@@ -168,7 +177,8 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "vit_attention_backward_bf16_steps": 2, "grads_bf16_vit_image": 5e-2,
        "relu_maxpool": 0.0, "attention_pool": 1e-5, "lstm_f32": 1e-5,
        "lstm_bf16": 1e-3, "logits_bf16": 5e-4, "logits_f32": 1e-5,
-       "lstm_backward": 1e-5, "pool_backward_dz": 0.0,
+       "lstm_backward": 1e-5, "lstm_backward_step": 0.0,
+       "pool_backward_dz": 0.0,
        "pool_backward_db": 1e-5, "grads_f32": 2e-4, "grads_bf16": 1e-2,
        "grads_bf16_attention": 1e-1,
        "loss_f32": 1e-5, "loss_bf16": 5e-4}
@@ -355,8 +365,8 @@ def lstm_kernels(torch, gen, device, summary) -> None:
         lstm_backward_step_reference, lstm_recurrence_reference,
         lstm_recurrence_save_reference, lstm_saved_state_backward)
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
-        lstm_backward_step_cuda, lstm_recurrence_cuda,
-        lstm_recurrence_save_cuda)
+        lstm_backward_step_cuda, lstm_backward_step_launcher,
+        lstm_recurrence_cuda, lstm_recurrence_save_cuda)
 
     def report(name, dtype, batch, err, tol, ms, plain_ms, extra=""):
         log(f"kernel {name} {str(dtype)[6:]} B={batch} T={SEQ_LEN} "
@@ -447,13 +457,21 @@ def lstm_kernels(torch, gen, device, summary) -> None:
             _, _, gates, c_all, h_all = saved
             dh = torch.randn(h.shape, generator=gen, device=device)
             dc = torch.randn(h.shape, generator=gen, device=device)
+            vector_before = lstm_backward_step_cuda.launches_vector
             got = lstm_saved_state_backward(gates, c_all, h_all, master,
                                             lengths, dh, dc, plain=False)
+            # The model's shapes take the vector kernel, every step.
+            require(lstm_backward_step_cuda.launches_vector - vector_before
+                    == SEQ_LEN, f"lstm backward {dtype} B={batch}: "
+                    f"{lstm_backward_step_cuda.launches_vector - vector_before}"
+                    f" of {SEQ_LEN} grids on the vector kernel")
             want = lstm_saved_state_backward(gates, c_all, h_all, master,
                                              lengths, dh, dc, plain=True)
             torch.cuda.synchronize()
-            err = max_err(got[0], want[0])
+            whole_err = max_err(got[0], want[0])
             dw_err = max_err(got[1], want[1]) / float(want[1].abs().max())
+            require(whole_err <= TOL["lstm_backward"],
+                    f"lstm backward dgates {dtype} B={batch}: {whole_err}")
             require(dw_err <= TOL["lstm_backward"],
                     f"lstm backward dW_hh {dtype} B={batch}: {dw_err}")
             dgates = got[0]
@@ -469,27 +487,55 @@ def lstm_kernels(torch, gen, device, summary) -> None:
                         < lengths[None, :])
             zeros = torch.zeros_like(dh)
 
-            def kernel_steps():
-                dh_t, dc_t = dh.clone(), dc.clone()
+            def plain_step(t, dh_t, dc_t):
+                return lstm_backward_step_reference(
+                    gates[:, t], c_all[:, t],
+                    c_all[:, t - 1] if t else zeros, keep_all[t], dh_t, dc_t)
+
+            # Every step fed the plain version's inputs of that step: its
+            # bits (max_err sees no sign of a zero).
+            err = 0.0
+            dh_t, dc_t = dh, dc
+            for t in reversed(range(SEQ_LEN)):
+                want = plain_step(t, dh_t, dc_t)
+                dh_k, dc_k = dh_t.clone(), dc_t.clone()
+                lstm_backward_step_cuda(gates, c_all, lengths, dh_k, dc_k,
+                                        dgates, t)
+                err = max(err, max_err(dgates[:, t], want[0]),
+                          max_err(dh_k, want[1]), max_err(dc_k, want[2]))
+                dgates[:, t], dh_t, dc_t = want
+            require(err <= TOL["lstm_backward_step"],
+                    f"lstm_backward_step {dtype} B={batch}: {err}")
+
+            def thin_steps():
+                # What a backward pays: the checks once, then T launches.
+                dh_k, dc_k = dh.clone(), dc.clone()
+                launch = lstm_backward_step_launcher(gates, c_all, lengths,
+                                                     dh_k, dc_k, dgates)
                 for t in reversed(range(SEQ_LEN)):
-                    lstm_backward_step_cuda(gates, c_all, lengths, dh_t, dc_t,
+                    launch(t)
+
+            def checked_steps():
+                dh_k, dc_k = dh.clone(), dc.clone()
+                for t in reversed(range(SEQ_LEN)):
+                    lstm_backward_step_cuda(gates, c_all, lengths, dh_k, dc_k,
                                             dgates, t)
 
             def plain_steps():
-                dh_t, dc_t = dh, dc
+                dh_k, dc_k = dh, dc
                 for t in reversed(range(SEQ_LEN)):
-                    dgates[:, t], dh_t, dc_t = lstm_backward_step_reference(
-                        gates[:, t], c_all[:, t],
-                        c_all[:, t - 1] if t else zeros, keep_all[t], dh_t,
-                        dc_t)
+                    dgates[:, t], dh_k, dc_k = plain_step(t, dh_k, dc_k)
 
-            ms, plain_ms = timed_pair(torch, plain_steps, kernel_steps,
-                                      iters=iters)
+            plain_ms, ms, checked_ms = timed_turns(
+                torch, [plain_steps, thin_steps, checked_steps], iters=iters)
             report("lstm_backward_step x23", dtype, batch, err,
-                   TOL["lstm_backward"], ms, plain_ms,
-                   f" | dW_hh rel err {dw_err:.3e} | whole backward with "
-                   f"its products: kernel {whole_ms:.3f} ms, plain "
-                   f"{whole_plain_ms:.3f} ms")
+                   TOL["lstm_backward_step"], ms, plain_ms,
+                   f" (checked once), through the wrapper that checks every "
+                   f"call {checked_ms:.4f} ms | vector kernel on all "
+                   f"{SEQ_LEN} grids | dW_hh rel err {dw_err:.3e}, dgates "
+                   f"of the whole backward max_abs_err {whole_err:.3e} | "
+                   f"whole backward with its products: kernel "
+                   f"{whole_ms:.3f} ms, plain {whole_plain_ms:.3f} ms")
             if main and batch == BATCH:
                 # The 23-step function: the gates and carries of the real
                 # steps read once (a padded step needs none), every dgates
@@ -500,7 +546,10 @@ def lstm_kernels(torch, gen, device, summary) -> None:
                          + 2 * nbytes(dh, dc))
                 summary["lstm_backward_step"] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": None,
+                    "library_ms": None, "checked_ms": checked_ms,
+                    "whole_backward_ms": whole_ms,
+                    "whole_backward_plain_ms": whole_plain_ms,
+                    "dw_hh_rel_err": dw_err, "real_rows": real,
                     **bound(moved, 40.0 * real * SEQ_LEN * dh.numel(), "f32")}
             del saved, gates, c_all, h_all, dgates
     # The batch-512 entries lead the result line; the serving buckets ride
@@ -765,22 +814,29 @@ def check_rounded(torch, what, got, want, dtype):
                  f"elements differ (limit {FUSED_DIFFER:.0%})")
 
 
-def layout_cases(torch, gen, run):
+def layout_inputs(torch, gen):
     """The layout probe's eight cases: the four modes on a ``[16, 32, C]``
-    bf16 block, C = 64 and 128. Yields ``(x, mode, run(x, mode))`` once the
-    result equals the plain version's to the bit."""
-    from dl_vqa_tpu_torch.ops.layout_cases import MODES, layout_case_reference
+    bf16 block, C = 64 and 128, as ``(xs, modes)``."""
+    from dl_vqa_tpu_torch.ops.layout_cases import MODES
 
+    xs, modes = [], []
     for channels in (64, 128):
         x = torch.randn(*LAYOUT_BLOCK, channels, generator=gen,
                         device="cuda").to(torch.bfloat16)
-        for mode in MODES:
-            got = run(x, mode)
-            want = layout_case_reference(x, mode)
-            torch.cuda.synchronize()
-            require(got.shape == want.shape and torch.equal(got, want),
-                    f"layout case {mode} C={channels}: bits differ")
-            yield x, mode, got
+        xs += [x] * len(MODES)
+        modes += MODES
+    return xs, modes
+
+
+def check_layout(torch, xs, modes, outs) -> None:
+    """Every case's output equals its plain version's to the bit."""
+    from dl_vqa_tpu_torch.ops.layout_cases import layout_case_reference
+
+    torch.cuda.synchronize()
+    for x, mode, got in zip(xs, modes, outs):
+        want = layout_case_reference(x, mode)
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"layout case {mode} C={x.shape[-1]}: bits differ")
 
 
 def fused_kernels(torch, gen, device, summary) -> None:
@@ -795,7 +851,8 @@ def fused_kernels(torch, gen, device, summary) -> None:
         conv_relu_pool_fused_reference, conv_relu_pool_stem_cuda,
         conv_relu_pool_stem_reference, relu_maxpool_cuda, stem_mma_path)
     from dl_vqa_tpu_torch.ops.layout_cases import (
-        layout_case_cuda, layout_case_reference)
+        layout_case_cuda, layout_case_reference, layout_cases_cuda,
+        layout_cases_reference)
     from dl_vqa_tpu_torch.ops.vit_mlp_fused import (
         fused_ln_mlp_cuda, fused_ln_mlp_reference)
 
@@ -982,7 +1039,9 @@ def fused_kernels(torch, gen, device, summary) -> None:
             mlp_block(batch, VIT_TOKENS, VIT_WIDTH, VIT_HIDDEN, dtype,
                       dtype == torch.bfloat16 and batch == BATCH)
 
-    # Kernel 9: the probe's eight cases, to the bit.
+    # Kernel 9: the probe's eight cases, to the bit, each on its own (a
+    # batch of one, its output made on each call as the library call's is)
+    # and all in one launch.
     # The yardstick: each case as one PyTorch call.
     rows, width = LAYOUT_BLOCK
     library = {
@@ -991,20 +1050,41 @@ def fused_kernels(torch, gen, device, summary) -> None:
         "strided": lambda x: torch.maximum(x[:, 0::2], x[:, 1::2]),
         "shift": lambda x: torch.roll(x, -1, 1),
     }
-    total = new_total()
-    for x, mode, got in layout_cases(torch, gen, layout_case_cuda):
-        require(torch.equal(library[mode](x), got),
+    xs, modes = layout_inputs(torch, gen)
+    outs = [layout_case_cuda(x, mode) for x, mode in zip(xs, modes)]
+    check_layout(torch, xs, modes, outs)
+    per_case, library_ms = [], 0.0
+    for x, mode, out in zip(xs, modes, outs):
+        require(torch.equal(library[mode](x), out),
                 f"layout case {mode}: the library call computes another "
                 "function")
-        ms, plain_ms = timed_pair(
-            torch, lambda: layout_case_reference(x, mode),
-            lambda: layout_case_cuda(x, mode), iters=50)
-        library_ms = timed(torch, lambda: library[mode](x), iters=50)
+        plain_ms, case_ms, call_ms = timed_turns(
+            torch, [lambda: layout_case_reference(x, mode),
+                    lambda: layout_case_cuda(x, mode),
+                    lambda: library[mode](x)], iters=50)
         log(f"kernel layout_cases {mode} bf16 {list(x.shape)} -> "
-            f"{list(got.shape)}: equal bits | kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, one PyTorch call {library_ms:.4f} ms")
-        add(total, 0.0, ms, plain_ms, library_ms, nbytes(x, got), 0.0)
-    close("layout_cases", total, "f32")
+            f"{list(out.shape)}: equal bits | one case through its wrapper "
+            f"{case_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"one PyTorch call {call_ms:.4f} ms")
+        per_case.append({"mode": mode, "channels": x.shape[-1],
+                         "ms": case_ms, "plain_ms": plain_ms,
+                         "library_ms": call_ms})
+        library_ms += call_ms
+    outs = layout_cases_cuda(xs, modes)
+    check_layout(torch, xs, modes, outs)
+    plain_ms, ms = timed_turns(
+        torch, [lambda: layout_cases_reference(xs, modes),
+                lambda: layout_cases_cuda(xs, modes)], iters=50)
+    per_case_ms = sum(case["ms"] for case in per_case)
+    log(f"kernel layout_cases, the eight cases in one launch: equal bits | "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms; the eight cases one launch "
+        f"each {per_case_ms:.4f} ms; the eight PyTorch calls {library_ms:.4f}"
+        " ms")
+    summary["layout_cases"] = {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "per_case_ms": per_case_ms,
+        "per_case": per_case,
+        **bound(nbytes(*xs, *outs), 0.0, "f32")}
 
 
 def kernel_phase(torch, seed: int) -> dict:
@@ -1088,7 +1168,7 @@ def kernel_wrappers() -> dict:
     from dl_vqa_tpu_torch.ops.conv_fused import (
         conv_relu_pool_fused_cuda, conv_relu_pool_stem_cuda,
         relu_maxpool_backward_cuda, relu_maxpool_cuda)
-    from dl_vqa_tpu_torch.ops.layout_cases import layout_case_cuda
+    from dl_vqa_tpu_torch.ops.layout_cases import layout_cases_cuda
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_recurrence_cuda,
         lstm_recurrence_save_cuda)
@@ -1107,13 +1187,15 @@ def kernel_wrappers() -> dict:
             "conv_relu_pool_fused": conv_relu_pool_fused_cuda,
             "conv_relu_pool_stem": conv_relu_pool_stem_cuda,
             "vit_mlp_fused": fused_ln_mlp_cuda,
-            "layout_cases": layout_case_cuda}
+            "layout_cases": layout_cases_cuda}
 
 
 # Kernels that count the grids of their fast path beside all their grids:
-# kernel C's vector kernel and kernel 7's tensor-core kernel, which every
-# call of a model path takes (the model's shapes, in bf16).
+# kernel C's and kernel B's vector kernels and kernel 7's tensor-core
+# kernel, which every call of a model path takes (the model's shapes, in
+# bf16).
 FAST_PATHS = {"relu_maxpool_backward": "launches_vector",
+              "lstm_backward_step": "launches_vector",
               "conv_relu_pool_stem": "launches_mma"}
 
 
@@ -1127,7 +1209,7 @@ def reset_launches(wrappers) -> None:
 
 def read_launches(wrappers, what: str) -> dict:
     """The grids each kernel launched since :func:`reset_launches`; fails
-    where kernel C or kernel 7 launched a grid off its fast path."""
+    where kernel C, B or 7 launched a grid off its fast path."""
     launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
     for name, counter in FAST_PATHS.items():
         fast = getattr(wrappers[name], counter)
@@ -1295,7 +1377,8 @@ PROFILE_PARTS = (
         "relu_maxpool_backward_vector_kernel", "relu_maxpool_backward_kernel",
         "sum_partials_kernel")),
     ("kernel 2, bias+ReLU+pool", ("relu_maxpool_kernel",)),
-    ("kernel B, LSTM backward step", ("lstm_backward_step_kernel",)),
+    ("kernel B, LSTM backward step", ("lstm_backward_step_vector_kernel",
+                                      "lstm_backward_step_kernel")),
     ("kernels A and 1, LSTM recurrence", ("lstm_persistent_kernel",
                                           "lstm_step_kernel")),
     ("kernel 3, attention pool", ("attention_pool_kernel",)),
@@ -1703,18 +1786,20 @@ def fused_eval_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
 def layout_probe_phase(torch, seed: int) -> dict:
     """The probe's path: its eight cases (four re-layouts of a
     ``[16, 32, C]`` bf16 block, C = 64 and 128) through the dispatch a
-    caller uses, each held to its plain version to the bit."""
-    from dl_vqa_tpu_torch.ops.layout_cases import layout_case
+    caller uses, in one launch, each held to its plain version to the
+    bit."""
+    from dl_vqa_tpu_torch.ops.layout_cases import layout_cases
 
     wrappers = kernel_wrappers()
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs, modes = layout_inputs(torch, gen)
     reset_launches(wrappers)
-    for _ in layout_cases(torch, gen, layout_case):
-        pass
+    outs = layout_cases(xs, modes)
     launches = read_launches(wrappers, "the layout probe")
+    check_layout(torch, xs, modes, outs)
     log(f"layout probe: 8 cases equal to the bit, kernel launches "
         f"{json.dumps(launches)}")
-    require(launches == {**dict.fromkeys(wrappers, 0), "layout_cases": 8},
+    require(launches == {**dict.fromkeys(wrappers, 0), "layout_cases": 1},
             f"kernel launches of the layout probe: {launches}")
     return launches
 
@@ -1846,7 +1931,7 @@ def main(argv=None) -> int:
     # launches: the grids of all paths together, each path counted from 0:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its
-    # eight cases.
+    # eight cases in one launch.
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": replaces, **({"mma": mma[name]} if name in mma else {}),

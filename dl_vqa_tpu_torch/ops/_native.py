@@ -59,6 +59,9 @@ _SIGNATURES = {
     # batch, hidden, t, stream
     "vqa_lstm_backward_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P],
+    # gates_all, c_all, dh, dc, dgates_all, directions, batch, hidden -> 1
+    # where the call runs kernel B's vector kernel, else 0 (not an error)
+    "vqa_lstm_backward_step_vector": [_P, _P, _P, _P, _P, _I, _I, _I],
     # y, bias, out, batch, hc, wc, channels, dtype code, stream
     "vqa_relu_maxpool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # g, y, bias, dz, batch, hc, wc, channels, dtype code -> 1 where the
@@ -96,8 +99,9 @@ _SIGNATURES = {
     # stream
     "vqa_vit_mlp_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _P],
-    # x, out, rows, width, channels, mode, dtype code, stream
-    "vqa_layout_case": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # int64 descriptors [n, 7] (x, out, rows, width, channels, mode, dtype
+    # code), n (1 to 8), stream: the n cases in one launch
+    "vqa_layout_cases": [_P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -152,31 +152,37 @@ def lstm_saved_state_backward(gates_all, c_all, h_all, weight_hh, lengths,
     master ``weight_hh [D, 4H, H]``, int32 ``lengths [B]`` and the final
     state's cotangents ``dh``, ``dc [D, B, H]``, all f32 and contiguous:
     ``(dgates_all [D, T, B, 4H], dweight_hh [D, 4H, H])``, f32.
-    ``plain`` runs kernel B's plain version."""
-    directions, seq_len, batch, _ = gates_all.shape
+    ``plain`` runs kernel B's plain version; otherwise the tensors are
+    checked once and each step only launches kernel B."""
+    directions, seq_len, batch, four_h = gates_all.shape
+    hidden = h_all.shape[-1]
     dgates_all = torch.empty_like(gates_all)
-    zeros = torch.zeros_like(dh)
     if plain:
+        zeros = torch.zeros_like(dh)
         steps = torch.arange(seq_len, device=lengths.device)
         keep_all = steps[:, None] < lengths[None, :]
     else:
-        from dl_vqa_tpu_torch.ops.lstm_cuda import lstm_backward_step_cuda
+        from dl_vqa_tpu_torch.ops.lstm_cuda import lstm_backward_step_launcher
 
         dh, dc = dh.clone(), dc.clone()  # kernel B updates both in place
+        launch = lstm_backward_step_launcher(gates_all, c_all, lengths, dh,
+                                             dc, dgates_all)
     for t in reversed(range(seq_len)):
         if plain:
             c_prev = c_all[:, t - 1] if t else zeros
             dgates_all[:, t], dh, dc = lstm_backward_step_reference(
                 gates_all[:, t], c_all[:, t], c_prev, keep_all[t], dh, dc)
         else:
-            lstm_backward_step_cuda(gates_all, c_all, lengths, dh, dc,
-                                    dgates_all, t)
-        # dh_prev = (1 - keep) * dh + dgates . W_hh, a plain product.
-        dh = torch.baddbmm(dh, dgates_all[:, t], weight_hh)
-    h_prev_all = torch.cat([zeros[:, None], h_all[:, :-1]], dim=1)
+            launch(t)
+        # dh_prev = (1 - keep) * dh + dgates . W_hh, a plain product, in
+        # place: kernel B's next step finds dh where it was.
+        dh.baddbmm_(dgates_all[:, t], weight_hh)
+    # dW_hh = sum over t of dgates[t]^T h[t - 1]; step 0's carry is zero, so
+    # its term drops out and the views need no copy (T = 1: zero rows).
+    rows = max(seq_len - 1, 0) * batch
     dweight_hh = torch.matmul(
-        dgates_all.reshape(directions, seq_len * batch, -1).transpose(1, 2),
-        h_prev_all.reshape(directions, seq_len * batch, -1))
+        dgates_all[:, 1:].reshape(directions, rows, four_h).transpose(1, 2),
+        h_all[:, :-1].reshape(directions, rows, hidden))
     return dgates_all, dweight_hh
 
 

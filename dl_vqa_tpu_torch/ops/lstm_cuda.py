@@ -37,23 +37,32 @@ Here, by a rule on dtype and shape decided before the launch
 Kernel A is the same step with three more stores per element: the f32
 gates (386 MB at batch 512, T=23, H=1024, two directions) and the masked
 f32 carries (96 MB each). Kernel B is pure traffic, one grid per reverse
-step for both directions: it reads a step's gates, two carries and
-``(dh, dc)`` and writes its ``dgates`` and ``(dh, dc)`` (about 59 MB a
-step at batch 512); the recurrent product between two steps is a plain
-``torch.baddbmm``.
+step for both directions: a real row reads its gates, two carries and
+``(dh, dc)`` and writes its ``dgates`` and ``(dh, dc)``; a padded row only
+writes zero ``dgates`` (a step at batch 512 moves 59 MB where every row
+is real, 17 MB where every row is padded). It moves 16-byte
+vectors where :func:`backward_step_vector_path` says so (the model's
+shapes). The recurrent product between two steps is a plain
+``torch.baddbmm``. A backward checks its tensors once
+(:func:`lstm_backward_step_launcher`) and then only launches, a grid a
+step; :func:`lstm_backward_step_cuda` checks on every call.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from dl_vqa_tpu_torch.ops import _native
 
 __all__ = ["lstm_recurrence_cuda", "lstm_recurrence_save_cuda",
-           "lstm_backward_step_cuda", "persistent_plan",
-           "persistent_smem_bytes", "SMEM_PER_BLOCK"]
+           "lstm_backward_step_cuda", "lstm_backward_step_launcher",
+           "backward_step_vector_path", "backward_step_vector_accesses",
+           "persistent_plan", "persistent_smem_bytes", "SMEM_PER_BLOCK",
+           "BACKWARD_THREADS", "BACKWARD_VECTOR_FLOATS",
+           "BACKWARD_MAX_VECTOR_THREADS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _UNITS = 16  # hidden units per block (csrc/lstm_recurrence.cu kUnits)
@@ -65,6 +74,12 @@ _UNITS = 16  # hidden units per block (csrc/lstm_recurrence.cu kUnits)
 _WARPS, _ROWS, _CHUNK, _STAGES, _PAD = 16, 32, 64, 2, 8
 # Shared memory a block of an H100 (sm_90) may use.
 SMEM_PER_BLOCK = 232_448
+# Kernel B's vector kernel (csrc/lstm_backward.cu): threads a block
+# (kThreads), f32 units a thread (kVectorFloats), threads a call may have
+# (kMaxVectorThreads).
+BACKWARD_THREADS = 256
+BACKWARD_VECTOR_FLOATS = 4
+BACKWARD_MAX_VECTOR_THREADS = 2 ** 31
 
 
 def persistent_smem_bytes(units: int, hidden: int) -> int:
@@ -229,18 +244,57 @@ def lstm_recurrence_save_cuda(
 lstm_recurrence_save_cuda.launches = 0
 
 
-def lstm_backward_step_cuda(
-    gates_all: torch.Tensor,   # [D, T, B, 4H] f32
-    c_all: torch.Tensor,       # [D, T, B, H] f32
-    lengths: torch.Tensor,     # [B] int32
-    dh: torch.Tensor,          # [D, B, H] f32, updated in place
-    dc: torch.Tensor,          # [D, B, H] f32, updated in place
-    dgates_all: torch.Tensor,  # [D, T, B, 4H] f32, step t is written
-    t: int,
-) -> None:
-    """Kernel B, reverse step ``t``: writes ``dgates_all[:, t]``, turns
-    ``dc`` into ``dc_prev`` and ``dh`` into the part that passes a padded
-    step, ``(1 - keep) * dh``."""
+def backward_step_vector_path(directions: int, batch: int, hidden: int,
+                              pointers=()) -> bool:
+    """Whether kernel B runs its vector kernel: the mirror of
+    ``vector_path`` in ``csrc/lstm_backward.cu``. H is a multiple of the
+    4 f32 units a thread makes, the threads (``D * B * H / 4``) fit 31
+    bits, and every pointer of ``gates_all``, ``c_all``, ``dh``, ``dc`` and
+    ``dgates_all`` sits on a 16-byte boundary (so then does every row)."""
+    return (hidden % BACKWARD_VECTOR_FLOATS == 0
+            and directions * batch * (hidden // BACKWARD_VECTOR_FLOATS)
+            < BACKWARD_MAX_VECTOR_THREADS
+            and all(p % (4 * BACKWARD_VECTOR_FLOATS) == 0 for p in pointers))
+
+
+def backward_step_vector_accesses(directions: int, seq_len: int, batch: int,
+                                  hidden: int, t: int, lengths) -> list:
+    """The vector kernel's work at step ``t``, as it computes its offsets:
+    for each thread of its grid (``BACKWARD_THREADS`` a block), the 16-byte
+    vectors it touches as ``(tensor, "read" or "write", first element)``,
+    offsets in f32 elements of ``gates_all``, ``c_all``, ``dh``, ``dc`` or
+    ``dgates_all``. A padded row (``t >= lengths[b]``) writes its four
+    zero dgates vectors and nothing else; it reads only ``lengths[b]``."""
+    vec = BACKWARD_VECTOR_FLOATS
+    hv = hidden // vec
+    total = directions * batch * hv
+    blocks = -(-total // BACKWARD_THREADS)
+    work = []
+    for at in range(blocks * BACKWARD_THREADS):
+        if at >= total:
+            work.append([])
+            continue
+        v, row = at % hv, at // hv
+        b, d = row % batch, row // batch
+        step = (d * seq_len + t) * batch + b
+        dgates = [("dgates_all", "write", (step * 4 * hv + v + k * hv) * vec)
+                  for k in range(4)]
+        if t >= lengths[b]:
+            work.append(dgates)
+            continue
+        reads = [("gates_all", "read", (step * 4 * hv + v + k * hv) * vec)
+                 for k in range(4)]
+        reads.append(("c_all", "read", (step * hv + v) * vec))
+        if t > 0:
+            reads.append(("c_all", "read", ((step - batch) * hv + v) * vec))
+        reads += [("dh", "read", at * vec), ("dc", "read", at * vec)]
+        work.append(reads + dgates + [("dc", "write", at * vec),
+                                      ("dh", "write", at * vec)])
+    return work
+
+
+def _check_backward_step_args(gates_all, c_all, lengths, dh, dc, dgates_all):
+    """Raise on anything kernel B does not take; returns ``(D, T, B, H)``."""
     if gates_all.dim() != 4 or gates_all.shape[-1] % 4:
         raise ValueError(f"expected gates_all [D,T,B,4H]; got "
                          f"{tuple(gates_all.shape)}")
@@ -261,15 +315,70 @@ def lstm_backward_step_cuda(
         want = torch.int32 if name == "lengths" else torch.float32
         if tensor.dtype != want:
             raise ValueError(f"{name} must be {want}, got {tensor.dtype}")
-    if not 0 <= t < seq_len:
-        raise ValueError(f"step {t} is outside 0..{seq_len - 1}")
-    code = _native.library().vqa_lstm_backward_step(
-        gates_all.data_ptr(), c_all.data_ptr(), lengths.data_ptr(),
-        dh.data_ptr(), dc.data_ptr(), dgates_all.data_ptr(), directions,
-        seq_len, batch, hidden, t, _native.stream_ptr(gates_all.device))
-    _native.check("lstm_backward_step", code)
-    if directions * batch * hidden:
-        lstm_backward_step_cuda.launches += 1
+    return directions, seq_len, batch, hidden
+
+
+def lstm_backward_step_launcher(
+    gates_all: torch.Tensor,   # [D, T, B, 4H] f32
+    c_all: torch.Tensor,       # [D, T, B, H] f32
+    lengths: torch.Tensor,     # [B] int32
+    dh: torch.Tensor,          # [D, B, H] f32, updated in place
+    dc: torch.Tensor,          # [D, B, H] f32, updated in place
+    dgates_all: torch.Tensor,  # [D, T, B, 4H] f32
+) -> Callable[[int], None]:
+    """Kernel B for a whole backward: checks the six tensors once, fetches
+    the C entry and the stream once, and returns the thin per-step entry
+    ``launch(t)``, which only launches reverse step ``t`` (the C entry
+    refuses a ``t`` outside ``0 .. T - 1``). The tensors must stay where
+    they are until the last launch: ``dh`` is updated in place between two
+    steps, not replaced. Its launches count on
+    :func:`lstm_backward_step_cuda`."""
+    directions, seq_len, batch, hidden = _check_backward_step_args(
+        gates_all, c_all, lengths, dh, dc, dgates_all)
+    tensors = (gates_all, c_all, lengths, dh, dc, dgates_all)
+    vector = backward_step_vector_path(
+        directions, batch, hidden,
+        tuple(x.data_ptr() for k, x in enumerate(tensors) if k != 2))
+    # ctypes objects made once: the per-step call converts only t.
+    pointers = tuple(ctypes.c_void_p(x.data_ptr()) for x in tensors)
+    sizes = tuple(ctypes.c_int(n)
+                  for n in (directions, seq_len, batch, hidden))
+    entry = _native.library().vqa_lstm_backward_step
+    stream = _native.stream_ptr(gates_all.device)
+    counted = 1 if directions * batch * hidden else 0
+    wrapper = lstm_backward_step_cuda
+
+    def launch(t: int) -> None:
+        code = entry(*pointers, *sizes, t, stream)
+        if code:
+            _native.check("lstm_backward_step", code)
+        wrapper.launches += counted
+        if vector:
+            wrapper.launches_vector += counted
+
+    return launch
+
+
+def lstm_backward_step_cuda(
+    gates_all: torch.Tensor,   # [D, T, B, 4H] f32
+    c_all: torch.Tensor,       # [D, T, B, H] f32
+    lengths: torch.Tensor,     # [B] int32
+    dh: torch.Tensor,          # [D, B, H] f32, updated in place
+    dc: torch.Tensor,          # [D, B, H] f32, updated in place
+    dgates_all: torch.Tensor,  # [D, T, B, 4H] f32, step t is written
+    t: int,
+) -> None:
+    """Kernel B, reverse step ``t``: writes ``dgates_all[:, t]``, turns
+    ``dc`` into ``dc_prev`` and ``dh`` into the part that passes a padded
+    step, ``(1 - keep) * dh``; every check on every call. ``launches``
+    counts its grids and the launcher's, ``launches_vector`` those of the
+    vector kernel."""
+    launch = lstm_backward_step_launcher(gates_all, c_all, lengths, dh, dc,
+                                         dgates_all)
+    if not 0 <= t < gates_all.shape[1]:
+        raise ValueError(f"step {t} is outside 0..{gates_all.shape[1] - 1}")
+    launch(t)
 
 
 lstm_backward_step_cuda.launches = 0
+lstm_backward_step_cuda.launches_vector = 0

@@ -42,6 +42,8 @@ from dl_vqa_tpu_torch.ops.layout_cases import (
     layout_case,
     layout_case_cuda,
     layout_case_reference,
+    layout_cases,
+    layout_cases_cuda,
 )
 from dl_vqa_tpu_torch.ops.lstm import (
     bilstm_final_cell,
@@ -49,10 +51,13 @@ from dl_vqa_tpu_torch.ops.lstm import (
     lstm_recurrence_grad,
     lstm_recurrence_reference,
     lstm_recurrence_save_reference,
+    lstm_saved_state_backward,
 )
 from dl_vqa_tpu_torch.ops import lstm_cuda
 from dl_vqa_tpu_torch.ops.lstm_cuda import (
+    backward_step_vector_path,
     lstm_backward_step_cuda,
+    lstm_backward_step_launcher,
     lstm_recurrence_cuda,
     lstm_recurrence_save_cuda,
     persistent_plan,
@@ -993,9 +998,9 @@ def _assert_mlp_close(got, want, dtype):
 def test_layout_cases_are_exact(device, dtype, mode, channels):
     x = torch.randn(16, 32, channels, generator=_gen(device, 15),
                     device=device).to(dtype)
-    before = layout_case_cuda.launches
+    before = layout_cases_cuda.launches
     got = layout_case(x, mode)
-    assert layout_case_cuda.launches == before + 1
+    assert layout_cases_cuda.launches == before + 1  # a batch of one
     want = layout_case_reference(x, mode)
     assert got.shape == want.shape and torch.equal(got, want)
 
@@ -1322,3 +1327,232 @@ def test_conv_relu_pool_fused_refuses_more_shared_memory_than_a_block_has(
     with pytest.raises(RuntimeError, match="conv_relu_pool_fused"):
         _native.check("conv_relu_pool_fused", code)
     assert conv_relu_pool_fused_cuda.launches == before
+
+
+# Kernel B's vector and scalar kernels, bit for bit; kernel 9's batched
+# entry.
+def _backward_case(device, directions, seq, batch, hidden, lengths,
+                   seed=16):
+    """Saved states of a plain f32 forward and a ``(dh, dc)`` per step."""
+    g = _gen(device, seed)
+    x_proj = torch.randn(directions, seq, batch, 4 * hidden, generator=g,
+                         device=device)
+    w_hh = torch.randn(directions, 4 * hidden, hidden, generator=g,
+                       device=device) / hidden ** 0.5
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=device)
+    _, _, gates, c_all, h_all = lstm_recurrence_save_reference(
+        x_proj, w_hh, lengths)
+    carries = [tuple(torch.randn(directions, batch, hidden, generator=g,
+                                 device=device) for _ in range(2))
+               for _ in range(seq)]
+    return gates, c_all, h_all, w_hh, lengths, carries
+
+
+def _ragged(seq, batch):
+    """Lengths with 0 and T - 1 among them and none longer, so step T - 1
+    pads every row."""
+    return [0, seq - 1] + [(3 * b) % seq for b in range(batch - 2)]
+
+
+BACKWARD_BITS_CASES = [
+    (2, 6, 5, 1024, True),   # the model's H
+    (2, 5, 7, 32, True),
+    (1, 4, 3, 8, True),
+    (2, 5, 7, 6, False),     # H off the 4-unit vector: the scalar kernel
+    (1, 3, 4, 1, False),
+]
+
+
+@pytest.mark.parametrize("directions,seq,batch,hidden,vector",
+                         BACKWARD_BITS_CASES)
+def test_lstm_backward_step_equals_plain_bits(device, directions, seq, batch,
+                                              hidden, vector):
+    """Every step (the last ones all padded, rows of length 0 among the
+    others) fed the same inputs as the plain version: dgates, dh and dc are
+    its bits (max_abs_err 0; a zero's sign aside, which == ignores), on the
+    vector kernel where the rule says so and on the scalar one elsewhere."""
+    gates, c_all, _, _, lengths, carries = _backward_case(
+        device, directions, seq, batch, hidden, _ragged(seq, batch))
+    assert backward_step_vector_path(directions, batch, hidden) is vector
+    zeros = torch.zeros(directions, batch, hidden, device=device)
+    dgates_all = torch.full_like(gates, float("nan"))
+    for t in reversed(range(seq)):
+        dh, dc = (x.clone() for x in carries[t])
+        want = lstm_backward_step_reference(
+            gates[:, t], c_all[:, t], c_all[:, t - 1] if t else zeros,
+            t < lengths, dh, dc)
+        before = (lstm_backward_step_cuda.launches,
+                  lstm_backward_step_cuda.launches_vector)
+        lstm_backward_step_cuda(gates, c_all, lengths, dh, dc, dgates_all, t)
+        assert (lstm_backward_step_cuda.launches,
+                lstm_backward_step_cuda.launches_vector) == (
+                    before[0] + 1, before[1] + int(vector))
+        for got, expected in zip((dgates_all[:, t], dh, dc), want):
+            assert bool((got == expected).all()), t
+    assert not dgates_all.isnan().any()
+
+
+def test_lstm_backward_step_leaves_a_padded_row_s_carries_alone(device):
+    """A padded row hands (dh, dc) on: the kernel neither reads nor writes
+    them there, so NaN in a padded row's carry stays where it is and no
+    real row's result sees it."""
+    gates, c_all, _, _, lengths, carries = _backward_case(
+        device, 2, 4, 6, 64, [4, 0, 2, 4, 1, 3])
+    dgates_all = torch.empty_like(gates)
+    dh, dc = (x.clone() for x in carries[2])
+    padded = lengths <= 2
+    dh[:, padded] = float("nan")
+    dc[:, padded] = float("nan")
+    want = lstm_backward_step_reference(
+        gates[:, 2], c_all[:, 2], c_all[:, 1], 2 < lengths, dh, dc)
+    lstm_backward_step_cuda(gates, c_all, lengths, dh, dc, dgates_all, 2)
+    assert dh[:, padded].isnan().all() and dc[:, padded].isnan().all()
+    assert bool((dgates_all[:, 2][:, padded] == 0).all())
+    for got, expected in zip((dgates_all[:, 2], dh, dc), want):
+        real = got[:, ~padded]
+        assert bool((real == expected[:, ~padded]).all())
+
+
+@pytest.mark.parametrize("hidden", [1024, 6])
+def test_lstm_backward_step_launcher_is_the_checked_wrapper_s_bits(device,
+                                                                   hidden):
+    """The thin per-step entry, checked once for the whole backward, and
+    the wrapper that checks on every call: the same bits and launches."""
+    gates, c_all, _, _, lengths, carries = _backward_case(
+        device, 2, 5, 9, hidden, _ragged(5, 9))
+    results = []
+    for thin in (True, False):
+        dh, dc = (x.clone() for x in carries[-1])
+        dgates_all = torch.empty_like(gates)
+        before = lstm_backward_step_cuda.launches
+        launch = lstm_backward_step_launcher(gates, c_all, lengths, dh, dc,
+                                             dgates_all)
+        for t in reversed(range(5)):
+            if thin:
+                launch(t)
+            else:
+                lstm_backward_step_cuda(gates, c_all, lengths, dh, dc,
+                                        dgates_all, t)
+        assert lstm_backward_step_cuda.launches == before + 5
+        results.append((dgates_all, dh, dc))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+def test_lstm_backward_step_launcher_refuses_a_step_outside_the_sequence(
+        device):
+    gates, c_all, _, _, lengths, carries = _backward_case(
+        device, 1, 3, 2, 8, [3, 1])
+    dh, dc = (x.clone() for x in carries[0])
+    launch = lstm_backward_step_launcher(gates, c_all, lengths, dh, dc,
+                                         torch.empty_like(gates))
+    before = lstm_backward_step_cuda.launches
+    with pytest.raises(RuntimeError, match="lstm_backward_step"):
+        launch(3)
+    assert lstm_backward_step_cuda.launches == before
+
+
+@pytest.mark.parametrize("which", ["gates_all", "c_all", "dh", "dc",
+                                   "dgates_all", None])
+def test_lstm_backward_step_rule_in_c_equals_the_mirror(device, which):
+    """``vqa_lstm_backward_step_vector`` against
+    ``backward_step_vector_path``, with one tensor a view 4 bytes off a
+    16-byte boundary (it then takes the scalar kernel, still exact)."""
+    directions, seq, batch, hidden = 2, 3, 4, 16
+    gates, c_all, _, _, lengths, carries = _backward_case(
+        device, directions, seq, batch, hidden, [3, 0, 1, 2])
+    tensors = {"gates_all": gates, "c_all": c_all,
+               "dh": carries[1][0].clone(), "dc": carries[1][1].clone(),
+               "dgates_all": torch.empty_like(gates)}
+    if which is not None:
+        base = tensors[which]
+        shifted = torch.empty(base.numel() + 1, device=device)[1:]
+        tensors[which] = shifted.view_as(base).copy_(base)
+    pointers = [tensors[k].data_ptr() for k in
+                ("gates_all", "c_all", "dh", "dc", "dgates_all")]
+    vector = bool(_native.library().vqa_lstm_backward_step_vector(
+        *pointers, directions, batch, hidden))
+    assert vector is backward_step_vector_path(directions, batch, hidden,
+                                               pointers)
+    assert vector is (which is None)
+    want = lstm_backward_step_reference(
+        gates[:, 1], c_all[:, 1], c_all[:, 0], 1 < lengths, tensors["dh"],
+        tensors["dc"])
+    before = lstm_backward_step_cuda.launches_vector
+    lstm_backward_step_cuda(tensors["gates_all"], tensors["c_all"], lengths,
+                            tensors["dh"], tensors["dc"],
+                            tensors["dgates_all"], 1)
+    assert lstm_backward_step_cuda.launches_vector == before + int(vector)
+    for got, expected in zip((tensors["dgates_all"][:, 1], tensors["dh"],
+                              tensors["dc"]), want):
+        assert bool((got == expected).all())
+
+
+@pytest.mark.parametrize("seq", [1, 6])
+def test_lstm_saved_state_backward_kernel_path_equals_plain_path(device,
+                                                                 seq):
+    """The whole backward (kernel B and the products between its steps,
+    dW_hh from views) on both paths: kernel B gives the plain bits, and the
+    products are the same calls on the same operands."""
+    batch, hidden = 7, 32
+    gates, c_all, h_all, w_hh, lengths, carries = _backward_case(
+        device, 2, seq, batch, hidden, _ragged(seq, batch))
+    dh, dc = carries[-1]
+    before = lstm_backward_step_cuda.launches_vector
+    got = lstm_saved_state_backward(gates, c_all, h_all, w_hh, lengths, dh,
+                                    dc, plain=False)
+    assert lstm_backward_step_cuda.launches_vector == before + seq
+    want = lstm_saved_state_backward(gates, c_all, h_all, w_hh, lengths, dh,
+                                     dc, plain=True)
+    assert bool((got[0] == want[0]).all())
+    torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)
+    if seq == 1:
+        assert torch.count_nonzero(got[1]) == 0
+
+
+def _layout_inputs(device, cases, seed=17):
+    g = _gen(device, seed)
+    return [torch.randn(*shape, generator=g, device=device).to(dtype)
+            for shape, _, dtype in cases]
+
+
+LAYOUT_BATCHES = {
+    "probe": [((16, 32, c), m, torch.bfloat16)
+              for c in (64, 128) for m in MODES],
+    "mixed": [((3, 6, 4), "split", torch.float32),
+              ((0, 4, 8), "shift", torch.bfloat16),
+              ((5, 7, 8), "shift", torch.bfloat16),
+              ((2, 2, 4), "merge", torch.float32),
+              ((1, 2, 8), "strided", torch.bfloat16),
+              ((33, 10, 16), "split", torch.bfloat16)],
+    "one": [((16, 32, 64), "shift", torch.float32)],
+}
+
+
+@pytest.mark.parametrize("which", sorted(LAYOUT_BATCHES))
+def test_layout_cases_in_one_launch_equal_the_per_case_calls(device, which):
+    cases = LAYOUT_BATCHES[which]
+    xs = _layout_inputs(device, cases)
+    modes = [m for _, m, _ in cases]
+    before = layout_cases_cuda.launches
+    got = layout_cases(xs, modes)
+    assert layout_cases_cuda.launches == before + 1
+    for x, mode, out in zip(xs, modes, got):
+        assert torch.equal(out, layout_case_cuda(x, mode))
+        assert torch.equal(out, layout_case_reference(x, mode))
+
+
+@pytest.mark.parametrize("call", [
+    lambda d: layout_cases_cuda([torch.zeros(4, 6, 8, device=d)[..., :6]],
+                                ["shift"]),
+    lambda d: layout_cases_cuda([torch.zeros(4, 5, 8, device=d)], ["split"]),
+    lambda d: layout_cases_cuda([torch.zeros(4, 6, 8, device=d).int()],
+                                ["shift"]),
+    lambda d: layout_cases_cuda([torch.zeros(4, 6, 8, device=d),
+                                 torch.zeros(4, 6, 8)], ["shift", "shift"]),
+], ids=["channels", "odd_width", "int", "two_devices"])
+def test_layout_cases_refuse_what_the_kernel_does_not_take(device, call):
+    before = layout_cases_cuda.launches
+    with pytest.raises(ValueError):
+        call(device)
+    assert layout_cases_cuda.launches == before
