@@ -45,11 +45,28 @@
    model with the flip on, its loss held to the unfused step's at batch 8;
    and one CNN train step with the flip on, its gradients held to the
    unfused step's at batch 8, timed both ways;
-8. the layout probe's eight cases through their dispatch, in one launch.
+8. the layout probe's eight cases through their dispatch, in one launch;
+9. cnn_e2e: the train and eval journey through the port's entry points. A
+   corpus of 4,096 train and 1,024 val questions over 512 and 128 images at
+   224 px, rendered by ``dl_vqa_tpu_torch.data.synthetic`` into an ``.npy``
+   store under ``_smoke_e2e/``, its questions widened to the reference's
+   15,193 ids and 23 tokens; ``dl_vqa_tpu_torch.main.main`` trains the
+   reference-parity model on it (``config`` preset, batch 512, bf16,
+   dropout 0.3, 2 epochs, the device image table on, a rolling checkpoint
+   every 3 batches); a second run's batcher raises at batch 5 of epoch 1,
+   and a third run resumed from its ``last.ckpt`` must end with the first
+   run's state (cuDNN deterministic for these runs); ``evaluate_vqa`` on
+   the first run's best ``model.ckpt`` must give its best score. Then, not
+   counted: from the first run's final state, a train step and an eval
+   step on the corpus's batches with the kernels held to the plain path;
+   the bare train step's time; and ``main`` again with the table on and
+   off under ``torch.profiler``, for the epoch's seconds and samples/s
+   through the loop and the device's idle share over the epoch: one JSON
+   line ``{"cnn_e2e": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
-and the layout probe) is driven with the kernels' launch counts set to 0
+the layout probe, and cnn_e2e) is driven with the kernels' launch counts set to 0
 just before it and read just after; on every path kernels C and B run
 their vector kernels and kernel 7 its tensor-core kernel
 (``FAST_PATHS``). Then
@@ -167,6 +184,18 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    conv0's weight 1.4e-2); and the step with fused_ops on may lie at most
 #    GRADS_BF16_RATIO times as far from the unfused step's f32 gradients as
 #    the unfused bf16 step does.
+#  e2e_resume: 0, every array of the final train state (parameters, Adam
+#    moments and counts, step) and the best score: the resumed run restores
+#    f32 arrays exactly, re-derives the epoch's order from (seed, epoch) and
+#    each step's dropout masks from (seed, step), and with cuDNN set
+#    deterministic for the phase every op of a step gives the same bits on
+#    the same inputs (the kernels have no atomics; the embedding's
+#    gradient sums duplicates in sorted order; gather's backward adds only
+#    zeros to a slot that another answer also reaches).
+#  e2e_eval_score: 1e-3 percent points: evaluate_vqa rounds to 3 decimals
+#    (5e-4) and scores the same weights with the same eval step and batches
+#    as the loop did; one sample answered otherwise moves the score by at
+#    least 0.3 / 1024 * 100 = 0.029.
 TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "vit_mlp_bf16_floor": 2.0 ** -8,
        "layout_cases": 0.0, "fused_grads_f32": 1e-5, "fused_grads_bf16": 1e-3,
@@ -181,7 +210,8 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "pool_backward_dz": 0.0,
        "pool_backward_db": 1e-5, "grads_f32": 2e-4, "grads_bf16": 1e-2,
        "grads_bf16_attention": 1e-1,
-       "loss_f32": 1e-5, "loss_bf16": 5e-4}
+       "loss_f32": 1e-5, "loss_bf16": 5e-4,
+       "e2e_resume": 0.0, "e2e_eval_score": 1e-3}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1804,6 +1834,413 @@ def layout_probe_phase(torch, seed: int) -> dict:
     return launches
 
 
+# The cnn_e2e path: a corpus of the numpy generator at 224 px, trained and
+# evaluated through the port's entry points at full width.
+E2E_DIR = "_smoke_e2e"  # under the checkout; .gitignore lists it
+E2E_TRAIN, E2E_VAL, E2E_IMAGES, E2E_VAL_IMAGES = 4096, 1024, 512, 128
+E2E_IMAGE_SIZE = 224
+E2E_EPOCHS, E2E_EVERY = 2, 3
+E2E_CRASH = (1, 5)  # (epoch, batch): the crash run's batcher raises there
+
+
+def e2e_overrides(prof: dict, root: str, prefix: str, seed: int,
+                  extra=()) -> list:
+    """Overrides of the ``config`` preset for a run on the corpus: batch
+    512, bf16, dropout 0.3 (the preset's), the table on, a rolling save
+    every E2E_EVERY batches."""
+    out = ["main.use_full=false", f"main.experiment_name_prefix={prefix}",
+           f"main.seed={seed}"]
+    for group, paths in prof.items():
+        out += [f"main.small.{group}.{key}={value}"
+                for key, value in paths.items()]
+    return out + [f"main.small.paths.logs={root}/logs/",
+                  f"train.batch_size={BATCH}",
+                  f"train.num_epochs={E2E_EPOCHS}",
+                  "tpu.device_image_cache=on",
+                  f"tpu.checkpoint_every_steps={E2E_EVERY}", *extra]
+
+
+def exp_dir_of(root: str, prefix: str) -> str:
+    import glob
+
+    found = glob.glob(f"{root}/logs/{prefix}_*")
+    require(len(found) == 1, f"one experiment dir for {prefix}: {found}")
+    return found[0]
+
+
+def last_checkpoint(root: str, prefix: str) -> dict:
+    import os
+
+    with np.load(os.path.join(exp_dir_of(root, prefix), "last.ckpt")) as d:
+        return {k: d[k] for k in d.files}
+
+
+def device_idle_share(torch, prof, span: str, which: int) -> dict:
+    """The device's idle share over the ``which``-th ``span`` of a trace:
+    1 - (the union of CUDA kernel intervals inside it) / its length."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == span and e.device_type == DeviceType.CPU)
+    require(len(spans) > which, f"{len(spans)} '{span}' spans in the trace")
+    lo, hi = spans[which]
+    # A user annotation (the span itself among them) has a device-side
+    # copy covering the device work of its range: not a kernel.
+    inside = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.name != span
+              and e.time_range.end > lo and e.time_range.start < hi]
+    kernels = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                     for e in inside)
+    # Device time by kind, summed over the events (overlaps count twice).
+    kinds = {}
+    for e in inside:
+        kind = ("copies host to device" if "HtoD" in e.name
+                else "copies device to host" if "DtoH" in e.name
+                else "other copies and sets" if "Mem" in e.name
+                else "kernels")
+        kinds[kind] = kinds.get(kind, 0.0) + (
+            min(e.time_range.end, hi) - max(e.time_range.start, lo)) / 1e6
+    busy, cursor = 0.0, lo
+    for start, end in kernels:
+        start = max(start, cursor)
+        if end > start:
+            busy += end - start
+            cursor = end
+    require(busy > 0, f"no device kernel inside '{span}' {which}")
+    return {"span_s": (hi - lo) / 1e6, "device_busy_s": busy / 1e6,
+            "idle_share": 1.0 - busy / (hi - lo), "device_s_by_kind": kinds}
+
+
+def e2e_phase(torch, seed: int) -> tuple:
+    """The port's train and eval journey at full width on a rendered
+    corpus: ``dl_vqa_tpu_torch.main.main`` for E2E_EPOCHS epochs; the same
+    run with a batcher that raises at E2E_CRASH; a third run resumed from
+    that run's ``last.ckpt``, whose final state must equal the first run's
+    (cuDNN deterministic for these runs); ``evaluate_vqa`` on the first
+    run's best ``model.ckpt``, whose score must be the run's best. Then, not
+    counted, the kernels held to the plain path at the corpus's shapes and
+    the bare train step (:func:`e2e_parity`), and the epoch's time,
+    samples/s and the device's idle share with the table on and off
+    (:func:`e2e_timings`). Returns ``(launches, timings)``."""
+    import contextlib
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.data import pipeline
+    from dl_vqa_tpu_torch.data.synthetic import make_synthetic_corpus
+    from dl_vqa_tpu_torch.evaluate_vqa import evaluate_hw2
+    from dl_vqa_tpu_torch.main import main as train_main
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+
+    wrappers = kernel_wrappers()
+    root = os.path.abspath(E2E_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    phase_start = t0 = time.perf_counter()
+    # The questions widened to the reference's vocab and length: the
+    # model is the reference-parity model, T = SEQ_LEN.
+    prof = make_synthetic_corpus(
+        os.path.join(root, "corpus"), n_train=E2E_TRAIN, n_val=E2E_VAL,
+        n_images=E2E_IMAGES, image_size=E2E_IMAGE_SIZE, max_answers=3000,
+        seed=seed, learnable=True, n_val_images=E2E_VAL_IMAGES,
+        question_tokens=ModelConfig().num_tokens, question_length=SEQ_LEN)
+    corpus_s = time.perf_counter() - t0
+    log(f"cnn_e2e: corpus of {E2E_TRAIN} + {E2E_VAL} questions over "
+        f"{E2E_IMAGES} + {E2E_VAL_IMAGES} images at {E2E_IMAGE_SIZE} px in "
+        f"{corpus_s:.1f} s")
+
+    def compose(prefix, extra=()):
+        return config_mod.compose(
+            "config", e2e_overrides(prof, root, prefix, seed, extra))
+
+    real_iter_epoch = pipeline.Batcher.iter_epoch
+
+    def crashing_iter_epoch(self, epoch, start_batch=0):
+        for i, batch in enumerate(real_iter_epoch(self, epoch, start_batch)):
+            if self.shuffle and (epoch, start_batch + i) == E2E_CRASH:
+                raise RuntimeError("cnn_e2e: the crash run's batcher fails")
+            yield batch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reset_launches(wrappers)
+    runs = {}
+    try:
+        t0 = time.perf_counter()
+        best = train_main(compose("e2e_straight"))
+        runs["straight_s"] = time.perf_counter() - t0
+        pipeline.Batcher.iter_epoch = crashing_iter_epoch
+        try:
+            train_main(compose("e2e_crash"))
+            crashed = False
+        except RuntimeError as e:
+            crashed = "crash run's batcher" in str(e)
+        finally:
+            pipeline.Batcher.iter_epoch = real_iter_epoch
+        require(crashed, "the crash run stops at its batcher's error")
+        crash_ckpt = os.path.join(exp_dir_of(root, "e2e_crash"), "last.ckpt")
+        t0 = time.perf_counter()
+        resumed_best = train_main(compose("e2e_resumed", [
+            "main.start_from_pretrained_model=true",
+            f"main.small.paths.pretrained_model_path={crash_ckpt}"]))
+        runs["resumed_s"] = time.perf_counter() - t0
+        best_ckpt = os.path.join(exp_dir_of(root, "e2e_straight"),
+                                 "model.ckpt")
+        t0 = time.perf_counter()
+        with open(os.path.join(root, "evaluate_stdout.txt"), "w") as out, \
+                contextlib.redirect_stdout(out):
+            score = evaluate_hw2(e2e_overrides(prof, root, "e2e_eval", seed, [
+                f"main.small.paths.pretrained_model_path={best_ckpt}",
+                "train.image.stride=1", "train.attention.do_option=+"]))
+        runs["evaluate_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_launches(wrappers, "the cnn_e2e path")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # The crash run's last save was at the last multiple of E2E_EVERY
+    # before the crash; the resumed run restarts there.
+    crash_epoch, crash_batch = E2E_CRASH
+    resume_batch = crash_batch // E2E_EVERY * E2E_EVERY
+    with np.load(crash_ckpt) as d:
+        meta = json.loads(bytes(d["__meta__"]).decode())
+    require(meta.get("epoch") == crash_epoch
+            and meta.get("batch_in_epoch") == resume_batch,
+            f"the crash run's last save: {meta.get('epoch')}, "
+            f"{meta.get('batch_in_epoch')}")
+    straight, resumed = (last_checkpoint(root, p)
+                         for p in ("e2e_straight", "e2e_resumed"))
+    require(straight.keys() == resumed.keys(), "one layout of last.ckpt")
+    resume_err = max(float(np.abs(resumed[k].astype(np.float64)
+                                  - straight[k].astype(np.float64)).max())
+                     for k in straight if k != "__meta__")
+    finite = all(np.isfinite(v).all() for k, v in straight.items()
+                 if k.startswith("params|"))
+    log(f"cnn_e2e: best val score {best:.4f}, resumed run's {resumed_best:.4f}"
+        f", evaluate_vqa on model.ckpt {score} | resumed final state vs "
+        f"uninterrupted: max |diff| {resume_err:g} over {len(straight) - 1} "
+        f"arrays (tol {TOL['e2e_resume']:g}) | runs {json.dumps(runs)}")
+    log(f"cnn_e2e: kernel launches {json.dumps(launches)}")
+    from dl_vqa_tpu_torch.data.dataset import VQADataset
+
+    train_ds, val_ds = (
+        VQADataset.load(VQADataset.cache_path(prof[split]["vqaDataset"]))
+        for split in ("train_paths", "val_paths"))
+    batches = -(-len(train_ds) // BATCH)
+    require(train_ds.num_tokens == ModelConfig().num_tokens
+            and train_ds.max_question_length == SEQ_LEN
+            and val_ds.max_question_length == SEQ_LEN,
+            f"the reference's vocab and length: {train_ds.num_tokens} ids, "
+            f"T = {train_ds.max_question_length}, "
+            f"{val_ds.max_question_length}")
+    require(finite, "finite parameters after the cnn_e2e run")
+    require(int(straight["step"]) == E2E_EPOCHS * batches,
+            f"updates of the cnn_e2e run: {int(straight['step'])}")
+    require(resume_err <= TOL["e2e_resume"],
+            f"resumed vs uninterrupted final state: {resume_err}")
+    require(abs(resumed_best - best) <= TOL["e2e_resume"],
+            f"resumed best score {resumed_best} vs {best}")
+    require(abs(score - best) <= TOL["e2e_eval_score"],
+            f"evaluate_vqa {score} vs the loop's best {best}")
+
+    # Grids each kernel launched: a train step runs kernel A once
+    # (persistent) or a grid a timestep, kernel B a grid a timestep of the
+    # batch, kernel 2 three grids, kernel C six, kernel 3 one; an eval
+    # batch kernel 1 as A, kernel 2 three times, kernel 3 once.
+    # Eval passes: each epoch of the first run, epoch 0 of the crash run,
+    # the resumed epoch, and evaluate_vqa.
+    steps = (E2E_EPOCHS * batches + (batches + crash_batch)
+             + (batches - resume_batch))
+    evals = -(-len(val_ds) // BATCH) * (E2E_EPOCHS + crash_epoch + 1 + 1)
+    train_len, val_len = (train_ds.max_question_length,
+                          val_ds.max_question_length)
+    grids = recurrence_grids(torch)
+    expected = {
+        "lstm_recurrence_save": steps * (1 if grids == 1 else train_len),
+        "lstm_backward_step": steps * train_len,
+        "lstm_recurrence": evals * (1 if grids == 1 else val_len),
+        "relu_maxpool": 3 * (steps + evals),
+        "relu_maxpool_backward": 6 * steps,
+        "attention_pool": steps + evals,
+    }
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on the cnn_e2e path: {launches}, expected "
+            f"{expected}")
+    timings = e2e_parity(torch, seed, compose("e2e_parity"), train_ds,
+                         val_ds, os.path.join(exp_dir_of(root, "e2e_straight"),
+                                              "last.ckpt"))
+    timings.update(e2e_timings(torch, compose, batches))
+    timings.update(corpus_s=corpus_s, runs=runs, best_score=best,
+                   evaluate_score=score, resume_max_abs_err=resume_err,
+                   phase_s=time.perf_counter() - phase_start)
+    return launches, timings
+
+
+def e2e_parity(torch, seed: int, cfg: dict, train_ds, val_ds,
+               ckpt: str) -> dict:
+    """The cnn_e2e path's kernels held against their plain versions at the
+    shapes the loop gives them (launches not counted): from the straight
+    run's final state (``ckpt``), one train step on the first batch of
+    epoch 0 and the eval step on the first val batch, the images gathered
+    from the device table by the batch's rows, each with the kernels and
+    with ``plain_ops=True``. The loss to TOL["loss_bf16"] relative, the
+    gradients per tensor to TOL["grads_bf16"] (the attention's to
+    TOL["grads_bf16_attention"]); the eval score may move only by the
+    samples whose two best plain logits lie within twice the largest
+    logit difference, the only ones whose answer can change. Then the bare
+    train step on that batch, by CUDA events."""
+    from dl_vqa_tpu_torch.data.device_cache import plan_image_tables
+    from dl_vqa_tpu_torch.data.pipeline import Batcher
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import (
+        create_train_state, make_eval_step, make_train_step)
+    from dl_vqa_tpu_torch.utils.checkpoint import restore_state
+
+    model_cfg = ModelConfig.from_cfg(cfg["train"], train_ds.num_tokens)
+    tables = plan_image_tables(cfg, {"train": train_ds, "val": val_ds},
+                               "cuda")
+    require(tables["train"] is not None and tables["val"] is not None,
+            "the cnn_e2e corpus's device tables")
+
+    def first_batch(ds, table, shuffle):
+        batch = next(Batcher(ds, BATCH, shuffle=shuffle, seed=seed,
+                             load_images=False).iter_epoch(0))
+        return {**{k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                "image_table": table}
+
+    train_batch = first_batch(train_ds, tables["train"], True)
+    val_batch = first_batch(val_ds, tables["val"], False)
+
+    def restored():
+        model = VqaNet(model_cfg, generator=torch.Generator().manual_seed(0))
+        return restore_state(create_train_state(model, INITIAL_LR), ckpt)[0]
+
+    out, grads, losses, evals, logits = {}, {}, {}, {}, {}
+    for plain in (False, True):
+        state = restored()
+        _, metrics = make_train_step(model_cfg, plain_ops=plain)(
+            state, train_batch, seed)
+        losses[plain] = float(metrics["loss"])
+        grads[plain] = {n: p.grad for n, p in state.model.named_parameters()
+                        if p.grad is not None}
+        loss, score = make_eval_step(model_cfg, plain_ops=plain)(
+            state.model, val_batch)
+        evals[plain] = (float(loss), float(score))
+        with torch.no_grad():
+            logits[plain] = state.model(
+                val_batch["image_table"].index_select(
+                    0, val_batch["image_rows"]),
+                val_batch["questions"], val_batch["lengths"], train=False,
+                compute_dtype=torch.bfloat16, plain_ops=plain).float()
+    trained = [n for n, p in state.model.named_parameters()
+               if p.requires_grad]
+    require(list(grads[False]) == trained and list(grads[True]) == trained,
+            "every trained tensor has a gradient")
+    worst = ("", 0.0, 1.0)
+    for n, want in grads[True].items():
+        # The glimpse bias has gradient zero (a softmax ignores a shift).
+        if n == "attention.x_conv.bias":
+            continue
+        tol = TOL["grads_bf16_attention" if n.startswith("attention.")
+                  else "grads_bf16"]
+        rel = rel_norm(grads[False][n], want)
+        require(rel <= tol, f"cnn_e2e gradient of {n}: {rel} (tol {tol})")
+        if rel / tol > worst[1] / worst[2]:
+            worst = (n, rel, tol)
+    logit_err = max_err(logits[False], logits[True])
+    top2 = logits[True].topk(2, dim=1).values
+    near = int(((top2[:, 0] - top2[:, 1]) <= 2 * logit_err).sum())
+    (loss_k, score_k), (loss_p, score_p) = evals[False], evals[True]
+    log(f"cnn_e2e kernel vs plain at the loop's shapes (B = {BATCH}, T = "
+        f"{train_ds.max_question_length}, the corpus's lengths, bf16, "
+        f"dropout 0.3): train loss {losses[False]:.6f} vs "
+        f"{losses[True]:.6f} | gradients nearest their limit {worst[0]} at "
+        f"{worst[1]:.3e} of its norm (tol {worst[2]:g}) | eval loss "
+        f"{loss_k:.6f} vs {loss_p:.6f}, score {score_k:.3f} vs {score_p:.3f}"
+        f" (logits max |diff| {logit_err:.3e}, {near} samples within twice "
+        f"that of their runner-up)")
+    for what, k, p in (("train", losses[False], losses[True]),
+                       ("eval", loss_k, loss_p)):
+        require(abs(k - p) <= TOL["loss_bf16"] * abs(p),
+                f"cnn_e2e kernel vs plain {what} loss: {k} vs {p}")
+    require(abs(score_k - score_p) <= near,
+            f"cnn_e2e kernel vs plain eval score: {score_k} vs {score_p}, "
+            f"{near} near ties")
+    out["parity"] = {"train_loss": [losses[False], losses[True]],
+                     "grads_worst": list(worst),
+                     "eval_loss": [loss_k, loss_p],
+                     "eval_score": [score_k, score_p],
+                     "logits_max_abs_err": logit_err, "near_ties": near}
+    del grads, logits
+
+    state = restored()
+    step = make_train_step(model_cfg)
+    step_ms = timed(torch, lambda: step(state, train_batch, seed), iters=5)
+    out["bare_step_ms"] = step_ms
+    out["bare_step_samples_per_s"] = BATCH / step_ms * 1e3
+    log(f"cnn_e2e timing: bare train step {step_ms:.3f} ms = "
+        f"{BATCH / step_ms * 1e3:.1f} samples/s")
+    return out
+
+
+def e2e_timings(torch, compose, batches: int) -> dict:
+    """``dl_vqa_tpu_torch.main.main`` on the corpus with the table on and
+    off (``train.save_model=false``; launches not counted), each under
+    the profiler: epoch 1 of 2 gives the train pass's seconds and
+    samples/s (the loop's throughput scalars, read as the logger reports
+    them) and the device's idle share over that pass
+    (``loop.EPOCH_SPAN``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dl_vqa_tpu_torch.main import main as train_main
+    from dl_vqa_tpu_torch.train.loop import EPOCH_SPAN
+    from dl_vqa_tpu_torch.utils.logger import TrainLogger
+
+    scalars = {}
+    report_scalars = TrainLogger.report_scalars
+
+    def recording(self, values, epoch):
+        for tag, value in values.items():
+            scalars.setdefault(tag, []).append(float(value))
+        report_scalars(self, values, epoch)
+
+    out = {}
+    TrainLogger.report_scalars = recording
+    try:
+        for mode in ("on", "off"):
+            scalars.clear()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as trace:
+                train_main(compose(f"e2e_timing_{mode}", [
+                    "train.save_model=false", "tpu.checkpoint_every_steps=0",
+                    f"tpu.device_image_cache={mode}"]))
+                torch.cuda.synchronize()
+            steps_per_s = scalars["Throughput/StepsPerSec"][1]
+            samples_per_s = scalars["Throughput/QAPairsPerSecPerChip"][1]
+            idle = device_idle_share(torch, trace, EPOCH_SPAN, 1)
+            out[f"table_{mode}"] = {
+                "epoch_s": batches / steps_per_s,
+                "steps_per_s": steps_per_s,
+                "samples_per_s": samples_per_s,
+                "idle_share": idle["idle_share"],
+                "span_s": idle["span_s"],
+                "device_busy_s": idle["device_busy_s"],
+                "device_s_by_kind": idle["device_s_by_kind"]}
+            log(f"cnn_e2e timing, table {mode}: epoch 1 train pass "
+                f"{out[f'table_{mode}']['epoch_s']:.3f} s = "
+                f"{samples_per_s:.1f} samples/s; its span "
+                f"{idle['span_s']:.3f} s, device busy "
+                f"{idle['device_busy_s']:.3f} s, idle "
+                f"{idle['idle_share']:.1%}; device s by kind "
+                + json.dumps(idle["device_s_by_kind"]))
+    finally:
+        TrainLogger.report_scalars = report_scalars
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1895,6 +2332,8 @@ def main(argv=None) -> int:
              "relu_maxpool_backward": 6, "conv_relu_pool_fused": 2}),
         "layout_probe": layout_probe_phase(torch, args.seed),
     }
+    paths["cnn_e2e"], e2e = e2e_phase(torch, args.seed)
+    log(json.dumps({"cnn_e2e": e2e}))
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"
@@ -1931,7 +2370,8 @@ def main(argv=None) -> int:
     # launches: the grids of all paths together, each path counted from 0:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its
-    # eight cases in one launch.
+    # eight cases in one launch, cnn_e2e its three runs of the train loop
+    # and one evaluation (e2e_phase).
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": replaces, **({"mma": mma[name]} if name in mma else {}),

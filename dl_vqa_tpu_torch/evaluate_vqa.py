@@ -1,0 +1,93 @@
+"""Evaluation entry point of the port.
+
+The counterpart of the root ``evaluate_vqa.py``: compose the
+``config_eval`` preset with the overrides, build the vocab if it is
+missing, load or build the val dataset, load the checkpoint (an npz
+checkpoint of either package, or a reference ``model.pth``), run the full
+eval pass with the per-type breakdown, and return the VQA accuracy rounded
+to 3 decimals. On the GPU unless the caller of :func:`evaluate_hw2`
+passes ``device="cpu"``:
+
+    python -m dl_vqa_tpu_torch.evaluate_vqa [overrides...]
+
+As there, the model is built from the config, not from the checkpoint's
+metadata: overrides must describe the trained model (``config_eval`` has
+stride 2 and the '*' fusion). The int8 and f8 image stores are not ported
+(ROADMAP queue 1, item 7), nor are the settings :func:`dl_vqa_tpu_torch.
+main.check_supported` refuses.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+__all__ = ["evaluate_hw2"]
+
+
+def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.data import vocab as vocab_mod
+    from dl_vqa_tpu_torch.data.dataset import load_or_build_val_dataset
+    from dl_vqa_tpu_torch.data.device_cache import plan_image_tables
+    from dl_vqa_tpu_torch.data.pipeline import Batcher
+    from dl_vqa_tpu_torch.main import check_supported, compute_dtype_of
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import make_eval_step
+    from dl_vqa_tpu_torch.train.loop import evaluate
+    from dl_vqa_tpu_torch.utils import misc
+    from dl_vqa_tpu_torch.utils.checkpoint import load_params
+    from dl_vqa_tpu_torch.utils.logger import TrainLogger
+    from dl_vqa_tpu_torch.utils.params import load_jax_params
+
+    device = resolve_device(device)
+    cfg = config_mod.compose("config_eval", overrides=list(overrides))
+    check_supported(cfg)
+    if cfg["train"]["image"]["store_dtype"] != "compute":
+        raise NotImplementedError(
+            f"train.image.store_dtype={cfg['train']['image']['store_dtype']!r}"
+            ": the quantized serving modes are not ported to "
+            "dl_vqa_tpu_torch yet (ROADMAP queue 1, item 7)")
+    compute_dtype = compute_dtype_of(cfg)
+    print(json.dumps(cfg, indent=1))
+    profile = cfg["main"]["full" if cfg["main"]["use_full"] else "small"]
+
+    logger = TrainLogger(
+        exp_name_prefix=cfg["main"]["experiment_name_prefix"],
+        logs_dir=profile["paths"]["logs"])
+    misc.set_seed(cfg["main"]["seed"])
+
+    vocab_path = profile["paths"]["vocab_path"]
+    if not os.path.exists(vocab_path):
+        vocab_mod.create_vocab(
+            data_base_path=profile["paths"]["base_path"],
+            data_paths=profile["train_paths"], vocab_path=vocab_path,
+            max_answers=cfg["train"]["max_answers"])
+    val_dataset = load_or_build_val_dataset(cfg, profile, logger=logger,
+                                            log=logger.write)
+
+    model_cfg = ModelConfig.from_cfg(cfg["train"], val_dataset.num_tokens,
+                                     use_pallas=cfg["tpu"]["use_pallas"])
+    model = load_jax_params(
+        VqaNet(model_cfg, device=device),
+        load_params(profile["paths"]["pretrained_model_path"]))
+    eval_step = make_eval_step(model_cfg, compute_dtype, with_breakdown=True)
+    image_table = plan_image_tables(cfg, {"val": val_dataset}, device,
+                                    log=logger.write)["val"]
+    batcher = Batcher(val_dataset, cfg["train"]["batch_size"],
+                      load_images=image_table is None)
+    score, _, per_type = evaluate(
+        eval_step, model, batcher, cfg["tpu"]["prefetch_depth"],
+        breakdown=True, image_table=image_table)
+    logger.write("Per-type accuracy: "
+                 + ", ".join(f"{k}: {v:.2f}" for k, v in per_type.items()))
+    logger.close()
+    return round(score, 3)
+
+
+if __name__ == "__main__":
+    print(evaluate_hw2(sys.argv[1:]))

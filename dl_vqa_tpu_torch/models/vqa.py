@@ -25,7 +25,8 @@ ViT's names are the port's own and are listed in ``models/vit.py``.
 The JAX package trains one fused LSTM bias per direction; here
 ``bias_ih`` is that trainable bias and ``bias_hh`` is a constant that is
 added to it (zero in imported JAX weights, torch's second draw in a fresh
-init or a reference ``.pth``), so Adam moves the sum as it moves the JAX
+init or a reference ``.pth``; the train loop folds it into ``bias_ih``
+first, ``_Lstm.fold_biases``), so Adam moves the sum as it moves the JAX
 package's ``b``.
 """
 
@@ -72,6 +73,17 @@ class _Lstm(nn.Module):
 
         return {"weight_ih": p("weight_ih"), "weight_hh": p("weight_hh"),
                 "bias": p("bias_ih") + p("bias_hh")}
+
+    @torch.no_grad()
+    def fold_biases(self) -> None:
+        """Move ``bias_hh`` into ``bias_ih``, leaving ``bias_hh`` zero: the
+        same sum (the forward gives the same bits), held as the JAX model
+        and the npz checkpoints hold it, so a run restored from a
+        checkpoint continues from the state it saved."""
+        for s in self.suffixes:
+            hh = getattr(self, f"bias_hh_l0{s}")
+            getattr(self, f"bias_ih_l0{s}").add_(hh)
+            hh.zero_()
 
 
 class _Text(nn.Module):

@@ -8,15 +8,27 @@ LR schedule as there: ``lr * 0.5 ** (updates_done / 50000)``, set before
 every update; Adam with betas (0.9, 0.999) and eps 1e-8, whose update
 ``m_hat / (sqrt(v_hat) + eps)`` is optax's.
 
-Not ported yet: rematerialisation, sharded steps, the pipeline and
-sequence contexts, the MoE auxiliary loss and the device image table.
+Images come in the batch (``images``) or from the device image table
+(``image_table`` gathered at ``image_rows``, ``tpu.device_image_cache``);
+the table is never split into micro-batches. Dropout masks are drawn from
+a generator keyed to ``(seed, updates done)`` and, inside an accumulated
+step, to the micro-batch's index, as the JAX step folds its key
+(``fold_in``): a run resumed from a checkpoint draws the masks the
+uninterrupted run draws (not JAX's masks: the generators differ).
+``remat=True`` recomputes the forward in the backward
+(``torch.utils.checkpoint``; the masks are drawn again from the same key).
+
+Not ported yet: sharded steps, the pipeline and sequence contexts and the
+MoE auxiliary loss.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.ops.vqa_metrics import (
@@ -27,7 +39,7 @@ from dl_vqa_tpu_torch.ops.vqa_metrics import (
 from dl_vqa_tpu_torch.train.state import TrainState
 
 __all__ = ["make_optimizer", "make_train_step", "make_eval_step",
-           "lr_schedule", "LR_HALFLIFE"]
+           "lr_schedule", "dropout_generator", "LR_HALFLIFE"]
 
 LR_HALFLIFE = 50_000.0
 
@@ -51,9 +63,32 @@ def make_optimizer(model: torch.nn.Module, initial_lr: float
                             eps=1e-8)
 
 
+def dropout_generator(seed: int, step: int, device,
+                      micro: Optional[int] = None) -> torch.Generator:
+    """The dropout generator of the update that follows ``step`` updates
+    (and of micro-batch ``micro`` inside it), on ``device``: seeded from
+    ``(seed, step[, micro])`` alone, so any step's masks can be drawn
+    again in isolation."""
+    # SeedSequence ignores trailing zero words: a micro-batch's word is
+    # its index + 1, so no micro-batch shares the whole step's key.
+    words = [int(seed), int(step)] + ([] if micro is None
+                                      else [int(micro) + 1])
+    key = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(key) >> 1)
+
+
 def _to_device(batch: Dict, device: torch.device) -> Dict:
+    """Every array of ``batch`` as a tensor on ``device``; a tensor already
+    there (a prefetched batch, the image table) is passed on as it is."""
     return {key: torch.as_tensor(value).to(device)
             for key, value in batch.items()}
+
+
+def _images(batch: Dict) -> torch.Tensor:
+    images = batch.get("images")
+    if images is None:
+        images = batch["image_table"].index_select(0, batch["image_rows"])
+    return images
 
 
 def _forward_loss(
@@ -62,7 +97,7 @@ def _forward_loss(
     plain_ops: bool, fused_ops: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(loss, score_sum, logits)``: the one forward of both steps."""
-    logits = model(batch["images"], batch["questions"], batch["lengths"],
+    logits = model(_images(batch), batch["questions"], batch["lengths"],
                    train=train, generator=generator,
                    compute_dtype=compute_dtype, plain_ops=plain_ops,
                    fused_ops=fused_ops)
@@ -80,22 +115,26 @@ def make_train_step(
     accum_steps: int = 1,
     plain_ops: bool = False,
     fused_ops: bool = False,
+    remat: bool = False,
 ):
-    """Build ``train_step(state, batch, generator) -> (state, metrics)``.
+    """Build ``train_step(state, batch, rng) -> (state, metrics)``.
 
-    ``batch`` maps ``images``, ``questions``, ``lengths``,
-    ``answer_indices``, ``answer_values`` and optionally ``mask`` to
-    arrays or tensors, which the step moves to the device the model lies
-    on (``create_train_state`` puts it on the GPU unless told otherwise);
-    ``generator`` is the dropout generator, on that device. The step
-    updates ``state`` in place and returns it with ``{"loss", "score"}``
-    as 0-dim tensors on the device.
+    ``batch`` maps ``questions``, ``lengths``, ``answer_indices``,
+    ``answer_values``, optionally ``mask``, and either ``images`` or
+    ``image_table`` with ``image_rows``, to arrays or tensors, which the
+    step moves to the device the model lies on (``create_train_state`` puts
+    it on the GPU unless told otherwise). ``rng`` is the run's dropout seed,
+    an int or a ``torch.Generator`` whose ``initial_seed()`` is taken: the
+    masks of each update come from :func:`dropout_generator` keyed to it and
+    to ``state.step``. The step updates ``state`` in place and returns it
+    with ``{"loss", "score"}`` as 0-dim tensors on the device.
 
     ``accum_steps > 1`` splits the batch into that many micro-batches and
     accumulates their gradients before one update: activation memory is
     a micro-batch's, the update sees the whole batch's gradient, equal to
     the unaccumulated step up to the order of sums. The batch size must
     divide evenly; every micro-batch draws its own dropout masks.
+    ``remat=True`` recomputes each forward in its backward.
     ``plain_ops=True`` runs the kernels' plain versions (the oracle);
     ``fused_ops=True`` flips the image encoder to its fused ops (see
     :meth:`VqaNet.forward`; the forward-only ones stay off while gradients
@@ -105,20 +144,34 @@ def make_train_step(
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
 
+    def loss_of(model, batch, seed, step, micro):
+        def run():
+            generator = dropout_generator(
+                seed, step, batch["questions"].device, micro)
+            return _forward_loss(model, batch, True, generator,
+                                 compute_dtype, plain_ops, fused_ops)[:2]
+
+        if remat:
+            return checkpoint(run, use_reentrant=False)
+        return run()
+
     def train_step(state: TrainState, batch: Dict,
-                   generator: torch.Generator):
+                   rng: Union[int, torch.Generator]):
+        seed = (rng.initial_seed() if isinstance(rng, torch.Generator)
+                else int(rng))
         device = next(state.model.parameters()).device
         batch = _to_device(batch, device)
         model, optimizer = state.model, state.optimizer
         optimizer.zero_grad(set_to_none=True)
 
         if accum_steps == 1:
-            loss, score, _ = _forward_loss(model, batch, True, generator,
-                                           compute_dtype, plain_ops,
-                                           fused_ops)
+            loss, score = loss_of(model, batch, seed, state.step, None)
             loss.backward()
             loss = loss.detach()
         else:
+            # The image table is indexed by rows, not by the batch: it is
+            # not split.
+            table = batch.pop("image_table", None)
             batch_size = batch["questions"].shape[0]
             if batch_size % accum_steps != 0:
                 raise ValueError(
@@ -131,9 +184,10 @@ def make_train_step(
             for idx in range(accum_steps):
                 rows = slice(idx * micro_size, (idx + 1) * micro_size)
                 micro = {key: value[rows] for key, value in batch.items()}
-                micro_loss, micro_score, _ = _forward_loss(
-                    model, micro, True, generator, compute_dtype, plain_ops,
-                    fused_ops)
+                if table is not None:
+                    micro["image_table"] = table
+                micro_loss, micro_score = loss_of(model, micro, seed,
+                                                  state.step, idx)
                 # A micro's loss is normalised by ITS real count (clamped
                 # to 1 when all of it is padding). Averaging those would
                 # misweight a padded final batch whose real samples fall
@@ -174,7 +228,8 @@ def make_eval_step(
     fused_ops: bool = False,
 ):
     """Build ``eval_step(model, batch) -> (loss, score_sum)``, 0-dim
-    tensors on the model's device, to which the step moves the batch.
+    tensors on the model's device, to which the step moves the batch
+    (images in it, or the image table and rows, as the train step).
     ``with_breakdown=True`` also returns the per-answer-type (yes/no,
     number, other) score sums and counts, each ``[3]``, from
     ``batch["answer_types"]``."""

@@ -14,9 +14,13 @@ import pytest
 import jax
 import torch
 
+from dl_vqa_tpu.config import core as jax_config_core
+from dl_vqa_tpu.config import schema as jax_schema
 from dl_vqa_tpu.data import dataset as jax_dataset
 from dl_vqa_tpu.data import images as jax_images
+from dl_vqa_tpu.data import synthetic as jax_synthetic
 from dl_vqa_tpu.data import text as jax_text
+from dl_vqa_tpu.data import vocab as jax_vocab
 from dl_vqa_tpu.models import vqa
 from dl_vqa_tpu.models.configs import (
     AttentionConfig,
@@ -26,11 +30,17 @@ from dl_vqa_tpu.models.configs import (
     TextConfig,
 )
 from dl_vqa_tpu.utils import torch_export
+from dl_vqa_tpu.utils import torch_import as jax_torch_import
+from dl_vqa_tpu_torch.config import core as port_config_core
+from dl_vqa_tpu_torch.config import schema as port_schema
 from dl_vqa_tpu_torch.data import images as port_images
+from dl_vqa_tpu_torch.data import synthetic as port_synthetic
 from dl_vqa_tpu_torch.data import text as port_text
+from dl_vqa_tpu_torch.data import vocab as port_vocab
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.vqa import VqaNet
 from dl_vqa_tpu_torch.utils import params as port_params
+from dl_vqa_tpu_torch.utils import torch_import as port_torch_import
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -161,3 +171,176 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert pattern.search("import jax.numpy as jnp\n")
     assert pattern.search("from experiments import probe_vit_mlp_fused\n")
     assert not pattern.search("from dl_vqa_tpu_torch.ops import lstm\n")
+
+
+# -- copies of the data plane, the config and the checkpoint import --------
+
+# Override values as users write them, and YAML 1.1's corners: ints in
+# every base, floats with and without a mantissa dot, booleans, nulls,
+# quoted strings, flow lists, and text YAML refuses (kept as written).
+OVERRIDE_VALUES = [
+    "0", "-1", "+1", "42", "1_000", "0x1F", "017", "08", "0b101", "1:30",
+    "0o17", "5e-4", "5.0e-4", "-5e-4", "1e3", "2e5", ".5", "1.", "3.0",
+    "0.875", "+12.5e+3", "1.5e3", "1e-5.5", "-.inf", ".nan", "inf", "NaN",
+    "on", "Off", "yes", "NO", "True", "false", "TRUE", "tRue", "y", "n",
+    "null", "~", "Null", "none", "None", "", '""', "''", "'a b'", "'it''s'",
+    '"x\\ty"', '"a\\"b"', '"2e5"', "[3, 8]", "[a, 1, 2.5, [1,2]]", "[]",
+    "[ ]", "[1,]", "[5e-4, on, null, \"q\", 'r']", "a b", "./x.npz",
+    "/a/b", "a,b", "a.b.c", "tpu.x", "-x", "x-", "=", "a=b", "*", "+", "|",
+    "|-", ">", "%x", "@x", "`x", " 5e-4", "  7  ", "12:30:45", "bfloat16",
+]
+
+
+@pytest.mark.parametrize("raw", OVERRIDE_VALUES)
+def test_override_values_parse_as_the_yaml_parser_reads_them(raw):
+    got, expected = port_config_core._parse_value(raw), \
+        jax_config_core._parse_value(raw)
+    assert type(got) is type(expected)
+    if isinstance(expected, float) and np.isnan(expected):
+        assert np.isnan(got)
+    else:
+        assert got == expected
+
+
+@pytest.mark.parametrize("raw", ["-", "- a", "{a: 1}", "a: b", "x #c",
+                                 "!!str", "&a", "#x", "?x", "2024-01-01"])
+def test_yaml_the_port_does_not_read_raises(raw):
+    """Mappings, comments, block sequences, tags, anchors and timestamps
+    raise instead of being read another way than PyYAML reads them."""
+    with pytest.raises(ValueError, match="override value"):
+        port_config_core._parse_value(raw)
+
+
+@pytest.mark.parametrize("overrides", [
+    ["train.image.stride=2", "++tpu.remat=on", "+main.extra=1"],
+    ["~tpu.profile_dir", "train.image.num_channels=[3, 8]"],
+    ["~tpu.remat=false", "train.lr.lr_value=5e-4"],
+])
+def test_apply_overrides_and_flatten_copies(overrides):
+    from dl_vqa_tpu_torch.config.presets import preset
+
+    base = preset("config")
+    got = port_config_core.apply_overrides(base, overrides)
+    assert got == jax_config_core.apply_overrides(base, overrides)
+    assert port_config_core.flatten(got["train"]) == \
+        jax_config_core.flatten(got["train"])
+    for bad in (["+train.batch_size=3"], ["+++x=1"], ["~nope"], ["nokey"],
+                ["~tpu.remat=true"]):
+        with pytest.raises(ValueError):
+            jax_config_core.apply_overrides(base, bad)
+        with pytest.raises(ValueError):
+            port_config_core.apply_overrides(base, bad)
+
+
+def test_schema_copy_matches_the_original():
+    assert port_schema.CFG_SCHEMA == jax_schema.CFG_SCHEMA
+    cfg = jax_config_core.compose("config")
+    port_schema.validate(cfg)
+    for mutate in (lambda c: c["train"].pop("lr"),
+                   lambda c: c["tpu"].update(extra=1),
+                   lambda c: c["train"].update(batch_size="64"),
+                   lambda c: c["train"].update(num_epochs=True),
+                   lambda c: c["tpu"].update(device_image_cache=3)):
+        bad = jax_config_core.compose("config")
+        mutate(bad)
+        with pytest.raises(jax_schema.SchemaError) as jax_err:
+            jax_schema.validate(bad)
+        with pytest.raises(port_schema.SchemaError) as port_err:
+            port_schema.validate(bad)
+        assert str(port_err.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("learnable", [False, True, "hard"])
+def test_split_generator_copy_matches_the_original(learnable):
+    for n_q, n_img, seed in ((40, 7, 3), (9, 2, 0)):
+        kw = dict(seed=seed, attr_seed=seed + 1, learnable=learnable,
+                  data_subtype="val2014")
+        assert port_synthetic.generate_vqa_split(n_q, n_img, **kw) == \
+            jax_synthetic.generate_vqa_split(n_q, n_img, **kw)
+
+
+ANSWERS = ["Two", "two dogs", "the cat.", "yes!", "1,000", "a-b", "don't",
+           "isnt it", "3.5", "mr. T", "(red)", "10", "none", "an apple"]
+
+
+def test_answer_normalization_and_vocab_copies_match():
+    for a in ANSWERS:
+        assert port_text.normalize_answer(a) == \
+            jax_text.normalize_answer(a), a
+    questions = {"questions": [{"question": q} for q in AWKWARD]}
+    answers = {"annotations": [{"answers": [{"answer": a} for a in ANSWERS]},
+                               {"answers": [{"answer": "two"}] * 10}]}
+    assert list(port_text.prepare_questions(questions)) == \
+        list(jax_text.prepare_questions(questions))
+    assert list(port_text.prepare_answers(answers)) == \
+        list(jax_text.prepare_answers(answers))
+    for tables in ("CONTRACTIONS", "NUMBER_WORDS", "ARTICLES", "PUNCT_CHARS"):
+        assert getattr(port_text, tables) == getattr(jax_text, tables)
+    tokens = list(port_text.prepare_answers(answers))
+    for kw in ({}, {"top_k": 3, "start": 1}, {"top_k": 50}):
+        assert port_vocab.build_vocab(tokens, **kw) == \
+            jax_vocab.build_vocab(tokens, **kw)
+    vocab = port_vocab.build_vocab(tokens, start=1)
+    for row in tokens:
+        got = port_text.encode_answers(row, vocab)
+        expected = jax_dataset.encode_answers(row, vocab)
+        for g, e in zip(got, expected):
+            np.testing.assert_array_equal(g, e)
+    assert port_text.encode_answers(["nope"], vocab)[2] == 0
+
+
+def test_normalize_uint8_chw_copy_matches():
+    u8 = np.random.default_rng(0).integers(0, 256, (3, 5, 7, 3),
+                                           dtype=np.uint8)
+    got = port_images.normalize_uint8_chw(u8)
+    expected = jax_images.normalize_uint8_chw(u8)
+    assert got.dtype == expected.dtype
+    np.testing.assert_array_equal(got, expected)
+
+
+def _reference_state(bidirectional=True):
+    """A state dict under the reference's names, from the JAX exporter."""
+    params = jax.tree_util.tree_map(
+        np.asarray, vqa.init(jax.random.PRNGKey(4), _jax_cfg(bidirectional)))
+    state = {k: torch.from_numpy(np.array(v))
+             for k, v in torch_export.torch_state_from_params(params).items()}
+    state["text.lstm.bias_hh_l0"] += 0.5  # two biases that sum
+    return state
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_torch_import_copy_matches_the_original(tmp_path, bidirectional):
+    state = _reference_state(bidirectional)
+    got = port_torch_import.params_from_torch_state(state)
+    expected = jax_torch_import.params_from_torch_state(state)
+    flat, tree = jax.tree_util.tree_flatten(expected)
+    flat_got, tree_got = jax.tree_util.tree_flatten(got)
+    assert tree == tree_got
+    for a, b in zip(flat_got, flat):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for blob in ({"epoch": 3, "model_state": state, "optimizer_state": {},
+                  "note": "x"}, state):
+        path = str(tmp_path / "model.pth")
+        torch.save(blob, path)
+        got_state, got_meta = port_torch_import.load_torch_blob(path)
+        want_state, want_meta = jax_torch_import.load_torch_blob(path)
+        assert got_meta == want_meta and list(got_state) == list(want_state)
+
+
+@pytest.mark.parametrize("shuffle,seed", [(True, 0), (True, 7), (False, 3)])
+def test_epoch_order_copy_matches_the_original(shuffle, seed):
+    from dl_vqa_tpu.data.pipeline import Batcher as JaxBatcher
+    from dl_vqa_tpu_torch.data.pipeline import Batcher
+
+    class Data:
+        questions = np.zeros((37, 2), np.int32)
+
+        def __len__(self):
+            return 37
+
+    for epoch in (0, 1, 5):
+        np.testing.assert_array_equal(
+            Batcher(Data(), 8, shuffle=shuffle, seed=seed).epoch_order(epoch),
+            JaxBatcher(Data(), 8, shuffle=shuffle, seed=seed).epoch_order(
+                epoch))

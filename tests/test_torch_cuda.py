@@ -1556,3 +1556,114 @@ def test_layout_cases_refuse_what_the_kernel_does_not_take(device, call):
     with pytest.raises(ValueError):
         call(device)
     assert layout_cases_cuda.launches == before
+
+
+# -- the data plane on the card: prefetch, the image table, async saves ----
+
+
+@pytest.fixture
+def card_corpus(device, tmp_path):
+    """A numpy corpus of 200 questions over 24 images of 32 px, its
+    datasets, and a tiny model config over it."""
+    from dl_vqa_tpu_torch.data.dataset import VQADataset
+    from dl_vqa_tpu_torch.data.synthetic import make_synthetic_corpus
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+
+    prof = make_synthetic_corpus(str(tmp_path / "corpus"), n_train=200,
+                                 n_val=40, n_images=24, image_size=32,
+                                 max_answers=12, learnable=True)
+    train = VQADataset(prof["train_paths"], prof["paths"],
+                       answerable_only=True)
+    cfg = ModelConfig.from_meta_dict({
+        "text": {"question_features": 32, "embedding_features": 16},
+        "image": {"num_channels": [3, 16, 32]},
+        "attention": {"hidden_dim": 24},
+        "classifier": {"hidden_dim": 20},
+        "max_answers": 12, "image_size": 32,
+        "num_tokens": train.num_tokens})
+    return train, cfg
+
+
+def test_prefetch_delivers_the_synchronous_copies_while_steps_run(
+        device, card_corpus):
+    """50 batches through pinned memory and the side stream, each used by
+    a train step as it arrives (so copies overlap the steps), are equal to
+    the bit to the same batches copied synchronously."""
+    from dl_vqa_tpu_torch.data.pipeline import Batcher, prefetch_to_device
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import create_train_state, make_train_step
+
+    train, cfg = card_corpus
+    batcher = Batcher(train, 16, shuffle=True, seed=3)
+    host = [b for epoch in range(5) for b in batcher.iter_epoch(epoch)][:50]
+    state = create_train_state(VqaNet(cfg, device=device), 1e-3)
+    step = make_train_step(cfg)
+    seen = []
+    for batch in prefetch_to_device(iter(host), device, depth=3):
+        state, _ = step(state, batch, 0)
+        # Kept on the device until the end: a reused buffer would show.
+        seen.append({k: v.clone() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert len(seen) == 50 and state.step == 50
+    for got, want in zip(seen, host):
+        for key, value in want.items():
+            assert got[key].device.type == "cuda"
+            assert torch.equal(got[key].cpu(), torch.as_tensor(value)), key
+
+
+def test_the_table_gather_equals_the_batch_images_on_the_card(device,
+                                                              card_corpus):
+    from dl_vqa_tpu_torch.data.device_cache import plan_image_tables
+    from dl_vqa_tpu_torch.data.pipeline import Batcher
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import make_eval_step
+    from dl_vqa_tpu_torch.train.steps import _images
+
+    train, cfg = card_corpus
+    table = plan_image_tables(
+        {"tpu": {"device_image_cache": "on"}}, {"train": train},
+        device)["train"]
+    assert table.device.type == "cuda" and table.dtype == torch.float16
+    model = VqaNet(cfg, device=device)
+    eval_step = make_eval_step(cfg)
+    for rows, images in zip(
+            Batcher(train, 16, load_images=False).iter_epoch(0),
+            Batcher(train, 16).iter_epoch(0)):
+        gathered = _images({"image_table": table, "image_rows":
+                            torch.as_tensor(rows["image_rows"]).to(device)})
+        assert torch.equal(gathered.cpu(),
+                           torch.from_numpy(images["images"]))
+        a = eval_step(model, dict(rows, image_table=table))
+        b = eval_step(model, images)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_an_async_save_mid_run_equals_a_synchronous_save(device,
+                                                         card_corpus,
+                                                         tmp_path):
+    """The steps that follow the async save's call update the parameters
+    and moments in place on the card while the file is written."""
+    import numpy as np
+
+    from dl_vqa_tpu_torch.data.pipeline import Batcher
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import create_train_state, make_train_step
+    from dl_vqa_tpu_torch.utils import checkpoint as ckpt
+
+    train, cfg = card_corpus
+    state = create_train_state(VqaNet(cfg, device=device), 1e-3)
+    step = make_train_step(cfg)
+    batches = list(Batcher(train, 16, shuffle=True, seed=1).iter_epoch(0))
+    for batch in batches[:3]:
+        state, _ = step(state, batch, 0)
+    ckpt.save_checkpoint(str(tmp_path / "sync.ckpt"), state, epoch=0)
+    ckpt.save_checkpoint_async(str(tmp_path / "async.ckpt"), state, epoch=0)
+    for batch in batches[3:]:
+        state, _ = step(state, batch, 0)
+    ckpt.wait_for_async_saves()
+    with np.load(tmp_path / "sync.ckpt") as a, \
+            np.load(tmp_path / "async.ckpt") as b:
+        assert a.files == b.files
+        for key in a.files:
+            np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+        assert int(b["step"]) == 3 and state.step == len(batches)

@@ -1,0 +1,127 @@
+"""The port's entry points, ``dl_vqa_tpu_torch.main`` and
+``dl_vqa_tpu_torch.evaluate_vqa``, on the CPU with ``device="cpu"``: a
+training run on the JAX package's synthetic corpus (h5 stores) at tiny
+widths in f32, its best checkpoint scored by the port's evaluation and by
+the JAX package's ``evaluate_vqa.evaluate_hw2``, the settings the port
+refuses, and the card the entry points ask for by default."""
+
+import glob
+import os
+import sys
+
+import pytest
+import torch
+
+from dl_vqa_tpu.data import synthetic as jax_synthetic
+from dl_vqa_tpu_torch import config as port_config
+from dl_vqa_tpu_torch import evaluate_vqa as port_eval
+from dl_vqa_tpu_torch import main as port_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+IMAGE = 24
+
+
+def _overrides(profile, tmp_path):
+    return [
+        "main.use_full=false",
+        f"main.small.paths.base_path={profile['paths']['base_path']}",
+        f"main.small.paths.vocab_path={tmp_path}/vocab.json",
+        f"main.small.paths.logs={tmp_path}/logs/",
+        "main.small.train_paths.questions=train_questions.json",
+        "main.small.train_paths.answers=train_annotations.json",
+        "main.small.val_paths.questions=val_questions.json",
+        "main.small.val_paths.answers=val_annotations.json",
+        f"main.small.train_paths.processed_imgs="
+        f"{profile['train_paths']['processed_imgs']}",
+        f"main.small.val_paths.processed_imgs="
+        f"{profile['val_paths']['processed_imgs']}",
+        f"main.small.train_paths.vqaDataset={tmp_path}/ds_train.npz",
+        f"main.small.val_paths.vqaDataset={tmp_path}/ds_val.npz",
+        "train.num_epochs=2", "train.batch_size=16", "train.max_answers=12",
+        f"train.image_size={IMAGE}", "train.text.question_features=16",
+        "train.text.embedding_features=8",
+        "train.image.num_channels=[3, 4, 6]", "train.attention.hidden_dim=12",
+        "train.classifier.hidden_dim=16", "tpu.compute_dtype=float32",
+    ]
+
+
+@pytest.fixture(scope="module")
+def profile(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("corpus"))
+    return jax_synthetic.make_synthetic_corpus(
+        root, n_train=40, n_val=24, n_images=6, image_size=IMAGE,
+        max_answers=12, learnable=True)
+
+
+def test_main_and_evaluate_give_the_jax_evaluation_score(profile, tmp_path):
+    """The port trains 2 epochs (the vocab built on the way, the table on,
+    a mid-epoch save), writes ``model.ckpt`` and ``last.ckpt``; the port's
+    evaluation of ``model.ckpt`` (the model of ``config``: stride 1, '+')
+    returns the loop's best score, and the JAX package's ``evaluate_hw2``
+    on the same checkpoint returns the same rounded score (f32 logits that
+    agree to 1e-5; no sample of this corpus sits that close to a tie)."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import evaluate_vqa as jax_eval
+
+    overrides = _overrides(profile, tmp_path)
+    best = port_main.main(port_config.compose(
+        "config", overrides + ["tpu.device_image_cache=on",
+                               "tpu.checkpoint_every_steps=1"]),
+        device="cpu")
+    assert 0.0 <= best <= 100.0
+    exp_dirs = glob.glob(str(tmp_path / "logs" / "final_model_*"))
+    assert len(exp_dirs) == 1
+    names = sorted(os.listdir(exp_dirs[0]))
+    assert "model.ckpt" in names and "last.ckpt" in names
+    assert os.path.exists(tmp_path / "vocab.json")
+    eval_overrides = overrides + [
+        f"main.small.paths.pretrained_model_path={exp_dirs[0]}/model.ckpt",
+        "train.image.stride=1", "train.attention.do_option=+"]
+    score = port_eval.evaluate_hw2(eval_overrides, device="cpu")
+    assert score == round(best, 3)
+    assert port_eval.evaluate_hw2(
+        eval_overrides + ["tpu.device_image_cache=off"], device="cpu") == score
+    assert jax_eval.evaluate_hw2(eval_overrides) == score
+
+
+@pytest.mark.parametrize("override,what", [
+    ("tpu.online_images=true", "online JPEG pipeline"),
+    ("tpu.native_loader=true", "online JPEG pipeline"),
+    ("tpu.checkpoint_backend=orbax", "Orbax"),
+    ("tpu.mesh.model=2", "item 9"),
+    ("tpu.mesh.data=4", "item 9"),
+    ("tpu.zero_stage=1", "item 9"),
+    ("tpu.debug_nans=true", "item 3"),
+    ("tpu.profile_dir=/tmp/trace", "profile traces"),
+    ("train.image.store_dtype=int8", "item 7"),
+])
+def test_settings_the_port_lacks_raise_with_their_roadmap_item(
+        profile, tmp_path, override, what):
+    overrides = _overrides(profile, tmp_path) + [override]
+    with pytest.raises(NotImplementedError, match=what):
+        if override.startswith("train.image"):
+            port_eval.evaluate_hw2(overrides, device="cpu")
+        else:
+            port_main.main(port_config.compose("config", overrides),
+                           device="cpu")
+
+
+def test_sweeps_and_a_missing_store_are_refused(profile, tmp_path):
+    with pytest.raises(SystemExit, match="item 8"):
+        port_main._cli(["-m", "train.image.stride=1,2"])
+    overrides = _overrides(profile, tmp_path) + [
+        f"main.small.val_paths.processed_imgs={tmp_path}/missing.h5"]
+    with pytest.raises(FileNotFoundError, match="preprocess_images"):
+        port_main.main(port_config.compose("config", overrides), device="cpu")
+
+
+def test_the_entry_points_ask_for_the_card_by_default(profile, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = port_config.compose("config", _overrides(profile, tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_main.main(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_eval.evaluate_hw2(_overrides(profile, tmp_path))
+    assert not os.path.exists(tmp_path / "logs")  # nothing ran

@@ -142,20 +142,29 @@ def test_predictor_defaults_to_the_gpu(tmp_path):
                                   str(tmp_path / "none.json"))
 
 
-def test_port_imports_no_jax_yaml_pil_or_h5py():
+def test_port_imports_no_jax_yaml_pil_or_h5py(tmp_path):
     """After importing every port module, answering one request (also
     with ``fused_ops=True``) and taking one CPU train step with the CNN
-    model and with the ViT model in a fresh interpreter, none of JAX, the
-    JAX package (``dl_vqa_tpu`` or any ``dl_vqa_tpu.*``), the
-    ``experiments`` scripts, PyYAML, PIL or h5py is loaded."""
+    model and with the ViT model, then making an ``.npy`` corpus and
+    running the port's ``main`` on it (2 epochs, the image table, a
+    mid-epoch save) and ``evaluate_vqa`` on its checkpoint, all on the CPU
+    in a fresh interpreter, none of JAX, the JAX package (``dl_vqa_tpu`` or
+    any ``dl_vqa_tpu.*``), the ``experiments`` scripts, PyYAML, PIL or
+    h5py is loaded."""
     code = (
-        "import importlib, pkgutil, sys, numpy as np, torch\n"
+        "import glob, importlib, pkgutil, sys, numpy as np, torch\n"
         "import dl_vqa_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "dl_vqa_tpu_torch.__path__, 'dl_vqa_tpu_torch.')]\n"
-        "assert len(names) > 15, names\n"
+        "assert len(names) > 30, names\n"
         "assert {'dl_vqa_tpu_torch.ops.vit_mlp_fused',"
-        " 'dl_vqa_tpu_torch.ops.layout_cases'} <= set(names), names\n"
+        " 'dl_vqa_tpu_torch.ops.layout_cases', 'dl_vqa_tpu_torch.main',"
+        " 'dl_vqa_tpu_torch.evaluate_vqa', 'dl_vqa_tpu_torch.train.loop',"
+        " 'dl_vqa_tpu_torch.data.dataset', 'dl_vqa_tpu_torch.data.pipeline',"
+        " 'dl_vqa_tpu_torch.data.device_cache',"
+        " 'dl_vqa_tpu_torch.data.synthetic', 'dl_vqa_tpu_torch.config.core',"
+        " 'dl_vqa_tpu_torch.utils.logger',"
+        " 'dl_vqa_tpu_torch.utils.torch_import'} <= set(names), names\n"
         "for name in names: importlib.import_module(name)\n"
         "from dl_vqa_tpu_torch.models.configs import ModelConfig\n"
         "from dl_vqa_tpu_torch.models.vqa import VqaNet\n"
@@ -185,13 +194,36 @@ def test_port_imports_no_jax_yaml_pil_or_h5py():
         "  state, metrics = step(state, batch,"
         " torch.Generator().manual_seed(0))\n"
         "  assert state.step == 1 and bool(torch.isfinite(metrics['loss']))\n"
+        "from dl_vqa_tpu_torch import config\n"
+        "from dl_vqa_tpu_torch.data.synthetic import make_synthetic_corpus\n"
+        "from dl_vqa_tpu_torch.evaluate_vqa import evaluate_hw2\n"
+        "from dl_vqa_tpu_torch.main import main\n"
+        "root = sys.argv[1]\n"
+        "prof = make_synthetic_corpus(root, n_train=24, n_val=8, n_images=4,"
+        " image_size=20, max_answers=6, learnable=True)\n"
+        "ov = ['main.use_full=false']\n"
+        "for group, paths in prof.items():\n"
+        "  ov += [f'main.small.{group}.{k}={v}' for k, v in paths.items()]\n"
+        "ov += ['train.num_epochs=2', 'train.batch_size=8',"
+        " 'train.max_answers=6', 'train.image_size=20',"
+        " 'train.text.question_features=8', 'train.text.embedding_features=4',"
+        " 'train.image.num_channels=[3, 4]', 'train.attention.hidden_dim=6',"
+        " 'train.classifier.hidden_dim=5', 'tpu.compute_dtype=float32',"
+        " 'tpu.device_image_cache=on', 'tpu.checkpoint_every_steps=2']\n"
+        "best = main(config.compose('config', ov), device='cpu')\n"
+        "ckpt, = glob.glob(root + '/logs/final_model_*/model.ckpt')\n"
+        "score = evaluate_hw2(ov + [f'main.small.paths.pretrained_model_path="
+        "{ckpt}', 'train.image.stride=1', 'train.attention.do_option=+'],"
+        " device='cpu')\n"
+        "assert score == round(best, 3), (score, best)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'yaml', 'PIL', 'h5py',"
         " 'dl_vqa_tpu', 'experiments')"
         " or m.startswith(('jax.', 'dl_vqa_tpu.', 'experiments.'))]\n"
         "assert not bad, bad\n"
     )
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 
