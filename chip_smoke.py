@@ -5,7 +5,7 @@
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's CUDA kernels from dl_vqa_tpu_torch/csrc;
-3. kernels: each of the twelve kernels against its plain PyTorch version on
+3. kernels: each of the fifteen kernels against its plain PyTorch version on
    the card, at the serving and training paths' shapes, in bf16 and f32,
    then timed in turns (plain, kernel, kernel, plain) with CUDA events;
    beside each time, the least time the card could take for the same work
@@ -62,14 +62,27 @@
    the bare train step's time; and ``main`` again with the table on and
    off under ``torch.profiler``, for the epoch's seconds and samples/s
    through the loop and the device's idle share over the epoch: one JSON
-   line ``{"cnn_e2e": ...}``.
+   line ``{"cnn_e2e": ...}``;
+10. the quantized serving modes (before phase 9, their evaluations after
+   it): kernel 2's e4m3 and int8 modes and kernel D (the W8A8 conv block)
+   join phase 3, with tolerance 0 in bits and codes (NaN positions
+   included, and the e4m3 overflow edge at 464); a Predictor serves the
+   requests in each mode (the CNN with the f8 store, the CNN's int8 stem
+   and the ViT's int8 products, both calibrated by
+   ``Predictor.calibrate_int8``), its logits held to the plain path's, the
+   batch-512 forward and the forward at B = 1, 8 and 64 timed in turns
+   with the compute mode; one f8 train step, its gradients held to the
+   plain path's at batch 8; and ``evaluate_vqa`` in f8 and int8
+   (calibrated on the train store) on phase 9's best checkpoint: one JSON
+   line ``{"quant": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
-the layout probe, and cnn_e2e) is driven with the kernels' launch counts set to 0
-just before it and read just after; on every path kernels C and B run
-their vector kernels and kernel 7 its tensor-core kernel
-(``FAST_PATHS``). Then
+the layout probe, the three quantized serving paths and the f8 train step,
+cnn_e2e, and its quantized evaluations) is driven with the kernels'
+launch counts set to 0 just before it and read just after; on every path
+kernels C and B run their vector kernels and kernel 7 its tensor-core
+kernel (``FAST_PATHS``). Then
 one JSON line with every kernel's launches (grids launched in those runs;
 the LSTM recurrence one a call in bf16, the LSTM backward one per
 timestep, the pool backward two per call),
@@ -196,6 +209,28 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    (5e-4) and scores the same weights with the same eval step and batches
 #    as the loop did; one sample answered otherwise moves the score by at
 #    least 0.3 / 1024 * 100 = 0.029.
+#  relu_maxpool_e4m3, relu_maxpool_int8: 0, in bits (NaN at the same
+#    places) and in codes: kernel 2 takes the max first and applies the
+#    bias, ReLU and the cast to e4m3 (one rounding, NaN above 464) or the
+#    scale, rint and clip after it; all are non-decreasing, so the bits are
+#    the plain version's, which applies them first.
+#  conv_relu_pool_int8: 0 in codes: kernel D's s32 sums are exact, as the
+#    plain version's float64 ones, and its epilogue is one fused
+#    multiply-add (__fmaf_rn), as the plain version's float64 emulation.
+#  logits of the quantized serving paths, kernel path against plain path:
+#    the e4m3 bits and int8 codes are equal on both paths, so as the other
+#    logits (logits_bf16, logits_f32); the ViT's int8 sites quantize values
+#    that kernel 4's bf16 roundings may move by a step, which moves a code
+#    by at most one: logits_bf16 still. In f32 kernel 4 sums in another
+#    order than the plain attention, and an input a last place away from
+#    a code's rounding edge flips that code, which moves its product by
+#    one code step (1/127 of the site's amax times a weight): the logits
+#    by about 1e-5 (H100: 1.3e-5), so logits_f32_int8_vit is 1e-4.
+#  quant_eval_pp: evaluate_vqa in f8 and int8 on cnn_e2e's best checkpoint
+#    within 3 percentage points of the loop's best (compute) score: the
+#    modes move a few answers of 1,024 questions (each answer 0.1 pp or
+#    less), and a broken mode answers at chance (the JAX package's deltas
+#    were -0.018 and +0.007 pp on its hard task).
 TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "vit_mlp_bf16_floor": 2.0 ** -8,
        "layout_cases": 0.0, "fused_grads_f32": 1e-5, "fused_grads_bf16": 1e-3,
@@ -211,11 +246,15 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "pool_backward_db": 1e-5, "grads_f32": 2e-4, "grads_bf16": 1e-2,
        "grads_bf16_attention": 1e-1,
        "loss_f32": 1e-5, "loss_bf16": 5e-4,
-       "e2e_resume": 0.0, "e2e_eval_score": 1e-3}
+       "e2e_resume": 0.0, "e2e_eval_score": 1e-3,
+       "relu_maxpool_e4m3": 0.0, "relu_maxpool_int8": 0.0,
+       "conv_relu_pool_int8": 0.0, "quant_eval_pp": 3.0,
+       "logits_f32_int8_vit": 1e-4}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
-# dense bf16 tensor-core rate, f32 rate outside the tensor cores.
+# dense bf16 tensor-core rate, f32 rate outside the tensor cores, dense
+# int8 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 GRADS_BF16_RATIO = 1.5
 VIT_DIFFER = 0.02
 FUSED_DIFFER = 0.02
@@ -1117,6 +1156,155 @@ def fused_kernels(torch, gen, device, summary) -> None:
         **bound(nbytes(*xs, *outs), 0.0, "f32")}
 
 
+def same_bits(torch, got, want) -> float:
+    """0 where ``got`` and ``want`` are equal with NaN at the same places,
+    else the largest difference (inf for a NaN out of place)."""
+    got, want = got.float(), want.float()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return float("inf")
+    keep = ~torch.isnan(want)
+    return max_err(got[keep], want[keep]) if keep.any() else 0.0
+
+
+def quant_kernels(torch, gen, device, summary) -> None:
+    """The quantized serving modes' kernels at the model's shapes: kernel
+    2's e4m3 mode at the three conv outputs (the f8 store; values above 464
+    among them, and one window a value around that edge), its int8 mode at
+    conv0's output (the int8 stem's first block; the others too, for the
+    bits), and kernel D at conv1 and conv2, each against its plain version
+    with tolerance 0; kernel D beside the bf16 block it replaces
+    (``conv_nhwc`` then kernel 2) at the same shapes."""
+    from dl_vqa_tpu_torch.ops.conv_fused import (
+        conv_nhwc, relu_maxpool_cuda, relu_maxpool_e4m3_cuda,
+        relu_maxpool_e4m3_reference)
+    from dl_vqa_tpu_torch.ops.conv_int8 import (
+        conv_relu_pool_w8a8_cuda, conv_relu_pool_w8a8_reference,
+        pack_int8_weight, quantize_relu_pool_cuda,
+        quantize_relu_pool_reference, quantize_weights_per_channel)
+
+    # The e4m3 edge: one window a value, 464 -> 448, above it NaN.
+    edge = torch.tensor([464.0, 464.01, 465.0, 448.0, 1e5, 300.0, -3.0,
+                         2.0 ** -10], device=device)
+    y = edge[None, None, :, None].repeat_interleave(2, 2).repeat(1, 2, 1, 1)
+    b = torch.zeros(1, device=device)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = relu_maxpool_e4m3_cuda(y.to(dtype).contiguous(), b)
+        want = relu_maxpool_e4m3_reference(y.to(dtype), b)
+        err = same_bits(torch, got, want)
+        log(f"kernel relu_maxpool_e4m3 {str(dtype)[6:]} edge cases "
+            f"{edge.tolist()} -> {got.flatten().float().tolist()}: error "
+            f"{err:g} (tol {TOL['relu_maxpool_e4m3']:g})")
+        # In bf16 the input itself rounds 464.01 and 465 to 464 first.
+        edge_ok = (dtype != torch.float32 or (
+            bool(torch.isnan(got.flatten()[1:3]).all())
+            and float(got.flatten()[0]) == 448.0))
+        require(err <= TOL["relu_maxpool_e4m3"] and edge_ok,
+                f"relu_maxpool_e4m3 at the overflow edge: {got.flatten()}")
+
+    e4m3 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+            "library_ms": None, "bytes": 0}
+    int8 = dict(e4m3)
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        for i, shape in enumerate(CONV_OUTPUTS):
+            y = (torch.randn(*shape, generator=gen, device=device)
+                 * 150).to(dtype)
+            b = torch.randn(shape[-1], generator=gen, device=device)
+            out = relu_maxpool_e4m3_cuda(y, b)
+            err = same_bits(torch, out, relu_maxpool_e4m3_reference(y, b))
+            nans = float(torch.isnan(out.float()).float().mean())
+            ms, plain_ms = timed_pair(
+                torch, lambda: relu_maxpool_e4m3_reference(y, b),
+                lambda: relu_maxpool_e4m3_cuda(y, b), iters=3)
+            log(f"kernel relu_maxpool_e4m3 {str(dtype)[6:]} {list(shape)}: "
+                f"error {err:g} (tol {TOL['relu_maxpool_e4m3']:g}), "
+                f"{nans:.2e} of the outputs NaN | kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms")
+            require(err <= TOL["relu_maxpool_e4m3"] and nans > 0,
+                    f"relu_maxpool_e4m3 {shape}: {err}, NaN share {nans}")
+            if main:
+                e4m3["ms"] += ms
+                e4m3["plain_ms"] += plain_ms
+                e4m3["bytes"] += nbytes(y, b, out)
+            del out
+            # Values of unit size against s_out = 3: a few percent of the
+            # windows saturate at 127, a few are all below zero.
+            s_out = 3.0
+            y = (y / 150).to(dtype)
+            q = quantize_relu_pool_cuda(y, b, s_out)
+            err = max_err(q, quantize_relu_pool_reference(y, b, s_out))
+            shares = [float((q == c).float().mean()) for c in (0, 127)]
+            log(f"kernel relu_maxpool_int8 {str(dtype)[6:]} {list(shape)}: "
+                f"max code difference {err:g} (tol "
+                f"{TOL['relu_maxpool_int8']:g}), codes 0 / 127: "
+                f"{shares[0]:.3f} / {shares[1]:.3f}")
+            require(err <= TOL["relu_maxpool_int8"]
+                    and shares[0] < 0.9 and shares[1] < 0.5,
+                    f"relu_maxpool_int8 {shape}: {err}, {shares}")
+            if main and i == 0:  # the int8 stem's block
+                ms, plain_ms = timed_pair(
+                    torch, lambda: quantize_relu_pool_reference(y, b, s_out),
+                    lambda: quantize_relu_pool_cuda(y, b, s_out), iters=3)
+                log(f"kernel relu_maxpool_int8 bf16 {list(shape)}: kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                int8.update(ms=ms, plain_ms=plain_ms, bytes=nbytes(y, b, q))
+            del y, q
+    for entry in (e4m3, int8):
+        moved = entry.pop("bytes")
+        entry.update(bound(moved, 0.0, "f32"))
+    summary["relu_maxpool_e4m3"] = e4m3
+    summary["relu_maxpool_int8"] = int8
+
+    # Kernel D at conv1 and conv2 of the reference model, batch 512.
+    block = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+             "library_ms": None, "bf16_block_ms": 0.0, "per_block_ms": []}
+    moved, ops = 0, 0.0
+    for size, cin, cout in FUSED_BLOCKS:
+        x = torch.randint(0, 128, (BATCH, size, size, cin), generator=gen,
+                          device=device, dtype=torch.int8)
+        w = torch.randn(cout, cin, 3, 3, generator=gen, device=device) * 0.05
+        b = torch.randn(cout, generator=gen, device=device) * 0.1
+        s_in = 3.0
+        # s_out: the amax of the block's post-ReLU output on two images,
+        # so that the codes spread over [0, 127].
+        w_q, w_scale = quantize_weights_per_channel(w)
+        probe = conv_nhwc(x[:2].double(), w_q.double()).float() * (
+            w_scale * float(np.float32(s_in / 127.0))) + b
+        s_out = float(probe.clamp(min=0).amax())
+        out = conv_relu_pool_w8a8_cuda(x, s_in, w, b, 1, s_out)
+        want = conv_relu_pool_w8a8_reference(x, s_in, w, b, 1, s_out)
+        torch.cuda.synchronize()
+        err = max_err(out, want)
+        positive = float((out > 0).float().mean())
+        del want
+        xb = x.to(torch.bfloat16)
+        plain_ms, ms, bf16_ms = timed_turns(
+            torch, [lambda: conv_relu_pool_w8a8_reference(x, s_in, w, b, 1,
+                                                          s_out),
+                    lambda: conv_relu_pool_w8a8_cuda(x, s_in, w, b, 1, s_out),
+                    lambda: relu_maxpool_cuda(conv_nhwc(xb, w), b)],
+            iters=2, warmup=1)
+        hp = (size - 2) // 2
+        block_ops = 2.0 * BATCH * (2 * hp) ** 2 * cout * 9 * cin
+        log(f"kernel conv_relu_pool_int8 x {list(x.shape)} -> "
+            f"{list(out.shape)}: max code difference {err:g} (tol "
+            f"{TOL['conv_relu_pool_int8']:g}), {positive:.3f} of the codes "
+            f"above 0 | kernel {ms:.4f} ms = {block_ops / ms / 1e9:.1f} TOP/s,"
+            f" plain (float64) {plain_ms:.4f} ms, the bf16 block it replaces "
+            f"(conv_nhwc + kernel 2) {bf16_ms:.4f} ms")
+        require(err <= TOL["conv_relu_pool_int8"] and 0.05 < positive < 0.95,
+                f"conv_relu_pool_int8 {list(x.shape)}: {err}, {positive}")
+        block["max_abs_err"] = max(block["max_abs_err"], err)
+        block["ms"] += ms
+        block["plain_ms"] += plain_ms
+        block["bf16_block_ms"] += bf16_ms
+        block["per_block_ms"].append(ms)
+        moved += nbytes(x, pack_int8_weight(w_q), w_scale, b, out)
+        ops += block_ops
+        del x, xb, out, probe
+    summary["conv_relu_pool_int8"] = {**block, **bound(moved, ops, "int8")}
+
+
 def kernel_phase(torch, seed: int) -> dict:
     from dl_vqa_tpu_torch.ops.attention_pool import (
         attention_pool_cuda, attention_pool_reference)
@@ -1128,6 +1316,7 @@ def kernel_phase(torch, seed: int) -> dict:
     pool_kernels(torch, gen, device, summary)
     vit_kernels(torch, gen, device, summary)
     fused_kernels(torch, gen, device, summary)
+    quant_kernels(torch, gen, device, summary)
 
     # Kernel 3: glimpse softmax pooling, at the CNN's 26 x 26 grid and at
     # the ViT's 14 x 14.
@@ -1197,7 +1386,9 @@ def kernel_wrappers() -> dict:
     from dl_vqa_tpu_torch.ops.attention_pool import attention_pool_cuda
     from dl_vqa_tpu_torch.ops.conv_fused import (
         conv_relu_pool_fused_cuda, conv_relu_pool_stem_cuda,
-        relu_maxpool_backward_cuda, relu_maxpool_cuda)
+        relu_maxpool_backward_cuda, relu_maxpool_cuda, relu_maxpool_e4m3_cuda)
+    from dl_vqa_tpu_torch.ops.conv_int8 import (
+        conv_relu_pool_w8a8_cuda, quantize_relu_pool_cuda)
     from dl_vqa_tpu_torch.ops.layout_cases import layout_cases_cuda
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_recurrence_cuda,
@@ -1217,7 +1408,10 @@ def kernel_wrappers() -> dict:
             "conv_relu_pool_fused": conv_relu_pool_fused_cuda,
             "conv_relu_pool_stem": conv_relu_pool_stem_cuda,
             "vit_mlp_fused": fused_ln_mlp_cuda,
-            "layout_cases": layout_cases_cuda}
+            "layout_cases": layout_cases_cuda,
+            "relu_maxpool_e4m3": relu_maxpool_e4m3_cuda,
+            "relu_maxpool_int8": quantize_relu_pool_cuda,
+            "conv_relu_pool_int8": conv_relu_pool_w8a8_cuda}
 
 
 # Kernels that count the grids of their fast path beside all their grids:
@@ -1422,6 +1616,7 @@ PROFILE_PARTS = (
                                               "conv_pool_direct_kernel")),
     ("kernel 8, LN + MLP (and its weight packing)",
      ("ln_mlp_wgmma_kernel", "ln_mlp_fma_kernel", "pack_weights_kernel")),
+    ("kernel D, W8A8 conv block", ("conv_relu_pool_int8_kernel",)),
     ("cuDNN convs, forward and backward",
      ("fprop", "dgrad", "wgrad", "cudnn", "Padding", "ImplicitGemm")),
     ("matrix products (cuBLAS)", ("gemm", "cutlass", "gemv", "splitK")),
@@ -1478,61 +1673,15 @@ def profile_steps(torch, run_step, step_ms: float, what: str,
             f"{key[:100]}")
 
 
-def train_phase(torch, seed: int, profile: bool, cfg, name: str,
-                expected: dict, accumulate: bool) -> dict:
-    """A trainer over ``cfg``; ``expected`` holds the grids each kernel
-    must have launched in 8 train steps and one eval step."""
-    from dl_vqa_tpu_torch.models.vqa import VqaNet
-    from dl_vqa_tpu_torch.train import (
-        create_train_state, lr_schedule, make_eval_step, make_train_step)
+def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
+                       new_state) -> None:
+    """At batch 8 without dropout, one train step each on the kernel path
+    and on the plain path from the same weights (``new_state``), f32 and
+    bf16, every gradient held to the plain path's; then the eval step both
+    ways."""
+    from dl_vqa_tpu_torch.train import make_eval_step, make_train_step
 
-    wrappers = kernel_wrappers()
     vit = cfg.image.encoder == "vit"
-
-    def new_state(model_cfg):
-        model = VqaNet(model_cfg,
-                       generator=torch.Generator().manual_seed(seed))
-        return create_train_state(model, INITIAL_LR)
-
-    # The trainer's path: eight Adam steps on one batch, then an eval step.
-    batch = make_batch(torch, cfg, BATCH, seed)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    state = new_state(cfg)
-    train_step = make_train_step(cfg)
-    eval_step = make_eval_step(cfg)
-    reset_launches(wrappers)
-    losses, scores = [], []
-    for _ in range(TRAIN_STEPS):
-        state, metrics = train_step(state, batch, gen)
-        losses.append(metrics["loss"])
-        scores.append(metrics["score"])
-    eval_loss, eval_score = eval_step(state.model, batch)
-    torch.cuda.synchronize()
-    launches = read_launches(wrappers, f"the {name} trainer's path")
-    losses = [float(x) for x in losses]
-    log(f"train {name} B={BATCH} bf16 dropout 0.3: losses "
-        + " ".join(f"{x:.4f}" for x in losses)
-        + " | scores " + " ".join(f"{float(x):.1f}" for x in scores)
-        + f" | eval loss {float(eval_loss):.4f} score "
-        f"{float(eval_score):.1f}")
-    log(f"train {name}: kernel launches {json.dumps(launches)}")
-    require(all(np.isfinite(losses)) and bool(torch.isfinite(eval_loss)),
-            "finite losses")
-    require(losses[-1] < losses[0], "the loss falls on a repeated batch")
-    require(all(bool(torch.isfinite(p).all())
-                for p in state.model.parameters()), "finite parameters")
-    require(state.step == TRAIN_STEPS, "one update per step")
-    used = state.optimizer.param_groups[0]["lr"]
-    require(abs(used - INITIAL_LR * 0.5 ** ((TRAIN_STEPS - 1) / 50000)) < 1e-12
-            and abs(lr_schedule(INITIAL_LR)(state.step)
-                    - INITIAL_LR * 0.5 ** (TRAIN_STEPS / 50000)) < 1e-12,
-            "the LR follows the halving law")
-    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
-            f"kernel launches on the {name} trainer's path: {launches}, "
-            f"expected {expected}")
-
-    # Kernel path against plain path at batch 8 without dropout: one train
-    # step each from the same weights, then the eval step both ways.
     cfg0 = without_dropout(cfg)
     small = make_batch(torch, cfg0, 8, seed + 1)
     reference = None
@@ -1609,6 +1758,62 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
         require(abs(score_k - score_p) <= (0.0 if dname == "f32" else 1.0),
                 f"kernel vs plain eval score {dname}")
     del grads, reference, state_8
+
+
+def train_phase(torch, seed: int, profile: bool, cfg, name: str,
+                expected: dict, accumulate: bool) -> dict:
+    """A trainer over ``cfg``; ``expected`` holds the grids each kernel
+    must have launched in 8 train steps and one eval step."""
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import (
+        create_train_state, lr_schedule, make_eval_step, make_train_step)
+
+    wrappers = kernel_wrappers()
+
+    def new_state(model_cfg):
+        model = VqaNet(model_cfg,
+                       generator=torch.Generator().manual_seed(seed))
+        return create_train_state(model, INITIAL_LR)
+
+    # The trainer's path: eight Adam steps on one batch, then an eval step.
+    batch = make_batch(torch, cfg, BATCH, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = new_state(cfg)
+    train_step = make_train_step(cfg)
+    eval_step = make_eval_step(cfg)
+    reset_launches(wrappers)
+    losses, scores = [], []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, batch, gen)
+        losses.append(metrics["loss"])
+        scores.append(metrics["score"])
+    eval_loss, eval_score = eval_step(state.model, batch)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, f"the {name} trainer's path")
+    losses = [float(x) for x in losses]
+    log(f"train {name} B={BATCH} bf16 dropout 0.3: losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + " | scores " + " ".join(f"{float(x):.1f}" for x in scores)
+        + f" | eval loss {float(eval_loss):.4f} score "
+        f"{float(eval_score):.1f}")
+    log(f"train {name}: kernel launches {json.dumps(launches)}")
+    require(all(np.isfinite(losses)) and bool(torch.isfinite(eval_loss)),
+            "finite losses")
+    require(losses[-1] < losses[0], "the loss falls on a repeated batch")
+    require(all(bool(torch.isfinite(p).all())
+                for p in state.model.parameters()), "finite parameters")
+    require(state.step == TRAIN_STEPS, "one update per step")
+    used = state.optimizer.param_groups[0]["lr"]
+    require(abs(used - INITIAL_LR * 0.5 ** ((TRAIN_STEPS - 1) / 50000)) < 1e-12
+            and abs(lr_schedule(INITIAL_LR)(state.step)
+                    - INITIAL_LR * 0.5 ** (TRAIN_STEPS / 50000)) < 1e-12,
+            "the LR follows the halving law")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on the {name} trainer's path: {launches}, "
+            f"expected {expected}")
+
+    # Kernel path against plain path at batch 8 without dropout.
+    hold_to_plain_path(torch, seed, cfg, name, gen, new_state)
 
     # Time and memory at batch 512, both paths.
     plain_state = new_state(cfg)
@@ -1813,6 +2018,233 @@ def fused_eval_phase(torch, seed: int, cfg, name: str, expected: dict) -> dict:
     return launches
 
 
+CALIBRATION_IMAGES = 64  # random images the int8 serving paths calibrate on
+LATENCY_BATCHES = (1, 8, 64)
+
+
+def serving_inputs(torch, cfg, batch: int, seed: int):
+    """uint8 images, question ids and lengths on the card, from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    imgs = torch.randint(0, 256, (batch, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device="cuda", dtype=torch.uint8)
+    lens = torch.randint(1, SEQ_LEN + 1, (batch,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    qs = torch.randint(1, cfg.num_tokens, (batch, SEQ_LEN), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    return imgs, qs * (torch.arange(SEQ_LEN, device="cuda")[None]
+                       < lens[:, None]), lens
+
+
+def quant_serving_phase(torch, seed: int, cfg, name: str, store: str,
+                        expected: dict, profile: bool = False) -> tuple:
+    """A Predictor over ``cfg`` in the serving mode ``store`` (``f8e4m3``,
+    or ``int8`` calibrated first by ``Predictor.calibrate_int8`` on random
+    images) answers the requests; ``expected`` holds the grids each kernel
+    must have launched for them. The logits are held to the plain path's
+    in bf16 and f32, and must differ from the ``compute`` mode's; then the
+    batch-512 forward and the forward at the latency buckets are timed in
+    turns with the ``compute`` mode of the same weights. Returns
+    ``(launches, numbers)``."""
+    import dataclasses
+
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.predict import Predictor
+
+    wrappers = kernel_wrappers()
+    label = f"{name} {store}"
+    model = VqaNet(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+    predictor = Predictor(
+        dataclasses.replace(cfg, image=dataclasses.replace(
+            cfg.image, store_dtype=store)), model,
+        make_vocab(cfg.num_tokens, cfg.max_answers), device="cuda",
+        max_question_length=SEQ_LEN, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    numbers = {}
+    if store == "int8":
+        require(predictor.needs_int8_calibration, "int8 asks for scales")
+        sample = rng.integers(0, 256, (CALIBRATION_IMAGES, cfg.image_size,
+                                       cfg.image_size, 3), dtype=np.uint8)
+        t0 = time.perf_counter()
+        predictor.calibrate_int8(sample)
+        numbers["calibration_s"] = time.perf_counter() - t0
+        scales = predictor.model_cfg.image.quant_scales
+        log(f"slice {label}: calibrated on {CALIBRATION_IMAGES} images in "
+            f"{numbers['calibration_s']:.2f} s, scales "
+            + ", ".join(f"{v:.4f}" for v in scales))
+        require(not predictor.needs_int8_calibration, "calibrated")
+    quant_cfg = predictor.model_cfg
+    images = rng.integers(0, 256, (len(QUESTIONS), cfg.image_size,
+                                   cfg.image_size, 3), dtype=np.uint8)
+    reset_launches(wrappers)
+    answers = predictor.predict(images, QUESTIONS, top_k=3)
+    launches = read_launches(wrappers, f"the {label} serving path")
+    log(f"slice {label}: {len(answers)} requests answered, top-1 "
+        + ", ".join(top[0][0] for top in answers)
+        + f" | kernel launches {json.dumps(launches)}")
+    require(len(answers) == len(QUESTIONS)
+            and all(len(top) == 3 for top in answers), "top-3 per request")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on the {label} serving path: {launches}, "
+            f"expected {expected}")
+
+    encoded, lengths = predictor.encode_questions(QUESTIONS)
+    vit_int8 = cfg.image.encoder == "vit"
+    for dtype, tol in ((torch.bfloat16, TOL["logits_bf16"]),
+                       (torch.float32, TOL["logits_f32_int8_vit"] if vit_int8
+                        else TOL["logits_f32"])):
+        predictor.compute_dtype = dtype
+        kernel = predictor.forward_logits(images, encoded, lengths)
+        plain = predictor.forward_logits(images, encoded, lengths,
+                                         plain_ops=True)
+        model.configure(cfg)
+        compute = predictor.forward_logits(images, encoded, lengths)
+        model.configure(quant_cfg)
+        err = float(np.abs(kernel - plain).max())
+        moved = float(np.abs(kernel - compute).max())
+        log(f"slice {label} logits {str(dtype)[6:]}: finite "
+            f"{bool(np.isfinite(kernel).all())}, max |kernel - plain| "
+            f"{err:.3e} (tol {tol:g}), max |{store} - compute| {moved:.3e}")
+        require(kernel.shape == (len(QUESTIONS), cfg.max_answers)
+                and bool(np.isfinite(kernel).all()), "finite logits")
+        require(err <= tol, f"{label} kernel vs plain logits {dtype}: {err}")
+        require(moved > 0, f"{label}: the mode changes the logits")
+        numbers[f"logits_err_{str(dtype)[6:]}"] = err
+    predictor.compute_dtype = torch.bfloat16
+
+    imgs, qs, lens = serving_inputs(torch, cfg, BATCH, seed)
+
+    def forward(mode_cfg, b):
+        def run():
+            model.configure(mode_cfg)
+            with torch.inference_mode():
+                return model(imgs[:b], qs[:b], lens[:b],
+                             compute_dtype=torch.bfloat16)
+        return run
+
+    out = forward(quant_cfg, BATCH)()
+    require(bool(torch.isfinite(out).all()), "finite batch-512 logits")
+    compute_ms, ms = timed_turns(torch, [forward(cfg, BATCH),
+                                         forward(quant_cfg, BATCH)], iters=3)
+    numbers.update(ms=ms, qa_per_s=BATCH / ms * 1e3, compute_ms=compute_ms,
+                   compute_qa_per_s=BATCH / compute_ms * 1e3, latency_ms={},
+                   compute_latency_ms={})
+    for b in LATENCY_BATCHES:
+        c_ms, q_ms = timed_turns(torch, [forward(cfg, b),
+                                         forward(quant_cfg, b)], iters=10)
+        numbers["latency_ms"][b] = q_ms
+        numbers["compute_latency_ms"][b] = c_ms
+    if profile:
+        profile_steps(torch, forward(quant_cfg, BATCH), ms,
+                      f"{label} forward")
+    model.configure(quant_cfg)
+    log(f"forward {label} B={BATCH} bf16: {ms:.3f} ms = "
+        f"{numbers['qa_per_s']:.1f} QA/s | compute mode {compute_ms:.3f} ms "
+        f"= {numbers['compute_qa_per_s']:.1f} QA/s | latency ms at B = "
+        + ", ".join(f"{b}: {numbers['latency_ms'][b]:.3f} (compute "
+                    f"{numbers['compute_latency_ms'][b]:.3f})"
+                    for b in LATENCY_BATCHES))
+    return launches, numbers
+
+
+def f8_train_phase(torch, seed: int, cfg, expected: dict) -> tuple:
+    """One train step of ``cfg`` with the f8 store at batch 512 (bf16,
+    dropout 0.3; kernel 2's e4m3 mode forward, kernel C backward: the
+    straight-through estimator), its gradients at batch 8 held to the plain
+    path's, and the step timed in turns with the ``compute`` step. Returns
+    ``(launches, numbers)``."""
+    import dataclasses
+
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.train import create_train_state, make_train_step
+
+    wrappers = kernel_wrappers()
+    f8 = dataclasses.replace(cfg, image=dataclasses.replace(
+        cfg.image, store_dtype="f8e4m3"))
+
+    def new_state(model_cfg):
+        model = VqaNet(model_cfg,
+                       generator=torch.Generator().manual_seed(seed))
+        return create_train_state(model, INITIAL_LR)
+
+    batch = make_batch(torch, f8, BATCH, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state, step = new_state(f8), make_train_step(f8)
+    reset_launches(wrappers)
+    state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, "the cnn f8 train step")
+    log(f"train cnn f8e4m3 B={BATCH} bf16 dropout 0.3: loss "
+        f"{float(metrics['loss']):.4f} | kernel launches "
+        f"{json.dumps(launches)}")
+    require(bool(torch.isfinite(metrics["loss"])), "finite f8 loss")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches of the cnn f8 train step: {launches}, expected "
+            f"{expected}")
+    hold_to_plain_path(torch, seed, f8, "cnn f8e4m3", gen, new_state)
+    compute_state, compute_step = new_state(cfg), make_train_step(cfg)
+    compute_ms, ms = timed_turns(
+        torch, [lambda: compute_step(compute_state, batch, gen),
+                lambda: step(state, batch, gen)], iters=3, warmup=1)
+    log(f"train step cnn f8e4m3 B={BATCH} bf16: {ms:.3f} ms = "
+        f"{BATCH / ms * 1e3:.1f} samples/s | compute mode {compute_ms:.3f} "
+        f"ms = {BATCH / compute_ms * 1e3:.1f} samples/s")
+    return launches, {"ms": ms, "samples_per_s": BATCH / ms * 1e3,
+                      "compute_ms": compute_ms,
+                      "compute_samples_per_s": BATCH / compute_ms * 1e3}
+
+
+def e2e_quant_eval_phase(torch, seed: int, prof: dict,
+                         best: float) -> tuple:
+    """``evaluate_vqa`` on the cnn_e2e run's best checkpoint in the f8 and
+    the int8 mode (int8 calibrated on 256 images of the corpus's train
+    store, as the entry point does for a checkpoint without scales): each
+    score within ``TOL["quant_eval_pp"]`` of the loop's best. Returns
+    ``(launches, scores)``."""
+    import contextlib
+    import os
+
+    from dl_vqa_tpu_torch.evaluate_vqa import evaluate_hw2
+
+    wrappers = kernel_wrappers()
+    root = os.path.abspath(E2E_DIR)
+    best_ckpt = os.path.join(exp_dir_of(root, "e2e_straight"), "model.ckpt")
+    reset_launches(wrappers)
+    scores, seconds = {}, {}
+    for mode in ("f8e4m3", "int8"):
+        t0 = time.perf_counter()
+        with open(os.path.join(root, f"evaluate_{mode}_stdout.txt"),
+                  "w") as out, contextlib.redirect_stdout(out):
+            scores[mode] = evaluate_hw2(e2e_overrides(
+                prof, root, f"e2e_eval_{mode}", seed, [
+                    f"main.small.paths.pretrained_model_path={best_ckpt}",
+                    "train.image.stride=1", "train.attention.do_option=+",
+                    f"train.image.store_dtype={mode}"]))
+        seconds[mode] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, "the cnn_e2e quantized evaluations")
+    batches = -(-E2E_VAL // BATCH)
+    grids = recurrence_grids(torch)
+    expected = {"lstm_recurrence": 2 * batches * (1 if grids == 1
+                                                  else SEQ_LEN),
+                "attention_pool": 2 * batches,
+                "relu_maxpool_e4m3": 3 * batches,
+                "relu_maxpool_int8": batches,
+                "conv_relu_pool_int8": 2 * batches}
+    log(f"cnn_e2e evaluate_vqa on the best checkpoint: compute {best:.4f} "
+        f"(the loop's), f8e4m3 {scores['f8e4m3']}, int8 {scores['int8']} "
+        f"(tol {TOL['quant_eval_pp']:g} pp) in {json.dumps(seconds)} s | "
+        f"kernel launches {json.dumps(launches)}")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches of the quantized evaluations: {launches}, "
+            f"expected {expected}")
+    for mode, score in scores.items():
+        require(abs(score - best) <= TOL["quant_eval_pp"],
+                f"evaluate_vqa {mode} {score} vs compute {best}")
+    return launches, {"scores": scores, "seconds": seconds,
+                      "compute_score": best}
+
+
 def layout_probe_phase(torch, seed: int) -> dict:
     """The probe's path: its eight cases (four re-layouts of a
     ``[16, 32, C]`` bf16 block, C = 64 and 128) through the dispatch a
@@ -1923,7 +2355,8 @@ def e2e_phase(torch, seed: int) -> tuple:
     counted, the kernels held to the plain path at the corpus's shapes and
     the bare train step (:func:`e2e_parity`), and the epoch's time,
     samples/s and the device's idle share with the table on and off
-    (:func:`e2e_timings`). Returns ``(launches, timings)``."""
+    (:func:`e2e_timings`). Returns ``(launches, timings, the corpus's
+    profile group)``."""
     import contextlib
     import os
     import shutil
@@ -2075,7 +2508,7 @@ def e2e_phase(torch, seed: int) -> tuple:
     timings.update(corpus_s=corpus_s, runs=runs, best_score=best,
                    evaluate_score=score, resume_max_abs_err=resume_err,
                    phase_s=time.perf_counter() - phase_start)
-    return launches, timings
+    return launches, timings, prof
 
 
 def e2e_parity(torch, seed: int, cfg: dict, train_ds, val_ds,
@@ -2246,7 +2679,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over two "
-                             "train steps")
+                             "train steps and the quantized forwards")
     args = parser.parse_args(argv)
 
     import torch
@@ -2332,8 +2765,34 @@ def main(argv=None) -> int:
              "relu_maxpool_backward": 6, "conv_relu_pool_fused": 2}),
         "layout_probe": layout_probe_phase(torch, args.seed),
     }
-    paths["cnn_e2e"], e2e = e2e_phase(torch, args.seed)
+    # The quantized serving modes: the f8 store (kernel 2's e4m3 mode in
+    # place of its compute mode, three grids), the int8 stem (kernel 2's
+    # int8 mode for conv0, kernel D for conv1 and conv2), the int8 ViT (its
+    # products on torch._int_mm, kernel 4 for the attention cores); one f8
+    # train step (kernel C its backward).
+    quant = {}
+    for path, cfg, store, grids in (
+            ("cnn_f8_serving", ModelConfig(), "f8e4m3",
+             {"relu_maxpool_e4m3": 3}),
+            ("cnn_int8_serving", ModelConfig(), "int8",
+             {"relu_maxpool_int8": 1, "conv_relu_pool_int8": 2}),
+            ("vit_int8_serving", vit_config(), "int8",
+             {"vit_attention": vit_layers})):
+        paths[path], quant[path] = quant_serving_phase(
+            torch, args.seed, cfg, path.split("_")[0], store,
+            {"lstm_recurrence": recurrence, "attention_pool": 1, **grids},
+            args.profile)
+    paths["cnn_f8_training"], quant["cnn_f8_training"] = f8_train_phase(
+        torch, args.seed, ModelConfig(),
+        {"lstm_recurrence_save": recurrence, "lstm_backward_step": SEQ_LEN,
+         "attention_pool": 1, "relu_maxpool_e4m3": 3,
+         "relu_maxpool_backward": 6})
+    paths["cnn_e2e"], e2e, e2e_profile = e2e_phase(torch, args.seed)
     log(json.dumps({"cnn_e2e": e2e}))
+    paths["cnn_e2e_quant_eval"], quant["cnn_e2e_quant_eval"] = (
+        e2e_quant_eval_phase(torch, args.seed, e2e_profile,
+                             e2e["best_score"]))
+    log(json.dumps({"quant": quant}))
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"
@@ -2363,10 +2822,20 @@ def main(argv=None) -> int:
                           "experiments/probe_vit_mlp_fused.py:57"),
         "layout_cases": ("layout_cases.cu",
                          "experiments/probe_mosaic_recheck.py:58"),
+        # No TPU kernel behind these three: XLA computes them in the JAX
+        # package (the f8 store and pool, the int8 store and pool, the W8A8
+        # block).
+        "relu_maxpool_e4m3": ("relu_maxpool.cu",
+                              "dl_vqa_tpu/ops/conv_fused.py:121"),
+        "relu_maxpool_int8": ("relu_maxpool.cu",
+                              "dl_vqa_tpu/ops/conv_int8.py:76"),
+        "conv_relu_pool_int8": ("conv_relu_pool_int8.cu",
+                                "dl_vqa_tpu/ops/conv_int8.py:95"),
     }
     # The tensor-core instruction of the fused-path kernels in bf16.
     mma = {"conv_relu_pool_fused": "wgmma", "vit_mlp_fused": "wgmma",
-           "conv_relu_pool_stem": "mma.sync"}
+           "conv_relu_pool_stem": "mma.sync",
+           "conv_relu_pool_int8": "mma.sync"}
     # launches: the grids of all paths together, each path counted from 0:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its

@@ -34,6 +34,7 @@ import numpy as np
 from dl_vqa_tpu_torch.data import text as vqa_text
 
 __all__ = ["VQADataset", "StaleImageCacheError", "load_or_build_val_dataset",
+           "open_image_store",
            "require_image_store", "store_ids"]
 
 
@@ -55,6 +56,16 @@ def store_ids(path: str) -> np.ndarray:
 
     with h5py.File(path, "r") as fd:
         return fd["ids"][()]
+
+
+def open_image_store(path: str):
+    """The ``features`` array ``[N, 3, H, W]`` of an image store, unread:
+    the ``.npy`` file memory-mapped, an h5 store through h5py."""
+    if _is_npy_store(path):
+        return np.load(os.path.join(path, "features.npy"), mmap_mode="r")
+    import h5py
+
+    return h5py.File(path, "r")["features"]
 
 
 def _ids_fingerprint(ids) -> Dict:
@@ -189,13 +200,7 @@ class VQADataset:
         is read through h5py."""
         if self._features is not None:
             return self._features
-        if _is_npy_store(self.image_path):
-            feats = np.load(os.path.join(self.image_path, "features.npy"),
-                            mmap_mode="r")
-        else:
-            import h5py
-
-            feats = h5py.File(self.image_path, "r")["features"]
+        feats = open_image_store(self.image_path)
         if np.issubdtype(np.dtype(feats.dtype), np.integer):
             raise ValueError(
                 f"image feature store {self.image_path!r} has integer "

@@ -12,9 +12,13 @@ passes ``device="cpu"``:
 
 As there, the model is built from the config, not from the checkpoint's
 metadata: overrides must describe the trained model (``config_eval`` has
-stride 2 and the '*' fusion). The int8 and f8 image stores are not ported
-(ROADMAP queue 1, item 7), nor are the settings :func:`dl_vqa_tpu_torch.
-main.check_supported` refuses.
+stride 2 and the '*' fusion). ``train.image.store_dtype`` scores a
+quantized serving mode: ``f8e4m3`` as it is; ``int8`` with the scales in
+the checkpoint's metadata where it carries them, else calibrated on up to
+256 images of the train split's store, taken evenly by ``linspace``
+(val images, with a caveat in the log, only where there is no train
+store), as the JAX entry point does. The settings :func:`dl_vqa_tpu_torch.
+main.check_supported` refuses are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +30,45 @@ import sys
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["evaluate_hw2"]
+
+CALIBRATION_IMAGES = 256
+
+
+def _int8_scales(model_cfg, model, ckpt_meta, profile, val_dataset,
+                 compute_dtype, log):
+    """``model_cfg`` with the int8 mode's scales: a calibrate-once
+    checkpoint's own (the numerics its deployment serves), else calibrated
+    on train images, so that the val images being scored do not choose the
+    served configuration."""
+    import numpy as np
+
+    from dl_vqa_tpu_torch.data.dataset import open_image_store
+
+    adopted = model_cfg.with_checkpoint_scales(ckpt_meta)
+    if adopted.image.quant_scales:
+        log("int8 stem: using calibrated scales from checkpoint metadata: "
+            f"{adopted.image.quant_scales}")
+        return adopted
+    store = profile["train_paths"]["processed_imgs"]
+    if not os.path.isabs(store):
+        store = os.path.join(profile["paths"]["base_path"], store)
+    if os.path.exists(store):
+        feats = open_image_store(store)
+        rows = np.unique(np.linspace(
+            0, feats.shape[0] - 1, min(feats.shape[0], CALIBRATION_IMAGES)
+        ).astype(np.int64))
+        cal = np.asarray(feats[rows]).transpose(0, 2, 3, 1)
+        source = f"{len(rows)} train-cache images"
+    else:
+        n_cal = min(len(val_dataset), CALIBRATION_IMAGES)
+        rows = np.linspace(0, len(val_dataset) - 1, n_cal).astype(np.int64)
+        cal = val_dataset.load_images_nhwc(rows)
+        source = (f"{n_cal} VAL images (no train cache at {store!r} — score "
+                  "may be optimistic vs a train-calibrated deployment)")
+    model_cfg = model.int8_calibrated(cal, dtype=compute_dtype)
+    log(f"int8 stem: calibrated activation scales over {source}: "
+        f"{model_cfg.image.quant_scales}")
+    return model_cfg
 
 
 def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
@@ -47,11 +90,6 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
     device = resolve_device(device)
     cfg = config_mod.compose("config_eval", overrides=list(overrides))
     check_supported(cfg)
-    if cfg["train"]["image"]["store_dtype"] != "compute":
-        raise NotImplementedError(
-            f"train.image.store_dtype={cfg['train']['image']['store_dtype']!r}"
-            ": the quantized serving modes are not ported to "
-            "dl_vqa_tpu_torch yet (ROADMAP queue 1, item 7)")
     compute_dtype = compute_dtype_of(cfg)
     print(json.dumps(cfg, indent=1))
     profile = cfg["main"]["full" if cfg["main"]["use_full"] else "small"]
@@ -72,9 +110,14 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
 
     model_cfg = ModelConfig.from_cfg(cfg["train"], val_dataset.num_tokens,
                                      use_pallas=cfg["tpu"]["use_pallas"])
-    model = load_jax_params(
-        VqaNet(model_cfg, device=device),
-        load_params(profile["paths"]["pretrained_model_path"]))
+    params, ckpt_meta = load_params(profile["paths"]["pretrained_model_path"],
+                                    with_meta=True)
+    model = load_jax_params(VqaNet(model_cfg, device=device), params)
+    if (model_cfg.image.store_dtype == "int8"
+            and not model_cfg.image.quant_scales):
+        model_cfg = _int8_scales(model_cfg, model, ckpt_meta, profile,
+                                 val_dataset, compute_dtype, logger.write)
+        model.configure(model_cfg)
     eval_step = make_eval_step(model_cfg, compute_dtype, with_breakdown=True)
     image_table = plan_image_tables(cfg, {"val": val_dataset}, device,
                                     log=logger.write)["val"]

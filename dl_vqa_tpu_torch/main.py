@@ -16,7 +16,9 @@ once, naming their ROADMAP item: ``tpu.online_images`` and
 orbax``, mesh axes other than one device, ``tpu.zero_stage``,
 ``tpu.pipeline_microbatches``, ``tpu.debug_nans``, ``tpu.profile_dir`` and
 ``-m`` sweeps. ``tpu.use_pallas`` and ``tpu.prng_impl`` choose between JAX
-implementations and mean nothing here.
+implementations and mean nothing here. ``train.image.store_dtype=f8e4m3``
+trains through the f8 store's straight-through backward; ``int8`` serves
+only, and the model refuses it in training as the JAX model does.
 """
 
 from __future__ import annotations

@@ -7,13 +7,15 @@ The port keeps its own copy because importing the JAX one goes through
 ``dl_vqa_tpu.models``, whose ``__init__`` imports JAX.
 
 :meth:`ModelConfig.check_ported` names the variants this package cannot
-run yet; :class:`dl_vqa_tpu_torch.models.vqa.VqaNet` calls it.
+run yet and makes the JAX model's own refusals;
+:class:`dl_vqa_tpu_torch.models.vqa.VqaNet` calls it when it is built and
+at every forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 __all__ = ["TextConfig", "ImageConfig", "AttentionConfig", "ClassifierConfig",
            "ModelConfig"]
@@ -97,9 +99,12 @@ class ModelConfig:
     num_tokens: int = 15193            # question vocab size + 1
     use_pallas: bool = True            # read by the JAX package only
 
-    def check_ported(self) -> None:
+    def check_ported(self, train: Optional[bool] = None) -> None:
         """Raise ``NotImplementedError`` for a variant the port lacks, and
-        ``ValueError`` for a combination the JAX package refuses too."""
+        ``ValueError`` for a combination the JAX package refuses too, in
+        its words. With ``train`` given (a forward's), also the refusals
+        the JAX model makes when it runs: the int8 mode in training, and
+        int8 without its calibrated scales or with the wrong number."""
         unported = []
         if self.text.encoder != "lstm":
             unported.append(f"text.encoder={self.text.encoder!r}")
@@ -107,14 +112,21 @@ class ModelConfig:
             unported.append(f"text.num_lstm_layers={self.text.num_lstm_layers}")
         if self.image.encoder not in ("cnn", "vit"):
             unported.append(f"image.encoder={self.image.encoder!r}")
-        if self.image.encoder == "vit" and self.image.store_dtype not in (
-                "compute", "int8"):
+        store = self.image.store_dtype
+        if self.image.encoder == "vit" and store not in ("compute", "int8"):
             raise ValueError(
-                f"image.store_dtype={self.image.store_dtype!r} is a CNN-stem "
+                f"image.store_dtype={store!r} is a CNN-stem "
                 "serving mode (quantized conv-output storage); the vit "
                 "encoder supports 'compute' or 'int8' (W8A8 block matmuls)")
-        if self.image.store_dtype != "compute":
-            unported.append(f"image.store_dtype={self.image.store_dtype!r}")
+        if store not in ("compute", "f8e4m3", "int8"):
+            raise ValueError(
+                f"image.store_dtype={store!r}; expected "
+                "'compute', 'f8e4m3' or 'int8'")
+        if store == "int8" and self.image.encoder == "vit" \
+                and self.image.moe_experts > 0:
+            raise ValueError(
+                "image.store_dtype='int8' does not support MoE "
+                "blocks (no W8A8 path for the expert einsums)")
         if self.image.moe_experts:
             unported.append(f"image.moe_experts={self.image.moe_experts}")
         if self.attention.variant != "single":
@@ -125,6 +137,43 @@ class ModelConfig:
         if unported:
             raise NotImplementedError(
                 "not ported to dl_vqa_tpu_torch yet: " + ", ".join(unported))
+        if train is None or store != "int8":
+            return
+        calibrate = ("ops.vit_int8.calibrate_vit_scales"
+                     if self.image.encoder == "vit"
+                     else "ops.conv_int8.calibrate_stem_scales")
+        if train:
+            raise ValueError(
+                "image.store_dtype='int8' is inference-only: its static "
+                "activation scales are calibrated FROM trained weights "
+                f"({calibrate}). Train with store_dtype='compute' and "
+                "switch at serving time.")
+        scales = self.image.quant_scales
+        if self.image.encoder == "vit":
+            expected = 4 * self.image.num_layers
+            if len(scales) != expected:
+                raise ValueError(
+                    f"image.quant_scales has {len(scales)} entries; the vit "
+                    f"W8A8 mode needs {expected} (4 per block) — calibrate "
+                    "with ops.vit_int8.with_calibrated_vit_scales")
+        elif not scales:
+            raise ValueError(
+                "image.store_dtype='int8' needs calibrated activation "
+                "scales: run ops.conv_int8.calibrate_stem_scales on sample "
+                "batches and set them via dataclasses.replace(cfg.image, "
+                "quant_scales=...)")
+
+    def with_checkpoint_scales(self, meta: dict) -> "ModelConfig":
+        """In the int8 mode with no scales, the scales a calibrate-once
+        checkpoint carries in its metadata (``meta["model_cfg"]``), where
+        it has them; else this configuration as it is."""
+        scales = (meta.get("model_cfg") or {}).get("image", {}).get(
+            "quant_scales")
+        if (self.image.store_dtype != "int8" or self.image.quant_scales
+                or not scales):
+            return self
+        return dataclasses.replace(self, image=dataclasses.replace(
+            self.image, quant_scales=tuple(float(v) for v in scales)))
 
     @classmethod
     def from_meta_dict(cls, d: dict) -> "ModelConfig":

@@ -1,5 +1,5 @@
-"""Two functions every part of the model shares: the JAX model's dropout
-and its mixed-precision product."""
+"""Functions every part of the model shares: the JAX model's dropout, its
+mixed-precision product, and the normalisation of uint8 images."""
 
 from __future__ import annotations
 
@@ -7,7 +7,20 @@ from typing import Optional
 
 import torch
 
-__all__ = ["dropout", "mm"]
+from dl_vqa_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
+
+__all__ = ["dropout", "mm", "normalize_images"]
+
+
+def normalize_images(images: torch.Tensor, dtype: torch.dtype
+                     ) -> torch.Tensor:
+    """uint8 pixels ``[B, H, W, 3]`` -> ImageNet-normalised ``dtype``
+    values, computed in ``dtype``; any other tensor as it is."""
+    if images.dtype != torch.uint8:
+        return images
+    mean = torch.as_tensor(IMAGENET_MEAN, dtype=dtype, device=images.device)
+    std = torch.as_tensor(IMAGENET_STD, dtype=dtype, device=images.device)
+    return (images.to(dtype) / 255.0 - mean) / std
 
 
 def dropout(x: torch.Tensor, rate: float,

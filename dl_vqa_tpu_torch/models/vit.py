@@ -28,13 +28,17 @@ mlp_out}.{weight, bias}``; linear weights are ``[out, in]``. The JAX tree
 stacks the blocks' leaves on a leading ``[L]`` axis (``image.layers.*``);
 ``utils/params.py`` unstacks and stacks them.
 
+With ``image.store_dtype == "int8"`` the four products of every block
+run as W8A8 (:func:`dl_vqa_tpu_torch.ops.vit_int8.w8a8_linear`, the MLP
+hidden kept in f32 between its two), ahead of kernel 8; an amax sink
+collects their inputs' amaxes for the calibration.
+
 Left out, as the JAX options they belong to are not ported: MoE blocks,
-the int8 projections and their calibration sink, the pipeline and
-sequence contexts, and the JAX model's other attention branch (weights
-normalised in the compute dtype), which it takes off the accelerator and
-for heads that are no multiple of 64: here every head size runs the
-kernels' arithmetic, and on the GPU the kernels take heads of 64 only and
-raise for others.
+the pipeline and sequence contexts, and the JAX model's other attention
+branch (weights normalised in the compute dtype), which it takes off the
+accelerator and for heads that are no multiple of 64: here every head
+size runs the kernels' arithmetic, and on the GPU the kernels take heads
+of 64 only and raise for others.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.layers import dropout as _dropout, mm as _mm
 from dl_vqa_tpu_torch.models.transformer import layer_norm
 from dl_vqa_tpu_torch.ops.vit_attention import vit_attention
+from dl_vqa_tpu_torch.ops.vit_int8 import w8a8_linear
 from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp
 
 __all__ = ["VitImage", "VitBlock", "LayerNorm", "patch_embed"]
@@ -94,13 +99,32 @@ class VitBlock(nn.Module):
         self.mlp_in = nn.Linear(dim, 4 * dim)
         self.mlp_out = nn.Linear(4 * dim, dim)
 
-    def forward(self, x, dtype, plain, generator, fused=False):
+    def forward(self, x, dtype, plain, generator, fused=False, scales=None,
+                amax_sink=None):
+        """``scales``: the block's four int8 site scales, which run its
+        four products as W8A8 (:func:`w8a8_linear`, before kernel 8);
+        ``amax_sink`` collects the four sites' input amaxes instead."""
+        def linear(h, layer, site, out_dtype):
+            if amax_sink is not None:
+                amax_sink.append(h.float().abs().amax())
+            if scales is not None:
+                return w8a8_linear(h, layer.weight, layer.bias, scales[site],
+                                   out_dtype)
+            return _mm(h, layer.weight) + layer.bias
+
         hidden = self.ln1(x)
-        qkv = (_mm(hidden, self.qkv.weight) + self.qkv.bias).to(dtype)
+        qkv = linear(hidden, self.qkv, 0, torch.float32).to(dtype)
         att = vit_attention(qkv, self.num_heads, plain)
-        att = (_mm(att, self.out.weight) + self.out.bias).to(dtype)
+        att = linear(att, self.out, 1, torch.float32).to(dtype)
         x = x + _dropout(att, self.dropout, generator)        # site 21 + 2i
-        if fused and generator is None and not torch.is_grad_enabled():
+        if scales is not None:
+            # The hidden stays f32 between the two W8A8 products.
+            hidden = torch.relu(linear(self.ln2(x), self.mlp_in, 2,
+                                       torch.float32))
+            mlp = linear(hidden, self.mlp_out, 3, dtype)
+            return x + _dropout(mlp, self.dropout, generator)  # site 22 + 2i
+        if (fused and amax_sink is None and generator is None
+                and not torch.is_grad_enabled()):
             # Kernel 8: forward only and without dropout, and it adds the
             # residual before the one cast where the lines below round the
             # MLP output first.
@@ -108,10 +132,9 @@ class VitBlock(nn.Module):
                 x, self.ln2.weight, self.ln2.bias, self.mlp_in.weight,
                 self.mlp_in.bias, self.mlp_out.weight, self.mlp_out.bias,
                 plain)
-        hidden = self.ln2(x)
-        hidden = torch.relu(
-            _mm(hidden, self.mlp_in.weight) + self.mlp_in.bias).to(dtype)
-        mlp = (_mm(hidden, self.mlp_out.weight) + self.mlp_out.bias).to(dtype)
+        hidden = torch.relu(linear(self.ln2(x), self.mlp_in, 2,
+                                   torch.float32)).to(dtype)
+        mlp = linear(hidden, self.mlp_out, 3, dtype).to(dtype)
         return x + _dropout(mlp, self.dropout, generator)      # site 22 + 2i
 
 
@@ -126,6 +149,7 @@ class VitImage(nn.Module):
         grid = cfg.image_size // i.patch_size
         self.patch_size = i.patch_size
         self.dropout = i.dropout
+        self.quant = i  # store_dtype and quant_scales (VqaNet.configure)
         self.patch_embed = nn.Linear(i.patch_size * i.patch_size * 3, dim)
         self.pos = nn.Parameter(torch.empty(grid * grid, dim))
         self.blocks = nn.ModuleList(
@@ -134,7 +158,12 @@ class VitImage(nn.Module):
 
     def forward(self, images: torch.Tensor, dtype: torch.dtype, plain: bool,
                 generator: Optional[torch.Generator],
-                fused: bool = False) -> torch.Tensor:
+                fused: bool = False, amax_sink: Optional[list] = None
+                ) -> torch.Tensor:
+        """``image.store_dtype == "int8"`` runs the blocks' products as
+        W8A8 with their slice of ``image.quant_scales``; ``amax_sink`` (a
+        list) runs the compute-dtype path and collects the four int8 sites'
+        input amaxes of every block, in order (the calibration pass)."""
         batch, height, width, _ = images.shape
         p = self.patch_size
         gh, gw = height // p, width // p
@@ -148,7 +177,10 @@ class VitImage(nn.Module):
                         self.patch_embed.bias, p, dtype)
         x = (x + self.pos[:gh * gw]).to(dtype)
         x = _dropout(x, self.dropout, generator)               # site 20
-        for block in self.blocks:
-            x = block(x, dtype, plain, generator, fused)
+        int8 = self.quant.store_dtype == "int8" and amax_sink is None
+        for idx, block in enumerate(self.blocks):
+            scales = (tuple(self.quant.quant_scales[4 * idx:4 * idx + 4])
+                      if int8 else None)
+            x = block(x, dtype, plain, generator, fused, scales, amax_sink)
         x = self.final_ln(x)
         return x.reshape(batch, gh, gw, x.shape[-1])

@@ -38,14 +38,17 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dl_vqa_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
 from dl_vqa_tpu_torch.models.configs import ModelConfig
-from dl_vqa_tpu_torch.models.layers import dropout, mm as _mm
+from dl_vqa_tpu_torch.models.layers import (
+    dropout, mm as _mm, normalize_images)
 from dl_vqa_tpu_torch.models.vit import LayerNorm, VitImage
 from dl_vqa_tpu_torch.ops.attention_pool import attention_pool
 from dl_vqa_tpu_torch.ops.conv_fused import (
     FUSED_MIN_CIN, conv_relu_pool, conv_relu_pool_stem)
+from dl_vqa_tpu_torch.ops.conv_int8 import (
+    int8_stem_forward, with_calibrated_scales)
 from dl_vqa_tpu_torch.ops.lstm import bilstm_final_cell, lstm_scan
+from dl_vqa_tpu_torch.ops.vit_int8 import with_calibrated_vit_scales
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["VqaNet", "dropout"]
@@ -115,25 +118,39 @@ class _Image(nn.Module):
         self.stride = i.stride
         self.dropout = i.dropout
         self.blocks = len(i.num_channels) - 1
+        self.quant = i  # store_dtype and quant_scales (VqaNet.configure)
         for block in range(self.blocks):
             self.add_module(f"conv{block}", nn.Conv2d(
                 i.num_channels[block], i.num_channels[block + 1],
                 i.kernel_size))
 
+    def convs(self):
+        return [getattr(self, f"conv{block}") for block in range(self.blocks)]
+
     def forward(self, images, dtype, plain, generator, fused=False):
-        """``fused=True`` takes the blocks that never write the conv
-        output: kernel 6 for stride 1 and ``Cin >= 16``, and for a narrower
-        input (the RGB stem) the forward-only stem op while no gradient is
-        recorded; every other block stays on the unfused path."""
+        """Dispatch on ``image.store_dtype`` as the JAX model does:
+        ``int8`` runs the W8A8 stem (:func:`int8_stem_forward`), ``f8e4m3``
+        stores every block's activations in e4m3 and takes precedence over
+        ``fused``. ``fused=True`` takes the blocks that never write the
+        conv output: kernel 6 for stride 1 and ``Cin >= 16``, and for a
+        narrower input (the RGB stem) the forward-only stem op while no
+        gradient is recorded; every other block stays on the unfused
+        path."""
+        if self.quant.store_dtype == "int8":
+            x = int8_stem_forward(self.convs(), images,
+                                  self.quant.quant_scales, self.stride,
+                                  dtype, plain)
+            return dropout(x, self.dropout, generator)  # site 0
+        f8_store = self.quant.store_dtype == "f8e4m3"
         x = images.to(dtype)
-        for block in range(self.blocks):
-            conv = getattr(self, f"conv{block}")
-            if (fused and self.stride == 1 and x.shape[-1] < FUSED_MIN_CIN
+        for conv in self.convs():
+            if (fused and not f8_store and self.stride == 1
+                    and x.shape[-1] < FUSED_MIN_CIN
                     and not torch.is_grad_enabled()):
                 x = conv_relu_pool_stem(x, conv.weight, conv.bias, plain)
             else:
                 x = conv_relu_pool(x, conv.weight, conv.bias, self.stride,
-                                   plain, fused)
+                                   plain, fused, f8_store)
         return dropout(x, self.dropout, generator)  # site 0
 
 
@@ -218,6 +235,34 @@ class VqaNet(nn.Module):
         self.to(device)
         self.eval()
 
+    def configure(self, cfg: ModelConfig) -> None:
+        """Take ``cfg``, which may differ from the model's configuration in
+        ``image.store_dtype`` and ``image.quant_scales`` only (a serving
+        mode and its calibrated scales): the weights stay."""
+        import dataclasses
+
+        same = dataclasses.replace(cfg, image=dataclasses.replace(
+            cfg.image, store_dtype=self.cfg.image.store_dtype,
+            quant_scales=self.cfg.image.quant_scales))
+        if same != self.cfg:
+            raise ValueError("configure changes image.store_dtype and "
+                             "image.quant_scales only")
+        cfg.check_ported()
+        self.cfg = cfg
+        self.image.quant = cfg.image
+
+    def int8_calibrated(self, images, dtype: torch.dtype = torch.bfloat16
+                        ) -> ModelConfig:
+        """The model's configuration in the int8 mode, with the scales
+        calibrated on ``images`` (``[B, H, W, 3]``): one a conv block for
+        the CNN (:func:`~dl_vqa_tpu_torch.ops.conv_int8.
+        calibrate_stem_scales`), four a block for the ViT
+        (:func:`~dl_vqa_tpu_torch.ops.vit_int8.calibrate_vit_scales`)."""
+        calibrate = (with_calibrated_vit_scales
+                     if self.cfg.image.encoder == "vit"
+                     else with_calibrated_scales)
+        return calibrate(self.cfg, self, images, dtype=dtype)
+
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
         """torch's layer defaults, as ``dl_vqa_tpu/models/initializers.py``
@@ -273,12 +318,8 @@ class VqaNet(nn.Module):
         if not train:
             generator = None
         dtype = compute_dtype
-        if images.dtype == torch.uint8:
-            mean = torch.as_tensor(IMAGENET_MEAN, dtype=dtype,
-                                   device=images.device)
-            std = torch.as_tensor(IMAGENET_STD, dtype=dtype,
-                                  device=images.device)
-            images = (images.to(dtype) / 255.0 - mean) / std
+        self.cfg.check_ported(train=train)
+        images = normalize_images(images, dtype)
 
         v = self.image(images, dtype, plain_ops, generator,
                        fused_ops).float()

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argument types; every entry returns an int (cudaError_t unless
 # noted).
 _SIGNATURES = {
@@ -62,8 +63,13 @@ _SIGNATURES = {
     # gates_all, c_all, dh, dc, dgates_all, directions, batch, hidden -> 1
     # where the call runs kernel B's vector kernel, else 0 (not an error)
     "vqa_lstm_backward_step_vector": [_P, _P, _P, _P, _P, _I, _I, _I],
-    # y, bias, out, batch, hc, wc, channels, dtype code, stream
-    "vqa_relu_maxpool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # y, bias, out, batch, hc, wc, channels, dtype code, output mode (0
+    # compute, 1 e4m3, 2 int8), the int8 mode's scale, stream
+    "vqa_relu_maxpool": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, packed weights, mult, bias, out, batch, h, w, cin, cout, k,
+    # stride, scale, stream
+    "vqa_conv_relu_pool_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _F, _P],
     # g, y, bias, dz, batch, hc, wc, channels, dtype code -> 1 where the
     # call runs the vector kernel, else 0 (not an error)
     "vqa_relu_maxpool_backward_vector": [_P, _P, _P, _P, _I, _I, _I, _I, _I],

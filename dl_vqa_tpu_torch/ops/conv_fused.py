@@ -19,6 +19,14 @@ input element once, one thread per output element with channels fastest
 so that a warp's loads are contiguous, and applies bias, ReLU and the
 cast after the max (they are monotone, so the bits are the same).
 
+Kernel 2 has two more output modes for the quantized serving modes, which
+the JAX package computes in XLA: ``e4m3`` for the f8 store
+(:func:`conv_relu_pool_quantstore`: ``relu(f32(y) + b)`` cast to e4m3 with
+no saturation, NaN above :data:`E4M3_OVERFLOW` as JAX's cast gives it,
+widened back; the straight-through backward is kernel C, as for the
+unquantized block) and ``int8`` for the int8 stem's first block
+(``ops/conv_int8.py::quantize_relu_pool``). Both take the max first too.
+
 Kernel C, what bounds it: memory traffic again. It reads the raw conv
 output and the pooled cotangent and writes ``dz`` of the conv output's
 size (3.2 + 0.8 + 3.2 GB for conv0 at batch 512). The forward saves the
@@ -69,6 +77,9 @@ from dl_vqa_tpu_torch.ops import _native
 from dl_vqa_tpu_torch.ops.wgmma_layout import ATOM, swizzle_index
 
 __all__ = ["conv_nhwc", "relu_maxpool_reference", "relu_maxpool_cuda",
+           "relu_maxpool_e4m3_reference", "relu_maxpool_e4m3_cuda",
+           "relu_maxpool_launch", "ReluMaxPoolQuantStore",
+           "conv_relu_pool_quantstore", "E4M3_OVERFLOW",
            "relu_maxpool_backward_reference", "relu_maxpool_backward_cuda",
            "ReluMaxPool", "relu_maxpool", "conv_relu_pool_reference",
            "conv_relu_pool_fused_reference", "conv_relu_pool_fused_cuda",
@@ -81,6 +92,11 @@ __all__ = ["conv_nhwc", "relu_maxpool_reference", "relu_maxpool_cuda",
            "stem_mma_emulation"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Kernel 2's output modes (csrc/relu_maxpool.cu).
+_POOL_MODES = {"compute": 0, "e4m3": 1, "int8": 2}
+# The largest value JAX's f32 -> float8_e4m3fn cast keeps finite: 464 rounds
+# to 448, anything above it becomes NaN (float8_e4m3fn has no infinity).
+E4M3_OVERFLOW = 464.0
 _MAX_SHARED_BYTES = 32 * 1024  # kernel C keeps one f32 per channel there
 FUSED_MIN_CIN = 16  # narrower inputs go to the stem op, not to kernel 6
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
@@ -120,9 +136,30 @@ def relu_maxpool_reference(y: torch.Tensor, bias: torch.Tensor
     return z.reshape(batch, hp, 2, wp, 2, channels).amax(dim=(2, 4))
 
 
-def relu_maxpool_cuda(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Kernel 2 on ``y``'s CUDA device; raises on any input it does not
-    take."""
+def relu_maxpool_e4m3_reference(y: torch.Tensor, bias: torch.Tensor
+                                ) -> torch.Tensor:
+    """Plain version of kernel 2's e4m3 mode, the pool of
+    ``conv_relu_pool_quantstore``: ``relu(f32(y) + bias)`` cast to e4m3,
+    pooled and widened back to ``y``'s dtype. ``.to(float8_e4m3fn)``
+    saturates where JAX's cast gives NaN (every value above
+    :data:`E4M3_OVERFLOW`; at or below it the two agree), so those become
+    NaN here, and the pool carries them as JAX's max does."""
+    batch, hc, wc, channels = y.shape
+    hp, wp = hc // 2, wc // 2
+    z = torch.relu(y[:, :2 * hp, :2 * wp].float() + bias.float())
+    q = z.to(torch.float8_e4m3fn).float()
+    q = torch.where(z > E4M3_OVERFLOW, float("nan"), q)
+    return q.reshape(batch, hp, 2, wp, 2, channels).amax(dim=(2, 4)).to(
+        y.dtype)
+
+
+def relu_maxpool_launch(y: torch.Tensor, bias: torch.Tensor, mode: str,
+                        scale: float = 1.0) -> torch.Tensor:
+    """Kernel 2 in one of its output modes (``compute``, ``e4m3``,
+    ``int8``; ``scale`` is the int8 mode's ``127 / s_out``, rounded to f32
+    here) on ``y``'s CUDA device; raises on any input it does not take.
+    The int8 mode writes int8, the others ``y``'s dtype. Counts nothing:
+    the wrappers of the modes do."""
     if y.dim() != 4 or bias.shape != (y.shape[-1],):
         raise ValueError(f"expected y [B,Hc,Wc,C] and bias [C]; got "
                          f"{tuple(y.shape)}, {tuple(bias.shape)}")
@@ -136,18 +173,40 @@ def relu_maxpool_cuda(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         raise ValueError("y and bias must be contiguous (NHWC)")
     batch, hc, wc, channels = y.shape
     lib = _native.library()
-    out = torch.empty(batch, hc // 2, wc // 2, channels, dtype=y.dtype,
+    out = torch.empty(batch, hc // 2, wc // 2, channels,
+                      dtype=torch.int8 if mode == "int8" else y.dtype,
                       device=y.device)
     code = lib.vqa_relu_maxpool(
         y.data_ptr(), bias.data_ptr(), out.data_ptr(), batch, hc, wc,
-        channels, _DTYPES[y.dtype], _native.stream_ptr(y.device))
+        channels, _DTYPES[y.dtype], _POOL_MODES[mode], scale,
+        _native.stream_ptr(y.device))
     _native.check("relu_maxpool", code)
-    if batch * (hc // 2) and wc // 2:  # nothing is launched for no output
+    return out
+
+
+def relu_maxpool_cuda(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Kernel 2 on ``y``'s CUDA device; raises on any input it does not
+    take."""
+    out = relu_maxpool_launch(y, bias, "compute")
+    if out.numel():  # nothing is launched for no output
         relu_maxpool_cuda.launches += 1
     return out
 
 
 relu_maxpool_cuda.launches = 0
+
+
+def relu_maxpool_e4m3_cuda(y: torch.Tensor, bias: torch.Tensor
+                           ) -> torch.Tensor:
+    """Kernel 2's e4m3 mode on ``y``'s CUDA device; raises on any input it
+    does not take."""
+    out = relu_maxpool_launch(y, bias, "e4m3")
+    if out.numel():
+        relu_maxpool_e4m3_cuda.launches += 1
+    return out
+
+
+relu_maxpool_e4m3_cuda.launches = 0
 
 
 def relu_maxpool_backward_reference(g: torch.Tensor, y: torch.Tensor,
@@ -329,6 +388,36 @@ def relu_maxpool(y: torch.Tensor, bias: torch.Tensor,
     ``plain=True``, runs the plain versions; any other device runs
     kernels 2 and C, which raise where they cannot launch."""
     return ReluMaxPool.apply(y, bias, plain)
+
+
+class ReluMaxPoolQuantStore(ReluMaxPool):
+    """``(y, bias, plain) -> pooled`` with the activations stored in e4m3:
+    kernel 2's e4m3 mode forward (its plain version for a CPU tensor or
+    ``plain=True``). The backward is :class:`ReluMaxPool`'s, kernel C on the
+    saved raw conv output: the exact gradient of the unquantized block,
+    the straight-through estimator of ``_quantstore_bwd`` in the JAX
+    package."""
+
+    @staticmethod
+    def forward(ctx, y, bias, plain):
+        plain = plain or y.device.type == "cpu"
+        ctx.plain = plain
+        ctx.save_for_backward(y, bias)
+        bias = bias.float()
+        return (relu_maxpool_e4m3_reference(y, bias) if plain
+                else relu_maxpool_e4m3_cuda(y, bias))
+
+
+def conv_relu_pool_quantstore(x: torch.Tensor, weight: torch.Tensor,
+                              bias: torch.Tensor, stride: int = 1,
+                              plain: bool = False) -> torch.Tensor:
+    """Port of ``conv_relu_pool_quantstore`` with ``float8_e4m3fn``: the
+    conv (cuDNN, output in ``x``'s dtype), then ``pool(cast_e4m3(relu(
+    f32(conv) + b)))`` cast back to ``x``'s dtype; gradients by the
+    straight-through estimator (:class:`ReluMaxPoolQuantStore`), the conv's
+    by autograd from the same conv output, which is not recomputed."""
+    return ReluMaxPoolQuantStore.apply(conv_nhwc(x, weight, stride), bias,
+                                       plain)
 
 
 def conv_relu_pool_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -705,12 +794,18 @@ def conv_relu_pool_stem(x: torch.Tensor, weight: torch.Tensor,
 
 def conv_relu_pool(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    stride: int = 1, plain: bool = False,
-                   fused: bool = False) -> torch.Tensor:
+                   fused: bool = False, f8_store: bool = False
+                   ) -> torch.Tensor:
     """The block on the model's path: conv, then :func:`relu_maxpool`.
-    ``fused=True`` sends stride 1 with ``Cin >= 16`` through kernel 6
+    ``f8_store=True`` stores the activations in e4m3
+    (:func:`conv_relu_pool_quantstore`) and takes precedence over every
+    other path, as ``store_dtype`` does in the JAX package. ``fused=True``
+    sends stride 1 with ``Cin >= 16`` through kernel 6
     (:class:`ConvReluPoolFused`) and leaves everything else on that path,
     as ``use_pallas`` does in the JAX package; unlike there, nothing falls
     back for want of an accelerator."""
+    if f8_store:
+        return conv_relu_pool_quantstore(x, weight, bias, stride, plain)
     if fused and stride == 1 and x.shape[-1] >= FUSED_MIN_CIN:
         return ConvReluPoolFused.apply(x, weight, bias, plain)
     return relu_maxpool(conv_nhwc(x, weight, stride), bias, plain)

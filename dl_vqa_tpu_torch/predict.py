@@ -9,6 +9,12 @@ device, or already-normalised floats), and answers come back as top-k
 
 ``device`` is the GPU unless the caller passes another; nothing here
 moves work to another device, and without a GPU the default raises.
+
+The quantized serving modes follow the model configuration's
+``image.store_dtype``: ``f8e4m3`` serves at once; ``int8`` needs static
+activation scales, which a calibrate-once checkpoint carries in its
+metadata (adopted at load) or :meth:`Predictor.calibrate_int8` measures on
+sample images (and can save into a new checkpoint).
 """
 
 from __future__ import annotations
@@ -40,12 +46,15 @@ class Predictor:
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
+        if model.cfg != model_cfg:  # a serving mode of the same weights
+            model.configure(model_cfg)
         self.vocab = vocab
         self.question_vocab = vocab["question"]
         self.answer_by_id = {idx: ans for ans, idx in vocab["answer"].items()}
         self.max_question_length = int(max_question_length)
         self.compute_dtype = compute_dtype
         self.fused_ops = fused_ops  # see VqaNet.forward
+        self.checkpoint_meta: Dict = {}  # the metadata it was loaded with
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str, vocab_path: str, *,
@@ -71,6 +80,9 @@ class Predictor:
                     f"{checkpoint_path!r} carries no model_cfg metadata; "
                     "pass model_cfg")
             model_cfg = ModelConfig.from_meta_dict(meta["model_cfg"])
+        # A calibrate-once checkpoint carries the int8 mode's scales: adopt
+        # them, so that a restart needs no calibration data.
+        model_cfg = model_cfg.with_checkpoint_scales(meta)
         if meta.get("max_question_length"):
             max_len = int(meta["max_question_length"])
         else:
@@ -81,8 +93,40 @@ class Predictor:
                 f"default of {max_len} tokens. Longer questions are "
                 "truncated.", stacklevel=2)
         model = load_jax_params(VqaNet(model_cfg, device=device), params)
-        return cls(model_cfg, model, vocab, device=device,
-                   max_question_length=max_len, compute_dtype=compute_dtype)
+        predictor = cls(model_cfg, model, vocab, device=device,
+                        max_question_length=max_len,
+                        compute_dtype=compute_dtype)
+        predictor.checkpoint_meta = meta
+        return predictor
+
+    @property
+    def needs_int8_calibration(self) -> bool:
+        """True while the configuration asks for the int8 mode and no
+        scales are set: a forward raises until :meth:`calibrate_int8`."""
+        return (self.model_cfg.image.store_dtype == "int8"
+                and not self.model_cfg.image.quant_scales)
+
+    def calibrate_int8(self, images, save_to: Optional[str] = None) -> None:
+        """Calibrate the int8 mode's static scales on a representative
+        ``[B, H, W, 3]`` sample (uint8 pixels or normalised floats) and serve
+        with them from now on: the CNN's one scale a conv block
+        (``ops/conv_int8.py``), the ViT's four a block
+        (``ops/vit_int8.py``). ``save_to``: also write the parameters with
+        the calibrated ``model_cfg`` in the metadata, carrying the loaded
+        checkpoint's other metadata through (``max_question_length`` only
+        where it had one), so later starts need no calibration data."""
+        from dl_vqa_tpu_torch.utils.checkpoint import save_params
+
+        cfg = self.model.int8_calibrated(torch.as_tensor(np.asarray(images)),
+                                         dtype=self.compute_dtype)
+        self.model.configure(cfg)
+        self.model_cfg = cfg
+        if save_to:
+            extra = {k: v for k, v in self.checkpoint_meta.items()
+                     if k not in ("model_cfg", "epoch")}
+            save_params(save_to, self.model, model_cfg=cfg,
+                        epoch=self.checkpoint_meta.get("epoch"),
+                        extra_meta=extra)
 
     def encode_questions(self, questions: Sequence[str],
                          max_len: Optional[int] = None

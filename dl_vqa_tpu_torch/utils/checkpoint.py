@@ -31,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "save_checkpoint_async",
+__all__ = ["save_checkpoint", "save_checkpoint_async", "save_params",
            "wait_for_async_saves", "host_snapshot", "load_checkpoint",
            "load_params", "restore_state", "restore_state_meta"]
 
@@ -128,6 +128,21 @@ def save_checkpoint(path: str, state, epoch: Optional[int] = None,
     JSON-serialisable entries into the metadata."""
     _refuse_orbax(path)
     _write(path, host_snapshot(state), _meta(epoch, model_cfg, extra_meta))
+
+
+def save_params(path: str, model: torch.nn.Module,
+                epoch: Optional[int] = None, model_cfg=None,
+                extra_meta: Optional[Dict] = None) -> None:
+    """Write ``model``'s parameters alone, as the bare JAX-layout tree that
+    ``save_checkpoint`` of the JAX package writes for a params tree (no
+    optimizer state), with the same metadata; both packages'
+    ``load_params`` read it."""
+    from dl_vqa_tpu_torch.utils.params import jax_params_from_model
+
+    _refuse_orbax(path)
+    flat: Dict[str, np.ndarray] = {}
+    _flatten_tree(jax_params_from_model(model), "", flat)
+    _write(path, flat, _meta(epoch, model_cfg, extra_meta))
 
 
 _async_executor: Optional[concurrent.futures.ThreadPoolExecutor] = None

@@ -65,12 +65,11 @@ def test_reference_config_is_ported_and_variants_are_not():
 
 @pytest.mark.parametrize("fields,error,match", [
     ({"moe_experts": 8}, NotImplementedError, "moe_experts=8"),
-    ({"store_dtype": "int8"}, NotImplementedError, "store_dtype='int8'"),
     ({"store_dtype": "f8e4m3"}, ValueError, "CNN-stem serving mode"),
-], ids=["moe", "int8", "f8"])
+], ids=["moe", "f8"])
 def test_vit_options_that_are_not_ported_raise(fields, error, match):
-    """MoE blocks and the int8 projections are still to port; f8 storage
-    with the ViT is refused by the JAX model too (a ``ValueError``)."""
+    """MoE blocks are still to port; f8 storage with the ViT is refused by
+    the JAX model too (a ``ValueError``)."""
     base = port_configs.ModelConfig()
     cfg = dataclasses.replace(base, image=dataclasses.replace(
         base.image, encoder="vit", **fields))

@@ -85,6 +85,43 @@ def test_main_and_evaluate_give_the_jax_evaluation_score(profile, tmp_path):
     assert jax_eval.evaluate_hw2(eval_overrides) == score
 
 
+@pytest.fixture(scope="module")
+def f8_trained(profile, tmp_path_factory):
+    """One epoch of the port's ``main`` with the f8 store, which trains
+    through its straight-through backward; the overrides and the best
+    checkpoint."""
+    tmp_path = tmp_path_factory.mktemp("f8_run")
+    overrides = _overrides(profile, tmp_path)
+    port_main.main(port_config.compose(
+        "config", overrides + ["train.num_epochs=1",
+                               "train.image.store_dtype=f8e4m3"]),
+        device="cpu")
+    (exp_dir,) = glob.glob(str(tmp_path / "logs" / "final_model_*"))
+    return overrides + [
+        f"main.small.paths.pretrained_model_path={exp_dir}/model.ckpt",
+        "train.image.stride=1", "train.attention.do_option=+"]
+
+
+@pytest.mark.parametrize("mode", ["compute", "f8e4m3", "int8"])
+def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
+                                                              mode):
+    """A checkpoint trained in the f8 mode, scored in each serving mode by
+    both packages' ``evaluate_hw2``: the same rounded score. int8 has no
+    scales in the checkpoint, so both calibrate on the same rows of the
+    train store (``linspace`` over its images) and score with them; the
+    integer codes agree but where conv0's f32 sums, taken in another
+    order, sit on a rounding boundary, and no answer of this corpus moves
+    with such a code."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import evaluate_vqa as jax_eval
+
+    overrides = f8_trained + [f"train.image.store_dtype={mode}"]
+    score = port_eval.evaluate_hw2(overrides, device="cpu")
+    assert 0.0 <= score <= 100.0
+    assert jax_eval.evaluate_hw2(overrides) == score
+
+
 @pytest.mark.parametrize("override,what", [
     ("tpu.online_images=true", "online JPEG pipeline"),
     ("tpu.native_loader=true", "online JPEG pipeline"),
@@ -94,7 +131,6 @@ def test_main_and_evaluate_give_the_jax_evaluation_score(profile, tmp_path):
     ("tpu.zero_stage=1", "item 9"),
     ("tpu.debug_nans=true", "item 3"),
     ("tpu.profile_dir=/tmp/trace", "profile traces"),
-    ("train.image.store_dtype=int8", "item 7"),
 ])
 def test_settings_the_port_lacks_raise_with_their_roadmap_item(
         profile, tmp_path, override, what):

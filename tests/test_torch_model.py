@@ -187,14 +187,12 @@ def test_nonzero_bias_hh_is_summed_into_the_gates():
 @pytest.mark.parametrize("change", [
     {"text": {"encoder": "transformer"}},
     {"image": {"encoder": "vit", "moe_experts": 8}},
-    {"image": {"store_dtype": "f8e4m3"}},
     {"attention": {"variant": "stacked"}},
     {"attention": {"variant": "co"}},
-    {"image": {"encoder": "vit", "store_dtype": "int8"}},
-], ids=["transformer", "vit", "f8", "stacked", "co", "vit_int8"])
+], ids=["transformer", "vit", "stacked", "co"])
 def test_unported_variants_raise(change):
-    """The dense ViT is ported; of the ViT family its MoE blocks (the
-    ``vit`` case) and its int8 projections are not."""
+    """The dense ViT is ported, and the quantized serving modes; of the ViT
+    family its MoE blocks (the ``vit`` case) are not."""
     cfg = ModelConfig()
     for group, fields in change.items():
         cfg = dataclasses.replace(

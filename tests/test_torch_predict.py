@@ -243,3 +243,110 @@ def test_chip_smoke_exits_nonzero_without_cuda(tmp_path, alone):
                           env=env)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# -- the int8 serving mode's calibrate-once checkpoints, both ways --------
+
+def _int8(cfg):
+    return dataclasses.replace(cfg, image=dataclasses.replace(
+        cfg.image, store_dtype="int8", quant_scales=()))
+
+
+def _jax_predictor(checkpoint, vocab_path):
+    """The JAX package's Predictor over ``_jax_cfg()``'s model in the int8
+    mode, composed as its entry points compose it."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import predict as jax_predict
+    from dl_vqa_tpu import config as jax_config
+
+    cfg = jax_config.compose("config", [
+        "train.text.question_features=16", "train.text.embedding_features=8",
+        "train.image.num_channels=[3, 4, 6, 8]", "train.image.stride=1",
+        "train.image.store_dtype=int8", "train.attention.hidden_dim=12",
+        "train.attention.do_option=+", "train.classifier.hidden_dim=10",
+        f"train.max_answers={len(ANSWERS)}", "train.image_size=40",
+        "tpu.compute_dtype=float32"])
+    return jax_predict.Predictor(cfg, checkpoint, vocab_path)
+
+
+def _images(seed=8, n=6):
+    return np.random.default_rng(seed).integers(0, 256, (n, 40, 40, 3),
+                                                dtype=np.uint8)
+
+
+def test_calibrate_int8_saves_a_checkpoint_both_packages_serve(tmp_path):
+    """The port calibrates the int8 stem on sample images and saves the
+    parameters with the scales in the metadata (epoch and
+    max_question_length carried through). The port reloads it with the
+    scales, from the metadata alone or adopting them under a configuration
+    that has none, and serves the same logits to the bit; the JAX package's
+    Predictor adopts the same scales and its logits agree to 2e-4 (one
+    code may move where conv0's sums meet a rounding boundary)."""
+    cfg, _, path, vocab_path = _write(tmp_path, full_state=True)
+    port_cfg = _int8(ModelConfig.from_meta_dict(dataclasses.asdict(cfg)))
+    predictor = Predictor.from_checkpoint(path, vocab_path, device="cpu",
+                                          model_cfg=port_cfg,
+                                          compute_dtype=torch.float32)
+    assert predictor.needs_int8_calibration
+    saved = str(tmp_path / "calibrated.npz")
+    predictor.calibrate_int8(_images(), save_to=saved)
+    assert not predictor.needs_int8_calibration
+    scales = predictor.model_cfg.image.quant_scales
+    assert len(scales) == 3 and all(s > 0 for s in scales)
+    images = _images(9, 3)
+    encoded, lengths = predictor.encode_questions(
+        ["what color is the dog", "how many", "is it"])
+    logits = predictor.forward_logits(images, encoded, lengths)
+
+    _, meta = load_params(saved, with_meta=True)
+    assert meta["epoch"] == 3 and meta["max_question_length"] == 6
+    assert tuple(meta["model_cfg"]["image"]["quant_scales"]) == scales
+    for given in (None, port_cfg):
+        again = Predictor.from_checkpoint(saved, vocab_path, device="cpu",
+                                          model_cfg=given,
+                                          compute_dtype=torch.float32)
+        assert again.model_cfg.image.quant_scales == scales
+        np.testing.assert_array_equal(
+            again.forward_logits(images, encoded, lengths), logits)
+
+    jax_side = _jax_predictor(saved, vocab_path)
+    assert not jax_side.needs_int8_calibration
+    assert jax_side.model_cfg.image.quant_scales == scales
+    expected = np.asarray(jax_side._forward(
+        jax_side.params, jnp.asarray(images), jnp.asarray(encoded),
+        jnp.asarray(lengths)))
+    np.testing.assert_allclose(logits, expected, atol=2e-4, rtol=0)
+
+
+def test_a_jax_calibrate_once_checkpoint_serves_in_the_port(tmp_path):
+    """The reverse: the JAX package's ``Predictor.calibrate_int8(save_to=
+    ...)`` writes the scales; the port's Predictor adopts them (1e-6
+    relative of the port's own calibration on the same images) and serves
+    logits within 2e-4 of the JAX package's."""
+    cfg, _, path, vocab_path = _write(tmp_path, full_state=False)
+    jax_side = _jax_predictor(path, vocab_path)
+    assert jax_side.needs_int8_calibration
+    saved = str(tmp_path / "jax_calibrated.npz")
+    jax_side.calibrate_int8(_images().astype(np.float32) / 255.0,
+                            save_to=saved)
+    scales = jax_side.model_cfg.image.quant_scales
+    port_cfg = _int8(ModelConfig.from_meta_dict(dataclasses.asdict(cfg)))
+    predictor = Predictor.from_checkpoint(saved, vocab_path, device="cpu",
+                                          model_cfg=port_cfg,
+                                          compute_dtype=torch.float32)
+    assert predictor.model_cfg.image.quant_scales == scales
+    mine = Predictor.from_checkpoint(path, vocab_path, device="cpu",
+                                     model_cfg=port_cfg,
+                                     compute_dtype=torch.float32)
+    mine.calibrate_int8(_images().astype(np.float32) / 255.0)
+    np.testing.assert_allclose(mine.model_cfg.image.quant_scales, scales,
+                               rtol=1e-6)
+    images = _images(9, 3)
+    encoded, lengths = predictor.encode_questions(["what color", "dog", "is"])
+    expected = np.asarray(jax_side._forward(
+        jax_side.params, jnp.asarray(images), jnp.asarray(encoded),
+        jnp.asarray(lengths)))
+    np.testing.assert_allclose(
+        predictor.forward_logits(images, encoded, lengths), expected,
+        atol=2e-4, rtol=0)
