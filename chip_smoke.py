@@ -74,12 +74,35 @@
    with the compute mode; one f8 train step, its gradients held to the
    plain path's at batch 8; and ``evaluate_vqa`` in f8 and int8
    (calibrated on the train store) on phase 9's best checkpoint: one JSON
-   line ``{"quant": ...}``.
+   line ``{"quant": ...}``;
+11. the serving front: the reference-parity model's random weights from
+   the seed saved as an npz checkpoint under ``_smoke_serving/`` with a
+   vocab.json of 15,193 ids and 3,000 answers. The port's decoder on this
+   host (libjpeg, or nvJPEG where the host has none) against PIL's pixels
+   of the committed fixtures (``dl_vqa_tpu_torch/tools/fixtures``);
+   ``serving_http``: ``serve.build_server`` (max_batch 64, window 5 ms)
+   answers the fixtures posted at once, each answer held to the
+   Predictor's forward of the same pixels, then closed-loop clients (a
+   process of their own) posting the COCO-sized fixture (640x480, 62 KB)
+   at concurrency 1, 8 and 64, client and server
+   p50/p99, QA/s and mean batch, kernels 1, 2 and 3 launched 1, 3 and 1
+   times a served batch; ``Predictor.forward_probs`` alone at B = 1, 8,
+   64; an int8 server calibrated on the fixtures (kernel D twice a batch);
+   ``serving_native``: the same through ``serve.build_native_server``,
+   its answers held to the Python front's, or, on a host with no libjpeg,
+   its refusal to build naming ``jpeglib.h``; ``python -m
+   dl_vqa_tpu_torch.serve --port 0`` (and ``--native-front``) as a process
+   of its own, its answers held to the Predictor's; ``submission`` (after
+   phase 9): ``python -m dl_vqa_tpu_torch.predict --submission`` as a
+   subprocess on cnn_e2e's corpus and best checkpoint, table on and off,
+   the two files equal and each answer the eval forward's argmax: one
+   JSON line ``{"serving": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 the layout probe, the three quantized serving paths and the f8 train step,
-cnn_e2e, and its quantized evaluations) is driven with the kernels'
+the serving front's HTTP, int8 HTTP and native paths, cnn_e2e, and its
+quantized evaluations) is driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels and kernel 7 its tensor-core
 kernel (``FAST_PATHS``). Then
@@ -231,6 +254,24 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    modes move a few answers of 1,024 questions (each answer 0.1 pp or
 #    less), and a broken mode answers at chance (the JAX package's deltas
 #    were -0.018 and +0.007 pp on its hard task).
+#  decode_libjpeg: 1 uint8 level against PIL's pixels of the committed
+#    fixtures (tools/fixtures/expected.npz): the same libjpeg decode, PIL's
+#    resize in fixed point where the native code resizes in float.
+#  decode_nvjpeg: 4 levels on every fixture. The decoder of a host with no
+#    libjpeg takes nvJPEG's planes and upsamples and converts them as
+#    libjpeg does (csrc/host/ycc.cc, equal to libjpeg's RGB on libjpeg's
+#    planes in the CPU tests), so only nvJPEG's inverse DCT differs from
+#    libjpeg's, by a level or two an element (nvJPEG's own RGB output,
+#    which upsamples chroma otherwise, was within 3 levels on the 4:4:4
+#    and greyscale fixtures on the H100 host and 64 off at 4:2:2 chroma
+#    edges). A swapped channel or a crop a pixel off moves tens of levels.
+#  served_probs: a served probability against the Predictor's forward of
+#    the same pixels and question, relative. A served batch pads to its
+#    bucket, and cuDNN may choose another algorithm at another batch size,
+#    so the logits may move as the kernel and plain paths' may
+#    (logits_bf16, 5e-4) and a probability by a factor within exp(+-2 *
+#    5e-4): 1e-3. Answers must agree at every rank where the reference's
+#    neighbouring probabilities differ from it by more than that.
 TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "vit_mlp_bf16_floor": 2.0 ** -8,
        "layout_cases": 0.0, "fused_grads_f32": 1e-5, "fused_grads_bf16": 1e-3,
@@ -249,7 +290,9 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "e2e_resume": 0.0, "e2e_eval_score": 1e-3,
        "relu_maxpool_e4m3": 0.0, "relu_maxpool_int8": 0.0,
        "conv_relu_pool_int8": 0.0, "quant_eval_pp": 3.0,
-       "logits_f32_int8_vit": 1e-4}
+       "logits_f32_int8_vit": 1e-4, "decode_libjpeg": 1,
+       "decode_nvjpeg": 4,
+       "served_probs": 1e-3}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores, dense
 # int8 tensor-core rate.
@@ -2674,6 +2717,688 @@ def e2e_timings(torch, compose, batches: int) -> dict:
     return out
 
 
+# The serving front: the reference-parity model at full width,
+# random weights from the seed saved as an npz checkpoint beside a
+# vocab.json of 15,193 ids and 3,000 answers, served through the port's
+# HTTP front, its native front and its predict CLI.
+SERVING_DIR = "_smoke_serving"  # under the checkout; .gitignore lists it
+SERVE_MAX_BATCH, SERVE_WINDOW_MS, SERVE_TOP_K = 64, 5.0, 5
+# Closed loop: concurrency -> requests a client, each level several hundred
+# requests (400, 480, 1,536) and dozens of batches; every request posts the
+# COCO-sized fixture (load_bodies).
+LOAD = {1: 400, 8: 60, 64: 24}
+FORWARD_GRIDS = {"relu_maxpool": 3, "attention_pool": 1}  # a CNN batch
+
+
+def serving_overrides(root: str, extra=()) -> list:
+    """Overrides of ``config_eval`` that give ``ModelConfig()`` (stride 1,
+    '+' fusion, dropout 0.3) on the checkpoint and vocab under ``root``."""
+    return (["main.use_full=false",
+             f"main.small.paths.vocab_path={root}/vocab.json",
+             f"main.small.paths.pretrained_model_path={root}/model.npz",
+             "train.image.stride=1", "train.attention.do_option=+"]
+            + [f"train.{part}.dropout=0.3"
+               for part in ("text", "image", "attention", "classifier")]
+            + list(extra))
+
+
+def fixture_requests():
+    """``[(name, jpeg bytes, question)]``: each fixture with two
+    questions."""
+    import os
+
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        FIXTURES, LAYOUTS)
+
+    out = []
+    for i, name in enumerate(LAYOUTS):
+        with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as fd:
+            raw = fd.read()
+        for question in QUESTIONS[2 * i % len(QUESTIONS):][:2]:
+            out.append((name, raw, question))
+    return out
+
+
+def load_bodies() -> list:
+    """The closed loop's requests: the COCO-sized fixture (640x480, the
+    pixels of a VQA 2.0 image) with each question of QUESTIONS."""
+    import os
+
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        FIXTURES, LOAD_FIXTURE)
+
+    with open(os.path.join(FIXTURES, f"{LOAD_FIXTURE}.jpg"), "rb") as fd:
+        raw = fd.read()
+    return [request_body(raw, q) for q in QUESTIONS]
+
+
+def request_body(raw: bytes, question: str) -> bytes:
+    import base64
+
+    return json.dumps({"image_b64": base64.b64encode(raw).decode(),
+                       "question": question,
+                       "top_k": SERVE_TOP_K}).encode()
+
+
+def post(url: str, body: bytes) -> tuple:
+    """``(status, payload)`` of one POST, within 60 s."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def get(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def post_all(url: str, bodies) -> list:
+    """Every body posted at once, one thread each; the payloads in order."""
+    import threading
+
+    results = [None] * len(bodies)
+
+    def one(i):
+        results[i] = post(url, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    for (status, payload), body in zip(results, bodies):
+        require(status == 200, f"POST {url}: {status} {payload}")
+    return [payload["answers"] for _, payload in results]
+
+
+def load_client(url: str, bodies, concurrency: int, per_client: int):
+    """Closed-loop clients, run in a process of their own (they take no
+    share of the server's interpreter lock): ``concurrency`` threads, each
+    sending ``per_client`` requests one after another. Returns ``(wall s,
+    [latency ms], [status])``."""
+    import threading
+
+    latencies, statuses = [], []
+    lock = threading.Lock()
+
+    def client(i):
+        for r in range(per_client):
+            t0 = time.perf_counter()
+            try:
+                status, _ = post(url,
+                                 bodies[(i * per_client + r) % len(bodies)])
+            except OSError as exc:  # refused, reset, timed out: counted
+                status = type(exc).__name__
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                latencies.append(ms)
+                statuses.append(status)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(concurrency)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, latencies, statuses
+
+
+def percentile(values, q: float) -> float:
+    """The serving fronts' own order statistic: sorted[int(q * n)]."""
+    ordered = sorted(values)
+    return float(ordered[min(len(ordered) - 1, int(q * len(ordered)))])
+
+
+def hold_answers(answers, ref_probs, answer_by_id, what: str) -> float:
+    """Served top-k ``[(answer, p)]`` against the reference's probabilities
+    of every answer: each p within ``TOL["served_probs"]`` (relative) of the
+    reference's for that answer, in descending order, and the reference's
+    answer at each rank wherever its neighbours' probabilities differ from
+    it by more than that. Returns the largest relative error."""
+    tol = TOL["served_probs"]
+    index = {a: i - 1 for i, a in answer_by_id.items()}
+    order = np.argsort(-ref_probs, kind="stable")
+    require(len(answers) == SERVE_TOP_K, f"{what}: top-{SERVE_TOP_K}")
+    probs = [p for _, p in answers]
+    require(probs == sorted(probs, reverse=True), f"{what}: descending")
+    worst = 0.0
+    for rank, (name, p) in enumerate(answers):
+        want = float(ref_probs[index[name]])
+        err = abs(p - want) / want
+        worst = max(worst, err)
+        require(err <= tol, f"{what}: {name} served {p}, reference {want}")
+        here = ref_probs[order[rank]]
+        above = ref_probs[order[rank - 1]] if rank else np.inf
+        below = ref_probs[order[rank + 1]]
+        if above - here > tol * here and here - below > tol * here:
+            require(index[name] == order[rank],
+                    f"{what}: rank {rank} served {name}, reference "
+                    f"{answer_by_id[int(order[rank]) + 1]}")
+    return worst
+
+
+def decode_check(torch) -> dict:
+    """The port's decoders on this host against PIL's pixels of the
+    committed fixtures: nvJPEG (the decoder of a CUDA device on a host
+    with no libjpeg) within TOL["decode_nvjpeg"] levels, and libjpeg,
+    where the host has it, within TOL["decode_libjpeg"]; each one's time a
+    fixture (median of 20, one thread), the COCO-sized one's as
+    ``decode_ms_per_image``."""
+    from dl_vqa_tpu_torch.data.images import decode_image, decoder_for
+    from dl_vqa_tpu_torch.ops import _host
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        LAYOUTS, LOAD_FIXTURE, load_expected)
+
+    expected = load_expected()
+    raws = {name: raw for name, raw, _ in fixture_requests()}
+    libjpeg_missing = _host.missing("image")
+    decoders = ["nvjpeg"] + (["libjpeg"] if libjpeg_missing is None else [])
+    out = {"serving_decoder": decoder_for("cuda"),
+           "libjpeg_missing": libjpeg_missing}
+    for decoder in decoders:
+        per_fixture = {}
+        for name, (w, h, _, _) in LAYOUTS.items():
+            got = decode_image(raws[name], 224, 0.875, decoder)
+            diff = np.abs(got.astype(np.int32) - expected[name])
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                decode_image(raws[name], 224, 0.875, decoder)
+                times.append((time.perf_counter() - t0) * 1e3)
+            per_fixture[name] = {"pixels": f"{w}x{h}",
+                                 "bytes": len(raws[name]),
+                                 "max": int(diff.max()),
+                                 "mean": float(diff.mean()),
+                                 "ms": float(np.median(times))}
+            require(diff.max() <= TOL[f"decode_{decoder}"],
+                    f"{decoder} decode of {name}: {per_fixture[name]}")
+        ms = per_fixture[LOAD_FIXTURE]["ms"]
+        log(f"decoder {decoder} on this host against PIL's pixels: "
+            + ", ".join(f"{n} ({v['pixels']}, {v['bytes']} B) max "
+                        f"{v['max']} mean {v['mean']:.3f} {v['ms']:.3f} ms"
+                        for n, v in per_fixture.items()))
+        out[decoder] = {"fixtures": per_fixture, "decode_ms_per_image": ms}
+    out["nvjpeg"]["while_card_busy"] = nvjpeg_while_busy(
+        torch, raws[LOAD_FIXTURE])
+    return out
+
+
+def nvjpeg_while_busy(torch, raw: bytes, threads: int = 3) -> dict:
+    """Whether an nvJPEG decode waits for the model's work: a kernel that
+    spins on the legacy default stream (the model's) for about 200 ms, and
+    meanwhile ``threads`` decodes of ``raw`` at once, so that all but one
+    take a decoder slot never used (its state, stream and buffers
+    allocated). Returns the spin's ms and each decode's ms, ascending."""
+    import threading
+
+    from dl_vqa_tpu_torch.data.images import decode_image
+
+    times = []
+
+    def one():
+        t0 = time.perf_counter()
+        decode_image(raw, 224, 0.875, "nvjpeg")
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(int(4e8))
+    workers = [threading.Thread(target=one) for _ in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    torch.cuda.synchronize()
+    spin = (time.perf_counter() - t0) * 1e3
+    out = {"spin_ms": spin, "decode_ms": sorted(times)}
+    log(f"nvJPEG decodes while the card spins {spin:.1f} ms on the default "
+        f"stream: {', '.join(f'{t:.2f}' for t in sorted(times))} ms")
+    return out
+
+
+def make_serving_checkpoint(torch, seed: int, root: str) -> None:
+    """``model.npz`` (random weights from the seed, ``ModelConfig()``) and
+    ``vocab.json`` under ``root``, made afresh."""
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.utils.checkpoint import save_params
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = ModelConfig()
+    with open(os.path.join(root, "vocab.json"), "w") as fd:
+        json.dump(make_vocab(cfg.num_tokens, cfg.max_answers), fd)
+    model = VqaNet(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+    save_params(os.path.join(root, "model.npz"), model, model_cfg=cfg,
+                extra_meta={"max_question_length": SEQ_LEN})
+
+
+def reference_probs(predictor, requests) -> np.ndarray:
+    """``predictor``'s probabilities for the requests' decoded pixels and
+    questions, in one batch: what the served answers are held to (run
+    before a path's launches are counted)."""
+    pixels = np.stack([predictor.preprocess_image(raw)
+                       for _, raw, _ in requests])
+    encoded, lengths = predictor.encode_questions([q for _, _, q in requests])
+    return predictor.forward_probs(pixels, encoded, lengths)
+
+
+def hold_served(predictor, requests, answers, ref, what: str) -> float:
+    """Each served answer list against its row of ``ref``."""
+    return max(hold_answers(top, row, predictor.answer_by_id,
+                            f"{what} {name} {question!r}")
+               for (name, _, question), top, row in zip(requests, answers,
+                                                       ref))
+
+
+def latency_levels(pool, bodies, start) -> dict:
+    """Closed-loop load at each concurrency of LOAD: the clients' p50/p99
+    and QA/s, the server's own p50/p99 and its mean batch. ``start()``
+    readies the front for a level and returns ``(url, read)``; ``read()``
+    after the level gives the server's ``{"p50", "p99", "batches",
+    "requests"}`` for it."""
+    out = {}
+    for concurrency, per_client in LOAD.items():
+        url, read = start()
+        wall, lat, statuses = pool.apply(
+            load_client, (url, bodies, concurrency, per_client))
+        require(statuses == [200] * concurrency * per_client,
+                f"closed loop at {concurrency}: statuses "
+                f"{sorted(set(map(str, statuses)))}")
+        server = read()
+        out[concurrency] = {
+            "requests": len(lat), "client_p50_ms": percentile(lat, 0.5),
+            "client_p99_ms": percentile(lat, 0.99),
+            "server_p50_ms": server["p50"], "server_p99_ms": server["p99"],
+            "qa_per_s": len(lat) / wall, "batches": server["batches"],
+            "mean_batch": server["requests"] / server["batches"]}
+        log(f"  concurrency {concurrency}: {json.dumps(out[concurrency])}")
+    return out
+
+
+def predictor_latency(torch, predictor) -> dict:
+    """``Predictor.forward_probs`` alone at B = 1, 8, 64 (uint8 host
+    arrays in, probabilities on the host out): median ms of 20 after 3."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for b in LATENCY_BATCHES:
+        images = rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)
+        encoded, lengths = predictor.encode_questions(
+            [QUESTIONS[i % len(QUESTIONS)] for i in range(b)])
+        times = []
+        for i in range(23):
+            t0 = time.perf_counter()
+            predictor.forward_probs(images, encoded, lengths)
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[b] = float(np.median(times))
+    return out
+
+
+def serving_http_phase(torch, seed: int, pool, recurrence: int) -> tuple:
+    """The Python front (``serve.build_server``, max_batch 64, window 5 ms)
+    at full width: the fixtures posted at once, every answer held to the
+    Predictor's forward of the same pixels; closed-loop clients posting
+    the COCO-sized fixture at concurrency 1, 8 and 64 (``LOAD``); kernels
+    1, 2 and 3 launched 1, 3 and 1 times
+    a served batch over all of it (warmup excluded); the Predictor alone
+    at B = 1, 8, 64. Then an int8 server calibrated on the fixtures, kernel
+    D twice a batch. Returns ``({path: launches}, numbers, (the Python
+    front's answers to the fixture requests, the Predictor's probabilities
+    for them))``."""
+    import dataclasses
+    import os
+    import threading
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch import serve
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import FIXTURES
+
+    wrappers = kernel_wrappers()
+    root = os.path.abspath(SERVING_DIR)
+    make_serving_checkpoint(torch, seed, root)
+    requests = fixture_requests()
+    bodies = [request_body(raw, q) for _, raw, q in requests]
+    numbers, paths, python_answers = {}, {}, None
+    for label, extra, cal in (
+            ("serving_http", [], None),
+            ("serving_http_int8", ["train.image.store_dtype=int8"],
+             FIXTURES)):
+        cfg = config_mod.compose("config_eval",
+                                 serving_overrides(root, extra))
+        t0 = time.perf_counter()
+        httpd, service = serve.build_server(
+            cfg, port=0, max_batch=SERVE_MAX_BATCH,
+            batch_window_ms=SERVE_WINDOW_MS, int8_calibration_dir=cal)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            predictor = service.predictor
+            start_s = time.perf_counter() - t0
+            want_cfg = ModelConfig()
+            if cal:
+                scales = predictor.model_cfg.image.quant_scales
+                require(len(scales) == len(want_cfg.image.num_channels) - 1,
+                        "int8 scales from the fixtures, one a conv block")
+                want_cfg = dataclasses.replace(want_cfg, image=dataclasses.
+                                               replace(want_cfg.image,
+                                                       store_dtype="int8",
+                                                       quant_scales=scales))
+            require(predictor.model_cfg == want_cfg,
+                    f"{label}: the served model is ModelConfig(): "
+                    f"{predictor.model_cfg}")
+            t0 = time.perf_counter()
+            service.warmup(block=True)
+            warm_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            health = get(url + "/healthz")
+            require(health["backend"] == "cuda", f"/healthz {health}")
+            before = get(url + "/metrics")
+            require(before["warmed_buckets"] == 7, f"warmup: {before}")
+            ref = reference_probs(predictor, requests)
+            reset_launches(wrappers)
+            answers = post_all(url + "/v1/answer", bodies)
+            worst = hold_served(predictor, requests, answers, ref, label)
+            out = {"start_s": start_s, "warmup_s": warm_s,
+                   "served_probs_max_rel_err": worst, "health": health}
+            if not cal:
+                def start():
+                    with service.lock:
+                        service.latencies_ms.clear()
+                    at = service.metrics()
+
+                    def read():
+                        m = service.metrics()
+                        return {"p50": m["latency_p50_ms"],
+                                "p99": m["latency_p99_ms"],
+                                "batches": m["batches"] - at["batches"],
+                                "requests": m["batched_requests"]
+                                - at["batched_requests"]}
+                    return url + "/v1/answer", read
+
+                log(f"{label}: closed-loop clients")
+                out["load"] = latency_levels(pool, load_bodies(), start)
+                python_answers = answers, ref
+            torch.cuda.synchronize()
+            launches = read_launches(wrappers, f"the {label} path")
+            after = get(url + "/metrics")
+            batches = after["batches"] - before["batches"]
+            grids = ({"relu_maxpool_int8": 1, "conv_relu_pool_int8": 2,
+                      "attention_pool": 1} if cal else FORWARD_GRIDS)
+            expected = {"lstm_recurrence": recurrence * batches,
+                        **{k: v * batches for k, v in grids.items()}}
+            log(f"{label}: {len(bodies)} fixture requests answered (max "
+                f"relative error of a probability {worst:.3e}, tol "
+                f"{TOL['served_probs']:g}); {after['requests']} requests in "
+                f"{batches} batches, kernel launches {json.dumps(launches)}")
+            require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+                    f"kernel launches on {label}: {launches}, expected "
+                    f"{expected} for {batches} batches")
+            out["metrics"] = after
+            if not cal:
+                out["predictor_ms"] = predictor_latency(torch, predictor)
+                log(f"{label}: Predictor.forward_probs alone, ms at B = "
+                    f"1, 8, 64: {json.dumps(out['predictor_ms'])}")
+            numbers[label], paths[label] = out, launches
+        finally:
+            service.stop()
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+    return paths, numbers, python_answers
+
+
+def serve_cli(root: str, extra=()):
+    """``python -m dl_vqa_tpu_torch.serve [overrides] --port 0 [extra]`` as
+    a process of its own: ``(process, url, stderr file)`` once it prints
+    the line that names its port, url None when it exits first."""
+    import os
+    import queue
+    import threading
+
+    name = "serve_cli" + "".join(extra).replace("-", "_")
+    err_path = os.path.join(root, f"{name}_stderr.txt")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dl_vqa_tpu_torch.serve", "--port", "0",
+             "--no-warmup", *extra, *serving_overrides(root)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=err, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.perf_counter() + 300
+    while time.perf_counter() < deadline:
+        try:
+            line = lines.get(timeout=max(deadline - time.perf_counter(), 0))
+        except queue.Empty:
+            break
+        if line is None:
+            proc.wait(timeout=60)
+            return proc, None, err_path
+        if line.startswith("serving on http://"):
+            return proc, line.split()[2], err_path
+    proc.kill()
+    raise AssertionError(f"{name}: no port named in 300 s")
+
+
+def serving_cli_phase(requests, ref, answer_by_id) -> dict:
+    """The entry point as a user starts it: ``python -m
+    dl_vqa_tpu_torch.serve ... --port 0`` answers the fixture requests,
+    each held to the in-process Predictor's ``ref``; ``--native-front``
+    does too where the host has libjpeg, and elsewhere exits nonzero
+    naming ``jpeglib.h``."""
+    import os
+
+    from dl_vqa_tpu_torch.ops import _host
+
+    root = os.path.abspath(SERVING_DIR)
+    bodies = [request_body(raw, q) for _, raw, q in requests]
+    out = {}
+    for extra in ((), ("--native-front",)):
+        label = "native" if extra else "http"
+        t0 = time.perf_counter()
+        proc, url, err_path = serve_cli(root, extra)
+        try:
+            if url is None:
+                with open(err_path) as fd:
+                    err = fd.read()
+                require(bool(extra) and _host.missing("serve") is not None
+                        and proc.returncode != 0 and "jpeglib.h" in err,
+                        f"serve {' '.join(extra)} exited {proc.returncode}: "
+                        f"{err[-2000:]}")
+                out[label] = {"refused": err.strip().splitlines()[-1]}
+                continue
+            start_s = time.perf_counter() - t0
+            answers = post_all(url + "/v1/answer", bodies)
+            worst = max(hold_answers(top, row, answer_by_id,
+                                     f"serve CLI {label} {name} {q!r}")
+                        for (name, _, q), top, row in zip(requests, answers,
+                                                         ref))
+            out[label] = {"start_s": start_s,
+                          "served_probs_max_rel_err": worst}
+        finally:
+            if proc.poll() is None:
+                proc.terminate()
+                proc.wait(timeout=60)
+    log(f"serve CLI: {json.dumps(out)}")
+    return out
+
+
+def serving_native_phase(torch, seed: int, pool, recurrence: int,
+                         python_answers: list) -> tuple:
+    """The native front (``serve.build_native_server``) on the same
+    checkpoint and requests, where the host has libjpeg: its answers held
+    to the Python front's and to the Predictor's forward, the same closed
+    loop (a fresh front a level, so that its latency window is the
+    level's), kernels 1, 2 and 3 launched 1, 3 and 1 times a batch. Where
+    the host has no libjpeg, the front must refuse to build and name what
+    is missing (no other decoder stands in). Returns ``(launches or None,
+    numbers)``."""
+    import os
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch import serve
+    from dl_vqa_tpu_torch.ops import _host
+    from dl_vqa_tpu_torch.utils.native_front import NativeFrontService
+
+    root = os.path.abspath(SERVING_DIR)
+    cfg = config_mod.compose("config_eval", serving_overrides(root))
+    missing = _host.missing("serve")
+    if missing is not None:
+        refused = None
+        try:
+            serve.build_native_server(cfg, port=0)
+        except RuntimeError as exc:
+            refused = str(exc)
+        require(refused is not None and "jpeglib.h" in refused,
+                f"the native front without libjpeg: {refused!r}")
+        log(f"serving_native: blocked on this host ({missing}); "
+            "build_native_server refuses and names it (ROADMAP item 8)")
+        return None, {"blocked": missing}
+
+    wrappers = kernel_wrappers()
+    requests = fixture_requests()
+    bodies = [request_body(raw, q) for _, raw, q in requests]
+    fronts = [serve.build_native_server(
+        cfg, port=0, max_batch=SERVE_MAX_BATCH,
+        batch_window_ms=SERVE_WINDOW_MS)]
+    predictor = fronts[0].predictor
+    tol = 2 * TOL["served_probs"]
+    try:
+        fronts[0].start_dispatch()
+        fronts[0].warmup(block=True)
+        url = f"http://127.0.0.1:{fronts[0].port}"
+        require(fronts[0].metrics()["warmed_buckets"] == 7, "warmup")
+        batches_before = fronts[0].metrics()["batches"]
+        ref = reference_probs(predictor, requests)
+        reset_launches(wrappers)
+        answers = post_all(url + "/v1/answer", bodies)
+        worst = hold_served(predictor, requests, answers, ref,
+                            "serving_native")
+        for (name, _, q), mine, theirs in zip(requests, answers,
+                                             python_answers):
+            theirs = dict(theirs)
+            for answer, p in mine:
+                if answer in theirs:
+                    require(abs(p - theirs[answer]) <= tol * theirs[answer],
+                            f"native vs Python front, {name} {q!r}: "
+                            f"{answer} {p} against {theirs[answer]}")
+        batches = fronts[0].metrics()["batches"] - batches_before
+
+        def start():
+            fronts[-1].stop()
+            fronts.append(NativeFrontService(
+                predictor, port=0, max_batch=SERVE_MAX_BATCH,
+                batch_window_ms=SERVE_WINDOW_MS))
+            fronts[-1].start_dispatch()
+
+            def read():
+                m = fronts[-1].metrics()
+                return {"p50": m["latency_p50_ms"], "p99": m["latency_p99_ms"],
+                        "batches": m["batches"],
+                        "requests": m["batched_requests"]}
+            return f"http://127.0.0.1:{fronts[-1].port}/v1/answer", read
+
+        log("serving_native: closed-loop clients")
+        load = latency_levels(pool, load_bodies(), start)
+        torch.cuda.synchronize()
+        launches = read_launches(wrappers, "the serving_native path")
+    finally:
+        fronts[-1].stop()
+    batches += sum(level["batches"] for level in load.values())
+    expected = {"lstm_recurrence": recurrence * batches,
+                **{k: v * batches for k, v in FORWARD_GRIDS.items()}}
+    log(f"serving_native: {len(bodies)} fixture requests answered (max "
+        f"relative error of a probability {worst:.3e}); {batches} batches, "
+        f"kernel launches {json.dumps(launches)}")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on serving_native: {launches}, expected "
+            f"{expected}")
+    return launches, {"served_probs_max_rel_err": worst, "load": load}
+
+
+def submission_phase(torch, seed: int, prof: dict) -> dict:
+    """``python -m dl_vqa_tpu_torch.predict --submission`` as a subprocess
+    on cnn_e2e's corpus and best checkpoint, with the device image table on
+    and then off: one entry a val question in dataset order, the two files
+    equal, and each answer the argmax of the eval forward (the model on the
+    same batch of the val batcher, in this process)."""
+    import os
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.data.dataset import load_or_build_val_dataset
+    from dl_vqa_tpu_torch.data.pipeline import Batcher
+    from dl_vqa_tpu_torch.predict import Predictor
+
+    root = os.path.abspath(E2E_DIR)
+    best_ckpt = os.path.join(exp_dir_of(root, "e2e_straight"), "model.ckpt")
+    overrides = e2e_overrides(prof, root, "e2e_submission", seed, [
+        f"main.small.paths.pretrained_model_path={best_ckpt}",
+        "train.image.stride=1", "train.attention.do_option=+"])
+    files, seconds = {}, {}
+    for table in ("on", "off"):
+        out = os.path.join(root, f"submission_{table}.json")
+        t0 = time.perf_counter()
+        with open(os.path.join(root, f"submission_{table}_stdout.txt"),
+                  "w") as stdout:
+            subprocess.run(
+                [sys.executable, "-m", "dl_vqa_tpu_torch.predict",
+                 "--submission", out, *overrides,
+                 f"tpu.device_image_cache={table}"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=stdout, stderr=subprocess.STDOUT, timeout=600,
+                check=True)
+        seconds[table] = time.perf_counter() - t0
+        with open(out) as fd:
+            files[table] = json.load(fd)
+    cfg = config_mod.compose("config_eval", overrides)
+    val = load_or_build_val_dataset(cfg, cfg["main"]["small"])
+    entries = files["on"]
+    require(files["off"] == entries, "the submission with the table on "
+            "and off")
+    require([e["question_id"] for e in entries]
+            == [int(q) for q in val.question_ids],
+            f"{len(entries)} entries, one a val question in dataset order "
+            f"({len(val)})")
+    predictor = Predictor.from_config(cfg)
+    argmax = []
+    for batch in Batcher(val, cfg["train"]["batch_size"]):
+        logits = predictor.forward_logits(batch["images"],
+                                          batch["questions"],
+                                          batch["lengths"])
+        argmax += [predictor.answer_by_id.get(int(i) + 1, "<unk>")
+                   for i, real in zip(logits.argmax(axis=1), batch["mask"])
+                   if real]
+    require([e["answer"] for e in entries] == argmax,
+            "each answer is the argmax of the eval forward on its batch")
+    log(f"submission: {len(entries)} answers, equal with the table on and "
+        f"off, each the eval forward's argmax; subprocess wall s "
+        f"{json.dumps(seconds)}")
+    return {"entries": len(entries), "wall_s": seconds}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2695,7 +3420,7 @@ def main(argv=None) -> int:
     torch.set_float32_matmul_precision("highest")
 
     start = time.perf_counter()
-    device_phase(torch)
+    card = device_phase(torch)
     build_phase()
     summary = kernel_phase(torch, args.seed)
 
@@ -2787,12 +3512,33 @@ def main(argv=None) -> int:
         {"lstm_recurrence_save": recurrence, "lstm_backward_step": SEQ_LEN,
          "attention_pool": 1, "relu_maxpool_e4m3": 3,
          "relu_maxpool_backward": 6})
+    # The serving front on one full-width checkpoint: the decoder against
+    # the fixtures, the Python front and its int8 server, then the native
+    # front; the closed-loop clients run in a process of their own.
+    import multiprocessing
+
+    serving = {"card": card, "decode": decode_check(torch)}
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        served, numbers, (python_answers, ref) = serving_http_phase(
+            torch, args.seed, pool, recurrence)
+        paths.update(served)
+        serving.update(numbers)
+        native, serving["serving_native"] = serving_native_phase(
+            torch, args.seed, pool, recurrence, python_answers)
+    vocab = make_vocab(ModelConfig().num_tokens, ModelConfig().max_answers)
+    serving["serve_cli"] = serving_cli_phase(
+        fixture_requests(), ref,
+        {i: a for a, i in vocab["answer"].items()})
+    if native is not None:
+        paths["serving_native"] = native
     paths["cnn_e2e"], e2e, e2e_profile = e2e_phase(torch, args.seed)
     log(json.dumps({"cnn_e2e": e2e}))
     paths["cnn_e2e_quant_eval"], quant["cnn_e2e_quant_eval"] = (
         e2e_quant_eval_phase(torch, args.seed, e2e_profile,
                              e2e["best_score"]))
     log(json.dumps({"quant": quant}))
+    serving["submission"] = submission_phase(torch, args.seed, e2e_profile)
+    log(json.dumps({"serving": serving}))
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"
@@ -2840,7 +3586,8 @@ def main(argv=None) -> int:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its
     # eight cases in one launch, cnn_e2e its three runs of the train loop
-    # and one evaluation (e2e_phase).
+    # and one evaluation (e2e_phase), the serving front's paths every
+    # batch their fronts served (the fixtures and the closed loop).
     kernels = [
         {"name": name, "route": "cuda", "source": csrc + src,
          "replaces": replaces, **({"mma": mma[name]} if name in mma else {}),

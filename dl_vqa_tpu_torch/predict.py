@@ -1,11 +1,22 @@
-"""Batched VQA inference with the PyTorch port.
+"""Batched VQA inference with the PyTorch port, and its command line.
 
-Port of ``predict.py::Predictor`` (its array path): questions are
-tokenized and encoded exactly as in training (the port's own copies of
-the tokenizer and the question encoder, :mod:`dl_vqa_tpu_torch.data.text`),
-images arrive as ``[B, H, W, 3]`` arrays (uint8 pixels, normalised on the
-device, or already-normalised floats), and answers come back as top-k
-``(answer, probability)`` lists.
+Port of ``predict.py``: questions are tokenized and encoded exactly as in
+training (the port's own copies of the tokenizer and the question
+encoder, :mod:`dl_vqa_tpu_torch.data.text`), images arrive as JPEG files
+or bytes (decoded to uint8 pixels by :mod:`dl_vqa_tpu_torch.data.images`:
+libjpeg where the host has it, else nvJPEG on the card) or as ``[B, H, W, 3]`` arrays
+(uint8 pixels, normalised on the device, or already-normalised floats),
+and answers come back as top-k ``(answer, probability)`` lists.
+
+    python -m dl_vqa_tpu_torch.predict [overrides...] --image cat.jpg \
+        --question "what animal is this?"
+    python -m dl_vqa_tpu_torch.predict --submission results.json \
+        [overrides...]
+
+The second writes the official VQA submission over the val split. The
+overrides are those of the ``config_eval`` preset
+(``main.small.paths.pretrained_model_path=...`` and so on); the model is
+built from the config, as there. ``--device cpu`` runs on the CPU.
 
 ``device`` is the GPU unless the caller passes another; nothing here
 moves work to another device, and without a GPU the default raises.
@@ -19,18 +30,24 @@ sample images (and can save into a new checkpoint).
 
 from __future__ import annotations
 
+import argparse
+import json
+import os
+import sys
 import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from dl_vqa_tpu_torch.data.images import (
+    decode_image, decoder_for, load_image_files)
 from dl_vqa_tpu_torch.data.text import encode_question, normalize_question
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.vqa import VqaNet
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["Predictor"]
+__all__ = ["Predictor", "main"]
 
 _LEGACY_QUESTION_LENGTH = 23
 
@@ -42,7 +59,7 @@ class Predictor:
                  vocab: Dict[str, Dict[str, int]], *, device=DEFAULT_DEVICE,
                  max_question_length: int = _LEGACY_QUESTION_LENGTH,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 fused_ops: bool = False):
+                 fused_ops: bool = False, central_fraction: float = 0.875):
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
@@ -55,18 +72,22 @@ class Predictor:
         self.compute_dtype = compute_dtype
         self.fused_ops = fused_ops  # see VqaNet.forward
         self.checkpoint_meta: Dict = {}  # the metadata it was loaded with
+        self.central_fraction = float(central_fraction)
+        self.decoder = decoder_for(self.device)  # see data.images
+
+    @property
+    def image_size(self) -> int:
+        return self.model_cfg.image_size
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str, vocab_path: str, *,
                         device=DEFAULT_DEVICE,
                         model_cfg: Optional[ModelConfig] = None,
-                        compute_dtype: torch.dtype = torch.bfloat16
-                        ) -> "Predictor":
+                        compute_dtype: torch.dtype = torch.bfloat16,
+                        central_fraction: float = 0.875) -> "Predictor":
         """Load an npz checkpoint of ``dl_vqa_tpu`` and its ``vocab.json``.
         The model configuration comes from the checkpoint's metadata
         unless ``model_cfg`` is given."""
-        import json
-
         from dl_vqa_tpu_torch.utils.checkpoint import load_params
         from dl_vqa_tpu_torch.utils.params import load_jax_params
 
@@ -95,9 +116,31 @@ class Predictor:
         model = load_jax_params(VqaNet(model_cfg, device=device), params)
         predictor = cls(model_cfg, model, vocab, device=device,
                         max_question_length=max_len,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype,
+                        central_fraction=central_fraction)
         predictor.checkpoint_meta = meta
         return predictor
+
+    @classmethod
+    def from_config(cls, cfg: dict, device=DEFAULT_DEVICE) -> "Predictor":
+        """The predictor the entry points serve: the checkpoint and vocab of
+        the composed config's profile, the model built from ``cfg["train"]``
+        (as the JAX package's ``Predictor`` builds it, with the question
+        vocab's size + 1 tokens), ``tpu.compute_dtype``, and the train
+        section's ``central_fraction``."""
+        from dl_vqa_tpu_torch.main import compute_dtype_of
+
+        profile = cfg["main"]["full" if cfg["main"]["use_full"] else "small"]
+        vocab_path = profile["paths"]["vocab_path"]
+        with open(vocab_path) as fd:
+            num_tokens = len(json.load(fd)["question"]) + 1
+        model_cfg = ModelConfig.from_cfg(cfg["train"], num_tokens,
+                                         use_pallas=cfg["tpu"]["use_pallas"])
+        return cls.from_checkpoint(
+            profile["paths"]["pretrained_model_path"], vocab_path,
+            device=device, model_cfg=model_cfg,
+            compute_dtype=compute_dtype_of(cfg),
+            central_fraction=cfg["train"]["central_fraction"])
 
     @property
     def needs_int8_calibration(self) -> bool:
@@ -146,6 +189,26 @@ class Predictor:
             lengths[i] = max(n, 1)
         return encoded, lengths
 
+    def preprocess_image(self, raw: bytes) -> np.ndarray:
+        """JPEG bytes -> uint8 ``[S, S, 3]`` (the reference resize and crop;
+        the model normalises on the device). Raises
+        :class:`~dl_vqa_tpu_torch.data.images.UnsupportedImage` for bytes
+        that are not a JPEG."""
+        return decode_image(raw, self.image_size, self.central_fraction,
+                            self.decoder, self._device_index())
+
+    def load_images(self, paths: Sequence[str]) -> np.ndarray:
+        """JPEG files -> uint8 ``[N, S, S, 3]``."""
+        return load_image_files(paths, self.image_size,
+                                self.central_fraction, self.decoder,
+                                self._device_index())
+
+    def _device_index(self) -> int:
+        if self.device.type != "cuda":
+            return 0
+        return (self.device.index if self.device.index is not None
+                else torch.cuda.current_device())
+
     @torch.inference_mode()
     def forward_logits(self, images, questions, lengths,
                        plain_ops: bool = False) -> np.ndarray:
@@ -176,10 +239,105 @@ class Predictor:
     def predict(self, images, questions: Sequence[str], top_k: int = 5
                 ) -> List[List[Tuple[str, float]]]:
         """Top-k ``(answer, probability)`` per (image, question) pair;
-        ``images`` is ``[B, H, W, 3]``."""
+        ``images`` is ``[B, H, W, 3]`` or a list of JPEG paths."""
+        if len(images) and isinstance(images[0], (str, os.PathLike)):
+            images = self.load_images(images)
         if len(images) != len(questions):
             raise ValueError(f"{len(images)} images for {len(questions)} "
                              "questions")
         encoded, lengths = self.encode_questions(questions)
         probs = self.forward_probs(images, encoded, lengths)
         return [self.top_k_from_probs(row, top_k) for row in probs]
+
+    def predict_dataset_submission(self, dataset, batcher,
+                                   image_table=None) -> List[dict]:
+        """Official VQA submission entries ``[{'question_id', 'answer'}]``
+        over an encoded dataset (argmax answers), in the batcher's order,
+        which must be the dataset's (``shuffle=False``). ``image_table``
+        (``tpu.device_image_cache``): the store's images on the device; the
+        batcher then carries ``image_rows`` (``load_images=False``) and the
+        batch's images are gathered on the device."""
+        from dl_vqa_tpu_torch.data.pipeline import prefetch_to_device
+
+        answers = []
+        offset = 0
+        for batch in prefetch_to_device(iter(batcher), self.device, depth=2):
+            if image_table is not None:
+                images = image_table.index_select(0, batch["image_rows"])
+            else:
+                images = batch["images"]
+            with torch.inference_mode():
+                preds = self.model(
+                    images, batch["questions"], batch["lengths"],
+                    compute_dtype=self.compute_dtype,
+                    fused_ops=self.fused_ops).argmax(dim=1).cpu().numpy()
+            mask = batch["mask"].cpu().numpy()
+            for i in np.flatnonzero(mask):
+                answers.append({
+                    "question_id": int(dataset.question_ids[offset + i]),
+                    "answer": self.answer_by_id.get(int(preds[i]) + 1,
+                                                    "<unk>")})
+            offset += int(mask.sum())
+        return answers
+
+
+def main(argv=None) -> int:
+    from dl_vqa_tpu_torch import config as config_mod
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--image", action="append", default=[])
+    parser.add_argument("--question", action="append", default=[])
+    parser.add_argument("--top-k", type=int, default=5)
+    parser.add_argument("--submission", default="",
+                        help="write official-format answers for the val "
+                             "split")
+    parser.add_argument("--export-artifact", default="",
+                        help="not ported (ROADMAP queue 1, item 8)")
+    parser.add_argument("--device", default="cuda",
+                        help="where the model runs (default: the GPU)")
+    parser.add_argument("overrides", nargs="*")
+    args = parser.parse_args(argv)
+
+    if args.export_artifact:
+        raise NotImplementedError(
+            "--export-artifact (an AOT serving artifact) is not ported to "
+            "dl_vqa_tpu_torch: torch.export needs every serving kernel as a "
+            "torch.library custom op with a fake implementation (ROADMAP "
+            "queue 1, item 8)")
+    cfg = config_mod.compose("config_eval", overrides=args.overrides)
+    predictor = Predictor.from_config(cfg, device=args.device)
+
+    if args.submission:
+        from dl_vqa_tpu_torch.data.dataset import load_or_build_val_dataset
+        from dl_vqa_tpu_torch.data.device_cache import plan_image_tables
+        from dl_vqa_tpu_torch.data.pipeline import Batcher
+
+        profile = cfg["main"]["full" if cfg["main"]["use_full"] else "small"]
+        dataset = load_or_build_val_dataset(cfg, profile, log=print)
+        image_table = plan_image_tables(cfg, {"val": dataset},
+                                        predictor.device, log=print)["val"]
+        batcher = Batcher(dataset, cfg["train"]["batch_size"],
+                          load_images=image_table is None)
+        entries = predictor.predict_dataset_submission(
+            dataset, batcher, image_table=image_table)
+        with open(args.submission, "w") as fd:
+            json.dump(entries, fd)
+        print(f"wrote {len(entries)} answers to {args.submission}")
+        return 0
+
+    if args.image:
+        questions = args.question or ["what is this?"] * len(args.image)
+        for path, question, preds in zip(
+                args.image, questions,
+                predictor.predict(args.image, questions, args.top_k)):
+            print(f"{path} | {question}")
+            for answer, prob in preds:
+                print(f"  {prob:6.3f}  {answer}")
+        return 0
+
+    parser.error("provide --image/--question pairs or --submission")
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

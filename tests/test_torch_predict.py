@@ -164,7 +164,10 @@ def test_port_imports_no_jax_yaml_pil_or_h5py(tmp_path):
         " 'dl_vqa_tpu_torch.data.device_cache',"
         " 'dl_vqa_tpu_torch.data.synthetic', 'dl_vqa_tpu_torch.config.core',"
         " 'dl_vqa_tpu_torch.utils.logger',"
-        " 'dl_vqa_tpu_torch.utils.torch_import'} <= set(names), names\n"
+        " 'dl_vqa_tpu_torch.utils.torch_import', 'dl_vqa_tpu_torch.serve',"
+        " 'dl_vqa_tpu_torch.utils.native_front', 'dl_vqa_tpu_torch.ops._host',"
+        " 'dl_vqa_tpu_torch.tools.make_serving_fixtures'} <= set(names),"
+        " names\n"
         "for name in names: importlib.import_module(name)\n"
         "from dl_vqa_tpu_torch.models.configs import ModelConfig\n"
         "from dl_vqa_tpu_torch.models.vqa import VqaNet\n"
@@ -350,3 +353,132 @@ def test_a_jax_calibrate_once_checkpoint_serves_in_the_port(tmp_path):
     np.testing.assert_allclose(
         predictor.forward_logits(images, encoded, lengths), expected,
         atol=2e-4, rtol=0)
+
+
+# -- the command line and the submission, against the JAX package ---------
+
+def _jax_main_module():
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import predict as jax_predict
+
+    return jax_predict
+
+
+def test_cli_answers_an_image(tmp_path, capsys):
+    """``--image`` / ``--question``: the CLI prints the Predictor's top-k
+    for the JPEG, and its answers rank as the JAX Predictor ranks the same
+    decoded pixels."""
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch import predict as port_predict
+    from tests.test_torch_serve import _corpus
+
+    overrides, jpegs, _ = _corpus(tmp_path)
+    question = "what color is the cat?"
+    assert port_predict.main(["--image", jpegs[1], "--question", question,
+                              "--top-k", "3", "--device", "cpu",
+                              *overrides]) == 0
+    printed = capsys.readouterr().out.splitlines()
+    predictor = Predictor.from_config(
+        config_mod.compose("config_eval", overrides=overrides), device="cpu")
+    (top,) = predictor.predict([jpegs[1]], [question], top_k=3)
+    assert printed == [f"{jpegs[1]} | {question}"] + [
+        f"  {p:6.3f}  {a}" for a, p in top]
+
+    jax_predict = _jax_main_module()
+    from dl_vqa_tpu import config as jax_config
+
+    jax_cfg = jax_config.compose("config_eval", overrides=overrides)
+    profile = jax_cfg["main"]["small"]
+    jax_side = jax_predict.Predictor(
+        jax_cfg, checkpoint_path=profile["paths"]["pretrained_model_path"],
+        vocab_path=profile["paths"]["vocab_path"])
+    with open(jpegs[1], "rb") as fd:
+        pixels = predictor.preprocess_image(fd.read())
+    encoded, lengths = jax_side.encode_questions([question])
+    want = jax_side.top_k_from_probs(
+        jax_side.forward_probs(pixels[None], encoded, lengths)[0], 3)
+    assert [a for a, _ in top] == [a for a, _ in want]
+    np.testing.assert_allclose([p for _, p in top], [p for _, p in want],
+                               atol=2e-5, rtol=1e-4)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        port_predict.main(["--export-artifact", str(tmp_path / "a"),
+                           "--device", "cpu", *overrides])
+
+
+@pytest.mark.parametrize("table", ["on", "off"])
+def test_submission_equals_the_jax_packages(tmp_path, table):
+    """``--submission`` over the val split of the JAX corpus (an h5 store),
+    with the device image table on and off: the same file as the JAX
+    package's ``predict.py --submission`` on the same checkpoint, one entry
+    a val question in dataset order."""
+    from dl_vqa_tpu_torch import predict as port_predict
+    from tests.test_torch_serve import _corpus
+
+    overrides, _, _ = _corpus(tmp_path)
+    overrides += ["train.batch_size=8", f"tpu.device_image_cache={table}"]
+    files = {}
+    for name, run in (("port", port_predict.main),
+                      ("jax", _jax_main_module().main)):
+        files[name] = str(tmp_path / f"{name}.json")
+        args = ["--submission", files[name], *overrides,
+                f"main.small.val_paths.vqaDataset={tmp_path}/{name}_val.npz"]
+        assert run(args + (["--device", "cpu"] if name == "port" else [])) \
+            == 0
+    with open(files["port"]) as fd:
+        port_entries = json.load(fd)
+    with open(files["jax"]) as fd:
+        jax_entries = json.load(fd)
+    assert port_entries == jax_entries
+    with open(os.path.join(str(tmp_path), "data", "val_questions.json")) as fd:
+        question_ids = [q["question_id"] for q in json.load(fd)["questions"]]
+    assert [e["question_id"] for e in port_entries] == question_ids
+
+
+def test_a_served_request_imports_no_jax_or_pil(tmp_path):
+    """A fresh interpreter builds the port's HTTP front on a checkpoint the
+    port saved, answers one request with a committed fixture JPEG, and has
+    loaded none of JAX, the JAX package, PIL, PyYAML or h5py."""
+    code = (
+        "import base64, json, sys, threading, urllib.request\n"
+        "from dl_vqa_tpu_torch import config, serve\n"
+        "from dl_vqa_tpu_torch.models.configs import ModelConfig\n"
+        "from dl_vqa_tpu_torch.models.vqa import VqaNet\n"
+        "from dl_vqa_tpu_torch.tools.make_serving_fixtures import FIXTURES\n"
+        "from dl_vqa_tpu_torch.utils.checkpoint import save_params\n"
+        "root = sys.argv[1]\n"
+        "with open(root + '/vocab.json', 'w') as fd:\n"
+        "  json.dump({'question': {'a': 1, 'b': 2},"
+        " 'answer': {'x': 1, 'y': 2, 'z': 3}}, fd)\n"
+        "ov = ['main.use_full=false', 'train.max_answers=3',"
+        " 'train.image_size=32', 'train.text.question_features=8',"
+        " 'train.text.embedding_features=4',"
+        " 'train.image.num_channels=[3, 4]', 'train.attention.hidden_dim=6',"
+        " 'train.classifier.hidden_dim=5', 'tpu.compute_dtype=float32',"
+        " f'main.small.paths.vocab_path={root}/vocab.json',"
+        " f'main.small.paths.pretrained_model_path={root}/model.npz']\n"
+        "cfg = config.compose('config_eval', ov)\n"
+        "mc = ModelConfig.from_cfg(cfg['train'], 3)\n"
+        "save_params(root + '/model.npz', VqaNet(mc, device='cpu'),"
+        " model_cfg=mc, extra_meta={'max_question_length': 4})\n"
+        "httpd, service = serve.build_server(cfg, port=0, device='cpu')\n"
+        "thread = threading.Thread(target=httpd.serve_forever, daemon=True)\n"
+        "thread.start()\n"
+        "with open(FIXTURES + '/coco_640x480_420.jpg', 'rb') as fd:\n"
+        "  raw = fd.read()\n"
+        "req = urllib.request.Request("
+        "f'http://127.0.0.1:{httpd.server_address[1]}/v1/answer',"
+        " data=json.dumps({'image_b64': base64.b64encode(raw).decode(),"
+        " 'question': 'a b', 'top_k': 2}).encode(), method='POST')\n"
+        "with urllib.request.urlopen(req, timeout=30) as resp:\n"
+        "  answers = json.loads(resp.read())['answers']\n"
+        "service.stop(); httpd.shutdown(); httpd.server_close()\n"
+        "assert [len(a) for a in answers] == [2, 2], answers\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'yaml', 'PIL', 'h5py',"
+        " 'dl_vqa_tpu') or m.startswith(('jax.', 'dl_vqa_tpu.', 'PIL.'))]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
