@@ -96,13 +96,33 @@
    phase 9): ``python -m dl_vqa_tpu_torch.predict --submission`` as a
    subprocess on cnn_e2e's corpus and best checkpoint, table on and off,
    the two files equal and each answer the eval forward's argmax: one
-   JSON line ``{"serving": ...}``.
+   JSON line ``{"serving": ...}``;
+12. aot (after phase 11's fronts): the serving checkpoint exported by
+   ``python -m dl_vqa_tpu_torch.predict --export-artifact`` at B = 1, 8,
+   64 (``utils/aot_export.py``: one ``torch.export`` program a bucket, the
+   hand kernels as ``vqa::`` custom ops, the weights as arguments); a
+   process of its own (``--aot-client``) that imports none of the model
+   code loads it, answers B = 1, 8, 64, 13 (padded) and 77 (split), its
+   logits the live Predictor's on the same blocks to the bit, kernels 1,
+   2, 3 launched 1, 3, 1 times a bucket call; the artifact's forward
+   against the Predictor's in turns; exports at B = 8 of the ViT and the
+   CNN with ``fused_ops``, the f8 store and the calibrated int8 stem, held
+   likewise, so that every serving op launches from an exported program;
+   ``torch.library.opcheck`` of every ``vqa::`` op at a small and its
+   serving shape, and each op's dispatch cost at B = 1 against its
+   wrapper called directly: one JSON line ``{"aot": ...}``;
+13. sweep (after phase 9): ``dl_vqa_tpu_torch.main.multirun_main`` over
+   two learning rates on cnn_e2e's corpus, one epoch a trial, the table
+   on; each trial launches kernels 1, A, B, 2, C and 3 as its steps ask,
+   and the best returned is the larger trial's: one JSON line ``{"sweep":
+   ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 the layout probe, the three quantized serving paths and the f8 train step,
-the serving front's HTTP, int8 HTTP and native paths, cnn_e2e, and its
-quantized evaluations) is driven with the kernels'
+the serving front's HTTP, int8 HTTP and native paths, the exported
+programs of the aot phase, cnn_e2e, its quantized evaluations, and the
+sweep's trials) is driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels and kernel 7 its tensor-core
 kernel (``FAST_PATHS``). Then
@@ -265,6 +285,9 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    which upsamples chroma otherwise, was within 3 levels on the 4:4:4
 #    and greyscale fixtures on the H100 host and 64 off at 4:2:2 chroma
 #    edges). A swapped channel or a crop a pixel off moves tens of levels.
+#  aot_logits: an exported program's logits against the live
+#    Predictor's on the same (padded) batch: the program calls the same
+#    vqa:: ops and the same ATen ops on the same shapes, so the same bits.
 #  served_probs: a served probability against the Predictor's forward of
 #    the same pixels and question, relative. A served batch pads to its
 #    bucket, and cuDNN may choose another algorithm at another batch size,
@@ -292,7 +315,7 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "conv_relu_pool_int8": 0.0, "quant_eval_pp": 3.0,
        "logits_f32_int8_vit": 1e-4, "decode_libjpeg": 1,
        "decode_nvjpeg": 4,
-       "served_probs": 1e-3}
+       "served_probs": 1e-3, "aot_logits": 0.0}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores, dense
 # int8 tensor-core rate.
@@ -3399,12 +3422,528 @@ def submission_phase(torch, seed: int, prof: dict) -> dict:
     return {"entries": len(entries), "wall_s": seconds}
 
 
+# The AOT serving artifact (dl_vqa_tpu_torch/utils/aot_export.py): the
+# serving checkpoint exported through the predict CLI and served by a
+# process that imports no model code, then four more exports in process.
+AOT_DIR = "_smoke_aot"  # under the checkout; .gitignore lists it
+AOT_BUCKETS = (1, 8, 64)
+# Batches the fresh process answers: each bucket, 13 (padded to 64) and 77
+# (split into 64, and 13 padded to 64).
+AOT_REQUESTS = (1, 8, 64, 13, 77)
+AOT_VARIANT_BATCH = 8
+# What the process that serves an artifact must not import: the port's
+# model code, config system, data plane, trainer and fronts, the JAX
+# package, and what the port never imports.
+AOT_FORBIDDEN = ("dl_vqa_tpu_torch.models", "dl_vqa_tpu_torch.config",
+                 "dl_vqa_tpu_torch.data", "dl_vqa_tpu_torch.train",
+                 "dl_vqa_tpu_torch.predict", "dl_vqa_tpu_torch.serve",
+                 "dl_vqa_tpu", "jax", "yaml", "PIL")
+DISPATCH_CALLS = 200  # calls a side when an op's dispatch cost is timed
+
+
+def aot_requests(cfg, seed: int) -> dict:
+    """``{n: (images, questions, lengths)}`` for AOT_REQUESTS: normalised
+    f32 images, question ids and lengths 0 .. T (the artifact clamps 0 to
+    1), from a seed."""
+    rng = np.random.default_rng(seed)
+    return {n: (rng.standard_normal(
+        (n, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+                rng.integers(0, cfg.num_tokens, (n, SEQ_LEN)).astype(np.int32),
+                rng.integers(0, SEQ_LEN + 1, n).astype(np.int32))
+            for n in AOT_REQUESTS}
+
+
+def artifact_blocks(images, questions, lengths, buckets) -> list:
+    """The artifact's batching contract, written out here: blocks of the
+    largest bucket, the rest padded with zero rows up to the nearest
+    bucket, every length at least 1. ``[(rows taken, (images, questions,
+    lengths))]``: the inputs each exported call gets."""
+    blocks, start, n = [], 0, len(images)
+    while start < n:
+        bs = min([b for b in buckets if b >= n - start],
+                 default=max(buckets))
+        take = min(bs, n - start)
+
+        def pad(x):
+            x = x[start:start + take]
+            return np.concatenate(
+                [x, np.zeros((bs - take,) + x.shape[1:], x.dtype)])
+
+        blocks.append((take, (pad(images), pad(questions),
+                              np.maximum(pad(lengths), 1))))
+        start += take
+    return blocks
+
+
+def live_logits(predictor, request, buckets) -> np.ndarray:
+    """``Predictor.forward_logits`` on each block the artifact runs."""
+    return np.concatenate([predictor.forward_logits(*arrays)[:take]
+                           for take, arrays in artifact_blocks(*request,
+                                                               buckets)])
+
+
+def forward_grids(recurrence: int, grids: dict) -> dict:
+    return {"lstm_recurrence": recurrence, "attention_pool": 1, **grids}
+
+
+def aot_client(artifact_dir: str, requests_path: str, out: str) -> int:
+    """The aot phase's fresh process (``chip_smoke.py --aot-client DIR
+    REQUESTS OUT``): loads the artifact on the card with
+    ``utils.aot_export.load_artifact``, names every module of AOT_FORBIDDEN
+    it imported (there must be none), then answers each batch of
+    REQUESTS (an npz) with the kernels' launches counted from 0 before
+    each; writes the logits to ``OUT.npz`` and the rest to ``OUT.json``
+    (``start_s``: from before the CUDA context to the loaded artifact,
+    ``context_s`` of it the context)."""
+    import torch
+
+    from dl_vqa_tpu_torch.utils.aot_export import load_artifact
+
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")  # the CUDA context
+    torch.cuda.synchronize()
+    context_s = time.perf_counter() - t0
+    artifact = load_artifact(artifact_dir)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    forbidden = sorted(m for m in sys.modules if any(
+        m == p or m.startswith(p + ".") for p in AOT_FORBIDDEN))
+    wrappers = kernel_wrappers()
+    logits, launches = {}, {}
+    with np.load(requests_path) as z:
+        for n in AOT_REQUESTS:
+            request = [z[f"{key}{n}"]
+                       for key in ("images", "questions", "lengths")]
+            reset_launches(wrappers)
+            logits[f"b{n}"] = artifact.logits(*request)
+            torch.cuda.synchronize()
+            launches[n] = read_launches(wrappers, f"the artifact at B = {n}")
+    np.savez(out + ".npz", **logits)
+    with open(out + ".json", "w") as fd:
+        json.dump({"start_s": start_s, "context_s": context_s,
+                   "forbidden": forbidden,
+                   "launches": launches,
+                   "device": torch.cuda.get_device_name(0)}, fd)
+    return 0
+
+
+def hold_bits(got, want, what: str) -> float:
+    """The artifact's logits against the live Predictor's: finite, and
+    within TOL["aot_logits"] (0: the same bits)."""
+    require(got.shape == want.shape and np.isfinite(got).all(),
+            f"{what}: logits {got.shape}, finite, as the Predictor's "
+            f"{want.shape}")
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    require(err <= TOL["aot_logits"],
+            f"{what}: the artifact's logits against the Predictor's: max "
+            f"|diff| {err:g} (tol {TOL['aot_logits']:g})")
+    return err
+
+
+def opcheck_cases(torch, gen) -> list:
+    """``[(op, label, args, direct)]``: each ``vqa::`` op on CUDA inputs at
+    a small shape and at its serving shape (B = 1, the reference-parity
+    model and the ViT at full width), with the kernel wrapper the op's
+    CUDA registration calls (``direct``, args as the op takes them)."""
+    from dl_vqa_tpu_torch.ops import conv_fused, conv_int8, vit_mlp_fused
+    from dl_vqa_tpu_torch.ops.attention_pool import attention_pool_cuda
+    from dl_vqa_tpu_torch.ops.lstm_cuda import lstm_recurrence_cuda
+    from dl_vqa_tpu_torch.ops.vit_attention import vit_attention_cuda
+
+    def r(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    def codes(*shape):
+        return torch.randint(0, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    bf = torch.bfloat16
+    lengths = torch.tensor([5, 1, 3], dtype=torch.int32, device="cuda")
+    cases = [
+        ("lstm_recurrence", "small f32",
+         (r(2, 5, 3, 64), r(2, 64, 16, scale=0.2), lengths),
+         lstm_recurrence_cuda),
+        ("lstm_recurrence", "B = 1 bf16",
+         (r(2, SEQ_LEN, 1, 4 * HIDDEN, dtype=bf),
+          r(2, 4 * HIDDEN, HIDDEN, dtype=bf, scale=0.03),
+          torch.tensor([17], dtype=torch.int32, device="cuda")),
+         lstm_recurrence_cuda),
+        ("attention_pool", "small f32", (r(2, 4, 4, 8), r(2, 4, 4, 2)),
+         attention_pool_cuda),
+        ("attention_pool", "B = 1 f32",
+         (r(1, 26, 26, 256), r(1, 26, 26, 2)), attention_pool_cuda),
+        ("vit_attention", "small bf16", (r(2, 10, 192, dtype=bf), 1),
+         vit_attention_cuda),
+        ("vit_attention", "B = 1 bf16",
+         (r(1, VIT_TOKENS, 3 * VIT_WIDTH, dtype=bf), VIT_HEADS),
+         vit_attention_cuda),
+        ("conv_relu_pool_fused", "small bf16",
+         (r(2, 12, 12, 16, dtype=bf), r(32, 16, 3, 3, scale=0.1), r(32)),
+         conv_fused.conv_relu_pool_fused_cuda),
+        ("conv_relu_pool_fused", "B = 1 bf16",
+         (r(1, 111, 111, 64, dtype=bf), r(128, 64, 3, 3, scale=0.05),
+          r(128)), conv_fused.conv_relu_pool_fused_cuda),
+        ("conv_relu_pool_stem", "small bf16",
+         (r(2, 12, 12, 3, dtype=bf), r(8, 3, 3, 3, scale=0.2), r(8)),
+         conv_fused.conv_relu_pool_stem_cuda),
+        ("conv_relu_pool_stem", "B = 1 bf16",
+         (r(1, 224, 224, 3, dtype=bf), r(64, 3, 3, 3, scale=0.2), r(64)),
+         conv_fused.conv_relu_pool_stem_cuda),
+        ("fused_ln_mlp", "small bf16",
+         (r(2, 5, 64, dtype=bf), r(64), r(64), r(128, 64, scale=0.1),
+          r(128), r(64, 128, scale=0.1), r(64)),
+         vit_mlp_fused.fused_ln_mlp_cuda),
+        ("fused_ln_mlp", "B = 1 bf16",
+         (r(1, VIT_TOKENS, VIT_WIDTH, dtype=bf), r(VIT_WIDTH), r(VIT_WIDTH),
+          r(VIT_HIDDEN, VIT_WIDTH, scale=0.05), r(VIT_HIDDEN),
+          r(VIT_WIDTH, VIT_HIDDEN, scale=0.03), r(VIT_WIDTH)),
+         vit_mlp_fused.fused_ln_mlp_cuda),
+        ("conv_relu_pool_w8a8", "small",
+         (codes(2, 10, 10, 8), 2.0, r(32, 8, 3, 3, scale=0.2), r(32), 1,
+          40.0), conv_int8.conv_relu_pool_w8a8_cuda),
+        ("conv_relu_pool_w8a8", "B = 1",
+         (codes(1, 111, 111, 64), 2.0, r(128, 64, 3, 3, scale=0.05),
+          r(128), 1, 40.0), conv_int8.conv_relu_pool_w8a8_cuda),
+    ]
+    for label, y in (("small bf16", r(2, 9, 8, 16, dtype=bf)),
+                     ("B = 1 bf16", r(1, 222, 222, 64, dtype=bf))):
+        bias = r(y.shape[-1])
+        for mode, direct in (
+                ("compute", lambda y, b, m, s: conv_fused.relu_maxpool_cuda(
+                    y, b)),
+                ("e4m3", lambda y, b, m, s: conv_fused.relu_maxpool_e4m3_cuda(
+                    y, b)),
+                ("int8", lambda y, b, m, s: conv_fused.quantize_relu_pool_cuda(
+                    y, b, s))):
+            cases.append(("relu_maxpool", f"{label} {mode}",
+                          (y, bias, mode, 3.0), direct))
+    return cases
+
+
+def host_us(torch, fn, calls: int) -> float:
+    """µs of host time a call of ``fn`` takes to enqueue its work (the
+    device is not waited for inside the loop)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def op_checks(torch, seed: int) -> dict:
+    """``torch.library.opcheck`` of every ``vqa::`` op on CUDA inputs at a
+    small and at its serving shape, each test passing; then, at the B = 1
+    shapes, each op called through ``torch.ops.vqa`` against its kernel
+    wrapper called directly on the same inputs, under
+    ``torch.inference_mode()`` as the Predictor and the artifact call
+    them: host µs to enqueue a call (in turns: op, wrapper, wrapper, op)
+    and µs a call by CUDA events (timed_turns), outputs equal to the
+    bit."""
+    from torch.library import opcheck
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = opcheck_cases(torch, gen)
+    checked = {}
+    for name, label, args, _ in cases:
+        result = opcheck(getattr(torch.ops.vqa, name).default, args)
+        require(all(v == "SUCCESS" for v in result.values()),
+                f"opcheck vqa::{name} ({label}): {result}")
+        checked.setdefault(name, []).append(label)
+    require(set(checked) == {
+        "lstm_recurrence", "relu_maxpool", "attention_pool", "vit_attention",
+        "conv_relu_pool_fused", "conv_relu_pool_stem", "fused_ln_mlp",
+        "conv_relu_pool_w8a8"}, f"opcheck covers every op: {sorted(checked)}")
+    log(f"opcheck: every vqa:: op passes at {sum(map(len, checked.values()))}"
+        f" shapes: {json.dumps(checked)}")
+    dispatch = {}
+    for name, label, args, direct in cases:
+        if "B = 1" not in label:
+            continue
+        op = getattr(torch.ops.vqa, name)
+        a, b = op(*args), direct(*args)
+        require(all(torch.equal(x, y) for x, y in zip(
+            a if isinstance(a, tuple) else (a,),
+            b if isinstance(b, tuple) else (b,))),
+                f"vqa::{name} ({label}) against its wrapper: the same bits")
+        with torch.inference_mode():
+            turns = [host_us(torch, fn, DISPATCH_CALLS) for fn in (
+                lambda: op(*args), lambda: direct(*args),
+                lambda: direct(*args), lambda: op(*args))]
+            op_ms, direct_ms = timed_turns(
+                torch, [lambda: op(*args), lambda: direct(*args)], 50)
+        entry = {"op_host_us": (turns[0] + turns[3]) / 2,
+                 "direct_host_us": (turns[1] + turns[2]) / 2,
+                 "op_device_us": op_ms * 1e3,
+                 "direct_device_us": direct_ms * 1e3}
+        entry["dispatch_us"] = entry["op_host_us"] - entry["direct_host_us"]
+        dispatch[f"{name} {label}"] = entry
+        log(f"dispatch vqa::{name} ({label}): {json.dumps(entry)}")
+    return {"opcheck": checked, "dispatch_b1": dispatch}
+
+
+def aot_phase(torch, seed: int, recurrence: int) -> tuple:
+    """The serving checkpoint of phase 11 (``_smoke_serving/``, the
+    reference-parity model in bf16) exported by ``python -m
+    dl_vqa_tpu_torch.predict --export-artifact`` at the buckets AOT_BUCKETS;
+    a fresh process (:func:`aot_client`) loads it, imports none of
+    AOT_FORBIDDEN, answers AOT_REQUESTS with kernels 1, 2, 3 launched 1, 3,
+    1 times a bucket call, and its logits are the live Predictor's on the
+    same blocks (TOL["aot_logits"]). In this process: the artifact's
+    forward against the live Predictor's at each bucket, in turns; then
+    exports at B = AOT_VARIANT_BATCH of the ViT with ``fused_ops`` (kernels
+    4, 8), the CNN with ``fused_ops`` (7, 6), the f8 store (kernel 2's
+    e4m3 mode) and the int8 stem calibrated by ``Predictor.calibrate_int8``
+    (kernel 2's int8 mode, D), each program's launches and logits held
+    likewise; every ``vqa::`` op through ``opcheck`` (:func:`op_checks`).
+    Returns ``({path: launches}, numbers)``."""
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.predict import Predictor
+    from dl_vqa_tpu_torch.utils.aot_export import load_artifact
+
+    wrappers = kernel_wrappers()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(AOT_DIR)
+    serving = os.path.abspath(SERVING_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    phase_start = time.perf_counter()
+    cnn_dir = os.path.join(root, "cnn")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dl_vqa_tpu_torch.predict",
+         "--export-artifact", cnn_dir, "--export-batch-sizes",
+         ",".join(map(str, AOT_BUCKETS)), *serving_overrides(serving)],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"the export CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    numbers = {"export_cli_s": time.perf_counter() - t0,
+               "export_s": json.loads(
+                   proc.stdout.strip().splitlines()[-1])["export_seconds"]}
+    files = {name: os.path.getsize(os.path.join(cnn_dir, name))
+             for name in sorted(os.listdir(cnn_dir))}
+    require(sorted(files) == sorted(
+        [f"forward_b{b}.pt2" for b in AOT_BUCKETS]
+        + ["meta.json", "params.npz"]), f"the artifact's files: {files}")
+    numbers["bytes"] = files
+    # What the program runs besides the live forward's ops: export guards
+    # each .to() with an assert node.
+    graph = torch.export.load(os.path.join(
+        cnn_dir, f"forward_b{AOT_BUCKETS[0]}.pt2")).graph
+    targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+    numbers["graph_ops"] = {
+        "call_function": len(targets),
+        "assert_tensor_metadata": sum(
+            t == "aten._assert_tensor_metadata.default" for t in targets),
+        "vqa": sum(t.startswith("vqa.") for t in targets)}
+
+    cfg = config_mod.compose("config_eval", serving_overrides(serving))
+    predictor = Predictor.from_config(cfg)
+    requests = aot_requests(predictor.model_cfg, seed)
+    requests_path = os.path.join(root, "requests.npz")
+    np.savez(requests_path, **{
+        f"{key}{n}": array for n, request in requests.items()
+        for key, array in zip(("images", "questions", "lengths"), request)})
+    out = os.path.join(root, "client")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--aot-client", cnn_dir,
+         requests_path, out], cwd=here, capture_output=True, text=True,
+        timeout=600)
+    require(proc.returncode == 0, f"the artifact's process exited "
+            f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out + ".json") as fd:
+        client = json.load(fd)
+    require(client["forbidden"] == [],
+            f"the artifact's process imported {client['forbidden']}")
+    numbers["loader_start_s"] = client["start_s"]
+    numbers["loader_context_s"] = client["context_s"]
+    total = dict.fromkeys(wrappers, 0)
+    errs = {}
+    with np.load(out + ".npz") as got:
+        for n, request in requests.items():
+            calls = len(artifact_blocks(*request, AOT_BUCKETS))
+            expected = {k: v * calls for k, v in forward_grids(
+                recurrence, FORWARD_GRIDS).items()}
+            launches = client["launches"][str(n)]
+            require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+                    f"the artifact at B = {n} ({calls} calls): launches "
+                    f"{launches}, expected {expected}")
+            total = {k: total[k] + launches[k] for k in total}
+            errs[n] = hold_bits(got[f"b{n}"],
+                                live_logits(predictor, request, AOT_BUCKETS),
+                                f"the exported CNN at B = {n}")
+    log(f"aot: the CLI exported B = {AOT_BUCKETS} in "
+        f"{json.dumps(numbers['export_s'])} s; a process with none of the "
+        f"model code loaded it in {client['start_s']:.2f} s (the CUDA "
+        f"context {client['context_s']:.2f} s of it) and answered B "
+        f"= {AOT_REQUESTS}: logits max |diff| from the Predictor's "
+        f"{json.dumps(errs)}, kernel launches {json.dumps(total)}")
+    paths = {"aot_cnn": total}
+
+    artifact = load_artifact(cnn_dir)
+    numbers["forward_ms"] = {}
+    for n in AOT_BUCKETS:
+        images, questions, lengths = requests[n]
+        lengths = np.maximum(lengths, 1)
+        art_ms, live_ms = timed_turns(torch, [
+            lambda: artifact.logits(images, questions, lengths),
+            lambda: predictor.forward_logits(images, questions, lengths)], 20)
+        numbers["forward_ms"][n] = {"artifact": art_ms, "predictor": live_ms}
+    log(f"aot: forward ms, the artifact against the live Predictor (host "
+        f"arrays in, logits on the host out): "
+        f"{json.dumps(numbers['forward_ms'])}; the program's ops "
+        f"{json.dumps(numbers['graph_ops'])}")
+
+    vit_model = VqaNet(vit_config(), device="cuda",
+                       generator=torch.Generator().manual_seed(seed))
+    vit = Predictor(vit_config(), vit_model,
+                    make_vocab(vit_config().num_tokens,
+                               vit_config().max_answers),
+                    device="cuda", max_question_length=SEQ_LEN,
+                    compute_dtype=torch.bfloat16, fused_ops=True)
+    cnn_fused = Predictor.from_config(cfg)
+    cnn_fused.fused_ops = True
+    f8, int8 = (Predictor.from_config(config_mod.compose(
+        "config_eval", serving_overrides(
+            serving, [f"train.image.store_dtype={store}"])))
+        for store in ("f8e4m3", "int8"))
+    int8.calibrate_int8(np.random.default_rng(seed).integers(
+        0, 256, (CALIBRATION_IMAGES, 224, 224, 3), dtype=np.uint8))
+    vit_layers = vit_config().image.num_layers
+    variants = (
+        ("vit_fused", vit, {"vit_attention": vit_layers,
+                            "vit_mlp_fused": 2 * vit_layers}),
+        ("cnn_fused", cnn_fused, {"conv_relu_pool_stem": 1,
+                                  "conv_relu_pool_fused": 2}),
+        ("cnn_f8", f8, {"relu_maxpool_e4m3": 3}),
+        ("cnn_int8", int8, {"relu_maxpool_int8": 1,
+                            "conv_relu_pool_int8": 2}))
+    request = requests[AOT_VARIANT_BATCH]
+    request = (*request[:2], np.maximum(request[2], 1))
+    numbers["variants"] = {}
+    for name, live, grids in variants:
+        path = os.path.join(root, name)
+        seconds = live.export_artifact(path, batch_sizes=(AOT_VARIANT_BATCH,))
+        exported = load_artifact(path)
+        want = live.forward_logits(*request)
+        reset_launches(wrappers)
+        got = exported.logits(*request)
+        torch.cuda.synchronize()
+        launches = read_launches(wrappers, f"the exported {name}")
+        expected = forward_grids(recurrence, grids)
+        require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+                f"the exported {name}: launches {launches}, expected "
+                f"{expected}")
+        err = hold_bits(got, want, f"the exported {name}")
+        numbers["variants"][name] = {
+            "export_s": seconds[AOT_VARIANT_BATCH], "max_abs_err": err,
+            "meta": {k: exported.meta[k] for k in (
+                "compute_dtype", "fused_ops", "store_dtype",
+                "quant_scales")}}
+        paths[f"aot_{name}"] = launches
+        log(f"aot {name}: exported at B = {AOT_VARIANT_BATCH} in "
+            f"{seconds[AOT_VARIANT_BATCH]:.2f} s, logits max |diff| {err:g}"
+            f", kernel launches {json.dumps(launches)}")
+    served = {k for counts in paths.values() for k, v in counts.items() if v}
+    require({"lstm_recurrence", "relu_maxpool", "relu_maxpool_e4m3",
+             "relu_maxpool_int8", "attention_pool", "vit_attention",
+             "conv_relu_pool_fused", "conv_relu_pool_stem", "vit_mlp_fused",
+             "conv_relu_pool_int8"} <= served,
+            f"every serving op launched from an exported program: {served}")
+    numbers.update(op_checks(torch, seed))
+    numbers["phase_s"] = time.perf_counter() - phase_start
+    return paths, numbers
+
+
+# The sweep: multirun_main over two learning rates on cnn_e2e's corpus,
+# one epoch a trial, the device table on.
+SWEEP_SPACE = "train.lr.lr_value=5.0e-4,1.0e-3"
+
+
+def sweep_phase(torch, seed: int, prof: dict) -> tuple:
+    """``dl_vqa_tpu_torch.main.multirun_main`` over SWEEP_SPACE on the
+    cnn_e2e corpus (batch 512, bf16, 1 epoch a trial, the table on, no
+    rolling save): the default trial (``sweep.trial_runner``) wrapped to
+    count each trial's launches from 0. Two trials, each launching kernels
+    1, A, B, 2, C and 3 exactly as its steps and eval batches ask; the
+    returned best is the larger of the trials' best accuracies. Returns
+    ``(launches of both trials, numbers)``."""
+    import os
+
+    from dl_vqa_tpu_torch.data.dataset import VQADataset
+    from dl_vqa_tpu_torch.main import multirun_main
+    from dl_vqa_tpu_torch.sweep import trial_runner
+
+    wrappers = kernel_wrappers()
+    root = os.path.abspath(E2E_DIR)
+    trial = trial_runner("config", "cuda")
+    trials = []
+
+    def counted(overrides):
+        reset_launches(wrappers)
+        t0 = time.perf_counter()
+        value = trial(overrides)
+        torch.cuda.synchronize()
+        trials.append({
+            "lr": [o for o in overrides if o.startswith("train.lr.")][-1],
+            "best_accuracy": value, "s": time.perf_counter() - t0,
+            "launches": read_launches(wrappers,
+                                      f"sweep trial {len(trials)}")})
+        return value
+
+    t0 = time.perf_counter()
+    best = multirun_main("config", [SWEEP_SPACE, *e2e_overrides(
+        prof, root, "e2e_sweep", seed,
+        ["train.num_epochs=1", "tpu.checkpoint_every_steps=0"])],
+        runner=counted)
+    sweep_s = time.perf_counter() - t0
+    train_ds, val_ds = (
+        VQADataset.load(VQADataset.cache_path(prof[split]["vqaDataset"]))
+        for split in ("train_paths", "val_paths"))
+    steps = -(-len(train_ds) // BATCH)
+    evals = -(-len(val_ds) // BATCH)
+    grids = recurrence_grids(torch)
+    expected = {
+        "lstm_recurrence_save": steps * (1 if grids == 1 else SEQ_LEN),
+        "lstm_backward_step": steps * SEQ_LEN,
+        "lstm_recurrence": evals * (1 if grids == 1 else SEQ_LEN),
+        "relu_maxpool": 3 * (steps + evals),
+        "relu_maxpool_backward": 6 * steps,
+        "attention_pool": steps + evals}
+    require(len(trials) == 2 and trials[0]["lr"] != trials[1]["lr"],
+            f"two trials, one a learning rate: {trials}")
+    for t in trials:
+        require(t["launches"] == {**dict.fromkeys(wrappers, 0), **expected},
+                f"sweep trial {t['lr']}: launches {t['launches']}, expected "
+                f"{expected}")
+    require(best == max(t["best_accuracy"] for t in trials),
+            f"multirun_main's best {best} against its trials' "
+            f"{[t['best_accuracy'] for t in trials]}")
+    log(f"sweep: {len(trials)} trials in {sweep_s:.1f} s, best {best:.4f}: "
+        + "; ".join(f"{t['lr']} -> {t['best_accuracy']:.4f} in "
+                    f"{t['s']:.1f} s" for t in trials)
+        + f" | kernel launches a trial {json.dumps(expected)}")
+    launches = {k: sum(t["launches"][k] for t in trials) for k in wrappers}
+    return launches, {"best": best, "sweep_s": sweep_s, "trials": [
+        {k: v for k, v in t.items() if k != "launches"} for t in trials]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over two "
                              "train steps and the quantized forwards")
+    parser.add_argument("--aot-client", nargs=3,
+                        metavar=("ARTIFACT", "REQUESTS", "OUT"),
+                        help="the aot phase's process that serves an "
+                             "artifact (started by the phase itself)")
     args = parser.parse_args(argv)
 
     import torch
@@ -3414,6 +3953,9 @@ def main(argv=None) -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     import dl_vqa_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    if args.aot_client:
+        return aot_client(*args.aot_client)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3531,12 +4073,18 @@ def main(argv=None) -> int:
         {i: a for a, i in vocab["answer"].items()})
     if native is not None:
         paths["serving_native"] = native
+    # The AOT artifact of the same checkpoint, and its variants.
+    aot_paths, aot = aot_phase(torch, args.seed, recurrence)
+    paths.update(aot_paths)
+    log(json.dumps({"aot": {"card": card, **aot}}))
     paths["cnn_e2e"], e2e, e2e_profile = e2e_phase(torch, args.seed)
     log(json.dumps({"cnn_e2e": e2e}))
     paths["cnn_e2e_quant_eval"], quant["cnn_e2e_quant_eval"] = (
         e2e_quant_eval_phase(torch, args.seed, e2e_profile,
                              e2e["best_score"]))
     log(json.dumps({"quant": quant}))
+    paths["sweep"], sweep = sweep_phase(torch, args.seed, e2e_profile)
+    log(json.dumps({"sweep": {"card": card, **sweep}}))
     serving["submission"] = submission_phase(torch, args.seed, e2e_profile)
     log(json.dumps({"serving": serving}))
     log(f"total {time.perf_counter() - start:.1f} s")

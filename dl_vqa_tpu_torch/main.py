@@ -8,14 +8,17 @@ metric report. On the GPU unless the caller of :func:`main` passes
 
     python -m dl_vqa_tpu_torch.main [preset] [overrides...]
     python -m dl_vqa_tpu_torch.main main.use_full=false train.num_epochs=2
+    python -m dl_vqa_tpu_torch.main -m [preset] train.image.stride=1,2 \
+        [--trials N] [overrides...]
 
 The first argument without ``=`` names a preset (``config_san``, ...; the
-port carries them as dicts). Settings the port does not have yet raise at
-once, naming their ROADMAP item: ``tpu.online_images`` and
+port carries them as dicts). ``-m`` (``--multirun``) sweeps, as Hydra's
+multirun does (:func:`multirun_main`). Settings the port does not have
+yet raise at once, naming their ROADMAP item: ``tpu.online_images`` and
 ``tpu.native_loader`` (the online JPEG pipeline), ``tpu.checkpoint_backend=
 orbax``, mesh axes other than one device, ``tpu.zero_stage``,
-``tpu.pipeline_microbatches``, ``tpu.debug_nans``, ``tpu.profile_dir`` and
-``-m`` sweeps. ``tpu.use_pallas`` and ``tpu.prng_impl`` choose between JAX
+``tpu.pipeline_microbatches``, ``tpu.debug_nans`` and ``tpu.profile_dir``.
+``tpu.use_pallas`` and ``tpu.prng_impl`` choose between JAX
 implementations and mean nothing here. ``train.image.store_dtype=f8e4m3``
 trains through the f8 store's straight-through backward; ``int8`` serves
 only, and the model refuses it in training as the JAX model does.
@@ -26,12 +29,14 @@ from __future__ import annotations
 import json
 import os
 import sys
+from typing import Optional
 
 import torch
 
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["main", "check_supported", "compute_dtype_of", "parameter_summary"]
+__all__ = ["main", "multirun_main", "check_supported", "compute_dtype_of",
+           "parameter_summary"]
 
 
 def check_supported(cfg: dict) -> None:
@@ -196,16 +201,66 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
     return result
 
 
+def multirun_main(config_name: str, args, runner=None,
+                  max_trials: Optional[int] = None,
+                  device=DEFAULT_DEVICE) -> float:
+    """Hydra-style multirun: comma-valued overrides span the search space
+    (``train.image.stride=1,2``), single-valued ones apply to every trial;
+    bracketed values (``key=[3, 8]``) are single list values, as in Hydra's
+    choice-sweep convention. Maximizes :func:`main`'s returned best
+    accuracy through :mod:`dl_vqa_tpu_torch.sweep` with
+    the reference sweeper's early stop; each trial trains on ``device``
+    unless ``runner`` (``overrides -> value``) replaces the trial.
+
+    By default every combination runs (Hydra's basic sweeper); ``--trials
+    N`` among the args caps the budget, and the sweep then switches to
+    TPE where the space exceeds it (the Ax plugin's behaviour). Returns the
+    best value."""
+    from dl_vqa_tpu_torch.sweep import (
+        parse_space, run_sweep, space_size, trial_runner)
+
+    args = list(args)
+    if max_trials is None and "--trials" in args:
+        at = args.index("--trials")
+        try:
+            max_trials = int(args[at + 1])
+        except (IndexError, ValueError):
+            raise SystemExit("--trials needs an integer, e.g. --trials 8")
+        del args[at:at + 2]
+
+    def _is_choice(a):
+        if "=" not in a:
+            raise SystemExit(
+                f"multirun (-m) overrides must be key=value; got {a!r}")
+        v = a.split("=", 1)[1].strip()
+        return "," in v and not v.startswith(("[", "{"))
+
+    space_args = [a for a in args if _is_choice(a)]
+    base = [a for a in args if a not in space_args]
+    if not space_args:
+        raise SystemExit(
+            "multirun (-m) needs at least one comma-valued override, "
+            "e.g. train.image.stride=1,2")
+    if max_trials is None:
+        max_trials = space_size(parse_space(space_args))
+    if runner is None:
+        runner = trial_runner(config_name, device)
+    _, best, _ = run_sweep(parse_space(space_args), max_trials=max_trials,
+                           base_overrides=base, runner=runner)
+    return best
+
+
 def _cli(args) -> float:
     from dl_vqa_tpu_torch import config as config_mod
 
-    if args and args[0] in ("-m", "--multirun"):
-        raise SystemExit(
-            "-m sweeps are not ported to dl_vqa_tpu_torch yet (sweep.py: "
-            "ROADMAP queue 1, item 8)")
+    multirun = bool(args) and args[0] in ("-m", "--multirun")
+    if multirun:
+        args = args[1:]
     config_name = "config"
     if args and "=" not in args[0]:
         config_name, args = args[0], args[1:]
+    if multirun:
+        return multirun_main(config_name, args)
     return main(config_mod.compose(config_name, overrides=args))
 
 

@@ -13,6 +13,11 @@ Every C entry takes its pointers and the CUDA stream as ``c_void_p``
 (declared on ``argtypes``, or ctypes would cut them to 32 bits) and
 returns ``cudaGetLastError()`` of its launches; :func:`check` raises on
 a nonzero code.
+
+The kernels of the serving forward are also ``torch.library`` custom ops
+in the ``vqa`` namespace (:func:`define_op`), so that ``torch.export``
+and PyTorch's other graph tools see each launch as one node: a ctypes
+call on ``data_ptr()`` cannot be traced.
 """
 
 from __future__ import annotations
@@ -24,9 +29,10 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
-__all__ = ["library", "check", "stream_ptr", "build_seconds", "NVCC_FLAGS"]
+__all__ = ["library", "check", "stream_ptr", "build_seconds", "define_op",
+           "NVCC_FLAGS"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -223,3 +229,21 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def define_op(name: str, schema: str, plain: Callable, cuda: Callable,
+              fake: Callable):
+    """Register the custom op ``vqa::<name>`` with ``schema`` (its
+    arguments and returns, e.g. ``"(Tensor v, Tensor att) -> Tensor"``):
+    ``plain``, the kernel's plain PyTorch version, runs it on CPU tensors,
+    ``cuda``, the kernel's wrapper (which counts its launches and raises
+    where the kernel cannot launch), on CUDA tensors, and ``fake`` gives
+    each output's shape, dtype and layout to a tracer. No other device has
+    an implementation. Returns the op (``torch.ops.vqa.<name>``)."""
+    import torch
+
+    op = torch.library.custom_op(f"vqa::{name}", plain, mutates_args=(),
+                                 device_types="cpu", schema=schema)
+    op.register_kernel("cuda", cuda)
+    op.register_fake(fake)
+    return op

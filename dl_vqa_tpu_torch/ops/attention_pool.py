@@ -12,9 +12,11 @@ weights and reads ``v`` through a batched matmul; the TPU kernel re-read
 values) in shared memory, turns it into softmax weights there, and
 streams ``v`` once, accumulating every glimpse from the same load.
 
-The gradient (:class:`AttentionPool`) is plain PyTorch in closed form,
-recomputing the softmax, as the JAX package's backward goes through its
-plain version (``_pool_bwd``); a hand kernel for it is still to write.
+The forward is the custom op ``vqa::attention_pool``: kernel 3 on CUDA
+tensors, :func:`attention_pool_reference` on CPU tensors. The gradient
+(:class:`AttentionPool`) is plain PyTorch in closed form, recomputing the
+softmax, as the JAX package's backward goes through its plain version
+(``_pool_bwd``); a hand kernel for it is still to write.
 """
 
 from __future__ import annotations
@@ -87,6 +89,15 @@ def attention_pool_cuda(v: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
 attention_pool_cuda.launches = 0
 
 
+def _pooled_fake(v, att):
+    return v.new_empty(v.shape[0], att.shape[-1] * v.shape[-1],
+                       dtype=torch.float32)
+
+
+_native.define_op("attention_pool", "(Tensor v, Tensor att) -> Tensor",
+                  attention_pool_reference, attention_pool_cuda, _pooled_fake)
+
+
 def attention_pool_backward(g: torch.Tensor, v: torch.Tensor,
                             att: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,16 +117,16 @@ def attention_pool_backward(g: torch.Tensor, v: torch.Tensor,
 
 
 class AttentionPool(torch.autograd.Function):
-    """``(v, att, plain) -> pooled``: kernel 3 forward (its plain version
-    for a CPU tensor or ``plain=True``), :func:`attention_pool_backward`
+    """``(v, att, plain) -> pooled``: ``vqa::attention_pool`` forward (the
+    plain version with ``plain=True``), :func:`attention_pool_backward`
     backward."""
 
     @staticmethod
     def forward(ctx, v, att, plain):
         ctx.save_for_backward(v, att)
-        if plain or v.device.type == "cpu":
+        if plain:
             return attention_pool_reference(v, att)
-        return attention_pool_cuda(v, att)
+        return torch.ops.vqa.attention_pool(v, att)
 
     @staticmethod
     def backward(ctx, g):
@@ -125,7 +136,8 @@ class AttentionPool(torch.autograd.Function):
 
 def attention_pool(v: torch.Tensor, att: torch.Tensor,
                    plain: bool = False) -> torch.Tensor:
-    """Differentiable glimpse pooling. Dispatch: a CPU tensor, or
-    ``plain=True``, runs :func:`attention_pool_reference`; any other
-    device runs kernel 3, which raises where it cannot launch."""
+    """Differentiable glimpse pooling. ``plain=True`` runs
+    :func:`attention_pool_reference`; otherwise the op dispatches: a CPU
+    tensor runs the plain version, a CUDA tensor kernel 3, which raises
+    where it cannot launch."""
     return AttentionPool.apply(v, att, plain)

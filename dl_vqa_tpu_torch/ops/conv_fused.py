@@ -25,7 +25,11 @@ the JAX package computes in XLA: ``e4m3`` for the f8 store
 no saturation, NaN above :data:`E4M3_OVERFLOW` as JAX's cast gives it,
 widened back; the straight-through backward is kernel C, as for the
 unquantized block) and ``int8`` for the int8 stem's first block
-(``ops/conv_int8.py::quantize_relu_pool``). Both take the max first too.
+(:func:`quantize_relu_pool_reference`, called by
+``ops/conv_int8.py::quantize_relu_pool``). Both take the max first too.
+The three modes are one custom op, ``vqa::relu_maxpool(y, bias, mode,
+s_out)``: kernel 2 on CUDA tensors, the mode's plain version on CPU
+tensors.
 
 Kernel C, what bounds it: memory traffic again. It reads the raw conv
 output and the pooled cotangent and writes ``dz`` of the conv output's
@@ -45,7 +49,9 @@ The fused blocks, which no default path takes (``fused=True``, or
 as tap GEMMs with bias, ReLU and the pool on the f32 accumulator, for
 stride 1 and ``Cin >= 16``; kernel 7 (``csrc/conv_relu_pool_stem.cu``)
 replaces ``::_stem_kernel`` for the small-``Cin`` stem, forward only as
-its original. Neither writes the conv output, so neither rounds it:
+its original; they are the custom ops ``vqa::conv_relu_pool_fused`` and
+``vqa::conv_relu_pool_stem``. Neither writes the conv output, so neither
+rounds it:
 their plain version is :func:`conv_relu_pool_fused_reference`, which in
 bf16 differs from :func:`conv_relu_pool_reference` by that one rounding
 (the JAX package has the same pair, ``_fused_kernel`` against
@@ -70,6 +76,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -78,7 +85,9 @@ from dl_vqa_tpu_torch.ops.wgmma_layout import ATOM, swizzle_index
 
 __all__ = ["conv_nhwc", "relu_maxpool_reference", "relu_maxpool_cuda",
            "relu_maxpool_e4m3_reference", "relu_maxpool_e4m3_cuda",
-           "relu_maxpool_launch", "ReluMaxPoolQuantStore",
+           "relu_maxpool_launch", "ReluMaxPoolQuantStore", "f32",
+           "maxpool_2x2", "quantize_pool", "quantize_relu_pool_reference",
+           "quantize_relu_pool_cuda",
            "conv_relu_pool_quantstore", "E4M3_OVERFLOW",
            "relu_maxpool_backward_reference", "relu_maxpool_backward_cuda",
            "ReluMaxPool", "relu_maxpool", "conv_relu_pool_reference",
@@ -207,6 +216,77 @@ def relu_maxpool_e4m3_cuda(y: torch.Tensor, bias: torch.Tensor
 
 
 relu_maxpool_e4m3_cuda.launches = 0
+
+
+def f32(value: float) -> float:
+    """A Python double rounded once to f32 (as JAX rounds a weakly typed
+    constant against an f32 array), returned as the exact double."""
+    return float(np.float32(value))
+
+
+def maxpool_2x2(q: torch.Tensor) -> torch.Tensor:
+    """2x2/2 floor max pool of ``[B, Hc, Wc, C]``."""
+    batch, hc, wc, channels = q.shape
+    hp, wp = hc // 2, wc // 2
+    return q[:, :2 * hp, :2 * wp].reshape(batch, hp, 2, wp, 2,
+                                          channels).amax(dim=(2, 4))
+
+
+def quantize_pool(z: torch.Tensor, s_out: float) -> torch.Tensor:
+    """``clip(round(relu(z) * (127 / s_out)), 0, 127)`` as int8, pooled."""
+    q = torch.clamp(torch.round(torch.relu(z) * f32(127.0 / s_out)), 0, 127)
+    return maxpool_2x2(q.to(torch.int8))
+
+
+def quantize_relu_pool_reference(y: torch.Tensor, bias: torch.Tensor,
+                                 s_out: float) -> torch.Tensor:
+    """Plain version of kernel 2's int8 mode: ``clip(round(relu(f32(y) +
+    bias) * (127 / s_out)), 0, 127)`` as int8, then the pool; ``y`` the conv
+    output without its bias."""
+    return quantize_pool(y.float() + bias.float(), s_out)
+
+
+def quantize_relu_pool_cuda(y: torch.Tensor, bias: torch.Tensor,
+                            s_out: float) -> torch.Tensor:
+    """Kernel 2's int8 mode on ``y``'s CUDA device; raises on any input it
+    does not take."""
+    out = relu_maxpool_launch(y, bias.float().contiguous(), "int8",
+                              f32(127.0 / s_out))
+    if out.numel():
+        quantize_relu_pool_cuda.launches += 1
+    return out
+
+
+quantize_relu_pool_cuda.launches = 0
+
+
+def _relu_maxpool_plain(y, bias, mode, s_out):
+    if mode == "int8":
+        return quantize_relu_pool_reference(y, bias, s_out)
+    if mode == "e4m3":
+        return relu_maxpool_e4m3_reference(y, bias)
+    return relu_maxpool_reference(y, bias)
+
+
+def _relu_maxpool_kernel(y, bias, mode, s_out):
+    if mode == "int8":
+        return quantize_relu_pool_cuda(y, bias, s_out)
+    if mode == "e4m3":
+        return relu_maxpool_e4m3_cuda(y, bias)
+    return relu_maxpool_cuda(y, bias)
+
+
+def _relu_maxpool_fake(y, bias, mode, s_out):
+    batch, hc, wc, channels = y.shape
+    return y.new_empty(batch, hc // 2, wc // 2, channels,
+                       dtype=torch.int8 if mode == "int8" else y.dtype)
+
+
+# mode: "compute" (the output in y's dtype), "e4m3" or "int8" (s_out, the
+# block's calibrated amax, is read by the int8 mode only).
+_native.define_op(
+    "relu_maxpool", "(Tensor y, Tensor bias, str mode, float s_out) -> Tensor",
+    _relu_maxpool_plain, _relu_maxpool_kernel, _relu_maxpool_fake)
 
 
 def relu_maxpool_backward_reference(g: torch.Tensor, y: torch.Tensor,
@@ -359,19 +439,19 @@ relu_maxpool_backward_cuda.launches_vector = 0
 
 
 class ReluMaxPool(torch.autograd.Function):
-    """``(y, bias, plain) -> pooled``: kernel 2 forward, kernel C backward
-    (their plain versions for a CPU tensor or ``plain=True``). Saves the
-    raw conv output; the cotangent of ``bias`` is rounded to ``y``'s
-    dtype, as the JAX package's is."""
+    """``(y, bias, plain) -> pooled``: ``vqa::relu_maxpool`` forward,
+    kernel C backward (their plain versions for a CPU tensor or
+    ``plain=True``; ``plain=True`` never calls the op). Saves the raw conv
+    output; the cotangent of ``bias`` is rounded to ``y``'s dtype, as the
+    JAX package's is."""
 
     @staticmethod
     def forward(ctx, y, bias, plain):
-        plain = plain or y.device.type == "cpu"
-        ctx.plain = plain
+        ctx.plain = plain or y.device.type == "cpu"
         ctx.save_for_backward(y, bias)
         bias = bias.float()
         return (relu_maxpool_reference(y, bias) if plain
-                else relu_maxpool_cuda(y, bias))
+                else torch.ops.vqa.relu_maxpool(y, bias, "compute", 1.0))
 
     @staticmethod
     def backward(ctx, g):
@@ -385,27 +465,26 @@ class ReluMaxPool(torch.autograd.Function):
 def relu_maxpool(y: torch.Tensor, bias: torch.Tensor,
                  plain: bool = False) -> torch.Tensor:
     """Differentiable bias + ReLU + pool. Dispatch: a CPU tensor, or
-    ``plain=True``, runs the plain versions; any other device runs
-    kernels 2 and C, which raise where they cannot launch."""
+    ``plain=True``, runs the plain versions; a CUDA tensor runs kernels 2
+    and C, which raise where they cannot launch."""
     return ReluMaxPool.apply(y, bias, plain)
 
 
 class ReluMaxPoolQuantStore(ReluMaxPool):
     """``(y, bias, plain) -> pooled`` with the activations stored in e4m3:
-    kernel 2's e4m3 mode forward (its plain version for a CPU tensor or
-    ``plain=True``). The backward is :class:`ReluMaxPool`'s, kernel C on the
-    saved raw conv output: the exact gradient of the unquantized block,
-    the straight-through estimator of ``_quantstore_bwd`` in the JAX
-    package."""
+    ``vqa::relu_maxpool``'s e4m3 mode forward (its plain version for a CPU
+    tensor or ``plain=True``). The backward is :class:`ReluMaxPool`'s,
+    kernel C on the saved raw conv output: the exact gradient of the
+    unquantized block, the straight-through estimator of
+    ``_quantstore_bwd`` in the JAX package."""
 
     @staticmethod
     def forward(ctx, y, bias, plain):
-        plain = plain or y.device.type == "cpu"
-        ctx.plain = plain
+        ctx.plain = plain or y.device.type == "cpu"
         ctx.save_for_backward(y, bias)
         bias = bias.float()
         return (relu_maxpool_e4m3_reference(y, bias) if plain
-                else relu_maxpool_e4m3_cuda(y, bias))
+                else torch.ops.vqa.relu_maxpool(y, bias, "e4m3", 1.0))
 
 
 def conv_relu_pool_quantstore(x: torch.Tensor, weight: torch.Tensor,
@@ -463,11 +542,13 @@ def _check_fused_inputs(x, weight, bias, what: str) -> None:
         raise ValueError(f"batch {x.shape[0]} exceeds the launch grid (65535)")
 
 
-def _pooled_empty(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def _pooled_empty(x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The output of kernel 6 or 7, uninitialised (also their ops' fake
+    implementation)."""
     cout, _, k, _ = weight.shape
-    return torch.empty(x.shape[0], (x.shape[1] - k + 1) // 2,
-                       (x.shape[2] - k + 1) // 2, cout, dtype=x.dtype,
-                       device=x.device)
+    return x.new_empty(x.shape[0], (x.shape[1] - k + 1) // 2,
+                       (x.shape[2] - k + 1) // 2, cout)
 
 
 class FusedPlan(NamedTuple):
@@ -602,10 +683,14 @@ def conv_relu_pool_fused_cuda(x: torch.Tensor, weight: torch.Tensor,
 
 conv_relu_pool_fused_cuda.launches = 0
 
+_native.define_op(
+    "conv_relu_pool_fused", "(Tensor x, Tensor weight, Tensor bias) -> Tensor",
+    conv_relu_pool_fused_reference, conv_relu_pool_fused_cuda, _pooled_empty)
+
 
 class ConvReluPoolFused(torch.autograd.Function):
-    """``(x, weight, bias, plain) -> pooled``: kernel 6 forward (its plain
-    version for a CPU tensor or ``plain=True``). Backward: the exact
+    """``(x, weight, bias, plain) -> pooled``: ``vqa::conv_relu_pool_fused``
+    forward (its plain version with ``plain=True``). Backward: the exact
     gradients of the unfused block, as ``_fused_bwd`` of the JAX package
     takes them: the conv output is computed again by :func:`conv_nhwc`,
     kernel C routes the cotangent through pool and ReLU and sums ``db``,
@@ -614,12 +699,11 @@ class ConvReluPoolFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, plain):
-        plain = plain or x.device.type == "cpu"
-        ctx.plain = plain
+        ctx.plain = plain or x.device.type == "cpu"
         ctx.save_for_backward(x, weight, bias)
         if plain:
             return conv_relu_pool_fused_reference(x, weight, bias)
-        return conv_relu_pool_fused_cuda(x, weight, bias)
+        return torch.ops.vqa.conv_relu_pool_fused(x, weight, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -773,23 +857,28 @@ def conv_relu_pool_stem_cuda(x: torch.Tensor, weight: torch.Tensor,
 conv_relu_pool_stem_cuda.launches = 0
 conv_relu_pool_stem_cuda.launches_mma = 0
 
+_native.define_op(
+    "conv_relu_pool_stem", "(Tensor x, Tensor weight, Tensor bias) -> Tensor",
+    conv_relu_pool_stem_reference, conv_relu_pool_stem_cuda, _pooled_empty)
+
 
 def conv_relu_pool_stem(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor, plain: bool = False
                         ) -> torch.Tensor:
     """The stem block (stride 1, small ``Cin``) with no conv output in
     memory, forward only as ``conv_relu_pool_stem`` of the JAX package: it
-    raises where a gradient would be recorded. Dispatch: a CPU tensor, or
-    ``plain=True``, runs the plain version; any other device runs kernel
-    7, which raises where it cannot launch."""
+    raises where a gradient would be recorded. ``plain=True`` runs the
+    plain version; otherwise ``vqa::conv_relu_pool_stem`` dispatches: a
+    CPU tensor runs the plain version, a CUDA tensor kernel 7, which raises
+    where it cannot launch."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
         raise RuntimeError(
             "conv_relu_pool_stem is forward only: call it under "
             "torch.no_grad(), or use conv_relu_pool for gradients")
-    if plain or x.device.type == "cpu":
+    if plain:
         return conv_relu_pool_stem_reference(x, weight, bias)
-    return conv_relu_pool_stem_cuda(x, weight, bias)
+    return torch.ops.vqa.conv_relu_pool_stem(x, weight, bias)
 
 
 def conv_relu_pool(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -10,9 +10,13 @@ model refuses it in training (``ModelConfig.check_ported``).
 
 - conv0 stays a conv in the compute dtype (cuDNN), and its bias, ReLU,
   quantization and pool are kernel 2's int8 mode
-  (:func:`quantize_relu_pool`);
+  (:func:`quantize_relu_pool`, the op ``vqa::relu_maxpool`` of
+  ``ops/conv_fused.py``, where the mode's plain version and wrapper
+  live);
 - every later block is kernel D, ``csrc/conv_relu_pool_int8.cu``
-  (:func:`conv_relu_pool_w8a8`): the integer conv on ``mma.sync``
+  (:func:`conv_relu_pool_w8a8`, the op ``vqa::conv_relu_pool_w8a8``:
+  kernel D on CUDA tensors, its plain version on CPU tensors): the
+  integer conv on ``mma.sync``
   m16n8k32 with the requantizing epilogue, ReLU and the pool on the
   accumulators. The JAX package computes that block in XLA; PyTorch has no
   int8 convolution on CUDA, and an unfold plus an integer product would
@@ -46,7 +50,9 @@ import torch
 import torch.nn.functional as F
 
 from dl_vqa_tpu_torch.ops import _native
-from dl_vqa_tpu_torch.ops.conv_fused import conv_nhwc, relu_maxpool_launch
+from dl_vqa_tpu_torch.ops.conv_fused import (
+    conv_nhwc, f32, maxpool_2x2, quantize_pool, quantize_relu_pool_cuda,
+    quantize_relu_pool_reference)
 
 __all__ = ["quantize_weights_per_channel", "quantize_relu_pool_reference",
            "fma_f32",
@@ -61,12 +67,6 @@ __all__ = ["quantize_weights_per_channel", "quantize_relu_pool_reference",
 # one mma.m16n8k32 step (Cin is padded to it).
 INT8_BLOCK_N = 128
 INT8_K_STEP = 32
-
-
-def f32(value: float) -> float:
-    """A Python double rounded once to f32 (as JAX rounds a weakly typed
-    constant against an f32 array), returned as the exact double."""
-    return float(np.float32(value))
 
 
 def fma_f32(a: torch.Tensor, m: torch.Tensor, b: torch.Tensor
@@ -97,52 +97,17 @@ def quantize_weights_per_channel(w: torch.Tensor
     return w_q, scale
 
 
-def _max_pool(q: torch.Tensor) -> torch.Tensor:
-    """2x2/2 floor max pool of ``[B, Hc, Wc, C]``."""
-    batch, hc, wc, channels = q.shape
-    hp, wp = hc // 2, wc // 2
-    return q[:, :2 * hp, :2 * wp].reshape(batch, hp, 2, wp, 2,
-                                          channels).amax(dim=(2, 4))
-
-
-def _quantize_pool(z: torch.Tensor, s_out: float) -> torch.Tensor:
-    """``clip(round(relu(z) * (127 / s_out)), 0, 127)`` as int8, pooled."""
-    q = torch.clamp(torch.round(torch.relu(z) * f32(127.0 / s_out)), 0, 127)
-    return _max_pool(q.to(torch.int8))
-
-
-def quantize_relu_pool_reference(y: torch.Tensor, bias: torch.Tensor,
-                                 s_out: float) -> torch.Tensor:
-    """Plain version of kernel 2's int8 mode: ``clip(round(relu(f32(y) +
-    bias) * (127 / s_out)), 0, 127)`` as int8, then the pool; ``y`` the conv
-    output without its bias."""
-    return _quantize_pool(y.float() + bias.float(), s_out)
-
-
-def quantize_relu_pool_cuda(y: torch.Tensor, bias: torch.Tensor,
-                            s_out: float) -> torch.Tensor:
-    """Kernel 2's int8 mode on ``y``'s CUDA device; raises on any input it
-    does not take."""
-    out = relu_maxpool_launch(y, bias.float().contiguous(), "int8",
-                              f32(127.0 / s_out))
-    if out.numel():
-        quantize_relu_pool_cuda.launches += 1
-    return out
-
-
-quantize_relu_pool_cuda.launches = 0
-
-
 def quantize_relu_pool(y: torch.Tensor, bias: torch.Tensor, s_out: float,
                        plain: bool = False) -> torch.Tensor:
     """Port of ``quantize_relu_pool`` for a conv output ``y`` and its
     ``bias`` (added here in f32, as the JAX package adds it before the
-    call). Dispatch: a CPU tensor, or ``plain=True``, runs the plain
-    version; any other device runs kernel 2, which raises where it cannot
+    call). ``plain=True`` runs the plain version; otherwise
+    ``vqa::relu_maxpool``'s int8 mode dispatches: a CPU tensor runs the
+    plain version, a CUDA tensor kernel 2, which raises where it cannot
     launch."""
-    if plain or y.device.type == "cpu":
+    if plain:
         return quantize_relu_pool_reference(y, bias, s_out)
-    return quantize_relu_pool_cuda(y, bias, s_out)
+    return torch.ops.vqa.relu_maxpool(y, bias, "int8", s_out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,7 +185,7 @@ def conv_relu_pool_w8a8_reference(x_q: torch.Tensor, s_in: float,
     Cout]``."""
     w_q, mult = _epilogue_scales(w, s_in)
     acc = _integer_conv(x_q, w_q, stride).float()
-    return _quantize_pool(fma_f32(acc, mult, b.detach().float()), s_out)
+    return quantize_pool(fma_f32(acc, mult, b.detach().float()), s_out)
 
 
 def conv_relu_pool_w8a8_cuda(x_q: torch.Tensor, s_in: float, w: torch.Tensor,
@@ -262,15 +227,31 @@ def conv_relu_pool_w8a8_cuda(x_q: torch.Tensor, s_in: float, w: torch.Tensor,
 conv_relu_pool_w8a8_cuda.launches = 0
 
 
+def _w8a8_fake(x_q, s_in, w, b, stride, s_out):
+    batch, h, width, _ = x_q.shape
+    k = w.shape[-1]
+    return x_q.new_empty(batch, ((h - k) // stride + 1) // 2,
+                         ((width - k) // stride + 1) // 2, w.shape[0])
+
+
+_native.define_op(
+    "conv_relu_pool_w8a8",
+    "(Tensor x_q, float s_in, Tensor w, Tensor b, int stride, float s_out)"
+    " -> Tensor",
+    conv_relu_pool_w8a8_reference, conv_relu_pool_w8a8_cuda, _w8a8_fake)
+
+
 def conv_relu_pool_w8a8(x_q: torch.Tensor, s_in: float, w: torch.Tensor,
                         b: torch.Tensor, stride: int, s_out: float,
                         plain: bool = False) -> torch.Tensor:
     """Port of ``conv_relu_pool_w8a8``: one W8A8 block, int8 in and out.
-    Dispatch: a CPU tensor, or ``plain=True``, runs the plain version; any
-    other device runs kernel D, which raises where it cannot launch."""
-    if plain or x_q.device.type == "cpu":
+    ``plain=True`` runs the plain version; otherwise
+    ``vqa::conv_relu_pool_w8a8`` dispatches: a CPU tensor runs the plain
+    version, a CUDA tensor kernel D, which raises where it cannot
+    launch."""
+    if plain:
         return conv_relu_pool_w8a8_reference(x_q, s_in, w, b, stride, s_out)
-    return conv_relu_pool_w8a8_cuda(x_q, s_in, w, b, stride, s_out)
+    return torch.ops.vqa.conv_relu_pool_w8a8(x_q, s_in, w, b, stride, s_out)
 
 
 def dequantize(y_q: torch.Tensor, s: float, dtype: torch.dtype
@@ -318,7 +299,7 @@ def calibrate_stem_scales(model, images, dtype: torch.dtype = torch.bfloat16
         a = torch.relu(conv_nhwc(y, conv.weight, model.image.stride)
                        .float() + conv.bias.float())
         vals.append(a.amax())
-        y = _max_pool(a).to(dtype)
+        y = maxpool_2x2(a).to(dtype)
     vals = torch.stack(vals).cpu().numpy()
     if not np.all(np.isfinite(vals)) or np.any(vals <= 0):
         raise ValueError(

@@ -12,8 +12,9 @@ one batched matmul outside the recurrence, time-major. The recurrence is
 :class:`LstmRecurrence`, an ``autograd.Function`` over ``(x_proj,
 weight_hh, lengths)``:
 
-* no gradient asked: kernel 1 (``csrc/lstm_recurrence.cu``), final
-  ``(h, c)`` only;
+* no gradient asked: the custom op ``vqa::lstm_recurrence``, kernel 1
+  (``csrc/lstm_recurrence.cu``) on CUDA tensors and its plain version on
+  CPU tensors, final ``(h, c)`` only;
 * gradient asked: kernel A, the same step that also writes the f32
   pre-activation gates and the masked carries of every step (the port of
   ``_lstm_kernel_save``); the backward is ``_lstm_saved_state_bwd``: a
@@ -25,7 +26,7 @@ weight_hh, lengths)``:
   the cast to the compute dtype.
 
 A tensor on the CPU, or ``plain=True``, runs each kernel's plain PyTorch
-version, which stands beside it here.
+version, which stands beside it here (``plain=True`` never calls the op).
 
 Weights are in torch layout: ``weight_ih [4H, E]``, ``weight_hh [4H, H]``
 and the fused ``bias [4H]`` (``bias_ih + bias_hh``); gate order i, f, g, o.
@@ -36,6 +37,11 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import torch
+
+from dl_vqa_tpu_torch.ops import _native
+from dl_vqa_tpu_torch.ops.lstm_cuda import (
+    lstm_backward_step_launcher, lstm_recurrence_cuda,
+    lstm_recurrence_save_cuda)
 
 __all__ = [
     "lstm_cell",
@@ -107,6 +113,19 @@ def lstm_recurrence_reference(
     return _recurrence(x_proj, weight_hh, lengths, save=False)
 
 
+def _recurrence_fake(x_proj, weight_hh, lengths):
+    directions, _, batch, _ = x_proj.shape
+    shape = (directions, batch, weight_hh.shape[-1])
+    return (x_proj.new_empty(shape, dtype=torch.float32),
+            x_proj.new_empty(shape, dtype=torch.float32))
+
+
+_native.define_op(
+    "lstm_recurrence",
+    "(Tensor x_proj, Tensor weight_hh, Tensor lengths) -> (Tensor, Tensor)",
+    lstm_recurrence_reference, lstm_recurrence_cuda, _recurrence_fake)
+
+
 def lstm_recurrence_save_reference(
     x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor
 ) -> Tuple[torch.Tensor, ...]:
@@ -162,8 +181,6 @@ def lstm_saved_state_backward(gates_all, c_all, h_all, weight_hh, lengths,
         steps = torch.arange(seq_len, device=lengths.device)
         keep_all = steps[:, None] < lengths[None, :]
     else:
-        from dl_vqa_tpu_torch.ops.lstm_cuda import lstm_backward_step_launcher
-
         dh, dc = dh.clone(), dc.clone()  # kernel B updates both in place
         launch = lstm_backward_step_launcher(gates_all, c_all, lengths, dh,
                                              dc, dgates_all)
@@ -198,19 +215,16 @@ class LstmRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_proj, weight_hh, lengths, dtype, save, plain):
-        plain = plain or x_proj.device.type == "cpu"
         xq = x_proj.to(dtype)
         wq = weight_hh.to(dtype).contiguous()
         lengths = lengths.to(torch.int32)
-        if plain:
-            run, run_save = (lstm_recurrence_reference,
-                             lstm_recurrence_save_reference)
-        else:
-            from dl_vqa_tpu_torch.ops.lstm_cuda import (
-                lstm_recurrence_cuda as run,
-                lstm_recurrence_save_cuda as run_save)
         if not save:
-            return run(xq, wq, lengths)
+            if plain:
+                return lstm_recurrence_reference(xq, wq, lengths)
+            return torch.ops.vqa.lstm_recurrence(xq, wq, lengths)
+        plain = plain or x_proj.device.type == "cpu"
+        run_save = (lstm_recurrence_save_reference if plain
+                    else lstm_recurrence_save_cuda)
         h, c, *saved = run_save(xq, wq, lengths)
         ctx.save_for_backward(weight_hh, lengths, *saved)
         ctx.plain = plain

@@ -193,10 +193,11 @@ def _run_recurrence(x_proj, weight_hh, lengths, save):
         _native.check(name, code)
         launched = 1 if batch and directions and seq_len else 0
         return (h, c) + saved, launched
-    h = torch.zeros(2, directions, batch, hidden, dtype=torch.float32,
-                    device=device)
-    c = torch.zeros(directions, batch, hidden, dtype=torch.float32,
-                    device=device)
+    # h double-buffered between launches, two tensors of their own, so
+    # that the final one is returned as it is (no offset into a pair).
+    h = [torch.zeros(directions, batch, hidden, dtype=torch.float32,
+                     device=device) for _ in range(2)]
+    c = torch.zeros_like(h[0])
     # h rounded to the weight dtype, double-buffered like h; f32 uses h.
     hq = h if x_proj.dtype == torch.float32 else torch.zeros(
         2, directions, batch, hidden, dtype=x_proj.dtype, device=device)

@@ -34,7 +34,9 @@ say what each design does about it.
 
 :class:`VitAttention` joins the two as
 ``vit_attention_qkv_pallas_fused_bwd`` joins the TPU kernels: the only
-residual is the packed ``qkv``.
+residual is the packed ``qkv``. Its forward is the custom op
+``vqa::vit_attention``: kernel 4 on CUDA tensors, the plain version on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -160,6 +162,16 @@ def vit_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 vit_attention_cuda.launches = 0
 
 
+def _attention_fake(qkv, num_heads):
+    batch, seq, three_dim = qkv.shape
+    return qkv.new_empty(batch, seq, three_dim // 3)
+
+
+_native.define_op("vit_attention", "(Tensor qkv, int num_heads) -> Tensor",
+                  vit_attention_reference, vit_attention_cuda,
+                  _attention_fake)
+
+
 def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
                                 num_heads: int) -> torch.Tensor:
     """Kernel 5 on ``qkv``'s CUDA device; raises on any input it does not
@@ -196,17 +208,18 @@ vit_attention_backward_cuda.launches = 0
 
 
 class VitAttention(torch.autograd.Function):
-    """``(qkv, num_heads, plain) -> out``: kernel 4 forward, kernel 5
-    backward (their plain versions for a CPU tensor or ``plain=True``).
-    Saves the packed ``qkv`` and nothing else."""
+    """``(qkv, num_heads, plain) -> out``: ``vqa::vit_attention`` forward,
+    kernel 5 backward (their plain versions for a CPU tensor or
+    ``plain=True``; ``plain=True`` never calls the op). Saves the packed
+    ``qkv`` and nothing else."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, plain):
-        plain = plain or qkv.device.type == "cpu"
-        ctx.plain, ctx.num_heads = plain, num_heads
+        ctx.plain = plain or qkv.device.type == "cpu"
+        ctx.num_heads = num_heads
         ctx.save_for_backward(qkv)
         return (vit_attention_reference(qkv, num_heads) if plain
-                else vit_attention_cuda(qkv, num_heads))
+                else torch.ops.vqa.vit_attention(qkv, num_heads))
 
     @staticmethod
     def backward(ctx, g):
@@ -221,6 +234,6 @@ class VitAttention(torch.autograd.Function):
 def vit_attention(qkv: torch.Tensor, num_heads: int,
                   plain: bool = False) -> torch.Tensor:
     """Differentiable attention core. Dispatch: a CPU tensor, or
-    ``plain=True``, runs the plain versions; any other device runs kernels
-    4 and 5, which raise where they cannot launch."""
+    ``plain=True``, runs the plain versions; a CUDA tensor runs kernels 4
+    and 5, which raise where they cannot launch."""
     return VitAttention.apply(qkv, num_heads, plain)

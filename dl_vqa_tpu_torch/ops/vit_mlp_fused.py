@@ -20,7 +20,9 @@ MLP output through device memory, with f32 copies around each product;
 here ``x`` is read and ``out`` is written. The source note says how. In
 bf16 the kernel reads its weights by wgmma descriptors, packed in that
 layout by a first grid of the same call (:func:`pack_weights` is its plain
-version), and :func:`row_plan` chooses the rows a block takes.
+version), and :func:`row_plan` chooses the rows a block takes. The op is
+the custom op ``vqa::fused_ln_mlp``: kernel 8 on CUDA tensors, the plain
+version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -160,6 +162,13 @@ def fused_ln_mlp_cuda(x: torch.Tensor, ln_scale: torch.Tensor,
 
 fused_ln_mlp_cuda.launches = 0
 
+_native.define_op(
+    "fused_ln_mlp",
+    "(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor b2) -> Tensor",
+    fused_ln_mlp_reference, fused_ln_mlp_cuda,
+    lambda x, *weights: torch.empty_like(x))
+
 
 def fused_ln_mlp(x: torch.Tensor, ln_scale: torch.Tensor,
                  ln_bias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -167,15 +176,16 @@ def fused_ln_mlp(x: torch.Tensor, ln_scale: torch.Tensor,
                  plain: bool = False) -> torch.Tensor:
     """``x + relu(ln(x) W1^T + b1) W2^T + b2``, forward only like the
     probe's kernel (an eval-path op without a gradient rule): it raises
-    where a gradient would be recorded. Dispatch: a CPU tensor, or
-    ``plain=True``, runs the plain version; any other device runs kernel
-    8, which raises where it cannot launch."""
+    where a gradient would be recorded. ``plain=True`` runs the plain
+    version; otherwise ``vqa::fused_ln_mlp`` dispatches: a CPU tensor runs
+    the plain version, a CUDA tensor kernel 8, which raises where it cannot
+    launch."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, ln_scale, ln_bias, w1, b1, w2, b2)):
         raise RuntimeError(
             "fused_ln_mlp is forward only: call it under torch.no_grad(), "
             "or use the block's unfused code for gradients")
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
-    if plain or x.device.type == "cpu":
+    if plain:
         return fused_ln_mlp_reference(*args)
-    return fused_ln_mlp_cuda(*args)
+    return torch.ops.vqa.fused_ln_mlp(*args)

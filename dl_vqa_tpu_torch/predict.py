@@ -12,8 +12,12 @@ and answers come back as top-k ``(answer, probability)`` lists.
         --question "what animal is this?"
     python -m dl_vqa_tpu_torch.predict --submission results.json \
         [overrides...]
+    python -m dl_vqa_tpu_torch.predict --export-artifact DIR \
+        [--export-batch-sizes 1,8] [overrides...]
 
-The second writes the official VQA submission over the val split. The
+The second writes the official VQA submission over the val split, the
+third an AOT serving artifact (:mod:`dl_vqa_tpu_torch.utils.aot_export`),
+which a process loads and serves without the model code. The
 overrides are those of the ``config_eval`` preset
 (``main.small.paths.pretrained_model_path=...`` and so on); the model is
 built from the config, as there. ``--device cpu`` runs on the CPU.
@@ -280,6 +284,41 @@ class Predictor:
             offset += int(mask.sum())
         return answers
 
+    def export_artifact(self, path: str, batch_sizes: Sequence[int] = (1, 8)
+                        ) -> Dict[int, float]:
+        """Write an AOT serving artifact of this Predictor to the directory
+        ``path``: its forward as one ``torch.export`` program a batch
+        bucket, on its device and in its serving mode, the weights as the
+        programs' arguments, and the decode metadata (see
+        :mod:`dl_vqa_tpu_torch.utils.aot_export`). The numerics are frozen
+        at export: the compute dtype, ``fused_ops``, the store mode and any
+        calibrated int8 scales are compiled in. Returns the seconds each
+        bucket's export took."""
+        from dl_vqa_tpu_torch.utils.aot_export import export_artifact
+
+        if self.needs_int8_calibration:
+            raise ValueError("the int8 mode has no scales yet: call "
+                             "calibrate_int8 before export_artifact")
+        model = self.model
+        options = {"compute_dtype": self.compute_dtype,
+                   "fused_ops": self.fused_ops}
+
+        def forward(params, images, questions, lengths):
+            return torch.func.functional_call(
+                model, params, (images, questions, lengths), options)
+
+        image = self.model_cfg.image
+        return export_artifact(
+            path, dict(model.state_dict()), forward,
+            batch_sizes=batch_sizes, image_size=self.image_size,
+            max_question_length=self.max_question_length, vocab=self.vocab,
+            central_fraction=self.central_fraction,
+            extra_meta={
+                "compute_dtype": str(self.compute_dtype).split(".")[-1],
+                "fused_ops": self.fused_ops,
+                "store_dtype": image.store_dtype,
+                "quant_scales": list(image.quant_scales or ())})
+
 
 def main(argv=None) -> int:
     from dl_vqa_tpu_torch import config as config_mod
@@ -292,20 +331,27 @@ def main(argv=None) -> int:
                         help="write official-format answers for the val "
                              "split")
     parser.add_argument("--export-artifact", default="",
-                        help="not ported (ROADMAP queue 1, item 8)")
+                        help="write an AOT serving artifact directory "
+                             "(exported forward + weights + metadata; see "
+                             "dl_vqa_tpu_torch.utils.aot_export)")
+    parser.add_argument("--export-batch-sizes", default="1,8",
+                        help="comma-separated batch buckets to export")
     parser.add_argument("--device", default="cuda",
                         help="where the model runs (default: the GPU)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
-    if args.export_artifact:
-        raise NotImplementedError(
-            "--export-artifact (an AOT serving artifact) is not ported to "
-            "dl_vqa_tpu_torch: torch.export needs every serving kernel as a "
-            "torch.library custom op with a fake implementation (ROADMAP "
-            "queue 1, item 8)")
     cfg = config_mod.compose("config_eval", overrides=args.overrides)
     predictor = Predictor.from_config(cfg, device=args.device)
+
+    if args.export_artifact:
+        sizes = tuple(int(s) for s in args.export_batch_sizes.split(",") if s)
+        seconds = predictor.export_artifact(args.export_artifact,
+                                            batch_sizes=sizes)
+        print(f"wrote serving artifact (batches {sizes}) to "
+              f"{args.export_artifact}")
+        print(json.dumps({"export_seconds": seconds}))
+        return 0
 
     if args.submission:
         from dl_vqa_tpu_torch.data.dataset import load_or_build_val_dataset

@@ -344,3 +344,39 @@ def test_epoch_order_copy_matches_the_original(shuffle, seed):
             Batcher(Data(), 8, shuffle=shuffle, seed=seed).epoch_order(epoch),
             JaxBatcher(Data(), 8, shuffle=shuffle, seed=seed).epoch_order(
                 epoch))
+
+
+@pytest.mark.parametrize("space_kind,history_len,n_startup", [
+    ("grid", 0, 4), ("grid", 3, 4), ("grid", 9, 4), ("grid", 9, 10 ** 9),
+    ("sampled", 0, 4), ("sampled", 6, 4), ("exhausted", 4, 4)])
+def test_tpe_copy_matches_the_original(space_kind, history_len, n_startup):
+    """``utils/tpe.py::suggest`` against its original on a seeded history:
+    the same proposal and the same draws from the generator, in an
+    enumerable space, one sampled (more than 4096 points), and one whose
+    every point was tried (None)."""
+    import random
+
+    from dl_vqa_tpu.utils import tpe as jax_tpe
+    from dl_vqa_tpu_torch.utils import tpe as port_tpe
+
+    space = {"grid": {"a": [1, 2, 3], "b": ["x", "y", "z"], "c": [0.5, 2]},
+             "sampled": {f"k{i}": list(range(6)) for i in range(6)},
+             "exhausted": {"a": [1, 2], "b": [3, 4]}}[space_kind]
+    rng = random.Random(history_len)
+    keys = list(space)
+    history = []
+    for i in range(history_len):
+        point = {k: space[k][(i * (j + 2)) % len(space[k])]
+                 for j, k in enumerate(keys)}
+        if space_kind == "exhausted":
+            point = {"a": [1, 2][i % 2], "b": [3, 4][i // 2]}
+        history.append((point, rng.random()))
+    got = [], []
+    for tpe, out in zip((jax_tpe, port_tpe), got):
+        gen = random.Random(11)
+        for _ in range(3):
+            out.append(tpe.suggest(space, history, gen, n_startup=n_startup))
+        out.append(gen.random())
+    assert got[0] == got[1]
+    if space_kind == "exhausted":
+        assert got[1][0] is None

@@ -143,9 +143,26 @@ def test_settings_the_port_lacks_raise_with_their_roadmap_item(
                            device="cpu")
 
 
-def test_sweeps_and_a_missing_store_are_refused(profile, tmp_path):
-    with pytest.raises(SystemExit, match="item 8"):
-        port_main._cli(["-m", "train.image.stride=1,2"])
+def test_sweeps_run_and_a_missing_store_is_refused(profile, tmp_path,
+                                                   monkeypatch):
+    """``-m`` runs a sweep: a trial a point of the comma-valued override
+    (the preset named first, the other overrides on every trial), each
+    trained by ``main`` on the card by default, and the best value
+    returned. ``main`` is replaced by a stand-in here; a real sweep on the
+    CPU is in ``tests/test_torch_sweep.py``."""
+    trials = []
+
+    def stand_in(cfg, device="cuda"):
+        trials.append((cfg["train"]["image"]["stride"], cfg["main"]["seed"],
+                       cfg["train"]["attention"]["variant"], device))
+        return 10.0 * cfg["train"]["image"]["stride"]
+
+    monkeypatch.setattr(port_main, "main", stand_in)
+    best = port_main._cli(["-m", "config_san", "train.image.stride=1,2",
+                           "main.seed=7"])
+    assert best == 20.0
+    assert trials == [(1, 7, "stacked", "cuda"), (2, 7, "stacked", "cuda")]
+    monkeypatch.undo()
     overrides = _overrides(profile, tmp_path) + [
         f"main.small.val_paths.processed_imgs={tmp_path}/missing.h5"]
     with pytest.raises(FileNotFoundError, match="preprocess_images"):

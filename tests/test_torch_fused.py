@@ -10,7 +10,10 @@ from a seed, go through the Pallas kernel in interpret mode (as
 runs the plain PyTorch version for a CPU tensor. Then the slice as a
 whole: ``VqaNet(...)(..., fused_ops=True)`` against ``fused_ops=False``
 and against the JAX ``vqa.apply``, with the weights carried over from JAX
-parameters.
+parameters. The fused blocks are the custom ops ``vqa::conv_relu_pool_fused``,
+``vqa::conv_relu_pool_stem`` and ``vqa::fused_ln_mlp``; which of them a
+forward dispatched is read by a dispatch mode (:class:`_FusedOps`), and
+which plain versions ``plain_ops=True`` ran, by hooking them.
 
 Tolerances: f32 atol = rtol = 1e-5 (f32 sums taken in another order);
 bf16 one rounding of the output, 2^-7 relative; the layout cases to the
@@ -25,6 +28,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from dl_vqa_tpu.models import vqa
 from dl_vqa_tpu.models.configs import (
@@ -46,6 +50,34 @@ from dl_vqa_tpu_torch.utils.params import load_jax_params
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_STEP = 2.0 ** -7
+FUSED_OPS = ("conv_relu_pool_stem", "conv_relu_pool_fused", "fused_ln_mlp")
+
+
+class _FusedOps(TorchDispatchMode):
+    """Records, in order, each fused block's op that runs under it, as
+    ``vqa::<name>``."""
+
+    def __init__(self, ran):
+        super().__init__()
+        self.ran = ran
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "vqa" and func._opname in FUSED_OPS:
+            self.ran.append(f"vqa::{func._opname}")
+        return func(*args, **(kwargs or {}))
+
+
+def _hook_plain_versions(monkeypatch, ran):
+    """Each fused block's plain version, as ``plain_ops=True`` calls it,
+    appends its name to ``ran``."""
+    for module, name in ((port_conv, "conv_relu_pool_fused_reference"),
+                         (port_conv, "conv_relu_pool_stem_reference"),
+                         (port_mlp, "fused_ln_mlp_reference")):
+        plain = getattr(module, name)
+        monkeypatch.setattr(
+            module, name,
+            lambda *args, plain=plain, name=name: ran.append(name)
+            or plain(*args))
 
 
 def _conv_inputs(h, cin, cout, k, seed=0, batch=2):
@@ -160,16 +192,13 @@ def test_fused_block_gradients_are_the_unfused_block_s():
 @pytest.mark.parametrize("cin,stride,fused_runs", [
     (16, 1, True), (8, 1, False), (16, 2, False)])
 def test_dispatch_sends_only_stride_1_and_16_channels_to_the_fused_block(
-        monkeypatch, cin, stride, fused_runs):
+        cin, stride, fused_runs):
     calls = []
-    reference = port_conv.conv_relu_pool_fused_reference
-    monkeypatch.setattr(
-        port_conv, "conv_relu_pool_fused_reference",
-        lambda *args: calls.append(1) or reference(*args))
     x, w, b = _conv_inputs(21, cin, 8, 3, seed=6)
     args = _torch_conv_args(x, w, b)
-    got = port_conv.conv_relu_pool(*args, stride=stride, fused=True)
-    assert bool(calls) == fused_runs
+    with _FusedOps(calls):
+        got = port_conv.conv_relu_pool(*args, stride=stride, fused=True)
+    assert calls == (["vqa::conv_relu_pool_fused"] if fused_runs else [])
     np.testing.assert_allclose(
         got.numpy(), port_conv.conv_relu_pool(*args, stride=stride).numpy(),
         **TOL)
@@ -410,25 +439,19 @@ def test_fused_ops_logits_equal_the_unfused_and_the_jax_logits_in_f32(
     cfg, params, model = _model_and_params(encoder)
     inputs = _inputs()
     ran = []
-    for module, name in ((port_conv, "conv_relu_pool_fused_reference"),
-                         (port_conv, "conv_relu_pool_stem_reference"),
-                         (port_mlp, "fused_ln_mlp_reference")):
-        plain = getattr(module, name)
-        monkeypatch.setattr(
-            module, name,
-            lambda *args, plain=plain, name=name: ran.append(name)
-            or plain(*args))
+    _hook_plain_versions(monkeypatch, ran)
     tensors = [torch.from_numpy(a) for a in inputs]
-    with torch.no_grad():
+    with torch.no_grad(), _FusedOps(ran):
         unfused = model(*tensors).numpy()
         assert not ran
         fused = model(*tensors, fused_ops=True).numpy()
         also_plain = model(*tensors, fused_ops=True, plain_ops=True).numpy()
-    # The stem and two conv blocks, or the second half of two ViT blocks.
-    cnn = ["conv_relu_pool_stem_reference"] + [
-        "conv_relu_pool_fused_reference"] * 2
-    assert ran == (["fused_ln_mlp_reference"] * 4 if encoder == "vit" else
-                   cnn * 2)
+    # The stem and two conv blocks, or the second half of two ViT blocks:
+    # their ops, then with plain_ops their plain versions.
+    blocks = (["fused_ln_mlp"] * 2 if encoder == "vit" else
+              ["conv_relu_pool_stem"] + ["conv_relu_pool_fused"] * 2)
+    assert ran == ([f"vqa::{name}" for name in blocks]
+                   + [f"{name}_reference" for name in blocks])
     np.testing.assert_array_equal(fused, also_plain)
     np.testing.assert_allclose(fused, unfused, **TOL)
     expected = np.asarray(vqa.apply(
@@ -496,21 +519,15 @@ def test_fused_ops_eval_step_runs_the_fused_ops_and_keeps_the_loss(
                  np.int32),
              "answer_values": rng.integers(0, 11, (8, 10)).astype(np.int32)}
     ran = []
-    for module, name in ((port_conv, "conv_relu_pool_fused_reference"),
-                         (port_conv, "conv_relu_pool_stem_reference"),
-                         (port_mlp, "fused_ln_mlp_reference")):
-        plain = getattr(module, name)
-        monkeypatch.setattr(
-            module, name,
-            lambda *args, plain=plain, name=name: ran.append(name)
-            or plain(*args))
-    unfused = make_eval_step(port_cfg, compute_dtype=torch.float32)(
-        model, batch)
-    assert not ran
-    fused = make_eval_step(port_cfg, compute_dtype=torch.float32,
-                           fused_ops=True)(model, batch)
-    assert ran == (["fused_ln_mlp_reference"] * 2 if encoder == "vit" else
-                   ["conv_relu_pool_stem_reference"]
-                   + ["conv_relu_pool_fused_reference"] * 2)
+    _hook_plain_versions(monkeypatch, ran)
+    with _FusedOps(ran):
+        unfused = make_eval_step(port_cfg, compute_dtype=torch.float32)(
+            model, batch)
+        assert not ran
+        fused = make_eval_step(port_cfg, compute_dtype=torch.float32,
+                               fused_ops=True)(model, batch)
+    assert ran == (["vqa::fused_ln_mlp"] * 2 if encoder == "vit" else
+                   ["vqa::conv_relu_pool_stem"]
+                   + ["vqa::conv_relu_pool_fused"] * 2)
     np.testing.assert_allclose(float(fused[0]), float(unfused[0]), **TOL)
     assert float(fused[1]) == float(unfused[1])

@@ -365,10 +365,12 @@ def _jax_main_module():
     return jax_predict
 
 
-def test_cli_answers_an_image(tmp_path, capsys):
+def test_cli_answers_an_image_and_exports_an_artifact(tmp_path, capsys):
     """``--image`` / ``--question``: the CLI prints the Predictor's top-k
     for the JPEG, and its answers rank as the JAX Predictor ranks the same
-    decoded pixels."""
+    decoded pixels. ``--export-artifact``: the CLI writes an AOT serving
+    artifact of the same Predictor, whose logits for those pixels are the
+    Predictor's to the bit."""
     from dl_vqa_tpu_torch import config as config_mod
     from dl_vqa_tpu_torch import predict as port_predict
     from tests.test_torch_serve import _corpus
@@ -401,9 +403,25 @@ def test_cli_answers_an_image(tmp_path, capsys):
     assert [a for a, _ in top] == [a for a, _ in want]
     np.testing.assert_allclose([p for _, p in top], [p for _, p in want],
                                atol=2e-5, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_predict.main(["--export-artifact", str(tmp_path / "a"),
-                           "--device", "cpu", *overrides])
+    from dl_vqa_tpu_torch.models.layers import normalize_images
+    from dl_vqa_tpu_torch.utils.aot_export import load_artifact
+
+    assert port_predict.main(["--export-artifact", str(tmp_path / "a"),
+                              "--export-batch-sizes", "1,2", "--device",
+                              "cpu", *overrides]) == 0
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[0] == (f"wrote serving artifact (batches (1, 2)) to "
+                          f"{tmp_path / 'a'}")
+    assert set(json.loads(printed[1])["export_seconds"]) == {"1", "2"}
+    artifact = load_artifact(str(tmp_path / "a"), device="cpu")
+    assert artifact.meta["compute_dtype"] == str(
+        predictor.compute_dtype).split(".")[-1]
+    images = normalize_images(torch.from_numpy(pixels[None]),
+                              torch.float32).numpy()
+    encoded, lengths = predictor.encode_questions([question])
+    np.testing.assert_array_equal(
+        artifact.logits(images, encoded, lengths),
+        predictor.forward_logits(images, encoded, lengths))
 
 
 @pytest.mark.parametrize("table", ["on", "off"])
