@@ -64,9 +64,12 @@
    through the loop and the device's idle share over the epoch: one JSON
    line ``{"cnn_e2e": ...}``;
 10. the quantized serving modes (before phase 9, their evaluations after
-   it): kernel 2's e4m3 and int8 modes and kernel D (the W8A8 conv block)
-   join phase 3, with tolerance 0 in bits and codes (NaN positions
-   included, and the e4m3 overflow edge at 464); a Predictor serves the
+   it): kernel 2's e4m3 and int8 modes and kernel D (the W8A8 conv block:
+   its wgmma kernel at the model's shapes, B = 512 and the serving
+   buckets, beside the bf16 block; its mma.sync kernel at stride 2) join
+   phase 3, with tolerance 0 in bits and codes (NaN positions included,
+   and the e4m3 overflow edge at 464); every int8 CNN path must launch D's
+   wgmma kernel only (``FAST_PATHS``); a Predictor serves the
    requests in each mode (the CNN with the f8 store, the CNN's int8 stem
    and the ViT's int8 products, both calibrated by
    ``Predictor.calibrate_int8``), its logits held to the plain path's, the
@@ -1237,16 +1240,19 @@ def quant_kernels(torch, gen, device, summary) -> None:
     2's e4m3 mode at the three conv outputs (the f8 store; values above 464
     among them, and one window a value around that edge), its int8 mode at
     conv0's output (the int8 stem's first block; the others too, for the
-    bits), and kernel D at conv1 and conv2, each against its plain version
-    with tolerance 0; kernel D beside the bf16 block it replaces
-    (``conv_nhwc`` then kernel 2) at the same shapes."""
+    bits), and kernel D at conv1 and conv2 (its wgmma kernel, at B = 512
+    and at the serving buckets), each against its plain version with
+    tolerance 0; kernel D beside the bf16 block it replaces (``conv_nhwc``
+    then kernel 2) at the same shapes, in turns; and a stride-2 shape on
+    kernel D's mma.sync kernel, equal in bits."""
     from dl_vqa_tpu_torch.ops.conv_fused import (
         conv_nhwc, relu_maxpool_cuda, relu_maxpool_e4m3_cuda,
         relu_maxpool_e4m3_reference)
     from dl_vqa_tpu_torch.ops.conv_int8 import (
         conv_relu_pool_w8a8_cuda, conv_relu_pool_w8a8_reference,
-        pack_int8_weight, quantize_relu_pool_cuda,
-        quantize_relu_pool_reference, quantize_weights_per_channel)
+        pack_int8_weight_wgmma, quantize_relu_pool_cuda,
+        quantize_relu_pool_reference, quantize_weights_per_channel,
+        w8a8_plan)
 
     # The e4m3 edge: one window a value, 464 -> 448, above it NaN.
     edge = torch.tensor([464.0, 464.01, 465.0, 448.0, 1e5, 300.0, -3.0,
@@ -1321,11 +1327,19 @@ def quant_kernels(torch, gen, device, summary) -> None:
     summary["relu_maxpool_e4m3"] = e4m3
     summary["relu_maxpool_int8"] = int8
 
-    # Kernel D at conv1 and conv2 of the reference model, batch 512.
+    # Kernel D at conv1 and conv2 of the reference model, batch 512: the
+    # wgmma kernel (w8a8_plan), each call counted by launches_wgmma. The
+    # part's seconds on the host's clock (phase_s) go into its entry.
+    d_start = time.perf_counter()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     block = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-             "library_ms": None, "bf16_block_ms": 0.0, "per_block_ms": []}
+             "library_ms": None, "bf16_block_ms": 0.0, "per_block_ms": [],
+             "kernel": "wgmma", "serving_ms": {}, "bf16_serving_ms": {}}
     moved, ops = 0, 0.0
+    d = conv_relu_pool_w8a8_cuda
     for size, cin, cout in FUSED_BLOCKS:
+        plan = w8a8_plan(size, size, cin, cout, 3, 1, sms)
+        require(plan.kernel == "wgmma", f"kernel D's plan at {size} px: {plan}")
         x = torch.randint(0, 128, (BATCH, size, size, cin), generator=gen,
                           device=device, dtype=torch.int8)
         w = torch.randn(cout, cin, 3, 3, generator=gen, device=device) * 0.05
@@ -1337,22 +1351,28 @@ def quant_kernels(torch, gen, device, summary) -> None:
         probe = conv_nhwc(x[:2].double(), w_q.double()).float() * (
             w_scale * float(np.float32(s_in / 127.0))) + b
         s_out = float(probe.clamp(min=0).amax())
-        out = conv_relu_pool_w8a8_cuda(x, s_in, w, b, 1, s_out)
+        before = (d.launches, d.launches_wgmma)
+        out = d(x, s_in, w, b, 1, s_out)
+        require((d.launches, d.launches_wgmma) == (before[0] + 1,
+                                                   before[1] + 1),
+                f"kernel D at {size} px ran the wgmma kernel once")
         want = conv_relu_pool_w8a8_reference(x, s_in, w, b, 1, s_out)
         torch.cuda.synchronize()
         err = max_err(out, want)
         positive = float((out > 0).float().mean())
         del want
         xb = x.to(torch.bfloat16)
-        plain_ms, ms, bf16_ms = timed_turns(
-            torch, [lambda: conv_relu_pool_w8a8_reference(x, s_in, w, b, 1,
-                                                          s_out),
-                    lambda: conv_relu_pool_w8a8_cuda(x, s_in, w, b, 1, s_out),
+        plain_ms = timed(torch, lambda: conv_relu_pool_w8a8_reference(
+            x, s_in, w, b, 1, s_out), iters=2, warmup=1)
+        ms, bf16_ms = timed_turns(
+            torch, [lambda: d(x, s_in, w, b, 1, s_out),
                     lambda: relu_maxpool_cuda(conv_nhwc(xb, w), b)],
-            iters=2, warmup=1)
+            iters=20)
         hp = (size - 2) // 2
         block_ops = 2.0 * BATCH * (2 * hp) ** 2 * cout * 9 * cin
-        log(f"kernel conv_relu_pool_int8 x {list(x.shape)} -> "
+        log(f"kernel conv_relu_pool_int8 ({plan.kernel}, {plan.warp_rows} x "
+            f"{4 * plan.warp_cols} windows a tile, {plan.channels} channels "
+            f"a block, {plan.shared} B shared) x {list(x.shape)} -> "
             f"{list(out.shape)}: max code difference {err:g} (tol "
             f"{TOL['conv_relu_pool_int8']:g}), {positive:.3f} of the codes "
             f"above 0 | kernel {ms:.4f} ms = {block_ops / ms / 1e9:.1f} TOP/s,"
@@ -1360,14 +1380,57 @@ def quant_kernels(torch, gen, device, summary) -> None:
             f"(conv_nhwc + kernel 2) {bf16_ms:.4f} ms")
         require(err <= TOL["conv_relu_pool_int8"] and 0.05 < positive < 0.95,
                 f"conv_relu_pool_int8 {list(x.shape)}: {err}, {positive}")
+        # The serving buckets: the same codes, and the kernel's time in
+        # turns with the bf16 block's.
+        for sb in LATENCY_BATCHES:
+            xs, xsb = x[:sb], xb[:sb]
+            got = d(xs, s_in, w, b, 1, s_out)
+            small_err = max_err(got, conv_relu_pool_w8a8_reference(
+                xs, s_in, w, b, 1, s_out))
+            require(small_err <= TOL["conv_relu_pool_int8"],
+                    f"conv_relu_pool_int8 at B = {sb}: {small_err}")
+            k_ms, bf_ms = timed_turns(
+                torch, [lambda: d(xs, s_in, w, b, 1, s_out),
+                        lambda: relu_maxpool_cuda(conv_nhwc(xsb, w), b)],
+                iters=20)
+            log(f"kernel conv_relu_pool_int8 at B = {sb}, {size} px: codes "
+                f"equal ({small_err:g}) | kernel {k_ms:.4f} ms, bf16 block "
+                f"{bf_ms:.4f} ms")
+            key = str(sb)
+            block["serving_ms"][key] = block["serving_ms"].get(key, 0.0) + k_ms
+            block["bf16_serving_ms"][key] = (
+                block["bf16_serving_ms"].get(key, 0.0) + bf_ms)
         block["max_abs_err"] = max(block["max_abs_err"], err)
         block["ms"] += ms
         block["plain_ms"] += plain_ms
         block["bf16_block_ms"] += bf16_ms
         block["per_block_ms"].append(ms)
-        moved += nbytes(x, pack_int8_weight(w_q), w_scale, b, out)
+        moved += nbytes(x, pack_int8_weight_wgmma(w_q, plan), w_scale, b, out)
         ops += block_ops
         del x, xb, out, probe
+    block["top_s"] = ops / block["ms"] / 1e9
+
+    # A shape the wgmma kernel does not take (stride 2) keeps the mma.sync
+    # kernel, equal in bits.
+    x = torch.randint(0, 128, (8, 55, 55, 64), generator=gen, device=device,
+                      dtype=torch.int8)
+    w = torch.randn(128, 64, 3, 3, generator=gen, device=device) * 0.05
+    b = torch.randn(128, generator=gen, device=device) * 0.1
+    require(w8a8_plan(55, 55, 64, 128, 3, 2, sms).kernel == "mma_sync",
+            "stride 2 takes the mma.sync kernel")
+    before = (d.launches, d.launches_wgmma)
+    err = max_err(d(x, 3.0, w, b, 2, 4.0),
+                  conv_relu_pool_w8a8_reference(x, 3.0, w, b, 2, 4.0))
+    require((d.launches, d.launches_wgmma) == (before[0] + 1, before[1]),
+            "stride 2 ran the mma.sync kernel once")
+    log(f"kernel conv_relu_pool_int8 (mma.sync) stride 2 x {list(x.shape)}: "
+        f"max code difference {err:g} (tol {TOL['conv_relu_pool_int8']:g})")
+    require(err <= TOL["conv_relu_pool_int8"],
+            f"conv_relu_pool_int8 stride 2: {err}")
+    block["stride2_max_abs_err"] = err
+    block["phase_s"] = time.perf_counter() - d_start
+    log(f"kernel conv_relu_pool_int8: its checks and timings took "
+        f"{block['phase_s']:.1f} s")
     summary["conv_relu_pool_int8"] = {**block, **bound(moved, ops, "int8")}
 
 
@@ -1481,12 +1544,13 @@ def kernel_wrappers() -> dict:
 
 
 # Kernels that count the grids of their fast path beside all their grids:
-# kernel C's and kernel B's vector kernels and kernel 7's tensor-core
-# kernel, which every call of a model path takes (the model's shapes, in
-# bf16).
+# kernel C's and kernel B's vector kernels, kernel 7's tensor-core kernel
+# and kernel D's wgmma kernel, which every call of a model path takes (the
+# model's shapes, in bf16; D's in int8).
 FAST_PATHS = {"relu_maxpool_backward": "launches_vector",
               "lstm_backward_step": "launches_vector",
-              "conv_relu_pool_stem": "launches_mma"}
+              "conv_relu_pool_stem": "launches_mma",
+              "conv_relu_pool_int8": "launches_wgmma"}
 
 
 def reset_launches(wrappers) -> None:
@@ -1499,7 +1563,7 @@ def reset_launches(wrappers) -> None:
 
 def read_launches(wrappers, what: str) -> dict:
     """The grids each kernel launched since :func:`reset_launches`; fails
-    where kernel C, B or 7 launched a grid off its fast path."""
+    where kernel C, B, 7 or D launched a grid off its fast path."""
     launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
     for name, counter in FAST_PATHS.items():
         fast = getattr(wrappers[name], counter)
@@ -1682,7 +1746,8 @@ PROFILE_PARTS = (
                                               "conv_pool_direct_kernel")),
     ("kernel 8, LN + MLP (and its weight packing)",
      ("ln_mlp_wgmma_kernel", "ln_mlp_fma_kernel", "pack_weights_kernel")),
-    ("kernel D, W8A8 conv block", ("conv_relu_pool_int8_kernel",)),
+    ("kernel D, W8A8 conv block", ("conv_relu_pool_int8_wgmma_kernel",
+                                   "conv_relu_pool_int8_kernel")),
     ("cuDNN convs, forward and backward",
      ("fprop", "dgrad", "wgrad", "cudnn", "Padding", "ImplicitGemm")),
     ("matrix products (cuBLAS)", ("gemm", "cutlass", "gemv", "splitK")),
@@ -4126,10 +4191,11 @@ def main(argv=None) -> int:
         "conv_relu_pool_int8": ("conv_relu_pool_int8.cu",
                                 "dl_vqa_tpu/ops/conv_int8.py:95"),
     }
-    # The tensor-core instruction of the fused-path kernels in bf16.
+    # The tensor-core instruction of the fused-path kernels in bf16, and of
+    # kernel D at the model's shapes in int8.
     mma = {"conv_relu_pool_fused": "wgmma", "vit_mlp_fused": "wgmma",
            "conv_relu_pool_stem": "mma.sync",
-           "conv_relu_pool_int8": "mma.sync"}
+           "conv_relu_pool_int8": "wgmma"}
     # launches: the grids of all paths together, each path counted from 0:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its

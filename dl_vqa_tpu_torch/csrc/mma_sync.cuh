@@ -1,8 +1,11 @@
 // Tensor-core building blocks shared by the kernels that feed mma.sync from
 // shared memory (lstm_recurrence.cu, vit_attention.cuh), and by the ldmatrix
-// loads of wgmma's register operand (conv_relu_pool_fused.cu): ldmatrix
+// loads of wgmma's register operand (conv_relu_pool_fused.cu,
+// conv_relu_pool_int8.cu): ldmatrix
 // loads and the bf16 m16n8k16 product with f32 accumulation.
 #pragma once
+
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -18,6 +21,13 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat1
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// The same four matrices as 8 rows of 16 bytes each: for s8 data a lane
+// receives row lane / 4, bytes 4 (lane % 4) .. + 3, the operand layout of
+// mma.m16n8k32 and of wgmma's 8-bit register A.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const int8_t* p) {
+  ldmatrix_x4(r, reinterpret_cast<const __nv_bfloat16*>(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],

@@ -1,6 +1,6 @@
 // Warpgroup matrix multiply (wgmma, sm_90a) building blocks shared by the
 // kernels that feed Hopper's tensor cores from a warpgroup of four warps
-// (conv_relu_pool_fused.cu, vit_mlp_fused.cu).
+// (conv_relu_pool_fused.cu, vit_mlp_fused.cu, conv_relu_pool_int8.cu).
 //
 // Shared-memory operands: 128-byte-swizzled, K-major bf16 tiles. A tile of
 // R rows (M or N) by K columns is stored as K / 64 "atoms" one after the
@@ -87,6 +87,11 @@ template <int kN>
 __device__ __forceinline__ void fence_operand(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int kN>
+__device__ __forceinline__ void fence_operand(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d[64, N] (+)= A[64, 16] . B[16, N], f32 sums of bf16 products; B from
@@ -233,6 +238,47 @@ __device__ __forceinline__ void mma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+
+// d[64, N] (+)= A[64, 32] . B[32, N], exact s32 sums of s8 products: A from
+// registers (per warp the mma.sync m16n8k32 A layout, which ldmatrix_x4 of
+// a [16, 32]-byte block gives), B from shared memory by descriptor,
+// K-major: a k32 step is 32 bytes, as a bf16 k16 step, so `desc` and the
+// swizzle above hold in bytes with 128 s8 values an atom row. The s32
+// accumulator has the f32 one's layout. scale_d = 0 overwrites d, 1 adds.
+template <int kN>
+__device__ __forceinline__ void mma_rs_s8(int (&d)[kN / 2],
+                                          const unsigned (&a)[4], uint64_t b,
+                                          int scale_d);
+
+template <>
+__device__ __forceinline__ void mma_rs_s8<128>(int (&d)[64],
+                                               const unsigned (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 // Two f32 values rounded to bf16 and packed, the lower column first.
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

@@ -23,6 +23,7 @@ call on ``data_ptr()`` cannot be traced.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,8 +32,8 @@ import threading
 import time
 from typing import Callable, Optional
 
-__all__ = ["library", "check", "stream_ptr", "build_seconds", "define_op",
-           "NVCC_FLAGS"]
+__all__ = ["library", "check", "stream_ptr", "sm_count", "build_seconds",
+           "define_op", "NVCC_FLAGS"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -73,9 +74,12 @@ _SIGNATURES = {
     # compute, 1 e4m3, 2 int8), the int8 mode's scale, stream
     "vqa_relu_maxpool": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, packed weights, mult, bias, out, batch, h, w, cin, cout, k,
-    # stride, scale, stream
-    "vqa_conv_relu_pool_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _F, _P],
+    # stride, scale, then the plan's c_args (ops/conv_int8.py::w8a8_plan:
+    # kernel, warp rows, warp columns, channels, ck, tiles down, tiles
+    # across, atoms, stage bytes, pixel bytes, blocks a slice, shared
+    # bytes), stream
+    "vqa_conv_relu_pool_int8": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 12
+                               + [_P],
     # g, y, bias, dz, batch, hc, wc, channels, dtype code -> 1 where the
     # call runs the vector kernel, else 0 (not an error)
     "vqa_relu_maxpool_backward_vector": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
@@ -229,6 +233,14 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (a persistent grid's size)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def define_op(name: str, schema: str, plain: Callable, cuda: Callable,

@@ -16,9 +16,11 @@ model refuses it in training (``ModelConfig.check_ported``).
 - every later block is kernel D, ``csrc/conv_relu_pool_int8.cu``
   (:func:`conv_relu_pool_w8a8`, the op ``vqa::conv_relu_pool_w8a8``:
   kernel D on CUDA tensors, its plain version on CPU tensors): the
-  integer conv on ``mma.sync``
-  m16n8k32 with the requantizing epilogue, ReLU and the pool on the
-  accumulators. The JAX package computes that block in XLA; PyTorch has no
+  integer conv on ``wgmma`` m64nNk32 (s8 x s8 -> s32) with the weights
+  resident in shared memory, or on ``mma.sync`` m16n8k32 for the shapes
+  that kernel does not take (:func:`w8a8_plan` decides), with the
+  requantizing epilogue, ReLU and the pool on the accumulators. The JAX
+  package computes that block in XLA; PyTorch has no
   int8 convolution on CUDA, and an unfold plus an integer product would
   build a 3.5 GB im2col tensor at conv1. Its plain version computes the
   conv in float64 on the integer codes, where every sum is exact (|acc| <=
@@ -43,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,22 +53,36 @@ import torch.nn.functional as F
 
 from dl_vqa_tpu_torch.ops import _native
 from dl_vqa_tpu_torch.ops.conv_fused import (
-    conv_nhwc, f32, maxpool_2x2, quantize_pool, quantize_relu_pool_cuda,
-    quantize_relu_pool_reference)
+    SMEM_PER_BLOCK, conv_nhwc, f32, maxpool_2x2, quantize_pool,
+    quantize_relu_pool_cuda, quantize_relu_pool_reference)
+from dl_vqa_tpu_torch.ops.wgmma_layout import ATOM_BYTES, swizzle_index
 
 __all__ = ["quantize_weights_per_channel", "quantize_relu_pool_reference",
            "fma_f32",
            "quantize_relu_pool_cuda", "quantize_relu_pool",
-           "pack_int8_weight", "conv_relu_pool_w8a8_reference",
+           "pack_int8_weight", "pack_int8_weight_wgmma", "WgmmaPlan",
+           "MmaSyncPlan", "W8A8Plan",
+           "w8a8_plan", "conv_relu_pool_w8a8_reference",
            "conv_relu_pool_w8a8_cuda", "conv_relu_pool_w8a8", "dequantize",
            "int8_stem_forward", "calibrate_stem_scales",
            "with_calibrated_scales", "f32"]
 
-# Kernel D's tiling (csrc/conv_relu_pool_int8.cu): output channels a block
-# makes (the packed weight's channels are padded to it) and the depth of
-# one mma.m16n8k32 step (Cin is padded to it).
+# Kernel D's mma.sync tiling (csrc/conv_relu_pool_int8.cu): output
+# channels a block makes (the packed weight's channels are padded to it)
+# and the depth of one mma.m16n8k32 step (Cin is padded to it; it is also
+# the depth of one wgmma m64nNk32 step).
 INT8_BLOCK_N = 128
 INT8_K_STEP = 32
+# Its wgmma kernel: the filter size it takes, output channels a block
+# keeps resident (Cout is padded to them), input channels a stage may hold
+# (widest first), bytes after each staged pixel (an ldmatrix phase's eight
+# pixels then fall on eight bank groups) and its warpgroups a block.
+W8A8_K = 3
+W8A8_CHANNELS = 128
+W8A8_STAGES = (128, 64, 32)
+W8A8_PAD = 16
+W8A8_WARPGROUPS = 2
+_ARRANGEMENTS = ((4, 1), (2, 2), (1, 4))  # warp rows x columns of a tile
 
 
 def fma_f32(a: torch.Tensor, m: torch.Tensor, b: torch.Tensor
@@ -147,6 +163,145 @@ def pack_int8_weight(w_q: torch.Tensor) -> torch.Tensor:
         -(-cout // INT8_BLOCK_N) * INT8_BLOCK_N // 8, -1, 32, 8)
 
 
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """Kernel D's wgmma kernel at one shape (:func:`w8a8_plan`). A
+    warpgroup's tile is ``warp_rows`` x 4 ``warp_cols`` pool windows,
+    ``tiles_y`` x ``tiles_x`` tiles an image; a block keeps the weights of
+    ``channels`` output channels resident, ``atoms`` rows of 128 bytes each
+    (K = (di, dj, ci) laid end to end and padded to whole atoms); a stage
+    holds ``ck`` input channels of a tile's window in ``stage_bytes``;
+    ``blocks`` blocks a slice of channels walk the tiles (the persistent
+    grid; fewer where the batch has fewer tiles); ``shared`` is the dynamic
+    shared memory a block asks for. The C entry takes :meth:`c_args` as
+    they are and checks only that the kernel's accesses stay within the
+    tensors and the shared memory."""
+    warp_rows: int
+    warp_cols: int
+    ck: int
+    atoms: int
+    stage_bytes: int
+    shared: int
+    tiles_y: int
+    tiles_x: int
+    blocks: int
+    kernel = "wgmma"
+    channels = W8A8_CHANNELS
+
+    def c_args(self) -> Tuple[int, ...]:
+        return (1, self.warp_rows, self.warp_cols, self.channels, self.ck,
+                self.tiles_y, self.tiles_x, self.atoms, self.stage_bytes, 0,
+                self.blocks, self.shared)
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaSyncPlan:
+    """Kernel D's mma.sync kernel at one shape (:func:`w8a8_plan`): a
+    block makes one pooled row for 128 channels from its stride + k input
+    rows, staged ``pixel_bytes`` a pixel in ``shared`` bytes."""
+    pixel_bytes: int
+    shared: int
+    kernel = "mma_sync"
+
+    def c_args(self) -> Tuple[int, ...]:
+        return (0,) * 9 + (self.pixel_bytes, 0, self.shared)
+
+
+W8A8Plan = Union[WgmmaPlan, MmaSyncPlan]
+
+
+def _pixel_words(cin_words: int, stride: int) -> int:
+    """The mma.sync kernel's staged pixel stride in 4-byte words: the
+    least (from ``cin_words``) under which the eight rows of a fragment
+    load (pixels 2 s g apart) and its four lanes of a row fall in distinct
+    banks; ``cin_words`` where none does."""
+    for pw in range(cin_words, cin_words + 32):
+        banks = {(2 * stride * pw * g + t) % 32 for g in range(8)
+                 for t in range(4)}
+        if len(banks) == 32:
+            return pw
+    return cin_words
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(h: int, w: int, cin: int, cout: int, k: int, stride: int,
+              sms: int) -> Optional[W8A8Plan]:
+    """Which of kernel D's two kernels takes a shape, and its tiling; None
+    where neither does. The wgmma kernel takes stride 1, k = 3, Cin a
+    multiple of its 32-deep K step and Cout of 4 (its 4-byte stores),
+    where the weights of a slice of 128 output channels (Cout padded to
+    whole slices) fit a block beside two warpgroups' two input stages of
+    the widest of 128, 64 or 32 channels dividing Cin. Its tile masks the
+    fewest windows of 4 x 4, 2 x 8 or 1 x 16 (ties to the squarer tile, as
+    ``conv_fused.fused_plan``), and the card's ``sms`` SMs are shared out
+    among the slices. Every other shape takes the mma.sync kernel where
+    its staged rows fit. Nothing here depends on the batch, and the s32
+    sums are exact, so neither does a pooled pixel's code."""
+    if cin < 4 or cin % 4 or cout < 1 or k < 1 or stride < 1 or h < k \
+            or w < k:
+        return None
+    if stride == 1 and k == W8A8_K and cin % INT8_K_STEP == 0 \
+            and cout % 4 == 0:
+        hp, wp = (h - k + 1) // 2, (w - k + 1) // 2
+        best = None
+        for rows, cols in _ARRANGEMENTS:
+            tiles_y, tiles_x = -(-hp // rows), -(-wp // (4 * cols))
+            if best is None or tiles_y * tiles_x < best[2] * best[3]:
+                best = (rows, cols, tiles_y, tiles_x)
+        rows, cols, tiles_y, tiles_x = best
+        atoms = -(-k * k * cin // ATOM_BYTES)
+        for ck in (c for c in W8A8_STAGES if cin % c == 0):
+            # The window of 2 rows + 2 by 8 cols + 2 conv positions, ck +
+            # W8A8_PAD bytes a pixel; the resident weights, two stages a
+            # warpgroup, the slice's multipliers and biases, and 1024
+            # bytes to align the weights.
+            stage = (2 * rows + k - 1) * (8 * cols + k - 1) * (ck + W8A8_PAD)
+            shared = (atoms * W8A8_CHANNELS * ATOM_BYTES
+                      + 2 * W8A8_WARPGROUPS * stage + 2 * W8A8_CHANNELS * 4
+                      + 1024)
+            if shared <= SMEM_PER_BLOCK:
+                slices = -(-cout // W8A8_CHANNELS)
+                return WgmmaPlan(rows, cols, ck, atoms, stage, shared,
+                                 tiles_y, tiles_x, max(1, sms // slices))
+    cin_words = -(-cin // INT8_K_STEP) * INT8_K_STEP // 4
+    pixel_bytes = 4 * _pixel_words(cin_words, stride)
+    shared = (stride + k) * w * pixel_bytes
+    if shared > SMEM_PER_BLOCK:
+        return None
+    return MmaSyncPlan(pixel_bytes, shared)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_pack_index(cout: int, cin: int, k: int, cout_pad: int,
+                      atoms: int, device: torch.device) -> torch.Tensor:
+    """For each byte of the wgmma kernel's packed weight, its offset in
+    ``[Cout, Cin, k, k]`` with one zero appended, which the padding takes
+    (built once a shape and device)."""
+    kdim = atoms * ATOM_BYTES
+    dest = swizzle_index(cout_pad, kdim, device, 1)  # offsets n K + kk
+    n, kk = dest // kdim, dest % kdim
+    tap, ci = kk // cin, kk % cin
+    offset = ((n * cin + ci) * k + tap // k) * k + tap % k
+    valid = (n < cout) & (kk < k * k * cin)
+    return torch.where(valid, offset, cout * cin * k * k)
+
+
+def pack_int8_weight_wgmma(w_q: torch.Tensor, plan: WgmmaPlan
+                           ) -> torch.Tensor:
+    """int8 ``w_q [Cout, Cin, k, k]`` -> the wgmma kernel's B operand
+    ``[atoms, Cout_pad, 128]``: the ``[Cout, K]`` matrix, K ordered (di,
+    dj, ci) end to end and padded with zeros to whole 128-byte atoms, Cout
+    padded to the plan's slice, K-major and swizzled
+    (``ops/wgmma_layout.py``), so that a slice's rows of one atom are one
+    run of memory. One gather."""
+    cout, cin, k, _ = w_q.shape
+    cout_pad = -(-cout // plan.channels) * plan.channels
+    flat = F.pad(w_q.reshape(-1), (0, 1))
+    index = _wgmma_pack_index(cout, cin, k, cout_pad, plan.atoms,
+                              w_q.device)
+    return torch.take(flat, index).reshape(plan.atoms, cout_pad, ATOM_BYTES)
+
+
 def _epilogue_scales(w: torch.Tensor, s_in: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(w_q, mult)``: the quantized weight and ``w_scale * (s_in /
@@ -191,8 +346,10 @@ def conv_relu_pool_w8a8_reference(x_q: torch.Tensor, s_in: float,
 def conv_relu_pool_w8a8_cuda(x_q: torch.Tensor, s_in: float, w: torch.Tensor,
                              b: torch.Tensor, stride: int,
                              s_out: float) -> torch.Tensor:
-    """Kernel D on ``x_q``'s CUDA device; raises on any input it does not
-    take (Cin a multiple of 4, the staged rows within shared memory)."""
+    """Kernel D on ``x_q``'s CUDA device, the kernel that
+    :func:`w8a8_plan` names; raises on any input neither takes (Cin a
+    multiple of 4, the staged rows within shared memory). The weights are
+    quantized and packed for that kernel on every call."""
     if x_q.dim() != 4 or x_q.dtype != torch.int8 or not x_q.is_cuda:
         raise ValueError(f"x_q must be a CUDA int8 [B, H, W, Cin] tensor; "
                          f"got {x_q.dtype} {tuple(x_q.shape)} on "
@@ -205,11 +362,19 @@ def conv_relu_pool_w8a8_cuda(x_q: torch.Tensor, s_in: float, w: torch.Tensor,
         raise ValueError(f"kernel D takes Cin a multiple of 4; got {cin}")
     if w.device != x_q.device or b.device != x_q.device:
         raise ValueError("x_q, w and b must be on one device")
+    batch, h, width, _ = x_q.shape
+    plan = w8a8_plan(h, width, cin, cout, k, stride,
+                     _native.sm_count(x_q.device.index))
+    if plan is None:
+        raise ValueError(f"no kernel D takes x_q {tuple(x_q.shape)}, k={k}, "
+                         f"stride={stride} (w8a8_plan: the staged rows "
+                         "exceed a block's shared memory, or the input is "
+                         "smaller than the filter)")
     x_q = x_q.contiguous()
     w_q, mult = _epilogue_scales(w, s_in)
-    packed = pack_int8_weight(w_q)
+    packed = (pack_int8_weight_wgmma(w_q, plan) if plan.kernel == "wgmma"
+              else pack_int8_weight(w_q))
     bias = b.detach().float().contiguous()
-    batch, h, width, _ = x_q.shape
     hp = ((h - k) // stride + 1) // 2
     wp = ((width - k) // stride + 1) // 2
     out = torch.empty(batch, hp, wp, cout, dtype=torch.int8,
@@ -217,14 +382,18 @@ def conv_relu_pool_w8a8_cuda(x_q: torch.Tensor, s_in: float, w: torch.Tensor,
     code = _native.library().vqa_conv_relu_pool_int8(
         x_q.data_ptr(), packed.data_ptr(), mult.contiguous().data_ptr(),
         bias.data_ptr(), out.data_ptr(), batch, h, width, cin, cout, k,
-        stride, f32(127.0 / s_out), _native.stream_ptr(x_q.device))
+        stride, f32(127.0 / s_out), *plan.c_args(),
+        _native.stream_ptr(x_q.device))
     _native.check("conv_relu_pool_int8", code)
-    if out.numel():
+    if out.numel():  # the C entry launches nothing for no output
         conv_relu_pool_w8a8_cuda.launches += 1
+        if plan.kernel == "wgmma":
+            conv_relu_pool_w8a8_cuda.launches_wgmma += 1
     return out
 
 
 conv_relu_pool_w8a8_cuda.launches = 0
+conv_relu_pool_w8a8_cuda.launches_wgmma = 0  # those of the wgmma kernel
 
 
 def _w8a8_fake(x_q, s_in, w, b, stride, s_out):

@@ -1,8 +1,9 @@
 """The quantized serving modes' kernels against their plain versions, on
 the card: kernel 2's e4m3 and int8 modes and kernel D (the W8A8 conv
-block) at small and ragged shapes the model's own (checked by
-``chip_smoke.py``) do not reach. Every test needs a GPU and skips without
-one; no JAX is imported:
+block, both its wgmma and its mma.sync kernel, each call counted on the
+kernel ``w8a8_plan`` names) at small and ragged shapes the model's own
+(checked by ``chip_smoke.py``) do not reach. Every test needs a GPU and
+skips without one; no JAX is imported:
 
     python -m pytest --noconftest tests/test_torch_quant_cuda.py -q
 """
@@ -21,6 +22,7 @@ from dl_vqa_tpu_torch.ops.conv_int8 import (
     conv_relu_pool_w8a8_reference,
     quantize_relu_pool_cuda,
     quantize_relu_pool_reference,
+    w8a8_plan,
 )
 
 
@@ -84,25 +86,56 @@ def test_int8_mode_equals_the_plain_codes(device, dtype, shape, s_out):
 @pytest.mark.parametrize("batch,size,cin,cout,k,stride", [
     (1, 5, 4, 8, 3, 1),       # one pooled pixel, Cin far below 32
     (2, 21, 36, 20, 3, 1),    # Cin and Cout off the tile, 9 pooled columns
-    (3, 40, 64, 136, 3, 1),   # Cout over one block of 128
+    (3, 40, 64, 136, 3, 2),   # Cout over one block of 128 (a second N block)
     (2, 31, 48, 24, 3, 2),    # stride 2
     (1, 19, 128, 8, 2, 1),    # an even filter
-    (2, 150, 32, 16, 3, 1),   # a wide row: 74 pooled columns, 10 groups
+    (2, 270, 32, 16, 3, 2),   # a wide row: 67 pooled columns, 9 groups, so
+                              # a warp takes several items
 ])
 def test_kernel_d_equals_the_plain_codes(device, batch, size, cin, cout, k,
                                          stride):
+    """The mma.sync kernel, on the shapes the wgmma kernel does not take."""
+    assert not _hold_kernel_d(device, batch, size, size, cin, cout, k, stride)
+
+
+def _hold_kernel_d(device, batch, h, w_in, cin, cout, k, stride):
+    """One call against the plain codes (tolerance 0), counted on the
+    kernel that ``w8a8_plan`` names."""
     gen = torch.Generator(device=device).manual_seed(cin + cout)
-    x = torch.randint(0, 128, (batch, size, size, cin), generator=gen,
+    x = torch.randint(0, 128, (batch, h, w_in, cin), generator=gen,
                       device=device, dtype=torch.int8)
     w = torch.randn(cout, cin, k, k, generator=gen, device=device) * 0.05
     b = torch.randn(cout, generator=gen, device=device) * 0.2
-    before = conv_relu_pool_w8a8_cuda.launches
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wgmma = w8a8_plan(h, w_in, cin, cout, k, stride, sms).kernel == "wgmma"
+    before = (conv_relu_pool_w8a8_cuda.launches,
+              conv_relu_pool_w8a8_cuda.launches_wgmma)
     got = conv_relu_pool_w8a8_cuda(x, 3.0, w, b, stride, 4.0)
-    assert conv_relu_pool_w8a8_cuda.launches == before + 1
+    assert (conv_relu_pool_w8a8_cuda.launches,
+            conv_relu_pool_w8a8_cuda.launches_wgmma) == (
+                before[0] + 1, before[1] + wgmma)
     want = conv_relu_pool_w8a8_reference(x, 3.0, w, b, stride, 4.0)
     assert got.shape == want.shape
     assert torch.equal(got, want)
     assert 0 < (want > 0).float().mean() < 1
+    return wgmma
+
+
+@pytest.mark.parametrize("batch,h,w,cin,cout", [
+    (1, 111, 111, 64, 128),   # conv1 of the model at B = 1
+    (1, 54, 54, 128, 256),    # conv2 at B = 1
+    (2, 20, 111, 64, 128),    # conv1's width at a few rows
+    (3, 12, 54, 128, 256),    # conv2's width at a few rows
+    (2, 17, 23, 64, 136),     # Cout off the 128-channel slice
+    (2, 13, 300, 32, 64),     # a wide row: 149 pooled columns, Cin 32
+    (64, 20, 20, 96, 256),    # several tiles a warpgroup; 3 channel steps
+    (9, 30, 31, 128, 72),     # a slice of 128 for 72 channels
+    (3, 40, 40, 64, 136),     # Cout over one slice of 128
+    (2, 150, 150, 32, 16),    # a wide row: 74 pooled columns
+])
+def test_kernel_d_wgmma_equals_the_plain_codes(device, batch, h, w, cin,
+                                               cout):
+    assert _hold_kernel_d(device, batch, h, w, cin, cout, 3, 1)
 
 
 def test_kernel_d_raises_on_what_it_does_not_take(device):
