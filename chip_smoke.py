@@ -5,7 +5,7 @@
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's CUDA kernels from dl_vqa_tpu_torch/csrc;
-3. kernels: each of the fifteen kernels against its plain PyTorch version on
+3. kernels: each of the sixteen kernels against its plain PyTorch version on
    the card, at the serving and training paths' shapes, in bf16 and f32,
    then timed in turns (plain, kernel, kernel, plain) with CUDA events;
    beside each time, the least time the card could take for the same work
@@ -118,14 +118,32 @@
    two learning rates on cnn_e2e's corpus, one epoch a trial, the table
    on; each trial launches kernels 1, A, B, 2, C and 3 as its steps ask,
    and the best returned is the larger trial's: one JSON line ``{"sweep":
-   ...}``.
+   ...}``;
+14. variants (after phase 12, its journey after phase 13): the presets
+   ``config_san`` (bi-LSTM, stacked attention, 3,000 answers) and
+   ``config_transformer_co`` (the transformer question encoder, 2 layers
+   of 8 heads of 128, co-attention, 10,000 answers) at full width, built
+   from the port's preset dicts (``variant_config``), each through phases
+   4 and 5 (8 requests, the logits held to the plain path, the batch-512
+   forward timed; VARIANT_STEPS train steps at batch 512, the gradients
+   held to the plain path's at batch 8, the step timed) and exported at
+   B = 8, the program's logits the live Predictor's to the bit; a served
+   batch launches kernel 1 once, kernel 2 three times and kernel 3 twice
+   for SAN, kernel 2 three times and kernel 3 once for transformer_co
+   (no LSTM); then (lstm, co), which no preset has, at batch 8: served and a
+   train step each way, its per-token states on kernel A's f32 mode
+   (``lstm_token_states``, T grids a call); after phase 9, ``main`` trains
+   ``config_transformer_co`` for one epoch on cnn_e2e's corpus and
+   ``evaluate_vqa`` on its best checkpoint gives its best score: one JSON
+   line ``{"variants": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 the layout probe, the three quantized serving paths and the f8 train step,
 the serving front's HTTP, int8 HTTP and native paths, the exported
-programs of the aot phase, cnn_e2e, its quantized evaluations, and the
-sweep's trials) is driven with the kernels'
+programs of the aot phase, the variants' serving, training and exported
+paths, cnn_e2e, its quantized evaluations, the sweep's trials and the
+transformer_co journey) is driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels and kernel 7 its tensor-core
 kernel (``FAST_PATHS``). Then
@@ -193,6 +211,16 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #    per tensor the kernel path may lie at most GRADS_BF16_RATIO times as
 #    far from them as the plain path does (H100: 1.013 times, where the
 #    plain path lies 5e-2 to 1.5e-1 away).
+#  gradients of (lstm, co) in bf16, kernel path against plain path at
+#    batch 8: 5e-2 on every tensor. Its token states are f32 on both paths
+#    (kernel A's f32 mode against the plain recurrence, 1e-7 apart), and
+#    co-attention rounds them to bf16 for its token products, so such a
+#    difference flips a token's rounding now and then; q_attended, which
+#    the classifier reads, moves by bf16 steps, and that reaches every
+#    tensor's gradient through the loss (H100: 7.8e-3 to 9.6e-3 on every
+#    tensor, where the plain path lies 2.4e-2 to 4.1e-2 from its f32
+#    gradients). The ratio to the plain path's distance from f32 holds as
+#    everywhere.
 #  eval loss: relative, f32 1e-5, bf16 5e-4, as the logits.
 #  vit_attention, vit_attention_backward f32: 1e-5; f32 sums over 196 keys
 #    (or queries) in another order, on values of order 1 (H100: 4e-7).
@@ -311,7 +339,7 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "lstm_backward": 1e-5, "lstm_backward_step": 0.0,
        "pool_backward_dz": 0.0,
        "pool_backward_db": 1e-5, "grads_f32": 2e-4, "grads_bf16": 1e-2,
-       "grads_bf16_attention": 1e-1,
+       "grads_bf16_attention": 1e-1, "grads_bf16_lstm_co": 5e-2,
        "loss_f32": 1e-5, "loss_bf16": 5e-4,
        "e2e_resume": 0.0, "e2e_eval_score": 1e-3,
        "relu_maxpool_e4m3": 0.0, "relu_maxpool_int8": 0.0,
@@ -474,22 +502,26 @@ def recurrence_grids(torch) -> int:
     return SEQ_LEN if plan is None else 1
 
 
-def lstm_library_ms(torch, gen, device, lengths, train: bool) -> float:
+def lstm_library_ms(torch, gen, device, lengths, train: bool,
+                    dtype=None) -> float:
     """ms of one ``nn.LSTM(bidirectional=True)`` forward (cuDNN) on a
     PackedSequence of ``lengths``, packed before the timing: kernel 1's
     yardstick in eval mode, kernel A's in train mode (which keeps what the
     backward needs). It also does the input GEMM, which kernels 1 and A
     leave outside. In fp16, which has bf16's bytes and operations: PyTorch
     flattens no bf16 weights for cuDNN, so a bf16 module repacks them on
-    every call (and its time swings with that)."""
+    every call (and its time swings with that). ``dtype=torch.float32``
+    times it in f32 instead (TF32 off), the yardstick of the token
+    states' f32 mode."""
     from torch.nn.utils.rnn import pack_padded_sequence
 
+    dtype = dtype or torch.float16
     lstm = torch.nn.LSTM(EMBED, HIDDEN, batch_first=True,
-                         bidirectional=True).to(device, torch.float16)
+                         bidirectional=True).to(device, dtype)
     lstm.flatten_parameters()
     lstm.train(train)
     x = torch.tanh(torch.randn(len(lengths), SEQ_LEN, EMBED, generator=gen,
-                               device=device)).to(torch.float16)
+                               device=device)).to(dtype)
     packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
                                   enforce_sorted=False)
     with torch.set_grad_enabled(train):
@@ -504,7 +536,8 @@ def lstm_kernels(torch, gen, device, summary) -> None:
         lstm_recurrence_save_reference, lstm_saved_state_backward)
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_backward_step_launcher,
-        lstm_recurrence_cuda, lstm_recurrence_save_cuda)
+        lstm_recurrence_cuda, lstm_recurrence_save_cuda,
+        lstm_token_states_cuda)
 
     def report(name, dtype, batch, err, tol, ms, plain_ms, extra=""):
         log(f"kernel {name} {str(dtype)[6:]} B={batch} T={SEQ_LEN} "
@@ -587,6 +620,36 @@ def lstm_kernels(torch, gen, device, summary) -> None:
                        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}"))
             if main:
                 by_batch["lstm_recurrence_save"][batch] = entry
+            elif batch == BATCH:
+                # Kernel A's f32 mode as the co-attention's token states
+                # run it, on its own counter: the f32 call's bits above.
+                before = lstm_token_states_cuda.launches
+                states = lstm_token_states_cuda(*args)
+                require(lstm_token_states_cuda.launches - before == SEQ_LEN,
+                        f"lstm_token_states f32 B={batch}: "
+                        f"{lstm_token_states_cuda.launches - before} grids")
+                torch.cuda.synchronize()
+                require(all(torch.equal(a, b)
+                            for a, b in zip(states, saved)),
+                        "lstm_token_states: kernel A's f32 bits")
+                token_ms, token_plain_ms = timed_pair(
+                    torch, lambda: lstm_recurrence_save_reference(*args),
+                    lambda: lstm_token_states_cuda(*args), iters=iters)
+                library_ms = lstm_library_ms(torch, gen, device, lengths,
+                                             train=False,
+                                             dtype=torch.float32)
+                summary["lstm_token_states"] = {
+                    "max_abs_err": err, "ms": token_ms,
+                    "plain_ms": token_plain_ms, "library_ms": library_ms,
+                    **bound(nbytes(x_proj, w_hh, lengths, *states),
+                            product_ops, "f32")}
+                report("lstm_token_states", dtype, batch, err, tol, token_ms,
+                       token_plain_ms,
+                       f" | kernel A's f32 bits | f32 nn.LSTM eval (with "
+                       f"the input GEMM) {library_ms:.4f} ms | bound "
+                       f"{summary['lstm_token_states']['bound_ms']:.4f} ms "
+                       f"by {summary['lstm_token_states']['bound_by']}")
+                del states
             if batch == 1:
                 continue
 
@@ -1521,13 +1584,14 @@ def kernel_wrappers() -> dict:
     from dl_vqa_tpu_torch.ops.layout_cases import layout_cases_cuda
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_recurrence_cuda,
-        lstm_recurrence_save_cuda)
+        lstm_recurrence_save_cuda, lstm_token_states_cuda)
     from dl_vqa_tpu_torch.ops.vit_attention import (
         vit_attention_backward_cuda, vit_attention_cuda)
     from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp_cuda
 
     return {"lstm_recurrence": lstm_recurrence_cuda,
             "lstm_recurrence_save": lstm_recurrence_save_cuda,
+            "lstm_token_states": lstm_token_states_cuda,
             "lstm_backward_step": lstm_backward_step_cuda,
             "relu_maxpool": relu_maxpool_cuda,
             "relu_maxpool_backward": relu_maxpool_backward_cuda,
@@ -1588,11 +1652,13 @@ def vit_config():
 
 
 def slice_phase(torch, seed: int, cfg, name: str, expected: dict,
-                fused: bool = False, profile: bool = False) -> dict:
+                fused: bool = False, profile: bool = False,
+                numbers: dict = None) -> dict:
     """A Predictor over ``cfg`` answers the requests; ``expected`` holds
     the grids each kernel must have launched for them. ``fused`` serves
     with ``fused_ops=True``: the logits are also held to the unfused kernel
-    path, and the forward is timed with the flip on and off."""
+    path, and the forward is timed with the flip on and off. ``numbers``,
+    where given, takes the batch-512 forward's ms on both paths."""
     from dl_vqa_tpu_torch.models.vqa import VqaNet
     from dl_vqa_tpu_torch.predict import Predictor
 
@@ -1694,6 +1760,10 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict,
     log(f"forward {name} B={BATCH} bf16: kernel path {ms:.3f} ms = "
         f"{BATCH / ms * 1e3:.1f} QA/s | plain path {plain_ms:.3f} ms = "
         f"{BATCH / plain_ms * 1e3:.1f} QA/s | peak memory {peak:.2f} GiB")
+    if numbers is not None:
+        numbers.update(forward_ms=ms, forward_plain_ms=plain_ms,
+                       forward_qa_s=BATCH / ms * 1e3,
+                       forward_peak_gib=peak)
     return launches
 
 
@@ -1804,6 +1874,14 @@ def profile_steps(torch, run_step, step_ms: float, what: str,
             f"{key[:100]}")
 
 
+def shifts_a_softmax(name: str) -> bool:
+    """The biases that only shift a softmax over the grid: the glimpse
+    scores' (single and co attention's ``x_conv``, stacked attention's
+    ``layers.{g}.score``). Their true gradient is zero."""
+    return name == "attention.x_conv.bias" or (
+        name.startswith("attention.layers.") and name.endswith(".score.bias"))
+
+
 def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
                        new_state) -> None:
     """At batch 8 without dropout, one train step each on the kernel path
@@ -1813,6 +1891,7 @@ def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
     from dl_vqa_tpu_torch.train import make_eval_step, make_train_step
 
     vit = cfg.image.encoder == "vit"
+    lstm_co = cfg.text.encoder == "lstm" and cfg.attention.variant == "co"
     cfg0 = without_dropout(cfg)
     small = make_batch(torch, cfg0, 8, seed + 1)
     reference = None
@@ -1836,14 +1915,15 @@ def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
         worst, worst_ratio = ("", 0.0, 1.0), ("", 0.0, 0.0)
         listing = []
         for n, want in grads[True].items():
-            require(float(want.abs().max()) > 0
-                    or n == "attention.x_conv.bias",
+            require(float(want.abs().max()) > 0 or shifts_a_softmax(n),
                     f"gradient of {n} is zero")
-            # The glimpse bias has gradient zero (a softmax ignores a
+            # A glimpse's score bias has gradient zero (a softmax ignores a
             # shift); what it holds is rounding noise.
-            if n == "attention.x_conv.bias":
+            if shifts_a_softmax(n):
                 continue
             tol = TOL["grads_" + dname]
+            if dname == "bf16" and lstm_co:
+                tol = TOL["grads_bf16_lstm_co"]
             if dname == "bf16" and n.startswith("attention."):
                 tol = TOL["grads_bf16_attention"]
             elif dname == "bf16" and vit and n.startswith("image."):
@@ -1892,9 +1972,11 @@ def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
 
 
 def train_phase(torch, seed: int, profile: bool, cfg, name: str,
-                expected: dict, accumulate: bool) -> dict:
+                expected: dict, accumulate: bool, steps: int = TRAIN_STEPS,
+                numbers: dict = None) -> dict:
     """A trainer over ``cfg``; ``expected`` holds the grids each kernel
-    must have launched in 8 train steps and one eval step."""
+    must have launched in ``steps`` train steps and one eval step.
+    ``numbers``, where given, takes the train step's ms on both paths."""
     from dl_vqa_tpu_torch.models.vqa import VqaNet
     from dl_vqa_tpu_torch.train import (
         create_train_state, lr_schedule, make_eval_step, make_train_step)
@@ -1914,7 +1996,7 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
     eval_step = make_eval_step(cfg)
     reset_launches(wrappers)
     losses, scores = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, metrics = train_step(state, batch, gen)
         losses.append(metrics["loss"])
         scores.append(metrics["score"])
@@ -1933,11 +2015,11 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
     require(losses[-1] < losses[0], "the loss falls on a repeated batch")
     require(all(bool(torch.isfinite(p).all())
                 for p in state.model.parameters()), "finite parameters")
-    require(state.step == TRAIN_STEPS, "one update per step")
+    require(state.step == steps, "one update per step")
     used = state.optimizer.param_groups[0]["lr"]
-    require(abs(used - INITIAL_LR * 0.5 ** ((TRAIN_STEPS - 1) / 50000)) < 1e-12
+    require(abs(used - INITIAL_LR * 0.5 ** ((steps - 1) / 50000)) < 1e-12
             and abs(lr_schedule(INITIAL_LR)(state.step)
-                    - INITIAL_LR * 0.5 ** (TRAIN_STEPS / 50000)) < 1e-12,
+                    - INITIAL_LR * 0.5 ** (steps / 50000)) < 1e-12,
             "the LR follows the halving law")
     require(launches == {**dict.fromkeys(wrappers, 0), **expected},
             f"kernel launches on the {name} trainer's path: {launches}, "
@@ -1967,6 +2049,10 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
         f"{BATCH / plain_ms * 1e3:.1f} samples/s, peak memory "
         f"{peaks['plain']:.2f} GiB")
     del plain_state
+    if numbers is not None:
+        numbers.update(train_step_ms=ms, train_step_plain_ms=plain_ms,
+                       train_samples_s=BATCH / ms * 1e3,
+                       train_peak_gib=peaks["kernel"], losses=losses)
 
     if accumulate:
         accum_step = make_train_step(cfg, accum_steps=4)
@@ -3612,8 +3698,13 @@ def opcheck_cases(torch, gen) -> list:
     CUDA registration calls (``direct``, args as the op takes them)."""
     from dl_vqa_tpu_torch.ops import conv_fused, conv_int8, vit_mlp_fused
     from dl_vqa_tpu_torch.ops.attention_pool import attention_pool_cuda
-    from dl_vqa_tpu_torch.ops.lstm_cuda import lstm_recurrence_cuda
+    from dl_vqa_tpu_torch.ops.lstm_cuda import (
+        lstm_recurrence_cuda, lstm_token_states_cuda)
     from dl_vqa_tpu_torch.ops.vit_attention import vit_attention_cuda
+
+    def token_states(*args):  # the op's two outputs of the wrapper's five
+        _, c, _, _, h_all = lstm_token_states_cuda(*args)
+        return h_all, c
 
     def r(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda")
@@ -3634,6 +3725,13 @@ def opcheck_cases(torch, gen) -> list:
           r(2, 4 * HIDDEN, HIDDEN, dtype=bf, scale=0.03),
           torch.tensor([17], dtype=torch.int32, device="cuda")),
          lstm_recurrence_cuda),
+        ("lstm_token_states", "small f32",
+         (r(2, 5, 3, 64), r(2, 64, 16, scale=0.2), lengths), token_states),
+        ("lstm_token_states", "B = 1 f32",
+         (r(2, SEQ_LEN, 1, 4 * HIDDEN),
+          r(2, 4 * HIDDEN, HIDDEN, scale=0.03),
+          torch.tensor([17], dtype=torch.int32, device="cuda")),
+         token_states),
         ("attention_pool", "small f32", (r(2, 4, 4, 8), r(2, 4, 4, 2)),
          attention_pool_cuda),
         ("attention_pool", "B = 1 f32",
@@ -3718,7 +3816,8 @@ def op_checks(torch, seed: int) -> dict:
                 f"opcheck vqa::{name} ({label}): {result}")
         checked.setdefault(name, []).append(label)
     require(set(checked) == {
-        "lstm_recurrence", "relu_maxpool", "attention_pool", "vit_attention",
+        "lstm_recurrence", "lstm_token_states", "relu_maxpool",
+        "attention_pool", "vit_attention",
         "conv_relu_pool_fused", "conv_relu_pool_stem", "fused_ln_mlp",
         "conv_relu_pool_w8a8"}, f"opcheck covers every op: {sorted(checked)}")
     log(f"opcheck: every vqa:: op passes at {sum(map(len, checked.values()))}"
@@ -3999,6 +4098,256 @@ def sweep_phase(torch, seed: int, prof: dict) -> tuple:
         {k: v for k, v in t.items() if k != "launches"} for t in trials]}
 
 
+# Phase 14: the attention and text variants through the two presets that
+# run them, SAN (bi-LSTM, stacked attention) and transformer_co (the
+# transformer question encoder, co-attention), at the presets' widths.
+VARIANT_PRESETS = ("config_san", "config_transformer_co")
+VARIANT_STEPS = 4  # train steps a preset takes at batch 512
+VARIANT_DIR = "_smoke_variants"  # under the checkout; .gitignore lists it
+
+
+def variant_config(preset: str):
+    """The model of ``dl_vqa_tpu/config/<preset>.yaml`` at the reference's
+    vocabulary, built from the port's preset dicts (no PyYAML)."""
+    from dl_vqa_tpu_torch.config.presets import preset as preset_dict
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+
+    return ModelConfig.from_cfg(preset_dict(preset)["train"],
+                                ModelConfig().num_tokens)
+
+
+def variant_grids(cfg, recurrence: int, forwards: int = 1,
+                  train_steps: int = 0) -> dict:
+    """The grids ``forwards`` forwards without a gradient and
+    ``train_steps`` train steps launch for the model of ``cfg`` (the CNN
+    image encoder): the pooled bi-LSTM on kernel 1 (kernel A and B's T
+    grids in a train step), the token states of (lstm, co) on kernel A's
+    f32 mode (T grids a forward; kernel B's T in a train step), none with
+    the transformer; kernel 3 a glimpse in stacked attention, once in
+    single and co; kernels 2 and C a CNN block."""
+    variant = cfg.attention.variant
+    pools = cfg.attention.glimpses if variant == "stacked" else 1
+    blocks = len(cfg.image.num_channels) - 1
+    calls = forwards + train_steps
+    grids = {"relu_maxpool": blocks * calls,
+             "relu_maxpool_backward": 2 * blocks * train_steps,
+             "attention_pool": pools * calls}
+    if cfg.text.encoder == "lstm":
+        if variant == "co":
+            grids["lstm_token_states"] = SEQ_LEN * calls
+        else:
+            grids["lstm_recurrence"] = recurrence * forwards
+            grids["lstm_recurrence_save"] = recurrence * train_steps
+        grids["lstm_backward_step"] = SEQ_LEN * train_steps
+    return {k: v for k, v in grids.items() if v}
+
+
+def variants_phase(torch, seed: int, recurrence: int,
+                   profile: bool = False) -> tuple:
+    """Phase 14 before cnn_e2e: each variant preset at full width served
+    (:func:`slice_phase`: 8 requests, the logits held to the plain path,
+    the batch-512 forward timed), trained (:func:`train_phase`:
+    VARIANT_STEPS steps at batch 512, the gradients held to the plain
+    path's at batch 8, the step timed) and exported at B = 8 (the program's
+    logits the live Predictor's to the bit, its launches counted); then the
+    (lstm, co) combination, which no preset has, at batch 8: served, its
+    logits held to the plain path, and a train step's gradients held to the
+    plain path's, kernel A's f32 launches counted. ``profile`` adds the
+    presets' device time by kernel over two train and eval steps. Returns
+    ``({path: launches}, numbers)``."""
+    import dataclasses
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.predict import Predictor
+    from dl_vqa_tpu_torch.utils.aot_export import load_artifact
+
+    wrappers = kernel_wrappers()
+    root = os.path.abspath(VARIANT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    phase_start = time.perf_counter()
+    paths, numbers = {}, {}
+    for preset in VARIANT_PRESETS:
+        cfg = variant_config(preset)
+        name = preset[len("config_"):]
+        entry = numbers[name] = {
+            "text": cfg.text.encoder, "attention": cfg.attention.variant,
+            "answers": cfg.max_answers}
+        t0 = time.perf_counter()
+        paths[f"{name}_serving"] = slice_phase(
+            torch, seed, cfg, name, variant_grids(cfg, recurrence),
+            numbers=entry)
+        paths[f"{name}_training"] = train_phase(
+            torch, seed, profile, cfg, name,
+            variant_grids(cfg, recurrence, forwards=1,
+                          train_steps=VARIANT_STEPS),
+            accumulate=False, steps=VARIANT_STEPS, numbers=entry)
+
+        # The exported program at B = 8 against the live Predictor.
+        model = VqaNet(cfg, device="cuda",
+                       generator=torch.Generator().manual_seed(seed))
+        live = Predictor(cfg, model, make_vocab(cfg.num_tokens,
+                                                cfg.max_answers),
+                         device="cuda", max_question_length=SEQ_LEN,
+                         compute_dtype=torch.bfloat16)
+        path = os.path.join(root, name)
+        seconds = live.export_artifact(path, batch_sizes=(AOT_VARIANT_BATCH,))
+        exported = load_artifact(path)
+        request = aot_requests(cfg, seed)[AOT_VARIANT_BATCH]
+        request = (*request[:2], np.maximum(request[2], 1))
+        want = live.forward_logits(*request)
+        reset_launches(wrappers)
+        got = exported.logits(*request)
+        torch.cuda.synchronize()
+        launches = read_launches(wrappers, f"the exported {name}")
+        expected = variant_grids(cfg, recurrence)
+        require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+                f"the exported {name}: launches {launches}, expected "
+                f"{expected}")
+        entry["aot_max_abs_err"] = hold_bits(got, want,
+                                             f"the exported {name}")
+        entry["aot_export_s"] = seconds[AOT_VARIANT_BATCH]
+        paths[f"aot_{name}"] = launches
+        entry["phase_s"] = time.perf_counter() - t0
+        log(f"variants {name}: exported at B = {AOT_VARIANT_BATCH} in "
+            f"{entry['aot_export_s']:.2f} s, logits max |diff| "
+            f"{entry['aot_max_abs_err']:g}, kernel launches "
+            f"{json.dumps(launches)} | {entry['phase_s']:.1f} s")
+        del model, live, exported
+
+    # (lstm, co) at the reference width: the token states on kernel A's
+    # f32 mode, serving and training, at batch 8.
+    t0 = time.perf_counter()
+    base = ModelConfig()
+    cfg = dataclasses.replace(base, attention=dataclasses.replace(
+        base.attention, variant="co"))
+    model = VqaNet(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+    predictor = Predictor(cfg, model, make_vocab(cfg.num_tokens,
+                                                 cfg.max_answers),
+                          device="cuda", max_question_length=SEQ_LEN,
+                          compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (len(QUESTIONS), cfg.image_size,
+                                   cfg.image_size, 3), dtype=np.uint8)
+    reset_launches(wrappers)
+    answers = predictor.predict(images, QUESTIONS, top_k=3)
+    launches = read_launches(wrappers, "the (lstm, co) serving path")
+    expected = variant_grids(cfg, recurrence)
+    require(len(answers) == len(QUESTIONS), "one answer list per request")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on the (lstm, co) serving path: {launches}, "
+            f"expected {expected}")
+    paths["lstm_co_serving"] = launches
+    encoded, lengths = predictor.encode_questions(QUESTIONS)
+    entry = numbers["lstm_co"] = {"logits_max_abs_err": {}}
+    for dtype, tol in ((torch.bfloat16, TOL["logits_bf16"]),
+                       (torch.float32, TOL["logits_f32"])):
+        predictor.compute_dtype = dtype
+        kernel = predictor.forward_logits(images, encoded, lengths)
+        plain = predictor.forward_logits(images, encoded, lengths,
+                                         plain_ops=True)
+        err = float(np.abs(kernel - plain).max())
+        require(bool(np.isfinite(kernel).all()), "finite logits")
+        require(err <= tol, f"(lstm, co) kernel vs plain logits {dtype}: "
+                f"{err}")
+        entry["logits_max_abs_err"][str(dtype)[6:]] = err
+    log(f"variants lstm_co: {len(answers)} requests answered, kernel "
+        f"launches {json.dumps(launches)}, logits max |kernel - plain| "
+        f"{json.dumps(entry['logits_max_abs_err'])} (tol "
+        f"{TOL['logits_bf16']:g} bf16, {TOL['logits_f32']:g} f32)")
+    del model, predictor
+
+    from dl_vqa_tpu_torch.train import create_train_state
+
+    def new_state(model_cfg):
+        return create_train_state(
+            VqaNet(model_cfg, generator=torch.Generator().manual_seed(seed)),
+            INITIAL_LR)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    reset_launches(wrappers)
+    # Two dtypes, each a train step and an eval step on both paths.
+    hold_to_plain_path(torch, seed, cfg, "lstm_co", gen, new_state)
+    launches = read_launches(wrappers, "the (lstm, co) batch-8 steps")
+    expected = variant_grids(cfg, recurrence, forwards=2, train_steps=2)
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches of the (lstm, co) steps: {launches}, expected "
+            f"{expected}")
+    paths["lstm_co_training"] = launches
+    entry["phase_s"] = time.perf_counter() - t0
+    numbers["phase_s"] = time.perf_counter() - phase_start
+    log(f"variants lstm_co: train and eval steps at B=8 held to the plain "
+        f"path, kernel launches {json.dumps(launches)} | "
+        f"{entry['phase_s']:.1f} s")
+    return paths, numbers
+
+
+def variants_e2e_phase(torch, seed: int, prof: dict) -> tuple:
+    """Phase 14 after cnn_e2e: ``dl_vqa_tpu_torch.main.main`` trains
+    ``config_transformer_co`` (the transformer question encoder,
+    co-attention, 10,000 answers) for one epoch on cnn_e2e's corpus (batch
+    512, bf16, dropout 0.3, the table on), and ``evaluate_vqa`` scores its
+    best checkpoint with the preset's model settings: the loop's best
+    score. Returns ``(launches, numbers)``."""
+    import contextlib
+    import os
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.evaluate_vqa import evaluate_hw2
+    from dl_vqa_tpu_torch.main import main as train_main
+
+    wrappers = kernel_wrappers()
+    root = os.path.abspath(E2E_DIR)
+    preset = "config_transformer_co"
+    extra = ["train.num_epochs=1", "tpu.checkpoint_every_steps=0"]
+    from dl_vqa_tpu_torch.data.dataset import VQADataset
+
+    reset_launches(wrappers)
+    phase_start = t0 = time.perf_counter()
+    best = train_main(config_mod.compose(preset, e2e_overrides(
+        prof, root, "variants_tco", seed, extra)))
+    train_s = time.perf_counter() - t0
+    best_ckpt = os.path.join(exp_dir_of(root, "variants_tco"), "model.ckpt")
+    cfg = variant_config(preset)
+    t0 = time.perf_counter()
+    stdout = os.path.join(root, "variants_evaluate_stdout.txt")
+    with open(stdout, "w") as out, contextlib.redirect_stdout(out):
+        score = evaluate_hw2(e2e_overrides(prof, root, "variants_eval", seed, [
+            f"main.small.paths.pretrained_model_path={best_ckpt}",
+            f"train.text.encoder={cfg.text.encoder}",
+            f"train.attention.variant={cfg.attention.variant}",
+            f"train.max_answers={cfg.max_answers}",
+            "train.image.stride=1", "train.attention.do_option=+"]))
+    eval_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, "the transformer_co journey")
+    # The epoch's steps, its evaluation and evaluate_vqa's, on the CNN's
+    # kernels and kernel 3; no LSTM kernel.
+    train_ds, val_ds = (
+        VQADataset.load(VQADataset.cache_path(prof[split]["vqaDataset"]))
+        for split in ("train_paths", "val_paths"))
+    steps = -(-len(train_ds) // BATCH)
+    evals = 2 * -(-len(val_ds) // BATCH)
+    expected = {"relu_maxpool": 3 * (steps + evals),
+                "relu_maxpool_backward": 6 * steps,
+                "attention_pool": steps + evals}
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"the transformer_co journey: launches {launches}, expected "
+            f"{expected}")
+    require(abs(score - best) <= TOL["e2e_eval_score"],
+            f"evaluate_vqa {score} against the loop's best {best}")
+    log(f"variants transformer_co e2e: main 1 epoch in {train_s:.1f} s, best "
+        f"{best:.4f}; evaluate_vqa {score:.3f} in {eval_s:.1f} s | kernel "
+        f"launches {json.dumps(launches)}")
+    return launches, {"best_score": best, "eval_score": score,
+                      "train_s": train_s, "eval_s": eval_s,
+                      "phase_s": time.perf_counter() - phase_start}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4142,6 +4491,11 @@ def main(argv=None) -> int:
     aot_paths, aot = aot_phase(torch, args.seed, recurrence)
     paths.update(aot_paths)
     log(json.dumps({"aot": {"card": card, **aot}}))
+    # Phase 14: the variant presets and (lstm, co); their journey after
+    # cnn_e2e's corpus exists.
+    variant_paths, variants = variants_phase(torch, args.seed, recurrence,
+                                             args.profile)
+    paths.update(variant_paths)
     paths["cnn_e2e"], e2e, e2e_profile = e2e_phase(torch, args.seed)
     log(json.dumps({"cnn_e2e": e2e}))
     paths["cnn_e2e_quant_eval"], quant["cnn_e2e_quant_eval"] = (
@@ -4150,6 +4504,10 @@ def main(argv=None) -> int:
     log(json.dumps({"quant": quant}))
     paths["sweep"], sweep = sweep_phase(torch, args.seed, e2e_profile)
     log(json.dumps({"sweep": {"card": card, **sweep}}))
+    paths["transformer_co_e2e"], variants["transformer_co_e2e"] = (
+        variants_e2e_phase(torch, args.seed, e2e_profile))
+    variants["phase_s"] += variants["transformer_co_e2e"]["phase_s"]
+    log(json.dumps({"variants": {"card": card, **variants}}))
     serving["submission"] = submission_phase(torch, args.seed, e2e_profile)
     log(json.dumps({"serving": serving}))
     log(f"total {time.perf_counter() - start:.1f} s")
@@ -4160,6 +4518,10 @@ def main(argv=None) -> int:
                             "dl_vqa_tpu/ops/lstm_pallas.py:139"),
         "lstm_recurrence_save": ("lstm_recurrence.cu",
                                  "dl_vqa_tpu/ops/lstm_pallas.py:177"),
+        # Kernel A's f32 mode: the co-attention's per-token states, an f32
+        # lax.scan in the JAX package (no TPU kernel behind it).
+        "lstm_token_states": ("lstm_recurrence.cu",
+                              "dl_vqa_tpu/ops/lstm.py:109"),
         "lstm_backward_step": ("lstm_backward.cu",
                                "dl_vqa_tpu/ops/lstm_pallas.py:88"),
         "relu_maxpool": ("relu_maxpool.cu",

@@ -100,16 +100,22 @@ class ModelConfig:
     use_pallas: bool = True            # read by the JAX package only
 
     def check_ported(self, train: Optional[bool] = None) -> None:
-        """Raise ``NotImplementedError`` for a variant the port lacks, and
-        ``ValueError`` for a combination the JAX package refuses too, in
-        its words. With ``train`` given (a forward's), also the refusals
+        """Raise ``NotImplementedError`` for a variant the port lacks (MoE
+        blocks), and the JAX package's own error, in its words, for what it
+        refuses too (``NotImplementedError`` for ``num_lstm_layers != 1``
+        or an unknown encoder or attention variant, ``ValueError`` for a
+        combination). With ``train`` given (a forward's), also the refusals
         the JAX model makes when it runs: the int8 mode in training, and
         int8 without its calibrated scales or with the wrong number."""
         unported = []
-        if self.text.encoder != "lstm":
-            unported.append(f"text.encoder={self.text.encoder!r}")
-        if self.text.num_lstm_layers != 1:
-            unported.append(f"text.num_lstm_layers={self.text.num_lstm_layers}")
+        if self.text.encoder not in ("lstm", "transformer"):
+            raise NotImplementedError(f"text encoder {self.text.encoder!r}")
+        if self.text.encoder == "lstm" and self.text.num_lstm_layers != 1:
+            # The JAX model's own refusal (and the reference's: a single
+            # layer only), not a gap of the port.
+            raise NotImplementedError(
+                f"num_lstm_layers={self.text.num_lstm_layers}; only 1 is "
+                "supported")
         if self.image.encoder not in ("cnn", "vit"):
             unported.append(f"image.encoder={self.image.encoder!r}")
         store = self.image.store_dtype
@@ -129,8 +135,9 @@ class ModelConfig:
                 "blocks (no W8A8 path for the expert einsums)")
         if self.image.moe_experts:
             unported.append(f"image.moe_experts={self.image.moe_experts}")
-        if self.attention.variant != "single":
-            unported.append(f"attention.variant={self.attention.variant!r}")
+        if self.attention.variant not in ("single", "stacked", "co"):
+            raise NotImplementedError(
+                f"attention variant {self.attention.variant!r}")
         if self.attention.do_option not in ("*", "+", "|"):
             raise ValueError(
                 f"Unknown do_option {self.attention.do_option!r}")

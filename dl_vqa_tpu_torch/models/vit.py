@@ -50,24 +50,12 @@ from torch import nn
 
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.layers import dropout as _dropout, mm as _mm
-from dl_vqa_tpu_torch.models.transformer import layer_norm
+from dl_vqa_tpu_torch.models.transformer import LayerNorm
 from dl_vqa_tpu_torch.ops.vit_attention import vit_attention
 from dl_vqa_tpu_torch.ops.vit_int8 import w8a8_linear
 from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp
 
 __all__ = ["VitImage", "VitBlock", "LayerNorm", "patch_embed"]
-
-
-class LayerNorm(nn.Module):
-    """Scale (``weight``) and ``bias`` of a layer norm; scale 1, bias 0."""
-
-    def __init__(self, dim: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-
-    def forward(self, x):
-        return layer_norm(x, self.weight, self.bias)
 
 
 def patch_embed(images: torch.Tensor, weight: torch.Tensor,

@@ -16,6 +16,16 @@ Matmul operands are in the compute dtype and their products accumulate in
 f32; a result is rounded to the compute dtype only where the JAX model
 rounds it (the attention's two projections).
 
+The variants of ``encode_text`` and ``apply`` are built from the config as
+there: the transformer question encoder (``text.encoder ==
+"transformer"``, :mod:`dl_vqa_tpu_torch.models.transformer`) in place of
+the bi-LSTM, and stacked attention or co-attention
+(:mod:`dl_vqa_tpu_torch.models.fusion`) in place of the single one.
+Co-attention reads the text encoder's per-token states; with the LSTM
+those come, with the pooled cells, from one f32 recurrence (the JAX
+package's token scan), and the classifier reads ``[pooled,
+q_attended]``.
+
 Parameters carry the reference state-dict names that
 ``dl_vqa_tpu/utils/torch_export.py`` emits (``text.embedding``,
 ``text.lstm.*_l0[_reverse]``, ``image.conv{i}``, ``attention.{v_conv,
@@ -39,15 +49,20 @@ import torch
 from torch import nn
 
 from dl_vqa_tpu_torch.models.configs import ModelConfig
+from dl_vqa_tpu_torch.models.fusion import (
+    CoAttention, StackedAttention, fuse, project_v)
 from dl_vqa_tpu_torch.models.layers import (
     dropout, mm as _mm, normalize_images)
-from dl_vqa_tpu_torch.models.vit import LayerNorm, VitImage
+from dl_vqa_tpu_torch.models.transformer import LayerNorm, TransformerText
+from dl_vqa_tpu_torch.models.vit import VitImage
 from dl_vqa_tpu_torch.ops.attention_pool import attention_pool
 from dl_vqa_tpu_torch.ops.conv_fused import (
     FUSED_MIN_CIN, conv_relu_pool, conv_relu_pool_stem)
 from dl_vqa_tpu_torch.ops.conv_int8 import (
     int8_stem_forward, with_calibrated_scales)
-from dl_vqa_tpu_torch.ops.lstm import bilstm_final_cell, lstm_scan
+from dl_vqa_tpu_torch.ops.lstm import (
+    bilstm_final_cell, bilstm_tokens_and_final_cell, lstm_scan,
+    lstm_scan_outputs_final)
 from dl_vqa_tpu_torch.ops.vit_int8 import with_calibrated_vit_scales
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
@@ -98,17 +113,38 @@ class _Text(nn.Module):
         self.lstm = _Lstm(t.embedding_features, t.question_features,
                           t.bidirectional)
 
-    def forward(self, questions, lengths, dtype, plain, generator):
+    def forward(self, questions, lengths, dtype, plain, generator,
+                need_tokens=False):
+        """``(pooled [B, F], tokens [B, T, F] or None, mask [B, T] or
+        None)``, as the JAX model's ``encode_text``: the tokens and their
+        mask only where ``need_tokens`` (co-attention), and then the pooled
+        final cells ride the same recurrence, in f32 as the JAX package
+        runs it (kernel A's f32 mode); else the final cells of the
+        recurrence in the compute dtype (kernel 1, or A in training)."""
         embedded = self.embedding.weight[questions]
         embedded = embedded * (questions > 0).unsqueeze(-1)
         embedded = dropout(embedded, self.dropout, generator)  # site 1
         embedded = torch.tanh(embedded).to(dtype)
-        if len(self.lstm.suffixes) == 2:
+        bidirectional = len(self.lstm.suffixes) == 2
+        fwd = self.lstm.direction("")
+        if need_tokens:
+            seq = questions.shape[1]
+            mask = (torch.arange(seq, device=questions.device)[None, :]
+                    < lengths.to(questions.device)[:, None])
+            if bidirectional:
+                tokens, pooled = bilstm_tokens_and_final_cell(
+                    embedded, lengths, fwd, self.lstm.direction("_reverse"),
+                    plain=plain)
+            else:
+                states, pooled = lstm_scan_outputs_final(
+                    embedded, lengths, fwd, plain=plain)
+                tokens = states * mask[..., None]
+            return pooled, tokens, mask
+        if bidirectional:
             return bilstm_final_cell(
-                embedded, lengths, self.lstm.direction(""),
-                self.lstm.direction("_reverse"), plain=plain)
-        return lstm_scan(embedded, lengths, self.lstm.direction(""),
-                         plain=plain)[1]
+                embedded, lengths, fwd, self.lstm.direction("_reverse"),
+                plain=plain), None, None
+        return lstm_scan(embedded, lengths, fwd, plain=plain)[1], None, None
 
 
 class _Image(nn.Module):
@@ -168,23 +204,12 @@ class _Attention(nn.Module):
 
     def forward(self, v, q, dtype, generator):
         """Glimpse logits ``[B, H, W, G]`` f32 (1x1 convs as matmuls)."""
-        v_in = dropout(v, self.dropout, generator).to(dtype)  # site 2
-        # Stored in the compute dtype, as the JAX model stores it; taken
-        # straight from the matmul (a trip through f32 would change no bit
-        # and move the [B, H, W, hidden] tensor twice more).
-        v_proj = torch.matmul(v_in,
-                              self.v_conv.weight[:, :, 0, 0].to(dtype).t())
+        v_proj = project_v(dropout(v, self.dropout, generator),  # site 2
+                           self.v_conv, dtype)
         q_in = dropout(q, self.dropout, generator).to(dtype)  # site 3
         q_proj = (_mm(q_in, self.q_lin.weight) + self.q_lin.bias).to(dtype)
-        q_tiled = q_proj[:, None, None, :]
-        if self.do_option == "*":
-            fused = torch.relu(v_proj * q_tiled)
-        elif self.do_option == "+":
-            fused = torch.relu(v_proj + q_tiled)
-        else:  # '|'
-            fused = torch.relu(torch.cat(
-                [v_proj, q_tiled.expand_as(v_proj)], dim=-1))
-        fused = dropout(fused, self.dropout, generator)  # site 4
+        fused = dropout(fuse(v_proj, q_proj, self.do_option), self.dropout,
+                        generator)  # site 4
         return _mm(fused, self.x_conv.weight[:, :, 0, 0]) + self.x_conv.bias
 
 
@@ -223,10 +248,13 @@ class VqaNet(nn.Module):
         # Built on the meta device, so layer constructors draw nothing
         # from the global RNG; every weight comes from `generator`.
         with torch.device("meta"):
-            self.text = _Text(cfg)
+            self.text = (TransformerText(cfg)
+                         if cfg.text.encoder == "transformer" else _Text(cfg))
             self.image = (VitImage(cfg) if cfg.image.encoder == "vit"
                           else _Image(cfg))
-            self.attention = _Attention(cfg)
+            self.attention = {
+                "single": _Attention, "stacked": StackedAttention,
+                "co": CoAttention}[cfg.attention.variant](cfg)
             self.classifier = _Classifier(cfg)
         self.to_empty(device="cpu")
         if generator is None:
@@ -268,8 +296,9 @@ class VqaNet(nn.Module):
         """torch's layer defaults, as ``dl_vqa_tpu/models/initializers.py``
         mirrors them: U(+-1/sqrt(fan_in)) for convs and linears, U(+-1/
         sqrt(H)) for every LSTM tensor, N(0, 1) embeddings with row 0
-        zero; for the ViT also ``pos ~ N(0, 0.02^2)``, layer-norm scale 1
-        and bias 0, as ``init_vit_image`` has them."""
+        zero; for the ViT and the transformer text encoder also ``pos ~
+        N(0, 0.02^2)``, layer-norm scale 1 and bias 0, as
+        ``init_vit_image`` and ``init_transformer_text`` have them."""
         for module in self.modules():
             if isinstance(module, (nn.Conv2d, nn.Linear)):
                 fan_in = module.weight[0].numel()
@@ -277,17 +306,19 @@ class VqaNet(nn.Module):
                 module.weight.uniform_(-bound, bound, generator=gen)
                 if module.bias is not None:
                     module.bias.uniform_(-bound, bound, generator=gen)
-        bound = 1.0 / math.sqrt(self.cfg.text.question_features)
-        for p in self.text.lstm.parameters():
-            p.uniform_(-bound, bound, generator=gen)
+        if isinstance(self.text, _Text):
+            bound = 1.0 / math.sqrt(self.cfg.text.question_features)
+            for p in self.text.lstm.parameters():
+                p.uniform_(-bound, bound, generator=gen)
         self.text.embedding.weight.normal_(generator=gen)
         self.text.embedding.weight[0] = 0.0
-        if isinstance(self.image, VitImage):
-            self.image.pos.normal_(0.0, 0.02, generator=gen)
-            for module in self.image.modules():
-                if isinstance(module, LayerNorm):
-                    module.weight.fill_(1.0)
-                    module.bias.zero_()
+        for part in (self.image, self.text):
+            if hasattr(part, "pos"):
+                part.pos.normal_(0.0, 0.02, generator=gen)
+        for module in self.modules():
+            if isinstance(module, LayerNorm):
+                module.weight.fill_(1.0)
+                module.bias.zero_()
 
     def forward(self, images: torch.Tensor, questions: torch.Tensor,
                 lengths: torch.Tensor, *, train: bool = False,
@@ -324,8 +355,17 @@ class VqaNet(nn.Module):
         v = self.image(images, dtype, plain_ops, generator,
                        fused_ops).float()
         v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
-        q = self.text(questions, lengths, dtype, plain_ops, generator).float()
-        att = self.attention(v, q, dtype, generator)
-        pooled = attention_pool(v, att, plain_ops)
+        variant = self.cfg.attention.variant
+        q, tokens, mask = self.text(questions, lengths, dtype, plain_ops,
+                                    generator, need_tokens=variant == "co")
+        q = q.float()
+        if variant == "single":
+            att = self.attention(v, q, dtype, generator)
+            pooled = attention_pool(v, att, plain_ops)
+        elif variant == "stacked":
+            pooled = self.attention(v, q, dtype, generator, plain_ops)
+        else:
+            pooled, q = self.attention(v, q, tokens, mask, dtype, generator,
+                                       plain_ops)
         return self.classifier(torch.cat([pooled, q], dim=1), dtype,
                                generator)

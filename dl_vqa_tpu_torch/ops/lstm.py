@@ -25,6 +25,15 @@ weight_hh, lengths)``:
   forward used, and hands ``x_proj`` its f32 cotangent straight through
   the cast to the compute dtype.
 
+The per-token states of the co-attention's text path
+(:func:`bilstm_tokens_and_final_cell`, :func:`lstm_scan_outputs_final`)
+are :class:`LstmTokenStates`, the same recurrence in f32 throughout, as
+the JAX package's token scan runs it whatever the compute dtype: kernel
+A's f32 mode (``ops/lstm_cuda.py::lstm_token_states_cuda``), whose saved
+``h_all`` are the states and whose final ``c`` the pooled cells; without
+a gradient through the custom op ``vqa::lstm_token_states``, so that the
+serving forward exports; its backward takes a cotangent at every step.
+
 A tensor on the CPU, or ``plain=True``, runs each kernel's plain PyTorch
 version, which stands beside it here (``plain=True`` never calls the op).
 
@@ -41,7 +50,7 @@ import torch
 from dl_vqa_tpu_torch.ops import _native
 from dl_vqa_tpu_torch.ops.lstm_cuda import (
     lstm_backward_step_launcher, lstm_recurrence_cuda,
-    lstm_recurrence_save_cuda)
+    lstm_recurrence_save_cuda, lstm_token_states_cuda)
 
 __all__ = [
     "lstm_cell",
@@ -55,6 +64,13 @@ __all__ = [
     "lstm_scan",
     "reverse_valid_prefix",
     "bilstm_final_cell",
+    "lstm_token_states_reference",
+    "LstmTokenStates",
+    "lstm_token_states",
+    "lstm_scan_outputs",
+    "lstm_scan_outputs_final",
+    "bilstm_token_states",
+    "bilstm_tokens_and_final_cell",
 ]
 
 
@@ -165,12 +181,15 @@ def lstm_backward_step_reference(
 
 
 def lstm_saved_state_backward(gates_all, c_all, h_all, weight_hh, lengths,
-                              dh, dc, plain):
+                              dh, dc, plain, dh_all=None):
     """``_lstm_saved_state_bwd`` for D directions, from kernel A's saved
     ``gates_all [D, T, B, 4H]``, ``c_all``, ``h_all [D, T, B, H]``, the f32
     master ``weight_hh [D, 4H, H]``, int32 ``lengths [B]`` and the final
     state's cotangents ``dh``, ``dc [D, B, H]``, all f32 and contiguous:
     ``(dgates_all [D, T, B, 4H], dweight_hh [D, 4H, H])``, f32.
+    ``dh_all [D, T, B, H]``, where the states of every step are outputs
+    too (:class:`LstmTokenStates`), is their cotangent: step t's is added
+    to the carried ``dh`` before the reverse step t.
     ``plain`` runs kernel B's plain version; otherwise the tensors are
     checked once and each step only launches kernel B."""
     directions, seq_len, batch, four_h = gates_all.shape
@@ -185,6 +204,9 @@ def lstm_saved_state_backward(gates_all, c_all, h_all, weight_hh, lengths,
         launch = lstm_backward_step_launcher(gates_all, c_all, lengths, dh,
                                              dc, dgates_all)
     for t in reversed(range(seq_len)):
+        if dh_all is not None:
+            # In place on the kernel path: kernel B reads dh where it is.
+            dh = dh + dh_all[:, t] if plain else dh.add_(dh_all[:, t])
         if plain:
             c_prev = c_all[:, t - 1] if t else zeros
             dgates_all[:, t], dh, dc = lstm_backward_step_reference(
@@ -302,3 +324,139 @@ def bilstm_final_cell(x: torch.Tensor, lengths: torch.Tensor,
                         bwd_params["weight_hh"].float()])
     _, c = lstm_recurrence_grad(x_proj, w_hh, lengths, x.dtype, plain)
     return torch.cat([c[0], c[1]], dim=-1)
+
+
+# ---------------------------------------------------------------- token states
+
+def lstm_token_states_reference(
+    x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``vqa::lstm_token_states`` (kernel A in its f32
+    mode): the carried ``h`` after every step, ``h_all [D, T, B, H]``, and
+    the final ``c [D, B, H]``, f32 (a padded step carries the last valid
+    state)."""
+    _, c, _, _, h_all = lstm_recurrence_save_reference(x_proj, weight_hh,
+                                                      lengths)
+    return h_all, c
+
+
+def _token_states_cuda(x_proj, weight_hh, lengths):
+    _, c, _, _, h_all = lstm_token_states_cuda(x_proj, weight_hh, lengths)
+    return h_all, c
+
+
+def _token_states_fake(x_proj, weight_hh, lengths):
+    directions, seq_len, batch, _ = x_proj.shape
+    hidden = weight_hh.shape[-1]
+    return (x_proj.new_empty((directions, seq_len, batch, hidden),
+                             dtype=torch.float32),
+            x_proj.new_empty((directions, batch, hidden),
+                             dtype=torch.float32))
+
+
+_native.define_op(
+    "lstm_token_states",
+    "(Tensor x_proj, Tensor weight_hh, Tensor lengths) -> (Tensor, Tensor)",
+    lstm_token_states_reference, _token_states_cuda, _token_states_fake)
+
+
+class LstmTokenStates(torch.autograd.Function):
+    """``(x_proj [D, T, B, 4H], weight_hh [D, 4H, H], lengths [B], save,
+    plain) -> (h_all [D, T, B, H], c [D, B, H])``, in f32 throughout: the
+    JAX package's token scan (``lstm_scan_outputs_final``) keeps ``x_proj``,
+    ``W_hh``, ``h`` and ``c`` in f32 whatever the compute dtype, so nothing
+    is rounded to bf16 here (:class:`LstmRecurrence` rounds both operands).
+
+    Forward: ``vqa::lstm_token_states`` without a backward to follow (the
+    serving forward, which exports), else kernel A's f32 mode with its
+    saved gates and carries. Backward: :func:`lstm_saved_state_backward`
+    with the per-step cotangent ``dh_all``."""
+
+    @staticmethod
+    def forward(ctx, x_proj, weight_hh, lengths, save, plain):
+        x_proj = x_proj.float().contiguous()
+        weight_hh = weight_hh.float().contiguous()
+        lengths = lengths.to(torch.int32)
+        if not save:
+            if plain:
+                return lstm_token_states_reference(x_proj, weight_hh, lengths)
+            return torch.ops.vqa.lstm_token_states(x_proj, weight_hh,
+                                                   lengths)
+        plain = plain or x_proj.device.type == "cpu"
+        run_save = (lstm_recurrence_save_reference if plain
+                    else lstm_token_states_cuda)
+        _, c, gates_all, c_all, h_all = run_save(x_proj, weight_hh, lengths)
+        ctx.save_for_backward(weight_hh, lengths, gates_all, c_all, h_all)
+        ctx.plain = plain
+        return h_all, c
+
+    @staticmethod
+    def backward(ctx, dh_all, dc):
+        weight_hh, lengths, gates_all, c_all, h_all = ctx.saved_tensors
+        dc = dc.float().contiguous()
+        dgates_all, dweight_hh = lstm_saved_state_backward(
+            gates_all, c_all, h_all, weight_hh, lengths, torch.zeros_like(dc),
+            dc, ctx.plain, dh_all=dh_all.float().contiguous())
+        return dgates_all, dweight_hh, None, None, None
+
+
+def lstm_token_states(x_proj: torch.Tensor, weight_hh: torch.Tensor,
+                      lengths: torch.Tensor, plain: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable f32 recurrence with every step's state:
+    :class:`LstmTokenStates`."""
+    save = torch.is_grad_enabled() and (x_proj.requires_grad
+                                        or weight_hh.requires_grad)
+    return LstmTokenStates.apply(x_proj, weight_hh, lengths, save, plain)
+
+
+def lstm_scan_outputs_final(x: torch.Tensor, lengths: torch.Tensor,
+                            params: Dict[str, torch.Tensor],
+                            plain: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked forward LSTM over ``x [B, T, E]`` in f32: ``(h [B, T, H]``
+    after every step, final ``c [B, H])`` from one recurrence; a pad
+    position carries the last valid state (callers mask)."""
+    h_all, c = lstm_token_states(
+        input_projections([x], [params]),
+        params["weight_hh"].float().unsqueeze(0), lengths, plain)
+    return h_all[0].transpose(0, 1), c[0]
+
+
+def lstm_scan_outputs(x: torch.Tensor, lengths: torch.Tensor,
+                      params: Dict[str, torch.Tensor], plain: bool = False
+                      ) -> torch.Tensor:
+    """The per-step states of :func:`lstm_scan_outputs_final`."""
+    return lstm_scan_outputs_final(x, lengths, params, plain)[0]
+
+
+def bilstm_tokens_and_final_cell(x: torch.Tensor, lengths: torch.Tensor,
+                                 fwd_params: Dict[str, torch.Tensor],
+                                 bwd_params: Dict[str, torch.Tensor],
+                                 plain: bool = False
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(tokens [B, T, 2H], [c_fwd, c_bwd] [B, 2H])``, f32, from one f32
+    recurrence over both directions (``D = 2``): the packed bi-LSTM's
+    output, the backward direction's states put back at their original
+    positions (position t was its step ``len - 1 - t``) and the pads
+    zeroed, and the final cell states."""
+    seq_len = x.shape[1]
+    x_proj = input_projections([x, reverse_valid_prefix(x, lengths)],
+                               [fwd_params, bwd_params])
+    w_hh = torch.stack([fwd_params["weight_hh"].float(),
+                        bwd_params["weight_hh"].float()])
+    h_all, c = lstm_token_states(x_proj, w_hh, lengths, plain)
+    h_bwd = reverse_valid_prefix(h_all[1].transpose(0, 1), lengths)
+    mask = (torch.arange(seq_len, device=x.device)[None, :]
+            < lengths.to(x.device)[:, None])
+    tokens = torch.cat([h_all[0].transpose(0, 1), h_bwd], dim=-1)
+    return tokens * mask[..., None], torch.cat([c[0], c[1]], dim=-1)
+
+
+def bilstm_token_states(x: torch.Tensor, lengths: torch.Tensor,
+                        fwd_params: Dict[str, torch.Tensor],
+                        bwd_params: Dict[str, torch.Tensor],
+                        plain: bool = False) -> torch.Tensor:
+    """The per-token states of :func:`bilstm_tokens_and_final_cell`."""
+    return bilstm_tokens_and_final_cell(x, lengths, fwd_params, bwd_params,
+                                        plain)[0]

@@ -58,6 +58,7 @@ import torch
 from dl_vqa_tpu_torch.ops import _native
 
 __all__ = ["lstm_recurrence_cuda", "lstm_recurrence_save_cuda",
+           "lstm_token_states_cuda",
            "lstm_backward_step_cuda", "lstm_backward_step_launcher",
            "backward_step_vector_path", "backward_step_vector_accesses",
            "persistent_plan", "persistent_smem_bytes", "SMEM_PER_BLOCK",
@@ -243,6 +244,28 @@ def lstm_recurrence_save_cuda(
 
 
 lstm_recurrence_save_cuda.launches = 0
+
+
+def lstm_token_states_cuda(
+    x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Kernel A in its f32 mode, for the per-token states of the
+    co-attention's text path (:class:`dl_vqa_tpu_torch.ops.lstm.
+    LstmTokenStates`): f32 ``x_proj`` and ``weight_hh`` only, since the
+    JAX package runs that scan in f32 (``dl_vqa_tpu/ops/lstm.py::
+    lstm_scan_outputs_final``); returns what
+    :func:`lstm_recurrence_save_cuda` returns. Its launches count here and
+    not on :func:`lstm_recurrence_save_cuda`: no f32 shape has a persistent
+    plan, so this is one grid a timestep."""
+    if x_proj.dtype != torch.float32 or weight_hh.dtype != torch.float32:
+        raise ValueError(f"the token states run in f32; got {x_proj.dtype}, "
+                         f"{weight_hh.dtype}")
+    out, launched = _run_recurrence(x_proj, weight_hh, lengths, save=True)
+    lstm_token_states_cuda.launches += launched
+    return out
+
+
+lstm_token_states_cuda.launches = 0
 
 
 def backward_step_vector_path(directions: int, batch: int, hidden: int,

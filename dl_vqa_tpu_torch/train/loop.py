@@ -139,7 +139,8 @@ def train(
     """Train ``model`` (a :class:`~dl_vqa_tpu_torch.models.vqa.VqaNet`, on
     the device it lies on) to the epoch budget or the early stop; returns
     the reference's metrics dict (``Metrics/BestAccuracy`` etc.). The
-    LSTM's ``bias_hh`` is folded into ``bias_ih`` first (the same sum).
+    LSTM's ``bias_hh``, where the model has an LSTM, is folded into
+    ``bias_ih`` first (the same sum).
 
     ``checkpoint_every_steps > 0`` also writes ``last.ckpt`` every N
     batches within an epoch, with the batch position and the epoch's
@@ -156,8 +157,10 @@ def train(
             "data.pipeline.Batcher): a run resumes into an epoch through it")
     device = next(model.parameters()).device
     # The LSTM's fused bias in one tensor, as the checkpoints store it: a
-    # resumed run then takes the steps the uninterrupted one takes.
-    model.text.lstm.fold_biases()
+    # resumed run then takes the steps the uninterrupted one takes. (The
+    # transformer text encoder has no LSTM.)
+    if hasattr(model.text, "lstm"):
+        model.text.lstm.fold_biases()
     state = create_train_state(model, train_params.lr, device=device)
     best_eval_score = 0.0
     epochs_no_improve = 0

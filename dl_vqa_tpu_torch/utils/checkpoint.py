@@ -45,14 +45,27 @@ def _refuse_orbax(path: str) -> None:
             "only (the Orbax backend is left behind, see ROADMAP)")
 
 
-def _flatten_tree(tree: Dict, prefix: str, out: Dict[str, np.ndarray]
-                  ) -> None:
-    for key, value in tree.items():
+def _flatten_tree(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """Leaves under their JAX paths: dict keys as they are, list items as
+    ``#i`` (``dl_vqa_tpu/utils/checkpoint.py::_path_str``)."""
+    items = (tree.items() if isinstance(tree, dict)
+             else ((f"#{i}", v) for i, v in enumerate(tree)))
+    for key, value in items:
         name = f"{prefix}{_SEP}{key}" if prefix else str(key)
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list)):
             _flatten_tree(value, name, out)
         else:
             out[name] = np.asarray(value)
+
+
+def _lists(node):
+    """A dict whose keys are all ``#0 .. #n-1`` back into a list."""
+    if not isinstance(node, dict):
+        return node
+    node = {key: _lists(value) for key, value in node.items()}
+    if node and set(node) == {f"#{i}" for i in range(len(node))}:
+        return [node[f"#{i}"] for i in range(len(node))]
+    return node
 
 
 def _nest(flat: Dict[str, np.ndarray]) -> Dict:
@@ -63,7 +76,7 @@ def _nest(flat: Dict[str, np.ndarray]) -> Dict:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = value
-    return tree
+    return _lists(tree)
 
 
 def _trainable(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:

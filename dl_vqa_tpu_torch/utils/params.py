@@ -14,6 +14,16 @@ ln2}.{scale, bias}``, ``image.layers.{qkv, out, mlp_in, mlp_out}.{w, b}``,
 every leaf with a leading ``[L]`` axis, -> ``image.blocks.{i}.*`` for
 ``i < L``, unstacked (and the linear weights transposed) on the way in
 and stacked again on the way back.
+
+The transformer text encoder and the stacked and co attention, which
+that exporter refuses too, map under the port's names
+(``models/transformer.py``, ``models/fusion.py``): ``text.{in_proj, pos,
+final_ln}`` and ``text.layers[i].*`` -> ``text.blocks.{i}.*`` (a list of
+blocks, as the JAX tree holds it, each block's leaves as a ViT block's);
+``attention.layers[g].{score, update}`` -> ``attention.layers.{g}.*``
+(the last glimpse has no ``update``); ``attention.{x_conv, vsum_lin,
+tok_lin, tok_out}`` of co-attention as they are named. A tree that lacks
+a leaf raises ``ValueError`` naming it.
 """
 
 from __future__ import annotations
@@ -30,27 +40,43 @@ _LSTM = "text.lstm."
 _DIRECTIONS = (("lstm_fwd", ""), ("lstm_bwd", "_reverse"))
 _VIT_NORMS = ("ln1", "ln2")
 _VIT_LINEARS = ("qkv", "out", "mlp_in", "mlp_out")
+_CO_LINEARS = ("vsum_lin", "tok_lin", "tok_out")
 
 
 def _np(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def _leaf(tree: Mapping, *path, where: str = ""):
+    """``tree[path[0]][path[1]]...``; a missing key raises ``ValueError``
+    naming the path (after ``where``, the port's name of the subtree)."""
+    node = tree
+    for i, key in enumerate(path):
+        try:
+            node = node[key]
+        except (KeyError, IndexError, TypeError):
+            name = ".".join(str(k) for k in (where,) * bool(where)
+                            + path[:i + 1])
+            raise ValueError(f"the parameter tree has no {name!r}") from None
+    return node
+
+
 def _linear(dst: Dict, prefix: str, p: Mapping) -> None:
-    dst[f"{prefix}.weight"] = _np(p["w"]).T
+    dst[f"{prefix}.weight"] = _np(_leaf(p, "w", where=prefix)).T
     if "b" in p:
         dst[f"{prefix}.bias"] = _np(p["b"])
 
 
 def _conv(dst: Dict, prefix: str, p: Mapping) -> None:
-    dst[f"{prefix}.weight"] = _np(p["w"]).transpose(3, 2, 0, 1)  # HWIO->OIHW
+    dst[f"{prefix}.weight"] = _np(  # HWIO -> OIHW
+        _leaf(p, "w", where=prefix)).transpose(3, 2, 0, 1)
     if "b" in p:
         dst[f"{prefix}.bias"] = _np(p["b"])
 
 
 def _norm(dst: Dict, prefix: str, p: Mapping) -> None:
-    dst[f"{prefix}.weight"] = _np(p["scale"])
-    dst[f"{prefix}.bias"] = _np(p["bias"])
+    dst[f"{prefix}.weight"] = _np(_leaf(p, "scale", where=prefix))
+    dst[f"{prefix}.bias"] = _np(_leaf(p, "bias", where=prefix))
 
 
 def _vit_state(state: Dict, image: Mapping) -> None:
@@ -70,37 +96,79 @@ def _vit_state(state: Dict, image: Mapping) -> None:
             put(state, f"image.blocks.{i}.{name}", layer)
 
 
+def _text_state(state: Dict, text: Mapping) -> None:
+    """The LSTM text tree (``lstm_fwd``, ``lstm_bwd``), or the transformer
+    text tree (``in_proj``, ``pos``, ``layers`` as a list, ``final_ln``)
+    under ``text.*`` names."""
+    state["text.embedding.weight"] = _np(
+        _leaf(text, "embedding", where="text"))
+    if "layers" in text or "pos" in text:
+        _linear(state, "text.in_proj", _leaf(text, "in_proj", where="text"))
+        state["text.pos"] = _np(_leaf(text, "pos", where="text"))
+        _norm(state, "text.final_ln", _leaf(text, "final_ln", where="text"))
+        for i in range(len(_leaf(text, "layers", where="text"))):
+            for name in _VIT_NORMS + _VIT_LINEARS:
+                put = _norm if name in _VIT_NORMS else _linear
+                put(state, f"text.blocks.{i}.{name}",
+                    _leaf(text, "layers", i, name, where="text"))
+        return
+    _leaf(text, "lstm_fwd", where="text")  # neither text tree: name it
+    for name, suffix in _DIRECTIONS:
+        if name not in text:
+            continue
+        p = text[name]
+        state[f"{_LSTM}weight_ih_l0{suffix}"] = _np(
+            _leaf(text, name, "w_ih", where="text")).T
+        state[f"{_LSTM}weight_hh_l0{suffix}"] = _np(
+            _leaf(text, name, "w_hh", where="text")).T
+        state[f"{_LSTM}bias_ih_l0{suffix}"] = _np(
+            _leaf(text, name, "b", where="text"))
+        state[f"{_LSTM}bias_hh_l0{suffix}"] = np.zeros_like(_np(p["b"]))
+
+
+def _attention_state(state: Dict, attention: Mapping) -> None:
+    """The single, stacked (``layers`` as a list of ``{score[,
+    update]}``) or co (``vsum_lin``, ``tok_lin``, ``tok_out``) attention
+    tree under ``attention.*`` names."""
+    def get(*path):
+        return _leaf(attention, *path, where="attention")
+
+    _conv(state, "attention.v_conv", get("v_conv"))
+    _linear(state, "attention.q_lin", get("q_lin"))
+    if "layers" in attention:
+        for g, layer in enumerate(attention["layers"]):
+            _conv(state, f"attention.layers.{g}.score",
+                  get("layers", g, "score"))
+            if "update" in layer:
+                _linear(state, f"attention.layers.{g}.update",
+                        layer["update"])
+        return
+    _conv(state, "attention.x_conv", get("x_conv"))
+    if "vsum_lin" in attention:
+        for name in _CO_LINEARS:
+            _linear(state, f"attention.{name}", get(name))
+
+
 def torch_state_from_params(params: Mapping) -> Dict[str, np.ndarray]:
     """A ``dl_vqa_tpu`` parameter tree with the CNN or the dense ViT image
-    encoder, the LSTM text encoder and single attention -> the state dict
-    of :class:`VqaNet` (numpy arrays)."""
+    encoder, the LSTM or the transformer text encoder and the single,
+    stacked or co attention -> the state dict of :class:`VqaNet` (numpy
+    arrays). A tree that lacks a leaf raises ``ValueError`` naming it."""
     image = params.get("image", {})
-    if ("blocks" in image
-            or "lstm_fwd" not in params.get("text", {})
-            or "v_conv" not in params.get("attention", {})):
-        raise ValueError(
-            "only the CNN or dense-ViT / LSTM / single-attention family "
-            "maps onto VqaNet's state dict; the transformer-text and "
-            "stacked or co-attention variants are not ported")
-    state = {"text.embedding.weight": _np(params["text"]["embedding"])}
-    for name, suffix in _DIRECTIONS:
-        if name not in params["text"]:
-            continue
-        p = params["text"][name]
-        state[f"{_LSTM}weight_ih_l0{suffix}"] = _np(p["w_ih"]).T
-        state[f"{_LSTM}weight_hh_l0{suffix}"] = _np(p["w_hh"]).T
-        state[f"{_LSTM}bias_ih_l0{suffix}"] = _np(p["b"])
-        state[f"{_LSTM}bias_hh_l0{suffix}"] = np.zeros_like(_np(p["b"]))
+    if "blocks" in image:
+        raise ValueError("an image tree with 'blocks' is no layout that "
+                         "VqaNet maps (the ViT's blocks are 'layers')")
+    state: Dict[str, np.ndarray] = {}
+    _text_state(state, _leaf(params, "text"))
     if "patch_embed" in image:
         _vit_state(state, image)
     for name, p in sorted(image.items()):
         if name.startswith("conv"):
             _conv(state, f"image.{name}", p)
-    _conv(state, "attention.v_conv", params["attention"]["v_conv"])
-    _linear(state, "attention.q_lin", params["attention"]["q_lin"])
-    _conv(state, "attention.x_conv", params["attention"]["x_conv"])
-    _linear(state, "classifier.lin1", params["classifier"]["lin1"])
-    _linear(state, "classifier.lin2", params["classifier"]["lin2"])
+    _attention_state(state, _leaf(params, "attention"))
+    for name in ("lin1", "lin2"):
+        _linear(state, f"classifier.{name}",
+                _leaf(params, "classifier", name))
     return state
 
 
@@ -119,8 +187,8 @@ def load_jax_params(model: torch.nn.Module, params: Mapping
 def jax_tree_from_named(named: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse mapping: tensors under VqaNet's state-dict names (its
     parameters, or their gradients) -> a numpy tree in the JAX layout and
-    under the JAX names. A missing ``bias_hh`` (it has no gradient) counts
-    as zero."""
+    under the JAX names, lists of layers as lists. A missing ``bias_hh``
+    (it has no gradient) counts as zero."""
     def get(name):
         return named[name].detach().cpu().numpy().astype(np.float32)
 
@@ -136,7 +204,24 @@ def jax_tree_from_named(named: Mapping[str, torch.Tensor]) -> Dict:
             out["b"] = get(f"{prefix}.bias")
         return out
 
+    def norm(prefix):
+        return {"scale": get(f"{prefix}.weight"),
+                "bias": get(f"{prefix}.bias")}
+
+    def count(prefix):
+        return 1 + max((int(n[len(prefix):].split(".")[0]) for n in named
+                        if n.startswith(prefix)), default=-1)
+
+    def block(prefix):
+        return {name: (norm if name in _VIT_NORMS else linear)(
+            f"{prefix}.{name}") for name in _VIT_NORMS + _VIT_LINEARS}
+
     text = {"embedding": get("text.embedding.weight")}
+    if "text.pos" in named:
+        text.update(in_proj=linear("text.in_proj"), pos=get("text.pos"),
+                    final_ln=norm("text.final_ln"),
+                    layers=[block(f"text.blocks.{i}")
+                            for i in range(count("text.blocks."))])
     for name, suffix in _DIRECTIONS:
         if f"{_LSTM}weight_ih_l0{suffix}" not in named:
             continue
@@ -146,20 +231,13 @@ def jax_tree_from_named(named: Mapping[str, torch.Tensor]) -> Dict:
         text[name] = {"w_ih": get(f"{_LSTM}weight_ih_l0{suffix}").T,
                       "w_hh": get(f"{_LSTM}weight_hh_l0{suffix}").T,
                       "b": bias}
-    def norm(prefix):
-        return {"scale": get(f"{prefix}.weight"),
-                "bias": get(f"{prefix}.bias")}
 
     if "image.pos" in named:
-        count = 1 + max(int(n.split(".")[2]) for n in named
-                        if n.startswith("image.blocks."))
-        layers = {}
-        for name in _VIT_NORMS + _VIT_LINEARS:
-            take = norm if name in _VIT_NORMS else linear
-            per_layer = [take(f"image.blocks.{i}.{name}")
-                         for i in range(count)]
-            layers[name] = {leaf: np.stack([p[leaf] for p in per_layer])
-                            for leaf in per_layer[0]}
+        per_layer = [block(f"image.blocks.{i}")
+                     for i in range(count("image.blocks."))]
+        layers = {name: {leaf: np.stack([p[name][leaf] for p in per_layer])
+                         for leaf in per_layer[0][name]}
+                  for name in _VIT_NORMS + _VIT_LINEARS}
         image = {"patch_embed": linear("image.patch_embed"),
                  "pos": get("image.pos"),
                  "final_ln": norm("image.final_ln"),
@@ -168,12 +246,25 @@ def jax_tree_from_named(named: Mapping[str, torch.Tensor]) -> Dict:
         blocks = sorted({n.split(".")[1] for n in named
                          if n.startswith("image.")})
         image = {block: conv(f"image.{block}") for block in blocks}
+
+    attention = {"v_conv": conv("attention.v_conv"),
+                 "q_lin": linear("attention.q_lin")}
+    if "attention.layers.0.score.weight" in named:
+        attention["layers"] = []
+        for g in range(count("attention.layers.")):
+            layer = {"score": conv(f"attention.layers.{g}.score")}
+            if f"attention.layers.{g}.update.weight" in named:
+                layer["update"] = linear(f"attention.layers.{g}.update")
+            attention["layers"].append(layer)
+    else:
+        attention["x_conv"] = conv("attention.x_conv")
+        if "attention.vsum_lin.weight" in named:
+            attention.update({name: linear(f"attention.{name}")
+                              for name in _CO_LINEARS})
     return {
         "text": text,
         "image": image,
-        "attention": {"v_conv": conv("attention.v_conv"),
-                      "q_lin": linear("attention.q_lin"),
-                      "x_conv": conv("attention.x_conv")},
+        "attention": attention,
         "classifier": {"lin1": linear("classifier.lin1"),
                        "lin2": linear("classifier.lin2")},
     }

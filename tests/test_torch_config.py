@@ -52,15 +52,34 @@ def test_from_meta_dict_reads_the_jax_metadata():
 
 
 def test_reference_config_is_ported_and_variants_are_not():
+    """Every preset but MoE is ported: the reference, the ViT and the two
+    variant presets (stacked attention; the transformer text encoder with
+    co-attention). MoE blocks are still to port, and ``num_lstm_layers !=
+    1`` raises the JAX package's own refusal."""
     port_configs.ModelConfig().check_ported()
     vit = port_configs.ModelConfig.from_cfg(
         config_mod.compose("config_vit")["train"], 10)
     assert vit.image.encoder == "vit" and vit.image.moe_experts == 0
     vit.check_ported()
+    for preset, text, variant in (("config_san", "lstm", "stacked"),
+                                  ("config_transformer_co", "transformer",
+                                   "co")):
+        cfg = port_configs.ModelConfig.from_cfg(
+            config_mod.compose(preset)["train"], 10)
+        assert (cfg.text.encoder, cfg.attention.variant) == (text, variant)
+        cfg.check_ported()
     moe = port_configs.ModelConfig.from_cfg(
         config_mod.compose("config_vit_moe")["train"], 10)
     with pytest.raises(NotImplementedError, match="image.moe_experts"):
         moe.check_ported()
+    base = port_configs.ModelConfig()
+    two = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, num_lstm_layers=2))
+    with pytest.raises(NotImplementedError,
+                       match="num_lstm_layers=2; only 1 is supported"):
+        two.check_ported()
+    dataclasses.replace(two, text=dataclasses.replace(
+        two.text, encoder="transformer")).check_ported()  # no LSTM there
 
 
 @pytest.mark.parametrize("fields,error,match", [
@@ -90,3 +109,19 @@ def test_chip_smoke_builds_the_model_of_config_vit():
         port_configs.ModelConfig().num_tokens)
     assert _as_plain(chip_smoke.vit_config()) == _as_plain(expected)
     assert chip_smoke.VIT_TOKENS == expected.image.output_grid(224) ** 2
+
+
+@pytest.mark.parametrize("preset", ["config_san", "config_transformer_co"])
+def test_chip_smoke_builds_the_variant_presets_as_the_yaml_gives_them(preset):
+    """``chip_smoke.py``'s phase 14 builds each variant preset from the
+    port's preset dicts (no PyYAML): the JAX package's configuration of
+    the preset's YAML, at the reference's vocabulary."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    expected = jax_configs.ModelConfig.from_cfg(
+        config_mod.compose(preset)["train"],
+        port_configs.ModelConfig().num_tokens)
+    assert _as_plain(chip_smoke.variant_config(preset)) == _as_plain(expected)

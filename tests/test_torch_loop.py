@@ -464,6 +464,39 @@ def test_a_mid_epoch_crash_resumes_to_the_uninterrupted_run(corpus,
         np.testing.assert_array_equal(c[key], a[key], err_msg=key)
 
 
+@pytest.mark.parametrize("variant", ["san", "transformer_co"])
+def test_a_variant_run_resumes_mid_epoch_to_the_bit(corpus, tmp_path,
+                                                    variant):
+    """The same crash and resume for the two variant presets' models (SAN:
+    stacked attention; transformer_co: the transformer question encoder,
+    whose blocks the checkpoint holds as a list, with co-attention), the
+    port's own initial weights, dropout 0.3: Adam, the LR law and the
+    resume cover their parameters, to the bit."""
+    cfg = _jax_cfg(corpus["port"][0].num_tokens, dropout=0.3)
+    if variant == "san":
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, variant="stacked"))
+    else:
+        cfg = dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, encoder="transformer",
+                                          num_heads=4, num_layers=2),
+            attention=dataclasses.replace(cfg.attention, variant="co"))
+    straight, _ = _port_run(corpus, cfg, 4, str(tmp_path / "a"), table=True,
+                            batch_size=8)
+    with pytest.raises(RuntimeError, match="went away"):
+        _port_run(corpus, cfg, 4, str(tmp_path / "b"),
+                  batcher_cls=_CrashingBatcher, table=True, batch_size=8)
+    resumed, _ = _port_run(
+        corpus, cfg, 8, str(tmp_path / "c"), table=True, batch_size=8,
+        opt_restore_path=str(tmp_path / "b" / "last.ckpt"))
+    assert resumed == straight
+    a, c = _last(str(tmp_path / "a")), _last(str(tmp_path / "c"))
+    assert a.keys() == c.keys()
+    assert any("|layers|#1|" in key for key in a)
+    for key in a:
+        np.testing.assert_array_equal(c[key], a[key], err_msg=key)
+
+
 def test_a_restart_with_its_budget_spent_reports_the_restored_metrics(
         corpus, tmp_path):
     """As ``tests/test_train.py`` pins it for JAX: a completed run's

@@ -45,10 +45,10 @@ OVERRIDES = [
 ]
 
 
-def _corpus(root, store_dtype="compute"):
+def _corpus(root, store_dtype="compute", extra=()):
     """A JAX synthetic corpus (JPEGs and h5 stores), a JAX checkpoint of
-    the tiny model (saved in the compute mode) and the overrides that point
-    both packages at them."""
+    the tiny model (saved in the compute mode; ``extra`` overrides name a
+    variant of it) and the overrides that point both packages at them."""
     from dl_vqa_tpu import config as jax_config
     from dl_vqa_tpu.models import ModelConfig, vqa
     from dl_vqa_tpu.utils import checkpoint as ckpt
@@ -60,7 +60,8 @@ def _corpus(root, store_dtype="compute"):
         f"main.small.{group}.{key}={value}"
         for group, paths in profile.items() for key, value in paths.items()
     ] + [f"train.image.store_dtype={store_dtype}",
-         f"main.small.paths.pretrained_model_path={root}/model.ckpt"]
+         f"main.small.paths.pretrained_model_path={root}/model.ckpt",
+         *extra]
     cfg = jax_config.compose("config_eval", overrides=overrides)
     ds = VQADataset(data_paths=profile["val_paths"],
                     other_paths=profile["paths"])

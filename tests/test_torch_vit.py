@@ -310,15 +310,23 @@ def test_bridge_round_trips_the_vit_tree_to_the_bit():
 
 @pytest.mark.parametrize("tree", ["moe", "transformer_text", "stacked"])
 def test_bridge_refuses_the_trees_it_does_not_map(tree):
+    """MoE blocks are not mapped. The transformer text and stacked trees
+    are (``tests/test_torch_variants.py``), so those cases are malformed
+    trees: a text tree that is neither the LSTM's nor the transformer's,
+    a stacked attention tree without its projections. Each raises naming
+    what it lacks."""
     params = _params(_jax_cfg())
     if tree == "moe":
         params = _params(_jax_cfg(moe=4))
         assert "moe" in params["image"]["layers"]
+        match = "dense ViT blocks"
     elif tree == "transformer_text":
         params["text"] = {"embedding": params["text"]["embedding"]}
+        match = "text.lstm_fwd"
     else:
         params["attention"] = {"layers": []}
-    with pytest.raises(ValueError):
+        match = "attention.v_conv"
+    with pytest.raises(ValueError, match=match):
         torch_state_from_params(params)
 
 
