@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (dl_vqa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--parent-lstm DIR]
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's CUDA kernels from dl_vqa_tpu_torch/csrc;
@@ -17,8 +17,11 @@
    output (``copy_ms``), both rates in GB/s; kernel B's 23 steps each held
    to the plain step's bits, timed through the entry a backward uses
    (checked once) and through the wrapper that checks every call
-   (``checked_ms``), beside the whole backward with its products; kernel
-   9's eight cases one by one and in one launch;
+   (``checked_ms``), beside the whole backward with its products; kernels
+   1 and A in f32 and the f32 token states at B = 1, 8, 64 and 512, each
+   one launch of the f32 persistent kernel, beside cuDNN's f32 LSTM (TF32
+   off, the input GEMM included), the token states' h, c and h_all kernel
+   A's f32 bits; kernel 9's eight cases one by one and in one launch;
 4. slice: a Predictor at full reference width (ModelConfig defaults, bf16,
    random weights from the seed, an in-memory vocab of 15,193 question ids
    and 3,000 answers) answers 8 requests; every serving kernel must have
@@ -131,8 +134,11 @@
    batch launches kernel 1 once, kernel 2 three times and kernel 3 twice
    for SAN, kernel 2 three times and kernel 3 once for transformer_co
    (no LSTM); then (lstm, co), which no preset has, at batch 8: served and a
-   train step each way, its per-token states on kernel A's f32 mode
-   (``lstm_token_states``, T grids a call); after phase 9, ``main`` trains
+   train step each way, its per-token states in f32 on the f32 persistent
+   kernel (``lstm_token_states``, its token store mode serving and kernel
+   A's f32 mode training, one grid a call), and its forward and train step
+   timed at batch 512 (with ``--parent-lstm DIR`` also on the LSTM kernels
+   of another version's files, in turns); after phase 9, ``main`` trains
    ``config_transformer_co`` for one epoch on cnn_e2e's corpus and
    ``evaluate_vqa`` on its best checkpoint gives its best score: one JSON
    line ``{"variants": ...}``.
@@ -145,11 +151,12 @@ programs of the aot phase, the variants' serving, training and exported
 paths, cnn_e2e, its quantized evaluations, the sweep's trials and the
 transformer_co journey) is driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
-kernels C and B run their vector kernels and kernel 7 its tensor-core
-kernel (``FAST_PATHS``). Then
+kernels C and B run their vector kernels, kernel 7 its tensor-core
+kernel and the token states the f32 persistent kernel (``FAST_PATHS``).
+Then
 one JSON line with every kernel's launches (grids launched in those runs;
-the LSTM recurrence one a call in bf16, the LSTM backward one per
-timestep, the pool backward two per call),
+the LSTM recurrence one a call in bf16 and in f32, the LSTM backward one
+per timestep, the pool backward two per call),
 error, times and bound, and as the last line ``{"ok": true, "device":
 {...}}``. Every time printed was taken on the
 card whose name and power limit the first line gives.
@@ -502,6 +509,20 @@ def recurrence_grids(torch) -> int:
     return SEQ_LEN if plan is None else 1
 
 
+def f32_grids(torch) -> int:
+    """Grids one f32 call of kernel 1, kernel A or the token states
+    launches at D = 2, H = 1024: one launch of the f32 persistent kernel
+    where ``f32_plan`` has room, else one a timestep. A card of 128 SMs or
+    more (an H100 SXM has 132) must have the plan."""
+    from dl_vqa_tpu_torch.ops.lstm_cuda import f32_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = f32_plan(2, HIDDEN, sms)
+    require(plan is not None or sms < 128,
+            f"no f32 plan for D=2, H={HIDDEN} on {sms} SMs")
+    return SEQ_LEN if plan is None else 1
+
+
 def lstm_library_ms(torch, gen, device, lengths, train: bool,
                     dtype=None) -> float:
     """ms of one ``nn.LSTM(bidirectional=True)`` forward (cuDNN) on a
@@ -529,11 +550,14 @@ def lstm_library_ms(torch, gen, device, lengths, train: bool,
 
 
 def lstm_kernels(torch, gen, device, summary) -> None:
-    """Kernel 1, its save mode (kernel A) and the backward step (kernel
-    B) at T=23, H=1024, two directions."""
+    """Kernel 1, its save mode (kernel A), the token states (kernel A's
+    f32 store mode) and the backward step (kernel B) at T=23, H=1024, two
+    directions; kernels 1 and A in bf16 and f32, each beside cuDNN's
+    ``nn.LSTM`` (fp16 for bf16, f32 with TF32 off for f32)."""
     from dl_vqa_tpu_torch.ops.lstm import (
         lstm_backward_step_reference, lstm_recurrence_reference,
-        lstm_recurrence_save_reference, lstm_saved_state_backward)
+        lstm_recurrence_save_reference, lstm_saved_state_backward,
+        lstm_token_states_reference)
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_backward_step_launcher,
         lstm_recurrence_cuda, lstm_recurrence_save_cuda,
@@ -545,58 +569,73 @@ def lstm_kernels(torch, gen, device, summary) -> None:
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms{extra}")
         require(err <= tol, f"{name} {dtype} B={batch}: {err} > {tol}")
 
+    # bf16 entries by batch, and f32 entries (kernels 1, A and the token
+    # states on the f32 persistent kernel) by batch.
     by_batch = {"lstm_recurrence": {}, "lstm_recurrence_save": {}}
+    by_batch_f32 = {"lstm_recurrence": {}, "lstm_recurrence_save": {},
+                    "lstm_token_states": {}}
+    f32 = f32_grids(torch)
+
+    def launched(fn, call):
+        """``call()`` and the grids ``fn`` counted for it: (all, on the
+        f32 persistent kernel)."""
+        before = fn.launches, fn.launches_f32_persistent
+        out = call()
+        return out, (fn.launches - before[0],
+                     fn.launches_f32_persistent - before[1])
+
     for dtype, tol in ((torch.bfloat16, TOL["lstm_bf16"]),
                        (torch.float32, TOL["lstm_f32"])):
         main = dtype == torch.bfloat16
         # 1, 8 and 64 are serving buckets of serve.py, 512 the batch of the
         # paths below.
         for batch in (1, 8, 64, BATCH):
-            # f32 at batch 512 is off the main path and slow on both sides.
-            iters = (10 if main else 3) if batch == BATCH else 20
+            iters = 10 if batch == BATCH else 20
             x_proj, w_hh, lengths, master = lstm_inputs(
                 torch, gen, batch, dtype, device)
             args = (x_proj, w_hh, lengths)
-            # Steps that the data needs: padded ones change nothing.
+            # Steps that the data needs: padded ones change nothing. Kernel
+            # A also writes a padded step's gates, a product of its own.
             steps = int(lengths.sum()) * x_proj.shape[0]
             product_ops = 2.0 * steps * 4 * HIDDEN * HIDDEN
+            save_ops = 2.0 * x_proj.shape[:3].numel() * 4 * HIDDEN * HIDDEN
             kind = "bf16" if main else "f32"
-
-            before = lstm_recurrence_cuda.launches
-            h, c = lstm_recurrence_cuda(*args)
             # In bf16 the call is the persistent kernel where the card has
-            # a plan, not the per-step grids.
-            require(not main or lstm_recurrence_cuda.launches - before
-                    == recurrence_grids(torch),
-                    f"lstm_recurrence bf16 B={batch}: "
-                    f"{lstm_recurrence_cuda.launches - before} grids")
+            # a plan, not the per-step grids; in f32 the f32 persistent
+            # kernel (one launch, counted on its own).
+            want = ((recurrence_grids(torch), 0) if main
+                    else (f32, 1 if f32 == 1 else 0))
+            library = lstm_library_ms(torch, gen, device, lengths,
+                                      train=False,
+                                      dtype=None if main else torch.float32)
+            yardstick = "fp16 nn.LSTM" if main else "f32 nn.LSTM (TF32 off)"
+
+            (h, c), grids = launched(lstm_recurrence_cuda,
+                                     lambda: lstm_recurrence_cuda(*args))
+            require(grids == want, f"lstm_recurrence {kind} B={batch}: "
+                    f"{grids} grids (all, f32 persistent), want {want}")
             hr, cr = lstm_recurrence_reference(*args)
             torch.cuda.synchronize()
             err = max(max_err(h, hr), max_err(c, cr))
             ms, plain_ms = timed_pair(
                 torch, lambda: lstm_recurrence_reference(*args),
                 lambda: lstm_recurrence_cuda(*args), iters=iters)
-            library_ms = (lstm_library_ms(torch, gen, device, lengths,
-                                          train=False) if main else None)
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms,
+                     "library_ms": library,
                      **bound(nbytes(x_proj, w_hh, lengths, h, c),
                              product_ops, kind)}
             report("lstm_recurrence", dtype, batch, err, tol, ms, plain_ms,
-                   "" if library_ms is None else
-                   f", fp16 nn.LSTM eval (with the input GEMM) "
-                   f"{library_ms:.4f} ms | bound {entry['bound_ms']:.4f} ms "
-                   f"by {entry['bound_by']}")
-            if main:
-                by_batch["lstm_recurrence"][batch] = entry
+                   f", {yardstick} eval (with the input GEMM) "
+                   f"{library:.4f} ms | bound {entry['bound_ms']:.4f} ms by "
+                   f"{entry['bound_by']}")
+            (by_batch if main else by_batch_f32)["lstm_recurrence"][
+                batch] = entry
 
             # Kernel A: kernel 1's bits, plus the saved gates and carries.
-            before = lstm_recurrence_save_cuda.launches
-            saved = lstm_recurrence_save_cuda(*args)
-            require(not main or lstm_recurrence_save_cuda.launches - before
-                    == recurrence_grids(torch),
-                    f"lstm_recurrence_save bf16 B={batch}: "
-                    f"{lstm_recurrence_save_cuda.launches - before} grids")
+            saved, grids = launched(lstm_recurrence_save_cuda,
+                                    lambda: lstm_recurrence_save_cuda(*args))
+            require(grids == want, f"lstm_recurrence_save {kind} "
+                    f"B={batch}: {grids} grids, want {want}")
             plain_saved = lstm_recurrence_save_reference(*args)
             torch.cuda.synchronize()
             require(torch.equal(saved[0], h) and torch.equal(saved[1], c),
@@ -606,49 +645,53 @@ def lstm_kernels(torch, gen, device, summary) -> None:
             ms, plain_ms = timed_pair(
                 torch, lambda: lstm_recurrence_save_reference(*args),
                 lambda: lstm_recurrence_save_cuda(*args), iters=iters)
-            library_ms = (lstm_library_ms(torch, gen, device, lengths,
-                                          train=True) if main else None)
+            library = lstm_library_ms(torch, gen, device, lengths,
+                                      train=True,
+                                      dtype=None if main else torch.float32)
             entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms,
+                     "library_ms": library,
                      **bound(nbytes(x_proj, w_hh, lengths, *saved),
-                             product_ops, kind)}
+                             save_ops, kind)}
             report("lstm_recurrence_save", dtype, batch, err, tol, ms,
-                   plain_ms, " | final (h, c) equal kernel 1's bits" + (
-                       "" if library_ms is None else
-                       f" | fp16 nn.LSTM train-mode forward (with the input "
-                       f"GEMM) {library_ms:.4f} ms | bound "
-                       f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}"))
-            if main:
-                by_batch["lstm_recurrence_save"][batch] = entry
-            elif batch == BATCH:
-                # Kernel A's f32 mode as the co-attention's token states
-                # run it, on its own counter: the f32 call's bits above.
-                before = lstm_token_states_cuda.launches
-                states = lstm_token_states_cuda(*args)
-                require(lstm_token_states_cuda.launches - before == SEQ_LEN,
-                        f"lstm_token_states f32 B={batch}: "
-                        f"{lstm_token_states_cuda.launches - before} grids")
+                   plain_ms, " | final (h, c) equal kernel 1's bits | "
+                   f"{yardstick} train-mode forward (with the input GEMM) "
+                   f"{library:.4f} ms | bound "
+                   f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}")
+            (by_batch if main else by_batch_f32)["lstm_recurrence_save"][
+                batch] = entry
+            if not main:
+                # The co-attention's token states on their own store mode
+                # and counter: kernel A's f32 bits of h, c and h_all, no
+                # gates and no c_all written.
+                states, grids = launched(
+                    lstm_token_states_cuda,
+                    lambda: lstm_token_states_cuda(*args))
+                require(grids == want, f"lstm_token_states f32 B={batch}: "
+                        f"{grids} grids, want {want}")
                 torch.cuda.synchronize()
-                require(all(torch.equal(a, b)
-                            for a, b in zip(states, saved)),
+                require(all(torch.equal(states[k], saved[k])
+                            for k in (0, 1, 4))
+                        and (f32 != 1 or states[2] is None),
                         "lstm_token_states: kernel A's f32 bits")
+                h_all, c_tok = lstm_token_states_reference(*args)
+                err = max(max_err(states[4], h_all), max_err(states[1],
+                                                             c_tok))
+                del h_all, c_tok
                 token_ms, token_plain_ms = timed_pair(
-                    torch, lambda: lstm_recurrence_save_reference(*args),
+                    torch, lambda: lstm_token_states_reference(*args),
                     lambda: lstm_token_states_cuda(*args), iters=iters)
-                library_ms = lstm_library_ms(torch, gen, device, lengths,
-                                             train=False,
-                                             dtype=torch.float32)
-                summary["lstm_token_states"] = {
-                    "max_abs_err": err, "ms": token_ms,
-                    "plain_ms": token_plain_ms, "library_ms": library_ms,
-                    **bound(nbytes(x_proj, w_hh, lengths, *states),
-                            product_ops, "f32")}
+                library = lstm_library_ms(torch, gen, device, lengths,
+                                          train=False, dtype=torch.float32)
+                entry = {"max_abs_err": err, "ms": token_ms,
+                         "plain_ms": token_plain_ms, "library_ms": library,
+                         **bound(nbytes(x_proj, w_hh, lengths, states[1],
+                                        states[4]), product_ops, "f32")}
+                by_batch_f32["lstm_token_states"][batch] = entry
                 report("lstm_token_states", dtype, batch, err, tol, token_ms,
                        token_plain_ms,
-                       f" | kernel A's f32 bits | f32 nn.LSTM eval (with "
-                       f"the input GEMM) {library_ms:.4f} ms | bound "
-                       f"{summary['lstm_token_states']['bound_ms']:.4f} ms "
-                       f"by {summary['lstm_token_states']['bound_by']}")
+                       f" | kernel A's f32 bits | {yardstick} eval (with "
+                       f"the input GEMM) {library:.4f} ms | bound "
+                       f"{entry['bound_ms']:.4f} ms by {entry['bound_by']}")
                 del states
             if batch == 1:
                 continue
@@ -753,11 +796,19 @@ def lstm_kernels(torch, gen, device, summary) -> None:
                     "dw_hh_rel_err": dw_err, "real_rows": real,
                     **bound(moved, 40.0 * real * SEQ_LEN * dh.numel(), "f32")}
             del saved, gates, c_all, h_all, dgates
-    # The batch-512 entries lead the result line; the serving buckets ride
-    # along under "by_batch".
+    # The batch-512 entries lead the result line (bf16 for kernels 1 and
+    # A, whose f32 entries ride along under "f32"); the serving buckets
+    # under "by_batch".
+    def rest(entries):
+        return {str(b): entry for b, entry in entries.items() if b != BATCH}
+
     for name, entries in by_batch.items():
-        summary[name] = {**entries[BATCH], "by_batch": {
-            str(b): entry for b, entry in entries.items() if b != BATCH}}
+        summary[name] = {**entries[BATCH], "by_batch": rest(entries),
+                         "f32": {str(b): entry for b, entry
+                                 in by_batch_f32[name].items()}}
+    tokens = by_batch_f32["lstm_token_states"]
+    summary["lstm_token_states"] = {**tokens[BATCH],
+                                    "by_batch": rest(tokens)}
 
 
 def tied_values(torch, shape, dtype, gen, device):
@@ -1608,13 +1659,15 @@ def kernel_wrappers() -> dict:
 
 
 # Kernels that count the grids of their fast path beside all their grids:
-# kernel C's and kernel B's vector kernels, kernel 7's tensor-core kernel
-# and kernel D's wgmma kernel, which every call of a model path takes (the
-# model's shapes, in bf16; D's in int8).
+# kernel C's and kernel B's vector kernels, kernel 7's tensor-core kernel,
+# kernel D's wgmma kernel and the token states' f32 persistent kernel,
+# which every call of a model path takes (the model's shapes, in bf16; D's
+# in int8; the token states in f32 on a card of 128 SMs or more).
 FAST_PATHS = {"relu_maxpool_backward": "launches_vector",
               "lstm_backward_step": "launches_vector",
               "conv_relu_pool_stem": "launches_mma",
-              "conv_relu_pool_int8": "launches_wgmma"}
+              "conv_relu_pool_int8": "launches_wgmma",
+              "lstm_token_states": "launches_f32_persistent"}
 
 
 def reset_launches(wrappers) -> None:
@@ -1627,7 +1680,8 @@ def reset_launches(wrappers) -> None:
 
 def read_launches(wrappers, what: str) -> dict:
     """The grids each kernel launched since :func:`reset_launches`; fails
-    where kernel C, B, 7 or D launched a grid off its fast path."""
+    where kernel C, B, 7, D or the token states launched a grid off its
+    fast path."""
     launches = {kernel: fn.launches for kernel, fn in wrappers.items()}
     for name, counter in FAST_PATHS.items():
         fast = getattr(wrappers[name], counter)
@@ -4116,15 +4170,16 @@ def variant_config(preset: str):
                                 ModelConfig().num_tokens)
 
 
-def variant_grids(cfg, recurrence: int, forwards: int = 1,
+def variant_grids(cfg, recurrence: int, tokens: int, forwards: int = 1,
                   train_steps: int = 0) -> dict:
     """The grids ``forwards`` forwards without a gradient and
     ``train_steps`` train steps launch for the model of ``cfg`` (the CNN
     image encoder): the pooled bi-LSTM on kernel 1 (kernel A and B's T
-    grids in a train step), the token states of (lstm, co) on kernel A's
-    f32 mode (T grids a forward; kernel B's T in a train step), none with
-    the transformer; kernel 3 a glimpse in stacked attention, once in
-    single and co; kernels 2 and C a CNN block."""
+    grids in a train step), the token states of (lstm, co) in f32
+    (``tokens`` grids a call, a forward's or a train step's; kernel B's T
+    in a train step), none with the transformer; kernel 3 a glimpse in
+    stacked attention, once in single and co; kernels 2 and C a CNN
+    block."""
     variant = cfg.attention.variant
     pools = cfg.attention.glimpses if variant == "stacked" else 1
     blocks = len(cfg.image.num_channels) - 1
@@ -4134,7 +4189,7 @@ def variant_grids(cfg, recurrence: int, forwards: int = 1,
              "attention_pool": pools * calls}
     if cfg.text.encoder == "lstm":
         if variant == "co":
-            grids["lstm_token_states"] = SEQ_LEN * calls
+            grids["lstm_token_states"] = tokens * calls
         else:
             grids["lstm_recurrence"] = recurrence * forwards
             grids["lstm_recurrence_save"] = recurrence * train_steps
@@ -4142,8 +4197,63 @@ def variant_grids(cfg, recurrence: int, forwards: int = 1,
     return {k: v for k, v in grids.items() if v}
 
 
+def lstm_co_timing(torch, seed: int, cfg, parent_lstm: str = None) -> dict:
+    """(lstm, co) at batch 512 in bf16 (its token states in f32): the
+    forward and a train step (dropout 0.3, Adam) timed on this tree's
+    kernels and, given ``parent_lstm`` (a directory holding another
+    version's ``lstm_recurrence.cu`` and ``lstm_backward.cu``), on that
+    version's LSTM kernels beside this tree's others, in turns in the same
+    call (``tools/compare_lstm.py``'s loader)."""
+    import contextlib
+    import tempfile
+
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.ops import _native
+    from dl_vqa_tpu_torch.tools import compare_lstm
+    from dl_vqa_tpu_torch.train import create_train_state, make_train_step
+
+    model = VqaNet(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(model, INITIAL_LR)
+    train_step = make_train_step(cfg)
+    batch = make_batch(torch, cfg, BATCH, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    imgs, qs = batch["images"], batch["questions"]
+    lens = batch["lengths"]
+
+    def forward():
+        with torch.inference_mode():
+            return model(imgs, qs, lens, compute_dtype=torch.bfloat16)
+
+    versions = {"tree": contextlib.nullcontext}
+    with tempfile.TemporaryDirectory() as out_dir:
+        if parent_lstm:
+            lib = compare_lstm.load({"parent": parent_lstm},
+                                    out_dir)["parent"]
+            mixed = compare_lstm.WithLstmOf(lib, _native.library())
+            versions["parent"] = lambda: compare_lstm.using(mixed)
+
+        def run(version, fn):
+            def call():
+                with versions[version]():
+                    fn()
+            return call
+
+        out = {}
+        for what, fn in (("forward", forward),
+                         ("train_step",
+                          lambda: train_step(state, batch, gen))):
+            calls = [run(v, fn) for v in versions]
+            ms = timed_turns(torch, calls, iters=3)
+            out.update({f"{what}_ms" + ("" if v == "tree" else f"_{v}"): m
+                        for v, m in zip(versions, ms)})
+    log("variants lstm_co B=512 bf16 (token states f32): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
 def variants_phase(torch, seed: int, recurrence: int,
-                   profile: bool = False) -> tuple:
+                   profile: bool = False, parent_lstm: str = None) -> tuple:
     """Phase 14 before cnn_e2e: each variant preset at full width served
     (:func:`slice_phase`: 8 requests, the logits held to the plain path,
     the batch-512 forward timed), trained (:func:`train_phase`:
@@ -4152,9 +4262,11 @@ def variants_phase(torch, seed: int, recurrence: int,
     logits the live Predictor's to the bit, its launches counted); then the
     (lstm, co) combination, which no preset has, at batch 8: served, its
     logits held to the plain path, and a train step's gradients held to the
-    plain path's, kernel A's f32 launches counted. ``profile`` adds the
-    presets' device time by kernel over two train and eval steps. Returns
-    ``({path: launches}, numbers)``."""
+    plain path's, the token states' f32 launches counted; then its forward
+    and train step timed at batch 512 (:func:`lstm_co_timing`, with
+    ``parent_lstm`` also on another version's LSTM kernels). ``profile``
+    adds the presets' device time by kernel over two train and eval steps.
+    Returns ``({path: launches}, numbers)``."""
     import dataclasses
     import os
     import shutil
@@ -4165,6 +4277,7 @@ def variants_phase(torch, seed: int, recurrence: int,
     from dl_vqa_tpu_torch.utils.aot_export import load_artifact
 
     wrappers = kernel_wrappers()
+    tokens = f32_grids(torch)
     root = os.path.abspath(VARIANT_DIR)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -4178,11 +4291,11 @@ def variants_phase(torch, seed: int, recurrence: int,
             "answers": cfg.max_answers}
         t0 = time.perf_counter()
         paths[f"{name}_serving"] = slice_phase(
-            torch, seed, cfg, name, variant_grids(cfg, recurrence),
+            torch, seed, cfg, name, variant_grids(cfg, recurrence, tokens),
             numbers=entry)
         paths[f"{name}_training"] = train_phase(
             torch, seed, profile, cfg, name,
-            variant_grids(cfg, recurrence, forwards=1,
+            variant_grids(cfg, recurrence, tokens, forwards=1,
                           train_steps=VARIANT_STEPS),
             accumulate=False, steps=VARIANT_STEPS, numbers=entry)
 
@@ -4203,7 +4316,7 @@ def variants_phase(torch, seed: int, recurrence: int,
         got = exported.logits(*request)
         torch.cuda.synchronize()
         launches = read_launches(wrappers, f"the exported {name}")
-        expected = variant_grids(cfg, recurrence)
+        expected = variant_grids(cfg, recurrence, tokens)
         require(launches == {**dict.fromkeys(wrappers, 0), **expected},
                 f"the exported {name}: launches {launches}, expected "
                 f"{expected}")
@@ -4236,7 +4349,7 @@ def variants_phase(torch, seed: int, recurrence: int,
     reset_launches(wrappers)
     answers = predictor.predict(images, QUESTIONS, top_k=3)
     launches = read_launches(wrappers, "the (lstm, co) serving path")
-    expected = variant_grids(cfg, recurrence)
+    expected = variant_grids(cfg, recurrence, tokens)
     require(len(answers) == len(QUESTIONS), "one answer list per request")
     require(launches == {**dict.fromkeys(wrappers, 0), **expected},
             f"kernel launches on the (lstm, co) serving path: {launches}, "
@@ -4273,11 +4386,13 @@ def variants_phase(torch, seed: int, recurrence: int,
     # Two dtypes, each a train step and an eval step on both paths.
     hold_to_plain_path(torch, seed, cfg, "lstm_co", gen, new_state)
     launches = read_launches(wrappers, "the (lstm, co) batch-8 steps")
-    expected = variant_grids(cfg, recurrence, forwards=2, train_steps=2)
+    expected = variant_grids(cfg, recurrence, tokens, forwards=2,
+                             train_steps=2)
     require(launches == {**dict.fromkeys(wrappers, 0), **expected},
             f"kernel launches of the (lstm, co) steps: {launches}, expected "
             f"{expected}")
     paths["lstm_co_training"] = launches
+    entry.update(lstm_co_timing(torch, seed, cfg, parent_lstm))
     entry["phase_s"] = time.perf_counter() - t0
     numbers["phase_s"] = time.perf_counter() - phase_start
     log(f"variants lstm_co: train and eval steps at B=8 held to the plain "
@@ -4354,6 +4469,10 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by kernel over two "
                              "train steps and the quantized forwards")
+    parser.add_argument("--parent-lstm", metavar="DIR",
+                        help="also time (lstm, co) at batch 512 on the "
+                             "LSTM kernels of the lstm_recurrence.cu and "
+                             "lstm_backward.cu in DIR (another version's)")
     parser.add_argument("--aot-client", nargs=3,
                         metavar=("ARTIFACT", "REQUESTS", "OUT"),
                         help="the aot phase's process that serves an "
@@ -4494,7 +4613,7 @@ def main(argv=None) -> int:
     # Phase 14: the variant presets and (lstm, co); their journey after
     # cnn_e2e's corpus exists.
     variant_paths, variants = variants_phase(torch, args.seed, recurrence,
-                                             args.profile)
+                                             args.profile, args.parent_lstm)
     paths.update(variant_paths)
     paths["cnn_e2e"], e2e, e2e_profile = e2e_phase(torch, args.seed)
     log(json.dumps({"cnn_e2e": e2e}))

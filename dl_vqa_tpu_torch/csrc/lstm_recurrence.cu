@@ -11,8 +11,8 @@
 // carries after the masked update. It is a template flag, so the plain
 // mode's code, bits and time are what they were without it.
 //
-// Two designs, chosen by the caller (ops/lstm_cuda.py::persistent_plan) on
-// dtype and shape before the launch:
+// Three designs, chosen by the caller (ops/lstm_cuda.py::persistent_plan
+// for bf16, ::f32_plan for f32) on dtype and shape before the launch:
 //
 // 1. The persistent kernel (lstm_persistent_kernel; bf16 whenever the plan
 //    finds a block size that fits). What bounds the recurrence is that it
@@ -35,7 +35,7 @@
 //    thread that wrote them; the batch of 512 does not fit on the SM beside
 //    W). At B = 512 each block reads 1 MiB of hq from L2 a step.
 //
-// 2. The per-step kernel (lstm_step_kernel; f32, and bf16 shapes with no
+// 2. The per-step kernel (lstm_step_kernel; bf16 and f32 shapes with no
 //    plan): the host launches one grid per timestep; blockIdx.z is the
 //    direction, so both directions of the bi-LSTM share every launch. A
 //    block owns 16 hidden units and 16 batch rows (64 when the batch is
@@ -50,11 +50,32 @@
 //    torch layout [4H, H], so each gate row is a contiguous dot product.
 //    bf16 weights go through the tensor cores (wmma 16x16x16, f32
 //    accumulate); f32 weights through plain FMAs, which keeps the f32
-//    product exact rather than rounding it to TF32 (its 32 MiB of W_hh fit
-//    on no card's shared memory).
+//    product exact rather than rounding it to TF32.
 //
-// Both designs sum a gate's products in the same order for every row
-// (k ascending in 16-wide steps), whatever the batch or the row's tile.
+// 3. The f32 persistent kernel (lstm_f32_kernel; f32 wherever f32_plan finds
+//    room, H <= 1024 with a block per 8 units on the card's SMs). The f32
+//    W_hh of two directions (32 MiB at H = 1024) fits no card's shared
+//    memory, one direction's 16 MiB does: one cooperative launch a call
+//    runs the directions one after the other, each block holding its 8
+//    units' 32 rows of the direction's W_hh (128 KiB) for all T steps, so
+//    each step streams only h from L2 (cp.async through a three-slot ring,
+//    two chunks ahead) and W never leaves the SM; one barrier a step over
+//    the grid. The product is plain f32 FMAs (no TF32 rounding): each warp
+//    sums an eighth of K in register tiles of up to 8 x 8, and the eight
+//    partial sums meet in shared memory in a fixed order.
+//    Rows are taken longest first (`order`, a stable sort of the lengths),
+//    so step t multiplies only its `live[t]` rows that are still inside
+//    their length; a finished row keeps its state. kSave (kernel A)
+//    computes every row at every step instead, the gates of padded steps
+//    included, as design 2 does; kTokens (the co-attention's per-token
+//    states) writes only h_all and the final state.
+//
+// Designs 1 and 2 sum a gate's products in the same order for every row
+// (k ascending in 16-wide steps), whatever the batch or the row's tile;
+// design 3 in its own fixed order (an FMA chain over each eighth of K,
+// then the eight in turn), whatever the batch, the row's position or the
+// mode, so kernel 1's (h, c), kernel A's and the token states' agree to
+// the bit.
 
 #include <mma.h>
 #include <type_traits>
@@ -651,6 +672,391 @@ cudaError_t launch(const void* xproj, const void* whh, const void* lengths,
 
 }  // namespace persistent
 
+// ---------------------------------------------------------------------------
+// The f32 persistent kernel (design 3 above). A block owns kUnits hidden
+// units and keeps their 4 x kUnits rows of one direction's W_hh in shared
+// memory, row (2 g + e) * 4 + q holding gate g of unit 2 q + e, K padded
+// with zeros to a multiple of kKAlign. Warp w sums the products of its
+// eighth of K, columns [w K/8, (w + 1) K/8), for a pass of rows: lane (rg,
+// q) = (lane / 4, lane % 4) holds rows rg + 8 s by the 8 columns c * 4 + q,
+// a register tile of up to 8 x 8 f32 sums fed by 16-byte shared loads,
+// each k once into every sum in ascending order (plain f32 FMAs). The
+// eight partial sums go through shared memory (XOR-swizzled by row, so
+// that the stores and the cell update's loads fall on distinct banks) and
+// are added in warp order; the cell update follows in the same block. A
+// pass is 64 rows (kSlots = 8, 16 columns a warp a ring slot), or 16
+// (kSlots = 2, 64 columns) where the step has no more: the same products
+// in the same order either way. h streams from L2 through a ring of two
+// slots by 16-byte cp.async, one chunk ahead; at the end of a pass warps
+// 0-3 put their partial sums in red and warps 4-7 in the slot just used
+// up.
+//
+// What bounds it at batch 512: the FMAs, fed from shared memory at about
+// the rate they run (an 8 x 8 tile takes 16 shared words a lane for 64
+// FMAs, which is what the SM's 128 bytes of shared memory a cycle give its
+// 128 FMA lanes), then the staging of h from L2 (2 MiB a block a step)
+// where it does not overlap them, then the cell updates and the step
+// barrier. 3xTF32 on mma.sync ran faster on an H100 but moved the f8
+// model's f32 gradient check in chip_smoke.py (tensor-to-tensor 2e-4)
+// past its limit: this design keeps exact f32 products, as the per-step
+// kernel has them.
+namespace persistent_f32 {
+
+constexpr int kUnits = 8;
+constexpr int kCols = 4 * kUnits;       // W_hh rows of a block
+constexpr int kSlices = 8;              // warps, each sums an eighth of K
+constexpr int kThreads = 32 * kSlices;
+constexpr int kKAlign = 512;            // K padded to a multiple
+constexpr int kWPad = 4;                // f32 padding of each W_s row
+constexpr int kRingSlots = 2;
+constexpr int kStageFloats = 64 * 132;  // a slot: 64 x (128 + 4), 16 x 516
+constexpr int kRedRows = 64;            // rows of a pass at most
+
+enum Mode { kFinal = 0, kSave = 1, kTokens = 2 };
+
+__host__ __device__ constexpr int padded_k(int hidden) {
+  return (hidden + kKAlign - 1) / kKAlign * kKAlign;
+}
+
+// Dynamic shared memory of a block: W_s [kCols][padded_k + kWPad], the
+// ring [kRingSlots][kStageFloats], then red, the partial sums of warps 0-3
+// [4][kRedRows][kCols] (warps 4-7 put theirs in the slot a pass has just
+// used up); all f32. Mirrored by ops/lstm_cuda.py::f32_smem_bytes.
+constexpr size_t smem_bytes(int hidden) {
+  return (static_cast<size_t>(kCols) * (padded_k(hidden) + kWPad) +
+          static_cast<size_t>(kRingSlots) * kStageFloats +
+          static_cast<size_t>(kSlices / 2) * kRedRows * kCols) *
+         sizeof(float);
+}
+
+// A warp's partial sum of (row, column) within its 64 x kCols block of red
+// or a slot: the column XOR-ed with the row's low three bits.
+__device__ __forceinline__ int part_at(int row, int col) {
+  return row * kCols + (col ^ ((row & 7) << 2));
+}
+
+// The products of one ring slot: lane (rg, q) sums rows rg + 8 s (s <
+// slots, or all kSlots with kFull) of the slot (rows kLd apart, from hs)
+// by W_s rows c * 4 + q (from ws, rows ldw apart) over the warp's kCw
+// columns of K.
+template <int kSlots, int kCw, int kLd, bool kFull>
+__device__ __forceinline__ void slot_product(float (&acc)[kSlots][8],
+                                             const float* hs, const float* ws,
+                                             int ldw, int slots) {
+  // Two k steps at a time: a full unroll's loads ahead spill registers.
+#pragma unroll 2
+  for (int kk = 0; kk < kCw; kk += 4) {
+    float4 wv[8], hv[kSlots];
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc)
+      wv[cc] = *reinterpret_cast<const float4*>(ws + cc * 4 * ldw + kk);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      if (kFull || s < slots)
+        hv[s] = *reinterpret_cast<const float4*>(hs + s * 8 * kLd + kk);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        if (kFull || s < slots) {
+          const float h = reinterpret_cast<const float*>(&hv[s])[k];
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc)
+            acc[s][cc] = fmaf(h, reinterpret_cast<const float*>(&wv[cc])[k],
+                              acc[s][cc]);
+        }
+      }
+    }
+  }
+}
+
+struct Args {
+  const float* xproj;    // [D, T, B, 4H]
+  const float* whh;      // [D, 4H, H]
+  const int* lengths;    // [B]
+  const int* order;      // [B]: rows by length, longest first (not kSave)
+  const int* live;       // [T]: rows with t < len (not kSave)
+  float* h;              // [D, B, H], 0 in: the final h
+  float* c;              // [D, B, H], 0 in
+  float* hbuf;           // [2, B, H]: h of the step before, by parity
+  int* barrier;          // [1], 0 in
+  float* gates_all;      // [D, T, B, 4H] (kSave)
+  float* c_all;          // [D, T, B, H] (kSave)
+  float* h_all;          // [D, T, B, H] (kSave, kTokens)
+  int directions, seq_len, batch, hidden;
+};
+
+// Step t of direction d for the rows at positions 0 .. rows - 1 of the
+// order: the product (t > 0) pass by pass, each pass's cell update (in
+// kTokens a row's last step writes its h to every later step of h_all, and
+// step 0 the zero state of the rows of length 0 to every step).
+template <int kMode, int kSlots>
+__device__ __forceinline__ void step(const Args& a, const float* w_s,
+                                     int ldw, float* ring, float* red, int d,
+                                     int t, int rows) {
+  constexpr int kRows = 8 * kSlots;       // rows a pass
+  constexpr int kCw = 128 / kSlots;       // K columns of a warp a slot
+  constexpr int kLd = kSlices * kCw + 4;  // f32 a staged row
+  constexpr int kVpr = kSlices * kCw / 4; // 16-byte vectors a staged row
+  static_assert(kRows * kLd <= kStageFloats, "a pass fits a ring slot");
+  static_assert(kSlices / 2 * kRedRows * kCols <= kStageFloats,
+                "half the warps' partial sums fit a ring slot");
+  const int hidden = a.hidden, batch = a.batch;
+  const int k_slice = padded_k(hidden) / kSlices;
+  const int chunks = k_slice / kCw;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int u0 = blockIdx.x * kUnits;
+  const size_t state = static_cast<size_t>(batch) * hidden;
+  const float* h_in = a.hbuf + static_cast<size_t>(t % 2) * state;
+  float* h_next = a.hbuf + static_cast<size_t>((t + 1) % 2) * state;
+  const float* xp =
+      a.xproj + (static_cast<size_t>(d) * a.seq_len + t) * batch * 4 * hidden;
+  const size_t step_row = (static_cast<size_t>(d) * a.seq_len + t) * batch;
+  float* c_d = a.c + d * state;
+  float* h_d = a.h + d * state;
+  auto row_of = [&](int pos) {
+    return kMode == kSave ? pos : __ldg(a.order + pos);
+  };
+
+  if (kMode == kTokens && t == 0) {
+    // A row of length 0 keeps the zero state at every step.
+    const int seq_len = a.seq_len;
+    for (int i = threadIdx.x; i < (batch - rows) * 4 * seq_len;
+         i += kThreads) {
+      const int pair = i / seq_len, s = i % seq_len;
+      const size_t at =
+          (static_cast<size_t>(d) * seq_len + s) * batch * hidden +
+          static_cast<size_t>(row_of(rows + pair / 4)) * hidden + u0 +
+          2 * (pair % 4);
+      __stcs(reinterpret_cast<float2*>(a.h_all + at),
+             make_float2(0.0f, 0.0f));
+    }
+  }
+
+  // The cell update of the rows at positions row0 .. row0 + n - 1, with
+  // the partial sums of warps 0-3 in `lo` and 4-7 in `hi` (none at step
+  // 0): thread (r, p) takes units u0 + 2 p, + 1 of row r, all four gates.
+  auto cell_update = [&](int row0, int n, const float* lo, const float* hi) {
+    const int r = threadIdx.x / 4, p = threadIdx.x % 4;
+    if (r >= n) return;
+    const int b = row_of(row0 + r);
+    const int j = u0 + 2 * p;
+    const float* xr = xp + static_cast<size_t>(b) * 4 * hidden + j;
+    float gates[4][2];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float2 x = __ldcs(reinterpret_cast<const float2*>(xr + g * hidden));
+      float sum[2] = {0.0f, 0.0f};
+      if (lo != nullptr) {  // the product's sums, in warp order
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int at = part_at(r, (2 * g + e) * 4 + p);
+          float s = lo[at];
+#pragma unroll
+          for (int w = 1; w < kSlices; ++w)
+            s += (w < kSlices / 2 ? lo + w * kRedRows * kCols
+                                  : hi + (w - kSlices / 2) * kRedRows *
+                                             kCols)[at];
+          sum[e] = s;
+        }
+      }
+      gates[g][0] = x.x + sum[0];
+      gates[g][1] = x.y + sum[1];
+    }
+    const int len = __ldg(a.lengths + b);
+    const bool keep = t < len;
+    const size_t at = static_cast<size_t>(b) * hidden + j;
+    float2 c2 = make_float2(0.0f, 0.0f), h2 = make_float2(0.0f, 0.0f);
+    if (t > 0) {
+      c2 = __ldcg(reinterpret_cast<const float2*>(c_d + at));
+      // A padded row passes its h through; only kSave computes one.
+      if (kMode == kSave)
+        h2 = __ldcg(reinterpret_cast<const float2*>(h_in + at));
+    }
+    const float co[2] = {c2.x, c2.y};
+    const float ho[2] = {h2.x, h2.y};
+    float c_out[2], h_out[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float c_new = sigmoid(gates[1][e]) * co[e] +
+                          sigmoid(gates[0][e]) * tanhf(gates[2][e]);
+      const float h_new = sigmoid(gates[3][e]) * tanhf(c_new);
+      c_out[e] = keep ? c_new : co[e];
+      h_out[e] = keep ? h_new : ho[e];
+    }
+    const float2 c_o = make_float2(c_out[0], c_out[1]);
+    const float2 h_o = make_float2(h_out[0], h_out[1]);
+    *reinterpret_cast<float2*>(c_d + at) = c_o;
+    *reinterpret_cast<float2*>(h_next + at) = h_o;
+    *reinterpret_cast<float2*>(h_d + at) = h_o;
+    if constexpr (kMode == kSave) {
+      float* g_out = a.gates_all + (step_row + b) * 4 * hidden + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        __stcs(reinterpret_cast<float2*>(g_out + g * hidden),
+               make_float2(gates[g][0], gates[g][1]));
+      __stcs(reinterpret_cast<float2*>(a.c_all + step_row * hidden + at),
+             c_o);
+      __stcs(reinterpret_cast<float2*>(a.h_all + step_row * hidden + at),
+             h_o);
+    }
+    if constexpr (kMode == kTokens) {
+      // A row's last step also writes its state to the steps after it,
+      // which no longer compute the row.
+      const int until = len - 1 == t ? a.seq_len : t + 1;
+      for (int s = t; s < until; ++s)
+        __stcs(reinterpret_cast<float2*>(
+                   a.h_all + (step_row + static_cast<size_t>(s - t) * batch) *
+                                 hidden + at),
+               h_o);
+    }
+  };
+
+  if (t == 0) {
+    // h is zero before step 0, and so is its product.
+    for (int row0 = 0; row0 < rows; row0 += kRedRows)
+      cell_update(row0, min(kRedRows, rows - row0), nullptr, nullptr);
+    return;
+  }
+
+  // Chunk g (columns g % chunks of every warp's slice, rows of pass g /
+  // chunks) goes to slot g % kRingSlots, one chunk ahead of the one in use.
+  // Each call commits one copy group, empty past the last chunk.
+  const int total = (rows + kRows - 1) / kRows * chunks;
+  auto issue = [&](int g) {
+    if (g < total) {
+      constexpr int kRowStep = kThreads / kVpr;
+      const int pass = g / chunks, ch = g % chunks;
+      const int n = min(kRows, rows - pass * kRows);
+      float* dst = ring + (g % kRingSlots) * kStageFloats;
+      const int v = threadIdx.x % kVpr;  // a thread's vector of every row
+      const int col = v / (kCw / 4) * k_slice + ch * kCw + v % (kCw / 4) * 4;
+      const bool in_k = col < hidden;    // columns past H read as zero
+#pragma unroll
+      for (int r = threadIdx.x / kVpr; r < kRows; r += kRowStep) {
+        if (r < n) {  // rows past the pass's last are not read
+          const int b = row_of(pass * kRows + r);
+          persistent::cp_async16(
+              dst + r * kLd + 4 * v,
+              h_in + (in_k ? static_cast<size_t>(b) * hidden + col : 0),
+              in_k);
+        }
+      }
+    }
+    persistent::cp_async_commit();
+  };
+  const int rg = lane / 4, q = lane % 4;
+  float acc[kSlots][8];
+  issue(0);
+  for (int g = 0; g < total; ++g) {
+    persistent::cp_async_wait_all();  // this thread's copies of g
+    // Everyone's copies of g have landed, and everyone is done with the
+    // slot of g - 1, which the next issue refills.
+    __syncthreads();
+    issue(g + 1);
+    const int pass = g / chunks;
+    const int n = min(kRows, rows - pass * kRows);
+    const int slots = (n + 7) / 8;  // the same for every warp
+    if (g % chunks == 0) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) acc[s][cc] = 0.0f;
+    }
+    float* slot = ring + (g % kRingSlots) * kStageFloats;
+    const float* hs = slot + rg * kLd + warp * kCw;
+    const float* ws = w_s + q * ldw + warp * k_slice + g % chunks * kCw;
+    if (slots == kSlots)
+      slot_product<kSlots, kCw, kLd, true>(acc, hs, ws, ldw, slots);
+    else
+      slot_product<kSlots, kCw, kLd, false>(acc, hs, ws, ldw, slots);
+    if (g % chunks == chunks - 1) {
+      // The pass's partial sums into red (warps 0-3) and this slot (4-7)
+      // once everyone is done reading it, then its cell update; the next
+      // pass's first chunk is in flight meanwhile, and the next refill of
+      // this slot follows the next barrier.
+      __syncthreads();
+      float* part = (warp < kSlices / 2 ? red : slot) +
+                    warp % (kSlices / 2) * kRedRows * kCols;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        if (s < slots)
+#pragma unroll
+          for (int cc = 0; cc < 8; ++cc)
+            part[part_at(rg + 8 * s, 4 * cc + q)] = acc[s][cc];
+      __syncthreads();
+      cell_update(pass * kRows, n, red, slot);
+    }
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1) lstm_f32_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int hidden = a.hidden;
+  const int kpad = padded_k(hidden);
+  const int ldw = kpad + kWPad;
+  float* w_s = smem;
+  float* ring = w_s + kCols * ldw;
+  float* red = ring + kRingSlots * kStageFloats;
+  const int u0 = blockIdx.x * kUnits;
+  int steps = 0;
+  for (int d = 0; d < a.directions; ++d) {
+    // This direction's rows of W_hh; every block is past the barrier of
+    // the last step that read the other direction's.
+    const float* w_dir = a.whh + static_cast<size_t>(d) * 4 * hidden * hidden;
+    const int vecs = hidden / 4;
+    for (int i = threadIdx.x; i < kCols * vecs; i += kThreads) {
+      const int r = i / vecs, v = i % vecs;
+      const int g = r / 8, e = r / 4 % 2, q = r % 4;
+      persistent::cp_async16(
+          w_s + r * ldw + v * 4,
+          w_dir + static_cast<size_t>(g * hidden + u0 + 2 * q + e) * hidden +
+              v * 4,
+          true);
+    }
+    const int tail = kpad - hidden;
+    for (int i = threadIdx.x; i < kCols * tail; i += kThreads)
+      w_s[i / tail * ldw + hidden + i % tail] = 0.0f;
+    persistent::cp_async_commit();
+    persistent::cp_async_wait_all();
+    __syncthreads();
+    for (int t = 0; t < a.seq_len; ++t) {
+      const int rows = kMode == kSave ? a.batch : __ldg(a.live + t);
+      if (rows <= 16)
+        step<kMode, 2>(a, w_s, ldw, ring, red, d, t, rows);
+      else
+        step<kMode, 8>(a, w_s, ldw, ring, red, d, t, rows);
+      // Every block's h of this step before anyone reads it; the parity
+      // buffer the next step writes was last read the step before.
+      if (++steps < a.directions * a.seq_len)
+        persistent::direction_barrier(a.barrier,
+                                      steps * static_cast<int>(gridDim.x));
+    }
+  }
+}
+
+template <int kMode>
+cudaError_t launch(const Args& args, int smem, cudaStream_t stream) {
+  auto kernel = lstm_f32_kernel<kMode>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  Args a = args;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(a.hidden / kUnits), dim3(kThreads),
+                                    params, static_cast<size_t>(smem),
+                                    stream);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+}  // namespace persistent_f32
+
 }  // namespace
 
 extern "C" int vqa_lstm_recurrence(const void* xproj, const void* whh,
@@ -702,6 +1108,59 @@ extern "C" int vqa_lstm_recurrence_persistent(
                     xproj, whh, lengths, h, c, hq, barrier, nullptr, nullptr,
                     nullptr, directions, seq_len, batch, hidden, units,
                     smem_bytes, s);
+}
+
+// Kernels 1 and A in f32 as one persistent cooperative launch (`smem_bytes`
+// from ops/lstm_cuda.py::f32_plan; a block per 8 hidden units): mode 0
+// writes the final h, c [D, B, H]; mode 1 (kernel A) also gates_all [D, T,
+// B, 4H], c_all and h_all [D, T, B, H] at every row and step; mode 2 (the
+// token states) h_all and the final h, c only. h, c zeroed, hbuf [2, B, H]
+// scratch, barrier [1] int32 zeroed; `order` (int32 [B], the rows by length
+// longest first, a stable order) and `live` (int32 [T], the rows with t <
+// len) are read in modes 0 and 2, which compute step t for those rows only.
+// Returns cudaErrorInvalidValue for a size this build lays out otherwise,
+// and the launch's error.
+extern "C" int vqa_lstm_recurrence_f32(
+    const void* xproj, const void* whh, const void* lengths, const void* order,
+    const void* live, void* h, void* c, void* hbuf, void* barrier,
+    void* gates_all, void* c_all, void* h_all, int directions, int seq_len,
+    int batch, int hidden, int smem_bytes, int mode, void* stream) {
+  using namespace persistent_f32;
+  if (hidden < 16 || hidden % 16 ||
+      static_cast<size_t>(smem_bytes) != persistent_f32::smem_bytes(hidden) ||
+      mode < kFinal || mode > kTokens)
+    return cudaErrorInvalidValue;
+  // An empty call launches nothing (its tensors may have no storage).
+  if (batch == 0 || directions == 0 || seq_len == 0) return cudaSuccess;
+  if ((mode != kSave && (order == nullptr || live == nullptr)) ||
+      (mode != kFinal && h_all == nullptr) ||
+      (mode == kSave && (gates_all == nullptr || c_all == nullptr)))
+    return cudaErrorInvalidValue;
+  const Args args{static_cast<const float*>(xproj),
+                  static_cast<const float*>(whh),
+                  static_cast<const int*>(lengths),
+                  static_cast<const int*>(order),
+                  static_cast<const int*>(live),
+                  static_cast<float*>(h),
+                  static_cast<float*>(c),
+                  static_cast<float*>(hbuf),
+                  static_cast<int*>(barrier),
+                  static_cast<float*>(gates_all),
+                  static_cast<float*>(c_all),
+                  static_cast<float*>(h_all),
+                  directions,
+                  seq_len,
+                  batch,
+                  hidden};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kFinal:
+      return launch<kFinal>(args, smem_bytes, s);
+    case kSave:
+      return launch<kSave>(args, smem_bytes, s);
+    default:
+      return launch<kTokens>(args, smem_bytes, s);
+  }
 }
 
 extern "C" const char* vqa_error_string(int code) {

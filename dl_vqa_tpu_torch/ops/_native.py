@@ -63,6 +63,11 @@ _SIGNATURES = {
     # units, shared-memory bytes, save, stream
     "vqa_lstm_recurrence_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # xproj, whh, lengths, order, live (both null in mode 1), h, c, hbuf,
+    # barrier, gates_all, c_all (null but in mode 1), h_all (null in mode
+    # 0), directions, seq_len, batch, hidden, shared-memory bytes, mode (0
+    # final state, 1 save, 2 token states), stream
+    "vqa_lstm_recurrence_f32": [_P] * 12 + [_I] * 6 + [_P],
     # gates_all, c_all, lengths, dh, dc, dgates_all, directions, seq_len,
     # batch, hidden, t, stream
     "vqa_lstm_backward_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -28,11 +28,13 @@ weight_hh, lengths)``:
 The per-token states of the co-attention's text path
 (:func:`bilstm_tokens_and_final_cell`, :func:`lstm_scan_outputs_final`)
 are :class:`LstmTokenStates`, the same recurrence in f32 throughout, as
-the JAX package's token scan runs it whatever the compute dtype: kernel
-A's f32 mode (``ops/lstm_cuda.py::lstm_token_states_cuda``), whose saved
-``h_all`` are the states and whose final ``c`` the pooled cells; without
-a gradient through the custom op ``vqa::lstm_token_states``, so that the
-serving forward exports; its backward takes a cotangent at every step.
+the JAX package's token scan runs it whatever the compute dtype
+(``ops/lstm_cuda.py::lstm_token_states_cuda``): without a gradient, the
+custom op ``vqa::lstm_token_states`` (so that the serving forward
+exports) on the token states' store mode, which writes the states
+``h_all`` and the final ``c`` (the pooled cells) and nothing for a
+backward; with one, kernel A's f32 mode, whose saved ``h_all`` are the
+states; its backward takes a cotangent at every step.
 
 A tensor on the CPU, or ``plain=True``, runs each kernel's plain PyTorch
 version, which stands beside it here (``plain=True`` never calls the op).
@@ -331,10 +333,10 @@ def bilstm_final_cell(x: torch.Tensor, lengths: torch.Tensor,
 def lstm_token_states_reference(
     x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``vqa::lstm_token_states`` (kernel A in its f32
-    mode): the carried ``h`` after every step, ``h_all [D, T, B, H]``, and
-    the final ``c [D, B, H]``, f32 (a padded step carries the last valid
-    state)."""
+    """Plain version of ``vqa::lstm_token_states`` (the recurrence's token
+    store mode in f32): the carried ``h`` after every step, ``h_all [D, T,
+    B, H]``, and the final ``c [D, B, H]``, f32 (a padded step carries the
+    last valid state)."""
     _, c, _, _, h_all = lstm_recurrence_save_reference(x_proj, weight_hh,
                                                       lengths)
     return h_all, c
@@ -368,9 +370,10 @@ class LstmTokenStates(torch.autograd.Function):
     is rounded to bf16 here (:class:`LstmRecurrence` rounds both operands).
 
     Forward: ``vqa::lstm_token_states`` without a backward to follow (the
-    serving forward, which exports), else kernel A's f32 mode with its
-    saved gates and carries. Backward: :func:`lstm_saved_state_backward`
-    with the per-step cotangent ``dh_all``."""
+    serving forward, which exports; on CUDA the token store mode), else
+    kernel A's f32 mode with its saved gates and carries. Backward:
+    :func:`lstm_saved_state_backward` with the per-step cotangent
+    ``dh_all``."""
 
     @staticmethod
     def forward(ctx, x_proj, weight_hh, lengths, save, plain):
@@ -383,9 +386,12 @@ class LstmTokenStates(torch.autograd.Function):
             return torch.ops.vqa.lstm_token_states(x_proj, weight_hh,
                                                    lengths)
         plain = plain or x_proj.device.type == "cpu"
-        run_save = (lstm_recurrence_save_reference if plain
-                    else lstm_token_states_cuda)
-        _, c, gates_all, c_all, h_all = run_save(x_proj, weight_hh, lengths)
+        if plain:
+            saved = lstm_recurrence_save_reference(x_proj, weight_hh, lengths)
+        else:
+            saved = lstm_token_states_cuda(x_proj, weight_hh, lengths,
+                                           save=True)
+        _, c, gates_all, c_all, h_all = saved
         ctx.save_for_backward(weight_hh, lengths, gates_all, c_all, h_all)
         ctx.plain = plain
         return h_all, c

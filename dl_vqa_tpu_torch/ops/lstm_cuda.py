@@ -25,7 +25,21 @@ Here, by a rule on dtype and shape decided before the launch
   at one barrier per step for the direction's other blocks. At batch 512
   each block reads 1 MiB of h from L2 a step. A refused launch raises;
   nothing falls back.
-* **f32, and bf16 shapes with no plan: one grid per step** (both
+* **f32 with a plan (:func:`f32_plan`): one persistent launch a call.**
+  f32's W_hh of two directions (32 MiB at H = 1024) fits no card's shared
+  memory, one direction's 16 MiB does: the directions run one after the
+  other, each block keeping its 8 units' 32 rows of W_hh (128 KiB) for all
+  T steps and streaming only h from L2 (2 MiB a block a step at batch
+  512); a barrier a step over the grid. The product is plain f32 FMAs in
+  register tiles (no TF32 rounding), each warp an eighth of K, the
+  eighths summed in a fixed order, so a row's bits depend on neither the
+  batch nor the row's place in it. Kernel 1 and the token states take the rows
+  longest first (a stable sort of ``lengths`` and the live count of each
+  step, both made on the device), so step t multiplies only the rows with
+  ``t < len``; kernel A computes every row at every step, the gates of a
+  padded step included. The token states' own store mode writes ``h_all``
+  and the final state only.
+* **bf16 and f32 shapes with no plan: one grid per step** (both
   directions in each launch). W_hh stays in the 50 MB L2 between the T
   launches and every block re-reads its 16 rows of each gate from L2 (for
   64 batch rows at once when the batch exceeds 64); bf16 on the tensor
@@ -61,7 +75,8 @@ __all__ = ["lstm_recurrence_cuda", "lstm_recurrence_save_cuda",
            "lstm_token_states_cuda",
            "lstm_backward_step_cuda", "lstm_backward_step_launcher",
            "backward_step_vector_path", "backward_step_vector_accesses",
-           "persistent_plan", "persistent_smem_bytes", "SMEM_PER_BLOCK",
+           "persistent_plan", "persistent_smem_bytes", "f32_plan",
+           "f32_smem_bytes", "row_order", "SMEM_PER_BLOCK",
            "BACKWARD_THREADS", "BACKWARD_VECTOR_FLOATS",
            "BACKWARD_MAX_VECTOR_THREADS"]
 
@@ -73,6 +88,13 @@ _UNITS = 16  # hidden units per block (csrc/lstm_recurrence.cu kUnits)
 # tiles) of 64 columns of h in each of 2 stages; rows padded by 8 bf16
 # values.
 _WARPS, _ROWS, _CHUNK, _STAGES, _PAD = 16, 32, 64, 2, 8
+# The f32 persistent kernel's layout (csrc/lstm_recurrence.cu, namespace
+# persistent_f32): 8 units (32 W_hh rows) a block, K padded with zeros to a
+# multiple of 512 and each row by 4 f32; a ring of two slots of 64 x 132
+# f32; the partial sums of four warps, 64 rows of 32 columns each (the
+# other four warps' go to a slot).
+_F32_UNITS, _F32_K_ALIGN, _F32_WPAD = 8, 512, 4
+_F32_STAGES, _F32_STAGE_FLOATS, _F32_RED_FLOATS = 2, 64 * 132, 4 * 64 * 32
 # Shared memory a block of an H100 (sm_90) may use.
 SMEM_PER_BLOCK = 232_448
 # Kernel B's vector kernel (csrc/lstm_backward.cu): threads a block
@@ -113,6 +135,53 @@ def persistent_plan(directions: int, hidden: int, dtype: torch.dtype,
                 and smem <= SMEM_PER_BLOCK):
             return units, blocks, smem
     return None
+
+
+def f32_smem_bytes(hidden: int) -> int:
+    """Dynamic shared memory of an f32 persistent block: its W_hh rows
+    (K padded to a multiple of 512, each row by 4), the ring of h, then
+    half the warps' partial sums."""
+    k_pad = -(-hidden // _F32_K_ALIGN) * _F32_K_ALIGN
+    return 4 * (4 * _F32_UNITS * (k_pad + _F32_WPAD)
+                + _F32_STAGES * _F32_STAGE_FLOATS + _F32_RED_FLOATS)
+
+
+def f32_plan(directions: int, hidden: int, sm_count: int,
+             pointers=()) -> Optional[Tuple[int, int]]:
+    """``(blocks, smem_bytes)`` of the f32 persistent kernel, or None
+    where an f32 call takes the per-step grids.
+
+    A block owns 8 hidden units, so ``hidden / 8`` blocks (``hidden`` a
+    multiple of 16) must all be resident at once, one an SM (``<=
+    sm_count``), and the block's W_hh rows beside its ring and partial
+    sums must fit :data:`SMEM_PER_BLOCK`, which holds up to ``hidden`` =
+    1024 (128 blocks: the text encoder's shape on a card of 128 SMs or
+    more). ``x_proj``, the one pointer given (``pointers``), must sit on an
+    8-byte boundary: the kernel reads it two f32 at a time. Neither the
+    batch nor the directions enter the plan, so a row's bits do not depend
+    on them."""
+    if directions < 1 or hidden < 16 or hidden % 16:
+        return None
+    blocks = hidden // _F32_UNITS
+    smem = f32_smem_bytes(hidden)
+    if (blocks > sm_count or smem > SMEM_PER_BLOCK
+            or any(p % 8 for p in pointers)):
+        return None
+    return blocks, smem
+
+
+def row_order(lengths: torch.Tensor, seq_len: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(order, live)``, int32 on ``lengths``' device: the rows longest
+    first (a stable sort, so equal lengths keep their order) and, for each
+    step t, how many rows have ``t < len``. The f32 persistent kernel's
+    step t computes the rows ``order[:live[t]]``, which are exactly those;
+    a row never comes back once it has finished."""
+    order = torch.argsort(lengths, descending=True, stable=True)
+    steps = torch.arange(seq_len, device=lengths.device,
+                         dtype=lengths.dtype)
+    live = (lengths[None, :] > steps[:, None]).sum(1, dtype=torch.int32)
+    return order.to(torch.int32), live
 
 
 def _sm_count(device: torch.device) -> int:
@@ -161,18 +230,62 @@ def _check_cuda_contiguous(first, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _run_recurrence(x_proj, weight_hh, lengths, save):
+def _run_f32(x_proj, weight_hh, lengths, save, tokens, plan, name):
+    """The f32 persistent kernel: mode 0 (final state), 1 (``save``) or 2
+    (``tokens``)."""
+    directions, seq_len, batch, _ = x_proj.shape
+    hidden = weight_hh.shape[-1]
+    device = x_proj.device
+    h = torch.zeros(directions, batch, hidden, dtype=torch.float32,
+                    device=device)
+    c = torch.zeros_like(h)
+    hbuf = torch.empty(2, batch, hidden, dtype=torch.float32, device=device)
+    barrier = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def steps(width):
+        return torch.empty(directions, seq_len, batch, width,
+                           dtype=torch.float32, device=device)
+
+    saved = (steps(4 * hidden), steps(hidden), steps(hidden)) if save else (
+        (None, None, steps(hidden)) if tokens else ())
+    order, live = (None, None) if save else row_order(lengths, seq_len)
+    _, smem = plan
+    code = _native.library().vqa_lstm_recurrence_f32(
+        x_proj.data_ptr(), weight_hh.data_ptr(), lengths.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in (order, live)),
+        h.data_ptr(), c.data_ptr(), hbuf.data_ptr(), barrier.data_ptr(),
+        *(None if x is None else x.data_ptr()
+          for x in (saved or (None,) * 3)),
+        directions, seq_len, batch, hidden, smem,
+        1 if save else (2 if tokens else 0), _native.stream_ptr(device))
+    _native.check(name, code)
+    return (h, c) + saved, 1 if batch and directions and seq_len else 0
+
+
+def _run_recurrence(x_proj, weight_hh, lengths, save, tokens=False):
+    """``(outputs, grids launched, of them on the f32 persistent
+    kernel)``; ``tokens`` (f32, not ``save``) takes the token states' store
+    mode where the f32 plan holds: ``(h, c, None, None, h_all)``."""
     directions, seq_len, batch, hidden = _check_recurrence_args(
         x_proj, weight_hh, lengths)
     lib = _native.library()
     device = x_proj.device
+    name = ("lstm_token_states" if tokens else
+            "lstm_recurrence_save" if save else "lstm_recurrence")
+    if x_proj.dtype == torch.float32:
+        plan = f32_plan(directions, hidden, _sm_count(device),
+                        (x_proj.data_ptr(),))
+        if plan is not None:
+            out, launched = _run_f32(x_proj, weight_hh, lengths, save,
+                                     tokens and not save, plan, name)
+            return out, launched, launched
+    save = save or tokens  # the per-step grids have no token store mode
     saved = ()
     if save:
         saved = tuple(
             torch.empty(directions, seq_len, batch, width,
                         dtype=torch.float32, device=device)
             for width in (4 * hidden, hidden, hidden))
-    name = "lstm_recurrence_save" if save else "lstm_recurrence"
     stream = _native.stream_ptr(device)
     plan = persistent_plan(directions, hidden, x_proj.dtype,
                            _sm_count(device))
@@ -193,7 +306,7 @@ def _run_recurrence(x_proj, weight_hh, lengths, save):
             stream)
         _native.check(name, code)
         launched = 1 if batch and directions and seq_len else 0
-        return (h, c) + saved, launched
+        return (h, c) + saved, launched, 0
     # h double-buffered between launches, two tensors of their own, so
     # that the final one is returned as it is (no offset into a pair).
     h = [torch.zeros(directions, batch, hidden, dtype=torch.float32,
@@ -215,7 +328,7 @@ def _run_recurrence(x_proj, weight_hh, lengths, save):
     _native.check(name, code)
     # The C entry launches one grid per timestep (none for an empty batch).
     launched = seq_len if batch and directions else 0
-    return (h[seq_len % 2], c) + saved, launched
+    return (h[seq_len % 2], c) + saved, launched, 0
 
 
 def lstm_recurrence_cuda(
@@ -224,48 +337,65 @@ def lstm_recurrence_cuda(
     lengths: torch.Tensor,    # [B] int32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 1: final f32 ``(h, c)``, each ``[D, B, H]``, computed on
-    ``x_proj``'s device. Raises on any input it does not take."""
-    out, launched = _run_recurrence(x_proj, weight_hh, lengths, save=False)
+    ``x_proj``'s device. Raises on any input it does not take.
+    ``launches`` counts its grids, ``launches_f32_persistent`` those of the
+    f32 persistent kernel."""
+    out, launched, f32 = _run_recurrence(x_proj, weight_hh, lengths,
+                                         save=False)
     lstm_recurrence_cuda.launches += launched
+    lstm_recurrence_cuda.launches_f32_persistent += f32
     return out
 
 
 lstm_recurrence_cuda.launches = 0
+lstm_recurrence_cuda.launches_f32_persistent = 0
 
 
 def lstm_recurrence_save_cuda(
     x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor
 ) -> Tuple[torch.Tensor, ...]:
     """Kernel A: ``(h, c, gates_all [D, T, B, 4H], c_all, h_all [D, T, B,
-    H])``, all f32; ``h`` and ``c`` are kernel 1's bits."""
-    out, launched = _run_recurrence(x_proj, weight_hh, lengths, save=True)
+    H])``, all f32; ``h`` and ``c`` are kernel 1's bits. Counted as
+    :func:`lstm_recurrence_cuda` is."""
+    out, launched, f32 = _run_recurrence(x_proj, weight_hh, lengths,
+                                         save=True)
     lstm_recurrence_save_cuda.launches += launched
+    lstm_recurrence_save_cuda.launches_f32_persistent += f32
     return out
 
 
 lstm_recurrence_save_cuda.launches = 0
+lstm_recurrence_save_cuda.launches_f32_persistent = 0
 
 
 def lstm_token_states_cuda(
-    x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor
-) -> Tuple[torch.Tensor, ...]:
-    """Kernel A in its f32 mode, for the per-token states of the
+    x_proj: torch.Tensor, weight_hh: torch.Tensor, lengths: torch.Tensor,
+    save: bool = False,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The recurrence in f32 for the per-token states of the
     co-attention's text path (:class:`dl_vqa_tpu_torch.ops.lstm.
     LstmTokenStates`): f32 ``x_proj`` and ``weight_hh`` only, since the
     JAX package runs that scan in f32 (``dl_vqa_tpu/ops/lstm.py::
-    lstm_scan_outputs_final``); returns what
-    :func:`lstm_recurrence_save_cuda` returns. Its launches count here and
-    not on :func:`lstm_recurrence_save_cuda`: no f32 shape has a persistent
-    plan, so this is one grid a timestep."""
+    lstm_scan_outputs_final``). ``save``: kernel A's f32 mode, returning
+    what :func:`lstm_recurrence_save_cuda` returns (a backward follows);
+    else the token states' store mode, ``(h, c, None, None, h_all)``, with
+    kernel A's bits of ``h``, ``c`` and ``h_all`` and no gates or ``c_all``
+    written (shapes with no f32 plan run kernel A's per-step grids and
+    return its five tensors). Its launches count here and not on
+    :func:`lstm_recurrence_save_cuda`, ``launches_f32_persistent`` those
+    of the f32 persistent kernel (one a call)."""
     if x_proj.dtype != torch.float32 or weight_hh.dtype != torch.float32:
         raise ValueError(f"the token states run in f32; got {x_proj.dtype}, "
                          f"{weight_hh.dtype}")
-    out, launched = _run_recurrence(x_proj, weight_hh, lengths, save=True)
+    out, launched, f32 = _run_recurrence(x_proj, weight_hh, lengths,
+                                         save=save, tokens=not save)
     lstm_token_states_cuda.launches += launched
+    lstm_token_states_cuda.launches_f32_persistent += f32
     return out
 
 
 lstm_token_states_cuda.launches = 0
+lstm_token_states_cuda.launches_f32_persistent = 0
 
 
 def backward_step_vector_path(directions: int, batch: int, hidden: int,

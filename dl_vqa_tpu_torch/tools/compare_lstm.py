@@ -15,12 +15,14 @@ printed) and driven through this tree's wrappers (``ops/lstm_cuda.py``):
 a version with the persistent entry takes it wherever ``persistent_plan``
 finds a plan, and must share this tree's shared-memory layout (its entry
 refuses another plan, and the call raises); an older one takes its
-per-step grids. At T = 23, H = 1024, two directions, bf16, B = 1, 8, 64
-and 512, on the same inputs, it prints for kernel 1 and kernel A the
-largest difference from the plain versions and whether the bits equal the
-first version's, then the times by CUDA events in the order given and
-back. Kernel B runs at B = 512 on the saved states of a bf16 forward with
-ragged lengths: each version's 23 steps, each fed the plain step's inputs,
+per-step grids. The same holds in f32 for the f32 persistent entry and
+``f32_plan``. At T = 23, H = 1024, two directions, B = 1, 8, 64 and 512,
+on the same inputs, it prints for kernel 1 and kernel A in bf16, for both
+in f32 and for the f32 token states the largest difference from the plain
+versions and whether the bits equal the first version's, then the times
+by CUDA events in the order given and back. Kernel B runs at B = 512 on
+the saved states of a bf16 forward with ragged lengths: each version's 23
+steps, each fed the plain step's inputs,
 against the plain bits (max_abs_err), whether it took a vector kernel
 (a version with ``vqa_lstm_backward_step_vector``), then in turns the 23
 launches through the entry a backward uses (checked once), through the
@@ -46,7 +48,8 @@ import torch
 from dl_vqa_tpu_torch.ops import _native, lstm_cuda
 from dl_vqa_tpu_torch.ops.lstm import (
     lstm_backward_step_reference, lstm_recurrence_reference,
-    lstm_recurrence_save_reference, lstm_saved_state_backward)
+    lstm_recurrence_save_reference, lstm_saved_state_backward,
+    lstm_token_states_reference)
 from dl_vqa_tpu_torch.tools._compare import build, card, timed
 
 SEQ_LEN, HIDDEN, DIRECTIONS = 23, 1024, 2
@@ -100,15 +103,34 @@ class Chained:
 @contextlib.contextmanager
 def using(lib):
     """The package's wrappers on ``lib``; without the persistent entry,
-    every call takes the per-step grids."""
-    saved = _native._lib, lstm_cuda.persistent_plan
+    every bf16 call takes the per-step grids, and without the f32
+    persistent entry every f32 call."""
+    saved = _native._lib, lstm_cuda.persistent_plan, lstm_cuda.f32_plan
     _native._lib = lib
     if not hasattr(lib, "vqa_lstm_recurrence_persistent"):
         lstm_cuda.persistent_plan = lambda *args: None
+    if not hasattr(lib, "vqa_lstm_recurrence_f32"):
+        lstm_cuda.f32_plan = lambda *args, **kwargs: None
     try:
         yield
     finally:
-        _native._lib, lstm_cuda.persistent_plan = saved
+        (_native._lib, lstm_cuda.persistent_plan,
+         lstm_cuda.f32_plan) = saved
+
+
+class WithLstmOf:
+    """The package's library with the LSTM entries (``vqa_lstm_*``) of
+    another version's: a whole model runs on the package's other kernels
+    and that version's recurrence and backward step. An entry the version
+    lacks is missing here too, so that :func:`using` sees it."""
+
+    def __init__(self, lstm_lib, base):
+        self.lstm_lib, self.base = lstm_lib, base
+
+    def __getattr__(self, name):
+        if name.startswith("vqa_lstm_") or name == "vqa_error_string":
+            return getattr(self.lstm_lib, name)
+        return getattr(self.base, name)
 
 
 def main(argv) -> int:
@@ -137,35 +159,57 @@ def main(argv) -> int:
 
 
 def recurrence(libs, names, gen):
-    """Kernels 1 and A of each version at B = 1, 8, 64 and 512."""
+    """Kernels 1 and A of each version at B = 1, 8, 64 and 512, in bf16
+    and in f32, and the f32 token states (``vqa::lstm_token_states``)."""
     kernels = {"kernel 1": (lstm_cuda.lstm_recurrence_cuda,
                             lstm_recurrence_reference),
                "kernel A": (lstm_cuda.lstm_recurrence_save_cuda,
                             lstm_recurrence_save_reference)}
+    f32 = {"kernel 1 f32": kernels["kernel 1"],
+           "kernel A f32": kernels["kernel A"],
+           "token states f32": (
+               lambda *args: _token_states(lstm_cuda.lstm_token_states_cuda(
+                   *args)),
+               lstm_token_states_reference)}
     for batch in BATCHES:
         x_proj, w_hh, lengths = inputs(gen, batch)
-        args = (x_proj, w_hh, lengths)
-        for what, (kernel, plain) in kernels.items():
-            want = plain(*args)
-            got = {}
-            for n in names:
-                with using(libs[n]):
-                    got[n] = kernel(*args)
-            for n in names:
-                err = max(float((a - b).abs().max())
-                          for a, b in zip(got[n], want))
-                same = all(torch.equal(a, b)
-                           for a, b in zip(got[n], got[names[0]]))
-                print(f"B={batch} {what} {n}: max_abs_err {err:.3e}, "
-                      f"bits of {names[0]} {same}")
-            del got, want
-            iters = 20 if batch == 512 else 100
-            ms = dict.fromkeys(names, 0.0)
-            for n in names + names[::-1]:
-                with using(libs[n]):
-                    ms[n] += timed(lambda: kernel(*args), iters) / 2
-            print(f"B={batch} {what} ms: " + ", ".join(
-                f"{n} {v:.4f}" for n, v in ms.items()))
+        for kinds, args in (
+                (kernels, (x_proj, w_hh, lengths)),
+                (f32, (x_proj.float(), w_hh.float(), lengths))):
+            compare(libs, names, kinds, args, batch)
+
+
+def _token_states(out):
+    """The token states' ``(h_all, c)`` of the wrapper's five outputs."""
+    return out[4], out[1]
+
+
+def compare(libs, names, kernels, args, batch):
+    """Each kernel of ``kernels`` (name -> (wrapper, plain version)) on
+    every version: its largest difference from the plain version, whether
+    its bits are the first version's, then its time in turns."""
+    for what, (kernel, plain) in kernels.items():
+        want = plain(*args)
+        got = {}
+        for n in names:
+            with using(libs[n]):
+                got[n] = kernel(*args)
+        for n in names:
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(got[n], want))
+            same = all(torch.equal(a, b)
+                       for a, b in zip(got[n], got[names[0]]))
+            print(f"B={batch} {what} {n}: max_abs_err {err:.3e}, "
+                  f"bits of {names[0]} {same}")
+        del got, want
+        iters = 20 if batch == 512 and "f32" not in what else (
+            5 if batch == 512 else 100)
+        ms = dict.fromkeys(names, 0.0)
+        for n in names + names[::-1]:
+            with using(libs[n]):
+                ms[n] += timed(lambda: kernel(*args), iters) / 2
+        print(f"B={batch} {what} ms: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in ms.items()))
 
 
 def inputs(gen, batch):

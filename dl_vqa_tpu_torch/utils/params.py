@@ -13,7 +13,9 @@ bias}`` -> ``image.final_ln.{weight, bias}``; and ``image.layers.{ln1,
 ln2}.{scale, bias}``, ``image.layers.{qkv, out, mlp_in, mlp_out}.{w, b}``,
 every leaf with a leading ``[L]`` axis, -> ``image.blocks.{i}.*`` for
 ``i < L``, unstacked (and the linear weights transposed) on the way in
-and stacked again on the way back.
+and stacked again on the way back. A legacy tree whose ``image.layers``
+is a list of per-layer dicts (an npz with ``image|layers|#i|...`` keys)
+is stacked first, as the JAX reader migrates it.
 
 The transformer text encoder and the stacked and co attention, which
 that exporter refuses too, map under the port's names
@@ -79,9 +81,47 @@ def _norm(dst: Dict, prefix: str, p: Mapping) -> None:
     dst[f"{prefix}.bias"] = _np(_leaf(p, "bias", where=prefix))
 
 
+def _stack_layers(layers) -> Dict:
+    """A list of per-layer dicts (the ViT tree before its leaves were
+    stacked: ``image|layers|#i|...`` in an npz) -> one dict whose leaves
+    carry a leading ``[L]`` axis, each ``np.stack`` of the layers' leaves
+    (``dl_vqa_tpu/utils/checkpoint.py::_legacy_stacked_leaf``). Raises
+    ``ValueError`` naming the layout where the layers are not dicts of one
+    structure."""
+    def structure(node):
+        if isinstance(node, Mapping):
+            return {k: structure(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [structure(v) for v in node]
+        return None
+
+    kinds = sorted({type(layer).__name__ for layer in layers})
+    if not layers or kinds != ["dict"] or any(
+            structure(layer) != structure(layers[0]) for layer in layers):
+        raise ValueError(
+            "image.layers is a list that is not per-layer dicts of one "
+            f"structure ({len(layers)} items of {', '.join(kinds) or 'none'}"
+            "); expected stacked leaves or such a list")
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([_np(n) for n in nodes])
+
+    return stack(list(layers))
+
+
 def _vit_state(state: Dict, image: Mapping) -> None:
-    """The ViT image tree (stacked ``layers``) under ``image.*`` names."""
+    """The ViT image tree under ``image.*`` names: ``layers`` stacked (one
+    leaf a parameter, a leading ``[L]`` axis), or a list of per-layer
+    dicts, which is stacked first."""
     layers = image["layers"]
+    if isinstance(layers, (list, tuple)):
+        layers = _stack_layers(layers)
+    elif not isinstance(layers, Mapping):
+        raise ValueError(
+            f"image.layers is a {type(layers).__name__}; expected stacked "
+            "leaves or a list of per-layer dicts")
     if set(layers) != set(_VIT_NORMS + _VIT_LINEARS):
         raise ValueError(
             "only dense ViT blocks (ln1, qkv, out, ln2, mlp_in, mlp_out) "

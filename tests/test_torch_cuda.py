@@ -58,8 +58,10 @@ from dl_vqa_tpu_torch.ops.lstm_cuda import (
     backward_step_vector_path,
     lstm_backward_step_cuda,
     lstm_backward_step_launcher,
+    f32_plan,
     lstm_recurrence_cuda,
     lstm_recurrence_save_cuda,
+    lstm_token_states_cuda,
     persistent_plan,
 )
 from dl_vqa_tpu_torch.ops.vit_attention import (
@@ -135,11 +137,14 @@ def test_bilstm_dispatch_runs_the_kernel(device):
                 "bias": torch.randn(64, generator=g, device=device)}
 
     fwd, bwd = params(), params()
-    before = lstm_recurrence_cuda.launches
+    before = (lstm_recurrence_cuda.launches,
+              lstm_recurrence_cuda.launches_f32_persistent)
     got = bilstm_final_cell(x, lengths, fwd, bwd)
-    # f32 has no persistent plan: one grid per timestep, both directions in
-    # each.
-    assert lstm_recurrence_cuda.launches == before + x.shape[1]
+    # f32 at H = 16 has an f32 plan: one persistent launch for both
+    # directions.
+    assert (lstm_recurrence_cuda.launches,
+            lstm_recurrence_cuda.launches_f32_persistent) == (
+                before[0] + 1, before[1] + 1)
     expected = bilstm_final_cell(x, lengths, fwd, bwd, plain=True)
     torch.testing.assert_close(got, expected, atol=1e-5, rtol=0)
 
@@ -198,17 +203,18 @@ def test_lstm_persistent_matches_plain(device, seq, directions, hidden,
 @pytest.mark.parametrize("save", [False, True])
 def test_lstm_dispatch_rule(device, save):
     """bf16 at a shape with a plan: the persistent kernel, one launch; f32
-    at the same shape: the per-step grids, one a timestep. Both agree with
-    the plain version."""
+    at the same shape: the f32 persistent kernel, one launch (counted by
+    ``launches_f32_persistent``). Both agree with the plain version."""
     run = lstm_recurrence_save_cuda if save else lstm_recurrence_cuda
     x_proj, w_hh, lengths = _persistent_inputs(device, 2, 7, 33, 64,
                                                "ragged")
-    for dtype, grids, tol in ((torch.bfloat16, 1, 1e-2),
-                              (torch.float32, 7, 1e-5)):
+    for dtype, f32, tol in ((torch.bfloat16, 0, 1e-2),
+                            (torch.float32, 1, 1e-5)):
         args = (x_proj.to(dtype), w_hh.to(dtype), lengths)
-        before = run.launches
+        before = run.launches, run.launches_f32_persistent
         got = run(*args)
-        assert run.launches == before + grids
+        assert (run.launches, run.launches_f32_persistent) == (
+            before[0] + 1, before[1] + f32)
         want = (lstm_recurrence_save_reference if save
                 else lstm_recurrence_reference)(*args)
         for a, b in zip(got, want):
@@ -319,11 +325,11 @@ def _lstm_case(device, dtype, directions, seq, batch, hidden, lengths):
 
 
 def _lstm_grids(dtype, directions, seq, hidden):
-    """Grids one call of kernel 1 or A launches: 1 on the persistent path
-    (bf16 with a plan), one a timestep on the per-step path."""
-    plan = persistent_plan(directions, hidden, dtype,
-                           torch.cuda.get_device_properties(0)
-                           .multi_processor_count)
+    """Grids one call of kernel 1 or A launches: 1 on a persistent path
+    (bf16 or f32 with its plan), one a timestep on the per-step path."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = (f32_plan(directions, hidden, sms) if dtype == torch.float32
+            else persistent_plan(directions, hidden, dtype, sms))
     return seq if plan is None else min(seq, 1)
 
 
@@ -1087,6 +1093,142 @@ def test_lstm_persistent_ring_reuse_between_passes(device, directions,
         noise = noise @ noise.T / 2048
         again = run(*args)
         assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+# The f32 persistent kernel: a pass is 64 rows, or 16 where a step has no
+# more; rows longest first, the finished ones skipped except by kernel A.
+_F32_SHAPES = [(1, 1, 1, 16), (2, 5, 3, 32), (2, 7, 17, 48), (1, 4, 40, 272),
+               (2, 7, 33, 64), (2, 3, 67, 32), (2, 23, 1, 1024),
+               (2, 23, 8, 1024), (2, 9, 100, 1024), (1, 6, 130, 64)]
+
+
+def _f32_inputs(device, directions, seq, batch, hidden, lengths, seed=9):
+    g = _gen(device, seed)
+    x_proj = torch.randn(directions, seq, batch, 4 * hidden, generator=g,
+                         device=device) * 0.5
+    w_hh = (torch.rand(directions, 4 * hidden, hidden, generator=g,
+                       device=device) * 2 - 1) / hidden ** 0.5
+    if lengths == "ragged":  # 0 .. T, both ends present
+        lens = torch.randint(0, seq + 1, (batch,), generator=g,
+                             device=device, dtype=torch.int32)
+        lens[0] = seq
+        if batch > 1:
+            lens[-1] = 0
+    else:
+        lens = torch.full((batch,), seq if lengths == "full" else 1,
+                          device=device, dtype=torch.int32)
+    return x_proj, w_hh, lens
+
+
+@pytest.mark.parametrize("lengths", ["ragged", "full", "ones"])
+@pytest.mark.parametrize("directions,seq,batch,hidden", _F32_SHAPES)
+def test_lstm_f32_persistent_matches_plain(device, lengths, directions, seq,
+                                           batch, hidden):
+    """Kernel 1, kernel A and the token states in f32 on the persistent
+    kernel, one launch each: against the plain versions at TOL["lstm_f32"]
+    (1e-5: f32 dot products of length H in another order); A's (h, c) are
+    kernel 1's bits, and the token mode's h, c and h_all are A's, with no
+    gates or c_all written."""
+    args = _f32_inputs(device, directions, seq, batch, hidden, lengths)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert f32_plan(directions, hidden, sms, (args[0].data_ptr(),))
+    runs = (lstm_recurrence_cuda, lstm_recurrence_save_cuda,
+            lstm_token_states_cuda)
+    before = [(fn.launches, fn.launches_f32_persistent) for fn in runs]
+    h, c = lstm_recurrence_cuda(*args)
+    saved = lstm_recurrence_save_cuda(*args)
+    tokens = lstm_token_states_cuda(*args)
+    assert [(fn.launches, fn.launches_f32_persistent) for fn in runs] == [
+        (a + 1, b + 1) for a, b in before]
+    want = lstm_recurrence_save_reference(*args)
+    for got, ref in zip(saved, want):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    assert torch.equal(saved[0], h) and torch.equal(saved[1], c)
+    assert tokens[2] is None and tokens[3] is None
+    for got, ref in zip((tokens[0], tokens[1], tokens[4]),
+                        (saved[0], saved[1], saved[4])):
+        assert torch.equal(got, ref)
+    if lengths == "ragged" and batch > 1:
+        assert not h[:, -1].any() and not c[:, -1].any()  # length 0
+
+
+def test_lstm_f32_rows_do_not_depend_on_the_batch(device):
+    """A row's bits are the same at B = 1, 8, 17, 64 and 512 and wherever
+    the row sits in the batch, H = 1024: the plan and the order of every
+    sum ignore the batch, and the rows' order only says which rows a step
+    computes."""
+    args = _f32_inputs(device, 2, 23, 512, 1024, "ragged")
+    full = lstm_recurrence_cuda(*args)
+    saved = lstm_recurrence_save_cuda(*args)
+    for batch in (1, 8, 17, 64):
+        part = (args[0][:, :, :batch].contiguous(), args[1],
+                args[2][:batch].contiguous())
+        for a, b in zip(lstm_recurrence_cuda(*part), full):
+            assert torch.equal(a, b[:, :batch]), batch
+        tokens = lstm_token_states_cuda(*part)
+        assert torch.equal(tokens[4], saved[4][:, :, :batch]), batch
+    perm = torch.randperm(512, generator=torch.Generator().manual_seed(3))
+    perm = perm.to(device)
+    shuffled = (args[0][:, :, perm].contiguous(), args[1],
+                args[2][perm].contiguous())
+    for a, b in zip(lstm_recurrence_cuda(*shuffled), full):
+        assert torch.equal(a, b[:, perm])
+
+
+def test_lstm_f32_without_a_plan_takes_the_per_step_grids(device):
+    """H = 1040 in f32: its W_hh rows exceed a block's shared memory, so
+    each call launches one grid a timestep (none on the f32 persistent
+    kernel) and agrees with the plain version; the token states take
+    kernel A's per-step grids and return its five tensors."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert f32_plan(2, 1040, sms) is None
+    args = _f32_inputs(device, 2, 4, 5, 1040, "ragged")
+    before = (lstm_recurrence_cuda.launches,
+              lstm_recurrence_cuda.launches_f32_persistent,
+              lstm_token_states_cuda.launches_f32_persistent)
+    got = lstm_recurrence_cuda(*args)
+    tokens = lstm_token_states_cuda(*args)
+    assert (lstm_recurrence_cuda.launches,
+            lstm_recurrence_cuda.launches_f32_persistent,
+            lstm_token_states_cuda.launches_f32_persistent) == (
+                before[0] + 4, before[1], before[2])
+    for a, b in zip(got, lstm_recurrence_reference(*args)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    assert all(t is not None for t in tokens)
+
+
+def test_lstm_f32_refused_launch_raises(device, monkeypatch):
+    """A plan whose shared-memory bytes the C entry lays out otherwise is
+    refused: the wrapper raises, counts nothing, and computes nothing
+    another way."""
+    args = _f32_inputs(device, 2, 3, 8, 64, "ragged")
+    blocks, smem = f32_plan(2, 64, 10_000)
+    monkeypatch.setattr(lstm_cuda, "f32_plan",
+                        lambda *a, **k: (blocks, smem + 16))
+    for fn in (lstm_recurrence_cuda, lstm_recurrence_save_cuda,
+               lstm_token_states_cuda):
+        before = fn.launches, fn.launches_f32_persistent
+        with pytest.raises(RuntimeError, match="lstm_"):
+            fn(*args)
+        assert (fn.launches, fn.launches_f32_persistent) == before
+    monkeypatch.undo()
+    h, c = lstm_recurrence_cuda(*args)  # the stream still works
+    torch.testing.assert_close(h, lstm_recurrence_reference(*args)[0],
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("seq,batch", [(0, 8), (5, 0)])
+def test_lstm_f32_empty_calls_launch_nothing(device, seq, batch):
+    args = _f32_inputs(device, 2, seq, batch, 64, "ones")
+    before = lstm_recurrence_cuda.launches, lstm_token_states_cuda.launches
+    h, c = lstm_recurrence_cuda(*args)
+    h_tok, c_tok, _, _, h_all = lstm_token_states_cuda(*args)
+    assert (lstm_recurrence_cuda.launches,
+            lstm_token_states_cuda.launches) == before
+    assert h.shape == c.shape == c_tok.shape == (2, batch, 64)
+    assert not h.any() and not c.any() and not c_tok.any()
+    assert h_all.shape == (2, seq, batch, 64)
 
 
 # The per-step bf16 grids (one 16-row tile a block up to 64 rows, four

@@ -620,3 +620,88 @@ def test_predictor_serves_a_jax_vit_checkpoint(tmp_path):
     for row, top in zip(expected_probs, answers):
         assert top[0][0] == f"a{int(row.argmax())}"
         assert abs(top[0][1] - float(row.max())) < 1e-5
+
+
+# ------------------------------------------------------ the legacy layout
+
+def _legacy_npz(path, tree):
+    """``tree`` written as the JAX package wrote a ViT model before its
+    blocks were stacked: each ``image|layers`` leaf of ``[L, ...]`` as L
+    leaves under ``image|layers|#i|...``."""
+    from dl_vqa_tpu.utils.checkpoint import _SEP, _flatten
+
+    marker = f"image{_SEP}layers{_SEP}"
+    legacy = {}
+    for key, value in _flatten(tree).items():
+        if marker in key:
+            head, rest = key.split(marker, 1)
+            for i in range(value.shape[0]):
+                key = f"{head}{marker}#{i}{_SEP}{rest}"
+                legacy[key] = np.asarray(value[i])
+        else:
+            legacy[key] = np.asarray(value)
+    np.savez(path, **legacy)
+    return path + ".npz"
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_a_legacy_list_of_layers_checkpoint_loads_as_jax_migrates_it(
+        tmp_path, layers):
+    """A ViT npz with the block stack as a list of per-layer dicts (keys
+    ``params|image|layers|#i|...``): the JAX reader stacks it into its
+    template; the port's reader hands the bridge a list, which the bridge
+    stacks (it raised ``TypeError: unhashable type: 'dict'`` before). The
+    port's state equals the state of the JAX-migrated tree to the bit, and
+    its f32 logits match the JAX model's at the ViT parity tolerance."""
+    from dl_vqa_tpu.utils import checkpoint as jax_ckpt
+    from dl_vqa_tpu_torch.utils import checkpoint as port_ckpt
+
+    cfg = _jax_cfg(layers=layers, image_size=64)
+    params = _params(cfg, seed=layers)
+    rng = np.random.default_rng(layers)  # the layers differ from each other
+    params = jax.tree_util.tree_map(
+        lambda x: (x + rng.standard_normal(x.shape) * 0.01).astype(np.float32),
+        params)
+    path = _legacy_npz(str(tmp_path / "legacy"), {"params": params})
+    migrated = jax_ckpt.load_params(path, params_template=params)
+    tree = port_ckpt.load_params(path)
+    assert isinstance(tree["image"]["layers"], list)
+    assert len(tree["image"]["layers"]) == layers
+    got, want = torch_state_from_params(tree), torch_state_from_params(
+        jax.tree_util.tree_map(np.asarray, migrated))
+    assert sorted(got) == sorted(want)
+    for name, value in want.items():
+        assert got[name].dtype == value.dtype, name
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+    inputs = _inputs(64, uint8=True)
+    expected = np.asarray(vqa.apply(
+        migrated, cfg, *(jnp.asarray(a) for a in inputs), train=False,
+        compute_dtype=jnp.float32))
+    with torch.no_grad():
+        logits = _model(cfg, tree)(*(torch.from_numpy(a) for a in inputs),
+                                   compute_dtype=torch.float32)
+    np.testing.assert_allclose(logits.numpy(), expected, **TOL)
+
+
+@pytest.mark.parametrize("layout", ["mixed_keys", "not_dicts", "empty",
+                                    "array"])
+def test_a_malformed_layers_layout_raises_naming_it(layout):
+    """``image.layers`` that is neither stacked leaves nor a list of
+    per-layer dicts of one structure raises ``ValueError`` naming what it
+    found."""
+    params = _params(_jax_cfg(layers=2))
+    stacked = params["image"]["layers"]
+    per_layer = [jax.tree_util.tree_map(lambda x: x[i], stacked)
+                 for i in range(2)]
+    if layout == "mixed_keys":
+        del per_layer[1]["ln2"]
+        layers, match = per_layer, "one structure"
+    elif layout == "not_dicts":
+        layers, match = [per_layer[0], np.zeros(3)], "dict, ndarray"
+    elif layout == "empty":
+        layers, match = [], "0 items"
+    else:
+        layers, match = np.zeros((2, 3)), "image.layers is a ndarray"
+    params["image"]["layers"] = layers
+    with pytest.raises(ValueError, match=match):
+        torch_state_from_params(params)
