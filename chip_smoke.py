@@ -141,13 +141,28 @@
    of another version's files, in turns); after phase 9, ``main`` trains
    ``config_transformer_co`` for one epoch on cnn_e2e's corpus and
    ``evaluate_vqa`` on its best checkpoint gives its best score: one JSON
-   line ``{"variants": ...}``.
+   line ``{"variants": ...}``;
+15. vit_moe (after phase 14's presets): ``config_vit_moe`` (the ViT of
+   phase 6 with every block's MLP a mixture of 8 experts of width 1,024,
+   top-2, capacity factor 1.25), built from the port's preset dicts, at
+   full width through phases 4 and 5 (8 requests, the logits held to the
+   plain path with the share of routes that the two paths send to other
+   experts, a request with such a flipped route to its own tolerance; the
+   batch-512 forward timed; MOE_STEPS train steps at batch 512 with their
+   ``moe_aux``, the gradients held to the plain path's at batch 8, the
+   step timed), served with ``fused_ops`` (no kernel 8 grid, the unfused
+   path's bits) and exported at B = 8, the program's logits the live
+   Predictor's to the bit: one JSON line ``{"vit_moe": ...}``. Phase 3
+   also holds kernels 4 and 5 at two heads of 128 (B = 512, S = 196, bf16
+   and f32) to their plain versions and times them beside SDPA
+   (``head128`` in the kernels line).
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
 the layout probe, the three quantized serving paths and the f8 train step,
 the serving front's HTTP, int8 HTTP and native paths, the exported
 programs of the aot phase, the variants' serving, training and exported
+paths, the ViT-MoE's serving, fused serving, training and exported
 paths, cnn_e2e, its quantized evaluations, the sweep's trials and the
 transformer_co journey) is driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
@@ -326,6 +341,23 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #  aot_logits: an exported program's logits against the live
 #    Predictor's on the same (padded) batch: the program calls the same
 #    vqa:: ops and the same ATen ops on the same shapes, so the same bits.
+#  logits_moe_flipped, grads_moe_flipped: the ViT-MoE held to its plain
+#    path. Routing is an argmax over f32 router probabilities, so where
+#    kernel 4's bf16 roundings (or, rarely, the f32 sums' order) move a
+#    near-tie, a token takes another expert on one path than on the other
+#    (a flipped route). A request none of whose routes flipped is held to
+#    logits_bf16 / logits_f32 as the dense models are; one with a flipped
+#    route to 2e-3: the flip swaps one token's output of one expert for
+#    another's in one of 196 tokens, which the pooling over the grid
+#    divides before the classifier (H100: 0.29% of the routes flipped in
+#    bf16, 7 of 8 requests, logits 1.3e-4 apart; none in f32). Gradients at
+#    batch 8: where no route flipped, the dense tolerances; where one did,
+#    at least 1.5e-1 of each tensor's norm, as the bf16 attention's 1e-1
+#    and a flip's share more: a flip moves a token's share between two
+#    experts' weights and the router's gradient, of a few hundred tokens
+#    each (H100: 0.20% flipped, attention.q_lin.bias 8.7e-2, the MoE
+#    tensors 2.3e-2 at most). The share of flipped routes is printed
+#    beside each comparison.
 #  served_probs: a served probability against the Predictor's forward of
 #    the same pixels and question, relative. A served batch pads to its
 #    bucket, and cuDNN may choose another algorithm at another batch size,
@@ -353,7 +385,8 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "conv_relu_pool_int8": 0.0, "quant_eval_pp": 3.0,
        "logits_f32_int8_vit": 1e-4, "decode_libjpeg": 1,
        "decode_nvjpeg": 4,
-       "served_probs": 1e-3, "aot_logits": 0.0}
+       "served_probs": 1e-3, "aot_logits": 0.0,
+       "logits_moe_flipped": 2e-3, "grads_moe_flipped": 1.5e-1}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores, dense
 # int8 tensor-core rate.
@@ -439,6 +472,43 @@ def rel_norm(a, b) -> float:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+class RecordedRoutes:
+    """While active, every MoE layer's ``expert [G, S, K]`` as the forwards
+    inside route them, in order (``dl_vqa_tpu_torch.ops.moe``'s gating,
+    wrapped)."""
+
+    def __enter__(self):
+        from dl_vqa_tpu_torch.ops import moe
+
+        self.module, self.gating, self.routes = moe, moe.top_k_gating, []
+
+        def recording(logits, top_k, capacity):
+            routing = self.gating(logits, top_k, capacity)
+            self.routes.append(routing.expert)
+            return routing
+
+        moe.top_k_gating = recording
+        return self.routes
+
+    def __exit__(self, *exc):
+        self.module.top_k_gating = self.gating
+
+
+def route_flips(a: list, b: list):
+    """``(share, rows)``: the share of ``(layer, token, slot)`` routes that
+    differ between two runs' recorded routes, and for each group (image)
+    whether any of its routes differ (``None`` when neither run routed)."""
+    if not a and not b:
+        return 0.0, None
+    require(len(a) == len(b) and all(x.shape == y.shape
+                                     for x, y in zip(a, b)),
+            "both runs route the same layers")
+    differ = sum(int((x != y).sum()) for x, y in zip(a, b))
+    total = sum(x.numel() for x in a)
+    rows = sum((x != y).flatten(1).any(1).long().cpu() for x, y in zip(a, b))
+    return differ / total, (rows > 0).numpy()
 
 
 def device_phase(torch) -> str:
@@ -922,14 +992,31 @@ def pool_kernels(torch, gen, device, summary) -> None:
 
 
 def vit_kernels(torch, gen, device, summary) -> None:
-    """Kernels 4 and 5 at S=196, H=4, D=64, batches 1, 8 and 512."""
+    """Kernels 4 and 5 at S=196, H=4, D=64, batches 1, 8 and 512, and at
+    H=2, D=128 (the head walked in two 64-wide slices) at batch 512, whose
+    numbers go under ``head128`` in the kernels line."""
     import torch.nn.functional as F
 
     from dl_vqa_tpu_torch.ops.vit_attention import (
         vit_attention_backward_cuda, vit_attention_backward_reference,
         vit_attention_cuda, vit_attention_reference)
 
-    dim = VIT_HEADS * VIT_HEAD
+    for heads, head, batches in ((VIT_HEADS, VIT_HEAD, (1, 8, BATCH)),
+                                 (2, 128, (BATCH,))):
+        vit_kernel_rows(torch, gen, device, summary, heads, head, batches,
+                        F, vit_attention_cuda, vit_attention_reference,
+                        vit_attention_backward_cuda,
+                        vit_attention_backward_reference)
+
+
+def vit_kernel_rows(torch, gen, device, summary, heads, head, batches, F,
+                    vit_attention_cuda, vit_attention_reference,
+                    vit_attention_backward_cuda,
+                    vit_attention_backward_reference) -> None:
+    """Kernels 4 and 5 at ``heads`` heads of ``head``, S = 196: each batch
+    held to the plain versions and timed beside them and SDPA."""
+    dim = heads * head
+    label = "" if head == VIT_HEAD else f" {heads} heads of {head}"
 
     def check(name, dtype, batch, got, want, steps):
         """``(max_abs_err, tol)``; bf16 also holds the share that differs."""
@@ -951,8 +1038,7 @@ def vit_kernels(torch, gen, device, summary) -> None:
         # The same function through one PyTorch call, the split and the
         # merge of the heads included, as the kernel includes them.
         batch = x.shape[0]
-        q, k, v = (t.reshape(batch, VIT_TOKENS, VIT_HEADS,
-                             VIT_HEAD).transpose(1, 2)
+        q, k, v = (t.reshape(batch, VIT_TOKENS, heads, head).transpose(1, 2)
                    for t in x.chunk(3, dim=-1))
         return F.scaled_dot_product_attention(q, k, v).transpose(
             1, 2).reshape(batch, VIT_TOKENS, dim)
@@ -960,52 +1046,55 @@ def vit_kernels(torch, gen, device, summary) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
         kind = "bf16" if main else "f32"
-        for batch in (1, 8, BATCH):
+        for batch in batches:
             iters = 10 if main or batch < BATCH else 3
             qkv = torch.randn(batch, VIT_TOKENS, 3 * dim, generator=gen,
                               device=device).to(dtype)
             g = torch.randn(batch, VIT_TOKENS, dim, generator=gen,
                             device=device).to(dtype)
-            pairs = batch * VIT_HEADS
-            product = 2.0 * pairs * VIT_TOKENS * VIT_TOKENS * VIT_HEAD
+            pairs = batch * heads
+            product = 2.0 * pairs * VIT_TOKENS * VIT_TOKENS * head
 
-            out = vit_attention_cuda(qkv, VIT_HEADS)
+            out = vit_attention_cuda(qkv, heads)
             torch.cuda.synchronize()
             err, tol, note = check(
                 "vit_attention", dtype, batch, out,
-                vit_attention_reference(qkv, VIT_HEADS),
+                vit_attention_reference(qkv, heads),
                 TOL["vit_attention_bf16_steps"])
             ms, plain_ms = timed_pair(
-                torch, lambda: vit_attention_reference(qkv, VIT_HEADS),
-                lambda: vit_attention_cuda(qkv, VIT_HEADS), iters=iters)
+                torch, lambda: vit_attention_reference(qkv, heads),
+                lambda: vit_attention_cuda(qkv, heads), iters=iters)
             library_ms = timed(torch, lambda: library(qkv), iters=iters)
             least = bound(nbytes(qkv, out), 2 * product, kind)
-            log(f"kernel vit_attention {kind} qkv {list(qkv.shape)}: "
+            log(f"kernel vit_attention{label} {kind} qkv {list(qkv.shape)}: "
                 f"max_abs_err {err:.3e} (tol {tol:.3g}){note} | kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"F.scaled_dot_product_attention with split and merge "
                 f"{library_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
                 f"{least['bound_by']}")
-            if main and batch == BATCH:
-                summary["vit_attention"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, **least}
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **least}
+            if batch == BATCH and head != VIT_HEAD:
+                summary["vit_attention"].setdefault(
+                    f"head{head}", {})[kind] = row
+            elif main and batch == BATCH:
+                summary["vit_attention"] = row
 
-            dqkv = vit_attention_backward_cuda(qkv, g, VIT_HEADS)
-            again = vit_attention_backward_cuda(qkv, g, VIT_HEADS)
+            dqkv = vit_attention_backward_cuda(qkv, g, heads)
+            again = vit_attention_backward_cuda(qkv, g, heads)
             torch.cuda.synchronize()
             require(torch.equal(dqkv, again),
                     f"vit_attention_backward {kind} B={batch}: two runs "
                     "gave other digits")
             err, tol, note = check(
                 "vit_attention_backward", dtype, batch, dqkv,
-                vit_attention_backward_reference(qkv, g, VIT_HEADS),
+                vit_attention_backward_reference(qkv, g, heads),
                 TOL["vit_attention_backward_bf16_steps"])
             del again
             ms, plain_ms = timed_pair(
                 torch,
-                lambda: vit_attention_backward_reference(qkv, g, VIT_HEADS),
-                lambda: vit_attention_backward_cuda(qkv, g, VIT_HEADS),
+                lambda: vit_attention_backward_reference(qkv, g, heads),
+                lambda: vit_attention_backward_cuda(qkv, g, heads),
                 iters=iters)
             # The library call's backward alone: its graph is built once
             # on a leaf, then only the gradient is taken (split and merge
@@ -1019,17 +1108,20 @@ def vit_kernels(torch, gen, device, summary) -> None:
             del lib_out, leaf
             # Five products: the scores, dv, dw, dq, dk.
             least = bound(nbytes(qkv, g, dqkv), 5 * product, kind)
-            log(f"kernel vit_attention_backward {kind} qkv "
+            log(f"kernel vit_attention_backward{label} {kind} qkv "
                 f"{list(qkv.shape)}: max_abs_err {err:.3e} (tol {tol:.3g})"
                 f"{note}, the same digits on two runs | kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, the backward of "
                 f"F.scaled_dot_product_attention with split and merge "
                 f"{library_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
                 f"{least['bound_by']}")
-            if main and batch == BATCH:
-                summary["vit_attention_backward"] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, **least}
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **least}
+            if batch == BATCH and head != VIT_HEAD:
+                summary["vit_attention_backward"].setdefault(
+                    f"head{head}", {})[kind] = row
+            elif main and batch == BATCH:
+                summary["vit_attention_backward"] = row
             del qkv, g, out, dqkv
 
 
@@ -1746,10 +1838,34 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict,
     for dtype, tol in ((torch.bfloat16, TOL["logits_bf16"]),
                        (torch.float32, TOL["logits_f32"])):
         predictor.compute_dtype = dtype
-        kernel = predictor.forward_logits(images, encoded, lengths)
-        plain = predictor.forward_logits(images, encoded, lengths,
-                                         plain_ops=True)
-        err = float(np.abs(kernel - plain).max())
+        with RecordedRoutes() as kernel_routes:
+            kernel = predictor.forward_logits(images, encoded, lengths)
+        with RecordedRoutes() as plain_routes:
+            plain = predictor.forward_logits(images, encoded, lengths,
+                                             plain_ops=True)
+        require(kernel.shape == (len(QUESTIONS), cfg.max_answers),
+                "logits shape")
+        require(bool(np.isfinite(kernel).all()), "finite logits")
+        flips, flipped = route_flips(kernel_routes, plain_routes)
+        held = np.ones(len(QUESTIONS), dtype=bool)
+        if flipped is not None:
+            # A MoE model: a request with a flipped route is held to
+            # logits_moe_flipped, the others to the dense tolerance.
+            flipped = flipped[:len(QUESTIONS)]
+            held = ~flipped
+            moe_err = float(np.abs(kernel - plain)[flipped].max(initial=0.0))
+            log(f"slice {label} {str(dtype)[6:]}: {flips:.4%} of the routes "
+                f"differ between the kernel and plain paths, "
+                f"{int(flipped.sum())} of {len(flipped)} requests with a "
+                f"flipped route, their logits max |kernel - plain| "
+                f"{moe_err:.3e} (tol {TOL['logits_moe_flipped']:g})")
+            require(moe_err <= TOL["logits_moe_flipped"],
+                    f"logits of requests with a flipped route {dtype}: "
+                    f"{moe_err}")
+            if numbers is not None:
+                numbers.setdefault("route_flips_served", {})[
+                    str(dtype)[6:]] = flips
+        err = float(np.abs(kernel - plain)[held].max(initial=0.0))
         if fused:
             predictor.fused_ops = False
             unfused = predictor.forward_logits(images, encoded, lengths)
@@ -1763,10 +1879,10 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict,
                     f"fused_ops on vs off logits {dtype}: {off_err}")
         log(f"slice {label} logits {str(dtype)[6:]} {list(kernel.shape)}: "
             f"finite {bool(np.isfinite(kernel).all())}, max |kernel - plain| "
-            f"{err:.3e} (tol {tol:g}), max |logit| {np.abs(plain).max():.3e}")
-        require(kernel.shape == (len(QUESTIONS), cfg.max_answers),
-                "logits shape")
-        require(bool(np.isfinite(kernel).all()), "finite logits")
+            f"{err:.3e} (tol {tol:g}"
+            + ("" if held.all() else
+               f"; the {int(held.sum())} requests without a flipped route")
+            + f"), max |logit| {np.abs(plain).max():.3e}")
         require(err <= tol, f"kernel vs plain logits {dtype}: {err}")
     predictor.compute_dtype = torch.bfloat16
 
@@ -1937,11 +2053,11 @@ def shifts_a_softmax(name: str) -> bool:
 
 
 def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
-                       new_state) -> None:
+                       new_state, numbers: dict = None) -> None:
     """At batch 8 without dropout, one train step each on the kernel path
     and on the plain path from the same weights (``new_state``), f32 and
     bf16, every gradient held to the plain path's; then the eval step both
-    ways."""
+    ways. A MoE model's share of flipped routes goes to ``numbers``."""
     from dl_vqa_tpu_torch.train import make_eval_step, make_train_step
 
     vit = cfg.image.encoder == "vit"
@@ -1950,14 +2066,21 @@ def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
     small = make_batch(torch, cfg0, 8, seed + 1)
     reference = None
     for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        grads = {}
+        grads, routes = {}, {}
         for plain in (False, True):
             state_8 = new_state(cfg0)
-            make_train_step(cfg0, compute_dtype=dtype, plain_ops=plain)(
-                state_8, small, gen)
+            with RecordedRoutes() as routes[plain]:
+                make_train_step(cfg0, compute_dtype=dtype, plain_ops=plain)(
+                    state_8, small, gen)
             grads[plain] = {n: p.grad for n, p in
                             state_8.model.named_parameters()
                             if p.grad is not None}
+        flips, _ = route_flips(routes[False], routes[True])
+        if cfg.image.moe_experts:
+            log(f"train {name} {dname} B=8: {flips:.4%} of the routes differ "
+                "between the kernel and plain paths' train steps")
+            if numbers is not None:
+                numbers.setdefault("route_flips_train", {})[dname] = flips
         trained = [n for n, p in state_8.model.named_parameters()
                    if p.requires_grad]
         require(list(grads[False]) == trained and list(grads[True]) == trained,
@@ -1982,6 +2105,8 @@ def hold_to_plain_path(torch, seed: int, cfg, name: str, gen,
                 tol = TOL["grads_bf16_attention"]
             elif dname == "bf16" and vit and n.startswith("image."):
                 tol = TOL["grads_bf16_vit_image"]
+            if flips > 0:
+                tol = max(tol, TOL["grads_moe_flipped"])
             rel = rel_norm(grads[False][n], want)
             if rel / tol > worst[1] / worst[2]:
                 worst = (n, rel, tol)
@@ -2050,10 +2175,13 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
     eval_step = make_eval_step(cfg)
     reset_launches(wrappers)
     losses, scores = [], []
+    balance = []
     for _ in range(steps):
         state, metrics = train_step(state, batch, gen)
         losses.append(metrics["loss"])
         scores.append(metrics["score"])
+        if "moe_aux" in metrics:
+            balance.append(metrics["moe_aux"])
     eval_loss, eval_score = eval_step(state.model, batch)
     torch.cuda.synchronize()
     launches = read_launches(wrappers, f"the {name} trainer's path")
@@ -2063,6 +2191,13 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
         + " | scores " + " ".join(f"{float(x):.1f}" for x in scores)
         + f" | eval loss {float(eval_loss):.4f} score "
         f"{float(eval_score):.1f}")
+    if balance:
+        balance = [float(x) for x in balance]
+        log(f"train {name}: moe_aux (the blocks' mean balance loss, 1.0 at "
+            "uniform routing) " + " ".join(f"{x:.4f}" for x in balance))
+        require(all(np.isfinite(balance)), "finite moe_aux")
+        if numbers is not None:
+            numbers["moe_aux"] = balance
     log(f"train {name}: kernel launches {json.dumps(launches)}")
     require(all(np.isfinite(losses)) and bool(torch.isfinite(eval_loss)),
             "finite losses")
@@ -2080,7 +2215,7 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
             f"expected {expected}")
 
     # Kernel path against plain path at batch 8 without dropout.
-    hold_to_plain_path(torch, seed, cfg, name, gen, new_state)
+    hold_to_plain_path(torch, seed, cfg, name, gen, new_state, numbers)
 
     # Time and memory at batch 512, both paths.
     plain_state = new_state(cfg)
@@ -4401,6 +4536,110 @@ def variants_phase(torch, seed: int, recurrence: int,
     return paths, numbers
 
 
+MOE_PRESET = "config_vit_moe"
+MOE_STEPS = 4  # train steps the ViT-MoE takes at batch 512
+
+
+def moe_phase(torch, seed: int, recurrence: int, profile: bool = False
+              ) -> tuple:
+    """Phase 15, beside phase 14: ``config_vit_moe`` (the ViT of
+    ``config_vit`` with every block's MLP a mixture of 8 experts of width
+    1,024, top-2, capacity factor 1.25; built from the port's preset dicts)
+    at full width, served (:func:`slice_phase`: 8 requests, the logits
+    held to the plain path with the share of flipped routes, the batch-512
+    forward timed), served again with ``fused_ops`` (its blocks stay on the
+    MoE path: kernel 8 launches no grid, the logits are the unfused path's
+    bits), trained (:func:`train_phase`: MOE_STEPS steps at batch 512, the
+    gradients held to the plain path's at batch 8, the step timed, its
+    ``moe_aux`` printed) and exported at B = 8 (the program's logits the
+    live Predictor's to the bit, its launches counted). Returns ``({path:
+    launches}, numbers)``."""
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.predict import Predictor
+    from dl_vqa_tpu_torch.utils.aot_export import load_artifact
+
+    wrappers = kernel_wrappers()
+    cfg = variant_config(MOE_PRESET)
+    layers = cfg.image.num_layers
+    require(cfg.image.moe_experts == 8 and cfg.image.moe_top_k == 2,
+            "config_vit_moe routes 8 experts, top-2")
+    numbers = {"experts": cfg.image.moe_experts, "top_k": cfg.image.moe_top_k,
+               "capacity_factor": cfg.image.moe_capacity_factor}
+    phase_start = time.perf_counter()
+    serving = {"lstm_recurrence": recurrence, "attention_pool": 1,
+               "vit_attention": layers}
+    paths = {"vit_moe_serving": slice_phase(torch, seed, cfg, "vit_moe",
+                                            serving, numbers=numbers)}
+
+    # fused_ops: the blocks keep their experts, so the same grids and the
+    # same bits as without the flip.
+    model = VqaNet(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(seed))
+    vocab = make_vocab(cfg.num_tokens, cfg.max_answers)
+    live = Predictor(cfg, model, vocab, device="cuda",
+                     max_question_length=SEQ_LEN,
+                     compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (len(QUESTIONS), cfg.image_size,
+                                   cfg.image_size, 3), dtype=np.uint8)
+    encoded, lengths = live.encode_questions(QUESTIONS)
+    unfused = live.forward_logits(images, encoded, lengths)
+    live.fused_ops = True
+    reset_launches(wrappers)
+    fused = live.forward_logits(images, encoded, lengths)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, "the vit_moe fused_ops serving path")
+    require(launches == {**dict.fromkeys(wrappers, 0), **serving},
+            f"the vit_moe fused_ops path: launches {launches}, expected "
+            f"{serving}")
+    require(np.array_equal(fused, unfused),
+            "fused_ops leaves the MoE blocks as they are")
+    paths["vit_moe_fused_serving"] = launches
+    live.fused_ops = False
+    log(f"vit_moe fused_ops: kernel launches {json.dumps(launches)}, logits "
+        "equal to the unfused path's bits")
+
+    paths["vit_moe_training"] = train_phase(
+        torch, seed, profile, cfg, "vit_moe",
+        {"lstm_recurrence": recurrence,
+         "lstm_recurrence_save": MOE_STEPS * recurrence,
+         "lstm_backward_step": MOE_STEPS * SEQ_LEN,
+         "attention_pool": MOE_STEPS + 1,
+         "vit_attention": layers * (MOE_STEPS + 1),
+         "vit_attention_backward": layers * MOE_STEPS},
+        accumulate=False, steps=MOE_STEPS, numbers=numbers)
+
+    # The exported program at B = 8 against the live Predictor.
+    root = os.path.abspath(VARIANT_DIR)
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "vit_moe")
+    shutil.rmtree(path, ignore_errors=True)
+    seconds = live.export_artifact(path, batch_sizes=(AOT_VARIANT_BATCH,))
+    exported = load_artifact(path)
+    request = aot_requests(cfg, seed)[AOT_VARIANT_BATCH]
+    request = (*request[:2], np.maximum(request[2], 1))
+    want = live.forward_logits(*request)
+    reset_launches(wrappers)
+    got = exported.logits(*request)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, "the exported vit_moe")
+    require(launches == {**dict.fromkeys(wrappers, 0), **serving},
+            f"the exported vit_moe: launches {launches}, expected {serving}")
+    numbers["aot_max_abs_err"] = hold_bits(got, want, "the exported vit_moe")
+    numbers["aot_export_s"] = seconds[AOT_VARIANT_BATCH]
+    paths["aot_vit_moe"] = launches
+    numbers["phase_s"] = time.perf_counter() - phase_start
+    log(f"vit_moe: exported at B = {AOT_VARIANT_BATCH} in "
+        f"{numbers['aot_export_s']:.2f} s, logits max |diff| "
+        f"{numbers['aot_max_abs_err']:g}, kernel launches "
+        f"{json.dumps(launches)} | phase {numbers['phase_s']:.1f} s")
+    del model, live, exported
+    return paths, numbers
+
+
 def variants_e2e_phase(torch, seed: int, prof: dict) -> tuple:
     """Phase 14 after cnn_e2e: ``dl_vqa_tpu_torch.main.main`` trains
     ``config_transformer_co`` (the transformer question encoder,
@@ -4615,6 +4854,10 @@ def main(argv=None) -> int:
     variant_paths, variants = variants_phase(torch, args.seed, recurrence,
                                              args.profile, args.parent_lstm)
     paths.update(variant_paths)
+    # Phase 15: the ViT-MoE.
+    moe_paths, moe = moe_phase(torch, args.seed, recurrence, args.profile)
+    paths.update(moe_paths)
+    log(json.dumps({"vit_moe": {"card": card, **moe}}))
     paths["cnn_e2e"], e2e, e2e_profile = e2e_phase(torch, args.seed)
     log(json.dumps({"cnn_e2e": e2e}))
     paths["cnn_e2e_quant_eval"], quant["cnn_e2e_quant_eval"] = (

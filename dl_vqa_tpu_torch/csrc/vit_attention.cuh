@@ -1,11 +1,13 @@
 // Shared by the ViT attention kernels (vit_attention.cu and
-// vit_attention_backward.cu): the packed-qkv layout, staging of one head's
-// 64-wide column slice into shared memory, the tensor-core tiling of the
+// vit_attention_backward.cu): the packed-qkv layout, staging of one 64-wide
+// column slice of a head into shared memory, the tensor-core tiling of the
 // bf16 paths, and warp reductions.
 //
-// qkv is [B, S, 3 * H * 64]: q | k | v, each head-major, so head h's q, k and
-// v rows are 64-element slices of a row of 3 * H * 64 elements, at columns
-// h * 64, H * 64 + h * 64 and 2 * H * 64 + h * 64. The kernels compute these
+// qkv is [B, S, 3 * H * D] with D = 64 n: q | k | v, each head-major, so
+// head h's q, k and v rows are D-element slices of a row of 3 * H * D
+// elements, at columns h * D, H * D + h * D and 2 * H * D + h * D. The
+// kernels stage a head 64 columns (one slice) at a time, so shared memory
+// does not grow with D; a head of 64 is one slice. They compute these
 // offsets themselves; nothing is split or transposed before the launch.
 //
 // A tensor-core tile has 16 rows, so S is padded to a multiple of 16 in
@@ -21,8 +23,8 @@
 
 namespace vqa_vit {
 
-constexpr int kHead = 64;           // head size the kernels take
-constexpr float kScale = 0.125f;    // 1 / sqrt(kHead)
+constexpr int kSlice = 64;          // columns of a staged head slice
+constexpr float kScale = 0.125f;    // 1 / sqrt(64): a head of one slice
 constexpr int kMaxShared = 232448;  // bytes a block may have on sm_90
 
 __host__ __device__ inline int padded(int seq) { return (seq + 15) & ~15; }
@@ -45,8 +47,8 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld,
                                            const float* src, int row_stride,
                                            int row0, int rows, int seq,
                                            int rank, int count) {
-  for (int i = rank; i < rows * (kHead / 4); i += count) {
-    const int r = i / (kHead / 4), c = (i % (kHead / 4)) * 4;
+  for (int i = rank; i < rows * (kSlice / 4); i += count) {
+    const int r = i / (kSlice / 4), c = (i % (kSlice / 4)) * 4;
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (row0 + r < seq)
       val = *reinterpret_cast<const float4*>(
@@ -82,7 +84,7 @@ using bf16 = __nv_bfloat16;
 // phase reads, or that the eight row groups of an accumulator write, then
 // fall on eight different chunks of the 32 banks.
 __device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kHead + ((chunk ^ (row & 7)) << 3);
+  return row * kSlice + ((chunk ^ (row & 7)) << 3);
 }
 
 // Asynchronous 16-byte copy global -> shared; with `valid` false it reads
@@ -119,7 +121,8 @@ __device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
 
 // Multiply the eight bf16 values of an A fragment by 1 / sqrt(64) = 2^-3:
 // exact, so the product of the scaled fragment is the scaled product, to
-// the bit, and the scores need no multiplication of their own.
+// the bit, and the scores need no multiplication of their own (a head of one
+// slice; wider heads multiply the f32 scores by their scale).
 __device__ __forceinline__ void scale_fragment(unsigned (&a)[4]) {
   const __nv_bfloat162 s = __float2bfloat162_rn(kScale);
 #pragma unroll

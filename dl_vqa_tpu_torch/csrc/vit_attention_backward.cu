@@ -68,18 +68,19 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv,  // [B, S, 3*H*64]
   constexpr int kRows = kTiles * 16;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // each [kRows][64], swizzled
-  bf16* k_s = q_s + kRows * kHead;
-  bf16* v_s = k_s + kRows * kHead;
-  bf16* g_s = v_s + kRows * kHead;
-  float* stat_s = reinterpret_cast<float*>(g_s + kRows * kHead);  // [3][kRows]
+  bf16* k_s = q_s + kRows * kSlice;
+  bf16* v_s = k_s + kRows * kSlice;
+  bf16* g_s = v_s + kRows * kSlice;
+  // [3][kRows]
+  float* stat_s = reinterpret_cast<float*>(g_s + kRows * kSlice);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int dim = heads * kHead, stride = 3 * dim;
+  const int dim = heads * kSlice, stride = 3 * dim;
   const size_t image_row0 = static_cast<size_t>(b) * seq;
-  const bf16* image = qkv + image_row0 * stride + h * kHead;
-  const bf16* g_image = g + image_row0 * dim + h * kHead;
-  bf16* d_image = dqkv + image_row0 * stride + h * kHead;
+  const bf16* image = qkv + image_row0 * stride + h * kSlice;
+  const bf16* g_image = g + image_row0 * dim + h * kSlice;
+  bf16* d_image = dqkv + image_row0 * stride + h * kSlice;
   const int slabs = padded(seq) / 16;
 
   stage_async(q_s, image, stride, 0, slabs * 16, seq, tid, kWarps * 32);
@@ -314,12 +315,424 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv,  // [B, S, 3*H*64]
   }
 }
 
-cudaError_t run_bf16(const bf16* qkv, const bf16* g, bf16* dqkv, int batch,
-                     int seq, int heads, cudaStream_t stream) {
+// A warp's [16][64] accumulator times `mul`, rounded, into rows row0 ..
+// row0 + 15 of `dst` (row stride `stride`; rows at or beyond S skipped), a
+// bf16 pair a store.
+__device__ __forceinline__ void store_acc_rows(bf16* dst, int stride,
+                                               int row0, int seq,
+                                               const float (&acc)[8][4],
+                                               float mul, int lane) {
+  const int gr = lane / 4, c2 = lane % 4 * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + gr + 8 * half;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<unsigned*>(dst + static_cast<size_t>(row) * stride +
+                                   n * 8 + c2) =
+          pack2(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+  }
+}
+
+// Heads of 64 n for n > 1 take two grids with the row statistics in a
+// device scratch [B, H, 3, S] between them, each walking the head a 64-wide
+// slice at a time, so that shared memory does not grow with D.
+//
+// Grid 1 (dq): a block of four query slabs, a warp each. The scores summed
+// over the slices (stage a slice of k and of the block's q rows, add its
+// four k16 steps), scaled in f32, the softmax and w as in the one-slice
+// kernel's phase 1; then dw = g . v^T summed over the slices the same way,
+// delta and dz; m, denom and delta of each query row to `stats`; then dq a
+// slice at a time (stage k's slice, dz . k over every key, store).
+template <int kTiles>  // 16-key tiles a score row spans
+__global__ void __launch_bounds__(kWarps * 32, 2)
+attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv,  // [B, S, 3*H*D]
+                            const bf16* __restrict__ g,    // [B, S, H * D]
+                            bf16* __restrict__ dqkv,       // [B, S, 3*H*D]
+                            float* __restrict__ stats,     // [B, H, 3, S]
+                            int seq, int heads, int slices, float scale) {
+  constexpr int kRows = kTiles * 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* kv_s = reinterpret_cast<bf16*>(smem);  // [kRows][64]: k's or v's
+  bf16* qg_s = kv_s + kRows * kSlice;          // [4 slabs][16][64]: q or g
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const size_t image_row0 = static_cast<size_t>(b) * seq;
+  const bf16* image = qkv + image_row0 * stride + h * head;
+  const bf16* g_image = g + image_row0 * dim + h * head;
+  bf16* d_image = dqkv + image_row0 * stride + h * head;
+  float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  const int slab0 = blockIdx.x * kWarps;
+  const int slab1 = min(padded(seq) / 16, slab0 + kWarps);
+  const int row0 = (slab0 + warp) * 16;
+  // A warp without a slab still takes every barrier.
+  const bool active = slab0 + warp < slab1;
+  const bf16* qg_w = qg_s + warp * 16 * kSlice;  // the warp's 16 rows
+
+  const Lanes ln(lane);
+  const int gr = lane / 4, c2 = lane % 4 * 2;  // accumulator row, column
+
+  // Stage a slice of every row of `rows` into kv_s and of the block's rows
+  // of `mine` (row stride `mine_stride`) into qg_s, then wait for both.
+  auto stage = [&](const bf16* rows, const bf16* mine, int mine_stride) {
+    stage_async(kv_s, rows, stride, 0, kRows, seq, tid, kWarps * 32);
+    if (mine != nullptr)
+      stage_async(qg_s, mine, mine_stride, slab0 * 16, slab1 * 16, seq, tid,
+                  kWarps * 32);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+  };
+  // acc[j] += (the warp's rows of qg_s) . (kv_s's rows of tile j / 2)^T.
+  auto rows_times_kv = [&](float (&acc)[2 * kTiles][4]) {
+    unsigned a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      vqa::ldmatrix_x4(a[kk], qg_w + swz(ln.a_row, 2 * kk + ln.a_chunk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) {
+        unsigned kb[4];
+        vqa::ldmatrix_x4(kb,
+                         kv_s + swz(t * 16 + ln.bn_row, 2 * kk + ln.bn_chunk));
+        vqa::mma_bf16(acc[2 * t], a[kk], kb[0], kb[1]);
+        vqa::mma_bf16(acc[2 * t + 1], a[kk], kb[2], kb[3]);
+      }
+  };
+
+  float s[2 * kTiles][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kTiles; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[j][x] = 0.0f;
+  for (int sl = 0; sl < slices; ++sl) {
+    if (sl) __syncthreads();  // every warp is done with the last slice
+    stage(image + dim + sl * kSlice, image + sl * kSlice, stride);
+    if (active) rows_times_kv(s);
+  }
+  // w: the normalised weight, rounded before it is used; w[j][0] holds row
+  // gr, w[j][1] row gr + 8.
+  unsigned w[2 * kTiles][2];
+  float m_lo = -INFINITY, m_hi = -INFINITY, den_lo = 0.0f, den_hi = 0.0f;
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < 2 * kTiles; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) s[j][x] *= scale;
+      if ((j + 1) * 8 > seq) {  // a tile that reaches past S
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j * 8 + c2 + e >= seq)  // a padded key column: no weight
+            s[j][e] = s[j][2 + e] = -INFINITY;
+      }
+      m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
+      m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
+    }
+    m_lo = quad_max(m_lo);
+    m_hi = quad_max(m_hi);
+#pragma unroll
+    for (int j = 0; j < 2 * kTiles; ++j) {
+      s[j][0] = expf(s[j][0] - m_lo);
+      s[j][1] = expf(s[j][1] - m_lo);
+      s[j][2] = expf(s[j][2] - m_hi);
+      s[j][3] = expf(s[j][3] - m_hi);
+      den_lo += s[j][0] + s[j][1];
+      den_hi += s[j][2] + s[j][3];
+    }
+    den_lo = quad_sum(den_lo);
+    den_hi = quad_sum(den_hi);
+#pragma unroll
+    for (int j = 0; j < 2 * kTiles; ++j) {
+      w[j][0] = pack2(s[j][0] / den_lo, s[j][1] / den_lo);
+      w[j][1] = pack2(s[j][2] / den_hi, s[j][3] / den_hi);
+    }
+  }
+
+  float dw[2 * kTiles][4];
+#pragma unroll
+  for (int j = 0; j < 2 * kTiles; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dw[j][x] = 0.0f;
+  for (int sl = 0; sl < slices; ++sl) {
+    __syncthreads();  // every warp is done with kv_s and qg_s
+    stage(image + 2 * dim + sl * kSlice, g_image + sl * kSlice, dim);
+    if (active) rows_times_kv(dw);
+  }
+  // dz = cast(w (dw - delta)), packed as w is; two neighbouring n8 tiles are
+  // one k16 A fragment of dq = dz . k.
+  unsigned dz[2 * kTiles][2];
+  if (active) {
+    float del_lo = 0.0f, del_hi = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2 * kTiles; ++j) {
+      const float2 lo = unpack2(w[j][0]), hi = unpack2(w[j][1]);
+      del_lo += dw[j][0] * lo.x + dw[j][1] * lo.y;
+      del_hi += dw[j][2] * hi.x + dw[j][3] * hi.y;
+    }
+    del_lo = quad_sum(del_lo);
+    del_hi = quad_sum(del_hi);
+    if (lane % 4 == 0) {
+      const float row_stats[2][3] = {{m_lo, den_lo, del_lo},
+                                     {m_hi, den_hi, del_hi}};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + gr + 8 * half;
+        if (row < seq)
+#pragma unroll
+          for (int p = 0; p < 3; ++p) stat[p * seq + row] = row_stats[half][p];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * kTiles; ++j) {
+      const float2 lo = unpack2(w[j][0]), hi = unpack2(w[j][1]);
+      dz[j][0] = pack2(lo.x * (dw[j][0] - del_lo), lo.y * (dw[j][1] - del_lo));
+      dz[j][1] = pack2(hi.x * (dw[j][2] - del_hi), hi.y * (dw[j][3] - del_hi));
+    }
+  }
+
+  for (int sl = 0; sl < slices; ++sl) {
+    __syncthreads();  // every warp is done with kv_s
+    stage(image + dim + sl * kSlice, nullptr, 0);
+    if (!active) continue;
+    float dq[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dq[n][x] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t) {
+      const unsigned za[4] = {dz[2 * t][0], dz[2 * t][1], dz[2 * t + 1][0],
+                              dz[2 * t + 1][1]};
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        unsigned kb[4];
+        vqa::ldmatrix_x4_trans(
+            kb, kv_s + swz(t * 16 + ln.bk_row, 2 * n + ln.bk_chunk));
+        vqa::mma_bf16(dq[2 * n], za, kb[0], kb[1]);
+        vqa::mma_bf16(dq[2 * n + 1], za, kb[2], kb[3]);
+      }
+    }
+    store_acc_rows(d_image + sl * kSlice, stride, row0, seq, dq, scale, lane);
+  }
+}
+
+// Grid 2 (dk, dv) of a head of 64 n, n > 1: a block of four key slabs, a
+// warp each. The transposed scores s^T of the warp's 16 keys against every
+// query, summed over the slices (stage a slice of every q row and of the
+// block's k rows), then w from the row statistics (the same arithmetic on
+// the same products as grid 1), kept as A fragments of [key][query] in the
+// warp's part of shared memory; dw^T the same way from g and v, and dz
+// beside w. Then dk = dz^T . q and dv = w^T . g a slice at a time (stage q's
+// slice, then g's).
+template <int kTiles>  // 16-query tiles a transposed score row spans
+__global__ void __launch_bounds__(kWarps * 32, 2)
+attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qkv,   // [B, S, 3*H*D]
+                              const bf16* __restrict__ g,     // [B, S, H * D]
+                              bf16* __restrict__ dqkv,        // [B, S, 3*H*D]
+                              const float* __restrict__ stats,  // [B,H,3,S]
+                              int seq, int heads, int slices, float scale) {
+  constexpr int kRows = kTiles * 16;
+  constexpr int kFrags = kTiles * 4 * 32;  // a warp's fragments of [16][kRows]
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qg_s = reinterpret_cast<bf16*>(smem);  // [kRows][64]: q's or g's
+  bf16* kv_s = qg_s + kRows * kSlice;          // [4 slabs][16][64]: k or v
+  unsigned* w_f = reinterpret_cast<unsigned*>(kv_s + kWarps * 16 * kSlice);
+  unsigned* z_f = w_f + kWarps * kFrags;         // [kWarps][kTiles][4][32]
+  // [3][kRows]
+  float* stat_s = reinterpret_cast<float*>(z_f + kWarps * kFrags);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const size_t image_row0 = static_cast<size_t>(b) * seq;
+  const bf16* image = qkv + image_row0 * stride + h * head;
+  const bf16* g_image = g + image_row0 * dim + h * head;
+  bf16* d_image = dqkv + image_row0 * stride + h * head;
+  const float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  const int slab0 = blockIdx.x * kWarps;
+  const int slab1 = min(padded(seq) / 16, slab0 + kWarps);
+  const int key0 = (slab0 + warp) * 16;
+  const bool active = slab0 + warp < slab1;
+  const bf16* kv_w = kv_s + warp * 16 * kSlice;  // the warp's 16 keys
+  unsigned* w_w = w_f + warp * kFrags;
+  unsigned* z_w = z_f + warp * kFrags;
+
+  // A padded query row has q = g = 0: with m = 0, denom = 1, delta = 0 its
+  // w is 1 and its dz is 0, and it adds nothing to dk or dv. The first
+  // barrier below publishes these.
+  for (int i = tid; i < 3 * kRows; i += kWarps * 32) {
+    const int p = i / kRows, r = i % kRows;
+    stat_s[i] = r < seq ? stat[p * seq + r] : (p == 1 ? 1.0f : 0.0f);
+  }
+
+  const Lanes ln(lane);
+  const int c2 = lane % 4 * 2;  // accumulator column
+
+  // Stage a slice of every row of `rows` (row stride `rows_stride`) into
+  // qg_s and of the block's key rows of `mine` into kv_s, then wait.
+  auto stage = [&](const bf16* rows, int rows_stride, const bf16* mine) {
+    stage_async(qg_s, rows, rows_stride, 0, kRows, seq, tid, kWarps * 32);
+    if (mine != nullptr)
+      stage_async(kv_s, mine, stride, slab0 * 16, slab1 * 16, seq, tid,
+                  kWarps * 32);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+  };
+  // acc[j] += (the warp's key rows of kv_s) . (qg_s's rows of tile j / 2)^T.
+  auto keys_times_rows = [&](float (&acc)[2 * kTiles][4]) {
+    unsigned a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      vqa::ldmatrix_x4(a[kk], kv_w + swz(ln.a_row, 2 * kk + ln.a_chunk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) {
+        unsigned qb[4];
+        vqa::ldmatrix_x4(qb,
+                         qg_s + swz(t * 16 + ln.bn_row, 2 * kk + ln.bn_chunk));
+        vqa::mma_bf16(acc[2 * t], a[kk], qb[0], qb[1]);
+        vqa::mma_bf16(acc[2 * t + 1], a[kk], qb[2], qb[3]);
+      }
+  };
+
+  {
+    // st[j]: s^T of keys key0 + gr (st[j][0..1]) and key0 + gr + 8
+    // (st[j][2..3]) against queries 8 j + c2 and the next.
+    float st[2 * kTiles][4];
+#pragma unroll
+    for (int j = 0; j < 2 * kTiles; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) st[j][x] = 0.0f;
+    for (int sl = 0; sl < slices; ++sl) {
+      if (sl) __syncthreads();  // every warp is done with the last slice
+      stage(image + sl * kSlice, stride, image + dim + sl * kSlice);
+      if (active) keys_times_rows(st);
+    }
+    if (active) {
+      // w of the tile, packed as A fragments of [key][query]: (key gr,
+      // queries c2..) of query half jj in register 2 jj, key gr + 8 in
+      // 2 jj + 1.
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float wv[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int q = t * 16 + jj * 8 + c2 + (x & 1);
+            const float e = expf(st[2 * t + jj][x] * scale - stat_s[q]);
+            wv[x] = e / stat_s[kRows + q];
+          }
+          w_w[(t * 4 + 2 * jj) * 32 + lane] = pack2(wv[0], wv[1]);
+          w_w[(t * 4 + 2 * jj + 1) * 32 + lane] = pack2(wv[2], wv[3]);
+        }
+    }
+  }
+  {
+    float dwt[2 * kTiles][4];
+#pragma unroll
+    for (int j = 0; j < 2 * kTiles; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dwt[j][x] = 0.0f;
+    for (int sl = 0; sl < slices; ++sl) {
+      __syncthreads();  // every warp is done with qg_s and kv_s
+      stage(g_image + sl * kSlice, dim, image + 2 * dim + sl * kSlice);
+      if (active) keys_times_rows(dwt);
+    }
+    if (active) {
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int reg = (t * 4 + 2 * jj + half) * 32 + lane;
+            const float2 wv = unpack2(w_w[reg]);
+            const int q = t * 16 + jj * 8 + c2;
+            const float* d = dwt[2 * t + jj] + 2 * half;
+            z_w[reg] = pack2(wv.x * (d[0] - stat_s[2 * kRows + q]),
+                             wv.y * (d[1] - stat_s[2 * kRows + q + 1]));
+          }
+    }
+  }
+
+  // dk = dz^T . q and dv = w^T . g, a slice at a time.
+  const int tiles = padded(seq) / 16;
+  for (int sl = 0; sl < slices; ++sl) {
+    for (int part = 1; part <= 2; ++part) {  // 1: dk from q, 2: dv from g
+      __syncthreads();  // every warp is done with qg_s
+      if (part == 1)
+        stage(image + sl * kSlice, stride, nullptr);
+      else
+        stage(g_image + sl * kSlice, dim, nullptr);
+      if (!active) continue;
+      const unsigned* frags = part == 1 ? z_w : w_w;
+      float acc[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[n][x] = 0.0f;
+      for (int t = 0; t < tiles; ++t) {
+        unsigned a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = frags[(t * 4 + i) * 32 + lane];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          unsigned xb[4];
+          vqa::ldmatrix_x4_trans(
+              xb, qg_s + swz(t * 16 + ln.bk_row, 2 * n + ln.bk_chunk));
+          vqa::mma_bf16(acc[2 * n], a, xb[0], xb[1]);
+          vqa::mma_bf16(acc[2 * n + 1], a, xb[2], xb[3]);
+        }
+      }
+      store_acc_rows(d_image + part * dim + sl * kSlice, stride, key0, seq,
+                     acc, part == 1 ? scale : 1.0f, lane);
+    }
+  }
+}
+
+cudaError_t run_bf16(const bf16* qkv, const bf16* g, bf16* dqkv,
+                     float* stats, int batch, int seq, int heads, int slices,
+                     float scale, cudaStream_t stream) {
   return with_key_tiles(seq, [&](auto tiles) {
     constexpr int kTiles = decltype(tiles)::value;
+    if (slices > 1) {
+      if (stats == nullptr) return cudaErrorInvalidValue;
+      constexpr size_t shared_q =
+          sizeof(bf16) * (kTiles * 16 + kWarps * 16) * kSlice;
+      constexpr size_t shared_k =
+          sizeof(bf16) * (kTiles * 16 + kWarps * 16) * kSlice +
+          2 * sizeof(unsigned) * kWarps * kTiles * 4 * 32 +
+          3 * sizeof(float) * kTiles * 16;
+      static_assert(shared_k <= kMaxShared, "grid 2's slices fit a block");
+      const int slabs = padded(seq) / 16;
+      const dim3 grid((slabs + kWarps - 1) / kWarps, heads, batch);
+      auto dq = attention_bwd_dq_mma_kernel<kTiles>;
+      cudaError_t err = cudaFuncSetAttribute(
+          dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(shared_q));
+      if (err != cudaSuccess) return err;
+      dq<<<grid, kWarps * 32, shared_q, stream>>>(qkv, g, dqkv, stats, seq,
+                                                  heads, slices, scale);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      auto dkdv = attention_bwd_dkdv_mma_kernel<kTiles>;
+      err = cudaFuncSetAttribute(
+          dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(shared_k));
+      if (err != cudaSuccess) return err;
+      dkdv<<<grid, kWarps * 32, shared_k, stream>>>(qkv, g, dqkv, stats, seq,
+                                                    heads, slices, scale);
+      return cudaGetLastError();
+    }
     constexpr size_t shared =
-        (4 * sizeof(bf16) * kHead + 3 * sizeof(float)) * kTiles * 16;
+        (4 * sizeof(bf16) * kSlice + 3 * sizeof(float)) * kTiles * 16;
     static_assert(shared <= kMaxShared, "a head's q, k, v, g fit a block");
     auto kernel = attention_bwd_mma_kernel<kTiles>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -336,252 +749,286 @@ cudaError_t run_bf16(const bf16* qkv, const bf16* g, bf16* dqkv, int batch,
 
 constexpr int kQueryWarpsF32 = 2, kKeyWarpsF32 = 4;
 
-// Grid 1 (dq) tiles the query rows, as the forward does: a block stages the
-// head's k and v, and each warp takes 16 query rows through scores,
-// softmax, dw, dz and dq on its own. It also writes m, denom and delta =
-// rowsum(dw * w) of each query row to `stats`.
+// Grid 1 (dq) tiles the query rows, as the forward does: a block stages a
+// slice of the head's k and v, and each warp adds its 16 query rows' scores
+// and dw over the slice; after the last slice each warp takes its rows
+// through the softmax, dz and, a slice of k at a time, dq on its own. It
+// also writes m, denom and delta = rowsum(dw * w) of each query row to
+// `stats`.
 __global__ void __launch_bounds__(kQueryWarpsF32 * 32)
-attention_bwd_dq_kernel(const float* __restrict__ qkv,  // [B, S, 3*H*64]
-                        const float* __restrict__ g,    // [B, S, H * 64]
-                        float* __restrict__ dqkv,       // [B, S, 3*H*64]
+attention_bwd_dq_kernel(const float* __restrict__ qkv,  // [B, S, 3*H*D]
+                        const float* __restrict__ g,    // [B, S, H * D]
+                        float* __restrict__ dqkv,       // [B, S, 3*H*D]
                         float* __restrict__ stats,      // [B, H, 3, S]
-                        int seq, int heads) {
+                        int seq, int heads, int slices, float scale) {
   constexpr int kLd = kLdF32;
   extern __shared__ __align__(128) unsigned char smem[];
   const int sp = padded(seq);
   const int lds = score_ld(sp);
-  float* k_s = reinterpret_cast<float*>(smem);  // [sp][kLd]
-  float* v_s = k_s + sp * kLd;                  // [sp][kLd]
+  float* k_s = reinterpret_cast<float*>(smem);  // [sp][kLd], a slice
+  float* v_s = k_s + sp * kLd;                  // [sp][kLd], a slice
   float* buf_all = v_s + sp * kLd;              // [warps][2][16][lds]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int dim = heads * kHead, stride = 3 * dim;
-  const float* image = qkv + static_cast<size_t>(b) * seq * stride;
-  const float* g_image = g + static_cast<size_t>(b) * seq * dim;
-
-  stage_rows(k_s, kLd, image + dim + h * kHead, stride, 0, sp, seq,
-             static_cast<int>(threadIdx.x), kQueryWarpsF32 * 32);
-  stage_rows(v_s, kLd, image + 2 * dim + h * kHead, stride, 0, sp, seq,
-             static_cast<int>(threadIdx.x), kQueryWarpsF32 * 32);
-  __syncthreads();
-  // The block's only barrier is behind it: a warp without rows may leave.
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const float* image = qkv + static_cast<size_t>(b) * seq * stride + h * head;
+  const float* g_image = g + static_cast<size_t>(b) * seq * dim + h * head;
   const int row0 = (blockIdx.x * kQueryWarpsF32 + warp) * 16;
-  if (row0 >= seq) return;
+  // A warp without rows still takes every barrier.
+  const bool active = row0 < seq;
 
   float* s_buf = buf_all + warp * 2 * 16 * lds;  // scores, then w
   float* dw_buf = s_buf + 16 * lds;              // dw, then dz
   float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
   float* dq_rows =
-      dqkv + (static_cast<size_t>(b) * seq + row0) * stride + h * kHead;
-  float* q_s = buf_all + kQueryWarpsF32 * 2 * 16 * lds + warp * 2 * 16 * kHead;
-  float* g_s = q_s + 16 * kHead;  // both [16][64]
-  stage_rows(q_s, kHead, image + h * kHead, stride, row0, 16, seq, lane, 32);
-  stage_rows(g_s, kHead, g_image + h * kHead, dim, row0, 16, seq, lane, 32);
-  __syncwarp();
-  // Lane owns key column c: a k (then v) row in registers, the 16 q (then
-  // g) rows broadcast.
-  for (int c0 = 0; c0 < seq; c0 += 32) {
-    const int c = c0 + lane;
-    if (c < seq) {
-      float kr[kHead];
+      dqkv + (static_cast<size_t>(b) * seq + row0) * stride + h * head;
+  float* q_s =
+      buf_all + kQueryWarpsF32 * 2 * 16 * lds + warp * 2 * 16 * kSlice;
+  float* g_s = q_s + 16 * kSlice;  // both [16][64]
+  // Lane owns key column c: a k (then v) row of the slice in registers, the
+  // 16 q (then g) rows broadcast; the sums run on over the slices.
+  for (int sl = 0; sl < slices; ++sl) {
+    if (sl) __syncthreads();  // every warp is done with the last slice
+    stage_rows(k_s, kLd, image + dim + sl * kSlice, stride, 0, sp, seq,
+               static_cast<int>(threadIdx.x), kQueryWarpsF32 * 32);
+    stage_rows(v_s, kLd, image + 2 * dim + sl * kSlice, stride, 0, sp, seq,
+               static_cast<int>(threadIdx.x), kQueryWarpsF32 * 32);
+    __syncthreads();
+    if (!active) continue;
+    stage_rows(q_s, kSlice, image + sl * kSlice, stride, row0, 16, seq, lane,
+               32);
+    stage_rows(g_s, kSlice, g_image + sl * kSlice, dim, row0, 16, seq, lane,
+               32);
+    __syncwarp();
+    for (int c0 = 0; c0 < seq; c0 += 32) {
+      const int c = c0 + lane;
+      if (c < seq) {
+        float kr[kSlice];
 #pragma unroll
-      for (int d = 0; d < kHead; ++d) kr[d] = k_s[c * kLd + d];
-      for (int r = 0; r < 16; ++r) {
-        float acc = 0.0f;
+        for (int d = 0; d < kSlice; ++d) kr[d] = k_s[c * kLd + d];
+        for (int r = 0; r < 16; ++r) {
+          float acc = sl ? s_buf[r * lds + c] : 0.0f;
 #pragma unroll
-        for (int d = 0; d < kHead; ++d)
-          acc = fmaf(q_s[r * kHead + d], kr[d], acc);
-        s_buf[r * lds + c] = acc;
+          for (int d = 0; d < kSlice; ++d)
+            acc = fmaf(q_s[r * kSlice + d], kr[d], acc);
+          s_buf[r * lds + c] = acc;
+        }
+#pragma unroll
+        for (int d = 0; d < kSlice; ++d) kr[d] = v_s[c * kLd + d];
+        for (int r = 0; r < 16; ++r) {
+          float acc = sl ? dw_buf[r * lds + c] : 0.0f;
+#pragma unroll
+          for (int d = 0; d < kSlice; ++d)
+            acc = fmaf(g_s[r * kSlice + d], kr[d], acc);
+          dw_buf[r * lds + c] = acc;
+        }
       }
-#pragma unroll
-      for (int d = 0; d < kHead; ++d) kr[d] = v_s[c * kLd + d];
-      for (int r = 0; r < 16; ++r) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int d = 0; d < kHead; ++d)
-          acc = fmaf(g_s[r * kHead + d], kr[d], acc);
-        dw_buf[r * lds + c] = acc;
+    }
+    __syncwarp();  // the next slice overwrites q_s and g_s
+  }
+  if (active) {
+    for (int r = 0; r < 16; ++r) {
+      float* row = s_buf + r * lds;
+      float* dw_row = dw_buf + r * lds;
+      float m = -INFINITY;
+      for (int c = lane; c < seq; c += 32) m = fmaxf(m, row[c] * scale);
+      m = warp_max(m);
+      float sum = 0.0f;
+      for (int c = lane; c < seq; c += 32) {
+        const float e = expf(row[c] * scale - m);
+        row[c] = e;
+        sum += e;
+      }
+      const float denom = warp_sum(sum);
+      float part = 0.0f;
+      for (int c = lane; c < seq; c += 32) {
+        const float w = row[c] / denom;
+        row[c] = w;
+        part += dw_row[c] * w;
+      }
+      const float delta = warp_sum(part);
+      for (int c = lane; c < seq; c += 32)
+        dw_row[c] = row[c] * (dw_row[c] - delta);
+      if (lane == 0 && row0 + r < seq) {
+        stat[row0 + r] = m;
+        stat[seq + row0 + r] = denom;
+        stat[2 * seq + row0 + r] = delta;
       }
     }
+    __syncwarp();
   }
-  __syncwarp();
-  for (int r = 0; r < 16; ++r) {
-    float* row = s_buf + r * lds;
-    float* dw_row = dw_buf + r * lds;
-    float m = -INFINITY;
-    for (int c = lane; c < seq; c += 32) m = fmaxf(m, row[c] * kScale);
-    m = warp_max(m);
-    float sum = 0.0f;
-    for (int c = lane; c < seq; c += 32) {
-      const float e = expf(row[c] * kScale - m);
-      row[c] = e;
-      sum += e;
+  // dq a slice at a time: lane owns columns lane and lane + 32 of the
+  // slice, all 16 rows.
+  for (int sl = 0; sl < slices; ++sl) {
+    if (sl) {
+      __syncthreads();  // every warp is done with the last k slice
+      stage_rows(k_s, kLd, image + dim + sl * kSlice, stride, 0, sp, seq,
+                 static_cast<int>(threadIdx.x), kQueryWarpsF32 * 32);
+      __syncthreads();
+    } else if (slices > 1) {
+      __syncthreads();  // k_s holds the last slice: stage the first again
+      stage_rows(k_s, kLd, image + dim, stride, 0, sp, seq,
+                 static_cast<int>(threadIdx.x), kQueryWarpsF32 * 32);
+      __syncthreads();
     }
-    const float denom = warp_sum(sum);
-    float part = 0.0f;
-    for (int c = lane; c < seq; c += 32) {
-      const float w = row[c] / denom;
-      row[c] = w;
-      part += dw_row[c] * w;
-    }
-    const float delta = warp_sum(part);
-    for (int c = lane; c < seq; c += 32)
-      dw_row[c] = row[c] * (dw_row[c] - delta);
-    if (lane == 0 && row0 + r < seq) {
-      stat[row0 + r] = m;
-      stat[seq + row0 + r] = denom;
-      stat[2 * seq + row0 + r] = delta;
-    }
-  }
-  __syncwarp();
-  // Lane owns dq columns lane and lane + 32 of all 16 rows.
-  float acc[16][2];
+    if (!active) continue;
+    float acc[16][2];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.0f;
-  for (int c = 0; c < seq; ++c) {
-    const float k0 = k_s[c * kLd + lane], k1 = k_s[c * kLd + lane + 32];
+    for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.0f;
+    for (int c = 0; c < seq; ++c) {
+      const float k0 = k_s[c * kLd + lane], k1 = k_s[c * kLd + lane + 32];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float dz = dw_buf[r * lds + c];
+        acc[r][0] = fmaf(dz, k0, acc[r][0]);
+        acc[r][1] = fmaf(dz, k1, acc[r][1]);
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      const float dz = dw_buf[r * lds + c];
-      acc[r][0] = fmaf(dz, k0, acc[r][0]);
-      acc[r][1] = fmaf(dz, k1, acc[r][1]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    if (row0 + r < seq) {
-      dq_rows[static_cast<size_t>(r) * stride + lane] = acc[r][0] * kScale;
-      dq_rows[static_cast<size_t>(r) * stride + lane + 32] =
-          acc[r][1] * kScale;
+      if (row0 + r < seq) {
+        float* d = dq_rows + static_cast<size_t>(r) * stride + sl * kSlice;
+        d[lane] = acc[r][0] * scale;
+        d[lane + 32] = acc[r][1] * scale;
+      }
     }
   }
 }
 
-// Per-warp scratch of grid 2 in floats: the warp's k and v slabs [16][65],
-// tiles of w and dz [16][17].
-constexpr int kSlabF32 = 16 * kLdF32, kTileF32 = 16 * 17;
-constexpr int kKeyScratchF32 = 2 * kSlabF32 + 2 * kTileF32;
-
-// Grid 2 (dk, dv) tiles the key rows: a block stages the head's q and g and
-// the three row statistics, and each warp takes 16 keys and walks over the
-// query rows 16 at a time: scores and dw of a 16 x 16 tile, w and dz from
-// the statistics (the same arithmetic on the same scores, so the same bits
-// as grid 1 had), then w^T . g and dz^T . q into accumulators that the warp
-// owns from first to last.
+// Grid 2 (dk, dv) tiles the key rows: each warp takes 16 keys. It sums the
+// transposed scores s^T and dw^T of its keys against every query over the
+// head's slices (a block stages a slice of every q, then g, row; the warp a
+// slice of its k, then v, rows) into its two [16][lds] buffers, turns them
+// into w and dz from the three row statistics (the same arithmetic on the
+// same products as grid 1, so the same bits), and then takes dz^T . q and
+// w^T . g a slice at a time, the queries in order.
 __global__ void __launch_bounds__(kKeyWarpsF32 * 32)
-attention_bwd_dkdv_kernel(const float* __restrict__ qkv,    // [B, S, 3*H*64]
-                          const float* __restrict__ g,      // [B, S, H * 64]
-                          float* __restrict__ dqkv,         // [B, S, 3*H*64]
+attention_bwd_dkdv_kernel(const float* __restrict__ qkv,    // [B, S, 3*H*D]
+                          const float* __restrict__ g,      // [B, S, H * D]
+                          float* __restrict__ dqkv,         // [B, S, 3*H*D]
                           const float* __restrict__ stats,  // [B, H, 3, S]
-                          int seq, int heads) {
+                          int seq, int heads, int slices, float scale) {
   constexpr int kLd = kLdF32;
   extern __shared__ __align__(128) unsigned char smem[];
   const int sp = padded(seq);
-  float* q_s = reinterpret_cast<float*>(smem);  // [sp][kLd]
-  float* g_s = q_s + sp * kLd;                  // [sp][kLd]
-  float* stat_s = g_s + sp * kLd;               // [3][sp]
-  float* scratch_all = stat_s + 3 * sp;
-
+  const int lds = score_ld(sp);
+  float* qg_s = reinterpret_cast<float*>(smem);  // [sp][kLd]: q's or g's
+  float* stat_s = qg_s + sp * kLd;               // [3][sp]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int dim = heads * kHead, stride = 3 * dim;
-  const float* image = qkv + static_cast<size_t>(b) * seq * stride;
-  const float* g_image = g + static_cast<size_t>(b) * seq * dim;
-  const float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  float* kv_j = stat_s + 3 * sp + warp * (16 * kLd + 2 * 16 * lds);
+  float* st = kv_j + 16 * kLd;  // [16][lds]: s^T, then w^T
+  float* dt = st + 16 * lds;    // [16][lds]: dw^T, then dz^T
 
-  stage_rows(q_s, kLd, image + h * kHead, stride, 0, sp, seq,
-             static_cast<int>(threadIdx.x), kKeyWarpsF32 * 32);
-  stage_rows(g_s, kLd, g_image + h * kHead, dim, 0, sp, seq,
-             static_cast<int>(threadIdx.x), kKeyWarpsF32 * 32);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const float* image = qkv + static_cast<size_t>(b) * seq * stride + h * head;
+  const float* g_image = g + static_cast<size_t>(b) * seq * dim + h * head;
+  const float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  const int key0 = (blockIdx.x * kKeyWarpsF32 + warp) * 16;
+  // A warp without keys still takes every barrier.
+  const bool active = key0 < seq;
+
   // A padded query row has q = g = 0: with m = 0, denom = 1, delta = 0 its
-  // w is 1 and its dz is 0, and it adds nothing to dk or dv.
+  // w is 1 and its dz is 0, and it adds nothing to dk or dv. The first
+  // barrier below publishes these.
   for (int i = threadIdx.x; i < 3 * sp; i += kKeyWarpsF32 * 32) {
     const int p = i / sp, r = i % sp;
     stat_s[i] = r < seq ? stat[p * seq + r] : (p == 1 ? 1.0f : 0.0f);
   }
-  __syncthreads();
-  // The block's only barrier is behind it: a warp without keys may leave.
-  const int key0 = (blockIdx.x * kKeyWarpsF32 + warp) * 16;
-  if (key0 >= seq) return;
-
-  float* scratch = scratch_all + warp * kKeyScratchF32;
-  float* dk_rows = dqkv + (static_cast<size_t>(b) * seq + key0) * stride +
-                   dim + h * kHead;
-  float* dv_rows = dk_rows + dim;
-  float* kj = scratch;               // [16][65]
-  float* vj = scratch + kSlabF32;    // [16][65]
-  float* w_t = vj + kSlabF32;        // [16][17]
-  float* dz_t = w_t + kTileF32;      // [16][17]
-  stage_rows(kj, kLd, image + dim + h * kHead, stride, key0, 16, seq, lane,
-             32);
-  stage_rows(vj, kLd, image + 2 * dim + h * kHead, stride, key0, 16, seq,
-             lane, 32);
-  __syncwarp();
-  // Lane owns columns lane and lane + 32 of the 16 dk and 16 dv rows.
-  float dk[16][2], dv[16][2];
+  // Pass 0: s^T from q and k; pass 1: dw^T from g and v. Lane owns query
+  // column q: its row of the slice in registers, the 16 key rows broadcast.
+  for (int pass = 0; pass < 2; ++pass) {
+    float* buf = pass ? dt : st;
+    for (int sl = 0; sl < slices; ++sl) {
+      __syncthreads();  // every warp is done with qg_s
+      stage_rows(qg_s, kLd, (pass ? g_image : image) + sl * kSlice,
+                 pass ? dim : stride, 0, sp, seq,
+                 static_cast<int>(threadIdx.x), kKeyWarpsF32 * 32);
+      __syncthreads();
+      if (!active) continue;
+      stage_rows(kv_j, kLd, image + (pass + 1) * dim + sl * kSlice, stride,
+                 key0, 16, seq, lane, 32);
+      __syncwarp();
+      for (int q0 = 0; q0 < sp; q0 += 32) {
+        const int q = q0 + lane;
+        if (q < sp) {
+          float xr[kSlice];
 #pragma unroll
-  for (int c = 0; c < 16; ++c)
-    dk[c][0] = dk[c][1] = dv[c][0] = dv[c][1] = 0.0f;
-  const int tr = lane / 2, tc = (lane % 2) * 8;  // tile[query tr][key tc ..]
-  for (int i = 0; i < sp / 16; ++i) {
-    const float* q_row = q_s + (i * 16 + tr) * kLd;
-    const float* g_row = g_s + (i * 16 + tr) * kLd;
-    const float m = stat_s[i * 16 + tr];
-    const float denom = stat_s[sp + i * 16 + tr];
-    const float delta = stat_s[2 * sp + i * 16 + tr];
-    for (int x = 0; x < 8; ++x) {
-      float s = 0.0f, dw = 0.0f;
+          for (int d = 0; d < kSlice; ++d) xr[d] = qg_s[q * kLd + d];
+          for (int r = 0; r < 16; ++r) {
+            float acc = sl ? buf[r * lds + q] : 0.0f;
 #pragma unroll
-      for (int d = 0; d < kHead; ++d) {
-        s = fmaf(q_row[d], kj[(tc + x) * kLd + d], s);
-        dw = fmaf(g_row[d], vj[(tc + x) * kLd + d], dw);
+            for (int d = 0; d < kSlice; ++d)
+              acc = fmaf(xr[d], kv_j[r * kLd + d], acc);
+            buf[r * lds + q] = acc;
+          }
+        }
       }
-      const float w = expf(s * kScale - m) / denom;
-      w_t[tr * 17 + tc + x] = w;
-      dz_t[tr * 17 + tc + x] = w * (dw - delta);
+      __syncwarp();  // the next slice overwrites kv_j
     }
+  }
+  if (active) {
+    for (int r = 0; r < 16; ++r)
+      for (int q = lane; q < sp; q += 32) {
+        const float w =
+            expf(st[r * lds + q] * scale - stat_s[q]) / stat_s[sp + q];
+        st[r * lds + q] = w;
+        dt[r * lds + q] = w * (dt[r * lds + q] - stat_s[2 * sp + q]);
+      }
     __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const float g0 = g_s[(i * 16 + r) * kLd + lane];
-      const float g1 = g_s[(i * 16 + r) * kLd + lane + 32];
-      const float q0 = q_s[(i * 16 + r) * kLd + lane];
-      const float q1 = q_s[(i * 16 + r) * kLd + lane + 32];
+  }
+  // Part 1: dk = dz^T . q; part 2: dv = w^T . g. Lane owns columns lane and
+  // lane + 32 of the slice, all 16 keys.
+  for (int sl = 0; sl < slices; ++sl) {
+    for (int part = 1; part <= 2; ++part) {
+      __syncthreads();  // every warp is done with qg_s
+      stage_rows(qg_s, kLd, (part == 2 ? g_image : image) + sl * kSlice,
+                 part == 2 ? dim : stride, 0, sp, seq,
+                 static_cast<int>(threadIdx.x), kKeyWarpsF32 * 32);
+      __syncthreads();
+      if (!active) continue;
+      const float* a = part == 1 ? dt : st;
+      float acc[16][2];
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[c][0] = acc[c][1] = 0.0f;
+      for (int q = 0; q < sp; ++q) {
+        const float x0 = qg_s[q * kLd + lane], x1 = qg_s[q * kLd + lane + 32];
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const float z = a[c * lds + q];
+          acc[c][0] = fmaf(z, x0, acc[c][0]);
+          acc[c][1] = fmaf(z, x1, acc[c][1]);
+        }
+      }
+      const float mul = part == 1 ? scale : 1.0f;
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
-        const float w = w_t[r * 17 + c], dz = dz_t[r * 17 + c];
-        dv[c][0] = fmaf(w, g0, dv[c][0]);
-        dv[c][1] = fmaf(w, g1, dv[c][1]);
-        dk[c][0] = fmaf(dz, q0, dk[c][0]);
-        dk[c][1] = fmaf(dz, q1, dk[c][1]);
+        if (key0 + c < seq) {
+          float* d = dqkv +
+                     (static_cast<size_t>(b) * seq + key0 + c) * stride +
+                     part * dim + h * head + sl * kSlice;
+          d[lane] = acc[c][0] * mul;
+          d[lane + 32] = acc[c][1] * mul;
+        }
       }
-    }
-    __syncwarp();  // the next tile overwrites w_t and dz_t
-  }
-#pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    if (key0 + c < seq) {
-      dk_rows[static_cast<size_t>(c) * stride + lane] = dk[c][0] * kScale;
-      dk_rows[static_cast<size_t>(c) * stride + lane + 32] = dk[c][1] * kScale;
-      dv_rows[static_cast<size_t>(c) * stride + lane] = dv[c][0];
-      dv_rows[static_cast<size_t>(c) * stride + lane + 32] = dv[c][1];
     }
   }
 }
 
 cudaError_t run_f32(const float* qkv, const float* g, float* dqkv,
-                    float* stats, int batch, int seq, int heads,
-                    cudaStream_t stream) {
+                    float* stats, int batch, int seq, int heads, int slices,
+                    float scale, cudaStream_t stream) {
   if (stats == nullptr) return cudaErrorInvalidValue;
   const int sp = padded(seq);
   const int slabs = sp / 16;
-  const size_t staged = 2 * static_cast<size_t>(sp) * kLdF32;
+  const size_t lds = static_cast<size_t>(score_ld(sp));
   const size_t shared_q =
-      sizeof(float) * (staged + kQueryWarpsF32 * 2 * 16 *
-                                    (static_cast<size_t>(score_ld(sp)) + kHead));
+      sizeof(float) * (2 * static_cast<size_t>(sp) * kLdF32 +
+                       kQueryWarpsF32 * 2 * 16 * (lds + kSlice));
   const size_t shared_k =
-      sizeof(float) * (staged + 3 * static_cast<size_t>(sp) +
-                       kKeyWarpsF32 * static_cast<size_t>(kKeyScratchF32));
+      sizeof(float) * (static_cast<size_t>(sp) * (kLdF32 + 3) +
+                       kKeyWarpsF32 * (16 * kLdF32 + 2 * 16 * lds));
   if (shared_q > kMaxShared || shared_k > kMaxShared)
     return cudaErrorInvalidValue;
 
@@ -592,7 +1039,7 @@ cudaError_t run_f32(const float* qkv, const float* g, float* dqkv,
   attention_bwd_dq_kernel<<<
       dim3((slabs + kQueryWarpsF32 - 1) / kQueryWarpsF32, heads, batch),
       kQueryWarpsF32 * 32, shared_q, stream>>>(qkv, g, dqkv, stats, seq,
-                                               heads);
+                                               heads, slices, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -602,31 +1049,40 @@ cudaError_t run_f32(const float* qkv, const float* g, float* dqkv,
   if (err != cudaSuccess) return err;
   attention_bwd_dkdv_kernel<<<
       dim3((slabs + kKeyWarpsF32 - 1) / kKeyWarpsF32, heads, batch),
-      kKeyWarpsF32 * 32, shared_k, stream>>>(qkv, g, dqkv, stats, seq, heads);
+      kKeyWarpsF32 * 32, shared_k, stream>>>(qkv, g, dqkv, stats, seq, heads,
+                                             slices, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv [B, S, 3 * H * 64] and g [B, S, H * 64] -> dqkv like qkv, all of the
-// type `dtype` names. bf16: one grid, `stats` unused (may be null). f32: two
+// qkv [B, S, 3 * H * D] and g [B, S, H * D] -> dqkv like qkv, all of the
+// type `dtype` names, D = `head` a multiple of 64 and `scale` its 1 /
+// sqrt(D) as the caller rounds it to f32 (a head of 64 has the exact 2^-3).
+// bf16 with D = 64: one grid, `stats` unused (may be null). Otherwise two
 // grids, and `stats` is an f32 scratch [B, H, 3, S] that the first writes
 // and the second reads.
 extern "C" int vqa_vit_attention_backward(const void* qkv, const void* g,
                                           void* dqkv, void* stats, int batch,
-                                          int seq, int heads, int dtype,
+                                          int seq, int heads, int head,
+                                          float scale, int dtype,
                                           void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return cudaSuccess;
+  if (head < kSlice || head % kSlice) return cudaErrorInvalidValue;
+  if (head == kSlice && scale != kScale) return cudaErrorInvalidValue;
+  const int slices = head / kSlice;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case vqa::kBFloat16:
       return run_bf16(static_cast<const bf16*>(qkv),
                       static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
-                      batch, seq, heads, s);
+                      static_cast<float*>(stats), batch, seq, heads, slices,
+                      scale, s);
     case vqa::kFloat32:
       return run_f32(static_cast<const float*>(qkv),
                      static_cast<const float*>(g), static_cast<float*>(dqkv),
-                     static_cast<float*>(stats), batch, seq, heads, s);
+                     static_cast<float*>(stats), batch, seq, heads, slices,
+                     scale, s);
     default:
       return cudaErrorInvalidValue;
   }

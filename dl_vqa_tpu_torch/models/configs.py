@@ -100,13 +100,15 @@ class ModelConfig:
     use_pallas: bool = True            # read by the JAX package only
 
     def check_ported(self, train: Optional[bool] = None) -> None:
-        """Raise ``NotImplementedError`` for a variant the port lacks (MoE
-        blocks), and the JAX package's own error, in its words, for what it
-        refuses too (``NotImplementedError`` for ``num_lstm_layers != 1``
-        or an unknown encoder or attention variant, ``ValueError`` for a
-        combination). With ``train`` given (a forward's), also the refusals
-        the JAX model makes when it runs: the int8 mode in training, and
-        int8 without its calibrated scales or with the wrong number."""
+        """Raise ``NotImplementedError`` for a variant the port lacks (an
+        unknown image encoder), and the JAX package's own error, in its
+        words, for what it refuses too (``NotImplementedError`` for
+        ``num_lstm_layers != 1`` or an unknown text encoder or attention
+        variant, ``ValueError`` for a combination: MoE blocks with the CNN
+        encoder or with the int8 mode, for instance). With ``train`` given
+        (a forward's), also the refusals the JAX model makes when it runs:
+        the int8 mode in training, and int8 without its calibrated scales
+        or with the wrong number."""
         unported = []
         if self.text.encoder not in ("lstm", "transformer"):
             raise NotImplementedError(f"text encoder {self.text.encoder!r}")
@@ -133,8 +135,12 @@ class ModelConfig:
             raise ValueError(
                 "image.store_dtype='int8' does not support MoE "
                 "blocks (no W8A8 path for the expert einsums)")
-        if self.image.moe_experts:
-            unported.append(f"image.moe_experts={self.image.moe_experts}")
+        if self.image.encoder == "cnn" and self.image.moe_experts > 0:
+            # dl_vqa_tpu/models/vqa.py::init's refusal.
+            raise ValueError(
+                f"image.moe_experts={self.image.moe_experts} requires "
+                "image.encoder='vit' (the cnn stack has no MLP blocks "
+                "to sparsify)")
         if self.attention.variant not in ("single", "stacked", "co"):
             raise NotImplementedError(
                 f"attention variant {self.attention.variant!r}")

@@ -1,11 +1,16 @@
-"""ViT image encoder (``image.encoder == "vit"``): the dense branch of
-``dl_vqa_tpu/models/vit.py`` as a PyTorch module.
+"""ViT image encoder (``image.encoder == "vit"``): ``dl_vqa_tpu/models/vit.py``
+as a PyTorch module, its dense and its mixture-of-experts blocks.
 
 ``images [B, H, W, 3]`` -> feature grid ``[B, g, g, D]`` (``g = image_size
 // patch_size``) in the compute dtype, which slots into the same L2 norm,
 glimpse attention and classifier as the CNN's grid. Patch embedding, a
 learned position table, ``num_layers`` pre-LN blocks (attention and a ReLU
-MLP of width 4 D, each with a residual) and a final layer norm.
+MLP of width 4 D, each with a residual) and a final layer norm. With
+``image.moe_experts > 0`` every block's MLP is the mixture-of-experts FFN
+of :mod:`dl_vqa_tpu_torch.ops.moe` (each expert of width 4 D), routed with
+``image.moe_top_k`` and ``image.moe_capacity_factor``; each block appends
+its balance loss to the ``aux_sink`` that :meth:`VitImage.forward` is
+given.
 
 The numerics are those of the JAX model on its accelerator path:
 
@@ -16,29 +21,34 @@ The numerics are those of the JAX model on its accelerator path:
   the JAX ``[P * P * 3, D]`` in ``(p_row, p_col, channel)`` order;
 - every other product is an f32 result of operands rounded to the compute
   dtype, rounded only where the JAX code casts;
-- the attention core is kernel 4 in eval and in training, with kernel 5
-  as its backward (:func:`dl_vqa_tpu_torch.ops.vit_attention.vit_attention`),
-  on the packed qkv projection.
+- the attention core is chosen as the JAX model chooses it: for heads of
+  64 n it is kernel 4 in eval and in training, with kernel 5 as its
+  backward (:func:`dl_vqa_tpu_torch.ops.vit_attention.vit_attention`, their
+  plain versions on the CPU), on the packed qkv projection; any other head
+  takes the JAX model's other branch, which normalises the weights in the
+  compute dtype (:func:`~dl_vqa_tpu_torch.ops.vit_attention.
+  vit_attention_weights_normalised`), on every device, as the JAX model
+  has no kernel there.
 
 State-dict names (the JAX package's exporter refuses this family, so the
 port chooses them): ``image.patch_embed.{weight, bias}``, ``image.pos``,
 ``image.final_ln.{weight, bias}`` and per block ``image.blocks.{i}.{ln1,
-ln2}.{weight, bias}`` and ``image.blocks.{i}.{qkv, out, mlp_in,
-mlp_out}.{weight, bias}``; linear weights are ``[out, in]``. The JAX tree
-stacks the blocks' leaves on a leading ``[L]`` axis (``image.layers.*``);
-``utils/params.py`` unstacks and stacks them.
+ln2}.{weight, bias}``, ``image.blocks.{i}.{qkv, out}.{weight, bias}`` and
+either ``image.blocks.{i}.{mlp_in, mlp_out}.{weight, bias}`` or
+``image.blocks.{i}.moe.{gate, in.weight, in.bias, out.weight, out.bias}``;
+linear weights are ``[out, in]``. The JAX tree stacks the blocks' leaves
+on a leading ``[L]`` axis (``image.layers.*``); ``utils/params.py``
+unstacks and stacks them.
 
-With ``image.store_dtype == "int8"`` the four products of every block
-run as W8A8 (:func:`dl_vqa_tpu_torch.ops.vit_int8.w8a8_linear`, the MLP
-hidden kept in f32 between its two), ahead of kernel 8; an amax sink
-collects their inputs' amaxes for the calibration.
+With ``image.store_dtype == "int8"`` the four products of every dense
+block run as W8A8 (:func:`dl_vqa_tpu_torch.ops.vit_int8.w8a8_linear`, the
+MLP hidden kept in f32 between its two), ahead of kernel 8; an amax sink
+collects their inputs' amaxes for the calibration. The JAX model refuses
+the int8 mode with MoE blocks, and so does the port
+(``ModelConfig.check_ported``).
 
-Left out, as the JAX options they belong to are not ported: MoE blocks,
-the pipeline and sequence contexts, and the JAX model's other attention
-branch (weights normalised in the compute dtype), which it takes off the
-accelerator and for heads that are no multiple of 64: here every head
-size runs the kernels' arithmetic, and on the GPU the kernels take heads
-of 64 only and raise for others.
+Left out, as the JAX options they belong to are not ported: the pipeline
+and sequence contexts.
 """
 
 from __future__ import annotations
@@ -51,7 +61,9 @@ from torch import nn
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.layers import dropout as _dropout, mm as _mm
 from dl_vqa_tpu_torch.models.transformer import LayerNorm
-from dl_vqa_tpu_torch.ops.vit_attention import vit_attention
+from dl_vqa_tpu_torch.ops.moe import MOE_WITHOUT_ROUTING, MoeMlp
+from dl_vqa_tpu_torch.ops.vit_attention import (
+    kernel_head, vit_attention, vit_attention_weights_normalised)
 from dl_vqa_tpu_torch.ops.vit_int8 import w8a8_linear
 from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp
 
@@ -74,9 +86,11 @@ def patch_embed(images: torch.Tensor, weight: torch.Tensor,
 
 class VitBlock(nn.Module):
     """One pre-LN block: ``x + drop(out(attention(qkv(ln1(x)))))``, then
-    ``x + drop(mlp_out(relu(mlp_in(ln2(x)))))``."""
+    ``x + drop(mlp_out(relu(mlp_in(ln2(x)))))``, or with ``experts > 0``
+    ``x + drop(moe(ln2(x)))``."""
 
-    def __init__(self, dim: int, num_heads: int, dropout: float):
+    def __init__(self, dim: int, num_heads: int, dropout: float,
+                 experts: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
@@ -84,14 +98,27 @@ class VitBlock(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.out = nn.Linear(dim, dim)
         self.ln2 = LayerNorm(dim)
-        self.mlp_in = nn.Linear(dim, 4 * dim)
-        self.mlp_out = nn.Linear(4 * dim, dim)
+        if experts:
+            self.moe = MoeMlp(dim, 4 * dim, experts)
+        else:
+            self.mlp_in = nn.Linear(dim, 4 * dim)
+            self.mlp_out = nn.Linear(4 * dim, dim)
+
+    def attention(self, qkv: torch.Tensor, plain: bool) -> torch.Tensor:
+        """The attention core on the packed ``qkv`` in the compute dtype:
+        kernels 4 and 5 for heads of 64 n (their plain versions on the CPU
+        or with ``plain``), the JAX model's other branch for the rest."""
+        if kernel_head(qkv.shape[-1] // (3 * self.num_heads)):
+            return vit_attention(qkv, self.num_heads, plain)
+        return vit_attention_weights_normalised(qkv, self.num_heads)
 
     def forward(self, x, dtype, plain, generator, fused=False, scales=None,
-                amax_sink=None):
+                amax_sink=None, moe=None, aux_sink=None):
         """``scales``: the block's four int8 site scales, which run its
         four products as W8A8 (:func:`w8a8_linear`, before kernel 8);
-        ``amax_sink`` collects the four sites' input amaxes instead."""
+        ``amax_sink`` collects the four sites' input amaxes instead. A MoE
+        block routes with ``moe = (top_k, capacity_factor)`` and appends its
+        balance loss to ``aux_sink``; kernel 8 never takes it."""
         def linear(h, layer, site, out_dtype):
             if amax_sink is not None:
                 amax_sink.append(h.float().abs().amax())
@@ -102,9 +129,14 @@ class VitBlock(nn.Module):
 
         hidden = self.ln1(x)
         qkv = linear(hidden, self.qkv, 0, torch.float32).to(dtype)
-        att = vit_attention(qkv, self.num_heads, plain)
+        att = self.attention(qkv, plain)
         att = linear(att, self.out, 1, torch.float32).to(dtype)
         x = x + _dropout(att, self.dropout, generator)        # site 21 + 2i
+        if hasattr(self, "moe"):
+            if moe is None:
+                raise ValueError(MOE_WITHOUT_ROUTING)
+            mlp = self.moe(self.ln2(x), *moe, aux_sink=aux_sink)
+            return x + _dropout(mlp, self.dropout, generator)  # site 22 + 2i
         if scales is not None:
             # The hidden stays f32 between the two W8A8 products.
             hidden = torch.relu(linear(self.ln2(x), self.mlp_in, 2,
@@ -141,17 +173,20 @@ class VitImage(nn.Module):
         self.patch_embed = nn.Linear(i.patch_size * i.patch_size * 3, dim)
         self.pos = nn.Parameter(torch.empty(grid * grid, dim))
         self.blocks = nn.ModuleList(
-            VitBlock(dim, i.num_heads, i.dropout) for _ in range(i.num_layers))
+            VitBlock(dim, i.num_heads, i.dropout, i.moe_experts)
+            for _ in range(i.num_layers))
         self.final_ln = LayerNorm(dim)
 
     def forward(self, images: torch.Tensor, dtype: torch.dtype, plain: bool,
                 generator: Optional[torch.Generator],
-                fused: bool = False, amax_sink: Optional[list] = None
-                ) -> torch.Tensor:
+                fused: bool = False, amax_sink: Optional[list] = None,
+                aux_sink: Optional[list] = None) -> torch.Tensor:
         """``image.store_dtype == "int8"`` runs the blocks' products as
         W8A8 with their slice of ``image.quant_scales``; ``amax_sink`` (a
         list) runs the compute-dtype path and collects the four int8 sites'
-        input amaxes of every block, in order (the calibration pass)."""
+        input amaxes of every block, in order (the calibration pass).
+        ``aux_sink`` (a list) receives each MoE block's balance loss, in
+        order."""
         batch, height, width, _ = images.shape
         p = self.patch_size
         gh, gw = height // p, width // p
@@ -166,9 +201,12 @@ class VitImage(nn.Module):
         x = (x + self.pos[:gh * gw]).to(dtype)
         x = _dropout(x, self.dropout, generator)               # site 20
         int8 = self.quant.store_dtype == "int8" and amax_sink is None
+        moe = ((self.quant.moe_top_k, self.quant.moe_capacity_factor)
+               if self.quant.moe_experts else None)
         for idx, block in enumerate(self.blocks):
             scales = (tuple(self.quant.quant_scales[4 * idx:4 * idx + 4])
                       if int8 else None)
-            x = block(x, dtype, plain, generator, fused, scales, amax_sink)
+            x = block(x, dtype, plain, generator, fused, scales, amax_sink,
+                      moe, aux_sink)
         x = self.final_ln(x)
         return x.reshape(batch, gh, gw, x.shape[-1])

@@ -55,6 +55,7 @@ from dl_vqa_tpu_torch.models.layers import (
     dropout, mm as _mm, normalize_images)
 from dl_vqa_tpu_torch.models.transformer import LayerNorm, TransformerText
 from dl_vqa_tpu_torch.models.vit import VitImage
+from dl_vqa_tpu_torch.ops.moe import MoeMlp
 from dl_vqa_tpu_torch.ops.attention_pool import attention_pool
 from dl_vqa_tpu_torch.ops.conv_fused import (
     FUSED_MIN_CIN, conv_relu_pool, conv_relu_pool_stem)
@@ -319,13 +320,16 @@ class VqaNet(nn.Module):
             if isinstance(module, LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, MoeMlp):
+                module.init_weights(gen)
 
     def forward(self, images: torch.Tensor, questions: torch.Tensor,
                 lengths: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 compute_dtype: torch.dtype = torch.float32,
                 plain_ops: bool = False,
-                fused_ops: bool = False) -> torch.Tensor:
+                fused_ops: bool = False,
+                aux_sink: Optional[list] = None) -> torch.Tensor:
         """``images [B, H, W, 3]`` (uint8 pixels or normalised floats),
         ``questions [B, T]`` int ids, ``lengths [B]`` -> ``[B,
         max_answers]`` f32 logits.
@@ -342,7 +346,9 @@ class VqaNet(nn.Module):
         block to kernel 8 (with ``plain_ops`` their plain versions, on any
         device). The fused ops round once where the unfused path rounds
         twice, so in bf16 the logits move by those roundings; in f32 they
-        agree.
+        agree. ``aux_sink``, a list, receives the balance loss of each MoE
+        block of the ViT (``image.moe_experts > 0``), in order, as the JAX
+        model's ``aux_sink`` does; the logits do not depend on it.
         """
         if train and generator is None:
             raise ValueError("train=True requires a dropout generator")
@@ -352,8 +358,12 @@ class VqaNet(nn.Module):
         self.cfg.check_ported(train=train)
         images = normalize_images(images, dtype)
 
-        v = self.image(images, dtype, plain_ops, generator,
-                       fused_ops).float()
+        if self.cfg.image.encoder == "vit":
+            v = self.image(images, dtype, plain_ops, generator, fused_ops,
+                           aux_sink=aux_sink)
+        else:
+            v = self.image(images, dtype, plain_ops, generator, fused_ops)
+        v = v.float()
         v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
         variant = self.cfg.attention.variant
         q, tokens, mask = self.text(questions, lengths, dtype, plain_ops,

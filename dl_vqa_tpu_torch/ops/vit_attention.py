@@ -3,7 +3,12 @@
 Port of :mod:`dl_vqa_tpu.ops.vit_attention_pallas`. ``qkv`` is ``[B, S,
 3 * H * D]``, packed as q | k | v with each part head-major, exactly as
 the fused qkv product leaves it; the output is the merged ``[B, S, H *
-D]``. Nothing is split or transposed before a launch.
+D]``. Nothing is split or transposed before a launch. The kernels take
+every head that the TPU kernels take, ``D`` a multiple of 64 (the JAX
+model sends those to them, ``dl_vqa_tpu/models/vit.py::_attention``), and
+walk a head 64 columns at a time; the scale ``1 / sqrt(D)`` is the f32
+that the plain versions multiply by. Other heads take the JAX model's
+other branch, :func:`vit_attention_weights_normalised`, on every device.
 
 Kernel 4 (``csrc/vit_attention.cu``) replaces
 ``dl_vqa_tpu/ops/vit_attention_pallas.py::_attention_kernel``. Per image
@@ -20,11 +25,15 @@ Kernel 5 (``csrc/vit_attention_backward.cu``) replaces
 denom)`` (here the weights are normalised before the cast), ``dv = f32(w^T
 g)``, ``dw = f32(g v^T)``, ``dz = cast(f32(w) (dw - rowsum(dw f32(w))))``,
 ``dq = f32(dz k) / sqrt(D)``, ``dk = f32(dz^T q) / sqrt(D)`` and writes
-the packed ``dqkv`` like ``qkv``. In bf16 it launches one grid, a block
-per (image, head) that runs over the query rows for ``dq`` and then over
-the key rows for ``dk`` and ``dv``; in f32 two grids with the row
-statistics in a device scratch between them. Both give the same digits
-on every run.
+the packed ``dqkv`` like ``qkv``. In bf16 with heads of 64 it launches one
+grid, a block per (image, head) that runs over the query rows for ``dq``
+and then over the key rows for ``dk`` and ``dv``; in f32, and in bf16 for
+heads of 128 and more, two grids with the row statistics in a device
+scratch between them. All give the same digits on every run. The f32 sums
+over a head of 64 n run over its slices in order, the order of one
+64 n-long sum, so a head's bits do not depend on how it is sliced; against
+the plain versions they differ as at 64, by sums in another order
+(``tests/test_torch_cuda.py``).
 
 What bounds both on this card is memory traffic (each reads and writes
 only ``[B, S, .]`` tensors, 205 MB and 360 MB at B = 512, S = 196, H = 4,
@@ -49,11 +58,24 @@ from dl_vqa_tpu_torch.ops import _native
 
 __all__ = ["vit_attention_reference", "vit_attention_cuda",
            "vit_attention_backward_reference", "vit_attention_backward_cuda",
-           "VitAttention", "vit_attention"]
+           "VitAttention", "vit_attention", "vit_attention_weights_normalised",
+           "kernel_head"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_SIZE = 64   # csrc/vit_attention.cuh kHead
-MAX_SEQ = 256    # a head whole in shared memory, a score row in registers
+HEAD_SLICE = 64  # csrc/vit_attention.cuh kSlice: the kernels' heads are 64 n
+MAX_SEQ = 256    # a score row in registers
+
+
+def kernel_head(head: int) -> bool:
+    """Whether kernels 4 and 5 take heads of ``head``: the JAX model's test
+    for its Pallas kernels (``head % 64 == 0``)."""
+    return head > 0 and head % HEAD_SLICE == 0
+
+
+def _scale(head: int) -> float:
+    """``1 / sqrt(head)``, which the plain versions multiply f32 scores by
+    and the kernels receive rounded to f32."""
+    return 1.0 / head ** 0.5
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -113,12 +135,14 @@ def vit_attention_backward_reference(qkv: torch.Tensor, g: torch.Tensor,
     return torch.cat([_merge(t.to(dtype)) for t in (dq, dk, dv)], dim=-1)
 
 
-def _check_cuda(qkv: torch.Tensor, num_heads: int, what: str) -> None:
+def _check_cuda(qkv: torch.Tensor, num_heads: int, what: str) -> int:
+    """The head size, where the kernels take ``qkv``; raises otherwise."""
     _check_qkv(qkv, num_heads)
     batch, seq, three_dim = qkv.shape
-    if three_dim // (3 * num_heads) != HEAD_SIZE:
-        raise ValueError(f"{what} takes heads of {HEAD_SIZE}; got "
-                         f"{three_dim // (3 * num_heads)}")
+    head = three_dim // (3 * num_heads)
+    if not kernel_head(head):
+        raise ValueError(f"{what} takes heads of a multiple of {HEAD_SLICE}; "
+                         f"got {head}")
     if not qkv.is_cuda:
         raise ValueError(f"{what} takes CUDA tensors; got {qkv.device}")
     if qkv.dtype not in _DTYPES:
@@ -127,11 +151,12 @@ def _check_cuda(qkv: torch.Tensor, num_heads: int, what: str) -> None:
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     if seq > MAX_SEQ:
-        raise ValueError(f"{seq} tokens do not fit the kernel's shared "
-                         f"memory (at most {MAX_SEQ})")
+        raise ValueError(f"{seq} tokens do not fit the kernel's score row "
+                         f"in registers (at most {MAX_SEQ})")
     if batch > 65535 or num_heads > 65535:
         raise ValueError(f"batch {batch} or heads {num_heads} exceed the "
                          "launch grid (65535)")
+    return head
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,14 +169,14 @@ def _sm_count(index: int) -> int:
 def vit_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Kernel 4 on ``qkv``'s CUDA device; raises on any input it does not
     take."""
-    _check_cuda(qkv, num_heads, "vit_attention_cuda")
+    head = _check_cuda(qkv, num_heads, "vit_attention_cuda")
     batch, seq, three_dim = qkv.shape
     lib = _native.library()
     out = torch.empty(batch, seq, three_dim // 3, dtype=qkv.dtype,
                       device=qkv.device)
     code = lib.vqa_vit_attention(
-        qkv.data_ptr(), out.data_ptr(), batch, seq, num_heads,
-        _sm_count(qkv.device.index), _DTYPES[qkv.dtype],
+        qkv.data_ptr(), out.data_ptr(), batch, seq, num_heads, head,
+        _scale(head), _sm_count(qkv.device.index), _DTYPES[qkv.dtype],
         _native.stream_ptr(qkv.device))
     _native.check("vit_attention", code)
     if batch and seq:  # the C entry launches nothing for empty input
@@ -172,11 +197,17 @@ _native.define_op("vit_attention", "(Tensor qkv, int num_heads) -> Tensor",
                   _attention_fake)
 
 
+def backward_grids(dtype: torch.dtype, head: int) -> int:
+    """Grids a kernel-5 call launches: one for bf16 heads of 64, two (dq,
+    then dk and dv) for f32 and for wider heads."""
+    return 1 if dtype == torch.bfloat16 and head == HEAD_SLICE else 2
+
+
 def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
                                 num_heads: int) -> torch.Tensor:
     """Kernel 5 on ``qkv``'s CUDA device; raises on any input it does not
     take."""
-    _check_cuda(qkv, num_heads, "vit_attention_backward_cuda")
+    head = _check_cuda(qkv, num_heads, "vit_attention_backward_cuda")
     batch, seq, three_dim = qkv.shape
     if tuple(g.shape) != (batch, seq, three_dim // 3):
         raise ValueError(f"expected g {(batch, seq, three_dim // 3)} for qkv "
@@ -188,16 +219,17 @@ def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
         raise ValueError("g must be contiguous")
     lib = _native.library()
     dqkv = torch.empty_like(qkv)
-    # bf16: one grid, the row statistics stay in shared memory. f32: per
-    # query row m, denom and rowsum(dw w), which the first of two grids
-    # writes and the second reads.
-    two_grids = qkv.dtype == torch.float32
+    # bf16 heads of 64: one grid, the row statistics stay in shared memory.
+    # f32, and wider bf16 heads: per query row m, denom and rowsum(dw w),
+    # which the first of two grids writes and the second reads.
+    two_grids = backward_grids(qkv.dtype, head) == 2
     stats = (torch.empty(batch, num_heads, 3, seq, dtype=torch.float32,
                          device=qkv.device) if two_grids else None)
     code = lib.vqa_vit_attention_backward(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
         stats.data_ptr() if two_grids else None, batch, seq, num_heads,
-        _DTYPES[qkv.dtype], _native.stream_ptr(qkv.device))
+        head, _scale(head), _DTYPES[qkv.dtype],
+        _native.stream_ptr(qkv.device))
     _native.check("vit_attention_backward", code)
     if batch and seq:
         vit_attention_backward_cuda.launches += 2 if two_grids else 1
@@ -229,6 +261,33 @@ class VitAttention(torch.autograd.Function):
         backward = (vit_attention_backward_reference if ctx.plain
                     else vit_attention_backward_cuda)
         return backward(qkv, g.contiguous(), ctx.num_heads), None, None
+
+
+def vit_attention_weights_normalised(qkv: torch.Tensor, num_heads: int
+                                     ) -> torch.Tensor:
+    """The JAX model's other attention branch
+    (``dl_vqa_tpu/models/vit.py::_attention``, for heads that are no
+    multiple of 64, where it has no kernel), step for step: the logits in
+    the compute dtype (an f32 product of the operands rounded once, then
+    divided by ``sqrt(D)`` rounded to the compute dtype, as JAX's weakly
+    typed scalar is); ``exp(logits - max)`` in f32, rounded back; an f32
+    denominator; ``weights = e / cast(denom)`` in the compute dtype; the PV
+    product with f32 accumulation, rounded to the compute dtype. Its
+    gradient is autograd's."""
+    _check_qkv(qkv, num_heads)
+    dtype = qkv.dtype
+    batch, seq, three_dim = qkv.shape
+    head = three_dim // (3 * num_heads)
+    q, k, v = (t.reshape(batch, seq, num_heads, head).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(dtype)
+    logits = logits / torch.tensor(head ** 0.5, dtype=dtype)
+    shifted = logits - logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(shifted.float()).to(dtype)
+    denom = e.float().sum(dim=-1, keepdim=True)
+    weights = e / denom.to(dtype)
+    out = torch.matmul(weights.float(), v.float())
+    return _merge(out).to(dtype)
 
 
 def vit_attention(qkv: torch.Tensor, num_heads: int,

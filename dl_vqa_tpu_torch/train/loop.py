@@ -225,11 +225,14 @@ def train(
         t0 = time.time()
         n_batches = len(train_batcher)
         n_samples = len(train_batcher.dataset)
-        loss_total = score_total = None
+        loss_total = score_total = aux_total = None
         start_batch = resume_start_batch if epoch == start_epoch else 0
-        if start_batch and resume_accum is not None and "loss" in resume_accum:
-            loss_total = as_sum(resume_accum["loss"])
-            score_total = as_sum(resume_accum.get("score", 0.0))
+        if start_batch and resume_accum is not None:
+            if "loss" in resume_accum:
+                loss_total = as_sum(resume_accum["loss"])
+                score_total = as_sum(resume_accum.get("score", 0.0))
+            if "aux" in resume_accum:
+                aux_total = as_sum(resume_accum["aux"])
         epoch_iter = train_batcher.iter_epoch(epoch, start_batch)
         batch_idx = start_batch
 
@@ -243,18 +246,23 @@ def train(
                 loss_total = loss if loss_total is None else loss_total + loss
                 score_total = (score if score_total is None
                                else score_total + score)
+                aux = step_metrics.get("moe_aux")
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
                 batch_idx += 1
                 if (checkpoint_every_steps > 0 and save_model
                         and batch_idx % checkpoint_every_steps == 0
                         and batch_idx < n_batches):
                     # Position and partial sums ride the metadata; the
                     # float() reads sync the device.
+                    epoch_accum = {"loss": float(loss_total),
+                                   "score": float(score_total)}
+                    if aux_total is not None:
+                        epoch_accum["aux"] = float(aux_total)
                     _save_rolling(
                         logger, state, epoch, model_cfg, ckpt_meta,
                         best_eval_score, epochs_no_improve,
-                        batch_in_epoch=batch_idx,
-                        epoch_accum={"loss": float(loss_total),
-                                     "score": float(score_total)},
+                        batch_in_epoch=batch_idx, epoch_accum=epoch_accum,
                         last_eval_score=last_eval_score,
                         last_train_loss=last_train_loss)
             # The reads wait for every queued step: inside the epoch's time.
@@ -269,10 +277,15 @@ def train(
         samples_run = (
             n_samples - start_batch * train_batcher.batch_size
             if start_batch else n_samples)
-        logger.report_scalars({
+        scalars = {
             "Throughput/StepsPerSec": batches_run / epoch_seconds,
             "Throughput/QAPairsPerSecPerChip": samples_run / epoch_seconds,
-        }, epoch)
+        }
+        if aux_total is not None:
+            # Expert balance of a MoE model: 1.0 at uniform routing.
+            scalars["Loss/MoEBalanceTrain"] = (float(aux_total)
+                                               / max(n_batches, 1))
+        logger.report_scalars(scalars, epoch)
 
         eval_score, eval_loss = evaluate(
             eval_step, state.model, eval_batcher, prefetch_depth,

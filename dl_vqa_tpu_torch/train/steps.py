@@ -18,8 +18,12 @@ uninterrupted run draws (not JAX's masks: the generators differ).
 ``remat=True`` recomputes the forward in the backward
 (``torch.utils.checkpoint``; the masks are drawn again from the same key).
 
-Not ported yet: sharded steps, the pipeline and sequence contexts and the
-MoE auxiliary loss.
+With MoE blocks (``image.moe_experts > 0``) the forward also gives the
+layer mean of the blocks' balance losses: the train step adds
+``image.moe_aux_weight`` times it to the loss it differentiates and
+reports it as ``moe_aux``; the eval loss stays the task loss.
+
+Not ported yet: sharded steps, the pipeline and sequence contexts.
 """
 
 from __future__ import annotations
@@ -95,18 +99,28 @@ def _forward_loss(
     model: torch.nn.Module, batch: Dict, train: bool,
     generator: Optional[torch.Generator], compute_dtype: torch.dtype,
     plain_ops: bool, fused_ops: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(loss, score_sum, logits)``: the one forward of both steps."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """``(loss, score_sum, logits, moe_aux)``: the one forward of both
+    steps. ``moe_aux`` is the layer mean of the MoE balance losses (None for
+    a dense model), weighted into the loss in training only, as the JAX
+    step does."""
+    cfg = model.cfg
+    sink = [] if cfg.image.moe_experts > 0 else None
     logits = model(_images(batch), batch["questions"], batch["lengths"],
                    train=train, generator=generator,
                    compute_dtype=compute_dtype, plain_ops=plain_ops,
-                   fused_ops=fused_ops)
+                   fused_ops=fused_ops, aux_sink=sink)
     mask = batch.get("mask")
     loss = soft_cross_entropy(logits, batch["answer_indices"],
                               batch["answer_values"], mask)
+    aux = None
+    if sink:
+        aux = sum(sink) / len(sink)
+        if train:
+            loss = loss + cfg.image.moe_aux_weight * aux
     score = vqa_accuracy_sum(logits.detach(), batch["answer_indices"],
                              batch["answer_values"], mask)
-    return loss, score, logits
+    return loss, score, logits, aux
 
 
 def make_train_step(
@@ -127,7 +141,9 @@ def make_train_step(
     an int or a ``torch.Generator`` whose ``initial_seed()`` is taken: the
     masks of each update come from :func:`dropout_generator` keyed to it and
     to ``state.step``. The step updates ``state`` in place and returns it
-    with ``{"loss", "score"}`` as 0-dim tensors on the device.
+    with ``{"loss", "score"}`` as 0-dim tensors on the device, and with
+    MoE blocks also ``"moe_aux"``, the layer mean of their balance losses
+    (1.0 at uniform routing).
 
     ``accum_steps > 1`` splits the batch into that many micro-batches and
     accumulates their gradients before one update: activation memory is
@@ -144,12 +160,16 @@ def make_train_step(
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
 
+    has_moe = cfg.image.moe_experts > 0
+
     def loss_of(model, batch, seed, step, micro):
         def run():
             generator = dropout_generator(
                 seed, step, batch["questions"].device, micro)
-            return _forward_loss(model, batch, True, generator,
-                                 compute_dtype, plain_ops, fused_ops)[:2]
+            loss, score, _, aux = _forward_loss(
+                model, batch, True, generator, compute_dtype, plain_ops,
+                fused_ops)
+            return loss, score, aux if has_moe else torch.zeros(())
 
         if remat:
             return checkpoint(run, use_reentrant=False)
@@ -165,9 +185,10 @@ def make_train_step(
         optimizer.zero_grad(set_to_none=True)
 
         if accum_steps == 1:
-            loss, score = loss_of(model, batch, seed, state.step, None)
+            loss, score, moe_aux = loss_of(model, batch, seed, state.step,
+                                           None)
             loss.backward()
-            loss = loss.detach()
+            loss, moe_aux = loss.detach(), moe_aux.detach()
         else:
             # The image table is indexed by rows, not by the batch: it is
             # not split.
@@ -180,14 +201,15 @@ def make_train_step(
             micro_size = batch_size // accum_steps
             loss_sum = torch.zeros((), device=device)
             score = torch.zeros((), device=device)
+            aux_sum = torch.zeros((), device=device)
             n_total = torch.zeros((), device=device)
             for idx in range(accum_steps):
                 rows = slice(idx * micro_size, (idx + 1) * micro_size)
                 micro = {key: value[rows] for key, value in batch.items()}
                 if table is not None:
                     micro["image_table"] = table
-                micro_loss, micro_score = loss_of(model, micro, seed,
-                                                  state.step, idx)
+                micro_loss, micro_score, micro_aux = loss_of(
+                    model, micro, seed, state.step, idx)
                 # A micro's loss is normalised by ITS real count (clamped
                 # to 1 when all of it is padding). Averaging those would
                 # misweight a padded final batch whose real samples fall
@@ -202,6 +224,7 @@ def make_train_step(
                 (micro_loss * scale).backward()  # .grad accumulates
                 loss_sum += micro_loss.detach() * scale
                 score += micro_score
+                aux_sum += micro_aux.detach().to(device) * scale
                 n_total += n
             denom = n_total.clamp(min=1.0)
             for group in optimizer.param_groups:
@@ -209,13 +232,17 @@ def make_train_step(
                     if p.grad is not None:
                         p.grad.div_(denom)
             loss = loss_sum / denom
+            moe_aux = aux_sum / denom
 
         lr = lr_schedule(state.initial_lr)(state.step)
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
         state.step += 1
-        return state, {"loss": loss, "score": score}
+        metrics = {"loss": loss, "score": score}
+        if has_moe:
+            metrics["moe_aux"] = moe_aux
+        return state, metrics
 
     return train_step
 
@@ -238,9 +265,9 @@ def make_eval_step(
     @torch.no_grad()
     def eval_step(model: torch.nn.Module, batch: Dict):
         batch = _to_device(batch, next(model.parameters()).device)
-        loss, score, logits = _forward_loss(model, batch, False, None,
-                                            compute_dtype, plain_ops,
-                                            fused_ops)
+        loss, score, logits, _ = _forward_loss(model, batch, False, None,
+                                               compute_dtype, plain_ops,
+                                               fused_ops)
         if not with_breakdown:
             return loss, score
         sums, counts = vqa_accuracy_by_type(

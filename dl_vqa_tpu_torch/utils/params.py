@@ -13,7 +13,12 @@ bias}`` -> ``image.final_ln.{weight, bias}``; and ``image.layers.{ln1,
 ln2}.{scale, bias}``, ``image.layers.{qkv, out, mlp_in, mlp_out}.{w, b}``,
 every leaf with a leading ``[L]`` axis, -> ``image.blocks.{i}.*`` for
 ``i < L``, unstacked (and the linear weights transposed) on the way in
-and stacked again on the way back. A legacy tree whose ``image.layers``
+and stacked again on the way back. A MoE tree has
+``image.layers.moe.{gate.w [L, D, E], in.{w [L, E, D, F], b [L, E, F]},
+out.{w [L, E, F, D], b [L, E, D]}}`` in place of ``mlp_in`` and
+``mlp_out``: ``image.blocks.{i}.moe.{gate [E, D], in.weight [E, F, D],
+in.bias, out.weight [E, D, F], out.bias}``, each weight's last two axes
+swapped to the port's ``[out, in]``. A legacy tree whose ``image.layers``
 is a list of per-layer dicts (an npz with ``image|layers|#i|...`` keys)
 is stacked first, as the JAX reader migrates it.
 
@@ -42,6 +47,7 @@ _LSTM = "text.lstm."
 _DIRECTIONS = (("lstm_fwd", ""), ("lstm_bwd", "_reverse"))
 _VIT_NORMS = ("ln1", "ln2")
 _VIT_LINEARS = ("qkv", "out", "mlp_in", "mlp_out")
+_VIT_MOE_LINEARS = ("qkv", "out")  # and the "moe" group
 _CO_LINEARS = ("vsum_lin", "tok_lin", "tok_out")
 
 
@@ -122,18 +128,35 @@ def _vit_state(state: Dict, image: Mapping) -> None:
         raise ValueError(
             f"image.layers is a {type(layers).__name__}; expected stacked "
             "leaves or a list of per-layer dicts")
-    if set(layers) != set(_VIT_NORMS + _VIT_LINEARS):
+    moe = "moe" in layers
+    linears = _VIT_MOE_LINEARS if moe else _VIT_LINEARS
+    if set(layers) != set(_VIT_NORMS + linears + ("moe",) * moe):
         raise ValueError(
-            "only dense ViT blocks (ln1, qkv, out, ln2, mlp_in, mlp_out) "
-            f"are ported; the tree's layers hold {sorted(layers)}")
+            "ViT blocks hold ln1, qkv, out, ln2 and either mlp_in and "
+            f"mlp_out or moe; the tree's layers hold {sorted(layers)}")
     _linear(state, "image.patch_embed", image["patch_embed"])
     state["image.pos"] = _np(image["pos"])
     _norm(state, "image.final_ln", image["final_ln"])
     for i in range(len(_np(layers["ln1"]["scale"]))):
-        for name in _VIT_NORMS + _VIT_LINEARS:
+        for name in _VIT_NORMS + linears:
             layer = {k: v[i] for k, v in layers[name].items()}
             put = _norm if name in _VIT_NORMS else _linear
             put(state, f"image.blocks.{i}.{name}", layer)
+        if moe:
+            _moe(state, f"image.blocks.{i}.moe", layers["moe"], i)
+
+
+def _moe(dst: Dict, prefix: str, p: Mapping, i: int) -> None:
+    """Layer ``i`` of the stacked MoE group ``p`` under ``prefix``: the
+    router ``gate.w [D, E]`` -> ``gate [E, D]``, each expert linear's ``w
+    [E, in, out]`` -> ``weight [E, out, in]``, its ``b`` as it is."""
+    def get(*path):
+        return _np(_leaf(p, *path, where=prefix))[i]
+
+    dst[f"{prefix}.gate"] = get("gate", "w").T
+    for name in ("in", "out"):
+        dst[f"{prefix}.{name}.weight"] = get(name, "w").transpose(0, 2, 1)
+        dst[f"{prefix}.{name}.bias"] = get(name, "b")
 
 
 def _text_state(state: Dict, text: Mapping) -> None:
@@ -215,11 +238,18 @@ def torch_state_from_params(params: Mapping) -> Dict[str, np.ndarray]:
 def load_jax_params(model: torch.nn.Module, params: Mapping
                     ) -> torch.nn.Module:
     """Copy a ``dl_vqa_tpu`` parameter tree (numpy or JAX arrays) into
-    ``model`` with ``load_state_dict(strict=True)``; returns ``model``."""
+    ``model`` with ``load_state_dict(strict=True)``; returns ``model``. A
+    tree with MoE blocks and a model without them raises the JAX model's
+    ``ValueError``."""
     state = {
         name: torch.from_numpy(np.array(value, dtype=np.float32))
         for name, value in torch_state_from_params(params).items()
     }
+    if (any(".moe." in name for name in state)
+            and not any(".moe." in name for name in model.state_dict())):
+        from dl_vqa_tpu_torch.ops.moe import MOE_WITHOUT_ROUTING
+
+        raise ValueError(MOE_WITHOUT_ROUTING)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -253,8 +283,22 @@ def jax_tree_from_named(named: Mapping[str, torch.Tensor]) -> Dict:
                         if n.startswith(prefix)), default=-1)
 
     def block(prefix):
-        return {name: (norm if name in _VIT_NORMS else linear)(
-            f"{prefix}.{name}") for name in _VIT_NORMS + _VIT_LINEARS}
+        if f"{prefix}.moe.gate" not in named:
+            return {name: (norm if name in _VIT_NORMS else linear)(
+                f"{prefix}.{name}") for name in _VIT_NORMS + _VIT_LINEARS}
+        out = {name: (norm if name in _VIT_NORMS else linear)(
+            f"{prefix}.{name}") for name in _VIT_NORMS + _VIT_MOE_LINEARS}
+        out["moe"] = {"gate": {"w": get(f"{prefix}.moe.gate").T}}
+        for name in ("in", "out"):
+            out["moe"][name] = {
+                "w": get(f"{prefix}.moe.{name}.weight").transpose(0, 2, 1),
+                "b": get(f"{prefix}.moe.{name}.bias")}
+        return out
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
 
     text = {"embedding": get("text.embedding.weight")}
     if "text.pos" in named:
@@ -273,11 +317,8 @@ def jax_tree_from_named(named: Mapping[str, torch.Tensor]) -> Dict:
                       "b": bias}
 
     if "image.pos" in named:
-        per_layer = [block(f"image.blocks.{i}")
-                     for i in range(count("image.blocks."))]
-        layers = {name: {leaf: np.stack([p[name][leaf] for p in per_layer])
-                         for leaf in per_layer[0][name]}
-                  for name in _VIT_NORMS + _VIT_LINEARS}
+        layers = stack([block(f"image.blocks.{i}")
+                        for i in range(count("image.blocks."))])
         image = {"patch_embed": linear("image.patch_embed"),
                  "pos": get("image.pos"),
                  "final_ln": norm("image.final_ln"),

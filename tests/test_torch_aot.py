@@ -69,17 +69,20 @@ def _jax_cfg():
         max_answers=ANSWERS, image_size=SIZE, num_tokens=TOKENS)
 
 
-def _cfg(encoder="cnn", store="compute", text="lstm", variant="single"):
+def _cfg(encoder="cnn", store="compute", text="lstm", variant="single",
+         moe=0):
     """The CNN (a stem of Cin 3, then a block of Cin 16: both fused ops
-    take part) or a ViT of one 64-wide head, 2 layers, patch 8; the bi-LSTM
-    or the transformer text encoder (2 layers of 8 heads); the single,
-    stacked or co attention."""
+    take part) or a ViT of one 64-wide head, 2 layers, patch 8 (with
+    ``moe`` experts in every block, top-2); the bi-LSTM or the transformer
+    text encoder (2 layers of 8 heads); the single, stacked or co
+    attention."""
     cfg = ModelConfig.from_meta_dict(dataclasses.asdict(_jax_cfg()))
     image = dataclasses.replace(cfg.image, store_dtype=store)
     if encoder == "vit":
         image = dataclasses.replace(image, encoder="vit",
                                     num_channels=(3, 64), patch_size=8,
-                                    num_layers=2, num_heads=1)
+                                    num_layers=2, num_heads=1,
+                                    moe_experts=moe)
     return dataclasses.replace(
         cfg, image=image,
         text=dataclasses.replace(cfg.text, encoder=text),
@@ -100,8 +103,8 @@ def _inputs(n, seed=0):
 
 
 def _predictor(encoder="cnn", dtype=torch.bfloat16, fused=False,
-               store="compute", text="lstm", variant="single"):
-    cfg = _cfg(encoder, store, text, variant)
+               store="compute", text="lstm", variant="single", moe=0):
+    cfg = _cfg(encoder, store, text, variant, moe)
     model = VqaNet(cfg, device="cpu",
                    generator=torch.Generator().manual_seed(3))
     predictor = Predictor(cfg, model, _vocab(), device="cpu",
@@ -147,11 +150,17 @@ CONFIGS = {
                                      "attention_pool": 1}),
     "transformer_co": (dict(text="transformer", variant="co"),
                        {"relu_maxpool": 2, "attention_pool": 1}),
+    # The ViT-MoE: kernel 4 a block, the experts in ATen ops (their static
+    # [E, G, C, D] buffer exports); with fused_ops its blocks stay on the
+    # MoE path, so no kernel 8.
+    "vit_moe_fused": (dict(encoder="vit", moe=4, fused=True),
+                      {"lstm_recurrence": 1, "vit_attention": 2,
+                       "attention_pool": 1}),
 }
 # The ATen ops of PLAIN_ONLY that a variant's own layers call: the
-# softmax of co-attention's token weights and of the transformer's
-# self-attention.
-VARIANT_ATEN = dict.fromkeys(("lstm_co", "transformer_co"),
+# softmax of co-attention's token weights, of the transformer's
+# self-attention and of the MoE router.
+VARIANT_ATEN = dict.fromkeys(("lstm_co", "transformer_co", "vit_moe_fused"),
                              {"aten.softmax.int", "aten._softmax.default"})
 
 
@@ -328,6 +337,24 @@ def test_layout_and_metadata(exported):
         for key in z.files:
             assert z[key].dtype == np.float32
             np.testing.assert_array_equal(z[key], state[key].numpy())
+
+
+def test_a_moe_artifact_gives_the_predictor_s_bits_at_buckets_1_8_64(
+        tmp_path):
+    """The ViT-MoE exported at the serving buckets 1, 8 and 64: the
+    routing's shapes are static (the ``[E, G, C, D]`` buffer follows the
+    bucket), so each bucket's program gives the live Predictor's logits
+    on the same batch to the bit."""
+    predictor = _predictor(encoder="vit", moe=4)
+    path = str(tmp_path / "vit_moe")
+    predictor.export_artifact(path, batch_sizes=(1, 8, 64))
+    artifact = load_artifact(path, device="cpu")
+    for n in (1, 8, 64):
+        images, questions, lengths = _inputs(n, seed=n)
+        lengths = np.maximum(lengths, 1)
+        np.testing.assert_array_equal(
+            artifact.logits(images, questions, lengths),
+            predictor.forward_logits(images, questions, lengths))
 
 
 def test_padding_and_splitting(exported):

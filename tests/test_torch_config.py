@@ -52,10 +52,10 @@ def test_from_meta_dict_reads_the_jax_metadata():
 
 
 def test_reference_config_is_ported_and_variants_are_not():
-    """Every preset but MoE is ported: the reference, the ViT and the two
-    variant presets (stacked attention; the transformer text encoder with
-    co-attention). MoE blocks are still to port, and ``num_lstm_layers !=
-    1`` raises the JAX package's own refusal."""
+    """Every preset is ported: the reference, the ViT, the ViT-MoE and the
+    two variant presets (stacked attention; the transformer text encoder
+    with co-attention). MoE blocks with the CNN encoder and ``num_lstm_layers
+    != 1`` raise the JAX package's own refusals."""
     port_configs.ModelConfig().check_ported()
     vit = port_configs.ModelConfig.from_cfg(
         config_mod.compose("config_vit")["train"], 10)
@@ -70,8 +70,12 @@ def test_reference_config_is_ported_and_variants_are_not():
         cfg.check_ported()
     moe = port_configs.ModelConfig.from_cfg(
         config_mod.compose("config_vit_moe")["train"], 10)
-    with pytest.raises(NotImplementedError, match="image.moe_experts"):
-        moe.check_ported()
+    assert (moe.image.moe_experts, moe.image.moe_top_k) == (8, 2)
+    moe.check_ported()
+    cnn_moe = dataclasses.replace(moe, image=dataclasses.replace(
+        moe.image, encoder="cnn"))
+    with pytest.raises(ValueError, match="requires image.encoder='vit'"):
+        cnn_moe.check_ported()  # the JAX model's refusal, in its words
     base = port_configs.ModelConfig()
     two = dataclasses.replace(base, text=dataclasses.replace(
         base.text, num_lstm_layers=2))
@@ -83,15 +87,28 @@ def test_reference_config_is_ported_and_variants_are_not():
 
 
 @pytest.mark.parametrize("fields,error,match", [
-    ({"moe_experts": 8}, NotImplementedError, "moe_experts=8"),
+    ({"moe_experts": 8}, None, None),
     ({"store_dtype": "f8e4m3"}, ValueError, "CNN-stem serving mode"),
 ], ids=["moe", "f8"])
 def test_vit_options_that_are_not_ported_raise(fields, error, match):
-    """MoE blocks are still to port; f8 storage with the ViT is refused by
-    the JAX model too (a ``ValueError``)."""
+    """f8 storage with the ViT is refused by the JAX model too (a
+    ``ValueError``). MoE blocks are ported: that case passes the check, and
+    a model with them is built (``error`` None)."""
     base = port_configs.ModelConfig()
     cfg = dataclasses.replace(base, image=dataclasses.replace(
         base.image, encoder="vit", **fields))
+    if error is None:
+        cfg.check_ported()
+        small = dataclasses.replace(cfg, image=dataclasses.replace(
+            cfg.image, num_channels=(3, 64), num_layers=1, num_heads=1),
+            text=dataclasses.replace(cfg.text, question_features=8,
+                                     embedding_features=4),
+            num_tokens=10)
+        from dl_vqa_tpu_torch.models.vqa import VqaNet
+
+        model = VqaNet(small, device="cpu")
+        assert model.image.blocks[0].moe.gate.shape == (8, 64)
+        return
     with pytest.raises(error, match=match):
         cfg.check_ported()
 
@@ -111,7 +128,8 @@ def test_chip_smoke_builds_the_model_of_config_vit():
     assert chip_smoke.VIT_TOKENS == expected.image.output_grid(224) ** 2
 
 
-@pytest.mark.parametrize("preset", ["config_san", "config_transformer_co"])
+@pytest.mark.parametrize("preset", ["config_san", "config_transformer_co",
+                                    "config_vit_moe"])
 def test_chip_smoke_builds_the_variant_presets_as_the_yaml_gives_them(preset):
     """``chip_smoke.py``'s phase 14 builds each variant preset from the
     port's preset dicts (no PyYAML): the JAX package's configuration of

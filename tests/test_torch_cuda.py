@@ -10,6 +10,7 @@ JAX it runs with:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import copy
 import ctypes
 
 import pytest
@@ -65,6 +66,7 @@ from dl_vqa_tpu_torch.ops.lstm_cuda import (
     persistent_plan,
 )
 from dl_vqa_tpu_torch.ops.vit_attention import (
+    backward_grids,
     vit_attention,
     vit_attention_backward_cuda,
     vit_attention_backward_reference,
@@ -737,6 +739,131 @@ def test_vit_attention_autograd_runs_kernels_4_and_5(device, dtype):
     vit_attention(plain_leaf, 2, plain=True).backward(cot)
     assert vit_attention_cuda.launches == counts[0] + 1
     _assert_vit_close(leaf.grad, plain_leaf.grad, dtype, 2)
+
+
+# Heads of 64 n for n > 1, which the kernels walk a 64-wide slice at a time
+# (bf16: their own grids; the backward two grids in both dtypes): one
+# image, odd S, one and two slices of a score row's padding, S = 256.
+VIT_WIDE_SHAPES = [(1, 5, 1, 128), (2, 33, 2, 128), (1, 197, 2, 128),
+                   (3, 50, 1, 192), (1, 196, 2, 192), (2, 256, 1, 128),
+                   (1, 17, 3, 256)]
+
+
+def _vit_wide_inputs(device, dtype, batch, seq, heads, head, seed=11):
+    g = _gen(device, seed)
+    qkv = torch.randn(batch, seq, 3 * heads * head, generator=g,
+                      device=device).to(dtype)
+    cot = torch.randn(batch, seq, heads * head, generator=g,
+                      device=device).to(dtype)
+    return qkv, cot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,seq,heads,head", VIT_WIDE_SHAPES)
+def test_vit_attention_wide_heads_match_plain(device, dtype, batch, seq,
+                                              heads, head):
+    """Kernel 4 and kernel 5 at heads of 128, 192 and 256 against their
+    plain versions, at the head-64 tolerances (the sums over the head run
+    over its slices in order: the order of one sum), the grids counted,
+    and kernel 5's digits the same on a second run."""
+    qkv, cot = _vit_wide_inputs(device, dtype, batch, seq, heads, head)
+    before = (vit_attention_cuda.launches,
+              vit_attention_backward_cuda.launches)
+    out = vit_attention_cuda(qkv, heads)
+    grad = vit_attention_backward_cuda(qkv, cot, heads)
+    torch.cuda.synchronize()
+    assert (vit_attention_cuda.launches,
+            vit_attention_backward_cuda.launches) == (before[0] + 1,
+                                                      before[1] + 2)
+    assert backward_grids(dtype, head) == 2
+    assert out.shape == (batch, seq, heads * head) and out.dtype == dtype
+    _assert_vit_close(out, vit_attention_reference(qkv, heads), dtype, 1)
+    _assert_vit_close(grad, vit_attention_backward_reference(qkv, cot, heads),
+                      dtype, 2)
+    assert torch.equal(grad, vit_attention_backward_cuda(qkv, cot, heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_attention_wide_heads_do_not_mix_and_autograd_runs_them(
+        device, dtype):
+    """Two heads of 128: zeroing head 1's lanes leaves head 0's output and
+    gradients equal to the bit, and the Function runs kernels 4 and 5 and
+    gives the plain path's gradient."""
+    qkv, cot = _vit_wide_inputs(device, dtype, 2, 52, 2, 128)
+    zeroed = qkv.clone()
+    for part in range(3):
+        zeroed[..., part * 256 + 128:part * 256 + 256] = 0
+    a, b = (vit_attention_cuda(t, 2) for t in (qkv, zeroed))
+    assert torch.equal(a[..., :128], b[..., :128])
+    da, db = (vit_attention_backward_cuda(t, cot, 2) for t in (qkv, zeroed))
+    for part in range(3):
+        lanes = slice(part * 256, part * 256 + 128)
+        assert torch.equal(da[..., lanes], db[..., lanes])
+    leaf = qkv.clone().requires_grad_(True)
+    vit_attention(leaf, 2).backward(cot)
+    plain_leaf = qkv.clone().requires_grad_(True)
+    vit_attention(plain_leaf, 2, plain=True).backward(cot)
+    _assert_vit_close(leaf.grad, plain_leaf.grad, dtype, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_wide_head_bits_do_not_depend_on_the_batch(device, dtype):
+    """An image's output and gradient at two heads of 128 are the same bits
+    in a batch of 1 and of 9."""
+    qkv, cot = _vit_wide_inputs(device, dtype, 9, 196, 2, 128)
+    assert torch.equal(vit_attention_cuda(qkv[:1], 2),
+                       vit_attention_cuda(qkv, 2)[:1])
+    assert torch.equal(vit_attention_backward_cuda(qkv[:1], cot[:1], 2),
+                       vit_attention_backward_cuda(qkv, cot, 2)[:1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_vit_block_on_cuda_matches_the_cpu(device, dtype, monkeypatch):
+    """A MoE ViT block (width 128, two heads of 64, four experts, top-2) on
+    the card against the same block on the CPU, forward and backward: the
+    routing first (the expert of each slot, equal but for near-ties that
+    the two devices' f32 sums may order otherwise: at most 1 in 100
+    slots), then the output and the input gradient of the tokens routed
+    alike. f32: 1e-4 (sums in another order through the attention and the
+    expert products); bf16: four bf16 steps of the largest value
+    (roundings that the other order moves)."""
+    from dl_vqa_tpu_torch.models.vit import VitBlock
+    from dl_vqa_tpu_torch.ops import moe
+
+    gating = moe.top_k_gating
+    routes = []
+
+    def recording(logits, top_k, capacity):
+        routing = gating(logits, top_k, capacity)
+        routes.append(routing.expert.cpu())
+        return routing
+
+    monkeypatch.setattr(moe, "top_k_gating", recording)
+    block = VitBlock(128, 2, 0.0, experts=4)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(0)
+        for p in block.parameters():
+            p.copy_(torch.empty_like(p).uniform_(-0.2, 0.2, generator=gen))
+    x = torch.randn(6, 49, 128, generator=torch.Generator().manual_seed(1))
+    cot = torch.randn(6, 49, 128, generator=torch.Generator().manual_seed(2))
+    results = {}
+    for where in ("cpu", "cuda"):
+        b = copy.deepcopy(block).to(where)
+        leaf = x.to(where, dtype).detach().requires_grad_(True)
+        sink = []
+        out = b(leaf, dtype, False, None, moe=(2, 1.25), aux_sink=sink)
+        out.float().mul(cot.to(where)).sum().backward()
+        results[where] = (out.detach().float().cpu(), leaf.grad.float().cpu(),
+                          routes[-1], float(sink[0].detach()))
+    out_c, grad_c, experts_c, aux_c = results["cpu"]
+    out_g, grad_g, experts_g, aux_g = results["cuda"]
+    assert float((experts_c != experts_g).float().mean()) <= 0.01
+    same = (experts_c == experts_g).all(dim=-1)             # [G, S] tokens
+    for got, want in ((out_g, out_c), (grad_g, grad_c)):
+        tol = (1e-4 if dtype == torch.float32
+               else 4 * 2.0 ** -8 * float(want.abs().max()))
+        torch.testing.assert_close(got[same], want[same], atol=tol, rtol=0)
+    assert abs(aux_g - aux_c) <= 1e-4 * abs(aux_c)
 
 
 @pytest.mark.parametrize("call", [

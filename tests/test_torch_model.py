@@ -186,24 +186,22 @@ def test_nonzero_bias_hh_is_summed_into_the_gates():
 
 @pytest.mark.parametrize("change", [
     {"text": {"encoder": "transformer"}},
-    {"image": {"encoder": "vit", "moe_experts": 8}},
+    {"image": {"encoder": "vit", "moe_experts": 8, "num_channels": (3, 64),
+               "num_heads": 1, "num_layers": 1}},
     {"attention": {"variant": "stacked"}},
     {"attention": {"variant": "co"}},
 ], ids=["transformer", "vit", "stacked", "co"])
 def test_unported_variants_raise(change):
-    """Of the JAX package's variants only the ViT's MoE blocks (the ``vit``
-    case) are still to port and raise. The transformer text encoder and
-    the stacked and co attention build and run (their parity with the JAX
-    package is ``tests/test_torch_variants.py``'s): on the small model
-    here each gives finite logits of the right shape."""
+    """Every variant of the JAX package is ported now, the ViT's MoE blocks
+    (the ``vit`` case: one block of eight experts) last: the transformer
+    text encoder, the MoE ViT and the stacked and co attention build and
+    run (their parity with the JAX package is
+    ``tests/test_torch_variants.py``'s and ``tests/test_torch_moe.py``'s):
+    on the small model here each gives finite logits of the right shape."""
     cfg = _port_cfg(_jax_cfg())
     for group, fields in change.items():
         cfg = dataclasses.replace(
             cfg, **{group: dataclasses.replace(getattr(cfg, group), **fields)})
-    if cfg.image.moe_experts:
-        with pytest.raises(NotImplementedError, match="moe_experts"):
-            VqaNet(cfg, device="cpu")
-        return
     model = VqaNet(cfg, device="cpu")
     images, questions, lengths = (torch.from_numpy(a)
                                   for a in _batch(64, True))

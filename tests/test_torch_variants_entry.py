@@ -1,9 +1,10 @@
-"""The entry points of the attention and text variants on the CPU, against
-the JAX package's: ``main`` of ``config_san`` and ``config_transformer_co``
-for one short epoch with ``evaluate_vqa`` on its best checkpoint, and the
-serving fronts (the HTTP front, ``predict --submission``) on a JAX
-checkpoint of each variant, at tiny widths cut by dotlist. The modules'
-parity is ``tests/test_torch_variants.py``'s.
+"""The entry points of the attention and text variants and of the
+ViT-MoE on the CPU, against the JAX package's: ``main`` of ``config_san``,
+``config_transformer_co`` and ``config_vit_moe`` for one short epoch with
+``evaluate_vqa`` on its best checkpoint, and the serving fronts (the HTTP
+front, ``predict --submission``) on a JAX checkpoint of each, at tiny
+widths cut by dotlist. The modules' parity is
+``tests/test_torch_variants.py``'s and ``tests/test_torch_moe.py``'s.
 """
 
 import glob
@@ -19,11 +20,19 @@ from dl_vqa_tpu_torch import evaluate_vqa as port_eval
 from dl_vqa_tpu_torch import main as port_main
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# config_vit_moe cut to the tests' size: one MoE block of four experts, a
+# head of 64, patch 8. Its main run takes LR 5e-3: at 5e-4 the two steps of
+# the short epoch leave its val score at 0, and no best checkpoint is
+# written for evaluate_vqa to score.
+MOE_IMAGE = ["train.image.encoder=vit", "train.image.num_channels=[3, 64]",
+             "train.image.patch_size=8", "train.image.num_layers=1",
+             "train.image.num_heads=1", "train.image.moe_experts=4"]
 
 
 # ------------------------------------------------------------ fronts
 
-@pytest.mark.parametrize("preset", ["config_san", "config_transformer_co"])
+@pytest.mark.parametrize("preset", ["config_san", "config_transformer_co",
+                                    "config_vit_moe"])
 def test_the_fronts_serve_a_jax_checkpoint_of_each_variant(tmp_path, preset):
     """A JAX checkpoint of the preset's variant (tiny widths): the port's
     HTTP front answers a posted JPEG with the Predictor's top-3 for it, and
@@ -43,7 +52,8 @@ def test_the_fronts_serve_a_jax_checkpoint_of_each_variant(tmp_path, preset):
     overrides, jpegs, _ = _corpus(tmp_path, extra=[
         f"train.text.encoder={train['text']['encoder']}",
         f"train.attention.variant={train['attention']['variant']}",
-        "train.text.num_heads=4"])
+        "train.text.num_heads=4",
+        *(MOE_IMAGE if train["image"]["moe_experts"] else [])])
     cfg = config_mod.compose("config_eval", overrides=overrides)
     question = "what color is the cat?"
     (want,) = Predictor.from_config(cfg, device="cpu").predict(
@@ -118,22 +128,26 @@ def _overrides(profile, tmp_path, preset):
         "train.image_size=24", "train.text.embedding_features=8",
         "train.image.num_channels=[3, 4, 6]", "train.attention.hidden_dim=12",
         "train.classifier.hidden_dim=16", "tpu.compute_dtype=float32",
-        *text]
+        *text, *(MOE_IMAGE + ["train.lr.lr_value=5.0e-3"]
+                 if preset == "config_vit_moe" else [])]
 
 
-@pytest.mark.parametrize("preset", ["config_san", "config_transformer_co"])
+@pytest.mark.parametrize("preset", ["config_san", "config_transformer_co",
+                                    "config_vit_moe"])
 def test_main_trains_the_preset_and_evaluate_gives_its_score(corpus,
                                                              tmp_path,
                                                              preset):
     """One epoch of the preset through ``main`` (its variant, widths cut
     by dotlist), a mid-epoch save; ``evaluate_vqa`` of the best checkpoint
     with the preset's model settings gives the loop's best score, and for
-    transformer_co so does the JAX package's ``evaluate_hw2`` on the
-    port's checkpoint."""
+    transformer_co and the ViT-MoE so does the JAX package's
+    ``evaluate_hw2`` on the port's checkpoint."""
     overrides = _overrides(corpus, tmp_path, preset)
     cfg = port_config.compose(preset, overrides
                               + ["tpu.checkpoint_every_steps=1"])
-    assert cfg["train"]["attention"]["variant"] in ("stacked", "co")
+    moe = preset == "config_vit_moe"
+    assert cfg["train"]["attention"]["variant"] in (
+        ("single",) if moe else ("stacked", "co"))
     best = port_main.main(cfg, device="cpu")
     (exp_dir,) = glob.glob(str(tmp_path / "logs" / "*_model_*"))
     assert {"model.ckpt", "last.ckpt"} <= set(os.listdir(exp_dir))
@@ -141,12 +155,13 @@ def test_main_trains_the_preset_and_evaluate_gives_its_score(corpus,
     variant = [f"train.attention.variant={train['attention']['variant']}",
                f"train.text.encoder={train['text']['encoder']}",
                f"train.max_answers={train['max_answers']}",
-               "train.image.stride=1", "train.attention.do_option=+"]
+               "train.image.stride=1", "train.attention.do_option=+",
+               *(MOE_IMAGE if moe else [])]
     eval_overrides = overrides + variant + [
         f"main.small.paths.pretrained_model_path={exp_dir}/model.ckpt"]
     score = port_eval.evaluate_hw2(eval_overrides, device="cpu")
     assert score == round(best, 3)
-    if preset == "config_transformer_co":
+    if preset in ("config_transformer_co", "config_vit_moe"):
         if REPO not in sys.path:
             sys.path.insert(0, REPO)
         import evaluate_vqa as jax_eval
