@@ -155,7 +155,21 @@
    Predictor's to the bit: one JSON line ``{"vit_moe": ...}``. Phase 3
    also holds kernels 4 and 5 at two heads of 128 (B = 512, S = 196, bf16
    and f32) to their plain versions and times them beside SDPA
-   (``head128`` in the kernels line).
+   (``head128`` in the kernels line);
+16. online_e2e (after phase 9): the image data plane from JPEG files.
+   cnn_e2e's questions over COCO-named copies of the committed fixtures
+   (mostly the 640x480 one) in a JPEG directory a split; both stores
+   built by ``preprocess_images(backend="auto")`` (nvJPEG on a host with
+   no libjpeg; an ``.npy`` store where h5py is missing), every row held
+   to PIL's pixels of its fixture within TOL["decode_nvjpeg"] levels; the
+   loader's images/s at 640x480 -> 224 with 1, 4, 8 and all the host's
+   threads; ``main`` for 2 epochs with ``tpu.online_images=true`` and
+   ``tpu.profile_dir`` (the trace of epoch 1 parsed: the step's kernels,
+   the epoch's samples/s and the device's idle share), ``evaluate_vqa``
+   online on its best checkpoint, then in f32 online and from the built
+   store (the scores to TOL["online_eval_score"]); two runs of 2 epochs
+   from the built store with and without ``tpu.debug_nans`` (no alarm;
+   the step time of each): one JSON line ``{"online_e2e": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
@@ -163,8 +177,8 @@ the layout probe, the three quantized serving paths and the f8 train step,
 the serving front's HTTP, int8 HTTP and native paths, the exported
 programs of the aot phase, the variants' serving, training and exported
 paths, the ViT-MoE's serving, fused serving, training and exported
-paths, cnn_e2e, its quantized evaluations, the sweep's trials and the
-transformer_co journey) is driven with the kernels'
+paths, cnn_e2e, online_e2e's run and evaluation, cnn_e2e's quantized
+evaluations, the sweep's trials and the transformer_co journey) is driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels, kernel 7 its tensor-core
 kernel and the token states the f32 persistent kernel (``FAST_PATHS``).
@@ -182,6 +196,7 @@ exits nonzero at once. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -386,7 +401,8 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "logits_f32_int8_vit": 1e-4, "decode_libjpeg": 1,
        "decode_nvjpeg": 4,
        "served_probs": 1e-3, "aot_logits": 0.0,
-       "logits_moe_flipped": 2e-3, "grads_moe_flipped": 1.5e-1}
+       "logits_moe_flipped": 2e-3, "grads_moe_flipped": 1.5e-1,
+       "online_eval_score": 1e-6, "online_eval_loss": 1e-3}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores, dense
 # int8 tensor-core rate.
@@ -3025,6 +3041,26 @@ def e2e_parity(torch, seed: int, cfg: dict, train_ds, val_ds,
     return out
 
 
+@contextlib.contextmanager
+def recorded_scalars(scalars: dict):
+    """Every scalar a TrainLogger reports while the block runs, appended
+    under its tag in ``scalars``."""
+    from dl_vqa_tpu_torch.utils.logger import TrainLogger
+
+    report_scalars = TrainLogger.report_scalars
+
+    def recording(self, values, epoch):
+        for tag, value in values.items():
+            scalars.setdefault(tag, []).append(float(value))
+        report_scalars(self, values, epoch)
+
+    TrainLogger.report_scalars = recording
+    try:
+        yield scalars
+    finally:
+        TrainLogger.report_scalars = report_scalars
+
+
 def e2e_timings(torch, compose, batches: int) -> dict:
     """``dl_vqa_tpu_torch.main.main`` on the corpus with the table on and
     off (``train.save_model=false``; launches not counted), each under
@@ -3036,19 +3072,10 @@ def e2e_timings(torch, compose, batches: int) -> dict:
 
     from dl_vqa_tpu_torch.main import main as train_main
     from dl_vqa_tpu_torch.train.loop import EPOCH_SPAN
-    from dl_vqa_tpu_torch.utils.logger import TrainLogger
 
     scalars = {}
-    report_scalars = TrainLogger.report_scalars
-
-    def recording(self, values, epoch):
-        for tag, value in values.items():
-            scalars.setdefault(tag, []).append(float(value))
-        report_scalars(self, values, epoch)
-
     out = {}
-    TrainLogger.report_scalars = recording
-    try:
+    with recorded_scalars(scalars):
         for mode in ("on", "off"):
             scalars.clear()
             with profile(activities=[ProfilerActivity.CPU,
@@ -3075,9 +3102,337 @@ def e2e_timings(torch, compose, batches: int) -> dict:
                 f"{idle['device_busy_s']:.3f} s, idle "
                 f"{idle['idle_share']:.1%}; device s by kind "
                 + json.dumps(idle["device_s_by_kind"]))
-    finally:
-        TrainLogger.report_scalars = report_scalars
     return out
+
+
+# Phase 16, online_e2e: the image data plane from JPEG files. cnn_e2e's
+# questions over COCO-named copies of the committed fixtures (each id keeps
+# the fixture it copies, so PIL's pixels of every row are known), the
+# stores built from them, the CNN trained and evaluated on the JPEGs.
+ONLINE_DIR = "online"  # under E2E_DIR
+RATE_IMAGES = 256  # files of the COCO-sized fixture a decode rate times
+TRACE_KERNELS = ("relu_maxpool_kernel", "relu_maxpool_backward",
+                 "attention_pool_kernel", "lstm_backward_step", "lstm_")
+
+
+def online_fixture_of(image_id: int) -> str:
+    """The fixture an image id of the online corpus copies: ids 0, 1, 2
+    modulo 8 the three small fixtures (4:2:2, progressive 4:4:4, grey), the
+    rest the COCO-sized one."""
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        LAYOUTS, LOAD_FIXTURE)
+
+    others = [name for name in LAYOUTS if name != LOAD_FIXTURE]
+    k = image_id % 8
+    return others[k] if k < len(others) else LOAD_FIXTURE
+
+
+def online_corpus(prof: dict, root: str) -> dict:
+    """cnn_e2e's profile group with a JPEG directory a split (a copy of a
+    fixture for every image id of the split's store) and the paths of the
+    stores and dataset caches the phase builds: the online profile."""
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch.data.dataset import store_ids
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import FIXTURES
+
+    base = prof["paths"]["base_path"]
+    out_dir = os.path.join(root, ONLINE_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    online = {"paths": dict(prof["paths"])}
+    for split in ("train_paths", "val_paths"):
+        subtype = prof[split]["imgs"]
+        image_dir = os.path.join(base, f"jpeg_{subtype}")
+        os.makedirs(image_dir, exist_ok=True)
+        for image_id in store_ids(prof[split]["processed_imgs"]).tolist():
+            shutil.copyfile(
+                os.path.join(FIXTURES, f"{online_fixture_of(image_id)}.jpg"),
+                os.path.join(image_dir,
+                             f"COCO_{subtype}_{image_id:012d}.jpg"))
+        name = split.split("_")[0]
+        online[split] = dict(
+            prof[split], imgs=f"jpeg_{subtype}",
+            processed_imgs=os.path.join(out_dir,
+                                        f"processed_{name}_images.h5"),
+            vqaDataset=os.path.join(out_dir, f"vqaDataset_{name}.npz"))
+    return online
+
+
+def hold_store(path: str, expected: dict) -> dict:
+    """Every row of a built store against PIL's normalized pixels of the
+    fixture its id copies, in uint8 levels of its channel: within
+    TOL["decode_nvjpeg"] plus the fp16 store's half step (at most 2**-10
+    of a value under 4: 0.06 of a level)."""
+    from dl_vqa_tpu_torch.data.dataset import open_image_store, store_ids
+    from dl_vqa_tpu_torch.data.images import (
+        IMAGENET_STD, normalize_uint8_chw)
+
+    features = open_image_store(path)
+    ids = store_ids(path)
+    want = {name: normalize_uint8_chw(pixels[None])[0]
+            for name, pixels in expected.items()}
+    level = (1.0 / (255.0 * IMAGENET_STD)).reshape(3, 1, 1)
+    worst = {}
+    for row, image_id in enumerate(ids.tolist()):
+        name = online_fixture_of(image_id)
+        levels = float((np.abs(np.asarray(features[row], np.float32)
+                               - want[name]) / level).max())
+        worst[name] = max(worst.get(name, 0.0), levels)
+    limit = TOL["decode_nvjpeg"] + 0.0625
+    require(max(worst.values()) <= limit,
+            f"store {path} against PIL's pixels: {worst} levels "
+            f"(tol {limit})")
+    return {"rows": int(len(ids)), "max_levels_by_fixture": worst}
+
+
+def decode_rates(paths, decoders) -> dict:
+    """images/s of ``decode_image_files`` on ``paths`` (640x480 -> 224) by
+    each decoder with 1, 4, 8 and ``os.cpu_count()`` threads, after a
+    warm-up of each."""
+    import os
+
+    from dl_vqa_tpu_torch.data.images import decode_image_files
+
+    out = {}
+    for decoder in decoders:
+        out[decoder] = {}
+        for threads in sorted({1, 4, 8, os.cpu_count() or 1}):
+            decode_image_files(paths[:2 * threads], 224, 0.875, decoder,
+                               threads)
+            t0 = time.perf_counter()
+            decode_image_files(paths, 224, 0.875, decoder, threads)
+            out[decoder][str(threads)] = len(paths) / (time.perf_counter()
+                                                       - t0)
+    return out
+
+
+def trace_idle_share(path: str, span: str) -> dict:
+    """A Chrome trace of ``torch.profiler`` (the loop's ``profile_dir``
+    file): its kernel names, and the device's idle share over ``span``
+    read as :func:`device_idle_share` reads a live trace (1 - the union of
+    the card's kernels, copies and sets inside it / its length)."""
+    with open(path) as fd:
+        events = [e for e in json.load(fd)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == span and e.get("cat") == "user_annotation"]
+    require(len(spans) == 1, f"one '{span}' span in {path}: {len(spans)}")
+    lo, hi = spans[0]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and e["ts"] + e["dur"] > lo and e["ts"] < hi]
+    busy, cursor = 0.0, lo
+    for start, end in sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                             for e in device):
+        start = max(start, cursor)
+        if end > start:
+            busy += end - start
+            cursor = end
+    names = sorted({e["name"] for e in device if e["cat"] == "kernel"})
+    return {"span_s": (hi - lo) / 1e6, "device_busy_s": busy / 1e6,
+            "idle_share": 1.0 - busy / (hi - lo), "kernel_names": names}
+
+
+@contextlib.contextmanager
+def recorded_evaluations(results: list):
+    """The unrounded ``(score, loss, ...)`` of every eval pass
+    ``evaluate_vqa`` runs while the block runs, appended to ``results``."""
+    from dl_vqa_tpu_torch.train import loop
+
+    evaluate = loop.evaluate
+
+    def recording(*args, **kwargs):
+        out = evaluate(*args, **kwargs)
+        results.append(out)
+        return out
+
+    loop.evaluate = recording
+    try:
+        yield results
+    finally:
+        loop.evaluate = evaluate
+
+
+def online_phase(torch, seed: int, prof: dict, e2e: dict) -> tuple:
+    """Phase 16: the image data plane from JPEG files at full width.
+
+    The stores of both splits built from the JPEG directories by
+    ``preprocess_images(backend="auto")`` (nvJPEG on a host with no
+    libjpeg), every row held to PIL's pixels (:func:`hold_store`); the
+    loader's images/s; then, counted, ``main`` for E2E_EPOCHS epochs with
+    ``tpu.online_images=true`` and ``tpu.profile_dir`` and ``evaluate_vqa``
+    online on its best checkpoint; the trace of epoch 1 parsed for its
+    kernels and the device's idle share; then, not counted,
+    ``evaluate_vqa`` in f32 online and from the built store (the score to
+    TOL["online_eval_score"], the loss to TOL["online_eval_loss"]), and
+    two epochs from the built store with and without ``tpu.debug_nans``.
+    Returns ``(launches, numbers)``."""
+    import os
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.data.images import (
+        coco_id_from_filename, decoder_for, list_jpgs, preprocess_images)
+    from dl_vqa_tpu_torch.evaluate_vqa import evaluate_hw2
+    from dl_vqa_tpu_torch.main import main as train_main
+    from dl_vqa_tpu_torch.ops import _host
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        LOAD_FIXTURE, load_expected)
+    from dl_vqa_tpu_torch.train.loop import EPOCH_SPAN
+
+    phase_start = time.perf_counter()
+    root = os.path.abspath(E2E_DIR)
+    online = online_corpus(prof, root)
+    threads = os.cpu_count() or 1
+    out = {"decoder": decoder_for("cuda"), "host_cpus": threads,
+           "libjpeg_missing": _host.missing("image")}
+
+    # The builder, as main builds a missing store.
+    built = {}
+    for split in ("train_paths", "val_paths"):
+        lines = []
+        t0 = time.perf_counter()
+        n = preprocess_images(
+            other_paths=online["paths"], data_paths=online[split],
+            image_size=E2E_IMAGE_SIZE, central_fraction=0.875,
+            processed_path=online[split]["processed_imgs"],
+            log=lines.append, backend="auto", device="cuda")
+        seconds = time.perf_counter() - t0
+        built[split] = {"images": n, "s": seconds,
+                        "images_per_s": n / seconds, "log": lines[0],
+                        **hold_store(online[split]["processed_imgs"],
+                                     load_expected())}
+        require(out["decoder"] in lines[0], f"the builder's log names "
+                f"{out['decoder']}: {lines[0]}")
+    out["builder"] = built
+    log(f"online_e2e builder: {json.dumps(built)}")
+
+    image_dir = os.path.join(online["paths"]["base_path"],
+                             online["train_paths"]["imgs"])
+    coco = sorted(os.path.join(image_dir, f) for f in list_jpgs(image_dir)
+                  if online_fixture_of(coco_id_from_filename(f))
+                  == LOAD_FIXTURE)
+    require(len(coco) >= RATE_IMAGES, f"{len(coco)} COCO-sized files")
+    decoders = ["nvjpeg"] + (["libjpeg"] if out["libjpeg_missing"] is None
+                             else [])
+    out["decode_images_per_s"] = decode_rates(coco[:RATE_IMAGES], decoders)
+    log(f"online_e2e loader images/s at 640x480 -> 224 by threads: "
+        f"{json.dumps(out['decode_images_per_s'])} against the CNN train "
+        f"step's {e2e['bare_step_samples_per_s']:.1f} samples/s")
+
+    def compose(prefix, extra=()):
+        return config_mod.compose(
+            "config", e2e_overrides(online, root, prefix, seed, [
+                f"main.num_workers={threads}", *extra]))
+
+    # The counted path: the online run and its evaluation.
+    trace_dir = os.path.join(root, ONLINE_DIR, "trace")
+    wrappers = kernel_wrappers()
+    scalars = {}
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    with recorded_scalars(scalars):
+        best = train_main(compose("online_train", [
+            "tpu.online_images=true", f"tpu.profile_dir={trace_dir}",
+            "tpu.checkpoint_every_steps=0"]))
+    run_s = time.perf_counter() - t0
+    best_ckpt = os.path.join(exp_dir_of(root, "online_train"), "model.ckpt")
+    eval_overrides = e2e_overrides(online, root, "online_eval", seed, [
+        f"main.num_workers={threads}",
+        f"main.small.paths.pretrained_model_path={best_ckpt}",
+        "train.image.stride=1", "train.attention.do_option=+"])
+    with open(os.path.join(root, ONLINE_DIR, "evaluate_stdout.txt"),
+              "w") as stdout, contextlib.redirect_stdout(stdout):
+        score = evaluate_hw2(eval_overrides + ["tpu.online_images=true"])
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers, "the online_e2e path")
+    batches = -(-E2E_TRAIN // BATCH)
+    val_batches = -(-E2E_VAL // BATCH)
+    steps, evals = E2E_EPOCHS * batches, val_batches * (E2E_EPOCHS + 1)
+    grids = recurrence_grids(torch)
+    expected = {
+        "lstm_recurrence_save": steps * (1 if grids == 1 else SEQ_LEN),
+        "lstm_backward_step": steps * SEQ_LEN,
+        "lstm_recurrence": evals * (1 if grids == 1 else SEQ_LEN),
+        "relu_maxpool": 3 * (steps + evals),
+        "relu_maxpool_backward": 6 * steps,
+        "attention_pool": steps + evals,
+    }
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on the online_e2e path: {launches}, expected "
+            f"{expected}")
+    require(abs(score - best) <= TOL["e2e_eval_score"],
+            f"online evaluate_vqa {score} vs the loop's best {best}")
+    samples_per_s = scalars["Throughput/QAPairsPerSecPerChip"][1]
+    traces = os.listdir(trace_dir)
+    require(len(traces) == 1, f"one trace of epoch 1: {traces}")
+    trace = trace_idle_share(os.path.join(trace_dir, traces[0]), EPOCH_SPAN)
+    missing = [k for k in TRACE_KERNELS
+               if not any(k in name for name in trace["kernel_names"])]
+    require(not missing, f"the trace's kernels lack {missing}: "
+            f"{trace['kernel_names']}")
+    out["online_run"] = {
+        "s": run_s, "best_score": best, "evaluate_score": score,
+        "epoch1_samples_per_s": samples_per_s,
+        "epoch1_s": batches / scalars["Throughput/StepsPerSec"][1],
+        "bare_step_samples_per_s": e2e["bare_step_samples_per_s"],
+        "table_on_samples_per_s": e2e["table_on"]["samples_per_s"],
+        "trace_file": traces[0],
+        "trace_bytes": os.path.getsize(os.path.join(trace_dir, traces[0])),
+        **{k: v for k, v in trace.items() if k != "kernel_names"},
+        "trace_kernels": len(trace["kernel_names"])}
+    log(f"online_e2e: main online {E2E_EPOCHS} epochs in {run_s:.1f} s, "
+        f"best {best:.4f}, evaluate_vqa online {score}; epoch 1 "
+        f"{samples_per_s:.1f} samples/s (bare step "
+        f"{e2e['bare_step_samples_per_s']:.1f}, table on "
+        f"{e2e['table_on']['samples_per_s']:.1f}); its trace "
+        f"{traces[0]}: span {trace['span_s']:.3f} s, device busy "
+        f"{trace['device_busy_s']:.3f} s, idle {trace['idle_share']:.1%}")
+    log(f"online_e2e: kernel launches {json.dumps(launches)}")
+
+    # Not counted: online against the built store in f32, as the JAX
+    # package's test holds its two pipelines.
+    results = {}
+    for mode, extra in (("online", ["tpu.online_images=true"]),
+                        ("store", [])):
+        evaluations = []
+        with open(os.path.join(root, ONLINE_DIR, f"evaluate_{mode}.txt"),
+                  "w") as stdout, contextlib.redirect_stdout(stdout), \
+                recorded_evaluations(evaluations):
+            evaluate_hw2(eval_overrides + ["tpu.compute_dtype=float32",
+                                           *extra])
+        require(len(evaluations) == 1, f"one eval pass: {evaluations}")
+        results[mode] = evaluations[0][:2]
+    (s_on, l_on), (s_store, l_store) = results["online"], results["store"]
+    out["f32_eval"] = {"online": [s_on, l_on], "store": [s_store, l_store]}
+    log(f"online_e2e evaluate_vqa in f32: online score {s_on!r} loss "
+        f"{l_on!r}; built store score {s_store!r} loss {l_store!r}")
+    require(abs(s_on - s_store) <= TOL["online_eval_score"],
+            f"online vs store score: {s_on} vs {s_store}")
+    require(abs(l_on - l_store) <= TOL["online_eval_loss"],
+            f"online vs store loss: {l_on} vs {l_store}")
+
+    # tpu.debug_nans on the clean corpus: no alarm; its step time.
+    nans = {}
+    for flag in ("false", "true"):
+        scalars = {}
+        with recorded_scalars(scalars):
+            nans_best = train_main(compose(f"online_nans_{flag}", [
+                "train.save_model=false", "tpu.checkpoint_every_steps=0",
+                f"tpu.debug_nans={flag}"]))
+        steps_per_s = scalars["Throughput/StepsPerSec"][1]
+        nans[flag] = {"best_score": nans_best,
+                      "epoch1_step_ms": 1e3 / steps_per_s,
+                      "epoch1_samples_per_s":
+                          scalars["Throughput/QAPairsPerSecPerChip"][1]}
+    require(torch.is_anomaly_enabled() is False,
+            "anomaly mode restored after the debug_nans run")
+    out["debug_nans"] = nans
+    log(f"online_e2e tpu.debug_nans on the built store, epoch 1: "
+        f"{nans['true']['epoch1_step_ms']:.3f} ms a step with the flag, "
+        f"{nans['false']['epoch1_step_ms']:.3f} without")
+    out["phase_s"] = time.perf_counter() - phase_start
+    return launches, out
 
 
 # The serving front: the reference-parity model at full width,
@@ -4860,6 +5215,10 @@ def main(argv=None) -> int:
     log(json.dumps({"vit_moe": {"card": card, **moe}}))
     paths["cnn_e2e"], e2e, e2e_profile = e2e_phase(torch, args.seed)
     log(json.dumps({"cnn_e2e": e2e}))
+    # Phase 16: the image data plane from JPEG files.
+    paths["online_e2e"], online = online_phase(torch, args.seed,
+                                               e2e_profile, e2e)
+    log(json.dumps({"online_e2e": {"card": card, **online}}))
     paths["cnn_e2e_quant_eval"], quant["cnn_e2e_quant_eval"] = (
         e2e_quant_eval_phase(torch, args.seed, e2e_profile,
                              e2e["best_score"]))

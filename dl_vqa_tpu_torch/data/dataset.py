@@ -18,7 +18,11 @@ W]`` (normalized, CHW) and ``ids [N]``, in one of two containers:
 
 A store of an integer dtype is refused (raw pixels are not a processed
 cache), and a cached row map built against another store raises
-:class:`StaleImageCacheError` on load.
+:class:`StaleImageCacheError` on load. A missing store is built from the
+split's JPEG directory (:func:`build_image_store`, through
+:func:`dl_vqa_tpu_torch.data.images.preprocess_images`). A dataset made
+with ``require_image_cache=False`` (the online JPEG pipeline) has no row
+map and reads no store.
 """
 
 from __future__ import annotations
@@ -32,10 +36,12 @@ from typing import Dict
 import numpy as np
 
 from dl_vqa_tpu_torch.data import text as vqa_text
+from dl_vqa_tpu_torch.data.images import preprocess_images
+from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE
 
 __all__ = ["VQADataset", "StaleImageCacheError", "load_or_build_val_dataset",
-           "open_image_store",
-           "require_image_store", "store_ids"]
+           "open_image_store", "build_image_store", "require_image_store",
+           "store_ids"]
 
 
 class StaleImageCacheError(RuntimeError):
@@ -87,6 +93,12 @@ class VQADataset:
       question_ids     int64 [N]
       image_ids        int64 [N]
       h5_rows          int64 [N]        row of each sample's image in the store
+                                        (zeros where ``has_image_rows`` is
+                                        False)
+
+    ``require_image_cache=False`` (the online JPEG pipeline, which decodes
+    images by id) reads no store: the dataset has no row map and
+    ``load_images_*`` refuse it.
     """
 
     def __init__(
@@ -95,6 +107,7 @@ class VQADataset:
         other_paths: dict,
         logger=None,
         answerable_only: bool = False,
+        require_image_cache: bool = True,
     ):
         log = logger.write if logger is not None else (lambda *_: None)
         base_path = other_paths["base_path"]
@@ -150,13 +163,16 @@ class VQADataset:
         self.image_ids = np.array(
             [q["image_id"] for q in questions_json["questions"]],
             dtype=np.int64)
-        # A cache of the JAX package's online mode has no rows (False).
-        self.has_image_rows = True
-        ids = store_ids(self.image_path)
-        self._h5_ids_meta = _ids_fingerprint(ids)
-        row_of = {int(img_id): row for row, img_id in enumerate(ids)}
-        self.h5_rows = np.array(
-            [row_of[i] for i in self.image_ids.tolist()], dtype=np.int64)
+        self.has_image_rows = bool(require_image_cache)
+        if require_image_cache:
+            ids = store_ids(self.image_path)
+            self._h5_ids_meta = _ids_fingerprint(ids)
+            row_of = {int(img_id): row for row, img_id in enumerate(ids)}
+            self.h5_rows = np.array(
+                [row_of[i] for i in self.image_ids.tolist()], dtype=np.int64)
+        else:
+            self._h5_ids_meta = None
+            self.h5_rows = np.zeros(n, dtype=np.int64)
 
         if answerable_only:
             log("Filtering to answerable-only samples")
@@ -248,8 +264,9 @@ class VQADataset:
         """Images of the given sample indices as ``[B, 3, H, W]``."""
         if not self.has_image_rows:
             raise RuntimeError(
-                "This dataset cache was built without an image store (no "
-                "row map, the JAX package's online mode); rebuild it.")
+                "This dataset was built without an image store "
+                "(require_image_cache=False, the online JPEG pipeline of "
+                "either package): it has no row map; rebuild it with one.")
         feats = self._features_view()
         rows = self.h5_rows[sample_indices]
         if isinstance(feats, np.ndarray):
@@ -329,24 +346,49 @@ class VQADataset:
         return root + ".npz"
 
 
-def require_image_store(path: str) -> None:
-    """Raise where the processed image store is missing: the port cannot
-    build one from JPEGs yet (``preprocess_images`` needs PIL)."""
-    if not os.path.exists(path):
+def require_image_store(path: str, image_dir: str) -> None:
+    """Raise where the processed image store ``path`` is missing and there
+    is no JPEG directory ``image_dir`` to build it from."""
+    if not os.path.exists(path) and not os.path.isdir(image_dir):
         raise FileNotFoundError(
-            f"image store {path!r} does not exist. dl_vqa_tpu_torch does not "
-            "build it from JPEGs yet (preprocess_images, ROADMAP queue 1, "
-            "the online pipeline): write an .npy store with "
-            "dl_vqa_tpu_torch.data.synthetic, or build the h5 cache with the "
-            "JAX package")
+            f"image store {path!r} does not exist, and there is no image "
+            f"directory {image_dir!r} to build it from (preprocess_images "
+            "reads the COCO JPEGs there): point processed_imgs at a store "
+            "or imgs at the JPEGs")
 
 
-def load_or_build_val_dataset(cfg, profile, logger=None, log=None):
-    """The val dataset of the eval entry point: loaded from its npz cache,
-    rebuilt when the cache is from an older version, was built against
-    another image store, or has no image rows."""
+def build_image_store(cfg, profile, split: str, log=None,
+                      device=DEFAULT_DEVICE) -> None:
+    """Build ``profile[split]``'s image store from its JPEG directory where
+    the store is missing (``tpu.image_builder_backend``; ``auto`` decodes
+    with the decoder of ``device``), as the JAX entry points do."""
     log = log or (lambda *_: None)
-    require_image_store(profile["val_paths"]["processed_imgs"])
+    processed = profile[split]["processed_imgs"]
+    image_dir = os.path.join(profile["paths"]["base_path"],
+                             profile[split]["imgs"])
+    require_image_store(processed, image_dir)
+    if os.path.exists(processed):
+        return
+    log(f"Processing {split} images -> {processed}")
+    preprocess_images(
+        other_paths=profile["paths"], data_paths=profile[split],
+        image_size=cfg["train"]["image_size"],
+        central_fraction=cfg["train"]["central_fraction"],
+        processed_path=processed, log=log,
+        backend=cfg["tpu"]["image_builder_backend"], device=device)
+
+
+def load_or_build_val_dataset(cfg, profile, logger=None, log=None,
+                              require_image_cache=True,
+                              device=DEFAULT_DEVICE):
+    """The val dataset of the eval entry points: its image store built
+    where it is missing (when required), the dataset loaded from its npz
+    cache, rebuilt when the cache is from an older version, was built
+    against another image store, or has no image rows and they are
+    required."""
+    log = log or (lambda *_: None)
+    if require_image_cache:
+        build_image_store(cfg, profile, "val_paths", log=log, device=device)
     cache = VQADataset.cache_path(profile["val_paths"]["vqaDataset"])
     dataset = None
     if os.path.exists(cache):
@@ -355,11 +397,13 @@ def load_or_build_val_dataset(cfg, profile, logger=None, log=None):
         except (KeyError, StaleImageCacheError) as e:
             log(f"Rebuilding stale cache {cache}: {e}")
             dataset = None
-        if dataset is not None and not dataset.has_image_rows:
+        if (dataset is not None and require_image_cache
+                and not dataset.has_image_rows):
             dataset = None
     if dataset is None:
         dataset = VQADataset(
             data_paths=profile["val_paths"], other_paths=profile["paths"],
-            logger=logger, answerable_only=False)
+            logger=logger, answerable_only=False,
+            require_image_cache=require_image_cache)
         dataset.save(cache)
     return dataset

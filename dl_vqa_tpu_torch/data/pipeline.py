@@ -9,7 +9,8 @@ The port's copy of ``dl_vqa_tpu/data/pipeline.py``:
   start_batch)``) and sees the batches the JAX package sees. Images come
   from the store per batch (fp16 NHWC), or, in table mode
   (``load_images=False``), a batch carries ``image_rows`` and the step
-  gathers from the device image table.
+  gathers from the device image table; a subclass may add its own images
+  in ``_finalize_batch`` (the online JPEG pipeline's uint8 NHWC).
 * :func:`prefetch_to_device` runs the batch iterator on a producer thread
   that copies each batch into pinned host memory and, on a CUDA device,
   sends it over in a non-blocking copy on a side stream; the consumer's
@@ -94,7 +95,14 @@ class Batcher:
             elif getattr(self.dataset, "has_image_rows", False):
                 batch["image_rows"] = self.dataset.h5_rows[idx].astype(
                     np.int32)
-            yield batch
+            yield self._finalize_batch(batch)
+
+    def _finalize_batch(self, batch: Dict[str, np.ndarray]
+                        ) -> Dict[str, np.ndarray]:
+        """Applied to every batch ``iter_epoch`` yields: a subclass adds
+        its images here (the online JPEG pipeline,
+        :class:`dl_vqa_tpu_torch.data.online.OnlineBatcher`)."""
+        return batch
 
 
 def prefetch_to_device(iterator, device, depth: int = 2):

@@ -17,8 +17,13 @@ quantized serving mode: ``f8e4m3`` as it is; ``int8`` with the scales in
 the checkpoint's metadata where it carries them, else calibrated on up to
 256 images of the train split's store, taken evenly by ``linspace``
 (val images, with a caveat in the log, only where there is no train
-store), as the JAX entry point does. The settings :func:`dl_vqa_tpu_torch.
-main.check_supported` refuses are not ported.
+store), as the JAX entry point does. A missing val store is built from its
+JPEG directory; ``tpu.online_images`` decodes the val JPEGs by id instead
+(``tpu.native_loader`` with it insists on libjpeg), and then int8 with
+neither scales nor a train store raises, as there. ``tpu.profile_dir`` and
+``tpu.debug_nans`` are train settings, which this entry point ignores as
+the JAX one does. The settings :func:`dl_vqa_tpu_torch.main.
+check_supported` refuses are not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ CALIBRATION_IMAGES = 256
 
 
 def _int8_scales(model_cfg, model, ckpt_meta, profile, val_dataset,
-                 compute_dtype, log):
+                 compute_dtype, log, online_images=False):
     """``model_cfg`` with the int8 mode's scales: a calibrate-once
     checkpoint's own (the numerics its deployment serves), else calibrated
     on train images, so that the val images being scored do not choose the
@@ -60,6 +65,13 @@ def _int8_scales(model_cfg, model, ckpt_meta, profile, val_dataset,
         cal = np.asarray(feats[rows]).transpose(0, 2, 3, 1)
         source = f"{len(rows)} train-cache images"
     else:
+        if online_images:
+            raise ValueError(
+                "train.image.store_dtype=int8 auto-calibration reads a "
+                "processed image store; build one (run with "
+                "tpu.online_images=false), use a calibrate-once checkpoint "
+                "(predict.Predictor.calibrate_int8 save_to=...), or set "
+                "image.quant_scales programmatically")
         n_cal = min(len(val_dataset), CALIBRATION_IMAGES)
         rows = np.linspace(0, len(val_dataset) - 1, n_cal).astype(np.int64)
         cal = val_dataset.load_images_nhwc(rows)
@@ -105,8 +117,10 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
             data_base_path=profile["paths"]["base_path"],
             data_paths=profile["train_paths"], vocab_path=vocab_path,
             max_answers=cfg["train"]["max_answers"])
-    val_dataset = load_or_build_val_dataset(cfg, profile, logger=logger,
-                                            log=logger.write)
+    online_images = cfg["tpu"]["online_images"]
+    val_dataset = load_or_build_val_dataset(
+        cfg, profile, logger=logger, log=logger.write,
+        require_image_cache=not online_images, device=device)
 
     model_cfg = ModelConfig.from_cfg(cfg["train"], val_dataset.num_tokens,
                                      use_pallas=cfg["tpu"]["use_pallas"])
@@ -116,13 +130,24 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
     if (model_cfg.image.store_dtype == "int8"
             and not model_cfg.image.quant_scales):
         model_cfg = _int8_scales(model_cfg, model, ckpt_meta, profile,
-                                 val_dataset, compute_dtype, logger.write)
+                                 val_dataset, compute_dtype, logger.write,
+                                 online_images)
         model.configure(model_cfg)
     eval_step = make_eval_step(model_cfg, compute_dtype, with_breakdown=True)
-    image_table = plan_image_tables(cfg, {"val": val_dataset}, device,
-                                    log=logger.write)["val"]
-    batcher = Batcher(val_dataset, cfg["train"]["batch_size"],
-                      load_images=image_table is None)
+    if online_images:
+        from dl_vqa_tpu_torch.data.online import (
+            OnlineBatcher, loader_from_config)
+
+        image_table = None
+        batcher = OnlineBatcher(
+            val_dataset, cfg["train"]["batch_size"],
+            loader_from_config(cfg, profile, "val_paths", device,
+                               logger.write))
+    else:
+        image_table = plan_image_tables(cfg, {"val": val_dataset}, device,
+                                        log=logger.write)["val"]
+        batcher = Batcher(val_dataset, cfg["train"]["batch_size"],
+                          load_images=image_table is None)
     score, _, per_type = evaluate(
         eval_step, model, batcher, cfg["tpu"]["prefetch_depth"],
         breakdown=True, image_table=image_table)

@@ -13,13 +13,18 @@ metric report. On the GPU unless the caller of :func:`main` passes
 
 The first argument without ``=`` names a preset (``config_san``, ...; the
 port carries them as dicts). ``-m`` (``--multirun``) sweeps, as Hydra's
-multirun does (:func:`multirun_main`). Settings the port does not have
-yet raise at once, naming their ROADMAP item: ``tpu.online_images`` and
-``tpu.native_loader`` (the online JPEG pipeline), ``tpu.checkpoint_backend=
-orbax``, mesh axes other than one device, ``tpu.zero_stage``,
-``tpu.pipeline_microbatches``, ``tpu.debug_nans`` and ``tpu.profile_dir``.
-``tpu.use_pallas`` and ``tpu.prng_impl`` choose between JAX
-implementations and mean nothing here. ``train.image.store_dtype=f8e4m3``
+multirun does (:func:`multirun_main`). A split's missing image store is
+built from its JPEG directory (``tpu.image_builder_backend``) unless
+``tpu.online_images`` decodes the JPEGs by id as batches are made
+(:mod:`dl_vqa_tpu_torch.data.online`; ``tpu.native_loader`` with it
+insists on libjpeg). ``tpu.profile_dir`` traces epoch 1 and
+``tpu.debug_nans`` raises ``FloatingPointError`` at the first step that
+returns a NaN (:func:`dl_vqa_tpu_torch.train.loop.train`). Settings the
+port does not have yet raise at once, naming their ROADMAP item:
+``tpu.checkpoint_backend=orbax``, mesh axes other than one device,
+``tpu.zero_stage`` and ``tpu.pipeline_microbatches``. ``tpu.use_pallas``
+and ``tpu.prng_impl`` choose between JAX implementations and mean nothing
+here. ``train.image.store_dtype=f8e4m3``
 trains through the f8 store's straight-through backward; ``int8`` serves
 only, and the model refuses it in training as the JAX model does.
 """
@@ -43,10 +48,6 @@ def check_supported(cfg: dict) -> None:
     """Raise ``NotImplementedError`` for a setting the port lacks."""
     tpu = cfg["tpu"]
     missing = []
-    if tpu["online_images"] or tpu["native_loader"]:
-        missing.append("tpu.online_images / tpu.native_loader (the online "
-                       "JPEG pipeline and preprocess_images: ROADMAP queue "
-                       "1, item 3's remainder)")
     if tpu["checkpoint_backend"] != "npz":
         missing.append(f"tpu.checkpoint_backend="
                        f"{tpu['checkpoint_backend']!r} (npz only: the Orbax "
@@ -60,11 +61,6 @@ def check_supported(cfg: dict) -> None:
                        f"{tpu['zero_stage']}, tpu.pipeline_microbatches="
                        f"{tpu['pipeline_microbatches']} (one device only: "
                        "the parallel axes are ROADMAP queue 1, item 9)")
-    if tpu["debug_nans"]:
-        missing.append("tpu.debug_nans (ROADMAP queue 1, item 3's remainder)")
-    if tpu["profile_dir"]:
-        missing.append("tpu.profile_dir (profile traces: ROADMAP queue 1, "
-                       "item 3's remainder)")
     if tpu["image_builder_backend"] not in ("auto", "native", "pil"):
         raise ValueError(f"unknown builder backend: "
                          f"{tpu['image_builder_backend']!r}")
@@ -98,7 +94,7 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
     from dl_vqa_tpu_torch import config as config_mod
     from dl_vqa_tpu_torch.data import vocab as vocab_mod
     from dl_vqa_tpu_torch.data.dataset import (
-        StaleImageCacheError, VQADataset, require_image_store)
+        StaleImageCacheError, VQADataset, build_image_store)
     from dl_vqa_tpu_torch.data.device_cache import plan_image_tables
     from dl_vqa_tpu_torch.data.pipeline import Batcher
     from dl_vqa_tpu_torch.models.configs import ModelConfig
@@ -131,8 +127,11 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
             data_base_path=profile["paths"]["base_path"],
             data_paths=profile["train_paths"], vocab_path=vocab_path,
             max_answers=cfg["train"]["max_answers"])
-    for split in ("train_paths", "val_paths"):
-        require_image_store(profile[split]["processed_imgs"])
+    online_images = cfg["tpu"]["online_images"]
+    if not online_images:
+        for split in ("train_paths", "val_paths"):
+            build_image_store(cfg, profile, split, log=logger.write,
+                              device=device)
 
     def load_or_build(split: str, answerable_only: bool) -> VQADataset:
         cache = VQADataset.cache_path(profile[split]["vqaDataset"])
@@ -142,15 +141,17 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
             except (KeyError, StaleImageCacheError) as e:
                 logger.write(f"Rebuilding stale cache {cache}: {e}")
             else:
-                if loaded.has_image_rows:
+                if online_images or loaded.has_image_rows:
                     logger.write(f"Loading VQA {split} dataset from {cache}")
                     return loaded
-                logger.write(f"Cache {cache} has no image rows; rebuilding")
+                logger.write(f"Cache {cache} was built in online-image "
+                             "mode; rebuilding with the store's row map")
         else:
             logger.write(f"Creating {split} dataset")
         ds = VQADataset(data_paths=profile[split],
                         other_paths=profile["paths"], logger=logger,
-                        answerable_only=answerable_only)
+                        answerable_only=answerable_only,
+                        require_image_cache=not online_images)
         ds.save(cache)
         return ds
 
@@ -175,14 +176,31 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
             opt_restore_path = pretrained  # the full state, Adam included
     logger.write(parameter_summary(model))
 
-    tables = plan_image_tables(
-        cfg, {"train": train_dataset, "val": val_dataset}, device,
-        log=logger.write)
     batch_size = cfg["train"]["batch_size"]
-    train_batcher = Batcher(train_dataset, batch_size, shuffle=True,
-                            seed=seed, load_images=tables["train"] is None)
-    val_batcher = Batcher(val_dataset, batch_size,
-                          load_images=tables["val"] is None)
+    if online_images:
+        from dl_vqa_tpu_torch.data.online import (
+            OnlineBatcher, loader_from_config)
+
+        # The batches carry their decoded JPEGs: no table, even where the
+        # dataset has rows from an earlier run.
+        tables = {"train": None, "val": None}
+        train_batcher = OnlineBatcher(
+            train_dataset, batch_size,
+            loader_from_config(cfg, profile, "train_paths", device,
+                               logger.write), shuffle=True, seed=seed)
+        val_batcher = OnlineBatcher(
+            val_dataset, batch_size,
+            loader_from_config(cfg, profile, "val_paths", device,
+                               logger.write))
+    else:
+        tables = plan_image_tables(
+            cfg, {"train": train_dataset, "val": val_dataset}, device,
+            log=logger.write)
+        train_batcher = Batcher(train_dataset, batch_size, shuffle=True,
+                                seed=seed,
+                                load_images=tables["train"] is None)
+        val_batcher = Batcher(val_dataset, batch_size,
+                              load_images=tables["val"] is None)
 
     metrics = train(
         model_cfg, model, train_batcher, val_batcher,
@@ -192,7 +210,8 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
         profile_dir=cfg["tpu"]["profile_dir"], remat=cfg["tpu"]["remat"],
         accum_steps=cfg["tpu"]["grad_accum_steps"],
         train_image_table=tables["train"], eval_image_table=tables["val"],
-        checkpoint_every_steps=cfg["tpu"]["checkpoint_every_steps"])
+        checkpoint_every_steps=cfg["tpu"]["checkpoint_every_steps"],
+        debug_nans=cfg["tpu"]["debug_nans"])
 
     logger.report_metrics_hyper_params(config_mod.flatten(cfg["train"]),
                                        metrics)

@@ -3,9 +3,10 @@
 The sibling of :mod:`dl_vqa_tpu_torch.ops._native` for code that runs on
 the host, not the card:
 
-* ``image``: ``native/image_pipeline.cc`` (libjpeg decode, then PIL's
-  bilinear resize of the shorter edge and the centre crop) and the port's
-  C interface to it (``csrc/host/image_decode.cc``);
+* ``image``: the port's libjpeg decoder (``csrc/host/image_decode.cc``:
+  RGB, greyscale and CMYK JPEGs, one image or a list of files on a pool of
+  host threads) and the port's copy of the native resize and centre crop
+  (``csrc/host/resample.cc``);
 * ``serve``: ``native/serve_front.cc`` and ``native/image_pipeline.cc``,
   unchanged: the native serving front (:mod:`dl_vqa_tpu_torch.utils.
   native_front`);
@@ -68,14 +69,16 @@ def _cuda_home() -> str:
 # restype)})
 def _spec(name: str):
     if name == "image":
-        return ((os.path.join(_NATIVE, "image_pipeline.cc"),
-                 os.path.join(_HOST, "image_decode.cc")),
-                (os.path.join(_NATIVE, "transform.h"),),
-                (_NATIVE,),
+        return ((os.path.join(_HOST, "image_decode.cc"),
+                 os.path.join(_HOST, "resample.cc")),
+                (os.path.join(_HOST, "resample.h"),),
+                (_HOST,),
                 {"jpeglib.h": "libjpeg's headers (a libjpeg-dev package)"},
                 ("-ljpeg", "-lpthread"),
                 {"vqa_torch_decode_jpeg": ([_C, ctypes.c_size_t, _I, _D, _P],
-                                           _I)})
+                                           _I),
+                 "vqa_torch_decode_files": ([_P, _I, _I, _D, _P, _I, _P],
+                                            _I)})
     if name == "serve":
         c = ctypes
         return ((os.path.join(_NATIVE, "serve_front.cc"),

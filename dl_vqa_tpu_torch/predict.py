@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from dl_vqa_tpu_torch.data.images import (
-    decode_image, decoder_for, load_image_files)
+    decode_image, decoder_for, device_index_of, load_image_files)
 from dl_vqa_tpu_torch.data.text import encode_question, normalize_question
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.vqa import VqaNet
@@ -199,19 +199,13 @@ class Predictor:
         :class:`~dl_vqa_tpu_torch.data.images.UnsupportedImage` for bytes
         that are not a JPEG."""
         return decode_image(raw, self.image_size, self.central_fraction,
-                            self.decoder, self._device_index())
+                            self.decoder, device_index_of(self.device))
 
     def load_images(self, paths: Sequence[str]) -> np.ndarray:
         """JPEG files -> uint8 ``[N, S, S, 3]``."""
         return load_image_files(paths, self.image_size,
                                 self.central_fraction, self.decoder,
-                                self._device_index())
-
-    def _device_index(self) -> int:
-        if self.device.type != "cuda":
-            return 0
-        return (self.device.index if self.device.index is not None
-                else torch.cuda.current_device())
+                                device_index_of(self.device))
 
     @torch.inference_mode()
     def forward_logits(self, images, questions, lengths,
@@ -359,7 +353,8 @@ def main(argv=None) -> int:
         from dl_vqa_tpu_torch.data.pipeline import Batcher
 
         profile = cfg["main"]["full" if cfg["main"]["use_full"] else "small"]
-        dataset = load_or_build_val_dataset(cfg, profile, log=print)
+        dataset = load_or_build_val_dataset(cfg, profile, log=print,
+                                            device=predictor.device)
         image_table = plan_image_tables(cfg, {"val": dataset},
                                         predictor.device, log=print)["val"]
         batcher = Batcher(dataset, cfg["train"]["batch_size"],

@@ -18,12 +18,24 @@ of an epoch derives from ``(seed, epoch)`` and the dropout masks from
 ``(seed, step)``, the resumed run takes the steps the uninterrupted run
 takes. A best-model checkpoint or a reference ``.pth`` is a warm start
 that retrains from epoch 0.
+
+``profile_dir`` traces epoch index 1 (the first is dominated by warm-up,
+as in the JAX loop) with ``torch.profiler`` (the CPU, and the card's
+kernels and copies on CUDA) into one Chrome JSON file in ``profile_dir``.
+``debug_nans`` (``tpu.debug_nans``; JAX's ``jax_debug_nans``) raises
+``FloatingPointError`` at the first train or eval step whose outputs or
+gradients hold a NaN, naming the step and the tensor or the backward
+function: autograd's anomaly mode with its NaN check for the run (restored
+after it), and a NaN check of each step's loss and score. Inf alone does
+not raise; with the flag off nothing is checked.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import socket
 import time
 from typing import Dict, Optional
 
@@ -34,11 +46,66 @@ from dl_vqa_tpu_torch.train.state import create_train_state
 from dl_vqa_tpu_torch.train.steps import make_eval_step, make_train_step
 
 __all__ = ["TrainParams", "train", "evaluate", "get_metrics",
-           "EPOCH_SPAN"]
+           "EPOCH_SPAN", "PROFILED_EPOCH", "nan_guard", "check_nans"]
 
 # The name of the profiler span around each epoch's train pass: a trace
 # of a run reads the device's busy and idle time over an epoch from it.
 EPOCH_SPAN = "dl_vqa_tpu_torch.train_epoch"
+# The epoch index ``profile_dir`` traces: the second, as in the JAX loop.
+PROFILED_EPOCH = 1
+
+
+@contextlib.contextmanager
+def nan_guard(enabled: bool, what: str):
+    """Autograd's anomaly mode with its NaN check while the block (the
+    step ``what``) runs, the previous setting restored after it: a
+    backward function that returns NaN raises ``FloatingPointError``
+    naming the step and the function. Nothing is set where ``enabled`` is
+    false."""
+    if not enabled:
+        yield
+        return
+    previous = (torch.is_anomaly_enabled(),
+                torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(True, check_nan=True)
+    try:
+        yield
+    except RuntimeError as e:
+        if "nan values" not in str(e):
+            raise
+        raise FloatingPointError(f"tpu.debug_nans: {what}: {e}") from e
+    finally:
+        torch.autograd.set_detect_anomaly(*previous)
+
+
+def check_nans(what: str, values: Dict[str, torch.Tensor]) -> None:
+    """``FloatingPointError`` naming the step ``what`` and the first of
+    ``values`` that holds a NaN (each is read: the device syncs)."""
+    for name, value in values.items():
+        if value is not None and bool(torch.isnan(value).any()):
+            raise FloatingPointError(
+                f"tpu.debug_nans: {what} returned NaN in its {name}")
+
+
+def _start_profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _write_trace(profiler, profile_dir: str, epoch: int) -> str:
+    """Stop ``profiler`` and write its trace into ``profile_dir`` as a
+    Chrome JSON file (the ``*.pt.trace.json`` name TensorBoard's profiler
+    plugin lists)."""
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"epoch{epoch}_{socket.gethostname()}_"
+                                     f"{os.getpid()}.pt.trace.json")
+    profiler.export_chrome_trace(path)
+    return path
 
 
 @dataclasses.dataclass
@@ -81,20 +148,25 @@ def get_metrics(best_eval_score: float, eval_score: float,
 
 
 def evaluate(eval_step, model, batcher, prefetch_depth: int = 2,
-             breakdown: bool = False, image_table=None):
+             breakdown: bool = False, image_table=None,
+             debug_nans: bool = False):
     """Full eval pass -> ``(score %, mean loss)``, and with ``breakdown``
     (an eval step built ``with_breakdown=True``) a third value, ``{"yes/no":
     %, "number": %, "other": %}``. Sums run on the device; the totals are
-    read once."""
+    read once (with ``debug_nans``, each batch's loss and score are read
+    too)."""
     device = next(model.parameters()).device
     n_batches = len(batcher)
     n_samples = len(batcher.dataset)
     loss_total = score_total = sums_total = counts_total = None
-    for batch in prefetch_to_device(iter(batcher), device, prefetch_depth):
+    for i, batch in enumerate(prefetch_to_device(iter(batcher), device,
+                                                 prefetch_depth)):
         if image_table is not None:
             batch = dict(batch, image_table=image_table)
         out = eval_step(model, batch)
         loss, score = out[0], out[1]
+        if debug_nans:
+            check_nans(f"eval step {i}", {"loss": loss, "score": score})
         loss_total = loss if loss_total is None else loss_total + loss
         score_total = score if score_total is None else score_total + score
         if breakdown:
@@ -135,6 +207,7 @@ def train(
     train_image_table=None,
     eval_image_table=None,
     checkpoint_every_steps: int = 0,
+    debug_nans: bool = False,
 ) -> Dict[str, float]:
     """Train ``model`` (a :class:`~dl_vqa_tpu_torch.models.vqa.VqaNet`, on
     the device it lies on) to the epoch budget or the early stop; returns
@@ -146,11 +219,6 @@ def train(
     batches within an epoch, with the batch position and the epoch's
     partial loss and score sums in its metadata; each such save reads the
     device sums (one sync every N steps)."""
-    if profile_dir:
-        raise NotImplementedError(
-            "tpu.profile_dir: the per-epoch profiler trace is not ported to "
-            "dl_vqa_tpu_torch yet (ROADMAP queue 1, item 3's remainder); "
-            "leave it ''")
     if not hasattr(train_batcher, "iter_epoch"):
         raise TypeError(
             "train_batcher needs iter_epoch(epoch, start_batch) (see "
@@ -235,43 +303,61 @@ def train(
                 aux_total = as_sum(resume_accum["aux"])
         epoch_iter = train_batcher.iter_epoch(epoch, start_batch)
         batch_idx = start_batch
+        profiler = (_start_profiler(device)
+                    if profile_dir and epoch == PROFILED_EPOCH else None)
 
-        with torch.profiler.record_function(EPOCH_SPAN):
-            for batch in prefetch_to_device(epoch_iter, device,
-                                            prefetch_depth):
-                if train_image_table is not None:
-                    batch = dict(batch, image_table=train_image_table)
-                state, step_metrics = train_step(state, batch, seed)
-                loss, score = step_metrics["loss"], step_metrics["score"]
-                loss_total = loss if loss_total is None else loss_total + loss
-                score_total = (score if score_total is None
-                               else score_total + score)
-                aux = step_metrics.get("moe_aux")
-                if aux is not None:
-                    aux_total = aux if aux_total is None else aux_total + aux
-                batch_idx += 1
-                if (checkpoint_every_steps > 0 and save_model
-                        and batch_idx % checkpoint_every_steps == 0
-                        and batch_idx < n_batches):
-                    # Position and partial sums ride the metadata; the
-                    # float() reads sync the device.
-                    epoch_accum = {"loss": float(loss_total),
-                                   "score": float(score_total)}
-                    if aux_total is not None:
-                        epoch_accum["aux"] = float(aux_total)
-                    _save_rolling(
-                        logger, state, epoch, model_cfg, ckpt_meta,
-                        best_eval_score, epochs_no_improve,
-                        batch_in_epoch=batch_idx, epoch_accum=epoch_accum,
-                        last_eval_score=last_eval_score,
-                        last_train_loss=last_train_loss)
-            # The reads wait for every queued step: inside the epoch's time.
-            train_loss = (float(loss_total) if loss_total is not None
-                          else 0.0) / max(n_batches, 1)
-            train_score = (float(score_total) if score_total is not None
-                           else 0.0) / max(n_samples, 1) * 100.0
+        try:
+            with torch.profiler.record_function(EPOCH_SPAN):
+                for batch in prefetch_to_device(epoch_iter, device,
+                                                prefetch_depth):
+                    if train_image_table is not None:
+                        batch = dict(batch, image_table=train_image_table)
+                    what = (f"train step {state.step} (epoch {epoch}, "
+                            f"batch {batch_idx})")
+                    with nan_guard(debug_nans, what):
+                        state, step_metrics = train_step(state, batch, seed)
+                    loss, score = step_metrics["loss"], step_metrics["score"]
+                    if debug_nans:
+                        check_nans(what, {"loss": loss, "score": score})
+                    loss_total = (loss if loss_total is None
+                                  else loss_total + loss)
+                    score_total = (score if score_total is None
+                                   else score_total + score)
+                    aux = step_metrics.get("moe_aux")
+                    if aux is not None:
+                        aux_total = (aux if aux_total is None
+                                     else aux_total + aux)
+                    batch_idx += 1
+                    if (checkpoint_every_steps > 0 and save_model
+                            and batch_idx % checkpoint_every_steps == 0
+                            and batch_idx < n_batches):
+                        # Position and partial sums ride the metadata; the
+                        # float() reads sync the device.
+                        epoch_accum = {"loss": float(loss_total),
+                                       "score": float(score_total)}
+                        if aux_total is not None:
+                            epoch_accum["aux"] = float(aux_total)
+                        _save_rolling(
+                            logger, state, epoch, model_cfg, ckpt_meta,
+                            best_eval_score, epochs_no_improve,
+                            batch_in_epoch=batch_idx, epoch_accum=epoch_accum,
+                            last_eval_score=last_eval_score,
+                            last_train_loss=last_train_loss)
+                # The reads wait for every queued step: inside the
+                # epoch's time.
+                train_loss = (float(loss_total) if loss_total is not None
+                              else 0.0) / max(n_batches, 1)
+                train_score = (float(score_total) if score_total is not None
+                               else 0.0) / max(n_samples, 1) * 100.0
+        except BaseException:
+            if profiler is not None:  # a failed epoch writes no trace
+                profiler.stop()
+            raise
 
         epoch_seconds = max(time.time() - t0, 1e-9)
+        if profiler is not None:
+            _write_trace(profiler, profile_dir, epoch)
+            logger.write(f"Profiler trace written to {profile_dir}")
         # A resumed epoch ran only its tail: rate that.
         batches_run = n_batches - start_batch
         samples_run = (
@@ -289,7 +375,7 @@ def train(
 
         eval_score, eval_loss = evaluate(
             eval_step, state.model, eval_batcher, prefetch_depth,
-            image_table=eval_image_table)
+            image_table=eval_image_table, debug_nans=debug_nans)
 
         logger.write_epoch_statistics(
             epoch=epoch, epoch_time=time.time() - t0, train_loss=train_loss,

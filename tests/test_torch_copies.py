@@ -86,6 +86,23 @@ def test_image_constants_match_the_originals():
         np.testing.assert_array_equal(got, expected)
 
 
+@pytest.mark.parametrize("filename", [
+    "COCO_train2014_000000000123.jpg", "COCO_val2014_000000581929.jpg",
+    "x_7.jpg", "COCO_test2015_000000000001.jpeg.jpg"])
+def test_coco_id_copy_matches_the_original(filename):
+    assert port_images.coco_id_from_filename(filename) == \
+        jax_images.coco_id_from_filename(filename)
+
+
+def test_list_jpgs_copy_matches_the_original(tmp_path):
+    for name in ("COCO_val2014_000000000001.jpg", "b.jpeg", "c.JPG",
+                 "d.jpg.txt", "e.png", "COCO_val2014_000000000002.jpg"):
+        (tmp_path / name).write_bytes(b"")
+    (tmp_path / "sub.jpg").mkdir()
+    assert port_images.list_jpgs(str(tmp_path)) == \
+        jax_images.list_jpgs(str(tmp_path))
+
+
 def _jax_cfg(bidirectional=True):
     return JaxModelConfig(
         text=TextConfig(question_features=16, embedding_features=8,

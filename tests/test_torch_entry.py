@@ -3,7 +3,10 @@
 training run on the JAX package's synthetic corpus (h5 stores) at tiny
 widths in f32, its best checkpoint scored by the port's evaluation and by
 the JAX package's ``evaluate_vqa.evaluate_hw2``, the settings the port
-refuses, and the card the entry points ask for by default."""
+refuses, a missing store with no JPEG directory to build it from, and the
+card the entry points ask for by default (the online JPEG pipeline, the
+store builder, ``tpu.profile_dir`` and ``tpu.debug_nans``:
+``tests/test_torch_online.py``)."""
 
 import glob
 import os
@@ -123,14 +126,10 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
 
 
 @pytest.mark.parametrize("override,what", [
-    ("tpu.online_images=true", "online JPEG pipeline"),
-    ("tpu.native_loader=true", "online JPEG pipeline"),
     ("tpu.checkpoint_backend=orbax", "Orbax"),
     ("tpu.mesh.model=2", "item 9"),
     ("tpu.mesh.data=4", "item 9"),
     ("tpu.zero_stage=1", "item 9"),
-    ("tpu.debug_nans=true", "item 3"),
-    ("tpu.profile_dir=/tmp/trace", "profile traces"),
 ])
 def test_settings_the_port_lacks_raise_with_their_roadmap_item(
         profile, tmp_path, override, what):
@@ -164,8 +163,10 @@ def test_sweeps_run_and_a_missing_store_is_refused(profile, tmp_path,
     assert trials == [(1, 7, "stacked", "cuda"), (2, 7, "stacked", "cuda")]
     monkeypatch.undo()
     overrides = _overrides(profile, tmp_path) + [
-        f"main.small.val_paths.processed_imgs={tmp_path}/missing.h5"]
-    with pytest.raises(FileNotFoundError, match="preprocess_images"):
+        f"main.small.val_paths.processed_imgs={tmp_path}/missing.h5",
+        "main.small.val_paths.imgs=no_such_dir"]
+    with pytest.raises(FileNotFoundError,
+                       match="missing.h5.*no_such_dir.*preprocess_images"):
         port_main.main(port_config.compose("config", overrides), device="cpu")
 
 
