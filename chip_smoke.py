@@ -169,7 +169,26 @@
    online on its best checkpoint, then in f32 online and from the built
    store (the scores to TOL["online_eval_score"]); two runs of 2 epochs
    from the built store with and without ``tpu.debug_nans`` (no alarm;
-   the step time of each): one JSON line ``{"online_e2e": ...}``.
+   the step time of each): one JSON line ``{"online_e2e": ...}``;
+17. data_parallel (last): the 'data' mesh axis on torch.distributed
+   (``dl_vqa_tpu_torch.parallel``) for the reference-parity CNN at full
+   width, bf16, global batch 512 (DP_STEPS steps, the last padded to
+   DP_REAL real rows). One rank over a real NCCL communicator: DDP, ZeRO-1
+   and ZeRO-3 around the train step, each run's losses, scores and
+   parameters the unwrapped step's bits, its kernel launches counted, and
+   the four steps timed in turns (samples/s). Then two ranks on the one
+   card over gloo (NCCL refuses two ranks on one device; each rank this
+   script run as ``--dp-rank`` with torchrun's environment, joining
+   through ``multihost.maybe_initialize(backend="gloo")``), 256 rows of each global batch a rank,
+   the last batch's real rows 256 and 44: ZeRO-0 in bf16 and in f32 held
+   to one process (f32 losses and scores at rtol 1e-5, atol 1e-6, the
+   parameters per entry to TOL["dp_params_f32_clear"] where the gradient
+   is clear of rounding noise and in 2-norm to TOL["dp_delta_f32"];
+   bf16 to its TOL entries), ZeRO-1 and ZeRO-3 in bf16 to ZeRO-0's bits,
+   the sharded image table to the replicated one's bits, one eval step,
+   and each rank's launches of kernels 1, A, B, 2, C and 3 to their
+   counts. Two ranks sharing a card time nothing that scales: one JSON
+   line ``{"data_parallel": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
@@ -178,7 +197,8 @@ the serving front's HTTP, int8 HTTP and native paths, the exported
 programs of the aot phase, the variants' serving, training and exported
 paths, the ViT-MoE's serving, fused serving, training and exported
 paths, cnn_e2e, online_e2e's run and evaluation, cnn_e2e's quantized
-evaluations, the sweep's trials and the transformer_co journey) is driven with the kernels'
+evaluations, the sweep's trials, the transformer_co journey and the
+one-rank data-parallel runs) is driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels, kernel 7 its tensor-core
 kernel and the token states the f32 persistent kernel (``FAST_PATHS``).
@@ -402,7 +422,24 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "decode_nvjpeg": 4,
        "served_probs": 1e-3, "aot_logits": 0.0,
        "logits_moe_flipped": 2e-3, "grads_moe_flipped": 1.5e-1,
-       "online_eval_score": 1e-6, "online_eval_loss": 1e-3}
+       "online_eval_score": 1e-6, "online_eval_loss": 1e-3,
+       # Phase 17, two ranks against one process. f32 parameters: Adam's
+       # step LR * m / (sqrt(v) + eps) turns the rounding of a gradient
+       # within a few eps (1e-8) of zero at some step into up to LR (5e-4)
+       # of change, so an entry is held per entry only where its gradient
+       # is clear of that noise (a root-mean-square gradient above 1e-6),
+       # at 1e-4 and rtol 1e-5 as tests/test_torch_parallel.py holds the
+       # CPU ranks, and all of them by the change over the steps in 2-norm
+       # here. bf16: at 256 rows
+       # a rank cuDNN and cuBLAS may take other algorithms than at 512,
+       # whose bf16 roundings differ: the loss as the kernel path's
+       # loss_bf16; the score is a count of argmax hits, of which a near
+       # tie may flip (0.3 to 1 each); the parameters' change over the
+       # steps as grads_bf16 times GRADS_BF16_RATIO, Adam normalising each
+       # entry's step.
+       "dp_params_f32_clear": 1e-4, "dp_delta_f32": 1e-3,
+       "dp_loss_bf16": 5e-4, "dp_score_bf16": 2.0,
+       "dp_delta_bf16": 5e-2}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores, dense
 # int8 tensor-core rate.
@@ -5057,6 +5094,426 @@ def variants_e2e_phase(torch, seed: int, prof: dict) -> tuple:
                       "phase_s": time.perf_counter() - phase_start}
 
 
+DP_DIR = "_smoke_dp"  # under the checkout; .gitignore lists it
+DP_WORLD = 2  # ranks of the run on the one card
+DP_STEPS = 3  # train steps of each run; the last batch is padded
+DP_REAL = 300  # real rows of the last global batch: 256 on rank 0, 44 on 1
+DP_TABLE_ROWS = 1024  # rows of the image table the layouts hold
+def dp_batches(cfg, seed: int, table: bool = False) -> list:
+    """DP_STEPS global batches of BATCH rows (host arrays) from the seed,
+    the last padded to DP_REAL real rows; with ``table``, image rows of a
+    DP_TABLE_ROWS table in place of images, and one batch."""
+    rng = np.random.default_rng(seed + 17)
+    out = []
+    for step in range(1 if table else DP_STEPS):
+        batch = {
+            "questions": rng.integers(
+                0, cfg.num_tokens, (BATCH, SEQ_LEN)).astype(np.int32),
+            "lengths": rng.integers(3, SEQ_LEN + 1, BATCH).astype(np.int32),
+            "answer_indices": rng.integers(
+                1, cfg.max_answers + 1, (BATCH, 10)).astype(np.int32),
+            "answer_values": rng.integers(0, 11, (BATCH, 10)).astype(
+                np.int32),
+            "answer_types": rng.integers(0, 3, BATCH).astype(np.int32),
+            "mask": np.arange(BATCH) < (DP_REAL if step == DP_STEPS - 1
+                                        else BATCH),
+        }
+        if table:
+            batch["image_rows"] = rng.integers(
+                0, DP_TABLE_ROWS, BATCH).astype(np.int32)
+        else:
+            batch["images"] = rng.integers(
+                0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
+                dtype=np.uint8)
+        out.append(batch)
+    return out
+
+
+def dp_table(torch, cfg, seed: int):
+    """The fp16 NHWC image table of the layout runs, made on the card from
+    the seed (the same on every rank)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    return torch.randn(DP_TABLE_ROWS, cfg.image_size, cfg.image_size, 3,
+                       generator=gen, device="cuda").half()
+
+
+def dp_state(torch, seed: int, cfg, mesh=None, stage: int = 0):
+    """The trainer's state from the seed, the LSTM's bias folded as the
+    train loop folds it, wrapped over ``mesh`` at ZeRO ``stage``."""
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.parallel.zero import parallelize
+    from dl_vqa_tpu_torch.train import create_train_state
+
+    model = VqaNet(cfg, generator=torch.Generator().manual_seed(seed))
+    model.text.lstm.fold_biases()
+    state = create_train_state(model, INITIAL_LR)
+    return state if mesh is None else parallelize(state, mesh, stage)
+
+
+def dp_run(torch, seed: int, cfg, batches, dtype, mesh=None, stage=0,
+           table=None):
+    """``(losses, scores, state)`` of the batches through the train step
+    (this rank's rows of each over ``mesh``)."""
+    from dl_vqa_tpu_torch.parallel.multihost import process_batch_slice
+    from dl_vqa_tpu_torch.train import make_train_step
+
+    state = dp_state(torch, seed, cfg, mesh, stage)
+    step = make_train_step(cfg, dtype, mesh=mesh)
+    rows = (process_batch_slice(mesh, BATCH) if mesh is not None else None)
+    losses, scores = [], []
+    for batch in batches:
+        local = {k: v[rows] if rows is not None else v
+                 for k, v in batch.items() if k != "answer_types"}
+        if table is not None:
+            local["image_table"] = table
+        state, metrics = step(state, local, seed)
+        losses.append(metrics["loss"])
+        scores.append(metrics["score"])
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], [float(x) for x in scores], state
+
+
+def dp_params(torch, state, moment: str = None) -> np.ndarray:
+    """The trainable parameters, whole, as one f32 vector on the host
+    (gathered from every rank under ZeRO-3: every rank calls this), or
+    their Adam ``moment`` ("exp_avg_sq") in the same order."""
+    from dl_vqa_tpu_torch.parallel.zero import full_state
+
+    named, moments, _ = full_state(state)
+    named = moments[moment] if moment else named
+    return torch.cat([named[name].float().flatten()
+                      for name, p in state.model.named_parameters()
+                      if p.requires_grad]).cpu().numpy()
+
+
+def dp_expected(recurrence: int, f32_recurrence: int, bf16_steps: int,
+                f32_steps: int, evals: int) -> dict:
+    """Grids of kernels 1, A, B, 2, C and 3 for train steps in bf16 and
+    f32 and bf16 eval steps of the CNN: a step's recurrence with its saved
+    states (A), 23 backward grids (B), three pool grids forward (2) and two
+    a block backward (C), one glimpse pooling (3); an eval step's
+    recurrence (1), three pool grids and a pooling."""
+    steps = bf16_steps + f32_steps
+    return {"lstm_recurrence": evals * recurrence,
+            "lstm_recurrence_save": (bf16_steps * recurrence
+                                     + f32_steps * f32_recurrence),
+            "lstm_backward_step": steps * SEQ_LEN,
+            "relu_maxpool": 3 * (steps + evals),
+            "relu_maxpool_backward": 6 * steps,
+            "attention_pool": steps + evals}
+
+
+def dp_rank(out_dir: str, seed: int) -> int:
+    """One rank of phase 17's two-rank run on the one card (started by
+    :func:`data_parallel_phase` with torchrun's environment, every rank on
+    card 0): gloo with CUDA tensors, the CNN at full width, 256 rows of
+    each global batch; ZeRO 0, 1 and 3 in bf16, ZeRO 0 in f32, the image
+    table replicated and sharded, one eval step. Writes ``rank{r}.json``
+    and, on rank 0, the parameters after each run."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dl_vqa_tpu_torch.data.device_cache import ShardedImageTable
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.parallel import make_mesh, multihost
+    from dl_vqa_tpu_torch.parallel.multihost import (
+        process_batch_slice, process_dim0_block)
+    from dl_vqa_tpu_torch.train import make_eval_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # NCCL refuses two ranks on one device: the caller names gloo.
+    multihost.maybe_initialize(device="cuda", backend="gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh(-1, device_type="cuda")
+    cfg = ModelConfig()
+    wrappers = kernel_wrappers()
+    reset_launches(wrappers)
+    batches = dp_batches(cfg, seed)
+    out = {"rank": rank, "world": dist.get_world_size(),
+           "backend": dist.get_backend()}
+    for name, dtype, stage in (("bf16_z0", torch.bfloat16, 0),
+                               ("bf16_z1", torch.bfloat16, 1),
+                               ("bf16_z3", torch.bfloat16, 3),
+                               ("f32_z0", torch.float32, 0)):
+        t0 = time.perf_counter()
+        losses, scores, state = dp_run(torch, seed, cfg, batches, dtype,
+                                       mesh, stage)
+        out[name] = {"loss": losses, "score": scores,
+                     "s": time.perf_counter() - t0}
+        params = dp_params(torch, state)
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"{name}.npy"), params)
+        if name == "bf16_z0":
+            eval_step = make_eval_step(cfg, torch.bfloat16, mesh=mesh)
+            rows = process_batch_slice(mesh, BATCH)
+            loss, score = eval_step(state.model, {
+                k: v[rows] for k, v in batches[-1].items()})
+            out["eval"] = [float(loss), float(score)]
+        del state
+        torch.cuda.empty_cache()
+    # The image table: every rank whole, or its row block.
+    table = dp_table(torch, cfg, seed)
+    block = process_dim0_block(mesh, table.shape)
+    sharded = ShardedImageTable(table[block].clone(), block.start,
+                                DP_TABLE_ROWS, mesh)
+    tbatch = dp_batches(cfg, seed, table=True)
+    rows = torch.from_numpy(
+        tbatch[0]["image_rows"][process_batch_slice(mesh, BATCH)]).cuda()
+    out["table_gather_bits"] = bool(torch.equal(
+        sharded.index_select(0, rows).view(torch.int16),
+        table.index_select(0, rows.long()).view(torch.int16)))
+    for layout, t in (("replicated", table), ("sharded", sharded)):
+        losses, scores, state = dp_run(torch, seed, cfg, tbatch,
+                                       torch.bfloat16, mesh, 0, table=t)
+        out[f"table_{layout}"] = {"loss": losses, "score": scores}
+        del state
+    out["launches"] = read_launches(wrappers, f"rank {rank}")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def data_parallel_phase(torch, seed: int, recurrence: int, card: str
+                        ) -> tuple:
+    """Phase 17: the 'data' axis on torch.distributed. At one rank over a
+    real NCCL communicator, DDP, ZeRO-1 and ZeRO-3 around the train step,
+    each held to the unwrapped step's losses and parameters to the bit and
+    timed beside it; then two ranks on the one card over gloo
+    (:func:`dp_rank`; NCCL refuses two ranks on one device), each 256 rows
+    of the global batch, held to the one-process run (f32 losses and
+    scores at rtol 1e-5, atol 1e-6; bf16 within its TOL entries), ZeRO-1
+    and ZeRO-3 to ZeRO-0's bits, the sharded image table to the
+    replicated one's bits, and each rank's launches of kernels 1, A, B, 2,
+    C and 3 to their expected counts. Returns ``(launches of the one-rank
+    path, numbers)``."""
+    import os
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.parallel import make_mesh
+    from dl_vqa_tpu_torch.parallel.zero import moments_held
+    from dl_vqa_tpu_torch.train import make_eval_step, make_train_step
+
+    phase_start = time.perf_counter()
+    cfg = ModelConfig()
+    wrappers = kernel_wrappers()
+    batches = dp_batches(cfg, seed)
+    f32_recurrence = f32_grids(torch)
+    numbers = {"card": card}
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # The unwrapped step, no process group: the references.
+    reference = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        losses, scores, state = dp_run(torch, seed, cfg, batches, dtype)
+        reference[name] = {"loss": losses, "score": scores,
+                           "params": dp_params(torch, state),
+                           "nu": dp_params(torch, state, "exp_avg_sq")}
+        del state
+        torch.cuda.empty_cache()
+    initial = dp_params(torch, dp_state(torch, seed, cfg))
+    log(f"data_parallel: one process, B={BATCH} ({DP_REAL} real rows in "
+        f"the last batch), bf16 losses "
+        + " ".join(f"{x:.4f}" for x in reference["bf16"]["loss"])
+        + " | f32 " + " ".join(f"{x:.5f}" for x in reference["f32"]["loss"]))
+
+    # One rank over NCCL: DDP, ZeRO-1, ZeRO-3 to the unwrapped bits.
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(-1, device_type="cuda")
+        reset_launches(wrappers)
+        world1 = {}
+        for stage in (0, 1, 3):
+            losses, scores, state = dp_run(torch, seed, cfg, batches,
+                                           torch.bfloat16, mesh, stage)
+            params = dp_params(torch, state)
+            require(losses == reference["bf16"]["loss"]
+                    and scores == reference["bf16"]["score"],
+                    f"ZeRO-{stage} at one NCCL rank: losses {losses} "
+                    f"against the unwrapped {reference['bf16']['loss']}")
+            require(np.array_equal(params, reference["bf16"]["params"]),
+                    f"ZeRO-{stage} at one NCCL rank: parameters differ from "
+                    f"the unwrapped step's by "
+                    f"{np.abs(params - reference['bf16']['params']).max()}")
+            world1[f"zero{stage}"] = {"held": moments_held(state)}
+            if stage == 0:
+                loss, _ = make_eval_step(cfg, mesh=mesh)(state.model,
+                                                         batches[-1])
+                require(bool(torch.isfinite(loss)), "finite eval loss")
+            del state
+            torch.cuda.empty_cache()
+        launches = read_launches(wrappers, "the one-rank data-parallel path")
+        expected = dp_expected(recurrence, f32_recurrence, 3 * DP_STEPS, 0,
+                               1)
+        require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+                f"kernel launches on the one-rank data-parallel path: "
+                f"{launches}, expected {expected}")
+        # Timed in turns: the bare step, then each wrapper, at B = 512.
+        full = {k: torch.from_numpy(v).cuda()
+                for k, v in batches[0].items() if k != "answer_types"}
+        runs = {"bare": (dp_state(torch, seed, cfg), make_train_step(cfg))}
+        for stage in (0, 1, 3):
+            runs[f"zero{stage}"] = (dp_state(torch, seed, cfg, mesh, stage),
+                                    make_train_step(cfg, mesh=mesh))
+        ms = timed_turns(torch, [lambda s=s, f=f: f(s, full, seed)
+                                 for s, f in runs.values()], iters=3)
+        world1["bare"] = {}
+        for name, t in zip(runs, ms):
+            world1[name].update(ms=t, samples_s=BATCH / t * 1e3)
+        del runs
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    numbers["one_rank_nccl"] = world1
+    log("data_parallel: one NCCL rank, bf16 B=512 train step "
+        + ", ".join(f"{k} {v['ms']:.3f} ms = {v['samples_s']:.1f} samples/s"
+                    for k, v in world1.items()) + f" [{card}]")
+
+    # Two ranks on the one card over gloo.
+    root = os.path.abspath(DP_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    port = free_port()
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--dp-rank", root, str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, RANK=str(rank), WORLD_SIZE=str(DP_WORLD),
+                 LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port)))
+        for rank in range(DP_WORLD)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        require(proc.returncode == 0,
+                f"rank {rank} exited {proc.returncode}:\n{text[-4000:]}")
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(DP_WORLD)]
+    two = {"wall_s": time.perf_counter() - t0,
+           "backend": ranks[0]["backend"],
+           "label": "two ranks share one card: not a scaling number"}
+    for key in ("bf16_z0", "bf16_z1", "bf16_z3", "f32_z0",
+                "table_replicated", "table_sharded"):
+        require(all(ranks[0][key][m] == ranks[1][key][m]
+                    for m in ("loss", "score")),
+                f"the ranks report the same {key}")
+    require(ranks[0]["eval"] == ranks[1]["eval"],
+            "the ranks report the same eval step")
+    r0 = ranks[0]
+    f32_params = np.load(os.path.join(root, "f32_z0.npy"))
+    bf16 = np.load(os.path.join(root, "bf16_z0.npy"))
+
+    def change_err(got, want):
+        """The relative 2-norm error of the parameters' change."""
+        return float(np.linalg.norm((got - initial) - (want - initial))
+                     / np.linalg.norm(want - initial))
+
+    f32_off = np.abs(f32_params - reference["f32"]["params"])
+    # The entries whose gradient is clear of rounding noise: a
+    # root-mean-square gradient above 1e-6, read from the one-process
+    # run's Adam second moment (as tests/test_torch_parallel.py's _clear).
+    rms = np.sqrt(reference["f32"]["nu"] / (1.0 - 0.999 ** DP_STEPS))
+    clear = rms > 1e-6
+    clear_bound = (TOL["dp_params_f32_clear"]
+                   + 1e-5 * np.abs(reference["f32"]["params"][clear]))
+    rank_expected = dp_expected(recurrence, f32_recurrence,
+                                3 * DP_STEPS + 2, DP_STEPS, 1)
+    two.update(
+        f32_loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+            r0["f32_z0"]["loss"], reference["f32"]["loss"])),
+        f32_params_max_abs_err=float(f32_off.max()),
+        f32_params_off={f"{t:g}": int((f32_off > t).sum())
+                        for t in (1e-6, 1e-5, 1e-4)},
+        f32_clear_share=float(clear.mean()),
+        f32_clear_max_abs_err=float(f32_off[clear].max()),
+        f32_max_abs_err_by_rms={f"{t:g}": float(f32_off[rms > t].max(
+            initial=0.0)) for t in (1e-6, 1e-5, 1e-4, 1e-3)},
+        f32_delta_rel_err=change_err(f32_params,
+                                     reference["f32"]["params"]),
+        bf16_loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+            r0["bf16_z0"]["loss"], reference["bf16"]["loss"])),
+        bf16_score_abs_err=max(abs(a - b) for a, b in zip(
+            r0["bf16_z0"]["score"], reference["bf16"]["score"])),
+        bf16_delta_rel_err=change_err(bf16, reference["bf16"]["params"]),
+        parameters=int(f32_params.size), rank_launches=rank_expected,
+        run_s={k: r0[k]["s"] for k in ("bf16_z0", "bf16_z1", "bf16_z3",
+                                       "f32_z0")},
+        losses={k: r0[k]["loss"] for k in ("bf16_z0", "f32_z0")})
+    log(f"data_parallel: two gloo ranks against one process [{card}]: "
+        + json.dumps(two))
+    # f32: the ranks' sums in another order, as tests/test_multihost.py
+    # holds JAX's ranks; the parameters as TOL["dp_params_f32_clear"] and
+    # TOL["dp_delta_f32"] say.
+    np.testing.assert_allclose(r0["f32_z0"]["loss"],
+                               reference["f32"]["loss"], rtol=1e-5,
+                               atol=1e-6, err_msg="f32 losses, two ranks")
+    np.testing.assert_allclose(r0["f32_z0"]["score"],
+                               reference["f32"]["score"], rtol=1e-5,
+                               atol=1e-6, err_msg="f32 scores, two ranks")
+    require(two["f32_clear_share"] > 0.5
+            and bool(np.all(f32_off[clear] <= clear_bound)),
+            f"f32 parameters, two ranks: {two['f32_clear_max_abs_err']} off "
+            f"where the gradient is clear of noise "
+            f"({two['f32_clear_share']:.3f} of the entries), against "
+            f"{TOL['dp_params_f32_clear']} + 1e-5 relative")
+    require(two["f32_delta_rel_err"] <= TOL["dp_delta_f32"],
+            f"f32 parameters, two ranks: the change off by "
+            f"{two['f32_delta_rel_err']} in 2-norm")
+    require(two["bf16_loss_rel_err"] <= TOL["dp_loss_bf16"],
+            f"bf16 losses, two ranks: {two['bf16_loss_rel_err']} relative")
+    require(two["bf16_score_abs_err"] <= TOL["dp_score_bf16"],
+            f"bf16 scores, two ranks: off by {two['bf16_score_abs_err']}")
+    require(two["bf16_delta_rel_err"] <= TOL["dp_delta_bf16"],
+            f"bf16 parameter change, two ranks: "
+            f"{two['bf16_delta_rel_err']} relative")
+    for stage in (1, 3):
+        require(r0[f"bf16_z{stage}"] == {**r0["bf16_z0"],
+                                         "s": r0[f"bf16_z{stage}"]["s"]}
+                and np.array_equal(np.load(os.path.join(
+                    root, f"bf16_z{stage}.npy")), bf16),
+                f"ZeRO-{stage} at two ranks: ZeRO-0's bits")
+    require(r0["table_gather_bits"]
+            and r0["table_sharded"] == r0["table_replicated"],
+            "the sharded image table: the replicated table's bits")
+    for r in ranks:
+        require(r["launches"] == {**dict.fromkeys(wrappers, 0),
+                                  **rank_expected},
+                f"rank {r['rank']} launches {r['launches']}, expected "
+                f"{rank_expected}")
+    numbers["two_ranks_gloo"] = two
+    log(f"data_parallel: two gloo ranks on one card [{card}], "
+        f"not a scaling number: bf16 losses "
+        + " ".join(f"{x:.4f}" for x in r0["bf16_z0"]["loss"])
+        + f" (rel err {two['bf16_loss_rel_err']:.2e}), f32 rel err "
+        f"{two['f32_loss_rel_err']:.2e}, f32 params max err "
+        f"{two['f32_params_max_abs_err']:.2e}; ZeRO-1 = ZeRO-3 = ZeRO-0 and "
+        f"sharded = replicated to the bit")
+    numbers["phase_s"] = time.perf_counter() - phase_start
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5071,6 +5528,10 @@ def main(argv=None) -> int:
                         metavar=("ARTIFACT", "REQUESTS", "OUT"),
                         help="the aot phase's process that serves an "
                              "artifact (started by the phase itself)")
+    parser.add_argument("--dp-rank", nargs=2, metavar=("OUT", "SEED"),
+                        help="a rank of phase 17's two-rank run (started "
+                             "by the phase itself, with torchrun's "
+                             "environment)")
     args = parser.parse_args(argv)
 
     import torch
@@ -5083,6 +5544,8 @@ def main(argv=None) -> int:
 
     if args.aot_client:
         return aot_client(*args.aot_client)
+    if args.dp_rank:
+        return dp_rank(args.dp_rank[0], int(args.dp_rank[1]))
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5231,6 +5694,10 @@ def main(argv=None) -> int:
     log(json.dumps({"variants": {"card": card, **variants}}))
     serving["submission"] = submission_phase(torch, args.seed, e2e_profile)
     log(json.dumps({"serving": serving}))
+    # Phase 17: the 'data' axis, at one NCCL rank and two gloo ranks.
+    paths["data_parallel"], data_parallel = data_parallel_phase(
+        torch, args.seed, recurrence, card)
+    log(json.dumps({"data_parallel": data_parallel}))
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"

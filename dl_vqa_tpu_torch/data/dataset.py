@@ -245,9 +245,12 @@ class VQADataset:
     def image_store_rows(self) -> int:
         return int(self._features_view().shape[0])
 
-    def features_nhwc_all(self, dtype=np.float16) -> np.ndarray:
-        """The whole store as one ``[N, H, W, 3]`` array: the host side of
-        the device image table (``tpu.device_image_cache``)."""
+    def features_nhwc_all(self, dtype=np.float16, rows: slice = slice(None)
+                          ) -> np.ndarray:
+        """The whole store (or its ``rows``, a contiguous block) as one
+        ``[N, H, W, 3]`` array: the host side of the device image table
+        (``tpu.device_image_cache``; a rank of the 'sharded' layout reads
+        only its block)."""
         feats = self._features_view()
         if np.dtype(feats.dtype).itemsize > np.dtype(dtype).itemsize:
             warnings.warn(
@@ -257,7 +260,7 @@ class VQADataset:
                 "(tpu.device_image_cache=off to keep full precision via "
                 "per-batch host transfer)", stacklevel=2)
         return np.ascontiguousarray(
-            np.asarray(feats[:], dtype=dtype).transpose(0, 2, 3, 1))
+            np.asarray(feats[rows], dtype=dtype).transpose(0, 2, 3, 1))
 
     def load_images_chw(self, sample_indices: np.ndarray,
                         dtype=np.float32) -> np.ndarray:

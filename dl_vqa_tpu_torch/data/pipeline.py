@@ -18,7 +18,12 @@ The port's copy of ``dl_vqa_tpu/data/pipeline.py``:
   tensor is ``record_stream``-ed to it, so its memory is not reused while
   the step reads it.
 
-Multi-host slicing (``process_slice``) is not ported: it must be ``None``.
+In a run of several processes (``process_slice``, from
+:func:`dl_vqa_tpu_torch.parallel.multihost.process_batch_slice`) every
+process builds the same Batcher, so the seed gives them one order, and
+takes only its contiguous rows of each global batch, the padded last
+batch's ``mask`` sliced with them; the prefetch then copies only those
+rows.
 """
 
 from __future__ import annotations
@@ -35,20 +40,18 @@ __all__ = ["Batcher", "prefetch_to_device"]
 
 class Batcher:
     """Iterate fixed-shape numpy batches over a
-    :class:`~dl_vqa_tpu_torch.data.dataset.VQADataset`."""
+    :class:`~dl_vqa_tpu_torch.data.dataset.VQADataset`. ``batch_size`` is
+    the global batch size; with ``process_slice`` each batch holds only
+    those rows of it."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, load_images: bool = True,
                  process_slice=None):
-        if process_slice is not None:
-            raise NotImplementedError(
-                "Batcher(process_slice=...) is multi-host input sharding, "
-                "not ported to dl_vqa_tpu_torch yet (ROADMAP queue 1, item "
-                "9, the parallel axes)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.load_images = load_images
+        self.process_slice = process_slice
         self.seed = seed
         self._epoch = 0
 
@@ -80,6 +83,11 @@ class Batcher:
             if real < bs:  # pad the last batch to the fixed shape
                 idx = np.concatenate([idx, np.repeat(idx[-1], bs - real)])
             mask = np.arange(bs) < real
+            if self.process_slice is not None:
+                # The mask is made for the global batch first: a padded row
+                # stays masked on whichever process holds it.
+                idx = idx[self.process_slice]
+                mask = mask[self.process_slice]
             batch = {
                 "questions": self.dataset.questions[idx],
                 "lengths": self.dataset.question_lengths[idx],

@@ -6,9 +6,9 @@ missing, load or build the val dataset, load the checkpoint (an npz
 checkpoint of either package, or a reference ``model.pth``), run the full
 eval pass with the per-type breakdown, and return the VQA accuracy rounded
 to 3 decimals. On the GPU unless the caller of :func:`evaluate_hw2`
-passes ``device="cpu"``:
+passes ``device="cpu"`` (``--device cpu`` on the command line):
 
-    python -m dl_vqa_tpu_torch.evaluate_vqa [overrides...]
+    python -m dl_vqa_tpu_torch.evaluate_vqa [--device D] [overrides...]
 
 As there, the model is built from the config, not from the checkpoint's
 metadata: overrides must describe the trained model (``config_eval`` has
@@ -24,6 +24,12 @@ neither scales nor a train store raises, as there. ``tpu.profile_dir`` and
 ``tpu.debug_nans`` are train settings, which this entry point ignores as
 the JAX one does. The settings :func:`dl_vqa_tpu_torch.main.
 check_supported` refuses are not ported.
+
+Under torchrun (``torchrun --nproc-per-node=N -m
+dl_vqa_tpu_torch.evaluate_vqa ...``) the processes split every batch over
+the 'data' axis and sum the scores over the ranks, so each returns the
+one-process score; the coordinator builds a missing vocab, store or
+dataset while the others wait, and only it writes the log.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import json
 import os
 import sys
 
-from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from dl_vqa_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device, split_device_arg)
 
 __all__ = ["evaluate_hw2"]
 
@@ -92,35 +99,57 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
     from dl_vqa_tpu_torch.main import check_supported, compute_dtype_of
     from dl_vqa_tpu_torch.models.configs import ModelConfig
     from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.parallel import make_mesh, multihost
     from dl_vqa_tpu_torch.train import make_eval_step
     from dl_vqa_tpu_torch.train.loop import evaluate
     from dl_vqa_tpu_torch.utils import misc
     from dl_vqa_tpu_torch.utils.checkpoint import load_params
-    from dl_vqa_tpu_torch.utils.logger import TrainLogger
+    from dl_vqa_tpu_torch.utils.logger import QuietLogger, TrainLogger
     from dl_vqa_tpu_torch.utils.params import load_jax_params
 
     device = resolve_device(device)
     cfg = config_mod.compose("config_eval", overrides=list(overrides))
     check_supported(cfg)
     compute_dtype = compute_dtype_of(cfg)
-    print(json.dumps(cfg, indent=1))
+    multihost.maybe_initialize(log=print, device=device)
+    device = multihost.rank_device(device)
+    coordinator = multihost.is_coordinator()
+    if coordinator:
+        print(json.dumps(cfg, indent=1))
     profile = cfg["main"]["full" if cfg["main"]["use_full"] else "small"]
 
-    logger = TrainLogger(
-        exp_name_prefix=cfg["main"]["experiment_name_prefix"],
-        logs_dir=profile["paths"]["logs"])
+    if coordinator:
+        logger = TrainLogger(
+            exp_name_prefix=cfg["main"]["experiment_name_prefix"],
+            logs_dir=profile["paths"]["logs"])
+    else:
+        import torch.distributed as dist
+
+        logger = QuietLogger(dist.get_rank())
     misc.set_seed(cfg["main"]["seed"])
+    mesh_cfg = cfg["tpu"]["mesh"]
+    mesh = make_mesh(mesh_cfg["data"], mesh_cfg["model"], mesh_cfg["stage"],
+                     mesh_cfg["expert"], mesh_cfg["seq"],
+                     device_type=device.type)
 
     vocab_path = profile["paths"]["vocab_path"]
-    if not os.path.exists(vocab_path):
-        vocab_mod.create_vocab(
-            data_base_path=profile["paths"]["base_path"],
-            data_paths=profile["train_paths"], vocab_path=vocab_path,
-            max_answers=cfg["train"]["max_answers"])
     online_images = cfg["tpu"]["online_images"]
-    val_dataset = load_or_build_val_dataset(
-        cfg, profile, logger=logger, log=logger.write,
-        require_image_cache=not online_images, device=device)
+
+    def val_set():
+        return load_or_build_val_dataset(
+            cfg, profile, logger=logger, log=logger.write,
+            require_image_cache=not online_images, device=device)
+
+    if coordinator:
+        if not os.path.exists(vocab_path):
+            vocab_mod.create_vocab(
+                data_base_path=profile["paths"]["base_path"],
+                data_paths=profile["train_paths"], vocab_path=vocab_path,
+                max_answers=cfg["train"]["max_answers"])
+        val_dataset = val_set()
+    multihost.barrier("val-cache-built")
+    if not coordinator:
+        val_dataset = val_set()
 
     model_cfg = ModelConfig.from_cfg(cfg["train"], val_dataset.num_tokens,
                                      use_pallas=cfg["tpu"]["use_pallas"])
@@ -133,7 +162,10 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
                                  val_dataset, compute_dtype, logger.write,
                                  online_images)
         model.configure(model_cfg)
-    eval_step = make_eval_step(model_cfg, compute_dtype, with_breakdown=True)
+    eval_step = make_eval_step(model_cfg, compute_dtype, with_breakdown=True,
+                               mesh=mesh)
+    proc_slice = multihost.process_batch_slice(mesh,
+                                               cfg["train"]["batch_size"])
     if online_images:
         from dl_vqa_tpu_torch.data.online import (
             OnlineBatcher, loader_from_config)
@@ -142,12 +174,13 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
         batcher = OnlineBatcher(
             val_dataset, cfg["train"]["batch_size"],
             loader_from_config(cfg, profile, "val_paths", device,
-                               logger.write))
+                               logger.write), process_slice=proc_slice)
     else:
         image_table = plan_image_tables(cfg, {"val": val_dataset}, device,
-                                        log=logger.write)["val"]
+                                        log=logger.write, mesh=mesh)["val"]
         batcher = Batcher(val_dataset, cfg["train"]["batch_size"],
-                          load_images=image_table is None)
+                          load_images=image_table is None,
+                          process_slice=proc_slice)
     score, _, per_type = evaluate(
         eval_step, model, batcher, cfg["tpu"]["prefetch_depth"],
         breakdown=True, image_table=image_table)
@@ -158,4 +191,5 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
 
 
 if __name__ == "__main__":
-    print(evaluate_hw2(sys.argv[1:]))
+    _device, _args = split_device_arg(sys.argv[1:])
+    print(evaluate_hw2(_args, device=_device))

@@ -4,9 +4,9 @@ The counterpart of the root ``main.py``: config, logger, seed, the vocab,
 the dataset caches and the device image table built or loaded, the model
 from the seed, the optional warm start, the train loop and the hparam and
 metric report. On the GPU unless the caller of :func:`main` passes
-``device="cpu"``:
+``device="cpu"`` (``--device cpu`` on the command line):
 
-    python -m dl_vqa_tpu_torch.main [preset] [overrides...]
+    python -m dl_vqa_tpu_torch.main [--device D] [preset] [overrides...]
     python -m dl_vqa_tpu_torch.main main.use_full=false train.num_epochs=2
     python -m dl_vqa_tpu_torch.main -m [preset] train.image.stride=1,2 \
         [--trials N] [overrides...]
@@ -19,10 +19,27 @@ built from its JPEG directory (``tpu.image_builder_backend``) unless
 (:mod:`dl_vqa_tpu_torch.data.online`; ``tpu.native_loader`` with it
 insists on libjpeg). ``tpu.profile_dir`` traces epoch 1 and
 ``tpu.debug_nans`` raises ``FloatingPointError`` at the first step that
-returns a NaN (:func:`dl_vqa_tpu_torch.train.loop.train`). Settings the
-port does not have yet raise at once, naming their ROADMAP item:
-``tpu.checkpoint_backend=orbax``, mesh axes other than one device,
-``tpu.zero_stage`` and ``tpu.pipeline_microbatches``. ``tpu.use_pallas``
+returns a NaN (:func:`dl_vqa_tpu_torch.train.loop.train`).
+
+Several GPUs train data-parallel, one process each, as torchrun launches
+them (:mod:`dl_vqa_tpu_torch.parallel`):
+
+    torchrun --nproc-per-node=N -m dl_vqa_tpu_torch.main [overrides...]
+    torchrun --nnodes=M --node-rank=R --nproc-per-node=N \
+        --master-addr=HOST --master-port=PORT -m dl_vqa_tpu_torch.main ...
+
+Each process joins the group (NCCL on the GPU), the mesh's 'data' axis
+takes every process (``tpu.mesh.data=-1``), the coordinator builds the
+caches while the others wait, each process feeds its rows of every global
+batch (``train.batch_size`` is the global batch), and
+``tpu.zero_stage`` 1 or 3 splits the Adam moments, or the parameters too,
+over the ranks. ``tpu.device_image_cache_layout=sharded`` splits the
+image table's rows over them.
+
+Settings the port does not have yet raise at once, naming their ROADMAP
+item: ``tpu.checkpoint_backend=orbax``, the mesh axes ``model``,
+``stage``, ``expert`` and ``seq`` above 1 and
+``tpu.pipeline_microbatches``. ``tpu.use_pallas``
 and ``tpu.prng_impl`` choose between JAX implementations and mean nothing
 here. ``train.image.store_dtype=f8e4m3``
 trains through the f8 store's straight-through backward; ``int8`` serves
@@ -38,14 +55,16 @@ from typing import Optional
 
 import torch
 
-from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from dl_vqa_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device, split_device_arg)
 
 __all__ = ["main", "multirun_main", "check_supported", "compute_dtype_of",
            "parameter_summary"]
 
 
 def check_supported(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for a setting the port lacks."""
+    """Raise ``NotImplementedError`` for a setting the port lacks, and
+    ``SystemExit`` for a ZeRO stage that does not exist."""
     tpu = cfg["tpu"]
     missing = []
     if tpu["checkpoint_backend"] != "npz":
@@ -53,14 +72,21 @@ def check_supported(cfg: dict) -> None:
                        f"{tpu['checkpoint_backend']!r} (npz only: the Orbax "
                        "backend is left behind, ROADMAP queue 1)")
     mesh = tpu["mesh"]
-    if (mesh["data"] not in (-1, 1)
-            or any(mesh[axis] != 1 for axis in ("model", "stage", "expert",
-                                                "seq"))
-            or tpu["zero_stage"] != 0 or tpu["pipeline_microbatches"] != 0):
-        missing.append(f"tpu.mesh={mesh}, tpu.zero_stage="
-                       f"{tpu['zero_stage']}, tpu.pipeline_microbatches="
-                       f"{tpu['pipeline_microbatches']} (one device only: "
-                       "the parallel axes are ROADMAP queue 1, item 9)")
+    axes = [f"tpu.mesh.{axis}={mesh[axis]}" for axis in
+            ("model", "stage", "expert", "seq") if mesh[axis] > 1]
+    if tpu["pipeline_microbatches"] != 0:
+        axes.append(f"tpu.pipeline_microbatches="
+                    f"{tpu['pipeline_microbatches']}")
+    if axes:
+        missing.append(", ".join(axes) + " (the 'data' axis only: tensor, "
+                       "expert, sequence and pipeline parallelism are "
+                       "ROADMAP queue 1, item 9)")
+    if tpu["zero_stage"] not in (0, 1, 3):
+        raise SystemExit(
+            f"tpu.zero_stage must be 0 (off), 1 (shard Adam moments over "
+            f"'data') or 3 (shard params too); got {tpu['zero_stage']!r}. "
+            "Stage 2 does not exist here, as in the JAX package: the "
+            "gradients live only inside the train step.")
     if tpu["image_builder_backend"] not in ("auto", "native", "pil"):
         raise ValueError(f"unknown builder backend: "
                          f"{tpu['image_builder_backend']!r}")
@@ -99,9 +125,10 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
     from dl_vqa_tpu_torch.data.pipeline import Batcher
     from dl_vqa_tpu_torch.models.configs import ModelConfig
     from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.parallel import make_mesh, multihost
     from dl_vqa_tpu_torch.train.loop import TrainParams, train
     from dl_vqa_tpu_torch.utils import misc
-    from dl_vqa_tpu_torch.utils.logger import TrainLogger
+    from dl_vqa_tpu_torch.utils.logger import QuietLogger, TrainLogger
 
     device = resolve_device(device)
     misc.init(cfg)
@@ -109,29 +136,53 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
     compute_dtype = compute_dtype_of(cfg)
     profile = cfg["main"]["full" if cfg["main"]["use_full"] else "small"]
     seed = cfg["main"]["seed"]
+    zero_stage = cfg["tpu"]["zero_stage"]
 
-    logger = TrainLogger(
-        exp_name_prefix=cfg["main"]["experiment_name_prefix"],
-        logs_dir=profile["paths"]["logs"],
-        checkpoint_backend=cfg["tpu"]["checkpoint_backend"])
+    # A torchrun launch joins the group here (one process per GPU); one
+    # process without torchrun's environment goes on alone.
+    multihost.maybe_initialize(log=print, device=device)
+    device = multihost.rank_device(device)
+    if multihost.is_coordinator():
+        logger = TrainLogger(
+            exp_name_prefix=cfg["main"]["experiment_name_prefix"],
+            logs_dir=profile["paths"]["logs"],
+            checkpoint_backend=cfg["tpu"]["checkpoint_backend"])
+    else:
+        # The other ranks compute the same reduced metrics and write
+        # nothing.
+        import torch.distributed as dist
+
+        logger = QuietLogger(dist.get_rank())
     logger.write(f"Device: {device}"
                  + (f" ({torch.cuda.get_device_name(device)})"
                     if device.type == "cuda" else ""))
     logger.write(json.dumps(cfg, indent=1))
     misc.set_seed(seed)
+    mesh_cfg = cfg["tpu"]["mesh"]
+    mesh = make_mesh(mesh_cfg["data"], mesh_cfg["model"], mesh_cfg["stage"],
+                     mesh_cfg["expert"], mesh_cfg["seq"],
+                     device_type=device.type)
+    if zero_stage and mesh.shape["data"] <= 1:
+        logger.write(
+            f"tpu.zero_stage={zero_stage} is a no-op: the 'data' mesh axis "
+            f"has 1 device, so there is nothing to shard the optimizer "
+            f"state over")
 
+    # The coordinator builds the offline caches (a shared filesystem);
+    # the others wait at the barrier and load them.
     vocab_path = profile["paths"]["vocab_path"]
-    if not os.path.exists(vocab_path):
-        logger.write("Creating Vocab")
-        vocab_mod.create_vocab(
-            data_base_path=profile["paths"]["base_path"],
-            data_paths=profile["train_paths"], vocab_path=vocab_path,
-            max_answers=cfg["train"]["max_answers"])
     online_images = cfg["tpu"]["online_images"]
-    if not online_images:
-        for split in ("train_paths", "val_paths"):
-            build_image_store(cfg, profile, split, log=logger.write,
-                              device=device)
+    if multihost.is_coordinator():
+        if not os.path.exists(vocab_path):
+            logger.write("Creating Vocab")
+            vocab_mod.create_vocab(
+                data_base_path=profile["paths"]["base_path"],
+                data_paths=profile["train_paths"], vocab_path=vocab_path,
+                max_answers=cfg["train"]["max_answers"])
+        if not online_images:
+            for split in ("train_paths", "val_paths"):
+                build_image_store(cfg, profile, split, log=logger.write,
+                                  device=device)
 
     def load_or_build(split: str, answerable_only: bool) -> VQADataset:
         cache = VQADataset.cache_path(profile[split]["vqaDataset"])
@@ -155,8 +206,13 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
         ds.save(cache)
         return ds
 
-    train_dataset = load_or_build("train_paths", answerable_only=True)
-    val_dataset = load_or_build("val_paths", answerable_only=False)
+    if multihost.is_coordinator():
+        train_dataset = load_or_build("train_paths", answerable_only=True)
+        val_dataset = load_or_build("val_paths", answerable_only=False)
+    multihost.barrier("offline-caches-built")
+    if not multihost.is_coordinator():
+        train_dataset = load_or_build("train_paths", answerable_only=True)
+        val_dataset = load_or_build("val_paths", answerable_only=False)
 
     model_cfg = ModelConfig.from_cfg(cfg["train"], train_dataset.num_tokens,
                                      use_pallas=cfg["tpu"]["use_pallas"])
@@ -177,6 +233,8 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
     logger.write(parameter_summary(model))
 
     batch_size = cfg["train"]["batch_size"]
+    # Each process feeds its rows of every global batch.
+    proc_slice = multihost.process_batch_slice(mesh, batch_size)
     if online_images:
         from dl_vqa_tpu_torch.data.online import (
             OnlineBatcher, loader_from_config)
@@ -187,20 +245,23 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
         train_batcher = OnlineBatcher(
             train_dataset, batch_size,
             loader_from_config(cfg, profile, "train_paths", device,
-                               logger.write), shuffle=True, seed=seed)
+                               logger.write), shuffle=True, seed=seed,
+            process_slice=proc_slice)
         val_batcher = OnlineBatcher(
             val_dataset, batch_size,
             loader_from_config(cfg, profile, "val_paths", device,
-                               logger.write))
+                               logger.write), process_slice=proc_slice)
     else:
         tables = plan_image_tables(
             cfg, {"train": train_dataset, "val": val_dataset}, device,
-            log=logger.write)
+            log=logger.write, mesh=mesh)
         train_batcher = Batcher(train_dataset, batch_size, shuffle=True,
                                 seed=seed,
-                                load_images=tables["train"] is None)
+                                load_images=tables["train"] is None,
+                                process_slice=proc_slice)
         val_batcher = Batcher(val_dataset, batch_size,
-                              load_images=tables["val"] is None)
+                              load_images=tables["val"] is None,
+                              process_slice=proc_slice)
 
     metrics = train(
         model_cfg, model, train_batcher, val_batcher,
@@ -211,7 +272,8 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
         accum_steps=cfg["tpu"]["grad_accum_steps"],
         train_image_table=tables["train"], eval_image_table=tables["val"],
         checkpoint_every_steps=cfg["tpu"]["checkpoint_every_steps"],
-        debug_nans=cfg["tpu"]["debug_nans"])
+        debug_nans=cfg["tpu"]["debug_nans"], mesh=mesh,
+        zero_stage=zero_stage)
 
     logger.report_metrics_hyper_params(config_mod.flatten(cfg["train"]),
                                        metrics)
@@ -272,6 +334,7 @@ def multirun_main(config_name: str, args, runner=None,
 def _cli(args) -> float:
     from dl_vqa_tpu_torch import config as config_mod
 
+    device, args = split_device_arg(args)
     multirun = bool(args) and args[0] in ("-m", "--multirun")
     if multirun:
         args = args[1:]
@@ -279,8 +342,9 @@ def _cli(args) -> float:
     if args and "=" not in args[0]:
         config_name, args = args[0], args[1:]
     if multirun:
-        return multirun_main(config_name, args)
-    return main(config_mod.compose(config_name, overrides=args))
+        return multirun_main(config_name, args, device=device)
+    return main(config_mod.compose(config_name, overrides=args),
+                device=device)
 
 
 if __name__ == "__main__":

@@ -3,13 +3,26 @@ mixed-precision product, and the normalisation of uint8 images."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from dl_vqa_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
 
-__all__ = ["dropout", "mm", "normalize_images"]
+__all__ = ["dropout", "mm", "normalize_images", "BatchRows"]
+
+
+class BatchRows(NamedTuple):
+    """A dropout source for rows ``[start, start + rows of x)`` of a batch
+    of ``total`` rows: every site draws the whole batch's mask from
+    ``generator`` and keeps these rows. A rank of a data-parallel step
+    thus drops what one process dropping the whole batch drops, as the JAX
+    step's masks do not depend on how its batch is sharded; the cost is
+    the whole batch's random bytes drawn on every rank."""
+
+    generator: torch.Generator
+    total: int
+    start: int
 
 
 def normalize_images(images: torch.Tensor, dtype: torch.dtype
@@ -24,14 +37,15 @@ def normalize_images(images: torch.Tensor, dtype: torch.dtype
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Union[None, torch.Generator, BatchRows]
+            ) -> torch.Tensor:
     """Inverted dropout with a uint8 mask source, as the JAX model's
     ``_dropout``: the keep probability is quantised to ``threshold / 256``
     with ``threshold = round((1 - rate) * 256)``, an element is kept where
     its random byte is below the threshold, and the kept ones are divided
     by the same quantised probability, so the mean is preserved exactly.
     ``generator`` is ``None`` in eval (no dropout), else a generator on
-    ``x``'s device."""
+    ``x``'s device, or :class:`BatchRows` of one."""
     if generator is None or rate == 0.0:
         return x
     threshold = int(round((1.0 - rate) * 256.0))
@@ -39,8 +53,14 @@ def dropout(x: torch.Tensor, rate: float,
         return x
     if threshold <= 0:
         return torch.zeros_like(x)
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
-                         generator=generator, device=x.device)
+    if isinstance(generator, BatchRows):
+        bits = torch.randint(0, 256, (generator.total,) + x.shape[1:],
+                             dtype=torch.uint8, generator=generator.generator,
+                             device=x.device)
+        bits = bits.narrow(0, generator.start, x.shape[0])
+    else:
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+                             generator=generator, device=x.device)
     return torch.where(bits < threshold, x / (threshold / 256.0), 0.0)
 
 

@@ -9,8 +9,8 @@ MLP of width 4 D, each with a residual) and a final layer norm. With
 ``image.moe_experts > 0`` every block's MLP is the mixture-of-experts FFN
 of :mod:`dl_vqa_tpu_torch.ops.moe` (each expert of width 4 D), routed with
 ``image.moe_top_k`` and ``image.moe_capacity_factor``; each block appends
-its balance loss to the ``aux_sink`` that :meth:`VitImage.forward` is
-given.
+the factors of its balance loss to the ``aux_sink`` that
+:meth:`VitImage.forward` is given.
 
 The numerics are those of the JAX model on its accelerator path:
 
@@ -117,8 +117,9 @@ class VitBlock(nn.Module):
         """``scales``: the block's four int8 site scales, which run its
         four products as W8A8 (:func:`w8a8_linear`, before kernel 8);
         ``amax_sink`` collects the four sites' input amaxes instead. A MoE
-        block routes with ``moe = (top_k, capacity_factor)`` and appends its
-        balance loss to ``aux_sink``; kernel 8 never takes it."""
+        block routes with ``moe = (top_k, capacity_factor)`` and appends the
+        factors of its balance loss to ``aux_sink``; kernel 8 never takes
+        it."""
         def linear(h, layer, site, out_dtype):
             if amax_sink is not None:
                 amax_sink.append(h.float().abs().amax())
@@ -185,8 +186,9 @@ class VitImage(nn.Module):
         W8A8 with their slice of ``image.quant_scales``; ``amax_sink`` (a
         list) runs the compute-dtype path and collects the four int8 sites'
         input amaxes of every block, in order (the calibration pass).
-        ``aux_sink`` (a list) receives each MoE block's balance loss, in
-        order."""
+        ``aux_sink`` (a list) receives each MoE block's balance-loss
+        factors ``(frac, mean_prob)`` (:func:`~dl_vqa_tpu_torch.ops.moe.
+        balance_loss`), in order."""
         batch, height, width, _ = images.shape
         p = self.patch_size
         gh, gw = height // p, width // p

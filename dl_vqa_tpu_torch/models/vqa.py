@@ -346,9 +346,11 @@ class VqaNet(nn.Module):
         block to kernel 8 (with ``plain_ops`` their plain versions, on any
         device). The fused ops round once where the unfused path rounds
         twice, so in bf16 the logits move by those roundings; in f32 they
-        agree. ``aux_sink``, a list, receives the balance loss of each MoE
-        block of the ViT (``image.moe_experts > 0``), in order, as the JAX
-        model's ``aux_sink`` does; the logits do not depend on it.
+        agree. ``aux_sink``, a list, receives the factors ``(frac,
+        mean_prob)`` of the balance loss of each MoE block of the ViT
+        (``image.moe_experts > 0``), in order, where the JAX model's
+        ``aux_sink`` receives the loss (:func:`~dl_vqa_tpu_torch.ops.moe.
+        balance_loss` of them); the logits do not depend on it.
         """
         if train and generator is None:
             raise ValueError("train=True requires a dropout generator")

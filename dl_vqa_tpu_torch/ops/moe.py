@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 __all__ = ["moe_capacity", "Routing", "top_k_gating", "moe_mlp", "MoeMlp",
-           "MOE_WITHOUT_ROUTING"]
+           "balance_loss", "MOE_WITHOUT_ROUTING"]
 
 # The JAX model's words where MoE parameters meet a configuration without
 # the routing knobs (dl_vqa_tpu/models/vit.py::apply_vit_block).
@@ -67,14 +67,18 @@ class Routing(NamedTuple):
     """Where each slot ``(g, s, k)`` of a token goes. ``expert`` and
     ``position`` ``[G, S, K]`` int64 (the position is ``>= capacity`` where
     the slot was dropped), ``kept`` ``[G, S, K]`` bool, ``weight`` ``[G, S,
-    K]`` f32 (the combine weight, 0 where dropped) and the scalar ``aux``
-    balance loss."""
+    K]`` f32 (the combine weight, 0 where dropped), the scalar ``aux``
+    balance loss and its factors ``frac`` (each expert's share of first
+    choices, no gradient) and ``mean_prob`` (its mean router probability),
+    ``[E]`` f32: ``aux = E * sum(frac * mean_prob)``."""
 
     expert: torch.Tensor
     position: torch.Tensor
     kept: torch.Tensor
     weight: torch.Tensor
     aux: torch.Tensor
+    frac: torch.Tensor
+    mean_prob: torch.Tensor
 
     def dense(self, num_experts: int, capacity: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,6 +92,14 @@ class Routing(NamedTuple):
             * place.float()[..., None, :]                    # [G, S, K, E, C]
         return (slot.sum(2),
                 (slot * self.weight[..., None, None]).sum(2))
+
+
+def balance_loss(frac: torch.Tensor, mean_prob: torch.Tensor
+                 ) -> torch.Tensor:
+    """The Switch balance loss ``E * sum_e frac_e * mean_prob_e`` over the
+    last axis (the experts) of the factors a :func:`moe_mlp` gives its
+    ``aux_sink``."""
+    return frac.shape[-1] * torch.sum(frac * mean_prob, dim=-1)
 
 
 def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int
@@ -104,7 +116,7 @@ def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int
     counts = probs.new_zeros(probs.shape[0], num_experts)    # [G, E]
     remaining = probs
     experts, positions, kept, gates = [], [], [], []
-    aux = None
+    aux = frac = mean_prob = None
     for _ in range(top_k):
         idx = torch.argmax(remaining, dim=-1)                # [G, S]
         onehot = nn.functional.one_hot(idx, num_experts).float()
@@ -134,7 +146,7 @@ def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int
     else:
         weight = gate / (gate.sum(dim=-1, keepdim=True) + 1e-9)
     return Routing(torch.stack(experts, -1), torch.stack(positions, -1),
-                   torch.stack(kept, -1), weight, aux)
+                   torch.stack(kept, -1), weight, aux, frac, mean_prob)
 
 
 def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
@@ -147,7 +159,10 @@ def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
     ``b_out [E, D]`` (``[out, in]``, as the port's linears). Each group's
     tokens are routed on their own (capacity is per group); a dropped slot
     adds nothing and the token rides the block's residual. ``aux_sink``, a
-    list, receives the layer's balance loss."""
+    list, receives the factors of the layer's balance loss, ``(frac,
+    mean_prob)`` (:func:`balance_loss`), for the caller to take the
+    fractions over whatever batch it means (every rank's tokens, in a
+    data-parallel step)."""
     dtype = x.dtype
     groups, tokens, dim = x.shape
     num_experts = w_in.shape[0]
@@ -155,7 +170,7 @@ def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
     logits = torch.matmul(x.float(), gate.t())               # [G, S, E] f32
     routing = top_k_gating(logits, top_k, capacity)
     if aux_sink is not None:
-        aux_sink.append(routing.aux)
+        aux_sink.append((routing.frac, routing.mean_prob))
 
     # A slot's row of the [E, G, C] buffer; a dropped slot writes a spare
     # last row, which is cut off, and gathers row 0 with weight 0.

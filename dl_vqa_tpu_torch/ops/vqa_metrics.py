@@ -20,29 +20,44 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["soft_cross_entropy", "vqa_accuracy_sum", "vqa_accuracy_by_type",
+__all__ = ["soft_cross_entropy", "soft_cross_entropy_sum", "vqa_accuracy_sum", "vqa_accuracy_by_type",
            "vqa_batch_stats"]
 
 
-def soft_cross_entropy(
+def soft_cross_entropy_sum(
     logits: torch.Tensor,          # [B, A] float
     answer_indices: torch.Tensor,  # [B, K] int, 1-based, 0 = pad
     answer_values: torch.Tensor,   # [B, K] int annotator counts, 0 = pad
     sample_mask: Optional[torch.Tensor] = None,  # [B] bool, False = padded
 ) -> torch.Tensor:
-    """Soft-target NLL, summed over answers, divided by the number of
-    real samples."""
+    """Soft-target NLL, summed over answers and over the real samples
+    (the train and eval steps divide it by the real count of the global
+    batch)."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     indices = answer_indices.long()
     gathered = torch.gather(log_probs, 1, (indices - 1).clamp(min=0))
     weights = answer_values.float() / 10.0
     weights = torch.where(indices > 0, weights, torch.zeros_like(weights))
     per_sample = -(gathered * weights).sum(dim=-1)
+    if sample_mask is not None:
+        per_sample = torch.where(sample_mask, per_sample,
+                                 torch.zeros_like(per_sample))
+    return per_sample.sum()
+
+
+def soft_cross_entropy(
+    logits: torch.Tensor,
+    answer_indices: torch.Tensor,
+    answer_values: torch.Tensor,
+    sample_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`soft_cross_entropy_sum` divided by the number of real
+    samples."""
+    total = soft_cross_entropy_sum(logits, answer_indices, answer_values,
+                                   sample_mask)
     if sample_mask is None:
-        return per_sample.sum() / per_sample.shape[0]
-    per_sample = torch.where(sample_mask, per_sample,
-                             torch.zeros_like(per_sample))
-    return per_sample.sum() / sample_mask.sum().clamp(min=1)
+        return total / logits.shape[0]
+    return total / sample_mask.sum().clamp(min=1)
 
 
 def _scores(logits, answer_indices, answer_values, sample_mask):

@@ -28,6 +28,14 @@ gradients hold a NaN, naming the step and the tensor or the backward
 function: autograd's anomaly mode with its NaN check for the run (restored
 after it), and a NaN check of each step's loss and score. Inf alone does
 not raise; with the flag off nothing is checked.
+
+Over a 'data' mesh (``mesh``, ``zero_stage``) every rank runs the loop on
+its rows of each batch; the steps reduce the metrics, so every rank
+computes the same epoch numbers, and only the coordinator writes the
+logger's files, the checkpoints and the epoch-1 trace. Under ZeRO a save
+gathers the state on every rank (a collective: the other ranks take the
+snapshot and drop it). A restore loads the whole state before the model
+is wrapped for the mesh, so a checkpoint resumes at any world size.
 """
 
 from __future__ import annotations
@@ -154,7 +162,9 @@ def evaluate(eval_step, model, batcher, prefetch_depth: int = 2,
     (an eval step built ``with_breakdown=True``) a third value, ``{"yes/no":
     %, "number": %, "other": %}``. Sums run on the device; the totals are
     read once (with ``debug_nans``, each batch's loss and score are read
-    too)."""
+    too). With a data-parallel eval step and a batcher of this rank's rows,
+    the step sums over the ranks, so every rank returns the global
+    result."""
     device = next(model.parameters()).device
     n_batches = len(batcher)
     n_samples = len(batcher.dataset)
@@ -208,6 +218,8 @@ def train(
     eval_image_table=None,
     checkpoint_every_steps: int = 0,
     debug_nans: bool = False,
+    mesh=None,
+    zero_stage: int = 0,
 ) -> Dict[str, float]:
     """Train ``model`` (a :class:`~dl_vqa_tpu_torch.models.vqa.VqaNet`, on
     the device it lies on) to the epoch budget or the early stop; returns
@@ -218,7 +230,11 @@ def train(
     ``checkpoint_every_steps > 0`` also writes ``last.ckpt`` every N
     batches within an epoch, with the batch position and the epoch's
     partial loss and score sums in its metadata; each such save reads the
-    device sums (one sync every N steps)."""
+    device sums (one sync every N steps).
+
+    ``mesh`` over a process group trains data-parallel at ZeRO stage
+    ``zero_stage`` (see the module docstring): the batchers give this
+    rank's rows, and the tables are this rank's (or sharded ones)."""
     if not hasattr(train_batcher, "iter_epoch"):
         raise TypeError(
             "train_batcher needs iter_epoch(epoch, start_batch) (see "
@@ -263,9 +279,16 @@ def train(
                 + f" with best eval score {best_eval_score:.4f} "
                 f"({epochs_no_improve} epochs without improvement)")
 
+    if mesh is not None:
+        from dl_vqa_tpu_torch.parallel.zero import parallelize
+
+        state = parallelize(state, mesh, zero_stage)
+    world = 1 if mesh is None else mesh.shape["data"]
+    is_coordinator = mesh is None or mesh.rank == 0
+    sharded_state = mesh is not None and mesh.distributed and zero_stage > 0
     train_step = make_train_step(model_cfg, compute_dtype, remat=remat,
-                                 accum_steps=accum_steps)
-    eval_step = make_eval_step(model_cfg, compute_dtype)
+                                 accum_steps=accum_steps, mesh=mesh)
+    eval_step = make_eval_step(model_cfg, compute_dtype, mesh=mesh)
 
     # Seeded from the restore, so a run whose budget is already spent
     # reports its restored metrics.
@@ -304,7 +327,8 @@ def train(
         epoch_iter = train_batcher.iter_epoch(epoch, start_batch)
         batch_idx = start_batch
         profiler = (_start_profiler(device)
-                    if profile_dir and epoch == PROFILED_EPOCH else None)
+                    if profile_dir and epoch == PROFILED_EPOCH
+                    and is_coordinator else None)
 
         try:
             with torch.profiler.record_function(EPOCH_SPAN):
@@ -340,6 +364,7 @@ def train(
                         _save_rolling(
                             logger, state, epoch, model_cfg, ckpt_meta,
                             best_eval_score, epochs_no_improve,
+                            is_coordinator, sharded_state,
                             batch_in_epoch=batch_idx, epoch_accum=epoch_accum,
                             last_eval_score=last_eval_score,
                             last_train_loss=last_train_loss)
@@ -365,7 +390,8 @@ def train(
             if start_batch else n_samples)
         scalars = {
             "Throughput/StepsPerSec": batches_run / epoch_seconds,
-            "Throughput/QAPairsPerSecPerChip": samples_run / epoch_seconds,
+            "Throughput/QAPairsPerSecPerChip":
+                samples_run / epoch_seconds / world,
         }
         if aux_total is not None:
             # Expert balance of a MoE model: 1.0 at uniform routing.
@@ -394,9 +420,13 @@ def train(
         if eval_score > best_eval_score:
             epochs_no_improve = 0
             best_eval_score = eval_score
-            if save_model:
+            if save_model and is_coordinator:
                 logger.save_model(state, epoch, model_cfg,
                                   extra_meta=ckpt_meta)
+            elif save_model and sharded_state:
+                from dl_vqa_tpu_torch.utils.checkpoint import host_snapshot
+
+                host_snapshot(state)  # the coordinator's gather
         else:
             epochs_no_improve += 1
 
@@ -407,8 +437,8 @@ def train(
             # The rolling checkpoint of a finished epoch: a restart starts
             # the next one.
             _save_rolling(logger, state, epoch, model_cfg, ckpt_meta,
-                          best_eval_score, epochs_no_improve,
-                          last_eval_score=last_eval_score,
+                          best_eval_score, epochs_no_improve, is_coordinator,
+                          sharded_state, last_eval_score=last_eval_score,
                           last_train_loss=last_train_loss)
 
         metrics = get_metrics(best_eval_score, eval_score, train_loss)
@@ -420,11 +450,18 @@ def train(
 
 
 def _save_rolling(logger, state, epoch, model_cfg, ckpt_meta,
-                  best_eval_score, epochs_no_improve, **extra_meta):
+                  best_eval_score, epochs_no_improve, is_coordinator=True,
+                  sharded_state=False, **extra_meta):
     """Write ``last.ckpt`` in the background, with the resume progress in
     its metadata (mid-epoch callers add ``batch_in_epoch`` and
-    ``epoch_accum``)."""
+    ``epoch_accum``). Only the coordinator writes; the other ranks of a
+    ZeRO run take part in its gather and drop the snapshot."""
     from dl_vqa_tpu_torch.utils import checkpoint as ckpt
+
+    if not is_coordinator:
+        if sharded_state:
+            ckpt.host_snapshot(state)
+        return
 
     resume_meta = dict(ckpt_meta or {})
     resume_meta["best_eval_score"] = float(best_eval_score)

@@ -17,7 +17,13 @@ __all__ = ["TrainState", "create_train_state"]
 
 class TrainState:
     """``model``, ``optimizer`` (over the model's trainable parameters),
-    ``initial_lr`` and ``step``, the number of optimizer updates done."""
+    ``initial_lr`` and ``step``, the number of optimizer updates done.
+
+    Over a 'data' mesh (:func:`dl_vqa_tpu_torch.parallel.zero.
+    parallelize`) ``forward`` is what the train step calls (DDP around
+    ``model``, or ``model`` itself sharded by FSDP2), ``mesh`` the mesh and
+    ``zero_stage`` the ZeRO stage; in one process ``forward`` is ``model``
+    and ``mesh`` None."""
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, initial_lr: float,
@@ -26,6 +32,9 @@ class TrainState:
         self.optimizer = optimizer
         self.initial_lr = float(initial_lr)
         self.step = int(step)
+        self.forward = model
+        self.mesh = None
+        self.zero_stage = 0
 
 
 def create_train_state(model: torch.nn.Module, initial_lr: float, *,

@@ -23,7 +23,32 @@ layer mean of the blocks' balance losses: the train step adds
 ``image.moe_aux_weight`` times it to the loss it differentiates and
 reports it as ``moe_aux``; the eval loss stays the task loss.
 
-Not ported yet: sharded steps, the pipeline and sequence contexts.
+One process is one rank of a 'data' mesh of one. Over a mesh of a
+process group (``mesh=``, the state wrapped by
+:func:`dl_vqa_tpu_torch.parallel.zero.parallelize`) each rank runs the
+same step on its rows of the global batch, as the JAX step runs on a
+'data'-sharded batch, and reports the global batch's numbers:
+
+* the loss is normalised once, by the real count of the global batch (an
+  all-reduce before the forward), not by each rank's own count, and the
+  objective is scaled by the world size, since DDP and FSDP2 average the
+  ranks' gradients; an accumulated step's micro-batches before the last
+  keep their gradients local (``no_sync``);
+* each rank draws its rows of the masks one process draws for the whole
+  batch (:class:`~dl_vqa_tpu_torch.models.layers.BatchRows`): rank ``r``'s
+  micro-batch ``k`` lies in the global micro-batch ``(r * accum_steps +
+  k) // data``, whose key and shape it uses;
+* the MoE balance loss takes its first-choice fractions over every rank's
+  tokens of the micro-batch: with ``accum_steps == 1`` it is the JAX
+  step's loss of the global batch; with more, a micro-batch is every
+  rank's k-th chunk, where the JAX step takes contiguous rows of the
+  global batch;
+* loss, score and balance loss are all-reduced, as is the eval step's
+  output, so every rank reports the same global numbers.
+
+In one process every collective is left out.
+
+Not ported yet: the tensor, pipeline and sequence axes.
 """
 
 from __future__ import annotations
@@ -32,14 +57,18 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from dl_vqa_tpu_torch.models.configs import ModelConfig
+from dl_vqa_tpu_torch.models.layers import BatchRows
+from dl_vqa_tpu_torch.ops.moe import balance_loss
 from dl_vqa_tpu_torch.ops.vqa_metrics import (
-    soft_cross_entropy,
+    soft_cross_entropy_sum,
     vqa_accuracy_by_type,
     vqa_accuracy_sum,
 )
+from dl_vqa_tpu_torch.parallel.zero import grad_sync
 from dl_vqa_tpu_torch.train.state import TrainState
 
 __all__ = ["make_optimizer", "make_train_step", "make_eval_step",
@@ -81,10 +110,16 @@ def dropout_generator(seed: int, step: int, device,
     return torch.Generator(device=device).manual_seed(int(key) >> 1)
 
 
+def _seed_of(rng: Union[int, torch.Generator]) -> int:
+    return rng.initial_seed() if isinstance(rng, torch.Generator) else int(rng)
+
+
 def _to_device(batch: Dict, device: torch.device) -> Dict:
-    """Every array of ``batch`` as a tensor on ``device``; a tensor already
-    there (a prefetched batch, the image table) is passed on as it is."""
-    return {key: torch.as_tensor(value).to(device)
+    """Every array of ``batch`` as a tensor on ``device``; what is there
+    already (a prefetched batch, the image table, whole or this rank's
+    rows of it) is passed on as it is."""
+    return {key: value.to(device) if hasattr(value, "to")
+            else torch.as_tensor(value).to(device)
             for key, value in batch.items()}
 
 
@@ -95,32 +130,52 @@ def _images(batch: Dict) -> torch.Tensor:
     return images
 
 
-def _forward_loss(
-    model: torch.nn.Module, batch: Dict, train: bool,
-    generator: Optional[torch.Generator], compute_dtype: torch.dtype,
-    plain_ops: bool, fused_ops: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """``(loss, score_sum, logits, moe_aux)``: the one forward of both
-    steps. ``moe_aux`` is the layer mean of the MoE balance losses (None for
-    a dense model), weighted into the loss in training only, as the JAX
-    step does."""
-    cfg = model.cfg
+def _all_reduce(tensor: torch.Tensor, group) -> None:
+    """Sum ``tensor`` over the ranks of ``group`` in place; nothing in one
+    process (``group`` None)."""
+    if group is not None:
+        dist.all_reduce(tensor, group=group)
+
+
+def _forward_sums(
+    forward: torch.nn.Module, cfg: ModelConfig, batch: Dict, train: bool,
+    generator: Union[None, torch.Generator, BatchRows],
+    compute_dtype: torch.dtype, plain_ops: bool, fused_ops: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+           Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """``(loss_sum, score_sum, logits, balance)``: the one forward of both
+    steps, through ``forward`` (the model, or its data-parallel wrapper).
+    ``loss_sum`` is the task loss summed over the batch's real rows;
+    ``balance`` the MoE layers' first-choice fractions and mean router
+    probabilities, ``[L, E]`` each (None for a dense model)."""
     sink = [] if cfg.image.moe_experts > 0 else None
-    logits = model(_images(batch), batch["questions"], batch["lengths"],
-                   train=train, generator=generator,
-                   compute_dtype=compute_dtype, plain_ops=plain_ops,
-                   fused_ops=fused_ops, aux_sink=sink)
+    logits = forward(
+        _images(batch), batch["questions"], batch["lengths"], train=train,
+        generator=generator, compute_dtype=compute_dtype,
+        plain_ops=plain_ops, fused_ops=fused_ops, aux_sink=sink)
     mask = batch.get("mask")
-    loss = soft_cross_entropy(logits, batch["answer_indices"],
-                              batch["answer_values"], mask)
-    aux = None
-    if sink:
-        aux = sum(sink) / len(sink)
-        if train:
-            loss = loss + cfg.image.moe_aux_weight * aux
+    loss_sum = soft_cross_entropy_sum(logits, batch["answer_indices"],
+                                      batch["answer_values"], mask)
     score = vqa_accuracy_sum(logits.detach(), batch["answer_indices"],
                              batch["answer_values"], mask)
-    return loss, score, logits, aux
+    balance = (tuple(torch.stack(factor) for factor in zip(*sink))
+               if sink else None)
+    return loss_sum, score, logits, balance
+
+
+def _balance_loss(balance: Tuple[torch.Tensor, torch.Tensor], group,
+                  world: int) -> torch.Tensor:
+    """The layer mean of the MoE balance losses, the first-choice
+    fractions taken over the tokens of every rank of ``group`` (an
+    all-reduce; they carry no gradient) and each rank's own mean
+    probabilities: the mean over the ranks is then the loss of the global
+    batch, as the JAX step takes it over its 'data'-sharded batch."""
+    frac, mean_prob = balance
+    if group is not None:
+        frac = frac.clone()
+        _all_reduce(frac, group)
+        frac = frac / world
+    return balance_loss(frac, mean_prob).mean()
 
 
 def make_train_step(
@@ -130,6 +185,7 @@ def make_train_step(
     plain_ops: bool = False,
     fused_ops: bool = False,
     remat: bool = False,
+    mesh=None,
 ):
     """Build ``train_step(state, batch, rng) -> (state, metrics)``.
 
@@ -155,93 +211,100 @@ def make_train_step(
     ``fused_ops=True`` flips the image encoder to its fused ops (see
     :meth:`VqaNet.forward`; the forward-only ones stay off while gradients
     are recorded).
+
+    ``mesh`` over a process group makes this a rank's step (module
+    docstring) for a state wrapped over that mesh: ``batch`` holds this
+    rank's rows of the global batch. Without one the step is the one
+    process's: one rank, no collective.
     """
     cfg.check_ported()
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
+    group = mesh.group("data") if mesh is not None else None
+    world, rank = ((mesh.shape["data"], mesh.rank) if group is not None
+                   else (1, 0))
+    aux_weight = cfg.image.moe_aux_weight
 
-    has_moe = cfg.image.moe_experts > 0
+    def loss_of(state, batch, seed, micro):
+        # Rank r's micro-batch k: rows of global micro-batch j at offset.
+        at = rank * accum_steps + micro
+        rows = batch["questions"].shape[0]
 
-    def loss_of(model, batch, seed, step, micro):
         def run():
-            generator = dropout_generator(
-                seed, step, batch["questions"].device, micro)
-            loss, score, _, aux = _forward_loss(
-                model, batch, True, generator, compute_dtype, plain_ops,
-                fused_ops)
-            return loss, score, aux if has_moe else torch.zeros(())
+            generator = BatchRows(
+                dropout_generator(seed, state.step, batch["questions"].device,
+                                  None if accum_steps == 1
+                                  else at // world),
+                world * rows, (at % world) * rows)
+            loss_sum, score, _, balance = _forward_sums(
+                state.forward, cfg, batch, True, generator, compute_dtype,
+                plain_ops, fused_ops)
+            return (loss_sum, score) + (balance or ())
 
-        if remat:
-            return checkpoint(run, use_reentrant=False)
-        return run()
+        out = checkpoint(run, use_reentrant=False) if remat else run()
+        return out[0], out[1], out[2:] or None
 
     def train_step(state: TrainState, batch: Dict,
                    rng: Union[int, torch.Generator]):
-        seed = (rng.initial_seed() if isinstance(rng, torch.Generator)
-                else int(rng))
+        seed = _seed_of(rng)
         device = next(state.model.parameters()).device
         batch = _to_device(batch, device)
-        model, optimizer = state.model, state.optimizer
-        optimizer.zero_grad(set_to_none=True)
-
-        if accum_steps == 1:
-            loss, score, moe_aux = loss_of(model, batch, seed, state.step,
-                                           None)
-            loss.backward()
-            loss, moe_aux = loss.detach(), moe_aux.detach()
-        else:
-            # The image table is indexed by rows, not by the batch: it is
-            # not split.
-            table = batch.pop("image_table", None)
-            batch_size = batch["questions"].shape[0]
-            if batch_size % accum_steps != 0:
-                raise ValueError(
-                    f"batch size {batch_size} does not split into "
-                    f"accum_steps={accum_steps} micro-batches")
-            micro_size = batch_size // accum_steps
-            loss_sum = torch.zeros((), device=device)
-            score = torch.zeros((), device=device)
-            aux_sum = torch.zeros((), device=device)
-            n_total = torch.zeros((), device=device)
-            for idx in range(accum_steps):
-                rows = slice(idx * micro_size, (idx + 1) * micro_size)
-                micro = {key: value[rows] for key, value in batch.items()}
-                if table is not None:
-                    micro["image_table"] = table
-                micro_loss, micro_score, micro_aux = loss_of(
-                    model, micro, seed, state.step, idx)
-                # A micro's loss is normalised by ITS real count (clamped
-                # to 1 when all of it is padding). Averaging those would
-                # misweight a padded final batch whose real samples fall
-                # unevenly over the micros, so each goes back to sum form
-                # here and the whole is normalised once, below, by the
-                # batch's real count.
-                if "mask" in micro:
-                    n = micro["mask"].sum().float()
-                else:
-                    n = torch.tensor(float(micro_size), device=device)
-                scale = n.clamp(min=1.0)
-                (micro_loss * scale).backward()  # .grad accumulates
-                loss_sum += micro_loss.detach() * scale
-                score += micro_score
-                aux_sum += micro_aux.detach().to(device) * scale
-                n_total += n
-            denom = n_total.clamp(min=1.0)
-            for group in optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(denom)
-            loss = loss_sum / denom
-            moe_aux = aux_sum / denom
+        # The image table is indexed by rows, not by the batch: it is not
+        # split.
+        table = batch.pop("image_table", None)
+        local = batch["questions"].shape[0]
+        if local % accum_steps != 0:
+            raise ValueError(
+                f"batch size {local} does not split into "
+                f"accum_steps={accum_steps} micro-batches")
+        micro_size = local // accum_steps
+        # The real count of every micro-batch over the ranks, at once: the
+        # loss is normalised once, by the global batch's real count, so a
+        # padded batch whose real rows fall unevenly over the micro-batches
+        # (or the ranks) weighs every real row alike.
+        mask = batch.get("mask")
+        counts = (mask.view(accum_steps, micro_size).sum(1).float()
+                  if mask is not None
+                  else torch.full((accum_steps,), float(micro_size),
+                                  device=device))
+        _all_reduce(counts, group)
+        denom = counts.sum().clamp(min=1.0)
+        state.optimizer.zero_grad(set_to_none=True)
+        totals = torch.zeros(3, device=device)
+        for idx in range(accum_steps):
+            rows = slice(idx * micro_size, (idx + 1) * micro_size)
+            micro = {key: value[rows] for key, value in batch.items()}
+            if table is not None:
+                micro["image_table"] = table
+            with grad_sync(state.forward, idx == accum_steps - 1):
+                loss_sum, score, balance = loss_of(state, micro, seed, idx)
+                loss = loss_sum / denom
+                # DDP and FSDP2 average the ranks' gradients.
+                objective = loss * world
+                aux = torch.zeros((), device=device)
+                # The balance loss of micro-batch idx, weighted by its
+                # share of the real rows as the JAX accumulation weights
+                # it (1 without accumulation); each rank's is 1 / world of
+                # it.
+                share = (counts[idx].clamp(min=1.0) / denom
+                         if accum_steps > 1 else 1.0)
+                if balance is not None:
+                    aux = _balance_loss(balance, group, world)
+                    objective = objective + aux_weight * aux * share
+                objective.backward()  # .grad accumulates
+            loss, aux = loss.detach(), aux.detach()
+            totals += torch.stack([loss + aux_weight * aux * share / world,
+                                   score, aux * share / world])
+        _all_reduce(totals, group)
 
         lr = lr_schedule(state.initial_lr)(state.step)
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = lr
+        state.optimizer.step()
         state.step += 1
-        metrics = {"loss": loss, "score": score}
-        if has_moe:
-            metrics["moe_aux"] = moe_aux
+        metrics = {"loss": totals[0], "score": totals[1]}
+        if cfg.image.moe_experts > 0:
+            metrics["moe_aux"] = totals[2]
         return state, metrics
 
     return train_step
@@ -253,26 +316,39 @@ def make_eval_step(
     with_breakdown: bool = False,
     plain_ops: bool = False,
     fused_ops: bool = False,
+    mesh=None,
 ):
     """Build ``eval_step(model, batch) -> (loss, score_sum)``, 0-dim
     tensors on the model's device, to which the step moves the batch
     (images in it, or the image table and rows, as the train step).
     ``with_breakdown=True`` also returns the per-answer-type (yes/no,
     number, other) score sums and counts, each ``[3]``, from
-    ``batch["answer_types"]``."""
+    ``batch["answer_types"]``. With ``mesh`` over a process group
+    ``batch`` is this rank's rows and every output is the global batch's
+    (one all-reduce a batch); ``model`` may be FSDP2-sharded."""
     cfg.check_ported()
+    group = mesh.group("data") if mesh is not None else None
 
     @torch.no_grad()
     def eval_step(model: torch.nn.Module, batch: Dict):
         batch = _to_device(batch, next(model.parameters()).device)
-        loss, score, logits, _ = _forward_loss(model, batch, False, None,
-                                               compute_dtype, plain_ops,
-                                               fused_ops)
+        mask = batch.get("mask")
+        loss_sum, score, logits, _ = _forward_sums(
+            model, cfg, batch, False, None, compute_dtype, plain_ops,
+            fused_ops)
+        count = (mask.sum().float() if mask is not None
+                 else torch.full((), float(logits.shape[0]),
+                                 device=logits.device))
+        parts = [loss_sum.reshape(1), score.reshape(1), count.reshape(1)]
+        if with_breakdown:
+            parts += vqa_accuracy_by_type(
+                logits, batch["answer_indices"], batch["answer_values"],
+                batch["answer_types"], mask)
+        totals = torch.cat(parts)
+        _all_reduce(totals, group)
+        loss = totals[0] / totals[2].clamp(min=1.0)
         if not with_breakdown:
-            return loss, score
-        sums, counts = vqa_accuracy_by_type(
-            logits, batch["answer_indices"], batch["answer_values"],
-            batch["answer_types"], batch.get("mask"))
-        return loss, score, sums, counts
+            return loss, totals[1]
+        return loss, totals[1], totals[3:6], totals[6:9]
 
     return eval_step

@@ -87,23 +87,17 @@ def _trainable(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
 def host_snapshot(state) -> Dict[str, np.ndarray]:
     """A train state as the flat JAX-layout arrays of its checkpoint,
     copied to host memory now: later in-place updates of the state do not
-    reach the snapshot."""
-    from dl_vqa_tpu_torch.utils.params import (
-        jax_params_from_model, jax_tree_from_named)
+    reach the snapshot. Under ZeRO the parameters and moments are gathered
+    from every rank into the one-process layout
+    (:func:`dl_vqa_tpu_torch.parallel.zero.full_state`): every rank calls
+    this, and the coordinator writes what it returns."""
+    from dl_vqa_tpu_torch.parallel.zero import full_state
+    from dl_vqa_tpu_torch.utils.params import jax_tree_from_named
 
+    named, moments, count = full_state(state)
     flat: Dict[str, np.ndarray] = {}
-    _flatten_tree(jax_params_from_model(state.model), "params", flat)
-    trainable = _trainable(state.model)
-    moments, counts = {"exp_avg": {}, "exp_avg_sq": {}}, set()
-    for name, p in trainable.items():
-        slot = state.optimizer.state.get(p, {})
-        for key, named in moments.items():
-            named[name] = slot.get(key, torch.zeros_like(p))
-        counts.add(int(slot["step"]) if "step" in slot else 0)
-    if len(counts) > 1:
-        raise ValueError(f"Adam step counts differ across parameters: "
-                         f"{sorted(counts)}; one count per state is saved")
-    count = np.asarray(counts.pop() if counts else 0, dtype=np.int32)
+    _flatten_tree(jax_tree_from_named(named), "params", flat)
+    count = np.asarray(count, dtype=np.int32)
     flat["opt_state|#0|count"] = count
     _flatten_tree(jax_tree_from_named(moments["exp_avg"]), "opt_state|#0|mu",
                   flat)

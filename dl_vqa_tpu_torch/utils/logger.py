@@ -5,7 +5,9 @@ timestamped experiment dir under ``logs_dir``, claimed atomically (two
 runs started in one second get two dirs, with a suffix), a ``.log`` file
 beside the console, TensorBoard through ``tensorboardX`` when it is
 installed and a no-op writer otherwise, the same scalar tags, and
-``save_model`` writing ``model.ckpt`` in the experiment dir.
+``save_model`` writing ``model.ckpt`` in the experiment dir; and
+:class:`QuietLogger`, what the other processes of a multi-process run
+hold in its place: only the coordinator writes (JAX ``logger.py:76``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 from datetime import datetime
 from typing import Dict, Optional
 
-__all__ = ["TrainLogger"]
+__all__ = ["TrainLogger", "QuietLogger"]
 
 
 class _NoOpWriter:
@@ -24,6 +26,41 @@ class _NoOpWriter:
     def add_scalars(self, *a, **k): pass
     def add_hparams(self, *a, **k): pass
     def flush(self): pass
+    def close(self): pass
+
+
+class QuietLogger:
+    """The TrainLogger surface for a process other than the coordinator:
+    no experiment dir, no files, no TensorBoard; warnings reach stderr
+    prefixed with the rank (every rank's info lines too where
+    ``DL_VQA_LOG_ALL_HOSTS`` is set, to find which rank stopped). The loop
+    gates its writes on the coordinator, so ``save_model`` raises."""
+
+    exp_dir = None
+    exp_name = None
+    checkpoint_backend = "npz"
+
+    def __init__(self, rank: int = 0):
+        self._prefix = f"[rank {rank}] "
+        self._verbose = bool(os.environ.get("DL_VQA_LOG_ALL_HOSTS"))
+
+    def write(self, text, epoch=None, severity: str = "info") -> None:
+        if severity == "warning" or self._verbose:
+            log = f"(EPOCH {epoch}) {text}" if epoch is not None else text
+            tag = "" if severity == "warning" else "[info] "
+            logging.getLogger(__name__).warning(self._prefix + tag + str(log))
+
+    def write_epoch_statistics(self, *a, **k): pass
+    def report_scalar(self, *a, **k): pass
+    def report_scalars(self, *a, **k): pass
+    def report_scalar_same_plot(self, *a, **k): pass
+    def report_scalars_same_plot(self, *a, **k): pass
+    def report_metrics_hyper_params(self, *a, **k): pass
+
+    def save_model(self, *a, **k):
+        raise RuntimeError("QuietLogger writes no checkpoint: gate saves on "
+                           "parallel.multihost.is_coordinator()")
+
     def close(self): pass
 
 

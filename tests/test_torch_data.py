@@ -194,8 +194,21 @@ def test_batches_equal_the_jax_batcher(corpus, shuffle, seed, batch_size,
     for k in range(2):
         for a, b in zip(iter(port), port.iter_epoch(k)):
             np.testing.assert_array_equal(a["indices"], b["indices"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Batcher(port_ds, 8, process_slice=slice(0, 4))
+    # A process's rows of each global batch (the multi-process tier), the
+    # padded batch's mask sliced with them, as the JAX Batcher gives them.
+    rows = slice(batch_size // 2, batch_size)
+    sliced = Batcher(port_ds, batch_size, shuffle=shuffle, seed=seed,
+                     load_images=load_images, process_slice=rows)
+    jax_sliced = JaxBatcher(jax_ds, batch_size, shuffle=shuffle, seed=seed,
+                            load_images=load_images, process_slice=rows)
+    for a, b, whole in zip(sliced.iter_epoch(3, start),
+                           jax_sliced.iter_epoch(3, start),
+                           port.iter_epoch(3, start)):
+        assert a.keys() == b.keys()
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+            np.testing.assert_array_equal(a[key], whole[key][rows],
+                                          err_msg=key)
 
 
 def _cfg(mode, budget_gb=0, layout="replicated"):
@@ -227,8 +240,16 @@ def test_device_table_policy(corpus):
     assert forced["train"] is not None
     assert all(t is None for t in device_cache.plan_image_tables(
         _cfg(False), sets, "cpu").values())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        device_cache.plan_image_tables(_cfg("on", layout="sharded"), sets,
+    # 'sharded' over one 'data' shard (no mesh, or a mesh of one) is the
+    # replicated layout, as in the JAX package.
+    from dl_vqa_tpu_torch.parallel import make_mesh
+
+    for mesh in (None, make_mesh(-1, device_type="cpu")):
+        sharded = device_cache.plan_image_tables(
+            _cfg("on", layout="sharded"), sets, "cpu", mesh=mesh)
+        assert torch.equal(sharded["train"], tables["train"])
+    with pytest.raises(ValueError, match="layout"):
+        device_cache.plan_image_tables(_cfg("on", layout="striped"), sets,
                                        "cpu")
     with pytest.raises(ValueError, match="budget_gb"):
         device_cache.plan_image_tables(_cfg("auto", -1), sets, "cpu")

@@ -6,7 +6,8 @@ the JAX package's ``evaluate_vqa.evaluate_hw2``, the settings the port
 refuses, a missing store with no JPEG directory to build it from, and the
 card the entry points ask for by default (the online JPEG pipeline, the
 store builder, ``tpu.profile_dir`` and ``tpu.debug_nans``:
-``tests/test_torch_online.py``)."""
+``tests/test_torch_online.py``; the entry points as several processes:
+``tests/test_torch_multihost.py``)."""
 
 import glob
 import os
@@ -125,21 +126,37 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
     assert jax_eval.evaluate_hw2(overrides) == score
 
 
-@pytest.mark.parametrize("override,what", [
-    ("tpu.checkpoint_backend=orbax", "Orbax"),
-    ("tpu.mesh.model=2", "item 9"),
-    ("tpu.mesh.data=4", "item 9"),
-    ("tpu.zero_stage=1", "item 9"),
-])
+@pytest.mark.parametrize("override,error,what", [
+    ("tpu.checkpoint_backend=orbax", NotImplementedError, "Orbax"),
+    ("tpu.mesh.model=2", NotImplementedError, "item 9"),
+    ("tpu.mesh.data=4", ValueError,
+     r"mesh 4x1x1x1x1 \(data x seq x expert x model x stage\) needs 4 "
+     "devices, have 1"),
+    ("tpu.zero_stage=1", None, "tpu.zero_stage=1 is a no-op"),
+    ("tpu.mesh.stage=2", NotImplementedError, "item 9"),
+    ("tpu.mesh.expert=2", NotImplementedError, "item 9"),
+    ("tpu.mesh.seq=2", NotImplementedError, "item 9"),
+    ("tpu.pipeline_microbatches=4", NotImplementedError, "item 9"),
+], ids=["tpu.checkpoint_backend=orbax-Orbax", "tpu.mesh.model=2-item 9",
+        "tpu.mesh.data=4-item 9", "tpu.zero_stage=1-item 9",
+        "tpu.mesh.stage=2-item 9", "tpu.mesh.expert=2-item 9",
+        "tpu.mesh.seq=2-item 9", "tpu.pipeline_microbatches=4-item 9"])
 def test_settings_the_port_lacks_raise_with_their_roadmap_item(
-        profile, tmp_path, override, what):
+        profile, tmp_path, override, error, what):
+    """The axes still missing raise with their ROADMAP item. The 'data'
+    axis is ported: in one process ``tpu.mesh.data=4`` raises the mesh's
+    oversubscription error, as JAX's ``make_mesh`` does, and a ZeRO stage
+    runs with its no-op logged (one 'data' shard)."""
     overrides = _overrides(profile, tmp_path) + [override]
-    with pytest.raises(NotImplementedError, match=what):
-        if override.startswith("train.image"):
-            port_eval.evaluate_hw2(overrides, device="cpu")
-        else:
-            port_main.main(port_config.compose("config", overrides),
-                           device="cpu")
+    if error is None:
+        port_main.main(port_config.compose(
+            "config", overrides + ["train.num_epochs=1"]), device="cpu")
+        (log,) = glob.glob(str(tmp_path / "logs" / "final_model_*" / "*.log"))
+        assert what in open(log).read()
+        return
+    with pytest.raises(error, match=what):
+        port_main.main(port_config.compose("config", overrides),
+                       device="cpu")
 
 
 def test_sweeps_run_and_a_missing_store_is_refused(profile, tmp_path,

@@ -250,7 +250,8 @@ def test_moe_layer_matches_jax_forward_and_gradients(name):
     sink = []
     out = moe.moe_mlp(x, leaves["gate"], leaves["w_in"], leaves["b_in"],
                       leaves["w_out"], leaves["b_out"], 2, 1.25, sink)
-    (out.float() * torch.from_numpy(cot)).sum().add(sink[0]).backward()
+    (out.float() * torch.from_numpy(cot)).sum().add(
+        moe.balance_loss(*sink[0])).backward()
     got_grads = {
         "x": x.grad.float().numpy(),
         "gate": leaves["gate"].grad.numpy().T,
@@ -352,7 +353,8 @@ def test_moe_vit_logits_and_aux_match_the_jax_accelerator_path(tpu_path,
     with torch.no_grad():
         got = model(*(torch.from_numpy(a) for a in inputs), compute_dtype=tdt,
                     aux_sink=got_sink).numpy()
-    np.testing.assert_allclose([float(a) for a in got_sink],
+    np.testing.assert_allclose([float(moe.balance_loss(*a))
+                                for a in got_sink],
                                [float(a) for a in sink],
                                rtol=1e-6 if name == "f32" else 1e-4)
     if name == "f32":
@@ -376,12 +378,18 @@ def test_moe_vit_train_gradients_match_jax_grad(tpu_path):
             jax.random.PRNGKey(0), jnp.float32)[0]
 
     expected_loss, expected = jax.jit(jax.value_and_grad(loss_fn))(params)
-    from dl_vqa_tpu_torch.train.steps import _forward_loss
+    from dl_vqa_tpu_torch.ops.vqa_metrics import soft_cross_entropy
+    from dl_vqa_tpu_torch.train.steps import _balance_loss, _forward_sums
 
     model = load_jax_params(VqaNet(_port_cfg(cfg), device="cpu"), params)
-    loss, _, _, aux = _forward_loss(
-        model, {k: torch.from_numpy(v) for k, v in batch.items()}, True,
-        torch.Generator().manual_seed(0), torch.float32, False, False)
+    tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    _, _, logits, balance = _forward_sums(
+        model, model.cfg, tensors, True, torch.Generator().manual_seed(0),
+        torch.float32, False, False)
+    aux = _balance_loss(balance, None, 1)
+    loss = soft_cross_entropy(logits, tensors["answer_indices"],
+                              tensors["answer_values"], tensors.get("mask"))
+    loss = loss + model.cfg.image.moe_aux_weight * aux
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(expected_loss),
                                rtol=1e-5)
@@ -427,7 +435,8 @@ def test_the_accumulated_step_weighs_moe_aux_as_jax_does():
         with torch.no_grad():
             model(tensors["images"][rows], tensors["questions"][rows],
                   tensors["lengths"][rows], aux_sink=sink)
-        per_micro.append(sum(float(a) for a in sink) / len(sink))
+        per_micro.append(sum(float(moe.balance_loss(*a)) for a in sink)
+                         / len(sink))
         counts.append(float(tensors["mask"][rows].sum()))
     weighted = np.dot(per_micro, counts) / sum(counts)
     np.testing.assert_allclose(float(reports[2]["moe_aux"]), weighted,
@@ -437,7 +446,8 @@ def test_the_accumulated_step_weighs_moe_aux_as_jax_does():
         model(tensors["images"], tensors["questions"], tensors["lengths"],
               aux_sink=sink)
     np.testing.assert_allclose(float(reports[1]["moe_aux"]),
-                               sum(float(a) for a in sink) / len(sink),
+                               sum(float(moe.balance_loss(*a))
+                                   for a in sink) / len(sink),
                                rtol=1e-6)
 
 

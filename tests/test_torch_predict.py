@@ -166,7 +166,9 @@ def test_port_imports_no_jax_yaml_pil_or_h5py(tmp_path):
         " 'dl_vqa_tpu_torch.utils.logger',"
         " 'dl_vqa_tpu_torch.utils.torch_import', 'dl_vqa_tpu_torch.serve',"
         " 'dl_vqa_tpu_torch.utils.native_front', 'dl_vqa_tpu_torch.ops._host',"
-        " 'dl_vqa_tpu_torch.tools.make_serving_fixtures'} <= set(names),"
+        " 'dl_vqa_tpu_torch.tools.make_serving_fixtures',"
+        " 'dl_vqa_tpu_torch.parallel.mesh', 'dl_vqa_tpu_torch.parallel.multihost',"
+        " 'dl_vqa_tpu_torch.parallel.zero'} <= set(names),"
         " names\n"
         "for name in names: importlib.import_module(name)\n"
         "from dl_vqa_tpu_torch.models.configs import ModelConfig\n"
