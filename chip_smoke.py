@@ -170,7 +170,7 @@
    store (the scores to TOL["online_eval_score"]); two runs of 2 epochs
    from the built store with and without ``tpu.debug_nans`` (no alarm;
    the step time of each): one JSON line ``{"online_e2e": ...}``;
-17. data_parallel (last): the 'data' mesh axis on torch.distributed
+17. data_parallel: the 'data' mesh axis on torch.distributed
    (``dl_vqa_tpu_torch.parallel``) for the reference-parity CNN at full
    width, bf16, global batch 512 (DP_STEPS steps, the last padded to
    DP_REAL real rows). One rank over a real NCCL communicator: DDP, ZeRO-1
@@ -188,7 +188,22 @@
    the sharded image table to the replicated one's bits, one eval step,
    and each rank's launches of kernels 1, A, B, 2, C and 3 to their
    counts. Two ranks sharing a card time nothing that scales: one JSON
-   line ``{"data_parallel": ...}``.
+   line ``{"data_parallel": ...}``;
+18. model_parallel (last): the 'model' and 'expert' mesh axes
+   (``dl_vqa_tpu_torch.parallel.tensor``), two gloo ranks on the one card
+   started as phase 17's (``--mp-rank``). The reference-parity CNN at full
+   width with an even vocabulary of 15,194 ids (so that the embedding's
+   rows split), ``tpu.mesh.model=2``, global batch 512 (every rank feeds
+   all of it), MP_STEPS train steps and an eval step in bf16 and in f32,
+   held to one process (f32 as phase 17 holds it, bf16 to its TOL
+   entries); ``config_vit_moe`` at full width, ``tpu.mesh.expert=2``,
+   batch MOE_MP_BATCH, MOE_MP_STEPS steps and an eval step in bf16, held
+   to one process (its bits reported; TOL["mp_moe_delta_bf16"] says why
+   not required); the parameters each rank holds whole the same
+   bits on both ranks; each rank's launches of kernels 1, A, B, 2, C and 3
+   (the CNN) and 4 and 5 (the ViT-MoE) those of one process for the same
+   runs; the ranks' step times, which two ranks sharing a card cannot
+   make a scaling number: one JSON line ``{"model_parallel": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
@@ -198,7 +213,8 @@ programs of the aot phase, the variants' serving, training and exported
 paths, the ViT-MoE's serving, fused serving, training and exported
 paths, cnn_e2e, online_e2e's run and evaluation, cnn_e2e's quantized
 evaluations, the sweep's trials, the transformer_co journey and the
-one-rank data-parallel runs) is driven with the kernels'
+one-rank data-parallel runs and rank 0 of the model-parallel runs) is
+driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels, kernel 7 its tensor-core
 kernel and the token states the f32 persistent kernel (``FAST_PATHS``).
@@ -439,7 +455,26 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        # entry's step.
        "dp_params_f32_clear": 1e-4, "dp_delta_f32": 1e-3,
        "dp_loss_bf16": 5e-4, "dp_score_bf16": 2.0,
-       "dp_delta_bf16": 5e-2}
+       "dp_delta_bf16": 5e-2,
+       # Phase 18, 'model' = 2 against one process. f32 as phase 17's. bf16:
+       # a split layer's partial products are rounded where the whole one
+       # is rounded once (v_conv's bf16 product: each rank's gradient of v
+       # over its half of the hidden width is rounded to bf16 before the
+       # ranks sum it in f32), and the f32 partial sums that are summed
+       # across the ranks, then rounded to bf16 (q_lin, the attention's
+       # logits, the classifier), round another sum: the loss as the
+       # kernel path's loss_bf16, a score's near tie may flip, the
+       # parameters' change as phase 17's dp_delta_bf16.
+       "mp_loss_bf16": 5e-4, "mp_score_bf16": 2.0, "mp_delta_bf16": 5e-2,
+       # 'expert' = 2, the ViT-MoE in bf16, against one process. A rank
+       # holds 4 of the 8 experts, and the gradient of in.bias, a sum over
+       # the [E, G * C, F] slots' rows, is tiled by that shape on the card:
+       # its f32 sums round differently (the CPU gives one process's bits,
+       # tests/test_torch_tensor_parallel.py). Adam turns that into a few
+       # f32 steps of a parameter (7.5e-9 seen after 2 steps, the losses
+       # and eval the same bits): the change is held to 1e-5 in 2-norm,
+       # the losses, scores and eval at rtol 1e-5, atol 1e-6.
+       "mp_moe_delta_bf16": 1e-5}
 # Published peaks of an H100 SXM at its full 700 W: device memory rate,
 # dense bf16 tensor-core rate, f32 rate outside the tensor cores, dense
 # int8 tensor-core rate.
@@ -5099,33 +5134,34 @@ DP_WORLD = 2  # ranks of the run on the one card
 DP_STEPS = 3  # train steps of each run; the last batch is padded
 DP_REAL = 300  # real rows of the last global batch: 256 on rank 0, 44 on 1
 DP_TABLE_ROWS = 1024  # rows of the image table the layouts hold
-def dp_batches(cfg, seed: int, table: bool = False) -> list:
-    """DP_STEPS global batches of BATCH rows (host arrays) from the seed,
-    the last padded to DP_REAL real rows; with ``table``, image rows of a
-    DP_TABLE_ROWS table in place of images, and one batch."""
+def dp_batches(cfg, seed: int, table: bool = False, batch: int = BATCH,
+               steps: int = DP_STEPS, real: int = DP_REAL) -> list:
+    """``steps`` global batches of ``batch`` rows (host arrays) from the
+    seed, the last padded to ``real`` real rows; with ``table``, image rows
+    of a DP_TABLE_ROWS table in place of images, and one batch."""
     rng = np.random.default_rng(seed + 17)
     out = []
-    for step in range(1 if table else DP_STEPS):
-        batch = {
+    for step in range(1 if table else steps):
+        rows = {
             "questions": rng.integers(
-                0, cfg.num_tokens, (BATCH, SEQ_LEN)).astype(np.int32),
-            "lengths": rng.integers(3, SEQ_LEN + 1, BATCH).astype(np.int32),
+                0, cfg.num_tokens, (batch, SEQ_LEN)).astype(np.int32),
+            "lengths": rng.integers(3, SEQ_LEN + 1, batch).astype(np.int32),
             "answer_indices": rng.integers(
-                1, cfg.max_answers + 1, (BATCH, 10)).astype(np.int32),
-            "answer_values": rng.integers(0, 11, (BATCH, 10)).astype(
+                1, cfg.max_answers + 1, (batch, 10)).astype(np.int32),
+            "answer_values": rng.integers(0, 11, (batch, 10)).astype(
                 np.int32),
-            "answer_types": rng.integers(0, 3, BATCH).astype(np.int32),
-            "mask": np.arange(BATCH) < (DP_REAL if step == DP_STEPS - 1
-                                        else BATCH),
+            "answer_types": rng.integers(0, 3, batch).astype(np.int32),
+            "mask": np.arange(batch) < (real if step == steps - 1
+                                        else batch),
         }
         if table:
-            batch["image_rows"] = rng.integers(
-                0, DP_TABLE_ROWS, BATCH).astype(np.int32)
+            rows["image_rows"] = rng.integers(
+                0, DP_TABLE_ROWS, batch).astype(np.int32)
         else:
-            batch["images"] = rng.integers(
-                0, 256, (BATCH, cfg.image_size, cfg.image_size, 3),
+            rows["images"] = rng.integers(
+                0, 256, (batch, cfg.image_size, cfg.image_size, 3),
                 dtype=np.uint8)
-        out.append(batch)
+        out.append(rows)
     return out
 
 
@@ -5139,34 +5175,45 @@ def dp_table(torch, cfg, seed: int):
 
 def dp_state(torch, seed: int, cfg, mesh=None, stage: int = 0):
     """The trainer's state from the seed, the LSTM's bias folded as the
-    train loop folds it, wrapped over ``mesh`` at ZeRO ``stage``."""
+    train loop folds it, cut into this rank's shards where ``mesh`` has
+    'model' or 'expert' axes and wrapped over its 'data' axis at ZeRO
+    ``stage``."""
     from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.parallel.tensor import shard_state
     from dl_vqa_tpu_torch.parallel.zero import parallelize
     from dl_vqa_tpu_torch.train import create_train_state
 
     model = VqaNet(cfg, generator=torch.Generator().manual_seed(seed))
     model.text.lstm.fold_biases()
     state = create_train_state(model, INITIAL_LR)
-    return state if mesh is None else parallelize(state, mesh, stage)
+    if mesh is None:
+        return state
+    return parallelize(shard_state(state, mesh), mesh, stage)
 
 
 def dp_run(torch, seed: int, cfg, batches, dtype, mesh=None, stage=0,
-           table=None):
+           table=None, step_ms: list = None):
     """``(losses, scores, state)`` of the batches through the train step
-    (this rank's rows of each over ``mesh``)."""
+    (this rank's rows of each over ``mesh``); ``step_ms``, a list, takes
+    each step's time on the host clock, the card synchronised after it."""
     from dl_vqa_tpu_torch.parallel.multihost import process_batch_slice
     from dl_vqa_tpu_torch.train import make_train_step
 
     state = dp_state(torch, seed, cfg, mesh, stage)
     step = make_train_step(cfg, dtype, mesh=mesh)
-    rows = (process_batch_slice(mesh, BATCH) if mesh is not None else None)
+    rows = (process_batch_slice(mesh, len(batches[0]["mask"]))
+            if mesh is not None else None)
     losses, scores = [], []
     for batch in batches:
         local = {k: v[rows] if rows is not None else v
                  for k, v in batch.items() if k != "answer_types"}
         if table is not None:
             local["image_table"] = table
+        t0 = time.perf_counter()
         state, metrics = step(state, local, seed)
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"])
         scores.append(metrics["score"])
     torch.cuda.synchronize()
@@ -5514,6 +5561,321 @@ def data_parallel_phase(torch, seed: int, recurrence: int, card: str
     return launches, numbers
 
 
+MP_DIR = "_smoke_mp"  # under the checkout; .gitignore lists it
+MP_WORLD = 2  # ranks of the run on the one card
+MP_STEPS = 3  # the CNN's train steps; the last batch is padded
+MP_REAL = 300  # real rows of the CNN's last global batch
+MP_VOCAB = 15_194  # even: the embedding's rows split over 'model' = 2
+MOE_MP_BATCH = 128  # the ViT-MoE's global batch under 'expert' = 2
+MOE_MP_STEPS = 2
+
+
+def mp_configs():
+    """Phase 18's models: the CNN at the reference width with MP_VOCAB
+    question ids, and ``config_vit_moe``."""
+    import dataclasses
+
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+
+    return (dataclasses.replace(ModelConfig(), num_tokens=MP_VOCAB),
+            variant_config(MOE_PRESET))
+
+
+def mp_errors(sizes, off) -> dict:
+    """The largest of ``off`` (a trainable-parameter vector in
+    :func:`mp_run`'s order, ``sizes`` its ``[name, numel]``) within each
+    parameter, where above 0."""
+    out, at = {}, 0
+    for name, n in sizes:
+        top = float(off[at:at + n].max())
+        if top > 0:
+            out[name] = top
+        at += n
+    return out
+
+
+def mp_run(torch, seed: int, cfg, batches, dtype, mesh) -> dict:
+    """One run of phase 18: the batches through the train step (over
+    ``mesh``, or in one process where it is None), an eval step of the
+    trained model on the last batch, each step's ms, the trainable
+    parameters whole (gathered from the ranks: a collective) and, on a
+    rank, a digest of every tensor it holds whole; in one process the Adam
+    second moment too."""
+    import hashlib
+
+    from dl_vqa_tpu_torch.parallel.zero import full_state
+    from dl_vqa_tpu_torch.train import make_eval_step
+
+    step_ms = []
+    losses, scores, state = dp_run(torch, seed, cfg, batches, dtype, mesh,
+                                   step_ms=step_ms)
+    loss, score = make_eval_step(cfg, dtype, mesh=mesh)(
+        state.model, {k: v for k, v in batches[-1].items()
+                      if k != "answer_types"})
+    named, moments, _ = full_state(state)
+    trainable = [n for n, p in state.model.named_parameters()
+                 if p.requires_grad]
+    out = {"loss": losses, "score": scores,
+           "eval": [float(loss), float(score)], "step_ms": step_ms,
+           "params": torch.cat([named[n].float().flatten().cpu()
+                                for n in trainable]).numpy(),
+           "sizes": [[n, named[n].numel()] for n in trainable]}
+    if mesh is None:
+        out["nu"] = torch.cat([moments["exp_avg_sq"][n].float().flatten()
+                               .cpu() for n in trainable]).numpy()
+    else:
+        out["digests"] = {
+            n: hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for n, t in state.model.state_dict().items()
+            if tuple(t.shape) == tuple(named[n].shape)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_runs(torch, seed: int, wrappers, cnn_mesh=None, moe_mesh=None
+            ) -> dict:
+    """Phase 18's runs, in one process or on a rank: the CNN in bf16 and
+    f32 over ``cnn_mesh``, then the ViT-MoE in bf16 over ``moe_mesh``, the
+    kernels' launches counted for each model."""
+    cnn, moe = mp_configs()
+    out = {}
+    reset_launches(wrappers)
+    batches = dp_batches(cnn, seed, steps=MP_STEPS, real=MP_REAL)
+    for name, dtype in (("cnn_bf16", torch.bfloat16),
+                        ("cnn_f32", torch.float32)):
+        out[name] = mp_run(torch, seed, cnn, batches, dtype, cnn_mesh)
+    out["cnn_launches"] = read_launches(wrappers, "the CNN of phase 18")
+    reset_launches(wrappers)
+    batches = dp_batches(moe, seed, batch=MOE_MP_BATCH, steps=MOE_MP_STEPS,
+                         real=MOE_MP_BATCH)
+    out["moe_bf16"] = mp_run(torch, seed, moe, batches, torch.bfloat16,
+                             moe_mesh)
+    out["moe_launches"] = read_launches(wrappers, "the ViT-MoE of phase 18")
+    return out
+
+
+def mp_rank(out_dir: str, seed: int) -> int:
+    """One rank of phase 18's two-rank run on the one card (started by
+    :func:`model_parallel_phase` with torchrun's environment, both ranks
+    on card 0, gloo with CUDA tensors): :func:`mp_runs` over
+    ``tpu.mesh.model=2`` for the CNN and ``tpu.mesh.expert=2`` for the
+    ViT-MoE. Writes ``rank{r}.json`` and, on rank 0, each run's whole
+    parameters."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dl_vqa_tpu_torch.parallel import make_mesh, multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # As the reference (model_parallel_phase): cuDNN's default f32
+    # backward does not repeat its bits.
+    torch.backends.cudnn.deterministic = True
+    # NCCL refuses two ranks on one device: the caller names gloo.
+    multihost.maybe_initialize(device="cuda", backend="gloo")
+    rank = dist.get_rank()
+    out = mp_runs(torch, seed, kernel_wrappers(),
+                  make_mesh(-1, model=2, device_type="cuda"),
+                  make_mesh(-1, expert=2, device_type="cuda"))
+    for name in ("cnn_bf16", "cnn_f32", "moe_bf16"):
+        params = out[name].pop("params")
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"{name}.npy"), params)
+    out.update(rank=rank, world=dist.get_world_size(),
+               backend=dist.get_backend())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def model_parallel_phase(torch, seed: int, card: str) -> tuple:
+    """Phase 18: the 'model' and 'expert' axes. :func:`mp_runs` in this
+    process (the references), then on two gloo ranks sharing the card
+    (:func:`mp_rank`): the CNN at 'model' = 2 held to one process (f32
+    losses and scores at rtol 1e-5, atol 1e-6, the parameters as phase 17
+    holds them; bf16 to the mp_* TOL entries), the ViT-MoE at 'expert' = 2
+    to TOL["mp_moe_delta_bf16"] (whether it gave the bits is reported),
+    what the ranks hold whole the same bits on both, each rank's launches
+    those of one process. Returns ``(rank 0's launches, numbers)``."""
+    import os
+    import shutil
+    import socket
+
+    phase_start = time.perf_counter()
+    wrappers = kernel_wrappers()
+    # The reference and the ranks run cuDNN's deterministic algorithms:
+    # its default f32 backward does not repeat its bits (two f32 steps of
+    # one process differ on an H100), which would blur the comparison.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reference = mp_runs(torch, seed, wrappers)
+    single_ms = {name: float(np.median(reference[name]["step_ms"][1:]))
+                 for name in ("cnn_bf16", "cnn_f32", "moe_bf16")}
+    log("model_parallel: one process, bf16 CNN losses "
+        + " ".join(f"{x:.4f}" for x in reference["cnn_bf16"]["loss"])
+        + f", step ms {single_ms} [{card}]")
+    for name in ("cnn_launches", "moe_launches"):
+        require(all(reference[name][k] > 0 for k in (
+            ("lstm_recurrence", "lstm_recurrence_save",
+             "lstm_backward_step", "relu_maxpool", "relu_maxpool_backward",
+             "attention_pool") if name == "cnn_launches"
+            else ("vit_attention", "vit_attention_backward"))),
+            f"phase 18's {name}: {reference[name]}")
+
+    root = os.path.abspath(MP_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"model_parallel: {free / 2**30:.1f} of {total / 2**30:.1f} GiB "
+        "free on the card for the two ranks")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--mp-rank", root, str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, RANK=str(rank), WORLD_SIZE=str(MP_WORLD),
+                 LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port)))
+        for rank in range(MP_WORLD)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        require(proc.returncode == 0,
+                f"rank {rank} exited {proc.returncode}:\n{text[-4000:]}")
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(MP_WORLD)]
+    r0 = ranks[0]
+    numbers = {"card": card, "wall_s": time.perf_counter() - t0,
+               "backend": r0["backend"],
+               "label": "two ranks share one card: not a scaling number"}
+    for name in ("cnn_bf16", "cnn_f32", "moe_bf16"):
+        for key in ("loss", "score", "eval"):
+            require(ranks[0][name][key] == ranks[1][name][key],
+                    f"the ranks report the same {name} {key}")
+        # What the ranks hold whole is the same bits on both.
+        d0, d1 = r0[name]["digests"], ranks[1][name]["digests"]
+        require(d0 == d1, f"{name}: tensors held whole differ across the "
+                f"ranks: {sorted(k for k in d0 if d0[k] != d1.get(k))}")
+        numbers[name] = {
+            "step_ms": [float(np.median(r[name]["step_ms"][1:]))
+                        for r in ranks],
+            "one_process_step_ms": single_ms[name],
+            "held_whole": len(d0), "loss": r0[name]["loss"]}
+    for name in ("cnn_launches", "moe_launches"):
+        for r in ranks:
+            require(r[name] == reference[name],
+                    f"rank {r['rank']} {name} {r[name]}, one process "
+                    f"{reference[name]}")
+
+    def change_err(name):
+        got = np.load(os.path.join(root, f"{name}.npy"))
+        want = reference[name]["params"]
+        return got, float(np.linalg.norm(got - want)
+                          / np.linalg.norm(want - initial[name]))
+
+    # The change over the steps: the initial parameters of each model.
+    cnn, moe = mp_configs()
+    initial = {"cnn_bf16": dp_params(torch, dp_state(torch, seed, cnn)),
+               "moe_bf16": dp_params(torch, dp_state(torch, seed, moe))}
+    initial["cnn_f32"] = initial["cnn_bf16"]
+    torch.cuda.empty_cache()
+    f32, f32_delta = change_err("cnn_f32")
+    f32_off = np.abs(f32 - reference["cnn_f32"]["params"])
+    rms = np.sqrt(reference["cnn_f32"]["nu"] / (1.0 - 0.999 ** MP_STEPS))
+    clear = rms > 1e-6
+    clear_bound = (TOL["dp_params_f32_clear"]
+                   + 1e-5 * np.abs(reference["cnn_f32"]["params"][clear]))
+    _, bf16_delta = change_err("cnn_bf16")
+    moe_params = np.load(os.path.join(root, "moe_bf16.npy"))
+    moe_bits = bool(np.array_equal(moe_params,
+                                   reference["moe_bf16"]["params"]))
+    numbers["cnn_f32"].update(
+        loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+            r0["cnn_f32"]["loss"], reference["cnn_f32"]["loss"])),
+        params_max_abs_err=float(f32_off.max()),
+        clear_share=float(clear.mean()),
+        clear_max_abs_err=float(f32_off[clear].max()),
+        max_abs_err_by_rms={f"{t:g}": float(f32_off[rms > t].max(
+            initial=0.0)) for t in (1e-6, 1e-5, 1e-4, 1e-3)},
+        share_by_rms={f"{t:g}": float((rms > t).mean())
+                      for t in (1e-6, 1e-5, 1e-4, 1e-3)},
+        max_abs_err_by_param=mp_errors(reference["cnn_f32"]["sizes"],
+                                       f32_off),
+        delta_rel_err=f32_delta)
+    numbers["cnn_bf16"].update(
+        loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+            r0["cnn_bf16"]["loss"], reference["cnn_bf16"]["loss"])),
+        score_abs_err=max(abs(a - b) for a, b in zip(
+            r0["cnn_bf16"]["score"], reference["cnn_bf16"]["score"])),
+        delta_rel_err=bf16_delta)
+    _, moe_delta = change_err("moe_bf16")
+    numbers["moe_bf16"].update(
+        bits=moe_bits and r0["moe_bf16"]["loss"] == reference[
+            "moe_bf16"]["loss"] and r0["moe_bf16"]["eval"] == reference[
+            "moe_bf16"]["eval"],
+        loss_equal=r0["moe_bf16"]["loss"] == reference["moe_bf16"]["loss"],
+        eval_equal=r0["moe_bf16"]["eval"] == reference["moe_bf16"]["eval"],
+        params_max_abs_err=float(np.abs(
+            moe_params - reference["moe_bf16"]["params"]).max()),
+        params_off=int((moe_params != reference["moe_bf16"]["params"])
+                       .sum()),
+        max_abs_err_by_param=mp_errors(
+            reference["moe_bf16"]["sizes"],
+            np.abs(moe_params - reference["moe_bf16"]["params"])),
+        delta_rel_err=moe_delta)
+    log(f"model_parallel: two gloo ranks on one card [{card}], not a "
+        "scaling number: " + json.dumps(numbers))
+    np.testing.assert_allclose(r0["cnn_f32"]["loss"],
+                               reference["cnn_f32"]["loss"], rtol=1e-5,
+                               atol=1e-6, err_msg="f32 losses, model=2")
+    np.testing.assert_allclose(r0["cnn_f32"]["score"],
+                               reference["cnn_f32"]["score"], rtol=1e-5,
+                               atol=1e-6, err_msg="f32 scores, model=2")
+    np.testing.assert_allclose(r0["cnn_f32"]["eval"],
+                               reference["cnn_f32"]["eval"], rtol=1e-5,
+                               atol=1e-6, err_msg="f32 eval, model=2")
+    require(numbers["cnn_f32"]["clear_share"] > 0.5
+            and bool(np.all(f32_off[clear] <= clear_bound)),
+            f"f32 parameters, model=2: {numbers['cnn_f32']} against "
+            f"{TOL['dp_params_f32_clear']} + 1e-5 relative where clear")
+    require(f32_delta <= TOL["dp_delta_f32"],
+            f"f32 parameters, model=2: the change off by {f32_delta}")
+    require(numbers["cnn_bf16"]["loss_rel_err"] <= TOL["mp_loss_bf16"],
+            f"bf16 losses, model=2: {numbers['cnn_bf16']}")
+    require(numbers["cnn_bf16"]["score_abs_err"] <= TOL["mp_score_bf16"],
+            f"bf16 scores, model=2: {numbers['cnn_bf16']}")
+    require(bf16_delta <= TOL["mp_delta_bf16"],
+            f"bf16 parameter change, model=2: {bf16_delta}")
+    for key in ("loss", "score", "eval"):
+        np.testing.assert_allclose(
+            r0["moe_bf16"][key], reference["moe_bf16"][key], rtol=1e-5,
+            atol=1e-6, err_msg=f"the ViT-MoE's {key}, expert=2")
+    require(moe_delta <= TOL["mp_moe_delta_bf16"],
+            f"the ViT-MoE at expert=2: {numbers['moe_bf16']}")
+    launches = {k: r0["cnn_launches"][k] + r0["moe_launches"][k]
+                for k in r0["cnn_launches"]}
+    numbers["rank_launches"] = launches
+    numbers["phase_s"] = time.perf_counter() - phase_start
+    torch.backends.cudnn.deterministic = deterministic
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5532,6 +5894,10 @@ def main(argv=None) -> int:
                         help="a rank of phase 17's two-rank run (started "
                              "by the phase itself, with torchrun's "
                              "environment)")
+    parser.add_argument("--mp-rank", nargs=2, metavar=("OUT", "SEED"),
+                        help="a rank of phase 18's two-rank run (started "
+                             "by the phase itself, with torchrun's "
+                             "environment)")
     args = parser.parse_args(argv)
 
     import torch
@@ -5546,6 +5912,8 @@ def main(argv=None) -> int:
         return aot_client(*args.aot_client)
     if args.dp_rank:
         return dp_rank(args.dp_rank[0], int(args.dp_rank[1]))
+    if args.mp_rank:
+        return mp_rank(args.mp_rank[0], int(args.mp_rank[1]))
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5698,6 +6066,10 @@ def main(argv=None) -> int:
     paths["data_parallel"], data_parallel = data_parallel_phase(
         torch, args.seed, recurrence, card)
     log(json.dumps({"data_parallel": data_parallel}))
+    # Phase 18: the 'model' and 'expert' axes, two gloo ranks.
+    paths["model_parallel"], model_parallel = model_parallel_phase(
+        torch, args.seed, card)
+    log(json.dumps({"model_parallel": model_parallel}))
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"

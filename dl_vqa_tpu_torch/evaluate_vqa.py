@@ -29,7 +29,10 @@ Under torchrun (``torchrun --nproc-per-node=N -m
 dl_vqa_tpu_torch.evaluate_vqa ...``) the processes split every batch over
 the 'data' axis and sum the scores over the ranks, so each returns the
 one-process score; the coordinator builds a missing vocab, store or
-dataset while the others wait, and only it writes the log.
+dataset while the others wait, and only it writes the log. The mesh is
+``main``'s: with ``tpu.mesh.model`` or ``tpu.mesh.expert`` above 1 the
+loaded model is cut into each rank's shards
+(:func:`dl_vqa_tpu_torch.parallel.tensor.shard_model`).
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
     from dl_vqa_tpu_torch.models.configs import ModelConfig
     from dl_vqa_tpu_torch.models.vqa import VqaNet
     from dl_vqa_tpu_torch.parallel import make_mesh, multihost
+    from dl_vqa_tpu_torch.parallel.tensor import shard_model
     from dl_vqa_tpu_torch.train import make_eval_step
     from dl_vqa_tpu_torch.train.loop import evaluate
     from dl_vqa_tpu_torch.utils import misc
@@ -162,6 +166,7 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
                                  val_dataset, compute_dtype, logger.write,
                                  online_images)
         model.configure(model_cfg)
+    shard_model(model, mesh, log=logger.write)
     eval_step = make_eval_step(model_cfg, compute_dtype, with_breakdown=True,
                                mesh=mesh)
     proc_slice = multihost.process_batch_slice(mesh,

@@ -29,17 +29,29 @@ them (:mod:`dl_vqa_tpu_torch.parallel`):
         --master-addr=HOST --master-port=PORT -m dl_vqa_tpu_torch.main ...
 
 Each process joins the group (NCCL on the GPU), the mesh's 'data' axis
-takes every process (``tpu.mesh.data=-1``), the coordinator builds the
-caches while the others wait, each process feeds its rows of every global
-batch (``train.batch_size`` is the global batch), and
-``tpu.zero_stage`` 1 or 3 splits the Adam moments, or the parameters too,
-over the ranks. ``tpu.device_image_cache_layout=sharded`` splits the
-image table's rows over them.
+takes every process left over by the other axes (``tpu.mesh.data=-1``),
+the coordinator builds the caches while the others wait, each process
+feeds its 'data' shard's rows of every global batch (``train.batch_size``
+is the global batch), and ``tpu.zero_stage`` 1 or 3 splits the Adam
+moments, or the parameters too, over the 'data' ranks.
+``tpu.device_image_cache_layout=sharded`` splits the image table's rows
+over them. ``tpu.mesh.model=M`` splits the classifier, the attention's
+projections, the embedding's rows and the transformer blocks over M ranks
+(tensor parallelism), and ``tpu.mesh.expert=X`` the experts of a ViT-MoE
+over X (expert parallelism), as the JAX package's placement rules split
+them (:mod:`dl_vqa_tpu_torch.parallel.tensor`):
+
+    torchrun --nproc-per-node=2 -m dl_vqa_tpu_torch.main tpu.mesh.model=2
+    torchrun --nproc-per-node=4 -m dl_vqa_tpu_torch.main config_vit_moe \
+        tpu.mesh.expert=2 tpu.mesh.model=2
+
+Two ranks on one card need gloo (NCCL refuses two ranks on one device).
 
 Settings the port does not have yet raise at once, naming their ROADMAP
-item: ``tpu.checkpoint_backend=orbax``, the mesh axes ``model``,
-``stage``, ``expert`` and ``seq`` above 1 and
-``tpu.pipeline_microbatches``. ``tpu.use_pallas``
+item: ``tpu.checkpoint_backend=orbax``, the mesh axes ``stage`` and
+``seq`` above 1, ``tpu.pipeline_microbatches`` and, with
+``tpu.mesh.model`` above 1, the quantized image modes (and ``fused_ops``
+on the ViT, in the steps). ``tpu.use_pallas``
 and ``tpu.prng_impl`` choose between JAX implementations and mean nothing
 here. ``train.image.store_dtype=f8e4m3``
 trains through the f8 store's straight-through backward; ``int8`` serves
@@ -72,15 +84,20 @@ def check_supported(cfg: dict) -> None:
                        f"{tpu['checkpoint_backend']!r} (npz only: the Orbax "
                        "backend is left behind, ROADMAP queue 1)")
     mesh = tpu["mesh"]
-    axes = [f"tpu.mesh.{axis}={mesh[axis]}" for axis in
-            ("model", "stage", "expert", "seq") if mesh[axis] > 1]
+    axes = [f"tpu.mesh.{axis}={mesh[axis]}" for axis in ("stage", "seq")
+            if mesh[axis] > 1]
     if tpu["pipeline_microbatches"] != 0:
         axes.append(f"tpu.pipeline_microbatches="
                     f"{tpu['pipeline_microbatches']}")
+    store = cfg["train"]["image"].get("store_dtype", "compute")
+    if mesh["model"] > 1 and store != "compute":
+        axes.append(f"train.image.store_dtype={store} with "
+                    f"tpu.mesh.model={mesh['model']}")
     if axes:
-        missing.append(", ".join(axes) + " (the 'data' axis only: tensor, "
-                       "expert, sequence and pipeline parallelism are "
-                       "ROADMAP queue 1, item 9)")
+        missing.append(", ".join(axes) + " (the 'data', 'expert' and "
+                       "'model' axes only: sequence and pipeline "
+                       "parallelism, and the quantized image modes under "
+                       "tensor parallelism, are ROADMAP queue 1, item 9)")
     if tpu["zero_stage"] not in (0, 1, 3):
         raise SystemExit(
             f"tpu.zero_stage must be 0 (off), 1 (shard Adam moments over "
@@ -162,6 +179,13 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
     mesh = make_mesh(mesh_cfg["data"], mesh_cfg["model"], mesh_cfg["stage"],
                      mesh_cfg["expert"], mesh_cfg["seq"],
                      device_type=device.type)
+    image = cfg["train"]["image"]
+    if mesh_cfg["expert"] > 1 and (image.get("moe_experts", 0) < 1
+                                   or image["encoder"] != "vit"):
+        raise SystemExit(
+            "tpu.mesh.expert > 1 needs train.image.encoder=vit with "
+            "train.image.moe_experts > 0 (there are no expert-major "
+            "parameters to shard otherwise)")
     if zero_stage and mesh.shape["data"] <= 1:
         logger.write(
             f"tpu.zero_stage={zero_stage} is a no-op: the 'data' mesh axis "

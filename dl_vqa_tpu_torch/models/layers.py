@@ -3,11 +3,12 @@ mixed-precision product, and the normalisation of uint8 images."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from dl_vqa_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
+from dl_vqa_tpu_torch.parallel.tensor import Shard, copy_to, take_columns
 
 __all__ = ["dropout", "mm", "normalize_images", "BatchRows"]
 
@@ -37,7 +38,8 @@ def normalize_images(images: torch.Tensor, dtype: torch.dtype
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Union[None, torch.Generator, BatchRows]
+            generator: Union[None, torch.Generator, BatchRows],
+            cols: Optional[Sequence[slice]] = None, width: int = 0
             ) -> torch.Tensor:
     """Inverted dropout with a uint8 mask source, as the JAX model's
     ``_dropout``: the keep probability is quantised to ``threshold / 256``
@@ -45,7 +47,10 @@ def dropout(x: torch.Tensor, rate: float,
     its random byte is below the threshold, and the kept ones are divided
     by the same quantised probability, so the mean is preserved exactly.
     ``generator`` is ``None`` in eval (no dropout), else a generator on
-    ``x``'s device, or :class:`BatchRows` of one."""
+    ``x``'s device, or :class:`BatchRows` of one. ``cols``: ``x`` holds
+    these columns of a last dim ``width`` wide (a column-parallel
+    activation): the mask is drawn at the whole width and those columns
+    kept, so the ranks drop what one process drops."""
     if generator is None or rate == 0.0:
         return x
     threshold = int(round((1.0 - rate) * 256.0))
@@ -53,20 +58,26 @@ def dropout(x: torch.Tensor, rate: float,
         return x
     if threshold <= 0:
         return torch.zeros_like(x)
+    shape = x.shape if cols is None else x.shape[:-1] + (width,)
     if isinstance(generator, BatchRows):
-        bits = torch.randint(0, 256, (generator.total,) + x.shape[1:],
+        bits = torch.randint(0, 256, (generator.total,) + shape[1:],
                              dtype=torch.uint8, generator=generator.generator,
                              device=x.device)
         bits = bits.narrow(0, generator.start, x.shape[0])
     else:
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
+        bits = torch.randint(0, 256, shape, dtype=torch.uint8,
                              generator=generator, device=x.device)
+    bits = take_columns(bits, cols)
     return torch.where(bits < threshold, x / (threshold / 256.0), 0.0)
 
 
-def mm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def mm(x: torch.Tensor, weight: torch.Tensor,
+       tp: Optional[Shard] = None) -> torch.Tensor:
     """``x @ weight^T`` (torch layout ``[out, in]``) on operands rounded to
     x's dtype, with an f32 result, as ``preferred_element_type=float32``
     gives it: the product runs in f32, where products of bf16 operands are
-    exact, and the result is not rounded back to bf16."""
-    return torch.matmul(x.float(), weight.to(x.dtype).float().t())
+    exact, and the result is not rounded back to bf16. ``tp``: ``weight``
+    is this rank's rows of a column-parallel layer, so ``x``'s gradient is
+    summed over the ranks (in f32, before any rounding to x's dtype)."""
+    return torch.matmul(copy_to(x.float(), tp),
+                        weight.to(x.dtype).float().t())

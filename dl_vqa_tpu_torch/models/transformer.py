@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from dl_vqa_tpu_torch.models.layers import dropout as _dropout, mm as _mm
+from dl_vqa_tpu_torch.parallel.tensor import reduce_from, vocab_lookup
 
 __all__ = ["layer_norm", "LayerNorm", "TransformerText", "TextBlock"]
 
@@ -69,13 +70,16 @@ class LayerNorm(nn.Module):
 
 
 def _self_attention(x: torch.Tensor, qkv: nn.Linear, out: nn.Linear,
-                    mask: torch.Tensor, num_heads: int, dtype: torch.dtype
-                    ) -> torch.Tensor:
+                    mask: torch.Tensor, num_heads: int, dtype: torch.dtype,
+                    tp=None) -> torch.Tensor:
     """``_self_attention`` of the JAX module: ``x [B, T, D]`` in the compute
-    dtype, ``mask [B, T]`` (valid keys) -> the f32 output projection."""
-    batch, seq, dim = x.shape
-    head = dim // num_heads
-    packed = _mm(x, qkv.weight) + qkv.bias  # f32, as the JAX module keeps it
+    dtype, ``mask [B, T]`` (valid keys) -> the f32 output projection.
+    ``tp``: ``qkv`` holds this rank's ``num_heads`` heads (packed ``[q | k
+    | v]``) and ``out`` their rows; the f32 partial outputs are summed
+    before the bias."""
+    batch, seq, _ = x.shape
+    head = qkv.weight.shape[0] // (3 * num_heads)
+    packed = _mm(x, qkv.weight, tp) + qkv.bias  # f32, as the JAX module keeps it
     q, k, v = (t.reshape(batch, seq, num_heads, head).transpose(1, 2)
                for t in packed.chunk(3, dim=-1))
     logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head)
@@ -83,16 +87,22 @@ def _self_attention(x: torch.Tensor, qkv: nn.Linear, out: nn.Linear,
     weights = torch.softmax(logits, dim=-1).to(dtype)
     # Products of values rounded to the compute dtype, summed in f32.
     att = torch.matmul(weights.float(), v.to(dtype).float())
-    att = att.transpose(1, 2).reshape(batch, seq, dim).to(dtype)
-    return _mm(att, out.weight) + out.bias
+    att = att.transpose(1, 2).reshape(batch, seq, -1).to(dtype)
+    return reduce_from(_mm(att, out.weight), tp) + out.bias
 
 
 class TextBlock(nn.Module):
     """One pre-LN block: ``x + drop(out(attention(qkv(ln1(x)))))``, then
-    ``x + drop(mlp_out(relu(mlp_in(ln2(x)))))``."""
+    ``x + drop(mlp_out(relu(mlp_in(ln2(x)))))``. Under 'model' (``tp``)
+    ``qkv`` and ``mlp_in`` are column-parallel (``qkv`` by heads, and
+    ``num_heads`` is this rank's count), ``out`` and ``mlp_out``
+    row-parallel."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
+        self.dim = dim
         self.num_heads = num_heads
         self.ln1 = LayerNorm(dim)
         self.qkv = nn.Linear(dim, 3 * dim)
@@ -101,13 +111,20 @@ class TextBlock(nn.Module):
         self.mlp_in = nn.Linear(dim, 4 * dim)
         self.mlp_out = nn.Linear(4 * dim, dim)
 
+    def set_shards(self, shards) -> None:
+        if self.qkv.weight.shape[0] < 3 * self.dim:
+            self.tp = shards["model"]
+            self.num_heads //= self.tp.size
+
     def forward(self, x, mask, dtype, rate, generator):
+        tp = self.tp
         att = _self_attention(self.ln1(x), self.qkv, self.out, mask,
-                              self.num_heads, dtype).to(dtype)
+                              self.num_heads, dtype, tp).to(dtype)
         x = x + _dropout(att, rate, generator)
-        hidden = torch.relu(_mm(self.ln2(x), self.mlp_in.weight)
+        hidden = torch.relu(_mm(self.ln2(x), self.mlp_in.weight, tp)
                             + self.mlp_in.bias).to(dtype)
-        mlp = (_mm(hidden, self.mlp_out.weight) + self.mlp_out.bias).to(dtype)
+        mlp = (reduce_from(_mm(hidden, self.mlp_out.weight), tp)
+               + self.mlp_out.bias).to(dtype)
         return x + _dropout(mlp, rate, generator)
 
 
@@ -118,11 +135,14 @@ class TransformerText(nn.Module):
     D]``, ``text.num_layers`` blocks of ``text.num_heads`` heads, final
     layer norm."""
 
+    vocab = None  # the 'model' Shard of the embedding's rows, if split
+
     def __init__(self, cfg):
         super().__init__()
         t = cfg.text
         dim = t.question_features
         self.dropout = t.dropout
+        self.num_tokens = cfg.num_tokens
         self.embedding = nn.Embedding(cfg.num_tokens, t.embedding_features)
         self.in_proj = nn.Linear(t.embedding_features, dim)
         self.pos = nn.Parameter(torch.empty(t.max_positions, dim))
@@ -149,7 +169,7 @@ class TransformerText(nn.Module):
                 f"at least the dataset's max_question_length and retrain.")
         mask = (torch.arange(seq, device=questions.device)[None, :]
                 < lengths.to(questions.device)[:, None])
-        x = self.embedding.weight[questions]
+        x = vocab_lookup(self.embedding.weight, questions, self.vocab)
         x = x * (questions > 0).unsqueeze(-1)
         x = _mm(x.to(dtype), self.in_proj.weight) + self.in_proj.bias
         x = (x + self.pos[:seq]).to(dtype)
@@ -160,3 +180,7 @@ class TransformerText(nn.Module):
         denom = mask.sum(dim=1, keepdim=True).clamp(min=1).float()
         pooled = (tokens * mask[..., None]).sum(dim=1) / denom
         return pooled, (tokens if need_tokens else None), mask
+
+    def set_shards(self, shards) -> None:
+        if self.embedding.weight.shape[0] < self.num_tokens:
+            self.vocab = shards["model"]

@@ -47,6 +47,16 @@ collects their inputs' amaxes for the calibration. The JAX model refuses
 the int8 mode with MoE blocks, and so does the port
 (``ModelConfig.check_ported``).
 
+Under 'model' (``VitBlock.tp``) ``qkv`` and ``mlp_in`` are
+column-parallel, ``qkv`` by heads (this rank's ``num_heads / model`` heads,
+packed ``[q | k | v]``, which kernels 4 and 5 take as they take a whole
+block's), and ``out`` and ``mlp_out`` row-parallel: their f32 partial
+products are summed over the ranks before the bias and before the
+rounding to the compute dtype. A MoE block's experts split over 'expert'
+and their hidden width over 'model' (:mod:`dl_vqa_tpu_torch.ops.moe`).
+Kernel 8 fuses the MLP that 'model' splits: ``fused_ops`` with 'model'
+above 1 raises (ROADMAP item 9).
+
 Left out, as the JAX options they belong to are not ported: the pipeline
 and sequence contexts.
 """
@@ -66,6 +76,8 @@ from dl_vqa_tpu_torch.ops.vit_attention import (
     kernel_head, vit_attention, vit_attention_weights_normalised)
 from dl_vqa_tpu_torch.ops.vit_int8 import w8a8_linear
 from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp
+from dl_vqa_tpu_torch.parallel.mesh import ITEM_9
+from dl_vqa_tpu_torch.parallel.tensor import reduce_from
 
 __all__ = ["VitImage", "VitBlock", "LayerNorm", "patch_embed"]
 
@@ -87,11 +99,16 @@ def patch_embed(images: torch.Tensor, weight: torch.Tensor,
 class VitBlock(nn.Module):
     """One pre-LN block: ``x + drop(out(attention(qkv(ln1(x)))))``, then
     ``x + drop(mlp_out(relu(mlp_in(ln2(x)))))``, or with ``experts > 0``
-    ``x + drop(moe(ln2(x)))``."""
+    ``x + drop(moe(ln2(x)))``. ``tp``: the 'model' Shard when the block's
+    products are split (:meth:`set_shards`; ``num_heads`` is then this
+    rank's count)."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, dropout: float,
                  experts: int = 0):
         super().__init__()
+        self.dim = dim
         self.num_heads = num_heads
         self.dropout = dropout
         self.ln1 = LayerNorm(dim)
@@ -112,6 +129,11 @@ class VitBlock(nn.Module):
             return vit_attention(qkv, self.num_heads, plain)
         return vit_attention_weights_normalised(qkv, self.num_heads)
 
+    def set_shards(self, shards) -> None:
+        if self.qkv.weight.shape[0] < 3 * self.dim:
+            self.tp = shards["model"]
+            self.num_heads //= self.tp.size
+
     def forward(self, x, dtype, plain, generator, fused=False, scales=None,
                 amax_sink=None, moe=None, aux_sink=None):
         """``scales``: the block's four int8 site scales, which run its
@@ -120,18 +142,26 @@ class VitBlock(nn.Module):
         block routes with ``moe = (top_k, capacity_factor)`` and appends the
         factors of its balance loss to ``aux_sink``; kernel 8 never takes
         it."""
-        def linear(h, layer, site, out_dtype):
+        tp = self.tp
+        if fused and tp is not None:
+            raise NotImplementedError(
+                "fused_ops on the ViT with tpu.mesh.model > 1: kernel 8 "
+                f"fuses the MLP that 'model' splits ({ITEM_9})")
+
+        def linear(h, layer, site, out_dtype, row=False):
             if amax_sink is not None:
                 amax_sink.append(h.float().abs().amax())
             if scales is not None:
                 return w8a8_linear(h, layer.weight, layer.bias, scales[site],
                                    out_dtype)
-            return _mm(h, layer.weight) + layer.bias
+            if row:  # the ranks' partial sums, then the bias once
+                return reduce_from(_mm(h, layer.weight), tp) + layer.bias
+            return _mm(h, layer.weight, tp) + layer.bias
 
         hidden = self.ln1(x)
         qkv = linear(hidden, self.qkv, 0, torch.float32).to(dtype)
         att = self.attention(qkv, plain)
-        att = linear(att, self.out, 1, torch.float32).to(dtype)
+        att = linear(att, self.out, 1, torch.float32, row=True).to(dtype)
         x = x + _dropout(att, self.dropout, generator)        # site 21 + 2i
         if hasattr(self, "moe"):
             if moe is None:
@@ -155,7 +185,7 @@ class VitBlock(nn.Module):
                 plain)
         hidden = torch.relu(linear(self.ln2(x), self.mlp_in, 2,
                                    torch.float32)).to(dtype)
-        mlp = linear(hidden, self.mlp_out, 3, dtype).to(dtype)
+        mlp = linear(hidden, self.mlp_out, 3, dtype, row=True).to(dtype)
         return x + _dropout(mlp, self.dropout, generator)      # site 22 + 2i
 
 

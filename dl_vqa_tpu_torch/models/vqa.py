@@ -38,6 +38,12 @@ added to it (zero in imported JAX weights, torch's second draw in a fresh
 init or a reference ``.pth``; the train loop folds it into ``bias_ih``
 first, ``_Lstm.fold_biases``), so Adam moves the sum as it moves the JAX
 package's ``b``.
+
+Cut by :func:`dl_vqa_tpu_torch.parallel.tensor.shard_model` for a mesh
+with 'model' or 'expert' axes, each module holds this rank's shards and
+sums over its group (``set_shards``): the embedding's rows, the
+attention's projections and glimpse logits, the classifier, the ViT's and
+the transformer's blocks, the experts; the rest runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from torch import nn
 
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.fusion import (
-    CoAttention, StackedAttention, fuse, project_v)
+    CoAttention, StackedAttention, conv_scores, fuse, project_v)
 from dl_vqa_tpu_torch.models.layers import (
     dropout, mm as _mm, normalize_images)
 from dl_vqa_tpu_torch.models.transformer import LayerNorm, TransformerText
@@ -65,6 +71,8 @@ from dl_vqa_tpu_torch.ops.lstm import (
     bilstm_final_cell, bilstm_tokens_and_final_cell, lstm_scan,
     lstm_scan_outputs_final)
 from dl_vqa_tpu_torch.ops.vit_int8 import with_calibrated_vit_scales
+from dl_vqa_tpu_torch.parallel.tensor import (
+    columns, copy_to, reduce_from, vocab_lookup)
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["VqaNet", "dropout"]
@@ -106,10 +114,13 @@ class _Lstm(nn.Module):
 
 
 class _Text(nn.Module):
+    vocab = None  # the 'model' Shard of the embedding's rows, if split
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         t = cfg.text
         self.dropout = t.dropout
+        self.num_tokens = cfg.num_tokens
         self.embedding = nn.Embedding(cfg.num_tokens, t.embedding_features)
         self.lstm = _Lstm(t.embedding_features, t.question_features,
                           t.bidirectional)
@@ -122,7 +133,7 @@ class _Text(nn.Module):
         final cells ride the same recurrence, in f32 as the JAX package
         runs it (kernel A's f32 mode); else the final cells of the
         recurrence in the compute dtype (kernel 1, or A in training)."""
-        embedded = self.embedding.weight[questions]
+        embedded = vocab_lookup(self.embedding.weight, questions, self.vocab)
         embedded = embedded * (questions > 0).unsqueeze(-1)
         embedded = dropout(embedded, self.dropout, generator)  # site 1
         embedded = torch.tanh(embedded).to(dtype)
@@ -146,6 +157,10 @@ class _Text(nn.Module):
                 embedded, lengths, fwd, self.lstm.direction("_reverse"),
                 plain=plain), None, None
         return lstm_scan(embedded, lengths, fwd, plain=plain)[1], None, None
+
+    def set_shards(self, shards) -> None:
+        if self.embedding.weight.shape[0] < self.num_tokens:
+            self.vocab = shards["model"]
 
 
 class _Image(nn.Module):
@@ -192,42 +207,73 @@ class _Image(nn.Module):
 
 
 class _Attention(nn.Module):
+    """Under 'model' (``tp``, :meth:`set_shards`) ``v_conv`` and ``q_lin``
+    are column-parallel and ``x_conv`` row-parallel: each rank fuses its
+    columns of both projections, multiplies them by its rows of the
+    replicated ``x_conv`` weight, the ranks sum the f32 partial logits and
+    the bias is added once."""
+
+    tp = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         a = cfg.attention
         self.do_option = a.do_option
         self.dropout = a.dropout
+        self.hidden = a.hidden_dim
         x_in = 2 * a.hidden_dim if a.do_option == "|" else a.hidden_dim
         self.v_conv = nn.Conv2d(cfg.image.output_channels, a.hidden_dim, 1,
                                 bias=False)
         self.q_lin = nn.Linear(cfg.text.output_features, a.hidden_dim)
         self.x_conv = nn.Conv2d(x_in, a.glimpses, 1)
 
+    def set_shards(self, shards) -> None:
+        if self.v_conv.weight.shape[0] < self.hidden:
+            self.tp = shards["model"]
+
     def forward(self, v, q, dtype, generator):
         """Glimpse logits ``[B, H, W, G]`` f32 (1x1 convs as matmuls)."""
-        v_proj = project_v(dropout(v, self.dropout, generator),  # site 2
+        tp = self.tp
+        v_proj = project_v(copy_to(dropout(v, self.dropout, generator),
+                                   tp),  # site 2
                            self.v_conv, dtype)
         q_in = dropout(q, self.dropout, generator).to(dtype)  # site 3
-        q_proj = (_mm(q_in, self.q_lin.weight) + self.q_lin.bias).to(dtype)
+        q_proj = (_mm(q_in, self.q_lin.weight, tp)
+                  + self.q_lin.bias).to(dtype)
+        cols = columns(tp, self.hidden, 2 if self.do_option == "|" else 1)
         fused = dropout(fuse(v_proj, q_proj, self.do_option), self.dropout,
-                        generator)  # site 4
-        return _mm(fused, self.x_conv.weight[:, :, 0, 0]) + self.x_conv.bias
+                        generator, cols,
+                        self.x_conv.weight.shape[1])  # site 4
+        return conv_scores(fused, self.x_conv, cols, tp)
 
 
 class _Classifier(nn.Module):
+    """Under 'model' (``tp``) ``lin1`` is column-parallel and ``lin2``
+    row-parallel: the ranks sum their f32 partial logits, then
+    ``lin2.bias`` is added once."""
+
+    tp = None
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         combined = (cfg.attention.glimpses * cfg.image.output_channels
                     + cfg.text.output_features)
         self.dropout = cfg.classifier.dropout
+        self.hidden = cfg.classifier.hidden_dim
         self.lin1 = nn.Linear(combined, cfg.classifier.hidden_dim)
         self.lin2 = nn.Linear(cfg.classifier.hidden_dim, cfg.max_answers)
 
+    def set_shards(self, shards) -> None:
+        if self.lin1.weight.shape[0] < self.hidden:
+            self.tp = shards["model"]
+
     def forward(self, x, dtype, generator):
+        tp = self.tp
         x = dropout(x, self.dropout, generator).to(dtype)  # site 5
-        x = torch.relu(_mm(x, self.lin1.weight) + self.lin1.bias)
-        x = dropout(x, self.dropout, generator).to(dtype)  # site 6
-        return _mm(x, self.lin2.weight) + self.lin2.bias
+        x = torch.relu(_mm(x, self.lin1.weight, tp) + self.lin1.bias)
+        x = dropout(x, self.dropout, generator, columns(tp, self.hidden),
+                    self.hidden).to(dtype)  # site 6
+        return reduce_from(_mm(x, self.lin2.weight), tp) + self.lin2.bias
 
 
 class VqaNet(nn.Module):

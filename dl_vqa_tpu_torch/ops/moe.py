@@ -29,6 +29,23 @@ top-2 there lies within one f32 step of it). Slots that hold no token are
 computed (``relu(b_in)`` drives them) and gathered by no token, so they get
 no gradient, as the one-hot combine gives them none.
 
+Expert parallelism ('expert', :meth:`MoeMlp.set_shards`) splits the
+experts over the ranks of an 'expert' group, ``E / expert`` each, and
+'model' splits each expert's hidden width F. The tokens are replicated over
+'expert', as JAX places them: each rank routes every token of its 'data'
+shard with the replicated f32 router and dispatches only the slots of its
+own experts. The expert output ``y`` is summed over 'model' in f32 before
+``out.b`` and the rounding to the compute dtype, and the combined ``[G, S,
+D]`` over 'expert' in f32, then rounded once. A token's combined value is
+at most ``top_k`` nonzero slot terms, and the sum over 'expert' adds the
+other ranks' zeros: with ``top_k <= 2`` and 'model' 1 the ranks give one
+process's bits. The routing weights and the dispatched tokens take the
+gradient of this rank's slots only: their gradients are summed over the
+ranks (over 'expert', and over 'expert' x 'model'), so the replicated
+router and everything before the block get one process's gradient on
+every rank. An all-to-all that splits the groups over 'expert' in place
+of the replicated tokens is ROADMAP queue 1's later work.
+
 The router product is an f32 product of f32 operands (TF32 is off in the
 port, as ``models/layers.py::mm`` assumes); the two expert products are f32
 results of operands rounded to the compute dtype, ``torch.bmm`` over the
@@ -42,6 +59,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+
+from dl_vqa_tpu_torch.parallel.tensor import copy_to, reduce_from
 
 __all__ = ["moe_capacity", "Routing", "top_k_gating", "moe_mlp", "MoeMlp",
            "balance_loss", "MOE_WITHOUT_ROUTING"]
@@ -152,7 +171,8 @@ def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int
 def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
             b_in: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
             top_k: int, capacity_factor: float,
-            aux_sink: Optional[list] = None) -> torch.Tensor:
+            aux_sink: Optional[list] = None, ep=None, tp=None,
+            ep_tp=None) -> torch.Tensor:
     """Sparsely activated expert FFN ``x [G, S, D] -> [G, S, D]`` in x's
     dtype (the compute dtype), with the router ``gate [E, D]`` and the
     experts ``w_in [E, F, D]``, ``b_in [E, F]``, ``w_out [E, D, F]``,
@@ -162,10 +182,17 @@ def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
     list, receives the factors of the layer's balance loss, ``(frac,
     mean_prob)`` (:func:`balance_loss`), for the caller to take the
     fractions over whatever batch it means (every rank's tokens, in a
-    data-parallel step)."""
+    data-parallel step).
+
+    ``ep``, ``tp``, ``ep_tp``: the 'expert', 'model' and 'expert' x
+    'model' Shards of a split block (module docstring), whose ``w_in``,
+    ``b_in``, ``w_out``, ``b_out`` hold this rank's experts and hidden
+    columns; None in one process."""
     dtype = x.dtype
     groups, tokens, dim = x.shape
-    num_experts = w_in.shape[0]
+    num_experts = gate.shape[0]
+    local_experts = w_in.shape[0]
+    first = 0 if ep is None else ep.index * local_experts
     capacity = moe_capacity(tokens, num_experts, top_k, capacity_factor)
     logits = torch.matmul(x.float(), gate.t())               # [G, S, E] f32
     routing = top_k_gating(logits, top_k, capacity)
@@ -174,25 +201,35 @@ def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
 
     # A slot's row of the [E, G, C] buffer; a dropped slot writes a spare
     # last row, which is cut off, and gathers row 0 with weight 0.
+    # This rank's slots: kept, and routed to one of its experts.
+    mine = routing.kept
+    if ep is not None:
+        mine = mine & (routing.expert >= first) & (
+            routing.expert < first + local_experts)
     group = torch.arange(groups, device=x.device)[:, None, None]
-    rows = (routing.expert * groups + group) * capacity + routing.position
-    slots = num_experts * groups * capacity
-    rows = torch.where(routing.kept, rows, slots).reshape(-1)
-    src = x.unsqueeze(2).expand(groups, tokens, top_k, dim).reshape(-1, dim)
+    rows = ((routing.expert - first) * groups + group) * capacity \
+        + routing.position
+    slots = local_experts * groups * capacity
+    rows = torch.where(mine, rows, slots).reshape(-1)
+    src = copy_to(x, ep_tp).unsqueeze(2).expand(
+        groups, tokens, top_k, dim).reshape(-1, dim)
     xin = x.new_zeros(slots + 1, dim).index_copy(0, rows, src)[:slots]
-    xin = xin.view(num_experts, groups * capacity, dim)
+    xin = xin.view(local_experts, groups * capacity, dim)
 
     hidden = torch.relu(
         torch.bmm(xin.float(), w_in.to(dtype).float().transpose(1, 2))
         + b_in[:, None, :]).to(dtype)
-    y = (torch.bmm(hidden.float(), w_out.to(dtype).float().transpose(1, 2))
-         + b_out[:, None, :]).to(dtype)
+    y = torch.bmm(hidden.float(), w_out.to(dtype).float().transpose(1, 2))
+    y = (reduce_from(y, tp) + b_out[:, None, :]).to(dtype)
 
     picked = y.reshape(slots, dim).index_select(
         0, torch.where(rows < slots, rows, 0))
     picked = picked.view(groups, tokens, top_k, dim)
-    weight = routing.weight.to(dtype).float()[..., None]
-    return (weight * picked.float()).sum(dim=2).to(dtype)
+    weight = routing.weight
+    if ep is not None:
+        weight = torch.where(mine, copy_to(weight, ep), 0.0)
+    weight = weight.to(dtype).float()[..., None]
+    return reduce_from((weight * picked.float()).sum(dim=2), ep).to(dtype)
 
 
 class _Experts(nn.Module):
@@ -207,10 +244,14 @@ class _Experts(nn.Module):
 
 class MoeMlp(nn.Module):
     """The MoE FFN's parameters: ``gate [E, D]``, ``in.{weight [E, F, D],
-    bias [E, F]}``, ``out.{weight [E, D, F], bias [E, D]}``."""
+    bias [E, F]}``, ``out.{weight [E, D, F], bias [E, D]}``; of a split
+    block (:meth:`set_shards`) this rank's experts and hidden columns."""
+
+    ep = tp = ep_tp = None
 
     def __init__(self, dim: int, hidden: int, experts: int):
         super().__init__()
+        self.hidden = hidden
         self.gate = nn.Parameter(torch.empty(experts, dim))
         self.add_module("in", _Experts(experts, hidden, dim))
         self.add_module("out", _Experts(experts, dim, hidden))
@@ -228,8 +269,18 @@ class MoeMlp(nn.Module):
             bound = 1.0 / math.sqrt(fan_in)
             p.uniform_(-bound, bound, generator=gen)
 
+    def set_shards(self, shards) -> None:
+        e_in = getattr(self, "in")
+        if e_in.weight.shape[0] < self.gate.shape[0]:
+            self.ep = shards["expert"]
+        if e_in.weight.shape[1] < self.hidden:
+            self.tp = shards["model"]
+        if self.ep is not None or self.tp is not None:
+            self.ep_tp = shards["expert_model"]
+
     def forward(self, x: torch.Tensor, top_k: int, capacity_factor: float,
                 aux_sink: Optional[list] = None) -> torch.Tensor:
         e_in, e_out = getattr(self, "in"), getattr(self, "out")
         return moe_mlp(x, self.gate, e_in.weight, e_in.bias, e_out.weight,
-                       e_out.bias, top_k, capacity_factor, aux_sink)
+                       e_out.bias, top_k, capacity_factor, aux_sink,
+                       self.ep, self.tp, self.ep_tp)

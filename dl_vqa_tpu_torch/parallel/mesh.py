@@ -1,30 +1,46 @@
-"""The device mesh.
+"""The device mesh and the tensor-parallel placement rules.
 
 The port's counterpart of ``dl_vqa_tpu/parallel/mesh.py``. The JAX mesh
 is a grid of chips with the axes ('data'[, 'seq'][, 'expert'], 'model'[,
 'stage']); the port runs one process per GPU, so its mesh is a grid of
-ranks with the same names, 'data' outermost (a
+ranks with the same names in the same order, 'data' outermost (a
 ``torch.distributed.device_mesh.DeviceMesh`` once a process group is
-joined). Only 'data' may exceed 1 here: tensor, expert, sequence and
+joined): rank ``r`` sits at ``(d, [e,] m)`` of ``arange(world).reshape(
+shape)``. 'data', 'expert' and 'model' may exceed 1; sequence and
 pipeline parallelism are ROADMAP queue 1, item 9, and raise.
 
-The JAX package's placements (``batch_sharding``, ``state_shardings``)
-have no counterpart here: a rank holds its contiguous block of a batch's
-rows (:func:`~dl_vqa_tpu_torch.parallel.multihost.process_batch_slice`),
-and :mod:`dl_vqa_tpu_torch.parallel.zero` splits the train state by
-wrapping the model (ZeRO, ``tpu.zero_stage``).
+The placement rules (:func:`spec_for`, :func:`param_specs`) are the JAX
+package's, by parameter path of the JAX tree, with its fallback to
+replication where a dim does not divide its axis and its warning for a
+large leaf that falls back. Where JAX places a leaf and lets the SPMD
+partitioner insert the collectives, the port cuts each rank's shard out of
+the whole state (:mod:`dl_vqa_tpu_torch.parallel.tensor`) and its modules
+call the collectives themselves. The batch is split over 'data' only: a
+rank holds the rows of its 'data' coordinate
+(:func:`~dl_vqa_tpu_torch.parallel.multihost.process_batch_slice`), so the
+ranks of one 'expert' x 'model' group feed the same rows, as JAX's
+``P('data')`` places a batch; :mod:`dl_vqa_tpu_torch.parallel.zero`
+splits the train state over 'data' by wrapping the model (ZeRO,
+``tpu.zero_stage``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import logging
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "spec_for", "param_specs",
+           "WARN_FALLBACK_ELEMENTS", "ITEM_9"]
 
-_ITEM_9 = "ROADMAP queue 1, item 9, the parallel axes"
+ITEM_9 = "ROADMAP queue 1, item 9, the parallel axes"
+
+# A spec names, for each dim of a leaf in the JAX layout, the mesh axis it
+# is split over, or None; () replicates the leaf.
+Spec = Tuple[Optional[str], ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,17 +48,37 @@ class Mesh:
     """``shape``: axis name -> size in grid order, as ``jax.sharding.Mesh.
     shape`` reads; ``rank``: this process's coordinate on 'data';
     ``device_mesh``: the ``DeviceMesh`` over the ranks (None in a process
-    that joined no group, where the mesh is one device). The steps reduce
-    over the ranks of a mesh over a joined group whatever its size, a
-    group of one rank included."""
+    that joined no group, where the mesh is one device); ``coords``: the
+    coordinate on every axis (None: 0 on every axis but 'data');
+    ``expert_model``: the group of the ranks that share this rank's 'data'
+    coordinate (the 'expert' x 'model' block; None in one process). The
+    steps reduce over the ranks of a mesh over a joined group whatever its
+    size, a group of one rank included."""
 
     shape: Dict[str, int]
     rank: int = 0
     device_mesh: Optional[object] = None
+    coords: Optional[Dict[str, int]] = None
+    expert_model: Optional[object] = None
 
     @property
     def distributed(self) -> bool:
         return self.device_mesh is not None
+
+    def size(self, axis: str) -> int:
+        """The size of ``axis``, 1 for an axis the mesh does not hold."""
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (0 on an axis of one)."""
+        if axis == "data":
+            return self.rank
+        return (self.coords or {}).get(axis, 0)
+
+    @property
+    def splits_state(self) -> bool:
+        """Whether 'model' or 'expert' splits the parameters."""
+        return self.size("model") > 1 or self.size("expert") > 1
 
     def group(self, axis: str = "data"):
         """The process group of ``axis`` (None in one process)."""
@@ -54,20 +90,20 @@ class Mesh:
 def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
               expert: int = 1, seq: int = 1, device_type: str = "cuda"
               ) -> Mesh:
-    """A ('data', 'model') mesh over the processes of the group (one
-    process when none was joined). ``data=-1`` takes the world size over
-    the other axes; a mesh of more ranks than there are raises the JAX
-    package's oversubscription message, and one of fewer raises too (every
-    rank is a 'data' shard). ``model``, ``stage``, ``expert`` and ``seq``
-    above 1 raise ``NotImplementedError``."""
+    """A ('data'[, 'expert'], 'model') mesh over the processes of the
+    group (one process when none was joined); 'expert' is only
+    materialized when > 1, as in JAX. ``data=-1`` takes the world size
+    over the other axes; a mesh of more ranks than there are raises the
+    JAX package's oversubscription message, and one of fewer raises too
+    (every rank has a place on the mesh). ``stage`` and ``seq`` above 1
+    raise ``NotImplementedError``."""
     model, stage, expert, seq = (max(a, 1) for a in (model, stage, expert,
                                                       seq))
-    for name, size in zip(("model", "stage", "expert", "seq"),
-                          (model, stage, expert, seq)):
+    for name, size in (("stage", stage), ("seq", seq)):
         if size > 1:
             raise NotImplementedError(
-                f"tpu.mesh.{name}={size}: dl_vqa_tpu_torch has only the "
-                f"'data' axis ({_ITEM_9})")
+                f"tpu.mesh.{name}={size}: dl_vqa_tpu_torch has the 'data', "
+                f"'expert' and 'model' axes ({ITEM_9})")
     joined = dist.is_initialized()
     world_size = dist.get_world_size() if joined else 1
     if data == -1:
@@ -82,13 +118,126 @@ def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
     if n < world_size:
         raise ValueError(
             f"mesh of {n} devices in a group of {world_size} processes: "
-            "every process is one 'data' shard (tpu.mesh.data=-1 takes "
-            "them all)")
-    shape = {"data": data, "model": model}
-    device_mesh = None
-    if joined:
-        from torch.distributed.device_mesh import init_device_mesh
+            "every process is one 'data' shard of the 'expert' x 'model' "
+            "block (tpu.mesh.data=-1 takes them all)")
+    shape = {"data": data}
+    if expert > 1:
+        shape["expert"] = expert
+    shape["model"] = model
+    if not joined:
+        return Mesh(shape)
+    from torch.distributed.device_mesh import init_device_mesh
 
-        device_mesh = init_device_mesh(device_type, tuple(shape.values()),
-                                       mesh_dim_names=tuple(shape))
-    return Mesh(shape, dist.get_rank() if joined else 0, device_mesh)
+    device_mesh = init_device_mesh(device_type, tuple(shape.values()),
+                                   mesh_dim_names=tuple(shape))
+    me = dist.get_rank()
+    coords = dict(zip(shape, np.unravel_index(me, tuple(shape.values()))))
+    coords = {axis: int(c) for axis, c in coords.items()}
+    block = world_size // data
+    expert_model = None
+    # new_group is collective: every rank makes every block's group.
+    for d in range(data):
+        group = dist.new_group(list(range(d * block, (d + 1) * block)))
+        if d == coords["data"]:
+            expert_model = group
+    return Mesh(shape, coords["data"], device_mesh, coords, expert_model)
+
+
+# ------------------------------------------------------- placement rules
+# The JAX package's rules (dl_vqa_tpu/parallel/mesh.py::_spec_for), by the
+# path of a leaf in the JAX parameter tree, as data: (how the path
+# matches, the pattern, the spec). The first match wins; a conv weight
+# ([1, 1, in, out]) and a linear one ([in, out]) both split their last
+# dim, so the 'last' spec fills the leading dims with None.
+_RULES = (
+    ("in", "classifier/lin1/w", (None, "model")),
+    ("in", "classifier/lin1/b", ("model",)),
+    ("in", "classifier/lin2/w", ("model", None)),
+    ("in", "text/embedding", ("model", None)),
+    ("in", "attention/q_lin/w", "last"),
+    ("in", "attention/v_conv/w", "last"),
+    ("in", "attention/q_lin/b", ("model",)),
+    # The MoE rules precede the generic ones: '/moe/out/w' would otherwise
+    # take the row-parallel '/out/w' rule and lose its 'expert' split.
+    ("end", "/moe/in/w", ("expert", None, "model")),
+    ("end", "/moe/in/b", ("expert", "model")),
+    ("end", "/moe/out/w", ("expert", "model", None)),
+    ("end", "/moe/out/b", ("expert", None)),
+    ("end", "/qkv/w", (None, "model")),
+    ("end", "/mlp_in/w", (None, "model")),
+    ("end", "/qkv/b", ("model",)),
+    ("end", "/mlp_in/b", ("model",)),
+    ("end", "/out/w", ("model", None)),
+    ("end", "/mlp_out/w", ("model", None)),
+)
+
+# Leaves at least this large that fall back to replication are warned of,
+# as the JAX package warns of them.
+WARN_FALLBACK_ELEMENTS = 65_536
+
+_log = logging.getLogger(__name__)
+
+
+def spec_for(path: str, ndim: int) -> Spec:
+    """The tensor-parallel spec of the leaf at ``path`` (``/``-joined keys
+    of the JAX tree, a leading ``/``) of ``ndim`` dims, before the stacked
+    ViT layer axis and the mesh are considered: the JAX package's
+    ``_spec_for``."""
+    for how, pattern, spec in _RULES:
+        if (pattern in path) if how == "in" else path.endswith(pattern):
+            if spec == "last":
+                return (None,) * (ndim - 1) + ("model",)
+            return spec
+    return ()
+
+
+def _divisible(shape: Sequence[int], spec: Spec,
+               sizes: Dict[str, int]) -> bool:
+    return all(axis is None or shape[dim] % sizes[axis] == 0
+               for dim, axis in enumerate(spec))
+
+
+def param_specs(tree, sizes: Dict[str, int], log=None):
+    """The spec of every leaf of the JAX parameter ``tree`` (numpy arrays
+    or anything with a ``shape``) on a mesh of axis ``sizes``, as a tree of
+    the same structure: the JAX package's ``param_shardings``. The stacked
+    ViT layer axis (``/image/layers/``) takes None (there is no 'stage'
+    axis); an axis the mesh does not hold, or of size 1, replicates its
+    dim; a leaf whose split dims do not divide their axes replicates
+    whole, and one of at least :data:`WARN_FALLBACK_ELEMENTS` elements is
+    named in a warning (the JAX words; through ``log`` if given, else the
+    ``logging`` module)."""
+    fallbacks = []
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}/{k}") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, f"{prefix}/{i}") for i, v in enumerate(node)]
+        shape = tuple(node.shape)
+        stacked = "/image/layers/" in prefix
+        spec = spec_for(prefix, len(shape) - stacked)
+        if stacked:
+            spec = (None,) + spec
+        spec = tuple(axis if axis is not None and sizes.get(axis, 1) > 1
+                     else None for axis in spec)
+        if not _divisible(shape, spec, sizes):
+            if int(np.prod(shape)) >= WARN_FALLBACK_ELEMENTS:
+                fallbacks.append((prefix, shape, spec))
+            spec = ()
+        if all(axis is None for axis in spec):
+            spec = ()
+        return spec
+
+    specs = walk(tree, "")
+    if fallbacks:
+        details = "; ".join(f"{path} shape={shape} wanted "
+                            f"PartitionSpec{spec!r}"
+                            for path, shape, spec in fallbacks)
+        message = (
+            f"tensor-parallel fallback to replication on mesh "
+            f"{dict(sizes)} for: {details} — make the sharded dim a "
+            "multiple of the 'model' axis (round max_answers / vocab up) or "
+            "reduce tpu.mesh.model")
+        (log or _log.warning)(message)
+    return specs

@@ -4,14 +4,16 @@
 The port's counterpart of ``dl_vqa_tpu/parallel/multihost.py``. The JAX
 package runs one process per host, each driving its local chips, and
 builds one global mesh over them; the port runs one process per GPU (the
-torchrun idiom), so a process is one shard of the 'data' axis and its
-rank is its coordinate there. The contract is the JAX one:
+torchrun idiom), so a process is one place on the mesh, and its 'data'
+coordinate says which rows of a batch it feeds (the ranks of one 'expert'
+x 'model' group feed the same rows). The contract is the JAX one:
 
 * every process runs the same program (``torchrun --nproc-per-node=N -m
   dl_vqa_tpu_torch.main ...``, multi-node with ``--nnodes``), and
   :func:`maybe_initialize` joins the group from torchrun's environment;
-* every process feeds only its own contiguous rows of every global batch
-  (:func:`process_batch_slice`, ``Batcher(process_slice=...)``); the
+* every process feeds only its 'data' shard's contiguous rows of every
+  global batch (:func:`process_batch_slice`, ``Batcher(process_slice=
+  ...)``); the
   shuffle order is shared through the seed, so the processes agree on
   each global batch;
 * the train and eval steps reduce what crosses processes (gradients, the
@@ -121,8 +123,8 @@ def barrier(name: str) -> None:
 
 def process_batch_slice(mesh, global_batch_size: int) -> Optional[slice]:
     """This process's contiguous rows of a ``[global_batch_size, ...]``
-    batch split over the mesh's 'data' axis; ``None`` in one process (feed
-    whole batches)."""
+    batch split over the mesh's 'data' axis, by its 'data' coordinate;
+    ``None`` where 'data' has one shard (feed whole batches)."""
     n = mesh.shape["data"]
     if n == 1:
         return None
@@ -135,10 +137,10 @@ def process_batch_slice(mesh, global_batch_size: int) -> Optional[slice]:
 
 def process_dim0_block(mesh, global_shape: Sequence[int]) -> slice:
     """The contiguous dim-0 rows of an array of ``global_shape`` that this
-    process holds when dim 0 is split over 'data': block ``rank`` of
-    ``data`` blocks of ``ceil(rows / data)`` rows, clipped to the array
-    (as JAX's 'data' sharding pads a row count that does not divide, the
-    last blocks are short or empty)."""
+    process holds when dim 0 is split over 'data': block ``mesh.rank``
+    (the 'data' coordinate) of ``data`` blocks of ``ceil(rows / data)``
+    rows, clipped to the array (as JAX's 'data' sharding pads a row count
+    that does not divide, the last blocks are short or empty)."""
     rows = int(global_shape[0])
     n = mesh.shape["data"]
     per = -(-rows // n)

@@ -24,10 +24,17 @@ constant LSTM ``bias_hh`` (``requires_grad=False``) stays outside Adam in
 every stage; the caller folds it into ``bias_ih`` before wrapping
 (``train.loop.train``).
 
-A checkpoint holds the whole state whatever the stage: :func:`full_state`
-gathers the parameters and moments on every rank (a collective), and a
-restore loads the whole state into the unwrapped model before
-:func:`parallelize` splits it, so a state moves between world sizes.
+Over a mesh whose 'model' or 'expert' axis splits the parameters
+(:func:`dl_vqa_tpu_torch.parallel.tensor.shard_state`, called first) every
+wrapper runs over the 'data' group and sub-mesh alone, on this rank's
+shards: the ranks of a 'data' group hold the same shards.
+
+A checkpoint holds the whole state whatever the stage and the mesh:
+:func:`full_state` gathers the parameters and moments on every rank (a
+collective: over 'data', then over 'model' and 'expert'), and a restore
+loads the whole state into the unwrapped, uncut model before
+:func:`~dl_vqa_tpu_torch.parallel.tensor.shard_state` and
+:func:`parallelize` split it, so a state moves between mesh shapes.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.distributed as dist
 
+from dl_vqa_tpu_torch.parallel.tensor import gather_named
 from dl_vqa_tpu_torch.utils.checkpoint import _trainable
 
 __all__ = ["parallelize", "ShardedAdam", "full_state", "grad_sync",
@@ -248,9 +256,21 @@ def _full(tensor: torch.Tensor) -> torch.Tensor:
 def full_state(state) -> Tuple[Dict[str, torch.Tensor],
                                Dict[str, Dict[str, torch.Tensor]], int]:
     """``(named parameters and buffers, {"exp_avg": named, "exp_avg_sq":
-    named}, update count)``, whole, whatever the stage: under ZeRO the
-    pieces are gathered from every rank, so every rank calls this. Moments
-    of a parameter not yet updated are zeros."""
+    named}, update count)``, whole, whatever the stage and the mesh: under
+    ZeRO, 'model' or 'expert' the pieces are gathered from every rank, so
+    every rank calls this. Moments of a parameter not yet updated are
+    zeros."""
+    named, moments, count = _data_state(state)
+    if getattr(state.model, "tp_specs", None) is not None:
+        named = gather_named(named, state.model, state.mesh)
+        moments = {key: gather_named(value, state.model, state.mesh)
+                   for key, value in moments.items()}
+    return named, moments, count
+
+
+def _data_state(state):
+    """:func:`full_state` gathered over 'data' alone: this rank's shards
+    of 'model' and 'expert'."""
     model = state.model
     named = {name: _full(value.detach())
              for name, value in model.state_dict().items()}

@@ -35,13 +35,17 @@ computes the same epoch numbers, and only the coordinator writes the
 logger's files, the checkpoints and the epoch-1 trace. Under ZeRO a save
 gathers the state on every rank (a collective: the other ranks take the
 snapshot and drop it). A restore loads the whole state before the model
-is wrapped for the mesh, so a checkpoint resumes at any world size.
+is wrapped for the mesh, so a checkpoint resumes at any world size. A mesh
+with 'model' or 'expert' axes cuts the state into each rank's shards after
+any restore (:func:`dl_vqa_tpu_torch.parallel.tensor.shard_state`), as the
+JAX loop places the state after one, and every save gathers them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import socket
 import time
@@ -280,12 +284,17 @@ def train(
                 f"({epochs_no_improve} epochs without improvement)")
 
     if mesh is not None:
+        from dl_vqa_tpu_torch.parallel.tensor import shard_state
         from dl_vqa_tpu_torch.parallel.zero import parallelize
 
+        state = shard_state(state, mesh, log=logger.write)
         state = parallelize(state, mesh, zero_stage)
-    world = 1 if mesh is None else mesh.shape["data"]
-    is_coordinator = mesh is None or mesh.rank == 0
-    sharded_state = mesh is not None and mesh.distributed and zero_stage > 0
+    chips = 1 if mesh is None else math.prod(mesh.shape.values())
+    is_coordinator = mesh is None or not any(
+        mesh.coord(axis) for axis in mesh.shape)
+    # Whether a save gathers from every rank (a collective).
+    sharded_state = mesh is not None and mesh.distributed and (
+        zero_stage > 0 or mesh.splits_state)
     train_step = make_train_step(model_cfg, compute_dtype, remat=remat,
                                  accum_steps=accum_steps, mesh=mesh)
     eval_step = make_eval_step(model_cfg, compute_dtype, mesh=mesh)
@@ -391,7 +400,7 @@ def train(
         scalars = {
             "Throughput/StepsPerSec": batches_run / epoch_seconds,
             "Throughput/QAPairsPerSecPerChip":
-                samples_run / epoch_seconds / world,
+                samples_run / epoch_seconds / chips,
         }
         if aux_total is not None:
             # Expert balance of a MoE model: 1.0 at uniform routing.

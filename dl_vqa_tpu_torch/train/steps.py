@@ -48,7 +48,19 @@ same step on its rows of the global batch, as the JAX step runs on a
 
 In one process every collective is left out.
 
-Not ported yet: the tensor, pipeline and sequence axes.
+Over a mesh with 'model' or 'expert' axes (the state cut by
+:func:`dl_vqa_tpu_torch.parallel.tensor.shard_state` before it was
+wrapped) the ranks of one 'expert' x 'model' group hold the same rows of
+the batch: the model's modules sum over their groups themselves, and every
+reduction here (the real count, the metrics, the balance loss's
+fractions, the objective's scale) is over the 'data' group, by the rank's
+'data' coordinate, as above. Before the update the gradients of what an
+axis does not split are made its coordinate-0 rank's
+(:func:`~dl_vqa_tpu_torch.parallel.tensor.sync_replicated_grads`), so
+the ranks' replicated parameters stay one model. ``fused_ops`` on the ViT with 'model' above 1
+raises: kernel 8 fuses the MLP that 'model' splits (ROADMAP item 9).
+
+Not ported yet: the pipeline and sequence axes.
 """
 
 from __future__ import annotations
@@ -68,6 +80,8 @@ from dl_vqa_tpu_torch.ops.vqa_metrics import (
     vqa_accuracy_by_type,
     vqa_accuracy_sum,
 )
+from dl_vqa_tpu_torch.parallel.mesh import ITEM_9
+from dl_vqa_tpu_torch.parallel.tensor import sync_replicated_grads
 from dl_vqa_tpu_torch.parallel.zero import grad_sync
 from dl_vqa_tpu_torch.train.state import TrainState
 
@@ -121,6 +135,14 @@ def _to_device(batch: Dict, device: torch.device) -> Dict:
     return {key: value.to(device) if hasattr(value, "to")
             else torch.as_tensor(value).to(device)
             for key, value in batch.items()}
+
+
+def _check_fused(cfg: ModelConfig, fused_ops: bool, mesh) -> None:
+    if (fused_ops and mesh is not None and mesh.size("model") > 1
+            and cfg.image.encoder == "vit"):
+        raise NotImplementedError(
+            "fused_ops on the ViT with tpu.mesh.model > 1: kernel 8 fuses "
+            f"the MLP that 'model' splits ({ITEM_9})")
 
 
 def _images(batch: Dict) -> torch.Tensor:
@@ -218,6 +240,7 @@ def make_train_step(
     process's: one rank, no collective.
     """
     cfg.check_ported()
+    _check_fused(cfg, fused_ops, mesh)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     group = mesh.group("data") if mesh is not None else None
@@ -296,6 +319,8 @@ def make_train_step(
             totals += torch.stack([loss + aux_weight * aux * share / world,
                                    score, aux * share / world])
         _all_reduce(totals, group)
+        if mesh is not None:
+            sync_replicated_grads(state.model, mesh)
 
         lr = lr_schedule(state.initial_lr)(state.step)
         for param_group in state.optimizer.param_groups:
@@ -327,6 +352,7 @@ def make_eval_step(
     ``batch`` is this rank's rows and every output is the global batch's
     (one all-reduce a batch); ``model`` may be FSDP2-sharded."""
     cfg.check_ported()
+    _check_fused(cfg, fused_ops, mesh)
     group = mesh.group("data") if mesh is not None else None
 
     @torch.no_grad()

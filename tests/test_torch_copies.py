@@ -190,6 +190,45 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     assert not pattern.search("from dl_vqa_tpu_torch.ops import lstm\n")
 
 
+# Paths of the JAX parameter tree, and the ranks of their leaves: every
+# rule, the order between the MoE rules and the generic '/out/w' one, and
+# leaves no rule matches.
+_PLACEMENT_PATHS = [
+    ("/classifier/lin1/w", 2), ("/classifier/lin1/b", 1),
+    ("/classifier/lin2/w", 2), ("/classifier/lin2/b", 1),
+    ("/text/embedding", 2), ("/attention/q_lin/w", 2),
+    ("/attention/q_lin/b", 1), ("/attention/v_conv/w", 4),
+    ("/attention/x_conv/w", 4), ("/attention/x_conv/b", 1),
+    ("/attention/layers/0/score/w", 4), ("/attention/layers/0/update/w", 2),
+    ("/attention/vsum_lin/w", 2), ("/attention/tok_out/w", 2),
+    ("/image/conv0/w", 4), ("/image/patch_embed/w", 2), ("/image/pos", 2),
+    ("/image/layers/qkv/w", 2), ("/image/layers/qkv/b", 1),
+    ("/image/layers/out/w", 2), ("/image/layers/out/b", 1),
+    ("/image/layers/mlp_in/w", 2), ("/image/layers/mlp_in/b", 1),
+    ("/image/layers/mlp_out/w", 2), ("/image/layers/mlp_out/b", 1),
+    ("/image/layers/ln1/scale", 1), ("/image/layers/moe/gate/w", 2),
+    ("/image/layers/moe/in/w", 3), ("/image/layers/moe/in/b", 2),
+    ("/image/layers/moe/out/w", 3), ("/image/layers/moe/out/b", 2),
+    ("/text/layers/0/qkv/w", 2), ("/text/layers/1/out/w", 2),
+    ("/text/in_proj/w", 2), ("/text/lstm_fwd/w_ih", 2),
+]
+
+
+@pytest.mark.parametrize("path,ndim", _PLACEMENT_PATHS)
+def test_placement_rule_copy_matches_the_original(path, ndim):
+    """``dl_vqa_tpu_torch/parallel/mesh.py::spec_for``, the port's copy of
+    the tensor-parallel rules as data, gives each path the spec of
+    ``dl_vqa_tpu/parallel/mesh.py::_spec_for``; the fallback's warning
+    threshold is the same."""
+    from dl_vqa_tpu.parallel import mesh as jax_mesh
+    from dl_vqa_tpu_torch.parallel import mesh as port_mesh
+
+    want = tuple(jax_mesh._spec_for(path, np.zeros((1,) * ndim)))
+    assert port_mesh.spec_for(path, ndim) == want
+    assert (port_mesh.WARN_FALLBACK_ELEMENTS
+            == jax_mesh._WARN_FALLBACK_ELEMENTS)
+
+
 # -- copies of the data plane, the config and the checkpoint import --------
 
 # Override values as users write them, and YAML 1.1's corners: ints in

@@ -9,6 +9,7 @@ store builder, ``tpu.profile_dir`` and ``tpu.debug_nans``:
 ``tests/test_torch_online.py``; the entry points as several processes:
 ``tests/test_torch_multihost.py``)."""
 
+import dataclasses
 import glob
 import os
 import sys
@@ -128,13 +129,17 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
 
 @pytest.mark.parametrize("override,error,what", [
     ("tpu.checkpoint_backend=orbax", NotImplementedError, "Orbax"),
-    ("tpu.mesh.model=2", NotImplementedError, "item 9"),
+    ("tpu.mesh.model=2", ValueError,
+     r"mesh 0x1x1x2x1 \(data x seq x expert x model x stage\) needs 2 "
+     "devices, have 1"),
     ("tpu.mesh.data=4", ValueError,
      r"mesh 4x1x1x1x1 \(data x seq x expert x model x stage\) needs 4 "
      "devices, have 1"),
     ("tpu.zero_stage=1", None, "tpu.zero_stage=1 is a no-op"),
     ("tpu.mesh.stage=2", NotImplementedError, "item 9"),
-    ("tpu.mesh.expert=2", NotImplementedError, "item 9"),
+    ("tpu.mesh.expert=2", ValueError,
+     r"mesh 0x1x2x1x1 \(data x seq x expert x model x stage\) needs 2 "
+     "devices, have 1"),
     ("tpu.mesh.seq=2", NotImplementedError, "item 9"),
     ("tpu.pipeline_microbatches=4", NotImplementedError, "item 9"),
 ], ids=["tpu.checkpoint_backend=orbax-Orbax", "tpu.mesh.model=2-item 9",
@@ -143,10 +148,11 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
         "tpu.mesh.seq=2-item 9", "tpu.pipeline_microbatches=4-item 9"])
 def test_settings_the_port_lacks_raise_with_their_roadmap_item(
         profile, tmp_path, override, error, what):
-    """The axes still missing raise with their ROADMAP item. The 'data'
-    axis is ported: in one process ``tpu.mesh.data=4`` raises the mesh's
-    oversubscription error, as JAX's ``make_mesh`` does, and a ZeRO stage
-    runs with its no-op logged (one 'data' shard)."""
+    """The axes still missing raise with their ROADMAP item. The 'data',
+    'model' and 'expert' axes are ported: in one process
+    ``tpu.mesh.data=4``, ``tpu.mesh.model=2`` and ``tpu.mesh.expert=2``
+    raise the mesh's oversubscription error, as JAX's ``make_mesh`` does,
+    and a ZeRO stage runs with its no-op logged (one 'data' shard)."""
     overrides = _overrides(profile, tmp_path) + [override]
     if error is None:
         port_main.main(port_config.compose(
@@ -157,6 +163,47 @@ def test_settings_the_port_lacks_raise_with_their_roadmap_item(
     with pytest.raises(error, match=what):
         port_main.main(port_config.compose("config", overrides),
                        device="cpu")
+
+
+@pytest.mark.parametrize("case", ["f8e4m3", "int8", "fused_ops_vit",
+                                  "expert_without_moe"])
+def test_settings_that_still_raise_under_model_and_expert(
+        profile, tmp_path, monkeypatch, case):
+    """The quantized image modes with ``tpu.mesh.model=2`` raise with item
+    9 in both entry points before any work; ``fused_ops`` on a ViT over a
+    mesh of 'model' 2 raises in the steps (kernel 8 fuses the MLP that
+    'model' splits); ``tpu.mesh.expert=2`` without a ViT-MoE exits with
+    the JAX package's words once the mesh is made (a mesh of 'expert' 2
+    stands in for the two ranks here)."""
+    from dl_vqa_tpu_torch import parallel
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.parallel.mesh import Mesh
+    from dl_vqa_tpu_torch.train import make_train_step
+
+    overrides = _overrides(profile, tmp_path)
+    if case == "fused_ops_vit":
+        cnn = ModelConfig()
+        vit = dataclasses.replace(cnn, image=dataclasses.replace(
+            cnn.image, encoder="vit", num_channels=(3, 256)))
+        with pytest.raises(NotImplementedError, match="item 9"):
+            make_train_step(vit, fused_ops=True,
+                            mesh=Mesh({"data": 1, "model": 2}))
+        return
+    if case == "expert_without_moe":
+        monkeypatch.setattr(parallel, "make_mesh", lambda *a, **k: Mesh(
+            {"data": 1, "expert": 2, "model": 1}))
+        with pytest.raises(SystemExit, match="expert-major"):
+            port_main.main(port_config.compose(
+                "config", overrides + ["tpu.mesh.expert=2"]), device="cpu")
+        assert not os.path.exists(tmp_path / "vocab.json")
+        return
+    mode = [f"train.image.store_dtype={case}", "tpu.mesh.model=2"]
+    with pytest.raises(NotImplementedError, match="item 9"):
+        port_main.main(port_config.compose("config", overrides + mode),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        port_eval.evaluate_hw2(overrides + mode, device="cpu")
+    assert not os.path.exists(tmp_path / "logs")
 
 
 def test_sweeps_run_and_a_missing_store_is_refused(profile, tmp_path,
