@@ -19,6 +19,15 @@
 // their exponentials and the split heads to device memory; here no score
 // leaves the registers of the warp that made it.
 //
+// Past 256 tokens (the 448-px ViT's 784) the function is bound by its
+// operations instead: 322 GFLOP against 0.82 GB at B = 512, S = 784, 0.326
+// ms at the bf16 tensor-core peak. There no score row fits a warp's
+// registers, and the key-tile kernels below (attention_mma_long_kernel,
+// attention_fma_long_kernel; vit_attention.cuh) walk the keys a tile at a
+// time, taking a pass for the row max before the pass for the sums: 1.5
+// times the score products, in exchange for the plain version's rounding
+// points at every length.
+//
 // Design, bf16, D = 64 (ldmatrix + mma.sync m16n8k16, f32 accumulate):
 //  - A block takes one (image, head) and all of its 16-row query slabs,
 //    four warps taking every fourth slab, and stages the head's q, k and v
@@ -337,9 +346,149 @@ attention_mma_sliced_kernel(const bf16* __restrict__ qkv,  // [B, S, 3*H*D]
   }
 }
 
+// bf16, S > kMaxRowSeq, heads of 64 n: a block of four 16-row query slabs
+// (a warp each) walks the keys a 64-key tile at a time (see
+// vit_attention.cuh). Pass 0 takes each row's max m; pass 1 + o, for each
+// 64-wide output slice o, takes e = exp(s - m) in f32, the f32 sum of e and
+// f32(cast(e) . v) of v's slice o, and stores it divided by the sum. The
+// ring's unit is one (tile, slice) of a pass: k's slice, v's slice o with
+// the last slice of a tile in an output pass, and, for heads of more than
+// one slice, the block's q rows of that slice (one slice stays staged from
+// the start).
+__global__ void __launch_bounds__(kWarps * 32)
+attention_mma_long_kernel(const bf16* __restrict__ qkv,  // [B, S, 3*H*D]
+                          bf16* __restrict__ out,        // [B, S, H * D]
+                          int seq, int heads, int slices, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // Two stages of [k | v | q] slices, each [64][64] swizzled; then, for a
+  // head of one slice, the block's q rows.
+  bf16* stages = reinterpret_cast<bf16*>(smem);
+  bf16* q_fixed = stages + 2 * 3 * kTileElems;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const bf16* image = qkv + static_cast<size_t>(b) * seq * stride + h * head;
+  const int q0 = blockIdx.x * kLongTile, row0 = q0 + warp * 16;
+  const int tiles = (seq + kLongTile - 1) / kLongTile;
+  const int per_pass = tiles * slices, units = (1 + slices) * per_pass;
+
+  auto issue = [&](int u) {
+    const int pass = u / per_pass, t = u % per_pass / slices,
+              sl = u % slices;
+    bf16* st = stages + (u & 1) * 3 * kTileElems;
+    const int key0 = t * kLongTile;
+    stage_async(st, image + dim + sl * kSlice, stride, key0,
+                key0 + kLongTile, seq, tid, kWarps * 32);
+    if (pass > 0 && sl == slices - 1)
+      stage_async(st + kTileElems, image + 2 * dim + (pass - 1) * kSlice,
+                  stride, key0, key0 + kLongTile, seq, tid, kWarps * 32);
+    if (slices > 1)
+      stage_async(st + 2 * kTileElems, image + sl * kSlice, stride, q0,
+                  q0 + kLongTile, seq, tid, kWarps * 32);
+  };
+
+  const Lanes ln(lane);
+  const int c2 = lane % 4 * 2;  // accumulator column
+  if (slices == 1)
+    stage_async(q_fixed, image, stride, q0, q0 + kLongTile, seq, tid,
+                kWarps * 32);
+  issue(0);
+  cp_async_commit();
+
+  float s[8][4], o[8][4];
+  float m_lo = -INFINITY, m_hi = -INFINITY, sum_lo = 0.0f, sum_hi = 0.0f;
+  unsigned qa[4][4];
+  for (int u = 0; u < units; ++u) {
+    if (u + 1 < units) issue(u + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int pass = u / per_pass, t = u % per_pass / slices,
+              sl = u % slices;
+    const bf16* st = stages + (u & 1) * 3 * kTileElems;
+    if (slices > 1 || u == 0)
+      load_rows(qa, (slices > 1 ? st + 2 * kTileElems : q_fixed) +
+                        warp * 16 * kSlice, ln);
+    if (sl == 0) zero(s);
+    tile_products(s, qa, st, ln);
+    if (sl == slices - 1) {
+      const int key0 = t * kLongTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          s[j][x] *= scale;
+          if (key0 + j * 8 + c2 + (x & 1) >= seq) s[j][x] = -INFINITY;
+        }
+      if (pass == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
+          m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
+        }
+        if (t == tiles - 1) {
+          m_lo = quad_max(m_lo);
+          m_hi = quad_max(m_hi);
+        }
+      } else {
+        if (t == 0) {
+          zero(o);
+          sum_lo = sum_hi = 0.0f;
+        }
+        unsigned ea[4][4];  // cast(e) of the tile's four 16-key parts
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const float* x = s[2 * j + jj];
+            const float e0 = expf(x[0] - m_lo), e1 = expf(x[1] - m_lo);
+            const float e2 = expf(x[2] - m_hi), e3 = expf(x[3] - m_hi);
+            sum_lo += e0 + e1;
+            sum_hi += e2 + e3;
+            ea[j][2 * jj] = pack2(e0, e1);
+            ea[j][2 * jj + 1] = pack2(e2, e3);
+          }
+        tile_times(o, ea, st + kTileElems, ln);
+        if (t == tiles - 1) {
+          const float lo = quad_sum(sum_lo), hi = quad_sum(sum_hi);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            o[n][0] /= lo;
+            o[n][1] /= lo;
+            o[n][2] /= hi;
+            o[n][3] /= hi;
+          }
+          store_acc_rows(out + static_cast<size_t>(b) * seq * dim + h * head +
+                             (pass - 1) * kSlice,
+                         dim, row0, seq, o, 1.0f, lane);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for unit u + 2
+  }
+}
+
+cudaError_t run_bf16_long(const bf16* qkv, bf16* out, int batch, int seq,
+                          int heads, int slices, float scale,
+                          cudaStream_t stream) {
+  const size_t shared =
+      sizeof(bf16) * kTileElems * (2 * 3 + (slices == 1 ? 1 : 0));
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_mma_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(shared));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kLongTile - 1) / kLongTile, heads, batch);
+  attention_mma_long_kernel<<<grid, kWarps * 32, shared, stream>>>(
+      qkv, out, seq, heads, slices, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run_bf16(const bf16* qkv, bf16* out, int batch, int seq,
                      int heads, int slices, float scale, int sms,
                      cudaStream_t stream) {
+  if (long_sequence(seq))
+    return run_bf16_long(qkv, out, batch, seq, heads, slices, scale, stream);
   return with_key_tiles(seq, [&](auto tiles) {
     constexpr int kTiles = decltype(tiles)::value;
     const int slabs = padded(seq) / 16;
@@ -481,8 +630,103 @@ attention_fma_kernel(const float* __restrict__ qkv,  // [B, S, 3 * H * D]
   }
 }
 
+// f32, S > kMaxRowSeq: a thread per query row (kLongRowsF32 a block), the
+// keys kKeysF32 at a time. Pass 0 takes each row's max; pass 1 + o, for
+// each 64-wide output slice o, the f32 e, their sum and e . v of v's slice
+// o, divided at the end. Each (tile, slice) is staged synchronously: k's
+// slice of the tile, the block's q rows of the slice, and v's slice o of
+// the tile with a tile's last slice.
+constexpr int kKeysF32 = 32;
+
+__global__ void __launch_bounds__(kLongRowsF32)
+attention_fma_long_kernel(const float* __restrict__ qkv,  // [B, S, 3*H*D]
+                          float* __restrict__ out,        // [B, S, H * D]
+                          int seq, int heads, int slices, float scale) {
+  constexpr int kLd = kLdF32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);  // [kKeysF32][kLd]
+  float* v_s = k_s + kKeysF32 * kLd;            // [kKeysF32][kLd]
+  float* q_s = v_s + kKeysF32 * kLd;            // [kLongRowsF32][kLd]
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const float* image = qkv + static_cast<size_t>(b) * seq * stride + h * head;
+  const int q0 = blockIdx.x * kLongRowsF32, row = q0 + tid;
+  const int tiles = (seq + kKeysF32 - 1) / kKeysF32;
+  const float* q_row = q_s + tid * kLd;
+
+  float m = -INFINITY;
+  for (int pass = 0; pass <= slices; ++pass) {
+    float sum = 0.0f, o[kSlice];
+#pragma unroll
+    for (int c = 0; c < kSlice; ++c) o[c] = 0.0f;
+    for (int t = 0; t < tiles; ++t) {
+      const int key0 = t * kKeysF32;
+      float s[kKeysF32];
+#pragma unroll
+      for (int j = 0; j < kKeysF32; ++j) s[j] = 0.0f;
+      for (int sl = 0; sl < slices; ++sl) {
+        __syncthreads();  // every thread is done with the last slices
+        stage_rows(k_s, kLd, image + dim + sl * kSlice, stride, key0,
+                   kKeysF32, seq, tid, kLongRowsF32);
+        stage_rows(q_s, kLd, image + sl * kSlice, stride, q0, kLongRowsF32,
+                   seq, tid, kLongRowsF32);
+        if (pass > 0 && sl == slices - 1)
+          stage_rows(v_s, kLd, image + 2 * dim + (pass - 1) * kSlice, stride,
+                     key0, kKeysF32, seq, tid, kLongRowsF32);
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kKeysF32; ++j) {
+          float acc = s[j];
+          for (int d = 0; d < kSlice; ++d)
+            acc = fmaf(q_row[d], k_s[j * kLd + d], acc);
+          s[j] = acc;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kKeysF32; ++j) {
+        s[j] = key0 + j < seq ? s[j] * scale : -INFINITY;
+        if (pass == 0) m = fmaxf(m, s[j]);
+      }
+      if (pass == 0) continue;
+#pragma unroll
+      for (int j = 0; j < kKeysF32; ++j) {
+        const float e = expf(s[j] - m);
+        sum += e;
+#pragma unroll
+        for (int c = 0; c < kSlice; ++c)
+          o[c] = fmaf(e, v_s[j * kLd + c], o[c]);
+      }
+    }
+    if (pass > 0 && row < seq) {
+      float* dst = out + (static_cast<size_t>(b) * seq + row) * dim +
+                   h * head + (pass - 1) * kSlice;
+#pragma unroll
+      for (int c = 0; c < kSlice; ++c) dst[c] = o[c] / sum;
+    }
+  }
+}
+
+cudaError_t run_f32_long(const float* qkv, float* out, int batch, int seq,
+                         int heads, int slices, float scale,
+                         cudaStream_t stream) {
+  const size_t shared =
+      sizeof(float) * kLdF32 * (2 * kKeysF32 + kLongRowsF32);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_fma_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(shared));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kLongRowsF32 - 1) / kLongRowsF32, heads, batch);
+  attention_fma_long_kernel<<<grid, kLongRowsF32, shared, stream>>>(
+      qkv, out, seq, heads, slices, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run_f32(const float* qkv, float* out, int batch, int seq,
                     int heads, int slices, float scale, cudaStream_t stream) {
+  if (long_sequence(seq))
+    return run_f32_long(qkv, out, batch, seq, heads, slices, scale, stream);
   const int sp = padded(seq);
   const size_t shared =
       sizeof(float) * (2 * static_cast<size_t>(sp) * kLdF32 +

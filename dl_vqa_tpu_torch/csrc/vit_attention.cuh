@@ -174,9 +174,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 // The tiled kernels keep a whole score row in registers, so the number of
 // 16-key tiles is a compile-time constant: S is rounded up to one of these
 // (the keys beyond S are zero rows that get weight zero); 16 tiles hold
-// ops/vit_attention.py's MAX_SEQ = 256 tokens. Calls
+// kMaxRowSeq = 256 tokens. Calls
 // launch(std::integral_constant<int, kTiles>()) for the smallest that holds
-// seq.
+// seq; longer sequences take the key-tile kernels below.
+constexpr int kMaxRowSeq = 256;
+
 template <typename Launch>
 cudaError_t with_key_tiles(int seq, Launch&& launch) {
   const int tiles = padded(seq) / 16;
@@ -186,5 +188,106 @@ cudaError_t with_key_tiles(int seq, Launch&& launch) {
   if (tiles <= 16) return launch(std::integral_constant<int, 16>());
   return cudaErrorInvalidValue;
 }
+
+// A warp's [16][64] accumulator times `mul`, rounded, into rows row0 ..
+// row0 + 15 of `dst` (row stride `stride`; rows at or beyond S skipped), a
+// bf16 pair a store.
+__device__ __forceinline__ void store_acc_rows(bf16* dst, int stride,
+                                               int row0, int seq,
+                                               const float (&acc)[8][4],
+                                               float mul, int lane) {
+  const int gr = lane / 4, c2 = lane % 4 * 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + gr + 8 * half;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<unsigned*>(dst + static_cast<size_t>(row) * stride +
+                                   n * 8 + c2) =
+          pack2(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+  }
+}
+
+// ------------------------------------------ sequences over kMaxRowSeq tokens
+//
+// Past 16 key tiles no score row fits a warp's registers, and at S = 784 a
+// head's q, k and v slices (3 x 784 x 128 bytes) leave little of a block's
+// shared memory. The key-tile kernels (attention_*_long_kernel) walk the
+// keys (or, for dk and dv, the queries) a tile of kLongTile rows at a time,
+// each tile's 64-wide head slices staged through a two-stage cp.async ring
+// while the tile before it is computed. A row's statistics take passes of
+// their own over the tiles (first the max, then the sums at that max), so
+// every number is the plain version's at the same rounding points: no tile
+// width enters the arithmetic, only the order of the f32 sums differs.
+
+constexpr int kLongTile = 64;                    // rows of a staged tile
+constexpr int kTileElems = kLongTile * kSlice;   // elements of a bf16 slice
+
+__host__ __device__ inline bool long_sequence(int seq) {
+  return seq > kMaxRowSeq;
+}
+
+// Wait for every cp.async group but the newest (the ring's next stage).
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// acc[2 j .. 2 j + 1] += a . (the rows 16 j .. 16 j + 15 of tile)^T for the
+// four 16-row parts j of a staged [64][64] bf16 tile, whose rows are mma's
+// column-major B as they stand (q . k^T, g . v^T, k . q^T, v . g^T).
+__device__ __forceinline__ void tile_products(float (&acc)[8][4],
+                                              const unsigned (&a)[4][4],
+                                              const bf16* tile,
+                                              const Lanes& ln) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      unsigned b[4];
+      vqa::ldmatrix_x4(b, tile + swz(j * 16 + ln.bn_row, 2 * kk + ln.bn_chunk));
+      vqa::mma_bf16(acc[2 * j], a[kk], b[0], b[1]);
+      vqa::mma_bf16(acc[2 * j + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// out += (a [16][64 tile rows], four k16 A fragments) . tile, for a staged
+// [64][64] tile taken row-major with ldmatrix.trans (e . v, dz . k,
+// w^T . g, dz^T . q).
+__device__ __forceinline__ void tile_times(float (&out)[8][4],
+                                           const unsigned (&a)[4][4],
+                                           const bf16* tile,
+                                           const Lanes& ln) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      unsigned b[4];
+      vqa::ldmatrix_x4_trans(
+          b, tile + swz(j * 16 + ln.bk_row, 2 * n + ln.bk_chunk));
+      vqa::mma_bf16(out[2 * n], a[j], b[0], b[1]);
+      vqa::mma_bf16(out[2 * n + 1], a[j], b[2], b[3]);
+    }
+}
+
+// The four A fragments of a warp's 16 rows of a staged [rows][64] slice.
+__device__ __forceinline__ void load_rows(unsigned (&a)[4][4],
+                                          const bf16* rows, const Lanes& ln) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    vqa::ldmatrix_x4(a[kk], rows + swz(ln.a_row, 2 * kk + ln.a_chunk));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[j][i] = 0.0f;
+}
+
+// f32 key-tile kernels: a thread per query (or key) row, plain FMAs, every
+// staged slice [rows][kLdF32].
+constexpr int kLongRowsF32 = 64;  // rows (threads) of an f32 block
 
 }  // namespace vqa_vit

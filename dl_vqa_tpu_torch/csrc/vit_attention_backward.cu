@@ -17,6 +17,13 @@
 // 3.35 TB/s); the five products of the function are 50 GFLOP (0.051 ms at
 // the bf16 tensor-core peak). Nothing of size [S, S] reaches device memory.
 //
+// Past 256 tokens it is bound by its operations: 805 GFLOP against 1.44 GB
+// at B = 512, S = 784 (0.814 ms at the bf16 tensor-core peak). There the
+// two-grid path walks key (and query) tiles through a cp.async ring, with
+// a pass over the tiles for each row statistic (attention_bwd_*_long_kernel,
+// vit_attention.cuh): eleven products' worth of tensor-core work for the
+// function's five, the plain version's casts of w and dz kept.
+//
 // Design, bf16 (ldmatrix + mma.sync m16n8k16, f32 accumulate): one grid, a
 // block per (image, head), no atomics, the same digits on every run. dq sums
 // over keys and dk, dv over queries, so one tiling cannot keep both sums
@@ -312,26 +319,6 @@ attention_bwd_mma_kernel(const bf16* __restrict__ qkv,  // [B, S, 3*H*64]
     }
     store_rows(d_image + dim, key0, dk, kScale);
     store_rows(d_image + 2 * dim, key0, dv, 1.0f);
-  }
-}
-
-// A warp's [16][64] accumulator times `mul`, rounded, into rows row0 ..
-// row0 + 15 of `dst` (row stride `stride`; rows at or beyond S skipped), a
-// bf16 pair a store.
-__device__ __forceinline__ void store_acc_rows(bf16* dst, int stride,
-                                               int row0, int seq,
-                                               const float (&acc)[8][4],
-                                               float mul, int lane) {
-  const int gr = lane / 4, c2 = lane % 4 * 2;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + gr + 8 * half;
-    if (row >= seq) continue;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<unsigned*>(dst + static_cast<size_t>(row) * stride +
-                                   n * 8 + c2) =
-          pack2(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
   }
 }
 
@@ -697,9 +684,375 @@ attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ qkv,   // [B, S, 3*H*D]
   }
 }
 
+// bf16, S > kMaxRowSeq, heads of 64 n: the two grids of the wider heads,
+// each walking the other side's rows a 64-row tile at a time (see
+// vit_attention.cuh), with a pass of its own for each row statistic.
+//
+// Grid 1 (dq and the statistics): a block of four 16-row query slabs, a
+// warp each, over the key tiles. Pass 0 takes m; pass 1 denom, the f32 sum
+// of e = exp(s - m); pass 2 delta = rowsum(dw * w) with w = cast(e /
+// denom) and dw = f32(g . v^T), and writes m, denom and delta of each row
+// to `stats`; pass 3 + o, for each 64-wide slice o, dz = cast(w (dw -
+// delta)) and dq's slice o = f32(dz . k) * scale. A ring unit is one
+// (tile, slice) of a pass: k's slice, v's with passes 2 on, and for heads
+// of more than one slice the block's q and g rows of that slice and, with
+// a tile's last slice of a dq pass, k's slice o. A head of one slice keeps
+// its q and g rows staged from the start.
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_dq_long_kernel(const bf16* __restrict__ qkv,  // [B, S, 3*H*D]
+                             const bf16* __restrict__ g,    // [B, S, H * D]
+                             bf16* __restrict__ dqkv,       // [B, S, 3*H*D]
+                             float* __restrict__ stats,     // [B, H, 3, S]
+                             int seq, int heads, int slices, float scale) {
+  enum { kK, kV, kQ, kG, kKd };
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int slots = slices == 1 ? 2 : 5;
+  bf16* stages = reinterpret_cast<bf16*>(smem);  // [2][slots][64][64]
+  bf16* fixed = stages + 2 * slots * kTileElems;  // q, g rows (one slice)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const size_t image_row0 = static_cast<size_t>(b) * seq;
+  const bf16* image = qkv + image_row0 * stride + h * head;
+  const bf16* g_image = g + image_row0 * dim + h * head;
+  bf16* d_image = dqkv + image_row0 * stride + h * head;
+  float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  const int q0 = blockIdx.x * kLongTile, row0 = q0 + warp * 16;
+  const int tiles = (seq + kLongTile - 1) / kLongTile;
+  const int per_pass = tiles * slices, units = (3 + slices) * per_pass;
+
+  auto slot = [&](int u, int which) -> bf16* {
+    if (slices == 1) {
+      if (which == kQ || which == kG) return fixed + (which - kQ) * kTileElems;
+      if (which == kKd) which = kK;
+    }
+    return stages + ((u & 1) * slots + which) * kTileElems;
+  };
+  auto issue = [&](int u) {
+    const int pass = u / per_pass, t = u % per_pass / slices,
+              sl = u % slices, key0 = t * kLongTile;
+    auto tile = [&](int which, const bf16* src) {
+      stage_async(slot(u, which), src, stride, key0, key0 + kLongTile, seq,
+                  tid, kWarps * 32);
+    };
+    tile(kK, image + dim + sl * kSlice);
+    if (pass >= 2) tile(kV, image + 2 * dim + sl * kSlice);
+    if (slices > 1) {
+      stage_async(slot(u, kQ), image + sl * kSlice, stride, q0,
+                  q0 + kLongTile, seq, tid, kWarps * 32);
+      if (pass >= 2)
+        stage_async(slot(u, kG), g_image + sl * kSlice, dim, q0,
+                    q0 + kLongTile, seq, tid, kWarps * 32);
+      if (pass >= 3 && sl == slices - 1)
+        tile(kKd, image + dim + (pass - 3) * kSlice);
+    }
+  };
+
+  const Lanes ln(lane);
+  const int gr = lane / 4, c2 = lane % 4 * 2;
+  if (slices == 1) {
+    stage_async(slot(0, kQ), image, stride, q0, q0 + kLongTile, seq, tid,
+                kWarps * 32);
+    stage_async(slot(0, kG), g_image, dim, q0, q0 + kLongTile, seq, tid,
+                kWarps * 32);
+  }
+  issue(0);
+  cp_async_commit();
+
+  float s[8][4], dw[8][4], dq[8][4];
+  float m_lo = -INFINITY, m_hi = -INFINITY, den_lo = 0.0f, den_hi = 0.0f;
+  float del_lo = 0.0f, del_hi = 0.0f;
+  for (int u = 0; u < units; ++u) {
+    if (u + 1 < units) issue(u + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int pass = u / per_pass, t = u % per_pass / slices,
+              sl = u % slices;
+    if (sl == 0) {
+      zero(s);
+      zero(dw);
+    }
+    {
+      unsigned a[4][4];
+      load_rows(a, slot(u, kQ) + warp * 16 * kSlice, ln);
+      tile_products(s, a, slot(u, kK), ln);
+      if (pass >= 2) {
+        load_rows(a, slot(u, kG) + warp * 16 * kSlice, ln);
+        tile_products(dw, a, slot(u, kV), ln);
+      }
+    }
+    if (sl == slices - 1) {
+      const int key0 = t * kLongTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          s[j][x] *= scale;
+          if (key0 + j * 8 + c2 + (x & 1) >= seq) s[j][x] = -INFINITY;
+        }
+      const bool last = t == tiles - 1;
+      if (pass == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
+          m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
+        }
+        if (last) {
+          m_lo = quad_max(m_lo);
+          m_hi = quad_max(m_hi);
+        }
+      } else if (pass == 1) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          den_lo += expf(s[j][0] - m_lo) + expf(s[j][1] - m_lo);
+          den_hi += expf(s[j][2] - m_hi) + expf(s[j][3] - m_hi);
+        }
+        if (last) {
+          den_lo = quad_sum(den_lo);
+          den_hi = quad_sum(den_hi);
+        }
+      } else {
+        // w: the normalised weight, rounded; w[j][0] row gr, w[j][1] gr + 8.
+        unsigned w[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          w[j][0] = pack2(expf(s[j][0] - m_lo) / den_lo,
+                          expf(s[j][1] - m_lo) / den_lo);
+          w[j][1] = pack2(expf(s[j][2] - m_hi) / den_hi,
+                          expf(s[j][3] - m_hi) / den_hi);
+        }
+        if (pass == 2) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 lo = unpack2(w[j][0]), hi = unpack2(w[j][1]);
+            del_lo += dw[j][0] * lo.x + dw[j][1] * lo.y;
+            del_hi += dw[j][2] * hi.x + dw[j][3] * hi.y;
+          }
+          if (last) {
+            del_lo = quad_sum(del_lo);
+            del_hi = quad_sum(del_hi);
+            if (lane % 4 == 0) {
+              const float row_stats[2][3] = {{m_lo, den_lo, del_lo},
+                                             {m_hi, den_hi, del_hi}};
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int row = row0 + gr + 8 * half;
+                if (row < seq)
+#pragma unroll
+                  for (int p = 0; p < 3; ++p)
+                    stat[p * seq + row] = row_stats[half][p];
+              }
+            }
+          }
+        } else {
+          if (t == 0) zero(dq);
+          // dz = cast(w (dw - delta)) of the tile's four 16-key parts, each
+          // the A fragment of dq += dz . k.
+          unsigned za[4][4];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 lo = unpack2(w[j][0]), hi = unpack2(w[j][1]);
+            za[j / 2][2 * (j % 2)] =
+                pack2(lo.x * (dw[j][0] - del_lo), lo.y * (dw[j][1] - del_lo));
+            za[j / 2][2 * (j % 2) + 1] =
+                pack2(hi.x * (dw[j][2] - del_hi), hi.y * (dw[j][3] - del_hi));
+          }
+          tile_times(dq, za, slot(u, kKd), ln);
+          if (last)
+            store_acc_rows(d_image + (pass - 3) * kSlice, stride, row0, seq,
+                           dq, scale, lane);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for unit u + 2
+  }
+}
+
+// Grid 2 (dk and dv): a block of four 16-key slabs, a warp each, over the
+// query tiles; pass o for each 64-wide slice o. The transposed scores s^T
+// of the warp's keys against the tile's queries and dw^T = f32(v . g^T),
+// summed over the head's slices; w and dz from the row statistics of
+// `stats` (the same arithmetic on the same products as grid 1; a padded
+// query has m = 0, denom = 1, delta = 0, so its dz is 0 and, g being 0
+// there, it adds nothing); dv's slice o += w^T . g and dk's += dz^T . q of
+// the tile's slice o. A ring unit is one (tile, slice): q's and g's slices
+// of the query tile, and for heads of more than one slice the block's k and
+// v rows of that slice and, with a tile's last slice, q's and g's slice o.
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_dkdv_long_kernel(const bf16* __restrict__ qkv,   // [B,S,3HD]
+                               const bf16* __restrict__ g,     // [B,S,HD]
+                               bf16* __restrict__ dqkv,        // [B,S,3HD]
+                               const float* __restrict__ stats,  // [B,H,3,S]
+                               int seq, int heads, int slices, float scale) {
+  enum { kQ, kG, kKs, kVs, kQd, kGd };
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int slots = slices == 1 ? 2 : 6;
+  bf16* stages = reinterpret_cast<bf16*>(smem);  // [2][slots][64][64]
+  bf16* fixed = stages + 2 * slots * kTileElems;  // k, v rows (one slice)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const size_t image_row0 = static_cast<size_t>(b) * seq;
+  const bf16* image = qkv + image_row0 * stride + h * head;
+  const bf16* g_image = g + image_row0 * dim + h * head;
+  bf16* d_image = dqkv + image_row0 * stride + h * head;
+  const float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  const int k0 = blockIdx.x * kLongTile, key0 = k0 + warp * 16;
+  const int tiles = (seq + kLongTile - 1) / kLongTile;
+  const int per_pass = tiles * slices, units = slices * per_pass;
+
+  auto slot = [&](int u, int which) -> bf16* {
+    if (slices == 1) {
+      if (which == kKs || which == kVs)
+        return fixed + (which - kKs) * kTileElems;
+      if (which == kQd) which = kQ;
+      if (which == kGd) which = kG;
+    }
+    return stages + ((u & 1) * slots + which) * kTileElems;
+  };
+  auto issue = [&](int u) {
+    const int pass = u / per_pass, t = u % per_pass / slices,
+              sl = u % slices, row0 = t * kLongTile;
+    stage_async(slot(u, kQ), image + sl * kSlice, stride, row0,
+                row0 + kLongTile, seq, tid, kWarps * 32);
+    stage_async(slot(u, kG), g_image + sl * kSlice, dim, row0,
+                row0 + kLongTile, seq, tid, kWarps * 32);
+    if (slices > 1) {
+      stage_async(slot(u, kKs), image + dim + sl * kSlice, stride, k0,
+                  k0 + kLongTile, seq, tid, kWarps * 32);
+      stage_async(slot(u, kVs), image + 2 * dim + sl * kSlice, stride, k0,
+                  k0 + kLongTile, seq, tid, kWarps * 32);
+      if (sl == slices - 1) {
+        stage_async(slot(u, kQd), image + pass * kSlice, stride, row0,
+                    row0 + kLongTile, seq, tid, kWarps * 32);
+        stage_async(slot(u, kGd), g_image + pass * kSlice, dim, row0,
+                    row0 + kLongTile, seq, tid, kWarps * 32);
+      }
+    }
+  };
+
+  const Lanes ln(lane);
+  const int c2 = lane % 4 * 2;
+  if (slices == 1) {
+    stage_async(slot(0, kKs), image + dim, stride, k0, k0 + kLongTile, seq,
+                tid, kWarps * 32);
+    stage_async(slot(0, kVs), image + 2 * dim, stride, k0, k0 + kLongTile,
+                seq, tid, kWarps * 32);
+  }
+  issue(0);
+  cp_async_commit();
+
+  float st[8][4], dwt[8][4], dk[8][4], dv[8][4];
+  for (int u = 0; u < units; ++u) {
+    if (u + 1 < units) issue(u + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int pass = u / per_pass, t = u % per_pass / slices,
+              sl = u % slices;
+    if (sl == 0) {
+      zero(st);
+      zero(dwt);
+    }
+    {
+      unsigned a[4][4];
+      load_rows(a, slot(u, kKs) + warp * 16 * kSlice, ln);
+      tile_products(st, a, slot(u, kQ), ln);
+      load_rows(a, slot(u, kVs) + warp * 16 * kSlice, ln);
+      tile_products(dwt, a, slot(u, kG), ln);
+    }
+    if (sl == slices - 1) {
+      if (t == 0) {
+        zero(dk);
+        zero(dv);
+      }
+      const bf16* q_d = slot(u, kQd);
+      const bf16* g_d = slot(u, kGd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // w and dz of queries 64 t + 16 j .. + 15 as A fragments of
+        // [key][query]: (key gr, queries 8 jj + c2 ..) in register 2 jj,
+        // key gr + 8 in 2 jj + 1.
+        unsigned wa[4], za[4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          float wv[4], zv[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int q = t * kLongTile + j * 16 + jj * 8 + c2 + (x & 1);
+            float m = 0.0f, den = 1.0f, del = 0.0f;
+            if (q < seq) {
+              m = stat[q];
+              den = stat[seq + q];
+              del = stat[2 * seq + q];
+            }
+            const float e = expf(st[2 * j + jj][x] * scale - m);
+            wv[x] = __bfloat162float(__float2bfloat16(e / den));
+            zv[x] = wv[x] * (dwt[2 * j + jj][x] - del);
+          }
+          wa[2 * jj] = pack2(wv[0], wv[1]);
+          wa[2 * jj + 1] = pack2(wv[2], wv[3]);
+          za[2 * jj] = pack2(zv[0], zv[1]);
+          za[2 * jj + 1] = pack2(zv[2], zv[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          unsigned gb[4], qb[4];
+          vqa::ldmatrix_x4_trans(
+              gb, g_d + swz(j * 16 + ln.bk_row, 2 * n + ln.bk_chunk));
+          vqa::ldmatrix_x4_trans(
+              qb, q_d + swz(j * 16 + ln.bk_row, 2 * n + ln.bk_chunk));
+          vqa::mma_bf16(dv[2 * n], wa, gb[0], gb[1]);
+          vqa::mma_bf16(dv[2 * n + 1], wa, gb[2], gb[3]);
+          vqa::mma_bf16(dk[2 * n], za, qb[0], qb[1]);
+          vqa::mma_bf16(dk[2 * n + 1], za, qb[2], qb[3]);
+        }
+      }
+      if (t == tiles - 1) {
+        store_acc_rows(d_image + dim + pass * kSlice, stride, key0, seq, dk,
+                       scale, lane);
+        store_acc_rows(d_image + 2 * dim + pass * kSlice, stride, key0, seq,
+                       dv, 1.0f, lane);
+      }
+    }
+    __syncthreads();  // the stage is free for unit u + 2
+  }
+}
+
+cudaError_t run_bf16_long(const bf16* qkv, const bf16* g, bf16* dqkv,
+                          float* stats, int batch, int seq, int heads,
+                          int slices, float scale, cudaStream_t stream) {
+  if (stats == nullptr) return cudaErrorInvalidValue;
+  const size_t tile = sizeof(bf16) * kTileElems;
+  const size_t shared_q = tile * (slices == 1 ? 2 * 2 + 2 : 2 * 5);
+  const size_t shared_k = tile * (slices == 1 ? 2 * 2 + 2 : 2 * 6);
+  const dim3 grid((seq + kLongTile - 1) / kLongTile, heads, batch);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_dq_long_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared_q));
+  if (err != cudaSuccess) return err;
+  attention_bwd_dq_long_kernel<<<grid, kWarps * 32, shared_q, stream>>>(
+      qkv, g, dqkv, stats, seq, heads, slices, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_dkdv_long_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(shared_k));
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_long_kernel<<<grid, kWarps * 32, shared_k, stream>>>(
+      qkv, g, dqkv, stats, seq, heads, slices, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run_bf16(const bf16* qkv, const bf16* g, bf16* dqkv,
                      float* stats, int batch, int seq, int heads, int slices,
                      float scale, cudaStream_t stream) {
+  if (long_sequence(seq))
+    return run_bf16_long(qkv, g, dqkv, stats, batch, seq, heads, slices,
+                         scale, stream);
   return with_key_tiles(seq, [&](auto tiles) {
     constexpr int kTiles = decltype(tiles)::value;
     if (slices > 1) {
@@ -1016,10 +1369,239 @@ attention_bwd_dkdv_kernel(const float* __restrict__ qkv,    // [B, S, 3*H*D]
   }
 }
 
+// f32, S > kMaxRowSeq: the two grids with a thread per row (kLongRowsF32 a
+// block) and plain FMAs, the passes of the bf16 key-tile grids. Grid 1 (a
+// thread per query row, the keys kKeysF32 at a time): m, denom, then delta
+// (and the statistics to `stats`), then dq a 64-wide slice at a time. Grid
+// 2 (a thread per key row, the queries kQueriesF32 at a time): dk and dv a
+// slice at a time from the statistics. Each (tile, slice) is staged
+// synchronously.
+constexpr int kKeysF32 = 16, kQueriesF32 = 16;
+
+__global__ void __launch_bounds__(kLongRowsF32)
+attention_bwd_dq_fma_long_kernel(const float* __restrict__ qkv,  // [B,S,3HD]
+                             const float* __restrict__ g,    // [B,S,HD]
+                             float* __restrict__ dqkv,       // [B,S,3HD]
+                             float* __restrict__ stats,      // [B,H,3,S]
+                             int seq, int heads, int slices, float scale) {
+  constexpr int kLd = kLdF32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);  // [kKeysF32][kLd] each
+  float* v_s = k_s + kKeysF32 * kLd;
+  float* kd_s = v_s + kKeysF32 * kLd;           // k's slice o (wide heads)
+  float* q_s = kd_s + kKeysF32 * kLd;           // [kLongRowsF32][kLd] each
+  float* g_s = q_s + kLongRowsF32 * kLd;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const size_t image_row0 = static_cast<size_t>(b) * seq;
+  const float* image = qkv + image_row0 * stride + h * head;
+  const float* g_image = g + image_row0 * dim + h * head;
+  float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  const int q0 = blockIdx.x * kLongRowsF32, row = q0 + tid;
+  const int tiles = (seq + kKeysF32 - 1) / kKeysF32;
+  const float* q_row = q_s + tid * kLd;
+  const float* g_row = g_s + tid * kLd;
+
+  float m = -INFINITY, den = 0.0f, del = 0.0f;
+  for (int pass = 0; pass < 3 + slices; ++pass) {
+    float dq[kSlice];
+#pragma unroll
+    for (int c = 0; c < kSlice; ++c) dq[c] = 0.0f;
+    const float* kd = slices == 1 ? k_s : kd_s;
+    for (int t = 0; t < tiles; ++t) {
+      const int key0 = t * kKeysF32;
+      float s[kKeysF32], dw[kKeysF32];
+#pragma unroll
+      for (int j = 0; j < kKeysF32; ++j) s[j] = dw[j] = 0.0f;
+      for (int sl = 0; sl < slices; ++sl) {
+        __syncthreads();  // every thread is done with the last slices
+        stage_rows(k_s, kLd, image + dim + sl * kSlice, stride, key0,
+                   kKeysF32, seq, tid, kLongRowsF32);
+        stage_rows(q_s, kLd, image + sl * kSlice, stride, q0, kLongRowsF32,
+                   seq, tid, kLongRowsF32);
+        if (pass >= 2) {
+          stage_rows(v_s, kLd, image + 2 * dim + sl * kSlice, stride, key0,
+                     kKeysF32, seq, tid, kLongRowsF32);
+          stage_rows(g_s, kLd, g_image + sl * kSlice, dim, q0, kLongRowsF32,
+                     seq, tid, kLongRowsF32);
+        }
+        if (pass >= 3 && slices > 1 && sl == slices - 1)
+          stage_rows(kd_s, kLd, image + dim + (pass - 3) * kSlice, stride,
+                     key0, kKeysF32, seq, tid, kLongRowsF32);
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kKeysF32; ++j) {
+          float acc = s[j];
+          for (int d = 0; d < kSlice; ++d)
+            acc = fmaf(q_row[d], k_s[j * kLd + d], acc);
+          s[j] = acc;
+          if (pass >= 2) {
+            float acc2 = dw[j];
+            for (int d = 0; d < kSlice; ++d)
+              acc2 = fmaf(g_row[d], v_s[j * kLd + d], acc2);
+            dw[j] = acc2;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kKeysF32; ++j) {
+        s[j] = key0 + j < seq ? s[j] * scale : -INFINITY;
+        if (pass == 0) {
+          m = fmaxf(m, s[j]);
+        } else if (pass == 1) {
+          den += expf(s[j] - m);
+        } else {
+          const float w = expf(s[j] - m) / den;
+          if (pass == 2) {
+            del += dw[j] * w;
+          } else {
+            const float dz = w * (dw[j] - del);
+#pragma unroll
+            for (int c = 0; c < kSlice; ++c)
+              dq[c] = fmaf(dz, kd[j * kLd + c], dq[c]);
+          }
+        }
+      }
+    }
+    if (row >= seq) continue;
+    if (pass == 2) {
+      stat[row] = m;
+      stat[seq + row] = den;
+      stat[2 * seq + row] = del;
+    } else if (pass >= 3) {
+      float* dst = dqkv + (image_row0 + row) * stride + h * head +
+                   (pass - 3) * kSlice;
+#pragma unroll
+      for (int c = 0; c < kSlice; ++c) dst[c] = dq[c] * scale;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kLongRowsF32)
+attention_bwd_dkdv_fma_long_kernel(const float* __restrict__ qkv,  // [B,S,3HD]
+                               const float* __restrict__ g,    // [B,S,HD]
+                               float* __restrict__ dqkv,       // [B,S,3HD]
+                               const float* __restrict__ stats,  // [B,H,3,S]
+                               int seq, int heads, int slices, float scale) {
+  constexpr int kLd = kLdF32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [kQueriesF32][kLd] each
+  float* g_s = q_s + kQueriesF32 * kLd;
+  float* qd_s = g_s + kQueriesF32 * kLd;        // q's, g's slice o (wide
+  float* gd_s = qd_s + kQueriesF32 * kLd;       // heads)
+  float* k_s = gd_s + kQueriesF32 * kLd;        // [kLongRowsF32][kLd] each
+  float* v_s = k_s + kLongRowsF32 * kLd;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int head = slices * kSlice, dim = heads * head, stride = 3 * dim;
+  const size_t image_row0 = static_cast<size_t>(b) * seq;
+  const float* image = qkv + image_row0 * stride + h * head;
+  const float* g_image = g + image_row0 * dim + h * head;
+  const float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * seq;
+  const int k0 = blockIdx.x * kLongRowsF32, key = k0 + tid;
+  const int tiles = (seq + kQueriesF32 - 1) / kQueriesF32;
+  const float* k_row = k_s + tid * kLd;
+  const float* v_row = v_s + tid * kLd;
+
+  for (int pass = 0; pass < slices; ++pass) {
+    float dk[kSlice], dv[kSlice];
+#pragma unroll
+    for (int c = 0; c < kSlice; ++c) dk[c] = dv[c] = 0.0f;
+    const float* qd = slices == 1 ? q_s : qd_s;
+    const float* gd = slices == 1 ? g_s : gd_s;
+    for (int t = 0; t < tiles; ++t) {
+      const int row0 = t * kQueriesF32;
+      float st[kQueriesF32], dwt[kQueriesF32];
+#pragma unroll
+      for (int j = 0; j < kQueriesF32; ++j) st[j] = dwt[j] = 0.0f;
+      for (int sl = 0; sl < slices; ++sl) {
+        __syncthreads();  // every thread is done with the last slices
+        stage_rows(q_s, kLd, image + sl * kSlice, stride, row0, kQueriesF32,
+                   seq, tid, kLongRowsF32);
+        stage_rows(g_s, kLd, g_image + sl * kSlice, dim, row0, kQueriesF32,
+                   seq, tid, kLongRowsF32);
+        stage_rows(k_s, kLd, image + dim + sl * kSlice, stride, k0,
+                   kLongRowsF32, seq, tid, kLongRowsF32);
+        stage_rows(v_s, kLd, image + 2 * dim + sl * kSlice, stride, k0,
+                   kLongRowsF32, seq, tid, kLongRowsF32);
+        if (slices > 1 && sl == slices - 1) {
+          stage_rows(qd_s, kLd, image + pass * kSlice, stride, row0,
+                     kQueriesF32, seq, tid, kLongRowsF32);
+          stage_rows(gd_s, kLd, g_image + pass * kSlice, dim, row0,
+                     kQueriesF32, seq, tid, kLongRowsF32);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kQueriesF32; ++j) {
+          float acc = st[j], acc2 = dwt[j];
+          for (int d = 0; d < kSlice; ++d) {
+            acc = fmaf(q_s[j * kLd + d], k_row[d], acc);
+            acc2 = fmaf(g_s[j * kLd + d], v_row[d], acc2);
+          }
+          st[j] = acc;
+          dwt[j] = acc2;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kQueriesF32; ++j) {
+        const int q = row0 + j;
+        if (q >= seq) continue;  // a padded query adds nothing
+        const float w = expf(st[j] * scale - stat[q]) / stat[seq + q];
+        const float dz = w * (dwt[j] - stat[2 * seq + q]);
+#pragma unroll
+        for (int c = 0; c < kSlice; ++c) {
+          dv[c] = fmaf(w, gd[j * kLd + c], dv[c]);
+          dk[c] = fmaf(dz, qd[j * kLd + c], dk[c]);
+        }
+      }
+    }
+    if (key < seq) {
+      float* dst = dqkv + (image_row0 + key) * stride + h * head +
+                   pass * kSlice;
+#pragma unroll
+      for (int c = 0; c < kSlice; ++c) {
+        dst[dim + c] = dk[c] * scale;
+        dst[2 * dim + c] = dv[c];
+      }
+    }
+  }
+}
+
+cudaError_t run_f32_long(const float* qkv, const float* g, float* dqkv,
+                         float* stats, int batch, int seq, int heads,
+                         int slices, float scale, cudaStream_t stream) {
+  const size_t shared_q =
+      sizeof(float) * kLdF32 * (3 * kKeysF32 + 2 * kLongRowsF32);
+  const size_t shared_k =
+      sizeof(float) * kLdF32 * (4 * kQueriesF32 + 2 * kLongRowsF32);
+  const dim3 grid((seq + kLongRowsF32 - 1) / kLongRowsF32, heads, batch);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_dq_fma_long_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared_q));
+  if (err != cudaSuccess) return err;
+  attention_bwd_dq_fma_long_kernel<<<grid, kLongRowsF32, shared_q, stream>>>(
+      qkv, g, dqkv, stats, seq, heads, slices, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_dkdv_fma_long_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(shared_k));
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkdv_fma_long_kernel<<<grid, kLongRowsF32, shared_k, stream>>>(
+      qkv, g, dqkv, stats, seq, heads, slices, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run_f32(const float* qkv, const float* g, float* dqkv,
                     float* stats, int batch, int seq, int heads, int slices,
                     float scale, cudaStream_t stream) {
   if (stats == nullptr) return cudaErrorInvalidValue;
+  if (long_sequence(seq))
+    return run_f32_long(qkv, g, dqkv, stats, batch, seq, heads, slices,
+                        scale, stream);
   const int sp = padded(seq);
   const int slabs = sp / 16;
   const size_t lds = static_cast<size_t>(score_ld(sp));

@@ -32,7 +32,8 @@ one-process score; the coordinator builds a missing vocab, store or
 dataset while the others wait, and only it writes the log. The mesh is
 ``main``'s: with ``tpu.mesh.model`` or ``tpu.mesh.expert`` above 1 the
 loaded model is cut into each rank's shards
-(:func:`dl_vqa_tpu_torch.parallel.tensor.shard_model`).
+(:func:`dl_vqa_tpu_torch.parallel.tensor.shard_model`), and with
+``tpu.mesh.seq`` above 1 its ViT splits the tokens over the 'seq' ranks.
 """
 
 from __future__ import annotations

@@ -45,15 +45,23 @@ them (:mod:`dl_vqa_tpu_torch.parallel.tensor`):
     torchrun --nproc-per-node=4 -m dl_vqa_tpu_torch.main config_vit_moe \
         tpu.mesh.expert=2 tpu.mesh.model=2
 
+``tpu.mesh.seq=S`` splits a ViT's patch tokens over S ranks, attention
+riding a ring over them (sequence parallelism,
+:mod:`dl_vqa_tpu_torch.parallel.sequence`):
+
+    torchrun --nproc-per-node=2 -m dl_vqa_tpu_torch.main config_vit \
+        train.image_size=448 tpu.mesh.seq=2
+
 Two ranks on one card need gloo (NCCL refuses two ranks on one device).
 
 Settings the port does not have yet raise at once, naming their ROADMAP
-item: ``tpu.checkpoint_backend=orbax``, the mesh axes ``stage`` and
-``seq`` above 1, ``tpu.pipeline_microbatches`` and, with
-``tpu.mesh.model`` above 1, the quantized image modes (and ``fused_ops``
-on the ViT, in the steps). ``tpu.use_pallas``
-and ``tpu.prng_impl`` choose between JAX implementations and mean nothing
-here. ``train.image.store_dtype=f8e4m3``
+item: ``tpu.checkpoint_backend=orbax``, the mesh axis ``stage`` above 1,
+``tpu.pipeline_microbatches``, with ``tpu.mesh.model`` above 1 the
+quantized image modes (and ``fused_ops`` on the ViT, in the steps), and
+with ``tpu.mesh.seq`` above 1 a ViT-MoE and the quantized image modes; a
+CNN with ``tpu.mesh.seq`` above 1 raises the JAX model's error.
+``tpu.use_pallas`` and ``tpu.prng_impl`` choose between JAX
+implementations and mean nothing here. ``train.image.store_dtype=f8e4m3``
 trains through the f8 store's straight-through backward; ``int8`` serves
 only, and the model refuses it in training as the JAX model does.
 """
@@ -67,6 +75,7 @@ from typing import Optional
 
 import torch
 
+from dl_vqa_tpu_torch.parallel.sequence import check_sequence_parallel
 from dl_vqa_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device, split_device_arg)
 
@@ -84,8 +93,11 @@ def check_supported(cfg: dict) -> None:
                        f"{tpu['checkpoint_backend']!r} (npz only: the Orbax "
                        "backend is left behind, ROADMAP queue 1)")
     mesh = tpu["mesh"]
-    axes = [f"tpu.mesh.{axis}={mesh[axis]}" for axis in ("stage", "seq")
-            if mesh[axis] > 1]
+    image = cfg["train"]["image"]
+    check_sequence_parallel(mesh["seq"], image.get("encoder", "cnn"),
+                            image.get("moe_experts", 0),
+                            image.get("store_dtype", "compute"))
+    axes = [f"tpu.mesh.stage={mesh['stage']}"] if mesh["stage"] > 1 else []
     if tpu["pipeline_microbatches"] != 0:
         axes.append(f"tpu.pipeline_microbatches="
                     f"{tpu['pipeline_microbatches']}")
@@ -94,10 +106,10 @@ def check_supported(cfg: dict) -> None:
         axes.append(f"train.image.store_dtype={store} with "
                     f"tpu.mesh.model={mesh['model']}")
     if axes:
-        missing.append(", ".join(axes) + " (the 'data', 'expert' and "
-                       "'model' axes only: sequence and pipeline "
-                       "parallelism, and the quantized image modes under "
-                       "tensor parallelism, are ROADMAP queue 1, item 9)")
+        missing.append(", ".join(axes) + " (the 'data', 'seq', 'expert' "
+                       "and 'model' axes only: pipeline parallelism, and "
+                       "the quantized image modes under tensor "
+                       "parallelism, are ROADMAP queue 1, item 9)")
     if tpu["zero_stage"] not in (0, 1, 3):
         raise SystemExit(
             f"tpu.zero_stage must be 0 (off), 1 (shard Adam moments over "
@@ -258,7 +270,10 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
 
     batch_size = cfg["train"]["batch_size"]
     # Each process feeds its rows of every global batch.
-    proc_slice = multihost.process_batch_slice(mesh, batch_size)
+    accum_steps = cfg["tpu"]["grad_accum_steps"]
+    proc_slice = multihost.process_batch_slice(mesh, batch_size, accum_steps)
+    # The eval step takes whole batches: one contiguous block a process.
+    val_slice = multihost.process_batch_slice(mesh, batch_size)
     if online_images:
         from dl_vqa_tpu_torch.data.online import (
             OnlineBatcher, loader_from_config)
@@ -274,7 +289,7 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
         val_batcher = OnlineBatcher(
             val_dataset, batch_size,
             loader_from_config(cfg, profile, "val_paths", device,
-                               logger.write), process_slice=proc_slice)
+                               logger.write), process_slice=val_slice)
     else:
         tables = plan_image_tables(
             cfg, {"train": train_dataset, "val": val_dataset}, device,
@@ -285,7 +300,7 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
                                 process_slice=proc_slice)
         val_batcher = Batcher(val_dataset, batch_size,
                               load_images=tables["val"] is None,
-                              process_slice=proc_slice)
+                              process_slice=val_slice)
 
     metrics = train(
         model_cfg, model, train_batcher, val_batcher,
@@ -293,7 +308,7 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
         opt_restore_path=opt_restore_path, compute_dtype=compute_dtype,
         seed=seed, prefetch_depth=cfg["tpu"]["prefetch_depth"],
         profile_dir=cfg["tpu"]["profile_dir"], remat=cfg["tpu"]["remat"],
-        accum_steps=cfg["tpu"]["grad_accum_steps"],
+        accum_steps=accum_steps,
         train_image_table=tables["train"], eval_image_table=tables["val"],
         checkpoint_every_steps=cfg["tpu"]["checkpoint_every_steps"],
         debug_nans=cfg["tpu"]["debug_nans"], mesh=mesh,

@@ -19,11 +19,16 @@ class BatchRows(NamedTuple):
     ``generator`` and keeps these rows. A rank of a data-parallel step
     thus drops what one process dropping the whole batch drops, as the JAX
     step's masks do not depend on how its batch is sharded; the cost is
-    the whole batch's random bytes drawn on every rank."""
+    the whole batch's random bytes drawn on every rank. ``tokens`` (a
+    'seq' rank's ViT blocks): ``x``'s dim 1 holds tokens ``[token_start,
+    token_start + tokens of x)`` of a sequence ``tokens`` long, and the
+    mask is drawn for the whole sequence too."""
 
     generator: torch.Generator
     total: int
     start: int
+    tokens: int = 0
+    token_start: int = 0
 
 
 def normalize_images(images: torch.Tensor, dtype: torch.dtype
@@ -60,10 +65,14 @@ def dropout(x: torch.Tensor, rate: float,
         return torch.zeros_like(x)
     shape = x.shape if cols is None else x.shape[:-1] + (width,)
     if isinstance(generator, BatchRows):
+        if generator.tokens:
+            shape = shape[:1] + (generator.tokens,) + shape[2:]
         bits = torch.randint(0, 256, (generator.total,) + shape[1:],
                              dtype=torch.uint8, generator=generator.generator,
                              device=x.device)
         bits = bits.narrow(0, generator.start, x.shape[0])
+        if generator.tokens:
+            bits = bits.narrow(1, generator.token_start, x.shape[1])
     else:
         bits = torch.randint(0, 256, shape, dtype=torch.uint8,
                              generator=generator, device=x.device)

@@ -57,8 +57,17 @@ and their hidden width over 'model' (:mod:`dl_vqa_tpu_torch.ops.moe`).
 Kernel 8 fuses the MLP that 'model' splits: ``fused_ops`` with 'model'
 above 1 raises (ROADMAP item 9).
 
-Left out, as the JAX options they belong to are not ported: the pipeline
-and sequence contexts.
+Under 'seq' (:mod:`dl_vqa_tpu_torch.parallel.sequence`, set by
+:meth:`VitImage.set_shards`) each rank keeps its contiguous ``S / n``
+tokens after the position table and dropout site 20, runs the blocks on
+them with the ring
+(:func:`dl_vqa_tpu_torch.ops.ring_attention.ring_attention_qkv`) as every
+block's attention core, as the JAX model takes the ring in place of its
+kernel, and gathers the sequence after the final layer norm; the blocks'
+dropout sites draw the whole sequence's masks and keep the rank's tokens.
+
+Left out, as the JAX option it belongs to is not ported: the pipeline
+context.
 """
 
 from __future__ import annotations
@@ -69,9 +78,11 @@ import torch
 from torch import nn
 
 from dl_vqa_tpu_torch.models.configs import ModelConfig
-from dl_vqa_tpu_torch.models.layers import dropout as _dropout, mm as _mm
+from dl_vqa_tpu_torch.models.layers import (
+    BatchRows, dropout as _dropout, mm as _mm)
 from dl_vqa_tpu_torch.models.transformer import LayerNorm
 from dl_vqa_tpu_torch.ops.moe import MOE_WITHOUT_ROUTING, MoeMlp
+from dl_vqa_tpu_torch.ops.ring_attention import ring_attention_qkv
 from dl_vqa_tpu_torch.ops.vit_attention import (
     kernel_head, vit_attention, vit_attention_weights_normalised)
 from dl_vqa_tpu_torch.ops.vit_int8 import w8a8_linear
@@ -104,6 +115,7 @@ class VitBlock(nn.Module):
     rank's count)."""
 
     tp = None
+    seq = None
 
     def __init__(self, dim: int, num_heads: int, dropout: float,
                  experts: int = 0):
@@ -123,13 +135,17 @@ class VitBlock(nn.Module):
 
     def attention(self, qkv: torch.Tensor, plain: bool) -> torch.Tensor:
         """The attention core on the packed ``qkv`` in the compute dtype:
-        kernels 4 and 5 for heads of 64 n (their plain versions on the CPU
-        or with ``plain``), the JAX model's other branch for the rest."""
+        under 'seq' the ring over this rank's tokens; else kernels 4 and 5
+        for heads of 64 n (their plain versions on the CPU or with
+        ``plain``), the JAX model's other branch for the rest."""
+        if self.seq is not None:
+            return ring_attention_qkv(qkv, self.num_heads, self.seq)
         if kernel_head(qkv.shape[-1] // (3 * self.num_heads)):
             return vit_attention(qkv, self.num_heads, plain)
         return vit_attention_weights_normalised(qkv, self.num_heads)
 
     def set_shards(self, shards) -> None:
+        self.seq = shards.get("seq")
         if self.qkv.weight.shape[0] < 3 * self.dim:
             self.tp = shards["model"]
             self.num_heads //= self.tp.size
@@ -190,6 +206,8 @@ class VitBlock(nn.Module):
 
 
 class VitImage(nn.Module):
+    seq = None  # this rank's SequenceContext under 'seq' (set_shards)
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         i = cfg.image
@@ -207,6 +225,9 @@ class VitImage(nn.Module):
             VitBlock(dim, i.num_heads, i.dropout, i.moe_experts)
             for _ in range(i.num_layers))
         self.final_ln = LayerNorm(dim)
+
+    def set_shards(self, shards) -> None:
+        self.seq = shards.get("seq")
 
     def forward(self, images: torch.Tensor, dtype: torch.dtype, plain: bool,
                 generator: Optional[torch.Generator],
@@ -232,6 +253,15 @@ class VitImage(nn.Module):
                         self.patch_embed.bias, p, dtype)
         x = (x + self.pos[:gh * gw]).to(dtype)
         x = _dropout(x, self.dropout, generator)               # site 20
+        seq = self.seq
+        if seq is not None:
+            tokens = seq.tokens(x.shape[1])
+            x = seq.scatter(x)
+            if generator is not None:
+                if not isinstance(generator, BatchRows):
+                    generator = BatchRows(generator, batch, 0)
+                generator = generator._replace(tokens=gh * gw,
+                                               token_start=tokens.start)
         int8 = self.quant.store_dtype == "int8" and amax_sink is None
         moe = ((self.quant.moe_top_k, self.quant.moe_capacity_factor)
                if self.quant.moe_experts else None)
@@ -241,4 +271,6 @@ class VitImage(nn.Module):
             x = block(x, dtype, plain, generator, fused, scales, amax_sink,
                       moe, aux_sink)
         x = self.final_ln(x)
+        if seq is not None:
+            x = seq.gather(x)
         return x.reshape(batch, gh, gw, x.shape[-1])

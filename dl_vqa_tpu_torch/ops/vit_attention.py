@@ -25,21 +25,31 @@ Kernel 5 (``csrc/vit_attention_backward.cu``) replaces
 denom)`` (here the weights are normalised before the cast), ``dv = f32(w^T
 g)``, ``dw = f32(g v^T)``, ``dz = cast(f32(w) (dw - rowsum(dw f32(w))))``,
 ``dq = f32(dz k) / sqrt(D)``, ``dk = f32(dz^T q) / sqrt(D)`` and writes
-the packed ``dqkv`` like ``qkv``. In bf16 with heads of 64 it launches one
-grid, a block per (image, head) that runs over the query rows for ``dq``
-and then over the key rows for ``dk`` and ``dv``; in f32, and in bf16 for
-heads of 128 and more, two grids with the row statistics in a device
-scratch between them. All give the same digits on every run. The f32 sums
+the packed ``dqkv`` like ``qkv``. In bf16 with heads of 64 up to 256
+tokens it launches one grid, a block per (image, head) that runs over the
+query rows for ``dq`` and then over the key rows for ``dk`` and ``dv``; in
+f32, in bf16 for heads of 128 and more, and past 256 tokens, two grids
+with the row statistics in a device scratch between them. All give the
+same digits on every run. The f32 sums
 over a head of 64 n run over its slices in order, the order of one
 64 n-long sum, so a head's bits do not depend on how it is sliced; against
 the plain versions they differ as at 64, by sums in another order
 (``tests/test_torch_cuda.py``).
 
-What bounds both on this card is memory traffic (each reads and writes
-only ``[B, S, .]`` tensors, 205 MB and 360 MB at B = 512, S = 196, H = 4,
-D = 64 in bf16); the plain versions below write the f32 ``[B, H, S, S]``
-scores and weights to device memory several times over. The source notes
-say what each design does about it.
+Up to 256 tokens (16 key tiles of 16) a query row's scores live in a
+warp's registers. Longer sequences (the 448-px ViT's 784 tokens) take the
+key-tile kernels of ``csrc/vit_attention.cuh``: the keys (for ``dk`` and
+``dv`` the queries) are walked a 64-row tile at a time through a
+two-stage ``cp.async`` ring, and each row statistic takes a pass of its
+own (first the max, then the sums at it), so the plain versions' rounding
+points hold at every length and no tile width enters the numbers.
+
+At S = 196 what bounds both on this card is memory traffic (each reads and
+writes only ``[B, S, .]`` tensors, 205 MB and 360 MB at B = 512, H = 4, D
+= 64 in bf16); at S = 784 it is the products (322 and 805 GFLOP at B =
+512 against 0.82 and 1.44 GB). The plain versions below write the f32
+``[B, H, S, S]`` scores and weights to device memory several times over.
+The source notes say what each design does about it.
 
 :class:`VitAttention` joins the two as
 ``vit_attention_qkv_pallas_fused_bwd`` joins the TPU kernels: the only
@@ -63,7 +73,7 @@ __all__ = ["vit_attention_reference", "vit_attention_cuda",
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SLICE = 64  # csrc/vit_attention.cuh kSlice: the kernels' heads are 64 n
-MAX_SEQ = 256    # a score row in registers
+ROW_SEQ = 256    # csrc/vit_attention.cuh kMaxRowSeq: a score row in registers
 
 
 def kernel_head(head: int) -> bool:
@@ -150,9 +160,6 @@ def _check_cuda(qkv: torch.Tensor, num_heads: int, what: str) -> int:
                          f"{qkv.dtype}")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    if seq > MAX_SEQ:
-        raise ValueError(f"{seq} tokens do not fit the kernel's score row "
-                         f"in registers (at most {MAX_SEQ})")
     if batch > 65535 or num_heads > 65535:
         raise ValueError(f"batch {batch} or heads {num_heads} exceed the "
                          "launch grid (65535)")
@@ -197,10 +204,12 @@ _native.define_op("vit_attention", "(Tensor qkv, int num_heads) -> Tensor",
                   _attention_fake)
 
 
-def backward_grids(dtype: torch.dtype, head: int) -> int:
-    """Grids a kernel-5 call launches: one for bf16 heads of 64, two (dq,
-    then dk and dv) for f32 and for wider heads."""
-    return 1 if dtype == torch.bfloat16 and head == HEAD_SLICE else 2
+def backward_grids(dtype: torch.dtype, head: int, seq: int = 0) -> int:
+    """Grids a kernel-5 call launches: one for bf16 heads of 64 up to
+    :data:`ROW_SEQ` tokens, two (dq, then dk and dv) for f32, for wider
+    heads and for longer sequences."""
+    return (1 if dtype == torch.bfloat16 and head == HEAD_SLICE
+            and seq <= ROW_SEQ else 2)
 
 
 def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
@@ -219,10 +228,11 @@ def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
         raise ValueError("g must be contiguous")
     lib = _native.library()
     dqkv = torch.empty_like(qkv)
-    # bf16 heads of 64: one grid, the row statistics stay in shared memory.
-    # f32, and wider bf16 heads: per query row m, denom and rowsum(dw w),
-    # which the first of two grids writes and the second reads.
-    two_grids = backward_grids(qkv.dtype, head) == 2
+    # bf16 heads of 64 up to ROW_SEQ tokens: one grid, the row statistics
+    # stay in shared memory. Otherwise per query row m, denom and
+    # rowsum(dw w), which the first of two grids writes and the second
+    # reads.
+    two_grids = backward_grids(qkv.dtype, head, seq) == 2
     stats = (torch.empty(batch, num_heads, 3, seq, dtype=torch.float32,
                          device=qkv.device) if two_grids else None)
     code = lib.vqa_vit_attention_backward(

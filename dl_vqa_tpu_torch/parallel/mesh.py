@@ -5,9 +5,10 @@ is a grid of chips with the axes ('data'[, 'seq'][, 'expert'], 'model'[,
 'stage']); the port runs one process per GPU, so its mesh is a grid of
 ranks with the same names in the same order, 'data' outermost (a
 ``torch.distributed.device_mesh.DeviceMesh`` once a process group is
-joined): rank ``r`` sits at ``(d, [e,] m)`` of ``arange(world).reshape(
-shape)``. 'data', 'expert' and 'model' may exceed 1; sequence and
-pipeline parallelism are ROADMAP queue 1, item 9, and raise.
+joined): rank ``r`` sits at ``(d, [s,] [e,] m)`` of ``arange(world).
+reshape(shape)``. 'data', 'seq', 'expert' and 'model' may exceed 1 ('seq'
+splits the ViT's tokens, :mod:`dl_vqa_tpu_torch.parallel.sequence`);
+pipeline parallelism is ROADMAP queue 1, item 9, and raises.
 
 The placement rules (:func:`spec_for`, :func:`param_specs`) are the JAX
 package's, by parameter path of the JAX tree, with its fallback to
@@ -18,7 +19,7 @@ the whole state (:mod:`dl_vqa_tpu_torch.parallel.tensor`) and its modules
 call the collectives themselves. The batch is split over 'data' only: a
 rank holds the rows of its 'data' coordinate
 (:func:`~dl_vqa_tpu_torch.parallel.multihost.process_batch_slice`), so the
-ranks of one 'expert' x 'model' group feed the same rows, as JAX's
+ranks of one 'seq' x 'expert' x 'model' group feed the same rows, as JAX's
 ``P('data')`` places a batch; :mod:`dl_vqa_tpu_torch.parallel.zero`
 splits the train state over 'data' by wrapping the model (ZeRO,
 ``tpu.zero_stage``).
@@ -51,7 +52,8 @@ class Mesh:
     that joined no group, where the mesh is one device); ``coords``: the
     coordinate on every axis (None: 0 on every axis but 'data');
     ``expert_model``: the group of the ranks that share this rank's 'data'
-    coordinate (the 'expert' x 'model' block; None in one process). The
+    and 'seq' coordinates (the 'expert' x 'model' block; None in one
+    process). The
     steps reduce over the ranks of a mesh over a joined group whatever its
     size, a group of one rank included."""
 
@@ -90,20 +92,24 @@ class Mesh:
 def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
               expert: int = 1, seq: int = 1, device_type: str = "cuda"
               ) -> Mesh:
-    """A ('data'[, 'expert'], 'model') mesh over the processes of the
-    group (one process when none was joined); 'expert' is only
-    materialized when > 1, as in JAX. ``data=-1`` takes the world size
-    over the other axes; a mesh of more ranks than there are raises the
-    JAX package's oversubscription message, and one of fewer raises too
-    (every rank has a place on the mesh). ``stage`` and ``seq`` above 1
-    raise ``NotImplementedError``."""
+    """A ('data'[, 'seq'][, 'expert'], 'model') mesh over the processes of
+    the group (one process when none was joined); 'seq' and 'expert' are
+    only materialized when > 1, as in JAX. ``data=-1`` takes the world
+    size over the other axes; a mesh of more ranks than there are raises
+    the JAX package's oversubscription message, and one of fewer raises
+    too (every rank has a place on the mesh). ``stage`` above 1 raises
+    ``NotImplementedError``, with 'seq' above 1 the JAX model's words."""
     model, stage, expert, seq = (max(a, 1) for a in (model, stage, expert,
                                                       seq))
-    for name, size in (("stage", stage), ("seq", seq)):
-        if size > 1:
-            raise NotImplementedError(
-                f"tpu.mesh.{name}={size}: dl_vqa_tpu_torch has the 'data', "
-                f"'expert' and 'model' axes ({ITEM_9})")
+    if seq > 1 and stage > 1:
+        raise NotImplementedError(
+            "tpu.mesh.seq > 1 does not compose with tpu.mesh.stage "
+            "> 1: the GPipe executor's shard_map cannot nest the "
+            "ring-attention shard_map")
+    if stage > 1:
+        raise NotImplementedError(
+            f"tpu.mesh.stage={stage}: dl_vqa_tpu_torch has the 'data', "
+            f"'seq', 'expert' and 'model' axes ({ITEM_9})")
     joined = dist.is_initialized()
     world_size = dist.get_world_size() if joined else 1
     if data == -1:
@@ -118,9 +124,11 @@ def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
     if n < world_size:
         raise ValueError(
             f"mesh of {n} devices in a group of {world_size} processes: "
-            "every process is one 'data' shard of the 'expert' x 'model' "
-            "block (tpu.mesh.data=-1 takes them all)")
+            "every process is one 'data' shard of the 'seq' x 'expert' x "
+            "'model' block (tpu.mesh.data=-1 takes them all)")
     shape = {"data": data}
+    if seq > 1:
+        shape["seq"] = seq
     if expert > 1:
         shape["expert"] = expert
     shape["model"] = model
@@ -133,12 +141,13 @@ def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
     me = dist.get_rank()
     coords = dict(zip(shape, np.unravel_index(me, tuple(shape.values()))))
     coords = {axis: int(c) for axis, c in coords.items()}
-    block = world_size // data
+    block = expert * model
+    mine = coords["data"] * seq + coords.get("seq", 0)
     expert_model = None
     # new_group is collective: every rank makes every block's group.
-    for d in range(data):
+    for d in range(data * seq):
         group = dist.new_group(list(range(d * block, (d + 1) * block)))
-        if d == coords["data"]:
+        if d == mine:
             expert_model = group
     return Mesh(shape, coords["data"], device_mesh, coords, expert_model)
 

@@ -11,11 +11,11 @@ x 'model' group feed the same rows). The contract is the JAX one:
 * every process runs the same program (``torchrun --nproc-per-node=N -m
   dl_vqa_tpu_torch.main ...``, multi-node with ``--nnodes``), and
   :func:`maybe_initialize` joins the group from torchrun's environment;
-* every process feeds only its 'data' shard's contiguous rows of every
-  global batch (:func:`process_batch_slice`, ``Batcher(process_slice=
-  ...)``); the
-  shuffle order is shared through the seed, so the processes agree on
-  each global batch;
+* every process feeds only its 'data' shard's rows of every global
+  batch (:func:`process_batch_slice`, ``Batcher(process_slice=...)``):
+  its contiguous block, or under gradient accumulation its block of each
+  micro-batch; the shuffle order is shared through the seed, so the
+  processes agree on each global batch;
 * the train and eval steps reduce what crosses processes (gradients, the
   loss's real count, the metrics), so every process reports the same
   global numbers, and only the coordinator (rank 0) writes logs and
@@ -28,7 +28,9 @@ caller names one; nothing switches backend or device because one fails.
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -121,18 +123,31 @@ def barrier(name: str) -> None:
         dist.barrier()
 
 
-def process_batch_slice(mesh, global_batch_size: int) -> Optional[slice]:
-    """This process's contiguous rows of a ``[global_batch_size, ...]``
-    batch split over the mesh's 'data' axis, by its 'data' coordinate;
-    ``None`` where 'data' has one shard (feed whole batches)."""
+def process_batch_slice(mesh, global_batch_size: int, accum_steps: int = 1
+                        ) -> Union[None, slice, np.ndarray]:
+    """This process's rows of a ``[global_batch_size, ...]`` batch split
+    over the mesh's 'data' axis, by its 'data' coordinate; ``None`` where
+    'data' has one shard (feed whole batches). With ``accum_steps == 1``
+    they are one contiguous block (a slice). With more, a train step
+    splits the global batch into ``accum_steps`` contiguous micro-batches,
+    as the JAX step does, and the process takes its contiguous block of
+    each (an index array): its k-th chunk is its share of global
+    micro-batch k."""
     n = mesh.shape["data"]
     if n == 1:
         return None
-    if global_batch_size % n:
+    if global_batch_size % (n * accum_steps):
         raise ValueError(
             f"train.batch_size={global_batch_size} does not split over the "
-            f"'data' axis of {n} processes")
-    return process_dim0_block(mesh, (global_batch_size,))
+            f"'data' axis of {n} processes"
+            + (f" into {accum_steps} micro-batches" if accum_steps > 1
+               else ""))
+    if accum_steps == 1:
+        return process_dim0_block(mesh, (global_batch_size,))
+    micro = global_batch_size // accum_steps
+    block = process_dim0_block(mesh, (micro,))
+    return (np.arange(accum_steps)[:, None] * micro
+            + np.arange(block.start, block.stop)[None, :]).reshape(-1)
 
 
 def process_dim0_block(mesh, global_shape: Sequence[int]) -> slice:

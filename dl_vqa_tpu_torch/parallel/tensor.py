@@ -131,8 +131,13 @@ def take_columns(x: torch.Tensor, cols: Optional[Sequence[slice]],
 def shards_of(mesh) -> Dict[str, Optional[Shard]]:
     """This rank's :class:`Shard` of 'model', of 'expert' and of the
     'expert' x 'model' block, each None where it has one rank (or in one
-    process)."""
-    out = {"model": None, "expert": None, "expert_model": None}
+    process), and under "seq" its
+    :class:`~dl_vqa_tpu_torch.parallel.sequence.SequenceContext` (None
+    likewise)."""
+    from dl_vqa_tpu_torch.parallel.sequence import SequenceContext
+
+    out = {"model": None, "expert": None, "expert_model": None,
+           "seq": SequenceContext.of(mesh)}
     if mesh is None or not mesh.distributed:
         return out
     for axis in ("model", "expert"):
@@ -262,9 +267,23 @@ def shard_model(model, mesh, log=None):
     VqaNet`, the same on every rank) to this rank's shards on ``mesh``,
     in place, and tell its modules their groups; returns it. The LSTM's
     ``bias_hh`` is folded into ``bias_ih`` on the way (the same sum). A
-    mesh whose 'model' and 'expert' axes are 1 leaves the model as it is.
-    ``log``: where the rules' fallback warning goes."""
+    mesh whose 'model' and 'expert' axes are 1 leaves the parameters as
+    they are; with 'seq' above 1 the ViT learns its 'seq' group
+    (:mod:`dl_vqa_tpu_torch.parallel.sequence`). ``log``: where the rules'
+    fallback warning goes."""
+    if mesh.size("seq") > 1:
+        from dl_vqa_tpu_torch.parallel.sequence import (
+            check_sequence_parallel)
+
+        image = model.cfg.image
+        check_sequence_parallel(mesh.size("seq"), image.encoder,
+                                image.moe_experts, image.store_dtype)
+        if not mesh.distributed:
+            raise ValueError(f"mesh {mesh.shape} splits the tokens: it "
+                             "needs a joined process group")
     if not mesh.splits_state:
+        if mesh.size("seq") > 1:
+            _set_shards(model, shards_of(mesh))
         return model
     if not mesh.distributed:
         raise ValueError(f"mesh {mesh.shape} splits the parameters: it "
@@ -284,13 +303,16 @@ def shard_model(model, mesh, log=None):
         setattr(module, attr, torch.nn.Parameter(
             torch.from_numpy(value).to(device=old.device, dtype=old.dtype),
             requires_grad=getattr(module, attr).requires_grad))
-    shards = shards_of(mesh)
-    for module in model.modules():
-        if hasattr(module, "set_shards"):
-            module.set_shards(shards)
+    _set_shards(model, shards_of(mesh))
     model.tp_specs = specs
     model.tp_synced = synced
     return model
+
+
+def _set_shards(model, shards) -> None:
+    for module in model.modules():
+        if hasattr(module, "set_shards"):
+            module.set_shards(shards)
 
 
 def _replicated_over(model, tree, specs, mesh):
@@ -347,8 +369,10 @@ def shard_state(state, mesh, log=None):
     state's optimizer held: a restored or stepped state keeps its
     moments); returns ``state``. Call it before
     :func:`~dl_vqa_tpu_torch.parallel.zero.parallelize` and after any
-    restore, which loads the whole state."""
+    restore, which loads the whole state. A mesh that splits no
+    parameter only tells the model its 'seq' group, if any."""
     if not mesh.splits_state:
+        shard_model(state.model, mesh, log)
         return state
     from dl_vqa_tpu_torch.train.steps import make_optimizer
     from dl_vqa_tpu_torch.utils.checkpoint import _trainable

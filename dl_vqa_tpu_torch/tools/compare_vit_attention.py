@@ -3,17 +3,19 @@
 source trees in turns on one card, and hold each to the plain versions.
 
     python3 -m dl_vqa_tpu_torch.tools.compare_vit_attention [--f32]
-        NAME=DIR [NAME=DIR ...]
+        [--shapes=H:D:S,...] NAME=DIR [NAME=DIR ...]
 
 Each DIR holds a version of ``vit_attention.cu``, ``vit_attention.cuh`` and
 ``vit_attention_backward.cu`` (for instance ``dl_vqa_tpu_torch/csrc``, or
 the same three files of an older commit taken with ``git show``); the
 shared headers come from ``dl_vqa_tpu_torch/csrc``. Every version is
 compiled by ``nvcc -Xptxas -v`` (registers and spills are printed), run at
-S = 196, H = 4, bf16 (with ``--f32`` also f32), B = 1, 8 and 512 on the
-same inputs, and timed with CUDA events in the order given and back. For
-each it prints the largest difference from the plain versions, the share
-of elements that differ, and whether its bits equal the first version's.
+each shape of ``--shapes`` (H heads of size D at S tokens; default
+``4:64:196``, the ViT's), bf16 (with ``--f32`` also
+f32), B = 1, 8 and 512 on the same inputs, and timed with CUDA events in
+the order given and back. For each it prints the largest difference from
+the plain versions, the share of elements that differ, and whether its
+bits equal the first version's.
 Run from the repository root (DIRs are taken from there) on a machine with
 an NVIDIA GPU and nvcc; imports no JAX.
 """
@@ -30,7 +32,6 @@ from dl_vqa_tpu_torch.ops.vit_attention import (
     vit_attention_backward_reference, vit_attention_reference)
 from dl_vqa_tpu_torch.tools._compare import build, card, timed
 
-HEADS, TOKENS, WIDTH = 4, 196, 256
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = ("vit_attention.cu", "vit_attention_backward.cu")
 _CODES = {torch.float32: 0, torch.bfloat16: 1}  # the entries' dtype codes
@@ -55,9 +56,17 @@ def load(versions: dict, out_dir: str) -> dict:
 
 
 def main(argv) -> int:
-    dtypes = [torch.bfloat16]
-    if argv and argv[0] == "--f32":
-        argv, dtypes = argv[1:], dtypes + [torch.float32]
+    dtypes, shapes = [torch.bfloat16], [(4, 64, 196)]
+    while argv and argv[0].startswith("--"):
+        if argv[0] == "--f32":
+            dtypes.append(torch.float32)
+        elif argv[0].startswith("--shapes="):
+            shapes = [tuple(int(x) for x in shape.split(":"))
+                      for shape in argv[0].split("=", 1)[1].split(",")]
+        else:
+            print(__doc__, file=sys.stderr)
+            return 1
+        argv = argv[1:]
     if not argv or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
@@ -68,38 +77,44 @@ def main(argv) -> int:
         print(card())
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-        def forward(name, qkv):
+        def forward(name, qkv, heads, head):
             lib, takes_sms, takes_head = libs[name]
-            out = torch.empty(*qkv.shape[:2], WIDTH, dtype=qkv.dtype,
+            out = torch.empty(*qkv.shape[:2], heads * head, dtype=qkv.dtype,
                               device="cuda")
-            args = [qkv.data_ptr(), out.data_ptr(), qkv.shape[0], TOKENS,
-                    HEADS] + ([64, 0.125] if takes_head else []) + (
-                        [sms] if takes_sms else [])
+            args = [qkv.data_ptr(), out.data_ptr(), *qkv.shape[:2],
+                    heads] + ([head, 1.0 / head ** 0.5] if takes_head
+                              else []) + ([sms] if takes_sms else [])
             assert lib.vqa_vit_attention(*args, _CODES[qkv.dtype],
                                          stream) == 0
             return out
 
-        def backward(name, qkv, g):
+        def backward(name, qkv, g, heads, head):
             lib, _, takes_head = libs[name]
             dqkv = torch.empty_like(qkv)
-            stats = torch.empty(qkv.shape[0], HEADS, 3, TOKENS, device="cuda")
+            stats = torch.empty(qkv.shape[0], heads, 3, qkv.shape[1],
+                                device="cuda")
             assert lib.vqa_vit_attention_backward(
                 qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                stats.data_ptr(), qkv.shape[0], TOKENS, HEADS,
-                *([64, 0.125] if takes_head else []), _CODES[qkv.dtype],
-                stream) == 0
+                stats.data_ptr(), *qkv.shape[:2], heads,
+                *([head, 1.0 / head ** 0.5] if takes_head else []),
+                _CODES[qkv.dtype], stream) == 0
             return dqkv
 
         gen = torch.Generator(device="cuda").manual_seed(0)
         names = list(versions)
-        for dtype, batch in ((d, b) for d in dtypes for b in (1, 8, 512)):
-            qkv = torch.randn(batch, TOKENS, 3 * WIDTH, generator=gen,
+        for (heads, head, tokens), dtype, batch in (
+                (s, d, b) for s in shapes for d in dtypes
+                for b in (1, 8, 512)):
+            width = heads * head
+            qkv = torch.randn(batch, tokens, 3 * width, generator=gen,
                               device="cuda").to(dtype)
-            g = torch.randn(batch, TOKENS, WIDTH, generator=gen,
+            g = torch.randn(batch, tokens, width, generator=gen,
                             device="cuda").to(dtype)
-            want = (vit_attention_reference(qkv, HEADS),
-                    vit_attention_backward_reference(qkv, g, HEADS))
-            got = {n: (forward(n, qkv), backward(n, qkv, g)) for n in names}
+            want = (vit_attention_reference(qkv, heads),
+                    vit_attention_backward_reference(qkv, g, heads))
+            got = {n: (forward(n, qkv, heads, head),
+                       backward(n, qkv, g, heads, head)) for n in names}
+            label = f"{dtype} {heads}x{head} S={tokens} B={batch}"
             for n in names:
                 parts = []
                 for what, a, b, first in zip(("forward", "backward"), got[n],
@@ -109,14 +124,16 @@ def main(argv) -> int:
                         f"{float((a.float() - b.float()).abs().max()):.3e}, "
                         f"{float((a != b).float().mean()):.4%} differ, "
                         f"bits of {names[0]} {torch.equal(a, first)}")
-                print(f"{dtype} B={batch} {n}: " + " | ".join(parts))
+                print(f"{label} {n}: " + " | ".join(parts))
             iters = 20 if batch == 512 else 200
             ms = {n: [0.0, 0.0] for n in names}
             for n in names + names[::-1]:
-                ms[n][0] += timed(lambda: forward(n, qkv), iters) / 2
-                ms[n][1] += timed(lambda: backward(n, qkv, g), iters) / 2
+                ms[n][0] += timed(lambda: forward(n, qkv, heads, head),
+                                  iters) / 2
+                ms[n][1] += timed(lambda: backward(n, qkv, g, heads, head),
+                                  iters) / 2
             for i, what in enumerate(("forward", "backward")):
-                print(f"{dtype} B={batch} {what} ms: " + ", ".join(
+                print(f"{label} {what} ms: " + ", ".join(
                     f"{n} {v[i]:.4f}" for n, v in ms.items()))
     return 0
 

@@ -34,15 +34,16 @@ same step on its rows of the global batch, as the JAX step runs on a
   objective is scaled by the world size, since DDP and FSDP2 average the
   ranks' gradients; an accumulated step's micro-batches before the last
   keep their gradients local (``no_sync``);
+* with ``accum_steps > 1`` a rank's batch is its share of every global
+  micro-batch, in order
+  (:func:`~dl_vqa_tpu_torch.parallel.multihost.process_batch_slice` with
+  ``accum_steps``): its k-th chunk is its rows of global micro-batch k,
+  the contiguous rows the JAX step takes as its micro-batch k;
 * each rank draws its rows of the masks one process draws for the whole
-  batch (:class:`~dl_vqa_tpu_torch.models.layers.BatchRows`): rank ``r``'s
-  micro-batch ``k`` lies in the global micro-batch ``(r * accum_steps +
-  k) // data``, whose key and shape it uses;
+  batch, or for global micro-batch k
+  (:class:`~dl_vqa_tpu_torch.models.layers.BatchRows`);
 * the MoE balance loss takes its first-choice fractions over every rank's
-  tokens of the micro-batch: with ``accum_steps == 1`` it is the JAX
-  step's loss of the global batch; with more, a micro-batch is every
-  rank's k-th chunk, where the JAX step takes contiguous rows of the
-  global batch;
+  tokens of the micro-batch, so each micro-batch's is the JAX step's;
 * loss, score and balance loss are all-reduced, as is the eval step's
   output, so every rank reports the same global numbers.
 
@@ -60,7 +61,15 @@ axis does not split are made its coordinate-0 rank's
 the ranks' replicated parameters stay one model. ``fused_ops`` on the ViT with 'model' above 1
 raises: kernel 8 fuses the MLP that 'model' splits (ROADMAP item 9).
 
-Not ported yet: the pipeline and sequence axes.
+Over a mesh with a 'seq' axis the ranks of one 'seq' group hold the same
+rows and split the ViT's tokens (:mod:`dl_vqa_tpu_torch.parallel.
+sequence`): after the backward the ViT's parameter gradients, each rank's
+part, are summed over the group in f32, and the rest, the same on every
+rank of the group, are given its coordinate-0 rank's bits
+(:func:`~dl_vqa_tpu_torch.parallel.sequence.sync_sequence_grads`); the
+reductions here stay over 'data'.
+
+Not ported yet: the pipeline axis.
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ from dl_vqa_tpu_torch.ops.vqa_metrics import (
     vqa_accuracy_sum,
 )
 from dl_vqa_tpu_torch.parallel.mesh import ITEM_9
+from dl_vqa_tpu_torch.parallel.sequence import sync_sequence_grads
 from dl_vqa_tpu_torch.parallel.tensor import sync_replicated_grads
 from dl_vqa_tpu_torch.parallel.zero import grad_sync
 from dl_vqa_tpu_torch.train.state import TrainState
@@ -236,7 +246,8 @@ def make_train_step(
 
     ``mesh`` over a process group makes this a rank's step (module
     docstring) for a state wrapped over that mesh: ``batch`` holds this
-    rank's rows of the global batch. Without one the step is the one
+    rank's rows of the global batch (with ``accum_steps > 1``, its share
+    of each global micro-batch, in order). Without one the step is the one
     process's: one rank, no collective.
     """
     cfg.check_ported()
@@ -249,16 +260,14 @@ def make_train_step(
     aux_weight = cfg.image.moe_aux_weight
 
     def loss_of(state, batch, seed, micro):
-        # Rank r's micro-batch k: rows of global micro-batch j at offset.
-        at = rank * accum_steps + micro
+        # Rank r's micro-batch k: its rows of global micro-batch k.
         rows = batch["questions"].shape[0]
 
         def run():
             generator = BatchRows(
                 dropout_generator(seed, state.step, batch["questions"].device,
-                                  None if accum_steps == 1
-                                  else at // world),
-                world * rows, (at % world) * rows)
+                                  None if accum_steps == 1 else micro),
+                world * rows, rank * rows)
             loss_sum, score, _, balance = _forward_sums(
                 state.forward, cfg, batch, True, generator, compute_dtype,
                 plain_ops, fused_ops)
@@ -320,6 +329,7 @@ def make_train_step(
                                    score, aux * share / world])
         _all_reduce(totals, group)
         if mesh is not None:
+            sync_sequence_grads(state.model, mesh)
             sync_replicated_grads(state.model, mesh)
 
         lr = lr_schedule(state.initial_lr)(state.step)

@@ -783,6 +783,37 @@ def test_vit_attention_wide_heads_match_plain(device, dtype, batch, seq,
     assert torch.equal(grad, vit_attention_backward_cuda(qkv, cot, heads))
 
 
+# Past 256 tokens the kernels walk the keys a 64-row tile at a time: one
+# row past the register kernels, a tile and a ragged edge, the 448-px ViT's
+# 784 tokens, at heads of 64, 128, 192 and 256.
+VIT_LONG_SHAPES = [(2, 257, 1, 64), (1, 400, 2, 64), (2, 784, 4, 64),
+                   (1, 257, 1, 128), (1, 784, 2, 128), (1, 300, 2, 192),
+                   (1, 333, 1, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,seq,heads,head", VIT_LONG_SHAPES)
+def test_vit_attention_long_sequences_match_plain(device, dtype, batch, seq,
+                                                  heads, head):
+    """Kernel 4 and kernel 5 past 256 tokens against their plain versions
+    at the tolerances of the shorter sequences, two backward grids, and
+    kernel 5's digits the same on a second run."""
+    qkv, cot = _vit_wide_inputs(device, dtype, batch, seq, heads, head)
+    before = (vit_attention_cuda.launches,
+              vit_attention_backward_cuda.launches)
+    out = vit_attention_cuda(qkv, heads)
+    grad = vit_attention_backward_cuda(qkv, cot, heads)
+    torch.cuda.synchronize()
+    assert backward_grids(dtype, head, seq) == 2
+    assert (vit_attention_cuda.launches,
+            vit_attention_backward_cuda.launches) == (before[0] + 1,
+                                                      before[1] + 2)
+    _assert_vit_close(out, vit_attention_reference(qkv, heads), dtype, 1)
+    _assert_vit_close(grad, vit_attention_backward_reference(qkv, cot, heads),
+                      dtype, 2)
+    assert torch.equal(grad, vit_attention_backward_cuda(qkv, cot, heads))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_vit_attention_wide_heads_do_not_mix_and_autograd_runs_them(
         device, dtype):
@@ -872,7 +903,7 @@ def test_moe_vit_block_on_cuda_matches_the_cpu(device, dtype, monkeypatch):
         torch.zeros(1, 4, 3 * 64, device=d, dtype=torch.float16), 1),
     lambda d: vit_attention_cuda(
         torch.zeros(1, 4, 6 * 64, device=d)[..., ::2], 1),
-    lambda d: vit_attention_cuda(torch.zeros(1, 257, 3 * 64, device=d), 1),
+    lambda d: vit_attention_cuda(torch.zeros(4, 3 * 64, device=d), 1),
     lambda d: vit_attention_cuda(torch.zeros(1, 4, 3 * 64), 1),
     lambda d: vit_attention_backward_cuda(
         torch.zeros(1, 4, 3 * 64, device=d), torch.zeros(1, 4, 64), 1),
@@ -885,7 +916,7 @@ def test_moe_vit_block_on_cuda_matches_the_cpu(device, dtype, monkeypatch):
     lambda d: vit_attention_backward_cuda(
         torch.zeros(1, 4, 3 * 64, device=d),
         torch.zeros(1, 4, 128, device=d)[..., ::2], 1),
-], ids=["head_of_32", "half", "strided", "too_long", "cpu", "g_on_cpu",
+], ids=["head_of_32", "half", "strided", "not_3d", "cpu", "g_on_cpu",
         "g_dtype", "g_shape", "g_strided"])
 def test_vit_wrappers_reject_what_the_kernels_do_not_take(device, call):
     with pytest.raises(ValueError):

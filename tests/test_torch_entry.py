@@ -140,7 +140,8 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
     ("tpu.mesh.expert=2", ValueError,
      r"mesh 0x1x2x1x1 \(data x seq x expert x model x stage\) needs 2 "
      "devices, have 1"),
-    ("tpu.mesh.seq=2", NotImplementedError, "item 9"),
+    ("tpu.mesh.seq=2 train.image.encoder=vit train.image.moe_experts=4",
+     NotImplementedError, "item 9"),
     ("tpu.pipeline_microbatches=4", NotImplementedError, "item 9"),
 ], ids=["tpu.checkpoint_backend=orbax-Orbax", "tpu.mesh.model=2-item 9",
         "tpu.mesh.data=4-item 9", "tpu.zero_stage=1-item 9",
@@ -148,12 +149,13 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
         "tpu.mesh.seq=2-item 9", "tpu.pipeline_microbatches=4-item 9"])
 def test_settings_the_port_lacks_raise_with_their_roadmap_item(
         profile, tmp_path, override, error, what):
-    """The axes still missing raise with their ROADMAP item. The 'data',
-    'model' and 'expert' axes are ported: in one process
-    ``tpu.mesh.data=4``, ``tpu.mesh.model=2`` and ``tpu.mesh.expert=2``
-    raise the mesh's oversubscription error, as JAX's ``make_mesh`` does,
-    and a ZeRO stage runs with its no-op logged (one 'data' shard)."""
-    overrides = _overrides(profile, tmp_path) + [override]
+    """The axes and settings still missing raise with their ROADMAP item,
+    'seq' with a ViT-MoE among them. The 'data', 'seq', 'model' and
+    'expert' axes are ported: in one process ``tpu.mesh.data=4``,
+    ``tpu.mesh.model=2`` and ``tpu.mesh.expert=2`` raise the mesh's
+    oversubscription error, as JAX's ``make_mesh`` does, and a ZeRO stage
+    runs with its no-op logged (one 'data' shard)."""
+    overrides = _overrides(profile, tmp_path) + override.split()
     if error is None:
         port_main.main(port_config.compose(
             "config", overrides + ["train.num_epochs=1"]), device="cpu")

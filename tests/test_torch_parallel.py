@@ -125,12 +125,12 @@ def _fresh_state(cfg, mesh=None, stage=0, restore=None):
     return state
 
 
-def _rows(batch, mesh):
+def _rows(batch, mesh, accum=1):
     if mesh is None:
         return batch
     from dl_vqa_tpu_torch.parallel.multihost import process_batch_slice
 
-    rows = process_batch_slice(mesh, BATCH)
+    rows = process_batch_slice(mesh, BATCH, accum)
     return {key: value[rows] for key, value in batch.items()}
 
 
@@ -144,7 +144,7 @@ def _train(cfg, batches, mesh=None, stage=0, accum=1, table=None,
     step = make_train_step(cfg, torch.float32, accum_steps=accum, mesh=mesh)
     out = {"loss": [], "score": [], "moe_aux": []}
     for batch in batches[:steps]:
-        batch = _rows(batch, mesh)
+        batch = _rows(batch, mesh, accum)
         if table is not None:
             batch = dict(batch, image_table=table)
         state, metrics = step(state, batch, 7)
@@ -228,6 +228,8 @@ def _worker(rank, port, out_dir, resume_from):
 
     out, state = _train(_port_cfg(moe=4), _batches(seed=4), mesh, 0, 1)
     keep("moe", out, state)
+    out, state = _train(_port_cfg(moe=4), _batches(seed=4), mesh, 0, 2)
+    keep("moe_a2", out, state)
 
     # ZeRO-3: a checkpoint after two steps (the coordinator writes, every
     # rank gathers), its third step; and the one-process checkpoint of
@@ -281,6 +283,8 @@ def runs(tmp_path_factory):
         single[f"dropout_a{accum}"] = (out, _snapshot(state))
     out, state = _train(_port_cfg(moe=4), _batches(seed=4))
     single["moe"] = (out, _snapshot(state))
+    out, state = _train(_port_cfg(moe=4), _batches(seed=4), accum=2)
+    single["moe_a2"] = (out, _snapshot(state))
     out, state = _train(cfg, batches, steps=2)
     resume_from = os.path.join(out_dir, "single_step2.ckpt")
     save_checkpoint(resume_from, state, epoch=0)
@@ -542,6 +546,26 @@ def test_the_moe_balance_loss_at_two_ranks_is_jaxs(runs):
         _port_cfg(moe=4)), _batches(seed=4), WORLD)
     got = runs["ranks"][0]["moe"]
     single = runs["single"]["moe"][0]
+    assert len(got["moe_aux"]) == STEPS
+    for key in ("loss", "score", "moe_aux"):
+        np.testing.assert_allclose(got[key], expected[key], **TOL,
+                                   err_msg=key)
+        np.testing.assert_allclose(got[key], single[key], **TOL,
+                                   err_msg=key)
+
+
+def test_the_moe_balance_loss_at_two_ranks_and_two_micro_batches_is_jaxs(
+        runs):
+    """The same block at ``accum_steps=2``: JAX's micro-batch k is the
+    contiguous global rows ``[4 k, 4 k + 4)``, and each rank holds its half
+    of every global micro-batch (``process_batch_slice(mesh, 8, 2)``), so
+    the balance loss, a product of per-micro-batch means, takes JAX's
+    token sets: loss, ``moe_aux`` and score at :data:`TOL` against the JAX
+    step on a 2-device 'data' mesh and the one-process run."""
+    expected, _ = _jax_run(_cfg_dict(moe=4), _initial_params(
+        _port_cfg(moe=4)), _batches(seed=4), WORLD, accum=2)
+    got = runs["ranks"][0]["moe_a2"]
+    single = runs["single"]["moe_a2"][0]
     assert len(got["moe_aux"]) == STEPS
     for key in ("loss", "score", "moe_aux"):
         np.testing.assert_allclose(got[key], expected[key], **TOL,

@@ -84,7 +84,8 @@ def _f32(x):
 
 
 @pytest.mark.parametrize("name", ["f32", "bf16"])
-@pytest.mark.parametrize("batch,seq,heads", [(4, 196, 4), (2, 50, 2)])
+@pytest.mark.parametrize("batch,seq,heads", [(4, 196, 4), (2, 50, 2),
+                                             (2, 257, 1), (1, 784, 1)])
 def test_attention_plain_version_matches_the_pallas_kernel(batch, seq, heads,
                                                            name):
     """Same order of operations on the same inputs. f32: sums in another
@@ -134,6 +135,37 @@ def test_attention_backward_plain_version_matches_the_pallas_kernel(name):
     else:
         np.testing.assert_allclose(got, expected, atol=2e-3, rtol=2 ** -6)
         assert (got != expected).mean() < 0.02
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("batch,seq,heads,head", [
+    (2, 257, 1, 64), (1, 784, 1, 64), (1, 257, 1, 128), (1, 784, 2, 128)])
+def test_attention_plain_versions_match_the_pallas_kernels_past_256_tokens(
+        batch, seq, heads, head, name):
+    """Past 256 tokens (the 448-px ViT's 784 among them; the Pallas kernels
+    take a chunk of whole sequences of any length), heads of 64 and 128,
+    an arbitrary cotangent: the forward and the backward against the
+    Pallas kernels in interpret mode, at the tolerances of the shorter
+    sequences above (f32 1e-5; bf16 within one bf16 step forward and two
+    backward, fewer than 1 and 2 in 100 off at all)."""
+    qkv_j, qkv_t = _qkv((batch, seq, 3 * heads * head), name, seed=22)
+    g_j, g_t = _qkv((batch, seq, heads * head), name, seed=23)
+    out = _f32(vit_attention_reference(qkv_t, heads))
+    want_out = _f32(jax_attention._vit_attention_impl(qkv_j, heads,
+                                                      interpret=True))
+    grad = _f32(vit_attention_backward_reference(qkv_t, g_t, heads))
+    want_grad = _f32(jax_attention._vit_attention_bwd_impl(
+        qkv_j, g_j, heads, interpret=True))
+    assert out.shape == (batch, seq, heads * head)
+    assert grad.shape == (batch, seq, 3 * heads * head)
+    if name == "f32":
+        np.testing.assert_allclose(out, want_out, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(grad, want_grad, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(out, want_out, atol=1e-3, rtol=2 ** -7)
+        assert (out != want_out).mean() < 0.01
+        np.testing.assert_allclose(grad, want_grad, atol=2e-3, rtol=2 ** -6)
+        assert (grad != want_grad).mean() < 0.02
 
 
 def test_attention_backward_plain_version_matches_jax_vjp_f32():
@@ -593,6 +625,60 @@ def test_vit_gradients_at_step_0_match_jax_grad(tpu_path):
     _assert_trees_close(got, expected, 2e-6, 1e-4, "gradient of")
     assert np.abs(got["image"]["layers"]["qkv"]["w"]).max() > 1e-4
     assert np.abs(got["image"]["pos"]).max() > 1e-4
+
+
+def _jax_cfg_448():
+    """One block, one head of 64, patch 16 at 448 px: a 28 x 28 grid, the
+    784 tokens of ``config_vit`` at ``train.image_size=448``."""
+    return dataclasses.replace(
+        _jax_cfg(layers=1, image_size=448),
+        image=ImageConfig(encoder="vit", num_channels=(3, 64), patch_size=16,
+                          num_layers=1, num_heads=1, dropout=0.0))
+
+
+@pytest.mark.parametrize("path", ["cpu_path", "tpu_path"])
+def test_vit_logits_at_448_px_match_jax_apply_f32(request, path):
+    """784 tokens, past the 256 that kernels 4 and 5 keep a score row of in
+    registers: the port's logits against both branches of the JAX model
+    (the Pallas kernels in interpret mode on its accelerator path), at
+    the 64-px test's tolerance."""
+    if path == "tpu_path":
+        request.getfixturevalue("tpu_path")
+    cfg = _jax_cfg_448()
+    got, expected = _logits(cfg, _inputs(448, False, batch=2), "f32")
+    assert got.shape == (2, ANSWERS)
+    np.testing.assert_allclose(got, expected, **TOL)
+
+
+def test_vit_gradients_at_448_px_match_jax_grad(tpu_path):
+    """784 tokens: the gradient of every tensor against the JAX model with
+    its flash backward kernel (interpret mode), at the 32-px test's atol
+    2e-6, rtol 1e-4, the position table's 784 rows among them."""
+    cfg = _jax_cfg_448()
+    params = _params(cfg)
+    batch = _batch(1, image_size=448, batch=4)
+
+    def loss_fn(p):
+        return jax_steps._forward_loss(
+            p, cfg, {k: jnp.asarray(v) for k, v in batch.items()}, True,
+            jax.random.PRNGKey(0), jnp.float32)[0]
+
+    expected_loss, expected = jax.value_and_grad(loss_fn)(params)
+    model = _model(cfg, params)
+    tensors = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits = model(tensors["images"], tensors["questions"],
+                   tensors["lengths"], train=True,
+                   generator=torch.Generator().manual_seed(0))
+    loss = soft_cross_entropy(logits, tensors["answer_indices"],
+                              tensors["answer_values"], tensors["mask"])
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(expected_loss),
+                               rtol=1e-5)
+    got = jax_tree_from_named({n: p.grad for n, p in model.named_parameters()
+                               if p.grad is not None})
+    _assert_trees_close(got, expected, 2e-6, 1e-4, "gradient of")
+    assert got["image"]["pos"].shape == (784, 64)
+    assert np.abs(got["image"]["pos"]).max() > 1e-6
 
 
 def test_vit_20_adam_steps_match_the_jax_train_step(tpu_path):
