@@ -1900,12 +1900,27 @@ FAST_PATHS = {"relu_maxpool_backward": "launches_vector",
               "lstm_token_states": "launches_f32_persistent"}
 
 
+# Kernels 4 and 5 count their wgmma grids (bf16 heads of 64 and 128 past
+# 256 tokens, ops/vit_attention.py::attention_plan) beside all their grids.
+# Only the 448-px ViT's paths must take them (long_sequence_phase); the S =
+# 196 paths launch none.
+WGMMA_COUNTED = ("vit_attention", "vit_attention_backward")
+
+
+def wgmma_launches(wrappers) -> dict:
+    """The wgmma grids of kernels 4 and 5 since :func:`reset_launches`."""
+    return {name: wrappers[name].launches_wgmma for name in WGMMA_COUNTED}
+
+
 def reset_launches(wrappers) -> None:
-    """Every launch count to 0, the fast paths' too."""
+    """Every launch count to 0, the fast paths' and the wgmma grids'
+    too."""
     for name, fn in wrappers.items():
         fn.launches = 0
         if name in FAST_PATHS:
             setattr(fn, FAST_PATHS[name], 0)
+        if name in WGMMA_COUNTED:
+            fn.launches_wgmma = 0
 
 
 def read_launches(wrappers, what: str) -> dict:
@@ -1961,6 +1976,8 @@ def slice_phase(torch, seed: int, cfg, name: str, expected: dict,
     reset_launches(wrappers)
     answers = predictor.predict(images, QUESTIONS, top_k=3)
     launches = read_launches(wrappers, f"the {label} serving path")
+    if numbers is not None:
+        numbers["launches_wgmma"] = wgmma_launches(wrappers)
     for question, top in zip(QUESTIONS, answers):
         log(f"request {question!r} -> " + ", ".join(
             f"{a} {p:.4f}" for a, p in top))
@@ -2323,6 +2340,8 @@ def train_phase(torch, seed: int, profile: bool, cfg, name: str,
     eval_loss, eval_score = eval_step(state.model, batch)
     torch.cuda.synchronize()
     launches = read_launches(wrappers, f"the {name} trainer's path")
+    if numbers is not None:
+        numbers["launches_wgmma"] = wgmma_launches(wrappers)
     losses = [float(x) for x in losses]
     log(f"train {name} B={BATCH} bf16 dropout 0.3: losses "
         + " ".join(f"{x:.4f}" for x in losses)
@@ -6040,7 +6059,7 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
 LONG_DIR = "_smoke_long"  # under the checkout; .gitignore lists it
 LONG_IMAGE_SIZE = 448  # patch 16: a 28 x 28 grid, 784 tokens
 LONG_TOKENS = (LONG_IMAGE_SIZE // 16) ** 2
-LONG_SEQS = (257, 400, LONG_TOKENS)
+LONG_SEQS = (257, 400, LONG_TOKENS, 1024)
 LONG_CHECK_BATCH = 8  # the plain versions' [B, H, S, S] f32 tensors fit
 LONG_STEPS = 4  # train steps of the 448-px trainer at batch 512
 LONG_TRAIN, LONG_VAL, LONG_IMAGES, LONG_VAL_IMAGES = 1024, 512, 128, 32
@@ -6056,11 +6075,13 @@ def vit448_config():
 def long_kernels(torch, seed: int, summary: dict) -> dict:
     """Kernels 4 and 5 past 256 tokens: at every S of LONG_SEQS, bf16 and
     f32, four heads of 64 and two of 128, B = LONG_CHECK_BATCH, each held
-    to its plain version with the S = 196 TOL entries (kernel 5 also to its
-    own digits on a second run); then at the 448-px ViT's shapes (B = 512,
-    S = 784, four heads of 64, bf16) each timed in turns with its plain
-    version and beside SDPA, with its bound: ``s784`` under each kernel in
-    the kernels line. Returns the checks' numbers."""
+    to its plain version with the S = 196 TOL entries and to its own digits
+    on a second run, every bf16 grid counted by ``launches_wgmma`` and no
+    f32 one; then at the 448-px ViT's shapes (S = 784, four heads of 64,
+    bf16) at B = 512 each timed in turns with its plain version and beside
+    SDPA, with its bound (``s784`` under each kernel in the kernels line),
+    and at B = 1 and 8 beside SDPA (``s784_small``). Returns the checks'
+    numbers."""
     import torch.nn.functional as F
 
     from dl_vqa_tpu_torch.ops.vit_attention import (
@@ -6069,6 +6090,8 @@ def long_kernels(torch, seed: int, summary: dict) -> dict:
 
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(seed + 21)
+    wrappers = {"vit_attention": vit_attention_cuda,
+                "vit_attention_backward": vit_attention_backward_cuda}
     checks = []
     for seq in LONG_SEQS:
         for heads, head in ((VIT_HEADS, VIT_HEAD), (2, 128)):
@@ -6078,13 +6101,20 @@ def long_kernels(torch, seed: int, summary: dict) -> dict:
                                   device=device).to(dtype)
                 g = torch.randn(batch, seq, heads * head, generator=gen,
                                 device=device).to(dtype)
+                reset_launches(wrappers)
                 out = vit_attention_cuda(qkv, heads)
                 dqkv = vit_attention_backward_cuda(qkv, g, heads)
-                again = vit_attention_backward_cuda(qkv, g, heads)
+                wgmma = wgmma_launches(wrappers)
+                grids = {name: fn.launches for name, fn in wrappers.items()}
+                require(wgmma == (grids if dtype == torch.bfloat16 else
+                                  dict.fromkeys(wgmma, 0)),
+                        f"vit_attention S={seq} {dtype} heads of {head}: "
+                        f"{grids} grids, {wgmma} of them wgmma")
+                again = vit_attention_cuda(qkv, heads)
+                again_d = vit_attention_backward_cuda(qkv, g, heads)
                 torch.cuda.synchronize()
-                require(torch.equal(dqkv, again),
-                        f"vit_attention_backward S={seq}: two runs gave "
-                        "other digits")
+                require(torch.equal(out, again) and torch.equal(dqkv, again_d),
+                        f"vit_attention S={seq}: two runs gave other digits")
                 err, tol, note = check_vit(
                     torch, f"vit_attention S={seq}", dtype, batch, out,
                     vit_attention_reference(qkv, heads),
@@ -6098,11 +6128,13 @@ def long_kernels(torch, seed: int, summary: dict) -> dict:
                     f"{heads} heads of {head}, B={batch}: forward "
                     f"max_abs_err {err:.3e} (tol {tol:.3g}){note}; backward "
                     f"{berr:.3e} (tol {btol:.3g}){bnote}, the same digits "
-                    "on two runs")
+                    f"on two runs; grids {json.dumps(grids)}, wgmma "
+                    f"{json.dumps(wgmma)}")
                 checks.append({"seq": seq, "heads": heads, "head": head,
                                "dtype": kind, "forward": [err, tol],
-                               "backward": [berr, btol]})
-                del qkv, g, out, dqkv, again
+                               "backward": [berr, btol], "grids": grids,
+                               "launches_wgmma": wgmma})
+                del qkv, g, out, dqkv, again, again_d
 
     batch, seq, heads, head = BATCH, LONG_TOKENS, VIT_HEADS, VIT_HEAD
     qkv = torch.randn(batch, seq, 3 * heads * head, generator=gen,
@@ -6151,6 +6183,8 @@ def long_kernels(torch, seed: int, summary: dict) -> dict:
         f"merge {library_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
         f"{least['bound_by']} = {least['bound_ms'] / ms:.1%} of the kernel")
     del qkv, g, dqkv, leaf, lib_out
+    long_small_batches(torch, gen, F, summary, vit_attention_cuda,
+                       vit_attention_backward_cuda)
 
     # Kernel 3 at the 448-px ViT's 28 x 28 grid, on the f32 features the
     # model pools.
@@ -6178,6 +6212,44 @@ def long_kernels(torch, seed: int, summary: dict) -> dict:
     del v, att, out
     torch.cuda.empty_cache()
     return {"checks": checks}
+
+
+def long_small_batches(torch, gen, F, summary, vit_attention_cuda,
+                       vit_attention_backward_cuda) -> None:
+    """Kernels 4 and 5 at S = 784, four heads of 64, bf16, B = 1 and 8 (the
+    serving buckets; at B = 1 the plan's blocks of one consumer warpgroup)
+    beside SDPA's forward and backward and their bounds: ``s784_small``
+    under each kernel in the kernels line."""
+    seq, heads, head = LONG_TOKENS, VIT_HEADS, VIT_HEAD
+    for name in ("vit_attention", "vit_attention_backward"):
+        summary[name]["s784_small"] = {}
+    for batch in (1, 8):
+        qkv = torch.randn(batch, seq, 3 * heads * head, generator=gen,
+                          device="cuda").bfloat16()
+        g = torch.randn(batch, seq, heads * head, generator=gen,
+                        device="cuda").bfloat16()
+        product = 2.0 * batch * heads * seq * seq * head
+        leaf = qkv.detach().requires_grad_(True)
+        lib_out = sdpa_qkv(F, leaf, heads, head)
+        out = vit_attention_cuda(qkv, heads)
+        fwd_ms, lib_fwd_ms, bwd_ms, lib_bwd_ms = timed_turns(torch, [
+            lambda: vit_attention_cuda(qkv, heads),
+            lambda: sdpa_qkv(F, qkv, heads, head),
+            lambda: vit_attention_backward_cuda(qkv, g, heads),
+            lambda: torch.autograd.grad(lib_out, leaf, g, retain_graph=True)],
+            iters=50)
+        for name, ms, lib_ms, least in (
+                ("vit_attention", fwd_ms, lib_fwd_ms,
+                 bound(nbytes(qkv, out), 2 * product, "bf16")),
+                ("vit_attention_backward", bwd_ms, lib_bwd_ms,
+                 bound(nbytes(qkv, g, qkv), 5 * product, "bf16"))):
+            summary[name]["s784_small"][str(batch)] = {
+                "ms": ms, "library_ms": lib_ms, **least}
+            log(f"kernel {name} bf16 B={batch} S={seq}: kernel {ms:.4f} ms, "
+                f"SDPA {lib_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+                f"{least['bound_by']} = {least['bound_ms'] / ms:.1%} of the "
+                "kernel")
+        del qkv, g, leaf, lib_out, out
 
 
 def long_e2e_phase(torch, seed: int, recurrence: int) -> tuple:
@@ -6233,6 +6305,7 @@ def long_e2e_phase(torch, seed: int, recurrence: int) -> tuple:
     eval_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = read_launches(wrappers, "the 448-px ViT journey")
+    wgmma = wgmma_launches(wrappers)
     train_ds, val_ds = (
         VQADataset.load(VQADataset.cache_path(prof[split]["vqaDataset"]))
         for split in ("train_paths", "val_paths"))
@@ -6252,6 +6325,9 @@ def long_e2e_phase(torch, seed: int, recurrence: int) -> tuple:
     require(launches == {**dict.fromkeys(wrappers, 0), **expected},
             f"kernel launches on the 448-px ViT journey: {launches}, "
             f"expected {expected}")
+    require(wgmma == {name: launches[name] for name in WGMMA_COUNTED},
+            f"the 448-px ViT journey: {wgmma} wgmma grids of kernels 4 and "
+            f"5, of {launches}")
     require(abs(score - best) <= TOL["e2e_eval_score"],
             f"evaluate_vqa {score} against the loop's best {best}")
     log(f"long_sequence e2e: corpus of {LONG_TRAIN} + {LONG_VAL} questions "
@@ -6265,6 +6341,7 @@ def long_e2e_phase(torch, seed: int, recurrence: int) -> tuple:
         name="long_e2e")
     numbers.update(corpus_s=corpus_s, train_s=train_s, eval_s=eval_s,
                    best_score=best, evaluate_score=score,
+                   launches_wgmma=wgmma,
                    phase_s=time.perf_counter() - phase_start)
     shutil.rmtree(root, ignore_errors=True)
     return launches, numbers
@@ -6301,6 +6378,19 @@ def long_sequence_phase(torch, seed: int, profile: bool, recurrence: int,
     numbers.update(serving=served, training=trained)
     paths["vit448_e2e"], numbers["e2e"] = long_e2e_phase(torch, seed,
                                                          recurrence)
+    # Every grid of kernels 4 and 5 on the 448-px paths is a wgmma grid.
+    for path, got in (("vit448_serving", served), ("vit448_training", trained),
+                      ("vit448_e2e", numbers["e2e"])):
+        want = {name: paths[path][name] for name in WGMMA_COUNTED}
+        require(got["launches_wgmma"] == want,
+                f"{path}: {got['launches_wgmma']} wgmma grids of kernels 4 "
+                f"and 5, of {want}")
+        log(f"{path}: kernels 4 and 5 launched {json.dumps(want)} grids, "
+            f"all counted by launches_wgmma")
+    for name in WGMMA_COUNTED:
+        summary[name]["s784"]["launches_wgmma_448"] = sum(
+            paths[path][name] for path in
+            ("vit448_serving", "vit448_training", "vit448_e2e"))
     numbers["phase_s"] = time.perf_counter() - phase_start
     return paths, numbers
 
@@ -6776,7 +6866,9 @@ def main(argv=None) -> int:
     # kernel D at the model's shapes in int8.
     mma = {"conv_relu_pool_fused": "wgmma", "vit_mlp_fused": "wgmma",
            "conv_relu_pool_stem": "mma.sync",
-           "conv_relu_pool_int8": "wgmma"}
+           "conv_relu_pool_int8": "wgmma",
+           "vit_attention": "mma.sync; wgmma past 256 tokens",
+           "vit_attention_backward": "mma.sync; wgmma past 256 tokens"}
     # launches: the grids of all paths together, each path counted from 0:
     # serving is 8 requests, training 8 train steps and an eval step, the
     # fused_ops train and eval paths one step each, the layout probe its

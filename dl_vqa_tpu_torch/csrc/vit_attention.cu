@@ -22,11 +22,18 @@
 // Past 256 tokens (the 448-px ViT's 784) the function is bound by its
 // operations instead: 322 GFLOP against 0.82 GB at B = 512, S = 784, 0.326
 // ms at the bf16 tensor-core peak. There no score row fits a warp's
-// registers, and the key-tile kernels below (attention_mma_long_kernel,
-// attention_fma_long_kernel; vit_attention.cuh) walk the keys a tile at a
+// registers, and the key-tile kernels below walk the keys a tile at a
 // time, taking a pass for the row max before the pass for the sums: 1.5
 // times the score products, in exchange for the plain version's rounding
-// points at every length.
+// points at every length. bf16 heads of 64 and 128 take
+// attention_wgmma_kernel (vit_attention_wgmma.cuh: every product on wgmma,
+// the tiles brought by TMA through an mbarrier ring by a producer
+// warpgroup, two consumer warpgroups of 64 query rows, each issuing a
+// unit's products ahead of the unit before's softmax so that the softmax
+// runs under them); other heads attention_mma_long_kernel (mma.sync over a
+// cp.async ring), f32 attention_fma_long_kernel. The tiling of the wgmma
+// kernel is ops/vit_attention.py::attention_plan's. No library kernel is
+// called.
 //
 // Design, bf16, D = 64 (ldmatrix + mma.sync m16n8k16, f32 accumulate):
 //  - A block takes one (image, head) and all of its 16-row query slabs,
@@ -70,7 +77,7 @@
 // over the slices), which keeps the f32 products exact rather than rounding
 // them to TF32; it is off the main path and slower than its plain version.
 
-#include "vit_attention.cuh"
+#include "vit_attention_wgmma.cuh"
 
 namespace {
 
@@ -484,6 +491,189 @@ cudaError_t run_bf16_long(const bf16* qkv, bf16* out, int batch, int seq,
   return cudaGetLastError();
 }
 
+// bf16, heads of 64 and 128, where the plan names the wgmma design (past
+// kMaxRowSeq tokens; vit_attention_wgmma.cuh): a block of plan.rows query
+// rows, a consumer warpgroup for each 64 of them, and a producer warpgroup
+// whose one thread stages the block's q rows once and then, through the
+// ring, each 64-key tile of k (pass 1) and of k and v (pass 2): a unit.
+// Pass 1: s = f32(q . k^T) * scale (wgmma, both operands from shared
+// memory), keys at or past S masked, the row max m. Pass 2: s again, e =
+// exp(s - m) in f32, its f32 sum, cast(e) rounded in registers into
+// wgmma's register A, o += cast(e) . v (v MN-major); at the end o / sum,
+// rounded and stored. The tensor cores take the next unit's scores and the
+// unit before's e . v while a unit's softmax runs.
+template <int kSlices, int kConsumers>
+__global__ void __launch_bounds__((1 + kConsumers) * kWgThreads, 1)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                       bf16* __restrict__ out,  // [B, S, H * D]
+                       int seq, int heads, int rows, int stages,
+                       float scale) {
+  namespace wg = vqa::wgmma;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int q_slice_bytes = rows * 128;  // [rows][64] a head slice
+  unsigned char* ring_s = smem + kSlices * q_slice_bytes;
+  constexpr int kStageBytes = 2 * kSlices * kSliceBytes;  // k | v slices
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_s + stages * kStageBytes);
+  uint64_t* empty = full + stages;
+  uint64_t* q_full = empty + stages;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  constexpr int kHead = kSlices * kSlice;
+  const int dim = heads * kHead;
+  const int q0 = blockIdx.x * rows;
+  const int active = consumers(q0, rows, seq);
+  const int tiles = (seq + kRingRows - 1) / kRingRows, units = 2 * tiles;
+  const int wgi = threadIdx.x / kWgThreads;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      ring::init(&full[s], 1);
+      ring::init(&empty[s], 4 * active);  // each consumer warp
+    }
+    ring::init(q_full, 1);
+    ring::init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // the producer
+    wg::regs_release<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    ring::expect(q_full, kSlices * active * kSliceBytes);
+    for (int sl = 0; sl < kSlices; ++sl)
+      for (int c = 0; c < active; ++c)
+        ring::load_3d(smem + sl * q_slice_bytes + c * kSliceBytes, &qkv_map,
+                      h * kHead + sl * kSlice, q0 + c * kRingRows, b, q_full);
+    for (int u = 0; u < units; ++u) {
+      const int st = u % stages;
+      if (u >= stages) ring::wait(&empty[st], (u / stages - 1) & 1);
+      const bool with_v = u >= tiles;
+      const int key0 = (u % tiles) * kRingRows;
+      unsigned char* stage = ring_s + st * kStageBytes;
+      ring::expect(&full[st], (with_v ? 2 : 1) * kSlices * kSliceBytes);
+      for (int sl = 0; sl < kSlices; ++sl) {
+        ring::load_3d(stage + sl * kSliceBytes, &qkv_map,
+                      dim + h * kHead + sl * kSlice, key0, b, &full[st]);
+        if (with_v)
+          ring::load_3d(stage + (kSlices + sl) * kSliceBytes, &qkv_map,
+                        2 * dim + h * kHead + sl * kSlice, key0, b,
+                        &full[st]);
+      }
+    }
+    return;
+  }
+
+  // A consumer: 64 query rows, a warp 16 of them. Each pass is a loop of
+  // its own, every wgmma group issued, committed and waited for in
+  // straight-line code (vit_attention_wgmma.cuh); the other consumers
+  // compute while this one waits.
+  const int c = wgi - 1;
+  if (c >= active) return;
+  wg::regs_take<ConsumerRegs<kConsumers>::value>();
+  const int warp = threadIdx.x % kWgThreads / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + c * kRingRows + warp * 16;
+  const uint32_t q_addr = wg::smem_addr(smem) + c * kSliceBytes;
+  const uint32_t ring_addr = wg::smem_addr(ring_s);
+  auto stage_of = [&](int u) { return ring_addr + u % stages * kStageBytes; };
+
+  float s[32], o[kSlices][32];
+  zero_acc(s);
+#pragma unroll
+  for (int sl = 0; sl < kSlices; ++sl) zero_acc(o[sl]);
+  float m_lo = -INFINITY, m_hi = -INFINITY, sum_lo = 0.0f, sum_hi = 0.0f;
+  ring::wait(q_full, 0);
+  int u = 0;  // the ring's unit
+  for (int t = 0; t < tiles; ++t, ++u) {  // pass 1: the row max
+    ring::wait(&full[u % stages], (u / stages) & 1);
+    issue_scores<kSlices>(s, q_addr, q_slice_bytes, stage_of(u));
+    wg::wait<0>();
+    wg::fence_operand(s);
+    release(&empty[u % stages], lane);
+    mask_keys(s, t * kRingRows, seq, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m_lo = fmaxf(m_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+      m_hi = fmaxf(m_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+  }
+  m_lo = quad_max(m_lo) * scale;
+  m_hi = quad_max(m_hi) * scale;
+  for (int t = 0; t < tiles; ++t, ++u) {  // pass 2: the sums and e . v
+    const uint32_t stage = stage_of(u);
+    ring::wait(&full[u % stages], (u / stages) & 1);
+    issue_scores<kSlices>(s, q_addr, q_slice_bytes, stage);
+    wg::wait<0>();
+    wg::fence_operand(s);
+    mask_keys(s, t * kRingRows, seq, lane);
+    // e in f32, summed before it is rounded; cast(e) is register A.
+    unsigned ea[4][4];
+    pack_a(ea, [&](int j, int x) {
+      const float e =
+          expf(shifted<kSlices>(s[4 * j + x], scale, x < 2 ? m_lo : m_hi));
+      if (x < 2)
+        sum_lo += e;
+      else
+        sum_hi += e;
+      return e;
+    });
+#pragma unroll
+    for (int sl = 0; sl < kSlices; ++sl) wg::fence_operand(o[sl]);
+    wg::fence();
+#pragma unroll
+    for (int sl = 0; sl < kSlices; ++sl)
+      tile_product(o[sl], ea, stage + (kSlices + sl) * kSliceBytes);
+    wg::commit();
+    wg::wait<0>();
+#pragma unroll
+    for (int sl = 0; sl < kSlices; ++sl) wg::fence_operand(o[sl]);
+    release(&empty[u % stages], lane);
+  }
+  const float lo = quad_sum(sum_lo), hi = quad_sum(sum_hi);
+#pragma unroll
+  for (int sl = 0; sl < kSlices; ++sl) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[sl][4 * j] /= lo;
+      o[sl][4 * j + 1] /= lo;
+      o[sl][4 * j + 2] /= hi;
+      o[sl][4 * j + 3] /= hi;
+    }
+    store_acc(out + static_cast<size_t>(b) * seq * dim + h * kHead +
+                  sl * kSlice,
+              dim, row0, seq, o[sl], 1.0f, lane);
+  }
+}
+
+cudaError_t run_bf16_wgmma(const bf16* qkv, bf16* out, int batch, int seq,
+                           int heads, int slices, float scale,
+                           const Plan& plan, cudaStream_t stream) {
+  if (!plan_shape_ok(plan) || slices > 2) return cudaErrorInvalidValue;
+  const size_t need =
+      ring_shared(static_cast<size_t>(slices) * plan.rows * 128,
+                  2 * slices * kSliceBytes, plan.stages);
+  if (need > static_cast<size_t>(plan.shared) || plan.shared > kMaxShared)
+    return cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t err = slice_map(&map, qkv, 3 * heads * slices * kSlice, seq,
+                              batch);
+  if (err != cudaSuccess) return err;
+  // Blocks of three consumer warpgroups where the plan's rows are 192,
+  // else of two (one of them idle for rows of 64).
+  const bool three = plan.rows == 3 * kRingRows;
+  auto kernel = slices == 1 ? (three ? attention_wgmma_kernel<1, 3>
+                                     : attention_wgmma_kernel<1, 2>)
+                            : (three ? attention_wgmma_kernel<2, 3>
+                                     : attention_wgmma_kernel<2, 2>);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             plan.shared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + plan.rows - 1) / plan.rows, heads, batch);
+  kernel<<<grid, (three ? 4 : 3) * kWgThreads, plan.shared, stream>>>(
+      map, out, seq, heads, plan.rows, plan.stages, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run_bf16(const bf16* qkv, bf16* out, int batch, int seq,
                      int heads, int slices, float scale, int sms,
                      cudaStream_t stream) {
@@ -749,15 +939,29 @@ cudaError_t run_f32(const float* qkv, float* out, int batch, int seq,
 // names, D = `head` a multiple of 64 and `scale` its 1 / sqrt(D) as the
 // caller rounds it to f32 (a head of 64 has the exact 2^-3); `sms` is the
 // device's SM count (bf16, D = 64: below it in (image, head) pairs, a head's
-// query slabs spread over several blocks). One grid.
+// query slabs spread over several blocks). `design` and the seven plan
+// numbers after it are ops/vit_attention.py::attention_plan's c_args: design
+// 1 runs the wgmma kernel with that plan, 0 the kernels above. One grid.
 extern "C" int vqa_vit_attention(const void* qkv, void* out, int batch,
                                  int seq, int heads, int head, float scale,
-                                 int sms, int dtype, void* stream) {
+                                 int sms, int dtype, int design, int rows,
+                                 int key_tile, int stages, int shared,
+                                 int shared_dq, int shared_dkdv,
+                                 int stats_len, void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return cudaSuccess;
   if (head < kSlice || head % kSlice) return cudaErrorInvalidValue;
   if (head == kSlice && scale != kScale) return cudaErrorInvalidValue;
   const int slices = head / kSlice;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == 1) {
+    if (dtype != vqa::kBFloat16) return cudaErrorInvalidValue;
+    const Plan plan{rows,   key_tile,  stages,     shared,
+                    shared_dq, shared_dkdv, stats_len};
+    return run_bf16_wgmma(static_cast<const bf16*>(qkv),
+                          static_cast<bf16*>(out), batch, seq, heads, slices,
+                          scale, plan, s);
+  }
+  if (design != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case vqa::kBFloat16:
       return run_bf16(static_cast<const bf16*>(qkv), static_cast<bf16*>(out),

@@ -19,10 +19,16 @@
 //
 // Past 256 tokens it is bound by its operations: 805 GFLOP against 1.44 GB
 // at B = 512, S = 784 (0.814 ms at the bf16 tensor-core peak). There the
-// two-grid path walks key (and query) tiles through a cp.async ring, with
-// a pass over the tiles for each row statistic (attention_bwd_*_long_kernel,
-// vit_attention.cuh): eleven products' worth of tensor-core work for the
-// function's five, the plain version's casts of w and dz kept.
+// two-grid path walks key (and query) tiles through a ring, with a pass
+// over the tiles for each row statistic: eleven products' worth of
+// tensor-core work for the function's five, the plain version's casts of w
+// and dz kept. bf16 heads of 64 and 128 take attention_bwd_dq_wgmma_kernel
+// and attention_bwd_dkdv_wgmma_kernel (every product on wgmma, TMA loads
+// through an mbarrier ring, two consumer warpgroups each issuing a unit's
+// products ahead of the unit before's softmax; vit_attention_wgmma.cuh,
+// tiled by ops/vit_attention.py::attention_plan), other heads and f32
+// attention_bwd_*_long_kernel (mma.sync or FMAs over a cp.async ring). No
+// library kernel is called.
 //
 // Design, bf16 (ldmatrix + mma.sync m16n8k16, f32 accumulate): one grid, a
 // block per (image, head), no atomics, the same digits on every run. dq sums
@@ -56,7 +62,7 @@
 // writes the statistics to a device scratch [B, H, 3, S]; dk and dv over key
 // tiles); it is off the main path and slower than its plain version.
 
-#include "vit_attention.cuh"
+#include "vit_attention_wgmma.cuh"
 
 namespace {
 
@@ -1047,6 +1053,450 @@ cudaError_t run_bf16_long(const bf16* qkv, const bf16* g, bf16* dqkv,
   return cudaGetLastError();
 }
 
+// bf16, heads of 64 and 128, where the plan names the wgmma design (past
+// kMaxRowSeq tokens; vit_attention_wgmma.cuh): the two grids of
+// attention_bwd_*_long_kernel with every product on wgmma and the loads on
+// TMA through a ring, at the same passes and rounding points.
+//
+// Grid 1 (dq and the statistics): a block of plan.rows query rows, a
+// consumer warpgroup for each 64, q's and g's rows of the block staged once;
+// the ring carries each 64-key tile of k (passes 0 and 1) or of k and v
+// (passes 2 on). Pass 0: s = f32(q . k^T) * scale, keys at or past S
+// masked, m = rowmax(s). Pass 1: denom, the f32 sum of e = exp(s - m). Pass
+// 2: w = cast(e / denom), dw = f32(g . v^T), delta = rowsum(dw * w); m,
+// denom and delta go to `stats`. Pass 3 + o for each 64-wide head slice o:
+// dz = cast(w (dw - delta)) as wgmma's register A, dq's slice o += dz . k's
+// slice o (the same k tile read MN-major); stored times scale.
+template <int kSlices, int kConsumers>
+__global__ void __launch_bounds__((1 + kConsumers) * kWgThreads, 1)
+attention_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                              const __grid_constant__ CUtensorMap g_map,
+                              bf16* __restrict__ dqkv,    // [B, S, 3 * H * D]
+                              float* __restrict__ stats,  // [B, H, 3, len]
+                              int seq, int heads, int rows, int stages,
+                              int stats_len, float scale) {
+  namespace wg = vqa::wgmma;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int slice_bytes = rows * 128;  // [rows][64] a head slice
+  unsigned char* q_s = smem;
+  unsigned char* g_s = smem + kSlices * slice_bytes;
+  unsigned char* ring_s = g_s + kSlices * slice_bytes;
+  constexpr int kStageBytes = 2 * kSlices * kSliceBytes;  // k | v slices
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_s + stages * kStageBytes);
+  uint64_t* empty = full + stages;
+  uint64_t* fixed_full = empty + stages;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  constexpr int kHead = kSlices * kSlice;
+  const int dim = heads * kHead;
+  const int q0 = blockIdx.x * rows;
+  const int active = consumers(q0, rows, seq);
+  const int tiles = (seq + kRingRows - 1) / kRingRows;
+  const int units = (3 + kSlices) * tiles;
+  const int wgi = threadIdx.x / kWgThreads;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      ring::init(&full[s], 1);
+      ring::init(&empty[s], 4 * active);
+    }
+    ring::init(fixed_full, 1);
+    ring::init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // the producer
+    wg::regs_release<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    ring::expect(fixed_full, 2 * kSlices * active * kSliceBytes);
+    for (int sl = 0; sl < kSlices; ++sl)
+      for (int c = 0; c < active; ++c) {
+        const int at = sl * slice_bytes + c * kSliceBytes;
+        const int col = h * kHead + sl * kSlice, row = q0 + c * kRingRows;
+        ring::load_3d(q_s + at, &qkv_map, col, row, b, fixed_full);
+        ring::load_3d(g_s + at, &g_map, col, row, b, fixed_full);
+      }
+    for (int u = 0; u < units; ++u) {
+      const int st = u % stages;
+      if (u >= stages) ring::wait(&empty[st], (u / stages - 1) & 1);
+      const bool with_v = u / tiles >= 2;
+      const int key0 = (u % tiles) * kRingRows;
+      unsigned char* stage = ring_s + st * kStageBytes;
+      ring::expect(&full[st], (with_v ? 2 : 1) * kSlices * kSliceBytes);
+      for (int sl = 0; sl < kSlices; ++sl) {
+        ring::load_3d(stage + sl * kSliceBytes, &qkv_map,
+                      dim + h * kHead + sl * kSlice, key0, b, &full[st]);
+        if (with_v)
+          ring::load_3d(stage + (kSlices + sl) * kSliceBytes, &qkv_map,
+                        2 * dim + h * kHead + sl * kSlice, key0, b,
+                        &full[st]);
+      }
+    }
+    return;
+  }
+
+  const int c = wgi - 1;
+  if (c >= active) return;
+  wg::regs_take<ConsumerRegs<kConsumers>::value>();
+  const int warp = threadIdx.x % kWgThreads / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + c * kRingRows + warp * 16;
+  const uint32_t q_addr = wg::smem_addr(q_s) + c * kSliceBytes;
+  const uint32_t g_addr = wg::smem_addr(g_s) + c * kSliceBytes;
+  const uint32_t ring_addr = wg::smem_addr(ring_s);
+  float* stat = stats + (static_cast<size_t>(b) * heads + h) * 3 * stats_len;
+
+  // Each pass is a loop of its own, every wgmma group issued, committed and
+  // waited for in straight-line code (vit_attention_wgmma.cuh).
+  float s[32], dw[32], dq[32];
+  zero_acc(s);
+  zero_acc(dw);
+  zero_acc(dq);
+  float m_lo = -INFINITY, m_hi = -INFINITY, den_lo = 0.0f, den_hi = 0.0f;
+  float del_lo = 0.0f, del_hi = 0.0f;
+  auto stage_of = [&](int u) { return ring_addr + u % stages * kStageBytes; };
+  // The scores of unit u (and dw = f32(g . v^T) with `with_dw`), waited for.
+  auto products = [&](int u, auto with_dw) {
+    ring::wait(&full[u % stages], (u / stages) & 1);
+    wg::fence_operand(s);
+    wg::fence_operand(dw);
+    wg::fence();
+    score_product<kSlices>(s, q_addr, slice_bytes, stage_of(u));
+    if constexpr (decltype(with_dw)::value)
+      score_product<kSlices>(dw, g_addr, slice_bytes,
+                             stage_of(u) + kSlices * kSliceBytes);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(s);
+    wg::fence_operand(dw);
+  };
+  using NoDw = std::false_type;
+  using WithDw = std::true_type;
+  auto e_of = [&](int i) {
+    return expf(shifted<kSlices>(s[i], scale, i % 4 < 2 ? m_lo : m_hi));
+  };
+  // w = cast(e / denom) of the tile's scores: w[j][0] row l / 4, w[j][1]
+  // row l / 4 + 8.
+  auto weights = [&](unsigned (&w)[8][2]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      w[j][0] = pack2(e_of(4 * j) / den_lo, e_of(4 * j + 1) / den_lo);
+      w[j][1] = pack2(e_of(4 * j + 2) / den_hi, e_of(4 * j + 3) / den_hi);
+    }
+  };
+  ring::wait(fixed_full, 0);
+  int u = 0;  // the ring's unit
+  for (int pass = 0; pass < 2; ++pass) {  // m, then denom
+    for (int t = 0; t < tiles; ++t, ++u) {
+      products(u, NoDw());
+      release(&empty[u % stages], lane);
+      mask_keys(s, t * kRingRows, seq, lane);
+      if (pass == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          m_lo = fmaxf(m_lo, fmaxf(s[4 * j], s[4 * j + 1]));
+          m_hi = fmaxf(m_hi, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          den_lo += e_of(4 * j) + e_of(4 * j + 1);
+          den_hi += e_of(4 * j + 2) + e_of(4 * j + 3);
+        }
+      }
+    }
+    if (pass == 0) {
+      m_lo = quad_max(m_lo) * scale;
+      m_hi = quad_max(m_hi) * scale;
+    } else {
+      den_lo = quad_sum(den_lo);
+      den_hi = quad_sum(den_hi);
+    }
+  }
+  for (int t = 0; t < tiles; ++t, ++u) {  // pass 2: delta
+    products(u, WithDw());
+    release(&empty[u % stages], lane);
+    mask_keys(s, t * kRingRows, seq, lane);
+    unsigned w[8][2];
+    weights(w);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lo = unpack2(w[j][0]), hi = unpack2(w[j][1]);
+      del_lo += dw[4 * j] * lo.x + dw[4 * j + 1] * lo.y;
+      del_hi += dw[4 * j + 2] * hi.x + dw[4 * j + 3] * hi.y;
+    }
+  }
+  del_lo = quad_sum(del_lo);
+  del_hi = quad_sum(del_hi);
+  if (lane % 4 == 0) {
+    const float row_stats[2][3] = {{m_lo, den_lo, del_lo},
+                                   {m_hi, den_hi, del_hi}};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + lane / 4 + 8 * half;
+      if (row < seq)
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          stat[p * stats_len + row] = row_stats[half][p];
+    }
+  }
+  for (int o = 0; o < kSlices; ++o) {  // pass 3 + o: dq's slice o
+    for (int t = 0; t < tiles; ++t, ++u) {
+      products(u, WithDw());
+      mask_keys(s, t * kRingRows, seq, lane);
+      unsigned w[8][2];
+      weights(w);
+      // dz = cast(w (dw - delta)) as register A of dq += dz . k.
+      unsigned za[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lo = unpack2(w[j][0]), hi = unpack2(w[j][1]);
+        za[j / 2][2 * (j % 2)] = pack2(lo.x * (dw[4 * j] - del_lo),
+                                       lo.y * (dw[4 * j + 1] - del_lo));
+        za[j / 2][2 * (j % 2) + 1] = pack2(hi.x * (dw[4 * j + 2] - del_hi),
+                                           hi.y * (dw[4 * j + 3] - del_hi));
+      }
+      wg::fence_operand(dq);
+      wg::fence();
+      tile_product(dq, za, stage_of(u) + o * kSliceBytes);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(dq);
+      release(&empty[u % stages], lane);
+    }
+    store_acc(dqkv + static_cast<size_t>(b) * seq * 3 * dim + h * kHead +
+                  o * kSlice,
+              3 * dim, row0, seq, dq, scale, lane);
+    zero_acc(dq);
+  }
+}
+
+// Grid 2 (dk and dv): a block of plan.rows key rows, a consumer warpgroup
+// for each 64, k's and v's rows of the block staged once; the ring carries
+// each 64-query tile of q and g with its three statistics rows (a pass for
+// each 64-wide output slice o). s^T = f32(k . q^T) and dw^T = f32(v . g^T)
+// are computed transposed, so w^T = cast(e / denom) and dz^T = cast(w (dw^T
+// - delta)), from the statistics and the same arithmetic as grid 1, are
+// wgmma's register A as they lie; dv's slice o += w^T . g and dk's += dz^T .
+// q read the tile's slice o MN-major. A query at or past S has m = 0,
+// denom = 1 and delta = 0, and its zero-filled g and q rows add nothing.
+// Unlike grid 1's, these statistics are per column of the accumulator, so
+// w^T and dz^T are made from them directly, with no row reduction.
+template <int kSlices, int kConsumers>
+__global__ void __launch_bounds__((1 + kConsumers) * kWgThreads, 1)
+attention_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                                const __grid_constant__ CUtensorMap g_map,
+                                const __grid_constant__ CUtensorMap stats_map,
+                                bf16* __restrict__ dqkv,  // [B, S, 3 * H * D]
+                                int seq, int heads, int rows, int stages,
+                                float scale) {
+  namespace wg = vqa::wgmma;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int slice_bytes = rows * 128;
+  unsigned char* k_s = smem;
+  unsigned char* v_s = smem + kSlices * slice_bytes;
+  unsigned char* ring_s = v_s + kSlices * slice_bytes;
+  // q slices | g slices | the statistics [3][64]
+  constexpr int kStageBytes = 2 * kSlices * kSliceBytes + kStatBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_s + stages * kStageBytes);
+  uint64_t* empty = full + stages;
+  uint64_t* fixed_full = empty + stages;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  constexpr int kHead = kSlices * kSlice;
+  const int dim = heads * kHead;
+  const int k0 = blockIdx.x * rows;
+  const int active = consumers(k0, rows, seq);
+  const int tiles = (seq + kRingRows - 1) / kRingRows;
+  const int units = kSlices * tiles;
+  const int wgi = threadIdx.x / kWgThreads;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      ring::init(&full[s], 1);
+      ring::init(&empty[s], 4 * active);
+    }
+    ring::init(fixed_full, 1);
+    ring::init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // the producer
+    wg::regs_release<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    ring::expect(fixed_full, 2 * kSlices * active * kSliceBytes);
+    for (int sl = 0; sl < kSlices; ++sl)
+      for (int c = 0; c < active; ++c) {
+        const int at = sl * slice_bytes + c * kSliceBytes;
+        const int col = h * kHead + sl * kSlice, row = k0 + c * kRingRows;
+        ring::load_3d(k_s + at, &qkv_map, dim + col, row, b, fixed_full);
+        ring::load_3d(v_s + at, &qkv_map, 2 * dim + col, row, b, fixed_full);
+      }
+    for (int u = 0; u < units; ++u) {
+      const int st = u % stages;
+      if (u >= stages) ring::wait(&empty[st], (u / stages - 1) & 1);
+      const int row = (u % tiles) * kRingRows;
+      unsigned char* stage = ring_s + st * kStageBytes;
+      ring::expect(&full[st],
+                   2 * kSlices * kSliceBytes + 3 * kRingRows * sizeof(float));
+      for (int sl = 0; sl < kSlices; ++sl) {
+        const int col = h * kHead + sl * kSlice;
+        ring::load_3d(stage + sl * kSliceBytes, &qkv_map, col, row, b,
+                      &full[st]);
+        ring::load_3d(stage + (kSlices + sl) * kSliceBytes, &g_map, col, row,
+                      b, &full[st]);
+      }
+      ring::load_2d(stage + 2 * kSlices * kSliceBytes, &stats_map, row,
+                    (b * heads + h) * 3, &full[st]);
+    }
+    return;
+  }
+
+  const int c = wgi - 1;
+  if (c >= active) return;
+  wg::regs_take<ConsumerRegs<kConsumers>::value>();
+  const int warp = threadIdx.x % kWgThreads / 32, lane = threadIdx.x % 32;
+  const int key0 = k0 + c * kRingRows + warp * 16;
+  const uint32_t k_addr = wg::smem_addr(k_s) + c * kSliceBytes;
+  const uint32_t v_addr = wg::smem_addr(v_s) + c * kSliceBytes;
+  const uint32_t ring_addr = wg::smem_addr(ring_s);
+
+  // Every wgmma group issued, committed and waited for in straight-line
+  // code (vit_attention_wgmma.cuh).
+  float st[32], dwt[32], dk[32], dv[32];
+  zero_acc(st);
+  zero_acc(dwt);
+  zero_acc(dk);
+  zero_acc(dv);
+  auto stage_of = [&](int u) { return ring_addr + u % stages * kStageBytes; };
+  ring::wait(fixed_full, 0);
+  int u = 0;  // the ring's unit
+  for (int o = 0; o < kSlices; ++o) {  // a pass for each output slice
+    for (int t = 0; t < tiles; ++t, ++u) {
+      const uint32_t stage = stage_of(u);
+      ring::wait(&full[u % stages], (u / stages) & 1);
+      wg::fence_operand(st);
+      wg::fence_operand(dwt);
+      wg::fence();
+      score_product<kSlices>(st, k_addr, slice_bytes, stage);
+      score_product<kSlices>(dwt, v_addr, slice_bytes,
+                             stage + kSlices * kSliceBytes);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(st);
+      wg::fence_operand(dwt);
+      // The statistics of the tile's query columns 8 j + 2 (l % 4) and the
+      // next, as pairs; a query at or past S (only in the tile that reaches
+      // past it) takes m = 0, denom = 1, delta = 0.
+      const int q0 = t * kRingRows;
+      const float* stat = reinterpret_cast<const float*>(
+          ring_s + u % stages * kStageBytes + 2 * kSlices * kSliceBytes);
+      const bool ragged = q0 + kRingRows > seq;
+      auto stats_at = [&](int p, int j, float none) {
+        const int qi = acc_col(j, 0, lane);
+        float2 v =
+            *reinterpret_cast<const float2*>(stat + p * kRingRows + qi);
+        if (ragged) {
+          if (q0 + qi >= seq) v.x = none;
+          if (q0 + qi + 1 >= seq) v.y = none;
+        }
+        return v;
+      };
+      // w^T = cast(e / denom) and dz^T = cast(w (dw^T - delta)) as register
+      // A ([key][query]).
+      unsigned wa[4][4], za[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 m = stats_at(0, j, 0.0f), den = stats_at(1, j, 1.0f);
+        const float2 del = stats_at(2, j, 0.0f);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int x = 4 * j + 2 * half;
+          const unsigned w = pack2(
+              expf(shifted<kSlices>(st[x], scale, m.x)) / den.x,
+              expf(shifted<kSlices>(st[x + 1], scale, m.y)) / den.y);
+          const float2 wf = unpack2(w);
+          wa[j / 2][2 * (j % 2) + half] = w;
+          za[j / 2][2 * (j % 2) + half] =
+              pack2(wf.x * (dwt[x] - del.x), wf.y * (dwt[x + 1] - del.y));
+        }
+      }
+      wg::fence_operand(dk);
+      wg::fence_operand(dv);
+      wg::fence();
+      tile_product(dv, wa, stage + (kSlices + o) * kSliceBytes);
+      tile_product(dk, za, stage + o * kSliceBytes);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(dk);
+      wg::fence_operand(dv);
+      release(&empty[u % stages], lane);
+    }
+    bf16* d_image = dqkv + static_cast<size_t>(b) * seq * 3 * dim +
+                    h * kHead + o * kSlice;
+    store_acc(d_image + dim, 3 * dim, key0, seq, dk, scale, lane);
+    store_acc(d_image + 2 * dim, 3 * dim, key0, seq, dv, 1.0f, lane);
+    zero_acc(dk);
+    zero_acc(dv);
+  }
+}
+
+cudaError_t run_bf16_wgmma(const bf16* qkv, const bf16* g, bf16* dqkv,
+                           float* stats, int batch, int seq, int heads,
+                           int slices, float scale, const Plan& plan,
+                           cudaStream_t stream) {
+  if (!plan_shape_ok(plan) || slices > 2 || stats == nullptr ||
+      plan.stats_len < seq || plan.stats_len % kRingRows)
+    return cudaErrorInvalidValue;
+  const size_t fixed = 2 * static_cast<size_t>(slices) * plan.rows * 128;
+  const size_t stage = 2 * slices * kSliceBytes;
+  if (ring_shared(fixed, stage, plan.stages) >
+          static_cast<size_t>(plan.shared_dq) ||
+      ring_shared(fixed, stage + kStatBytes, plan.stages) >
+          static_cast<size_t>(plan.shared_dkdv) ||
+      plan.shared_dq > kMaxShared || plan.shared_dkdv > kMaxShared)
+    return cudaErrorInvalidValue;
+  const int width = heads * slices * kSlice;
+  CUtensorMap qkv_map, g_map, st_map;
+  cudaError_t err = slice_map(&qkv_map, qkv, 3 * width, seq, batch);
+  if (err == cudaSuccess) err = slice_map(&g_map, g, width, seq, batch);
+  if (err == cudaSuccess)
+    err = stats_map(&st_map, stats, batch * heads * 3, plan.stats_len);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + plan.rows - 1) / plan.rows, heads, batch);
+  // Blocks of three consumer warpgroups where the plan's rows are 192,
+  // else of two (one of them idle for rows of 64).
+  const bool three = plan.rows == 3 * kRingRows;
+  const int threads = (three ? 4 : 3) * kWgThreads;
+  auto dq = slices == 1
+                ? (three ? attention_bwd_dq_wgmma_kernel<1, 3>
+                         : attention_bwd_dq_wgmma_kernel<1, 2>)
+                : (three ? attention_bwd_dq_wgmma_kernel<2, 3>
+                         : attention_bwd_dq_wgmma_kernel<2, 2>);
+  err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             plan.shared_dq);
+  if (err != cudaSuccess) return err;
+  dq<<<grid, threads, plan.shared_dq, stream>>>(
+      qkv_map, g_map, dqkv, stats, seq, heads, plan.rows, plan.stages,
+      plan.stats_len, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto dkdv = slices == 1
+                  ? (three ? attention_bwd_dkdv_wgmma_kernel<1, 3>
+                           : attention_bwd_dkdv_wgmma_kernel<1, 2>)
+                  : (three ? attention_bwd_dkdv_wgmma_kernel<2, 3>
+                           : attention_bwd_dkdv_wgmma_kernel<2, 2>);
+  err = cudaFuncSetAttribute(dkdv,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             plan.shared_dkdv);
+  if (err != cudaSuccess) return err;
+  dkdv<<<grid, threads, plan.shared_dkdv, stream>>>(
+      qkv_map, g_map, st_map, dqkv, seq, heads, plan.rows, plan.stages,
+      scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run_bf16(const bf16* qkv, const bf16* g, bf16* dqkv,
                      float* stats, int batch, int seq, int heads, int slices,
                      float scale, cudaStream_t stream) {
@@ -1641,19 +2091,34 @@ cudaError_t run_f32(const float* qkv, const float* g, float* dqkv,
 // qkv [B, S, 3 * H * D] and g [B, S, H * D] -> dqkv like qkv, all of the
 // type `dtype` names, D = `head` a multiple of 64 and `scale` its 1 /
 // sqrt(D) as the caller rounds it to f32 (a head of 64 has the exact 2^-3).
-// bf16 with D = 64: one grid, `stats` unused (may be null). Otherwise two
-// grids, and `stats` is an f32 scratch [B, H, 3, S] that the first writes
-// and the second reads.
-extern "C" int vqa_vit_attention_backward(const void* qkv, const void* g,
-                                          void* dqkv, void* stats, int batch,
-                                          int seq, int heads, int head,
-                                          float scale, int dtype,
-                                          void* stream) {
+// `design` and the seven plan numbers after it are
+// ops/vit_attention.py::attention_plan's c_args. Design 1: the wgmma grids
+// with that plan, `stats` an f32 scratch [B, H, 3, stats_len]. Design 0:
+// bf16 with D = 64 up to kMaxRowSeq tokens one grid, `stats` unused (may be
+// null); otherwise two grids, and `stats` is an f32 scratch [B, H, 3, S]
+// (stats_len = S) that the first writes and the second reads.
+extern "C" int vqa_vit_attention_backward(
+    const void* qkv, const void* g, void* dqkv, void* stats, int batch,
+    int seq, int heads, int head, float scale, int dtype, int design,
+    int rows, int key_tile, int stages, int shared, int shared_dq,
+    int shared_dkdv, int stats_len, void* stream) {
   if (batch == 0 || seq == 0 || heads == 0) return cudaSuccess;
   if (head < kSlice || head % kSlice) return cudaErrorInvalidValue;
   if (head == kSlice && scale != kScale) return cudaErrorInvalidValue;
   const int slices = head / kSlice;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == 1) {
+    if (dtype != vqa::kBFloat16) return cudaErrorInvalidValue;
+    const Plan plan{rows,   key_tile,  stages,     shared,
+                    shared_dq, shared_dkdv, stats_len};
+    return run_bf16_wgmma(static_cast<const bf16*>(qkv),
+                          static_cast<const bf16*>(g),
+                          static_cast<bf16*>(dqkv),
+                          static_cast<float*>(stats), batch, seq, heads,
+                          slices, scale, plan, s);
+  }
+  if (design != 0 || (stats != nullptr && stats_len != seq))
+    return cudaErrorInvalidValue;
   switch (dtype) {
     case vqa::kBFloat16:
       return run_bf16(static_cast<const bf16*>(qkv),

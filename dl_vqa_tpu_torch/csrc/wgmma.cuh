@@ -1,6 +1,7 @@
 // Warpgroup matrix multiply (wgmma, sm_90a) building blocks shared by the
 // kernels that feed Hopper's tensor cores from a warpgroup of four warps
-// (conv_relu_pool_fused.cu, vit_mlp_fused.cu, conv_relu_pool_int8.cu).
+// (conv_relu_pool_fused.cu, vit_mlp_fused.cu, conv_relu_pool_int8.cu, the
+// ViT attention's key-tile kernels in vit_attention_wgmma.cuh).
 //
 // Shared-memory operands: 128-byte-swizzled, K-major bf16 tiles. A tile of
 // R rows (M or N) by K columns is stored as K / 64 "atoms" one after the
@@ -61,6 +62,15 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
          (static_cast<uint64_t>(kAtomBytes >> 4) << 32) |  // 8-row stride
          (static_cast<uint64_t>(1) << 62);                // 128-byte swizzle
 }
+
+// An MN-major operand B (stored [K][N], N contiguous; taken with the
+// instruction's transpose-B bit, `mma_rs_mn64`) in 128-byte rows with the same
+// swizzle: a row is 64 N values at one k, and eight rows (k) are one
+// 1024-byte atom. For N = 64 (one atom across) `desc` describes it as it
+// stands: the stride between the two 8-k halves of a k16 step is the
+// 1024-byte field, and the leading offset (between atoms along N) is
+// unused. The k16 step s starts two atoms on, at tile + 2048 s.
+constexpr int kMnStepBytes = 2 * kAtomBytes;
 
 // Orders this thread's earlier register writes before the next wgmma.
 __device__ __forceinline__ void fence() {
@@ -238,6 +248,38 @@ __device__ __forceinline__ void mma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d[64, 64] (+)= A[64, 16] . B[16, 64] as `mma_rs<64>`, with B MN-major
+// (stored [K][N], see kMnStepBytes): the transpose-B bit set.
+__device__ __forceinline__ void mma_rs_mn64(float (&d)[32],
+                                            const unsigned (&a)[4],
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Moves registers between the warpgroups of a warp-specialised block: a
+// warpgroup that only issues copies gives them up, the ones that compute
+// take them. All four warps of a warpgroup execute it.
+template <int kRegs>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void regs_take() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
 
 // d[64, N] (+)= A[64, 32] . B[32, N], exact s32 sums of s8 products: A from
 // registers (per warp the mma.sync m16n8k32 A layout, which ldmatrix_x4 of

@@ -97,13 +97,17 @@ _SIGNATURES = {
     # v, att, out, batch, spatial, channels, glimpses, dtype code, stream
     "vqa_attention_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qkv, out, batch, seq, heads, head size, 1 / sqrt(head), the device's
-    # SM count, dtype code, stream
-    "vqa_vit_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    # qkv, g, dqkv, stats (f32 scratch [B, H, 3, S] of the two-grid paths;
-    # null for bf16 heads of 64), batch, seq, heads, head size, 1 /
-    # sqrt(head), dtype code, stream
-    "vqa_vit_attention_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                   _P],
+    # SM count, dtype code, the plan's c_args
+    # (ops/vit_attention.py::attention_plan: design, rows, key tile, stages,
+    # shared bytes of kernel 4 and of kernel 5's two grids, statistics row
+    # length), stream
+    "vqa_vit_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _I] + [_I] * 8
+                         + [_P],
+    # qkv, g, dqkv, stats (f32 scratch [B, H, 3, stats_len] of the two-grid
+    # paths; null for bf16 heads of 64 up to 256 tokens), batch, seq, heads,
+    # head size, 1 / sqrt(head), dtype code, the plan's c_args, stream
+    "vqa_vit_attention_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I]
+                                  + [_I] * 8 + [_P],
     # x, w [k * k, Cin, Cout], bias, out, batch, h, w, cin, cout, k, dtype
     # code, stream
     "vqa_conv_relu_pool_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

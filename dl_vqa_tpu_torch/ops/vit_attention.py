@@ -60,7 +60,9 @@ CPU tensors.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Tuple
 
 import torch
 
@@ -69,7 +71,8 @@ from dl_vqa_tpu_torch.ops import _native
 __all__ = ["vit_attention_reference", "vit_attention_cuda",
            "vit_attention_backward_reference", "vit_attention_backward_cuda",
            "VitAttention", "vit_attention", "vit_attention_weights_normalised",
-           "kernel_head"]
+           "kernel_head", "AttentionPlan", "attention_plan", "wgmma_plan",
+           "backward_grids"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SLICE = 64  # csrc/vit_attention.cuh kSlice: the kernels' heads are 64 n
@@ -169,8 +172,125 @@ def _check_cuda(qkv: torch.Tensor, num_heads: int, what: str) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     """SMs of CUDA device ``index``: below this many (image, head) pairs the
-    bf16 forward spreads a head's query slabs over several blocks."""
+    bf16 forward spreads a head's query slabs over several blocks, and the
+    wgmma design takes smaller blocks."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The wgmma design (csrc/vit_attention_wgmma.cuh): a ring tile is 64 rows of
+# every 64-wide head slice (128 bytes a row), a block 64, 128 or 192 rows of
+# its own (a consumer warpgroup each), 1024 bytes to align the tiles and 128
+# for the mbarriers; kernel 5's second grid adds a [3][64] f32 statistics
+# tile, padded to 1024 bytes, to each stage.
+WGMMA_HEADS = (64, 128)
+RING_ROWS = 64
+RING_STAGES = 4
+RING_MIN_STAGES = 2  # csrc kMinStages: one computed on, one loading
+# A block of n consumer warpgroups (64 n rows) takes about this much of the
+# time of a block of one: n of them share the SM, each hiding the others'
+# latency (`tools/compare_vit_attention.py --rows`, PERF.md).
+BLOCK_COST = {1: 1.0, 2: 1.25, 3: 1.5}
+SMEM_PER_BLOCK = 232448  # an sm_90 block's dynamic shared memory
+_SLICE_BYTES = RING_ROWS * 128
+_STAT_BYTES = 1024
+_ALIGN_BYTES, _BARRIER_BYTES = 1024, 128
+
+# Design names -> the C entries' design code: the wgmma kernels take their
+# tiling from the plan; every other design is the C entries' own dispatch,
+# which the plan only names.
+DESIGNS = {"rows_mma": 0, "key_tiles_mma": 0, "rows_fma": 0,
+           "key_tiles_fma": 0, "wgmma": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How kernels 4 and 5 take one shape (:func:`attention_plan`).
+    ``design``: ``rows_mma`` (bf16 up to :data:`ROW_SEQ` tokens, a score
+    row in a warp's registers, mma.sync), ``key_tiles_mma`` (bf16 past it,
+    heads of 192 and more: mma.sync over a cp.async ring), ``wgmma`` (bf16
+    past it, heads of 64 and 128), ``rows_fma`` and ``key_tiles_fma``
+    (f32). For ``wgmma``: ``rows`` a block (queries; keys in kernel 5's
+    second grid), ``key_tile`` rows a ring stage, ``stages``, the dynamic
+    shared bytes of kernel 4 (``shared``) and of kernel 5's grids
+    (``shared_dq``, ``shared_dkdv``); zero for the other designs, whose C
+    code tiles as it always has. ``grids``: kernel 5's grids a call.
+    ``stats_len``: a row of kernel 5's f32 statistics ``[B, H, 3,
+    stats_len]`` (0 where it has none)."""
+    design: str
+    grids: int
+    stats_len: int
+    rows: int = 0
+    key_tile: int = 0
+    stages: int = 0
+    shared: int = 0
+    shared_dq: int = 0
+    shared_dkdv: int = 0
+
+    def c_args(self) -> Tuple[int, ...]:
+        """The eight ints both C entries take after the dtype code."""
+        return (DESIGNS[self.design], self.rows, self.key_tile, self.stages,
+                self.shared, self.shared_dq, self.shared_dkdv,
+                self.stats_len)
+
+
+def ring_shared(fixed: int, stage: int, stages: int) -> int:
+    """Shared bytes of a wgmma block (``vit_attention_wgmma.cuh``
+    ``ring_shared``): the alignment, its own rows, the ring, the
+    mbarriers."""
+    return _ALIGN_BYTES + fixed + stages * stage + _BARRIER_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(dtype: torch.dtype, head: int, seq: int, batch: int,
+                   sms: int) -> AttentionPlan:
+    """Kernels 4 and 5 on ``batch`` (image, head) pairs (B times H) of
+    ``seq`` tokens and heads of ``head`` in ``dtype``, on a card of ``sms``
+    SMs. bf16 heads of 64 and 128 past :data:`ROW_SEQ` tokens take the
+    wgmma design: 64-row ring tiles, RING_STAGES stages (fewer where they
+    do not fit; RING_MIN_STAGES always do at these heads), and blocks of
+    one, two or three consumer warpgroups (64, 128 or 192 rows), whichever
+    takes the fewest waves of blocks over the SMs, a wave of blocks of n
+    consumers costing BLOCK_COST[n] (ties to the larger block): more
+    consumers a block hide more of each one's latency, fewer make more
+    blocks for a small batch. A row's arithmetic does not depend on the
+    block that takes it, so neither do its bits on ``batch`` or ``sms``."""
+    two = 2 if dtype == torch.float32 or head != HEAD_SLICE else 1
+    if seq <= ROW_SEQ:
+        design = "rows_mma" if dtype == torch.bfloat16 else "rows_fma"
+        return AttentionPlan(design, two, seq if two == 2 else 0)
+    if dtype != torch.bfloat16:
+        return AttentionPlan("key_tiles_fma", 2, seq)
+    if head not in WGMMA_HEADS:
+        return AttentionPlan("key_tiles_mma", 2, seq)
+    rows = RING_ROWS * min(
+        (3, 2, 1), key=lambda n: -(-batch * -(-seq // (n * RING_ROWS)) // sms)
+        * BLOCK_COST[n])
+    return wgmma_plan(head, seq, rows)
+
+
+def wgmma_plan(head: int, seq: int, rows: int) -> AttentionPlan:
+    """The wgmma design at heads of ``head`` (64 or 128), ``seq`` tokens
+    and blocks of ``rows`` rows (64, 128 or 192): the ring's stages and the
+    three kernels' shared bytes."""
+    slices = head // HEAD_SLICE
+    slice_rows = slices * rows * 128  # a block's rows of one tensor
+    # kernel 4: q; k | v a stage. kernel 5: q, g (k, v); k | v (q | g |
+    # statistics) a stage.
+    layouts = ((slice_rows, 2 * slices * _SLICE_BYTES),
+               (2 * slice_rows, 2 * slices * _SLICE_BYTES),
+               (2 * slice_rows, 2 * slices * _SLICE_BYTES + _STAT_BYTES))
+    stages = min(RING_STAGES, *(
+        (SMEM_PER_BLOCK - ring_shared(fixed, 0, 0)) // stage
+        for fixed, stage in layouts))
+    shared = [ring_shared(fixed, stage, stages) for fixed, stage in layouts]
+    return AttentionPlan("wgmma", 2, -(-seq // RING_ROWS) * RING_ROWS,
+                         rows, RING_ROWS, stages, *shared)
+
+
+def _plan(qkv: torch.Tensor, num_heads: int, head: int) -> AttentionPlan:
+    batch, seq, _ = qkv.shape
+    return attention_plan(qkv.dtype, head, seq, batch * num_heads,
+                          _sm_count(qkv.device.index))
 
 
 def vit_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -178,20 +298,24 @@ def vit_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     take."""
     head = _check_cuda(qkv, num_heads, "vit_attention_cuda")
     batch, seq, three_dim = qkv.shape
+    plan = _plan(qkv, num_heads, head)
     lib = _native.library()
     out = torch.empty(batch, seq, three_dim // 3, dtype=qkv.dtype,
                       device=qkv.device)
     code = lib.vqa_vit_attention(
         qkv.data_ptr(), out.data_ptr(), batch, seq, num_heads, head,
         _scale(head), _sm_count(qkv.device.index), _DTYPES[qkv.dtype],
-        _native.stream_ptr(qkv.device))
+        *plan.c_args(), _native.stream_ptr(qkv.device))
     _native.check("vit_attention", code)
     if batch and seq:  # the C entry launches nothing for empty input
         vit_attention_cuda.launches += 1
+        if plan.design == "wgmma":
+            vit_attention_cuda.launches_wgmma += 1
     return out
 
 
 vit_attention_cuda.launches = 0
+vit_attention_cuda.launches_wgmma = 0  # those of the wgmma kernel
 
 
 def _attention_fake(qkv, num_heads):
@@ -205,11 +329,10 @@ _native.define_op("vit_attention", "(Tensor qkv, int num_heads) -> Tensor",
 
 
 def backward_grids(dtype: torch.dtype, head: int, seq: int = 0) -> int:
-    """Grids a kernel-5 call launches: one for bf16 heads of 64 up to
-    :data:`ROW_SEQ` tokens, two (dq, then dk and dv) for f32, for wider
-    heads and for longer sequences."""
-    return (1 if dtype == torch.bfloat16 and head == HEAD_SLICE
-            and seq <= ROW_SEQ else 2)
+    """Grids a kernel-5 call launches, as :func:`attention_plan` says: one
+    for bf16 heads of 64 up to :data:`ROW_SEQ` tokens, two (dq, then dk and
+    dv) for f32, for wider heads and for longer sequences."""
+    return attention_plan(dtype, head, seq, 1, 1).grids
 
 
 def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
@@ -226,27 +349,31 @@ def vit_attention_backward_cuda(qkv: torch.Tensor, g: torch.Tensor,
                          f"{g.device} {g.dtype}, {qkv.device} {qkv.dtype}")
     if not g.is_contiguous():
         raise ValueError("g must be contiguous")
+    plan = _plan(qkv, num_heads, head)
     lib = _native.library()
     dqkv = torch.empty_like(qkv)
     # bf16 heads of 64 up to ROW_SEQ tokens: one grid, the row statistics
     # stay in shared memory. Otherwise per query row m, denom and
     # rowsum(dw w), which the first of two grids writes and the second
     # reads.
-    two_grids = backward_grids(qkv.dtype, head, seq) == 2
-    stats = (torch.empty(batch, num_heads, 3, seq, dtype=torch.float32,
-                         device=qkv.device) if two_grids else None)
+    stats = (torch.empty(batch, num_heads, 3, plan.stats_len,
+                         dtype=torch.float32, device=qkv.device)
+             if plan.grids == 2 else None)
     code = lib.vqa_vit_attention_backward(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-        stats.data_ptr() if two_grids else None, batch, seq, num_heads,
-        head, _scale(head), _DTYPES[qkv.dtype],
+        None if stats is None else stats.data_ptr(), batch, seq, num_heads,
+        head, _scale(head), _DTYPES[qkv.dtype], *plan.c_args(),
         _native.stream_ptr(qkv.device))
     _native.check("vit_attention_backward", code)
     if batch and seq:
-        vit_attention_backward_cuda.launches += 2 if two_grids else 1
+        vit_attention_backward_cuda.launches += plan.grids
+        if plan.design == "wgmma":
+            vit_attention_backward_cuda.launches_wgmma += plan.grids
     return dqkv
 
 
 vit_attention_backward_cuda.launches = 0
+vit_attention_backward_cuda.launches_wgmma = 0  # those of the wgmma grids
 
 
 class VitAttention(torch.autograd.Function):

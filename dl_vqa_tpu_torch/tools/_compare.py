@@ -29,7 +29,8 @@ def card() -> str:
 def build(versions: dict, sources: tuple, out_dir: str) -> dict:
     """name -> ``ctypes.CDLL`` of the files ``sources`` from each version's
     directory (``versions`` maps a name to it), one ``nvcc`` each, all
-    started together. Prints each kernel's registers and spills."""
+    started together. Prints each kernel's registers and spills, and any
+    performance advisory of ptxas (wgmma serialized, for instance)."""
     jobs = {}
     for name, src in versions.items():
         cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", "-Xptxas",
@@ -43,6 +44,9 @@ def build(versions: dict, sources: tuple, out_dir: str) -> dict:
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{out}")
         lines = out.splitlines()
+        for line in lines:
+            if "Performance Loss" in line:
+                print(f"{name} {line.strip()}")
         for i, line in enumerate(lines):
             if "Compiling entry function" in line:
                 info = "; ".join(x.split(":", 1)[-1].strip()

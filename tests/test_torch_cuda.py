@@ -66,6 +66,7 @@ from dl_vqa_tpu_torch.ops.lstm_cuda import (
     persistent_plan,
 )
 from dl_vqa_tpu_torch.ops.vit_attention import (
+    attention_plan,
     backward_grids,
     vit_attention,
     vit_attention_backward_cuda,
@@ -785,10 +786,11 @@ def test_vit_attention_wide_heads_match_plain(device, dtype, batch, seq,
 
 # Past 256 tokens the kernels walk the keys a 64-row tile at a time: one
 # row past the register kernels, a tile and a ragged edge, the 448-px ViT's
-# 784 tokens, at heads of 64, 128, 192 and 256.
+# 784 tokens (at B = 1, the fewest blocks, too), 1024 tokens, at heads of
+# 64, 128, 192 and 256. bf16 heads of 64 and 128 take the wgmma kernels.
 VIT_LONG_SHAPES = [(2, 257, 1, 64), (1, 400, 2, 64), (2, 784, 4, 64),
-                   (1, 257, 1, 128), (1, 784, 2, 128), (1, 300, 2, 192),
-                   (1, 333, 1, 256)]
+                   (1, 784, 4, 64), (1, 1024, 2, 64), (1, 257, 1, 128),
+                   (1, 784, 2, 128), (1, 300, 2, 192), (1, 333, 1, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -796,22 +798,47 @@ VIT_LONG_SHAPES = [(2, 257, 1, 64), (1, 400, 2, 64), (2, 784, 4, 64),
 def test_vit_attention_long_sequences_match_plain(device, dtype, batch, seq,
                                                   heads, head):
     """Kernel 4 and kernel 5 past 256 tokens against their plain versions
-    at the tolerances of the shorter sequences, two backward grids, and
-    kernel 5's digits the same on a second run."""
+    at the tolerances of the shorter sequences, the backward's grids as
+    the plan gives them, every grid of bf16 heads of 64 and 128 counted by
+    ``launches_wgmma`` and none of the others, and both kernels' digits the
+    same on a second run."""
     qkv, cot = _vit_wide_inputs(device, dtype, batch, seq, heads, head)
-    before = (vit_attention_cuda.launches,
-              vit_attention_backward_cuda.launches)
+    wrappers = (vit_attention_cuda, vit_attention_backward_cuda)
+    before = [(fn.launches, fn.launches_wgmma) for fn in wrappers]
     out = vit_attention_cuda(qkv, heads)
     grad = vit_attention_backward_cuda(qkv, cot, heads)
     torch.cuda.synchronize()
-    assert backward_grids(dtype, head, seq) == 2
-    assert (vit_attention_cuda.launches,
-            vit_attention_backward_cuda.launches) == (before[0] + 1,
-                                                      before[1] + 2)
+    grids = backward_grids(dtype, head, seq)
+    assert grids == 2
+    wgmma = dtype == torch.bfloat16 and head in (64, 128)
+    assert [(fn.launches - a, fn.launches_wgmma - b)
+            for fn, (a, b) in zip(wrappers, before)] == [
+                (1, int(wgmma)), (grids, grids * wgmma)]
     _assert_vit_close(out, vit_attention_reference(qkv, heads), dtype, 1)
     _assert_vit_close(grad, vit_attention_backward_reference(qkv, cot, heads),
                       dtype, 2)
+    assert torch.equal(out, vit_attention_cuda(qkv, heads))
     assert torch.equal(grad, vit_attention_backward_cuda(qkv, cot, heads))
+
+
+@pytest.mark.parametrize("head", [64, 128])
+def test_vit_attention_wgmma_bits_do_not_depend_on_the_batch(device, head):
+    """Past 256 tokens in bf16 an image's output and gradient are the same
+    bits at B = 1, 8 and 512 (blocks of one, two and three consumer
+    warpgroups on an H100)."""
+    heads, sizes = 2, (1, 8, 512)
+    qkv, cot = _vit_wide_inputs(device, torch.bfloat16, sizes[-1], 784,
+                                heads, head)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = [attention_plan(torch.bfloat16, head, 784, n * heads, sms).rows
+            for n in sizes]
+    assert len(set(rows)) == len(sizes), rows
+    out = vit_attention_cuda(qkv, heads)
+    grad = vit_attention_backward_cuda(qkv, cot, heads)
+    for n in sizes[:-1]:
+        assert torch.equal(vit_attention_cuda(qkv[:n], heads), out[:n])
+        assert torch.equal(
+            vit_attention_backward_cuda(qkv[:n], cot[:n], heads), grad[:n])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
