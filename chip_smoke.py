@@ -204,8 +204,15 @@
    not required); the parameters each rank holds whole the same
    bits on both ranks; each rank's launches of kernels 1, A, B, 2, C and 3
    (the CNN) and 4 and 5 (the ViT-MoE) those of one process for the same
-   runs; the ranks' step times, which two ranks sharing a card cannot
-   make a scaling number: one JSON line ``{"model_parallel": ...}``;
+   runs; then at ``tpu.mesh.model=2`` the quantized modes' eval steps at
+   batch 512 (the CNN's f8 store and int8 stem, the int8 ViT, each
+   calibrated whole before the cut; held to TOL["mp_loss_bf16"] and
+   TOL["mp_score_bf16"], whether the image features are one process's
+   bits reported) and ``config_vit`` with one head of 256 (its attention
+   whole on each rank, kernels 4 and 5 at a head of 256; MOE_MP_STEPS
+   steps at MOE_MP_BATCH, bf16 held as the CNN's bf16 run and f32 a step
+   at a time as its f32 run); the ranks' step times, which two ranks sharing a card cannot make a scaling
+   number: one JSON line ``{"model_parallel": ...}``;
 19. long_sequence: sequences over 256 tokens. Kernels 4 and 5 at S =
    257, 400 and 784, bf16 and f32, four heads of 64 and two of 128, B =
    8, held to their plain versions within the S = 196 TOL entries (kernel
@@ -223,16 +230,35 @@
    on its best checkpoint (the loop's best score), and a train and an
    eval step on the corpus's batches held to ``plain_ops=True`` as
    cnn_e2e's are: one JSON line ``{"long_sequence": ...}``;
-20. sequence_parallel (last): the 'seq' mesh axis
+20. sequence_parallel: the 'seq' mesh axis
    (``dl_vqa_tpu_torch.parallel.sequence``, the ring of
    ``ops/ring_attention.py``), two gloo ranks on the one card started as
    phase 17's (``--sp-rank``), each 392 of the 784 tokens of the 448-px
    ``config_vit`` at full width: SP_STEPS train steps and an eval step at
    global batch SP_BATCH in f32 and bf16 held to one process (f32 as
    phase 17 holds it, bf16 to TOL["sp_loss_bf16"] and phase 17's bf16
-   entries), the ranks' numbers the same, each rank's launches of kernels
-   1, A, B and 3 (the ring takes the place of kernels 4 and 5): one JSON
-   line ``{"sequence_parallel": ...}``.
+   entries), the ranks' numbers the same; then ``config_vit_moe`` at
+   'seq' = 2 (SP_STEPS bf16 steps and an eval step at SP_BATCH, held to
+   TOL["sp_loss_bf16"] and TOL["grads_moe_flipped"], its flipped routes
+   counted) and the int8 ``config_vit``'s eval step (its loss and score
+   held, whether its image features are one process's bits reported);
+   each rank's launches of kernels 1, A, B, 3
+   and 4 (the ring takes the place of kernels 4 and 5 but for the int8
+   calibration, which runs whole): one JSON line
+   ``{"sequence_parallel": ...}``;
+21. pipeline_parallel (last): the 'stage' mesh axis
+   (``dl_vqa_tpu_torch.parallel.pipeline``, GPipe), two gloo ranks on the
+   one card started as phase 17's (``--pp-rank``), each two of the four
+   blocks of ``config_vit`` at full width, the global batch of 512 in
+   PP_MICRO microbatches of 128: PP_STEPS train steps and an eval step in
+   f32 and bf16 held to one process as phase 20's are (bf16 to phase
+   17's TOL entries), the ranks' numbers the same, each rank's launches
+   of kernels 1, A, B, 3, 4 and 5 (4 and 5 once a block a microbatch);
+   then on both ranks ``main`` and ``evaluate_vqa`` with
+   ``tpu.mesh.stage=2`` on a corpus of PP_TRAIN questions, the same
+   scores on both, the evaluation the loop's best, each rank's launches
+   those of its blocks (path ``pipeline_parallel_entry``): one JSON line
+   ``{"pipeline_parallel": ...}``.
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
@@ -244,7 +270,7 @@ paths, cnn_e2e, online_e2e's run and evaluation, cnn_e2e's quantized
 evaluations, the sweep's trials, the transformer_co journey, the
 one-rank data-parallel runs, rank 0 of the model-parallel runs, the
 448-px ViT's serving, training and journey, and rank 0 of the 'seq'
-runs) is
+and of the 'stage' runs) is
 driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels, kernel 7 its tensor-core
@@ -496,7 +522,11 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        # across the ranks, then rounded to bf16 (q_lin, the attention's
        # logits, the classifier), round another sum: the loss as the
        # kernel path's loss_bf16, a score's near tie may flip, the
-       # parameters' change as phase 17's dp_delta_bf16.
+       # parameters' change as phase 17's dp_delta_bf16. The one-head ViT
+       # (batch 128) moves furthest, 3.3% to 4.8% at seeds 0 to 2 on an
+       # H100: Adam gives an entry whose gradient lies within a rounding
+       # of 0 a step of up to LR (over a quarter of its entries in f32),
+       # so its split is also held in f32 a step at a time (forced_run).
        "mp_loss_bf16": 5e-4, "mp_score_bf16": 2.0, "mp_delta_bf16": 5e-2,
        # 'expert' = 2, the ViT-MoE in bf16, against one process. A rank
        # holds 4 of the 8 experts, and the gradient of in.bias, a sum over
@@ -610,8 +640,8 @@ class RecordedRoutes:
 
         self.module, self.gating, self.routes = moe, moe.top_k_gating, []
 
-        def recording(logits, top_k, capacity):
-            routing = self.gating(logits, top_k, capacity)
+        def recording(*args, **kw):
+            routing = self.gating(*args, **kw)
             self.routes.append(routing.expert)
             return routing
 
@@ -5204,7 +5234,7 @@ def variants_e2e_phase(torch, seed: int, prof: dict) -> tuple:
 
 DP_DIR = "_smoke_dp"  # under the checkout; .gitignore lists it
 DP_WORLD = 2  # ranks of the run on the one card
-DP_STEPS = 3  # train steps of each run; the last batch is padded
+DP_STEPS = 2  # train steps of each run; the last batch is padded
 DP_REAL = 300  # real rows of the last global batch: 256 on rank 0, 44 on 1
 DP_TABLE_ROWS = 1024  # rows of the image table the layouts hold
 CLEAR_MOMENT = 1e-6  # an Adam first moment clear of rounding noise
@@ -5267,14 +5297,16 @@ def dp_state(torch, seed: int, cfg, mesh=None, stage: int = 0,
         restore_state(state, restore)
     if mesh is None:
         return state
-    return parallelize(shard_state(state, mesh), mesh, stage)
+    # PP_MICRO: phase 21's microbatches, read only where 'stage' cuts.
+    return parallelize(shard_state(state, mesh, microbatches=PP_MICRO),
+                       mesh, stage)
 
 
 def dp_run(torch, seed: int, cfg, batches, dtype, mesh=None, stage=0,
            table=None, step_ms: list = None):
     """``(losses, scores, state)`` of the batches through the train step
-    (this rank's rows of each over ``mesh``); ``step_ms``, a list, takes
-    each step's time on the host clock, the card synchronised after it."""
+    (this rank's rows of each over ``mesh``); ``step_ms``, a list, takes each step's time on
+    the host clock, the card synchronised after it."""
     from dl_vqa_tpu_torch.parallel.multihost import process_batch_slice
     from dl_vqa_tpu_torch.train import make_train_step
 
@@ -5308,8 +5340,21 @@ def dp_params(torch, state, moment: str = None) -> np.ndarray:
     named, moments, _ = full_state(state)
     named = moments[moment] if moment else named
     return torch.cat([named[name].float().flatten()
-                      for name, p in state.model.named_parameters()
-                      if p.requires_grad]).cpu().numpy()
+                      for name in trainable_names(state.model)]
+                     ).cpu().numpy()
+
+
+def trainable_names(model) -> list:
+    """The trainable parameters' names in one process's order; a model cut
+    over 'stage' (its ViT holding one stage's blocks) is read as the whole
+    model it was cut from."""
+    if (model.cfg.image.encoder != "vit"
+            or len(model.image.blocks) == model.cfg.image.num_layers):
+        return [n for n, p in model.named_parameters() if p.requires_grad]
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+
+    whole = VqaNet(model.cfg, device="meta")
+    return [n for n, p in whole.named_parameters() if p.requires_grad]
 
 
 def adam_clear(torch, state) -> np.ndarray:
@@ -5738,11 +5783,14 @@ def data_parallel_phase(torch, seed: int, recurrence: int, card: str
 
 MP_DIR = "_smoke_mp"  # under the checkout; .gitignore lists it
 MP_WORLD = 2  # ranks of the run on the one card
-MP_STEPS = 3  # the CNN's train steps; the last batch is padded
+MP_STEPS = 2  # the CNN's train steps; the last batch is padded
 MP_REAL = 300  # real rows of the CNN's last global batch
 MP_VOCAB = 15_194  # even: the embedding's rows split over 'model' = 2
 MOE_MP_BATCH = 128  # the ViT-MoE's global batch under 'expert' = 2
 MOE_MP_STEPS = 2
+# Phase 18's runs, and those of them taken a step at a time (forced_run).
+MP_RUNS = ("cnn_bf16", "cnn_f32", "moe_bf16", "heads1_bf16", "heads1_f32")
+MP_FORCED = ("cnn_f32", "heads1_f32")
 
 
 def mp_configs():
@@ -5813,12 +5861,91 @@ def mp_run(torch, seed: int, cfg, batches, dtype, mesh, root=None
     return out
 
 
+def reversed_steps(got: np.ndarray, want: np.ndarray,
+                   initial: np.ndarray) -> dict:
+    """Where a run's parameter change (``got - initial``) parts from one
+    process's (``want - initial``): Adam's first steps move every entry by
+    about LR whatever the size of its gradient, so an entry whose gradient
+    lies within a rounding of 0 moves up to 2 LR apart when the two runs
+    round its sign apart. ``reversed_share``: the share of entries the two
+    moved in opposite directions; ``delta_rel_err_kept``: the change's
+    2-norm error over the other entries, relative to the whole change."""
+    a, b = got - initial, want - initial
+    reversed_ = np.sign(a) * np.sign(b) < 0
+    return {"reversed_share": float(reversed_.mean()),
+            "delta_rel_err_kept": float(np.linalg.norm((a - b)[~reversed_])
+                                        / np.linalg.norm(b))}
+
+
+def mp_heads1_config():
+    """``config_vit`` with one head of 256, which 'model' = 2 does not
+    divide: its attention stays whole on each rank (kernels 4 and 5 at a
+    head of 256), its MLP splits."""
+    import dataclasses
+
+    cfg = vit_config()
+    return dataclasses.replace(cfg, image=dataclasses.replace(
+        cfg.image, num_heads=1))
+
+
+def mp_quant(torch, seed: int, mesh=None) -> dict:
+    """The quantized modes' eval step at batch 512 (bf16) over ``mesh``:
+    the CNN's f8 store and int8 stem, the int8 ViT, each model calibrated
+    on CALIBRATION_IMAGES random images whole, before it is cut; the eval
+    numbers and a digest of the image features."""
+    import dataclasses
+    import hashlib
+
+    from dl_vqa_tpu_torch.models.layers import normalize_images
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.parallel.tensor import shard_model
+    from dl_vqa_tpu_torch.train import make_eval_step
+
+    cnn, _ = mp_configs()
+    out = {}
+    for name, cfg, store in (("cnn_f8", cnn, "f8e4m3"),
+                             ("cnn_int8", cnn, "int8"),
+                             ("vit_int8", vit_config(), "int8")):
+        model = VqaNet(cfg, generator=torch.Generator().manual_seed(seed))
+        batch = {k: v for k, v in dp_batches(cfg, seed, steps=1)[0].items()
+                 if k != "answer_types"}
+        if store == "int8":
+            images = np.random.default_rng(seed + 5).integers(
+                0, 256, (CALIBRATION_IMAGES, cfg.image_size, cfg.image_size,
+                         3), dtype=np.uint8)
+            mode = model.int8_calibrated(images, dtype=torch.bfloat16)
+        else:
+            mode = dataclasses.replace(cfg, image=dataclasses.replace(
+                cfg.image, store_dtype=store))
+        model.configure(mode)
+        if mesh is not None:
+            shard_model(model, mesh)
+        loss, score = make_eval_step(mode, torch.bfloat16, mesh=mesh)(
+            model, batch)
+        with torch.no_grad():
+            features = model.image(normalize_images(
+                torch.from_numpy(batch["images"]).cuda(), torch.bfloat16),
+                torch.bfloat16, False, None)
+        out[name] = {"eval": [float(loss), float(score)],
+                     "features": hashlib.sha1(
+                         features.float().cpu().numpy().tobytes()
+                     ).hexdigest()}
+        del model, features
+        torch.cuda.empty_cache()
+    return out
+
+
 def mp_runs(torch, seed: int, wrappers, root: str, cnn_mesh=None,
             moe_mesh=None) -> dict:
     """Phase 18's runs, in one process or on a rank: the CNN in bf16 and
     f32 (a :func:`forced_run` through ``root``) over ``cnn_mesh``, then
-    the ViT-MoE in bf16 over ``moe_mesh``, the kernels' launches counted
-    for each model."""
+    the ViT-MoE in bf16 over ``moe_mesh``, then over ``cnn_mesh`` the
+    quantized modes' eval steps (:func:`mp_quant`) and the one-head ViT
+    in bf16 and in f32 (:func:`mp_heads1_config`; f32 a
+    :func:`forced_run` through ``root/heads1``), the kernels' launches
+    counted for each."""
+    import os
+
     cnn, moe = mp_configs()
     out = {}
     reset_launches(wrappers)
@@ -5834,6 +5961,22 @@ def mp_runs(torch, seed: int, wrappers, root: str, cnn_mesh=None,
     out["moe_bf16"] = mp_run(torch, seed, moe, batches, torch.bfloat16,
                              moe_mesh)
     out["moe_launches"] = read_launches(wrappers, "the ViT-MoE of phase 18")
+    reset_launches(wrappers)
+    out["quant"] = mp_quant(torch, seed, cnn_mesh)
+    out["quant_launches"] = read_launches(
+        wrappers, "the quantized modes of phase 18")
+    reset_launches(wrappers)
+    heads1 = mp_heads1_config()
+    batches = dp_batches(heads1, seed, batch=MOE_MP_BATCH,
+                         steps=MOE_MP_STEPS, real=MOE_MP_BATCH)
+    out["heads1_bf16"] = mp_run(torch, seed, heads1, batches,
+                                torch.bfloat16, cnn_mesh)
+    heads1_root = os.path.join(root, "heads1")
+    os.makedirs(heads1_root, exist_ok=True)
+    out["heads1_f32"] = mp_run(torch, seed, heads1, batches, torch.float32,
+                               cnn_mesh, heads1_root)
+    out["heads1_launches"] = read_launches(
+        wrappers, "the one-head ViT of phase 18")
     return out
 
 
@@ -5862,14 +6005,16 @@ def mp_rank(out_dir: str, seed: int) -> int:
     out = mp_runs(torch, seed, kernel_wrappers(), out_dir,
                   make_mesh(-1, model=2, device_type="cuda"),
                   make_mesh(-1, expert=2, device_type="cuda"))
-    steps = out["cnn_f32"].pop("steps")["params"]
-    for name in ("cnn_bf16", "cnn_f32", "moe_bf16"):
+    steps = {name: out[name].pop("steps")["params"]
+             for name in MP_FORCED}
+    for name in MP_RUNS:
         params = out[name].pop("params")
         if rank == 0:
             np.save(os.path.join(out_dir, f"{name}.npy"), params)
     if rank == 0:
-        for k, params in enumerate(steps):
-            np.save(os.path.join(out_dir, f"cnn_f32_{k}.npy"), params)
+        for name in MP_FORCED:
+            for k, params in enumerate(steps[name]):
+                np.save(os.path.join(out_dir, f"{name}_{k}.npy"), params)
     out.update(rank=rank, world=dist.get_world_size(),
                backend=dist.get_backend())
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -5887,7 +6032,15 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
     holds them; bf16 to the mp_* TOL entries), the ViT-MoE at 'expert' = 2
     to TOL["mp_moe_delta_bf16"] (whether it gave the bits is reported),
     what the ranks hold whole the same bits on both, each rank's launches
-    those of one process. Returns ``(rank 0's launches, numbers)``."""
+    those of one process; then at 'model' = 2 the quantized modes' eval
+    steps (the CNN's f8 store and int8 stem, the int8 ViT) to
+    TOL["mp_loss_bf16"] and TOL["mp_score_bf16"] (whether the image
+    features are one process's bits is reported), and ``config_vit``
+    with one head, whose attention stays whole, in bf16 as the CNN's bf16
+    run and in f32 as its f32 run (each step from one process's state).
+    For the bf16 runs the share of entries the ranks and one process
+    moved in opposite directions is reported (:func:`reversed_steps`).
+    Returns ``(rank 0's launches, numbers)``."""
     import os
     import shutil
     import socket
@@ -5904,7 +6057,7 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
     os.makedirs(root)
     reference = mp_runs(torch, seed, wrappers, root)
     single_ms = {name: float(np.median(reference[name]["step_ms"][1:]))
-                 for name in ("cnn_bf16", "cnn_f32", "moe_bf16")}
+                 for name in MP_RUNS}
     log("model_parallel: one process, bf16 CNN losses "
         + " ".join(f"{x:.4f}" for x in reference["cnn_bf16"]["loss"])
         + f", step ms {single_ms} [{card}]")
@@ -5949,7 +6102,7 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
     numbers = {"card": card, "wall_s": time.perf_counter() - t0,
                "backend": r0["backend"],
                "label": "two ranks share one card: not a scaling number"}
-    for name in ("cnn_bf16", "cnn_f32", "moe_bf16"):
+    for name in MP_RUNS:
         for key in ("loss", "score", "eval"):
             require(ranks[0][name][key] == ranks[1][name][key],
                     f"the ranks report the same {name} {key}")
@@ -5962,7 +6115,8 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
                         for r in ranks],
             "one_process_step_ms": single_ms[name],
             "held_whole": len(d0), "loss": r0[name]["loss"]}
-    for name in ("cnn_launches", "moe_launches"):
+    for name in ("cnn_launches", "moe_launches", "quant_launches",
+                 "heads1_launches"):
         for r in ranks:
             require(r[name] == reference[name],
                     f"rank {r['rank']} {name} {r[name]}, one process "
@@ -5977,8 +6131,11 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
     # The change over the steps: the initial parameters of each model.
     cnn, moe = mp_configs()
     initial = {"cnn_bf16": dp_params(torch, dp_state(torch, seed, cnn)),
-               "moe_bf16": dp_params(torch, dp_state(torch, seed, moe))}
+               "moe_bf16": dp_params(torch, dp_state(torch, seed, moe)),
+               "heads1_bf16": dp_params(torch, dp_state(
+                   torch, seed, mp_heads1_config()))}
     initial["cnn_f32"] = initial["cnn_bf16"]
+    initial["heads1_f32"] = initial["heads1_bf16"]
     torch.cuda.empty_cache()
     # f32: each step from one process's state (forced_run), per entry
     # where the step is clear of rounding noise (adam_clear).
@@ -5986,6 +6143,10 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
                  for k in range(MP_STEPS)]
     f32 = forced_errors(f32_steps, reference["cnn_f32"]["steps"],
                         initial["cnn_f32"])
+    heads1_f32 = forced_errors(
+        [np.load(os.path.join(root, f"heads1_f32_{k}.npy"))
+         for k in range(MOE_MP_STEPS)], reference["heads1_f32"]["steps"],
+        initial["heads1_f32"])
     numbers["cnn_f32"].update(
         loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
             r0["cnn_f32"]["loss"], reference["cnn_f32"]["loss"])),
@@ -5993,7 +6154,7 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
         max_abs_err_by_param=mp_errors(
             reference["cnn_f32"]["sizes"],
             np.abs(f32_steps[-1] - reference["cnn_f32"]["params"])))
-    _, bf16_delta = change_err("cnn_bf16")
+    got, bf16_delta = change_err("cnn_bf16")
     moe_params = np.load(os.path.join(root, "moe_bf16.npy"))
     moe_bits = bool(np.array_equal(moe_params,
                                    reference["moe_bf16"]["params"]))
@@ -6002,7 +6163,9 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
             r0["cnn_bf16"]["loss"], reference["cnn_bf16"]["loss"])),
         score_abs_err=max(abs(a - b) for a, b in zip(
             r0["cnn_bf16"]["score"], reference["cnn_bf16"]["score"])),
-        delta_rel_err=bf16_delta)
+        delta_rel_err=bf16_delta,
+        **reversed_steps(got, reference["cnn_bf16"]["params"],
+                         initial["cnn_bf16"]))
     _, moe_delta = change_err("moe_bf16")
     numbers["moe_bf16"].update(
         bits=moe_bits and r0["moe_bf16"]["loss"] == reference[
@@ -6018,8 +6181,50 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
             reference["moe_bf16"]["sizes"],
             np.abs(moe_params - reference["moe_bf16"]["params"])),
         delta_rel_err=moe_delta)
+    got, heads1_delta = change_err("heads1_bf16")
+    numbers["heads1_bf16"].update(
+        loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+            r0["heads1_bf16"]["loss"], reference["heads1_bf16"]["loss"])),
+        eval_rel_err=abs(r0["heads1_bf16"]["eval"][0]
+                         - reference["heads1_bf16"]["eval"][0])
+        / abs(reference["heads1_bf16"]["eval"][0]),
+        delta_rel_err=heads1_delta,
+        **reversed_steps(got, reference["heads1_bf16"]["params"],
+                         initial["heads1_bf16"]))
+    numbers["heads1_f32"].update(
+        loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+            r0["heads1_f32"]["loss"], reference["heads1_f32"]["loss"])),
+        steps=heads1_f32)
+    quant = {}
+    for name, got in r0["quant"].items():
+        want = reference["quant"][name]
+        require(ranks[1]["quant"][name] == got,
+                f"the ranks report the same {name} eval step")
+        quant[name] = {
+            "eval": got["eval"], "eval_one_process": want["eval"],
+            "loss_rel_err": abs(got["eval"][0] - want["eval"][0])
+            / abs(want["eval"][0]),
+            "score_abs_err": abs(got["eval"][1] - want["eval"][1]),
+            "features_bits": got["features"] == want["features"]}
+    numbers["quant"] = quant
     log(f"model_parallel: two gloo ranks on one card [{card}], not a "
         "scaling number: " + json.dumps(numbers))
+    for name, q in quant.items():
+        require(q["loss_rel_err"] <= TOL["mp_loss_bf16"]
+                and q["score_abs_err"] <= TOL["mp_score_bf16"],
+                f"{name} eval step at model=2: {q}")
+    heads1 = numbers["heads1_bf16"]
+    require(heads1["loss_rel_err"] <= TOL["mp_loss_bf16"]
+            and heads1["eval_rel_err"] <= TOL["mp_loss_bf16"]
+            and heads1_delta <= TOL["mp_delta_bf16"],
+            f"the one-head ViT at model=2: {heads1}")
+    for key in ("loss", "score", "eval"):
+        np.testing.assert_allclose(
+            r0["heads1_f32"][key], reference["heads1_f32"][key], rtol=1e-5,
+            atol=1e-6, err_msg=f"the one-head ViT's f32 {key}, model=2")
+    require(heads1_f32["within"],
+            f"the one-head ViT's f32 parameters, model=2, each step from "
+            f"one process's state: {numbers['heads1_f32']}")
     np.testing.assert_allclose(r0["cnn_f32"]["loss"],
                                reference["cnn_f32"]["loss"], rtol=1e-5,
                                atol=1e-6, err_msg="f32 losses, model=2")
@@ -6047,7 +6252,8 @@ def model_parallel_phase(torch, seed: int, card: str) -> tuple:
             atol=1e-6, err_msg=f"the ViT-MoE's {key}, expert=2")
     require(moe_delta <= TOL["mp_moe_delta_bf16"],
             f"the ViT-MoE at expert=2: {numbers['moe_bf16']}")
-    launches = {k: r0["cnn_launches"][k] + r0["moe_launches"][k]
+    launches = {k: sum(r0[f"{part}_launches"][k]
+                       for part in ("cnn", "moe", "quant", "heads1"))
                 for k in r0["cnn_launches"]}
     numbers["rank_launches"] = launches
     numbers["phase_s"] = time.perf_counter() - phase_start
@@ -6404,43 +6610,103 @@ SP_REAL = 27  # real rows of the last batch
 
 def sp_expected(recurrence: int, f32_recurrence: int) -> dict:
     """Grids of one 'seq' rank's runs (SP_STEPS train steps and an eval
-    step in f32, then in bf16): kernel A and kernel B's 23 grids a step,
-    kernel 1 an eval step, kernel 3 each; the ring takes the place of
-    kernels 4 and 5, as the JAX model's ring takes its kernel's."""
-    return {"lstm_recurrence": recurrence + f32_recurrence,
-            "lstm_recurrence_save": SP_STEPS * (recurrence + f32_recurrence),
-            "lstm_backward_step": 2 * SP_STEPS * SEQ_LEN,
-            "attention_pool": 2 * (SP_STEPS + 1)}
+    step in f32, then in bf16, then the ViT-MoE's SP_STEPS bf16 steps and
+    eval step and the int8 ViT's eval step): kernel A and kernel B's 23
+    grids a step, kernel 1 an eval step, kernel 3 each; the ring takes the
+    place of kernels 4 and 5, as the JAX model's ring takes its kernel's,
+    but for the int8 ViT's calibration, which runs whole (four blocks of
+    kernel 4)."""
+    return {"lstm_recurrence": 3 * recurrence + f32_recurrence,
+            "lstm_recurrence_save": SP_STEPS * (2 * recurrence
+                                                + f32_recurrence),
+            "lstm_backward_step": 3 * SP_STEPS * SEQ_LEN,
+            "attention_pool": 3 * (SP_STEPS + 1) + 1,
+            "vit_attention": vit_config().image.num_layers}
 
 
 def sp_runs(torch, seed: int, cfg, batches, root: str, mesh=None
             ) -> dict:
-    """Each dtype's losses, scores, eval step and parameters after the
-    steps (``dp_run``, in f32 a :func:`forced_run` through ``root``; this
-    rank's part of the 'seq' mesh where given)."""
+    """Each dtype's losses, scores, eval step, step ms and parameters
+    after the steps (``dp_run``, in f32 a :func:`forced_run` through
+    ``root``; this rank's part of the 'seq' or 'stage' mesh where
+    given)."""
     from dl_vqa_tpu_torch.train import make_eval_step
 
     out = {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         t0 = time.perf_counter()
         steps = None
+        step_ms = []
         if dtype == torch.float32:
             losses, scores, state, steps = forced_run(
-                torch, seed, cfg, batches, dtype, root, mesh)
+                torch, seed, cfg, batches, dtype, root, mesh,
+                step_ms=step_ms)
         else:
             losses, scores, state = dp_run(torch, seed, cfg, batches,
-                                           dtype, mesh)
+                                           dtype, mesh, step_ms=step_ms)
         loss, score = make_eval_step(cfg, dtype, mesh=mesh)(
             state.model, {k: v for k, v in batches[-1].items()
                           if k != "answer_types"})
         out[name] = {"loss": losses, "score": scores,
                      "eval": [float(loss), float(score)],
                      "params": dp_params(torch, state),
+                     "step_ms": step_ms,
                      "s": time.perf_counter() - t0}
         if steps is not None:
             out[name]["steps"] = steps
         del state
         torch.cuda.empty_cache()
+    return out
+
+
+def sp_moe_runs(torch, seed: int, mesh=None) -> dict:
+    """Phase 20's Part of the ViT-MoE and the int8 ViT: ``config_vit_moe``
+    SP_STEPS bf16 train steps and an eval step at global batch SP_BATCH
+    (with each MoE layer's routes of each forward, ``[forwards * layers,
+    G, S, K]``, of this rank's tokens), and the int8 ``config_vit``'s eval
+    step and image features (calibrated whole on CALIBRATION_IMAGES random
+    images, before the cut), over ``mesh``."""
+    from dl_vqa_tpu_torch.models.layers import normalize_images
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.parallel.tensor import shard_model
+    from dl_vqa_tpu_torch.train import make_eval_step
+
+    cfg = variant_config(MOE_PRESET)
+    batches = dp_batches(cfg, seed, batch=SP_BATCH, steps=SP_STEPS,
+                         real=SP_REAL)
+    last = {k: v for k, v in batches[-1].items() if k != "answer_types"}
+    with RecordedRoutes() as routes:
+        losses, scores, state = dp_run(torch, seed, cfg, batches,
+                                       torch.bfloat16, mesh)
+        loss, score = make_eval_step(cfg, torch.bfloat16, mesh=mesh)(
+            state.model, last)
+    out = {"moe": {"loss": losses, "score": scores,
+                   "eval": [float(loss), float(score)],
+                   "params": dp_params(torch, state),
+                   "routes": torch.stack(routes).cpu().numpy()}}
+    del state
+    cfg = vit_config()
+    model = VqaNet(cfg, generator=torch.Generator().manual_seed(seed))
+    images = np.random.default_rng(seed + 5).integers(
+        0, 256, (CALIBRATION_IMAGES, cfg.image_size, cfg.image_size, 3),
+        dtype=np.uint8)
+    cfg = model.int8_calibrated(images, dtype=torch.bfloat16)
+    model.configure(cfg)
+    if mesh is not None:
+        shard_model(model, mesh)
+    batch = {k: v for k, v in dp_batches(cfg, seed, batch=SP_BATCH,
+                                         steps=1)[0].items()
+             if k != "answer_types"}
+    loss, score = make_eval_step(cfg, torch.bfloat16, mesh=mesh)(model,
+                                                                 batch)
+    with torch.no_grad():
+        features = model.image(normalize_images(
+            torch.from_numpy(batch["images"]).cuda(), torch.bfloat16),
+            torch.bfloat16, False, None)
+    out["vit_int8"] = {"eval": [float(loss), float(score)],
+                       "features": features.float().cpu().numpy()}
+    del model, features
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6451,6 +6717,7 @@ def sp_rank(out_dir: str, seed: int) -> int:
     full width over 'seq' = 2, each rank 392 of the 784 tokens of every
     image of the batch. Writes ``rank{r}.json`` and, on rank 0, the
     parameters after each run."""
+    import hashlib
     import os
 
     import torch
@@ -6469,6 +6736,7 @@ def sp_rank(out_dir: str, seed: int) -> int:
     runs = sp_runs(torch, seed, cfg, dp_batches(
         cfg, seed, batch=SP_BATCH, steps=SP_STEPS, real=SP_REAL), out_dir,
         mesh)
+    part1 = sp_moe_runs(torch, seed, mesh)
     torch.cuda.synchronize()
     out = {"rank": rank, "mesh": dict(mesh.shape),
            "backend": dist.get_backend(),
@@ -6482,6 +6750,17 @@ def sp_rank(out_dir: str, seed: int) -> int:
         else:
             run.pop("params")
         out[name] = run
+    params = part1["moe"].pop("params")
+    np.save(os.path.join(out_dir, f"moe_routes{rank}.npy"),
+            part1["moe"].pop("routes"))
+    features = part1["vit_int8"].pop("features")
+    part1["vit_int8"]["features"] = hashlib.sha1(
+        features.tobytes()).hexdigest()
+    if rank == 0:
+        np.save(os.path.join(out_dir, "int8_features.npy"), features)
+    if rank == 0:
+        np.save(os.path.join(out_dir, "moe.npy"), params)
+    out.update(part1)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -6518,6 +6797,7 @@ def sequence_parallel_phase(torch, seed: int, recurrence: int, card: str
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     reference = sp_runs(torch, seed, cfg, batches, root)
+    reference.update(sp_moe_runs(torch, seed))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -6573,8 +6853,66 @@ def sequence_parallel_phase(torch, seed: int, recurrence: int, card: str
     numbers["f32"]["steps"] = forced_errors(
         [np.load(os.path.join(root, f"f32_{k}.npy"))
          for k in range(SP_STEPS)], reference["f32"]["steps"], initial)
+    for name in ("moe", "vit_int8"):
+        require(ranks[0][name] == ranks[1][name],
+                f"the 'seq' ranks report the same {name} numbers")
+    moe_cfg = variant_config(MOE_PRESET)
+    moe_initial = dp_params(torch, dp_state(torch, seed, moe_cfg))
+    moe_got = np.load(os.path.join(root, "moe.npy"))
+    moe_want = reference["moe"]["params"]
+    # The ranks' routes, their tokens put side by side, against one
+    # process's: the first forward's (the same parameters: only the ring's
+    # roundings move a logit) and every forward's.
+    routes = np.concatenate([np.load(os.path.join(root, f"moe_routes{r}.npy"))
+                             for r in range(SP_WORLD)], axis=2)
+    want_routes = reference["moe"]["routes"]
+    require(routes.shape == want_routes.shape,
+            f"the 'seq' ranks route {routes.shape}, one process "
+            f"{want_routes.shape}")
+    first = routes.shape[0] // (SP_STEPS + 1)
+    flipped = routes != want_routes
+    numbers["moe"] = {
+        "loss": r0["moe"]["loss"], "loss_one_process":
+        reference["moe"]["loss"],
+        "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+            r0["moe"]["loss"], reference["moe"]["loss"])),
+        "eval_rel_err": abs(r0["moe"]["eval"][0]
+                            - reference["moe"]["eval"][0])
+        / abs(reference["moe"]["eval"][0]),
+        "delta_rel_err": float(np.linalg.norm(moe_got - moe_want)
+                               / np.linalg.norm(moe_want - moe_initial)),
+        "routes": int(flipped.size),
+        "routes_flipped_first_forward": int(flipped[:first].sum()),
+        "routes_flipped": int(flipped.sum()),
+        "route_flips": float(flipped.mean()),
+        **reversed_steps(moe_got, moe_want, moe_initial)}
+    features = np.load(os.path.join(root, "int8_features.npy"))
+    want_features = reference["vit_int8"]["features"]
+    numbers["vit_int8"] = {
+        "eval": r0["vit_int8"]["eval"],
+        "eval_one_process": reference["vit_int8"]["eval"],
+        "loss_rel_err": abs(r0["vit_int8"]["eval"][0]
+                            - reference["vit_int8"]["eval"][0])
+        / abs(reference["vit_int8"]["eval"][0]),
+        "score_abs_err": abs(r0["vit_int8"]["eval"][1]
+                             - reference["vit_int8"]["eval"][1]),
+        "features_bits": bool(np.array_equal(features, want_features)),
+        "features_rel_err": float(np.linalg.norm(features - want_features)
+                                  / np.linalg.norm(want_features))}
     log("sequence_parallel: 'seq' = 2 over two gloo ranks against one "
         f"process [{card}]: " + json.dumps(numbers))
+    # The ViT-MoE and the int8 ViT: the ring's bf16 weights as above; a
+    # route the ring's roundings flip moves an expert's gradient, as
+    # moe_phase holds flipped routes (grads_moe_flipped).
+    moe = numbers["moe"]
+    require(moe["loss_rel_err"] <= TOL["sp_loss_bf16"]
+            and moe["eval_rel_err"] <= TOL["sp_loss_bf16"]
+            and moe["delta_rel_err"] <= TOL["grads_moe_flipped"],
+            f"the ViT-MoE at 'seq' = 2: {moe}")
+    require(numbers["vit_int8"]["loss_rel_err"] <= TOL["sp_loss_bf16"]
+            and numbers["vit_int8"]["score_abs_err"]
+            <= TOL["mp_score_bf16"],
+            f"the int8 ViT at 'seq' = 2: {numbers['vit_int8']}")
     for what in ("loss", "score"):
         np.testing.assert_allclose(
             r0["f32"][what], reference["f32"][what], rtol=1e-5, atol=1e-6,
@@ -6610,6 +6948,310 @@ def sequence_parallel_phase(torch, seed: int, recurrence: int, card: str
     return r0["launches"], numbers
 
 
+PP_DIR = "_smoke_pp"  # under the checkout; .gitignore lists it
+PP_WORLD = 2  # 'stage' ranks of the run on the one card
+PP_MICRO = 4  # microbatches of each global batch
+PP_STEPS = 2  # train steps of each run; the last batch is padded
+PP_REAL = 300  # real rows of the last global batch
+# The entry points' corpus: questions, images (224 px).
+PP_TRAIN, PP_VAL, PP_IMAGES = 1024, 512, 64
+
+
+def pp_expected(recurrence: int, f32_recurrence: int) -> dict:
+    """Grids of one 'stage' rank's runs (PP_STEPS train steps and an eval
+    step in f32, then in bf16, of ``config_vit`` at batch 512): the text
+    encoder, the glimpse pooling and the rest run whole on every stage
+    rank (kernel A and kernel B's 23 grids a step, kernel 1 an eval step,
+    kernel 3 each), and each rank's 2 blocks run every one of the PP_MICRO
+    microbatches: kernel 4 2 x 4 times a forward, kernel 5 2 x 4 calls a
+    train step (a grid a call in bf16, two in f32)."""
+    blocks = vit_config().image.num_layers // PP_WORLD
+    calls = blocks * PP_MICRO
+    return {"lstm_recurrence": recurrence + f32_recurrence,
+            "lstm_recurrence_save": PP_STEPS * (recurrence + f32_recurrence),
+            "lstm_backward_step": 2 * PP_STEPS * SEQ_LEN,
+            "attention_pool": 2 * (PP_STEPS + 1),
+            "vit_attention": 2 * (PP_STEPS + 1) * calls,
+            "vit_attention_backward": PP_STEPS * (calls + 2 * calls)}
+
+
+def pp_entry(root: str, seed: int) -> dict:
+    """``main`` (``config_vit``, E2E_EPOCHS epochs at batch 512, bf16, the
+    preset's dropout) and ``evaluate_vqa`` of its best checkpoint with
+    ``tpu.mesh.stage=2`` and PP_MICRO microbatches, on the corpus under
+    ``root`` (its profile in ``profile.json``), as a rank of a torchrun
+    job: the loop's best score and the evaluation's."""
+    import contextlib
+    import os
+
+    import torch.distributed as dist
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.evaluate_vqa import evaluate_hw2
+    from dl_vqa_tpu_torch.main import main as train_main
+
+    with open(os.path.join(root, "profile.json")) as f:
+        prof = json.load(f)
+    stage = [f"tpu.mesh.stage={PP_WORLD}",
+             f"tpu.pipeline_microbatches={PP_MICRO}"]
+    best = train_main(config_mod.compose("config_vit", e2e_overrides(
+        prof, root, "pp_e2e", seed, stage)))
+    dist.barrier()  # the coordinator's checkpoint
+    width = vit_config().image.num_channels[-1]
+    with open(os.path.join(root, f"evaluate{dist.get_rank()}.txt"),
+              "w") as out, contextlib.redirect_stdout(out):
+        score = evaluate_hw2(e2e_overrides(prof, root, "pp_eval", seed, [
+            *stage, "main.small.paths.pretrained_model_path="
+            + os.path.join(exp_dir_of(root, "pp_e2e"), "model.ckpt"),
+            "train.image.encoder=vit",
+            f"train.image.num_channels=[3, {width}]",
+            "train.image.stride=1", "train.attention.do_option=+"]))
+    return {"best": best, "score": score}
+
+
+def pp_rank(out_dir: str, seed: int) -> int:
+    """One rank of phase 21's run on the one card (started by
+    :func:`pipeline_parallel_phase` with torchrun's environment, both
+    ranks on card 0, gloo with CUDA tensors): ``config_vit`` at full width
+    over 'stage' = 2, each rank two of the four blocks, the global batch
+    of 512 in PP_MICRO microbatches of 128. Writes ``rank{r}.json`` and,
+    on rank 0, the parameters after each run."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dl_vqa_tpu_torch.parallel import make_mesh, multihost
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.maybe_initialize(device="cuda", backend="gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh(1, stage=PP_WORLD, device_type="cuda")
+    cfg = vit_config()
+    wrappers = kernel_wrappers()
+    reset_launches(wrappers)
+    runs = sp_runs(torch, seed, cfg, dp_batches(
+        cfg, seed, steps=PP_STEPS, real=PP_REAL), out_dir, mesh)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "mesh": dict(mesh.shape),
+           "backend": dist.get_backend(),
+           "launches": read_launches(wrappers, f"'stage' rank {rank}"),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    out["entry"] = pp_entry(out_dir, seed)
+    torch.cuda.synchronize()
+    out["entry"].update(
+        s=time.perf_counter() - t0,
+        launches=read_launches(wrappers, f"'stage' rank {rank}'s entry "
+                               "points"))
+    for k, params in enumerate(runs["f32"].pop("steps")["params"]):
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"f32_{k}.npy"), params)
+    for name, run in runs.items():
+        params = run.pop("params")
+        if rank == 0:
+            np.save(os.path.join(out_dir, f"{name}.npy"), params)
+        out[name] = run
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def pipeline_parallel_phase(torch, seed: int, recurrence: int, card: str
+                            ) -> tuple:
+    """Phase 21: the 'stage' axis (``dl_vqa_tpu_torch.parallel.
+    pipeline``). ``config_vit`` at full width, PP_STEPS train steps and an
+    eval step at global batch 512 (the last padded to PP_REAL real rows)
+    in f32 and in bf16: in one process, then over two gloo ranks sharing
+    the card (:func:`pp_rank`; NCCL refuses two ranks on one device), each
+    rank two of the four blocks, PP_MICRO microbatches streaming through
+    the two stages. The ranks report the same numbers; f32 losses, scores
+    and the eval step at rtol 1e-5, atol 1e-6 of one process, each f32
+    step taken from one process's state (:func:`forced_run`) and held as
+    phase 17 holds it; bf16 to TOL["dp_loss_bf16"], TOL["dp_score_bf16"]
+    and TOL["dp_delta_bf16"] (a microbatch of 128 rows may take other
+    cuBLAS and cuDNN algorithms than the batch of 512); each rank's
+    launches of kernels 1, A, B, 3, 4 and 5 (:func:`pp_expected`). Two
+    ranks sharing a card time nothing that scales. Returns ``(rank 0's
+    launches, numbers)``."""
+    import os
+    import shutil
+    import socket
+
+    from dl_vqa_tpu_torch.data.dataset import VQADataset
+    from dl_vqa_tpu_torch.data.synthetic import make_synthetic_corpus
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+
+    phase_start = time.perf_counter()
+    cfg = vit_config()
+    wrappers = kernel_wrappers()
+    batches = dp_batches(cfg, seed, steps=PP_STEPS, real=PP_REAL)
+    f32_recurrence = f32_grids(torch)
+    root = os.path.abspath(PP_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    reference = sp_runs(torch, seed, cfg, batches, root)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prof = make_synthetic_corpus(
+        os.path.join(root, "corpus"), n_train=PP_TRAIN, n_val=PP_VAL,
+        n_images=PP_IMAGES, image_size=cfg.image_size, max_answers=3000,
+        seed=seed, learnable=True,
+        question_tokens=ModelConfig().num_tokens, question_length=SEQ_LEN)
+    with open(os.path.join(root, "profile.json"), "w") as f:
+        json.dump(prof, f)
+    corpus_s = time.perf_counter() - t0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--pp-rank", root, str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, RANK=str(rank), WORLD_SIZE=str(PP_WORLD),
+                 LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port)))
+        for rank in range(PP_WORLD)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        require(proc.returncode == 0,
+                f"'stage' rank {rank} exited {proc.returncode}:\n"
+                f"{text[-4000:]}")
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(PP_WORLD)]
+    r0 = ranks[0]
+    for name in ("f32", "bf16"):
+        require(all(ranks[0][name][m] == ranks[1][name][m]
+                    for m in ("loss", "score", "eval")),
+                f"the 'stage' ranks report the same {name} numbers")
+    initial = dp_params(torch, dp_state(torch, seed, cfg))
+    numbers = {"card": card, "mesh": r0["mesh"], "backend": r0["backend"],
+               "micro": PP_MICRO, "wall_s": time.perf_counter() - t0,
+               "peak_gib": [r["peak_gib"] for r in ranks],
+               "label": "two ranks share one card: not a scaling number"}
+    for name in ("f32", "bf16"):
+        got = np.load(os.path.join(root, f"{name}.npy"))
+        want = reference[name]["params"]
+        numbers[name] = {
+            "loss": r0[name]["loss"], "loss_one_process":
+            reference[name]["loss"],
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+                r0[name]["loss"], reference[name]["loss"])),
+            "score_abs_err": max(abs(a - b) for a, b in zip(
+                r0[name]["score"], reference[name]["score"])),
+            "eval": r0[name]["eval"],
+            "eval_one_process": reference[name]["eval"],
+            "delta_rel_err": float(
+                np.linalg.norm((got - initial) - (want - initial))
+                / np.linalg.norm(want - initial)),
+            "step_ms": [r[name]["step_ms"] for r in ranks],
+            "one_process_step_ms": reference[name]["step_ms"],
+            "rank_s": r0[name]["s"], "one_process_s": reference[name]["s"]}
+    # f32: each step from one process's state (forced_run).
+    numbers["f32"]["steps"] = forced_errors(
+        [np.load(os.path.join(root, f"f32_{k}.npy"))
+         for k in range(PP_STEPS)], reference["f32"]["steps"], initial)
+    log("pipeline_parallel: 'stage' = 2 over two gloo ranks against one "
+        f"process [{card}]: " + json.dumps(numbers))
+    for what in ("loss", "score"):
+        np.testing.assert_allclose(
+            r0["f32"][what], reference["f32"][what], rtol=1e-5, atol=1e-6,
+            err_msg=f"f32 {what}s, 'stage' = 2")
+    np.testing.assert_allclose(r0["f32"]["eval"], reference["f32"]["eval"],
+                               rtol=1e-5, atol=1e-6,
+                               err_msg="f32 eval step, 'stage' = 2")
+    require(numbers["f32"]["steps"]["within"],
+            f"f32 parameters, 'stage' = 2, each step from one process's "
+            f"state: {numbers['f32']['steps']} against "
+            f"{TOL['dp_params_f32_clear']} + 1e-5 relative where the step "
+            f"is clear of noise (over half the entries) and "
+            f"{TOL['dp_delta_f32']} of the step's change in 2-norm")
+    bf16 = numbers["bf16"]
+    require(bf16["loss_rel_err"] <= TOL["dp_loss_bf16"],
+            f"bf16 losses, 'stage' = 2: {bf16['loss_rel_err']} relative")
+    require(bf16["score_abs_err"] <= TOL["dp_score_bf16"],
+            f"bf16 scores, 'stage' = 2: off by {bf16['score_abs_err']}")
+    require(abs(r0["bf16"]["eval"][0] - reference["bf16"]["eval"][0])
+            <= TOL["dp_loss_bf16"] * abs(reference["bf16"]["eval"][0]),
+            f"bf16 eval loss, 'stage' = 2: {r0['bf16']['eval']} vs "
+            f"{reference['bf16']['eval']}")
+    require(bf16["delta_rel_err"] <= TOL["dp_delta_bf16"],
+            f"bf16 parameter change, 'stage' = 2: {bf16['delta_rel_err']}")
+    expected = pp_expected(recurrence, f32_recurrence)
+    for r in ranks:
+        require(r["launches"] == {**dict.fromkeys(wrappers, 0), **expected},
+                f"'stage' rank {r['rank']} launches {r['launches']}, "
+                f"expected {expected}")
+    numbers["rank_launches"] = expected
+    # The entry points at 'stage' = 2: a train step runs kernel A, 23
+    # grids of kernel B, a pooling, and each of the rank's blocks on each
+    # microbatch forward (kernel 4) and backward (kernel 5, a grid); an
+    # eval batch kernel 1, a pooling and the blocks forward.
+    train_ds, val_ds = (
+        VQADataset.load(VQADataset.cache_path(prof[split]["vqaDataset"]))
+        for split in ("train_paths", "val_paths"))
+    steps = E2E_EPOCHS * -(-len(train_ds) // BATCH)
+    evals = (E2E_EPOCHS + 1) * -(-len(val_ds) // BATCH)
+    calls = vit_config().image.num_layers // PP_WORLD * PP_MICRO
+    entry_expected = {"lstm_recurrence_save": steps * recurrence,
+                      "lstm_backward_step": steps * SEQ_LEN,
+                      "lstm_recurrence": evals * recurrence,
+                      "vit_attention": calls * (steps + evals),
+                      "vit_attention_backward": calls * steps,
+                      "attention_pool": steps + evals}
+    entry = r0["entry"]
+    numbers["entry"] = {"best": entry["best"], "score": entry["score"],
+                        "rank_s": [r["entry"]["s"] for r in ranks],
+                        "corpus_s": corpus_s, "steps": steps,
+                        "evals": evals, "launches": entry["launches"]}
+    for r in ranks:
+        require([r["entry"]["best"], r["entry"]["score"]]
+                == [entry["best"], entry["score"]],
+                f"the 'stage' ranks' entry points: {[r['entry'] for r in ranks]}")
+        require(r["entry"]["launches"]
+                == {**dict.fromkeys(wrappers, 0), **entry_expected},
+                f"'stage' rank {r['rank']}'s entry points launch "
+                f"{r['entry']['launches']}, expected {entry_expected}")
+    require(abs(entry["score"] - entry["best"]) <= TOL["e2e_eval_score"],
+            f"evaluate_vqa {entry['score']} at 'stage' = 2 against the "
+            f"loop's best {entry['best']}")
+    numbers["phase_s"] = time.perf_counter() - phase_start
+    shutil.rmtree(root, ignore_errors=True)
+    return r0["launches"], numbers
+
+
+def parallel_phases(torch, seed: int, card: str, names: list) -> int:
+    """Phases 17, 18, 20 and 21, those in ``names``, each printing its
+    JSON line as the whole run prints it (``--phases``)."""
+    recurrence = recurrence_grids(torch)
+    phases = {"17": ("data_parallel", lambda: data_parallel_phase(
+                  torch, seed, recurrence, card)),
+              "18": ("model_parallel", lambda: model_parallel_phase(
+                  torch, seed, card)),
+              "20": ("sequence_parallel", lambda: sequence_parallel_phase(
+                  torch, seed, recurrence, card)),
+              "21": ("pipeline_parallel", lambda: pipeline_parallel_phase(
+                  torch, seed, recurrence, card))}
+    require(set(names) <= set(phases), f"--phases {names}: of {list(phases)}")
+    for name in names:
+        key, run = phases[name]
+        _, numbers = run()
+        log(json.dumps({key: numbers}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6636,6 +7278,15 @@ def main(argv=None) -> int:
                         help="a rank of phase 20's two-rank run (started "
                              "by the phase itself, with torchrun's "
                              "environment)")
+    parser.add_argument("--phases", metavar="LIST",
+                        help="run only these of the parallel phases (17, "
+                             "18, 20, 21, comma-separated) after the build "
+                             "and print their JSON lines; a partial run "
+                             "prints no kernels line and no last line")
+    parser.add_argument("--pp-rank", nargs=2, metavar=("OUT", "SEED"),
+                        help="a rank of phase 21's two-rank run (started "
+                             "by the phase itself, with torchrun's "
+                             "environment)")
     args = parser.parse_args(argv)
 
     import torch
@@ -6654,6 +7305,8 @@ def main(argv=None) -> int:
         return mp_rank(args.mp_rank[0], int(args.mp_rank[1]))
     if args.sp_rank:
         return sp_rank(args.sp_rank[0], int(args.sp_rank[1]))
+    if args.pp_rank:
+        return pp_rank(args.pp_rank[0], int(args.pp_rank[1]))
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6662,6 +7315,9 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     card = device_phase(torch)
     build_phase()
+    if args.phases:
+        return parallel_phases(torch, args.seed, card,
+                               args.phases.split(","))
     summary = kernel_phase(torch, args.seed)
 
     from dl_vqa_tpu_torch.models.configs import ModelConfig
@@ -6819,6 +7475,12 @@ def main(argv=None) -> int:
     paths["sequence_parallel"], sequence_parallel = sequence_parallel_phase(
         torch, args.seed, recurrence, card)
     log(json.dumps({"sequence_parallel": sequence_parallel}))
+    # Phase 21: the 'stage' axis, two gloo ranks.
+    paths["pipeline_parallel"], pipeline_parallel = pipeline_parallel_phase(
+        torch, args.seed, recurrence, card)
+    paths["pipeline_parallel_entry"] = pipeline_parallel["entry"].pop(
+        "launches")
+    log(json.dumps({"pipeline_parallel": pipeline_parallel}))
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"

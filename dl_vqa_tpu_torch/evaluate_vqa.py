@@ -32,8 +32,12 @@ one-process score; the coordinator builds a missing vocab, store or
 dataset while the others wait, and only it writes the log. The mesh is
 ``main``'s: with ``tpu.mesh.model`` or ``tpu.mesh.expert`` above 1 the
 loaded model is cut into each rank's shards
-(:func:`dl_vqa_tpu_torch.parallel.tensor.shard_model`), and with
-``tpu.mesh.seq`` above 1 its ViT splits the tokens over the 'seq' ranks.
+(:func:`dl_vqa_tpu_torch.parallel.tensor.shard_model`), with
+``tpu.mesh.seq`` above 1 its ViT splits the tokens over the 'seq' ranks,
+and with ``tpu.mesh.stage`` above 1 its blocks over the 'stage' ranks
+(``tpu.pipeline_microbatches`` microbatches through the schedule). An
+int8 mode is calibrated on the whole model, before it is cut, so every
+rank holds one process's scales.
 """
 
 from __future__ import annotations
@@ -167,7 +171,8 @@ def evaluate_hw2(overrides=(), device=DEFAULT_DEVICE) -> float:
                                  val_dataset, compute_dtype, logger.write,
                                  online_images)
         model.configure(model_cfg)
-    shard_model(model, mesh, log=logger.write)
+    shard_model(model, mesh, log=logger.write,
+                microbatches=cfg["tpu"]["pipeline_microbatches"])
     eval_step = make_eval_step(model_cfg, compute_dtype, with_breakdown=True,
                                mesh=mesh)
     proc_slice = multihost.process_batch_slice(mesh,

@@ -52,14 +52,21 @@ riding a ring over them (sequence parallelism,
     torchrun --nproc-per-node=2 -m dl_vqa_tpu_torch.main config_vit \
         train.image_size=448 tpu.mesh.seq=2
 
+``tpu.mesh.stage=P`` splits a ViT's blocks into P stages, one a rank,
+through which ``tpu.pipeline_microbatches`` microbatches stream (0: one a
+stage; GPipe, :mod:`dl_vqa_tpu_torch.parallel.pipeline`):
+
+    torchrun --nproc-per-node=2 -m dl_vqa_tpu_torch.main config_vit \
+        tpu.mesh.stage=2 tpu.pipeline_microbatches=4
+
 Two ranks on one card need gloo (NCCL refuses two ranks on one device).
 
-Settings the port does not have yet raise at once, naming their ROADMAP
-item: ``tpu.checkpoint_backend=orbax``, the mesh axis ``stage`` above 1,
-``tpu.pipeline_microbatches``, with ``tpu.mesh.model`` above 1 the
-quantized image modes (and ``fused_ops`` on the ViT, in the steps), and
-with ``tpu.mesh.seq`` above 1 a ViT-MoE and the quantized image modes; a
-CNN with ``tpu.mesh.seq`` above 1 raises the JAX model's error.
+The axes compose as the JAX package composes them; what it refuses raises
+its error: a CNN with ``tpu.mesh.seq`` or ``tpu.mesh.stage`` above 1,
+'seq' with 'stage', and under 'stage' the int8 ViT and a ViT-MoE.
+``tpu.checkpoint_backend=orbax`` raises at once, naming its ROADMAP
+item, and so does ``fused_ops`` on the ViT with ``tpu.mesh.model`` above
+1 (in the steps; the port's own option).
 ``tpu.use_pallas`` and ``tpu.prng_impl`` choose between JAX
 implementations and mean nothing here. ``train.image.store_dtype=f8e4m3``
 trains through the f8 store's straight-through backward; ``int8`` serves
@@ -84,32 +91,17 @@ __all__ = ["main", "multirun_main", "check_supported", "compute_dtype_of",
 
 
 def check_supported(cfg: dict) -> None:
-    """Raise ``NotImplementedError`` for a setting the port lacks, and
-    ``SystemExit`` for a ZeRO stage that does not exist."""
+    """Raise ``NotImplementedError`` for a setting the port lacks,
+    ``SystemExit`` for a ZeRO stage that does not exist, and the JAX
+    model's ``ValueError`` for a CNN under 'seq'."""
     tpu = cfg["tpu"]
     missing = []
     if tpu["checkpoint_backend"] != "npz":
         missing.append(f"tpu.checkpoint_backend="
                        f"{tpu['checkpoint_backend']!r} (npz only: the Orbax "
                        "backend is left behind, ROADMAP queue 1)")
-    mesh = tpu["mesh"]
-    image = cfg["train"]["image"]
-    check_sequence_parallel(mesh["seq"], image.get("encoder", "cnn"),
-                            image.get("moe_experts", 0),
-                            image.get("store_dtype", "compute"))
-    axes = [f"tpu.mesh.stage={mesh['stage']}"] if mesh["stage"] > 1 else []
-    if tpu["pipeline_microbatches"] != 0:
-        axes.append(f"tpu.pipeline_microbatches="
-                    f"{tpu['pipeline_microbatches']}")
-    store = cfg["train"]["image"].get("store_dtype", "compute")
-    if mesh["model"] > 1 and store != "compute":
-        axes.append(f"train.image.store_dtype={store} with "
-                    f"tpu.mesh.model={mesh['model']}")
-    if axes:
-        missing.append(", ".join(axes) + " (the 'data', 'seq', 'expert' "
-                       "and 'model' axes only: pipeline parallelism, and "
-                       "the quantized image modes under tensor "
-                       "parallelism, are ROADMAP queue 1, item 9)")
+    check_sequence_parallel(tpu["mesh"]["seq"],
+                            cfg["train"]["image"].get("encoder", "cnn"))
     if tpu["zero_stage"] not in (0, 1, 3):
         raise SystemExit(
             f"tpu.zero_stage must be 0 (off), 1 (shard Adam moments over "
@@ -312,7 +304,8 @@ def main(cfg: dict, device=DEFAULT_DEVICE) -> float:
         train_image_table=tables["train"], eval_image_table=tables["val"],
         checkpoint_every_steps=cfg["tpu"]["checkpoint_every_steps"],
         debug_nans=cfg["tpu"]["debug_nans"], mesh=mesh,
-        zero_stage=zero_stage)
+        zero_stage=zero_stage,
+        microbatches=cfg["tpu"]["pipeline_microbatches"])
 
     logger.report_metrics_hyper_params(config_mod.flatten(cfg["train"]),
                                        metrics)

@@ -3,14 +3,15 @@ mixed-precision product, and the normalisation of uint8 images."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
 from dl_vqa_tpu_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
 from dl_vqa_tpu_torch.parallel.tensor import Shard, copy_to, take_columns
 
-__all__ = ["dropout", "mm", "normalize_images", "BatchRows"]
+__all__ = ["dropout", "mm", "normalize_images", "BatchRows", "Drawn",
+           "draw_masks"]
 
 
 class BatchRows(NamedTuple):
@@ -29,6 +30,59 @@ class BatchRows(NamedTuple):
     start: int
     tokens: int = 0
     token_start: int = 0
+
+
+class Drawn:
+    """Dropout masks drawn ahead (:func:`draw_masks`), this rank's bytes of
+    each site in the order the sites take them: a pipelined stage's
+    microbatch draws nothing itself."""
+
+    def __init__(self, bits: Sequence[torch.Tensor]):
+        self.bits = list(bits)
+
+    def take(self) -> torch.Tensor:
+        return self.bits.pop(0)
+
+
+def _threshold(rate: float) -> int:
+    return int(round((1.0 - rate) * 256.0))
+
+
+def _draws(rate: float, generator) -> bool:
+    """Whether :func:`dropout` at ``rate`` draws from ``generator``."""
+    return generator is not None and rate != 0.0 and \
+        0 < _threshold(rate) < 256
+
+
+def _bits(shape, device, generator: Union[torch.Generator, BatchRows]
+          ) -> torch.Tensor:
+    """The random bytes of a mask for an ``x`` of ``shape`` (this rank's
+    rows and tokens of the whole batch's mask where ``generator`` is
+    :class:`BatchRows`)."""
+    if not isinstance(generator, BatchRows):
+        return torch.randint(0, 256, shape, dtype=torch.uint8,
+                             generator=generator, device=device)
+    whole = tuple(shape)
+    if generator.tokens:
+        whole = whole[:1] + (generator.tokens,) + whole[2:]
+    bits = torch.randint(0, 256, (generator.total,) + whole[1:],
+                         dtype=torch.uint8, generator=generator.generator,
+                         device=device)
+    bits = bits.narrow(0, generator.start, shape[0])
+    if generator.tokens:
+        bits = bits.narrow(1, generator.token_start, shape[1])
+    return bits
+
+
+def draw_masks(x: torch.Tensor, rate: float,
+               generator: Union[None, torch.Generator, BatchRows],
+               count: int) -> Optional[List[torch.Tensor]]:
+    """The bytes of ``count`` dropout sites in a row, each for an ``x`` of
+    ``x``'s shape, drawn as :func:`dropout` would draw them one after the
+    other; None where :func:`dropout` draws nothing."""
+    if not _draws(rate, generator):
+        return None
+    return [_bits(x.shape, x.device, generator) for _ in range(count)]
 
 
 def normalize_images(images: torch.Tensor, dtype: torch.dtype
@@ -52,30 +106,23 @@ def dropout(x: torch.Tensor, rate: float,
     its random byte is below the threshold, and the kept ones are divided
     by the same quantised probability, so the mean is preserved exactly.
     ``generator`` is ``None`` in eval (no dropout), else a generator on
-    ``x``'s device, or :class:`BatchRows` of one. ``cols``: ``x`` holds
+    ``x``'s device, or :class:`BatchRows` of one, or the masks of
+    :class:`Drawn`. ``cols``: ``x`` holds
     these columns of a last dim ``width`` wide (a column-parallel
     activation): the mask is drawn at the whole width and those columns
     kept, so the ranks drop what one process drops."""
     if generator is None or rate == 0.0:
         return x
-    threshold = int(round((1.0 - rate) * 256.0))
+    threshold = _threshold(rate)
     if threshold >= 256:
         return x
     if threshold <= 0:
         return torch.zeros_like(x)
-    shape = x.shape if cols is None else x.shape[:-1] + (width,)
-    if isinstance(generator, BatchRows):
-        if generator.tokens:
-            shape = shape[:1] + (generator.tokens,) + shape[2:]
-        bits = torch.randint(0, 256, (generator.total,) + shape[1:],
-                             dtype=torch.uint8, generator=generator.generator,
-                             device=x.device)
-        bits = bits.narrow(0, generator.start, x.shape[0])
-        if generator.tokens:
-            bits = bits.narrow(1, generator.token_start, x.shape[1])
+    if isinstance(generator, Drawn):
+        bits = generator.take()
     else:
-        bits = torch.randint(0, 256, shape, dtype=torch.uint8,
-                             generator=generator, device=x.device)
+        shape = x.shape if cols is None else x.shape[:-1] + (width,)
+        bits = _bits(shape, x.device, generator)
     bits = take_columns(bits, cols)
     return torch.where(bits < threshold, x / (threshold / 256.0), 0.0)
 

@@ -96,9 +96,12 @@ class TextBlock(nn.Module):
     ``x + drop(mlp_out(relu(mlp_in(ln2(x)))))``. Under 'model' (``tp``)
     ``qkv`` and ``mlp_in`` are column-parallel (``qkv`` by heads, and
     ``num_heads`` is this rank's count), ``out`` and ``mlp_out``
-    row-parallel."""
+    row-parallel; where the axis does not divide the heads, ``qkv`` and
+    ``out`` stay whole (``tp`` None) and only the MLP splits
+    (``mlp_tp``)."""
 
     tp = None
+    mlp_tp = None
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -115,12 +118,14 @@ class TextBlock(nn.Module):
         if self.qkv.weight.shape[0] < 3 * self.dim:
             self.tp = shards["model"]
             self.num_heads //= self.tp.size
+        if self.mlp_in.weight.shape[0] < 4 * self.dim:
+            self.mlp_tp = shards["model"]
 
     def forward(self, x, mask, dtype, rate, generator):
-        tp = self.tp
         att = _self_attention(self.ln1(x), self.qkv, self.out, mask,
-                              self.num_heads, dtype, tp).to(dtype)
+                              self.num_heads, dtype, self.tp).to(dtype)
         x = x + _dropout(att, rate, generator)
+        tp = self.mlp_tp
         hidden = torch.relu(_mm(self.ln2(x), self.mlp_in.weight, tp)
                             + self.mlp_in.bias).to(dtype)
         mlp = (reduce_from(_mm(hidden, self.mlp_out.weight), tp)

@@ -47,15 +47,18 @@ collects their inputs' amaxes for the calibration. The JAX model refuses
 the int8 mode with MoE blocks, and so does the port
 (``ModelConfig.check_ported``).
 
-Under 'model' (``VitBlock.tp``) ``qkv`` and ``mlp_in`` are
-column-parallel, ``qkv`` by heads (this rank's ``num_heads / model`` heads,
-packed ``[q | k | v]``, which kernels 4 and 5 take as they take a whole
-block's), and ``out`` and ``mlp_out`` row-parallel: their f32 partial
-products are summed over the ranks before the bias and before the
-rounding to the compute dtype. A MoE block's experts split over 'expert'
+Under 'model' (``VitBlock.tp``, ``VitBlock.mlp_tp``) ``qkv`` and
+``mlp_in`` are column-parallel, ``qkv`` by heads (this rank's ``num_heads
+/ model`` heads, packed ``[q | k | v]``, which kernels 4 and 5 take as they
+take a whole block's), and ``out`` and ``mlp_out`` row-parallel: their f32
+partial products are summed over the ranks before the bias and before
+the rounding to the compute dtype (in the int8 mode their s32 partial
+products, :func:`~dl_vqa_tpu_torch.ops.vit_int8.w8a8_linear`). Where the
+axis does not divide the heads, ``qkv`` and ``out`` stay whole on every
+rank and only the MLP splits. A MoE block's experts split over 'expert'
 and their hidden width over 'model' (:mod:`dl_vqa_tpu_torch.ops.moe`).
 Kernel 8 fuses the MLP that 'model' splits: ``fused_ops`` with 'model'
-above 1 raises (ROADMAP item 9).
+above 1 raises (ROADMAP queue 2's kernel work).
 
 Under 'seq' (:mod:`dl_vqa_tpu_torch.parallel.sequence`, set by
 :meth:`VitImage.set_shards`) each rank keeps its contiguous ``S / n``
@@ -66,8 +69,13 @@ block's attention core, as the JAX model takes the ring in place of its
 kernel, and gathers the sequence after the final layer norm; the blocks'
 dropout sites draw the whole sequence's masks and keep the rank's tokens.
 
-Left out, as the JAX option it belongs to is not ported: the pipeline
-context.
+Under 'stage' (a model cut by
+:func:`~dl_vqa_tpu_torch.parallel.tensor.shard_model`, whose
+:meth:`VitImage.set_shards` gives the ViT its pipeline context) the blocks
+run through the GPipe executor (:mod:`dl_vqa_tpu_torch.parallel.pipeline`),
+this rank holding the blocks of its stage; every block's dropout masks are
+drawn for the whole batch first, in one process's order, and each
+microbatch keeps its rows.
 """
 
 from __future__ import annotations
@@ -79,7 +87,7 @@ from torch import nn
 
 from dl_vqa_tpu_torch.models.configs import ModelConfig
 from dl_vqa_tpu_torch.models.layers import (
-    BatchRows, dropout as _dropout, mm as _mm)
+    BatchRows, Drawn, draw_masks, dropout as _dropout, mm as _mm)
 from dl_vqa_tpu_torch.models.transformer import LayerNorm
 from dl_vqa_tpu_torch.ops.moe import MOE_WITHOUT_ROUTING, MoeMlp
 from dl_vqa_tpu_torch.ops.ring_attention import ring_attention_qkv
@@ -87,7 +95,10 @@ from dl_vqa_tpu_torch.ops.vit_attention import (
     kernel_head, vit_attention, vit_attention_weights_normalised)
 from dl_vqa_tpu_torch.ops.vit_int8 import w8a8_linear
 from dl_vqa_tpu_torch.ops.vit_mlp_fused import fused_ln_mlp
-from dl_vqa_tpu_torch.parallel.mesh import ITEM_9
+from dl_vqa_tpu_torch.parallel.mesh import FUSED_OPS_UNDER_MODEL
+from dl_vqa_tpu_torch.parallel.pipeline import (
+    INT8_WITH_STAGE, MOE_WITH_STAGE, microbatch_rows, pipeline_apply,
+    stage_layers)
 from dl_vqa_tpu_torch.parallel.tensor import reduce_from
 
 __all__ = ["VitImage", "VitBlock", "LayerNorm", "patch_embed"]
@@ -110,11 +121,12 @@ def patch_embed(images: torch.Tensor, weight: torch.Tensor,
 class VitBlock(nn.Module):
     """One pre-LN block: ``x + drop(out(attention(qkv(ln1(x)))))``, then
     ``x + drop(mlp_out(relu(mlp_in(ln2(x)))))``, or with ``experts > 0``
-    ``x + drop(moe(ln2(x)))``. ``tp``: the 'model' Shard when the block's
-    products are split (:meth:`set_shards`; ``num_heads`` is then this
-    rank's count)."""
+    ``x + drop(moe(ln2(x)))``. ``tp``: the 'model' Shard when the
+    attention's products are split (:meth:`set_shards`; ``num_heads`` is
+    then this rank's count), ``mlp_tp`` when the MLP's are."""
 
     tp = None
+    mlp_tp = None
     seq = None
 
     def __init__(self, dim: int, num_heads: int, dropout: float,
@@ -149,6 +161,9 @@ class VitBlock(nn.Module):
         if self.qkv.weight.shape[0] < 3 * self.dim:
             self.tp = shards["model"]
             self.num_heads //= self.tp.size
+        if hasattr(self, "mlp_in") and \
+                self.mlp_in.weight.shape[0] < 4 * self.dim:
+            self.mlp_tp = shards["model"]
 
     def forward(self, x, dtype, plain, generator, fused=False, scales=None,
                 amax_sink=None, moe=None, aux_sink=None):
@@ -158,26 +173,24 @@ class VitBlock(nn.Module):
         block routes with ``moe = (top_k, capacity_factor)`` and appends the
         factors of its balance loss to ``aux_sink``; kernel 8 never takes
         it."""
-        tp = self.tp
-        if fused and tp is not None:
-            raise NotImplementedError(
-                "fused_ops on the ViT with tpu.mesh.model > 1: kernel 8 "
-                f"fuses the MLP that 'model' splits ({ITEM_9})")
+        if fused and self.mlp_tp is not None:
+            raise NotImplementedError(FUSED_OPS_UNDER_MODEL)
 
-        def linear(h, layer, site, out_dtype, row=False):
+        def linear(h, layer, site, out_dtype, tp, row=False):
             if amax_sink is not None:
                 amax_sink.append(h.float().abs().amax())
             if scales is not None:
                 return w8a8_linear(h, layer.weight, layer.bias, scales[site],
-                                   out_dtype)
+                                   out_dtype, tp if row else None)
             if row:  # the ranks' partial sums, then the bias once
                 return reduce_from(_mm(h, layer.weight), tp) + layer.bias
             return _mm(h, layer.weight, tp) + layer.bias
 
         hidden = self.ln1(x)
-        qkv = linear(hidden, self.qkv, 0, torch.float32).to(dtype)
+        qkv = linear(hidden, self.qkv, 0, torch.float32, self.tp).to(dtype)
         att = self.attention(qkv, plain)
-        att = linear(att, self.out, 1, torch.float32, row=True).to(dtype)
+        att = linear(att, self.out, 1, torch.float32, self.tp,
+                     row=True).to(dtype)
         x = x + _dropout(att, self.dropout, generator)        # site 21 + 2i
         if hasattr(self, "moe"):
             if moe is None:
@@ -187,8 +200,9 @@ class VitBlock(nn.Module):
         if scales is not None:
             # The hidden stays f32 between the two W8A8 products.
             hidden = torch.relu(linear(self.ln2(x), self.mlp_in, 2,
-                                       torch.float32))
-            mlp = linear(hidden, self.mlp_out, 3, dtype)
+                                       torch.float32, self.mlp_tp))
+            mlp = linear(hidden, self.mlp_out, 3, dtype, self.mlp_tp,
+                         row=True)
             return x + _dropout(mlp, self.dropout, generator)  # site 22 + 2i
         if (fused and amax_sink is None and generator is None
                 and not torch.is_grad_enabled()):
@@ -200,13 +214,15 @@ class VitBlock(nn.Module):
                 self.mlp_in.bias, self.mlp_out.weight, self.mlp_out.bias,
                 plain)
         hidden = torch.relu(linear(self.ln2(x), self.mlp_in, 2,
-                                   torch.float32)).to(dtype)
-        mlp = linear(hidden, self.mlp_out, 3, dtype, row=True).to(dtype)
+                                   torch.float32, self.mlp_tp)).to(dtype)
+        mlp = linear(hidden, self.mlp_out, 3, dtype, self.mlp_tp,
+                     row=True).to(dtype)
         return x + _dropout(mlp, self.dropout, generator)      # site 22 + 2i
 
 
 class VitImage(nn.Module):
     seq = None  # this rank's SequenceContext under 'seq' (set_shards)
+    pipeline = None  # this rank's PipelineContext under 'stage' (likewise)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -228,6 +244,34 @@ class VitImage(nn.Module):
 
     def set_shards(self, shards) -> None:
         self.seq = shards.get("seq")
+        self.pipeline = shards.get("stage")
+
+    def _pipelined(self, x, dtype, plain, generator, fused):
+        """The blocks through the GPipe executor: this rank's stage's
+        blocks on each microbatch of its rows (module docstring)."""
+        mesh = self.pipeline.mesh
+        layers = self.quant.num_layers
+        mine = stage_layers(layers, mesh.size("stage"), mesh.coord("stage"))
+        rows = x.shape[0]
+        micro = microbatch_rows(rows, self.pipeline)
+        # Every block's two sites, drawn for the whole batch in one
+        # process's order; a stage keeps its blocks' masks.
+        masks = draw_masks(x, self.dropout, generator, 2 * layers)
+        if masks is not None:
+            masks = masks[2 * mine.start:2 * mine.stop]
+
+        def layer_fn(layer, h, m):
+            j, block = layer
+            source = None
+            if masks is not None:
+                source = Drawn([bits.narrow(0, m * micro, micro)
+                                for bits in masks[2 * j:2 * j + 2]])
+            return block(h, dtype, plain, source, fused)
+
+        out = pipeline_apply(layer_fn, list(enumerate(self.blocks)),
+                             x.reshape((rows // micro, micro) + x.shape[1:]),
+                             mesh)
+        return out.reshape(x.shape)
 
     def forward(self, images: torch.Tensor, dtype: torch.dtype, plain: bool,
                 generator: Optional[torch.Generator],
@@ -249,6 +293,12 @@ class VitImage(nn.Module):
                 f"positional table size {self.pos.shape[0]}; the model was "
                 f"initialized for image_size/patch_size = "
                 f"{int(self.pos.shape[0] ** 0.5)} patches per side.")
+        int8 = self.quant.store_dtype == "int8" and amax_sink is None
+        if self.pipeline is not None:
+            if int8:
+                raise NotImplementedError(INT8_WITH_STAGE)
+            if self.quant.moe_experts:
+                raise NotImplementedError(MOE_WITH_STAGE)
         x = patch_embed(images[:, :gh * p, :gw * p], self.patch_embed.weight,
                         self.patch_embed.bias, p, dtype)
         x = (x + self.pos[:gh * gw]).to(dtype)
@@ -262,14 +312,16 @@ class VitImage(nn.Module):
                     generator = BatchRows(generator, batch, 0)
                 generator = generator._replace(tokens=gh * gw,
                                                token_start=tokens.start)
-        int8 = self.quant.store_dtype == "int8" and amax_sink is None
-        moe = ((self.quant.moe_top_k, self.quant.moe_capacity_factor)
-               if self.quant.moe_experts else None)
-        for idx, block in enumerate(self.blocks):
-            scales = (tuple(self.quant.quant_scales[4 * idx:4 * idx + 4])
-                      if int8 else None)
-            x = block(x, dtype, plain, generator, fused, scales, amax_sink,
-                      moe, aux_sink)
+        if self.pipeline is not None:
+            x = self._pipelined(x, dtype, plain, generator, fused)
+        else:
+            moe = ((self.quant.moe_top_k, self.quant.moe_capacity_factor)
+                   if self.quant.moe_experts else None)
+            for idx, block in enumerate(self.blocks):
+                scales = (tuple(self.quant.quant_scales[4 * idx:4 * idx + 4])
+                          if int8 else None)
+                x = block(x, dtype, plain, generator, fused, scales,
+                          amax_sink, moe, aux_sink)
         x = self.final_ln(x)
         if seq is not None:
             x = seq.gather(x)

@@ -44,6 +44,8 @@ with 'model' or 'expert' axes, each module holds this rank's shards and
 sums over its group (``set_shards``): the embedding's rows, the
 attention's projections and glimpse logits, the classifier, the ViT's and
 the transformer's blocks, the experts; the rest runs whole on every rank.
+Under 'stage' the ViT holds its stage's blocks and runs them through the
+pipeline.
 """
 
 from __future__ import annotations

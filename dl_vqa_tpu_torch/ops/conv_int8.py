@@ -95,7 +95,8 @@ def fma_f32(a: torch.Tensor, m: torch.Tensor, b: torch.Tensor
     return torch.addcmul(b.double(), a.double(), m.double()).float()
 
 
-def quantize_weights_per_channel(w: torch.Tensor
+def quantize_weights_per_channel(w: torch.Tensor,
+                                 amax: Optional[torch.Tensor] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 of a torch-layout weight, the
     output channel first (a conv's ``[Cout, Cin, k, k]``, a linear's
@@ -103,9 +104,12 @@ def quantize_weights_per_channel(w: torch.Tensor
     scale``; an all-zero channel gets scale 1. The JAX package's
     ``quantize_weights_per_channel`` (HWIO) and ``vit_int8._quantize_weight``
     (``[in, out]``) in one, as jitted XLA computes them: the scale is
-    ``amax * f32(1 / 127)``, the codes ``round(w / scale)``."""
+    ``amax * f32(1 / 127)``, the codes ``round(w / scale)``. ``amax``:
+    each channel's amax where ``w`` holds part of the channel (a
+    row-parallel linear's columns)."""
     w32 = w.detach().float()
-    amax = w32.abs().flatten(1).amax(dim=1)
+    if amax is None:
+        amax = w32.abs().flatten(1).amax(dim=1)
     scale = torch.where(amax > 0, amax * f32(1.0 / 127.0),
                         torch.ones_like(amax))
     per_row = scale.reshape(-1, *[1] * (w.dim() - 1))

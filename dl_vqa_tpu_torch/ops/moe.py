@@ -43,7 +43,18 @@ process's bits. The routing weights and the dispatched tokens take the
 gradient of this rank's slots only: their gradients are summed over the
 ranks (over 'expert', and over 'expert' x 'model'), so the replicated
 router and everything before the block get one process's gradient on
-every rank. An all-to-all that splits the groups over 'expert' in place
+every rank.
+
+Under 'seq' (:mod:`dl_vqa_tpu_torch.parallel.sequence`) a rank holds ``S /
+n`` contiguous tokens of every group, and a group is still the image: its
+capacity counts the whole sequence's tokens, and a token's place in its
+expert adds, for each slot, the choices of that slot on the earlier 'seq'
+ranks (an exclusive prefix of the ranks' ``[G, E]`` counts, all-gathered
+over 'seq') to what earlier slots kept over the whole sequence. Each rank
+then runs the experts on its own kept tokens, so the ranks keep one
+process's routes. The balance loss's factors stay the rank's means; the
+train step takes them over every rank of the batch and the sequence.
+An all-to-all that splits the groups over 'expert' in place
 of the replicated tokens is ROADMAP queue 1's later work.
 
 The router product is an f32 product of f32 operands (TF32 is off in the
@@ -59,6 +70,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+
+import torch.distributed as dist
 
 from dl_vqa_tpu_torch.parallel.tensor import copy_to, reduce_from
 
@@ -121,11 +134,27 @@ def balance_loss(frac: torch.Tensor, mean_prob: torch.Tensor
     return frac.shape[-1] * torch.sum(frac * mean_prob, dim=-1)
 
 
-def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int
-                 ) -> Routing:
+def _seq_counts(local: torch.Tensor, seq) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """``(before, total)``: the sums of the 'seq' ranks' ``[G, E]`` counts
+    over the ranks before this one and over all of them (integers in f32:
+    exact)."""
+    parts = [torch.empty_like(local) for _ in range(seq.size)]
+    dist.all_gather(parts, local.contiguous(), group=seq.group)
+    before = torch.zeros_like(local)
+    for part in parts[:seq.index]:
+        before = before + part
+    return before, torch.stack(parts).sum(0)
+
+
+def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int,
+                 seq=None) -> Routing:
     """GShard top-k gating with capacity on router logits ``[G, S, E]``
     (any float dtype, promoted to f32), as
-    ``dl_vqa_tpu/ops/moe.py::top_k_gating`` computes it."""
+    ``dl_vqa_tpu/ops/moe.py::top_k_gating`` computes it. ``seq``: the
+    :class:`~dl_vqa_tpu_torch.parallel.sequence.SequenceContext` whose
+    rank holds these ``S`` tokens of longer groups (module docstring);
+    ``frac`` and ``mean_prob`` are then this rank's means."""
     if top_k < 1:
         raise ValueError(f"top_k must be >= 1, got {top_k}")
     num_experts = logits.shape[-1]
@@ -148,8 +177,18 @@ def top_k_gating(logits: torch.Tensor, top_k: int, capacity: int
         # slot, plus everything kept in earlier slots.
         pos_in_e = (torch.cumsum(onehot, dim=1) - onehot
                     + counts[:, None, :])
+        if seq is not None:
+            # The slot's choices on the earlier 'seq' ranks come first.
+            before, total = _seq_counts(onehot.sum(dim=1), seq)
+            pos_in_e = pos_in_e + before[:, None, :]
         keep = onehot * (pos_in_e < capacity)
-        counts = counts + keep.sum(dim=1)
+        if seq is None:
+            counts = counts + keep.sum(dim=1)
+        else:
+            # The whole sequence's places in [counts, counts + total) of
+            # each expert: what fits below the capacity was kept.
+            counts = counts + torch.minimum(
+                total, (capacity - counts).clamp(min=0.0))
         experts.append(idx)
         positions.append((pos_in_e * onehot).sum(dim=-1).long())
         kept.append(keep.sum(dim=-1) > 0)
@@ -172,7 +211,7 @@ def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
             b_in: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
             top_k: int, capacity_factor: float,
             aux_sink: Optional[list] = None, ep=None, tp=None,
-            ep_tp=None) -> torch.Tensor:
+            ep_tp=None, seq=None) -> torch.Tensor:
     """Sparsely activated expert FFN ``x [G, S, D] -> [G, S, D]`` in x's
     dtype (the compute dtype), with the router ``gate [E, D]`` and the
     experts ``w_in [E, F, D]``, ``b_in [E, F]``, ``w_out [E, D, F]``,
@@ -187,15 +226,17 @@ def moe_mlp(x: torch.Tensor, gate: torch.Tensor, w_in: torch.Tensor,
     ``ep``, ``tp``, ``ep_tp``: the 'expert', 'model' and 'expert' x
     'model' Shards of a split block (module docstring), whose ``w_in``,
     ``b_in``, ``w_out``, ``b_out`` hold this rank's experts and hidden
-    columns; None in one process."""
+    columns; ``seq``: the 'seq' context of a rank holding ``S`` tokens of
+    each group; None in one process."""
     dtype = x.dtype
     groups, tokens, dim = x.shape
     num_experts = gate.shape[0]
     local_experts = w_in.shape[0]
     first = 0 if ep is None else ep.index * local_experts
-    capacity = moe_capacity(tokens, num_experts, top_k, capacity_factor)
+    capacity = moe_capacity(tokens * (1 if seq is None else seq.size),
+                            num_experts, top_k, capacity_factor)
     logits = torch.matmul(x.float(), gate.t())               # [G, S, E] f32
-    routing = top_k_gating(logits, top_k, capacity)
+    routing = top_k_gating(logits, top_k, capacity, seq)
     if aux_sink is not None:
         aux_sink.append((routing.frac, routing.mean_prob))
 
@@ -247,7 +288,7 @@ class MoeMlp(nn.Module):
     bias [E, F]}``, ``out.{weight [E, D, F], bias [E, D]}``; of a split
     block (:meth:`set_shards`) this rank's experts and hidden columns."""
 
-    ep = tp = ep_tp = None
+    ep = tp = ep_tp = seq = None
 
     def __init__(self, dim: int, hidden: int, experts: int):
         super().__init__()
@@ -270,6 +311,7 @@ class MoeMlp(nn.Module):
             p.uniform_(-bound, bound, generator=gen)
 
     def set_shards(self, shards) -> None:
+        self.seq = shards.get("seq")
         e_in = getattr(self, "in")
         if e_in.weight.shape[0] < self.gate.shape[0]:
             self.ep = shards["expert"]
@@ -283,4 +325,4 @@ class MoeMlp(nn.Module):
         e_in, e_out = getattr(self, "in"), getattr(self, "out")
         return moe_mlp(x, self.gate, e_in.weight, e_in.bias, e_out.weight,
                        e_out.bias, top_k, capacity_factor, aux_sink,
-                       self.ep, self.tp, self.ep_tp)
+                       self.ep, self.tp, self.ep_tp, self.seq)

@@ -18,6 +18,14 @@ takes more than 16 rows and a depth and width that are multiples of 8
 (the ViT's 196 tokens a image and its 256 / 768 / 1024 widths), and a
 shape that is not raises here. It is exact, so the port differs from the
 JAX package only where the f32 epilogue rounds otherwise.
+
+Under 'model' (``VitBlock``'s split products) a column-parallel site
+(``qkv``, ``mlp_in``) holds whole output channels and quantizes them as
+one process does. A row-parallel site (``out``, ``mlp_out``) holds a slice
+of every channel's inputs: each channel's weight amax is the maximum over
+the 'model' ranks, and the ranks' s32 partial products are summed (exact)
+before the one f32 epilogue and the bias, so the ranks give one process's
+codes.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dl_vqa_tpu_torch.ops.conv_int8 import (
     f32, fma_f32, quantize_weights_per_channel)
@@ -48,17 +57,25 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def w8a8_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                s_in: float, dtype: torch.dtype) -> torch.Tensor:
+                s_in: float, dtype: torch.dtype, row=None) -> torch.Tensor:
     """``x @ w^T + b`` on the integer product: ``x [..., in]`` quantized
     with the static amax ``s_in`` (values beyond it saturate at +-127),
     ``w [out, in]`` quantized per channel; the s32 result times ``w_scale *
     (s_in / 127)`` plus the f32 bias, rounded once as XLA's contracted
     multiply-add rounds it (:func:`~dl_vqa_tpu_torch.ops.conv_int8.
-    fma_f32`), in ``dtype``."""
+    fma_f32`), in ``dtype``. ``row``: the 'model' Shard of a row-parallel
+    site, whose ``x`` and ``w`` hold this rank's slice of the inputs
+    (module docstring)."""
     x_q = torch.clamp(torch.round(x.float() * f32(127.0 / s_in)), -127,
                       127).to(torch.int8)
-    w_q, w_scale = quantize_weights_per_channel(w)
+    amax = None
+    if row is not None:
+        amax = w.detach().float().abs().amax(dim=1)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=row.group)
+    w_q, w_scale = quantize_weights_per_channel(w, amax)
     acc = _int_mm(x_q.reshape(-1, x_q.shape[-1]), w_q.t().contiguous())
+    if row is not None:
+        dist.all_reduce(acc, group=row.group)
     y = fma_f32(acc.float(), w_scale * f32(s_in / 127.0), b.detach().float())
     return y.reshape(*x.shape[:-1], -1).to(dtype)
 

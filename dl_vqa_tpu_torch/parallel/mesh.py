@@ -5,23 +5,29 @@ is a grid of chips with the axes ('data'[, 'seq'][, 'expert'], 'model'[,
 'stage']); the port runs one process per GPU, so its mesh is a grid of
 ranks with the same names in the same order, 'data' outermost (a
 ``torch.distributed.device_mesh.DeviceMesh`` once a process group is
-joined): rank ``r`` sits at ``(d, [s,] [e,] m)`` of ``arange(world).
-reshape(shape)``. 'data', 'seq', 'expert' and 'model' may exceed 1 ('seq'
-splits the ViT's tokens, :mod:`dl_vqa_tpu_torch.parallel.sequence`);
-pipeline parallelism is ROADMAP queue 1, item 9, and raises.
+joined): rank ``r`` sits at ``(d, [s,] [e,] m[, p])`` of ``arange(world).
+reshape(shape)``. Every axis may exceed 1: 'seq' splits the ViT's tokens
+(:mod:`dl_vqa_tpu_torch.parallel.sequence`), 'stage' its blocks
+(:mod:`dl_vqa_tpu_torch.parallel.pipeline`); 'seq' with 'stage' raises
+the JAX model's error.
 
 The placement rules (:func:`spec_for`, :func:`param_specs`) are the JAX
 package's, by parameter path of the JAX tree, with its fallback to
 replication where a dim does not divide its axis and its warning for a
-large leaf that falls back. Where JAX places a leaf and lets the SPMD
-partitioner insert the collectives, the port cuts each rank's shard out of
-the whole state (:mod:`dl_vqa_tpu_torch.parallel.tensor`) and its modules
-call the collectives themselves. The batch is split over 'data' only: a
-rank holds the rows of its 'data' coordinate
+large leaf that falls back; the stacked ViT block leaves take a leading
+'stage' split. The port splits a transformer block's packed ``qkv`` by
+heads where JAX splits its columns, so a block whose heads the 'model'
+axis does not divide keeps its ``qkv`` and ``out`` whole (the rules'
+fallback, warned of in the same words) and splits its MLP. Where JAX
+places a leaf and lets the SPMD partitioner insert the collectives, the
+port cuts each rank's shard out of the whole state
+(:mod:`dl_vqa_tpu_torch.parallel.tensor`) and its modules call the
+collectives themselves. The batch is split over 'data' only: a rank holds
+the rows of its 'data' coordinate
 (:func:`~dl_vqa_tpu_torch.parallel.multihost.process_batch_slice`), so the
 ranks of one 'seq' x 'expert' x 'model' group feed the same rows, as JAX's
-``P('data')`` places a batch; :mod:`dl_vqa_tpu_torch.parallel.zero`
-splits the train state over 'data' by wrapping the model (ZeRO,
+``P('data')`` places a batch; :mod:`dl_vqa_tpu_torch.parallel.zero` splits
+the train state over 'data' by wrapping the model (ZeRO,
 ``tpu.zero_stage``).
 """
 
@@ -35,9 +41,12 @@ import numpy as np
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_mesh", "spec_for", "param_specs",
-           "WARN_FALLBACK_ELEMENTS", "ITEM_9"]
+           "WARN_FALLBACK_ELEMENTS", "FUSED_OPS_UNDER_MODEL"]
 
-ITEM_9 = "ROADMAP queue 1, item 9, the parallel axes"
+FUSED_OPS_UNDER_MODEL = (
+    "fused_ops on the ViT with tpu.mesh.model > 1: kernel 8 fuses the MLP "
+    "that 'model' splits (a split kernel 8 is ROADMAP queue 2's kernel "
+    "work; fused_ops is the port's own option)")
 
 # A spec names, for each dim of a leaf in the JAX layout, the mesh axis it
 # is split over, or None; () replicates the leaf.
@@ -51,17 +60,20 @@ class Mesh:
     ``device_mesh``: the ``DeviceMesh`` over the ranks (None in a process
     that joined no group, where the mesh is one device); ``coords``: the
     coordinate on every axis (None: 0 on every axis but 'data');
-    ``expert_model``: the group of the ranks that share this rank's 'data'
-    and 'seq' coordinates (the 'expert' x 'model' block; None in one
-    process). The
-    steps reduce over the ranks of a mesh over a joined group whatever its
-    size, a group of one rank included."""
+    ``expert_model``: the group of the ranks that share this rank's
+    'data', 'seq' and 'stage' coordinates (the 'expert' x 'model' block;
+    None in one process); ``data_seq``: the group of the ranks that share
+    its 'expert', 'model' and 'stage' coordinates (the 'data' x 'seq'
+    block, made where 'seq' exceeds 1). The steps reduce over the ranks of
+    a mesh over a joined group whatever its size, a group of one rank
+    included."""
 
     shape: Dict[str, int]
     rank: int = 0
     device_mesh: Optional[object] = None
     coords: Optional[Dict[str, int]] = None
     expert_model: Optional[object] = None
+    data_seq: Optional[object] = None
 
     @property
     def distributed(self) -> bool:
@@ -79,8 +91,8 @@ class Mesh:
 
     @property
     def splits_state(self) -> bool:
-        """Whether 'model' or 'expert' splits the parameters."""
-        return self.size("model") > 1 or self.size("expert") > 1
+        """Whether 'model', 'expert' or 'stage' splits the parameters."""
+        return any(self.size(a) > 1 for a in ("model", "expert", "stage"))
 
     def group(self, axis: str = "data"):
         """The process group of ``axis`` (None in one process)."""
@@ -88,17 +100,23 @@ class Mesh:
             return None
         return self.device_mesh.get_group(axis)
 
+    def data_seq_group(self):
+        """The group over which a quantity of the whole batch and sequence
+        is summed: the 'data' x 'seq' block, or 'data' where 'seq' is 1."""
+        return self.data_seq if self.data_seq is not None \
+            else self.group("data")
+
 
 def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
               expert: int = 1, seq: int = 1, device_type: str = "cuda"
               ) -> Mesh:
-    """A ('data'[, 'seq'][, 'expert'], 'model') mesh over the processes of
-    the group (one process when none was joined); 'seq' and 'expert' are
-    only materialized when > 1, as in JAX. ``data=-1`` takes the world
-    size over the other axes; a mesh of more ranks than there are raises
-    the JAX package's oversubscription message, and one of fewer raises
-    too (every rank has a place on the mesh). ``stage`` above 1 raises
-    ``NotImplementedError``, with 'seq' above 1 the JAX model's words."""
+    """A ('data'[, 'seq'][, 'expert'], 'model'[, 'stage']) mesh over the
+    processes of the group (one process when none was joined); 'seq',
+    'expert' and 'stage' are only materialized when > 1, as in JAX.
+    ``data=-1`` takes the world size over the other axes; a mesh of more
+    ranks than there are raises the JAX package's oversubscription
+    message, and one of fewer raises too (every rank has a place on the
+    mesh). 'seq' with 'stage' raises the JAX model's words."""
     model, stage, expert, seq = (max(a, 1) for a in (model, stage, expert,
                                                       seq))
     if seq > 1 and stage > 1:
@@ -106,10 +124,6 @@ def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
             "tpu.mesh.seq > 1 does not compose with tpu.mesh.stage "
             "> 1: the GPipe executor's shard_map cannot nest the "
             "ring-attention shard_map")
-    if stage > 1:
-        raise NotImplementedError(
-            f"tpu.mesh.stage={stage}: dl_vqa_tpu_torch has the 'data', "
-            f"'seq', 'expert' and 'model' axes ({ITEM_9})")
     joined = dist.is_initialized()
     world_size = dist.get_world_size() if joined else 1
     if data == -1:
@@ -125,13 +139,15 @@ def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
         raise ValueError(
             f"mesh of {n} devices in a group of {world_size} processes: "
             "every process is one 'data' shard of the 'seq' x 'expert' x "
-            "'model' block (tpu.mesh.data=-1 takes them all)")
+            "'model' x 'stage' block (tpu.mesh.data=-1 takes them all)")
     shape = {"data": data}
     if seq > 1:
         shape["seq"] = seq
     if expert > 1:
         shape["expert"] = expert
     shape["model"] = model
+    if stage > 1:
+        shape["stage"] = stage
     if not joined:
         return Mesh(shape)
     from torch.distributed.device_mesh import init_device_mesh
@@ -139,17 +155,29 @@ def make_mesh(data: int = -1, model: int = 1, stage: int = 1,
     device_mesh = init_device_mesh(device_type, tuple(shape.values()),
                                    mesh_dim_names=tuple(shape))
     me = dist.get_rank()
-    coords = dict(zip(shape, np.unravel_index(me, tuple(shape.values()))))
-    coords = {axis: int(c) for axis, c in coords.items()}
-    block = expert * model
-    mine = coords["data"] * seq + coords.get("seq", 0)
-    expert_model = None
-    # new_group is collective: every rank makes every block's group.
-    for d in range(data * seq):
-        group = dist.new_group(list(range(d * block, (d + 1) * block)))
-        if d == mine:
-            expert_model = group
-    return Mesh(shape, coords["data"], device_mesh, coords, expert_model)
+    grid = np.arange(world_size).reshape(tuple(shape.values()))
+    coords = {axis: int(c) for axis, c in zip(
+        shape, np.unravel_index(me, grid.shape))}
+    names = list(shape)
+
+    def blocks(axes):
+        """new_group for every block of ``axes`` (a collective: every rank
+        makes every block's group); returns the one holding this rank."""
+        inner = [names.index(a) for a in axes if a in shape]
+        outer = [i for i in range(len(names)) if i not in inner]
+        ranks = np.transpose(grid, outer + inner).reshape(
+            -1, int(np.prod([grid.shape[i] for i in inner], dtype=int)))
+        mine = None
+        for row in ranks:
+            group = dist.new_group([int(r) for r in row])
+            if me in row:
+                mine = group
+        return mine
+
+    expert_model = blocks(("expert", "model"))
+    data_seq = blocks(("data", "seq")) if seq > 1 else None
+    return Mesh(shape, coords["data"], device_mesh, coords, expert_model,
+                data_seq)
 
 
 # ------------------------------------------------------- placement rules
@@ -206,17 +234,32 @@ def _divisible(shape: Sequence[int], spec: Spec,
                for dim, axis in enumerate(spec))
 
 
-def param_specs(tree, sizes: Dict[str, int], log=None):
+def _head_split(path: str) -> bool:
+    """Whether ``path`` is a leaf of a transformer block's attention that
+    the port splits by heads: ``qkv`` (column-parallel) and ``out``
+    (row-parallel), of the ViT's or the text encoder's blocks."""
+    return (("/image/layers/" in path or "/text/layers/" in path)
+            and path.endswith(("/qkv/w", "/qkv/b", "/out/w"))
+            and "/moe/" not in path)
+
+
+def param_specs(tree, sizes: Dict[str, int], log=None,
+                heads: Optional[Dict[str, int]] = None):
     """The spec of every leaf of the JAX parameter ``tree`` (numpy arrays
     or anything with a ``shape``) on a mesh of axis ``sizes``, as a tree of
     the same structure: the JAX package's ``param_shardings``. The stacked
-    ViT layer axis (``/image/layers/``) takes None (there is no 'stage'
-    axis); an axis the mesh does not hold, or of size 1, replicates its
-    dim; a leaf whose split dims do not divide their axes replicates
+    ViT layer axis (``/image/layers/``) takes 'stage' where the mesh
+    pipelines; an axis the mesh does not hold, or of size 1, replicates
+    its dim; a leaf whose split dims do not divide their axes replicates
     whole, and one of at least :data:`WARN_FALLBACK_ELEMENTS` elements is
     named in a warning (the JAX words; through ``log`` if given, else the
-    ``logging`` module)."""
+    ``logging`` module). ``heads``: the head counts of the ``image`` and
+    ``text`` transformer blocks; a block whose count the 'model' axis does
+    not divide keeps its ``qkv`` and ``out`` whole, as a leaf that does not
+    divide (the port splits them by heads)."""
     fallbacks = []
+    heads = heads or {}
+    model = sizes.get("model", 1)
 
     def walk(node, prefix):
         if isinstance(node, dict):
@@ -227,13 +270,18 @@ def param_specs(tree, sizes: Dict[str, int], log=None):
         stacked = "/image/layers/" in prefix
         spec = spec_for(prefix, len(shape) - stacked)
         if stacked:
-            spec = (None,) + spec
+            spec = ("stage",) + spec
         spec = tuple(axis if axis is not None and sizes.get(axis, 1) > 1
                      else None for axis in spec)
-        if not _divisible(shape, spec, sizes):
+        part = prefix.split("/")[1] if prefix.count("/") > 1 else ""
+        whole_heads = (_head_split(prefix) and "model" in spec
+                       and heads.get(part, model) % model != 0)
+        if whole_heads or not _divisible(shape, spec, sizes):
             if int(np.prod(shape)) >= WARN_FALLBACK_ELEMENTS:
                 fallbacks.append((prefix, shape, spec))
-            spec = ()
+            spec = (("stage",) + (None,) * (len(shape) - 1)
+                    if stacked and sizes.get("stage", 1) > 1
+                    and shape[0] % sizes["stage"] == 0 else ())
         if all(axis is None for axis in spec):
             spec = ()
         return spec

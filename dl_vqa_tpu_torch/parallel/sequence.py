@@ -26,13 +26,14 @@ the gather are the same on every rank and are given the coordinate-0
 rank's bits (:func:`sync_sequence_grads`). The ranks of one 'seq' group
 hold the same rows of the batch ('data' splits the batch, 'seq' the
 tokens). Under 'model' each rank's packed ``qkv`` holds its heads, and
-those ride the ring.
+those ride the ring. A ViT-MoE routes each image's tokens across the
+ranks as one process routes them (:mod:`dl_vqa_tpu_torch.ops.moe`), and
+the int8 ViT's four W8A8 products are token-local with static scales, so
+each rank runs its tokens.
 
 What the JAX package refuses, the port refuses with its words: the CNN,
 which has no token dimension, 'seq' with 'stage', and a token count the
-axis does not divide. Not ported yet (ROADMAP item 9): 'seq' with a
-ViT-MoE, whose groups' capacity counts tokens that span the ranks, and
-with the quantized image modes.
+axis does not divide.
 """
 
 from __future__ import annotations
@@ -42,8 +43,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
-
-from dl_vqa_tpu_torch.parallel.mesh import ITEM_9
 
 __all__ = ["SequenceContext", "check_sequence_parallel",
            "sync_sequence_grads", "NO_TOKEN_DIMENSION"]
@@ -120,26 +119,11 @@ class _Gather(torch.autograd.Function):
         return grad.narrow(1, start, ctx.width), None
 
 
-def check_sequence_parallel(seq: int, encoder: str, moe_experts: int,
-                            store_dtype: str) -> None:
-    """Raise where a model of these image settings cannot take a 'seq'
-    axis of ``seq`` ranks: the CNN (``ValueError``, the JAX model's
-    words), a ViT-MoE and the quantized image modes
-    (``NotImplementedError``, ROADMAP item 9)."""
-    if seq < 2:
-        return
-    if encoder != "vit":
+def check_sequence_parallel(seq: int, encoder: str) -> None:
+    """Raise the JAX model's ``ValueError`` where an image encoder cannot
+    take a 'seq' axis of ``seq`` ranks: the CNN."""
+    if seq > 1 and encoder != "vit":
         raise ValueError(NO_TOKEN_DIMENSION)
-    if moe_experts > 0:
-        raise NotImplementedError(
-            f"tpu.mesh.seq={seq} with train.image.moe_experts={moe_experts}:"
-            f" a MoE group's capacity counts tokens that span the 'seq' "
-            f"ranks, which is not ported ({ITEM_9})")
-    if store_dtype != "compute":
-        raise NotImplementedError(
-            f"tpu.mesh.seq={seq} with train.image.store_dtype="
-            f"{store_dtype!r}: the quantized image modes under sequence "
-            f"parallelism are not ported ({ITEM_9})")
 
 
 def sync_sequence_grads(model, mesh) -> None:

@@ -22,7 +22,11 @@ of the mesh's axes (``dist.all_reduce`` and ``all_gather``; no DTensor):
   ``m`` holds the q, k and v columns of its ``num_heads / model`` heads,
   ``[q_m | k_m | v_m]``, so the attention kernels see a packed local
   ``qkv``; the JAX column split ``P(None, 'model')`` is a placement that XLA
-  re-gathers before the attention.
+  re-gathers before the attention. A block whose heads the axis does not
+  divide keeps ``qkv`` and ``out`` whole on every rank and splits its MLP
+  (:func:`~dl_vqa_tpu_torch.parallel.mesh.param_specs`). Under 'stage'
+  the stacked ViT blocks split too: a rank keeps the ``L / S`` blocks of
+  its stage, and its model's block list holds only those.
 
 Which modules split is read from their shards' shapes
 (``set_shards`` of each module of the model); a module whose leaves
@@ -32,17 +36,22 @@ process, or with no group, every function here is the identity.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from dl_vqa_tpu_torch.parallel.mesh import ITEM_9, param_specs
+from dl_vqa_tpu_torch.parallel.mesh import param_specs
 
 __all__ = ["Shard", "copy_to", "reduce_from", "vocab_lookup", "columns",
            "take_columns", "shards_of", "shard_model", "shard_state",
-           "gather_named", "sync_replicated_grads", "check_tensor_parallel"]
+           "gather_named", "sync_replicated_grads", "head_counts"]
+
+# The axes a parameter may be split over, in the order their replicated
+# gradients are synced.
+_AXES = ("model", "expert", "stage")
 
 
 class Shard(NamedTuple):
@@ -128,23 +137,29 @@ def take_columns(x: torch.Tensor, cols: Optional[Sequence[slice]],
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
 
-def shards_of(mesh) -> Dict[str, Optional[Shard]]:
+def shards_of(mesh, microbatches: int = 0) -> Dict[str, Optional[Shard]]:
     """This rank's :class:`Shard` of 'model', of 'expert' and of the
     'expert' x 'model' block, each None where it has one rank (or in one
-    process), and under "seq" its
-    :class:`~dl_vqa_tpu_torch.parallel.sequence.SequenceContext` (None
-    likewise)."""
+    process), under "seq" its
+    :class:`~dl_vqa_tpu_torch.parallel.sequence.SequenceContext` and under
+    "stage" its :class:`~dl_vqa_tpu_torch.parallel.pipeline.
+    PipelineContext` of ``microbatches`` microbatches (0: one a stage),
+    None likewise."""
+    from dl_vqa_tpu_torch.parallel.pipeline import PipelineContext
     from dl_vqa_tpu_torch.parallel.sequence import SequenceContext
 
     out = {"model": None, "expert": None, "expert_model": None,
-           "seq": SequenceContext.of(mesh)}
+           "seq": SequenceContext.of(mesh), "stage": None}
     if mesh is None or not mesh.distributed:
         return out
     for axis in ("model", "expert"):
         if mesh.size(axis) > 1:
             out[axis] = Shard(mesh.group(axis), mesh.size(axis),
                               mesh.coord(axis))
-    if mesh.splits_state:
+    if mesh.size("stage") > 1:
+        out["stage"] = PipelineContext(
+            mesh, microbatches or mesh.size("stage"))
+    if mesh.size("expert") > 1 or mesh.size("model") > 1:
         size = mesh.size("expert") * mesh.size("model")
         out["expert_model"] = Shard(
             mesh.expert_model, size,
@@ -152,29 +167,16 @@ def shards_of(mesh) -> Dict[str, Optional[Shard]]:
     return out
 
 
-def check_tensor_parallel(cfg, mesh_shape: Dict[str, int]) -> None:
-    """Raise where the model cannot take the mesh: a head count the
-    'model' axis does not divide (the packed ``qkv`` splits by heads), and
-    with 'model' above 1 the quantized image modes (``ValueError`` and
-    ``NotImplementedError``)."""
-    model = mesh_shape.get("model", 1)
-    if model < 2:
-        return
-    heads = []
+def head_counts(cfg) -> Dict[str, int]:
+    """The head counts of the model's transformer blocks by the top key of
+    the JAX tree (``image``, ``text``), for
+    :func:`~dl_vqa_tpu_torch.parallel.mesh.param_specs`."""
+    out = {}
     if cfg.image.encoder == "vit":
-        heads.append(("image.num_heads", cfg.image.num_heads))
+        out["image"] = cfg.image.num_heads
     if cfg.text.encoder == "transformer":
-        heads.append(("text.num_heads", cfg.text.num_heads))
-    for name, count in heads:
-        if count % model:
-            raise ValueError(
-                f"tpu.mesh.model={model} does not divide {name}={count}: "
-                "a transformer block's qkv splits over 'model' by heads")
-    if cfg.image.store_dtype != "compute":
-        raise NotImplementedError(
-            f"train.image.store_dtype={cfg.image.store_dtype!r} with "
-            f"tpu.mesh.model={model}: the quantized image modes under "
-            f"tensor parallelism are not ported ({ITEM_9})")
+        out["text"] = cfg.text.num_heads
+    return out
 
 
 def _head_aligned(path: str) -> bool:
@@ -197,8 +199,8 @@ def _cut(path: str, leaf: np.ndarray, spec, mesh) -> np.ndarray:
         if axis is None:
             continue
         n, i = mesh.size(axis), mesh.coord(axis)
-        parts = np.split(leaf, 3, axis=dim) if _head_aligned(path) \
-            else [leaf]
+        parts = (np.split(leaf, 3, axis=dim)
+                 if axis == "model" and _head_aligned(path) else [leaf])
         leaf = np.concatenate([np.split(part, n, axis=dim)[i]
                                for part in parts], axis=dim)
     return np.ascontiguousarray(leaf)
@@ -214,7 +216,7 @@ def _join(path: str, leaf: np.ndarray, spec, mesh, device) -> np.ndarray:
         parts = [torch.empty_like(local) for _ in range(mesh.size(axis))]
         dist.all_gather(parts, local, group=mesh.group(axis))
         parts = [p.cpu().numpy() for p in parts]
-        if _head_aligned(path):
+        if axis == "model" and _head_aligned(path):
             thirds = [np.split(p, 3, axis=dim) for p in parts]
             leaf = np.concatenate([t[k] for k in range(3) for t in thirds],
                                   axis=dim)
@@ -229,11 +231,22 @@ def _to_jax(named: Dict[str, torch.Tensor]):
     return jax_tree_from_named(named)
 
 
+def _block_free(name: str) -> str:
+    """``name`` with a ViT block's index taken out: a stage rank's block
+    ``i`` and the whole model's block ``j`` hold the same kinds of
+    tensors."""
+    return re.sub(r"^image\.blocks\.\d+\.", "image.blocks.#.", name)
+
+
 def _to_torch(tree, keep) -> Dict[str, np.ndarray]:
+    """The tree's tensors under torch names, those of the kinds ``keep``
+    holds (every ViT block's where ``keep`` holds some block's)."""
     from dl_vqa_tpu_torch.utils.params import torch_state_from_params
 
+    kinds = {_block_free(name) for name in keep}
     return {name: np.ascontiguousarray(value) for name, value in
-            torch_state_from_params(tree).items() if name in keep}
+            torch_state_from_params(tree).items()
+            if _block_free(name) in kinds}
 
 
 def _cut_named(named: Dict[str, torch.Tensor], specs, mesh
@@ -248,9 +261,9 @@ def gather_named(named: Dict[str, torch.Tensor], model, mesh
     """The whole tensors (host, f32) of this rank's shards ``named`` (the
     parameters and buffers of a model cut by :func:`shard_model`, or a
     subset of them, such as the trainable ones' Adam moments), in the
-    one-process layout under the same names: a collective over the
-    'model' and 'expert' groups, so every rank calls it. A model that was
-    not cut gives ``named`` as it is."""
+    one-process layout under the same names (under 'stage', every block's):
+    a collective over the 'model', 'expert' and 'stage' groups, so every
+    rank calls it. A model that was not cut gives ``named`` as it is."""
     specs = getattr(model, "tp_specs", None)
     if specs is None:
         return named
@@ -262,25 +275,33 @@ def gather_named(named: Dict[str, torch.Tensor], model, mesh
             for name, value in _to_torch(whole, named).items()}
 
 
-def shard_model(model, mesh, log=None):
+def shard_model(model, mesh, log=None, microbatches: int = 0):
     """Cut ``model`` (a whole :class:`~dl_vqa_tpu_torch.models.vqa.
     VqaNet`, the same on every rank) to this rank's shards on ``mesh``,
     in place, and tell its modules their groups; returns it. The LSTM's
     ``bias_hh`` is folded into ``bias_ih`` on the way (the same sum). A
-    mesh whose 'model' and 'expert' axes are 1 leaves the parameters as
-    they are; with 'seq' above 1 the ViT learns its 'seq' group
-    (:mod:`dl_vqa_tpu_torch.parallel.sequence`). ``log``: where the rules'
-    fallback warning goes."""
+    mesh whose 'model', 'expert' and 'stage' axes are 1 leaves the
+    parameters as they are; with 'seq' above 1 the ViT learns its 'seq'
+    group (:mod:`dl_vqa_tpu_torch.parallel.sequence`). Under 'stage' the
+    ViT keeps the blocks of this rank's stage and runs them through the
+    schedule, ``microbatches`` microbatches a batch (0: one a stage, as
+    ``tpu.pipeline_microbatches``); what the JAX package refuses there
+    raises its error
+    (:func:`~dl_vqa_tpu_torch.parallel.pipeline.check_pipeline`).
+    ``log``: where the rules' fallback warning goes."""
+    image = model.cfg.image
     if mesh.size("seq") > 1:
         from dl_vqa_tpu_torch.parallel.sequence import (
             check_sequence_parallel)
 
-        image = model.cfg.image
-        check_sequence_parallel(mesh.size("seq"), image.encoder,
-                                image.moe_experts, image.store_dtype)
+        check_sequence_parallel(mesh.size("seq"), image.encoder)
         if not mesh.distributed:
             raise ValueError(f"mesh {mesh.shape} splits the tokens: it "
                              "needs a joined process group")
+    if mesh.size("stage") > 1:
+        from dl_vqa_tpu_torch.parallel.pipeline import check_pipeline
+
+        check_pipeline(model.cfg, mesh.size("stage"))
     if not mesh.splits_state:
         if mesh.size("seq") > 1:
             _set_shards(model, shards_of(mesh))
@@ -290,12 +311,10 @@ def shard_model(model, mesh, log=None):
                          "needs a joined process group")
     if getattr(model, "tp_specs", None) is not None:
         raise ValueError("the model is cut already")
-    check_tensor_parallel(model.cfg, mesh.shape)
     named = model.state_dict()
     tree = _to_jax(named)
-    specs = param_specs(tree, dict(mesh.shape), log)
+    specs = param_specs(tree, dict(mesh.shape), log, head_counts(model.cfg))
     local = _cut_named(named, specs, mesh)
-    synced = _replicated_over(model, tree, specs, mesh)
     for name, value in local.items():  # VqaNet holds no buffers
         path, attr = name.rsplit(".", 1)
         module = model.get_submodule(path)
@@ -303,9 +322,13 @@ def shard_model(model, mesh, log=None):
         setattr(module, attr, torch.nn.Parameter(
             torch.from_numpy(value).to(device=old.device, dtype=old.dtype),
             requires_grad=getattr(module, attr).requires_grad))
-    _set_shards(model, shards_of(mesh))
+    if mesh.size("stage") > 1:
+        # This stage's blocks took the first places of the list.
+        blocks = model.image.blocks
+        del blocks[image.num_layers // mesh.size("stage"):]
+    _set_shards(model, shards_of(mesh, microbatches))
     model.tp_specs = specs
-    model.tp_synced = synced
+    model.tp_synced = _replicated_over(model, tree, specs, mesh)
     return model
 
 
@@ -316,13 +339,14 @@ def _set_shards(model, shards) -> None:
 
 
 def _replicated_over(model, tree, specs, mesh):
-    """``[(axis, names)]``: for each of 'model' and 'expert' that has
-    ranks, the trainable parameters it does not split."""
+    """``[(axis, names)]``: for each of 'model', 'expert' and 'stage' that
+    has ranks, the trainable parameters of the cut ``model`` it does not
+    split."""
     from dl_vqa_tpu_torch.utils.params import torch_state_from_params
 
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
     out = []
-    for axis in ("model", "expert"):
+    for axis in _AXES:
         if mesh.size(axis) < 2:
             continue
         # A leaf of ones where the axis splits it, zeros elsewhere, through
@@ -335,14 +359,17 @@ def _replicated_over(model, tree, specs, mesh):
 
 
 def sync_replicated_grads(model, mesh) -> None:
-    """Give every rank of a 'model' (and of an 'expert') group the
-    gradients of the parameters that axis does not split as its
+    """Give every rank of a 'model' (of an 'expert', of a 'stage') group
+    the gradients of the parameters that axis does not split as its
     coordinate-0 rank has them (one broadcast an axis). The ranks compute
     those gradients alike, but not always to the bit: a library may choose
     another algorithm on each (cuDNN's by the memory free for its
     workspace, and its default f32 backward algorithms are not
     deterministic), and replicated parameters that drift apart are no
-    longer one model. A model that was not cut is left as it is."""
+    longer one model. Under 'stage' the coordinate-0 rank is the one that
+    holds them whole: the gradient of what precedes the blocks (the patch
+    embedding, the position table) reaches stage 0 alone. A model that
+    was not cut is left as it is."""
     from torch.distributed.tensor import DTensor
 
     params = dict(model.named_parameters())
@@ -363,14 +390,16 @@ def sync_replicated_grads(model, mesh) -> None:
             at += g.numel()
 
 
-def shard_state(state, mesh, log=None):
+def shard_state(state, mesh, log=None, microbatches: int = 0):
     """:func:`shard_model` on ``state.model`` and a fresh Adam over its
     shards, holding this rank's blocks of the whole moments (those the
     state's optimizer held: a restored or stepped state keeps its
     moments); returns ``state``. Call it before
     :func:`~dl_vqa_tpu_torch.parallel.zero.parallelize` and after any
     restore, which loads the whole state. A mesh that splits no
-    parameter only tells the model its 'seq' group, if any."""
+    parameter only tells the model its 'seq' group, if any. Under 'stage'
+    a rank holds its blocks' moments alone; ``microbatches`` as
+    :func:`shard_model`'s."""
     if not mesh.splits_state:
         shard_model(state.model, mesh, log)
         return state
@@ -382,7 +411,7 @@ def shard_state(state, mesh, log=None):
     trainable = _trainable(model)
     slots = {name: old.state[p] for name, p in trainable.items()
              if p in old.state}
-    shard_model(model, mesh, log)
+    shard_model(model, mesh, log, microbatches)
     state.optimizer = make_optimizer(model, state.initial_lr)
     if slots:
         if set(slots) != set(trainable):

@@ -24,14 +24,16 @@ constant LSTM ``bias_hh`` (``requires_grad=False``) stays outside Adam in
 every stage; the caller folds it into ``bias_ih`` before wrapping
 (``train.loop.train``).
 
-Over a mesh whose 'model' or 'expert' axis splits the parameters
-(:func:`dl_vqa_tpu_torch.parallel.tensor.shard_state`, called first) every
-wrapper runs over the 'data' group and sub-mesh alone, on this rank's
-shards: the ranks of a 'data' group hold the same shards.
+Over a mesh whose 'model', 'expert' or 'stage' axis splits the
+parameters (:func:`dl_vqa_tpu_torch.parallel.tensor.shard_state`, called
+first) every wrapper runs over the 'data' group and sub-mesh alone, on
+this rank's shards: the ranks of a 'data' group hold the same shards (a
+stage rank its blocks and the rest of the model).
 
 A checkpoint holds the whole state whatever the stage and the mesh:
 :func:`full_state` gathers the parameters and moments on every rank (a
-collective: over 'data', then over 'model' and 'expert'), and a restore
+collective: over 'data', then over 'model', 'expert' and 'stage'), and a
+restore
 loads the whole state into the unwrapped, uncut model before
 :func:`~dl_vqa_tpu_torch.parallel.tensor.shard_state` and
 :func:`parallelize` split it, so a state moves between mesh shapes.

@@ -224,6 +224,7 @@ def train(
     debug_nans: bool = False,
     mesh=None,
     zero_stage: int = 0,
+    microbatches: int = 0,
 ) -> Dict[str, float]:
     """Train ``model`` (a :class:`~dl_vqa_tpu_torch.models.vqa.VqaNet`, on
     the device it lies on) to the epoch budget or the early stop; returns
@@ -238,7 +239,10 @@ def train(
 
     ``mesh`` over a process group trains data-parallel at ZeRO stage
     ``zero_stage`` (see the module docstring): the batchers give this
-    rank's rows, and the tables are this rank's (or sharded ones)."""
+    rank's rows, and the tables are this rank's (or sharded ones).
+    ``microbatches``: the microbatches of a batch under 'stage' (0: one a
+    stage), as :func:`~dl_vqa_tpu_torch.parallel.tensor.shard_state`
+    takes them."""
     if not hasattr(train_batcher, "iter_epoch"):
         raise TypeError(
             "train_batcher needs iter_epoch(epoch, start_batch) (see "
@@ -287,7 +291,8 @@ def train(
         from dl_vqa_tpu_torch.parallel.tensor import shard_state
         from dl_vqa_tpu_torch.parallel.zero import parallelize
 
-        state = shard_state(state, mesh, log=logger.write)
+        state = shard_state(state, mesh, log=logger.write,
+                            microbatches=microbatches)
         state = parallelize(state, mesh, zero_stage)
     chips = 1 if mesh is None else math.prod(mesh.shape.values())
     is_coordinator = mesh is None or not any(

@@ -58,8 +58,9 @@ fractions, the objective's scale) is over the 'data' group, by the rank's
 'data' coordinate, as above. Before the update the gradients of what an
 axis does not split are made its coordinate-0 rank's
 (:func:`~dl_vqa_tpu_torch.parallel.tensor.sync_replicated_grads`), so
-the ranks' replicated parameters stay one model. ``fused_ops`` on the ViT with 'model' above 1
-raises: kernel 8 fuses the MLP that 'model' splits (ROADMAP item 9).
+the ranks' replicated parameters stay one model. ``fused_ops`` on the ViT
+with 'model' above 1 raises: kernel 8 fuses the MLP that 'model' splits
+(ROADMAP queue 2's kernel work).
 
 Over a mesh with a 'seq' axis the ranks of one 'seq' group hold the same
 rows and split the ViT's tokens (:mod:`dl_vqa_tpu_torch.parallel.
@@ -67,9 +68,20 @@ sequence`): after the backward the ViT's parameter gradients, each rank's
 part, are summed over the group in f32, and the rest, the same on every
 rank of the group, are given its coordinate-0 rank's bits
 (:func:`~dl_vqa_tpu_torch.parallel.sequence.sync_sequence_grads`); the
-reductions here stay over 'data'.
+reductions here stay over 'data', but for the MoE balance loss's
+factors, which are means over every token of the batch and the sequence:
+one all-reduce over the 'data' x 'seq' ranks.
 
-Not ported yet: the pipeline axis.
+Over a mesh with a 'stage' axis the ViT's blocks run over it
+(:mod:`dl_vqa_tpu_torch.parallel.pipeline`), each rank holding its stage's
+blocks (the model cut by
+:func:`~dl_vqa_tpu_torch.parallel.tensor.shard_model`), and both steps
+run the schedule (the eval step forward only).
+Every stage rank computes the rest of the model, the loss and the
+metrics alike; the gradient of what precedes the blocks reaches stage 0
+alone, and :func:`~dl_vqa_tpu_torch.parallel.tensor.sync_replicated_grads`
+gives every stage rank stage 0's gradients of all that 'stage' does not
+split.
 """
 
 from __future__ import annotations
@@ -89,7 +101,7 @@ from dl_vqa_tpu_torch.ops.vqa_metrics import (
     vqa_accuracy_by_type,
     vqa_accuracy_sum,
 )
-from dl_vqa_tpu_torch.parallel.mesh import ITEM_9
+from dl_vqa_tpu_torch.parallel.mesh import FUSED_OPS_UNDER_MODEL
 from dl_vqa_tpu_torch.parallel.sequence import sync_sequence_grads
 from dl_vqa_tpu_torch.parallel.tensor import sync_replicated_grads
 from dl_vqa_tpu_torch.parallel.zero import grad_sync
@@ -150,9 +162,7 @@ def _to_device(batch: Dict, device: torch.device) -> Dict:
 def _check_fused(cfg: ModelConfig, fused_ops: bool, mesh) -> None:
     if (fused_ops and mesh is not None and mesh.size("model") > 1
             and cfg.image.encoder == "vit"):
-        raise NotImplementedError(
-            "fused_ops on the ViT with tpu.mesh.model > 1: kernel 8 fuses "
-            f"the MLP that 'model' splits ({ITEM_9})")
+        raise NotImplementedError(FUSED_OPS_UNDER_MODEL)
 
 
 def _images(batch: Dict) -> torch.Tensor:
@@ -195,19 +205,31 @@ def _forward_sums(
     return loss_sum, score, logits, balance
 
 
-def _balance_loss(balance: Tuple[torch.Tensor, torch.Tensor], group,
-                  world: int) -> torch.Tensor:
-    """The layer mean of the MoE balance losses, the first-choice
-    fractions taken over the tokens of every rank of ``group`` (an
-    all-reduce; they carry no gradient) and each rank's own mean
-    probabilities: the mean over the ranks is then the loss of the global
-    batch, as the JAX step takes it over its 'data'-sharded batch."""
+def _balance_loss(balance: Tuple[torch.Tensor, torch.Tensor], mesh
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(term, value)`` of the layer mean of the MoE balance losses.
+    ``value`` is the loss of the global batch, its factors the means over
+    the tokens of every rank of the 'data' x 'seq' block (one all-reduce;
+    every rank holds as many tokens); ``term`` is what this rank
+    differentiates: the global first-choice fractions (no gradient) times
+    this rank's share of the mean router probabilities, so that the
+    gradient the wrappers average over 'data', summed over 'seq'
+    (:func:`~dl_vqa_tpu_torch.parallel.sequence.sync_sequence_grads`), is
+    the global loss's. In one process both are the rank's own loss."""
     frac, mean_prob = balance
-    if group is not None:
-        frac = frac.clone()
-        _all_reduce(frac, group)
-        frac = frac / world
-    return balance_loss(frac, mean_prob).mean()
+    group = mesh.data_seq_group() if mesh is not None else None
+    if group is None:
+        aux = balance_loss(frac, mean_prob).mean()
+        return aux, aux.detach()
+    seq = mesh.size("seq")
+    stats = torch.cat([frac, mean_prob.detach()])
+    _all_reduce(stats, group)
+    stats = stats / (mesh.shape["data"] * seq)
+    frac_all, prob_all = stats.split(frac.shape[0])
+    value = balance_loss(frac_all, prob_all).mean()
+    term = balance_loss(frac_all, mean_prob / seq if seq > 1
+                        else mean_prob).mean()
+    return term, value
 
 
 def make_train_step(
@@ -316,15 +338,15 @@ def make_train_step(
                 aux = torch.zeros((), device=device)
                 # The balance loss of micro-batch idx, weighted by its
                 # share of the real rows as the JAX accumulation weights
-                # it (1 without accumulation); each rank's is 1 / world of
-                # it.
+                # it (1 without accumulation); each rank reports 1 / world
+                # of it.
                 share = (counts[idx].clamp(min=1.0) / denom
                          if accum_steps > 1 else 1.0)
                 if balance is not None:
-                    aux = _balance_loss(balance, group, world)
-                    objective = objective + aux_weight * aux * share
+                    term, aux = _balance_loss(balance, mesh)
+                    objective = objective + aux_weight * term * share
                 objective.backward()  # .grad accumulates
-            loss, aux = loss.detach(), aux.detach()
+            loss = loss.detach()
             totals += torch.stack([loss + aux_weight * aux * share / world,
                                    score, aux * share / world])
         _all_reduce(totals, group)

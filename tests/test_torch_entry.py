@@ -136,25 +136,31 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
      r"mesh 4x1x1x1x1 \(data x seq x expert x model x stage\) needs 4 "
      "devices, have 1"),
     ("tpu.zero_stage=1", None, "tpu.zero_stage=1 is a no-op"),
-    ("tpu.mesh.stage=2", NotImplementedError, "item 9"),
+    ("tpu.mesh.stage=2 train.image.encoder=vit", ValueError,
+     r"mesh 0x1x1x1x2 \(data x seq x expert x model x stage\) needs 2 "
+     "devices, have 1"),
     ("tpu.mesh.expert=2", ValueError,
      r"mesh 0x1x2x1x1 \(data x seq x expert x model x stage\) needs 2 "
      "devices, have 1"),
     ("tpu.mesh.seq=2 train.image.encoder=vit train.image.moe_experts=4",
-     NotImplementedError, "item 9"),
-    ("tpu.pipeline_microbatches=4", NotImplementedError, "item 9"),
+     ValueError,
+     r"mesh 0x2x1x1x1 \(data x seq x expert x model x stage\) needs 2 "
+     "devices, have 1"),
+    ("tpu.pipeline_microbatches=4", None, '"pipeline_microbatches": 4'),
 ], ids=["tpu.checkpoint_backend=orbax-Orbax", "tpu.mesh.model=2-item 9",
         "tpu.mesh.data=4-item 9", "tpu.zero_stage=1-item 9",
         "tpu.mesh.stage=2-item 9", "tpu.mesh.expert=2-item 9",
         "tpu.mesh.seq=2-item 9", "tpu.pipeline_microbatches=4-item 9"])
 def test_settings_the_port_lacks_raise_with_their_roadmap_item(
         profile, tmp_path, override, error, what):
-    """The axes and settings still missing raise with their ROADMAP item,
-    'seq' with a ViT-MoE among them. The 'data', 'seq', 'model' and
-    'expert' axes are ported: in one process ``tpu.mesh.data=4``,
-    ``tpu.mesh.model=2`` and ``tpu.mesh.expert=2`` raise the mesh's
-    oversubscription error, as JAX's ``make_mesh`` does, and a ZeRO stage
-    runs with its no-op logged (one 'data' shard)."""
+    """The settings still missing raise with their ROADMAP item (the Orbax
+    backend). Every mesh axis is ported: in one process
+    ``tpu.mesh.data=4``, ``tpu.mesh.model=2``, ``tpu.mesh.stage=2``,
+    ``tpu.mesh.expert=2`` and ``tpu.mesh.seq=2`` (with a ViT-MoE too)
+    raise the mesh's oversubscription error, as JAX's ``make_mesh`` does;
+    a ZeRO stage runs with its no-op logged (one 'data' shard), and
+    ``tpu.pipeline_microbatches`` at 'stage' 1 is ignored, as JAX ignores
+    it: the run trains."""
     overrides = _overrides(profile, tmp_path) + override.split()
     if error is None:
         port_main.main(port_config.compose(
@@ -171,13 +177,17 @@ def test_settings_the_port_lacks_raise_with_their_roadmap_item(
                                   "expert_without_moe"])
 def test_settings_that_still_raise_under_model_and_expert(
         profile, tmp_path, monkeypatch, case):
-    """The quantized image modes with ``tpu.mesh.model=2`` raise with item
-    9 in both entry points before any work; ``fused_ops`` on a ViT over a
-    mesh of 'model' 2 raises in the steps (kernel 8 fuses the MLP that
-    'model' splits); ``tpu.mesh.expert=2`` without a ViT-MoE exits with
-    the JAX package's words once the mesh is made (a mesh of 'expert' 2
-    stands in for the two ranks here)."""
+    """The quantized image modes with ``tpu.mesh.model=2`` are taken by
+    both entry points: in one process they reach the mesh, whose
+    oversubscription error is JAX's (the ranks run them:
+    ``tests/test_torch_tensor_parallel.py``). ``fused_ops`` on a ViT over a
+    mesh of 'model' 2 raises in the steps, naming ROADMAP queue 2 (kernel
+    8 fuses the MLP that 'model' splits; the port's own option);
+    ``tpu.mesh.expert=2`` without a ViT-MoE exits with the JAX package's
+    words once the mesh is made (a mesh of 'expert' 2 stands in for the
+    two ranks here)."""
     from dl_vqa_tpu_torch import parallel
+    from dl_vqa_tpu_torch.main import check_supported
     from dl_vqa_tpu_torch.models.configs import ModelConfig
     from dl_vqa_tpu_torch.parallel.mesh import Mesh
     from dl_vqa_tpu_torch.train import make_train_step
@@ -187,7 +197,7 @@ def test_settings_that_still_raise_under_model_and_expert(
         cnn = ModelConfig()
         vit = dataclasses.replace(cnn, image=dataclasses.replace(
             cnn.image, encoder="vit", num_channels=(3, 256)))
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
             make_train_step(vit, fused_ops=True,
                             mesh=Mesh({"data": 1, "model": 2}))
         return
@@ -200,12 +210,15 @@ def test_settings_that_still_raise_under_model_and_expert(
         assert not os.path.exists(tmp_path / "vocab.json")
         return
     mode = [f"train.image.store_dtype={case}", "tpu.mesh.model=2"]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    check_supported(port_config.compose("config", overrides + mode))
+    oversubscribed = (r"mesh 0x1x1x2x1 \(data x seq x expert x model x "
+                      r"stage\) needs 2 devices, have 1")
+    with pytest.raises(ValueError, match=oversubscribed):
         port_main.main(port_config.compose("config", overrides + mode),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match=oversubscribed):
         port_eval.evaluate_hw2(overrides + mode, device="cpu")
-    assert not os.path.exists(tmp_path / "logs")
+    assert not os.path.exists(tmp_path / "vocab.json")
 
 
 def test_sweeps_run_and_a_missing_store_is_refused(profile, tmp_path,

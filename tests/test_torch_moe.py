@@ -386,7 +386,7 @@ def test_moe_vit_train_gradients_match_jax_grad(tpu_path):
     _, _, logits, balance = _forward_sums(
         model, model.cfg, tensors, True, torch.Generator().manual_seed(0),
         torch.float32, False, False)
-    aux = _balance_loss(balance, None, 1)
+    aux, _ = _balance_loss(balance, None)
     loss = soft_cross_entropy(logits, tensors["answer_indices"],
                               tensors["answer_values"], tensors.get("mask"))
     loss = loss + model.cfg.image.moe_aux_weight * aux

@@ -14,12 +14,18 @@ worker, joined by gloo, one thread each). They run, each once:
   train step at 'data' 2 x 'seq' 2, also at dropout 0.3 against the
   port's one process;
 * ``main`` and ``evaluate_vqa`` of a one-block ViT at 'data' 2 x 'seq' 2,
-  under torchrun's environment, on a synthetic corpus.
+  under torchrun's environment, on a synthetic corpus;
+* the ViT-MoE (the same ViT, 4 experts, top-2): the gating on each rank's
+  tokens of router logits whose capacity drops slots, and one train step
+  at 'data' 2 x 'seq' 2 and at 'seq' 2 x 'expert' 2; the int8 ViT's eval
+  step at 'data' 2 x 'seq' 2, calibrated on the whole model.
 
 Tolerances: the ring's outputs and gradients at ``test_ring_attention.py``'s
 atol 1e-5, rtol 1e-5 against JAX's ring; the steps at its tolerances
 against JAX's seq-parallel steps: the losses and scores at rel 1e-5, the
-parameters after the step at atol 5e-5, rtol 5e-4.
+parameters after the step at atol 5e-5, rtol 5e-4. The MoE routes are
+one process's to the bit (the same kept slots at the same places), and
+the int8 ViT's image features one process's bits.
 """
 
 import glob
@@ -39,6 +45,8 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 WORLD = 4
 HEADS = 2
 CORPUS_BATCH = 8
+MOE_MESHES = {"moe_dp_sp": {"data": 2, "seq": 2},
+              "moe_sp_ep": {"data": 1, "seq": 2, "expert": 2}}
 
 
 def _qkv(batch=4, seq=16, dim=24, seed=0):
@@ -48,13 +56,15 @@ def _qkv(batch=4, seq=16, dim=24, seed=0):
     return qkv, cot
 
 
-def _vit_dict(image_size=32, layers=2, dropout=0.0):
-    """``tests/test_ring_attention.py::_vit_cfg`` as a config dict."""
+def _vit_dict(image_size=32, layers=2, dropout=0.0, moe=0):
+    """``tests/test_ring_attention.py::_vit_cfg`` as a config dict; ``moe``
+    experts, top-2, make its blocks MoE blocks."""
     return {"text": {"question_features": 16, "embedding_features": 8,
                      "dropout": dropout},
             "image": {"encoder": "vit", "num_channels": [3, 16],
                       "patch_size": 8, "num_layers": layers,
-                      "num_heads": 2, "dropout": dropout},
+                      "num_heads": 2, "dropout": dropout,
+                      "moe_experts": moe},
             "attention": {"hidden_dim": 16, "glimpses": 2,
                           "dropout": dropout},
             "classifier": {"hidden_dim": 16, "dropout": dropout},
@@ -75,46 +85,102 @@ def _batch(batch=16, seed=0, image_size=32):
     }
 
 
-def _jax_params():
+def _jax_params(moe=0):
     import jax
 
     from dl_vqa_tpu.models import ModelConfig, vqa
 
-    cfg = ModelConfig.from_meta_dict(_vit_dict())
+    cfg = ModelConfig.from_meta_dict(_vit_dict(moe=moe))
     return jax.tree_util.tree_map(np.asarray,
                                   vqa.init(jax.random.PRNGKey(0), cfg))
 
 
-def _port_model(params, dropout=0.0):
+def _port_model(params, dropout=0.0, moe=0):
     from dl_vqa_tpu_torch.models.configs import ModelConfig
     from dl_vqa_tpu_torch.models.vqa import VqaNet
     from dl_vqa_tpu_torch.utils.params import load_jax_params
 
-    cfg = ModelConfig.from_meta_dict(_vit_dict(dropout=dropout))
+    cfg = ModelConfig.from_meta_dict(_vit_dict(dropout=dropout, moe=moe))
     return cfg, load_jax_params(VqaNet(cfg, device="cpu"), params)
 
 
-def _port_train(params, mesh=None, dropout=0.0):
+def _port_train(params, mesh=None, dropout=0.0, moe=0):
     """One port train step on ``_batch(seed=6)`` (this rank's rows over
-    ``mesh``): its loss and score, and the parameters after it in the JAX
-    layout, flat."""
+    ``mesh``): its loss and score (and balance loss, with ``moe``
+    experts), and the parameters after it in the JAX layout, flat."""
     from dl_vqa_tpu_torch.parallel.multihost import process_batch_slice
     from dl_vqa_tpu_torch.parallel.tensor import shard_state
     from dl_vqa_tpu_torch.parallel.zero import parallelize
     from dl_vqa_tpu_torch.train import create_train_state, make_train_step
     from dl_vqa_tpu_torch.utils.params import jax_params_from_model
 
-    cfg, model = _port_model(params, dropout)
+    cfg, model = _port_model(params, dropout, moe)
     state = create_train_state(model, 1e-3, device="cpu")
     batch = _batch(seed=6)
     if mesh is not None:
         state = parallelize(shard_state(state, mesh), mesh, 0)
         rows = process_batch_slice(mesh, 16)
-        batch = {k: v[rows] for k, v in batch.items()}
+        if rows is not None:
+            batch = {k: v[rows] for k, v in batch.items()}
     state, metrics = make_train_step(cfg, torch.float32, mesh=mesh)(
         state, batch, 11)
-    return ([float(metrics["loss"]), float(metrics["score"])],
-            _flatten(jax_params_from_model(state.model)))
+    numbers = [float(metrics["loss"]), float(metrics["score"])]
+    if moe:
+        numbers.append(float(metrics["moe_aux"]))
+    if mesh is not None and mesh.splits_state:
+        from dl_vqa_tpu_torch.parallel.zero import full_state
+        from dl_vqa_tpu_torch.utils.params import jax_tree_from_named
+
+        return numbers, _flatten(jax_tree_from_named(full_state(state)[0]))
+    return numbers, _flatten(jax_params_from_model(state.model))
+
+
+def _port_int8(params, mesh=None):
+    """The int8 ViT's eval step on ``_batch(seed=5)`` (this rank's rows
+    over ``mesh``), calibrated on the whole model before it is cut, and
+    its image features; and the scales."""
+    from dl_vqa_tpu_torch.models.layers import normalize_images
+    from dl_vqa_tpu_torch.parallel.multihost import process_batch_slice
+    from dl_vqa_tpu_torch.parallel.tensor import shard_model
+    from dl_vqa_tpu_torch.train import make_eval_step
+
+    cfg, model = _port_model(params)
+    batch = _batch(seed=5)
+    cfg = model.int8_calibrated(batch["images"], dtype=torch.float32)
+    model.configure(cfg)
+    if mesh is not None:
+        shard_model(model, mesh)
+        rows = process_batch_slice(mesh, 16)
+        batch = {k: v[rows] for k, v in batch.items()}
+    loss, score = make_eval_step(cfg, torch.float32, mesh=mesh)(model,
+                                                                batch)
+    with torch.no_grad():
+        features = model.image(normalize_images(
+            torch.from_numpy(batch["images"]), torch.float32),
+            torch.float32, False, None)
+    return ([float(loss), float(score)], features.numpy().tolist(),
+            list(cfg.image.quant_scales))
+
+
+def _logits(seed=3):
+    """Router logits ``[3, 16, 4]`` whose capacity of 5 drops slots."""
+    return np.random.default_rng(seed).standard_normal(
+        (3, 16, 4)).astype(np.float32) * 2.0
+
+
+def _routes(mesh):
+    """This rank's gating of its tokens of :func:`_logits`, top-2 at
+    capacity 5 (the whole sequence's)."""
+    from dl_vqa_tpu_torch.ops.moe import top_k_gating
+    from dl_vqa_tpu_torch.parallel.sequence import SequenceContext
+
+    seq = SequenceContext.of(mesh)
+    tokens = seq.tokens(16)
+    routing = top_k_gating(torch.from_numpy(_logits()[:, tokens]), 2, 5,
+                           seq)
+    return {"tokens": [tokens.start, tokens.stop],
+            **{key: getattr(routing, key).tolist()
+               for key in ("expert", "position", "kept", "weight")}}
 
 
 # ------------------------------------------------------------ the worker
@@ -157,10 +223,27 @@ def _steps(params, rank):
     mesh = make_mesh(2, seq=2, device_type="cpu")
     out["train"], flat = _port_train(params, mesh)
     out["train_dropout"], dropped = _port_train(params, mesh, dropout=0.3)
+    out["routes"] = _routes(mesh)
+    out["int8"] = _port_int8(params, mesh)
     if rank == 0:
         out["params"] = flat
         out["params_dropout"] = dropped
     return out
+
+
+def _moe_steps(moe_params, rank):
+    """One ViT-MoE train step at 'data' 2 x 'seq' 2 and at 'seq' 2 x
+    'expert' 2."""
+    from dl_vqa_tpu_torch.parallel import make_mesh
+
+    out, arrays = {}, {}
+    for name, kw in MOE_MESHES.items():
+        kw = dict(kw)
+        mesh = make_mesh(kw.pop("data"), device_type="cpu", **kw)
+        out[name], flat = _port_train(moe_params, mesh, moe=4)
+        if rank == 0:
+            arrays.update({f"{name}{k}": v for k, v in flat.items()})
+    return out, arrays
 
 
 def _corpus_overrides(root, logs):
@@ -219,12 +302,17 @@ def _worker(rank, port, out_dir, root):
     flat = steps.pop("params", None)
     dropped = steps.pop("params_dropout", None)
     numbers.update(steps)
+    with np.load(os.path.join(out_dir, "params_moe.npz")) as data:
+        moe_params = _unflatten({k: data[k] for k in data.files})
+    moe, moe_arrays = _moe_steps(moe_params, rank)
+    numbers.update(moe)
     numbers["entry"] = _entry_points(root, ["tpu.mesh.seq=2"], "seq")
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(numbers, f)
     if flat is not None:
         np.savez(os.path.join(out_dir, "train_params.npz"), **flat)
         np.savez(os.path.join(out_dir, "dropout_params.npz"), **dropped)
+        np.savez(os.path.join(out_dir, "moe_params.npz"), **moe_arrays)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -265,6 +353,9 @@ def runs(tmp_path_factory):
         json.dump(profile, f)
     params = _jax_params()
     np.savez(os.path.join(out_dir, "params.npz"), **_flatten(params))
+    moe_params = _jax_params(moe=4)
+    np.savez(os.path.join(out_dir, "params_moe.npz"),
+             **_flatten(moe_params))
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     port = _free_port()
@@ -275,6 +366,8 @@ def runs(tmp_path_factory):
     try:
         single = _entry_points(root, [], "single")
         single["dropout"] = _port_train(params, dropout=0.3)
+        single["moe"] = _port_train(moe_params, moe=4)
+        single["int8"] = _port_int8(params)
         logs = [p.communicate(timeout=300)[0] for p in procs]
     finally:
         for p in procs:
@@ -285,11 +378,11 @@ def runs(tmp_path_factory):
     ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
              for r in range(WORLD)]
     trained = {}
-    for name in ("train", "dropout"):
+    for name in ("train", "dropout", "moe"):
         with np.load(os.path.join(out_dir, f"{name}_params.npz")) as data:
             trained[name] = {k: data[k] for k in data.files}
     return {"ranks": ranks, "params": params, "trained": trained,
-            "single": single}
+            "single": single, "moe_params": moe_params}
 
 
 # ------------------------------------------------------------ the tests
@@ -438,7 +531,7 @@ def test_the_cnn_raises_the_jax_models_error():
     cnn["image"] = {"num_channels": [3, 4, 8], "dropout": 0.0}
     jax_error = _jax_apply_error(cnn, dict(data=2, model=1, seq=2))
     with pytest.raises(ValueError) as port_error:
-        check_sequence_parallel(2, "cnn", 0, "compute")
+        check_sequence_parallel(2, "cnn")
     assert str(port_error.value) == str(jax_error.value)
 
 
@@ -466,13 +559,137 @@ def test_seq_with_stage_raises_the_jax_models_error():
 @pytest.mark.parametrize("image", [
     {"moe_experts": 4}, {"store_dtype": "int8"}], ids=["moe", "int8"])
 def test_seq_with_moe_or_a_quantized_mode_raises_naming_item_9(image):
+    """'seq' with a ViT-MoE and with the int8 ViT are taken, as the JAX
+    model takes them (the ranks run them:
+    :func:`test_the_moe_steps_under_seq_are_one_processs` and
+    :func:`test_the_int8_vit_under_seq_is_one_processs`); the CNN's
+    quantized modes under 'seq' raise the JAX model's error."""
     from dl_vqa_tpu_torch import config
     from dl_vqa_tpu_torch.main import check_supported
+    from dl_vqa_tpu_torch.parallel.sequence import NO_TOKEN_DIMENSION
 
     overrides = ["tpu.mesh.seq=2", "train.image.encoder=vit"] + [
         f"train.image.{k}={v}" for k, v in image.items()]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        check_supported(config.compose("config", overrides))
+    check_supported(config.compose("config", overrides))
+    with pytest.raises(ValueError) as error:
+        check_supported(config.compose("config", overrides[:1] + [
+            f"train.image.{k}={v}" for k, v in image.items()
+            if k == "store_dtype"]))
+    assert str(error.value) == NO_TOKEN_DIMENSION
+
+
+def test_the_moe_routes_under_seq_are_one_processs(runs):
+    """Top-2 gating of 3 groups of 16 tokens at a capacity of 5 (slots
+    drop): the 'seq' ranks' routes of their 8 tokens each, put in their
+    places, are one process's to the bit (experts, places, kept slots,
+    weights), and their dense dispatch and combine are JAX's
+    ``top_k_gating``'s."""
+    import jax
+
+    from dl_vqa_tpu.ops.moe import top_k_gating as jax_gating
+    from dl_vqa_tpu_torch.ops.moe import Routing, top_k_gating
+
+    logits = _logits()
+    whole = top_k_gating(torch.from_numpy(logits), 2, 5)
+    assert not bool(whole.kept.all())  # the capacity drops slots
+    parts = {}
+    for rank in runs["ranks"]:
+        parts[tuple(rank["routes"]["tokens"])] = rank["routes"]
+    assert sorted(parts) == [(0, 8), (8, 16)]
+    got = {key: np.concatenate([np.asarray(parts[t][key])
+                                for t in sorted(parts)], axis=1)
+           for key in ("expert", "position", "kept", "weight")}
+    for key in ("expert", "position", "kept", "weight"):
+        np.testing.assert_array_equal(got[key],
+                                      getattr(whole, key).numpy(),
+                                      err_msg=key)
+    dispatch, combine = Routing(
+        *(torch.from_numpy(got[k]) for k in ("expert", "position", "kept",
+                                             "weight")),
+        None, None, None).dense(4, 5)
+    want = jax.jit(jax_gating, static_argnums=(1, 2))(logits, 2, 5)
+    np.testing.assert_array_equal(dispatch.numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(combine.numpy(), np.asarray(want[1]),
+                               atol=1e-6)
+
+
+def _jax_moe_step(params):
+    """JAX's seq-parallel train step of the ViT-MoE at 'data' 2 x 'seq'
+    2."""
+    import jax
+
+    from dl_vqa_tpu.models import ModelConfig
+    from dl_vqa_tpu.parallel import SequenceContext, batch_sharding, make_mesh
+    from dl_vqa_tpu.train.state import create_train_state
+    from dl_vqa_tpu.train.steps import make_optimizer, make_train_step
+
+    cfg = ModelConfig.from_meta_dict(_vit_dict(moe=4))
+    tx = make_optimizer(1e-3)
+    mesh = make_mesh(data=2, model=1, seq=2)
+    step = make_train_step(cfg, tx, compute_dtype=jax.numpy.float32,
+                           seq_ctx=SequenceContext(mesh))
+    batch = {k: jax.device_put(v, batch_sharding(mesh))
+             for k, v in _batch(seed=6).items()}
+    state, metrics = step(create_train_state(params, tx), batch,
+                          jax.random.PRNGKey(11))
+    return ([float(metrics["loss"]), float(metrics["score"]),
+             float(metrics["moe_aux"])],
+            _flatten(jax.tree_util.tree_map(np.asarray, state.params)))
+
+
+@pytest.mark.parametrize("name", list(MOE_MESHES))
+def test_the_moe_steps_under_seq_are_one_processs(runs, name):
+    """One ViT-MoE train step at 'data' 2 x 'seq' 2 and at 'seq' 2 x
+    'expert' 2: the loss, score and balance loss on every rank, and the
+    parameters after the step, against the port's one process and JAX's
+    seq-parallel step, at rel 1e-5 and atol 5e-5, rtol 5e-4."""
+    expected, params = _jax_moe_step(runs["moe_params"])
+    single, single_params = runs["single"]["moe"]
+    for rank in runs["ranks"]:
+        np.testing.assert_allclose(rank[name], single, rtol=1e-5)
+        np.testing.assert_allclose(rank[name], expected, rtol=1e-5)
+    got = {k[len(name):]: v for k, v in runs["trained"]["moe"].items()
+           if k.startswith(name + "/")}
+    assert got.keys() == params.keys() == single_params.keys()
+    for key, value in params.items():
+        for want in (value, single_params[key]):
+            np.testing.assert_allclose(got[key], want, atol=5e-5,
+                                       rtol=5e-4, err_msg=key)
+
+
+def test_the_int8_vit_under_seq_is_one_processs(runs):
+    """The int8 ViT's eval step at 'data' 2 x 'seq' 2, calibrated on the
+    whole model: each rank's image features are one process's bits for
+    its rows (its W8A8 products are token-local), its loss and score one
+    process's at rel 1e-5, and JAX's seq-parallel eval step's with the
+    same scales."""
+    import dataclasses
+
+    import jax
+
+    from dl_vqa_tpu.models import ModelConfig
+    from dl_vqa_tpu.parallel import SequenceContext, batch_sharding, make_mesh
+    from dl_vqa_tpu.train.steps import make_eval_step
+
+    single, features, scales = runs["single"]["int8"]
+    features = np.asarray(features, np.float32)
+    cfg = ModelConfig.from_meta_dict(_vit_dict())
+    cfg = dataclasses.replace(cfg, image=dataclasses.replace(
+        cfg.image, store_dtype="int8", quant_scales=tuple(scales)))
+    mesh = make_mesh(data=2, model=1, seq=2)
+    step = make_eval_step(cfg, compute_dtype=jax.numpy.float32,
+                          seq_ctx=SequenceContext(mesh))
+    batch = {k: jax.device_put(v, batch_sharding(mesh))
+             for k, v in _batch(seed=5).items()}
+    expected = [float(x) for x in step(runs["params"], batch)]
+    for rank in runs["ranks"]:
+        got, mine, rank_scales = rank["int8"]
+        assert rank_scales == scales
+        rows = slice(8, 16) if rank["rank"] >= 2 else slice(0, 8)
+        np.testing.assert_array_equal(np.asarray(mine, np.float32),
+                                      features[rows])
+        np.testing.assert_allclose(got, single, rtol=1e-5)
+        np.testing.assert_allclose(got, expected, rtol=1e-5)
 
 
 def test_the_token_dropout_keeps_the_whole_sequences_mask():

@@ -11,9 +11,12 @@ joined by gloo, one thread each): two ranks ('model' = 2, or 'expert' =
 of small models (widths 16, 16 answers, an even vocabulary of 30 ids so
 that the embedding splits; f32 unless stated, dropout 0 unless stated) on
 a batch of 8 whose last batch is padded to 5 real rows, and an eval step
-of the fresh model. The two ranks also write a checkpoint, resume the
-one-process one, and run ``main`` and ``evaluate_vqa`` on a synthetic
-corpus.
+of the fresh model; a ViT and a transformer text encoder of 3 heads among
+them, whose attention 'model' = 2 keeps whole. The four ranks also run
+the eval step of the quantized image modes (the CNN's f8 store and int8
+stem, the int8 ViT), calibrated on the whole model before it is cut. The
+two ranks also write a checkpoint, resume the one-process one, and run
+``main`` and ``evaluate_vqa`` on a synthetic corpus.
 
 Tolerances. Tensor parallelism sums the products of a split layer in
 another order (two partial f32 sums and an all-reduce): losses and scores
@@ -25,9 +28,15 @@ rounding noise, Adam's bound elsewhere), against JAX at its
 slot terms with the other rank's zeros: it is held to one process's bits,
 in f32 and in bf16. What is replicated (the convs, the LSTM, the layer
 norms, the router, the biases added after a reduction) is held bit-equal
-across the ranks of a group, and ZeRO 1 and 3 to ZeRO 0's bits.
+across the ranks of a group, and ZeRO 1 and 3 to ZeRO 0's bits. The
+quantized modes' image features are one process's bits (the int8 ViT's
+row-parallel products sum their s32 partials), and their eval steps are
+held to one process and to JAX's on the same mesh at rel 1e-5, as
+``tests/test_sharding.py::test_int8_eval_under_dp_tp_mesh_matches`` holds
+JAX's.
 """
 
+import dataclasses
 import glob
 import json
 import logging
@@ -56,6 +65,7 @@ TWO = {
     "san": ({"variant": "stacked", "do_option": "|"}, {"model": 2}),
     "transformer_co": ({"variant": "co", "transformer": True},
                        {"model": 2}),
+    "heads3": ({"heads": 3, "transformer": True}, {"model": 2}),
     "moe_f32": ({"moe": 4}, {"expert": 2}),
     "moe_bf16": ({"moe": 4, "dtype": "bf16"}, {"expert": 2}),
 }
@@ -65,22 +75,29 @@ FOUR = {
     "dp_tp_z3": ({}, {"data": 2, "model": 2, "zero": 3}),
     "ep_tp": ({"moe": 4}, {"expert": 2, "model": 2}),
 }
+# The quantized modes' eval steps at 'data' = 2 x 'model' = 2: name ->
+# (config keywords, image.store_dtype).
+QUANT = {"dp_tp_f8": ({}, "f8e4m3"), "dp_tp_int8": ({}, "int8"),
+         "dp_tp_vit_int8": ({"vit": True}, "int8")}
 
 
 def _cfg_dict(dropout=0.0, do_option="+", variant="single", vit=False,
-              moe=0, transformer=False, dtype="f32"):
+              moe=0, transformer=False, dtype="f32", heads=2):
     """A small model; ``vit`` is a ViT of one block of two heads of 64 (so
     that kernels 4 and 5 run, a head on each rank), ``moe`` a ViT-MoE of
-    one block of that many experts, top-2."""
+    one block of that many experts, top-2. ``heads`` other than 2 makes it
+    a ViT of that many heads of 64 and a transformer text encoder (with
+    ``transformer``) of that many heads of 8."""
     del dtype
     image = {"num_channels": [3, 4, 8], "dropout": dropout}
-    if vit or moe:
-        image.update(encoder="vit", num_channels=[3, 128], patch_size=8,
-                     num_layers=1, num_heads=2, moe_experts=moe)
-    text = {"question_features": 16, "embedding_features": 8,
-            "dropout": dropout}
+    if vit or moe or heads != 2:
+        image.update(encoder="vit", num_channels=[3, 64 * heads],
+                     patch_size=8, num_layers=1, num_heads=heads,
+                     moe_experts=moe)
+    text = {"question_features": 16 if heads == 2 else 8 * heads,
+            "embedding_features": 8, "dropout": dropout}
     if transformer:
-        text.update(encoder="transformer", num_heads=2, num_layers=1,
+        text.update(encoder="transformer", num_heads=heads, num_layers=1,
                     max_positions=8)
     return {"text": text, "image": image,
             "attention": {"hidden_dim": 16, "glimpses": 2,
@@ -196,7 +213,49 @@ def _scenarios(rank, world, out_dir):
         np.savez(os.path.join(out_dir, f"local_{name}_{rank}.npz"),
                  **_local(state))
         dist.barrier()
+    if world == 4:
+        mesh = make_mesh(2, model=2, device_type="cpu")
+        for name, (kw, store) in QUANT.items():
+            numbers[name], features = _quant_eval(kw, store, mesh)
+            arrays[f"{name}/features_{rank}"] = features
     return numbers, arrays
+
+
+def _quant_model(kw, store, mesh=None):
+    """The fresh model in a quantized mode, the int8 scales calibrated on
+    the whole model (on the first batch's images) before it is cut for
+    ``mesh``, as ``evaluate_vqa`` calibrates."""
+    from dl_vqa_tpu_torch.models.vqa import VqaNet
+    from dl_vqa_tpu_torch.parallel.tensor import shard_model
+
+    cfg = _port_cfg(**kw)
+    model = VqaNet(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(0))
+    if store == "int8":
+        cfg = model.int8_calibrated(_batches()[0]["images"],
+                                    dtype=torch.float32)
+    else:
+        cfg = dataclasses.replace(cfg, image=dataclasses.replace(
+            cfg.image, store_dtype=store))
+    model.configure(cfg)
+    if mesh is not None:
+        shard_model(model, mesh)
+    return cfg, model
+
+
+def _quant_eval(kw, store, mesh=None):
+    """The eval steps of a quantized mode and the image encoder's output
+    (this rank's rows of the first batch)."""
+    from dl_vqa_tpu_torch.models.layers import normalize_images
+
+    cfg, model = _quant_model(kw, store, mesh)
+    batches = _batches()
+    images = _rows(batches[0], mesh)["images"]
+    with torch.no_grad():
+        features = model.image(normalize_images(
+            torch.from_numpy(images), torch.float32), torch.float32, False,
+            None)
+    return _eval(cfg, batches, model, mesh=mesh), features.numpy()
 
 
 def _checkpoints(rank, out_dir, resume_from):
@@ -301,8 +360,7 @@ def _worker(rank, world, port, out_dir, resume_from, root):
             numbers["expert_without_moe"] = str(refusal)
     with open(os.path.join(out_dir, f"rank{rank}_of{world}.json"), "w") as f:
         json.dump(numbers, f)
-    if rank == 0:
-        np.savez(os.path.join(out_dir, f"arrays_of{world}.npz"), **arrays)
+    np.savez(os.path.join(out_dir, f"arrays_of{world}_{rank}.npz"), **arrays)
     dist.barrier()
     dist.destroy_process_group()
 
@@ -354,6 +412,8 @@ def runs(tmp_path_factory):
             got, state = _train(cfg, batches, _dtype(kw))
             single[name] = (got, _snapshot(state), _eval(
                 cfg, batches, _fresh_state(cfg).model, _dtype(kw)))
+        for name, (kw, store) in QUANT.items():
+            single[name] = _quant_eval(kw, store)
         single["entry"] = _entry_points(root, [])
         logs = [p.communicate(timeout=600)[0] for p in procs]
     finally:
@@ -368,8 +428,11 @@ def runs(tmp_path_factory):
         for world in (2, 4)}
     arrays = {}
     for world in (2, 4):
-        with np.load(os.path.join(out_dir, f"arrays_of{world}.npz")) as data:
-            arrays.update({key: data[key] for key in data.files})
+        for rank in range(world):
+            with np.load(os.path.join(out_dir,
+                                      f"arrays_of{world}_{rank}.npz")) as data:
+                arrays.update({key: data[key] for key in data.files
+                               if rank == 0 or "/features_" in key})
     return {"single": single, "ranks": ranks, "arrays": arrays,
             "dir": out_dir, "root": root, "batches": batches}
 
@@ -485,38 +548,48 @@ def test_the_odd_reference_vocabulary_replicates_and_warns(caplog):
     assert not caplog.records
 
 
-def test_a_head_count_the_model_axis_does_not_divide_raises():
-    """The packed qkv splits by heads: 'model' = 2 over a ViT of one head
-    raises and names both numbers, as do the quantized modes under 'model'
-    (ROADMAP item 9)."""
-    import dataclasses
+def test_a_head_count_the_model_axis_does_not_divide_raises(caplog):
+    """'model' = 2 over blocks of three heads: the port splits a packed
+    ``qkv`` by heads, so the ViT's and the text encoder's ``qkv`` and
+    ``out`` keep the rules' fallback (replicated, the large ones warned of
+    in the JAX words) and their MLPs split, where JAX splits ``qkv`` by
+    columns. Nothing raises (the ranks run it:
+    :func:`test_three_heads_keep_their_attention_whole`)."""
+    from dl_vqa_tpu_torch.parallel.mesh import param_specs
 
-    from dl_vqa_tpu_torch.parallel.tensor import check_tensor_parallel
-
-    cfg = _port_cfg(vit=True)
-    one_head = dataclasses.replace(cfg, image=dataclasses.replace(
-        cfg.image, num_heads=1))
-    with pytest.raises(ValueError, match="model=2 does not divide "
-                                         "image.num_heads=1"):
-        check_tensor_parallel(one_head, {"data": 1, "model": 2})
-    check_tensor_parallel(one_head, {"data": 2, "model": 1})
-    cnn = _port_cfg()
-    f8 = dataclasses.replace(cnn, image=dataclasses.replace(
-        cnn.image, store_dtype="f8e4m3"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        check_tensor_parallel(f8, {"data": 1, "model": 2})
+    tree = _jax_tree({"heads": 3, "transformer": True})
+    jax_specs, sizes = _jax_specs(tree, data=-1, model=2)
+    with caplog.at_level(logging.WARNING):
+        got = param_specs(tree, sizes, heads={"image": 3, "text": 3})
+    image, text = got["image"]["layers"], got["text"]["layers"][0]
+    assert jax_specs["image"]["layers"]["qkv"]["w"] == (None, None, "model")
+    for block in (image, text):
+        assert block["qkv"]["w"] == block["qkv"]["b"] == ()
+        assert block["out"]["w"] == ()
+    assert image["mlp_in"]["w"] == (None, None, "model")
+    assert image["mlp_out"]["w"] == (None, "model", None)
+    assert text["mlp_in"]["w"] == (None, "model")
+    (warned,) = [r.getMessage() for r in caplog.records
+                 if r.name == "dl_vqa_tpu_torch.parallel.mesh"]
+    assert "tensor-parallel fallback to replication" in warned
+    assert "/image/layers/qkv/w shape=(1, 192, 576)" in warned
+    assert "/text/" not in warned  # under WARN_FALLBACK_ELEMENTS
+    # Two heads divide: the JAX rules' specs, silently.
+    assert param_specs(tree, sizes, heads={"image": 2, "text": 2}) == \
+        param_specs(tree, sizes)
 
 
 def test_fused_ops_on_the_vit_under_model_raise():
     """Kernel 8 fuses the MLP that 'model' splits: the steps refuse
-    ``fused_ops`` with a ViT on a mesh of 'model' above 1 (ROADMAP item 9);
-    the CNN's fused blocks and a mesh of 'model' 1 are taken."""
+    ``fused_ops`` with a ViT on a mesh of 'model' above 1, naming ROADMAP
+    queue 2's kernel work (the port's own option, which the JAX package
+    lacks); the CNN's fused blocks and a mesh of 'model' 1 are taken."""
     from dl_vqa_tpu_torch.parallel.mesh import Mesh
     from dl_vqa_tpu_torch.train import make_eval_step, make_train_step
 
     tp = Mesh({"data": 1, "model": 2})
     for make in (make_eval_step, make_train_step):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
             make(_port_cfg(vit=True), fused_ops=True, mesh=tp)
         make(_port_cfg(), fused_ops=True, mesh=tp)
         make(_port_cfg(vit=True), fused_ops=True,
@@ -554,7 +627,7 @@ def _hold_to_single(runs, name, what=None):
 
 
 @pytest.mark.parametrize("name", ["cnn", "cnn_cat_dropout", "vit", "san",
-                                  "transformer_co"])
+                                  "transformer_co", "heads3"])
 def test_model_2_equals_one_process(runs, name):
     """Two ranks of 'model' = 2: losses, scores, the eval step, and the
     gathered state after 3 steps (the one-process npz layout) against one
@@ -619,6 +692,70 @@ def test_each_rank_holds_its_shards(runs):
     assert ep_tp["image.blocks.0.moe.in.weight"].shape == (2, 256, 128)
     assert ep_tp["image.blocks.0.moe.out.weight"].shape == (2, 128, 256)
     assert ep_tp["image.blocks.0.moe.out.bias"].shape == (2, 128)
+
+
+def test_three_heads_keep_their_attention_whole(runs):
+    """'model' = 2 over a ViT and a text encoder of three heads: each rank
+    holds ``qkv`` and ``out`` whole, the same bits on both, and half of
+    each MLP."""
+    locals_ = _locals(runs, "heads3")
+    for local in locals_:
+        assert local["image.blocks.0.qkv.weight"].shape == (576, 192)
+        assert local["image.blocks.0.out.weight"].shape == (192, 192)
+        assert local["image.blocks.0.mlp_in.weight"].shape == (384, 192)
+        assert local["text.blocks.0.qkv.weight"].shape == (72, 24)
+        assert local["text.blocks.0.mlp_in.weight"].shape == (48, 24)
+    for key in ("image.blocks.0.qkv.weight", "text.blocks.0.out.weight"):
+        np.testing.assert_array_equal(locals_[0][key], locals_[1][key])
+
+
+def _jax_quant_eval(runs, name):
+    """JAX's eval step of the mode on a 'data' 2 x 'model' 2 mesh of
+    virtual devices, its parameters placed by the JAX rules, with the
+    port's initial parameters and the port's int8 scales."""
+    import jax
+
+    from dl_vqa_tpu.models.configs import ModelConfig as JaxModelConfig
+    from dl_vqa_tpu.parallel import (
+        batch_sharding, make_mesh, param_shardings)
+    from dl_vqa_tpu.train.steps import make_eval_step
+    from dl_vqa_tpu_torch.utils.params import jax_params_from_model
+
+    kw, store = QUANT[name]
+    cfg, model = _quant_model(kw, store)
+    params = jax_params_from_model(model)
+    jax_cfg = JaxModelConfig.from_meta_dict(_cfg_dict(**kw))
+    jax_cfg = dataclasses.replace(jax_cfg, image=dataclasses.replace(
+        jax_cfg.image, store_dtype=store,
+        quant_scales=cfg.image.quant_scales))
+    mesh = make_mesh(data=2, model=2, devices=jax.devices()[:4])
+    placed = jax.device_put(params, param_shardings(params, mesh))
+    step = make_eval_step(jax_cfg, compute_dtype=jax.numpy.float32)
+    out = []
+    for batch in runs["batches"]:
+        sharded = {k: jax.device_put(v, batch_sharding(mesh))
+                   for k, v in batch.items() if k != "answer_types"}
+        loss, score = step(placed, sharded)
+        out.append([float(loss), float(score)])
+    return out
+
+
+@pytest.mark.parametrize("name", list(QUANT))
+def test_the_quantized_modes_at_data_2_model_2(runs, name):
+    """The f8 store, the int8 stem and the int8 ViT at 'data' 2 x 'model'
+    2, calibrated on the whole model: the image features on each rank are
+    one process's bits for its rows; the eval steps the same on every
+    rank, one process's at TOL and JAX's on the same mesh at rel 1e-5."""
+    ranks = runs["ranks"][4]
+    assert all(r[name] == ranks[0][name] for r in ranks)
+    single, features = runs["single"][name]
+    np.testing.assert_allclose(ranks[0][name], single, **TOL)
+    for rank in range(4):
+        rows = slice((rank // 2) * BATCH // 2, (rank // 2 + 1) * BATCH // 2)
+        np.testing.assert_array_equal(
+            runs["arrays"][f"{name}/features_{rank}"], features[rows])
+    np.testing.assert_allclose(np.asarray(ranks[0][name])[:, :2],
+                               _jax_quant_eval(runs, name), rtol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["moe_f32", "moe_bf16"])
@@ -759,6 +896,7 @@ def _jax_run(cfg_dict, params, batches, mesh_kw, zero_stage=0):
 @pytest.mark.parametrize("name,mesh_kw,stage", [
     ("cnn", {"data": 1, "model": 2}, 0),
     ("vit", {"data": 1, "model": 2}, 0),
+    ("heads3", {"data": 1, "model": 2}, 0),
     ("moe_f32", {"data": 1, "model": 1, "expert": 2}, 0),
     ("dp_tp_z0", {"data": 2, "model": 2}, 0),
     ("dp_tp_z1", {"data": 2, "model": 2}, 1),
