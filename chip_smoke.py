@@ -5,7 +5,8 @@
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions;
 2. build: compiles the port's CUDA kernels from dl_vqa_tpu_torch/csrc;
-3. kernels: each of the sixteen kernels against its plain PyTorch version on
+3. kernels: each of the sixteen kernels of the model paths against its
+   plain PyTorch version on
    the card, at the serving and training paths' shapes, in bf16 and f32,
    then timed in turns (plain, kernel, kernel, plain) with CUDA events;
    beside each time, the least time the card could take for the same work
@@ -246,7 +247,7 @@
    and 4 (the ring takes the place of kernels 4 and 5 but for the int8
    calibration, which runs whole): one JSON line
    ``{"sequence_parallel": ...}``;
-21. pipeline_parallel (last): the 'stage' mesh axis
+21. pipeline_parallel: the 'stage' mesh axis
    (``dl_vqa_tpu_torch.parallel.pipeline``, GPipe), two gloo ranks on the
    one card started as phase 17's (``--pp-rank``), each two of the four
    blocks of ``config_vit`` at full width, the global batch of 512 in
@@ -258,7 +259,28 @@
    ``tpu.mesh.stage=2`` on a corpus of PP_TRAIN questions, the same
    scores on both, the evaluation the loop's best, each rank's launches
    those of its blocks (path ``pipeline_parallel_entry``): one JSON line
-   ``{"pipeline_parallel": ...}``.
+   ``{"pipeline_parallel": ...}``;
+22. exact_decode (last): the exact decoder (``data/images.py``,
+   ``"exact"``, every device's decoder: PIL's pixels to the bit for
+   JPEG, PNG and BMP). Kernels E, F and G (``csrc/exact_idct.cu``,
+   ``exact_color.cu``, ``pil_resample.cu``) on every committed fixture
+   (the four JPEGs of ``expected.npz`` and the eight files of
+   ``format_fixtures/``) against their plain versions on the card's
+   tensors to the bit; ``decode_image(..., "exact")`` of every fixture
+   at TOL["decode_exact"] (0 levels) from PIL's pixels;
+   ``preprocess_images(backend="pil")`` of COCO-named copies of the
+   fixtures, every row the fp16 of PIL's normalized pixels to the bit;
+   counted (path ``exact_serving``): the reference-parity Predictor
+   behind the Python front answering the COCO-sized JPEG, an RGBA PNG and
+   a BI_BITFIELDS BMP one at a time with 200 (E and F once, G three
+   times), the JPEG's answers the Predictor's forward of PIL's pixels in
+   the same bucket; E, F and G timed on the 640x480 4:2:0 fixture (from a
+   CUDA graph and through their wrappers, beside their plain versions,
+   their bounds, nvJPEG's decode and ``F.interpolate(antialias=True)``);
+   the host stages' ms and each decoder's images/s at 640x480 -> 224 by
+   threads: one JSON line ``{"exact_decode": ...}``. Phases 11 and 16
+   count E, F and G on their paths too (a JPEG each a served request or
+   loader image).
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
@@ -269,8 +291,8 @@ paths, the ViT-MoE's serving, fused serving, training and exported
 paths, cnn_e2e, online_e2e's run and evaluation, cnn_e2e's quantized
 evaluations, the sweep's trials, the transformer_co journey, the
 one-rank data-parallel runs, rank 0 of the model-parallel runs, the
-448-px ViT's serving, training and journey, and rank 0 of the 'seq'
-and of the 'stage' runs) is
+448-px ViT's serving, training and journey, rank 0 of the 'seq'
+and of the 'stage' runs, and the exact decoder's served requests) is
 driven with the kernels'
 launch counts set to 0 just before it and read just after; on every path
 kernels C and B run their vector kernels, kernel 7 its tensor-core
@@ -438,6 +460,11 @@ CONV_OUTPUTS = ((BATCH, 222, 222, 64), (BATCH, 109, 109, 128),
 #  decode_libjpeg: 1 uint8 level against PIL's pixels of the committed
 #    fixtures (tools/fixtures/expected.npz): the same libjpeg decode, PIL's
 #    resize in fixed point where the native code resizes in float.
+#  decode_exact: 0 levels on every fixture, JPEG, PNG and BMP (phase 22):
+#    the exact decoder runs libjpeg-turbo's entropy decoding, inverse DCT
+#    (clamped as its SIMD code clamps), upsampling and colour conversion
+#    and Pillow's fixed-point resize in integers, step for step, so it
+#    gives PIL's pixels to the bit; any difference is a fault.
 #  decode_nvjpeg: 4 levels on every fixture. The decoder of a host with no
 #    libjpeg takes nvJPEG's planes and upsamples and converts them as
 #    libjpeg does (csrc/host/ycc.cc, equal to libjpeg's RGB on libjpeg's
@@ -492,7 +519,7 @@ TOL = {"fused_f32": 1e-5, "fused_bf16_steps": 1, "vit_mlp_bf16_steps": 2,
        "relu_maxpool_e4m3": 0.0, "relu_maxpool_int8": 0.0,
        "conv_relu_pool_int8": 0.0, "quant_eval_pp": 3.0,
        "logits_f32_int8_vit": 1e-4, "decode_libjpeg": 1,
-       "decode_nvjpeg": 4,
+       "decode_nvjpeg": 4, "decode_exact": 0,
        "served_probs": 1e-3, "aot_logits": 0.0,
        "logits_moe_flipped": 2e-3, "grads_moe_flipped": 1.5e-1,
        "online_eval_score": 1e-6, "online_eval_loss": 1e-3,
@@ -600,6 +627,31 @@ def timed_turns(torch, fns, iters: int, warmup: int = 2):
     for i in list(range(len(fns))) + list(range(len(fns)))[::-1]:
         ms[i] += timed(torch, fns[i], iters, warmup=0) / 2
     return ms
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean ms of one call of ``fn`` (launches only, no host sync),
+    ``iters`` of them captured in a CUDA graph and replayed: the device's
+    time without the host's cost of each launch."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def nbytes(*tensors) -> int:
@@ -1892,6 +1944,7 @@ def kernel_wrappers() -> dict:
         relu_maxpool_backward_cuda, relu_maxpool_cuda, relu_maxpool_e4m3_cuda)
     from dl_vqa_tpu_torch.ops.conv_int8 import (
         conv_relu_pool_w8a8_cuda, quantize_relu_pool_cuda)
+    from dl_vqa_tpu_torch.ops.exact_decode import exact_decode_cuda
     from dl_vqa_tpu_torch.ops.layout_cases import layout_cases_cuda
     from dl_vqa_tpu_torch.ops.lstm_cuda import (
         lstm_backward_step_cuda, lstm_recurrence_cuda,
@@ -1915,7 +1968,39 @@ def kernel_wrappers() -> dict:
             "layout_cases": layout_cases_cuda,
             "relu_maxpool_e4m3": relu_maxpool_e4m3_cuda,
             "relu_maxpool_int8": quantize_relu_pool_cuda,
-            "conv_relu_pool_int8": conv_relu_pool_w8a8_cuda}
+            "conv_relu_pool_int8": conv_relu_pool_w8a8_cuda,
+            **{name: PipelineCount(exact_decode_cuda.launches, name)
+               for name in EXACT_KERNELS}}
+
+
+# The exact decoder's kernels, launched once each for a JPEG decoded (kernel
+# G alone for a PNG or BMP), all three by one C entry
+# (ops/exact_decode.py::exact_decode_cuda), which counts them by name.
+EXACT_KERNELS = ("exact_idct", "exact_color", "pil_resample")
+
+
+class PipelineCount:
+    """A kernel's launches as the entry that launches it on the main path
+    counts them (``counts[name]``), read and reset as a wrapper's
+    ``launches``."""
+
+    def __init__(self, counts: dict, name: str):
+        self._counts, self._name = counts, name
+
+    @property
+    def launches(self) -> int:
+        return self._counts[self._name]
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self._counts[self._name] = value
+
+
+def exact_grids(jpegs: int, others: int = 0) -> dict:
+    """The exact decoder's grids for ``jpegs`` JPEG and ``others`` PNG or
+    BMP images decoded."""
+    return {"exact_idct": jpegs, "exact_color": jpegs,
+            "pil_resample": jpegs + others}
 
 
 # Kernels that count the grids of their fast path beside all their grids:
@@ -3334,11 +3419,13 @@ def online_corpus(prof: dict, root: str) -> dict:
     return online
 
 
-def hold_store(path: str, expected: dict) -> dict:
+def hold_store(path: str, expected: dict, decoder: str) -> dict:
     """Every row of a built store against PIL's normalized pixels of the
-    fixture its id copies, in uint8 levels of its channel: within
-    TOL["decode_nvjpeg"] plus the fp16 store's half step (at most 2**-10
-    of a value under 4: 0.06 of a level)."""
+    fixture its id copies, at the tolerance of ``decoder`` (the store's):
+    the exact decoder's rows must be the fp16 of PIL's normalized pixels
+    to the bit; another decoder's are held within TOL["decode_<decoder>"]
+    uint8 levels of its channel plus the fp16 store's half step (at most
+    2**-10 of a value under 4: 0.06 of a level)."""
     from dl_vqa_tpu_torch.data.dataset import open_image_store, store_ids
     from dl_vqa_tpu_torch.data.images import (
         IMAGENET_STD, normalize_uint8_chw)
@@ -3348,17 +3435,27 @@ def hold_store(path: str, expected: dict) -> dict:
     want = {name: normalize_uint8_chw(pixels[None])[0]
             for name, pixels in expected.items()}
     level = (1.0 / (255.0 * IMAGENET_STD)).reshape(3, 1, 1)
-    worst = {}
+    tol = TOL[f"decode_{decoder}"]
+    worst, differing = {}, 0
     for row, image_id in enumerate(ids.tolist()):
         name = online_fixture_of(image_id)
-        levels = float((np.abs(np.asarray(features[row], np.float32)
-                               - want[name]) / level).max())
+        got = np.asarray(features[row])
+        levels = float((np.abs(got.astype(np.float32) - want[name])
+                        / level).max())
         worst[name] = max(worst.get(name, 0.0), levels)
-    limit = TOL["decode_nvjpeg"] + 0.0625
+        differing += int(not np.array_equal(
+            got.view(np.uint16), want[name].astype(np.float16).view(
+                np.uint16)))
+    if tol == 0:
+        require(differing == 0, f"store {path} by {decoder}: {differing} "
+                f"rows differ from PIL's fp16 pixels ({worst} levels)")
+    limit = tol + 0.0625
     require(max(worst.values()) <= limit,
-            f"store {path} against PIL's pixels: {worst} levels "
-            f"(tol {limit})")
-    return {"rows": int(len(ids)), "max_levels_by_fixture": worst}
+            f"store {path} by {decoder} against PIL's pixels: {worst} "
+            f"levels (tol {limit})")
+    return {"rows": int(len(ids)), "decoder": decoder,
+            "rows_not_pils_fp16_bits": differing,
+            "max_levels_by_fixture": worst}
 
 
 def decode_rates(paths, decoders) -> dict:
@@ -3410,6 +3507,25 @@ def trace_idle_share(path: str, span: str) -> dict:
 
 
 @contextlib.contextmanager
+def counted_loads(counts: list):
+    """The number of images each ``JpegLoader.load_batch`` call decodes
+    while the block runs, appended to ``counts``."""
+    from dl_vqa_tpu_torch.data.online import JpegLoader
+
+    load_batch = JpegLoader.load_batch
+
+    def counting(self, image_ids):
+        counts.append(len(image_ids))
+        return load_batch(self, image_ids)
+
+    JpegLoader.load_batch = counting
+    try:
+        yield counts
+    finally:
+        JpegLoader.load_batch = load_batch
+
+
+@contextlib.contextmanager
 def recorded_evaluations(results: list):
     """The unrounded ``(score, loss, ...)`` of every eval pass
     ``evaluate_vqa`` runs while the block runs, appended to ``results``."""
@@ -3447,19 +3563,19 @@ def online_phase(torch, seed: int, prof: dict, e2e: dict) -> tuple:
 
     from dl_vqa_tpu_torch import config as config_mod
     from dl_vqa_tpu_torch.data.images import (
-        coco_id_from_filename, decoder_for, list_jpgs, preprocess_images)
+        builder_decoder, decoder_for, preprocess_images)
     from dl_vqa_tpu_torch.evaluate_vqa import evaluate_hw2
     from dl_vqa_tpu_torch.main import main as train_main
     from dl_vqa_tpu_torch.ops import _host
-    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
-        LOAD_FIXTURE, load_expected)
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import load_expected
     from dl_vqa_tpu_torch.train.loop import EPOCH_SPAN
 
     phase_start = time.perf_counter()
     root = os.path.abspath(E2E_DIR)
     online = online_corpus(prof, root)
     threads = os.cpu_count() or 1
-    out = {"decoder": decoder_for("cuda"), "host_cpus": threads,
+    out = {"decoder": builder_decoder("auto"),
+           "loader_decoder": decoder_for("cuda"), "host_cpus": threads,
            "libjpeg_missing": _host.missing("image")}
 
     # The builder, as main builds a missing store.
@@ -3476,24 +3592,11 @@ def online_phase(torch, seed: int, prof: dict, e2e: dict) -> tuple:
         built[split] = {"images": n, "s": seconds,
                         "images_per_s": n / seconds, "log": lines[0],
                         **hold_store(online[split]["processed_imgs"],
-                                     load_expected())}
+                                     load_expected(), out["decoder"])}
         require(out["decoder"] in lines[0], f"the builder's log names "
                 f"{out['decoder']}: {lines[0]}")
     out["builder"] = built
     log(f"online_e2e builder: {json.dumps(built)}")
-
-    image_dir = os.path.join(online["paths"]["base_path"],
-                             online["train_paths"]["imgs"])
-    coco = sorted(os.path.join(image_dir, f) for f in list_jpgs(image_dir)
-                  if online_fixture_of(coco_id_from_filename(f))
-                  == LOAD_FIXTURE)
-    require(len(coco) >= RATE_IMAGES, f"{len(coco)} COCO-sized files")
-    decoders = ["nvjpeg"] + (["libjpeg"] if out["libjpeg_missing"] is None
-                             else [])
-    out["decode_images_per_s"] = decode_rates(coco[:RATE_IMAGES], decoders)
-    log(f"online_e2e loader images/s at 640x480 -> 224 by threads: "
-        f"{json.dumps(out['decode_images_per_s'])} against the CNN train "
-        f"step's {e2e['bare_step_samples_per_s']:.1f} samples/s")
 
     def compose(prefix, extra=()):
         return config_mod.compose(
@@ -3503,10 +3606,10 @@ def online_phase(torch, seed: int, prof: dict, e2e: dict) -> tuple:
     # The counted path: the online run and its evaluation.
     trace_dir = os.path.join(root, ONLINE_DIR, "trace")
     wrappers = kernel_wrappers()
-    scalars = {}
+    scalars, decoded = {}, []
     reset_launches(wrappers)
     t0 = time.perf_counter()
-    with recorded_scalars(scalars):
+    with recorded_scalars(scalars), counted_loads(decoded):
         best = train_main(compose("online_train", [
             "tpu.online_images=true", f"tpu.profile_dir={trace_dir}",
             "tpu.checkpoint_every_steps=0"]))
@@ -3517,7 +3620,8 @@ def online_phase(torch, seed: int, prof: dict, e2e: dict) -> tuple:
         f"main.small.paths.pretrained_model_path={best_ckpt}",
         "train.image.stride=1", "train.attention.do_option=+"])
     with open(os.path.join(root, ONLINE_DIR, "evaluate_stdout.txt"),
-              "w") as stdout, contextlib.redirect_stdout(stdout):
+              "w") as stdout, contextlib.redirect_stdout(stdout), \
+            counted_loads(decoded):
         score = evaluate_hw2(eval_overrides + ["tpu.online_images=true"])
     torch.cuda.synchronize()
     launches = read_launches(wrappers, "the online_e2e path")
@@ -3532,10 +3636,13 @@ def online_phase(torch, seed: int, prof: dict, e2e: dict) -> tuple:
         "relu_maxpool": 3 * (steps + evals),
         "relu_maxpool_backward": 6 * steps,
         "attention_pool": steps + evals,
+        # The loader's images (every fixture a JPEG), by the exact decoder.
+        **exact_grids(sum(decoded)),
     }
     require(launches == {**dict.fromkeys(wrappers, 0), **expected},
             f"kernel launches on the online_e2e path: {launches}, expected "
             f"{expected}")
+    out["online_run_images_decoded"] = sum(decoded)
     require(abs(score - best) <= TOL["e2e_eval_score"],
             f"online evaluate_vqa {score} vs the loop's best {best}")
     samples_per_s = scalars["Throughput/QAPairsPerSecPerChip"][1]
@@ -3783,11 +3890,11 @@ def hold_answers(answers, ref_probs, answer_by_id, what: str) -> float:
 
 def decode_check(torch) -> dict:
     """The port's decoders on this host against PIL's pixels of the
-    committed fixtures: nvJPEG (the decoder of a CUDA device on a host
-    with no libjpeg) within TOL["decode_nvjpeg"] levels, and libjpeg,
-    where the host has it, within TOL["decode_libjpeg"]; each one's time a
-    fixture (median of 20, one thread), the COCO-sized one's as
-    ``decode_ms_per_image``."""
+    committed fixtures: the exact decoder (every device's) at
+    TOL["decode_exact"], nvJPEG within TOL["decode_nvjpeg"] levels, and
+    libjpeg, where the host has it, within TOL["decode_libjpeg"]; each
+    one's time a fixture (median of 20, one thread), the COCO-sized one's
+    as ``decode_ms_per_image``."""
     from dl_vqa_tpu_torch.data.images import decode_image, decoder_for
     from dl_vqa_tpu_torch.ops import _host
     from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
@@ -3796,7 +3903,8 @@ def decode_check(torch) -> dict:
     expected = load_expected()
     raws = {name: raw for name, raw, _ in fixture_requests()}
     libjpeg_missing = _host.missing("image")
-    decoders = ["nvjpeg"] + (["libjpeg"] if libjpeg_missing is None else [])
+    decoders = ["exact", "nvjpeg"] + (["libjpeg"] if libjpeg_missing is None
+                                      else [])
     out = {"serving_decoder": decoder_for("cuda"),
            "libjpeg_missing": libjpeg_missing}
     for decoder in decoders:
@@ -4034,8 +4142,11 @@ def serving_http_phase(torch, seed: int, pool, recurrence: int) -> tuple:
             batches = after["batches"] - before["batches"]
             grids = ({"relu_maxpool_int8": 1, "conv_relu_pool_int8": 2,
                       "attention_pool": 1} if cal else FORWARD_GRIDS)
+            # Every request's JPEG decoded by the exact decoder.
             expected = {"lstm_recurrence": recurrence * batches,
-                        **{k: v * batches for k, v in grids.items()}}
+                        **{k: v * batches for k, v in grids.items()},
+                        **exact_grids(after["requests"]
+                                      - before["requests"])}
             log(f"{label}: {len(bodies)} fixture requests answered (max "
                 f"relative error of a probability {worst:.3e}, tol "
                 f"{TOL['served_probs']:g}); {after['requests']} requests in "
@@ -7232,8 +7343,680 @@ def pipeline_parallel_phase(torch, seed: int, recurrence: int, card: str
     return r0["launches"], numbers
 
 
+EXACT_DIR = "exact"  # under E2E_DIR
+EXACT_STORE_IMAGES = 64  # COCO-named copies of the fixtures the store holds
+EXACT_TIMING_ITERS = 200
+
+
+def exact_fixtures() -> dict:
+    """``{file name: (bytes, PIL's uint8 [224, 224, 3])}`` of the committed
+    fixtures: the four JPEGs of ``expected.npz`` and the eight files of
+    ``format_fixtures/`` (CMYK, restart and progressive JPEGs, three PNGs,
+    two BMPs)."""
+    import os
+
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        FIXTURES, FORMAT_FIXTURES, FORMAT_LAYOUTS, LAYOUTS, load_expected)
+
+    out = {}
+    expected = load_expected()
+    for name in LAYOUTS:
+        with open(os.path.join(FIXTURES, f"{name}.jpg"), "rb") as fd:
+            out[f"{name}.jpg"] = (fd.read(), expected[name])
+    expected = load_expected(os.path.join(FORMAT_FIXTURES,
+                                          "expected_formats.npz"))
+    for name in FORMAT_LAYOUTS:
+        with open(os.path.join(FORMAT_FIXTURES, name), "rb") as fd:
+            out[name] = (fd.read(), expected[name])
+    return out
+
+
+def exact_stages(torch, raw: bytes, what: str, device):
+    """The exact decoder's host stage of ``raw`` and its device inputs:
+    ``(JpegData or None, coefficients, tables, RGB8 of a PNG or BMP)``."""
+    from dl_vqa_tpu_torch.data import image_formats
+
+    kind = image_formats.sniff(raw)
+    if kind != "jpeg":
+        rgb = image_formats.read_rgb(raw, kind, what)
+        return None, None, None, torch.from_numpy(rgb).to(device)
+    data = image_formats.read_jpeg(raw, what)
+    return (data, [torch.from_numpy(c).to(device) for c in data.coefficients],
+            [torch.from_numpy(q).to(device) for q in data.qtables], None)
+
+
+def exact_kernel_checks(torch, fixtures: dict, device) -> dict:
+    """Kernels E, F and G on every fixture against their plain versions on
+    the same card tensors, to the bit, and G's output against PIL's
+    pixels; the largest difference of each."""
+    from dl_vqa_tpu_torch.ops import exact_decode as X
+
+    worst = dict.fromkeys(EXACT_KERNELS, 0.0)
+    for name, (raw, want) in fixtures.items():
+        data, coefs, tables, rgb = exact_stages(torch, raw, name, device)
+        if data is not None:
+            planes = X.exact_idct_cuda(coefs, tables)
+            plain = [X.idct_islow_reference(c, q)
+                     for c, q in zip(coefs, tables)]
+            worst["exact_idct"] = max(worst["exact_idct"], max(
+                max_err(a, b) for a, b in zip(planes, plain)))
+            rgb = X.exact_color_cuda(planes, data.components,
+                                     data.color_space, data.width,
+                                     data.height)
+            worst["exact_color"] = max(
+                worst["exact_color"], max_err(rgb, X.upsample_color_reference(
+                    plain, data.components, data.color_space, data.width,
+                    data.height)))
+        plan = X.resample_plan(rgb.shape[1], rgb.shape[0], 224, 0.875)
+        out = X.pil_resample_cuda(rgb, plan)
+        worst["pil_resample"] = max(worst["pil_resample"], max_err(
+            out, X.pil_resample_reference(rgb, plan)))
+        torch.cuda.synchronize()
+        levels = int(np.abs(out.cpu().numpy().astype(np.int32)
+                            - want).max())
+        require(levels <= TOL["decode_exact"],
+                f"kernels E, F, G on {name}: {levels} levels from PIL")
+    require(max(worst.values()) == 0.0,
+            f"kernels E, F, G against their plain versions: {worst}")
+    return worst
+
+
+def exact_timings(torch, raw: bytes, device, worst: dict) -> dict:
+    """Kernels E, F and G alone on ``raw`` (the COCO-sized 640x480 4:2:0
+    fixture): each one's launches replayed from a CUDA graph (``ms``: the
+    kernel's own time; a call through the wrapper costs more host time
+    than the kernel takes), and each call through its wrapper timed in
+    turns with its plain version on the card (CUDA events); its bound
+    (inputs read once and outputs written once at the memory rate, or its
+    integer operations at the 32-bit scalar rate) and its yardstick:
+    none for F; nvJPEG's whole decode of the file for E (``nvjpeg_ms``,
+    another function) and for G ``F.interpolate(..., "bilinear",
+    antialias=True)`` of the image to the resize's size, then the crop
+    (float, not Pillow's bits), from a CUDA graph, as ``library_ms``."""
+    import torch.nn.functional as F
+
+    from dl_vqa_tpu_torch.data.images import decode_image
+    from dl_vqa_tpu_torch.ops import exact_decode as X
+
+    data, coefs, tables, _ = exact_stages(torch, raw, "the COCO fixture",
+                                          device)
+    planes = X.exact_idct_cuda(coefs, tables)
+    rgb = X.exact_color_cuda(planes, data.components, data.color_space,
+                             data.width, data.height)
+    plan = X.resample_plan(data.width, data.height, 224, 0.875)
+    taps = torch.tensor(plan.taps, device=device)
+    out = X.pil_resample_cuda(rgb, plan)
+    args = (data.components, data.color_space, data.width, data.height)
+    target = int(224 / 0.875)
+    new_w = int(target * data.width / data.height)
+    left = int(round((new_w - 224) / 2.0))
+    image = rgb.permute(2, 0, 1)[None].float()
+
+    def interpolate():
+        F.interpolate(image, size=(target, new_w), mode="bilinear",
+                      antialias=True)[..., :224, left:left + 224]
+
+    # Integer operations of each kernel's arithmetic, against the card's
+    # 32-bit scalar rate (the f32 entry of PEAK_OPS_PER_S): E's sixteen
+    # one-dimensional passes of 61 a block and 4 a sample for the
+    # dequantization and the clamp; F's 40 a pixel (two upsampled chroma
+    # samples and the colour conversion); G's as the function needs them,
+    # 3 channels each: the horizontal pass once for each input row the
+    # vertical taps read (a multiply-add a tap, then the rounding and clip
+    # of each output column), then the vertical pass (a multiply-add a tap
+    # and the rounding and clip of each output pixel). G's bytes: the
+    # input rectangle its taps span (the rows and columns the crop reads),
+    # its taps and its output.
+    blocks = sum(c.shape[0] * c.shape[1] for c in coefs)
+    xt = plan.taps[:plan.size * (2 + plan.kx)].reshape(plan.size, -1)
+    yt = plan.taps[plan.size * (2 + plan.kx):].reshape(plan.size, -1)
+
+    def span(t):
+        return int((t[:, 0] + t[:, 1]).max() - t[:, 0].min())
+
+    resample_ops = 3 * (span(yt) * (2 * int(xt[:, 1].sum()) + 3 * plan.size)
+                        + plan.size * (2 * int(yt[:, 1].sum())
+                                       + 3 * plan.size))
+    resample_read = span(yt) * span(xt) * 3
+    cases = {
+        "exact_idct": (lambda: X.exact_idct_cuda(coefs, tables),
+                       lambda: [X.idct_islow_reference(c, q)
+                                for c, q in zip(coefs, tables)],
+                       nbytes(*coefs, *tables) + nbytes(*planes),
+                       blocks * (16 * 61 + 64 * 4)),
+        "exact_color": (lambda: X.exact_color_cuda(planes, *args),
+                        lambda: X.upsample_color_reference(planes, *args),
+                        nbytes(*planes) + nbytes(rgb),
+                        40 * data.width * data.height),
+        "pil_resample": (lambda: X.pil_resample_cuda(rgb, plan, taps),
+                         lambda: X.pil_resample_reference(rgb, plan),
+                         resample_read + nbytes(taps, out), resample_ops),
+    }
+    out_summary = {}
+    for name, (kernel, plain, moved, ops) in cases.items():
+        wrapper_ms, plain_ms = timed_pair(torch, plain, kernel,
+                                          EXACT_TIMING_ITERS)
+        out_summary[name] = {"max_abs_err": worst[name],
+                             "ms": graph_ms(torch, kernel, EXACT_TIMING_ITERS),
+                             "wrapper_ms": wrapper_ms,
+                             "plain_ms": plain_ms, "library_ms": None,
+                             "shape": f"{data.width}x{data.height} 4:2:0",
+                             "bytes": moved, "operations": ops,
+                             **bound(moved, ops, "f32")}
+    out_summary["pil_resample"]["library_ms"] = graph_ms(
+        torch, interpolate, EXACT_TIMING_ITERS)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        decode_image(raw, 224, 0.875, "nvjpeg")
+        times.append((time.perf_counter() - t0) * 1e3)
+    out_summary["exact_idct"]["nvjpeg_ms"] = float(np.median(times))
+    for name in EXACT_KERNELS:
+        v = out_summary[name]
+        log(f"exact {name}: {v['ms'] * 1e3:.1f} us from a CUDA graph, "
+            f"{v['wrapper_ms'] * 1e3:.1f} us a call through its wrapper (plain "
+            f"{v['plain_ms'] * 1e3:.1f} us, bound {v['bound_ms'] * 1e3:.2f} "
+            f"us by {v['bound_by']}, {v['bytes']} B)"
+            + (f", library {v['library_ms'] * 1e3:.1f} us"
+               if v["library_ms"] else ""))
+    return out_summary
+
+
+def exact_host_stages(torch, raw: bytes, path: str) -> dict:
+    """Where an exact decode of the COCO-sized fixture spends its time on
+    the host: the entropy decoding (``read_jpeg``) and the device stages
+    with their copies (``decode_on_device``), ms an image on one thread
+    (median of 50); the file's read and entropy decoding alone on 1, 4
+    and 8 threads, images/s."""
+    from dl_vqa_tpu_torch.data import image_formats
+    from dl_vqa_tpu_torch.ops.exact_decode import decode_on_device
+
+    device = torch.device("cuda", 0)
+    data = image_formats.read_jpeg(raw)
+    decode_on_device(data, 224, 0.875, device)
+    stages = {"read_jpeg": lambda: image_formats.read_jpeg(raw),
+              "decode_on_device": lambda: decode_on_device(
+                  data, 224, 0.875, device)}
+    out = {}
+    for name, fn in stages.items():
+        times = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_ms"] = float(np.median(times))
+    import concurrent.futures
+
+    out["entropy_threads_images_per_s"] = {}
+    for threads in (1, 4, 8):
+        def one(_):
+            with open(path, "rb") as fd:
+                image_formats.read_jpeg(fd.read())
+
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(one, range(RATE_IMAGES)))
+            out["entropy_threads_images_per_s"][str(threads)] = (
+                RATE_IMAGES / (time.perf_counter() - t0))
+    log(f"exact host stages: {json.dumps(out)}")
+    return out
+
+
+def exact_store(torch, root: str) -> dict:
+    """``preprocess_images(backend="pil")`` on a COCO-named JPEG directory
+    of the fixtures' copies (ids mapped as phase 16's corpus maps them,
+    :func:`online_fixture_of`), on the card: every row the fp16 of PIL's
+    normalized pixels, to the bit (:func:`hold_store`)."""
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch.data.images import preprocess_images
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        FIXTURES, load_expected)
+
+    image_dir = os.path.join(root, "imgs")
+    os.makedirs(image_dir, exist_ok=True)
+    for image_id in range(EXACT_STORE_IMAGES):
+        shutil.copyfile(
+            os.path.join(FIXTURES, f"{online_fixture_of(image_id)}.jpg"),
+            os.path.join(image_dir, f"COCO_val2014_{image_id:012d}.jpg"))
+    path = os.path.join(root, "processed_pil.h5")
+    lines = []
+    t0 = time.perf_counter()
+    n = preprocess_images(
+        other_paths={"base_path": root}, data_paths={"imgs": "imgs"},
+        image_size=E2E_IMAGE_SIZE, central_fraction=0.875,
+        processed_path=path, log=lines.append, backend="pil", device="cuda")
+    seconds = time.perf_counter() - t0
+    require("(exact," in lines[0], f"the pil builder's log: {lines[0]}")
+    return {"images": n, "s": seconds, "images_per_s": n / seconds,
+            **hold_store(path, load_expected(), "exact")}
+
+
+def exact_serving(torch, seed: int, recurrence: int, fixtures: dict
+                  ) -> tuple:
+    """The slice's path, counted: the reference-parity Predictor on the
+    card behind the Python front (``serve.build_server``) answers the
+    COCO-sized JPEG, an RGBA PNG and a BI_BITFIELDS BMP, one request at a
+    time (a batch and bucket of one each), every one with 200; the JPEG's
+    answers held to ``forward_probs`` of PIL's pixels (``expected.npz``)
+    at B = 1. Returns ``(launches, numbers)``."""
+    import os
+    import threading
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch import serve
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import LOAD_FIXTURE
+
+    root = os.path.abspath(SERVING_DIR)
+    if not os.path.exists(os.path.join(root, "model.npz")):
+        make_serving_checkpoint(torch, seed, root)
+    cfg = config_mod.compose("config_eval", serving_overrides(root))
+    httpd, service = serve.build_server(
+        cfg, port=0, max_batch=SERVE_MAX_BATCH,
+        batch_window_ms=SERVE_WINDOW_MS)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    wrappers = kernel_wrappers()
+    names = [f"{LOAD_FIXTURE}.jpg", "rgba.png", "bitfields32.bmp"]
+    question = QUESTIONS[0]
+    try:
+        predictor = service.predictor
+        require(predictor.decoder == "exact",
+                f"the Predictor decodes with {predictor.decoder}")
+        service.warmup(block=True)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/answer"
+        encoded, lengths = predictor.encode_questions([question])
+        ref = predictor.forward_probs(
+            fixtures[names[0]][1][None], encoded, lengths)[0]
+        before = service.metrics()
+        reset_launches(wrappers)
+        answers = []
+        for name in names:
+            status, payload = post(url, request_body(fixtures[name][0],
+                                                     question))
+            require(status == 200, f"exact_serving {name}: {status} "
+                    f"{payload}")
+            answers.append(payload["answers"])
+        torch.cuda.synchronize()
+        launches = read_launches(wrappers, "the exact_serving path")
+        after = service.metrics()
+    finally:
+        service.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    worst = hold_answers(answers[0], ref, predictor.answer_by_id,
+                         f"exact_serving {names[0]}")
+    # The same pixels through the same bucket: the same bits, reported;
+    # held, as every served answer, to TOL["served_probs"].
+    same = answers[0] == [list(a) for a in predictor.top_k_from_probs(
+        ref, SERVE_TOP_K)]
+    batches = after["batches"] - before["batches"]
+    expected = {"lstm_recurrence": recurrence * batches,
+                **{k: v * batches for k, v in FORWARD_GRIDS.items()},
+                **exact_grids(1, 2)}
+    require(batches == len(names), f"{batches} batches for {len(names)} "
+            "requests sent one at a time")
+    require(launches == {**dict.fromkeys(wrappers, 0), **expected},
+            f"kernel launches on exact_serving: {launches}, expected "
+            f"{expected}")
+    log(f"exact_serving: {', '.join(names)} answered with 200; the JPEG's "
+        f"probabilities {worst:.3e} from forward_probs of PIL's pixels "
+        f"(the same bits: {same}); "
+        f"kernel launches {json.dumps(launches)}")
+    return launches, {"requests": names, "statuses": [200] * len(names),
+                      "served_probs_max_rel_err": worst,
+                      "answers": answers, "jpeg_bits_equal": same}
+
+
+def exact_decode_phase(torch, seed: int, recurrence: int, card: str,
+                       e2e: dict = None) -> tuple:
+    """Phase 22: the exact decoder (``data/images.py``, ``"exact"``) on the
+    card. Kernels E, F and G on every committed fixture against their plain
+    versions to the bit; ``decode_image(..., "exact")`` of every fixture at
+    TOL["decode_exact"] from PIL's pixels; the ``backend="pil"`` store to
+    PIL's fp16 bits; the Python front answering a JPEG, a PNG and a BMP
+    (counted: :func:`exact_serving`); E, F and G timed alone on the
+    640x480 4:2:0 fixture; each decoder's images/s at 640x480 -> 224 by
+    threads. Returns ``(launches, numbers, kernel summaries)``."""
+    import os
+
+    from dl_vqa_tpu_torch.data.images import decode_image
+    from dl_vqa_tpu_torch.ops import _host
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        FIXTURES, LOAD_FIXTURE)
+
+    phase_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    fixtures = exact_fixtures()
+    worst = exact_kernel_checks(torch, fixtures, device)
+    decoded = {}
+    for name, (raw, want) in fixtures.items():
+        got = decode_image(raw, 224, 0.875, "exact", 0)
+        decoded[name] = int(np.abs(got.astype(np.int32) - want).max())
+    require(max(decoded.values()) <= TOL["decode_exact"],
+            f"the exact decode against PIL's pixels: {decoded}")
+    log(f"exact_decode: {len(fixtures)} fixtures, E F G equal to their "
+        f"plain versions ({worst}), the whole decode {decoded} levels from "
+        "PIL's pixels")
+    out = {"card": card, "kernel_max_abs_err": worst,
+           "decode_levels": decoded}
+    root = os.path.join(os.path.abspath(E2E_DIR), EXACT_DIR)
+    out["pil_store"] = exact_store(torch, root)
+    log(f"exact_decode store: {json.dumps(out['pil_store'])}")
+    launches, out["serving"] = exact_serving(torch, seed, recurrence,
+                                             fixtures)
+    coco = os.path.join(FIXTURES, f"{LOAD_FIXTURE}.jpg")
+    summary = exact_timings(torch, fixtures[f"{LOAD_FIXTURE}.jpg"][0],
+                            device, worst)
+    out["host_stages"] = exact_host_stages(
+        torch, fixtures[f"{LOAD_FIXTURE}.jpg"][0], coco)
+    decoders = ["exact", "nvjpeg"] + (["libjpeg"] if _host.missing("image")
+                                      is None else [])
+    out["decode_images_per_s"] = decode_rates([coco] * RATE_IMAGES,
+                                              decoders)
+    log(f"exact_decode images/s at 640x480 -> 224 by threads: "
+        f"{json.dumps(out['decode_images_per_s'])}"
+        + (f" against the CNN train step's "
+           f"{e2e['bare_step_samples_per_s']:.1f} samples/s" if e2e else ""))
+    out["phase_s"] = time.perf_counter() - phase_start
+    return launches, out, summary
+
+
+# --compare-decoders: the main paths on nvJPEG and on the exact decoder in
+# turns, in one process, so that a drift of the card or the host shows as a
+# spread between a decoder's two turns.
+DECODER_TURNS = ("nvjpeg", "exact", "exact", "nvjpeg")
+COMPARE_LOAD = {8: 60, 64: 24}  # phase 11's levels past one client
+COMPARE_TRACE_PER_CLIENT = 8  # the traced level: 64 clients, 512 requests
+DECODE_KERNELS = ("exact_idct_kernel", "exact_color_kernel",
+                  "pil_resample_kernel")
+
+
+@contextlib.contextmanager
+def decode_clock(clock: dict):
+    """Wall seconds and calls of each stage of an image decode while the
+    block runs, summed over threads, into ``clock[stage] = [s, calls]``:
+    the whole decode of an image (``data/images.py::_decode``, any
+    decoder), and the exact decoder's entropy decoding on the host
+    (``image_formats.read_jpeg``) and its device stages with their copies
+    (``exact_decode.decode_on_device``)."""
+    import threading
+
+    from dl_vqa_tpu_torch.data import image_formats, images
+    from dl_vqa_tpu_torch.ops import exact_decode
+
+    lock = threading.Lock()
+    stages = [(images, "_decode"), (image_formats, "read_jpeg"),
+              (exact_decode, "decode_on_device")]
+    saved = [getattr(module, name) for module, name in stages]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                with lock:
+                    total = clock.setdefault(name, [0.0, 0])
+                    total[0] += dt
+                    total[1] += 1
+        return run
+
+    for (module, name), fn in zip(stages, saved):
+        setattr(module, name, timed(name, fn))
+    try:
+        yield clock
+    finally:
+        for (module, name), fn in zip(stages, saved):
+            setattr(module, name, fn)
+
+
+def clock_ms(clock: dict) -> dict:
+    """``{stage: {"ms": mean ms a call, "calls": n}}`` of a
+    :func:`decode_clock`."""
+    return {name: {"ms": s / n * 1e3, "calls": n}
+            for name, (s, n) in clock.items() if n}
+
+
+def trace_waits(path: str) -> dict:
+    """What a ``torch.profiler`` Chrome trace shows of the decodes: each
+    kernel's and copy's wait between its launch call on the host and its
+    start on the card (matched by correlation id), median and 90th
+    percentile in ms, for the streams the exact decoder's kernels ran on
+    (``decode``) and for every other stream (``other``); the host's CUDA
+    runtime calls by their total ms (the eight longest); and the card's
+    busy share over the trace (the union of its kernels, copies and
+    sets)."""
+    with open(path) as fd:
+        events = [e for e in json.load(fd)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})}
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    decode_streams = {e["args"].get("stream") for e in device
+                      if any(k in e["name"] for k in DECODE_KERNELS)}
+    waits = {"decode": [], "other": []}
+    for e in device:
+        call = calls.get(e["args"].get("correlation"))
+        if call is not None:
+            kind = ("decode" if e["args"].get("stream") in decode_streams
+                    else "other")
+            waits[kind].append((e["ts"] - call["ts"]) / 1e3)
+    runtime = {}
+    for e in calls.values():
+        runtime[e["name"]] = runtime.get(e["name"], 0.0) + e["dur"] / 1e3
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy, cursor = 0.0, lo
+    for start, end in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        start = max(start, cursor)
+        if end > start:
+            busy += end - start
+            cursor = end
+    return {
+        "launch_wait_ms": {
+            kind: ({"events": len(v), "p50": float(np.percentile(v, 50)),
+                    "p90": float(np.percentile(v, 90))} if v else None)
+            for kind, v in waits.items()},
+        "runtime_ms": dict(sorted(runtime.items(),
+                                  key=lambda kv: -kv[1])[:8]),
+        "span_s": (hi - lo) / 1e6, "device_busy_share": busy / (hi - lo)}
+
+
+def compare_http(torch, seed: int, pool) -> dict:
+    """Phase 11's Python front (the same checkpoint, max batch, window and
+    closed-loop clients) with the Predictor decoding by each decoder of
+    DECODER_TURNS: QA/s and latencies at COMPARE_LOAD's levels; the decode
+    stages' mean ms under that load (:func:`decode_clock`), the batcher's
+    forward and its wait for requests a batch; a decode of the load's
+    image alone, no load on; and a traced level at 64 clients
+    (:func:`trace_waits`)."""
+    import os
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch import serve
+    from dl_vqa_tpu_torch.data.images import decode_image
+    from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
+        FIXTURES, LOAD_FIXTURE)
+
+    root = os.path.abspath(SERVING_DIR)
+    make_serving_checkpoint(torch, seed, root)
+    cfg = config_mod.compose("config_eval", serving_overrides(root))
+    httpd, service = serve.build_server(
+        cfg, port=0, max_batch=SERVE_MAX_BATCH,
+        batch_window_ms=SERVE_WINDOW_MS)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    with open(os.path.join(FIXTURES, f"{LOAD_FIXTURE}.jpg"), "rb") as fd:
+        raw = fd.read()
+    bodies = load_bodies()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/answer"
+    predictor = service.predictor
+    batcher = {"forward_probs": [0.0, 0], "_drain": [0.0, 0]}
+
+    def timed(owner, name):
+        fn = getattr(owner, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                batcher[name][0] += time.perf_counter() - t0
+                batcher[name][1] += 1
+        setattr(owner, name, run)
+
+    out = []
+    try:
+        service.warmup(block=True)
+        timed(predictor, "forward_probs")  # both on the batcher's thread
+        timed(service, "_drain")
+        for turn, decoder in enumerate(DECODER_TURNS):
+            predictor.decoder = decoder
+            for _ in range(20):
+                decode_image(raw, 224, 0.875, decoder)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                decode_image(raw, 224, 0.875, decoder)
+            entry = {"turn": turn, "decoder": decoder,
+                     "alone_ms": (time.perf_counter() - t0) * 1e3 / 50}
+            for concurrency, per_client in COMPARE_LOAD.items():
+                clock = {}
+                for v in batcher.values():
+                    v[:] = [0.0, 0]
+                with decode_clock(clock):
+                    wall, lat, statuses = pool.apply(
+                        load_client, (url, bodies, concurrency, per_client))
+                require(statuses == [200] * len(lat),
+                        f"{decoder} at {concurrency}: statuses "
+                        f"{sorted(set(map(str, statuses)))}")
+                entry[concurrency] = {
+                    "qa_per_s": len(lat) / wall,
+                    "client_p50_ms": percentile(lat, 0.5),
+                    "client_p99_ms": percentile(lat, 0.99),
+                    "decode": clock_ms(clock),
+                    "batches": batcher["forward_probs"][1],
+                    "mean_batch": len(lat) / max(batcher["forward_probs"][1],
+                                                 1),
+                    "forward_ms": clock_ms(batcher)["forward_probs"]["ms"],
+                    "drain_ms": clock_ms(batcher)["_drain"]["ms"]}
+            if turn < 2:  # one trace a decoder
+                trace = os.path.join(root, f"decoders_{decoder}.json")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    wall, lat, statuses = pool.apply(
+                        load_client,
+                        (url, bodies, 64, COMPARE_TRACE_PER_CLIENT))
+                torch.cuda.synchronize()
+                prof.export_chrome_trace(trace)
+                entry["trace_64"] = {"qa_per_s": len(lat) / wall,
+                                     **trace_waits(trace)}
+            log(f"compare_decoders http: {json.dumps(entry)}")
+            out.append(entry)
+    finally:
+        service.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    return out
+
+
+def compare_online(torch, seed: int) -> list:
+    """Phase 16's online run (``main`` on cnn_e2e's corpus for E2E_EPOCHS
+    epochs at batch 512, ``tpu.online_images=true``, the loader on every
+    host core, epoch 1 traced) with the loader decoding by each decoder of
+    DECODER_TURNS: epoch 1's samples/s, the device's idle share and the
+    decodes' waits in its trace (:func:`trace_waits`), the decode stages'
+    mean ms (:func:`decode_clock`); and the builder's decode
+    (``decode_image_files`` of the train split's JPEGs in slabs of 256 on
+    every core), images/s."""
+    import os
+    import shutil
+
+    from dl_vqa_tpu_torch import config as config_mod
+    from dl_vqa_tpu_torch.data import online as online_mod
+    from dl_vqa_tpu_torch.data.images import (
+        decode_image_files, list_jpgs, preprocess_images)
+    from dl_vqa_tpu_torch.data.synthetic import make_synthetic_corpus
+    from dl_vqa_tpu_torch.main import main as train_main
+    from dl_vqa_tpu_torch.models.configs import ModelConfig
+    from dl_vqa_tpu_torch.train.loop import EPOCH_SPAN
+
+    root = os.path.abspath(E2E_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    prof = make_synthetic_corpus(
+        os.path.join(root, "corpus"), n_train=E2E_TRAIN, n_val=E2E_VAL,
+        n_images=E2E_IMAGES, image_size=E2E_IMAGE_SIZE, max_answers=3000,
+        seed=seed, learnable=True, n_val_images=E2E_VAL_IMAGES,
+        question_tokens=ModelConfig().num_tokens, question_length=SEQ_LEN)
+    online = online_corpus(prof, root)
+    threads = os.cpu_count() or 1
+    for split in ("train_paths", "val_paths"):
+        preprocess_images(
+            other_paths=online["paths"], data_paths=online[split],
+            image_size=E2E_IMAGE_SIZE, central_fraction=0.875,
+            processed_path=online[split]["processed_imgs"],
+            log=lambda _: None, backend="auto", device="cuda")
+    image_dir = os.path.join(online["paths"]["base_path"],
+                             online["train_paths"]["imgs"])
+    files = [os.path.join(image_dir, f) for f in list_jpgs(image_dir)]
+    decoder_for = online_mod.decoder_for
+    out = []
+    try:
+        for turn, decoder in enumerate(DECODER_TURNS):
+            t0 = time.perf_counter()
+            for i0 in range(0, len(files), 256):
+                decode_image_files(files[i0:i0 + 256], E2E_IMAGE_SIZE,
+                                   0.875, decoder, threads, 0)
+            builder = len(files) / (time.perf_counter() - t0)
+            online_mod.decoder_for = lambda device, d=decoder: d
+            trace_dir = os.path.join(root, ONLINE_DIR, f"trace_{turn}")
+            scalars, clock = {}, {}
+            with recorded_scalars(scalars), decode_clock(clock):
+                train_main(config_mod.compose("config", e2e_overrides(
+                    online, root, f"decoders_{turn}", seed, [
+                        f"main.num_workers={threads}",
+                        "tpu.online_images=true",
+                        f"tpu.profile_dir={trace_dir}",
+                        "tpu.checkpoint_every_steps=0",
+                        "train.save_model=false"])))
+            trace = os.path.join(trace_dir, os.listdir(trace_dir)[0])
+            entry = {"turn": turn, "decoder": decoder,
+                     "builder_images_per_s": builder,
+                     "epoch1_samples_per_s":
+                         scalars["Throughput/QAPairsPerSecPerChip"][1],
+                     "idle_share": trace_idle_share(
+                         trace, EPOCH_SPAN)["idle_share"],
+                     "decode": clock_ms(clock), **trace_waits(trace)}
+            log(f"compare_decoders online: {json.dumps(entry)}")
+            out.append(entry)
+    finally:
+        online_mod.decoder_for = decoder_for
+    return out
+
+
+def compare_decoders(torch, seed: int, card: str) -> dict:
+    """``--compare-decoders``: :func:`compare_http` and
+    :func:`compare_online`, nvJPEG and the exact decoder in turns."""
+    import multiprocessing
+
+    out = {"card": card, "turns": list(DECODER_TURNS)}
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        out["http"] = compare_http(torch, seed, pool)
+    out["online"] = compare_online(torch, seed)
+    return out
+
+
 def parallel_phases(torch, seed: int, card: str, names: list) -> int:
-    """Phases 17, 18, 20 and 21, those in ``names``, each printing its
+    """Phases 17, 18, 20, 21 and 22, those in ``names``, each printing its
     JSON line as the whole run prints it (``--phases``)."""
     recurrence = recurrence_grids(torch)
     phases = {"17": ("data_parallel", lambda: data_parallel_phase(
@@ -7243,7 +8026,10 @@ def parallel_phases(torch, seed: int, card: str, names: list) -> int:
               "20": ("sequence_parallel", lambda: sequence_parallel_phase(
                   torch, seed, recurrence, card)),
               "21": ("pipeline_parallel", lambda: pipeline_parallel_phase(
-                  torch, seed, recurrence, card))}
+                  torch, seed, recurrence, card)),
+              "22": ("exact_decode", lambda: (lambda r: (r[0], {
+                  **r[1], "kernels": r[2]}))(exact_decode_phase(
+                      torch, seed, recurrence, card)))}
     require(set(names) <= set(phases), f"--phases {names}: of {list(phases)}")
     for name in names:
         key, run = phases[name]
@@ -7280,9 +8066,15 @@ def main(argv=None) -> int:
                              "environment)")
     parser.add_argument("--phases", metavar="LIST",
                         help="run only these of the parallel phases (17, "
-                             "18, 20, 21, comma-separated) after the build "
-                             "and print their JSON lines; a partial run "
-                             "prints no kernels line and no last line")
+                             "18, 20, 21) and phase 22 (comma-separated) "
+                             "after the build and print their JSON lines; "
+                             "a partial run prints no kernels line and no "
+                             "last line")
+    parser.add_argument("--compare-decoders", action="store_true",
+                        help="after the build, run only phase 11's HTTP "
+                             "load and phase 16's online run with nvJPEG "
+                             "and the exact decoder in turns, and print "
+                             "their JSON line")
     parser.add_argument("--pp-rank", nargs=2, metavar=("OUT", "SEED"),
                         help="a rank of phase 21's two-rank run (started "
                              "by the phase itself, with torchrun's "
@@ -7318,6 +8110,10 @@ def main(argv=None) -> int:
     if args.phases:
         return parallel_phases(torch, args.seed, card,
                                args.phases.split(","))
+    if args.compare_decoders:
+        log(json.dumps({"compare_decoders": compare_decoders(
+            torch, args.seed, card)}))
+        return 0
     summary = kernel_phase(torch, args.seed)
 
     from dl_vqa_tpu_torch.models.configs import ModelConfig
@@ -7481,6 +8277,11 @@ def main(argv=None) -> int:
     paths["pipeline_parallel_entry"] = pipeline_parallel["entry"].pop(
         "launches")
     log(json.dumps({"pipeline_parallel": pipeline_parallel}))
+    # Phase 22: the exact decoder, PIL's pixels on the card.
+    paths["exact_serving"], exact, exact_summary = exact_decode_phase(
+        torch, args.seed, recurrence, card, e2e)
+    summary.update(exact_summary)
+    log(json.dumps({"exact_decode": exact}))
     log(f"total {time.perf_counter() - start:.1f} s")
 
     csrc = "dl_vqa_tpu_torch/csrc/"
@@ -7523,6 +8324,11 @@ def main(argv=None) -> int:
                               "dl_vqa_tpu/ops/conv_int8.py:76"),
         "conv_relu_pool_int8": ("conv_relu_pool_int8.cu",
                                 "dl_vqa_tpu/ops/conv_int8.py:95"),
+        # No TPU kernel behind the exact decoder's three: the JAX package
+        # decodes and resizes with PIL on the host.
+        "exact_idct": ("exact_idct.cu", "dl_vqa_tpu/data/images.py:64"),
+        "exact_color": ("exact_color.cu", "dl_vqa_tpu/data/images.py:64"),
+        "pil_resample": ("pil_resample.cu", "dl_vqa_tpu/data/images.py:64"),
     }
     # The tensor-core instruction of the fused-path kernels in bf16, and of
     # kernel D at the model's shapes in int8.

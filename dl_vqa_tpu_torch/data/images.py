@@ -1,4 +1,4 @@
-"""Image constants, the JPEG decoders, and the image store's builder.
+"""Image constants, the image decoders, and the image store's builder.
 
 ``IMAGENET_MEAN``, ``IMAGENET_STD``, ``normalize_uint8_chw``,
 ``coco_id_from_filename`` and ``list_jpgs`` are the port's copies of
@@ -7,35 +7,46 @@
 
 :func:`decode_image`, :func:`decode_image_files` and
 :func:`load_image_files` give the reference transform of
-``preprocess_pil_image`` up to the normalization: decode, resize of the
-shorter edge to ``int(image_size / central_fraction)`` by PIL's bilinear
-filter, centre crop, as uint8 ``[S, S, 3]`` (the model normalises on the
-device). They decode JPEG only; other bytes raise
-:class:`UnsupportedImage`. Two decoders, named by the caller:
+``preprocess_pil_image`` up to the normalization: decode,
+``convert("RGB")``, resize of the shorter edge to ``int(image_size /
+central_fraction)`` by PIL's bilinear filter, centre crop, as uint8
+``[S, S, 3]`` (the model normalises on the device). Three decoders, named
+by the caller:
 
+* ``"exact"``: PIL's pixels to the bit, without PIL, for JPEG, PNG and
+  BMP. The host reads the file (a JPEG's entropy-coded coefficients in
+  ``csrc/host/jpeg_entropy.cc``; a PNG's or BMP's RGB in
+  :mod:`~dl_vqa_tpu_torch.data.image_formats`), then kernels E, F and G
+  (:mod:`dl_vqa_tpu_torch.ops.exact_decode`: libjpeg's inverse DCT, its
+  upsampling and colour conversion, PIL's resize at the crop) finish it on
+  the card given by ``device_index`` (one call an image, on a stream of
+  its own), or their plain versions on the host where ``device_index`` is
+  -1 (:func:`device_index_of` a CPU device). A list of files is decoded
+  on Python threads, each file's entropy decoding in C++ with the
+  interpreter lock released. Needs only ``g++``;
 * ``"libjpeg"``: ``csrc/host/image_decode.cc`` on the host (RGB,
-  greyscale, and CMYK as PIL converts it), within one uint8 level of PIL;
-  a list of files runs on a pool of host threads in C++;
+  greyscale, and CMYK as PIL converts it), within one uint8 level of PIL
+  (the native resize's float taps); a list of files runs on a pool of
+  host threads in C++. JPEG only; needs libjpeg's headers;
 * ``"nvjpeg"``: the card's nvJPEG, then libjpeg's chroma upsampling and
   colour conversion and the resize on the host
-  (``csrc/host/nvjpeg_decode.cc``), for hosts with no libjpeg; its inverse
-  DCT is not libjpeg's, so it is a few levels from PIL. It takes one- and
-  three-component JPEGs (a CMYK file raises); a list of files runs on
-  Python threads over its pool of decoder slots (ctypes releases the GIL
-  during each call).
+  (``csrc/host/nvjpeg_decode.cc``); its inverse DCT is not libjpeg's, so
+  it is a few levels from PIL. One- and three-component JPEGs only (a
+  CMYK file raises); a list of files runs on Python threads over its pool
+  of decoder slots (ctypes releases the GIL during each call).
 
-:func:`decoder_for` names the one a device serves with: libjpeg wherever
-the host can build it, so that every front of a host decodes alike and as
-close to PIL as the port can. Both refuse more pixels than PIL's
+Other bytes raise :class:`UnsupportedImage`, naming the format.
+:func:`decoder_for` names the decoder of every device: ``"exact"``, the
+JAX package's PIL path. All refuse more pixels than PIL's
 decompression-bomb threshold.
 
 :func:`preprocess_images` is the image store's builder, the counterpart of
 the JAX package's: every ``*.jpg`` of a COCO image directory decoded in
 slabs, normalized, and written as fp16 ``features [N, 3, S, S]`` and int32
 ``ids [N]``, in an h5 file where h5py imports (the JAX package's layout, so
-each package reads the other's store), else in an ``.npy`` directory. The
-JAX builder's PIL loop (``backend="pil"``) is not ported: the port does not
-import PIL.
+each package reads the other's store), else in an ``.npy`` directory. Its
+``backend="pil"`` builds with ``"exact"``, the JAX builder's PIL loop to
+the bit.
 """
 
 import concurrent.futures
@@ -46,23 +57,21 @@ from typing import List, Sequence
 
 import numpy as np
 
+from dl_vqa_tpu_torch.data import image_formats
+from dl_vqa_tpu_torch.data.image_formats import UnsupportedImage, sniff
 from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "normalize_uint8_chw",
            "coco_id_from_filename", "list_jpgs", "UnsupportedImage",
            "DECODERS", "decoder_for", "decode_image", "decode_image_files",
-           "load_image_files", "preprocess_images"]
+           "load_image_files", "device_index_of", "builder_decoder",
+           "preprocess_images"]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
-DECODERS = ("libjpeg", "nvjpeg")
+DECODERS = ("exact", "libjpeg", "nvjpeg")
 _LIBRARY = {"libjpeg": "image", "nvjpeg": "nvjpeg"}  # each one's library
-
-
-class UnsupportedImage(ValueError):
-    """Bytes that are not a JPEG: the port decodes JPEG only (the serving
-    fronts answer 415)."""
 
 
 def normalize_uint8_chw(u8_nhwc: np.ndarray) -> np.ndarray:
@@ -84,13 +93,11 @@ def list_jpgs(image_dir: str) -> List[str]:
 
 
 def decoder_for(device) -> str:
-    """The decoder a model on ``device`` serves with: libjpeg where this
-    host has its compiler and headers (the native front's decoder too);
-    else nvJPEG on a CUDA device. On the CPU with no libjpeg it is still
-    libjpeg, whose build then raises and names what is missing."""
-    if str(device).startswith("cuda") and not _libjpeg_buildable():
-        return "nvjpeg"
-    return "libjpeg"
+    """The decoder a model on ``device`` serves, evaluates and loads with:
+    ``"exact"`` on every device, PIL's pixels as the JAX package's default
+    paths give them (the Predictor, the HTTP front, the online loader)."""
+    del device
+    return "exact"
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,11 +105,6 @@ def _libjpeg_buildable() -> bool:
     from dl_vqa_tpu_torch.ops import _host
 
     return _host.missing("image") is None
-
-
-def _is_jpeg(raw: bytes) -> bool:
-    """The JPEG start-of-image marker, as the native front tests it."""
-    return len(raw) >= 3 and raw[0] == 0xFF and raw[1] == 0xD8
 
 
 def _check(image_size: int, central_fraction: float, decoder: str) -> None:
@@ -119,8 +121,8 @@ def _raise_for(code: int, what: str, decoder: str) -> None:
     if code == 0:
         return
     if code == 2:
-        raise UnsupportedImage(f"{what} is not a JPEG: dl_vqa_tpu_torch "
-                               "decodes JPEG only")
+        raise UnsupportedImage(f"{what} is not a JPEG: the {decoder} "
+                               "decoder takes JPEG only")
     if code == 1:
         layouts = ("one or three components" if decoder == "nvjpeg"
                    else "greyscale, RGB or CMYK")
@@ -139,8 +141,10 @@ def _raise_for(code: int, what: str, decoder: str) -> None:
 def decode_image(raw: bytes, image_size: int, central_fraction: float,
                  decoder: str = "libjpeg", device_index: int = 0
                  ) -> np.ndarray:
-    """JPEG bytes -> uint8 ``[image_size, image_size, 3]`` (RGB, resized
-    and cropped). ``device_index``: the card nvJPEG decodes on."""
+    """Image bytes -> uint8 ``[image_size, image_size, 3]`` (RGB, resized
+    and cropped). ``device_index``: the card nvJPEG or the exact decoder's
+    kernels run on; -1 runs the exact decoder's plain versions on the
+    host."""
     _check(image_size, central_fraction, decoder)
     return _decode(bytes(raw), image_size, central_fraction, decoder,
                    device_index, "the image")
@@ -150,7 +154,21 @@ def _decode(raw: bytes, image_size: int, central_fraction: float,
             decoder: str, device_index: int, what: str) -> np.ndarray:
     from dl_vqa_tpu_torch.ops import _host
 
-    if not _is_jpeg(raw):
+    if decoder == "exact":
+        try:
+            kind = sniff(raw)
+        except UnsupportedImage as exc:
+            raise UnsupportedImage(f"{what}: {exc}") from None
+        if kind != "jpeg":
+            return _finish_exact(image_formats.read_rgb(raw, kind, what),
+                                 image_size, central_fraction, device_index)
+        source = image_formats.read_jpeg(raw, what)
+        try:
+            return _finish_exact(source, image_size, central_fraction,
+                                 device_index)
+        finally:
+            source.close()
+    if len(raw) < 3 or raw[0] != 0xFF or raw[1] != 0xD8:
         _raise_for(2, what, decoder)
     out = np.empty((image_size, image_size, 3), dtype=np.uint8)
     lib = _host.library(_LIBRARY[decoder])
@@ -165,6 +183,21 @@ def _decode(raw: bytes, image_size: int, central_fraction: float,
     return out
 
 
+def _finish_exact(source, image_size: int, central_fraction: float,
+                  device_index: int) -> np.ndarray:
+    """The exact decoder's device stages on card ``device_index``, or in
+    the plain versions on the host where it is -1
+    (:func:`dl_vqa_tpu_torch.ops.exact_decode.decode_on_device`)."""
+    import torch
+
+    from dl_vqa_tpu_torch.ops import exact_decode
+
+    device = (torch.device("cpu") if device_index < 0
+              else torch.device("cuda", device_index))
+    return exact_decode.decode_on_device(source, image_size,
+                                         central_fraction, device)
+
+
 def _read(path: str) -> bytes:
     try:
         with open(path, "rb") as fd:
@@ -177,11 +210,13 @@ def decode_image_files(paths: Sequence[str], image_size: int,
                        central_fraction: float, decoder: str = "libjpeg",
                        num_threads: int = 1, device_index: int = 0
                        ) -> np.ndarray:
-    """JPEG files -> uint8 ``[N, image_size, image_size, 3]`` in input
+    """Image files -> uint8 ``[N, image_size, image_size, 3]`` in input
     order, decoded on ``num_threads`` threads (0: ``os.cpu_count()``):
-    libjpeg's in a C++ pool, nvJPEG's as Python threads over its decoder
-    slots. Raises for the first file in input order that fails, naming
-    it; no file is replaced by anything else."""
+    libjpeg's in a C++ pool; the exact decoder's on Python threads, each
+    file read and entropy-decoded in C++ with the GIL released, then its
+    device stages; nvJPEG's as Python threads over its decoder slots.
+    Raises for the first file in input order that fails, naming it; no
+    file is replaced by anything else."""
     _check(image_size, central_fraction, decoder)
     paths = [os.fspath(p) for p in paths]
     threads = max(1, min(num_threads or (os.cpu_count() or 1),
@@ -221,7 +256,7 @@ def decode_image_files(paths: Sequence[str], image_size: int,
 def load_image_files(paths: Sequence[str], image_size: int,
                      central_fraction: float, decoder: str = "libjpeg",
                      device_index: int = 0) -> np.ndarray:
-    """JPEG files -> uint8 ``[N, image_size, image_size, 3]``, one after
+    """Image files -> uint8 ``[N, image_size, image_size, 3]``, one after
     another; raises on the first file that fails, naming it."""
     return decode_image_files(paths, image_size, central_fraction, decoder,
                               1, device_index)
@@ -229,14 +264,36 @@ def load_image_files(paths: Sequence[str], image_size: int,
 
 def device_index_of(device) -> int:
     """The card index of a CUDA ``device`` (its current device where it
-    names none); 0 for any other device."""
+    names none); -1 for any other device (the exact decoder's plain
+    versions on the host)."""
     if not str(device).startswith("cuda"):
-        return 0
+        return -1
     import torch
 
     device = torch.device(device)
     return (device.index if device.index is not None
             else torch.cuda.current_device())
+
+
+def builder_decoder(backend: str) -> str:
+    """The decoder :func:`preprocess_images` builds with: ``"pil"`` the
+    exact decoder; ``"native"`` libjpeg (raising, naming what is missing,
+    where it cannot be built); ``"auto"`` the JAX builder's rule, libjpeg
+    where this host builds it and has more than one core, else the exact
+    decoder."""
+    if backend not in ("auto", "native", "pil"):
+        raise ValueError(f"unknown builder backend: {backend!r}")
+    if backend == "native":
+        from dl_vqa_tpu_torch.ops import _host
+
+        reason = _host.missing("image")
+        if reason is not None:
+            raise RuntimeError(f"backend='native' needs libjpeg: {reason}")
+        return "libjpeg"
+    if (backend == "auto" and (os.cpu_count() or 1) > 1
+            and _libjpeg_buildable()):
+        return "libjpeg"
+    return "exact"
 
 
 class _StoreWriter:
@@ -317,28 +374,11 @@ def preprocess_images(
     ``features.npy`` and ``ids.npy``. It is written under a temporary name
     and renamed into place when whole.
 
-    ``backend``: ``"auto"`` decodes with :func:`decoder_for` ``(device)``;
-    ``"native"`` with libjpeg (raising, naming what is missing, where it
-    cannot be built); ``"pil"`` raises (the JAX package's PIL loop: the
-    port does not import PIL, ROADMAP queue 3). ``num_threads=0`` means
-    ``os.cpu_count()``."""
-    if backend not in ("auto", "native", "pil"):
-        raise ValueError(f"unknown builder backend: {backend!r}")
-    if backend == "pil":
-        raise NotImplementedError(
-            "backend='pil' is the JAX package's PIL loop; dl_vqa_tpu_torch "
-            "does not import PIL (ROADMAP queue 3, JPEG only): use 'auto' "
-            "or 'native'")
-    if backend == "native":
-        from dl_vqa_tpu_torch.ops import _host
-
-        reason = _host.missing("image")
-        if reason is not None:
-            raise RuntimeError(f"backend='native' needs libjpeg: {reason}")
-        decoder = "libjpeg"
-    else:
-        decoder = decoder_for(device)
-    device_index = device_index_of(device) if decoder == "nvjpeg" else 0
+    ``backend``: see :func:`builder_decoder` (``"pil"`` decodes with the
+    exact decoder on ``device``, the JAX builder's PIL loop to the bit).
+    ``num_threads=0`` means ``os.cpu_count()``."""
+    decoder = builder_decoder(backend)
+    device_index = device_index_of(device) if decoder == "exact" else -1
     image_dir = os.path.join(other_paths["base_path"], data_paths["imgs"])
     filenames = list_jpgs(image_dir)
     n = len(filenames)

@@ -11,12 +11,13 @@ N + 1 on the prefetch thread overlaps the step of batch N.
 
 :class:`JpegLoader` stands in for both JAX loaders: with ``decoder=None``
 it decodes with :func:`~dl_vqa_tpu_torch.data.images.decoder_for` its
-device (``tpu.online_images=true``: libjpeg where the host builds it,
-else nvJPEG on the card), with ``decoder="libjpeg"`` with libjpeg only
-(``tpu.native_loader=true``, the JAX package's ``NativeJpegLoader``). The
-JAX loaders decode with PIL, or rescue what libjpeg cannot decode through
-PIL; the port does not import PIL, and a file that fails raises, naming
-it.
+device (``tpu.online_images=true``): the exact decoder, PIL's pixels as
+the JAX package's PIL ``JpegLoader`` gives them, its last stages on the
+card (or in their plain versions on a CPU device); with
+``decoder="libjpeg"`` with libjpeg only (``tpu.native_loader=true``, the
+JAX package's ``NativeJpegLoader``). The JAX native loader rescues what
+libjpeg cannot decode through PIL; the port does not import PIL, and a
+file that fails raises, naming it.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ class JpegLoader:
         self.num_threads = num_threads
         self.decoder = decoder or decoder_for(device)
         self.device_index = (device_index_of(device)
-                             if self.decoder == "nvjpeg" else 0)
+                             if self.decoder != "libjpeg" else -1)
         self._path_by_id: Dict[int, str] = {
             coco_id_from_filename(f): os.path.join(image_dir, f)
             for f in list_jpgs(image_dir)}
@@ -93,8 +94,8 @@ def loader_from_config(cfg: dict, profile: dict, split: str,
                        device=DEFAULT_DEVICE, log=None) -> JpegLoader:
     """The entry points' loader of ``profile[split]``'s JPEG directory:
     ``cfg['main']['num_workers']`` threads, libjpeg where
-    ``tpu.native_loader`` is set, else the decoder of ``device``; the
-    decoder in use goes to ``log``."""
+    ``tpu.native_loader`` is set, else the decoder of ``device`` (the
+    exact decoder); the decoder in use goes to ``log``."""
     image_dir = os.path.join(profile["paths"]["base_path"],
                              profile[split]["imgs"])
     loader = JpegLoader(

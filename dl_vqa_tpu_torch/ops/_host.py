@@ -13,7 +13,11 @@ the host, not the card:
 * ``nvjpeg``: ``csrc/host/nvjpeg_decode.cc`` (the JPEG's planes decoded
   on the card by the CUDA toolkit's nvJPEG) and its two host stages:
   libjpeg's chroma upsampling and colour conversion (``csrc/host/ycc.cc``)
-  and the port's copy of the native resize (``csrc/host/resample.cc``).
+  and the port's copy of the native resize (``csrc/host/resample.cc``);
+* ``exact``: the "exact" decoder's host stages, which need no libjpeg:
+  the JPEG entropy decoder (``csrc/host/jpeg_entropy.cc``: markers,
+  Huffman-coded baseline and progressive scans) and PNG's row filters undone
+  (``csrc/host/png_unfilter.cc``).
 
 Each is compiled on first use with the flags of ``native/Makefile``, one
 ``g++`` a source and all started together, then linked, into
@@ -119,11 +123,28 @@ def _spec(name: str):
                 {"vqa_torch_nvjpeg_decode": ([_C, ctypes.c_size_t, _I, _D, _I,
                                              _P], _I),
                  "vqa_torch_nvjpeg_last_error": ([], _C)})
+    if name == "exact":
+        size = ctypes.c_size_t
+        return ((os.path.join(_HOST, "jpeg_entropy.cc"),
+                 os.path.join(_HOST, "png_unfilter.cc")),
+                (os.path.join(_HOST, "jpeg_entropy.h"),
+                 os.path.join(_HOST, "resample.h")),
+                (_HOST,), {}, (),
+                {"vqa_torch_jpeg_parse": ([_C, size], _P),
+                 "vqa_torch_jpeg_status": ([_P, _P, _I], _I),
+                 "vqa_torch_jpeg_header": ([_P, _P], _I),
+                 "vqa_torch_jpeg_coefficients": ([_P, _I], _P),
+                 "vqa_torch_jpeg_qtable": ([_P, _I], _P),
+                 "vqa_torch_jpeg_export": ([_P, _P, _P], _I),
+                 "vqa_torch_jpeg_free": ([_P], None),
+                 "vqa_torch_png_unfilter": ([_C, size, _I, size, _I, _P],
+                                            _I)})
     raise ValueError(f"unknown host library {name!r}")
 
 
 _locks: Dict[str, threading.Lock] = {
-    name: threading.Lock() for name in ("image", "serve", "nvjpeg")}
+    name: threading.Lock()
+    for name in ("image", "serve", "nvjpeg", "exact")}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -219,8 +240,8 @@ def _build(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded host library ``name`` (``image``, ``serve`` or
-    ``nvjpeg``), built on first call; raises where it cannot be built."""
+    """The loaded host library ``name`` (``image``, ``serve``, ``nvjpeg``
+    or ``exact``), built on first call; raises where it cannot be built."""
     if name not in _locks:
         raise ValueError(f"unknown host library {name!r}")
     with _locks[name]:

@@ -130,6 +130,18 @@ _SIGNATURES = {
     # int64 descriptors [n, 7] (x, out, rows, width, channels, mode, dtype
     # code), n (1 to 8), stream: the n cases in one launch
     "vqa_layout_cases": [_P, _I, _P],
+    # Kernel E: four coefficient arrays, four int16 tables, four planes
+    # (null beyond ncomp), four blocks_w, four blocks_h, ncomp, stream
+    "vqa_exact_idct": [_P] * 12 + [_I] * 9 + [_P],
+    # Kernel F: four planes, then four each of pitch, real width, real
+    # height, expansion across, down, method; ncomp, colour space, width,
+    # height, out, stream
+    "vqa_exact_color": [_P] * 4 + [_I] * 28 + [_P, _P],
+    # Kernel G: rgb, in_w, in_h, int32 taps, kx, ky, size, out, stream
+    "vqa_pil_resample": [_P, _I, _I, _P, _I, _I, _I, _P, _P],
+    # The exact decoder's device stages, E, F and G through their entries:
+    # int64 descriptor (csrc/exact_pipeline.cu), stream
+    "vqa_exact_decode": [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -2,9 +2,10 @@
 
 Port of ``predict.py``: questions are tokenized and encoded exactly as in
 training (the port's own copies of the tokenizer and the question
-encoder, :mod:`dl_vqa_tpu_torch.data.text`), images arrive as JPEG files
-or bytes (decoded to uint8 pixels by :mod:`dl_vqa_tpu_torch.data.images`:
-libjpeg where the host has it, else nvJPEG on the card) or as ``[B, H, W, 3]`` arrays
+encoder, :mod:`dl_vqa_tpu_torch.data.text`), images arrive as JPEG, PNG
+or BMP files or bytes (decoded to uint8 pixels by
+:mod:`dl_vqa_tpu_torch.data.images`' exact decoder, PIL's pixels, its last
+stages on the model's device) or as ``[B, H, W, 3]`` arrays
 (uint8 pixels, normalised on the device, or already-normalised floats),
 and answers come back as top-k ``(answer, probability)`` lists.
 
@@ -194,15 +195,15 @@ class Predictor:
         return encoded, lengths
 
     def preprocess_image(self, raw: bytes) -> np.ndarray:
-        """JPEG bytes -> uint8 ``[S, S, 3]`` (the reference resize and crop;
-        the model normalises on the device). Raises
+        """JPEG, PNG or BMP bytes -> uint8 ``[S, S, 3]`` (the reference
+        resize and crop; the model normalises on the device). Raises
         :class:`~dl_vqa_tpu_torch.data.images.UnsupportedImage` for bytes
-        that are not a JPEG."""
+        the decoder does not take."""
         return decode_image(raw, self.image_size, self.central_fraction,
                             self.decoder, device_index_of(self.device))
 
     def load_images(self, paths: Sequence[str]) -> np.ndarray:
-        """JPEG files -> uint8 ``[N, S, S, 3]``."""
+        """Image files -> uint8 ``[N, S, S, 3]``."""
         return load_image_files(paths, self.image_size,
                                 self.central_fraction, self.decoder,
                                 device_index_of(self.device))
@@ -237,7 +238,7 @@ class Predictor:
     def predict(self, images, questions: Sequence[str], top_k: int = 5
                 ) -> List[List[Tuple[str, float]]]:
         """Top-k ``(answer, probability)`` per (image, question) pair;
-        ``images`` is ``[B, H, W, 3]`` or a list of JPEG paths."""
+        ``images`` is ``[B, H, W, 3]`` or a list of image paths."""
         if len(images) and isinstance(images[0], (str, os.PathLike)):
             images = self.load_images(images)
         if len(images) != len(questions):

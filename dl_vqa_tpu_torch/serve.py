@@ -5,7 +5,7 @@ predict.Predictor`:
 
     python -m dl_vqa_tpu_torch.serve [overrides...] --port 8000
 
-    POST /v1/answer   {"image_b64": <base64 jpeg>, "question": str,
+    POST /v1/answer   {"image_b64": <base64 image>, "question": str,
                        "top_k": int=5}            -> {"answers": [[a, p]..]}
     GET  /healthz     liveness, the predictor's device type and name
     GET  /metrics     JSON counters: requests, batches, batch-size mean,
@@ -19,12 +19,13 @@ predict.Predictor`:
   ``--max-batch``, so the card sees at most log2(max_batch)+2 shapes;
   :meth:`BatchingService.warmup` pays each one's first launch and cuDNN's
   choice of algorithm before traffic does.
-* Host work (JPEG decode, resize, tokenize) happens on the handler
-  threads, off the batcher's path. Images are decoded to uint8 (libjpeg
-  where the host has it, else nvJPEG on the card:
-  :mod:`dl_vqa_tpu_torch.data.images`), go to
-  the card as uint8 and are normalised there. JPEG only: other images get
-  415, as on the native front.
+* Host work (image decode, resize, tokenize) happens on the handler
+  threads, off the batcher's path. Images are decoded to uint8 by the
+  exact decoder (:mod:`dl_vqa_tpu_torch.data.images`: PIL's pixels of a
+  JPEG, PNG or BMP, the entropy decoding on the host and its last stages
+  on the model's card, on a stream of the handler's own), go to the card
+  as uint8 and are normalised there. What the decoder does not take gets
+  415; the native front takes JPEG only, as the JAX package's does.
 
 ``--native-front`` serves through the C++ front of ``native/serve_front.cc``
 (:mod:`dl_vqa_tpu_torch.utils.native_front`). The model runs on the GPU
@@ -342,25 +343,25 @@ MAX_CALIBRATION_IMAGES = 256
 
 def _calibrate_int8(predictor, calibration_dir: Optional[str]) -> None:
     """Calibrate the int8 mode (``train.image.store_dtype=int8``) on a
-    directory of representative JPEGs before the first forward: its scales
-    are fixed at startup, not per request. JPEG only: the port decodes no
-    other format, so a directory of PNGs fails here rather than
-    calibrating on nothing."""
+    directory of representative images (``*.jpg``, ``*.jpeg``, ``*.png``,
+    ``*.bmp``, as the JAX front globs them) before the first forward: its
+    scales are fixed at startup, not per request. A directory with none
+    fails here rather than calibrating on nothing."""
     import glob
     import os
 
     if not calibration_dir:
         raise SystemExit(
             "train.image.store_dtype=int8 needs static activation scales: "
-            "pass --int8-calibration-dir <dir of representative JPEG "
+            "pass --int8-calibration-dir <dir of representative "
             "images> (or set image.quant_scales programmatically)")
     paths = sorted(
         p for p in glob.glob(os.path.join(calibration_dir, "*"))
-        if p.lower().endswith((".jpg", ".jpeg")))
+        if p.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")))
     if not paths:
         raise SystemExit(
-            f"--int8-calibration-dir {calibration_dir!r} contains no JPEG "
-            "images (*.jpg, *.jpeg); dl_vqa_tpu_torch decodes JPEG only")
+            f"--int8-calibration-dir {calibration_dir!r} contains no "
+            "images (*.jpg, *.jpeg, *.png, *.bmp)")
     if len(paths) > MAX_CALIBRATION_IMAGES:
         # An even spread over the sorted directory, not its first files.
         import numpy as np
@@ -453,7 +454,8 @@ def main(argv=None) -> int:
                         help="native front only: the widest top-k it "
                              "returns (requests asking for more get 400)")
     parser.add_argument("--int8-calibration-dir", default=None,
-                        help="directory of representative JPEG images to "
+                        help="directory of representative images "
+                             "(*.jpg, *.jpeg, *.png, *.bmp) to "
                              "calibrate the int8 mode on (required when "
                              "train.image.store_dtype=int8 without preset "
                              "image.quant_scales)")

@@ -1,6 +1,7 @@
-"""Write the JPEG fixtures of the serving path and PIL's pixels for them.
+"""Write the image fixtures of the serving path and PIL's pixels for them.
 
     python -m dl_vqa_tpu_torch.tools.make_serving_fixtures [--out DIR]
+        [--formats]
 
 Renders four images from a seed and encodes them with PIL in the layouts
 a decoder must handle: 4:2:0, 4:2:2 and 4:4:4 chroma, greyscale,
@@ -21,9 +22,21 @@ each as its differences down and across, mod 256, which deflate packs
 into 7 to 41% of the pixels' bytes (:func:`load_expected` undoes both).
 The whole directory stays under 200 KB.
 
+In ``format_fixtures/`` beside that directory, :data:`FORMAT_LAYOUTS`
+are eight small files in the other layouts the exact decoder takes, each
+under 30 KB: a CMYK JPEG (PIL's
+Adobe marker), a JPEG with a restart interval, a progressive 4:2:0 JPEG
+of several refinement scans, an RGBA PNG, a palette PNG with ``tRNS``, an
+Adam7-interlaced 16-bit RGB PNG (written here: PIL writes no interlaced
+PNG), an 8-bit palette BMP and a 32-bit BI_BITFIELDS BMP with a V5 header
+(written here). Their PIL pixels are in ``expected_formats.npz``, in the
+same packing (:func:`load_expected` reads both). ``--formats`` writes only
+these and ``expected_formats.npz``, leaving the JPEG fixtures and
+``expected.npz`` as they are.
+
 The fixtures are committed (``dl_vqa_tpu_torch/tools/fixtures/``), so that
-a host with no PIL and no JPEG encoder (the card's) can post them and hold
-its decoder to PIL's pixels. PIL is imported inside :func:`main` only.
+a host with no PIL and no encoder (the card's) can post them and hold its
+decoders to PIL's pixels. PIL is imported inside :func:`main` only.
 """
 
 from __future__ import annotations
@@ -36,6 +49,8 @@ import numpy as np
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
+FORMAT_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "format_fixtures")
 IMAGE_SIZE = 224
 CENTRAL_FRACTION = 0.875
 
@@ -52,6 +67,24 @@ LAYOUTS = {
                               "progressive": True}),
 }
 LOAD_FIXTURE = "coco_640x480_420"  # what the closed-loop clients post
+
+# file name -> (width, height, what is rendered, how it is written: PIL's
+# save options, or "adam7_rgb16" / "bmp_bitfields32" for the writers
+# below)
+FORMAT_LAYOUTS = {
+    "cmyk_adobe.jpg": (96, 72, "shapes", {"quality": 90}),
+    "restart_422.jpg": (150, 100, "shapes",
+                        {"quality": 85, "subsampling": 1,
+                         "restart_marker_blocks": 3}),
+    "progressive_420.jpg": (203, 141, "shapes",
+                            {"quality": 80, "subsampling": 2,
+                             "progressive": True}),
+    "rgba.png": (90, 70, "shapes", {}),
+    "palette_trns.png": (101, 77, "shapes", {}),
+    "interlaced_rgb16.png": (61, 45, "shapes", "adam7_rgb16"),
+    "palette8.bmp": (117, 83, "shapes", {}),
+    "bitfields32.bmp": (70, 52, "shapes", "bmp_bitfields32"),
+}
 
 
 def render(width: int, height: int, seed: int) -> np.ndarray:
@@ -121,7 +154,9 @@ def pil_transform(path: str) -> np.ndarray:
 
 def load_expected(path: str = os.path.join(FIXTURES, "expected.npz")
                   ) -> dict:
-    """``{stem: uint8 [224, 224, 3]}``: PIL's pixels of each fixture."""
+    """``{key: uint8 [224, 224, 3]}``: PIL's pixels of each fixture (the
+    JPEG fixtures' stems in ``expected.npz``, the other layouts' file
+    names in ``expected_formats.npz``)."""
     out = {}
     with np.load(path) as deltas:
         for name in deltas.files:
@@ -141,15 +176,112 @@ def _deltas(pixels: np.ndarray) -> np.ndarray:
                    prepend=np.uint8(0))
 
 
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import zlib
+
+    return (len(body).to_bytes(4, "big") + kind + body
+            + zlib.crc32(kind + body).to_bytes(4, "big"))
+
+
+def write_adam7_png(samples: np.ndarray, depth: int) -> bytes:
+    """An Adam7-interlaced truecolour PNG (colour type 2) of ``samples``
+    ``[h, w, 3]`` at ``depth`` 8 or 16, each row's filter the one of the
+    five that its row number picks (so that all five are exercised)."""
+    import zlib
+
+    h, w, _ = samples.shape
+    bpp = 3 * depth // 8
+    data = bytearray()
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+              (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        prev = None
+        for y, row in enumerate(sub):
+            cur = np.frombuffer(row.astype(">u2" if depth == 16 else np.uint8
+                                           ).tobytes(), np.uint8).astype(int)
+            up = np.zeros_like(cur) if prev is None else prev
+            left = np.concatenate([np.zeros(bpp, int), cur[:-bpp]])
+            corner = np.concatenate([np.zeros(bpp, int), up[:-bpp]])
+            kind = y % 5
+            if kind == 4:  # Paeth
+                pa, pb = np.abs(up - corner), np.abs(left - corner)
+                pc = np.abs(left + up - 2 * corner)
+                pred = np.where((pa <= pb) & (pa <= pc), left,
+                                np.where(pb <= pc, up, corner))
+            else:
+                pred = (0, left, up, (left + up) >> 1)[kind]
+            data += bytes([kind]) + ((cur - pred) & 255).astype(
+                np.uint8).tobytes()
+            prev = cur
+    header = (w.to_bytes(4, "big") + h.to_bytes(4, "big")
+              + bytes([depth, 2, 0, 0, 1]))
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(bytes(data), 9))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_bitfields_bmp(pixels: np.ndarray) -> bytes:
+    """A 32-bit BI_BITFIELDS BMP with a BITMAPV5HEADER of RGBA ``pixels``
+    ``[h, w, 4]``, top-down, its masks R 0xFF, G 0xFF00, B 0xFF0000, A
+    0xFF000000 (PIL's raw mode "RGBA")."""
+    import struct
+
+    h, w, _ = pixels.shape
+    data = pixels.astype(np.uint8).tobytes()
+    info = struct.pack("<IiiHHIIiiII", 124, w, -h, 1, 32, 3, len(data),
+                       2835, 2835, 0, 0)
+    info += struct.pack("<IIII", 0xFF, 0xFF00, 0xFF0000, 0xFF000000)
+    info += bytes(124 - len(info))
+    head = b"BM" + struct.pack("<IHHI", 14 + len(info) + len(data), 0, 0,
+                               14 + len(info))
+    return head + info + data
+
+
+def _format_fixture(name: str, pixels: np.ndarray, how, path: str) -> None:
+    from PIL import Image
+
+    if how == "adam7_rgb16":
+        wide = pixels.astype(np.uint16) * 257 + np.arange(
+            pixels.size, dtype=np.uint16).reshape(pixels.shape) % 251
+        with open(path, "wb") as fd:
+            fd.write(write_adam7_png(wide, 16))
+        return
+    if how == "bmp_bitfields32":
+        alpha = np.linspace(0, 255, pixels.shape[1], dtype=np.uint8)
+        rgba = np.concatenate([pixels, np.broadcast_to(
+            alpha[None, :, None], pixels.shape[:2] + (1,))], axis=2)
+        with open(path, "wb") as fd:
+            fd.write(write_bitfields_bmp(rgba))
+        return
+    img = Image.fromarray(pixels)
+    if name.startswith("cmyk"):
+        img = img.convert("CMYK")
+    elif name == "rgba.png":
+        img = img.convert("RGBA")
+        img.putalpha(Image.fromarray(pixels[..., 0]))
+    elif name.startswith("palette"):
+        img = img.quantize(64 if name.endswith(".png") else 200)
+        if name.endswith(".png"):
+            how = dict(how, transparency=bytes(range(0, 256, 4)))
+    img.save(path, **how)
+
+
 def main(argv=None) -> int:
     from PIL import Image
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=FIXTURES)
+    parser.add_argument("--formats-out", default=FORMAT_FIXTURES)
+    parser.add_argument("--formats", action="store_true",
+                        help="write only the other layouts' fixtures and "
+                             "expected_formats.npz")
     args = parser.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     expected = {}
     for seed, (name, (w, h, kind, options)) in enumerate(LAYOUTS.items()):
+        if args.formats:
+            break
         pixels = (render_photo if kind == "photo" else render)(w, h, seed)
         img = Image.fromarray(pixels)
         if kind == "grey":
@@ -159,9 +291,26 @@ def main(argv=None) -> int:
         expected[name] = pil_transform(path)
         print(f"{path}: {w}x{h} {kind} {options} "
               f"{os.path.getsize(path)} bytes")
-    np.savez_compressed(os.path.join(args.out, "expected.npz"),
+    if not args.formats:
+        np.savez_compressed(os.path.join(args.out, "expected.npz"),
+                            **{name: _deltas(pixels)
+                               for name, pixels in expected.items()})
+    formats = {}
+    os.makedirs(args.formats_out, exist_ok=True)
+    for seed, (name, (w, h, kind, how)) in enumerate(FORMAT_LAYOUTS.items(),
+                                                     start=len(LAYOUTS)):
+        pixels = (render_photo if kind == "photo" else render)(w, h, seed)
+        path = os.path.join(args.formats_out, name)
+        _format_fixture(name, pixels, how, path)
+        formats[name] = pil_transform(path)
+        size = os.path.getsize(path)
+        if size >= 30 << 10:
+            raise SystemExit(f"{path}: {size} bytes, over 30 KB")
+        print(f"{path}: {w}x{h} {kind} {how} {size} bytes")
+    np.savez_compressed(os.path.join(args.formats_out,
+                                     "expected_formats.npz"),
                         **{name: _deltas(pixels)
-                           for name, pixels in expected.items()})
+                           for name, pixels in formats.items()})
     return 0
 
 

@@ -147,21 +147,28 @@ def test_evaluate_scores_the_serving_modes_as_the_jax_package(f8_trained,
      r"mesh 0x2x1x1x1 \(data x seq x expert x model x stage\) needs 2 "
      "devices, have 1"),
     ("tpu.pipeline_microbatches=4", None, '"pipeline_microbatches": 4'),
+    ("tpu.image_builder_backend=pil "
+     "main.small.train_paths.processed_imgs={tmp}/train_pil.h5", None,
+     "(exact, "),
 ], ids=["tpu.checkpoint_backend=orbax-Orbax", "tpu.mesh.model=2-item 9",
         "tpu.mesh.data=4-item 9", "tpu.zero_stage=1-item 9",
         "tpu.mesh.stage=2-item 9", "tpu.mesh.expert=2-item 9",
-        "tpu.mesh.seq=2-item 9", "tpu.pipeline_microbatches=4-item 9"])
+        "tpu.mesh.seq=2-item 9", "tpu.pipeline_microbatches=4-item 9",
+        "tpu.image_builder_backend=pil-queue 3"])
 def test_settings_the_port_lacks_raise_with_their_roadmap_item(
         profile, tmp_path, override, error, what):
     """The settings still missing raise with their ROADMAP item (the Orbax
-    backend). Every mesh axis is ported: in one process
+    backend). The builder's ``backend="pil"`` (queue 3 until the exact
+    decoder) builds a missing store with the exact decoder. Every mesh
+    axis is ported: in one process
     ``tpu.mesh.data=4``, ``tpu.mesh.model=2``, ``tpu.mesh.stage=2``,
     ``tpu.mesh.expert=2`` and ``tpu.mesh.seq=2`` (with a ViT-MoE too)
     raise the mesh's oversubscription error, as JAX's ``make_mesh`` does;
     a ZeRO stage runs with its no-op logged (one 'data' shard), and
     ``tpu.pipeline_microbatches`` at 'stage' 1 is ignored, as JAX ignores
     it: the run trains."""
-    overrides = _overrides(profile, tmp_path) + override.split()
+    overrides = (_overrides(profile, tmp_path)
+                 + override.format(tmp=tmp_path).split())
     if error is None:
         port_main.main(port_config.compose(
             "config", overrides + ["train.num_epochs=1"]), device="cpu")

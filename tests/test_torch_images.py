@@ -1,7 +1,8 @@
 """The port's image store builder and batch decode
 (``dl_vqa_tpu_torch.data.images``) against the JAX package's, on the CPU:
 ``preprocess_images`` against the JAX builder's native (libjpeg) and PIL
-backends, each package reading the other's store, the ``.npy`` store where
+backends (the latter to the bit through the exact decoder), each package
+reading the other's store, the ``.npy`` store where
 h5py is missing, ``decode_image_files`` on threads, CMYK JPEGs against
 PIL's conversion, and the files it refuses."""
 
@@ -145,20 +146,36 @@ def test_without_h5py_the_npy_store_is_written_and_reads_back(
         want_features[ds.h5_rows])
 
 
-def test_the_pil_backend_and_a_missing_libjpeg_raise(corpus, tmp_path,
-                                                     monkeypatch):
+def test_the_pil_backend_and_a_missing_libjpeg_raise(corpus, stores,
+                                                     tmp_path, monkeypatch):
+    """``backend="pil"`` builds with the exact decoder: the JAX builder's
+    PIL store to the bit. An unknown backend raises; on a host with no
+    libjpeg, ``"native"`` raises naming it and ``"auto"`` builds with the
+    exact decoder, the same store."""
     from dl_vqa_tpu_torch.ops import _host
 
-    path = str(tmp_path / "store.h5")
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        _build(port_images, corpus, path, backend="pil")
+    path = str(tmp_path / "pil.h5")
+    n, lines = _build(port_images, corpus, path, backend="pil",
+                      batch_size=3, num_threads=2, device="cpu")
+    assert n == stores["n"] and "(exact, 2 threads)" in lines[0]
+    want_features, want_ids = _read_h5(stores["jax_pil"])
+    features, ids = _read_h5(path)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(features, want_features)
     with pytest.raises(ValueError, match="unknown builder backend"):
-        _build(port_images, corpus, path, backend="turbo")
+        _build(port_images, corpus, str(tmp_path / "x.h5"), backend="turbo")
     monkeypatch.setattr(_host, "missing",
                         lambda name: "jpeglib.h not found: test")
+    monkeypatch.setattr(port_images, "_libjpeg_buildable", lambda: False)
+    native = str(tmp_path / "native.h5")
     with pytest.raises(RuntimeError, match="jpeglib.h"):
-        _build(port_images, corpus, path, backend="native")
-    assert not os.path.exists(path)
+        _build(port_images, corpus, native, backend="native")
+    assert not os.path.exists(native)
+    auto = str(tmp_path / "auto.h5")
+    _, lines = _build(port_images, corpus, auto, backend="auto",
+                      device="cpu")
+    assert "(exact," in lines[0]
+    np.testing.assert_array_equal(_read_h5(auto)[0], want_features)
 
 
 def test_a_failed_build_names_the_file_and_leaves_no_store(corpus,

@@ -3,7 +3,8 @@
 The thirteen behaviours of ``tests/test_native_serve.py`` on
 ``dl_vqa_tpu_torch/utils/native_front.py`` (``native/serve_front.cc``,
 built by the port), with the answers held to the port's Python front
-(``Predictor``: the same libjpeg pixels, the same tokenizer), plus the
+(``Predictor``'s forward on the port's libjpeg decoder's pixels, the same
+tokenizer), plus the
 order of tied probabilities. Every client call has a timeout; the shared
 front is stopped at teardown.
 """
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from dl_vqa_tpu_torch.data.images import decode_image
 from tests.test_torch_serve import _corpus
 
 
@@ -68,16 +70,18 @@ def test_healthz_reports_native_front(stack):
 
 
 def test_answer_matches_the_python_front(stack):
-    """JSON -> base64 -> C++ decode (libjpeg, the Python front's pixels to
-    the bit) -> C++ tokenizer -> the uint8 forward -> top-k: the Python
-    front's ranking and probabilities."""
+    """JSON -> base64 -> C++ decode (libjpeg, the port's libjpeg decoder's
+    pixels to the bit) -> C++ tokenizer -> the uint8 forward -> top-k: the
+    ranking and probabilities of the Python front's forward on those
+    pixels."""
     base, image_b64, _, predictor, jpeg = stack
     for question in ("what color is it?", "how many cats are there"):
         status, payload = _post(base, "/v1/answer", {
             "image_b64": image_b64, "question": question, "top_k": 5})
         assert status == 200, payload
         with open(jpeg, "rb") as fd:
-            image = predictor.preprocess_image(fd.read())
+            image = decode_image(fd.read(), predictor.image_size,
+                                 predictor.central_fraction, "libjpeg")
         encoded, lengths = predictor.encode_questions([question])
         probs = predictor.forward_probs(image[None], encoded, lengths)
         want = predictor.top_k_from_probs(probs[0], 5)

@@ -1,7 +1,8 @@
 """The port's online JPEG pipeline (``dl_vqa_tpu_torch.data.online``) and
 the loop's ``profile_dir`` and ``debug_nans`` against the JAX package, on
-the CPU at 64 px: the loader against ``NativeJpegLoader`` and the PIL
-``JpegLoader``, ``OnlineBatcher`` against the JAX one, eval online against
+the CPU at 64 px: the loader (the exact decoder) against the PIL
+``JpegLoader`` and, with libjpeg, ``NativeJpegLoader``, ``OnlineBatcher``
+against the JAX one, eval online against
 eval from the store and against the JAX package's online eval, the entry
 points with ``tpu.online_images`` and ``tpu.native_loader`` against the
 JAX entry points, a missing store built from the JPEGs, the epoch-1 trace,
@@ -93,20 +94,26 @@ def _jax_eval(overrides):
 
 
 def test_loader_equals_the_native_loader_and_is_a_level_from_pil(corpus):
+    """The default loader (the exact decoder) gives the JAX PIL loader's
+    pixels to the bit; with ``decoder="libjpeg"`` (``tpu.native_loader``)
+    the JAX native loader's, a level from PIL's."""
     image_dir = _image_dir(corpus)
     ids = np.array([1003, 1000, 1005, 1000, 1001, 1004, 1002, 1003])
     loader = JpegLoader(image_dir, SIZE, FRACTION, num_threads=1,
                         device="cpu")
-    assert loader.decoder == "libjpeg"
+    assert loader.decoder == "exact"
     got = loader.load_batch(ids)
     assert got.dtype == np.uint8 and got.shape == (len(ids), SIZE, SIZE, 3)
-    np.testing.assert_array_equal(
-        got, NativeJpegLoader(image_dir, SIZE, FRACTION).load_batch(ids))
+    pil = JaxJpegLoader(image_dir, SIZE, FRACTION).load_batch(ids)
+    np.testing.assert_array_equal(got, pil)
     np.testing.assert_array_equal(
         JpegLoader(image_dir, SIZE, FRACTION, num_threads=4,
-                   decoder="libjpeg").load_batch(ids), got)
-    pil = JaxJpegLoader(image_dir, SIZE, FRACTION).load_batch(ids)
-    assert np.abs(got.astype(int) - pil).max() <= 1
+                   device="cpu").load_batch(ids), got)
+    native = JpegLoader(image_dir, SIZE, FRACTION, num_threads=4,
+                        decoder="libjpeg").load_batch(ids)
+    np.testing.assert_array_equal(
+        native, NativeJpegLoader(image_dir, SIZE, FRACTION).load_batch(ids))
+    assert np.abs(native.astype(int) - pil).max() <= 1
     with pytest.raises(KeyError, match="image id 77"):
         loader.load_batch(np.array([77]))
 
@@ -117,9 +124,9 @@ def test_loader_equals_the_native_loader_and_is_a_level_from_pil(corpus):
 def test_online_batches_equal_the_jax_online_batcher(corpus, split,
                                                      shuffle):
     """Two epochs of 5-sample batches (the last padded): every array
-    equal to the JAX OnlineBatcher's, the images those of its native
-    loader to the bit and of its PIL loader within a level; no sample
-    indices and no image rows."""
+    equal to the JAX OnlineBatcher's, the images those of its PIL loader
+    to the bit and of its native loader within a level; no sample indices
+    and no image rows."""
     image_dir = _image_dir(corpus, split)
     kw = dict(data_paths=corpus[split], other_paths=corpus["paths"],
               answerable_only=shuffle, require_image_cache=False)
@@ -136,8 +143,8 @@ def test_online_batches_equal_the_jax_online_batcher(corpus, split,
     for epoch in (0, 1):
         batches = list(port.iter_epoch(epoch))
         assert len(batches) == len(port)
-        for got, want, near in zip(batches, native.iter_epoch(epoch),
-                                   pil.iter_epoch(epoch)):
+        for got, want, near in zip(batches, pil.iter_epoch(epoch),
+                                   native.iter_epoch(epoch)):
             assert sorted(got) == sorted(want)
             assert "indices" not in got and "image_rows" not in got
             for key, value in want.items():
@@ -165,8 +172,10 @@ def test_a_dataset_without_the_store_has_no_rows(corpus, tmp_path):
 
 def test_online_eval_equals_store_eval_and_the_jax_online_eval(corpus):
     """One model, f32: the eval pass on decoded JPEGs and on the fp16
-    store, and the JAX package's on its native loader's JPEGs: the same
-    score (1e-6) and losses within the store's fp16 rounding (1e-3)."""
+    store, and the JAX package's on its online loader's JPEGs (PIL's
+    pixels, as the port's exact decoder gives them): the same score (1e-6)
+    and losses within the store's fp16 rounding (1e-3), and within 1e-5
+    of the JAX package's."""
     from dl_vqa_tpu.models import ModelConfig as JaxModelConfig
     from dl_vqa_tpu.models import vqa
     from dl_vqa_tpu.models.configs import (
@@ -201,8 +210,8 @@ def test_online_eval_equals_store_eval_and_the_jax_online_eval(corpus):
     jax_val = JaxDataset(**kw, require_image_cache=False)
     jax_score, jax_loss = jax_evaluate(
         jax_eval_step(cfg, compute_dtype=jnp.float32), params,
-        JaxOnlineBatcher(jax_val, 4, NativeJpegLoader(image_dir, SIZE,
-                                                      FRACTION)))
+        JaxOnlineBatcher(jax_val, 4, JaxJpegLoader(image_dir, SIZE,
+                                                   FRACTION)))
     assert score_on == pytest.approx(score_off, abs=1e-6)
     assert loss_on == pytest.approx(loss_off, abs=1e-3)
     assert score_on == pytest.approx(jax_score, abs=1e-6)
@@ -240,7 +249,7 @@ def test_online_main_builds_no_store_and_traces_epoch_one(online_run):
     with open(log) as fd:
         text = fd.read()
     assert f"Profiler trace written to {tmp / 'trace'}" in text
-    assert "by libjpeg on 3 threads" in text
+    assert "by exact on 3 threads" in text
 
 
 def test_one_epoch_writes_no_trace(corpus, tmp_path):

@@ -155,11 +155,12 @@ def test_concurrent_requests_coalesce(server):
 
 
 def test_bad_request_unknown_route_and_png(server):
-    """400 without an image, 404 off the route, 415 for a PNG (the port
-    decodes JPEG only)."""
+    """400 without an image, 404 off the route; a PNG is answered (the
+    exact decoder reads it as PIL does, the Predictor's pixels), a GIF
+    gets 415 naming its format."""
     from PIL import Image
 
-    base, _, _, _, _ = server
+    base, _, service, _, _ = server
     status, payload = _post(base, "/v1/answer", {"question": "no image?"})
     assert status == 400 and "error" in payload
     status, _ = _post(base, "/nope", {})
@@ -168,8 +169,20 @@ def test_bad_request_unknown_route_and_png(server):
     Image.new("RGB", (40, 30), (200, 10, 10)).save(buf, "PNG")
     status, payload = _post(base, "/v1/answer", {
         "image_b64": base64.b64encode(buf.getvalue()).decode(),
+        "question": "what color?", "top_k": 3})
+    assert status == 200, payload
+    predictor = service.predictor
+    encoded, lengths = predictor.encode_questions(["what color?"])
+    probs = predictor.forward_probs(
+        predictor.preprocess_image(buf.getvalue())[None], encoded, lengths)
+    want = predictor.top_k_from_probs(probs[0], 3)
+    assert [a for a, _ in payload["answers"]] == [a for a, _ in want]
+    buf = io.BytesIO()
+    Image.new("RGB", (40, 30), (200, 10, 10)).save(buf, "GIF")
+    status, payload = _post(base, "/v1/answer", {
+        "image_b64": base64.b64encode(buf.getvalue()).decode(),
         "question": "what color?"})
-    assert status == 415 and "JPEG only" in payload["error"]
+    assert status == 415 and "a GIF" in payload["error"]
 
 
 def test_bucket_clamps_to_max_batch_and_stop_terminates():
@@ -275,9 +288,9 @@ def test_warmup_runs_every_bucket():
 
 def test_int8_mode_requires_and_uses_calibration(tmp_path_factory):
     """train.image.store_dtype=int8: build_server refuses to start without
-    --int8-calibration-dir, and refuses a directory with no JPEG (PNGs
-    it cannot decode) by name; with the corpus's JPEGs it calibrates at
-    startup and serves answers."""
+    --int8-calibration-dir, and refuses a directory with no JPEG, PNG or
+    BMP (a GIF) by name; with the corpus's JPEGs it calibrates at startup
+    and serves answers."""
     from PIL import Image
 
     from dl_vqa_tpu_torch import config as config_mod
@@ -288,12 +301,12 @@ def test_int8_mode_requires_and_uses_calibration(tmp_path_factory):
     cfg = config_mod.compose("config_eval", overrides=overrides)
     with pytest.raises(SystemExit, match="int8-calibration-dir"):
         serve.build_server(cfg, port=0, device="cpu")
-    pngs = root / "pngs"
-    pngs.mkdir()
-    Image.new("RGB", (32, 32)).save(pngs / "a.png")
-    with pytest.raises(SystemExit, match="JPEG only"):
+    gifs = root / "gifs"
+    gifs.mkdir()
+    Image.new("RGB", (32, 32)).save(gifs / "a.gif")
+    with pytest.raises(SystemExit, match=r"no images \(\*\.jpg"):
         serve.build_server(cfg, port=0, device="cpu",
-                           int8_calibration_dir=str(pngs))
+                           int8_calibration_dir=str(gifs))
 
     httpd, service = serve.build_server(
         cfg, port=0, max_batch=4, batch_window_ms=10.0, device="cpu",
@@ -375,15 +388,23 @@ def test_expected_npz_is_pils_transform_of_the_fixtures():
 
 
 def test_decoder_for_prefers_libjpeg_where_the_host_has_it(monkeypatch):
-    """libjpeg wherever the host builds it (the native front's decoder, the
-    closer to PIL); nvJPEG only for a CUDA device on a host without it."""
+    """Every device serves with the exact decoder (PIL's pixels, the JAX
+    package's default path); the builder's ``backend="auto"`` prefers
+    libjpeg where the host builds it and has more than one core, as the
+    JAX builder prefers its native library, else the exact decoder, which
+    ``"pil"`` always takes."""
     from dl_vqa_tpu_torch.data import images
 
     assert images.decoder_for("cuda") == images.decoder_for("cpu") \
-        == "libjpeg"
+        == "exact"
+    assert images.builder_decoder("auto") == "libjpeg"
+    assert images.builder_decoder("native") == "libjpeg"
+    assert images.builder_decoder("pil") == "exact"
     monkeypatch.setattr(images, "_libjpeg_buildable", lambda: False)
-    assert images.decoder_for("cuda:0") == "nvjpeg"
-    assert images.decoder_for("cpu") == "libjpeg"
+    assert images.builder_decoder("auto") == "exact"
+    monkeypatch.setattr(images.os, "cpu_count", lambda: 1)
+    monkeypatch.setattr(images, "_libjpeg_buildable", lambda: True)
+    assert images.builder_decoder("auto") == "exact"
 
 
 def test_decoder_refuses_what_it_cannot_decode(tmp_path):
