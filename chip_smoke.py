@@ -262,25 +262,28 @@
    ``{"pipeline_parallel": ...}``;
 22. exact_decode (last): the exact decoder (``data/images.py``,
    ``"exact"``, every device's decoder: PIL's pixels to the bit for
-   JPEG, PNG and BMP). Kernels E, F and G (``csrc/exact_idct.cu``,
-   ``exact_color.cu``, ``pil_resample.cu``) on every committed fixture
-   (the four JPEGs of ``expected.npz`` and the eight files of
-   ``format_fixtures/``) against their plain versions on the card's
-   tensors to the bit; ``decode_image(..., "exact")`` of every fixture
-   at TOL["decode_exact"] (0 levels) from PIL's pixels;
+   JPEG, PNG and BMP). Kernel E (``csrc/exact_idct.cu``) and
+   ``color_resample`` (``csrc/exact_color_resample.cu``) on every
+   committed fixture (the four JPEGs of ``expected.npz`` and the eight
+   files of ``format_fixtures/``) against their plain versions on the
+   card's tensors to the bit, ``color_resample`` one by one and as one
+   mixed chunk of all twelve (the chunk equal to the one-by-one
+   results); ``decode_image(..., "exact")`` of every fixture at
+   TOL["decode_exact"] (0 levels) from PIL's pixels;
    ``preprocess_images(backend="pil")`` of COCO-named copies of the
    fixtures, every row the fp16 of PIL's normalized pixels to the bit;
    counted (path ``exact_serving``): the reference-parity Predictor
    behind the Python front answering the COCO-sized JPEG, an RGBA PNG and
-   a BI_BITFIELDS BMP one at a time with 200 (E and F once, G three
-   times), the JPEG's answers the Predictor's forward of PIL's pixels in
-   the same bucket; E, F and G timed on the 640x480 4:2:0 fixture (from a
-   CUDA graph and through their wrappers, beside their plain versions,
-   their bounds, nvJPEG's decode and ``F.interpolate(antialias=True)``);
-   the host stages' ms and each decoder's images/s at 640x480 -> 224 by
-   threads: one JSON line ``{"exact_decode": ...}``. Phases 11 and 16
-   count E, F and G on their paths too (a JPEG each a served request or
-   loader image).
+   a BI_BITFIELDS BMP one at a time with 200 (E once, ``color_resample``
+   three times), the JPEG's answers the Predictor's forward of PIL's
+   pixels in the same bucket; E timed on the 640x480 4:2:0 fixture and
+   ``color_resample`` on N = 1, 8 and 64 copies of it (from a CUDA graph
+   and through their wrappers, beside their plain versions, their bounds,
+   nvJPEG's decode and ``F.interpolate(antialias=True)``); the host
+   stages' ms and each decoder's images/s at 640x480 -> 224 by threads:
+   one JSON line ``{"exact_decode": ...}``. Phases 11 and 16 count the
+   two on their paths too (E a JPEG; ``color_resample`` a served request,
+   a chunk of the loader's images).
 
 Every path (CNN serving, CNN training, ViT serving, ViT training, then CNN
 and ViT serving, CNN and ViT evaluation and CNN training with the flip on,
@@ -1973,10 +1976,10 @@ def kernel_wrappers() -> dict:
                for name in EXACT_KERNELS}}
 
 
-# The exact decoder's kernels, launched once each for a JPEG decoded (kernel
-# G alone for a PNG or BMP), all three by one C entry
-# (ops/exact_decode.py::exact_decode_cuda), which counts them by name.
-EXACT_KERNELS = ("exact_idct", "exact_color", "pil_resample")
+# The exact decoder's kernels, E once a JPEG and color_resample once a call
+# (an image of the front's, a chunk of a list of files), both by one C
+# entry (ops/exact_decode.py::exact_decode_cuda), which counts them by name.
+EXACT_KERNELS = ("exact_idct", "color_resample")
 
 
 class PipelineCount:
@@ -1996,11 +1999,20 @@ class PipelineCount:
         self._counts[self._name] = value
 
 
-def exact_grids(jpegs: int, others: int = 0) -> dict:
+def exact_grids(jpegs: int, others: int = 0, calls: int = None) -> dict:
     """The exact decoder's grids for ``jpegs`` JPEG and ``others`` PNG or
-    BMP images decoded."""
-    return {"exact_idct": jpegs, "exact_color": jpegs,
-            "pil_resample": jpegs + others}
+    BMP images decoded in ``calls`` device calls (default: one an
+    image)."""
+    return {"exact_idct": jpegs,
+            "color_resample": jpegs + others if calls is None else calls}
+
+
+def exact_chunks(loads) -> int:
+    """The device calls of the exact decoder's list decodes of ``loads``
+    images each: a chunk of up to ``EXACT_CHUNK``."""
+    from dl_vqa_tpu_torch.data.images import EXACT_CHUNK
+
+    return sum(-(-n // EXACT_CHUNK) for n in loads)
 
 
 # Kernels that count the grids of their fast path beside all their grids:
@@ -3636,8 +3648,9 @@ def online_phase(torch, seed: int, prof: dict, e2e: dict) -> tuple:
         "relu_maxpool": 3 * (steps + evals),
         "relu_maxpool_backward": 6 * steps,
         "attention_pool": steps + evals,
-        # The loader's images (every fixture a JPEG), by the exact decoder.
-        **exact_grids(sum(decoded)),
+        # The loader's images (every fixture a JPEG), by the exact decoder
+        # in chunks.
+        **exact_grids(sum(decoded), calls=exact_chunks(decoded)),
     }
     require(launches == {**dict.fromkeys(wrappers, 0), **expected},
             f"kernel launches on the online_e2e path: {launches}, expected "
@@ -7386,12 +7399,16 @@ def exact_stages(torch, raw: bytes, what: str, device):
 
 
 def exact_kernel_checks(torch, fixtures: dict, device) -> dict:
-    """Kernels E, F and G on every fixture against their plain versions on
-    the same card tensors, to the bit, and G's output against PIL's
-    pixels; the largest difference of each."""
+    """Kernel E on every fixture against its plain version on the same card
+    tensors, to the bit; ``color_resample`` on each fixture alone and on
+    all twelve as one mixed chunk (the JPEG layouts, PNGs and BMPs)
+    against its plain composition on the same inputs, to the bit, the
+    chunk equal to the one-by-one results; each output against PIL's
+    pixels. The largest difference of each kernel."""
     from dl_vqa_tpu_torch.ops import exact_decode as X
 
     worst = dict.fromkeys(EXACT_KERNELS, 0.0)
+    images, plans, alone = [], [], []
     for name, (raw, want) in fixtures.items():
         data, coefs, tables, rgb = exact_stages(torch, raw, name, device)
         if data is not None:
@@ -7400,150 +7417,178 @@ def exact_kernel_checks(torch, fixtures: dict, device) -> dict:
                      for c, q in zip(coefs, tables)]
             worst["exact_idct"] = max(worst["exact_idct"], max(
                 max_err(a, b) for a, b in zip(planes, plain)))
-            rgb = X.exact_color_cuda(planes, data.components,
-                                     data.color_space, data.width,
-                                     data.height)
-            worst["exact_color"] = max(
-                worst["exact_color"], max_err(rgb, X.upsample_color_reference(
-                    plain, data.components, data.color_space, data.width,
-                    data.height)))
-        plan = X.resample_plan(rgb.shape[1], rgb.shape[0], 224, 0.875)
-        out = X.pil_resample_cuda(rgb, plan)
-        worst["pil_resample"] = max(worst["pil_resample"], max_err(
-            out, X.pil_resample_reference(rgb, plan)))
+            image = X.Planes(planes, data.components, data.color_space,
+                             data.width, data.height)
+            width, height = data.width, data.height
+        else:
+            image = rgb
+            height, width = rgb.shape[:2]
+        plan = X.resample_plan(width, height, 224, 0.875)
+        out = X.color_resample_cuda(X.color_resample_batch([image], [plan]))
+        worst["color_resample"] = max(worst["color_resample"], max_err(
+            out, X.color_resample_reference([image], [plan])))
         torch.cuda.synchronize()
-        levels = int(np.abs(out.cpu().numpy().astype(np.int32)
+        levels = int(np.abs(out[0].cpu().numpy().astype(np.int32)
                             - want).max())
         require(levels <= TOL["decode_exact"],
-                f"kernels E, F, G on {name}: {levels} levels from PIL")
+                f"kernels E, color_resample on {name}: {levels} levels from "
+                "PIL")
+        images.append(image)
+        plans.append(plan)
+        alone.append(out[0])
+    chunk = X.color_resample_cuda(X.color_resample_batch(images, plans))
+    worst["color_resample"] = max(worst["color_resample"], max_err(
+        chunk, X.color_resample_reference(images, plans)))
+    require(torch.equal(chunk, torch.stack(alone)),
+            "color_resample's chunk of the fixtures against its one-by-one "
+            "results")
     require(max(worst.values()) == 0.0,
-            f"kernels E, F, G against their plain versions: {worst}")
+            f"kernels E, color_resample against their plain versions: "
+            f"{worst}")
     return worst
 
 
+EXACT_TIMING_BATCHES = (1, 8, 64)  # copies of the COCO fixture a launch
+
+
 def exact_timings(torch, raw: bytes, device, worst: dict) -> dict:
-    """Kernels E, F and G alone on ``raw`` (the COCO-sized 640x480 4:2:0
-    fixture): each one's launches replayed from a CUDA graph (``ms``: the
-    kernel's own time; a call through the wrapper costs more host time
-    than the kernel takes), and each call through its wrapper timed in
-    turns with its plain version on the card (CUDA events); its bound
-    (inputs read once and outputs written once at the memory rate, or its
-    integer operations at the 32-bit scalar rate) and its yardstick:
-    none for F; nvJPEG's whole decode of the file for E (``nvjpeg_ms``,
-    another function) and for G ``F.interpolate(..., "bilinear",
-    antialias=True)`` of the image to the resize's size, then the crop
-    (float, not Pillow's bits), from a CUDA graph, as ``library_ms``."""
+    """Kernel E alone on ``raw`` (the COCO-sized 640x480 4:2:0 fixture),
+    and ``color_resample`` on N = 1, 8 and 64 copies of its planes (each
+    copy its own tensors): each one's launches replayed from a CUDA graph
+    (``ms``: the kernel's own time; a call through the wrapper costs more
+    host time than the kernel takes), each call through its wrapper (for
+    ``color_resample`` the batch made ready too) and its plain version on
+    the card (CUDA events); its bound (the function's bytes, each input
+    read once and each output written once, at the memory rate, or its
+    integer operations at the 32-bit scalar rate, at each N) and its
+    yardstick: nvJPEG's whole decode of the file for E (``nvjpeg_ms``,
+    another function) and for ``color_resample`` ``F.interpolate(...,
+    "bilinear", antialias=True)`` of the N RGB images to the resize's size,
+    then the crop (float, no colour conversion, not Pillow's bits), from a
+    CUDA graph, as ``library_ms``. The kernels line takes N = 64, the
+    loader's chunk (``EXACT_CHUNK``)."""
     import torch.nn.functional as F
 
     from dl_vqa_tpu_torch.data.images import decode_image
     from dl_vqa_tpu_torch.ops import exact_decode as X
+    from dl_vqa_tpu_torch.tools._compare import color_resample_work
 
     data, coefs, tables, _ = exact_stages(torch, raw, "the COCO fixture",
                                           device)
     planes = X.exact_idct_cuda(coefs, tables)
-    rgb = X.exact_color_cuda(planes, data.components, data.color_space,
-                             data.width, data.height)
     plan = X.resample_plan(data.width, data.height, 224, 0.875)
-    taps = torch.tensor(plan.taps, device=device)
-    out = X.pil_resample_cuda(rgb, plan)
-    args = (data.components, data.color_space, data.width, data.height)
+    image = X.Planes(planes, data.components, data.color_space, data.width,
+                     data.height)
+    rgb = X.upsample_color_reference(*image)
     target = int(224 / 0.875)
     new_w = int(target * data.width / data.height)
     left = int(round((new_w - 224) / 2.0))
-    image = rgb.permute(2, 0, 1)[None].float()
-
-    def interpolate():
-        F.interpolate(image, size=(target, new_w), mode="bilinear",
-                      antialias=True)[..., :224, left:left + 224]
-
     # Integer operations of each kernel's arithmetic, against the card's
     # 32-bit scalar rate (the f32 entry of PEAK_OPS_PER_S): E's sixteen
     # one-dimensional passes of 61 a block and 4 a sample for the
-    # dequantization and the clamp; F's 40 a pixel (two upsampled chroma
-    # samples and the colour conversion); G's as the function needs them,
-    # 3 channels each: the horizontal pass once for each input row the
-    # vertical taps read (a multiply-add a tap, then the rounding and clip
-    # of each output column), then the vertical pass (a multiply-add a tap
-    # and the rounding and clip of each output pixel). G's bytes: the
-    # input rectangle its taps span (the rows and columns the crop reads),
-    # its taps and its output.
+    # dequantization and the clamp; color_resample's bytes and operations
+    # as tools/_compare.py::color_resample_work counts them.
     blocks = sum(c.shape[0] * c.shape[1] for c in coefs)
-    xt = plan.taps[:plan.size * (2 + plan.kx)].reshape(plan.size, -1)
-    yt = plan.taps[plan.size * (2 + plan.kx):].reshape(plan.size, -1)
-
-    def span(t):
-        return int((t[:, 0] + t[:, 1]).max() - t[:, 0].min())
-
-    resample_ops = 3 * (span(yt) * (2 * int(xt[:, 1].sum()) + 3 * plan.size)
-                        + plan.size * (2 * int(yt[:, 1].sum())
-                                       + 3 * plan.size))
-    resample_read = span(yt) * span(xt) * 3
-    cases = {
-        "exact_idct": (lambda: X.exact_idct_cuda(coefs, tables),
-                       lambda: [X.idct_islow_reference(c, q)
-                                for c, q in zip(coefs, tables)],
-                       nbytes(*coefs, *tables) + nbytes(*planes),
-                       blocks * (16 * 61 + 64 * 4)),
-        "exact_color": (lambda: X.exact_color_cuda(planes, *args),
-                        lambda: X.upsample_color_reference(planes, *args),
-                        nbytes(*planes) + nbytes(rgb),
-                        40 * data.width * data.height),
-        "pil_resample": (lambda: X.pil_resample_cuda(rgb, plan, taps),
-                         lambda: X.pil_resample_reference(rgb, plan),
-                         resample_read + nbytes(taps, out), resample_ops),
-    }
+    moved, ops = color_resample_work(plan, data.components)
     out_summary = {}
-    for name, (kernel, plain, moved, ops) in cases.items():
-        wrapper_ms, plain_ms = timed_pair(torch, plain, kernel,
-                                          EXACT_TIMING_ITERS)
-        out_summary[name] = {"max_abs_err": worst[name],
-                             "ms": graph_ms(torch, kernel, EXACT_TIMING_ITERS),
-                             "wrapper_ms": wrapper_ms,
-                             "plain_ms": plain_ms, "library_ms": None,
-                             "shape": f"{data.width}x{data.height} 4:2:0",
-                             "bytes": moved, "operations": ops,
-                             **bound(moved, ops, "f32")}
-    out_summary["pil_resample"]["library_ms"] = graph_ms(
-        torch, interpolate, EXACT_TIMING_ITERS)
+    wrapper_ms, plain_ms = timed_pair(
+        torch, lambda: [X.idct_islow_reference(c, q)
+                        for c, q in zip(coefs, tables)],
+        lambda: X.exact_idct_cuda(coefs, tables), EXACT_TIMING_ITERS)
+    idct_bytes = nbytes(*coefs, *tables) + nbytes(*planes)
+    out_summary["exact_idct"] = {
+        "max_abs_err": worst["exact_idct"],
+        "ms": graph_ms(torch, lambda: X.exact_idct_cuda(coefs, tables),
+                       EXACT_TIMING_ITERS),
+        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": None,
+        "shape": f"{data.width}x{data.height} 4:2:0", "bytes": idct_bytes,
+        "operations": blocks * (16 * 61 + 64 * 4),
+        **bound(idct_bytes, blocks * (16 * 61 + 64 * 4), "f32")}
+    by_n = {}
+    for n in EXACT_TIMING_BATCHES:
+        copies = [X.Planes([p.clone() for p in planes], *image[1:])
+                  for _ in range(n)]
+        batch = X.color_resample_batch(copies, [plan] * n)
+        ms = graph_ms(torch, lambda: X.color_resample_cuda(batch),
+                      EXACT_TIMING_ITERS)
+        wrapper_ms = timed(torch, lambda: X.color_resample_cuda(
+            X.color_resample_batch(copies, [plan] * n)), 20)
+        plain_ms = timed(torch, lambda: X.color_resample_reference(
+            copies, [plan] * n), max(2, 16 // n), warmup=1)
+        rgbs = torch.stack([rgb] * n).permute(0, 3, 1, 2).float()
+
+        def interpolate():
+            F.interpolate(rgbs, size=(target, new_w), mode="bilinear",
+                          antialias=True)[..., :224, left:left + 224]
+
+        limit = bound(n * moved, n * ops, "f32")
+        by_n[str(n)] = {"ms": ms, "us_per_image": ms * 1e3 / n,
+                        "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                        "library_ms": graph_ms(torch, interpolate,
+                                               EXACT_TIMING_ITERS // 10),
+                        "bytes": n * moved, "operations": n * ops, **limit,
+                        "share_of_bound": limit["bound_ms"] / ms,
+                        "tiles": len(batch.tiles), "smem": batch.smem}
+    chunk = by_n[str(EXACT_TIMING_BATCHES[-1])]
+    out_summary["color_resample"] = {
+        "max_abs_err": worst["color_resample"],
+        **{k: chunk[k] for k in ("ms", "wrapper_ms", "plain_ms",
+                                 "library_ms", "bytes", "operations",
+                                 "bound_ms", "bound_by")},
+        "shape": f"{EXACT_TIMING_BATCHES[-1]} x {data.width}x{data.height} "
+                 "4:2:0", "by_n": by_n}
     times = []
     for _ in range(20):
         t0 = time.perf_counter()
         decode_image(raw, 224, 0.875, "nvjpeg")
         times.append((time.perf_counter() - t0) * 1e3)
     out_summary["exact_idct"]["nvjpeg_ms"] = float(np.median(times))
-    for name in EXACT_KERNELS:
-        v = out_summary[name]
-        log(f"exact {name}: {v['ms'] * 1e3:.1f} us from a CUDA graph, "
-            f"{v['wrapper_ms'] * 1e3:.1f} us a call through its wrapper (plain "
-            f"{v['plain_ms'] * 1e3:.1f} us, bound {v['bound_ms'] * 1e3:.2f} "
-            f"us by {v['bound_by']}, {v['bytes']} B)"
-            + (f", library {v['library_ms'] * 1e3:.1f} us"
-               if v["library_ms"] else ""))
+    v = out_summary["exact_idct"]
+    log(f"exact exact_idct: {v['ms'] * 1e3:.2f} us from a CUDA graph, "
+        f"{v['wrapper_ms'] * 1e3:.1f} us a call through its wrapper (plain "
+        f"{v['plain_ms'] * 1e3:.1f} us, bound {v['bound_ms'] * 1e3:.3f} us "
+        f"by {v['bound_by']}, {v['bytes']} B)")
+    for n, v in by_n.items():
+        log(f"exact color_resample N = {n}: {v['ms'] * 1e3:.2f} us from a "
+            f"CUDA graph ({v['us_per_image']:.3f} us an image, "
+            f"{v['share_of_bound']:.1%} of the bound "
+            f"{v['bound_ms'] * 1e3:.3f} us by {v['bound_by']}); "
+            f"{v['wrapper_ms'] * 1e3:.1f} us through its wrapper; plain "
+            f"{v['plain_ms']:.2f} ms; F.interpolate "
+            f"{v['library_ms'] * 1e3:.1f} us; {v['tiles']} tiles of "
+            f"{v['smem']} B")
     return out_summary
 
 
 def exact_host_stages(torch, raw: bytes, path: str) -> dict:
     """Where an exact decode of the COCO-sized fixture spends its time on
     the host: the entropy decoding (``read_jpeg``) and the device stages
-    with their copies (``decode_on_device``), ms an image on one thread
-    (median of 50); the file's read and entropy decoding alone on 1, 4
-    and 8 threads, images/s."""
+    with their copies (``decode_on_device``; ``decode_batch`` of a chunk of
+    ``EXACT_CHUNK`` copies, ms an image), ms an image on one thread
+    (median of 50, of 10 for the chunk); the file's read and entropy
+    decoding alone on 1, 4 and 8 threads, images/s."""
     from dl_vqa_tpu_torch.data import image_formats
-    from dl_vqa_tpu_torch.ops.exact_decode import decode_on_device
+    from dl_vqa_tpu_torch.data.images import EXACT_CHUNK
+    from dl_vqa_tpu_torch.ops.exact_decode import (
+        decode_batch, decode_on_device, plan_of)
 
     device = torch.device("cuda", 0)
     data = image_formats.read_jpeg(raw)
+    plan = plan_of(data, 224, 0.875)
     decode_on_device(data, 224, 0.875, device)
-    stages = {"read_jpeg": lambda: image_formats.read_jpeg(raw),
-              "decode_on_device": lambda: decode_on_device(
-                  data, 224, 0.875, device)}
+    stages = {"read_jpeg": (lambda: image_formats.read_jpeg(raw), 50, 1),
+              "decode_on_device": (lambda: decode_on_device(
+                  data, 224, 0.875, device), 50, 1),
+              "decode_batch_chunk": (lambda: decode_batch(
+                  [data] * EXACT_CHUNK, [plan] * EXACT_CHUNK, device), 10,
+                  EXACT_CHUNK)}
     out = {}
-    for name, fn in stages.items():
+    for name, (fn, reps, images) in stages.items():
         times = []
-        for _ in range(50):
+        for _ in range(reps):
             t0 = time.perf_counter()
             fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            times.append((time.perf_counter() - t0) * 1e3 / images)
         out[f"{name}_ms"] = float(np.median(times))
     import concurrent.futures
 
@@ -7673,16 +7718,18 @@ def exact_serving(torch, seed: int, recurrence: int, fixtures: dict
 def exact_decode_phase(torch, seed: int, recurrence: int, card: str,
                        e2e: dict = None) -> tuple:
     """Phase 22: the exact decoder (``data/images.py``, ``"exact"``) on the
-    card. Kernels E, F and G on every committed fixture against their plain
-    versions to the bit; ``decode_image(..., "exact")`` of every fixture at
-    TOL["decode_exact"] from PIL's pixels; the ``backend="pil"`` store to
-    PIL's fp16 bits; the Python front answering a JPEG, a PNG and a BMP
-    (counted: :func:`exact_serving`); E, F and G timed alone on the
-    640x480 4:2:0 fixture; each decoder's images/s at 640x480 -> 224 by
+    card. Kernel E and ``color_resample`` on every committed fixture
+    against their plain versions to the bit (:func:`exact_kernel_checks`);
+    ``decode_image(..., "exact")`` of every fixture, and
+    ``decode_image_files`` of all twelve files as one chunk (one device
+    call), at TOL["decode_exact"] from PIL's pixels; the ``backend="pil"``
+    store to PIL's fp16 bits; the Python front answering a JPEG, a PNG and
+    a BMP (counted: :func:`exact_serving`); the kernels timed alone
+    (:func:`exact_timings`); each decoder's images/s at 640x480 -> 224 by
     threads. Returns ``(launches, numbers, kernel summaries)``."""
     import os
 
-    from dl_vqa_tpu_torch.data.images import decode_image
+    from dl_vqa_tpu_torch.data.images import decode_image, decode_image_files
     from dl_vqa_tpu_torch.ops import _host
     from dl_vqa_tpu_torch.tools.make_serving_fixtures import (
         FIXTURES, LOAD_FIXTURE)
@@ -7695,14 +7742,27 @@ def exact_decode_phase(torch, seed: int, recurrence: int, card: str,
     for name, (raw, want) in fixtures.items():
         got = decode_image(raw, 224, 0.875, "exact", 0)
         decoded[name] = int(np.abs(got.astype(np.int32) - want).max())
-    require(max(decoded.values()) <= TOL["decode_exact"],
-            f"the exact decode against PIL's pixels: {decoded}")
-    log(f"exact_decode: {len(fixtures)} fixtures, E F G equal to their "
-        f"plain versions ({worst}), the whole decode {decoded} levels from "
-        "PIL's pixels")
-    out = {"card": card, "kernel_max_abs_err": worst,
-           "decode_levels": decoded}
     root = os.path.join(os.path.abspath(E2E_DIR), EXACT_DIR)
+    files = os.path.join(root, "fixtures")
+    os.makedirs(files, exist_ok=True)
+    for name, (raw, _) in fixtures.items():
+        with open(os.path.join(files, name), "wb") as fd:
+            fd.write(raw)
+    chunk = decode_image_files([os.path.join(files, name)
+                                for name in fixtures], 224, 0.875, "exact",
+                               4, 0)
+    chunked = {name: int(np.abs(got.astype(np.int32) - want).max())
+               for got, (name, (_, want)) in zip(chunk, fixtures.items())}
+    require(max(decoded.values()) <= TOL["decode_exact"]
+            and max(chunked.values()) <= TOL["decode_exact"],
+            f"the exact decode against PIL's pixels: {decoded} one by one, "
+            f"{chunked} as one chunk")
+    log(f"exact_decode: {len(fixtures)} fixtures, E and color_resample "
+        f"equal to their plain versions ({worst}), the whole decode "
+        f"{decoded} levels from PIL's pixels one by one, {chunked} as one "
+        "chunk")
+    out = {"card": card, "kernel_max_abs_err": worst,
+           "decode_levels": decoded, "chunk_decode_levels": chunked}
     out["pil_store"] = exact_store(torch, root)
     log(f"exact_decode store: {json.dumps(out['pil_store'])}")
     launches, out["serving"] = exact_serving(torch, seed, recurrence,
@@ -7730,18 +7790,19 @@ def exact_decode_phase(torch, seed: int, recurrence: int, card: str,
 DECODER_TURNS = ("nvjpeg", "exact", "exact", "nvjpeg")
 COMPARE_LOAD = {8: 60, 64: 24}  # phase 11's levels past one client
 COMPARE_TRACE_PER_CLIENT = 8  # the traced level: 64 clients, 512 requests
-DECODE_KERNELS = ("exact_idct_kernel", "exact_color_kernel",
-                  "pil_resample_kernel")
+DECODE_KERNELS = ("exact_idct_kernel", "color_resample_kernel")
 
 
 @contextlib.contextmanager
 def decode_clock(clock: dict):
     """Wall seconds and calls of each stage of an image decode while the
     block runs, summed over threads, into ``clock[stage] = [s, calls]``:
-    the whole decode of an image (``data/images.py::_decode``, any
-    decoder), and the exact decoder's entropy decoding on the host
-    (``image_formats.read_jpeg``) and its device stages with their copies
-    (``exact_decode.decode_on_device``)."""
+    the whole decode of an image (``data/images.py::_decode``: any
+    decoder's one image, and nvJPEG's of a list; the exact decoder's list
+    decodes run by chunks), and the exact decoder's entropy decoding on
+    the host (``image_formats.read_jpeg``, an image) and its device stages
+    with their copies (``exact_decode.decode_batch``, an image or a
+    chunk)."""
     import threading
 
     from dl_vqa_tpu_torch.data import image_formats, images
@@ -7749,7 +7810,7 @@ def decode_clock(clock: dict):
 
     lock = threading.Lock()
     stages = [(images, "_decode"), (image_formats, "read_jpeg"),
-              (exact_decode, "decode_on_device")]
+              (exact_decode, "decode_batch")]
     saved = [getattr(module, name) for module, name in stages]
 
     def timed(name, fn):
@@ -8324,11 +8385,11 @@ def main(argv=None) -> int:
                               "dl_vqa_tpu/ops/conv_int8.py:76"),
         "conv_relu_pool_int8": ("conv_relu_pool_int8.cu",
                                 "dl_vqa_tpu/ops/conv_int8.py:95"),
-        # No TPU kernel behind the exact decoder's three: the JAX package
+        # No TPU kernel behind the exact decoder's two: the JAX package
         # decodes and resizes with PIL on the host.
         "exact_idct": ("exact_idct.cu", "dl_vqa_tpu/data/images.py:64"),
-        "exact_color": ("exact_color.cu", "dl_vqa_tpu/data/images.py:64"),
-        "pil_resample": ("pil_resample.cu", "dl_vqa_tpu/data/images.py:64"),
+        "color_resample": ("exact_color_resample.cu",
+                           "dl_vqa_tpu/data/images.py:64"),
     }
     # The tensor-core instruction of the fused-path kernels in bf16, and of
     # kernel D at the model's shapes in int8.

@@ -16,14 +16,16 @@ by the caller:
 * ``"exact"``: PIL's pixels to the bit, without PIL, for JPEG, PNG and
   BMP. The host reads the file (a JPEG's entropy-coded coefficients in
   ``csrc/host/jpeg_entropy.cc``; a PNG's or BMP's RGB in
-  :mod:`~dl_vqa_tpu_torch.data.image_formats`), then kernels E, F and G
-  (:mod:`dl_vqa_tpu_torch.ops.exact_decode`: libjpeg's inverse DCT, its
-  upsampling and colour conversion, PIL's resize at the crop) finish it on
-  the card given by ``device_index`` (one call an image, on a stream of
-  its own), or their plain versions on the host where ``device_index`` is
-  -1 (:func:`device_index_of` a CPU device). A list of files is decoded
-  on Python threads, each file's entropy decoding in C++ with the
-  interpreter lock released. Needs only ``g++``;
+  :mod:`~dl_vqa_tpu_torch.data.image_formats`), then kernel E and
+  ``color_resample`` (:mod:`dl_vqa_tpu_torch.ops.exact_decode`: libjpeg's
+  inverse DCT, then its upsampling and colour conversion and PIL's resize
+  at the crop) finish it on the card given by ``device_index`` (one call
+  on a stream of its own), or their plain versions on the host where
+  ``device_index`` is -1 (:func:`device_index_of` a CPU device). A list
+  of files is read and entropy-decoded on Python threads (in C++, the
+  interpreter lock released), and its device stages run a chunk of up to
+  ``EXACT_CHUNK`` images a call while the threads read the next chunk.
+  Needs only ``g++``;
 * ``"libjpeg"``: ``csrc/host/image_decode.cc`` on the host (RGB,
   greyscale, and CMYK as PIL converts it), within one uint8 level of PIL
   (the native resize's float taps); a list of files runs on a pool of
@@ -63,14 +65,20 @@ from dl_vqa_tpu_torch.utils.device import DEFAULT_DEVICE
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "normalize_uint8_chw",
            "coco_id_from_filename", "list_jpgs", "UnsupportedImage",
-           "DECODERS", "decoder_for", "decode_image", "decode_image_files",
-           "load_image_files", "device_index_of", "builder_decoder",
-           "preprocess_images"]
+           "DECODERS", "EXACT_CHUNK", "EXACT_CHUNK_BYTES", "decoder_for",
+           "decode_image", "decode_image_files", "load_image_files",
+           "device_index_of", "builder_decoder", "preprocess_images"]
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 DECODERS = ("exact", "libjpeg", "nvjpeg")
+# The exact decoder's images a device call in a list of files: a launch of
+# color_resample and one copy each way a chunk. A chunk whose inputs pass
+# EXACT_CHUNK_BYTES goes in several calls, so that a staging stays bounded
+# for images far larger than COCO's (64 of them take 59 MB).
+EXACT_CHUNK = 64
+EXACT_CHUNK_BYTES = 64 << 20
 _LIBRARY = {"libjpeg": "image", "nvjpeg": "nvjpeg"}  # each one's library
 
 
@@ -155,19 +163,12 @@ def _decode(raw: bytes, image_size: int, central_fraction: float,
     from dl_vqa_tpu_torch.ops import _host
 
     if decoder == "exact":
+        source, plan = _exact_source(raw, image_size, central_fraction,
+                                     what)
         try:
-            kind = sniff(raw)
-        except UnsupportedImage as exc:
-            raise UnsupportedImage(f"{what}: {exc}") from None
-        if kind != "jpeg":
-            return _finish_exact(image_formats.read_rgb(raw, kind, what),
-                                 image_size, central_fraction, device_index)
-        source = image_formats.read_jpeg(raw, what)
-        try:
-            return _finish_exact(source, image_size, central_fraction,
-                                 device_index)
+            return _exact_chunk([source], [plan], device_index)[0]
         finally:
-            source.close()
+            _close([source])
     if len(raw) < 3 or raw[0] != 0xFF or raw[1] != 0xD8:
         _raise_for(2, what, decoder)
     out = np.empty((image_size, image_size, 3), dtype=np.uint8)
@@ -183,19 +184,60 @@ def _decode(raw: bytes, image_size: int, central_fraction: float,
     return out
 
 
-def _finish_exact(source, image_size: int, central_fraction: float,
-                  device_index: int) -> np.ndarray:
-    """The exact decoder's device stages on card ``device_index``, or in
-    the plain versions on the host where it is -1
-    (:func:`dl_vqa_tpu_torch.ops.exact_decode.decode_on_device`)."""
+def _exact_source(raw: bytes, image_size: int, central_fraction: float,
+                  what: str) -> tuple:
+    """The exact decoder's host stage of an image: ``(source, plan)``, its
+    JPEG's coefficients (``image_formats.JpegData``) or its PNG's or BMP's
+    RGB8, and its resize plan; raises naming ``what``."""
+    from dl_vqa_tpu_torch.ops import exact_decode
+
+    try:
+        kind = sniff(raw)
+    except UnsupportedImage as exc:
+        raise UnsupportedImage(f"{what}: {exc}") from None
+    source = (image_formats.read_jpeg(raw, what) if kind == "jpeg"
+              else image_formats.read_rgb(raw, kind, what))
+    try:
+        return source, exact_decode.plan_of(source, image_size,
+                                            central_fraction)
+    except ValueError as exc:
+        _close([source])
+        raise ValueError(f"{what}: {exc}") from None
+
+
+def _exact_chunk(sources, plans, device_index: int) -> np.ndarray:
+    """The exact decoder's device stages of a chunk on card
+    ``device_index``, or in the plain versions on the host where it is -1
+    (:func:`dl_vqa_tpu_torch.ops.exact_decode.decode_batch`)."""
     import torch
 
     from dl_vqa_tpu_torch.ops import exact_decode
 
     device = (torch.device("cpu") if device_index < 0
               else torch.device("cuda", device_index))
-    return exact_decode.decode_on_device(source, image_size,
-                                         central_fraction, device)
+    return exact_decode.decode_batch(sources, plans, device)
+
+
+def _calls(done: list) -> List[list]:
+    """A chunk's ``(source, plan)`` pairs in consecutive device calls of at
+    most ``EXACT_CHUNK_BYTES`` of inputs (a JPEG's coefficients, a PNG's
+    or BMP's RGB8), an image at least."""
+    calls, size = [], EXACT_CHUNK_BYTES
+    for source, plan in done:
+        n = (sum(2 * 64 * bh * bw for bh, bw in source.shapes)
+             if isinstance(source, image_formats.JpegData) else source.nbytes)
+        if size + n > EXACT_CHUNK_BYTES:
+            calls.append([])
+            size = 0
+        calls[-1].append((source, plan))
+        size += n
+    return calls
+
+
+def _close(sources) -> None:
+    for source in sources:
+        if isinstance(source, image_formats.JpegData):
+            source.close()
 
 
 def _read(path: str) -> bytes:
@@ -212,11 +254,12 @@ def decode_image_files(paths: Sequence[str], image_size: int,
                        ) -> np.ndarray:
     """Image files -> uint8 ``[N, image_size, image_size, 3]`` in input
     order, decoded on ``num_threads`` threads (0: ``os.cpu_count()``):
-    libjpeg's in a C++ pool; the exact decoder's on Python threads, each
-    file read and entropy-decoded in C++ with the GIL released, then its
-    device stages; nvJPEG's as Python threads over its decoder slots.
-    Raises for the first file in input order that fails, naming it; no
-    file is replaced by anything else."""
+    libjpeg's in a C++ pool; the exact decoder's read and entropy-decoded
+    on Python threads (in C++, the GIL released), then its device stages a
+    chunk of ``EXACT_CHUNK`` files a call while the threads read the next
+    chunk; nvJPEG's as Python threads over its decoder slots. Raises for
+    the first file in input order that fails, naming it; no file is
+    replaced by anything else."""
     _check(image_size, central_fraction, decoder)
     paths = [os.fspath(p) for p in paths]
     threads = max(1, min(num_threads or (os.cpu_count() or 1),
@@ -238,6 +281,10 @@ def decode_image_files(paths: Sequence[str], image_size: int,
             first = int(np.flatnonzero(status)[0])
             _raise_for(int(status[first]), paths[first], decoder)
         return out
+    if decoder == "exact":
+        _exact_files(paths, image_size, central_fraction, threads,
+                     device_index, out)
+        return out
 
     def one(i: int) -> None:
         out[i] = _decode(_read(paths[i]), image_size, central_fraction,
@@ -251,6 +298,59 @@ def decode_image_files(paths: Sequence[str], image_size: int,
         # list() raises the first failure in input order.
         list(pool.map(one, range(len(paths))))
     return out
+
+
+def _exact_files(paths: List[str], image_size: int, central_fraction: float,
+                 threads: int, device_index: int, out: np.ndarray) -> None:
+    """The exact decoder over ``paths`` into ``out``: ``threads`` threads
+    read and entropy-decode the files of chunk k + 1 while chunk k's
+    device stages run (two chunks' sources held at a time); raises for the
+    first file in input order that fails, after closing every source
+    read."""
+    chunks = [range(i, min(i + EXACT_CHUNK, len(paths)))
+              for i in range(0, len(paths), EXACT_CHUNK)]
+
+    def read(i: int) -> tuple:
+        return _exact_source(_read(paths[i]), image_size, central_fraction,
+                             paths[i])
+
+    def settle(futures) -> list:
+        """The futures' results in order; raises the first failure after
+        closing every source that was read."""
+        done, failure = [], None
+        for future in futures:
+            try:
+                done.append(future.result())
+            except Exception as exc:
+                failure = failure or exc
+        if failure is not None:
+            _close(source for source, _ in done)
+            raise failure
+        return done
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        pending = [pool.submit(read, i) for i in chunks[0]]
+        try:
+            for k, chunk in enumerate(chunks):
+                done = settle(pending)
+                pending = ([pool.submit(read, i) for i in chunks[k + 1]]
+                           if k + 1 < len(chunks) else [])
+                try:
+                    at = chunk.start
+                    for call in _calls(done):
+                        out[at:at + len(call)] = _exact_chunk(
+                            [source for source, _ in call],
+                            [plan for _, plan in call], device_index)
+                        at += len(call)
+                finally:
+                    _close(source for source, _ in done)
+        except BaseException:
+            for future in pending:
+                future.cancel()
+            concurrent.futures.wait(pending)
+            _close(future.result()[0] for future in pending
+                   if not future.cancelled() and future.exception() is None)
+            raise
 
 
 def load_image_files(paths: Sequence[str], image_size: int,

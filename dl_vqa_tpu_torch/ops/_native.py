@@ -133,15 +133,14 @@ _SIGNATURES = {
     # Kernel E: four coefficient arrays, four int16 tables, four planes
     # (null beyond ncomp), four blocks_w, four blocks_h, ncomp, stream
     "vqa_exact_idct": [_P] * 12 + [_I] * 9 + [_P],
-    # Kernel F: four planes, then four each of pitch, real width, real
-    # height, expansion across, down, method; ncomp, colour space, width,
-    # height, out, stream
-    "vqa_exact_color": [_P] * 4 + [_I] * 28 + [_P, _P],
-    # Kernel G: rgb, in_w, in_h, int32 taps, kx, ky, size, out, stream
-    "vqa_pil_resample": [_P, _I, _I, _P, _I, _I, _I, _P, _P],
-    # The exact decoder's device stages, E, F and G through their entries:
-    # int64 descriptor (csrc/exact_pipeline.cu), stream
-    "vqa_exact_decode": [_P, _P],
+    # Kernels F and G as one (color_resample): int64 image descriptors and
+    # int32 tile plan on the card (ops/exact_decode.py::tile_plan), tiles,
+    # shared bytes, stream
+    "vqa_color_resample": [_P, _P, _I, _I, _P],
+    # The exact decoder's device stages for a chunk, E and color_resample
+    # through their entries: int64 descriptor (csrc/exact_pipeline.cu),
+    # stream
+    "vqa_exact_decode_batch": [_P, _P],
 }
 
 _lock = threading.Lock()

@@ -86,3 +86,41 @@ def timed(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def color_resample_work(plan, components) -> tuple:
+    """``(bytes, integer operations)`` of ``color_resample``'s function on
+    one image, whatever implements it: each component's samples that the
+    input rectangle of the crop's taps reaches (``pixel // expansion``, one
+    sample of halo each side, clamped; an RGB8 source's rectangle where
+    ``components`` is None), the taps and the output; the colour, 40
+    operations a pixel of the rectangle (two upsampled chroma samples and
+    the conversion), and Pillow's two passes as the function needs them, 3
+    channels each: the horizontal pass once for each input row the
+    vertical taps read (a multiply-add a tap, then the rounding and clip
+    of each output column), then the vertical pass (a multiply-add a tap
+    and the rounding and clip of each output pixel)."""
+    size = plan.size
+    xt = plan.taps[:size * (2 + plan.kx)].reshape(size, -1)
+    yt = plan.taps[size * (2 + plan.kx):].reshape(size, -1)
+
+    def span(t):
+        return int((t[:, 0] + t[:, 1]).max() - t[:, 0].min())
+
+    def extent(t, expand, real):
+        lo = max(int(t[:, 0].min()) // expand - 1, 0)
+        hi = min((int((t[:, 0] + t[:, 1]).max()) - 1) // expand + 1,
+                 real - 1)
+        return hi - lo + 1
+
+    if components is None:
+        samples = 3 * span(xt) * span(yt)
+    else:
+        samples = sum(extent(xt, c.max_h // c.h, c.width)
+                      * extent(yt, c.max_v // c.v, c.height)
+                      for c in components)
+    moved = samples + plan.taps.nbytes + size * size * 3
+    ops = (40 * span(xt) * span(yt)
+           + 3 * (span(yt) * (2 * int(xt[:, 1].sum()) + 3 * size)
+                  + size * (2 * int(yt[:, 1].sum()) + 3 * size)))
+    return moved, ops

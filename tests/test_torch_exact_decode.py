@@ -355,8 +355,9 @@ def test_a_list_of_files_names_the_first_that_fails(tmp_path):
 
 def test_the_wrappers_take_the_plain_version_only_for_cpu_tensors():
     """A decode on the CPU is the plain versions, one after the other;
-    each ``*_cuda`` wrapper refuses a CPU tensor, and neither they nor the
-    card's one-call decode count anything."""
+    each ``*_cuda`` wrapper (``color_resample``'s through the batch it
+    takes) refuses a CPU tensor, and neither they nor the card's one-call
+    decode count anything."""
     raw, _ = write_jpeg(_planes(16, 16, 3, 4), FACTORS["422"], _quant(4))
     d = image_formats.read_jpeg(raw)
     coefs = [torch.from_numpy(c) for c in d.coefficients]
@@ -367,8 +368,7 @@ def test_the_wrappers_take_the_plain_version_only_for_cpu_tensors():
                                                 d.color_space, 16, 16)
     plan = exact_decode.resample_plan(16, 16, 8, 0.5)
     counts = (exact_decode.exact_idct_cuda.launches,
-              exact_decode.exact_color_cuda.launches,
-              exact_decode.pil_resample_cuda.launches,
+              exact_decode.color_resample_cuda.launches,
               dict(exact_decode.exact_decode_cuda.launches))
     got = exact_decode.decode_on_device(d, 8, 0.5, torch.device("cpu"))
     np.testing.assert_array_equal(
@@ -376,13 +376,12 @@ def test_the_wrappers_take_the_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         exact_decode.exact_idct_cuda(coefs, tables)
     with pytest.raises(ValueError, match="CUDA"):
-        exact_decode.exact_color_cuda(planes, d.components, d.color_space,
-                                      16, 16)
+        exact_decode.color_resample_batch([exact_decode.Planes(
+            planes, d.components, d.color_space, 16, 16)], [plan])
     with pytest.raises(ValueError, match="CUDA"):
-        exact_decode.pil_resample_cuda(rgb, plan)
+        exact_decode.color_resample_batch([rgb], [plan])
     assert counts == (exact_decode.exact_idct_cuda.launches,
-                      exact_decode.exact_color_cuda.launches,
-                      exact_decode.pil_resample_cuda.launches,
+                      exact_decode.color_resample_cuda.launches,
                       exact_decode.exact_decode_cuda.launches)
 
 
